@@ -1,0 +1,102 @@
+"""Weight bridge from the JAX package's parameter trees, and the port's own
+seeded random weights.
+
+The JAX parameters arrive as nested dicts of numpy arrays (bf16 leaves as
+numpy's extended ``bfloat16`` dtype), so the port never imports JAX:
+
+- the DiT tree keeps the JAX layout: scanned ``blocks`` stacks
+  ``[depth, ...]``, Dense kernels ``[in, out]``, int8_static leaves
+  ``kernel_q`` ``[K, N]`` / ``kernel_scale`` ``[1, N]`` / ``bias``.
+  :class:`models.dit.DiT` takes it as it is;
+- the DAC decoder dict ``{"w": [K, Cin, Cout], "b", "alpha"}`` is permuted
+  to PyTorch's conv layouts: ``[Cout, Cin, K]`` for a convolution,
+  ``[Cin, Cout, K]`` for the transposed convolutions (the ``up`` layers).
+
+:func:`random_dense_params` makes a dense DiT tree from a seed, for runs on
+a machine without JAX: the JAX init zeroes ``adaln`` and ``final_proj``
+(AdaLN-Zero), which would make the DiT the identity and every comparison
+vacuous, so here they get std 0.02.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def as_tensor(a) -> torch.Tensor:
+    """A numpy array (bf16 included) or tensor as a tensor."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def tree_to_torch(tree: dict, device="cpu") -> dict:
+    """Nested dict of arrays -> nested dict of tensors on ``device``."""
+    return {k: tree_to_torch(v, device) if isinstance(v, dict)
+            else as_tensor(v).to(device) for k, v in tree.items()}
+
+
+def dac_decoder_from_jax(dec: dict, device="cpu") -> dict:
+    """The JAX DAC decoder dict -> the same dict with PyTorch conv layouts."""
+    out = {}
+    for k, v in dec.items():
+        if isinstance(v, dict) and "w" in v:
+            w = as_tensor(v["w"]).float()
+            w = w.permute(1, 2, 0) if k == "up" else w.permute(2, 1, 0)
+            out[k] = {"w": w.contiguous().to(device),
+                      "b": as_tensor(v["b"]).float().to(device)}
+        elif isinstance(v, dict):
+            out[k] = dac_decoder_from_jax(v, device)
+        else:
+            out[k] = as_tensor(v).float().to(device)
+    return out
+
+
+def random_dense_params(cfg, seed: int = 0) -> dict:
+    """A dense DiT param tree (the layout of ``matmul_precision="bf16"``,
+    separate q/k/v) as fp32 numpy, from ``seed``.
+
+    Projections are normal with std ``1/sqrt(fan_in)``; biases, ``adaln``
+    and ``final_proj`` normal with std 0.02.  Feed it to
+    ``ops.quant.quantize_params_static`` for the int8_static tree.
+    """
+    rng = np.random.default_rng(seed)
+    H, D, P, C = cfg.hidden_size, cfg.depth, cfg.patch_len, cfg.input_channels
+    hd, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
+    mlp = int(H * cfg.mlp_ratio)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def dense(fan_in, fan_out, stack=(), bias=True, std=None):
+        leaf = {"kernel": normal(stack + (fan_in, fan_out),
+                                 std or fan_in ** -0.5)}
+        if bias:
+            leaf["bias"] = normal(stack + (fan_out,), 0.02)
+        return leaf
+
+    st = (D,)
+    ab = cfg.attention_bias
+    return {
+        "patch_in": dense(P * 2 * C, cfg.bottleneck_dim),
+        "patch_out": dense(cfg.bottleneck_dim, H),
+        "t_mlp1": dense(H, H),
+        "t_mlp2": dense(H, H),
+        "blocks": {
+            "adaln": dense(H, 6 * H, st, std=0.02),
+            "attn": {
+                "q_proj": dense(H, hq * hd, st, bias=ab),
+                "k_proj": dense(H, hkv * hd, st, bias=ab),
+                "v_proj": dense(H, hkv * hd, st, bias=ab),
+                "out_proj": dense(hq * hd, H, st, bias=ab),
+            },
+            "mlp_in": dense(H, mlp, st),
+            "mlp_out": dense(mlp, H, st),
+        },
+        "final_proj": dense(H, P * C, std=0.02),
+    }

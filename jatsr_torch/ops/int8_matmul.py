@@ -1,0 +1,148 @@
+"""W8A8 dense + GELU + requantize: the serving MLP's first half.
+
+Port of ``int8_dense_gelu_quant`` (JAX package, ``ops/int8_matmul.py``).
+The wrapper dispatches on the tensor's device: a CPU tensor takes the plain
+PyTorch version below, a CUDA tensor launches the hand-written kernel in
+``csrc/dense_gelu_quant.cu`` or raises.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+# Multiply by the f32 reciprocal of 127 (never divide by 127): the JAX
+# package's quantisers all scale this way, so the scales are bit-identical.
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+GELU_IMPLS = ("tanh", "erf", "sigmoid")
+
+
+def quantize_rows(x: torch.Tensor, eps: float = 1e-12):
+    """Symmetric per-row absmax int8 quantisation of ``x [M, K]``.
+
+    Returns ``(x_q int8 [M, K], scale fp32 [M, 1])``; the scale is the
+    unfloored ``max|x| * _INV127``, the divide uses the floored one.
+    """
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) * _INV127
+    x_q = torch.round(xf / scale.clamp_min(eps)).to(torch.int8)
+    return x_q, scale
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """erf via Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), the form
+    the TPU kernel uses."""
+    sign = torch.sign(x)
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return sign * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _gelu(y: torch.Tensor, impl: str = "tanh") -> torch.Tensor:
+    """In-kernel GELU forms (``ModelConfig.gelu_impl``), fp32."""
+    if impl == "erf":
+        return 0.5 * y * (1.0 + _erf(y * (1.0 / math.sqrt(2.0))))
+    if impl == "sigmoid":
+        return y * torch.sigmoid(1.702 * y)
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * y * (1.0 + torch.tanh(c * (y + 0.044715 * y * y * y)))
+
+
+def int8_mm(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact ``int8 [M, K] @ int8 [K, N] -> int32 [M, N]``.
+
+    A plain product outside any kernel (the JAX package leaves it to XLA),
+    so it goes to ``torch._int_mm``, which accumulates in int32 on both the
+    CPU and the card.  That op wants more than 16 rows: M is padded.
+    """
+    M = a_q.shape[0]
+    if M <= 16:
+        a_q = torch.cat([a_q, a_q.new_zeros(17 - M, a_q.shape[1])])
+    return torch._int_mm(a_q.contiguous(), w_q.contiguous())[:M]
+
+
+def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
+                           fast_epilogue=True):
+    """Plain PyTorch version of the kernel, with its rounding points."""
+    a_q, s = quantize_rows(a)
+    s = s.clamp_min(1e-12)
+    acc = int8_mm(a_q, w_q).float()
+    y = acc * s * w_scale.reshape(1, -1) + bias.reshape(1, -1).float()
+    if not fast_epilogue:
+        y = y.bfloat16().float()
+        g = _gelu(y, gelu_impl).bfloat16().float()
+    else:
+        g = _gelu(y, gelu_impl)
+    gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    return torch.round(g / gs).to(torch.int8), gs
+
+
+def _check(a, w_q, w_scale, bias):
+    M, K = a.shape
+    K2, N = w_q.shape
+    if K != K2 or K % 64 or N % 128:
+        raise ValueError(f"dense_gelu_quant: shapes {tuple(a.shape)} x "
+                         f"{tuple(w_q.shape)} need K % 64 == 0, N % 128 == 0")
+    if w_q.dtype != torch.int8 or w_scale.numel() != N or bias.numel() != N:
+        raise ValueError("dense_gelu_quant: w_q int8 [K, N], w_scale and "
+                         "bias [1, N]")
+    return M, K, N
+
+
+def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
+                          fast_epilogue=True):
+    """Fused ``quantize(gelu(dequant(a @ w_q) + b))``.
+
+    Args:
+        a: [M, K] bf16 activations (unquantised).
+        w_q: [K, N] int8 kernel; w_scale: [1, N] fp32; bias: [1, N].
+    Returns:
+        (int8 [M, N], fp32 row scales [M, 1]).
+    """
+    if gelu_impl not in GELU_IMPLS:
+        raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
+    M, K, N = _check(a, w_q, w_scale, bias)
+    if a.device.type == "cpu":
+        return dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl,
+                                      fast_epilogue)
+    return _launch(a, w_q, w_scale, bias, M, K, N, gelu_impl, fast_epilogue)
+
+
+int8_dense_gelu_quant.launches = 0
+
+
+def _launch(a, w_q, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
+    from . import _build
+
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"dense_gelu_quant kernel takes bf16, got {a.dtype}")
+    lib = _build.load("dense_gelu_quant")
+    fn = lib.dense_gelu_quant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    dev = a.device
+    a = _build.aligned(a)
+    w_q = _build.aligned(w_q)
+    ws = w_scale.reshape(N).float().contiguous()
+    b = bias.reshape(N).float().contiguous()
+    a_q = torch.empty((M, K), dtype=torch.int8, device=dev)
+    s = torch.empty((M,), dtype=torch.float32, device=dev)
+    g = torch.empty((M, N), dtype=torch.float32, device=dev)
+    rowmax = torch.empty((M,), dtype=torch.int32, device=dev)
+    g_q = torch.empty((M, N), dtype=torch.int8, device=dev)
+    g_s = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    err = fn(a.data_ptr(), w_q.data_ptr(), ws.data_ptr(), b.data_ptr(),
+             a_q.data_ptr(), s.data_ptr(), g.data_ptr(), rowmax.data_ptr(),
+             g_q.data_ptr(), g_s.data_ptr(), M, K, N,
+             GELU_IMPLS.index(gelu_impl), int(bool(fast_epilogue)),
+             _build.stream_ptr(dev))
+    _build.check(lib, err, "dense_gelu_quant")
+    int8_dense_gelu_quant.launches += 1
+    return g_q, g_s

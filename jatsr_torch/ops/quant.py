@@ -1,0 +1,106 @@
+"""Dynamic W8A8 products and static int8 weights for serving.
+
+Port of the JAX package's ``ops/quant.py`` on its ``impl="xla"`` path: the
+activation is quantised per row, the weight per output column (once, at
+load time, by :func:`quantize_params_static`), the product accumulates
+exactly in int32 and the rescale is fp32.  The int32 product is a plain
+product outside any kernel, so it goes to ``torch._int_mm``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .int8_matmul import _INV127, int8_mm
+
+
+def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor,
+             w_scale: torch.Tensor) -> torch.Tensor:
+    """``lhs [..., K] @ (w_q * w_scale) -> [..., N]`` in lhs's dtype.
+
+    The absmax is taken on lhs's own dtype (bf16 -> fp32 is exact), the
+    divide uses the scale floored at 1e-12, the rescale the unfloored one:
+    ``(acc * a_scale) * w_scale``.
+    """
+    K, N = w_q.shape
+    lead = lhs.shape[:-1]
+    a_scale = lhs.abs().amax(dim=-1, keepdim=True).float() * _INV127
+    a_q = torch.round(lhs.float() / a_scale.clamp_min(1e-12)).to(torch.int8)
+    acc = int8_mm(a_q.reshape(-1, K), w_q).float().reshape(*lead, N)
+    return (acc * a_scale * w_scale.reshape(N)).to(lhs.dtype)
+
+
+class QuantDense(nn.Module):
+    """Serving Dense with an int8 ``[K, N]`` kernel and fp32 ``[1, N]``
+    per-column scales; bf16 in and out, the optional bias added in bf16."""
+
+    def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+                 bias: torch.Tensor | None = None):
+        super().__init__()
+        self.register_buffer("kernel_q", kernel_q.to(torch.int8))
+        self.register_buffer("kernel_scale",
+                             kernel_scale.float().reshape(1, -1))
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = w8a8_dot(x.to(torch.bfloat16), self.kernel_q, self.kernel_scale)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out
+
+
+# Projections the int8_static serving DiT stores as int8 kernels.
+_QUANTIZED = ("patch_in", "patch_out", "qkv_proj", "out_proj", "mlp_in",
+              "mlp_out")
+
+
+def round_to_bf16(x: np.ndarray) -> np.ndarray:
+    """Round fp32 values to the nearest bf16 (ties to even), as fp32."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).float().numpy()
+
+
+def _quantize_leaf(src: dict) -> dict:
+    """``{kernel[, bias]}`` -> ``{kernel_q, kernel_scale[, bias]}``:
+    per-output-column absmax int8 of ``[..., K, N]`` after the bf16 round
+    the dynamic path's compute-dtype promotion applies."""
+    w = round_to_bf16(np.asarray(src["kernel"], np.float32))
+    s = np.abs(w).max(axis=-2, keepdims=True) * np.float32(_INV127)
+    q = np.round(w / np.maximum(s, np.float32(1e-12))).astype(np.int8)
+    leaf = {"kernel_q": q, "kernel_scale": s.astype(np.float32)}
+    if "bias" in src:
+        leaf["bias"] = src["bias"]
+    return leaf
+
+
+def quantize_params_static(params: dict) -> dict:
+    """Convert a dense (bf16/fp32) DiT param tree, as nested dicts of numpy
+    arrays, to the int8_static serving layout.
+
+    The q/k/v projections are concatenated on the feature axis into
+    ``qkv_proj`` first (per-column scales keep that identical to three
+    separate products); every projection in ``_QUANTIZED`` then becomes
+    ``{kernel_q, kernel_scale[, bias]}``.  Stacked ``[depth, K, N]`` kernels
+    are fine.  Everything else is passed through unchanged.
+    """
+    out = {}
+    for k, v in params.items():
+        if k == "q_proj":
+            parts = [params[n] for n in ("q_proj", "k_proj", "v_proj")]
+            merged = {"kernel": np.concatenate(
+                [np.asarray(p["kernel"], np.float32) for p in parts], axis=-1)}
+            if "bias" in parts[0]:
+                merged["bias"] = np.concatenate(
+                    [np.asarray(p["bias"]) for p in parts], axis=-1)
+            out["qkv_proj"] = _quantize_leaf(merged)
+        elif k in ("k_proj", "v_proj"):
+            continue
+        elif k in _QUANTIZED and isinstance(v, dict) and "kernel" in v:
+            out[k] = _quantize_leaf(v)
+        elif isinstance(v, dict):
+            out[k] = quantize_params_static(v)
+        else:
+            out[k] = v
+    return out

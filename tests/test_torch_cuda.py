@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
+has no CPU mode.  This file imports neither JAX nor the JAX package, so it
+runs on a machine without them, without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances are those of ``chip_smoke.py``: attention atol = rtol = 2e-2
+(bf16 output; the kernel's fp32 sums run in another order); dense+GELU
+codes equal but for at most 0.5% of entries, which differ by exactly 1
+(tanhf / expf differ from PyTorch's in the last fp32 bit), scales within
+rtol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jatsr_torch.models.dit import rope_cos_sin
+from jatsr_torch.ops.attention import flash_qkv_plain, gqa_attention_flash_qkv
+from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
+                                         int8_dense_gelu_quant)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n_valid", [0, 300])
+def test_flash_qkv_kernel_matches_plain(card, n_valid):
+    gen = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn((6, 345, 1792), generator=gen, device=card).bfloat16()
+    cos, sin = rope_cos_sin(345, 64, device=card)
+    n0 = gqa_attention_flash_qkv.launches
+    got = gqa_attention_flash_qkv(qkv, cos, sin, 20, 4, n_valid=n_valid)
+    assert gqa_attention_flash_qkv.launches == n0 + 1
+    want = flash_qkv_plain(qkv, cos, sin, 20, 4, n_valid=n_valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_qkv_kernel_small_odd_shape(card):
+    gen = torch.Generator(device=card).manual_seed(2)
+    qkv = torch.randn((2, 90, 12 * 64), generator=gen, device=card).bfloat16()
+    cos, sin = rope_cos_sin(90, 64, device=card)
+    got = gqa_attention_flash_qkv(qkv, cos, sin, 8, 2)
+    want = flash_qkv_plain(qkv, cos, sin, 8, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _dense_inputs(card, M, K, N, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    a = torch.randn((M, K), generator=gen, device=card).bfloat16()
+    w_q = torch.randint(-127, 128, (K, N), generator=gen, device=card,
+                        dtype=torch.int8)
+    w_s = torch.rand((1, N), generator=gen, device=card) \
+        .add_(0.5).div_(127 * K ** 0.5)
+    b = 0.1 * torch.randn((1, N), generator=gen, device=card)
+    return a, w_q, w_s, b
+
+
+def _assert_codes(got, want):
+    diff = (got[0].int() - want[0].int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff != 0).float().mean().item() <= 0.005
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(2070, 1280, 5120), (2070, 8192, 512)])
+def test_dense_gelu_quant_kernel_matches_plain(card, M, K, N):
+    args = _dense_inputs(card, M, K, N, seed=3)
+    n0 = int8_dense_gelu_quant.launches
+    got = int8_dense_gelu_quant(*args)
+    assert int8_dense_gelu_quant.launches == n0 + 1
+    _assert_codes(got, dense_gelu_quant_plain(*args))
+
+
+@pytest.mark.parametrize("gelu_impl", ["tanh", "erf", "sigmoid"])
+@pytest.mark.parametrize("fast_epilogue", [True, False])
+def test_dense_gelu_quant_kernel_epilogues(card, gelu_impl, fast_epilogue):
+    args = _dense_inputs(card, 100, 256, 512, seed=4)
+    got = int8_dense_gelu_quant(*args, gelu_impl=gelu_impl,
+                                fast_epilogue=fast_epilogue)
+    _assert_codes(got, dense_gelu_quant_plain(*args, gelu_impl=gelu_impl,
+                                              fast_epilogue=fast_epilogue))
+
+
+def test_narrow_dit_on_card_matches_cpu(card):
+    """A narrow int8 DiT (head dim 64, as the kernel needs) on the card
+    against the same weights on the CPU's plain path."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
+        fused_mlp=True, attention_impl="flash")
+    static = quantize_params_static(random_dense_params(cfg, 5))
+    rng = np.random.default_rng(6)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    ref = DiT(cfg, static, device="cpu")(x_t, t, x_c)
+    out = DiT(cfg, static, device="cuda")(x_t.cuda(), t.cuda(),
+                                          x_c.cuda()).cpu()
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2

@@ -1,0 +1,110 @@
+"""The port's int8 serving DiT against the JAX ``DiT.apply``.
+
+A narrow config (hidden 128, depth 2, 4/2 heads, bottleneck 128, T=130 so
+the patch count pads) on the serving branch: int8_static, fused QKV, flash
+QKV attention, "half" fused MLP, fused patch embed, no prologue.  The JAX
+kernels run in interpret mode.
+
+Tolerances.  Every int8 product is exact on both sides, but each dynamic
+activation quantisation can flip a code by one where a bf16 value below
+it differs by one ulp between the frameworks (exp2, rsqrt, tanh and
+summation order differ in the last fp32 bit).  One flipped code moves its
+dot by 1/127 of that element's scale, so the outputs agree to a few bf16
+ulps: max error 1.6e-2 (4 ulps of a bf16 in [0.5, 1)) and mean error
+1.5e-3, on outputs of mean magnitude ~0.19 (measured: 7.8e-3 and 5.4e-4).
+The AdaLN tables are one bf16 product and one bf16 add from the same fp32
+time embedding: within 2 bf16 ulps (rtol 1e-2, atol 1e-3).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jatsr_tpu.models.dit import adaln_tables as jax_adaln_tables
+from jatsr_torch.models.dit import adaln_tables
+from jatsr_torch.ops.quant import quantize_params_static
+from jatsr_torch.configs import get_preset
+from jatsr_torch.models.from_jax import random_dense_params
+
+from torch_parity import C, build_pair, narrow_cfg, to_numpy_tree
+
+
+def _inputs(seed, B=2, T=130):
+    rng = np.random.default_rng(seed)
+    x_t = rng.standard_normal((B, T, C), dtype=np.float32)
+    x_c = rng.standard_normal((B, T, C), dtype=np.float32)
+    t = rng.uniform(0.0, 1.0, (B,)).astype(np.float32)
+    return x_t, t, x_c
+
+
+def _assert_close(got, want):
+    err = np.abs(got - want)
+    assert err.max() <= 1.6e-2, err.max()
+    assert err.mean() <= 1.5e-3, err.mean()
+
+
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_dit_forward_matches_jax(norm):
+    jmodel, jparams, tmodel, _ = build_pair(norm)
+    x_t, t, x_c = _inputs(seed=1)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert got.dtype == torch.float32 and got.shape == x_t.shape
+    assert np.abs(np.asarray(want)).mean() > 0.05  # not the identity / zero
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_dit_hoisted_adaln_matches_jax(norm):
+    """The serving call: AdaLN tables hoisted per step, shared over batch."""
+    jmodel, jparams, tmodel, _ = build_pair(norm, seed=2)
+    x_t, _, x_c = _inputs(seed=3)
+    t1 = np.array([0.375], np.float32)
+    jt = jax_adaln_tables(jmodel.cfg, jparams, jnp.asarray(t1))
+    tt = adaln_tables(tmodel, torch.from_numpy(t1))
+    assert tt.shape == (2, 1, 6 * 128) and tt.dtype == torch.bfloat16
+    np.testing.assert_allclose(tt.float().numpy(), np.asarray(jt, np.float32),
+                               rtol=1e-2, atol=1e-3)
+    t = np.full((2,), 0.375, np.float32)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c), adaln_mod=jt)
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c), adaln_mod=tt)
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+def test_quantize_params_static_matches_jax():
+    """The numpy quantizer gives the JAX tree bit for bit (fused qkv)."""
+    _, jparams, _, dense = build_pair("layer", seed=4)
+    ours = quantize_params_static(dense)
+    theirs = to_numpy_tree(jparams)
+
+    def walk(a, b, path=""):
+        assert set(a) == set(b), (path, sorted(a), sorted(b))
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{path}/{k}")
+            else:
+                np.testing.assert_array_equal(
+                    np.asarray(a[k], np.float32), np.asarray(b[k], np.float32),
+                    err_msg=f"{path}/{k}")
+    walk(ours, theirs)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("fused_prologue", True), ("align_n", True), ("attention_impl", "xla"),
+    ("fused_mlp_impl", "full"), ("int8_impl", "pallas"),
+    ("matmul_precision", "bf16"), ("flash_fused_out", True),
+])
+def test_dit_raises_outside_the_slice(knob, value):
+    import dataclasses
+
+    from jatsr_torch.models.dit import DiT
+
+    cfg = dataclasses.replace(narrow_cfg(get_preset), **{knob: value})
+    static = quantize_params_static(random_dense_params(cfg))
+    with pytest.raises(NotImplementedError, match=knob):
+        DiT(cfg, static, device="cpu")

@@ -1,0 +1,113 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+config presets equal the JAX package's, and without CUDA its entry points
+refuse to run unless asked for the CPU."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "jatsr_torch"
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jatsr_tpu', 'flax'))]\n"
+            "assert not bad, bad\n"
+            "print(len(" + repr(_port_modules()) + "))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 14
+
+
+def test_port_sources_never_name_the_jax_package():
+    files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
+        ROOT / "chip_smoke.py"]
+    for f in files:
+        assert "jatsr_tpu" not in f.read_text(), f
+
+
+def test_presets_equal_the_jax_presets():
+    from jatsr_tpu.configs import config as jax_config
+    from jatsr_torch.configs import config
+
+    assert config.list_presets() == jax_config.list_presets()
+    for name in config.list_presets():
+        assert dataclasses.asdict(config.get_preset(name)) == \
+            dataclasses.asdict(jax_config.get_preset(name)), name
+    assert dataclasses.asdict(config.SamplerConfig()) == \
+        dataclasses.asdict(jax_config.SamplerConfig())
+
+
+def _tiny_static():
+    from torch_parity import narrow_cfg
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = narrow_cfg(get_preset)
+    return cfg, quantize_params_static(random_dense_params(cfg))
+
+
+def _entry_points():
+    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.models.dac import DAC, DACConfig
+    from jatsr_torch.models.dac.model import init_decoder_params
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.sampling import FlowSampler
+    from jatsr_torch.train.step import Normalizer
+
+    small = DACConfig(encoder_dim=256, encoder_rates=(2, 4), decoder_dim=16,
+                      decoder_rates=(4, 2))
+    ones = np.ones(4, np.float32)
+    return {
+        "DiT": lambda: DiT(*_tiny_static()),
+        "DAC": lambda: DAC(init_decoder_params(small), small),
+        "DAC.random_init": lambda: DAC.random_init(0, small),
+        "Normalizer": lambda: Normalizer(ones, ones, ones, ones),
+        "FlowSampler": lambda: FlowSampler(lambda *a: None, SamplerConfig()),
+        "InferencePipeline": lambda: InferencePipeline(None, None),
+    }
+
+
+@pytest.mark.parametrize("name", ["DiT", "DAC", "DAC.random_init",
+                                  "Normalizer", "FlowSampler",
+                                  "InferencePipeline"])
+def test_entry_points_refuse_to_run_on_cpu_by_default(name):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_kernel_wrappers_run_the_plain_version_only_on_cpu_tensors():
+    """A CPU tensor takes the plain version and counts no launch."""
+    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.int8_matmul import int8_dense_gelu_quant
+
+    n0 = (gqa_attention_flash_qkv.launches, int8_dense_gelu_quant.launches)
+    qkv = torch.zeros(1, 8, 6 * 64, dtype=torch.bfloat16)
+    cs = torch.ones(8, 64)
+    gqa_attention_flash_qkv(qkv, cs, cs, 2, 2)
+    int8_dense_gelu_quant(torch.ones(20, 64, dtype=torch.bfloat16),
+                          torch.ones(64, 128, dtype=torch.int8),
+                          torch.ones(1, 128), torch.zeros(1, 128))
+    assert (gqa_attention_flash_qkv.launches,
+            int8_dense_gelu_quant.launches) == n0
