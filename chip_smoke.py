@@ -4,17 +4,28 @@
     python3 chip_smoke.py [--profile]
 
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
-against its plain PyTorch version at the serving path's own shapes (and
+against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's serving path once at full width: the v3 766 M int8
-DiT (random weights from a seed, quantized by the port) through the Euler
-CFG sampler over ~44 s of latent, then the segmented fp32 DAC decode.  It
-checks the launch counts of that run, the waveform, and the full-width DiT
+then drives the port's two DiT serving paths at full width, each once with
+its launches counted and then timed: the v3 766 M int8 DiT (random weights
+from a seed, quantized by the port) through the Euler CFG sampler over
+~44 s of latent, then the segmented fp32 DAC decode.
+
+- The main path is ``bench.py``'s default DiT: the fused prologue with
+  ``align_n`` (352 patches per chunk, keys masked past 345).  Each block
+  runs norm_mod_dot (qkv), flash_qkv, matmul_fused (out_proj) and
+  norm_mod_dense_gelu_quant (mlp_in); the patch embed runs
+  dense_gelu_quant.
+- The path without the prologue (``bench.py --no-fused-prologue``, 345
+  patches) runs flash_qkv and dense_gelu_quant (patch embed and mlp_in).
+
+It checks each path's launch counts, the waveform, and each full-width DiT
 on the card against the same DiT's plain path on the CPU at a small input.
 
-With ``--profile`` it also traces one more sampler call and one more
-decode with ``torch.profiler`` and prints, for each, the card's busy share
-and device time by kernel name.
+The timed passes of the two paths run in turns.  With ``--profile`` it
+then traces one more sampler call of each path and one more decode with
+``torch.profiler`` and prints, for each, the card's busy share and device
+time and launches by kernel name.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -36,10 +47,20 @@ SEED = 0
 STEPS, CFG_SCALE = 8, 3.0
 LATENT_FRAMES = 3790          # ~44 s: three 16 s chunks with 2 s crossfades
 SEGMENT_FRAMES, CTX_FRAMES = 2756, 64
-TIMED_RUNS = 4                # serving passes timed; the first is counted
+TIMED_RUNS = 4                # timed serving passes of each path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core OP/s
+B, NP, N_VALID, H = 6, 352, 345, 1280   # the main path's DiT batch and rows
+
+# bench.py's DiT at full width: its default (the fused prologue, which
+# implies align_n), and --no-fused-prologue.
+SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
+               matmul_precision="int8_static", fused_qkv=True, fused_mlp=True,
+               fused_mlp_impl="half", attention_impl="flash", flash_qkv=True,
+               gelu_impl="tanh", fast_epilogue=True, int8_impl="xla")
+PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
+         "no_prologue": dict(fused_prologue=False, align_n=False)}
 
 
 def log(*a):
@@ -83,55 +104,97 @@ def bound(nbytes: float, ops: float, peak: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def nbytes_of(*tensors) -> int:
+    return sum(t.nbytes for t in tensors)
+
+
+def timings(kernel, plain, library, args, big, reps=100):
+    """Kernel, plain and library ms at ``args``; the inputs at positions
+    ``big`` are copied so that the kernel's and the library's calls rotate
+    past L2."""
+    n = rotations(sum(args[i].nbytes for i in big))
+    sets = [tuple(a.clone() if i in big else a for i, a in enumerate(args))
+            for _ in range(n)]
+    return {"ms": time_ms(kernel, sets, reps),
+            "plain_ms": time_ms(plain, sets[:4], 20),
+            "library_ms": time_ms(library, sets, reps // 2)}
+
+
 def check_attention(torch):
-    """flash_qkv against its plain version at qkv [6, 345, 1792] bf16."""
+    """flash_qkv against its plain version at the main path's qkv
+    [6, 352, 1792] bf16 with keys masked past 345, and at the no-prologue
+    path's [6, 345, 1792]; timed at the main path's shape."""
     import torch.nn.functional as F
 
     from jatsr_torch.models.dit import rope_cos_sin
     from jatsr_torch.ops.attention import (_rope, flash_qkv_plain,
                                            gqa_attention_flash_qkv)
 
-    B, N, hq, hkv, D = 6, 345, 20, 4, 64
+    hq, hkv, D = 20, 4, 64
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
                       device="cuda").bfloat16()
-    cos, sin = rope_cos_sin(N, D, device="cuda")
-    got = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv)
-    want = flash_qkv_plain(qkv, cos, sin, hq, hkv)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    tol = 2e-2 + 2e-2 * want.float().abs()
-    if not bool((err <= tol).all()):
-        raise AssertionError(f"flash_qkv: max err {err.max().item()} "
-                             f"outside atol=rtol=2e-2")
-    masked = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, n_valid=300)
-    want_m = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=300)
-    torch.testing.assert_close(masked.float(), want_m.float(), atol=2e-2,
-                               rtol=2e-2)
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    err = 0.0
+    for n, n_valid in ((NP, N_VALID), (N_VALID, 0)):
+        x = qkv[:, :n].contiguous()
+        c, s = cos[:n].contiguous(), sin[:n].contiguous()
+        got = gqa_attention_flash_qkv(x, c, s, hq, hkv, n_valid=n_valid)
+        want = flash_qkv_plain(x, c, s, hq, hkv, n_valid=n_valid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        err = max(err, (got.float() - want.float()).abs().max().item())
 
-    sets = [(qkv.clone(), cos, sin) for _ in range(rotations(qkv.nbytes))]
-    ms = time_ms(lambda x, c, s: gqa_attention_flash_qkv(x, c, s, hq, hkv),
-                 sets, 200)
-    plain_ms = time_ms(lambda x, c, s: flash_qkv_plain(x, c, s, hq, hkv),
-                       sets[:4], 20)
-    # Yardstick: SDPA on the RoPE'd, head-split q/k/v (kv heads repeated).
-    heads = qkv.reshape(B, N, hq + 2 * hkv, D).permute(0, 2, 1, 3)
+    # Yardstick: SDPA on the RoPE'd, head-split q/k/v (kv heads repeated),
+    # with the same key mask.
+    heads = qkv.reshape(B, NP, hq + 2 * hkv, D).permute(0, 2, 1, 3)
     cb, sb = cos.bfloat16(), sin.bfloat16()
     q = _rope(heads[:, :hq], cb, sb).contiguous()
     k = _rope(heads[:, hq:hq + hkv], cb, sb).repeat_interleave(hq // hkv, 1)
     v = heads[:, hq + hkv:].repeat_interleave(hq // hkv, 1).contiguous()
-    lib_sets = [(q.clone(), k.clone(), v.clone())
-                for _ in range(rotations(3 * q.nbytes))]
-    lib_ms = time_ms(F.scaled_dot_product_attention, lib_sets, 200)
-    nbytes = qkv.nbytes + cos.nbytes + sin.nbytes + got.nbytes
-    b_ms, b_by = bound(nbytes, 4 * B * hq * N * N * D, PEAK_BF16)
+    mask = (torch.arange(NP, device="cuda") < N_VALID)[None, None, None]
+    t = timings(lambda x, c, s, q, k, v: gqa_attention_flash_qkv(
+                    x, c, s, hq, hkv, n_valid=N_VALID),
+                lambda x, c, s, q, k, v: flash_qkv_plain(
+                    x, c, s, hq, hkv, n_valid=N_VALID),
+                lambda x, c, s, q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask),
+                (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=200)
+    nbytes = nbytes_of(qkv, cos, sin) + B * NP * hq * D * 2
+    # Two products over the valid keys: what this run's mask needs.
+    b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_BF16)
     return {"name": "flash_qkv", "route": "cuda",
             "source": "jatsr_torch/ops/csrc/flash_qkv.cu",
             "replaces": "ops/attention.py:415 (JAX package, "
                         "gqa_attention_flash_qkv; pallas_call :449)",
-            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": [B, N, (hq + 2 * hkv) * D]}
+            "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
+
+
+def dense_inputs(torch, M, K, N, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    w_s = torch.rand((1, N), generator=gen, device="cuda") \
+        .add_(0.5).div_(127 * K ** 0.5)
+    b = 0.1 * torch.randn((1, N), generator=gen, device="cuda")
+    return a, w_q, w_s, b
+
+
+def assert_codes(what, got_q, got_s, want_q, want_s, scale_rtol=1e-5):
+    """int8 codes equal but for <= 0.5% off by exactly one (tanhf/expf
+    differ in the last bit); scales within ``scale_rtol``."""
+    import torch
+
+    diff = (got_q.int() - want_q.int()).abs()
+    frac = (diff != 0).float().mean().item()
+    if diff.max().item() > 1 or frac > 0.005:
+        raise AssertionError(f"{what}: codes differ by up to "
+                             f"{diff.max().item()} on {frac:.4%}")
+    torch.testing.assert_close(got_s, want_s, rtol=scale_rtol, atol=0)
+    return diff.max().item(), frac
 
 
 def check_dense_gelu(torch, M, K, N):
@@ -142,22 +205,12 @@ def check_dense_gelu(torch, M, K, N):
                                              int8_dense_gelu_quant, int8_mm,
                                              quantize_rows)
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + K)
-    a = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-    w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
-                        dtype=torch.int8)
-    w_s = torch.rand((1, N), generator=gen, device="cuda") \
-        .add_(0.5).div_(127 * K ** 0.5)
-    b = 0.1 * torch.randn((1, N), generator=gen, device="cuda")
-    got_q, got_s = int8_dense_gelu_quant(a, w_q, w_s, b)
-    want_q, want_s = dense_gelu_quant_plain(a, w_q, w_s, b)
+    args = dense_inputs(torch, M, K, N, SEED + K)
+    got_q, got_s = int8_dense_gelu_quant(*args)
+    want_q, want_s = dense_gelu_quant_plain(*args)
     torch.cuda.synchronize()
-    diff = (got_q.int() - want_q.int()).abs()
-    frac = (diff != 0).float().mean().item()
-    if diff.max().item() > 1 or frac > 0.005:
-        raise AssertionError(f"dense_gelu_quant {M}x{K}x{N}: codes differ by "
-                             f"up to {diff.max().item()} on {frac:.4%}")
-    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    err, frac = assert_codes(f"dense_gelu_quant {M}x{K}x{N}", got_q, got_s,
+                             want_q, want_s)
 
     def library(a, w_q, w_s, b):
         a_q, s = quantize_rows(a)
@@ -166,36 +219,155 @@ def check_dense_gelu(torch, M, K, N):
         gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
         return torch.round(g / gs).to(torch.int8), gs
 
-    sets = [(a.clone(), w_q.clone(), w_s, b)
-            for _ in range(rotations(a.nbytes + w_q.nbytes))]
-    ms = time_ms(int8_dense_gelu_quant, sets, 100)
-    plain_ms = time_ms(dense_gelu_quant_plain, sets[:4], 20)
-    lib_ms = time_ms(library, sets, 50)
-    nbytes = (a.nbytes + w_q.nbytes + w_s.nbytes + b.nbytes + got_q.nbytes
-              + got_s.nbytes)
-    b_ms, b_by = bound(nbytes, 2 * M * K * N, PEAK_INT8)
-    return {"shape": [M, K, N], "max_abs_err": diff.max().item(),
-            "code_mismatch_frac": frac, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    t = timings(int8_dense_gelu_quant, dense_gelu_quant_plain, library, args,
+                big=(0, 1))
+    b_ms, b_by = bound(nbytes_of(*args, got_q, got_s), 2 * M * K * N,
+                       PEAK_INT8)
+    return {"shape": [M, K, N], "max_abs_err": err, "code_mismatch_frac": frac,
+            **t, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def build_model(torch, cfg, device):
-    from jatsr_torch.models.dit import DiT
-    from jatsr_torch.models.from_jax import random_dense_params
-    from jatsr_torch.ops.quant import quantize_params_static
+def prologue_inputs(torch, N, seed):
+    """The raw residual stream [6, 352, 1280] bf16, the AdaLN rows
+    (bf16-valued fp32) per sample [6, H] and shared [1, H], and an int8
+    [H, N] projection."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2 * torch.randn((B, NP, H), generator=gen, device="cuda")
+         + 0.3).bfloat16()
+    mod = (0.5 * torch.randn((2, B, H), generator=gen, device="cuda")
+           ).bfloat16().float()
+    _, w_q, w_s, b = dense_inputs(torch, 1, H, N, seed + 1)
+    return x, (mod[0], mod[1]), (mod[0, :1], mod[1, :1]), w_q, w_s, b
 
-    t0 = time.perf_counter()
-    static = quantize_params_static(random_dense_params(cfg, SEED))
-    t1 = time.perf_counter()
-    model = DiT(cfg, static, device=device)
-    log(f"[model] v3 int8_static weights: {t1 - t0:.1f} s to draw and "
-        f"quantize, {time.perf_counter() - t1:.1f} s to place")
-    return model, static
+
+def torch_prologue(torch, x, sc, sh, norm):
+    """The yardstick's prologue: PyTorch's own norm, bf16 modulate, then
+    the row quantisation."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.int8_matmul import quantize_rows
+
+    xf = x.float()
+    xn = (F.rms_norm(xf, (H,), eps=1e-6) if norm == "rms"
+          else F.layer_norm(xf, (H,), eps=1e-6))
+    y = xn.bfloat16() * (1 + sc[:, None]).bfloat16() + sh[:, None].bfloat16()
+    a_q, s = quantize_rows(y.reshape(-1, H))
+    return a_q, s.clamp_min(1e-12)
+
+
+def check_norm_mod_dot(torch, norm):
+    """norm_mod_dot (qkv) against its plain version at [6, 352, 1280] x
+    [1280, 1792], both norms, per-sample and shared AdaLN rows."""
+    from jatsr_torch.ops.int8_matmul import int8_mm
+    from jatsr_torch.ops.prologue import int8_norm_mod_dot, norm_mod_dot_plain
+
+    N = 1792
+    x, per, shared, w_q, w_s, b = prologue_inputs(torch, N, SEED + 1)
+    err = far = 0.0
+    for kind in ("rms", "layer"):
+        for sc, sh in (per, shared):
+            got = int8_norm_mod_dot(x, sc, sh, w_q, w_s, b, norm=kind).float()
+            want = norm_mod_dot_plain(x, sc, sh, w_q, w_s, b, kind).float()
+            torch.cuda.synchronize()
+            # One bf16 ulp, but for rows whose code moved by one where the
+            # fp32 statistics differ in the last bit.
+            f = ((got - want).abs() > want.abs() * 2.0 ** -7).float().mean()
+            far = max(far, f.item())
+            err = max(err, (got - want).abs().max().item())
+            if far > 0.005:
+                raise AssertionError(f"norm_mod_dot {kind}: {far:.4%} of the "
+                                     f"outputs differ by more than 1 ulp")
+
+    def library(x, sc, sh, w_q, w_s, b):
+        a_q, s = torch_prologue(torch, x, sc, sh, norm)
+        y = int8_mm(a_q, w_q).float() * s * w_s + b
+        return y.bfloat16().reshape(B, NP, N)
+
+    sc, sh = shared  # the sampler's hoisted row, as on the main path
+    t = timings(lambda *a: int8_norm_mod_dot(*a, norm=norm),
+                lambda *a: norm_mod_dot_plain(*a, norm=norm), library,
+                (x, sc, sh, w_q, w_s, b), big=(0, 3))
+    b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * N * 2,
+                       2 * B * NP * H * N, PEAK_INT8)
+    return {"name": "norm_mod_dot", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/norm_mod.cu",
+            "replaces": "ops/int8_matmul.py:419 (JAX package, "
+                        "int8_norm_mod_dot; pallas_call :452)",
+            "max_abs_err": err, "beyond_1ulp_frac": far, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, NP, H, N]}
+
+
+def check_norm_mod_gelu(torch, norm):
+    """norm_mod_dense_gelu_quant (mlp_in) against its plain version at
+    [6, 352, 1280] x [1280, 5120], both norms and both row shapes."""
+    from jatsr_torch.ops.int8_matmul import _INV127, _gelu, int8_mm
+    from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                          norm_mod_dense_gelu_quant_plain)
+
+    N = 5120
+    x, per, shared, w_q, w_s, b = prologue_inputs(torch, N, SEED + 2)
+    err = frac = 0.0
+    for kind in ("rms", "layer"):
+        for sc, sh in (per, shared):
+            got = int8_norm_mod_dense_gelu_quant(x, sc, sh, w_q, w_s, b,
+                                                 norm=kind)
+            want = norm_mod_dense_gelu_quant_plain(x, sc, sh, w_q, w_s, b,
+                                                   kind)
+            torch.cuda.synchronize()
+            # The prologue's fp32 sums run in another order than the plain
+            # version's: a moved input code shifts its row's products by
+            # w/127 of a column, and so the row's scale, by up to ~1e-3.
+            e, f = assert_codes(f"norm_mod_dense_gelu_quant {kind}", *got,
+                                *want, scale_rtol=2e-3)
+            err, frac = max(err, e), max(frac, f)
+
+    def library(x, sc, sh, w_q, w_s, b):
+        a_q, s = torch_prologue(torch, x, sc, sh, norm)
+        g = _gelu(int8_mm(a_q, w_q).float() * s * w_s + b)
+        gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
+        return torch.round(g / gs).to(torch.int8), gs
+
+    sc, sh = shared
+    t = timings(lambda *a: int8_norm_mod_dense_gelu_quant(*a, norm=norm),
+                lambda *a: norm_mod_dense_gelu_quant_plain(*a, norm=norm),
+                library, (x, sc, sh, w_q, w_s, b), big=(0, 3))
+    b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * (N + 4),
+                       2 * B * NP * H * N, PEAK_INT8)
+    return {"name": "norm_mod_dense_gelu_quant", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/norm_mod.cu",
+            "replaces": "ops/int8_matmul.py:555 (JAX package, "
+                        "int8_norm_mod_dense_gelu_quant; pallas_call :592)",
+            "max_abs_err": err, "code_mismatch_frac": frac, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, NP, H, N]}
+
+
+def check_matmul_fused(torch):
+    """matmul_fused (out_proj) against its plain version at [2112, 1280] x
+    [1280, 1280]: bit-equal."""
+    from jatsr_torch.ops.int8_matmul import (int8_matmul_fused,
+                                             matmul_fused_plain)
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    M = B * NP
+    a, w_q, w_s, _ = dense_inputs(torch, M, H, H, SEED + 3)
+    got = int8_matmul_fused(a, w_q, w_s)
+    want = matmul_fused_plain(a, w_q, w_s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    t = timings(int8_matmul_fused, matmul_fused_plain, w8a8_dot,
+                (a, w_q, w_s), big=(0, 1))
+    b_ms, b_by = bound(nbytes_of(a, w_q, w_s, got), 2 * M * H * H, PEAK_INT8)
+    return {"name": "matmul_fused", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/matmul_fused.cu",
+            "replaces": "ops/int8_matmul.py:103 (JAX package, "
+                        "int8_matmul_fused; pallas_call :151)",
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H]}
 
 
 def profile_phase(torch, name, fn):
     """Trace ``fn()`` with torch.profiler: the card's busy share over the
-    phase's wall time, and device time by kernel name."""
+    phase's wall time, and device time and launches by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -216,84 +388,30 @@ def profile_phase(torch, name, fn):
         end = max(end, b)
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     log(f"[profile {name}] wall {wall / 1e3:.1f} ms (traced), device busy "
         f"{busy / 1e3:.1f} ms = {busy / wall:.1%}, {len(kernels)} kernels")
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
-        log(f"[profile {name}] {us / 1e3:8.2f} ms {us / busy:6.1%}  "
-            f"{kname[:100]}")
+    for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:24]:
+        log(f"[profile {name}] {us / 1e3:8.2f} ms {us / busy:6.1%} "
+            f"{n:6d}x  {kname[:100]}")
 
 
-def main() -> int:
-    import argparse
-
-    import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="trace one more sampler call and decode with torch.profiler")
-    args = ap.parse_args()
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; nothing to run",
-              file=sys.stderr)
-        return 2
+def make_server(torch, model, codec, lr):
+    """``(sample, decode, serve)`` for one DiT path: the pipeline's
+    sampler over the whole latent, the segmented decode, and one timed
+    serving pass ``-> (latent, pieces, sampler s, end-to-end s)``."""
     import numpy as np
 
-    from jatsr_torch.configs import SamplerConfig, get_preset
+    from jatsr_torch.configs import SamplerConfig
     from jatsr_torch.infer import InferencePipeline
-    from jatsr_torch.models.dac import DAC, DACConfig
-    from jatsr_torch.models.dit import DiT
-    from jatsr_torch.ops import _build
-    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
-    from jatsr_torch.ops.int8_matmul import int8_dense_gelu_quant
     from jatsr_torch.train.step import Normalizer
-    from jatsr_torch.utils.device import resolve_device
 
-    # 1. Environment.
-    card = card_line()
-    resolve_device("cuda")
-    log(f"[env] card: {card}")
-    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    log(f"[env] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise AssertionError("TF32 must be off")
-
-    # 2. Build.
-    _build.load("flash_qkv")
-    log(f"[build] {_build.build_seconds:.1f} s for all kernels")
-    for name in ("flash_qkv", "dense_gelu_quant"):
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
-
-    # 3. Kernels against their plain versions at the path's shapes.
-    attn = check_attention(torch)
-    log(f"[kernel] flash_qkv {json.dumps(attn)}")
-    mlp_in = check_dense_gelu(torch, 2070, 1280, 5120)
-    log(f"[kernel] dense_gelu_quant mlp_in {json.dumps(mlp_in)}")
-    patch = check_dense_gelu(torch, 2070, 8192, 512)
-    log(f"[kernel] dense_gelu_quant patch_embed {json.dumps(patch)}")
-
-    # 4. The serving path at full width: v3, int8_static, no fused prologue.
-    cfg = dataclasses.replace(
-        get_preset("v3").model, param_dtype="bfloat16", dropout=0.0,
-        drop_path_rate=0.0, matmul_precision="int8_static", fused_qkv=True,
-        fused_mlp=True, fused_mlp_impl="half", attention_impl="flash",
-        flash_qkv=True, gelu_impl="tanh", fast_epilogue=True,
-        fused_prologue=False, align_n=False, int8_impl="xla")
-    model, static = build_model(torch, cfg, "cuda")
-    codec = DAC.random_init(SEED, DACConfig(), device="cuda")
-    C = cfg.input_channels
+    C = model.cfg.input_channels
     norm = Normalizer(np.zeros(C), np.ones(C), np.zeros(C), np.ones(C))
     pipe = InferencePipeline(model, norm, codec,
                              SamplerConfig(num_steps=STEPS,
                                            cfg_scale=CFG_SCALE))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    lr = torch.randn((LATENT_FRAMES, C), generator=gen, device="cuda")
-    audio_sec = LATENT_FRAMES * 512 / 44100
 
     def sample():
         return pipe.super_resolve_latent_device(lr, SEED, STEPS, CFG_SCALE,
@@ -311,19 +429,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return latent, pieces, t1 - t0, time.perf_counter() - t0
 
-    serve()  # warm-up: cuDNN algorithm choice, allocator
+    return sample, decode, serve
+
+
+def counted_pass(torch, name, serve, counters, expected, C):
+    """One serving pass with every launch count set to 0 just before it
+    and read just after; checks the counts, the latent and the waveform."""
     torch.cuda.reset_peak_memory_stats()
-    gqa_attention_flash_qkv.launches = 0
-    int8_dense_gelu_quant.launches = 0
-    latent, pieces, t_sample, t_e2e = serve()
-    launches = {"flash_qkv": gqa_attention_flash_qkv.launches,
-                "dense_gelu_quant": int8_dense_gelu_quant.launches}
-    times = [(t_sample, t_e2e)] + [serve()[2:] for _ in range(TIMED_RUNS - 1)]
-    expected = {"flash_qkv": STEPS * cfg.depth,
-                "dense_gelu_quant": STEPS * (cfg.depth + 1)}
-    log(f"[serve] launches {launches}, expected {expected}")
+    for fn in counters.values():
+        fn.launches = 0
+    latent, pieces, _, _ = serve()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[serve {name}] launches {launches}, expected {expected}")
     if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+        raise AssertionError(f"{name}: launch counts {launches} != {expected}")
     wav = torch.cat(pieces)
     if latent.shape != (LATENT_FRAMES, C) or not bool(
             torch.isfinite(latent).all()):
@@ -332,51 +451,187 @@ def main() -> int:
         raise AssertionError(f"wav length {wav.shape[0]} != {LATENT_FRAMES * 512}")
     if not bool(torch.isfinite(wav).all()) or wav.abs().max().item() > 1.0:
         raise AssertionError("wav not finite or outside [-1, 1]")
-    log(f"[serve] {audio_sec:.2f} s of audio, {len(pieces)} decode segments, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    t_sample = sorted(t for t, _ in times)[len(times) // 2]
-    t_e2e = sorted(t for _, t in times)[len(times) // 2]
-    log(f"[serve] {TIMED_RUNS} runs, sampler ms "
-        f"{[round(t * 1e3, 1) for t, _ in times]}, end-to-end ms "
-        f"{[round(t * 1e3, 1) for _, t in times]}")
-    log(f"[serve] median: sampler {audio_sec / t_sample:.2f} audio-sec/s "
-        f"({t_sample * 1e3:.1f} ms), end to end {audio_sec / t_e2e:.2f} "
-        f"audio-sec/s ({t_e2e * 1e3:.1f} ms); {STEPS} steps CFG {CFG_SCALE}, "
-        f"batch 6; card: {card}")
-    if args.profile:
-        profile_phase(torch, "sampler", sample)
-        profile_phase(torch, "decode", lambda: decode(latent))
+    log(f"[serve {name}] {LATENT_FRAMES * 512 / 44100:.2f} s of audio, "
+        f"{len(pieces)} decode segments, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, latent
 
-    # 5. Reference on a small input: the same full-width DiT on the card
-    #    (kernels) and on the CPU (plain versions).
-    del pipe, codec
-    cpu_model = DiT(cfg, static, device="cpu")
+
+def timed_passes(servers):
+    """``TIMED_RUNS`` serving passes of each path, in turns (A B B A ...),
+    so that a drift of the host or the card touches both alike."""
+    names = list(servers)
+    times = {n: [] for n in names}
+    for r in range(TIMED_RUNS):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            times[n].append(servers[n]()[2:])
+    audio_sec = LATENT_FRAMES * 512 / 44100
+    for n, ts in times.items():
+        t_sample = sorted(t for t, _ in ts)[len(ts) // 2]
+        t_e2e = sorted(t for _, t in ts)[len(ts) // 2]
+        log(f"[serve {n}] {TIMED_RUNS} runs, sampler ms "
+            f"{[round(t * 1e3, 1) for t, _ in ts]}, end-to-end ms "
+            f"{[round(t * 1e3, 1) for _, t in ts]}")
+        log(f"[serve {n}] median: sampler {audio_sec / t_sample:.2f} "
+            f"audio-sec/s ({t_sample * 1e3:.1f} ms), end to end "
+            f"{audio_sec / t_e2e:.2f} audio-sec/s ({t_e2e * 1e3:.1f} ms); "
+            f"{STEPS} steps CFG {CFG_SCALE}, batch 6")
+
+
+def check_reference(torch, name, model, cpu_model, frames):
+    """The full-width DiT on the card (kernels) against the same DiT on the
+    CPU (plain versions) at [2, frames, C]: relative L2 < 5e-2."""
+    import numpy as np
+
+    C = model.cfg.input_channels
     rng = np.random.default_rng(SEED + 1)
-    x_t = torch.from_numpy(rng.standard_normal((2, 64, C), dtype=np.float32))
-    x_c = torch.from_numpy(rng.standard_normal((2, 64, C), dtype=np.float32))
+    x_t = torch.from_numpy(rng.standard_normal((2, frames, C),
+                                               dtype=np.float32))
+    x_c = torch.from_numpy(rng.standard_normal((2, frames, C),
+                                               dtype=np.float32))
     t = torch.tensor([0.25, 0.75])
     ref = cpu_model(x_t, t, x_c)
     out = model(x_t.cuda(), t.cuda(), x_c.cuda()).cpu()
     rel = ((out - ref).norm() / ref.norm()).item()
-    log(f"[reference] card vs CPU plain path, full width, [2, 64, {C}]: "
-        f"rel L2 {rel:.3e}, max abs {(out - ref).abs().max().item():.3e}, "
-        f"mean |ref| {ref.abs().mean().item():.3e}")
+    log(f"[reference {name}] card vs CPU plain path, full width, "
+        f"[2, {frames}, {C}]: rel L2 {rel:.3e}, max abs "
+        f"{(out - ref).abs().max().item():.3e}, mean |ref| "
+        f"{ref.abs().mean().item():.3e}")
     if not bool(torch.isfinite(out).all()) or rel > 5e-2:
-        raise AssertionError(f"card DiT disagrees with the plain path: "
-                             f"rel L2 {rel} > 5e-2")
+        raise AssertionError(f"{name}: card DiT disagrees with the plain "
+                             f"path: rel L2 {rel} > 5e-2")
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace one more sampler call of each path and one "
+                         "decode with torch.profiler")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run",
+              file=sys.stderr)
+        return 2
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dac import DAC, DACConfig
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops import _build
+    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
+                                             int8_matmul_fused)
+    from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                          int8_norm_mod_dot)
+    from jatsr_torch.ops.quant import quantize_params_static
+    from jatsr_torch.utils.device import resolve_device
+
+    # 1. Environment.
+    card = card_line()
+    resolve_device("cuda")
+    log(f"[env] card: {card}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    log(f"[env] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off")
+
+    # 2. Build.
+    sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused")
+    _build.load("flash_qkv")
+    log(f"[build] {_build.build_seconds:.1f} s for all kernels")
+    for name in sources:
+        regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                       for line in _build.build_log(name).splitlines()
+                       if "registers" in line})
+        spills = [line.strip() for line in _build.build_log(name).splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        log(f"[build] {name}: registers {regs}, spills {spills or 'none'}")
+
+    # 3. Kernels against their plain versions at the paths' shapes.
+    cfgs = {k: dataclasses.replace(get_preset("v3").model, **SERVING, **v)
+            for k, v in PATHS.items()}
+    norm = cfgs["prologue"].norm
+    checks = {
+        "flash_qkv": check_attention(torch),
+        "norm_mod_dot": check_norm_mod_dot(torch, norm),
+        "matmul_fused": check_matmul_fused(torch),
+        "norm_mod_dense_gelu_quant": check_norm_mod_gelu(torch, norm),
+    }
+    patch = check_dense_gelu(torch, B * NP, 8192, 512)
+    mlp_in = check_dense_gelu(torch, B * N_VALID, 1280, 5120)
+    checks["dense_gelu_quant"] = {
+        "name": "dense_gelu_quant", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/dense_gelu_quant.cu",
+        "replaces": "ops/int8_matmul.py:254 (JAX package, "
+                    "int8_dense_gelu_quant; pallas_call :290)",
+        **{k: patch[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+        "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
+    for name, c in checks.items():
+        log(f"[kernel] {name} {json.dumps(c)}")
+
+    # 4. The two serving paths at full width, on one set of weights.
+    t0 = time.perf_counter()
+    static = quantize_params_static(random_dense_params(cfgs["prologue"],
+                                                        SEED))
+    log(f"[model] v3 int8_static weights: {time.perf_counter() - t0:.1f} s "
+        f"to draw and quantize")
+    codec = DAC.random_init(SEED, DACConfig(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = torch.randn((LATENT_FRAMES, cfgs["prologue"].input_channels),
+                     generator=gen, device="cuda")
+    counters = {"flash_qkv": gqa_attention_flash_qkv,
+                "dense_gelu_quant": int8_dense_gelu_quant,
+                "norm_mod_dot": int8_norm_mod_dot,
+                "matmul_fused": int8_matmul_fused,
+                "norm_mod_dense_gelu_quant": int8_norm_mod_dense_gelu_quant}
+    per_block = STEPS * cfgs["prologue"].depth
+    expected = {
+        "prologue": {"flash_qkv": per_block, "dense_gelu_quant": STEPS,
+                     "norm_mod_dot": per_block, "matmul_fused": per_block,
+                     "norm_mod_dense_gelu_quant": per_block},
+        "no_prologue": {"flash_qkv": per_block,
+                        "dense_gelu_quant": per_block + STEPS,
+                        "norm_mod_dot": 0, "matmul_fused": 0,
+                        "norm_mod_dense_gelu_quant": 0},
+    }
+    models, fns, launches = {}, {}, {}
+    for name, cfg in cfgs.items():
+        models[name] = DiT(cfg, static, device="cuda")
+        fns[name] = make_server(torch, models[name], codec, lr)
+        fns[name][2]()  # warm-up: cuDNN algorithm choice, allocator
+    # The main path first: its counts are the kernel line's launches.
+    latents = {}
+    for name in cfgs:
+        launches[name], latents[name] = counted_pass(
+            torch, name, fns[name][2], counters, expected[name],
+            cfgs[name].input_channels)
+    timed_passes({name: f[2] for name, f in fns.items()})
+    if args.profile:
+        for name, (sample, decode, _) in fns.items():
+            profile_phase(torch, f"{name} sampler", sample)
+        profile_phase(torch, "decode", lambda: fns["prologue"][1](
+            latents["prologue"]))
+    del codec, fns, latents
+
+    # 5. Reference on a small input: each full-width DiT on the card
+    #    (kernels) and on the CPU (plain versions).  100 frames are 25
+    #    patches, aligned to 32 (keys masked past 25) on the main path.
+    for name, cfg in cfgs.items():
+        check_reference(torch, name, models[name],
+                        DiT(cfg, static, device="cpu"),
+                        100 if name == "prologue" else 64)
 
     # Result lines.
-    kernels = [
-        dict(attn, launches=launches["flash_qkv"]),
-        {"name": "dense_gelu_quant", "route": "cuda",
-         "source": "jatsr_torch/ops/csrc/dense_gelu_quant.cu",
-         "replaces": "ops/int8_matmul.py:254 (JAX package, "
-                     "int8_dense_gelu_quant; pallas_call :290)",
-         "launches": launches["dense_gelu_quant"],
-         **{k: mlp_in[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
-         "mlp_in": mlp_in, "patch_embed": patch},
-    ]
+    kernels = [dict(checks[k], launches=launches["prologue"][k])
+               for k in counters]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """The DiT's int8 serving forward in PyTorch.
 
-Port of the JAX package's ``models/dit.py`` on one serving branch: the
-``int8_static`` DiT with fused QKV, the flash-QKV attention kernel, the
-"half" fused MLP and the fused patch embed, without the fused prologue
-(``bench.py --no-fused-prologue``).  Inputs are time-major ``[B, T, C]``;
-the residual stream is bf16; the output is fp32.  Module names mirror the
-JAX modules (``patch_in``, ``blocks[i].attn.qkv_proj``, ``final_proj``...).
+Port of the JAX package's ``models/dit.py`` on its int8 serving branches:
+the ``int8_static`` DiT with fused QKV, the flash-QKV attention kernel, the
+"half" fused MLP and the fused patch embed, with or without the fused
+prologue (``fused_prologue``, with ``align_n``: ``bench.py``'s default DiT;
+``bench.py --no-fused-prologue`` without it).  Inputs are time-major
+``[B, T, C]``; the residual stream is bf16; the output is fp32.  Module
+names mirror the JAX modules (``patch_in``, ``blocks[i].attn.qkv_proj``,
+``final_proj``...).
 
 Any serving knob that would send the JAX model down another branch raises
 ``NotImplementedError`` (:func:`check_serving_config`): the port never takes
@@ -22,39 +24,42 @@ from torch import nn
 
 from ..configs import ModelConfig
 from ..ops.attention import flash_supported, gqa_attention_flash_qkv
-from ..ops.int8_matmul import int8_dense_gelu_quant, int8_mm
+from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
+                               int8_mm)
+from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                            int8_norm_mod_dot, norm_mod_dot_supported)
 from ..ops.quant import QuantDense
 from ..utils.device import resolve_device
 from .from_jax import tree_to_torch
 
-# ModelConfig fields that select a branch, with the value this slice ports
-# and the later slice that brings the other values.
+# ModelConfig fields that select a branch, with the values the port serves
+# and the later slice that brings the others.
 _SERVING_BRANCH = {
-    "matmul_precision": ("int8_static", "the bf16 and dynamic-int8 paths"),
-    "dtype": ("bfloat16", "other compute dtypes"),
-    "pos_embed": ("rope", "learned positions (v1legacy)"),
-    "fused_qkv": (True, "the split q/k/v projections"),
-    "attention_impl": ("flash", "the einsum and pallas attention paths"),
-    "flash_qkv": (True, "the split-input flash kernel (B11)"),
-    "flash_fused_out": (False, "the fused out-projection kernel (B12)"),
-    "flash_int8_qk": (False, "the int8 value product of the flash kernel"),
-    "fused_mlp": (True, "the unfused QuantDense MLP"),
-    "fused_mlp_impl": ("half", "the whole-MLP kernel (B13)"),
-    "fused_prologue": (False, "the prologue kernels (B1, B3, B4)"),
-    "align_n": (False, "the prologue slice's aligned patch count"),
-    "int8_impl": ("xla", "the pallas and fused W8A8 kernels (B4, B14)"),
-    "quantize_head": (False, "the int8 output head"),
+    "matmul_precision": (("int8_static",), "the bf16 and dynamic-int8 paths"),
+    "dtype": (("bfloat16",), "other compute dtypes"),
+    "pos_embed": (("rope",), "learned positions (v1legacy)"),
+    "fused_qkv": ((True,), "the split q/k/v projections"),
+    "attention_impl": (("flash",), "the einsum and pallas attention paths"),
+    "flash_qkv": ((True,), "the split-input flash kernel (B11)"),
+    "flash_fused_out": ((False,), "the fused out-projection kernel (B12)"),
+    "flash_int8_qk": ((False,), "the int8 value product of the flash kernel"),
+    "fused_mlp": ((True,), "the unfused QuantDense MLP"),
+    "fused_mlp_impl": (("half",), "the whole-MLP kernel (B13)"),
+    "int8_impl": (("xla", "fused"), "the pre-quantised int8 kernel (B14)"),
+    "quantize_head": ((False,), "the int8 output head"),
 }
 
 
 def check_serving_config(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice."""
-    for name, (want, later) in _SERVING_BRANCH.items():
+    """Raise ``NotImplementedError`` for a config outside the ported
+    branches."""
+    for name, (served, later) in _SERVING_BRANCH.items():
         have = getattr(cfg, name)
-        if have != want:
+        if have not in served:
             raise NotImplementedError(
                 f"ModelConfig.{name}={have!r} selects {later}, which a later "
-                f"slice of the port brings; this slice serves {name}={want!r}")
+                f"slice of the port brings; the port serves {name} in "
+                f"{served!r}")
     if cfg.gelu_impl not in ("tanh", "erf", "sigmoid"):
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
 
@@ -110,6 +115,17 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
+def _dequant_dense(g_q, g_s, second: QuantDense):
+    """The fused MLP's second half: an exact s8 product of the codes
+    ``g_q [..., K]`` with row scales ``g_s [..., 1]``, then
+    ``((acc * g_s) * ws + b) -> bf16``."""
+    lead = g_q.shape[:-1]
+    acc = int8_mm(g_q.reshape(-1, g_q.shape[-1]), second.kernel_q).float()
+    acc = acc.reshape(*lead, -1)
+    return (acc * g_s * second.kernel_scale + second.bias.float()
+            ).to(torch.bfloat16)
+
+
 def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
                            gelu_impl="tanh", fast_epilogue=True):
     """The fused Dense-GELU-Dense of the patch embed and the block MLP:
@@ -118,18 +134,27 @@ def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
     g_q, g_s = int8_dense_gelu_quant(
         x2d, first.kernel_q, first.kernel_scale, first.bias.float(),
         gelu_impl=gelu_impl, fast_epilogue=fast_epilogue)
-    acc = int8_mm(g_q, second.kernel_q).float()
-    return (acc * g_s * second.kernel_scale + second.bias.float()
-            ).to(torch.bfloat16)
+    return _dequant_dense(g_q, g_s, second)
 
 
-def _quant_dense(p: dict, i=None) -> QuantDense:
+def _quant_dense(p: dict, i=None, int8_impl="xla") -> QuantDense:
     """The int8_static leaf ``p`` (layer ``i`` of a stacked one) as a
     QuantDense."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
     return QuantDense(pick(p["kernel_q"]), pick(p["kernel_scale"]),
-                      None if b is None else pick(b))
+                      None if b is None else pick(b), int8_impl)
+
+
+def fused_prologue_taken(cfg: ModelConfig, n: int) -> bool:
+    """Whether the JAX block takes its fused-prologue branch at ``n``
+    patches: the knob, then the kernels' eligibility gate for the qkv and
+    mlp_in widths.  (The rest of the JAX conjunction is the serving branch
+    :func:`check_serving_config` pins.)"""
+    H = cfg.hidden_size
+    qkv_out = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    return (cfg.fused_prologue and norm_mod_dot_supported(n, H, qkv_out)
+            and norm_mod_dot_supported(n, H, int(H * cfg.mlp_ratio)))
 
 
 class GQAttention(nn.Module):
@@ -139,22 +164,44 @@ class GQAttention(nn.Module):
     def __init__(self, cfg: ModelConfig, p: dict, i: int):
         super().__init__()
         self.cfg = cfg
-        self.qkv_proj = _quant_dense(p["qkv_proj"], i)
-        self.out_proj = _quant_dense(p["out_proj"], i)
+        self.qkv_proj = _quant_dense(p["qkv_proj"], i, cfg.int8_impl)
+        self.out_proj = _quant_dense(p["out_proj"], i, cfg.int8_impl)
+        # The fused-prologue qkv kernel always adds an fp32 bias: zeros
+        # where the projection has none.
+        b = self.qkv_proj.bias
+        self.register_buffer(
+            "qkv_bias", torch.zeros_like(self.qkv_proj.kernel_scale[0])
+            if b is None else b.float())
 
-    def forward(self, x, cos, sin):
+    def forward(self, x, cos, sin, n_valid=0, prenorm=None):
+        """``prenorm=(scale, shift)``, fp32 ``[B or 1, H]`` AdaLN rows,
+        selects the fused-prologue path: ``x`` is then the raw residual
+        stream, normed, modulated and quantised inside the qkv kernel, and
+        the bias-free out_proj quantises inside its kernel too."""
         cfg = self.cfg
-        qkv = self.qkv_proj(x)
+        if prenorm is not None:
+            p = self.qkv_proj
+            qkv = int8_norm_mod_dot(x, prenorm[0], prenorm[1], p.kernel_q,
+                                    p.kernel_scale, self.qkv_bias,
+                                    norm=cfg.norm)
+        else:
+            qkv = self.qkv_proj(x)
         out = gqa_attention_flash_qkv(qkv, cos, sin, cfg.num_q_heads,
-                                      cfg.num_kv_heads,
-                                      n_valid=cfg.attn_valid_len)
+                                      cfg.num_kv_heads, n_valid=n_valid)
+        if prenorm is not None and not cfg.attention_bias:
+            B, N, D = out.shape
+            o = self.out_proj
+            return int8_matmul_fused(out.reshape(B * N, D), o.kernel_q,
+                                     o.kernel_scale).reshape(B, N, -1)
         return self.out_proj(out)
 
 
 class DiTBlock(nn.Module):
     """AdaLN-Zero block: norm, modulate, attention, gate; norm, modulate,
     half-fused MLP, gate.  ``mod`` is the block's ``[B or 1, 6H]`` AdaLN
-    row (the hoisted table, or computed here from ``t_emb``)."""
+    row (the hoisted table, or computed here from ``t_emb``).  With
+    ``fused`` the norm and modulate of both branches happen inside the
+    qkv and mlp_in kernels."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, adaln: Dense):
         super().__init__()
@@ -164,28 +211,41 @@ class DiTBlock(nn.Module):
         self.mlp_out = _quant_dense(p["mlp_out"], i)
         self.adaln = adaln
 
-    def forward(self, x, t_emb, cos, sin, mod=None):
+    def forward(self, x, t_emb, cos, sin, mod=None, n_valid=0, fused=False):
         cfg = self.cfg
         if mod is None:
             mod = self.adaln(F.silu(t_emb))
         (shift_msa, scale_msa, gate_msa,
-         shift_mlp, scale_mlp, gate_mlp) = (m[:, None, :]
-                                            for m in mod.chunk(6, dim=-1))
-        h = _norm(x, cfg.norm) * (1 + scale_msa) + shift_msa
-        x = x + gate_msa * self.attn(h, cos, sin)
-        h = _norm(x, cfg.norm) * (1 + scale_mlp) + shift_mlp
-        B, N, H = h.shape
-        h = _int8_dense_gelu_dense(h.reshape(B * N, H), self.mlp_in,
-                                   self.mlp_out, cfg.gelu_impl,
-                                   cfg.fast_epilogue).reshape(B, N, H)
-        return x + gate_mlp * h
+         shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
+        if fused:
+            h = self.attn(x, cos, sin, n_valid,
+                          prenorm=(scale_msa.float(), shift_msa.float()))
+        else:
+            h = (_norm(x, cfg.norm) * (1 + scale_msa[:, None])
+                 + shift_msa[:, None])
+            h = self.attn(h, cos, sin, n_valid)
+        x = x + gate_msa[:, None] * h
+        if fused:
+            g_q, g_s = int8_norm_mod_dense_gelu_quant(
+                x, scale_mlp.float(), shift_mlp.float(), self.mlp_in.kernel_q,
+                self.mlp_in.kernel_scale, self.mlp_in.bias.float(),
+                norm=cfg.norm, gelu_impl=cfg.gelu_impl)
+            h = _dequant_dense(g_q, g_s, self.mlp_out)
+        else:
+            h = (_norm(x, cfg.norm) * (1 + scale_mlp[:, None])
+                 + shift_mlp[:, None])
+            B, N, H = h.shape
+            h = _int8_dense_gelu_dense(h.reshape(B * N, H), self.mlp_in,
+                                       self.mlp_out, cfg.gelu_impl,
+                                       cfg.fast_epilogue).reshape(B, N, H)
+        return x + gate_mlp[:, None] * h
 
 
 class DiT(nn.Module):
     """x0-prediction DiT over DAC latents, int8 serving forward.
 
     Args:
-        cfg: the model config; must be on this slice's serving branch.
+        cfg: the model config; must be on a ported serving branch.
         params: the JAX int8_static param tree (``blocks`` stacked
             ``[depth, ...]``) as nested dicts of numpy arrays or tensors;
             see ``models/from_jax.py``.
@@ -236,6 +296,17 @@ class DiT(nn.Module):
         x_t = x_t.to(torch.bfloat16)
         x_cond = x_cond.to(torch.bfloat16)
         pad = (-T_orig) % P
+        # align_n: pad the patch count to a multiple of 8 with zero frames,
+        # masked as attention keys and trimmed from the output (the
+        # serving branch check_serving_config pins is the rest of the JAX
+        # condition).
+        n_valid = cfg.attn_valid_len
+        if cfg.align_n:
+            n0 = (T_orig + pad) // P
+            extra = ((-n0) % 8) * P
+            if extra:
+                pad += extra
+                n_valid = n0
         if pad:
             x_t = F.pad(x_t, (0, 0, 0, pad))
             x_cond = F.pad(x_cond, (0, 0, 0, pad))
@@ -256,9 +327,11 @@ class DiT(nn.Module):
 
         t_emb = None if adaln_mod is not None else self.time_embedding(t)
         cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
+        fused = fused_prologue_taken(cfg, N)
         for i, blk in enumerate(self.blocks):
             h = blk(h, t_emb, cos, sin,
-                    None if adaln_mod is None else adaln_mod[i])
+                    None if adaln_mod is None else adaln_mod[i], n_valid,
+                    fused)
 
         h = self.final_proj(_norm(h, cfg.norm))
         return h.reshape(B, T, C)[:, :T_orig].float()

@@ -1,9 +1,10 @@
-"""W8A8 dense + GELU + requantize: the serving MLP's first half.
+"""W8A8 serving products: dense + GELU + requantize, and the fused W8A8 dot.
 
-Port of ``int8_dense_gelu_quant`` (JAX package, ``ops/int8_matmul.py``).
-The wrapper dispatches on the tensor's device: a CPU tensor takes the plain
-PyTorch version below, a CUDA tensor launches the hand-written kernel in
-``csrc/dense_gelu_quant.cu`` or raises.  Nothing falls back.
+Ports of ``int8_dense_gelu_quant`` and ``int8_matmul_fused`` (JAX package,
+``ops/int8_matmul.py``).  Each wrapper dispatches on the tensor's device: a
+CPU tensor takes the plain PyTorch version below, a CUDA tensor launches the
+hand-written kernel in ``csrc/dense_gelu_quant.cu`` or
+``csrc/matmul_fused.cu``, or raises.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -83,16 +84,23 @@ def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
     return torch.round(g / gs).to(torch.int8), gs
 
 
-def _check(a, w_q, w_scale, bias):
-    M, K = a.shape
+def check_weights(what, K, w_q, w_scale, bias=None):
+    """``(K, N)`` of an int8 ``[K, N]`` kernel the GEMM of the CUDA kernels
+    takes (K % 64 == 0, N % 128 == 0), with its ``[1, N]`` scale and
+    optional bias; raises ``ValueError`` otherwise."""
     K2, N = w_q.shape
     if K != K2 or K % 64 or N % 128:
-        raise ValueError(f"dense_gelu_quant: shapes {tuple(a.shape)} x "
-                         f"{tuple(w_q.shape)} need K % 64 == 0, N % 128 == 0")
-    if w_q.dtype != torch.int8 or w_scale.numel() != N or bias.numel() != N:
-        raise ValueError("dense_gelu_quant: w_q int8 [K, N], w_scale and "
-                         "bias [1, N]")
-    return M, K, N
+        raise ValueError(f"{what}: contraction {K} x kernel {tuple(w_q.shape)} "
+                         f"needs K % 64 == 0, N % 128 == 0")
+    if (w_q.dtype != torch.int8 or w_scale.numel() != N
+            or (bias is not None and bias.numel() != N)):
+        raise ValueError(f"{what}: w_q int8 [K, N], w_scale and bias [1, N]")
+    return K, N
+
+
+def _check(a, w_q, w_scale, bias):
+    return (a.shape[0],) + check_weights("dense_gelu_quant", a.shape[1],
+                                         w_q, w_scale, bias)
 
 
 def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
@@ -146,3 +154,52 @@ def _launch(a, w_q, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     _build.check(lib, err, "dense_gelu_quant")
     int8_dense_gelu_quant.launches += 1
     return g_q, g_s
+
+
+def matmul_fused_plain(a, w_q, w_scale):
+    """Plain PyTorch version of the fused W8A8 kernel: the floored scale
+    both divides and rescales, ``((acc * s) * ws) -> bf16``."""
+    a_q, s = quantize_rows(a)
+    s = s.clamp_min(1e-12)
+    acc = int8_mm(a_q, w_q).float()
+    return (acc * s * w_scale.reshape(1, -1)).to(torch.bfloat16)
+
+
+def int8_matmul_fused(a, w_q, w_scale):
+    """W8A8 product with the per-row quantisation of ``a`` inside the
+    kernel (the serving out_proj).
+
+    Args:
+        a: [M, K] bf16 activations (unquantised).
+        w_q: [K, N] int8 kernel; w_scale: [1, N] fp32.
+    Returns:
+        [M, N] bf16.
+    """
+    M = a.shape[0]
+    K, N = check_weights("matmul_fused", a.shape[1], w_q, w_scale)
+    if a.device.type == "cpu":
+        return matmul_fused_plain(a, w_q, w_scale)
+    from . import _build
+
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"matmul_fused kernel takes bf16, got {a.dtype}")
+    lib = _build.load("matmul_fused")
+    fn = lib.matmul_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    dev = a.device
+    a = _build.aligned(a)
+    w_q = _build.aligned(w_q)
+    ws = w_scale.reshape(N).float().contiguous()
+    a_q = torch.empty((M, K), dtype=torch.int8, device=dev)
+    s = torch.empty((M,), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    err = fn(a.data_ptr(), w_q.data_ptr(), ws.data_ptr(), a_q.data_ptr(),
+             s.data_ptr(), out.data_ptr(), M, K, N, _build.stream_ptr(dev))
+    _build.check(lib, err, "matmul_fused")
+    int8_matmul_fused.launches += 1
+    return out
+
+
+int8_matmul_fused.launches = 0

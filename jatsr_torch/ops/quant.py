@@ -1,10 +1,12 @@
 """Dynamic W8A8 products and static int8 weights for serving.
 
-Port of the JAX package's ``ops/quant.py`` on its ``impl="xla"`` path: the
-activation is quantised per row, the weight per output column (once, at
-load time, by :func:`quantize_params_static`), the product accumulates
-exactly in int32 and the rescale is fp32.  The int32 product is a plain
-product outside any kernel, so it goes to ``torch._int_mm``.
+Port of the JAX package's ``ops/quant.py`` on its ``impl="xla"`` and
+``impl="fused"`` paths: the activation is quantised per row, the weight per
+output column (once, at load time, by :func:`quantize_params_static`), the
+product accumulates exactly in int32 and the rescale is fp32.  On the
+``"xla"`` path the int32 product is a plain product outside any kernel, so
+it goes to ``torch._int_mm``; ``"fused"`` on the card launches the fused
+W8A8 kernel, which quantises inside.
 """
 
 from __future__ import annotations
@@ -13,19 +15,36 @@ import numpy as np
 import torch
 from torch import nn
 
-from .int8_matmul import _INV127, int8_mm
+from .int8_matmul import _INV127, int8_matmul_fused, int8_mm
+
+INT8_IMPLS = ("xla", "fused")
 
 
-def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor,
-             w_scale: torch.Tensor) -> torch.Tensor:
+def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+             impl: str = "xla") -> torch.Tensor:
     """``lhs [..., K] @ (w_q * w_scale) -> [..., N]`` in lhs's dtype.
 
     The absmax is taken on lhs's own dtype (bf16 -> fp32 is exact), the
     divide uses the scale floored at 1e-12, the rescale the unfloored one:
     ``(acc * a_scale) * w_scale``.
+
+    ``impl="fused"`` takes the fused kernel where the JAX package does
+    (``K % 128 == 0``, ``N % 128 == 0``, at least 32 rows) and lhs lies on
+    the card; elsewhere it is this plain path, which the kernel equals bit
+    for bit (a floored scale only differs on an all-zero row, whose product
+    is zero either way).
     """
+    if impl not in INT8_IMPLS:
+        raise NotImplementedError(
+            f"int8_impl={impl!r}: the pre-quantised int8 kernel (B14) comes "
+            f"in a later slice of the port; this one has {INT8_IMPLS}")
     K, N = w_q.shape
     lead = lhs.shape[:-1]
+    M = lhs.numel() // K
+    if (impl == "fused" and lhs.device.type == "cuda" and K % 128 == 0
+            and N % 128 == 0 and M >= 32):
+        out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale)
+        return out.reshape(*lead, N)
     a_scale = lhs.abs().amax(dim=-1, keepdim=True).float() * _INV127
     a_q = torch.round(lhs.float() / a_scale.clamp_min(1e-12)).to(torch.int8)
     acc = int8_mm(a_q.reshape(-1, K), w_q).float().reshape(*lead, N)
@@ -34,18 +53,21 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor,
 
 class QuantDense(nn.Module):
     """Serving Dense with an int8 ``[K, N]`` kernel and fp32 ``[1, N]``
-    per-column scales; bf16 in and out, the optional bias added in bf16."""
+    per-column scales; bf16 in and out, the optional bias added in bf16.
+    ``int8_impl`` is :func:`w8a8_dot`'s ``impl``."""
 
     def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
-                 bias: torch.Tensor | None = None):
+                 bias: torch.Tensor | None = None, int8_impl: str = "xla"):
         super().__init__()
         self.register_buffer("kernel_q", kernel_q.to(torch.int8))
         self.register_buffer("kernel_scale",
                              kernel_scale.float().reshape(1, -1))
         self.register_buffer("bias", bias)
+        self.int8_impl = int8_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = w8a8_dot(x.to(torch.bfloat16), self.kernel_q, self.kernel_scale)
+        out = w8a8_dot(x.to(torch.bfloat16), self.kernel_q, self.kernel_scale,
+                       impl=self.int8_impl)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out

@@ -10,7 +10,12 @@ Tolerances are those of ``chip_smoke.py``: attention atol = rtol = 2e-2
 (bf16 output; the kernel's fp32 sums run in another order); dense+GELU
 codes equal but for at most 0.5% of entries, which differ by exactly 1
 (tanhf / expf differ from PyTorch's in the last fp32 bit), scales within
-rtol 1e-5.
+rtol 1e-5.  The prologue kernels: the norm statistics are fp32 sums in
+another order, which can move a code by one, so the mlp_in codes take the
+dense+GELU bound and the qkv outputs agree to one bf16 ulp (rtol 2^-7) on
+all but 0.5% (a moved code shifts its whole row by w/127 of a column,
+and so the mlp_in row's scale, by up to ~1e-3: rtol 2e-3 there); the
+fused W8A8 product is bit-equal (no sum before the exact product).
 """
 
 import numpy as np
@@ -20,7 +25,12 @@ import torch
 from jatsr_torch.models.dit import rope_cos_sin
 from jatsr_torch.ops.attention import flash_qkv_plain, gqa_attention_flash_qkv
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
-                                         int8_dense_gelu_quant)
+                                         int8_dense_gelu_quant,
+                                         int8_matmul_fused, matmul_fused_plain)
+from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                      int8_norm_mod_dot,
+                                      norm_mod_dense_gelu_quant_plain,
+                                      norm_mod_dot_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,11 +76,11 @@ def _dense_inputs(card, M, K, N, seed):
     return a, w_q, w_s, b
 
 
-def _assert_codes(got, want):
+def _assert_codes(got, want, scale_rtol=1e-5):
     diff = (got[0].int() - want[0].int()).abs()
     assert diff.max().item() <= 1
     assert (diff != 0).float().mean().item() <= 0.005
-    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=scale_rtol, atol=0)
 
 
 @pytest.mark.parametrize("M,K,N", [(2070, 1280, 5120), (2070, 8192, 512)])
@@ -92,9 +102,84 @@ def test_dense_gelu_quant_kernel_epilogues(card, gelu_impl, fast_epilogue):
                                               fast_epilogue=fast_epilogue))
 
 
-def test_narrow_dit_on_card_matches_cpu(card):
+def _prologue_inputs(card, B, Np, H, N, rows, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = (2 * torch.randn((B, Np, H), generator=gen, device=card)
+         + 0.3).bfloat16()
+    mod = 0.5 * torch.randn((2, B if rows == "per_sample" else 1, H),
+                            generator=gen, device=card)
+    sc, sh = mod.bfloat16().float()
+    _, w_q, w_s, b = _dense_inputs(card, 1, H, N, seed + 1)
+    return x, sc, sh, w_q, w_s, b
+
+
+def _assert_bf16_rows(got, want):
+    got, want = got.float(), want.float()
+    far = (got - want).abs() > want.abs() * 2.0 ** -7
+    assert far.float().mean().item() <= 0.005
+
+
+SHAPES = pytest.mark.parametrize("B,Np,H,N", [(6, 352, 1280, 1792),
+                                              (3, 40, 128, 256)])
+ROWS = pytest.mark.parametrize("rows", ["per_sample", "shared"])
+
+
+@SHAPES
+@ROWS
+@pytest.mark.parametrize("norm", ["rms", "layer"])
+def test_norm_mod_dot_kernel_matches_plain(card, B, Np, H, N, rows, norm):
+    args = _prologue_inputs(card, B, Np, H, N, rows, seed=7)
+    n0 = int8_norm_mod_dot.launches
+    got = int8_norm_mod_dot(*args, norm=norm)
+    assert int8_norm_mod_dot.launches == n0 + 1
+    _assert_bf16_rows(got, norm_mod_dot_plain(*args, norm=norm))
+
+
+@pytest.mark.parametrize("B,Np,H", [(6, 352, 1280), (3, 40, 128)])
+@ROWS
+def test_norm_mod_dense_gelu_quant_kernel_matches_plain(card, B, Np, H, rows):
+    args = _prologue_inputs(card, B, Np, H, 4 * H, rows, seed=8)
+    n0 = int8_norm_mod_dense_gelu_quant.launches
+    got_q, got_s = int8_norm_mod_dense_gelu_quant(*args, norm="rms")
+    assert int8_norm_mod_dense_gelu_quant.launches == n0 + 1
+    want_q, want_s = norm_mod_dense_gelu_quant_plain(*args, norm="rms")
+    _assert_codes((got_q.reshape(B * Np, -1), got_s.reshape(-1, 1)),
+                  (want_q.reshape(B * Np, -1), want_s.reshape(-1, 1)),
+                  scale_rtol=2e-3)
+
+
+@pytest.mark.parametrize("M,K,N", [(2112, 1280, 1280), (100, 256, 384)])
+def test_matmul_fused_kernel_matches_plain(card, M, K, N):
+    a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=9)
+    n0 = int8_matmul_fused.launches
+    got = int8_matmul_fused(a, w_q, w_s)
+    assert int8_matmul_fused.launches == n0 + 1
+    torch.testing.assert_close(got, matmul_fused_plain(a, w_q, w_s), atol=0,
+                               rtol=0)
+
+
+def test_w8a8_dot_fused_equals_xla_on_card(card):
+    """``impl="fused"`` launches the fused kernel and equals the two-stage
+    ``impl="xla"`` path bit for bit (the JAX package's
+    ``test_fused_matches_two_stage``)."""
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    a, w_q, w_s, _ = _dense_inputs(card, 2 * 352, 1280, 1280, seed=10)
+    x = a.reshape(2, 352, 1280)
+    n0 = int8_matmul_fused.launches
+    got = w8a8_dot(x, w_q, w_s, impl="fused")
+    assert int8_matmul_fused.launches == n0 + 1
+    torch.testing.assert_close(got, w8a8_dot(x, w_q, w_s, impl="xla"),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, {"fused_prologue": True, "align_n": True},
+    {"int8_impl": "fused"}])
+def test_narrow_dit_on_card_matches_cpu(card, knobs):
     """A narrow int8 DiT (head dim 64, as the kernel needs) on the card
-    against the same weights on the CPU's plain path."""
+    against the same weights on the CPU's plain path, without and with the
+    fused prologue (130 frames: 33 patches, aligned to 40)."""
     import dataclasses
 
     from jatsr_torch.configs import get_preset
@@ -106,7 +191,7 @@ def test_narrow_dit_on_card_matches_cpu(card):
         get_preset("tiny").model, hidden_size=256, num_q_heads=4,
         num_kv_heads=2, bottleneck_dim=128, input_channels=64,
         cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
-        fused_mlp=True, attention_impl="flash")
+        fused_mlp=True, attention_impl="flash", **knobs)
     static = quantize_params_static(random_dense_params(cfg, 5))
     rng = np.random.default_rng(6)
     x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),

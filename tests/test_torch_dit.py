@@ -1,9 +1,10 @@
 """The port's int8 serving DiT against the JAX ``DiT.apply``.
 
 A narrow config (hidden 128, depth 2, 4/2 heads, bottleneck 128, T=130 so
-the patch count pads) on the serving branch: int8_static, fused QKV, flash
-QKV attention, "half" fused MLP, fused patch embed, no prologue.  The JAX
-kernels run in interpret mode.
+the patch count pads) on the serving branches: int8_static, fused QKV, flash
+QKV attention, "half" fused MLP, fused patch embed, without the fused
+prologue and with it (``fused_prologue`` and ``align_n``: 33 patches padded
+to 40, keys masked past 33).  The JAX kernels run in interpret mode.
 
 Tolerances.  Every int8 product is exact on both sides, but each dynamic
 activation quantisation can flip a code by one where a bf16 value below
@@ -95,7 +96,7 @@ def test_quantize_params_static_matches_jax():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fused_prologue", True), ("align_n", True), ("attention_impl", "xla"),
+    ("quantize_head", True), ("pos_embed", "learned"), ("attention_impl", "xla"),
     ("fused_mlp_impl", "full"), ("int8_impl", "pallas"),
     ("matmul_precision", "bf16"), ("flash_fused_out", True),
 ])
@@ -108,3 +109,95 @@ def test_dit_raises_outside_the_slice(knob, value):
     static = quantize_params_static(random_dense_params(cfg))
     with pytest.raises(NotImplementedError, match=knob):
         DiT(cfg, static, device="cpu")
+
+
+PROLOGUE = dict(fused_prologue=True, align_n=True)
+
+
+class _Spy:
+    """Wraps a function of ``jatsr_torch.models.dit`` and records calls."""
+
+    def __init__(self, monkeypatch, name):
+        import jatsr_torch.models.dit as tdit
+
+        self.fn, self.calls = getattr(tdit, name), []
+        monkeypatch.setattr(tdit, name, self)
+
+    def __call__(self, *a, **kw):
+        self.calls.append((a, kw))
+        return self.fn(*a, **kw)
+
+
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_prologue_dit_forward_matches_jax(norm, monkeypatch):
+    """T = 130 frames: 33 patches, padded to 40 by align_n; the blocks take
+    the fused prologue (B3, B4, B1) and attention masks keys past 33."""
+    jmodel, jparams, tmodel, _ = build_pair(norm, seed=6, **PROLOGUE)
+    attn = _Spy(monkeypatch, "gqa_attention_flash_qkv")
+    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
+    out = _Spy(monkeypatch, "int8_matmul_fused")
+    mlp = _Spy(monkeypatch, "int8_norm_mod_dense_gelu_quant")
+    x_t, t, x_c = _inputs(seed=7)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert got.shape == x_t.shape
+    assert [(a[0].shape[1], kw["n_valid"]) for a, kw in attn.calls] == \
+        [(40, 33)] * 2
+    assert len(qkv.calls) == len(out.calls) == len(mlp.calls) == 2
+    assert qkv.calls[0][0][1].shape == (2, 128)  # per-sample rows, fp32
+    assert np.abs(np.asarray(want)).mean() > 0.05
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_prologue_dit_hoisted_adaln_matches_jax(norm, monkeypatch):
+    """The serving call with ``[depth, 1, 6H]`` tables: one modulation row
+    shared over the batch reaches the prologue kernels as ``[1, H]``."""
+    jmodel, jparams, tmodel, _ = build_pair(norm, seed=8, **PROLOGUE)
+    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
+    x_t, _, x_c = _inputs(seed=9, B=3)
+    t1 = np.array([0.625], np.float32)
+    jt = jax_adaln_tables(jmodel.cfg, jparams, jnp.asarray(t1))
+    tt = adaln_tables(tmodel, torch.from_numpy(t1))
+    assert tt.shape == (2, 1, 6 * 128)
+    t = np.full((3,), 0.625, np.float32)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c), adaln_mod=jt)
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c), adaln_mod=tt)
+    assert qkv.calls[0][0][1].shape == (1, 128)
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+def test_prologue_without_align_n_takes_the_unfused_branch(monkeypatch):
+    """fused_prologue on, align_n off: 33 patches have no 8-aligned row
+    block, so JAX silently takes the unfused branch, and so does the port."""
+    jmodel, jparams, tmodel, _ = build_pair("rms", seed=10,
+                                            fused_prologue=True)
+    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
+    attn = _Spy(monkeypatch, "gqa_attention_flash_qkv")
+    x_t, t, x_c = _inputs(seed=11)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert not qkv.calls
+    assert [(a[0].shape[1], kw["n_valid"]) for a, kw in attn.calls] == \
+        [(33, 0)] * 2
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+def test_int8_impl_fused_matches_jax():
+    """``int8_impl="fused"`` without the prologue: qkv_proj and out_proj are
+    QuantDense with the fused W8A8 product, the plain path on the CPU."""
+    jmodel, jparams, tmodel, _ = build_pair("layer", seed=12,
+                                            int8_impl="fused")
+    assert tmodel.blocks[0].attn.out_proj.int8_impl == "fused"
+    x_t, t, x_c = _inputs(seed=13)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    _assert_close(got.numpy(), np.asarray(want))

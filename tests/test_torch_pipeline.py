@@ -227,3 +227,59 @@ def test_decode_latent_pieces_join_into_whole_decode():
     batched = pipe.decode_latent(z, segment_frames=64, ctx_frames=32,
                                  decode_batch=2)
     np.testing.assert_allclose(batched, whole.numpy(), atol=2e-5)
+
+
+PROLOGUE = dict(fused_prologue=True, align_n=True)
+
+
+@pytest.fixture(scope="module")
+def prologue_pair():
+    return build_pair("rms", seed=15, **PROLOGUE)
+
+
+def test_flow_sampler_with_prologue_matches_jax(prologue_pair):
+    """The fused-prologue DiT (64 frames: 16 patches, no padding) under
+    the doubled-CFG sampler with hoisted ``[depth, 1, 6H]`` tables, against
+    JAX; the bounds of test_flow_sampler_matches_jax."""
+    jmodel, jparams, tmodel, _ = prologue_pair
+    cond, z0 = _sampler_inputs()
+    want = _jax_sampler(jmodel, jparams, "doubled")(
+        jax.random.PRNGKey(0), jnp.asarray(cond), 4, 2.0, z0=jnp.asarray(z0))
+    sampler = FlowSampler(
+        lambda z, t, c, mod=None: tmodel(z, t, c, adaln_mod=mod),
+        SamplerConfig(num_steps=4), adaln_fn=lambda tv: adaln_tables(tmodel, tv),
+        device="cpu")
+    got = sampler(torch.from_numpy(cond), 4, 2.0, z0=torch.from_numpy(z0))
+    _assert_close(got.numpy(), np.asarray(want), atol=5e-2)
+
+
+def test_super_resolve_latent_device_with_prologue_matches_jax(
+        prologue_pair, monkeypatch):
+    """The port's pipeline with the fused-prologue DiT against the JAX
+    pipeline; 66-frame chunks pad to 17 patches and align to 24, so every
+    forward runs the key mask.  The bounds of
+    test_super_resolve_latent_matches_jax."""
+    jmodel, jparams, tmodel, _ = prologue_pair
+    rng = np.random.default_rng(16)
+    stats = [rng.uniform(0.5, 1.5, C).astype(np.float32) if i % 2 else
+             rng.standard_normal(C).astype(np.float32) for i in range(4)]
+    lr = rng.standard_normal((150, C)).astype(np.float32)
+    kw = dict(num_steps=4, chunk_duration=66 * 512 / 44100,
+              overlap_duration=16 * 512 / 44100)
+    key = jax.random.PRNGKey(17)
+    jpipe = JaxPipeline(jmodel, jparams, JaxNormalizer(*stats),
+                        sampler_cfg=JaxSamplerConfig(**kw))
+    want = jpipe.super_resolve_latent(lr, key, cfg_scale=2.0, max_batch=2)
+
+    def jax_noise(seed, n, frames, channels, device):
+        return torch.from_numpy(np.array(
+            jax_chunk_noise(key, n, frames, channels))).to(device)
+
+    monkeypatch.setattr(torch_pipeline, "_per_chunk_noise", jax_noise)
+    pipe = InferencePipeline(tmodel, Normalizer(*stats, device="cpu"),
+                             sampler_cfg=SamplerConfig(**kw), device="cpu")
+    assert pipe.chunk_frames == 66
+    got = pipe.super_resolve_latent_device(torch.from_numpy(lr), 0,
+                                           cfg_scale=2.0, max_batch=2)
+    assert got.shape == (150, C)
+    _assert_close(got.numpy(), want, atol=6e-2)

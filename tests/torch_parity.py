@@ -24,19 +24,20 @@ from jatsr_torch.ops.quant import quantize_params_static
 C = 64  # latent channels: patch width 4 * 2 * 64 = 512, a multiple of 128
 
 
-def narrow_cfg(preset_getter, norm="layer"):
+def narrow_cfg(preset_getter, norm="layer", **knobs):
     """hidden 128, depth 2, 4/2 heads, bottleneck 128 (so the patch embed
-    takes the fused kernel), on the flash / half-MLP int8 serving branch."""
+    takes the fused kernel), on the flash / half-MLP int8 serving branch;
+    ``knobs`` (e.g. ``fused_prologue=True, align_n=True``) on top."""
     return dataclasses.replace(
         preset_getter("tiny").model, bottleneck_dim=128, input_channels=C,
         cond_channels=C, norm=norm, matmul_precision="int8_static",
-        fused_qkv=True, fused_mlp=True, attention_impl="flash")
+        fused_qkv=True, fused_mlp=True, attention_impl="flash", **knobs)
 
 
-def build_pair(norm="layer", seed=0):
+def build_pair(norm="layer", seed=0, **knobs):
     """(jax_model, jax_static_params, torch_model, dense_numpy_params)."""
-    jcfg = narrow_cfg(jax_get_preset, norm)
-    tcfg = narrow_cfg(get_preset, norm)
+    jcfg = narrow_cfg(jax_get_preset, norm, **knobs)
+    tcfg = narrow_cfg(get_preset, norm, **knobs)
     dense = random_dense_params(tcfg, seed)
     jmodel = JaxDiT(jcfg)
     x = jnp.zeros((1, 8, C), jnp.float32)
