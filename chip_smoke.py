@@ -6,26 +6,33 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's two DiT serving paths at full width, each once with
-its launches counted and then timed: the v3 766 M int8 DiT (random weights
-from a seed, quantized by the port) through the Euler CFG sampler over
-~44 s of latent, then the segmented fp32 DAC decode.
+then drives the port's two serving paths end to end at full width, each
+once with its launches counted and then timed: the v3 766 M int8 DiT
+(random weights from a seed, quantized by the port) through the Euler CFG
+sampler over ~44 s of latent, then the segmented DAC decode (two
+2884-frame segments, random weights from a seed).
 
-- The main path is ``bench.py``'s default DiT: the fused prologue with
-  ``align_n`` (352 patches per chunk, keys masked past 345).  Each block
-  runs norm_mod_dot (qkv), flash_qkv, matmul_fused (out_proj) and
-  norm_mod_dense_gelu_quant (mlp_in); the patch embed runs
-  dense_gelu_quant.
-- The path without the prologue (``bench.py --no-fused-prologue``, 345
-  patches) runs flash_qkv and dense_gelu_quant (patch embed and mlp_in).
+- The main path is ``bench.py``'s default end to end: the fused prologue
+  with ``align_n`` (352 patches per chunk, keys masked past 345), where
+  each block runs norm_mod_dot (qkv), flash_qkv, matmul_fused (out_proj)
+  and norm_mod_dense_gelu_quant (mlp_in) and the patch embed runs
+  dense_gelu_quant; then the fused decode (``fused_res_units``): per
+  segment snake_conv_transpose_streamed at stage 0,
+  snake_conv_transpose_fused and res_stage_fused at stages 1-3.
+- The second path is ``bench.py --no-fused-prologue --no-fused-decode``
+  (345 patches): flash_qkv and dense_gelu_quant (patch embed and mlp_in),
+  then the unfused fp32 decode (cuDNN convolutions, TF32 off).
 
-It checks each path's launch counts, the waveform, and each full-width DiT
-on the card against the same DiT's plain path on the CPU at a small input.
+It checks each path's launch counts, the waveform, each full-width DiT on
+the card against the same DiT's plain path on the CPU at a small input,
+the full-width fused decoder on the card against its plain path on the
+CPU (200 latent frames), and the fused decode against the unfused one on
+the card (one segment).
 
 The timed passes of the two paths run in turns.  With ``--profile`` it
-then traces one more sampler call of each path and one more decode with
-``torch.profiler`` and prints, for each, the card's busy share and device
-time and launches by kernel name.
+then traces one more sampler call of each path and one more decode of
+each (fused and unfused) with ``torch.profiler`` and prints, for each, the
+card's busy share and device time and launches by kernel name.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -47,6 +54,7 @@ SEED = 0
 STEPS, CFG_SCALE = 8, 3.0
 LATENT_FRAMES = 3790          # ~44 s: three 16 s chunks with 2 s crossfades
 SEGMENT_FRAMES, CTX_FRAMES = 2756, 64
+DECODE_L = SEGMENT_FRAMES + 2 * CTX_FRAMES  # frames of one decode call
 TIMED_RUNS = 4                # timed serving passes of each path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core FLOP/s
@@ -61,6 +69,7 @@ SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
                gelu_impl="tanh", fast_epilogue=True, int8_impl="xla")
 PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "no_prologue": dict(fused_prologue=False, align_n=False)}
+FUSED_DECODE = {"prologue": True, "no_prologue": False}  # --fused-decode
 
 
 def log(*a):
@@ -108,7 +117,7 @@ def nbytes_of(*tensors) -> int:
     return sum(t.nbytes for t in tensors)
 
 
-def timings(kernel, plain, library, args, big, reps=100):
+def timings(kernel, plain, library, args, big, reps=100, plain_reps=20):
     """Kernel, plain and library ms at ``args``; the inputs at positions
     ``big`` are copied so that the kernel's and the library's calls rotate
     past L2."""
@@ -116,8 +125,8 @@ def timings(kernel, plain, library, args, big, reps=100):
     sets = [tuple(a.clone() if i in big else a for i, a in enumerate(args))
             for _ in range(n)]
     return {"ms": time_ms(kernel, sets, reps),
-            "plain_ms": time_ms(plain, sets[:4], 20),
-            "library_ms": time_ms(library, sets, reps // 2)}
+            "plain_ms": time_ms(plain, sets[:4], plain_reps),
+            "library_ms": time_ms(library, sets, max(2, reps // 2))}
 
 
 def check_attention(torch):
@@ -365,6 +374,227 @@ def check_matmul_fused(torch):
             **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H]}
 
 
+# ---- the fused decode's kernels (B6-B9) ------------------------------------
+# Shapes of one 2884-frame decode segment: (Cin, Cout, stride, T in) of the
+# upsamples, and (C, T) of the residual stages behind them.
+UPSAMPLES = [(1536, 768, 8, DECODE_L), (768, 384, 8, DECODE_L * 8),
+             (384, 192, 4, DECODE_L * 64), (192, 96, 2, DECODE_L * 256)]
+STAGES = [(384, DECODE_L * 64), (192, DECODE_L * 256),
+          (96, DECODE_L * 512)]
+# Max abs error against the plain version, as a share of max |plain|.  The
+# transposes: the same bf16 products with fp32 sums in another order, and
+# ``sinf`` against PyTorch's ``sin``, which can move one bf16 input by one
+# ulp.  The residual units also round an intermediate h to bf16 between
+# their two products: a sum in another order moves some h by one bf16 ulp,
+# which shifts an output by ulp(h) * |w1| (~1e-3 of max |out| at |h| ~ 3),
+# and three chained units carry it on.  Measured on the card: 1.08e-3 at
+# stage 2's B6 (1.4e8 outputs); bound 4e-3.
+REL_TRANSPOSE, REL_UNITS = 1e-3, 4e-3
+
+
+def dac_check(torch, what, kernel, plain, library, args, big, nbytes, ops,
+              rel):
+    """One DAC kernel at one shape against its plain version (max abs error
+    <= ``rel`` x max |plain|), then kernel, plain and library ms."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    scale = want.abs().max().item()
+    beyond = (diff > 1e-3 * scale).float().mean().item()
+    if not bool(torch.isfinite(got).all()) or err > rel * scale:
+        raise AssertionError(f"{what}: max abs error {err} > {rel} x "
+                             f"max |plain| {scale}")
+    del got, want, diff
+    t = timings(kernel, plain, library, args, big, reps=20, plain_reps=3)
+    b_ms, b_by = bound(nbytes, ops, PEAK_BF16)
+    return {"max_abs_err": err, "max_abs_plain": scale,
+            "beyond_1e-3_frac": beyond, **t, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def per_launch(name, source, replaces, shapes):
+    """A kernel's line from its checks at several shapes of the path, each
+    launched equally often there: mean ms per launch, and so on."""
+    n = len(shapes)
+    top = max(shapes, key=lambda s: s["bound_ms"])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            **{k: sum(s[k] for s in shapes) / n
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": top["bound_by"], "shapes": shapes}
+
+
+def unit_inputs(torch, B, T, C, units, seed):
+    """x ~ N(0, 1); weights as the DAC initializer draws them (uniform
+    +-1/sqrt(fan_in)), in the JAX layout, packed to bf16 as the decoder
+    packs them; biases N(0, 0.1^2); snake alphas in [0.5, 1.5)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uni(shape, lim):
+        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                * lim)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    return (normal((B, T, C), 1.0),
+            uni((units, 7, C, C), (7 * C) ** -0.5).bfloat16(),
+            normal((units, C), 0.1),
+            uni((units, C, C), C ** -0.5).bfloat16(), normal((units, C), 0.1),
+            torch.rand((units, C), generator=gen, device="cuda") + 0.5,
+            torch.rand((units, C), generator=gen, device="cuda") + 0.5)
+
+
+def library_units(torch, x, w7s, b7s, w1s, b1s, a1s, a2s, dils):
+    """The yardstick of B6/B9: the units as one PyTorch chain of bf16
+    cuDNN convolutions on [B, C, T] (weights in PyTorch's layout)."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.dac_kernels import snake_b16
+
+    x = x.transpose(1, 2)
+    for u, d in enumerate(dils):
+        y = snake_b16(x, a1s[u][:, None])
+        y = F.conv1d(y, w7s[u], b7s[u], padding=3 * d, dilation=d)
+        y = F.conv1d(snake_b16(y, a2s[u][:, None]), w1s[u], b1s[u])
+        x = x + y.float()
+    return x.transpose(1, 2)
+
+
+def torch_unit_weights(w7s, b7s, w1s, b1s):
+    """JAX-layout unit weights in PyTorch's conv layout, bf16."""
+    return (w7s.permute(0, 3, 2, 1).contiguous(), b7s.bfloat16(),
+            w1s.transpose(1, 2)[..., None].contiguous(), b1s.bfloat16())
+
+
+def check_res(torch, B, T, C, dils):
+    """B6 (three units) or B9 (one unit) at [B, T, C]."""
+    from jatsr_torch.ops import dac_kernels as dk
+
+    units = len(dils)
+    x, w7s, b7s, w1s, b1s, a1s, a2s = unit_inputs(torch, B, T, C, units,
+                                                  SEED + C + units)
+    tw = torch_unit_weights(w7s, b7s, w1s, b1s)
+    if units == 3:
+        def kernel(x, *w):
+            return dk.res_stage_fused(x, w7s, b7s, w1s, b1s, a1s, a2s)
+
+        def plain(x, *w):
+            return dk.res_stage_plain(x, w7s, b7s, w1s, b1s, a1s, a2s)
+    else:
+        def kernel(x, *w):
+            return dk.res_unit_fused(x, w7s[0], b7s[0], w1s[0], b1s[0],
+                                     a1s[0], a2s[0], dilation=dils[0])
+
+        def plain(x, *w):
+            return dk.res_unit_plain(x, w7s[0], b7s[0], w1s[0], b1s[0],
+                                     a1s[0], a2s[0], dils[0])
+
+    def library(x, w7t, b7t, w1t, b1t):
+        return library_units(torch, x, w7t, b7t, w1t, b1t, a1s, a2s, dils)
+
+    nbytes = 2 * x.nbytes + nbytes_of(w7s, b7s, w1s, b1s, a1s, a2s)
+    r = dac_check(torch, f"res units {dils} [{B}, {T}, {C}]", kernel, plain,
+                  library, (x, *tw), big=(0,), nbytes=nbytes,
+                  ops=units * 2 * 8 * C * C * B * T, rel=REL_UNITS)
+    return {"shape": [B, T, C], "dilations": list(dils), **r}
+
+
+def check_transpose(torch, ci, co, s, T):
+    """B7 (Cin in the resident table) or B8 (stage 0) at [1, T, Cin]."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops import dac_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ci)
+    x = torch.randn((1, T, ci), generator=gen, device="cuda")
+    w = ((torch.rand((2 * s, ci, co), generator=gen, device="cuda") * 2 - 1)
+         * (2 * s * ci) ** -0.5).bfloat16()
+    b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+    a = torch.rand((ci,), generator=gen, device="cuda") + 0.5
+    kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+    entry = (dk.snake_conv_transpose_fused if ci in dk._TBLK_TR
+             else dk.snake_conv_transpose_streamed)
+    wt, bt = w.permute(1, 2, 0).contiguous(), b.bfloat16()
+
+    def library(x, wt, bt):
+        return F.conv_transpose1d(dk.snake_b16(x, a).transpose(1, 2), wt, bt,
+                                  **kw).transpose(1, 2)
+
+    m_out = (T - 1) * s - 2 * kw["padding"] + 2 * s + s % 2
+    r = dac_check(torch, f"transpose {ci}->{co} s{s} T {T}",
+                  lambda x, *_: entry(x, w, b, a, **kw),
+                  lambda x, *_: dk.snake_conv_transpose_plain(x, w, b, a,
+                                                              **kw),
+                  library, (x, wt, bt), big=(0,),
+                  nbytes=x.nbytes + nbytes_of(w, b, a) + m_out * co * 4,
+                  ops=4 * ci * co * m_out, rel=REL_TRANSPOSE)
+    return {"shape": [1, T, ci, co], "stride": s, **r}
+
+
+def check_dac_kernels(torch):
+    """The four DAC kernels at the fused decode's shapes (B9 where the
+    decoder would take it: C 192, T 1024, dilation 9)."""
+    replaces = "ops/dac_kernels.py:{} (JAX package, {}; pallas_call :{})"
+    ups = [check_transpose(torch, *u) for u in UPSAMPLES]
+    return {
+        "snake_conv_transpose_streamed": per_launch(
+            "snake_conv_transpose_streamed",
+            "jatsr_torch/ops/csrc/snake_tr.cu",
+            replaces.format(569, "_snake_conv_transpose_streamed", 604),
+            ups[:1]),
+        "snake_conv_transpose_fused": per_launch(
+            "snake_conv_transpose_fused", "jatsr_torch/ops/csrc/snake_tr.cu",
+            replaces.format(486, "snake_conv_transpose_fused", 533),
+            ups[1:]),
+        "res_stage_fused": per_launch(
+            "res_stage_fused", "jatsr_torch/ops/csrc/dac_res.cu",
+            replaces.format(245, "res_stage_fused", 289),
+            [check_res(torch, 1, T, C, (1, 3, 9)) for C, T in STAGES]),
+        "res_unit_fused": per_launch(
+            "res_unit_fused", "jatsr_torch/ops/csrc/dac_res.cu",
+            replaces.format(327, "res_unit_fused", 376),
+            [check_res(torch, 1, 1024, 192, (9,))]),
+    }
+
+
+def check_decode(torch, fused, unfused, segment):
+    """The full-width fused decoder on the card against the same decoder on
+    the CPU (plain versions) at 200 latent frames, where B8, B7 and B6 are
+    all eligible: max abs <= 5e-3, the fp32 decode-parity bound of the
+    repo's DAC tests.  Then the fused decode against the unfused one on the
+    card, at one segment: max abs < 5e-2, the JAX package's fused-decode
+    bound."""
+    import numpy as np
+
+    from jatsr_torch.models.dac import DAC
+    from jatsr_torch.models.dac.model import init_decoder_params
+
+    cfg = fused.cfg
+    z = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (1, 200, cfg.latent_dim)).astype(np.float32))
+    cpu = DAC(init_decoder_params(cfg, SEED), cfg, fused_res_units=True,
+              device="cpu")
+    ref = cpu.decode(z)
+    out = fused.decode(z.cuda()).cpu()
+    err = (out - ref).abs().max().item()
+    log(f"[reference decode] fused decoder, card vs CPU plain path, full "
+        f"width, 200 frames: max abs {err:.3e}, max |ref| "
+        f"{ref.abs().max().item():.3e}")
+    if not bool(torch.isfinite(out).all()) or err > 5e-3:
+        raise AssertionError(f"fused decode: card vs CPU max abs {err} > 5e-3")
+    a, b = fused.decode(segment), unfused.decode(segment)
+    err2 = (a - b).abs().max().item()
+    log(f"[reference decode] fused vs unfused decode on the card, one "
+        f"{segment.shape[1]}-frame segment: max abs {err2:.3e}, max |unfused| "
+        f"{b.abs().max().item():.3e}")
+    if err2 >= 5e-2:
+        raise AssertionError(f"fused vs unfused decode: max abs {err2}")
+
+
 def profile_phase(torch, name, fn):
     """Trace ``fn()`` with torch.profiler: the card's busy share over the
     phase's wall time, and device time and launches by kernel name."""
@@ -509,8 +739,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more sampler call of each path and one "
-                         "decode with torch.profiler")
+                    help="trace one more sampler call and one more decode "
+                         "of each path with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -523,6 +753,7 @@ def main() -> int:
     from jatsr_torch.models.dit import DiT
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.ops import _build
+    from jatsr_torch.ops import dac_kernels as dk
     from jatsr_torch.ops.attention import gqa_attention_flash_qkv
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
                                              int8_matmul_fused)
@@ -543,7 +774,8 @@ def main() -> int:
         raise AssertionError("TF32 must be off")
 
     # 2. Build.
-    sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused")
+    sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
+               "dac_res", "snake_tr")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -574,16 +806,21 @@ def main() -> int:
         **{k: patch[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
+    checks.update(check_dac_kernels(torch))
+    torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
 
-    # 4. The two serving paths at full width, on one set of weights.
+    # 4. The two serving paths at full width, on one set of weights (one
+    #    for the DiT, one for the codec).
     t0 = time.perf_counter()
     static = quantize_params_static(random_dense_params(cfgs["prologue"],
                                                         SEED))
     log(f"[model] v3 int8_static weights: {time.perf_counter() - t0:.1f} s "
         f"to draw and quantize")
-    codec = DAC.random_init(SEED, DACConfig(), device="cuda")
+    codecs = {name: DAC.random_init(SEED, DACConfig(), fused_res_units=f,
+                                    device="cuda")
+              for name, f in FUSED_DECODE.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lr = torch.randn((LATENT_FRAMES, cfgs["prologue"].input_channels),
                      generator=gen, device="cuda")
@@ -591,21 +828,32 @@ def main() -> int:
                 "dense_gelu_quant": int8_dense_gelu_quant,
                 "norm_mod_dot": int8_norm_mod_dot,
                 "matmul_fused": int8_matmul_fused,
-                "norm_mod_dense_gelu_quant": int8_norm_mod_dense_gelu_quant}
+                "norm_mod_dense_gelu_quant": int8_norm_mod_dense_gelu_quant,
+                "snake_conv_transpose_streamed":
+                    dk.snake_conv_transpose_streamed,
+                "snake_conv_transpose_fused": dk.snake_conv_transpose_fused,
+                "res_stage_fused": dk.res_stage_fused,
+                "res_unit_fused": dk.res_unit_fused}
     per_block = STEPS * cfgs["prologue"].depth
+    segments = 2  # 3790 frames: two decode segments, one per decode call
+    fused_decode = {"snake_conv_transpose_streamed": segments,
+                    "snake_conv_transpose_fused": 3 * segments,
+                    "res_stage_fused": 3 * segments, "res_unit_fused": 0}
     expected = {
         "prologue": {"flash_qkv": per_block, "dense_gelu_quant": STEPS,
                      "norm_mod_dot": per_block, "matmul_fused": per_block,
-                     "norm_mod_dense_gelu_quant": per_block},
+                     "norm_mod_dense_gelu_quant": per_block,
+                     **fused_decode},
         "no_prologue": {"flash_qkv": per_block,
                         "dense_gelu_quant": per_block + STEPS,
                         "norm_mod_dot": 0, "matmul_fused": 0,
-                        "norm_mod_dense_gelu_quant": 0},
+                        "norm_mod_dense_gelu_quant": 0,
+                        **{k: 0 for k in fused_decode}},
     }
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
         models[name] = DiT(cfg, static, device="cuda")
-        fns[name] = make_server(torch, models[name], codec, lr)
+        fns[name] = make_server(torch, models[name], codecs[name], lr)
         fns[name][2]()  # warm-up: cuDNN algorithm choice, allocator
     # The main path first: its counts are the kernel line's launches.
     latents = {}
@@ -617,9 +865,12 @@ def main() -> int:
     if args.profile:
         for name, (sample, decode, _) in fns.items():
             profile_phase(torch, f"{name} sampler", sample)
-        profile_phase(torch, "decode", lambda: fns["prologue"][1](
-            latents["prologue"]))
-    del codec, fns, latents
+            profile_phase(torch, f"{name} decode "
+                          f"({'fused' if FUSED_DECODE[name] else 'unfused'})",
+                          lambda: decode(latents[name]))
+    check_decode(torch, codecs["prologue"], codecs["no_prologue"],
+                 latents["prologue"][:DECODE_L][None])
+    del codecs, fns, latents
 
     # 5. Reference on a small input: each full-width DiT on the card
     #    (kernels) and on the CPU (plain versions).  100 frames are 25

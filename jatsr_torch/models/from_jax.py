@@ -10,7 +10,9 @@ numpy's extended ``bfloat16`` dtype), so the port never imports JAX:
   :class:`models.dit.DiT` takes it as it is;
 - the DAC decoder dict ``{"w": [K, Cin, Cout], "b", "alpha"}`` is permuted
   to PyTorch's conv layouts: ``[Cout, Cin, K]`` for a convolution,
-  ``[Cin, Cout, K]`` for the transposed convolutions (the ``up`` layers).
+  ``[Cin, Cout, K]`` for the transposed convolutions (the ``up`` layers);
+  for the fused decode, :func:`dac_fused_pack` also keeps the kernels'
+  weights as bf16 in the JAX layout.
 
 :func:`random_dense_params` makes a dense DiT tree from a seed, for runs on
 a machine without JAX: the JAX init zeroes ``adaln`` and ``final_proj``
@@ -54,6 +56,41 @@ def dac_decoder_from_jax(dec: dict, device="cpu") -> dict:
             out[k] = dac_decoder_from_jax(v, device)
         else:
             out[k] = as_tensor(v).float().to(device)
+    return out
+
+
+def dac_fused_pack(dec: dict, device="cpu") -> dict:
+    """The weights the fused decode kernels read, packed once: per decoder
+    block ``{"up_w": bf16 [K, Cin, Cout]}`` for the polyphase upsample
+    (B7, B8) and, where the block's width is one the residual-unit kernels
+    take (C <= 384), ``w7s`` bf16 ``[3, 7, C, C]``, ``w1s`` bf16
+    ``[3, C, C]`` (the JAX layout, ``[K, Cin, Cout]``) and fp32 ``b7s``,
+    ``b1s``, ``a1s``, ``a2s`` ``[3, C]`` (B6, B9)."""
+    out = {}
+    for name, blk in dec.items():
+        if not name.startswith("block_"):
+            continue
+        up_w = as_tensor(blk["up"]["w"]).to(device, torch.bfloat16)
+        packed = {"up_w": up_w}
+        units = [blk[f"res_{j}"] for j in range(3)]
+        c = as_tensor(units[0]["alpha1"]).shape[0]
+        if c <= 384:
+            def stack(path, dtype):
+                leaves = []
+                for u in units:
+                    for key in path:
+                        u = u[key]
+                    leaves.append(as_tensor(u).to(device, dtype))
+                return torch.stack(leaves)
+
+            packed.update(
+                w7s=stack(("conv1", "w"), torch.bfloat16),
+                w1s=stack(("conv2", "w"), torch.bfloat16).reshape(3, c, c),
+                b7s=stack(("conv1", "b"), torch.float32),
+                b1s=stack(("conv2", "b"), torch.float32),
+                a1s=stack(("alpha1",), torch.float32),
+                a2s=stack(("alpha2",), torch.float32))
+        out[name] = packed
     return out
 
 

@@ -1,0 +1,357 @@
+"""Fused DAC decode kernels: residual units and the polyphase upsample.
+
+Ports of the JAX package's ``ops/dac_kernels.py`` (its B6-B9):
+
+- :func:`res_unit_fused` (B9): one residual unit, snake -> 7-tap dilated
+  conv -> snake -> 1x1 conv -> residual add;
+- :func:`res_stage_fused` (B6): the three units of a decoder stage
+  (dilations 1, 3, 9) in one launch;
+- :func:`snake_conv_transpose_fused` (B7): snake -> ConvTranspose1d with
+  K = 2s, by the polyphase identity
+  ``flat[t*s + p] = snake(x[t]) @ w[p] + snake(x[t-1]) @ w[p+s]``,
+  ``out[m] = flat[m + pad] + b``;
+- :func:`snake_conv_transpose_streamed` (B8): the same product on an input
+  snaked before the launch, for decoder stage 0 (Cin 1536).
+
+Each wrapper dispatches on the tensor's device: a CPU tensor takes the
+plain PyTorch version below, a CUDA tensor launches the hand-written kernel
+(``csrc/dac_res.cu`` for B6 and B9, ``csrc/snake_tr.cu`` for B7 and B8) or
+raises.  Nothing falls back.
+
+Rounding points, as the TPU kernels have them: snake in fp32, then bf16
+(:func:`snake_b16`); bf16 x bf16 products summed in fp32; biases and the
+residual added in fp32.  The plain versions cast to bf16 and back to fp32
+before an fp32 matmul: a product of two bf16 values is exact in fp32, so
+only the order of the fp32 sums differs from the kernels.  Snake runs in
+fp32, the JAX package's default ``SNAKE_COMPUTE_DTYPE``; its bf16 mode is
+not ported.
+
+Weights arrive in the JAX layout (``[K, Cin, Cout]``), in any float dtype;
+the kernels read them as bf16 in that layout, so weights packed once as
+bf16 (``models/from_jax.py:dac_fused_pack``) pass through uncast.
+
+The eligibility gates and their block tables are copied from the JAX
+package as module-level names: they are TPU schedule numbers, but they
+decide which branch the decoder takes, and a test can shrink them on both
+sides alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+# ---- eligibility gates (copied from the JAX package) ----------------------
+
+_ROWS_BUDGET = 245760
+
+
+def _tblk_for(c: int) -> int:
+    if c >= 768:
+        return 128
+    t = max(512, _ROWS_BUDGET // c)
+    return (t // 8) * 8
+
+
+def res_unit_supported(c: int, t: int, dilation: int) -> bool:
+    """Where the decoder runs a residual unit through B9."""
+    cp = -(-c // 128) * 128
+    return c <= 384 and t >= _tblk_for(cp) + 6 * dilation
+
+
+_STAGE_MARGIN = 39  # 3*d summed over the stage's dilations (1, 3, 9)
+
+
+def _stage_tblk(cp: int) -> int:
+    return {128: 1920, 256: 960, 384: 384}.get(cp, max(256, 245760 // cp))
+
+
+def res_stage_supported(c: int, t: int) -> bool:
+    """Where the decoder runs a stage's three residual units through B6."""
+    cp = -(-c // 128) * 128
+    return c <= 384 and t >= _stage_tblk(cp) + 2 * _STAGE_MARGIN
+
+
+_TBLK_TR = {768: 96, 384: 256, 192: 512}  # Cin with resident weights (B7)
+_TBLK_TR_STREAM = 160                     # phase-streamed rows (B8)
+
+
+def conv_transpose_supported(c_in: int, c_out: int, stride: int,
+                             k: int, t: int) -> bool:
+    """Where the decoder runs an upsample through B7 (Cin in ``_TBLK_TR``)
+    or B8 (other Cin, a multiple of 128)."""
+    if k != 2 * stride:
+        return False
+    if c_in in _TBLK_TR:
+        return t >= _TBLK_TR[c_in]
+    return c_in % 128 == 0 and t >= _TBLK_TR_STREAM
+
+
+# ---- plain versions -------------------------------------------------------
+
+
+def snake_b16(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``x + (1/(a + 1e-9)) * sin(a*x)^2`` in fp32, then bf16."""
+    xf, af = x.float(), a.float()
+    return (xf + (1.0 / (af + 1e-9)) * torch.sin(af * xf).square()) \
+        .to(torch.bfloat16)
+
+
+def _b16(w: torch.Tensor) -> torch.Tensor:
+    """bf16 values as fp32: the kernels' weight operand."""
+    return w.to(torch.bfloat16).float()
+
+
+def res_unit_plain(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int):
+    """Plain version of B9 on ``x [B, T, C]``; ``w7 [7, C, C]``,
+    ``w1 [C, C]``."""
+    T = x.shape[1]
+    d = dilation
+    y = F.pad(snake_b16(x, alpha1).float(), (0, 0, 3 * d, 3 * d))
+    w7f = _b16(w7)
+    acc = y[:, :T] @ w7f[0]
+    for k in range(1, 7):
+        acc = acc + y[:, k * d: k * d + T] @ w7f[k]
+    y2 = snake_b16(acc + b7.float(), alpha2).float()
+    y3 = y2 @ _b16(w1.reshape(w1.shape[-2:]))
+    return x + y3 + b1.float()
+
+
+def res_stage_plain(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s,
+                    dilations=(1, 3, 9)):
+    """Plain version of B6: three :func:`res_unit_plain` in a row, so it is
+    bit-identical to composing B9's plain version."""
+    for u, d in enumerate(dilations):
+        x = res_unit_plain(x, w7s[u], b7s[u], w1s[u], b1s[u], alpha1s[u],
+                           alpha2s[u], d)
+    return x
+
+
+def polyphase_plain(y, w, b, *, stride: int, padding: int,
+                    output_padding: int = 0):
+    """The polyphase product of B7 and B8 on the snaked bf16 ``y [B, T,
+    Cin]``: ``flat[t*s + p] = y[t] @ w[p] + y[t-1] @ w[p+s] + b`` for
+    t in [0, T], then ``out = flat[pad : pad + m_out]``."""
+    bsz, t, ci = y.shape
+    k, _, co = w.shape
+    s = stride
+    yf = y.float()
+    cur = F.pad(yf, (0, 0, 0, 1))     # row t: y[t] (row T is zero)
+    prev = F.pad(yf, (0, 0, 1, 0))    # row t: y[t-1] (row 0 is zero)
+    wf = _b16(w)
+    wp = wf[:s].permute(1, 0, 2).reshape(ci, s * co)
+    ws = wf[s:].permute(1, 0, 2).reshape(ci, s * co)
+    flat = (cur @ wp + prev @ ws) + b.float().repeat(s)
+    m_out = (t - 1) * s - 2 * padding + k + output_padding
+    return flat.reshape(bsz, (t + 1) * s, co)[:, padding: padding + m_out]
+
+
+def snake_conv_transpose_plain(x, w, b, alpha, *, stride: int, padding: int,
+                               output_padding: int = 0):
+    """Plain version of B7 and B8: :func:`polyphase_plain` on
+    ``snake_b16(x)``."""
+    return polyphase_plain(snake_b16(x, alpha), w, b, stride=stride,
+                           padding=padding, output_padding=output_padding)
+
+
+# ---- wrappers -------------------------------------------------------------
+
+
+def _batched(x):
+    return (x[None], True) if x.dim() == 2 else (x, False)
+
+
+def _check_channels(what, *widths):
+    """The kernels copy 16-byte chunks of bf16 rows: channel counts must be
+    multiples of 8."""
+    if any(c % 8 for c in widths):
+        raise ValueError(f"{what}: channel widths {widths} must be multiples "
+                         f"of 8")
+
+
+def res_stage_fused(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s,
+                    dilations=(1, 3, 9)):
+    """Three chained residual units (one decoder stage) in one launch.
+
+    Args:
+        x: [T, C] or [B, T, C] fp32 activation.
+        w7s: [3, 7, C, C] stacked dilated-conv kernels ([K, Cin, Cout]
+            each), b7s: [3, C].
+        w1s: [3, C, C] stacked 1x1 kernels, b1s: [3, C].
+        alpha1s/alpha2s: [3, C] snake parameters.
+    Returns:
+        same shape as x, fp32.
+    """
+    if tuple(dilations) != (1, 3, 9):
+        raise ValueError(f"res_stage_fused runs dilations (1, 3, 9), got "
+                         f"{tuple(dilations)}")
+    x, squeeze = _batched(x)
+    c = x.shape[2]
+    w1s = w1s.reshape(3, c, c)
+    if x.device.type == "cpu":
+        out = res_stage_plain(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s)
+    else:
+        out = _launch_res(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s,
+                          tuple(dilations), "res_stage_fused")
+        res_stage_fused.launches += 1
+    return out[0] if squeeze else out
+
+
+res_stage_fused.launches = 0
+
+
+def res_unit_fused(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int):
+    """Fused snake -> conv7(dilated, pad 3d) -> snake -> conv1x1 -> +x.
+
+    Args:
+        x: [T, C] or [B, T, C] fp32 activation.
+        w7: [7, C, C] conv kernel ([K, Cin, Cout]), b7: [C].
+        w1: [1, C, C] or [C, C] 1x1 kernel, b1: [C].
+        alpha1/alpha2: [C] snake parameters.
+    Returns:
+        same shape as x, fp32.
+    """
+    x, squeeze = _batched(x)
+    c = x.shape[2]
+    w1 = w1.reshape(c, c)
+    if x.device.type == "cpu":
+        out = res_unit_plain(x, w7, b7, w1, b1, alpha1, alpha2, dilation)
+    else:
+        out = _launch_res(x, w7[None], b7[None], w1[None], b1[None],
+                          alpha1[None], alpha2[None], (dilation,),
+                          "res_unit_fused")
+        res_unit_fused.launches += 1
+    return out[0] if squeeze else out
+
+
+res_unit_fused.launches = 0
+
+
+def _launch_res(x, w7s, b7s, w1s, b1s, a1s, a2s, dils, what):
+    from . import _build
+
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes fp32, got {x.dtype}")
+    B, T, C = x.shape
+    U = len(dils)
+    _check_channels(what, C)
+    if w7s.shape != (U, 7, C, C) or w1s.shape != (U, C, C):
+        raise ValueError(f"{what}: weights {tuple(w7s.shape)}, "
+                         f"{tuple(w1s.shape)} do not fit C = {C}")
+    lib = _build.load("dac_res")
+    fn = lib.res_units
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    dev = x.device
+    x = _build.aligned(x)
+    rows = [_build.aligned(v.reshape(U, C).float()) for v in
+            (b7s, b1s, a1s, a2s)]
+    w7b = _build.aligned(w7s.to(torch.bfloat16))
+    w1b = _build.aligned(w1s.to(torch.bfloat16))
+    out = torch.empty_like(x)
+    y = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
+    h = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    d = list(dils) + [0] * (3 - U)
+    err = fn(x.data_ptr(), out.data_ptr(), y.data_ptr(), h.data_ptr(),
+             bar.data_ptr(), w7b.data_ptr(), rows[0].data_ptr(),
+             w1b.data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+             rows[3].data_ptr(), B, T, C, U, *d, _build.stream_ptr(dev))
+    _build.check(lib, err, what)
+    return out
+
+
+def snake_conv_transpose_fused(x, w, b, alpha, *, stride: int, padding: int,
+                               output_padding: int = 0):
+    """snake(x) -> conv_transpose in one kernel (B7); Cin outside
+    ``_TBLK_TR`` goes to :func:`snake_conv_transpose_streamed` (B8), as in
+    the JAX package.
+
+    Args:
+        x: [B, T, Cin] fp32 (or [T, Cin]).
+        w: [K, Cin, Cout] transpose-conv weights (K = 2*stride).
+        b: [Cout] bias.  alpha: [Cin] snake parameter.
+    Returns [B, (T-1)*stride - 2*padding + K + output_padding, Cout].
+    """
+    x, squeeze = _batched(x)
+    k = w.shape[0]
+    if k != 2 * stride:
+        raise ValueError(f"polyphase transpose needs K = 2*stride, got K={k}, "
+                         f"stride={stride}")
+    if x.shape[2] not in _TBLK_TR:
+        out = snake_conv_transpose_streamed(
+            x, w, b, alpha, stride=stride, padding=padding,
+            output_padding=output_padding)
+    elif x.device.type == "cpu":
+        out = snake_conv_transpose_plain(x, w, b, alpha, stride=stride,
+                                         padding=padding,
+                                         output_padding=output_padding)
+    else:
+        out = _launch_tr(x, alpha, w, b, stride, padding, output_padding,
+                         "snake_conv_transpose_fused")
+        snake_conv_transpose_fused.launches += 1
+    return out[0] if squeeze else out
+
+
+snake_conv_transpose_fused.launches = 0
+
+
+def snake_conv_transpose_streamed(x, w, b, alpha, *, stride: int,
+                                  padding: int, output_padding: int = 0):
+    """The polyphase transpose (B8) on ``snake_b16(x)``, computed before the
+    launch as one elementwise pass (what the JAX package leaves to XLA).
+
+    Args and result as :func:`snake_conv_transpose_fused`.
+    """
+    x, squeeze = _batched(x)
+    y = snake_b16(x, alpha)
+    if x.device.type == "cpu":
+        out = polyphase_plain(y, w, b, stride=stride, padding=padding,
+                              output_padding=output_padding)
+    else:
+        out = _launch_tr(y, None, w, b, stride, padding, output_padding,
+                         "snake_conv_transpose_streamed")
+        snake_conv_transpose_streamed.launches += 1
+    return out[0] if squeeze else out
+
+
+snake_conv_transpose_streamed.launches = 0
+
+
+def _launch_tr(x, alpha, w, b, s, pad, op, what):
+    """B7 (``alpha`` given: fp32 x, snaked inside) or B8 (``alpha`` None:
+    bf16 y, snaked already)."""
+    from . import _build
+
+    want = torch.float32 if alpha is not None else torch.bfloat16
+    if x.dtype != want:
+        raise TypeError(f"{what} kernel takes {want}, got {x.dtype}")
+    B, T, ci = x.shape
+    k, ci2, co = w.shape
+    _check_channels(what, ci, co)
+    if ci2 != ci or k != 2 * s:
+        raise ValueError(f"{what}: weight {tuple(w.shape)} does not fit "
+                         f"Cin = {ci}, stride {s}")
+    m_out = (T - 1) * s - 2 * pad + k + op
+    lib = _build.load("snake_tr")
+    fn = lib.snake_conv_transpose
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    dev = x.device
+    x = _build.aligned(x)
+    wb = _build.aligned(w.to(torch.bfloat16))
+    bias = b.float().contiguous()
+    a = alpha.float().contiguous() if alpha is not None else None
+    y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev) \
+        if alpha is not None else None
+    out = torch.empty((B, m_out, co), dtype=torch.float32, device=dev)
+    err = fn(x.data_ptr(), a.data_ptr() if a is not None else None,
+             y.data_ptr() if y is not None else None, wb.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), B, T, ci, co, s, pad, m_out,
+             _build.stream_ptr(dev))
+    _build.check(lib, err, what)
+    return out

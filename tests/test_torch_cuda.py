@@ -16,6 +16,14 @@ dense+GELU bound and the qkv outputs agree to one bf16 ulp (rtol 2^-7) on
 all but 0.5% (a moved code shifts its whole row by w/127 of a column,
 and so the mlp_in row's scale, by up to ~1e-3: rtol 2e-3 there); the
 fused W8A8 product is bit-equal (no sum before the exact product).
+The DAC transposes (B7, B8): max abs error <= 1e-3 * max |plain| (the
+same bf16 products with fp32 sums in another order, and ``sinf`` against
+PyTorch's ``sin``, which can move one bf16 input by one ulp); the residual
+units (B9, B6) 4e-3, as ``chip_smoke.py`` states: a sum in another order
+moves some of their bf16 intermediates by one ulp, ~1e-3 of an output
+each (1.08e-3 measured at stage 2's B6).  The fused decode on the card
+against the CPU: max abs 5e-3, the fp32 decode bound of
+``tests/test_dac.py``.
 """
 
 import numpy as np
@@ -23,6 +31,7 @@ import pytest
 import torch
 
 from jatsr_torch.models.dit import rope_cos_sin
+from jatsr_torch.ops import dac_kernels as dk
 from jatsr_torch.ops.attention import flash_qkv_plain, gqa_attention_flash_qkv
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
                                          int8_dense_gelu_quant,
@@ -203,3 +212,102 @@ def test_narrow_dit_on_card_matches_cpu(card, knobs):
                                           x_c.cuda()).cpu()
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+def _assert_rel(got, want, rel=1e-3):
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+def _dac_unit_inputs(card, B, T, C, units, seed):
+    """x ~ N(0, 1); weights as the DAC initializer draws them (uniform
+    +-1/sqrt(fan_in)); biases N(0, 0.1^2); snake alphas in [0.5, 1.5)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def uni(shape, lim):
+        return (torch.rand(shape, generator=gen, device=card) * 2 - 1) * lim
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=card) * scale
+
+    return (normal((B, T, C), 1.0), uni((units, 7, C, C), (7 * C) ** -0.5),
+            normal((units, C), 0.1), uni((units, C, C), C ** -0.5),
+            normal((units, C), 0.1),
+            torch.rand((units, C), generator=gen, device=card) + 0.5,
+            torch.rand((units, C), generator=gen, device=card) + 0.5)
+
+
+@pytest.mark.parametrize("B,T,C,d", [(2, 1001, 96, 3), (1, 1024, 192, 9)])
+def test_res_unit_kernel_matches_plain(card, B, T, C, d):
+    x, w7, b7, w1, b1, a1, a2 = _dac_unit_inputs(card, B, T, C, 1, seed=11)
+    n0 = dk.res_unit_fused.launches
+    got = dk.res_unit_fused(x, w7[0], b7[0], w1[0], b1[0], a1[0], a2[0],
+                            dilation=d)
+    assert dk.res_unit_fused.launches == n0 + 1
+    _assert_rel(got, dk.res_unit_plain(x, w7[0], b7[0], w1[0], b1[0], a1[0],
+                                       a2[0], d), 4e-3)
+
+
+@pytest.mark.parametrize("B,T,C", [(2, 777, 96), (1, 184576, 384)])
+def test_res_stage_kernel_matches_plain(card, B, T, C):
+    args = _dac_unit_inputs(card, B, T, C, 3, seed=12)
+    n0 = dk.res_stage_fused.launches
+    got = dk.res_stage_fused(*args)
+    assert dk.res_stage_fused.launches == n0 + 1
+    _assert_rel(got, dk.res_stage_plain(*args), 4e-3)
+
+
+def _tr_inputs(card, B, T, ci, co, s, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((B, T, ci), generator=gen, device=card)
+    w = (torch.rand((2 * s, ci, co), generator=gen, device=card) * 2 - 1) \
+        * (2 * s * ci) ** -0.5
+    b = 0.1 * torch.randn((co,), generator=gen, device=card)
+    a = torch.rand((ci,), generator=gen, device=card) + 0.5
+    return x, w, b, a
+
+
+@pytest.mark.parametrize("B,T,ci,co,s", [(2, 101, 192, 96, 2),
+                                         (2, 100, 384, 192, 4),
+                                         (1, 23072, 768, 384, 8)])
+def test_snake_conv_transpose_kernel_matches_plain(card, B, T, ci, co, s):
+    x, w, b, a = _tr_inputs(card, B, T, ci, co, s, seed=13)
+    kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+    n0 = dk.snake_conv_transpose_fused.launches
+    got = dk.snake_conv_transpose_fused(x, w, b, a, **kw)
+    assert dk.snake_conv_transpose_fused.launches == n0 + 1
+    _assert_rel(got, dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+
+
+@pytest.mark.parametrize("B,T,ci,co,s", [(2, 77, 1024, 200, 4),
+                                         (1, 2884, 1536, 768, 8)])
+def test_snake_conv_transpose_streamed_kernel_matches_plain(card, B, T, ci,
+                                                            co, s):
+    x, w, b, a = _tr_inputs(card, B, T, ci, co, s, seed=14)
+    kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+    n0 = dk.snake_conv_transpose_streamed.launches
+    got = dk.snake_conv_transpose_streamed(x, w, b, a, **kw)
+    assert dk.snake_conv_transpose_streamed.launches == n0 + 1
+    _assert_rel(got, dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+
+
+def test_fused_decode_on_card_matches_cpu(card):
+    """The full-width fused decoder at 172 frames (B8 once, B7 and B6
+    three times each) on the card against its plain path on the CPU."""
+    from jatsr_torch.models.dac import DAC, DACConfig
+    from jatsr_torch.models.dac.model import init_decoder_params
+
+    cfg = DACConfig()
+    dec = init_decoder_params(cfg, seed=15)
+    z = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (1, 172, cfg.latent_dim)).astype(np.float32))
+    counters = (dk.snake_conv_transpose_streamed,
+                dk.snake_conv_transpose_fused, dk.res_stage_fused,
+                dk.res_unit_fused)
+    n0 = [f.launches for f in counters]
+    got = DAC(dec, cfg, fused_res_units=True, device="cuda").decode(
+        z.cuda()).cpu()
+    assert [f.launches - n for f, n in zip(counters, n0)] == [1, 3, 3, 0]
+    want = DAC(dec, cfg, fused_res_units=True, device="cpu").decode(z)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-3

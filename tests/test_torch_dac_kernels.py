@@ -1,0 +1,247 @@
+"""The port's fused DAC decode kernels (B6-B9) against the JAX package's,
+and the port's fused decoder against JAX's, on the CPU.
+
+The JAX side runs its Pallas kernels in interpret mode, as its own tests
+do (``tests/test_dac_kernels.py``), with the same block tables shrunk on
+both sides where those tests shrink them.  The port's wrappers run their
+plain versions here (CPU tensors).  Inputs come from a numpy seed.
+
+Tolerance: max |port - JAX| <= 1e-3 * max |JAX| for the polyphase
+transpose (B7, B8).  Both sides take the same bf16 x bf16 products summed
+in fp32, but in another order, and the CPU's ``torch.sin`` and XLA's
+``sin`` may differ in the last fp32 bit, which can move one bf16 input of
+a product by one ulp (2^-8 relative).  The residual units (B9, B6) round
+an intermediate to bf16 between their two products: a sum in another
+order moves about 1 % of those intermediates by one bf16 ulp, and one such
+move shifts an output by ulp(h) * |w1|.  Measured on these inputs: up to
+9.9e-4 * max |JAX| for one unit, 1.6e-3 for three chained units; bound
+4e-3 for both.  The decoder's waveform: max abs <= 5e-3, the fp32
+decode-parity bound of ``tests/test_dac.py``.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jatsr_tpu.models.dac import DACConfig as JaxDACConfig
+from jatsr_tpu.models.dac.model import decoder_forward as jax_decoder_forward
+from jatsr_tpu.models.dac.model import init_params as jax_dac_init
+from jatsr_tpu.ops import dac_kernels as jdk
+from jatsr_torch.models.dac import DAC, DACConfig
+from jatsr_torch.ops import dac_kernels as dk
+
+REL = 1e-3       # B7, B8
+REL_UNIT = 4e-3  # B9, B6: see the module docstring
+
+
+def _assert_rel(got, want, rel=REL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= rel * float(np.abs(want).max()), (err, rel)
+
+
+def _unit_inputs(seed, T, C, units=None, batch=None):
+    """x, w7, b7, w1, b1, a1, a2 as the JAX kernel tests draw them (with a
+    leading units axis when ``units`` is given)."""
+    rng = np.random.default_rng(seed)
+    u = () if units is None else (units,)
+    xs = (T, C) if batch is None else (batch, T, C)
+
+    def normal(shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return (normal(xs), normal(u + (7, C, C), 0.05), normal(u + (C,), 0.1),
+            normal(u + (C, C), 0.05), normal(u + (C,), 0.1),
+            np.abs(normal(u + (C,))) + 0.5, np.abs(normal(u + (C,))) + 0.5)
+
+
+def _both(args):
+    return ([jnp.asarray(a) for a in args],
+            [torch.from_numpy(a) for a in args])
+
+
+@pytest.mark.parametrize("C,T,dilation", [(128, 3200, 1), (128, 3200, 3),
+                                          (128, 3200, 9), (96, 2000, 9)])
+def test_res_unit_matches_jax(C, T, dilation):
+    assert dk.res_unit_supported(C, T, dilation)
+    assert jdk.res_unit_supported(C, T, dilation)
+    j, t = _both(_unit_inputs(C + dilation, T, C))
+    want = jdk.res_unit_fused(*j, dilation=dilation, interpret=True)
+    got = dk.res_unit_fused(*t, dilation=dilation)
+    _assert_rel(got, want, REL_UNIT)
+
+
+def test_res_stage_matches_jax():
+    C, T = 128, 4100  # not a multiple of the JAX block: its tail block
+    assert dk.res_stage_supported(C, T) and jdk.res_stage_supported(C, T)
+    j, t = _both(_unit_inputs(3, T, C, units=3))
+    want = jdk.res_stage_fused(*j, interpret=True)
+    got = dk.res_stage_fused(*t)
+    _assert_rel(got, want, REL_UNIT)
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+def test_res_stage_is_three_units_bit_for_bit(batch):
+    x, w7s, b7s, w1s, b1s, a1s, a2s = (
+        torch.from_numpy(a) for a in _unit_inputs(4, 700, 96, units=3,
+                                                  batch=batch))
+    got = dk.res_stage_fused(x, w7s, b7s, w1s, b1s, a1s, a2s)
+    want = x
+    for u, d in enumerate((1, 3, 9)):
+        want = dk.res_unit_fused(want, w7s[u], b7s[u], w1s[u][None], b1s[u],
+                                 a1s[u], a2s[u], dilation=d)
+    assert torch.equal(got, want)
+
+
+def _tr_inputs(seed, ci, co, s, T):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, T, ci)).astype(np.float32)
+    w = (rng.standard_normal((2 * s, ci, co)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    a = (np.abs(rng.standard_normal(ci)) + 0.5).astype(np.float32)
+    return x, w, b, a
+
+
+@pytest.mark.parametrize("ci,co,s,T", [
+    (192, 96, 2, 150), (192, 96, 2, 151), (384, 192, 4, 130),
+    (384, 192, 4, 131), (768, 384, 8, 65), (768, 384, 8, 66)])
+def test_snake_conv_transpose_matches_jax(monkeypatch, ci, co, s, T):
+    table = {192: 64, 384: 64, 768: 64}
+    monkeypatch.setattr(jdk, "_TBLK_TR", table)
+    monkeypatch.setattr(dk, "_TBLK_TR", dict(table))
+    assert dk.conv_transpose_supported(ci, co, s, 2 * s, T)
+    kw = dict(stride=s, padding=math.ceil(s / 2), output_padding=s % 2)
+    j, t = _both(_tr_inputs(ci + T, ci, co, s, T))
+    want = jdk.snake_conv_transpose_fused(*j, **kw, interpret=True)
+    got = dk.snake_conv_transpose_fused(*t, **kw)
+    assert got.shape[1] == (T - 1) * s - 2 * kw["padding"] + 2 * s + s % 2
+    _assert_rel(got, want)
+
+
+@pytest.mark.parametrize("ci,co,s,T", [(1536, 768, 8, 40), (1024, 200, 4, 70)])
+def test_snake_conv_transpose_streamed_matches_jax(monkeypatch, ci, co, s, T):
+    monkeypatch.setattr(jdk, "_TBLK_TR_STREAM", 32)
+    monkeypatch.setattr(dk, "_TBLK_TR_STREAM", 32)
+    assert dk.conv_transpose_supported(ci, co, s, 2 * s, T)
+    kw = dict(stride=s, padding=math.ceil(s / 2), output_padding=s % 2)
+    j, t = _both(_tr_inputs(ci, ci, co, s, T))
+    want = jdk.snake_conv_transpose_fused(*j, **kw, interpret=True)
+    got = dk.snake_conv_transpose_streamed(*t, **kw)
+    _assert_rel(got, want)
+    # The fused entry hands a Cin outside _TBLK_TR to the streamed one.
+    torch.testing.assert_close(dk.snake_conv_transpose_fused(*t, **kw), got,
+                               atol=0, rtol=0)
+
+
+def _record(monkeypatch, module, names, calls, kind_of):
+    for name in names:
+        fn = getattr(module, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            calls.append(kind_of(_name, a, kw))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+
+def _kind(name, a, kw):
+    x = a[0]
+    if name == "res_unit_fused":
+        return ("B9", x.shape[-1], x.shape[-2], kw["dilation"])
+    if name == "res_stage_fused":
+        return ("B6", x.shape[-1], x.shape[-2])
+    if name == "snake_conv_transpose_streamed":
+        return ("B8", x.shape[-1], x.shape[-2])
+    return ("tr", x.shape[-1], x.shape[-2])
+
+
+# (frames, expected calls): 172 frames is the JAX package's fused-decoder
+# geometry (B8 at stage 0, B7 and B6 at stages 1-3); at 4 frames stage 2's
+# T = 1024 is too short for B6 but long enough for B9, and the first two
+# upsamples are too short for B8/B7.
+DECODES = [(172, {"B8": 1, "tr": 4, "B6": 3, "B9": 0}),
+           (4, {"B8": 0, "tr": 2, "B6": 1, "B9": 3})]
+
+
+@pytest.mark.parametrize("frames,expected", DECODES)
+def test_fused_decoder_matches_jax_and_takes_the_same_branches(
+        monkeypatch, frames, expected):
+    monkeypatch.setattr(jdk, "ALLOW_INTERPRET_DISPATCH", True)
+    cfg = DACConfig()
+    params = jax_dac_init(jax.random.PRNGKey(0), JaxDACConfig())
+    codec = DAC(_numpy_tree(params["decoder"]), cfg, fused_res_units=True,
+                device="cpu")
+    z = np.random.default_rng(1).standard_normal(
+        (1, frames, cfg.latent_dim)).astype(np.float32)
+
+    jax_calls, port_calls = [], []
+    entries = ["res_unit_fused", "res_stage_fused",
+               "snake_conv_transpose_fused"]
+    _record(monkeypatch, jdk, entries, jax_calls, _kind)
+    _record(monkeypatch, dk, entries + ["snake_conv_transpose_streamed"],
+            port_calls, _kind)
+    want = jax_decoder_forward(params, jnp.asarray(z), JaxDACConfig(),
+                               fused_res_units=True)
+    got = codec.decode(torch.from_numpy(z))
+
+    assert [c for c in port_calls if c[0] != "B8"] == jax_calls
+    b8 = [c for c in jax_calls if c[0] == "tr" and c[1] not in dk._TBLK_TR]
+    assert [c for c in port_calls if c[0] == "B8"] == \
+        [("B8",) + c[1:] for c in b8]
+    counts = {k: sum(c[0] == k for c in port_calls) for k in expected}
+    assert counts == expected, counts
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == want.shape == (1, frames * 512, 1)
+    assert float(np.abs(got - want).max()) <= 5e-3
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def test_port_fused_decoder_matches_its_unfused_decoder():
+    """The JAX package's fused-vs-unfused bound (5e-2,
+    ``tests/test_dac_kernels.py``) on the port alone, at 172 frames."""
+    from jatsr_torch.models.dac.model import init_decoder_params
+
+    cfg = DACConfig()
+    dec = init_decoder_params(cfg, seed=2)
+    z = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 172, cfg.latent_dim)).astype(np.float32))
+    fused = DAC(dec, cfg, fused_res_units=True, device="cpu").decode(z)
+    plain = DAC(dec, cfg, device="cpu").decode(z)
+    assert fused.shape == plain.shape == (1, 172 * 512, 1)
+    assert float((fused - plain).abs().max()) < 5e-2
+
+
+def test_dac_fused_res_units_no_longer_raises():
+    small = DACConfig(encoder_dim=256, encoder_rates=(2, 4), decoder_dim=16,
+                      decoder_rates=(4, 2))
+    codec = DAC.random_init(0, small, fused_res_units=True, device="cpu")
+    assert codec.fused_res_units
+    packed = codec.decoder["block_0"]["fused"]
+    assert packed["up_w"].dtype == torch.bfloat16
+    assert packed["w7s"].shape == (3, 7, 8, 8)
+    wav = codec.decode(torch.zeros(1, 5, small.latent_dim))
+    assert wav.shape == (1, 5 * small.hop_length, 1)
+
+
+def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
+    n0 = (dk.res_stage_fused.launches, dk.res_unit_fused.launches,
+          dk.snake_conv_transpose_fused.launches,
+          dk.snake_conv_transpose_streamed.launches)
+    x, w7, b7, w1, b1, a1, a2 = (torch.from_numpy(a)
+                                 for a in _unit_inputs(5, 64, 16))
+    dk.res_unit_fused(x, w7, b7, w1, b1, a1, a2, dilation=1)
+    xt, w, b, a = (torch.from_numpy(v) for v in _tr_inputs(6, 192, 96, 2, 9))
+    dk.snake_conv_transpose_fused(xt, w, b, a, stride=2, padding=1,
+                                  output_padding=0)
+    assert (dk.res_stage_fused.launches, dk.res_unit_fused.launches,
+            dk.snake_conv_transpose_fused.launches,
+            dk.snake_conv_transpose_streamed.launches) == n0
