@@ -29,10 +29,20 @@ the full-width fused decoder on the card against its plain path on the
 CPU (200 latent frames), and the fused decode against the unfused one on
 the card (one segment).
 
-The timed passes of the two paths run in turns.  With ``--profile`` it
-then traces one more sampler call of each path and one more decode of
-each (fused and unfused) with ``torch.profiler`` and prints, for each, the
-card's busy share and device time and launches by kernel name.
+Then the training path: the training attention kernel (B10, forward and
+backward) against its plain versions at the v3 training shapes, then the
+``v3mod2`` train step at full width (766 M, batch 28 of 1378 frames, remat
+"full", dropout 0.1, drop-path 0.05; the serving phase's dense weights):
+``create_train_state``, one counted step (B10 forward 56, backward 28),
+timed steps (finite losses, moved parameters), and one step of the same
+model (all 28 blocks, batch 4) on the card against the CPU (plain
+versions) on the same weights, batch and draws.
+
+The timed passes of the two serving paths run in turns.  With
+``--profile`` it then traces one more sampler call of each path, one more
+decode of each (fused and unfused) and one more train step with
+``torch.profiler`` and prints, for each, the card's busy share and device
+time and launches by kernel name.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -60,6 +70,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core OP/s
 B, NP, N_VALID, H = 6, 352, 345, 1280   # the main path's DiT batch and rows
+# The training path: v3mod2 at its batch of 16 s crops; a short warmup so
+# that the timed steps move the parameters (step 0 has lr 0, step 1 half).
+TRAIN_B, TRAIN_FRAMES, TRAIN_N = 28, 1378, 345
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+REF_B = 4                     # the card-vs-CPU train step's batch
 
 # bench.py's DiT at full width: its default (the fused prologue, which
 # implies align_n), and --no-fused-prologue.
@@ -595,6 +610,19 @@ def check_decode(torch, fused, unfused, segment):
         raise AssertionError(f"fused vs unfused decode: max abs {err2}")
 
 
+# Kernel-name substrings by kind, for the profile's summary (first match;
+# the port's kernels, all in anonymous namespaces, are matched first by
+# their name's prefix).
+PROFILE_GROUPS = (
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "Kernel2")),
+    ("FFT", ("fft", "FFT", "regular_fft", "vector_fft")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "cat_", "CatArray")),
+    ("elementwise", ("elementwise", "distribution")),
+)
+
+
 def profile_phase(torch, name, fn):
     """Trace ``fn()`` with torch.profiler: the card's busy share over the
     phase's wall time, and device time and launches by kernel name."""
@@ -622,6 +650,16 @@ def profile_phase(torch, name, fn):
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     log(f"[profile {name}] wall {wall / 1e3:.1f} ms (traced), device busy "
         f"{busy / 1e3:.1f} ms = {busy / wall:.1%}, {len(kernels)} kernels")
+    groups = {}
+    for kname, (us, n) in by_name.items():
+        g = "port kernels" if kname.startswith("(anonymous namespace)::") \
+            else next((g for g, keys in PROFILE_GROUPS if any(
+                k in kname for k in keys)), "other")
+        gu, gn = groups.get(g, (0.0, 0))
+        groups[g] = (gu + us, gn + n)
+    log(f"[profile {name}] by kind: " + "; ".join(
+        f"{g} {us / 1e3:.2f} ms ({us / busy:.1%}, {n}x)"
+        for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:24]:
         log(f"[profile {name}] {us / 1e3:8.2f} ms {us / busy:6.1%} "
             f"{n:6d}x  {kname[:100]}")
@@ -732,6 +770,289 @@ def check_reference(torch, name, model, cpu_model, frames):
                              f"path: rel L2 {rel} > 5e-2")
 
 
+# ---- the training path: B10 and the v3mod2 train step ----------------------
+# B10's backward against its plain version: max abs <= 1e-2 x max |plain|
+# per gradient.  Its outputs are bf16 (half an ulp is 2e-3 of a value near
+# the top of the range) and ds rounds to bf16 before the dk and dq products,
+# so where the kernel's fp32 sums run in another order some ds move by one
+# ulp; measured 4.3e-3 x max at this shape.
+REL_ATTN_BWD = 1e-2
+
+
+def check_attention_train(torch):
+    """B10 forward and backward against their plain versions at the v3
+    training shapes (q [28, 345, 1280], k/v [28, 345, 256]) with dropout
+    0.1 and a negative seed; timed beside SDPA (kv heads repeated outside,
+    dropout 0.1) forward and backward."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops import attention_train as at
+
+    hq, hkv, D, rate, seed = 20, 4, 64, 0.1, -123456789
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v, do = (torch.randn((TRAIN_B, TRAIN_N, w * D), generator=gen,
+                               device="cuda").bfloat16()
+                   for w in (hq, hkv, hkv, hq))
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    err_f = (o.float() - want.float()).abs().max().item()
+    got = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    again = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    ref = at.attention_train_bwd_plain(q, k, v, o, do, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    err_b, rel_b = 0.0, 0.0
+    for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"B10 backward {name}: two runs differ")
+        e = (a.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        if not bool(torch.isfinite(a).all()) or e > REL_ATTN_BWD * scale:
+            raise AssertionError(f"B10 backward {name}: max abs {e} > "
+                                 f"{REL_ATTN_BWD} x max |plain| {scale}")
+        err_b, rel_b = max(err_b, e), max(rel_b, e / scale)
+    del got, again, ref, want
+
+    def heads(x, h):  # [B, N, h*D] -> [B, hq, N, D], kv heads repeated
+        x = x.reshape(TRAIN_B, TRAIN_N, h, D).transpose(1, 2)
+        return x.repeat_interleave(hq // h, 1).contiguous()
+
+    q4, k4, v4, do4 = heads(q, hq), heads(k, hkv), heads(v, hkv), heads(do, hq)
+    fwd = timings(
+        lambda q, k, v, *_: at.attention_train_fwd(q, k, v, seed, hq, hkv,
+                                                   rate),
+        lambda q, k, v, *_: at.attention_train_fwd_plain(q, k, v, seed, hq,
+                                                         hkv, rate),
+        lambda q, k, v, q4, k4, v4: F.scaled_dot_product_attention(
+            q4, k4, v4, dropout_p=rate),
+        (q, k, v, q4, k4, v4), big=(0, 1, 2, 3, 4, 5), reps=50,
+        plain_reps=3)
+    q4g, k4g, v4g = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, dropout_p=rate)
+    bwd = timings(
+        lambda q, k, v, o, do, *_: at.attention_train_bwd(
+            q, k, v, o, do, seed, hq, hkv, rate, stats),
+        lambda q, k, v, o, do, *_: at.attention_train_bwd_plain(
+            q, k, v, o, do, seed, hq, hkv, rate),
+        lambda *a: torch.autograd.grad(out4, (q4g, k4g, v4g), a[5],
+                                       retain_graph=True),
+        (q, k, v, o, do, do4), big=(0, 1, 2, 3, 4), reps=30, plain_reps=3)
+    del out4, q4g, k4g, v4g
+    pairs = TRAIN_B * hq * TRAIN_N * TRAIN_N * D
+    b_f = bound(nbytes_of(q, k, v, o), 4 * pairs, PEAK_BF16)
+    b_b = bound(nbytes_of(q, k, v, o, do, stats) + nbytes_of(q, k, v),
+                10 * pairs, PEAK_BF16)
+    replaces = ("ops/attention_train.py:340 (JAX package, "
+                "gqa_attention_train; {} pallas_call :{})")
+    shape = [TRAIN_B, TRAIN_N, hq, hkv, D]
+    return {
+        "attention_train_fwd": {
+            "name": "attention_train_fwd", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/attention_train.cu",
+            "replaces": replaces.format("_fwd_call :258,", 266),
+            "max_abs_err": err_f, **fwd, "bound_ms": b_f[0],
+            "bound_by": b_f[1], "shape": shape, "dropout": rate},
+        "attention_train_bwd": {
+            "name": "attention_train_bwd", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/attention_train.cu",
+            "replaces": replaces.format("_attn_train_bwd :300,", 312),
+            "max_abs_err": err_b, "max_rel_to_max": rel_b, **bwd,
+            "bound_ms": b_b[0], "bound_by": b_b[1], "shape": shape,
+            "dropout": rate}}
+
+
+def train_batch(torch, cfg):
+    """The seeded hr/lr latents [28, 1378, 1024] on the card and seeded
+    normalization stats."""
+    import numpy as np
+
+    C = cfg.input_channels
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    hr, lr = (torch.randn((TRAIN_B, TRAIN_FRAMES, C), generator=gen,
+                          device="cuda") for _ in range(2))
+    rng = np.random.default_rng(SEED + 8)
+    stats = (0.1 * rng.standard_normal(C), 0.5 + rng.random(C),
+             0.1 * rng.standard_normal(C), 0.5 + rng.random(C))
+    return hr, lr, stats
+
+
+def train_phase(torch, dense, profile):
+    """The v3mod2 train step at full width: one counted step, then timed
+    steps.  Returns the counted step's B10 launches."""
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+    from jatsr_torch.utils.flops import mfu, train_step_flops
+
+    preset = get_preset("v3mod2")
+    cfg = preset.model
+    tcfg = dataclasses.replace(preset.train, warmup_steps=TRAIN_WARMUP)
+    hr, lr, stats = train_batch(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_train_state(DenseDiT(cfg, dense, device="cuda"), tcfg,
+                               1000, (hr, lr), device="cuda")
+    step = make_train_step(preset.loss, tcfg, Normalizer(*stats))
+    named = dict(state.model.named_parameters())
+    watch = {k: named[k].detach().clone() for k in
+             ("blocks.0.attn.q_proj.kernel", "blocks.27.mlp_out.kernel",
+              "patch_in.kernel", "final_proj.kernel")}
+    log(f"[train] v3mod2 state on the card: {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in state.params) / 1e6:.1f} M params, "
+        f"warmup {TRAIN_WARMUP} steps, lr {tcfg.lr}")
+    counters = {"attention_train_fwd": at.attention_train_fwd,
+                "attention_train_bwd": at.attention_train_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, m = step(state, hr, lr)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = {"attention_train_fwd": 2 * cfg.depth,
+                "attention_train_bwd": cfg.depth}
+    log(f"[train] counted step {first * 1e3:.1f} ms, launches {launches}, "
+        f"expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"train step launches {launches} != {expected}")
+    losses, times = [float(m["loss"])], []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, hr, lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    moved = {k: (named[k].detach() - w).abs().max().item()
+             for k, w in watch.items()}
+    log(f"[train] losses {losses}; grad_norm {float(m['grad_norm']):.4f}, "
+        f"snr_db {float(m['snr_db']):.3f}; max |param change| {moved}")
+    if not all(math.isfinite(x) for x in losses) or min(moved.values()) <= 0:
+        raise AssertionError(f"train steps: losses {losses}, moved {moved}")
+    med = sorted(times)[len(times) // 2]
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_FRAMES)
+    log(f"[train] {TRAIN_TIMED} timed steps ms "
+        f"{[round(t * 1e3, 1) for t in times]}; median {med * 1e3:.1f} ms, "
+        f"{TRAIN_B / med:.2f} samples/s, MFU {mfu(flops, med):.4f} "
+        f"({flops / 1e12:.2f} TFLOP per step against 989 TFLOP/s bf16), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_phase(torch, "train step", lambda: step(state, hr, lr))
+    return launches
+
+
+def check_loss_stack(torch, loss_cfg):
+    """The v3mod2 loss stack on the card against the CPU on one fp32
+    prediction [4, 1378, 1024]: values rtol 1e-5, gradients with respect to
+    the prediction within 1e-2 x their max.  The log-magnitude gradient at a
+    bin is pf / |pf|^2: cuFFT and the CPU's FFT differ by ~1e-7 of the
+    typical |pf|, which at the smallest of the 2.8 M bins (|pf| ~1e-3 of
+    typical) is ~1e-4 relative and more; measured 1.3e-3 x max."""
+    import numpy as np
+
+    from jatsr_torch.losses import total_training_loss
+
+    rng = np.random.default_rng(SEED + 9)
+    p, t, c = (torch.from_numpy(rng.standard_normal(
+        (REF_B, TRAIN_FRAMES, 1024), dtype=np.float32)) for _ in range(3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = p.detach().to(dev, copy=True).requires_grad_()
+        loss, m = total_training_loss(x, t.to(dev), c.to(dev), loss_cfg)
+        loss.backward()
+        out[dev] = ({k: float(v) for k, v in m.items()}, x.grad.cpu())
+    (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+    for k in mc:
+        if abs(mg[k] - mc[k]) > 1e-5 * abs(mc[k]):
+            raise AssertionError(f"loss {k}: card {mg[k]} vs CPU {mc[k]}")
+    err = (gg - gc).abs().max().item() / gc.abs().max().item()
+    log(f"[train reference] loss stack card vs CPU: {mg}; grad max abs "
+        f"{err:.3e} x max")
+    if err > 1e-2:
+        raise AssertionError(f"loss gradient: {err} x max")
+
+
+def check_train_reference(torch, dense):
+    """One train step of v3mod2 at full width and depth, dropout and
+    drop-path 0, on the card against the CPU (plain versions) on the same
+    weights, batch [4, 1378, 1024] and draws (~20 s on 8 CPU cores).
+
+    The loss is the reconstruction (MSE) alone: the perceptual stack's
+    log-magnitude gradient is 1 / |rfft(pred)| at each bin, so at random
+    weights a few near-zero bins dominate it and a bf16 ulp of the
+    prediction moves it by tens of percent; its values and gradients are
+    held on identical inputs (``check_loss_stack``).  Compared: loss rtol
+    1e-2, grad norm rtol 2e-2, the first moments (0.1 x the clipped grads)
+    per leaf normalised by their max atol 3e-2 (the JAX package's bound for
+    B10 against its einsum path), and the updated parameters within 2 lr
+    (a first Adam step moves each by +-lr, so a gradient whose sign differs
+    in bf16 moves it the other way) and within 2 % of lr on average."""
+    import numpy as np
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    preset = get_preset("v3mod2")
+    cfg = dataclasses.replace(preset.model, dropout=0.0, drop_path_rate=0.0)
+    tcfg = dataclasses.replace(preset.train, warmup_steps=0)
+    loss_cfg = dataclasses.replace(preset.loss, use_latent_perceptual=False)
+    check_loss_stack(torch, preset.loss)
+    hr, lr, stats = train_batch(torch, cfg)
+    hr, lr = hr[:REF_B].cpu(), lr[:REF_B].cpu()
+    rng = np.random.default_rng(SEED + 10)
+    shape = (REF_B, TRAIN_FRAMES, cfg.input_channels)
+    draws = {"noise": rng.standard_normal(shape, dtype=np.float32),
+             "u": rng.random(REF_B, dtype=np.float32),
+             "cond_noise": rng.standard_normal(shape, dtype=np.float32),
+             "layer_seeds": [int(s) for s in rng.integers(-2**31, 2**31,
+                                                          cfg.depth)]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
+                                   1000, (hr, lr), device=dev)
+        if dev == "cpu":
+            start = [p.detach().clone() for p in state.params]
+        step = make_train_step(loss_cfg, tcfg, Normalizer(*stats, device=dev))
+        n0 = at.attention_train_fwd.launches
+        state, m = step(state, hr, lr, draws=draws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        if (at.attention_train_fwd.launches - n0 > 0) != (dev == "cuda"):
+            raise AssertionError(f"{dev} step took the wrong attention path")
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in state.params],
+                    [mu.float().cpu() for mu in state.opt_state.mu])
+        log(f"[train reference] {dev} step {time.perf_counter() - t0:.1f} s: "
+            f"loss {out[dev][0]['loss']:.6f}, grad_norm "
+            f"{out[dev][0]['grad_norm']:.6f}")
+        del state, step
+    (mc, pc, uc), (mg, pg, ug) = out["cpu"], out["cuda"]
+    lr0 = tcfg.lr
+    grad_err = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1e-30)
+                   for a, b in zip(ug, uc))
+    d = [(a - b).abs() for a, b in zip(pg, pc)]
+    p_max = max(x.max().item() for x in d) / lr0
+    p_mean = max(x.mean().item() for x in d) / lr0
+    moved = min((a - s).abs().max().item() for a, s in zip(pc, start)) / lr0
+    log(f"[train reference] v3mod2, batch {REF_B}, card vs CPU: loss {mg['loss']:.6f} vs {mc['loss']:.6f}, grad_norm "
+        f"{mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; grads (first "
+        f"moments) max abs {grad_err:.3e} x max; updated params max "
+        f"{p_max:.3f} lr, worst leaf mean {p_mean:.5f} lr; min leaf move "
+        f"{moved:.3f} lr over {len(start)} leaves")
+    if (abs(mg["loss"] - mc["loss"]) > 1e-2 * abs(mc["loss"])
+            or abs(mg["grad_norm"] - mc["grad_norm"]) > 2e-2 * mc["grad_norm"]
+            or grad_err > 3e-2 or p_max > 2.02 or p_mean > 0.02
+            or moved < 0.5):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
 def main() -> int:
     import argparse
 
@@ -740,7 +1061,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one more sampler call and one more decode "
-                         "of each path with torch.profiler")
+                         "of each serving path, and one more train step, "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -775,7 +1097,7 @@ def main() -> int:
 
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
-               "dac_res", "snake_tr")
+               "dac_res", "snake_tr", "attention_train")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -807,6 +1129,7 @@ def main() -> int:
                                  "bound_by", "library_ms")},
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
     checks.update(check_dac_kernels(torch))
+    checks.update(check_attention_train(torch))
     torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
@@ -814,8 +1137,8 @@ def main() -> int:
     # 4. The two serving paths at full width, on one set of weights (one
     #    for the DiT, one for the codec).
     t0 = time.perf_counter()
-    static = quantize_params_static(random_dense_params(cfgs["prologue"],
-                                                        SEED))
+    dense = random_dense_params(cfgs["prologue"], SEED)
+    static = quantize_params_static(dense)
     log(f"[model] v3 int8_static weights: {time.perf_counter() - t0:.1f} s "
         f"to draw and quantize")
     codecs = {name: DAC.random_init(SEED, DACConfig(), fused_res_units=f,
@@ -880,9 +1203,20 @@ def main() -> int:
                         DiT(cfg, static, device="cpu"),
                         100 if name == "prologue" else 64)
 
+    del models, static
+    torch.cuda.empty_cache()
+
+    # 6. The training path: the v3mod2 train step at full width (the same
+    #    dense weights), then one step of it at batch 4 against the CPU.
+    launches["train"] = train_phase(torch, dense, args.profile)
+    torch.cuda.empty_cache()
+    check_train_reference(torch, dense)
+
     # Result lines.
     kernels = [dict(checks[k], launches=launches["prologue"][k])
                for k in counters]
+    kernels += [dict(checks[k], launches=n)
+                for k, n in launches["train"].items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,11 @@
-"""The DiT's int8 serving forward in PyTorch.
+"""The DiT in PyTorch: the int8 serving forward and the trainable bf16 model.
 
-Port of the JAX package's ``models/dit.py`` on its int8 serving branches:
+Port of the JAX package's ``models/dit.py``.  :class:`DenseDiT` is the
+branch the JAX model trains with (``matmul_precision="bf16"``, split q/k/v):
+fp32 parameters cast to bf16 at each product, dropout and drop-path, the
+training attention kernel (B10) or the einsum attention, remat per block.
+
+:class:`DiT` is the int8 serving branch:
 the ``int8_static`` DiT with fused QKV, the flash-QKV attention kernel, the
 "half" fused MLP and the fused patch embed, with or without the fused
 prologue (``fused_prologue``, with ``align_n``: ``bench.py``'s default DiT;
@@ -18,19 +23,23 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import ModelConfig
-from ..ops.attention import flash_supported, gqa_attention_flash_qkv
+from ..ops.attention import _rope, flash_supported, gqa_attention_flash_qkv
+from ..ops.attention_train import gqa_attention_train, train_flash_supported
 from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
                                int8_mm)
 from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
                             int8_norm_mod_dot, norm_mod_dot_supported)
 from ..ops.quant import QuantDense
+from ..sampling.flow import linspace_f32
 from ..utils.device import resolve_device
-from .from_jax import tree_to_torch
+from .from_jax import init_dense_params, tree_to_torch
 
 # ModelConfig fields that select a branch, with the values the port serves
 # and the later slice that brings the others.
@@ -344,3 +353,242 @@ def adaln_tables(model: DiT, t: torch.Tensor) -> torch.Tensor:
     a = F.silu(model.time_embedding(t))
     return (torch.einsum("bh,dhm->dbm", a, model.adaln_kernel)
             + model.adaln_bias[:, None, :])
+
+
+# ---- the trainable bf16 model -----------------------------------------------
+
+# ModelConfig fields that select a branch of the JAX model's training path,
+# with the values the port trains and the later slice that brings the others.
+_TRAINING_BRANCH = {
+    "matmul_precision": (("bf16",), "the dynamic-int8 training path"),
+    "dtype": (("bfloat16",), "other compute dtypes"),
+    "param_dtype": (("float32",), "other parameter dtypes"),
+    "pos_embed": (("rope",), "learned positions (v1legacy)"),
+    "fused_qkv": ((False,), "the fused qkv projection"),
+    "attention_impl": (("xla",), "the serving attention kernels on the eval "
+                                 "path (B11, B15, B16)"),
+    "train_attention_impl": (("flash", "xla"), "other training attention"),
+    "scores_dtype": (("float32",), "bf16 score storage"),
+    "remat_policy": (("full", "none"), "the selective remat policies dots, "
+                                       "attn_out and mlp"),
+}
+
+
+def check_training_config(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the trainable
+    branch the port has."""
+    for name, (have_ported, later) in _TRAINING_BRANCH.items():
+        have = getattr(cfg, name)
+        if have not in have_ported:
+            raise NotImplementedError(
+                f"ModelConfig.{name}={have!r} selects {later}, which a later "
+                f"slice of the port brings; the port trains {name} in "
+                f"{have_ported!r}")
+
+
+class TrainDense(nn.Module):
+    """flax ``nn.Dense(dtype, param_dtype=float32)``: an fp32 kernel
+    ``[in, out]`` and bias, both cast to ``dtype`` at each product."""
+
+    def __init__(self, kernel, bias, dtype, device):
+        super().__init__()
+
+        def param(t):
+            return nn.Parameter(torch.as_tensor(t).to(
+                device=device, dtype=torch.float32, copy=True))
+
+        self.kernel = param(kernel)
+        self.bias = None if bias is None else param(bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+def _dense(p: dict, dtype, device, i=None) -> TrainDense:
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    b = p.get("bias")
+    return TrainDense(pick(p["kernel"]), None if b is None else pick(b),
+                      dtype, device)
+
+
+def _block_generator(seed: int, device) -> torch.Generator:
+    """The generator of a block's dropout and drop-path masks.  It is made
+    from the block's (step, layer) seed inside the block, so the forward
+    that remat replays in backward draws the same masks."""
+    return torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
+
+
+def _dropout(x, rate: float, gen):
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
+    divided by ``keep_prob`` in x's dtype."""
+    if rate == 0.0 or gen is None:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    kp = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / kp, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+
+
+def _drop_path(x, rate: np.float32, gen):
+    """Per-sample stochastic depth: ``x / keep * floor(keep + u)``, the
+    divide and the product in x's dtype, keep = 1 - rate in fp32."""
+    if rate == 0.0 or gen is None:
+        return x  # keep = 1, mask = 1: the identity
+    keep = np.float32(1.0) - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=gen,
+                   device=x.device)
+    mask = torch.floor(float(keep) + u).to(x.dtype)
+    return (x / torch.tensor(float(keep), dtype=x.dtype,
+                             device=x.device)) * mask
+
+
+class TrainAttention(nn.Module):
+    """Split q/k/v projections, bf16 RoPE, then the training kernel (B10)
+    or the einsum attention, and the out projection."""
+
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, device):
+        super().__init__()
+        self.cfg = cfg
+        bf16 = torch.bfloat16
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, _dense(p[name], bf16, device, i))
+
+    def forward(self, x, cos, sin, seed, gen):
+        """``cos``/``sin``: ``[N, 1, D]`` in bf16; ``gen`` None on the
+        deterministic path."""
+        cfg = self.cfg
+        B, N, _ = x.shape
+        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+        q = _rope(self.q_proj(x).reshape(B, N, hq, D), cos, sin)
+        k = _rope(self.k_proj(x).reshape(B, N, hkv, D), cos, sin)
+        v = self.v_proj(x)
+        if (gen is not None and cfg.train_attention_impl == "flash"
+                and train_flash_supported(N, hq, hkv, D)):
+            out = gqa_attention_train(
+                q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D), v,
+                seed if cfg.dropout > 0.0 else 0, hq, hkv, cfg.dropout)
+            return self.out_proj(out)
+        # The einsum path (XLA in the JAX package): fp32 scores and softmax,
+        # dropout on the fp32 weights, bf16 weights @ v in fp32.
+        g = hq // hkv
+        qg = q.reshape(B, N, hkv, g, D).float()
+        scores = torch.einsum("bnkgd,bmkd->bkgnm", qg, k.float())
+        weights = torch.softmax(scores * (1.0 / math.sqrt(D)), dim=-1)
+        weights = _dropout(weights, cfg.dropout, gen).to(x.dtype)
+        out = torch.einsum("bkgnm,bmkd->bnkgd", weights.float(),
+                           v.reshape(B, N, hkv, D).float()).to(x.dtype)
+        return self.out_proj(out.reshape(B, N, hq * D))
+
+
+class TrainBlock(nn.Module):
+    """AdaLN-Zero block: norm, modulate, attention, gate, drop-path; norm,
+    modulate, Dense, exact GELU, dropout, Dense, dropout, gate, drop-path."""
+
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, dp_rate, device):
+        super().__init__()
+        self.cfg = cfg
+        bf16 = torch.bfloat16
+        self.adaln = _dense(p["adaln"], bf16, device, i)
+        self.attn = TrainAttention(cfg, p["attn"], i, device)
+        self.mlp_in = _dense(p["mlp_in"], bf16, device, i)
+        self.mlp_out = _dense(p["mlp_out"], bf16, device, i)
+        self.dp_rate = dp_rate
+
+    def forward(self, x, t_emb, cos, sin, seed=None):
+        """``seed``: the block's (step, layer) seed on the training path,
+        None on the deterministic one."""
+        cfg = self.cfg
+        gen = None if seed is None else _block_generator(seed, x.device)
+        mod = self.adaln(F.silu(t_emb))
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
+        h = _norm(x, cfg.norm) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        h = gate_msa[:, None] * self.attn(h, cos, sin, seed, gen)
+        x = x + _drop_path(h, self.dp_rate, gen)
+        h = _norm(x, cfg.norm) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        h = F.gelu(self.mlp_in(h), approximate="none")
+        h = self.mlp_out(_dropout(h, cfg.dropout, gen))
+        h = gate_mlp[:, None] * _dropout(h, cfg.dropout, gen)
+        return x + _drop_path(h, self.dp_rate, gen)
+
+
+class DenseDiT(nn.Module):
+    """The trainable DiT: the JAX model at ``matmul_precision="bf16"``.
+
+    Args:
+        cfg: the model config; must be on the ported training branch
+            (:func:`check_training_config`).
+        params: the JAX float param tree (``blocks`` stacked ``[depth,
+            ...]``) as nested dicts of numpy arrays or tensors (see
+            ``models/from_jax.py``); None draws it as flax initialises it
+            (``init_dense_params``) from ``generator``.
+        device: ``"cuda"`` (default) or an explicit ``"cpu"``.
+
+    Parameters are fp32 ``nn.Parameter`` s named after the JAX tree
+    (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``...).
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",
+                 generator: torch.Generator = None):
+        super().__init__()
+        check_training_config(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            params = init_dense_params(
+                cfg, generator or torch.Generator().manual_seed(0))
+        bf16, f32, dev = torch.bfloat16, torch.float32, self.device
+        self.patch_in = _dense(params["patch_in"], bf16, dev)
+        self.patch_out = _dense(params["patch_out"], bf16, dev)
+        self.t_mlp1 = _dense(params["t_mlp1"], f32, dev)
+        self.t_mlp2 = _dense(params["t_mlp2"], f32, dev)
+        dpr = linspace_f32(0.0, cfg.drop_path_rate, cfg.depth)
+        self.blocks = nn.ModuleList(
+            TrainBlock(cfg, params["blocks"], i, dpr[i], dev)
+            for i in range(cfg.depth))
+        self.final_proj = _dense(params["final_proj"], bf16, dev)
+
+    def forward(self, x_t, t, x_cond, deterministic: bool = True,
+                layer_seeds=None):
+        """``x_t``, ``x_cond``: [B, T, C]; ``t``: [B].  The training path
+        (``deterministic=False``) needs ``layer_seeds``: one int32 seed per
+        block for this step, drawn on the host before the forward.  Returns
+        the predicted clean latent [B, T, C] fp32."""
+        cfg = self.cfg
+        B, T_orig, C = x_t.shape
+        if C != cfg.input_channels:
+            raise ValueError(f"expected {cfg.input_channels} channels, got {C}")
+        if not deterministic and (layer_seeds is None
+                                  or len(layer_seeds) != cfg.depth):
+            raise ValueError(f"the training path needs {cfg.depth} layer "
+                             f"seeds")
+        P = cfg.patch_len
+        pad = (-T_orig) % P
+        x_t = F.pad(x_t.to(torch.bfloat16), (0, 0, 0, pad))
+        x_cond = F.pad(x_cond.to(torch.bfloat16), (0, 0, 0, pad))
+        T = T_orig + pad
+        N = T // P
+        if N > cfg.max_len:
+            raise ValueError(f"sequence length {N} exceeds max_len {cfg.max_len}")
+        x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B, N, P * 2 * C)
+        h = self.patch_out(F.gelu(self.patch_in(x_in), approximate="none"))
+
+        te = self.t_mlp1(sinusoidal_time_embedding(t, cfg.hidden_size))
+        t_emb = self.t_mlp2(F.silu(te)).to(torch.bfloat16)
+        cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
+        cos = cos[:, None].to(torch.bfloat16)
+        sin = sin[:, None].to(torch.bfloat16)
+        remat = cfg.remat_policy == "full" and torch.is_grad_enabled()
+        for i, blk in enumerate(self.blocks):
+            seed = None if deterministic else int(layer_seeds[i])
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    blk, h, t_emb, cos, sin, seed, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h = blk(h, t_emb, cos, sin, seed)
+        h = self.final_proj(_norm(h, cfg.norm))
+        return h.reshape(B, T, C)[:, :T_orig].float()

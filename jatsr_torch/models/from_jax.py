@@ -17,7 +17,10 @@ numpy's extended ``bfloat16`` dtype), so the port never imports JAX:
 :func:`random_dense_params` makes a dense DiT tree from a seed, for runs on
 a machine without JAX: the JAX init zeroes ``adaln`` and ``final_proj``
 (AdaLN-Zero), which would make the DiT the identity and every comparison
-vacuous, so here they get std 0.02.
+vacuous, so here they get std 0.02.  :func:`init_dense_params` draws the
+tree as flax initialises it, for training from scratch;
+:func:`dense_tree_from_module` reads a trained ``DenseDiT`` back out in the
+JAX layout.
 """
 
 from __future__ import annotations
@@ -103,37 +106,89 @@ def random_dense_params(cfg, seed: int = 0) -> dict:
     ``ops.quant.quantize_params_static`` for the int8_static tree.
     """
     rng = np.random.default_rng(seed)
-    H, D, P, C = cfg.hidden_size, cfg.depth, cfg.patch_len, cfg.input_channels
-    hd, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
-    mlp = int(H * cfg.mlp_ratio)
 
-    def normal(shape, std):
+    def leaf(path, shape, fan_in, kind):
+        std = fan_in ** -0.5 if kind == "kernel" else 0.02
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
-    def dense(fan_in, fan_out, stack=(), bias=True, std=None):
-        leaf = {"kernel": normal(stack + (fan_in, fan_out),
-                                 std or fan_in ** -0.5)}
-        if bias:
-            leaf["bias"] = normal(stack + (fan_out,), 0.02)
-        return leaf
+    return _build_tree(cfg, leaf)
 
-    st = (D,)
+
+def _dense_layout(cfg) -> dict:
+    """``{path: (shape, kind)}`` of every leaf of the dense DiT tree, in
+    the JAX init's order; ``shape`` is one block's under ``blocks``; kind
+    is "kernel" (a projection) or "zero" (biases, and the AdaLN-Zero
+    ``adaln`` and ``final_proj`` kernels)."""
+    H, P, C = cfg.hidden_size, cfg.patch_len, cfg.input_channels
+    hd, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
+    mlp = int(H * cfg.mlp_ratio)
+    out = {}
+
+    def dense(path, fan_in, fan_out, bias=True, zero=False):
+        out[path + ("kernel",)] = ((fan_in, fan_out),
+                                   "zero" if zero else "kernel")
+        if bias:
+            out[path + ("bias",)] = ((fan_out,), "zero")
+
+    dense(("patch_in",), P * 2 * C, cfg.bottleneck_dim)
+    dense(("patch_out",), cfg.bottleneck_dim, H)
+    dense(("t_mlp1",), H, H)
+    dense(("t_mlp2",), H, H)
+    dense(("blocks", "adaln"), H, 6 * H, zero=True)
     ab = cfg.attention_bias
-    return {
-        "patch_in": dense(P * 2 * C, cfg.bottleneck_dim),
-        "patch_out": dense(cfg.bottleneck_dim, H),
-        "t_mlp1": dense(H, H),
-        "t_mlp2": dense(H, H),
-        "blocks": {
-            "adaln": dense(H, 6 * H, st, std=0.02),
-            "attn": {
-                "q_proj": dense(H, hq * hd, st, bias=ab),
-                "k_proj": dense(H, hkv * hd, st, bias=ab),
-                "v_proj": dense(H, hkv * hd, st, bias=ab),
-                "out_proj": dense(hq * hd, H, st, bias=ab),
-            },
-            "mlp_in": dense(H, mlp, st),
-            "mlp_out": dense(mlp, H, st),
-        },
-        "final_proj": dense(H, P * C, std=0.02),
-    }
+    for name, fi, fo in (("q_proj", H, hq * hd), ("k_proj", H, hkv * hd),
+                         ("v_proj", H, hkv * hd), ("out_proj", hq * hd, H)):
+        dense(("blocks", "attn", name), fi, fo, bias=ab)
+    dense(("blocks", "mlp_in"), H, mlp)
+    dense(("blocks", "mlp_out"), mlp, H)
+    dense(("final_proj",), H, P * C, zero=True)
+    return out
+
+
+def _build_tree(cfg, leaf) -> dict:
+    """The dense tree with ``leaf(path, shape, fan_in, kind)`` at every
+    path, in the layout's order (``shape`` has the depth axis on the
+    ``blocks`` leaves)."""
+    tree: dict = {}
+    for path, (shape, kind) in _dense_layout(cfg).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        full = ((cfg.depth,) if path[0] == "blocks" else ()) + shape
+        node[path[-1]] = leaf(path, full, shape[0], kind)
+    return tree
+
+
+def init_dense_params(cfg, generator: torch.Generator) -> dict:
+    """The dense DiT tree (JAX layout, fp32 CPU tensors) drawn as flax
+    initialises it: ``lecun_normal`` kernels (a normal truncated to
+    [-2, 2], times ``sqrt(1 / fan_in) / 0.8796``), zero biases, zero
+    ``adaln`` and ``final_proj`` (AdaLN-Zero).  The numbers differ from
+    JAX's (another generator); the distribution is the same."""
+    std_of_truncated = 0.87962566103423978  # std of N(0, 1) cut at +-2
+
+    def leaf(path, shape, fan_in, kind):
+        t = torch.zeros(shape, dtype=torch.float32)
+        if kind == "kernel":
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            t.mul_(fan_in ** -0.5 / std_of_truncated)
+        return t
+
+    return _build_tree(cfg, leaf)
+
+
+def dense_tree_from_module(model) -> dict:
+    """A ``DenseDiT``'s parameters as the JAX float tree of fp32 numpy
+    arrays (block leaves stacked ``[depth, ...]``)."""
+    named = {k: v.detach().float().cpu().numpy()
+             for k, v in model.named_parameters()}
+
+    def leaf(path, shape, fan_in, kind):
+        if path[0] != "blocks":
+            return named[".".join(path)]
+        rest = ".".join(path[1:])
+        return np.stack([named[f"blocks.{i}.{rest}"]
+                         for i in range(model.cfg.depth)])
+
+    return _build_tree(model.cfg, leaf)

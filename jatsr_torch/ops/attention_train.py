@@ -1,0 +1,328 @@
+"""Training GQA attention with hash dropout: forward and hand-written backward.
+
+Port of ``gqa_attention_train`` (JAX package, ``ops/attention_train.py``).
+The two wrappers dispatch on the tensor's device: a CPU tensor takes the
+plain PyTorch version below, a CUDA tensor launches the hand-written kernels
+in ``csrc/attention_train.cu`` or raises.  Nothing falls back.
+
+Dropout acts on the normalised softmax weights and uses the JAX package's
+counter hash (lowbias32 over ``stream(b, h, seed) ^ (row * Np + col)``), so
+the kernels, the plain versions and the JAX function draw the same mask bit
+for bit.  ``Np`` is ``round_up(N, 8)``: the JAX wrapper pads to it and the
+hash indexes that padded lattice, so the port keeps the lattice without the
+physical pad.  PyTorch has no usable uint32 arithmetic, so the plain hash
+computes in int64 and keeps 32 bits after every multiply and add.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .attention import _FLASH_VMEM_BUDGET, _round_up, flash_supported
+
+_GOLD = 0x9E3779B9
+_M32 = 0xFFFFFFFF
+
+
+def train_flash_supported(n: int, num_q_heads: int, num_kv_heads: int,
+                          d: int) -> bool:
+    """The JAX package's gate for the training kernels (a copy, so the port
+    takes the kernels exactly where the JAX model takes them on a TPU)."""
+    np_ = _round_up(n, 8)
+    qd, kd = num_q_heads * d, num_kv_heads * d
+    bwd = (3 * np_ * qd * 2 + 2 * np_ * kd * 2
+           + np_ * qd * 2 + 2 * np_ * kd * 2
+           + 6 * np_ * np_ * 4
+           + 2 * num_kv_heads * np_ * d * 4)
+    return (flash_supported(n, num_q_heads, num_kv_heads, d)
+            and bwd <= _FLASH_VMEM_BUDGET)
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2^32`` for ``x`` in [0, 2^32) (a Python int or an int64
+    tensor): the constant is split in 16-bit halves so that no product
+    leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _hash_u32(x):
+    """lowbias32 finalizer on 32-bit values held in Python ints or int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _stream(seed: int, b, h):
+    """Per-(batch, head) stream id; ``b`` and ``h`` may be int64 tensors."""
+    return _hash_u32((b * _GOLD + h + _mul32(seed & _M32, 0x85EBCA6B)) & _M32)
+
+
+def keep_threshold(rate: float) -> int:
+    """``bits <= thr`` keeps a weight: ``round((1 - rate) 2^32)``, clipped."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_mask(seed: int, b: int, h: int, np_: int,
+                      rate: float) -> torch.Tensor:
+    """Boolean keep mask ``[np_, np_]`` of (batch ``b``, head ``h``), equal
+    to the JAX package's ``dropout_keep_mask``; ``seed`` is the int32's
+    value (negative seeds use its bit pattern)."""
+    idx = torch.arange(np_ * np_, dtype=torch.int64)
+    bits = _hash_u32(_stream(seed, b, h) ^ idx)
+    return (bits <= keep_threshold(rate)).reshape(np_, np_)
+
+
+def _keep_mask(seed: int, B: int, hq: int, n: int, rate: float, device):
+    """Keep masks of every (batch, head) ``[B, hq, n, n]``: the top-left
+    ``n x n`` corner of each padded ``Np x Np`` lattice."""
+    np_ = _round_up(n, 8)
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None, None, None]
+    h = torch.arange(hq, dtype=torch.int64, device=device)[None, :, None, None]
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    cell = (i[:, None] * np_ + i[None, :])[None, None]
+    return _hash_u32(_stream(seed, b, h) ^ cell) <= keep_threshold(rate)
+
+
+def _heads(q, k, v, hq, hkv):
+    """``[B, N, H*D]`` -> ``[B, H, N, D]``, k and v repeated over the group."""
+    B, N, QD = q.shape
+    D, g = QD // hq, hq // hkv
+    qh = q.reshape(B, N, hq, D).transpose(1, 2)
+    kh = k.reshape(B, N, hkv, D).transpose(1, 2).repeat_interleave(g, 1)
+    vh = v.reshape(B, N, hkv, D).transpose(1, 2).repeat_interleave(g, 1)
+    return qh, kh, vh
+
+
+def _probs(qh, kh, D, seed, rate, normalise):
+    """Scores of the bf16-rounded scaled q against k, fp32; then ``e`` (and
+    ``l``) or ``p = e / l``; and the keep mask (None without dropout)."""
+    scale2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    qs = qh * torch.tensor(scale2, dtype=qh.dtype, device=qh.device)
+    s = qs.float() @ kh.float().transpose(-1, -2)
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1, keepdim=True)
+    B, H, N, _ = qh.shape
+    keep = _keep_mask(seed, B, H, N, rate, qh.device) if rate > 0.0 else None
+    return (e / l if normalise else e), l, keep
+
+
+def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
+                              num_kv_heads: int, rate: float):
+    """Plain PyTorch version of the forward kernel, with its rounding
+    points: ``l`` summed before the dropout zeroing, ``bf16(e) @ v`` in
+    fp32, times ``coef / l``, rounded to the input dtype."""
+    B, N, QD = q.shape
+    D = QD // num_q_heads
+    dt = q.dtype
+    qh, kh, vh = _heads(q, k, v, num_q_heads, num_kv_heads)
+    e, l, keep = _probs(qh, kh, D, seed, rate, normalise=False)
+    if keep is not None:
+        e = torch.where(keep, e, 0.0)
+    coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    o = (e.to(dt).float() @ vh.float()) * (coef / l)
+    return o.to(dt).transpose(1, 2).reshape(B, N, QD)
+
+
+def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
+                              num_kv_heads: int, rate: float):
+    """Plain PyTorch version of the backward kernels, with their rounding
+    points: ``delta = rowsum(do * o)`` in fp32 from the stored ``o`` and
+    ``do``; ``ds = rd(p (dw - delta) scale)``; ``dv = rd(wd)^T do``,
+    ``dk = ds^T q`` (q unscaled), ``dq = ds k``; dk and dv summed over the
+    query group in fp32 and rounded once (``rd`` = the input dtype)."""
+    B, N, QD = q.shape
+    hq, hkv = num_q_heads, num_kv_heads
+    D, g = QD // hq, hq // hkv
+    dt = q.dtype
+    qh, kh, vh = _heads(q, k, v, hq, hkv)
+    doh = do.to(dt).reshape(B, N, hq, D).transpose(1, 2).float()
+    oh = o.reshape(B, N, hq, D).transpose(1, 2).float()
+    p, _, keep = _probs(qh, kh, D, seed, rate, normalise=True)
+    dw = doh @ vh.float().transpose(-1, -2)
+    wd = p
+    if keep is not None:
+        kc = torch.where(keep, 1.0 / (1.0 - rate), 0.0)
+        dw = dw * kc
+        wd = p * kc
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = (p * (dw - delta) * (1.0 / math.sqrt(D))).to(dt).float()
+    dv = wd.to(dt).float().transpose(-1, -2) @ doh
+    dk = ds.transpose(-1, -2) @ qh.float()
+    dq = (ds @ kh.float()).to(dt)
+
+    def group_sum(x):  # [B, hq, N, D] -> [B, N, hkv * D]
+        x = x.reshape(B, hkv, g, N, D).sum(dim=2).to(dt)
+        return x.transpose(1, 2).reshape(B, N, hkv * D)
+
+    return (dq.transpose(1, 2).reshape(B, N, QD), group_sum(dk),
+            group_sum(dv))
+
+
+def _check(q, k, v, hq, hkv):
+    B, N, QD = q.shape
+    if QD % hq or hq % hkv or k.shape != (B, N, hkv * (QD // hq)) \
+            or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} do not split into {hq}/{hkv} "
+                         f"heads")
+
+
+def attention_train_fwd(q, k, v, seed: int, num_q_heads: int,
+                        num_kv_heads: int, rate: float = 0.0):
+    """Forward: ``(o, stats)``.  ``stats`` is the kernel's ``[B, Hq, N, 2]``
+    fp32 row max and row sum of ``exp2``, which the backward kernels read;
+    None on the CPU."""
+    _check(q, k, v, num_q_heads, num_kv_heads)
+    if q.device.type == "cpu":
+        return attention_train_fwd_plain(q, k, v, seed, num_q_heads,
+                                         num_kv_heads, rate), None
+    return _launch_fwd(q, k, v, seed, num_q_heads, num_kv_heads, rate)
+
+
+attention_train_fwd.launches = 0
+
+
+def attention_train_bwd(q, k, v, o, do, seed: int, num_q_heads: int,
+                        num_kv_heads: int, rate: float = 0.0, stats=None):
+    """Backward: ``(dq, dk, dv)`` in q's dtype."""
+    _check(q, k, v, num_q_heads, num_kv_heads)
+    if q.device.type == "cpu":
+        return attention_train_bwd_plain(q, k, v, o, do, seed, num_q_heads,
+                                         num_kv_heads, rate)
+    if stats is None:
+        raise ValueError("the backward kernels need the forward's stats")
+    return _launch_bwd(q, k, v, o, do, stats, seed, num_q_heads,
+                       num_kv_heads, rate)
+
+
+attention_train_bwd.launches = 0
+
+
+class _AttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed, hq, hkv, rate):
+        o, stats = attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+        ctx.meta = (seed, hq, hkv, rate)
+        ctx.save_for_backward(q, k, v, o,
+                              *(() if stats is None else (stats,)))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, *stats = ctx.saved_tensors
+        seed, hq, hkv, rate = ctx.meta
+        dq, dk, dv = attention_train_bwd(q, k, v, o, do.contiguous(), seed,
+                                         hq, hkv, rate,
+                                         stats[0] if stats else None)
+        return dq, dk, dv, None, None, None, None
+
+
+def gqa_attention_train(q, k, v, seed: int, num_q_heads: int,
+                        num_kv_heads: int, dropout_rate: float = 0.0):
+    """Differentiable GQA with dropout on the normalised weights.
+
+    Args:
+        q: ``[B, N, Hq*D]`` (RoPE applied, flat head-major columns).
+        k/v: ``[B, N, Hkv*D]``.
+        seed: the per-(step, layer) int32 stream id as a Python int;
+            ignored without dropout.
+        dropout_rate: drop probability on the softmax weights.
+    Returns:
+        ``[B, N, Hq*D]`` in q's dtype.
+    """
+    return _AttentionTrain.apply(q, k, v, int(seed), num_q_heads,
+                                 num_kv_heads, float(dropout_rate))
+
+
+# ---- the kernels ------------------------------------------------------------
+
+def _kernel_args(q, k, v, hq, hkv, rate, seed):
+    B, N, QD = q.shape
+    D = QD // hq
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype \
+            or D != 64:
+        raise TypeError(f"attention_train kernels take bf16 with head dim "
+                        f"64, got {q.dtype} with head dim {D}")
+    scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
+                                dtype=torch.bfloat16))
+    coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    return dict(B=B, N=N, seed=seed & _M32, thr=keep_threshold(rate),
+                scale2=scale2, scale=1.0 / math.sqrt(D), coef=coef,
+                dropout=int(rate > 0.0))
+
+
+def _lib(q, N):
+    """The kernels' library, after checking that K and V of N keys fit the
+    card's shared memory."""
+    from . import _build
+
+    lib = _build.load("attention_train")
+    lib.attn_train_smem_bytes.restype = ctypes.c_int
+    lib.attn_train_smem_bytes.argtypes = [ctypes.c_int]
+    smem = lib.attn_train_smem_bytes(N)
+    limit = torch.cuda.get_device_properties(q.device) \
+        .shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"attention_train: N={N} needs {smem} B of shared "
+                         f"memory, the card gives {limit}")
+    return lib
+
+
+_PTR, _INT, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_float)
+
+
+def _launch_fwd(q, k, v, seed, hq, hkv, rate):
+    from . import _build
+
+    a = _kernel_args(q, k, v, hq, hkv, rate, seed)
+    lib = _lib(q, a["N"])
+    fn = lib.attn_train_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_U32, _U32, _F32, _F32, _INT,
+                                             _PTR]
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
+    B, N = a["B"], a["N"]
+    out = torch.empty_like(q)
+    stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             stats.data_ptr(), B, N, hq, hkv, a["seed"], a["thr"],
+             a["scale2"], a["coef"], a["dropout"], _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_train fwd")
+    attention_train_fwd.launches += 1
+    return out, stats
+
+
+def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
+    from . import _build
+
+    a = _kernel_args(q, k, v, hq, hkv, rate, seed)
+    lib = _lib(q, a["N"])
+    fn = lib.attn_train_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_PTR] * 10 + [_INT] * 4 + [_U32, _U32, _F32, _F32, _F32,
+                                              _INT, _PTR]
+    B, N = a["B"], a["N"]
+    q, k, v, o = (_build.aligned(t) for t in (q, k, v, o))
+    do = _build.aligned(do.to(q.dtype))
+    if o.shape != q.shape or do.shape != q.shape \
+            or stats.shape != (B, hq, N, 2):
+        raise ValueError("o, do must match q and stats must be "
+                         f"[{B}, {hq}, {N}, 2]")
+    stats = stats.float().contiguous()
+    delta = torch.empty((B, hq, N), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, N, hq, hkv, a["seed"],
+             a["thr"], a["scale2"], a["scale"], a["coef"], a["dropout"],
+             _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_train bwd")
+    attention_train_bwd.launches += 1
+    return dq, dk, dv

@@ -1,3 +1,3 @@
-from .flow import FlowSampler
+from .flow import FlowSampler, flow_interpolate, u_shaped_timesteps
 
-__all__ = ["FlowSampler"]
+__all__ = ["FlowSampler", "flow_interpolate", "u_shaped_timesteps"]

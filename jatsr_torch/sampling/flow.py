@@ -1,6 +1,7 @@
-"""The Euler flow-matching ODE sampler with classifier-free guidance.
+"""Flow-matching math and the Euler ODE sampler with classifier-free guidance.
 
-Port of the JAX package's ``sampling/flow.py`` ``FlowSampler``:
+Port of the JAX package's ``sampling/flow.py``: the training draws
+(``flow_interpolate``, ``u_shaped_timesteps``) and ``FlowSampler``:
 
 - x-prediction Euler steps with the ``1/(1 - t + eps)`` velocity guard;
 - the jump to x0 at ``t >= t_jump_threshold`` as a scalar step-size select
@@ -28,14 +29,39 @@ from ..utils.device import resolve_device
 
 
 def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
-    """``jnp.linspace(start, stop, num, float32)`` as XLA computes it:
-    ``start * (1 - s) + stop * s`` with ``s = i * f32(1/(num-1))`` (the
-    constant divide becomes a reciprocal multiply), end point exact."""
+    """``jnp.linspace(start, stop, num, float32)`` as XLA computes it under
+    ``jit``: ``start * (1 - s) + i * f32(stop * r)`` with ``r = f32(1 /
+    (num - 1))`` and ``s = i * r`` (the constant divide becomes a reciprocal
+    multiply, and ``stop * (i * r)`` is reassociated), end point exact."""
     if num == 1:
         return np.array([start], np.float32)
-    s = np.arange(num - 1, dtype=np.float32) * np.float32(1.0 / (num - 1))
-    out = (np.float32(start) * (np.float32(1.0) - s) + np.float32(stop) * s)
-    return np.append(out, np.float32(stop)).astype(np.float32)
+    f32 = np.float32
+    i = np.arange(num - 1, dtype=f32)
+    r = f32(1.0 / (num - 1))
+    out = f32(start) * (f32(1.0) - i * r) + i * (f32(stop) * r)
+    return np.append(out, f32(stop)).astype(f32)
+
+
+def flow_interpolate(x0: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """``z_t = t*x0 + (1-t)*noise`` with t ``[B]`` broadcast over x0."""
+    t = t.reshape((-1,) + (1,) * (x0.ndim - 1)).to(x0.dtype)
+    return t * x0 + (1.0 - t) * noise
+
+
+def u_shaped(u: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+    """U-shaped t from uniforms ``u``: denser near 0 and 1."""
+    lo = 0.5 * (2.0 * u) ** alpha
+    hi = 1.0 - 0.5 * (2.0 * (1.0 - u)) ** alpha
+    return torch.where(u < 0.5, lo, hi)
+
+
+def u_shaped_timesteps(batch: int, alpha: float = 0.5,
+                       generator: Optional[torch.Generator] = None,
+                       device="cpu") -> torch.Tensor:
+    """``[batch]`` fp32 U-shaped flow times drawn from ``generator``."""
+    u = torch.rand((batch,), generator=generator, device=device)
+    return u_shaped(u, alpha)
 
 
 def timesteps(num_steps: int) -> np.ndarray:

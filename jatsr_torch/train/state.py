@@ -1,0 +1,134 @@
+"""Train state: the trainable DiT, its AdamW(+clip) optimizer, step, seed.
+
+Port of the JAX package's ``train/state.py``.  The optimizer is optax's
+chain, ``clip_by_global_norm(grad_clip)`` then ``adamw`` under the
+warmup-cosine schedule, in optax's order of operations (not
+``torch.optim.AdamW``):
+
+- clip: ``g -> (g / |g|) * max_norm`` only when ``|g| >= max_norm``, where
+  ``|g|`` is the global norm (no epsilon);
+- Adam: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``, bias
+  correction at the incremented count, ``mu_hat / (sqrt(nu_hat) + eps)``;
+- then ``+ weight_decay * param`` and ``* -lr(count)``, the schedule read at
+  the count before the increment (so step 0 has lr 0 under warmup);
+- ``adam_moments_dtype="bfloat16"`` stores only the first moment in bf16
+  (optax's ``mu_dtype``): ``b1 * mu`` is then a bf16 product, as JAX's.
+
+The port updates parameters and moments in place, which keeps one copy of
+each in device memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from ..configs import TrainConfig
+from ..utils.device import resolve_device
+from .schedule import warmup_cosine
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class ClipAdamW:
+    """``optax.chain(clip_by_global_norm, adamw)`` over a list of tensors."""
+
+    def __init__(self, max_norm: float, schedule, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.0, mu_dtype=torch.float32):
+        self.max_norm, self.schedule = max_norm, schedule
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        self.mu_dtype = mu_dtype
+
+    def init(self, params) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p, dtype=self.mu_dtype)
+                             for p in params],
+                         [torch.zeros_like(p, dtype=torch.float32)
+                          for p in params])
+
+    @torch.no_grad()
+    def step(self, params, grads, state: AdamState) -> None:
+        """One update of ``params`` and ``state`` in place."""
+        g_norm = global_norm(grads)
+        clip = g_norm >= self.max_norm
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        neg_lr = -float(self.schedule(state.count))
+        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+            g = torch.where(clip, (g / g_norm) * self.max_norm, g)
+            if mu.dtype == torch.float32:
+                m = g * (1 - self.b1) + mu * self.b1
+            else:  # b1 * mu in the moment's dtype, as a weak-typed JAX scalar
+                m = g * (1 - self.b1) + mu * torch.tensor(
+                    self.b1, dtype=mu.dtype, device=mu.device)
+            nu.copy_((g * g) * (1 - self.b2) + nu * self.b2)
+            u = (m / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            mu.copy_(m)
+            u = u + p * self.wd
+            p.add_(u * neg_lr)
+        state.count = count
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over a list of tensors, fp32."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+def make_optimizer(cfg: TrainConfig, total_steps: int) -> ClipAdamW:
+    return ClipAdamW(
+        cfg.grad_clip, warmup_cosine(cfg.lr, cfg.warmup_steps, total_steps),
+        b1=0.9, b2=0.999, eps=1e-8, weight_decay=cfg.weight_decay,
+        mu_dtype=getattr(torch, cfg.adam_moments_dtype))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters are the trained state), the optimizer and
+    its moments, the step count and the seed the per-step draws come from."""
+
+    step: int
+    model: torch.nn.Module
+    opt_state: AdamState
+    seed: int
+    tx: ClipAdamW
+
+    @property
+    def params(self) -> List[torch.nn.Parameter]:
+        return list(self.model.parameters())
+
+    def apply_gradients(self, grads) -> "TrainState":
+        """Clip, AdamW, in place; the step count advances."""
+        self.tx.step(self.params, grads, self.opt_state)
+        self.step += 1
+        return self
+
+
+def create_train_state(model, cfg: TrainConfig, total_steps: int,
+                       sample_batch, seed: int = None,
+                       device="cuda") -> TrainState:
+    """The train state of a trainable DiT (``models.dit.DenseDiT``, whose
+    parameters are initialised at construction) on ``device``.
+
+    ``sample_batch`` is an (hr, lr) pair ``[B, T, C]``: its channel count
+    is checked against the model.
+    """
+    dev = resolve_device(device)
+    model.to(dev)
+    model.device = dev
+    C = model.cfg.input_channels
+    for x in sample_batch:
+        if x.shape[-1] != C:
+            raise ValueError(f"sample batch has {x.shape[-1]} channels, the "
+                             f"model takes {C}")
+    tx = make_optimizer(cfg, total_steps)
+    return TrainState(step=0, model=model, opt_state=tx.init(list(model.parameters())),
+                      seed=cfg.seed if seed is None else seed, tx=tx)

@@ -17,7 +17,10 @@ def resolve_device(device="cuda") -> torch.device:
     CUDA device it also turns TF32 off for matmuls and cuDNN convolutions:
     the port's fp32 products (time MLP, DAC decode convolutions) must match
     the JAX package's fp32 numerics, and cuDNN's default TF32 conv differs
-    at about 1e-3 relative.
+    at about 1e-3 relative.  And it turns off cuBLAS's reduced-precision
+    (bf16) reductions in bf16 products: the JAX package's bf16 products
+    (the trainable DiT's projections, the serving AdaLN and head) sum in
+    fp32.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -27,6 +30,8 @@ def resolve_device(device="cuda") -> torch.device:
                 "PyTorch path explicitly")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}")
     return dev

@@ -23,7 +23,15 @@ units (B9, B6) 4e-3, as ``chip_smoke.py`` states: a sum in another order
 moves some of their bf16 intermediates by one ulp, ~1e-3 of an output
 each (1.08e-3 measured at stage 2's B6).  The fused decode on the card
 against the CPU: max abs 5e-3, the fp32 decode bound of
-``tests/test_dac.py``.
+``tests/test_dac.py``.  The training attention (B10): forward atol = rtol =
+2e-2 as the serving attention; backward max abs <= 1e-2 x max |plain| per
+gradient (bf16 outputs, and ds rounds to bf16 before its products, so a sum
+in another order moves some ds by one ulp: measured 4.3e-3 x max at the
+v3 shape), and two backward runs are bit-equal (no atomics).  The narrow
+trainable DiT's step on the card against the CPU: loss rtol 1e-2, grad
+norm rtol 2e-2, updated parameters within 2 lr (a first Adam step moves
+each by +-lr, so a gradient whose sign differs in bf16 moves it the other
+way) and within 2 % of lr on average.
 """
 
 import numpy as np
@@ -31,6 +39,7 @@ import pytest
 import torch
 
 from jatsr_torch.models.dit import rope_cos_sin
+from jatsr_torch.ops import attention_train as at
 from jatsr_torch.ops import dac_kernels as dk
 from jatsr_torch.ops.attention import flash_qkv_plain, gqa_attention_flash_qkv
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
@@ -311,3 +320,89 @@ def test_fused_decode_on_card_matches_cpu(card):
     want = DAC(dec, cfg, fused_res_units=True, device="cpu").decode(z)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-3
+
+
+def _attn_train_inputs(card, B, N, hq, hkv, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((B, N, w * 64), generator=gen, device=card).bfloat16()
+            for w in (hq, hkv, hkv, hq)]
+
+
+@pytest.mark.parametrize("B,N,hq,hkv,rate,seed", [
+    (28, 345, 20, 4, 0.1, -123456789), (28, 345, 20, 4, 0.0, 0),
+    (2, 45, 8, 2, 0.1, 7)])
+def test_attention_train_kernels_match_plain(card, B, N, hq, hkv, rate, seed):
+    q, k, v, do = _attn_train_inputs(card, B, N, hq, hkv, 17)
+    n0 = (at.attention_train_fwd.launches, at.attention_train_bwd.launches)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    assert (at.attention_train_fwd.launches,
+            at.attention_train_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    for got, ref in zip(grads, at.attention_train_bwd_plain(
+            q, k, v, o, do, seed, hq, hkv, rate)):
+        _assert_rel(got.float(), ref.float(), 1e-2)
+
+
+def test_attention_train_backward_is_deterministic(card):
+    q, k, v, do = _attn_train_inputs(card, 28, 345, 20, 4, 18)
+    o, stats = at.attention_train_fwd(q, k, v, 5, 20, 4, 0.1)
+    a = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
+    b = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_narrow_dense_dit_step_on_card_matches_cpu(card):
+    """One train step of a narrow trainable DiT (head dim 64, as B10 needs;
+    remat "full"; 130 frames: 33 patches) on the card against the CPU on the
+    same weights, batch and draws.  B10 runs twice per block forward (the
+    remat replay) and once per block backward."""
+    import dataclasses
+
+    from jatsr_torch.configs import LossConfig, TrainConfig, get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, cfg_dropout_prob=0.2)
+    dense = random_dense_params(cfg, 19)
+    rng = np.random.default_rng(20)
+    hr, lr = (torch.from_numpy(rng.standard_normal((4, 130, 64),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    draws = {"noise": rng.standard_normal((4, 130, 64), dtype=np.float32),
+             "u": rng.random(4, dtype=np.float32),
+             "cond_noise": rng.standard_normal((4, 130, 64), dtype=np.float32),
+             "cfg_u": rng.random((4, 1, 1), dtype=np.float32),
+             "layer_seeds": [3, 4]}
+    ones = np.ones(64, np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
+                                   100, (hr, lr), device=dev)
+        step = make_train_step(LossConfig(), tcfg,
+                               Normalizer(0 * ones, ones, 0 * ones, ones,
+                                          device=dev))
+        n0 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        state, m = step(state, hr, lr, draws=draws)
+        n1 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in state.params],
+                    (n1[0] - n0[0], n1[1] - n0[1]))
+    (m_c, p_c, l_c), (m_g, p_g, l_g) = out["cpu"], out["cuda"]
+    assert l_c == (0, 0) and l_g == (2 * cfg.depth, cfg.depth)
+    np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-2)
+    np.testing.assert_allclose(m_g["grad_norm"], m_c["grad_norm"], rtol=2e-2)
+    for a, b in zip(p_g, p_c):
+        d = (a - b).abs()
+        assert d.max().item() <= 2 * tcfg.lr * 1.01
+        assert d.mean().item() <= 0.02 * tcfg.lr

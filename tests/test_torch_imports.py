@@ -66,12 +66,14 @@ def _tiny_static():
 
 
 def _entry_points():
-    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.configs import SamplerConfig, TrainConfig
     from jatsr_torch.infer import InferencePipeline
     from jatsr_torch.models.dac import DAC, DACConfig
     from jatsr_torch.models.dac.model import init_decoder_params
     from jatsr_torch.models.dit import DiT
     from jatsr_torch.sampling import FlowSampler
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.train import create_train_state
     from jatsr_torch.train.step import Normalizer
 
     small = DACConfig(encoder_dim=256, encoder_rates=(2, 4), decoder_dim=16,
@@ -84,12 +86,23 @@ def _entry_points():
         "Normalizer": lambda: Normalizer(ones, ones, ones, ones),
         "FlowSampler": lambda: FlowSampler(lambda *a: None, SamplerConfig()),
         "InferencePipeline": lambda: InferencePipeline(None, None),
+        "DenseDiT": lambda: DenseDiT(_tiny_train_cfg()),
+        "create_train_state": lambda: create_train_state(
+            DenseDiT(_tiny_train_cfg(), device="cpu"), TrainConfig(), 10,
+            (np.zeros((1, 8, 1024)),) * 2),
     }
+
+
+def _tiny_train_cfg():
+    from jatsr_torch.configs import get_preset
+
+    return get_preset("tiny").model
 
 
 @pytest.mark.parametrize("name", ["DiT", "DAC", "DAC.random_init",
                                   "Normalizer", "FlowSampler",
-                                  "InferencePipeline"])
+                                  "InferencePipeline", "DenseDiT",
+                                  "create_train_state"])
 def test_entry_points_refuse_to_run_on_cpu_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
@@ -100,14 +113,20 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(name):
 def test_kernel_wrappers_run_the_plain_version_only_on_cpu_tensors():
     """A CPU tensor takes the plain version and counts no launch."""
     from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.attention_train import (attention_train_bwd,
+                                                 attention_train_fwd)
     from jatsr_torch.ops.int8_matmul import int8_dense_gelu_quant
 
-    n0 = (gqa_attention_flash_qkv.launches, int8_dense_gelu_quant.launches)
+    n0 = (gqa_attention_flash_qkv.launches, int8_dense_gelu_quant.launches,
+          attention_train_fwd.launches, attention_train_bwd.launches)
     qkv = torch.zeros(1, 8, 6 * 64, dtype=torch.bfloat16)
     cs = torch.ones(8, 64)
     gqa_attention_flash_qkv(qkv, cs, cs, 2, 2)
     int8_dense_gelu_quant(torch.ones(20, 64, dtype=torch.bfloat16),
                           torch.ones(64, 128, dtype=torch.int8),
                           torch.ones(1, 128), torch.zeros(1, 128))
-    assert (gqa_attention_flash_qkv.launches,
-            int8_dense_gelu_quant.launches) == n0
+    q = torch.ones(1, 8, 2 * 64, dtype=torch.bfloat16)
+    o, _ = attention_train_fwd(q, q, q, 1, 2, 2, 0.1)
+    attention_train_bwd(q, q, q, o, q, 1, 2, 2, 0.1)
+    assert (gqa_attention_flash_qkv.launches, int8_dense_gelu_quant.launches,
+            attention_train_fwd.launches, attention_train_bwd.launches) == n0
