@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's two serving paths end to end at full width, each
+then drives the port's three serving paths end to end at full width, each
 once with its launches counted and then timed: the v3 766 M int8 DiT
 (random weights from a seed, quantized by the port) through the Euler CFG
 sampler over ~44 s of latent, then the segmented DAC decode (two
@@ -22,6 +22,12 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
 - The second path is ``bench.py --no-fused-prologue --no-fused-decode``
   (345 patches): flash_qkv and dense_gelu_quant (patch embed and mlp_in),
   then the unfused fp32 decode (cuDNN convolutions, TF32 off).
+- The third path is ``bench.py --flash-out --fused-mlp-impl full
+  --int8-impl pallas`` (352 patches, keys masked past 345; the fused
+  prologue is off there, as in the JAX model): each block runs
+  int8_matmul (the qkv product on the torch-quantised A), flash_out
+  (attention with the int8 out projection) and int8_mlp (the whole MLP);
+  the patch embed runs dense_gelu_quant; then the fused decode.
 
 It checks each path's launch counts, the waveform, each full-width DiT on
 the card against the same DiT's plain path on the CPU at a small input,
@@ -38,7 +44,7 @@ timed steps (finite losses, moved parameters), and one step of the same
 model (all 28 blocks, batch 4) on the card against the CPU (plain
 versions) on the same weights, batch and draws.
 
-The timed passes of the two serving paths run in turns.  With
+The timed passes of the three serving paths run in turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused) and one more train step with
 ``torch.profiler`` and prints, for each, the card's busy share and device
@@ -77,14 +83,22 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 REF_B = 4                     # the card-vs-CPU train step's batch
 
 # bench.py's DiT at full width: its default (the fused prologue, which
-# implies align_n), and --no-fused-prologue.
+# implies align_n), --no-fused-prologue, and --flash-out --fused-mlp-impl
+# full --int8-impl pallas (which keeps align_n).
 SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
                matmul_precision="int8_static", fused_qkv=True, fused_mlp=True,
                fused_mlp_impl="half", attention_impl="flash", flash_qkv=True,
                gelu_impl="tanh", fast_epilogue=True, int8_impl="xla")
 PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
-         "no_prologue": dict(fused_prologue=False, align_n=False)}
-FUSED_DECODE = {"prologue": True, "no_prologue": False}  # --fused-decode
+         "no_prologue": dict(fused_prologue=False, align_n=False),
+         "opt_in": dict(fused_prologue=True, align_n=True,
+                        flash_fused_out=True, fused_mlp_impl="full",
+                        int8_impl="pallas")}
+FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
+                "opt_in": True}
+# The kernels only the third path runs: the kernel line takes their
+# launches from it, the others' from the main path.
+OPT_IN_KERNELS = ("flash_out", "int8_mlp", "int8_matmul")
 
 
 def log(*a):
@@ -122,8 +136,11 @@ def rotations(nbytes: int) -> int:
     return max(2, min(32, math.ceil(96e6 / nbytes)))
 
 
-def bound(nbytes: float, ops: float, peak: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+def bound(nbytes: float, ops: float, peak: float, int8_ops: float = 0.0):
+    """Least ms for the work: compulsory bytes at the HBM rate, or the
+    operations at their type's peak (``int8_ops`` beside ``ops``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / peak + int8_ops / PEAK_INT8
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -144,6 +161,21 @@ def timings(kernel, plain, library, args, big, reps=100, plain_reps=20):
             "library_ms": time_ms(library, sets, max(2, reps // 2))}
 
 
+def sdpa_inputs(torch, qkv, cos, sin, hq, hkv):
+    """The SDPA yardstick's inputs: the RoPE'd, head-split q/k/v (kv heads
+    repeated) and the main path's key mask."""
+    from jatsr_torch.ops.attention import _rope
+
+    D = qkv.shape[-1] // (hq + 2 * hkv)
+    heads = qkv.reshape(B, NP, hq + 2 * hkv, D).permute(0, 2, 1, 3)
+    cb, sb = cos.bfloat16(), sin.bfloat16()
+    q = _rope(heads[:, :hq], cb, sb).contiguous()
+    k = _rope(heads[:, hq:hq + hkv], cb, sb).repeat_interleave(hq // hkv, 1)
+    v = heads[:, hq + hkv:].repeat_interleave(hq // hkv, 1).contiguous()
+    mask = (torch.arange(NP, device="cuda") < N_VALID)[None, None, None]
+    return q, k, v, mask
+
+
 def check_attention(torch):
     """flash_qkv against its plain version at the main path's qkv
     [6, 352, 1792] bf16 with keys masked past 345, and at the no-prologue
@@ -151,7 +183,7 @@ def check_attention(torch):
     import torch.nn.functional as F
 
     from jatsr_torch.models.dit import rope_cos_sin
-    from jatsr_torch.ops.attention import (_rope, flash_qkv_plain,
+    from jatsr_torch.ops.attention import (flash_qkv_plain,
                                            gqa_attention_flash_qkv)
 
     hq, hkv, D = 20, 4, 64
@@ -170,14 +202,7 @@ def check_attention(torch):
                                    rtol=2e-2)
         err = max(err, (got.float() - want.float()).abs().max().item())
 
-    # Yardstick: SDPA on the RoPE'd, head-split q/k/v (kv heads repeated),
-    # with the same key mask.
-    heads = qkv.reshape(B, NP, hq + 2 * hkv, D).permute(0, 2, 1, 3)
-    cb, sb = cos.bfloat16(), sin.bfloat16()
-    q = _rope(heads[:, :hq], cb, sb).contiguous()
-    k = _rope(heads[:, hq:hq + hkv], cb, sb).repeat_interleave(hq // hkv, 1)
-    v = heads[:, hq + hkv:].repeat_interleave(hq // hkv, 1).contiguous()
-    mask = (torch.arange(NP, device="cuda") < N_VALID)[None, None, None]
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
     t = timings(lambda x, c, s, q, k, v: gqa_attention_flash_qkv(
                     x, c, s, hq, hkv, n_valid=N_VALID),
                 lambda x, c, s, q, k, v: flash_qkv_plain(
@@ -387,6 +412,144 @@ def check_matmul_fused(torch):
                         "int8_matmul_fused; pallas_call :151)",
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H]}
+
+
+# ---- the third path's kernels (B12-B14) -------------------------------------
+# B12 against its plain version: max abs <= 1e-2 x max |plain|.  The
+# kernel's fp32 sums run in another order, which can move a normalised
+# weight or a head's output by one bf16 ulp and so a code of the row
+# quantisation by one (a step of so * |wo| in the outputs of that row).
+REL_FLASH_OUT = 1e-2
+
+
+def check_flash_out(torch):
+    """flash_out (B12) against its plain version at qkv [6, 352, 1792],
+    keys masked past 345, wo [1280, 1280] with a non-zero bias."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (flash_out_plain,
+                                           gqa_attention_flash_out)
+    from jatsr_torch.ops.int8_matmul import quantize_rows
+
+    hq, hkv, D = 20, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, SEED + 12)
+    got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                  n_valid=N_VALID).float()
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=N_VALID).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err, scale = diff.max().item(), want.abs().max().item()
+    far = (diff > want.abs() * 2.0 ** -7).float().mean().item()
+    if not bool(torch.isfinite(got).all()) or err > REL_FLASH_OUT * scale:
+        raise AssertionError(f"flash_out: max abs {err} > {REL_FLASH_OUT} x "
+                             f"max |plain| {scale}")
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
+
+    def library(x, c, s, q, k, v):
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        o_q, so = quantize_rows(o.transpose(1, 2).reshape(B * NP, hq * D))
+        y = torch._int_mm(o_q, wo_q).float() * so.clamp_min(1e-12) * wo_s + bo
+        return y.bfloat16()
+
+    t = timings(lambda x, c, s, *_: gqa_attention_flash_out(
+                    x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID),
+                lambda x, c, s, *_: flash_out_plain(
+                    x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID),
+                library, (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=200)
+    nbytes = nbytes_of(qkv, cos, sin, wo_q, wo_s, bo) + B * NP * H * 2
+    b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_BF16,
+                       int8_ops=2 * B * NP * hq * D * H)
+    return {"name": "flash_out", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/flash_qkv.cu",
+            "replaces": "ops/attention.py:534 (JAX package, "
+                        "gqa_attention_flash_out; pallas_call :565)",
+            "max_abs_err": err, "max_abs_plain": scale,
+            "beyond_1ulp_frac": far, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, NP, (hq + 2 * hkv) * D, H], "n_valid": N_VALID}
+
+
+def check_int8_mlp(torch):
+    """int8_mlp (B13) against its plain version at [2112, 1280] x [1280,
+    5120] x [5120, 1280] (four slabs of 1280): equal but for <= 0.1 % of
+    the outputs, each within 0.02 absolute plus 0.02 relative (tanhf/expf
+    against PyTorch's can move a bf16 g, and so a code, by one)."""
+    from jatsr_torch.ops.int8_matmul import (_INV127, _gelu, _pick_slabs,
+                                             int8_mlp, mlp_plain,
+                                             quantize_rows)
+
+    M, N1 = B * NP, 4 * H
+    a, w1q, w1s, b1 = dense_inputs(torch, M, H, N1, SEED + 13)
+    _, w2q, w2s, b2 = dense_inputs(torch, 1, N1, H, SEED + 14)
+    args = (a, w1q, w1s, b1, w2q, w2s, b2)
+    got = int8_mlp(*args).float()
+    want = mlp_plain(*args).float()
+    torch.cuda.synchronize()
+    frac = (got != want).float().mean().item()
+    err = (got - want).abs().max().item()
+    if frac > 1e-3 or not torch.allclose(got, want, atol=0.02, rtol=0.02):
+        raise AssertionError(f"int8_mlp: {frac:.4%} of the outputs differ, "
+                             f"max abs {err}")
+    n, slab = _pick_slabs(N1), N1 // _pick_slabs(N1)
+
+    def library(a, w1q, w1s, b1, w2q, w2s, b2):
+        a_q, s = quantize_rows(a)
+        g = _gelu(torch._int_mm(a_q, w1q).float() * s.clamp_min(1e-12) * w1s
+                  + b1).bfloat16().float().reshape(M, n, slab)
+        gs = (g.abs().amax(-1, keepdim=True) * _INV127).clamp_min(1e-12)
+        g_q = torch.round(g / gs).to(torch.int8).transpose(0, 1).contiguous()
+        acc = sum(torch._int_mm(g_q[j], w2q[j * slab:(j + 1) * slab]).float()
+                  * gs[:, j] for j in range(n))
+        return (acc * w2s + b2).bfloat16()
+
+    t = timings(int8_mlp, mlp_plain, library, args, big=(0,), plain_reps=5)
+    b_ms, b_by = bound(nbytes_of(*args) + M * H * 2, 0.0, PEAK_INT8,
+                       int8_ops=4 * M * H * N1)
+    return {"name": "int8_mlp", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/mlp_full.cu",
+            "replaces": "ops/int8_matmul.py:691 (JAX package, int8_mlp; "
+                        "pallas_call :721)",
+            "max_abs_err": err, "mismatch_frac": frac, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, N1, H],
+            "slabs": n}
+
+
+def check_int8_matmul(torch):
+    """int8_matmul (B14) at the qkv product [2112, 1280] x [1280, 1792]:
+    bit-equal to its plain version and to ``w8a8_dot(impl="xla")``."""
+    from jatsr_torch.ops.int8_matmul import (int8_matmul,
+                                             matmul_prequant_plain,
+                                             quantize_rows)
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    M, N = B * NP, 1792
+    a, w_q, w_s, _ = dense_inputs(torch, M, H, N, SEED + 15)
+    a_q, a_s = quantize_rows(a)
+    got = int8_matmul(a_q, a_s, w_q, w_s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, matmul_prequant_plain(a_q, a_s, w_q, w_s),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(got, w8a8_dot(a, w_q, w_s, impl="xla"),
+                               atol=0, rtol=0)
+
+    def library(a_q, a_s, w_q, w_s):
+        return (torch._int_mm(a_q, w_q).float() * a_s * w_s).bfloat16()
+
+    t = timings(int8_matmul, matmul_prequant_plain, library,
+                (a_q, a_s, w_q, w_s), big=(0, 2))
+    b_ms, b_by = bound(nbytes_of(a_q, a_s, w_q, w_s, got), 2 * M * H * N,
+                       PEAK_INT8)
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/matmul_fused.cu",
+            "replaces": "ops/int8_matmul.py:757 (JAX package, int8_matmul; "
+                        "pallas_call :794)",
+            "max_abs_err": 0.0, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [M, H, N]}
 
 
 # ---- the fused decode's kernels (B6-B9) ------------------------------------
@@ -611,8 +774,8 @@ def check_decode(torch, fused, unfused, segment):
 
 
 # Kernel-name substrings by kind, for the profile's summary (first match;
-# the port's kernels, all in anonymous namespaces, are matched first by
-# their name's prefix).
+# the port's kernels, all in anonymous namespaces, are matched first: a
+# template's name starts with its return type, "void (anonymous ...").
 PROFILE_GROUPS = (
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "Kernel2")),
     ("FFT", ("fft", "FFT", "regular_fft", "vector_fft")),
@@ -652,7 +815,8 @@ def profile_phase(torch, name, fn):
         f"{busy / 1e3:.1f} ms = {busy / wall:.1%}, {len(kernels)} kernels")
     groups = {}
     for kname, (us, n) in by_name.items():
-        g = "port kernels" if kname.startswith("(anonymous namespace)::") \
+        g = "port kernels" if kname.split("(anonymous namespace)::")[0] in (
+            "", "void ") \
             else next((g for g, keys in PROFILE_GROUPS if any(
                 k in kname for k in keys)), "other")
         gu, gn = groups.get(g, (0.0, 0))
@@ -1060,9 +1224,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more sampler call and one more decode "
-                         "of each serving path, and one more train step, "
-                         "with torch.profiler")
+                    help="trace one more sampler call of each serving path, "
+                         "one more decode of each kind, and one more train "
+                         "step, with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1076,9 +1240,11 @@ def main() -> int:
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.ops import _build
     from jatsr_torch.ops import dac_kernels as dk
-    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.attention import (gqa_attention_flash_out,
+                                           gqa_attention_flash_qkv)
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
-                                             int8_matmul_fused)
+                                             int8_matmul, int8_matmul_fused,
+                                             int8_mlp)
     from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
                                           int8_norm_mod_dot)
     from jatsr_torch.ops.quant import quantize_params_static
@@ -1097,7 +1263,7 @@ def main() -> int:
 
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
-               "dac_res", "snake_tr", "attention_train")
+               "mlp_full", "dac_res", "snake_tr", "attention_train")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -1109,7 +1275,7 @@ def main() -> int:
         log(f"[build] {name}: registers {regs}, spills {spills or 'none'}")
 
     # 3. Kernels against their plain versions at the paths' shapes.
-    cfgs = {k: dataclasses.replace(get_preset("v3").model, **SERVING, **v)
+    cfgs = {k: dataclasses.replace(get_preset("v3").model, **{**SERVING, **v})
             for k, v in PATHS.items()}
     norm = cfgs["prologue"].norm
     checks = {
@@ -1117,6 +1283,9 @@ def main() -> int:
         "norm_mod_dot": check_norm_mod_dot(torch, norm),
         "matmul_fused": check_matmul_fused(torch),
         "norm_mod_dense_gelu_quant": check_norm_mod_gelu(torch, norm),
+        "flash_out": check_flash_out(torch),
+        "int8_mlp": check_int8_mlp(torch),
+        "int8_matmul": check_int8_matmul(torch),
     }
     patch = check_dense_gelu(torch, B * NP, 8192, 512)
     mlp_in = check_dense_gelu(torch, B * N_VALID, 1280, 5120)
@@ -1134,16 +1303,15 @@ def main() -> int:
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
 
-    # 4. The two serving paths at full width, on one set of weights (one
-    #    for the DiT, one for the codec).
+    # 4. The three serving paths at full width, on one set of weights for
+    #    the DiT and one for each decode (fused, unfused).
     t0 = time.perf_counter()
     dense = random_dense_params(cfgs["prologue"], SEED)
     static = quantize_params_static(dense)
     log(f"[model] v3 int8_static weights: {time.perf_counter() - t0:.1f} s "
         f"to draw and quantize")
-    codecs = {name: DAC.random_init(SEED, DACConfig(), fused_res_units=f,
-                                    device="cuda")
-              for name, f in FUSED_DECODE.items()}
+    codecs = {f: DAC.random_init(SEED, DACConfig(), fused_res_units=f,
+                                 device="cuda") for f in (True, False)}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lr = torch.randn((LATENT_FRAMES, cfgs["prologue"].input_channels),
                      generator=gen, device="cuda")
@@ -1156,29 +1324,34 @@ def main() -> int:
                     dk.snake_conv_transpose_streamed,
                 "snake_conv_transpose_fused": dk.snake_conv_transpose_fused,
                 "res_stage_fused": dk.res_stage_fused,
-                "res_unit_fused": dk.res_unit_fused}
+                "res_unit_fused": dk.res_unit_fused,
+                "flash_out": gqa_attention_flash_out,
+                "int8_mlp": int8_mlp,
+                "int8_matmul": int8_matmul}
     per_block = STEPS * cfgs["prologue"].depth
     segments = 2  # 3790 frames: two decode segments, one per decode call
     fused_decode = {"snake_conv_transpose_streamed": segments,
                     "snake_conv_transpose_fused": 3 * segments,
                     "res_stage_fused": 3 * segments, "res_unit_fused": 0}
+    none = {k: 0 for k in counters}
     expected = {
-        "prologue": {"flash_qkv": per_block, "dense_gelu_quant": STEPS,
-                     "norm_mod_dot": per_block, "matmul_fused": per_block,
-                     "norm_mod_dense_gelu_quant": per_block,
-                     **fused_decode},
-        "no_prologue": {"flash_qkv": per_block,
-                        "dense_gelu_quant": per_block + STEPS,
-                        "norm_mod_dot": 0, "matmul_fused": 0,
-                        "norm_mod_dense_gelu_quant": 0,
-                        **{k: 0 for k in fused_decode}},
+        "prologue": {**none, "flash_qkv": per_block,
+                     "dense_gelu_quant": STEPS, "norm_mod_dot": per_block,
+                     "matmul_fused": per_block,
+                     "norm_mod_dense_gelu_quant": per_block, **fused_decode},
+        "no_prologue": {**none, "flash_qkv": per_block,
+                        "dense_gelu_quant": per_block + STEPS},
+        "opt_in": {**none, "dense_gelu_quant": STEPS,
+                   **{k: per_block for k in OPT_IN_KERNELS}, **fused_decode},
     }
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
         models[name] = DiT(cfg, static, device="cuda")
-        fns[name] = make_server(torch, models[name], codecs[name], lr)
+        fns[name] = make_server(torch, models[name],
+                                codecs[FUSED_DECODE[name]], lr)
         fns[name][2]()  # warm-up: cuDNN algorithm choice, allocator
-    # The main path first: its counts are the kernel line's launches.
+    # Each path's counted pass; the kernel line takes a kernel's launches
+    # from the main path, or from the third for the kernels only it runs.
     latents = {}
     for name in cfgs:
         launches[name], latents[name] = counted_pass(
@@ -1186,22 +1359,23 @@ def main() -> int:
             cfgs[name].input_channels)
     timed_passes({name: f[2] for name, f in fns.items()})
     if args.profile:
-        for name, (sample, decode, _) in fns.items():
+        for name, (sample, _, _) in fns.items():
             profile_phase(torch, f"{name} sampler", sample)
+        for name in ("prologue", "no_prologue"):  # one of each decode
             profile_phase(torch, f"{name} decode "
                           f"({'fused' if FUSED_DECODE[name] else 'unfused'})",
-                          lambda: decode(latents[name]))
-    check_decode(torch, codecs["prologue"], codecs["no_prologue"],
+                          lambda: fns[name][1](latents[name]))
+    check_decode(torch, codecs[True], codecs[False],
                  latents["prologue"][:DECODE_L][None])
     del codecs, fns, latents
 
     # 5. Reference on a small input: each full-width DiT on the card
     #    (kernels) and on the CPU (plain versions).  100 frames are 25
-    #    patches, aligned to 32 (keys masked past 25) on the main path.
+    #    patches, aligned to 32 (keys masked past 25) where align_n is on.
     for name, cfg in cfgs.items():
         check_reference(torch, name, models[name],
                         DiT(cfg, static, device="cpu"),
-                        100 if name == "prologue" else 64)
+                        100 if cfg.align_n else 64)
 
     del models, static
     torch.cuda.empty_cache()
@@ -1213,8 +1387,8 @@ def main() -> int:
     check_train_reference(torch, dense)
 
     # Result lines.
-    kernels = [dict(checks[k], launches=launches["prologue"][k])
-               for k in counters]
+    kernels = [dict(checks[k], launches=launches[
+        "opt_in" if k in OPT_IN_KERNELS else "prologue"][k]) for k in counters]
     kernels += [dict(checks[k], launches=n)
                 for k, n in launches["train"].items()]
     print(json.dumps({"kernels": kernels}))

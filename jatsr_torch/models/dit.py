@@ -9,7 +9,10 @@ training attention kernel (B10) or the einsum attention, remat per block.
 the ``int8_static`` DiT with fused QKV, the flash-QKV attention kernel, the
 "half" fused MLP and the fused patch embed, with or without the fused
 prologue (``fused_prologue``, with ``align_n``: ``bench.py``'s default DiT;
-``bench.py --no-fused-prologue`` without it).  Inputs are time-major
+``bench.py --no-fused-prologue`` without it); and the opt-in knobs
+``flash_fused_out`` (attention with the int8 out projection inside),
+``fused_mlp_impl="full"`` (the whole MLP in one kernel) and
+``int8_impl="pallas"`` (the s8 kernel on a pre-quantised A).  Inputs are time-major
 ``[B, T, C]``; the residual stream is bf16; the output is fp32.  Module
 names mirror the JAX modules (``patch_in``, ``blocks[i].attn.qkv_proj``,
 ``final_proj``...).
@@ -30,10 +33,11 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import ModelConfig
-from ..ops.attention import _rope, flash_supported, gqa_attention_flash_qkv
+from ..ops.attention import (_rope, flash_supported, gqa_attention_flash_out,
+                             gqa_attention_flash_qkv)
 from ..ops.attention_train import gqa_attention_train, train_flash_supported
 from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
-                               int8_mm)
+                               int8_mlp, int8_mm)
 from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
                             int8_norm_mod_dot, norm_mod_dot_supported)
 from ..ops.quant import QuantDense
@@ -48,13 +52,11 @@ _SERVING_BRANCH = {
     "dtype": (("bfloat16",), "other compute dtypes"),
     "pos_embed": (("rope",), "learned positions (v1legacy)"),
     "fused_qkv": ((True,), "the split q/k/v projections"),
-    "attention_impl": (("flash",), "the einsum and pallas attention paths"),
+    "attention_impl": (("flash",), "the einsum and the split-q/k/v pallas "
+                                   "attention paths (B15, B16)"),
     "flash_qkv": ((True,), "the split-input flash kernel (B11)"),
-    "flash_fused_out": ((False,), "the fused out-projection kernel (B12)"),
     "flash_int8_qk": ((False,), "the int8 value product of the flash kernel"),
     "fused_mlp": ((True,), "the unfused QuantDense MLP"),
-    "fused_mlp_impl": (("half",), "the whole-MLP kernel (B13)"),
-    "int8_impl": (("xla", "fused"), "the pre-quantised int8 kernel (B14)"),
     "quantize_head": ((False,), "the int8 output head"),
 }
 
@@ -157,30 +159,36 @@ def _quant_dense(p: dict, i=None, int8_impl="xla") -> QuantDense:
 
 def fused_prologue_taken(cfg: ModelConfig, n: int) -> bool:
     """Whether the JAX block takes its fused-prologue branch at ``n``
-    patches: the knob, then the kernels' eligibility gate for the qkv and
-    mlp_in widths.  (The rest of the JAX conjunction is the serving branch
-    :func:`check_serving_config` pins.)"""
+    patches on the deterministic path: the JAX conjunction of knobs, then
+    the kernels' eligibility gate for the qkv and mlp_in widths."""
     H = cfg.hidden_size
     qkv_out = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-    return (cfg.fused_prologue and norm_mod_dot_supported(n, H, qkv_out)
+    return (cfg.fused_prologue and cfg.matmul_precision == "int8_static"
+            and cfg.fused_qkv and cfg.fused_mlp
+            and cfg.fused_mlp_impl == "half"
+            and cfg.attention_impl == "flash" and cfg.flash_qkv
+            and not cfg.flash_fused_out and cfg.pos_embed == "rope"
+            and norm_mod_dot_supported(n, H, qkv_out)
             and norm_mod_dot_supported(n, H, int(H * cfg.mlp_ratio)))
 
 
 class GQAttention(nn.Module):
     """Fused qkv projection, flash-QKV attention (RoPE inside the kernel),
-    out projection."""
+    out projection; with ``flash_fused_out`` the attention kernel does the
+    out projection too."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int):
         super().__init__()
         self.cfg = cfg
         self.qkv_proj = _quant_dense(p["qkv_proj"], i, cfg.int8_impl)
         self.out_proj = _quant_dense(p["out_proj"], i, cfg.int8_impl)
-        # The fused-prologue qkv kernel always adds an fp32 bias: zeros
-        # where the projection has none.
-        b = self.qkv_proj.bias
-        self.register_buffer(
-            "qkv_bias", torch.zeros_like(self.qkv_proj.kernel_scale[0])
-            if b is None else b.float())
+        # The fused-prologue qkv kernel and the fused out-projection kernel
+        # always add an fp32 bias: zeros where the projection has none.
+        for name, proj in (("qkv_bias", self.qkv_proj),
+                           ("out_bias", self.out_proj)):
+            b = proj.bias
+            self.register_buffer(name, torch.zeros_like(
+                proj.kernel_scale[0]) if b is None else b.float())
 
     def forward(self, x, cos, sin, n_valid=0, prenorm=None):
         """``prenorm=(scale, shift)``, fp32 ``[B or 1, H]`` AdaLN rows,
@@ -195,6 +203,12 @@ class GQAttention(nn.Module):
                                     norm=cfg.norm)
         else:
             qkv = self.qkv_proj(x)
+        if cfg.flash_fused_out:
+            o = self.out_proj
+            return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
+                                           o.kernel_scale, self.out_bias,
+                                           cfg.num_q_heads, cfg.num_kv_heads,
+                                           n_valid=n_valid)
         out = gqa_attention_flash_qkv(qkv, cos, sin, cfg.num_q_heads,
                                       cfg.num_kv_heads, n_valid=n_valid)
         if prenorm is not None and not cfg.attention_bias:
@@ -207,7 +221,8 @@ class GQAttention(nn.Module):
 
 class DiTBlock(nn.Module):
     """AdaLN-Zero block: norm, modulate, attention, gate; norm, modulate,
-    half-fused MLP, gate.  ``mod`` is the block's ``[B or 1, 6H]`` AdaLN
+    fused MLP ("half": one kernel and an s8 product; "full": one kernel),
+    gate.  ``mod`` is the block's ``[B or 1, 6H]`` AdaLN
     row (the hoisted table, or computed here from ``t_emb``).  With
     ``fused`` the norm and modulate of both branches happen inside the
     qkv and mlp_in kernels."""
@@ -244,9 +259,16 @@ class DiTBlock(nn.Module):
             h = (_norm(x, cfg.norm) * (1 + scale_mlp[:, None])
                  + shift_mlp[:, None])
             B, N, H = h.shape
-            h = _int8_dense_gelu_dense(h.reshape(B * N, H), self.mlp_in,
-                                       self.mlp_out, cfg.gelu_impl,
-                                       cfg.fast_epilogue).reshape(B, N, H)
+            h = h.reshape(B * N, H)
+            if cfg.fused_mlp_impl == "full":
+                w1, w2 = self.mlp_in, self.mlp_out
+                h = int8_mlp(h, w1.kernel_q, w1.kernel_scale, w1.bias.float(),
+                             w2.kernel_q, w2.kernel_scale, w2.bias.float(),
+                             gelu_impl=cfg.gelu_impl)
+            else:
+                h = _int8_dense_gelu_dense(h, self.mlp_in, self.mlp_out,
+                                           cfg.gelu_impl, cfg.fast_epilogue)
+            h = h.reshape(B, N, H)
         return x + gate_mlp[:, None] * h
 
 

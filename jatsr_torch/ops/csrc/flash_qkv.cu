@@ -39,11 +39,29 @@
 // score product runs twice (5.5 GFLOP in all instead of 3.7), which is
 // cheaper than an HBM round trip of the 57 MB fp32 score tensor.
 // Padded keys are zero and masked.
+//
+// The same file holds B12, gqa_attention_flash_out (_attn_kernel_flash_out
+// in the JAX package's ops/attention.py): B2's attention with NORMALISED
+// weights, then the row quant of the [N, Hq*D] output, the int8 out
+// projection and its bias.  Its rounding points where they differ from B2:
+//   l     = sum(e) over the row, fp32 (a third pass over the keys)
+//   w     = bf16(e / l), a true fp32 divide, rounded BEFORE the product
+//   o_h   = bf16(w @ v) per head, no rescale
+//   so    = max(max|o_row| * INV127, 1e-12) over the whole Hq*D row
+//   o_q   = rint(o / so); out = bf16(((float)(o_q @ wo) * so) * wos + bo)
+// At the serving shape (qkv [6, 352, 1792], keys masked past 345, wo
+// [1280, 1280]) it is 3.80 GFLOP bf16 (3.84 us at 989 TFLOP/s) plus 6.92 G
+// int8 operations (3.50 us at 1979 TOP/s) against 14.6 MB (4.4 us at
+// 3.35 TB/s): operations bound it.  Design: four launches in one C call,
+// flash_prep, the attention kernel below with NORM = true (it writes the
+// bf16 o to device memory), quant_rows and gemm_dequant<true> of
+// int8_gemm.cuh.  The TPU kernel keeps o in VMEM and quantises it there; a
+// CTA here owns one head of 64 rows, not the whole 1280-wide row the
+// quantisation needs, so o makes one round trip (5.4 MB, L2-resident).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "int8_gemm.cuh"
 
 namespace {
 
@@ -51,10 +69,6 @@ constexpr int D = 64;          // head dim; the wrapper checks
 constexpr int BQ = 64;         // query rows per CTA
 constexpr int BKEY = 64;       // keys per inner block
 constexpr int KSTR = D + 8;    // smem row stride of K and q (bf16 elements)
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
@@ -125,6 +139,12 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + off), "l"(s + off));
 }
 
+// NORM = false is B2: pass 1 takes the exact row max, pass 2 accumulates
+// bf16(e) @ v and sum(e), and the output is scaled by 1 / sum(e) at the end.
+// NORM = true is B12's attention: a pass for sum(e) sits between the two,
+// so that pass 3 can form w = bf16(e / l) before its product, and each
+// head's output is bf16(w @ v) as it stands.
+template <bool NORM>
 __global__ void __launch_bounds__(128) flash_qkv_kernel(
     const __nv_bfloat16* __restrict__ qp, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vtp, __nv_bfloat16* __restrict__ out,
@@ -175,6 +195,14 @@ __global__ void __launch_bounds__(128) flash_qkv_kernel(
       if (col + 1 >= n_valid) s[nt][1] = s[nt][3] = -INFINITY;
     }
   };
+  // The two rows' sums over the quad of lanes that share them.
+  auto quad_sum = [&](float& a, float& c) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      c += __shfl_xor_sync(0xffffffffu, c, o);
+    }
+  };
 
   const int nblk = nk / BKEY;
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -193,11 +221,24 @@ __global__ void __launch_bounds__(128) flash_qkv_kernel(
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
 
+  float l0 = 0.f, l1 = 0.f;
+  if (NORM) {
+    for (int jb = 0; jb < nblk; ++jb) {  // the row sum of e, before any product
+      float s[8][4];
+      scores(jb, s);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        l0 += exp2f(s[nt][0] - m0) + exp2f(s[nt][1] - m0);
+        l1 += exp2f(s[nt][2] - m1) + exp2f(s[nt][3] - m1);
+      }
+    }
+    quad_sum(l0, l1);
+  }
+
   float acc[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-  for (int jb = 0; jb < nblk; ++jb) {  // pass 2: e, sum(e), bf16(e) @ v
+  for (int jb = 0; jb < nblk; ++jb) {  // e (B2: and sum(e)) or w, then @ v
     float s[8][4];
     scores(jb, s);
 #pragma unroll
@@ -206,8 +247,15 @@ __global__ void __launch_bounds__(128) flash_qkv_kernel(
       s[nt][1] = exp2f(s[nt][1] - m0);
       s[nt][2] = exp2f(s[nt][2] - m1);
       s[nt][3] = exp2f(s[nt][3] - m1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
+      if (NORM) {
+        s[nt][0] = __fdiv_rn(s[nt][0], l0);
+        s[nt][1] = __fdiv_rn(s[nt][1], l0);
+        s[nt][2] = __fdiv_rn(s[nt][2], l1);
+        s[nt][3] = __fdiv_rn(s[nt][3], l1);
+      } else {
+        l0 += s[nt][0] + s[nt][1];
+        l1 += s[nt][2] + s[nt][3];
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // keys kk*16 .. kk*16+15 of the block
@@ -222,12 +270,12 @@ __global__ void __launch_bounds__(128) flash_qkv_kernel(
       }
     }
   }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  float rr0 = 1.0f, rr1 = 1.0f;
+  if (!NORM) {
+    quad_sum(l0, l1);
+    rr0 = 1.0f / l0;
+    rr1 = 1.0f / l1;
   }
-  const float rr0 = 1.0f / l0, rr1 = 1.0f / l1;
 
   const int row0 = qt * BQ + r0 + gid, row1 = row0 + 8;
   const int ostr = hq * D;
@@ -236,22 +284,45 @@ __global__ void __launch_bounds__(128) flash_qkv_kernel(
     const int col = h * D + dt * 8 + tig * 2;
     if (row0 < N)
       *reinterpret_cast<uint32_t*>(out + ((size_t)b * N + row0) * ostr + col) =
-          pack2(acc[dt][0] * rr0, acc[dt][1] * rr0);
+          NORM ? pack2(acc[dt][0], acc[dt][1]) : pack2(acc[dt][0] * rr0, acc[dt][1] * rr0);
     if (row1 < N)
       *reinterpret_cast<uint32_t*>(out + ((size_t)b * N + row1) * ostr + col) =
-          pack2(acc[dt][2] * rr1, acc[dt][3] * rr1);
+          NORM ? pack2(acc[dt][2], acc[dt][3]) : pack2(acc[dt][2] * rr1, acc[dt][3] * rr1);
   }
+}
+
+// Dynamic shared memory for N keys (keys padded to a multiple of 64).
+int smem_bytes(int N) {
+  const int nk = (N + BKEY - 1) / BKEY * BKEY;
+  return (nk * KSTR + D * (nk + 8) + BQ * KSTR) * 2;
+}
+
+// flash_prep into scratch, then the attention kernel into out [B, N, hq * 64].
+template <bool NORM>
+cudaError_t attention(const void* qkv, const void* cos_t, const void* sin_t, void* scratch,
+                      __nv_bfloat16* out, int B, int N, int n_valid, int hq, int hkv,
+                      float scale2, cudaStream_t st) {
+  const int nk = (N + BKEY - 1) / BKEY * BKEY;
+  __nv_bfloat16* qp = (__nv_bfloat16*)scratch;
+  __nv_bfloat16* kp = qp + (size_t)B * hq * nk * KSTR;
+  __nv_bfloat16* vtp = kp + (size_t)B * hkv * nk * KSTR;
+  flash_prep<<<dim3(nk / 32, hq + 2 * hkv, B), 256, 0, st>>>(
+      (const __nv_bfloat16*)qkv, (const float*)cos_t, (const float*)sin_t, qp, kp, vtp, N, nk,
+      hq, hkv, scale2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int smem = smem_bytes(N);
+  e = cudaFuncSetAttribute(flash_qkv_kernel<NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + BQ - 1) / BQ, hq, B);
+  flash_qkv_kernel<NORM><<<grid, 128, smem, st>>>(qp, kp, vtp, out, N, n_valid, hq, hkv, nk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
-
-// Dynamic shared memory for N keys (keys padded to a multiple of 64).
-extern "C" int flash_qkv_smem_bytes(int N) {
-  const int nk = (N + BKEY - 1) / BKEY * BKEY;
-  return (nk * KSTR + D * (nk + 8) + BQ * KSTR) * 2;
-}
+extern "C" int flash_qkv_smem_bytes(int N) { return smem_bytes(N); }
 
 // Bytes of scratch for the prep images (q, K, V^T), all 16-byte aligned.
 extern "C" long long flash_qkv_scratch_bytes(int B, int N, int hq, int hkv) {
@@ -265,21 +336,29 @@ extern "C" long long flash_qkv_scratch_bytes(int B, int N, int hq, int hkv) {
 extern "C" int flash_qkv(const void* qkv, const void* cos_t, const void* sin_t, void* scratch,
                          void* out, int B, int N, int n_valid, int hq, int hkv, float scale2,
                          void* stream) {
+  return attention<false>(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)out, B, N, n_valid, hq,
+                          hkv, scale2, (cudaStream_t)stream);
+}
+
+// B12.  As flash_qkv, then the out projection: wo [hq * 64, H] s8, wos and
+// bo [H] f32 -> out [B, N, H] bf16.  Scratch besides the prep images: o
+// [B * N, hq * 64] bf16, oq [B * N, hq * 64] s8, so [B * N] f32.  Needs
+// H % 128 == 0.
+extern "C" int flash_out(const void* qkv, const void* cos_t, const void* sin_t, const void* wo,
+                         const void* wos, const void* bo, void* scratch, void* o, void* oq,
+                         void* so, void* out, int B, int N, int n_valid, int hq, int hkv, int H,
+                         float scale2, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nk = (N + BKEY - 1) / BKEY * BKEY;
-  __nv_bfloat16* qp = (__nv_bfloat16*)scratch;
-  __nv_bfloat16* kp = qp + (size_t)B * hq * nk * KSTR;
-  __nv_bfloat16* vtp = kp + (size_t)B * hkv * nk * KSTR;
-  flash_prep<<<dim3(nk / 32, hq + 2 * hkv, B), 256, 0, st>>>(
-      (const __nv_bfloat16*)qkv, (const float*)cos_t, (const float*)sin_t, qp, kp, vtp, N, nk,
-      hq, hkv, scale2);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = attention<true>(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)o, B, N, n_valid,
+                                  hq, hkv, scale2, st);
   if (e != cudaSuccess) return e;
-  const int smem = flash_qkv_smem_bytes(N);
-  e = cudaFuncSetAttribute(flash_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int M = B * N, K = hq * D;
+  quant_rows<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (int8_t*)oq, (float*)so,
+                                          nullptr, M, K);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BQ - 1) / BQ, hq, B);
-  flash_qkv_kernel<<<grid, 128, smem, st>>>(qp, kp, vtp, (__nv_bfloat16*)out, N, n_valid, hq,
-                                            hkv, nk);
+  gemm_dequant<true><<<dim3(H / BN, (M + BM - 1) / BM), 128, 0, st>>>(
+      (const int8_t*)oq, (const int8_t*)wo, (const float*)wos, (const float*)bo,
+      (const float*)so, (__nv_bfloat16*)out, M, K, H);
   return cudaGetLastError();
 }

@@ -95,11 +95,12 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc = aq[m0:m0+64, :] @ wq[:, n0:n0+128] for a CTA of 128 threads.  Warp w
-// owns rows wm*32 .. +31 (wm = w >> 1) and columns wn*64 .. +63 (wn = w & 1);
+// acc = aq[m0:m0+64, :K] @ wq[:K, n0:n0+128] for a CTA of 128 threads; lda
+// is aq's row stride (K, or wider for a K slice of a wider A).  Warp w owns
+// rows wm*32 .. +31 (wm = w >> 1) and columns wn*64 .. +63 (wn = w & 1);
 // acc[mt][nt][half*2 + e] is row wm*32 + mt*16 + gid + half*8, column
 // wn*64 + nt*8 + tig*2 + e (gid = lane >> 2, tig = lane & 3).
-__device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ aq,
+__device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ aq, int lda,
                                           const int8_t* __restrict__ wq,
                                           int M, int K, int N, int m0, int n0,
                                           int8_t* As, int8_t* Wt, int acc[2][8][4]) {
@@ -122,7 +123,7 @@ __device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ aq,
     for (int i = 0; i < 2; ++i) {
       int idx = tid + 128 * i, row = idx >> 2, c = idx & 3;
       ra[i] = (m0 + row < M)
-                  ? *reinterpret_cast<const uint4*>(aq + (size_t)(m0 + row) * K + k0 + c * 16)
+                  ? *reinterpret_cast<const uint4*>(aq + (size_t)(m0 + row) * lda + k0 + c * 16)
                   : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -195,7 +196,7 @@ __global__ void __launch_bounds__(128) gemm_dequant(
   __shared__ __align__(16) int8_t Wt[BN * SSTR];  // K-major: Wt[n][k]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int acc[2][8][4];
-  gemm_tile(aq, wq, M, K, N, m0, n0, As, Wt, acc);
+  gemm_tile(aq, K, wq, M, K, N, m0, n0, As, Wt, acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3, wm = warp >> 1, wn = warp & 1;
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(128) gemm_gelu(
   __shared__ __align__(16) int8_t Wt[BN * SSTR];  // K-major: Wt[n][k]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int acc[2][8][4];
-  gemm_tile(aq, wq, M, K, N, m0, n0, As, Wt, acc);
+  gemm_tile(aq, K, wq, M, K, N, m0, n0, As, Wt, acc);
 
   // Rows (gid, gid+8) of each m16 tile; columns tig*2, tig*2+1.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

@@ -1,10 +1,13 @@
-"""W8A8 serving products: dense + GELU + requantize, and the fused W8A8 dot.
+"""W8A8 serving products: dense + GELU + requantize, the fused W8A8 dot, the
+s8 product on a pre-quantised A, and the whole MLP.
 
-Ports of ``int8_dense_gelu_quant`` and ``int8_matmul_fused`` (JAX package,
-``ops/int8_matmul.py``).  Each wrapper dispatches on the tensor's device: a
-CPU tensor takes the plain PyTorch version below, a CUDA tensor launches the
-hand-written kernel in ``csrc/dense_gelu_quant.cu`` or
-``csrc/matmul_fused.cu``, or raises.  Nothing falls back.
+Ports of ``int8_dense_gelu_quant``, ``int8_matmul_fused``, ``int8_matmul``
+and ``int8_mlp`` (JAX package, ``ops/int8_matmul.py``).  Each wrapper
+dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
+version below, a CUDA tensor launches the hand-written kernel in
+``csrc/dense_gelu_quant.cu``, ``csrc/matmul_fused.cu`` (the fused dot and
+``matmul_prequant``) or ``csrc/mlp_full.cu``, or raises.  Nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -203,3 +206,133 @@ def int8_matmul_fused(a, w_q, w_scale):
 
 
 int8_matmul_fused.launches = 0
+
+
+def matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of the s8 product on a pre-quantised A:
+    ``((acc * a_scale) * ws) -> out_dtype`` with the caller's scale."""
+    acc = int8_mm(a_q, w_q).float()
+    return (acc * a_scale.reshape(-1, 1).float() * w_scale.reshape(1, -1)
+            ).to(out_dtype)
+
+
+def int8_matmul(a_q, a_scale, w_q, w_scale, *, out_dtype=torch.bfloat16):
+    """``(a_q * a_scale) @ (w_q * w_scale) -> [M, N] out_dtype``.
+
+    Args:
+        a_q: [M, K] int8 codes; a_scale: [M, 1] fp32 (the quantiser's
+            unfloored scale, as ``w8a8_dot`` passes it).
+        w_q: [K, N] int8 kernel; w_scale: [1, N] fp32.
+    The kernel writes bf16 only.
+    """
+    M = a_q.shape[0]
+    K, N = check_weights("int8_matmul", a_q.shape[1], w_q, w_scale)
+    if a_q.dtype != torch.int8 or a_scale.numel() != M:
+        raise ValueError("int8_matmul: a_q int8 [M, K], a_scale [M, 1]")
+    if a_q.device.type == "cpu":
+        return matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype)
+    from . import _build
+
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"int8_matmul kernel writes bf16, not {out_dtype}")
+    lib = _build.load("matmul_fused")
+    fn = lib.matmul_prequant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    a_q = _build.aligned(a_q)
+    w_q = _build.aligned(w_q)
+    s = a_scale.reshape(M).float().contiguous()
+    ws = w_scale.reshape(N).float().contiguous()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a_q.device)
+    err = fn(a_q.data_ptr(), s.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+             out.data_ptr(), M, K, N, _build.stream_ptr(a_q.device))
+    _build.check(lib, err, "int8_matmul")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+
+
+def _pick_slabs(n1: int, target: int = 1280) -> int:
+    """Smallest slab count whose slab size is <= target and lane-aligned
+    (a copy of the JAX package's, so both cut the hidden width alike)."""
+    for k in range(1, 64):
+        if n1 % k == 0 and n1 // k <= target and (n1 // k) % 128 == 0:
+            return k
+    return 1
+
+
+def mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl="tanh"):
+    """Plain PyTorch version of the whole-MLP kernel, with its rounding
+    points: reciprocal-multiply quantisation, bf16 y and g, per-(row, slab)
+    requant scales, and the fp32 sum over slabs in slab order."""
+    af = a.float()
+    s = (af.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    a_q = torch.round(af * (1.0 / s)).to(torch.int8)
+    N1 = w1_q.shape[1]
+    slab = N1 // _pick_slabs(N1)
+    w1s, bb1 = w1_scale.reshape(1, -1), b1.reshape(1, -1).float()
+    acc2 = torch.zeros((a.shape[0], w2_q.shape[1]), device=a.device)
+    for c0 in range(0, N1, slab):
+        c = slice(c0, c0 + slab)
+        y = (int8_mm(a_q, w1_q[:, c]).float() * s * w1s[:, c] + bb1[:, c])
+        g = _gelu(y.bfloat16().float(), gelu_impl).bfloat16().float()
+        gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+        g_q = torch.round(g * (1.0 / gs)).to(torch.int8)
+        acc2 = acc2 + int8_mm(g_q, w2_q[c]).float() * gs
+    return (acc2 * w2_scale.reshape(1, -1) + b2.reshape(1, -1).float()
+            ).to(torch.bfloat16)
+
+
+def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh"):
+    """The whole serving MLP, ``dequant(quant(gelu(a @ w1 + b1)) @ w2) + b2``,
+    with per-(row, slab) requant scales of the hidden activation.
+
+    Args:
+        a: [M, K] bf16 activations (unquantised).
+        w1_q: [K, N1] int8; w1_scale, b1: [1, N1] fp32.
+        w2_q: [N1, N2] int8; w2_scale, b2: [1, N2].
+    Returns:
+        [M, N2] bf16.
+    """
+    if gelu_impl not in GELU_IMPLS:
+        raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
+    M = a.shape[0]
+    K, N1 = check_weights("int8_mlp", a.shape[1], w1_q, w1_scale, b1)
+    _, N2 = check_weights("int8_mlp", N1, w2_q, w2_scale, b2)
+    if a.device.type == "cpu":
+        return mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl)
+    from . import _build
+
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"int8_mlp kernel takes bf16, got {a.dtype}")
+    lib = _build.load("mlp_full")
+    fn = lib.int8_mlp
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    dev = a.device
+    n_slabs = _pick_slabs(N1)
+    a, w1_q, w2_q = (_build.aligned(t) for t in (a, w1_q, w2_q))
+    w1s, bb1, w2s, bb2 = (t.reshape(-1).float().contiguous()
+                          for t in (w1_scale, b1, w2_scale, b2))
+    aq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    s = torch.empty((M,), dtype=torch.float32, device=dev)
+    g = torch.empty((M, N1), dtype=torch.bfloat16, device=dev)
+    rowmax = torch.empty((M, n_slabs), dtype=torch.int32, device=dev)
+    gq = torch.empty((M, N1), dtype=torch.int8, device=dev)
+    gs = torch.empty((M, n_slabs), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N2), dtype=torch.bfloat16, device=dev)
+    err = fn(a.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(), bb1.data_ptr(),
+             w2_q.data_ptr(), w2s.data_ptr(), bb2.data_ptr(), aq.data_ptr(),
+             s.data_ptr(), g.data_ptr(), rowmax.data_ptr(), gq.data_ptr(),
+             gs.data_ptr(), out.data_ptr(), M, K, N1, N2, n_slabs,
+             GELU_IMPLS.index(gelu_impl), _build.stream_ptr(dev))
+    _build.check(lib, err, "int8_mlp")
+    int8_mlp.launches += 1
+    return out
+
+
+int8_mlp.launches = 0

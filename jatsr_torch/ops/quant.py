@@ -1,12 +1,13 @@
 """Dynamic W8A8 products and static int8 weights for serving.
 
-Port of the JAX package's ``ops/quant.py`` on its ``impl="xla"`` and
-``impl="fused"`` paths: the activation is quantised per row, the weight per
-output column (once, at load time, by :func:`quantize_params_static`), the
-product accumulates exactly in int32 and the rescale is fp32.  On the
-``"xla"`` path the int32 product is a plain product outside any kernel, so
-it goes to ``torch._int_mm``; ``"fused"`` on the card launches the fused
-W8A8 kernel, which quantises inside.
+Port of the JAX package's ``ops/quant.py``: the activation is quantised
+per row, the weight per output column (once, at load time, by
+:func:`quantize_params_static`), the product accumulates exactly in int32
+and the rescale is fp32.  On the ``"xla"`` path the int32 product is a plain
+product outside any kernel, so it goes to ``torch._int_mm``; on the card
+``"fused"`` launches the fused W8A8 kernel, which quantises inside, and
+``"pallas"`` quantises in torch ops and launches the s8 kernel on the
+pre-quantised A.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .int8_matmul import _INV127, int8_matmul_fused, int8_mm
+from .int8_matmul import _INV127, int8_matmul, int8_matmul_fused, int8_mm
 
-INT8_IMPLS = ("xla", "fused")
+INT8_IMPLS = ("xla", "fused", "pallas")
 
 
 def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -28,25 +29,28 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     divide uses the scale floored at 1e-12, the rescale the unfloored one:
     ``(acc * a_scale) * w_scale``.
 
-    ``impl="fused"`` takes the fused kernel where the JAX package does
-    (``K % 128 == 0``, ``N % 128 == 0``, at least 32 rows) and lhs lies on
-    the card; elsewhere it is this plain path, which the kernel equals bit
-    for bit (a floored scale only differs on an all-zero row, whose product
-    is zero either way).
+    ``impl="fused"`` and ``impl="pallas"`` take their kernels where the JAX
+    package does on a TPU (``K % 128 == 0``, ``N % 128 == 0``, at least 32
+    rows) and lhs lies on the card; elsewhere both are this plain path,
+    which the kernels equal bit for bit ("fused" floors the rescale, which
+    only differs on an all-zero row, whose product is zero either way).
     """
     if impl not in INT8_IMPLS:
-        raise NotImplementedError(
-            f"int8_impl={impl!r}: the pre-quantised int8 kernel (B14) comes "
-            f"in a later slice of the port; this one has {INT8_IMPLS}")
+        raise ValueError(f"int8_impl={impl!r} not in {INT8_IMPLS}")
     K, N = w_q.shape
     lead = lhs.shape[:-1]
     M = lhs.numel() // K
-    if (impl == "fused" and lhs.device.type == "cuda" and K % 128 == 0
-            and N % 128 == 0 and M >= 32):
+    kernel = (lhs.device.type == "cuda" and K % 128 == 0 and N % 128 == 0
+              and M >= 32)
+    if impl == "fused" and kernel:
         out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale)
         return out.reshape(*lead, N)
     a_scale = lhs.abs().amax(dim=-1, keepdim=True).float() * _INV127
     a_q = torch.round(lhs.float() / a_scale.clamp_min(1e-12)).to(torch.int8)
+    if impl == "pallas" and kernel:
+        out = int8_matmul(a_q.reshape(M, K), a_scale.reshape(M, 1), w_q,
+                          w_scale, out_dtype=lhs.dtype)
+        return out.reshape(*lead, N)
     acc = int8_mm(a_q.reshape(-1, K), w_q).float().reshape(*lead, N)
     return (acc * a_scale * w_scale.reshape(N)).to(lhs.dtype)
 

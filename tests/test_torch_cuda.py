@@ -32,6 +32,15 @@ trainable DiT's step on the card against the CPU: loss rtol 1e-2, grad
 norm rtol 2e-2, updated parameters within 2 lr (a first Adam step moves
 each by +-lr, so a gradient whose sign differs in bf16 moves it the other
 way) and within 2 % of lr on average.
+The s8 product on a pre-quantised A (B14) is bit-equal to its plain version
+and to ``w8a8_dot(impl="xla")``.  The whole MLP (B13) rounds at the same
+points as its plain version; tanhf / expf may differ from PyTorch's in the
+last bit and move a bf16 g, and so a code, by one: at most 0.1 % of the
+outputs differ, each within 0.02 absolute plus 0.02 relative (the bound of
+the CPU test against the JAX kernel).  The fused out projection (B12): the
+kernel's fp32 sums run in another order, which can move a normalised weight
+or a head's output by one bf16 ulp and so a code of the row quantisation by
+one; max abs error <= 1e-2 x max |plain|.
 """
 
 import numpy as np
@@ -41,10 +50,15 @@ import torch
 from jatsr_torch.models.dit import rope_cos_sin
 from jatsr_torch.ops import attention_train as at
 from jatsr_torch.ops import dac_kernels as dk
-from jatsr_torch.ops.attention import flash_qkv_plain, gqa_attention_flash_qkv
+from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
+                                       gqa_attention_flash_out,
+                                       gqa_attention_flash_qkv)
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
-                                         int8_dense_gelu_quant,
-                                         int8_matmul_fused, matmul_fused_plain)
+                                         int8_dense_gelu_quant, int8_matmul,
+                                         int8_matmul_fused, int8_mlp,
+                                         matmul_fused_plain,
+                                         matmul_prequant_plain, mlp_plain,
+                                         quantize_rows)
 from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
                                       int8_norm_mod_dot,
                                       norm_mod_dense_gelu_quant_plain,
@@ -193,11 +207,14 @@ def test_w8a8_dot_fused_equals_xla_on_card(card):
 
 @pytest.mark.parametrize("knobs", [
     {}, {"fused_prologue": True, "align_n": True},
-    {"int8_impl": "fused"}])
+    {"int8_impl": "fused"},
+    {"fused_prologue": True, "align_n": True, "flash_fused_out": True,
+     "fused_mlp_impl": "full", "int8_impl": "pallas"}])
 def test_narrow_dit_on_card_matches_cpu(card, knobs):
     """A narrow int8 DiT (head dim 64, as the kernel needs) on the card
     against the same weights on the CPU's plain path, without and with the
-    fused prologue (130 frames: 33 patches, aligned to 40)."""
+    fused prologue (130 frames: 33 patches, aligned to 40), and with the
+    three opt-in kernels (B12, B13, B14) in place of the prologue."""
     import dataclasses
 
     from jatsr_torch.configs import get_preset
@@ -221,6 +238,64 @@ def test_narrow_dit_on_card_matches_cpu(card, knobs):
                                           x_c.cuda()).cpu()
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(2112, 1280, 1792), (100, 256, 384)])
+def test_int8_matmul_kernel_bit_equal_to_plain_and_xla(card, M, K, N):
+    """B14 at the qkv shape, and a small one; ``w8a8_dot(impl="pallas")``
+    launches it and equals ``impl="xla"`` bit for bit."""
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=21)
+    a_q, a_s = quantize_rows(a)
+    n0 = int8_matmul.launches
+    got = int8_matmul(a_q, a_s, w_q, w_s)
+    assert int8_matmul.launches == n0 + 1
+    torch.testing.assert_close(got, matmul_prequant_plain(a_q, a_s, w_q, w_s),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(w8a8_dot(a, w_q, w_s, impl="pallas"),
+                               w8a8_dot(a, w_q, w_s, impl="xla"),
+                               atol=0, rtol=0)
+    assert int8_matmul.launches == n0 + 2
+
+
+def _mlp_args(card, M, H, N1, seed):
+    a, w1q, w1s, b1 = _dense_inputs(card, M, H, N1, seed)
+    _, w2q, w2s, b2 = _dense_inputs(card, 1, N1, H, seed + 1)
+    return a, w1q, w1s, b1, w2q, w2s, b2
+
+
+@pytest.mark.parametrize("M,H,N1,gelu_impl", [
+    (2112, 1280, 5120, "tanh"), (96, 128, 2560, "erf"),
+    (100, 256, 1024, "sigmoid")])
+def test_int8_mlp_kernel_matches_plain(card, M, H, N1, gelu_impl):
+    """B13 at the v3 block (four slabs), two slabs, and one."""
+    args = _mlp_args(card, M, H, N1, seed=22)
+    n0 = int8_mlp.launches
+    got = int8_mlp(*args, gelu_impl=gelu_impl).float()
+    assert int8_mlp.launches == n0 + 1
+    want = mlp_plain(*args, gelu_impl=gelu_impl).float()
+    assert (got != want).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got, want, atol=0.02, rtol=0.02)
+
+
+@pytest.mark.parametrize("B,N,n_valid,hq,hkv,H", [
+    (6, 352, 345, 20, 4, 1280), (2, 90, 0, 8, 2, 256)])
+def test_flash_out_kernel_matches_plain(card, B, N, n_valid, hq, hkv, H):
+    """B12 at the serving shape (keys masked past 345) and a small one,
+    with a non-zero bias."""
+    gen = torch.Generator(device=card).manual_seed(23)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
+                      device=card).bfloat16()
+    cos, sin = rope_cos_sin(N, 64, device=card)
+    _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * 64, H, seed=24)
+    n0 = gqa_attention_flash_out.launches
+    got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                  n_valid=n_valid).float()
+    assert gqa_attention_flash_out.launches == n0 + 1
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=n_valid).float()
+    _assert_rel(got, want, 1e-2)
 
 
 def _assert_rel(got, want, rel=1e-3):

@@ -97,8 +97,8 @@ def test_quantize_params_static_matches_jax():
 
 @pytest.mark.parametrize("knob,value", [
     ("quantize_head", True), ("pos_embed", "learned"), ("attention_impl", "xla"),
-    ("fused_mlp_impl", "full"), ("int8_impl", "pallas"),
-    ("matmul_precision", "bf16"), ("flash_fused_out", True),
+    ("flash_qkv", False), ("attention_impl", "pallas"),
+    ("matmul_precision", "bf16"), ("attention_impl", "pallas2"),
 ])
 def test_dit_raises_outside_the_slice(knob, value):
     import dataclasses
@@ -115,13 +115,15 @@ PROLOGUE = dict(fused_prologue=True, align_n=True)
 
 
 class _Spy:
-    """Wraps a function of ``jatsr_torch.models.dit`` and records calls."""
+    """Wraps a function of ``module`` (default ``jatsr_torch.models.dit``)
+    and records calls."""
 
-    def __init__(self, monkeypatch, name):
+    def __init__(self, monkeypatch, name, module=None):
         import jatsr_torch.models.dit as tdit
 
-        self.fn, self.calls = getattr(tdit, name), []
-        monkeypatch.setattr(tdit, name, self)
+        module = module or tdit
+        self.fn, self.calls = getattr(module, name), []
+        monkeypatch.setattr(module, name, self)
 
     def __call__(self, *a, **kw):
         self.calls.append((a, kw))
@@ -200,4 +202,93 @@ def test_int8_impl_fused_matches_jax():
                         jnp.asarray(x_c))
     got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
                  torch.from_numpy(x_c))
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+# The kernels a serving forward can reach, where each side looks them up at
+# call time: the JAX model imports them inside its functions, the port's
+# DiT from its own module, and both QuantDense classes call their module's
+# w8a8_dot (recorded with its impl).
+_KERNELS = ("int8_norm_mod_dot", "int8_norm_mod_dense_gelu_quant",
+            "int8_matmul_fused", "int8_dense_gelu_quant", "int8_mlp",
+            "gqa_attention_flash_qkv", "gqa_attention_flash_out")
+
+
+def _spy_kernels(monkeypatch):
+    import jatsr_torch.ops.quant as tquant
+    from jatsr_tpu.ops import attention as jattn
+    from jatsr_tpu.ops import int8_matmul as jmm
+    from jatsr_tpu.ops import quant as jquant
+
+    def spies(module_of):
+        out = {n: _Spy(monkeypatch, n, module_of(n)) for n in _KERNELS}
+        out["w8a8_dot"] = _Spy(monkeypatch, "w8a8_dot", module_of("w8a8_dot"))
+        return out
+
+    return (spies(lambda n: jquant if n == "w8a8_dot" else
+                  jattn if n.startswith("gqa") else jmm),
+            spies(lambda n: tquant if n == "w8a8_dot" else None))
+
+
+def _reached(spies):
+    """The kernels a forward called, and the impls its QuantDenses used."""
+    return ({n for n in _KERNELS if spies[n].calls},
+            {kw["impl"] for _, kw in spies["w8a8_dot"].calls})
+
+
+_HALF_PROLOGUE = {"int8_norm_mod_dot", "gqa_attention_flash_qkv",
+                  "int8_matmul_fused", "int8_norm_mod_dense_gelu_quant",
+                  "int8_dense_gelu_quant"}
+OPT_IN = dict(flash_fused_out=True, fused_mlp_impl="full", int8_impl="pallas")
+
+
+@pytest.mark.parametrize("knobs,kernels,impls", [
+    ({}, _HALF_PROLOGUE, set()),
+    (OPT_IN, {"gqa_attention_flash_out", "int8_mlp", "int8_dense_gelu_quant"},
+     {"pallas"}),
+    ({"flash_fused_out": True},
+     {"gqa_attention_flash_out", "int8_dense_gelu_quant"}, {"xla"}),
+    ({"fused_mlp_impl": "full"},
+     {"gqa_attention_flash_qkv", "int8_mlp", "int8_dense_gelu_quant"},
+     {"xla"}),
+    ({"int8_impl": "pallas"}, _HALF_PROLOGUE, set()),
+], ids=["default", "all_three", "flash_out", "full_mlp", "int8_pallas"])
+def test_opt_in_knobs_take_the_jax_branch(knobs, kernels, impls, monkeypatch):
+    """On top of bench.py's default DiT (fused prologue, align_n: 33 patches
+    aligned to 40), each opt-in knob alone and all three together.  Either
+    of flash_fused_out and fused_mlp_impl="full" turns the fused prologue
+    off on both sides (``fused_prologue_taken``); int8_impl="pallas" alone
+    keeps it, so no QuantDense runs.  The port reaches the kernels the JAX
+    model reaches, and matches its output."""
+    jmodel, jparams, tmodel, _ = build_pair("rms", seed=20, **PROLOGUE,
+                                            **knobs)
+    jax_spies, port_spies = _spy_kernels(monkeypatch)
+    x_t, t, x_c = _inputs(seed=21)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert _reached(port_spies) == _reached(jax_spies) == (kernels, impls)
+    if "gqa_attention_flash_out" in kernels:
+        assert [(a[0].shape[1], kw["n_valid"]) for a, kw in
+                port_spies["gqa_attention_flash_out"].calls] == [(40, 33)] * 2
+    assert np.abs(np.asarray(want)).mean() > 0.05
+    _assert_close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_opt_in_dit_hoisted_adaln_matches_jax(norm):
+    """All three opt-in knobs under the serving call's ``[depth, 1, 6H]``
+    tables, both norms, at B = 3."""
+    jmodel, jparams, tmodel, _ = build_pair(norm, seed=22, **PROLOGUE,
+                                            **OPT_IN)
+    x_t, _, x_c = _inputs(seed=23, B=3)
+    t1 = np.array([0.625], np.float32)
+    jt = jax_adaln_tables(jmodel.cfg, jparams, jnp.asarray(t1))
+    tt = adaln_tables(tmodel, torch.from_numpy(t1))
+    t = np.full((3,), 0.625, np.float32)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c), adaln_mod=jt)
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c), adaln_mod=tt)
     _assert_close(got.numpy(), np.asarray(want))

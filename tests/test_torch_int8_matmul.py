@@ -9,6 +9,18 @@ agree to rtol 1e-6.
 
 ``w8a8_dot``: exact int32 accumulation at K=5120 (where an fp32 sum is not
 exact), so the outputs are bit-equal.
+
+``int8_matmul`` (the s8 product on a pre-quantised A): the JAX kernel in
+interpret mode, the port's plain version and ``w8a8_dot(impl="xla")`` use
+only an exact int32 product and the same two fp32 multiplies: bit-equal.
+
+``int8_mlp`` (the whole MLP): both sides round at the same points, so the
+outputs are equal but where the two frameworks' tanh/exp/erf differ in the
+last fp32 bit and move a bf16 y or g, or a code, by one.  Bound: at most
+0.1 % of the outputs differ, each within 0.02 absolute plus 0.02 relative
+(the JAX package's own bound against the "half" path is 0.05, with 99 %
+within 0.02); measured: one output in 6144 at 7.8e-3 (erf, two slabs),
+none or a last-bit difference elsewhere.
 """
 
 import jax.numpy as jnp
@@ -16,9 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from jatsr_tpu.ops import int8_matmul as jax_mm
 from jatsr_tpu.ops.int8_matmul import int8_dense_gelu_quant as jax_dgq
 from jatsr_tpu.ops.quant import w8a8_dot as jax_w8a8_dot
-from jatsr_torch.ops.int8_matmul import int8_dense_gelu_quant
+from jatsr_torch.ops.int8_matmul import (_pick_slabs, int8_dense_gelu_quant,
+                                         int8_matmul, int8_mlp)
 from jatsr_torch.ops.quant import QuantDense, w8a8_dot
 
 
@@ -106,3 +120,80 @@ def test_dense_gelu_quant_rejects_unaligned_shapes():
         int8_dense_gelu_quant(torch.from_numpy(a).bfloat16(),
                               torch.from_numpy(w_q), torch.from_numpy(w_s),
                               torch.from_numpy(b), gelu_impl="relu")
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 128, 256), (100, 256, 384)])
+def test_int8_matmul_bit_equal_to_jax_and_xla(M, K, N):
+    rng = np.random.default_rng(9)
+    a = jnp.asarray(rng.standard_normal((M, K), dtype=np.float32),
+                    jnp.bfloat16)
+    a_q, a_s = jax_mm.quantize_rows(a)
+    w_q = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    w_s = (rng.uniform(0.5, 1.5, (1, N)) / (127 * np.sqrt(K))).astype(
+        np.float32)
+    want = jax_mm.int8_matmul(a_q, a_s, jnp.asarray(w_q), jnp.asarray(w_s),
+                              interpret=True)
+    got = int8_matmul(torch.from_numpy(np.array(a_q)),
+                      torch.from_numpy(np.array(a_s)),
+                      torch.from_numpy(w_q), torch.from_numpy(w_s))
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    x = torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    for impl in ("xla", "pallas"):
+        torch.testing.assert_close(
+            w8a8_dot(x, torch.from_numpy(w_q), torch.from_numpy(w_s),
+                     impl=impl), got, atol=0, rtol=0)
+
+
+def _mlp_inputs(seed, M=96, H=128, N1=512):
+    """The JAX package's int8_mlp test inputs, made with numpy."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, H), dtype=np.float32)
+    w1q, w1s = jax_mm.quantize_cols(jnp.asarray(
+        rng.standard_normal((H, N1), dtype=np.float32) * 0.05))
+    w2q, w2s = jax_mm.quantize_cols(jnp.asarray(
+        rng.standard_normal((N1, H), dtype=np.float32) * 0.05))
+    b1 = (0.1 * rng.standard_normal((1, N1))).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal((1, H))).astype(np.float32)
+    return [np.array(x) for x in (a, w1q, w1s, b1, w2q, w2s, b2)]
+
+
+@pytest.mark.parametrize("N1,gelu_impl", [
+    (512, "tanh"), (2560, "tanh"), (2560, "erf"), (2560, "sigmoid")])
+def test_int8_mlp_matches_jax(N1, gelu_impl):
+    """One slab (N1 = 512) and two slabs of 1280 (N1 = 2560), where the
+    per-(row, slab) scales and the slab-ordered fp32 sum show."""
+    args = _mlp_inputs(seed=10, N1=N1)
+    assert _pick_slabs(N1) == jax_mm._pick_slabs(N1) == N1 // min(N1, 1280)
+    want = np.asarray(jax_mm.int8_mlp(
+        jnp.asarray(args[0], jnp.bfloat16), *map(jnp.asarray, args[1:]),
+        interpret=True, gelu_impl=gelu_impl), np.float32)
+    n0 = int8_mlp.launches
+    got = int8_mlp(torch.from_numpy(args[0]).bfloat16(),
+                   *map(torch.from_numpy, args[1:]), gelu_impl=gelu_impl)
+    assert int8_mlp.launches == n0  # the plain version on the CPU
+    assert got.dtype == torch.bfloat16 and got.shape == (96, 128)
+    got = got.float().numpy()
+    assert (got != want).mean() <= 1e-3, (got != want).mean()
+    np.testing.assert_allclose(got, want, atol=0.02, rtol=0.02)
+
+
+@pytest.mark.parametrize("n1", [128, 512, 1280, 2560, 5120, 1920, 4224])
+def test_pick_slabs_matches_jax(n1):
+    assert _pick_slabs(n1) == jax_mm._pick_slabs(n1)
+
+
+def test_int8_matmul_and_mlp_reject_bad_inputs():
+    args = [torch.from_numpy(x) for x in _mlp_inputs(seed=11)]
+    a = args[0].bfloat16()
+    with pytest.raises(ValueError, match="gelu_impl"):
+        int8_mlp(a, *args[1:], gelu_impl="relu")
+    with pytest.raises(ValueError, match="N % 128"):
+        int8_mlp(a, args[1][:, :200], args[2][:, :200], args[3][:, :200],
+                 *args[4:])
+    a_q = torch.zeros((8, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="a_scale"):
+        int8_matmul(a_q, torch.ones(4, 1), args[1], args[2])
+    with pytest.raises(ValueError, match="a_q int8"):
+        int8_matmul(a_q.float(), torch.ones(8, 1), args[1], args[2])

@@ -165,8 +165,12 @@ def test_w8a8_dot_fused_equals_xla_on_cpu():
     torch.testing.assert_close(
         matmul_fused_plain(x.reshape(48, 256), w_q, w_s).reshape(2, 24, 384),
         xla, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="B14"):
-        w8a8_dot(x, w_q, w_s, impl="pallas")
+    # "pallas" is the plain path on the CPU too (test_torch_int8_matmul.py
+    # holds its kernel's plain version against the JAX kernel).
+    torch.testing.assert_close(w8a8_dot(x, w_q, w_s, impl="pallas"), xla,
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="int8_impl"):
+        w8a8_dot(x, w_q, w_s, impl="mosaic")
 
 
 @pytest.mark.parametrize("n_rows", [8, 33, 40, 345, 352, 1024])
