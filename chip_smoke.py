@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's three serving paths end to end at full width, each
+then drives the port's six serving paths end to end at full width, each
 once with its launches counted and then timed: the v3 766 M int8 DiT
 (random weights from a seed, quantized by the port) through the Euler CFG
 sampler over ~44 s of latent, then the segmented DAC decode (two
@@ -28,6 +28,13 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   int8_matmul (the qkv product on the torch-quantised A), flash_out
   (attention with the int8 out projection) and int8_mlp (the whole MLP);
   the patch embed runs dense_gelu_quant; then the fused decode.
+- The fourth, fifth and sixth paths are ``bench.py --no-flash-qkv``,
+  ``--attention pallas`` and ``--attention pallas2`` (the fused prologue
+  and align_n asked for; the JAX model takes neither without the flash-QKV
+  branch, so 345 patches): each block splits the qkv projection, applies
+  RoPE in bf16 and runs flash_split, gqa_attention or
+  gqa_attention_grouped; the patch embed and every mlp_in run
+  dense_gelu_quant; then the fused decode.
 
 It checks each path's launch counts, the waveform, each full-width DiT on
 the card against the same DiT's plain path on the CPU at a small input,
@@ -44,7 +51,7 @@ timed steps (finite losses, moved parameters), and one step of the same
 model (all 28 blocks, batch 4) on the card against the CPU (plain
 versions) on the same weights, batch and draws.
 
-The timed passes of the three serving paths run in turns.  With
+The timed passes of the six serving paths run in turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused) and one more train step with
 ``torch.profiler`` and prints, for each, the card's busy share and device
@@ -72,6 +79,7 @@ LATENT_FRAMES = 3790          # ~44 s: three 16 s chunks with 2 s crossfades
 SEGMENT_FRAMES, CTX_FRAMES = 2756, 64
 DECODE_L = SEGMENT_FRAMES + 2 * CTX_FRAMES  # frames of one decode call
 TIMED_RUNS = 4                # timed serving passes of each path
+SLEEP_CYCLES = 200_000_000    # the card's spin before a timed run of calls
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core OP/s
@@ -83,8 +91,9 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 REF_B = 4                     # the card-vs-CPU train step's batch
 
 # bench.py's DiT at full width: its default (the fused prologue, which
-# implies align_n), --no-fused-prologue, and --flash-out --fused-mlp-impl
-# full --int8-impl pallas (which keeps align_n).
+# implies align_n), --no-fused-prologue, --flash-out --fused-mlp-impl full
+# --int8-impl pallas (which keeps align_n), --no-flash-qkv, --attention
+# pallas and --attention pallas2 (the last three on the split q/k/v).
 SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
                matmul_precision="int8_static", fused_qkv=True, fused_mlp=True,
                fused_mlp_impl="half", attention_impl="flash", flash_qkv=True,
@@ -93,16 +102,38 @@ PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "no_prologue": dict(fused_prologue=False, align_n=False),
          "opt_in": dict(fused_prologue=True, align_n=True,
                         flash_fused_out=True, fused_mlp_impl="full",
-                        int8_impl="pallas")}
+                        int8_impl="pallas"),
+         "split_flash": dict(fused_prologue=True, align_n=True,
+                             flash_qkv=False),
+         "pallas": dict(fused_prologue=True, align_n=True,
+                        attention_impl="pallas"),
+         "pallas2": dict(fused_prologue=True, align_n=True,
+                         attention_impl="pallas2")}
 FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
-                "opt_in": True}
-# The kernels only the third path runs: the kernel line takes their
-# launches from it, the others' from the main path.
-OPT_IN_KERNELS = ("flash_out", "int8_mlp", "int8_matmul")
+                "opt_in": True, "split_flash": True, "pallas": True,
+                "pallas2": True}
+# The kernels the main path does not run, by the path the kernel line takes
+# their launches from; the others' come from the main path.
+KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
+               "int8_matmul": "opt_in", "flash_split": "split_flash",
+               "gqa_attention": "pallas", "gqa_attention_grouped": "pallas2"}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Phases:
+    """Wall seconds of each phase, logged as it ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def done(self, name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - self.t:.1f} s (total "
+            f"{now - self.t0:.1f} s)")
+        self.t = now
 
 
 def card_line() -> str:
@@ -115,7 +146,10 @@ def card_line() -> str:
 
 def time_ms(fn, arg_sets, reps):
     """Mean ms per call on the card (CUDA events), after a warm-up; calls
-    rotate over ``arg_sets`` so that inputs do not stay in L2."""
+    rotate over ``arg_sets`` so that inputs do not stay in L2.  The card
+    first spins (~0.1 s) while the host queues the calls, so that the
+    events time the card's work and not the wrappers' Python, where that
+    is the slower of the two."""
     import torch
 
     for a in arg_sets[:2]:
@@ -123,6 +157,7 @@ def time_ms(fn, arg_sets, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for i in range(reps):
         fn(*arg_sets[i % len(arg_sets)])
@@ -219,6 +254,80 @@ def check_attention(torch):
                         "gqa_attention_flash_qkv; pallas_call :449)",
             "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
             "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
+
+
+def check_split_attention(torch):
+    """flash_split (B11), gqa_attention (B15) and gqa_attention_grouped
+    (B16) against their plain versions at the split paths' q [6, 345, 20,
+    64] and k/v [6, 345, 4, 64] bf16 (k and v column slices of one fused
+    projection, as the model hands v over), B15 against B16; each timed on
+    contiguous copies beside SDPA at N = 345 with the kv heads repeated
+    (no mask needed there)."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.attention import (flash_split_plain, gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_grouped,
+                                           gqa_attention_plain)
+
+    hq, hkv, D, N = 20, 4, 64, N_VALID
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    views = (qkv[..., :hq * D].reshape(B, N, hq, D),
+             qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D),
+             qkv[..., (hq + hkv) * D:].reshape(B, N, hkv, D))
+
+    def flat(x):
+        return x.reshape(B, N, -1)
+
+    def heads(x):  # [B, N, h, D] -> [B, hq, N, D], kv heads repeated
+        return x.transpose(1, 2).repeat_interleave(
+            hq // x.shape[2], 1).contiguous()
+
+    kernels = {
+        "flash_split": (
+            lambda q, k, v, *_: gqa_attention_flash(flat(q), flat(k),
+                                                    flat(v), hq, hkv),
+            lambda q, k, v, *_: flash_split_plain(flat(q), flat(k), flat(v),
+                                                  hq, hkv),
+            "ops/attention.py:186 (JAX package, gqa_attention_flash; "
+            "pallas_call :213)"),
+        "gqa_attention": (
+            lambda q, k, v, *_: gqa_attention(q, k, v),
+            lambda q, k, v, *_: gqa_attention_plain(q, k, v),
+            "ops/attention.py:78 (JAX package, gqa_attention; "
+            "pallas_call :109)"),
+        "gqa_attention_grouped": (
+            lambda q, k, v, *_: gqa_attention_grouped(q, k, v),
+            lambda q, k, v, *_: gqa_attention_plain(q, k, v),
+            "ops/attention.py:619 (JAX package, gqa_attention_grouped; "
+            "pallas_call :651)"),
+    }
+    q, k, v = (x.contiguous() for x in views)
+    args = (q, k, v, heads(q), heads(k), heads(v))
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    b_ms, b_by = bound(nbytes, 4 * B * hq * N * N * D, PEAK_BF16)
+    out, got = {}, {}
+    for name, (kernel, plain, replaces) in kernels.items():
+        got[name] = kernel(*views).float()
+        want = plain(*views).float()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[name], want, atol=2e-2, rtol=2e-2)
+        t = timings(kernel, plain,
+                    lambda *a: F.scaled_dot_product_attention(*a[3:]), args,
+                    big=(0, 1, 2, 3, 4, 5), reps=200)
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "jatsr_torch/ops/csrc/attention_split.cu",
+                     "replaces": replaces,
+                     "max_abs_err": (got[name] - want).abs().max().item(),
+                     **t, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": [B, N, hq, hkv, D]}
+    d = (got["gqa_attention"] - got["gqa_attention_grouped"]).abs().max()
+    log(f"[kernel] gqa_attention vs gqa_attention_grouped: max abs "
+        f"{d.item():.3e}")
+    out["gqa_attention"]["vs_grouped_max_abs"] = d.item()
+    return out
 
 
 def dense_inputs(torch, M, K, N, seed):
@@ -1233,6 +1342,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
         return 2
+    phases = Phases()
 
     from jatsr_torch.configs import get_preset
     from jatsr_torch.models.dac import DAC, DACConfig
@@ -1240,8 +1350,11 @@ def main() -> int:
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.ops import _build
     from jatsr_torch.ops import dac_kernels as dk
-    from jatsr_torch.ops.attention import (gqa_attention_flash_out,
-                                           gqa_attention_flash_qkv)
+    from jatsr_torch.ops.attention import (gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_flash_out,
+                                           gqa_attention_flash_qkv,
+                                           gqa_attention_grouped)
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
                                              int8_matmul, int8_matmul_fused,
                                              int8_mlp)
@@ -1263,7 +1376,8 @@ def main() -> int:
 
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
-               "mlp_full", "dac_res", "snake_tr", "attention_train")
+               "mlp_full", "dac_res", "snake_tr", "attention_train",
+               "attention_split")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -1273,6 +1387,7 @@ def main() -> int:
         spills = [line.strip() for line in _build.build_log(name).splitlines()
                   if "spill" in line and " 0 bytes spill stores" not in line]
         log(f"[build] {name}: registers {regs}, spills {spills or 'none'}")
+    phases.done("environment and build")
 
     # 3. Kernels against their plain versions at the paths' shapes.
     cfgs = {k: dataclasses.replace(get_preset("v3").model, **{**SERVING, **v})
@@ -1286,6 +1401,7 @@ def main() -> int:
         "flash_out": check_flash_out(torch),
         "int8_mlp": check_int8_mlp(torch),
         "int8_matmul": check_int8_matmul(torch),
+        **check_split_attention(torch),
     }
     patch = check_dense_gelu(torch, B * NP, 8192, 512)
     mlp_in = check_dense_gelu(torch, B * N_VALID, 1280, 5120)
@@ -1302,8 +1418,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
+    phases.done("kernels against their plain versions")
 
-    # 4. The three serving paths at full width, on one set of weights for
+    # 4. The six serving paths at full width, on one set of weights for
     #    the DiT and one for each decode (fused, unfused).
     t0 = time.perf_counter()
     dense = random_dense_params(cfgs["prologue"], SEED)
@@ -1327,7 +1444,10 @@ def main() -> int:
                 "res_unit_fused": dk.res_unit_fused,
                 "flash_out": gqa_attention_flash_out,
                 "int8_mlp": int8_mlp,
-                "int8_matmul": int8_matmul}
+                "int8_matmul": int8_matmul,
+                "flash_split": gqa_attention_flash,
+                "gqa_attention": gqa_attention,
+                "gqa_attention_grouped": gqa_attention_grouped}
     per_block = STEPS * cfgs["prologue"].depth
     segments = 2  # 3790 frames: two decode segments, one per decode call
     fused_decode = {"snake_conv_transpose_streamed": segments,
@@ -1341,23 +1461,33 @@ def main() -> int:
                      "norm_mod_dense_gelu_quant": per_block, **fused_decode},
         "no_prologue": {**none, "flash_qkv": per_block,
                         "dense_gelu_quant": per_block + STEPS},
-        "opt_in": {**none, "dense_gelu_quant": STEPS,
-                   **{k: per_block for k in OPT_IN_KERNELS}, **fused_decode},
+        "opt_in": {**none, "dense_gelu_quant": STEPS, "flash_out": per_block,
+                   "int8_mlp": per_block, "int8_matmul": per_block,
+                   **fused_decode},
     }
+    for name, kernel in (("split_flash", "flash_split"),
+                         ("pallas", "gqa_attention"),
+                         ("pallas2", "gqa_attention_grouped")):
+        expected[name] = {**none, kernel: per_block,
+                          "dense_gelu_quant": per_block + STEPS,
+                          **fused_decode}
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
         models[name] = DiT(cfg, static, device="cuda")
         fns[name] = make_server(torch, models[name],
                                 codecs[FUSED_DECODE[name]], lr)
         fns[name][2]()  # warm-up: cuDNN algorithm choice, allocator
+    phases.done("weights, codecs and warm-up passes")
     # Each path's counted pass; the kernel line takes a kernel's launches
-    # from the main path, or from the third for the kernels only it runs.
+    # from the main path, or from the path KERNEL_PATH names.
     latents = {}
     for name in cfgs:
         launches[name], latents[name] = counted_pass(
             torch, name, fns[name][2], counters, expected[name],
             cfgs[name].input_channels)
+    phases.done("counted passes")
     timed_passes({name: f[2] for name, f in fns.items()})
+    phases.done("timed passes")
     if args.profile:
         for name, (sample, _, _) in fns.items():
             profile_phase(torch, f"{name} sampler", sample)
@@ -1365,13 +1495,16 @@ def main() -> int:
             profile_phase(torch, f"{name} decode "
                           f"({'fused' if FUSED_DECODE[name] else 'unfused'})",
                           lambda: fns[name][1](latents[name]))
+        phases.done("profiles")
     check_decode(torch, codecs[True], codecs[False],
                  latents["prologue"][:DECODE_L][None])
     del codecs, fns, latents
+    phases.done("decode references")
 
     # 5. Reference on a small input: each full-width DiT on the card
     #    (kernels) and on the CPU (plain versions).  100 frames are 25
-    #    patches, aligned to 32 (keys masked past 25) where align_n is on.
+    #    patches: aligned to 32 (keys masked past 25) where align_n is
+    #    taken, padded to 32 inside flash_split.
     for name, cfg in cfgs.items():
         check_reference(torch, name, models[name],
                         DiT(cfg, static, device="cpu"),
@@ -1379,16 +1512,19 @@ def main() -> int:
 
     del models, static
     torch.cuda.empty_cache()
+    phases.done("DiT references")
 
     # 6. The training path: the v3mod2 train step at full width (the same
     #    dense weights), then one step of it at batch 4 against the CPU.
     launches["train"] = train_phase(torch, dense, args.profile)
     torch.cuda.empty_cache()
+    phases.done("training")
     check_train_reference(torch, dense)
+    phases.done("training reference")
 
     # Result lines.
     kernels = [dict(checks[k], launches=launches[
-        "opt_in" if k in OPT_IN_KERNELS else "prologue"][k]) for k in counters]
+        KERNEL_PATH.get(k, "prologue")][k]) for k in counters]
     kernels += [dict(checks[k], launches=n)
                 for k, n in launches["train"].items()]
     print(json.dumps({"kernels": kernels}))

@@ -3,16 +3,21 @@
 Port of the JAX package's ``models/dit.py``.  :class:`DenseDiT` is the
 branch the JAX model trains with (``matmul_precision="bf16"``, split q/k/v):
 fp32 parameters cast to bf16 at each product, dropout and drop-path, the
-training attention kernel (B10) or the einsum attention, remat per block.
+training attention kernel (B10) or the einsum attention, remat per block;
+its deterministic (eval) forward takes the serving attention the JAX model
+takes there.
 
 :class:`DiT` is the int8 serving branch:
-the ``int8_static`` DiT with fused QKV, the flash-QKV attention kernel, the
-"half" fused MLP and the fused patch embed, with or without the fused
-prologue (``fused_prologue``, with ``align_n``: ``bench.py``'s default DiT;
-``bench.py --no-fused-prologue`` without it); and the opt-in knobs
-``flash_fused_out`` (attention with the int8 out projection inside),
-``fused_mlp_impl="full"`` (the whole MLP in one kernel) and
-``int8_impl="pallas"`` (the s8 kernel on a pre-quantised A).  Inputs are time-major
+the ``int8_static`` DiT with fused QKV, the "half" fused MLP and the fused
+patch embed, with or without the fused prologue (``fused_prologue``, with
+``align_n``: ``bench.py``'s default DiT; ``bench.py --no-fused-prologue``
+without it); the opt-in knobs ``flash_fused_out`` (attention with the int8
+out projection inside), ``fused_mlp_impl="full"`` (the whole MLP in one
+kernel) and ``int8_impl="pallas"`` (the s8 kernel on a pre-quantised A).
+Its attention is the flash-QKV kernel on the fused projection, or, on the
+split q/k/v (``flash_qkv=False``, ``attention_impl`` "pallas", "pallas2" or
+"xla", or past the flash budget), the split flash kernel, the per-q-head or
+per-kv-head kernel, or the einsum.  Inputs are time-major
 ``[B, T, C]``; the residual stream is bf16; the output is fp32.  Module
 names mirror the JAX modules (``patch_in``, ``blocks[i].attn.qkv_proj``,
 ``final_proj``...).
@@ -33,8 +38,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import ModelConfig
-from ..ops.attention import (_rope, flash_supported, gqa_attention_flash_out,
-                             gqa_attention_flash_qkv)
+from ..ops.attention import (_rope, flash_supported, gqa_attention,
+                             gqa_attention_flash, gqa_attention_flash_out,
+                             gqa_attention_flash_qkv, gqa_attention_grouped)
 from ..ops.attention_train import gqa_attention_train, train_flash_supported
 from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
                                int8_mlp, int8_mm)
@@ -52,9 +58,8 @@ _SERVING_BRANCH = {
     "dtype": (("bfloat16",), "other compute dtypes"),
     "pos_embed": (("rope",), "learned positions (v1legacy)"),
     "fused_qkv": ((True,), "the split q/k/v projections"),
-    "attention_impl": (("flash",), "the einsum and the split-q/k/v pallas "
-                                   "attention paths (B15, B16)"),
-    "flash_qkv": ((True,), "the split-input flash kernel (B11)"),
+    "attention_impl": (("flash", "pallas", "pallas2", "xla"),
+                       "other attention"),
     "flash_int8_qk": ((False,), "the int8 value product of the flash kernel"),
     "fused_mlp": ((True,), "the unfused QuantDense MLP"),
     "quantize_head": ((False,), "the int8 output head"),
@@ -172,10 +177,60 @@ def fused_prologue_taken(cfg: ModelConfig, n: int) -> bool:
             and norm_mod_dot_supported(n, H, int(H * cfg.mlp_ratio)))
 
 
+def align_n_taken(cfg: ModelConfig) -> bool:
+    """Whether the JAX model pads the patch count to a multiple of 8 (and
+    masks the padded keys): the JAX conjunction of knobs, on the
+    deterministic path.  Only the flash-QKV kernels mask keys."""
+    return (cfg.attention_impl == "flash" and cfg.pos_embed == "rope"
+            and cfg.fused_qkv and cfg.matmul_precision == "int8_static"
+            and cfg.align_n and cfg.flash_qkv)
+
+
+def split_attention(cfg: ModelConfig, q, k, v):
+    """The deterministic path's attention on split, RoPE'd ``q [B, N, Hq,
+    D]`` and ``k/v [B, N, Hkv, D]``, in the JAX model's order: the
+    per-q-head (``"pallas"``) or per-kv-head (``"pallas2"``) kernel, the
+    split flash kernel (``"flash"``) where ``flash_supported``, else the
+    einsum.  Returns ``[B, N, Hq*D]``."""
+    B, N, hq, D = q.shape
+    hkv = k.shape[2]
+    if cfg.attention_impl in ("pallas", "pallas2"):
+        fn = (gqa_attention_grouped if cfg.attention_impl == "pallas2"
+              else gqa_attention)
+        return fn(q, k, v).reshape(B, N, hq * D)
+    if cfg.attention_impl == "flash" and flash_supported(N, hq, hkv, D):
+        return gqa_attention_flash(q.reshape(B, N, hq * D),
+                                   k.reshape(B, N, hkv * D),
+                                   v.reshape(B, N, hkv * D), hq, hkv)
+    return einsum_attention(q, k, v, cfg.scores_dtype)
+
+
+def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
+    """The JAX model's einsum attention (XLA there; plain PyTorch here, no
+    kernel): fp32 scores times ``1/sqrt(D)``; the softmax in fp32, or with
+    ``scores_dtype="bfloat16"`` the max-shifted scores stored in bf16 and
+    ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``); bf16
+    weights @ v in fp32, out in q's dtype.  ``[B, N, Hq, D]`` and ``[B, N,
+    Hkv, D]`` -> ``[B, N, Hq*D]``."""
+    B, N, hq, D = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(B, N, hkv, hq // hkv, D).float()
+    s = torch.einsum("bnkgd,bmkd->bkgnm", qg, k.float()) * (1.0 / math.sqrt(D))
+    if scores_dtype == "bfloat16":
+        e = torch.exp((s - s.amax(dim=-1, keepdim=True)).bfloat16().float())
+        w = e / e.sum(dim=-1, keepdim=True)
+    else:
+        w = torch.softmax(s, dim=-1)
+    w = _dropout(w, rate, gen).to(q.dtype)
+    out = torch.einsum("bkgnm,bmkd->bnkgd", w.float(), v.float())
+    return out.to(q.dtype).reshape(B, N, hq * D)
+
+
 class GQAttention(nn.Module):
-    """Fused qkv projection, flash-QKV attention (RoPE inside the kernel),
-    out projection; with ``flash_fused_out`` the attention kernel does the
-    out projection too."""
+    """Fused qkv projection, then as the JAX model branches: the flash-QKV
+    kernel (RoPE inside; with ``flash_fused_out`` the out projection too),
+    or the split q/k/v with bf16 RoPE and :func:`split_attention`; then the
+    out projection."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int):
         super().__init__()
@@ -203,20 +258,30 @@ class GQAttention(nn.Module):
                                     norm=cfg.norm)
         else:
             qkv = self.qkv_proj(x)
-        if cfg.flash_fused_out:
-            o = self.out_proj
-            return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
-                                           o.kernel_scale, self.out_bias,
-                                           cfg.num_q_heads, cfg.num_kv_heads,
-                                           n_valid=n_valid)
-        out = gqa_attention_flash_qkv(qkv, cos, sin, cfg.num_q_heads,
-                                      cfg.num_kv_heads, n_valid=n_valid)
-        if prenorm is not None and not cfg.attention_bias:
-            B, N, D = out.shape
-            o = self.out_proj
-            return int8_matmul_fused(out.reshape(B * N, D), o.kernel_q,
-                                     o.kernel_scale).reshape(B, N, -1)
-        return self.out_proj(out)
+        B, N, _ = qkv.shape
+        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+        if (cfg.attention_impl == "flash" and cfg.flash_qkv
+                and flash_supported(N, hq, hkv, D)):
+            if cfg.flash_fused_out:
+                o = self.out_proj
+                return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
+                                               o.kernel_scale, self.out_bias,
+                                               hq, hkv, n_valid=n_valid)
+            out = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv,
+                                          n_valid=n_valid)
+            if prenorm is not None and not cfg.attention_bias:
+                o = self.out_proj
+                return int8_matmul_fused(out.reshape(B * N, hq * D),
+                                         o.kernel_q,
+                                         o.kernel_scale).reshape(B, N, -1)
+            return self.out_proj(out)
+        # The split q/k/v: the JAX model's apply_rope in the compute dtype
+        # (the tables cast first), then the attention of its branch.
+        c, s = cos[:, None].to(qkv.dtype), sin[:, None].to(qkv.dtype)
+        q = _rope(qkv[..., :hq * D].reshape(B, N, hq, D), c, s)
+        k = _rope(qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D), c, s)
+        v = qkv[..., (hq + hkv) * D:].reshape(B, N, hkv, D)
+        return self.out_proj(split_attention(cfg, q, k, v))
 
 
 class DiTBlock(nn.Module):
@@ -328,11 +393,10 @@ class DiT(nn.Module):
         x_cond = x_cond.to(torch.bfloat16)
         pad = (-T_orig) % P
         # align_n: pad the patch count to a multiple of 8 with zero frames,
-        # masked as attention keys and trimmed from the output (the
-        # serving branch check_serving_config pins is the rest of the JAX
-        # condition).
+        # masked as attention keys and trimmed from the output, where the
+        # JAX model does.
         n_valid = cfg.attn_valid_len
-        if cfg.align_n:
+        if align_n_taken(cfg):
             n0 = (T_orig + pad) // P
             extra = ((-n0) % 8) * P
             if extra:
@@ -345,11 +409,6 @@ class DiT(nn.Module):
         N = T // P
         if N > cfg.max_len:
             raise ValueError(f"sequence length {N} exceeds max_len {cfg.max_len}")
-        if not flash_supported(N, cfg.num_q_heads, cfg.num_kv_heads,
-                               cfg.head_dim):
-            raise NotImplementedError(
-                f"N={N} patches exceed the flash kernels' budget; the JAX "
-                f"model takes its einsum attention there, a later slice")
 
         x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B * N, P * 2 * C)
         # The JAX model passes no gelu knobs to the patch embed: tanh, fp32.
@@ -387,8 +446,8 @@ _TRAINING_BRANCH = {
     "param_dtype": (("float32",), "other parameter dtypes"),
     "pos_embed": (("rope",), "learned positions (v1legacy)"),
     "fused_qkv": ((False,), "the fused qkv projection"),
-    "attention_impl": (("xla",), "the serving attention kernels on the eval "
-                                 "path (B11, B15, B16)"),
+    "attention_impl": (("flash", "pallas", "pallas2", "xla"),
+                       "other attention"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
     "scores_dtype": (("float32",), "bf16 score storage"),
     "remat_policy": (("full", "none"), "the selective remat policies dots, "
@@ -469,7 +528,9 @@ def _drop_path(x, rate: np.float32, gen):
 
 class TrainAttention(nn.Module):
     """Split q/k/v projections, bf16 RoPE, then the training kernel (B10)
-    or the einsum attention, and the out projection."""
+    or the einsum attention on the training path, the JAX model's serving
+    attention (:func:`split_attention`) on the deterministic one, and the
+    out projection."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, device):
         super().__init__()
@@ -486,23 +547,18 @@ class TrainAttention(nn.Module):
         hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
         q = _rope(self.q_proj(x).reshape(B, N, hq, D), cos, sin)
         k = _rope(self.k_proj(x).reshape(B, N, hkv, D), cos, sin)
-        v = self.v_proj(x)
-        if (gen is not None and cfg.train_attention_impl == "flash"
+        v = self.v_proj(x).reshape(B, N, hkv, D)
+        if gen is None:
+            return self.out_proj(split_attention(cfg, q, k, v))
+        if (cfg.train_attention_impl == "flash"
                 and train_flash_supported(N, hq, hkv, D)):
             out = gqa_attention_train(
-                q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D), v,
-                seed if cfg.dropout > 0.0 else 0, hq, hkv, cfg.dropout)
+                q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D),
+                v.reshape(B, N, hkv * D), seed if cfg.dropout > 0.0 else 0,
+                hq, hkv, cfg.dropout)
             return self.out_proj(out)
-        # The einsum path (XLA in the JAX package): fp32 scores and softmax,
-        # dropout on the fp32 weights, bf16 weights @ v in fp32.
-        g = hq // hkv
-        qg = q.reshape(B, N, hkv, g, D).float()
-        scores = torch.einsum("bnkgd,bmkd->bkgnm", qg, k.float())
-        weights = torch.softmax(scores * (1.0 / math.sqrt(D)), dim=-1)
-        weights = _dropout(weights, cfg.dropout, gen).to(x.dtype)
-        out = torch.einsum("bkgnm,bmkd->bnkgd", weights.float(),
-                           v.reshape(B, N, hkv, D).float()).to(x.dtype)
-        return self.out_proj(out.reshape(B, N, hq * D))
+        return self.out_proj(einsum_attention(q, k, v, rate=cfg.dropout,
+                                              gen=gen))
 
 
 class TrainBlock(nn.Module):

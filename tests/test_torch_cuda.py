@@ -40,7 +40,8 @@ outputs differ, each within 0.02 absolute plus 0.02 relative (the bound of
 the CPU test against the JAX kernel).  The fused out projection (B12): the
 kernel's fp32 sums run in another order, which can move a normalised weight
 or a head's output by one bf16 ulp and so a code of the row quantisation by
-one; max abs error <= 1e-2 x max |plain|.
+one; max abs error <= 1e-2 x max |plain|.  The split q/k/v attention
+kernels (B11, B15, B16): atol = rtol = 2e-2, as the other attention kernels.
 """
 
 import numpy as np
@@ -51,8 +52,12 @@ from jatsr_torch.models.dit import rope_cos_sin
 from jatsr_torch.ops import attention_train as at
 from jatsr_torch.ops import dac_kernels as dk
 from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
+                                       flash_split_plain, gqa_attention,
+                                       gqa_attention_flash,
                                        gqa_attention_flash_out,
-                                       gqa_attention_flash_qkv)
+                                       gqa_attention_flash_qkv,
+                                       gqa_attention_grouped,
+                                       gqa_attention_plain)
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
                                          int8_dense_gelu_quant, int8_matmul,
                                          int8_matmul_fused, int8_mlp,
@@ -209,12 +214,15 @@ def test_w8a8_dot_fused_equals_xla_on_card(card):
     {}, {"fused_prologue": True, "align_n": True},
     {"int8_impl": "fused"},
     {"fused_prologue": True, "align_n": True, "flash_fused_out": True,
-     "fused_mlp_impl": "full", "int8_impl": "pallas"}])
+     "fused_mlp_impl": "full", "int8_impl": "pallas"},
+    {"fused_prologue": True, "align_n": True, "flash_qkv": False},
+    {"attention_impl": "pallas"}, {"attention_impl": "pallas2"}])
 def test_narrow_dit_on_card_matches_cpu(card, knobs):
     """A narrow int8 DiT (head dim 64, as the kernel needs) on the card
     against the same weights on the CPU's plain path, without and with the
-    fused prologue (130 frames: 33 patches, aligned to 40), and with the
-    three opt-in kernels (B12, B13, B14) in place of the prologue."""
+    fused prologue (130 frames: 33 patches, aligned to 40), with the
+    three opt-in kernels (B12, B13, B14) in place of the prologue, and on
+    the split q/k/v through B11, B15 and B16 (33 patches)."""
     import dataclasses
 
     from jatsr_torch.configs import get_preset
@@ -226,7 +234,7 @@ def test_narrow_dit_on_card_matches_cpu(card, knobs):
         get_preset("tiny").model, hidden_size=256, num_q_heads=4,
         num_kv_heads=2, bottleneck_dim=128, input_channels=64,
         cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
-        fused_mlp=True, attention_impl="flash", **knobs)
+        fused_mlp=True, **{"attention_impl": "flash", **knobs})
     static = quantize_params_static(random_dense_params(cfg, 5))
     rng = np.random.default_rng(6)
     x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
@@ -296,6 +304,51 @@ def test_flash_out_kernel_matches_plain(card, B, N, n_valid, hq, hkv, H):
     want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
                            n_valid=n_valid).float()
     _assert_rel(got, want, 1e-2)
+
+
+def _split_inputs(card, B, N, hq, hkv, seed):
+    """q, k and v as column slices of one fused [B, N, (hq + 2 hkv) * 64]
+    projection, as the split branch hands them over (k and v strided)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
+                      device=card).bfloat16()
+    return (qkv[..., :hq * 64].contiguous(),
+            qkv[..., hq * 64:(hq + hkv) * 64], qkv[..., (hq + hkv) * 64:])
+
+
+@pytest.mark.parametrize("B,N,hq,hkv", [(6, 345, 20, 4), (2, 90, 8, 2),
+                                        (1, 64, 4, 4)])
+def test_split_attention_kernels_match_plain(card, B, N, hq, hkv):
+    """B11, B15 and B16 at the serving shape, a small padded one and an
+    aligned one without grouping; k and v strided views."""
+    q, k, v = _split_inputs(card, B, N, hq, hkv, seed=25)
+    n0 = (gqa_attention_flash.launches, gqa_attention.launches,
+          gqa_attention_grouped.launches)
+    got = gqa_attention_flash(q, k, v, hq, hkv)
+    want = flash_split_plain(q, k, v, hq, hkv)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    q4, k4, v4 = (x.reshape(B, N, -1, 64) for x in (q, k, v))
+    want = gqa_attention_plain(q4, k4, v4).float()
+    a, b = gqa_attention(q4, k4, v4), gqa_attention_grouped(q4, k4, v4)
+    assert a.shape == b.shape == (B, N, hq, 64)
+    for got in (a, b):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    assert (gqa_attention_flash.launches, gqa_attention.launches,
+            gqa_attention_grouped.launches) == tuple(n + 1 for n in n0)
+
+
+def test_split_flash_kernel_keeps_the_padding_in_the_max(card):
+    """Every real score negative: the zero keys padding N = 90 to 96 set
+    the row max, in the kernel as in its plain version."""
+    gen = torch.Generator(device=card).manual_seed(26)
+    q = torch.randn((2, 90, 8 * 64), generator=gen, device=card).abs()
+    k = -torch.randn((2, 90, 2 * 64), generator=gen, device=card).abs()
+    v = torch.randn((2, 90, 2 * 64), generator=gen, device=card)
+    q, k, v = (x.mul(0.5).bfloat16() for x in (q, k, v))
+    got = gqa_attention_flash(q, k, v, 8, 2).float()
+    torch.testing.assert_close(got, flash_split_plain(q, k, v, 8, 2).float(),
+                               atol=2e-2, rtol=2e-2)
 
 
 def _assert_rel(got, want, rel=1e-3):

@@ -28,7 +28,7 @@ from jatsr_torch.ops.quant import quantize_params_static
 from jatsr_torch.configs import get_preset
 from jatsr_torch.models.from_jax import random_dense_params
 
-from torch_parity import C, build_pair, narrow_cfg, to_numpy_tree
+from torch_parity import C, Spy, build_pair, narrow_cfg, to_numpy_tree
 
 
 def _inputs(seed, B=2, T=130):
@@ -96,9 +96,9 @@ def test_quantize_params_static_matches_jax():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("quantize_head", True), ("pos_embed", "learned"), ("attention_impl", "xla"),
-    ("flash_qkv", False), ("attention_impl", "pallas"),
-    ("matmul_precision", "bf16"), ("attention_impl", "pallas2"),
+    ("quantize_head", True), ("pos_embed", "learned"), ("fused_qkv", False),
+    ("fused_mlp", False), ("flash_int8_qk", True),
+    ("matmul_precision", "bf16"), ("dtype", "float32"),
 ])
 def test_dit_raises_outside_the_slice(knob, value):
     import dataclasses
@@ -114,31 +114,15 @@ def test_dit_raises_outside_the_slice(knob, value):
 PROLOGUE = dict(fused_prologue=True, align_n=True)
 
 
-class _Spy:
-    """Wraps a function of ``module`` (default ``jatsr_torch.models.dit``)
-    and records calls."""
-
-    def __init__(self, monkeypatch, name, module=None):
-        import jatsr_torch.models.dit as tdit
-
-        module = module or tdit
-        self.fn, self.calls = getattr(module, name), []
-        monkeypatch.setattr(module, name, self)
-
-    def __call__(self, *a, **kw):
-        self.calls.append((a, kw))
-        return self.fn(*a, **kw)
-
-
 @pytest.mark.parametrize("norm", ["layer", "rms"])
 def test_prologue_dit_forward_matches_jax(norm, monkeypatch):
     """T = 130 frames: 33 patches, padded to 40 by align_n; the blocks take
     the fused prologue (B3, B4, B1) and attention masks keys past 33."""
     jmodel, jparams, tmodel, _ = build_pair(norm, seed=6, **PROLOGUE)
-    attn = _Spy(monkeypatch, "gqa_attention_flash_qkv")
-    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
-    out = _Spy(monkeypatch, "int8_matmul_fused")
-    mlp = _Spy(monkeypatch, "int8_norm_mod_dense_gelu_quant")
+    attn = Spy(monkeypatch, "gqa_attention_flash_qkv")
+    qkv = Spy(monkeypatch, "int8_norm_mod_dot")
+    out = Spy(monkeypatch, "int8_matmul_fused")
+    mlp = Spy(monkeypatch, "int8_norm_mod_dense_gelu_quant")
     x_t, t, x_c = _inputs(seed=7)
     want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
                         jnp.asarray(x_c))
@@ -158,7 +142,7 @@ def test_prologue_dit_hoisted_adaln_matches_jax(norm, monkeypatch):
     """The serving call with ``[depth, 1, 6H]`` tables: one modulation row
     shared over the batch reaches the prologue kernels as ``[1, H]``."""
     jmodel, jparams, tmodel, _ = build_pair(norm, seed=8, **PROLOGUE)
-    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
+    qkv = Spy(monkeypatch, "int8_norm_mod_dot")
     x_t, _, x_c = _inputs(seed=9, B=3)
     t1 = np.array([0.625], np.float32)
     jt = jax_adaln_tables(jmodel.cfg, jparams, jnp.asarray(t1))
@@ -178,8 +162,8 @@ def test_prologue_without_align_n_takes_the_unfused_branch(monkeypatch):
     block, so JAX silently takes the unfused branch, and so does the port."""
     jmodel, jparams, tmodel, _ = build_pair("rms", seed=10,
                                             fused_prologue=True)
-    qkv = _Spy(monkeypatch, "int8_norm_mod_dot")
-    attn = _Spy(monkeypatch, "gqa_attention_flash_qkv")
+    qkv = Spy(monkeypatch, "int8_norm_mod_dot")
+    attn = Spy(monkeypatch, "gqa_attention_flash_qkv")
     x_t, t, x_c = _inputs(seed=11)
     want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
                         jnp.asarray(x_c))
@@ -211,7 +195,8 @@ def test_int8_impl_fused_matches_jax():
 # w8a8_dot (recorded with its impl).
 _KERNELS = ("int8_norm_mod_dot", "int8_norm_mod_dense_gelu_quant",
             "int8_matmul_fused", "int8_dense_gelu_quant", "int8_mlp",
-            "gqa_attention_flash_qkv", "gqa_attention_flash_out")
+            "gqa_attention_flash_qkv", "gqa_attention_flash_out",
+            "gqa_attention_flash", "gqa_attention", "gqa_attention_grouped")
 
 
 def _spy_kernels(monkeypatch):
@@ -221,8 +206,8 @@ def _spy_kernels(monkeypatch):
     from jatsr_tpu.ops import quant as jquant
 
     def spies(module_of):
-        out = {n: _Spy(monkeypatch, n, module_of(n)) for n in _KERNELS}
-        out["w8a8_dot"] = _Spy(monkeypatch, "w8a8_dot", module_of("w8a8_dot"))
+        out = {n: Spy(monkeypatch, n, module_of(n)) for n in _KERNELS}
+        out["w8a8_dot"] = Spy(monkeypatch, "w8a8_dot", module_of("w8a8_dot"))
         return out
 
     return (spies(lambda n: jquant if n == "w8a8_dot" else
@@ -292,3 +277,91 @@ def test_opt_in_dit_hoisted_adaln_matches_jax(norm):
     got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
                  torch.from_numpy(x_c), adaln_mod=tt)
     _assert_close(got.numpy(), np.asarray(want))
+
+
+def _run_pair(knobs, seed, monkeypatch, norm="rms"):
+    """The narrow pair under ``knobs``, spied on both sides: (JAX reached,
+    port reached, JAX spies, port spies), after holding the outputs within
+    ``_assert_close``."""
+    jmodel, jparams, tmodel, _ = build_pair(norm, seed=seed, **knobs)
+    jax_spies, port_spies = _spy_kernels(monkeypatch)
+    x_t, t, x_c = _inputs(seed=seed + 1)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert np.abs(np.asarray(want)).mean() > 0.05
+    _assert_close(got.numpy(), np.asarray(want))
+    return _reached(jax_spies), _reached(port_spies), jax_spies, port_spies
+
+
+_SPLIT = ("gqa_attention_flash", "gqa_attention", "gqa_attention_grouped")
+
+
+def _rows(spies):
+    """The patch counts the split attention kernels were given."""
+    return {a[0].shape[1] for n in _SPLIT for a, _ in spies[n].calls}
+
+
+@pytest.mark.parametrize("knobs,kernel", [
+    ({"flash_qkv": False}, "gqa_attention_flash"),
+    ({"attention_impl": "pallas"}, "gqa_attention"),
+    ({"attention_impl": "pallas2"}, "gqa_attention_grouped"),
+    ({"attention_impl": "xla", "scores_dtype": "float32"}, None),
+    ({"attention_impl": "xla", "scores_dtype": "bfloat16"}, None),
+], ids=["split_flash", "pallas", "pallas2", "xla_f32", "xla_bf16"])
+def test_split_attention_knobs_take_the_jax_branch(knobs, kernel,
+                                                   monkeypatch):
+    """The split q/k/v branch: qkv_proj, bf16 RoPE, then the split flash
+    kernel, the per-q-head or per-kv-head kernel, or the einsum (either
+    score dtype), and out_proj.  Both sides reach the same kernels (33
+    patches, unpadded) and agree."""
+    jax_got, port_got, jax_spies, port_spies = _run_pair(knobs, 30,
+                                                         monkeypatch)
+    kernels = {"int8_dense_gelu_quant"} | ({kernel} if kernel else set())
+    assert port_got == jax_got == (kernels, {"xla"})
+    assert _rows(port_spies) == _rows(jax_spies) == \
+        ({33} if kernel else set())
+
+
+def test_no_flash_qkv_neither_aligns_nor_masks(monkeypatch):
+    """bench.py --no-flash-qkv: the fused prologue and align_n are asked
+    for, but the JAX model takes neither without flash_qkv, so the blocks
+    run the split flash kernel on the 33 real patches, no key masked."""
+    jax_got, port_got, jax_spies, port_spies = _run_pair(
+        dict(PROLOGUE, flash_qkv=False), 32, monkeypatch)
+    assert port_got == jax_got == ({"gqa_attention_flash",
+                                    "int8_dense_gelu_quant"}, {"xla"})
+    assert _rows(port_spies) == _rows(jax_spies) == {33}
+
+
+def test_flash_fused_out_needs_flash_qkv(monkeypatch):
+    """flash_fused_out with flash_qkv=False: the JAX model takes the fused
+    out projection only inside its flash-QKV branch, so both sides run the
+    split flash kernel and the QuantDense out_proj."""
+    jax_got, port_got, _, _ = _run_pair(
+        dict(PROLOGUE, flash_fused_out=True, flash_qkv=False), 34,
+        monkeypatch)
+    assert port_got == jax_got == ({"gqa_attention_flash",
+                                    "int8_dense_gelu_quant"}, {"xla"})
+
+
+@pytest.mark.parametrize("knobs,kernels", [
+    (dict(PROLOGUE, attention_impl="pallas"),
+     {"gqa_attention", "int8_dense_gelu_quant"}),
+    (PROLOGUE, {"int8_norm_mod_dot", "int8_norm_mod_dense_gelu_quant",
+                "int8_dense_gelu_quant"}),
+], ids=["pallas", "flash"])
+def test_past_the_flash_budget(knobs, kernels, monkeypatch):
+    """With ``flash_supported`` forced to False on both sides (as past ~1000
+    patches): the pallas kernels have no budget gate, so "pallas" still
+    reaches the per-q-head kernel; "flash" leaves both flash kernels for the
+    einsum (bench.py's default: the prologue kernels stay, the padded keys
+    of align_n go unmasked as in JAX).  The port no longer raises there."""
+    import jatsr_torch.models.dit as tdit
+    from jatsr_tpu.ops import attention as jattn
+
+    for module in (jattn, tdit):
+        monkeypatch.setattr(module, "flash_supported", lambda *a: False)
+    jax_got, port_got, _, _ = _run_pair(knobs, 36, monkeypatch)
+    assert port_got == jax_got == (kernels, {"xla"})

@@ -339,3 +339,25 @@ def test_super_resolve_latent_device_with_opt_in_kernels_matches_jax(
                                            cfg_scale=2.0, max_batch=2)
     assert got.shape == (150, C)
     _assert_close(got.numpy(), want, atol=6e-2)
+
+
+@pytest.fixture(scope="module")
+def pallas_pair():
+    return build_pair("layer", seed=24, **PROLOGUE, attention_impl="pallas")
+
+
+def test_flow_sampler_with_per_head_attention_matches_jax(pallas_pair):
+    """``bench.py --attention pallas``'s DiT (the fused prologue and align_n
+    asked for, neither taken: the split q/k/v and the per-q-head attention
+    kernel on 16 patches) under the doubled-CFG sampler with hoisted
+    tables, against JAX; the bounds of test_flow_sampler_matches_jax."""
+    jmodel, jparams, tmodel, _ = pallas_pair
+    cond, z0 = _sampler_inputs()
+    want = _jax_sampler(jmodel, jparams, "doubled")(
+        jax.random.PRNGKey(0), jnp.asarray(cond), 4, 2.0, z0=jnp.asarray(z0))
+    sampler = FlowSampler(
+        lambda z, t, c, mod=None: tmodel(z, t, c, adaln_mod=mod),
+        SamplerConfig(num_steps=4), adaln_fn=lambda tv: adaln_tables(tmodel, tv),
+        device="cpu")
+    got = sampler(torch.from_numpy(cond), 4, 2.0, z0=torch.from_numpy(z0))
+    _assert_close(got.numpy(), np.asarray(want), atol=5e-2)

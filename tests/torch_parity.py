@@ -31,7 +31,7 @@ def narrow_cfg(preset_getter, norm="layer", **knobs):
     return dataclasses.replace(
         preset_getter("tiny").model, bottleneck_dim=128, input_channels=C,
         cond_channels=C, norm=norm, matmul_precision="int8_static",
-        fused_qkv=True, fused_mlp=True, attention_impl="flash", **knobs)
+        fused_qkv=True, fused_mlp=True, **{"attention_impl": "flash", **knobs})
 
 
 def build_pair(norm="layer", seed=0, **knobs):
@@ -51,3 +51,19 @@ def build_pair(norm="layer", seed=0, **knobs):
 
 def to_numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+class Spy:
+    """Wraps a function of ``module`` (default ``jatsr_torch.models.dit``)
+    and records calls."""
+
+    def __init__(self, monkeypatch, name, module=None):
+        import jatsr_torch.models.dit as tdit
+
+        module = module or tdit
+        self.fn, self.calls = getattr(module, name), []
+        monkeypatch.setattr(module, name, self)
+
+    def __call__(self, *a, **kw):
+        self.calls.append((a, kw))
+        return self.fn(*a, **kw)
