@@ -260,7 +260,7 @@ def check_split_attention(torch):
     """flash_split (B11), gqa_attention (B15) and gqa_attention_grouped
     (B16) against their plain versions at the split paths' q [6, 345, 20,
     64] and k/v [6, 345, 4, 64] bf16 (k and v column slices of one fused
-    projection, as the model hands v over), B15 against B16; each timed on
+    projection, as the model hands v over), B15 bit-equal to B16; each timed on
     contiguous copies beside SDPA at N = 345 with the kv heads repeated
     (no mask needed there)."""
     import torch.nn.functional as F
@@ -318,7 +318,9 @@ def check_split_attention(torch):
                     lambda *a: F.scaled_dot_product_attention(*a[3:]), args,
                     big=(0, 1, 2, 3, 4, 5), reps=200)
         out[name] = {"name": name, "route": "cuda",
-                     "source": "jatsr_torch/ops/csrc/attention_split.cu",
+                     "source": ("jatsr_torch/ops/csrc/attention_split.cu"
+                                if name == "flash_split" else
+                                "jatsr_torch/ops/csrc/attention_natural.cu"),
                      "replaces": replaces,
                      "max_abs_err": (got[name] - want).abs().max().item(),
                      **t, "bound_ms": b_ms, "bound_by": b_by,
@@ -326,6 +328,9 @@ def check_split_attention(torch):
     d = (got["gqa_attention"] - got["gqa_attention_grouped"]).abs().max()
     log(f"[kernel] gqa_attention vs gqa_attention_grouped: max abs "
         f"{d.item():.3e}")
+    if d.item() != 0.0:  # one body, and no row's arithmetic depends on the grid
+        raise AssertionError(f"gqa_attention and gqa_attention_grouped differ "
+                             f"by up to {d.item()}: they must be bit-equal")
     out["gqa_attention"]["vs_grouped_max_abs"] = d.item()
     return out
 
@@ -921,7 +926,7 @@ def profile_phase(torch, name, fn):
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     log(f"[profile {name}] wall {wall / 1e3:.1f} ms (traced), device busy "
-        f"{busy / 1e3:.1f} ms = {busy / wall:.1%}, {len(kernels)} kernels")
+        f"{busy / 1e3:.1f} ms = {busy / wall:.1%}, {len(kernels)} launches")
     groups = {}
     for kname, (us, n) in by_name.items():
         g = "port kernels" if kname.split("(anonymous namespace)::")[0] in (
@@ -1377,7 +1382,7 @@ def main() -> int:
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
                "mlp_full", "dac_res", "snake_tr", "attention_train",
-               "attention_split")
+               "attention_split", "attention_natural")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:

@@ -7,13 +7,16 @@ Ports of ``gqa_attention_flash_qkv``, ``gqa_attention_flash_out``,
 ``gqa_attention_flash``, ``gqa_attention`` and ``gqa_attention_grouped``
 (JAX package, ``ops/attention.py``).  Each wrapper dispatches on the
 tensor's device: a CPU tensor takes the plain PyTorch version below, a CUDA
-tensor launches the hand-written kernel in ``csrc/flash_qkv.cu`` or
-``csrc/attention_split.cu`` or raises.  Nothing falls back.
+tensor launches the hand-written kernel in ``csrc/flash_qkv.cu``,
+``csrc/attention_split.cu`` (the split flash kernel) or
+``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels) or
+raises.  Nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -306,7 +309,7 @@ def gqa_attention_flash(q, k, v, num_q_heads: int, num_kv_heads: int):
                          f"{tuple(v.shape)} are not {hq}/{hkv}-head GQA inputs")
     if q.device.type == "cpu":
         return flash_split_plain(q, k, v, hq, hkv)
-    out = _launch_split(0, q, k, v, hq, hkv, q.shape[2] // hq)
+    out = _launch_split(q, k, v, hq, hkv, q.shape[2] // hq)
     gqa_attention_flash.launches += 1
     return out
 
@@ -333,10 +336,9 @@ def gqa_attention(q, k, v):
     _check_heads(q, k, v)
     if q.device.type == "cpu":
         return gqa_attention_plain(q, k, v)
-    B, N, hq, D = q.shape
-    out = _launch_split(1, q, k, v, hq, k.shape[2], D)
+    out = _launch_natural(q, k, v, grouped=False)
     gqa_attention.launches += 1
-    return out.reshape(B, N, hq, D)
+    return out
 
 
 gqa_attention.launches = 0
@@ -348,10 +350,9 @@ def gqa_attention_grouped(q, k, v):
     _check_heads(q, k, v)
     if q.device.type == "cpu":
         return gqa_attention_plain(q, k, v)
-    B, N, hq, D = q.shape
-    out = _launch_split(2, q, k, v, hq, k.shape[2], D)
+    out = _launch_natural(q, k, v, grouped=True)
     gqa_attention_grouped.launches += 1
-    return out.reshape(B, N, hq, D)
+    return out
 
 
 gqa_attention_grouped.launches = 0
@@ -360,12 +361,23 @@ gqa_attention_grouped.launches = 0
 def _row_view(t):
     """``t`` [B, N, W] or [B, N, H, D] as the kernels read it: rows of dense
     heads at one row stride, which a column slice of the fused projection
-    has; any other layout is copied.  Returns the tensor and its row
-    stride."""
+    has, 16-byte aligned for the kernels' vector reads; any other layout is
+    copied.  Returns the tensor and its row stride."""
+    from . import _build
+
     dense = t.stride(-1) == 1 and (t.dim() == 3 or t.stride(2) == t.shape[3])
-    if not (dense and t.stride(0) == t.shape[1] * t.stride(1)):
-        t = t.contiguous()
+    if not (dense and t.stride(0) == t.shape[1] * t.stride(1)
+            and t.data_ptr() % 16 == 0 and t.stride(1) % 8 == 0):
+        t = _build.aligned(t)
     return t, t.stride(1)
+
+
+def _check_split(q, k, v, D):
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D != 64:
+        raise TypeError(f"the split attention kernels take bf16 with head dim "
+                        f"64, got {q.dtype} with head dim {D}")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k and v must be on one device")
 
 
 @functools.cache
@@ -381,9 +393,14 @@ def _split_lib():
     lib.attention_split.restype = ctypes.c_int
     lib.attention_split.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
         + [ctypes.c_void_p])
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -391,17 +408,13 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
-def _launch_split(kind, q, k, v, hq, hkv, D):
-    """One C call of csrc/attention_split.cu: kind 0 is the flash kernel,
-    1 the per-q-head kernel, 2 the per-kv-head kernel."""
+def _launch_split(q, k, v, hq, hkv, D):
+    """The flash kernel's C call in csrc/attention_split.cu (a prep launch
+    into scratch, then the attention body)."""
     from . import _build
 
     B, N = q.shape[:2]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D != 64:
-        raise TypeError(f"the split attention kernels take bf16 with head dim "
-                        f"64, got {q.dtype} with head dim {D}")
-    if not q.device == k.device == v.device:
-        raise ValueError("q, k and v must be on one device")
+    _check_split(q, k, v, D)
     lib = _split_lib()
     smem, limit = lib.attention_split_smem_bytes(N), _smem_optin(
         q.device.index)
@@ -414,9 +427,179 @@ def _launch_split(kind, q, k, v, hq, hkv, D):
     out = torch.empty((B, N, hq * D), dtype=torch.bfloat16, device=q.device)
     err = lib.attention_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_row, k_row, v_row,
-        scratch.data_ptr(), out.data_ptr(), B, N, hq, hkv, kind,
-        _scale2_bf16(D) if kind == 0 else 1.0, 1.0 / math.sqrt(D),
+        scratch.data_ptr(), out.data_ptr(), B, N, hq, hkv, _scale2_bf16(D),
         _build.stream_ptr(q.device))
-    _build.check(lib, err, ("flash_split", "gqa_attention",
-                            "gqa_attention_grouped")[kind])
+    _build.check(lib, err, "flash_split")
     return out
+
+
+# ---- B15 and B16: one kernel, two grids (csrc/attention_natural.cu) --------
+
+NATURAL_MAX_N = 768     # the split flash kernel's limit at D = 64, too
+_NATURAL_CHUNK = 128    # keys a warp holds in registers (16 n-tiles)
+_NATURAL_WARPS = 15     # warps a CTA: 128 registers a thread
+_NATURAL_ROW = 144      # shared-memory bytes of a 64-wide bf16 row + 8 pad
+_SMEM_SM90 = 232_448    # an sm_90 block's opt-in shared memory
+
+
+@dataclasses.dataclass(frozen=True)
+class NaturalPlan:
+    """The launch of csrc/attention_natural.cu at one (N, heads, batch).
+
+    The keys are padded to ``nk``, ``W`` chunks of 128 (zero rows, masked).
+    A round covers ``rows`` query rows of ``hc`` q-heads.  A CTA covers
+    ``heads`` q-heads (1 for the per-q-head grid, G for the per-kv-head
+    one) in ``head_rounds`` rounds and ``row_rounds`` row tiles in turn,
+    over K and V loaded once where they are ``resident`` together.  Each of
+    its ``warps`` warps owns 16 rows of one head over one key chunk: warp w
+    takes chunk ``w % W`` of pair ``w // W``, which is row group ``pair %
+    (rows // 16)`` of head slot ``pair // (rows // 16)``.  Round rd takes
+    row tile ``x * row_rounds + rd // head_rounds`` and head slots ``(rd %
+    head_rounds) * hc + [0, hc)``.  The grid is ``grid + (B,)``: x the tile
+    group, y the q-head or the kv-head.  Offsets are bytes of dynamic
+    shared memory: K and V (V at K's offset where they are not resident
+    together), the q rows, the row statistics ``[2][pairs][W][16]`` fp32
+    and the partial outputs ``[pairs][W][8][32]`` fp32x4 (at K's offset
+    where K is dead by then: one round, V resident)."""
+
+    N: int
+    nk: int
+    hq: int
+    hkv: int
+    rows: int
+    W: int
+    heads: int
+    hc: int
+    head_rounds: int
+    row_rounds: int
+    resident: int
+    k_off: int
+    v_off: int
+    q_off: int
+    red_off: int
+    part_off: int
+    grid: tuple
+    warps: int
+    smem: int
+
+
+@functools.cache
+def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
+                  sms: int) -> NaturalPlan:
+    """The launch plan of B15 (``grouped=False``) or B16 at N keys, batch B,
+    on a card of ``sms`` SMs.
+
+    Each (q-head or kv-head, batch) gets as many CTAs as fill the SMs once,
+    and each CTA takes its share of the row tiles in turn where K and V
+    stay resident: they are then read from L2 once a CTA, not once a tile
+    (at the serving shape that traffic bounded the kernels).
+
+    Raises ``ValueError`` past ``NATURAL_MAX_N``, so that the three split
+    attention kernels serve the same N."""
+    if not 1 <= N <= NATURAL_MAX_N:
+        raise ValueError(f"gqa_attention kernels: N={N} outside [1, "
+                         f"{NATURAL_MAX_N}]")
+    if hq % hkv:
+        raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    g = hq // hkv
+    nk = _round_up(N, _NATURAL_CHUNK)
+    W = nk // _NATURAL_CHUNK
+    fit = _NATURAL_WARPS // W            # (row group, head) pairs a CTA holds
+    if grouped:
+        head_rounds = -(-g // fit)
+        hc = -(-g // head_rounds)
+        pairs, rows, heads, ny = hc, 16, g, hkv
+    else:
+        head_rounds, hc = 1, 1
+        pairs = min(4, fit)
+        rows, heads, ny = 16 * pairs, 1, hq
+    kv = nk * _NATURAL_ROW
+    q_bytes = pairs * 16 * _NATURAL_ROW
+    red = 2 * pairs * W * 16 * 4
+    part = pairs * W * 8 * 32 * 16 if W > 1 else 0
+    tiles = -(-N // rows)
+    row_rounds = 1                       # where K and V cannot stay resident
+    if 2 * kv + q_bytes + red + part <= _SMEM_SM90:
+        row_rounds = -(-tiles // min(tiles, max(1, sms // (ny * B))))
+    rounds = head_rounds * row_rounds
+    alias = rounds == 1 and part <= kv
+    resident = 2 * kv + q_bytes + red + (0 if alias else part) <= _SMEM_SM90
+    alias = alias and resident
+    q_off = (2 if resident else 1) * kv
+    red_off = _round_up(q_off + q_bytes, 128)
+    end = _round_up(red_off + red, 128)
+    part_off = 0 if alias else end
+    smem = end if alias else end + part
+    return NaturalPlan(N, nk, hq, hkv, rows, W, heads, hc, head_rounds,
+                       row_rounds, int(resident), 0, kv if resident else 0,
+                       q_off, red_off, part_off,
+                       (-(-tiles // row_rounds), ny), pairs * W, smem)
+
+
+class _NaturalArgs(ctypes.Structure):
+    """``NaturalPlan`` of csrc/attention_natural.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "N", "nk", "hq", "hkv", "rows", "W", "heads", "hc", "head_rounds",
+        "row_rounds", "resident", "k_off", "v_off", "q_off", "red_off",
+        "part_off")]
+        + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
+        + [("scale", ctypes.c_float)])
+
+
+@functools.cache
+def _natural_lib():
+    """csrc/attention_natural.cu's library, its entry points' C types set."""
+    from . import _build
+
+    lib = _build.load("attention_natural")
+    lib.attention_natural.restype = ctypes.c_int
+    lib.attention_natural.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.attention_natural_divide.restype = ctypes.c_int
+    lib.attention_natural_divide.argtypes = ([ctypes.c_void_p] * 4
+                                             + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _launch_natural(q, k, v, grouped):
+    """One launch of csrc/attention_natural.cu on [B, N, H, 64] q, k, v."""
+    from . import _build
+
+    B, N, hq, D = q.shape
+    _check_split(q, k, v, D)
+    plan = _natural_plan(N, hq, k.shape[2], grouped, B,
+                         _sm_count(q.device.index))
+    limit = _smem_optin(q.device.index)
+    if plan.smem > limit:
+        raise ValueError(f"gqa_attention kernels: N={N} needs {plan.smem} B "
+                         f"of shared memory, the card gives {limit}")
+    lib = _natural_lib()
+    (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    args = _NaturalArgs(
+        *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:16]),
+        q_row, k_row, v_row, 1.0 / math.sqrt(D))
+    out = torch.empty((B, N, hq, D), dtype=torch.bfloat16, device=q.device)
+    err = lib.attention_natural(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.byref(args), B, *plan.grid, plan.warps, plan.smem,
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "gqa_attention_grouped" if grouped
+                 else "gqa_attention")
+    return out
+
+
+def natural_divide(e, l):
+    """The B15/B16 kernel's divide and ``__fdiv_rn`` of fp32 CUDA tensors
+    ``e`` and ``l``, elementwise: ``(kernel, reference)``."""
+    from . import _build
+
+    e, l = (t.float().contiguous() for t in (e, l))
+    fast, ref = torch.empty_like(e), torch.empty_like(e)
+    lib = _natural_lib()
+    err = lib.attention_natural_divide(e.data_ptr(), l.data_ptr(),
+                                       fast.data_ptr(), ref.data_ptr(),
+                                       e.numel(), _build.stream_ptr(e.device))
+    _build.check(lib, err, "attention_natural_divide")
+    return fast, ref

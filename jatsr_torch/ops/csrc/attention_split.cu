@@ -1,4 +1,4 @@
-// GQA attention on split, RoPE'd q, k and v, for Hopper: three TPU kernels
+// Flash GQA attention on split, RoPE'd q, k and v, for Hopper: a TPU kernel
 // of the JAX package's ops/attention.py behind one prep launch and the
 // attention body of flash_attn.cuh.
 //
@@ -16,31 +16,19 @@
 // another result.  Here the keys run to Np with zero rows, masked only past
 // Np: attention_kernel<kDeferred> with n_valid = Np and npad = Np - N.
 //
-// B15 replaces gqa_attention (_attn_kernel) and B16 gqa_attention_grouped
-// (_attn_kernel_grouped).  Both compute one function:
-//   s     = (q @ k^T in fp32) * (1 / sqrt(D)), the scale after the product
-//   s     = -inf where key col >= N (the TPU kernels pad to 128; a masked
-//           key's e is 0, so masking at N gives the same result)
-//   e     = expf(s - m); w = bf16(e / sum(e)), a true divide
-//   o     = (w @ v) fp32, then bf16
-// They differ in the grid only: B15 runs a CTA per (64-row tile, q-head,
-// batch), B16 a CTA per (tile, kv-head, batch) that loads the kv-head's K
-// and V^T once and runs its G q-heads in turn (attention_kernel<kNatural>,
-// GROUPED).
-//
-// What bounds them on the H100: at the v3 serving shape (q [6, 345, 1280],
+// What bounds it on the H100: at the v3 serving shape (q [6, 345, 1280],
 // k/v [6, 345, 256], 20/4 heads, D = 64) the two products are 3.66 GFLOP
 // (3.7 us at the 989 TFLOP/s bf16 peak) against 12.7 MB of compulsory
 // traffic (q, k, v in, the output out: 3.8 us at 3.35 TB/s).  Bytes bound
-// them, by a hair.
+// it, by a hair.
 //
 // Design.  Two launches in one C call: split_prep writes the shared-memory
-// images (q scaled in bf16 for B11, as it stands for B15/B16; K; V^T) from
-// the [B, N, H * 64] views, whose row stride it takes, so a v that is a
-// column slice of the fused qkv projection needs no copy; then the
-// attention body, which makes two passes over the keys for B11 (the exact
-// row max, then e, sum(e) and bf16(e) @ v) and three for B15/B16 (the row
-// sum comes before the product so that w can round first).
+// images (q scaled in bf16, K, V^T) from the [B, N, H * 64] views, whose
+// row stride it takes, so a v that is a column slice of the fused qkv
+// projection needs no copy; then the attention body, which makes two passes
+// over the keys (the exact row max, then e, sum(e) and bf16(e) @ v).
+// (B15 and B16, the natural-softmax kernels on the same inputs, are
+// attention_natural.cu.)
 
 #include "flash_attn.cuh"
 
@@ -93,14 +81,12 @@ extern "C" long long attention_split_scratch_bytes(int B, int N, int hq, int hkv
 }
 
 // q [B, N, hq * 64], k and v [B, N, hkv * 64] bf16 views with row strides
-// q_row, k_row, v_row -> out [B, N, hq * 64] bf16 (contiguous).  kind 0 is
-// B11 (qscale = bf16(scale * log2 e)), 1 is B15 and 2 is B16 (qscale 1, and
-// scale = 1 / sqrt(64) after the product).  scratch holds
+// q_row, k_row, v_row -> out [B, N, hq * 64] bf16 (contiguous), with
+// qscale = bf16(scale * log2 e).  scratch holds
 // attention_split_scratch_bytes(B, N, hq, hkv) bytes.
 extern "C" int attention_split(const void* q, const void* k, const void* v, long long q_row,
                                long long k_row, long long v_row, void* scratch, void* out, int B,
-                               int N, int hq, int hkv, int kind, float qscale, float scale,
-                               void* stream) {
+                               int N, int hq, int hkv, float qscale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nk = key_rows(N);
   const Images im = images(scratch, B, N, hq, hkv);
@@ -109,15 +95,6 @@ extern "C" int attention_split(const void* q, const void* k, const void* v, long
       v_row, im.q, im.k, im.vt, N, nk, hq, hkv, qscale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  __nv_bfloat16* o = (__nv_bfloat16*)out;
   const int np = (N + 7) / 8 * 8;
-  switch (kind) {
-    case 0:
-      return run_attention<kDeferred, false>(im, o, B, N, np, np - N, hq, hkv, 0.f, st);
-    case 1:
-      return run_attention<kNatural, false>(im, o, B, N, N, 0, hq, hkv, scale, st);
-    case 2:
-      return run_attention<kNatural, true>(im, o, B, N, N, 0, hq, hkv, scale, st);
-  }
-  return cudaErrorInvalidValue;
+  return run_attention<kDeferred>(im, (__nv_bfloat16*)out, B, N, np, np - N, hq, hkv, st);
 }

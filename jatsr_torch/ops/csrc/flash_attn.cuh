@@ -1,22 +1,21 @@
-// The attention body the port's inference attention kernels share, for
-// Hopper: B2 and B12 (flash_qkv.cu), B11, B15 and B16 (attention_split.cu).
+// The attention body the port's flash attention kernels share, for Hopper:
+// B2 and B12 (flash_qkv.cu) and B11 (attention_split.cu).  (B15 and B16
+// have a body of their own, attention_natural.cu.)
 // Each of those files first writes the exact shared-memory images of q, K
 // and V^T to scratch with its own prep launch (q [B,Hq,nk,KSTR], K
 // [B,Hkv,nk,KSTR], V^T [B,Hkv,D,nk+8]; rows >= N are zero; nk = N rounded
 // up to 64), then launches attention_kernel below.
 //
-// A CTA of 4 warps owns a 64-row query tile of one q-head (or, GROUPED, the
-// tile of each of the G q-heads of one kv-head in turn); each warp owns 16
-// query rows.  The CTA copies its kv-head's K and V^T (and the q tile) into
+// A CTA of 4 warps owns a 64-row query tile of one q-head; each warp owns
+// 16 query rows.  The CTA copies its kv-head's K and V^T (and the q tile) into
 // shared memory with cp.async.  V is transposed so both mma.sync m16n8k16 B
 // operands are contiguous 32-bit loads; row strides are padded by 8 bf16 so
 // fragment loads hit 32 distinct banks.
 //
 // The TPU kernels keep the whole [N, N] score tile in VMEM and take one row
-// max; registers cannot hold a row of 384 fp32 scores per thread, and an
-// online (running-max) softmax would round bf16(e) against another max than
-// the TPU kernels.  So the kernel makes passes over the keys: pass 1 takes
-// the exact row max; the normalised kinds then take the row sum of e (so
+// max; an online (running-max) softmax would round bf16(e) against another
+// max than the TPU kernels.  So the kernel makes passes over the keys: pass
+// 1 takes the exact row max; kNormalised then takes the row sum of e (so
 // that w = bf16(e / l) can round before its product); the last pass forms e
 // or w and accumulates it @ v in registers.  The score product runs two or
 // three times, which is cheaper than an HBM round trip of the fp32 scores.
@@ -43,9 +42,6 @@ enum Softmax {
   kDeferred,
   // B12: the same scores and e; w = bf16(e / sum(e)), a true divide; o = w @ v.
   kNormalised,
-  // B15, B16: s = (q @ k^T) * scale in fp32; e = expf(s - m); w = bf16(e / sum(e));
-  // o = w @ v.
-  kNatural,
 };
 
 // Keys covered by the shared-memory images of N rows.
@@ -72,13 +68,6 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + off), "l"(s + off));
 }
 
-// The exponential of each kind: base 2 for the flash kernels, natural for
-// B15 and B16 (expf, not __expf).
-template <Softmax SM>
-__device__ __forceinline__ float ex(float x) {
-  return SM == kNatural ? expf(x) : exp2f(x);
-}
-
 // One warp's 16 query rows of q-head h in the tile qt, from the q tile qs
 // and the kv-head's ks and vt in shared memory, into out [B, N, hq * 64].
 // Keys at col >= n_valid are masked.
@@ -86,7 +75,7 @@ template <Softmax SM>
 __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloat16* vt,
                                        const __nv_bfloat16* qs, __nv_bfloat16* __restrict__ out,
                                        int qt, int h, int b, int N, int n_valid, int npad,
-                                       int hq, int nk, float scale) {
+                                       int hq, int nk) {
   const int vstr = nk + 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -113,10 +102,6 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
         const __nv_bfloat16* p = ks + (jb * BKEY + nt * 8 + gid) * KSTR + kk * 16 + tig * 2;
         mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(p),
                  *reinterpret_cast<const uint32_t*>(p + 8));
-      }
-      if (SM == kNatural) {  // the scale after the product, rounded on its own
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = __fmul_rn(s[nt][i], scale);
       }
       const int col = jb * BKEY + nt * 8 + tig * 2;
       if (col >= n_valid) s[nt][0] = s[nt][2] = -INFINITY;
@@ -157,8 +142,8 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
       scores(jb, s);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        l0 += ex<SM>(s[nt][0] - m0) + ex<SM>(s[nt][1] - m0);
-        l1 += ex<SM>(s[nt][2] - m1) + ex<SM>(s[nt][3] - m1);
+        l0 += exp2f(s[nt][0] - m0) + exp2f(s[nt][1] - m0);
+        l1 += exp2f(s[nt][2] - m1) + exp2f(s[nt][3] - m1);
       }
     }
     quad_sum(l0, l1);
@@ -172,10 +157,10 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
     scores(jb, s);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = ex<SM>(s[nt][0] - m0);
-      s[nt][1] = ex<SM>(s[nt][1] - m0);
-      s[nt][2] = ex<SM>(s[nt][2] - m1);
-      s[nt][3] = ex<SM>(s[nt][3] - m1);
+      s[nt][0] = exp2f(s[nt][0] - m0);
+      s[nt][1] = exp2f(s[nt][1] - m0);
+      s[nt][2] = exp2f(s[nt][2] - m1);
+      s[nt][3] = exp2f(s[nt][3] - m1);
       if (NORM) {
         s[nt][0] = __fdiv_rn(s[nt][0], l0);
         s[nt][1] = __fdiv_rn(s[nt][1], l0);
@@ -224,33 +209,27 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
   }
 }
 
-// A CTA per (64-row query tile, q-head, batch), or GROUPED per (tile,
-// kv-head, batch): the kv-head's K and V^T are loaded once and the CTA runs
-// the tile of each of its G q-heads in turn.
-template <Softmax SM, bool GROUPED>
+// A CTA per (64-row query tile, q-head, batch).
+template <Softmax SM>
 __global__ void __launch_bounds__(128) attention_kernel(
     const __nv_bfloat16* __restrict__ qp, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vtp, __nv_bfloat16* __restrict__ out, int N, int n_valid,
-    int npad, int hq, int hkv, int nk, float scale) {
+    int npad, int hq, int hkv, int nk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vstr = nk + 8;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [nk][KSTR]
   __nv_bfloat16* vt = ks + nk * KSTR;                           // [D][vstr]
   __nv_bfloat16* qs = vt + D * vstr;                            // [BQ][KSTR]
 
-  const int qt = blockIdx.x, b = blockIdx.z, g = hq / hkv;
-  const int kvh = GROUPED ? blockIdx.y : blockIdx.y / g;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
   copy_async(ks, kp + ((size_t)b * hkv + kvh) * nk * KSTR, nk * KSTR * 2);
   copy_async(vt, vtp + ((size_t)b * hkv + kvh) * D * vstr, D * vstr * 2);
-  for (int i = 0; i < (GROUPED ? g : 1); ++i) {
-    const int h = GROUPED ? kvh * g + i : blockIdx.y;
-    if (i) __syncthreads();  // every warp holds its fragments of the last q tile
-    copy_async(qs, qp + (((size_t)b * hq + h) * nk + qt * BQ) * KSTR, BQ * KSTR * 2);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    attend<SM>(ks, vt, qs, out, qt, h, b, N, n_valid, npad, hq, nk, scale);
-  }
+  copy_async(qs, qp + (((size_t)b * hq + h) * nk + qt * BQ) * KSTR, BQ * KSTR * 2);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  attend<SM>(ks, vt, qs, out, qt, h, b, N, n_valid, npad, hq, nk);
 }
 
 // Dynamic shared memory of attention_kernel for N keys.
@@ -278,16 +257,16 @@ Images images(void* scratch, int B, int N, int hq, int hkv) {
 }
 
 // attention_kernel on prepared images into out [B, N, hq * 64] bf16.
-template <Softmax SM, bool GROUPED>
+template <Softmax SM>
 cudaError_t run_attention(const Images& im, __nv_bfloat16* out, int B, int N, int n_valid,
-                          int npad, int hq, int hkv, float scale, cudaStream_t st) {
+                          int npad, int hq, int hkv, cudaStream_t st) {
   const int smem = smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<SM, GROUPED>,
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<SM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BQ - 1) / BQ, GROUPED ? hkv : hq, B);
-  attention_kernel<SM, GROUPED><<<grid, 128, smem, st>>>(im.q, im.k, im.vt, out, N, n_valid,
-                                                         npad, hq, hkv, key_rows(N), scale);
+  dim3 grid((N + BQ - 1) / BQ, hq, B);
+  attention_kernel<SM><<<grid, 128, smem, st>>>(im.q, im.k, im.vt, out, N, n_valid, npad, hq,
+                                                hkv, key_rows(N));
   return cudaGetLastError();
 }
 

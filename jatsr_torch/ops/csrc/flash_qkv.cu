@@ -114,7 +114,7 @@ cudaError_t attention(const void* qkv, const void* cos_t, const void* sin_t, voi
       nk, hq, hkv, scale2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return run_attention<SM, false>(im, out, B, N, n_valid, 0, hq, hkv, 0.f, st);
+  return run_attention<SM>(im, out, B, N, n_valid, 0, hq, hkv, st);
 }
 
 }  // namespace

@@ -58,9 +58,11 @@ def u_shaped(u: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
 
 def u_shaped_timesteps(batch: int, alpha: float = 0.5,
                        generator: Optional[torch.Generator] = None,
-                       device="cpu") -> torch.Tensor:
-    """``[batch]`` fp32 U-shaped flow times drawn from ``generator``."""
-    u = torch.rand((batch,), generator=generator, device=device)
+                       device="cuda") -> torch.Tensor:
+    """``[batch]`` fp32 U-shaped flow times drawn from ``generator``, on the
+    card unless the caller asks for ``device="cpu"``."""
+    u = torch.rand((batch,), generator=generator,
+                   device=resolve_device(device))
     return u_shaped(u, alpha)
 
 

@@ -1,0 +1,112 @@
+"""The launch plan of the per-q-head and per-kv-head attention kernel
+(``csrc/attention_natural.cu``), checked where no card exists.
+
+``_natural_plan`` is pure Python: for every N the kernel takes and each
+grid, its shared memory must fit an sm_90 block, its CTA must launch, its
+shared-memory regions must not overlap where they are live together, and
+its CTAs, rounds and warps must cover every (query row, q-head) exactly
+once.  The enumeration below follows the kernel's own indexing: in round
+rd, CTA (x, y) covers rows ``tile * rows + (pair % R) * 16 + [0, 16)`` of
+q-head ``y * heads + (rd % head_rounds) * hc + pair // R``, for ``tile = x *
+row_rounds + rd // head_rounds`` and ``R = rows // 16``, where that head
+slot is below ``heads``.
+"""
+
+import numpy as np
+import pytest
+
+from jatsr_torch.ops.attention import NATURAL_MAX_N, _natural_plan
+
+SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory
+SMS = 132               # an H100 SXM's SMs
+ROW = 144               # bytes of a 64-wide bf16 row plus its 8 pad
+
+
+def _coverage(plan):
+    """How often each (row, q-head) is computed and stored: [N, hq]."""
+    count = np.zeros((plan.N, plan.hq), np.int64)
+    R = plan.rows // 16
+    pairs = plan.warps // plan.W
+    xs, ys = np.arange(plan.grid[0]), np.arange(plan.grid[1])
+    for rd in range(plan.row_rounds * plan.head_rounds):
+        tiles = xs * plan.row_rounds + rd // plan.head_rounds
+        for pair in range(pairs):
+            slot = (rd % plan.head_rounds) * plan.hc + pair // R
+            if slot >= plan.heads:
+                continue
+            rows = (tiles[:, None] * plan.rows + (pair % R) * 16
+                    + np.arange(16)[None, :]).ravel()
+            rows = rows[rows < plan.N]
+            np.add.at(count, (rows[:, None], (ys * plan.heads + slot)[None]),
+                      1)
+    return count
+
+
+def _regions(plan):
+    """The live shared-memory regions (offset, bytes) of one round."""
+    pairs = plan.warps // plan.W
+    kv = plan.nk * ROW
+    out = [(plan.k_off, kv), (plan.q_off, pairs * 16 * ROW),
+           (plan.red_off, 2 * pairs * plan.W * 16 * 4)]
+    if plan.resident:
+        out.append((plan.v_off, kv))
+    part = pairs * plan.W * 8 * 32 * 16 if plan.W > 1 else 0
+    if part and plan.part_off != plan.k_off:
+        out.append((plan.part_off, part))
+    return out, part
+
+
+@pytest.mark.parametrize("B", [1, 6])
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("G", [1, 2, 4, 5])
+def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B):
+    hkv = 2
+    for N in range(1, NATURAL_MAX_N + 1):
+        plan = _natural_plan(N, G * hkv, hkv, grouped, B, SMS)
+        assert plan.smem <= SMEM_SM90, N
+        assert plan.warps * 32 <= 480, N          # the kernel's launch bound
+        assert plan.nk >= N and plan.nk == 128 * plan.W, N
+        assert plan.W * (plan.rows // 16) * plan.hc == plan.warps, N
+        hr = plan.head_rounds
+        assert hr * plan.hc >= plan.heads > (hr - 1) * plan.hc, N
+        assert plan.row_rounds == 1 or plan.resident, N
+        regions, part = _regions(plan)
+        for off, size in regions:
+            assert off % 16 == 0 and off + size <= plan.smem, (N, off)
+        spans = sorted(regions)
+        for (a, sa), (b, _) in zip(spans, spans[1:]):
+            assert a + sa <= b, (N, spans)
+        if part and plan.part_off == plan.k_off:
+            # The partial outputs take K's buffer only once K is dead for
+            # good: one round, V in a buffer of its own.
+            assert plan.row_rounds == hr == 1 and plan.resident
+            assert part <= plan.nk * ROW
+        if not plan.resident:
+            assert plan.v_off == plan.k_off
+        cover = _coverage(plan)
+        assert (cover == 1).all(), (N, np.argwhere(cover != 1)[:4])
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_natural_plan_at_the_serving_shape(grouped):
+    """q [6, 345, 20, 64], k/v [6, 345, 4, 64]: three warps of 128 keys a
+    row group, K and V resident, 120 CTAs on the 132 SMs; B15 a CTA per
+    q-head taking its six 64-row tiles in turn, B16 a CTA per fifth of a
+    kv-head's 16-row tiles (five in turn) with its five q-heads side by
+    side."""
+    plan = _natural_plan(345, 20, 4, grouped, 6, SMS)
+    assert (plan.nk, plan.W, plan.head_rounds, plan.resident) == (384, 3, 1,
+                                                                  1)
+    if grouped:
+        assert (plan.rows, plan.hc, plan.warps, plan.row_rounds,
+                plan.grid) == (16, 5, 15, 5, (5, 4))
+    else:
+        assert (plan.rows, plan.hc, plan.warps, plan.row_rounds,
+                plan.grid) == (64, 1, 12, 6, (1, 20))
+
+
+@pytest.mark.parametrize("N", [0, NATURAL_MAX_N + 1])
+def test_natural_plan_raises_outside_the_kernel(N):
+    for grouped in (False, True):
+        with pytest.raises(ValueError):
+            _natural_plan(N, 20, 4, grouped, 6, SMS)

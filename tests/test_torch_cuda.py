@@ -41,7 +41,8 @@ the CPU test against the JAX kernel).  The fused out projection (B12): the
 kernel's fp32 sums run in another order, which can move a normalised weight
 or a head's output by one bf16 ulp and so a code of the row quantisation by
 one; max abs error <= 1e-2 x max |plain|.  The split q/k/v attention
-kernels (B11, B15, B16): atol = rtol = 2e-2, as the other attention kernels.
+kernels (B11, B15, B16): atol = rtol = 2e-2, as the other attention kernels;
+B15 and B16 bit-equal to each other.
 """
 
 import numpy as np
@@ -349,6 +350,77 @@ def test_split_flash_kernel_keeps_the_padding_in_the_max(card):
     got = gqa_attention_flash(q, k, v, 8, 2).float()
     torch.testing.assert_close(got, flash_split_plain(q, k, v, 8, 2).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("G", [1, 2, 5])
+@pytest.mark.parametrize("N", [1, 17, 64, 65, 345, 513, 768])
+def test_natural_attention_kernels_match_plain_and_each_other(card, N, G):
+    """B15 and B16 against their plain version across the kernel's range of
+    N (one and several key chunks, K and V resident or not, B16's heads at
+    once or in rounds), with v a column-slice view of the fused projection;
+    and bit-equal to each other (no row's arithmetic depends on the grid)."""
+    B, hkv = 2, 2
+    q, k, v = _split_inputs(card, B, N, G * hkv, hkv, seed=27 + N + G)
+    q4, k4, v4 = (x.reshape(B, N, -1, 64) for x in (q, k, v))
+    assert not v4.is_contiguous()
+    n0 = (gqa_attention.launches, gqa_attention_grouped.launches)
+    a, b = gqa_attention(q4, k4, v4), gqa_attention_grouped(q4, k4, v4)
+    assert (gqa_attention.launches, gqa_attention_grouped.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = gqa_attention_plain(q4, k4, v4).float()
+    for got in (a, b):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(a, b)
+
+
+def test_natural_attention_kernels_with_scores_below_2_to_minus_100(card):
+    """q scaled so that many e = exp(s - m) fall below 2^-100, where the
+    kernels take their divide's slow form: still their plain version's
+    result, and bit-equal to each other."""
+    q, k, v = _split_inputs(card, 2, 345, 10, 2, seed=30)
+    q4, k4, v4 = (x.reshape(2, 345, -1, 64) for x in (q, k, v))
+    q4 = (q4.float() * 12).bfloat16()
+    want = gqa_attention_plain(q4, k4, v4).float()
+    a, b = gqa_attention(q4, k4, v4), gqa_attention_grouped(q4, k4, v4)
+    for got in (a, b):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(a, b)
+
+
+def test_natural_attention_raises_past_its_largest_n(card):
+    """N = 769 raises before any launch, in both grids."""
+    q, k, v = (x.reshape(1, 769, -1, 64)
+               for x in _split_inputs(card, 1, 769, 4, 2, seed=28))
+    n0 = (gqa_attention.launches, gqa_attention_grouped.launches)
+    for fn in (gqa_attention, gqa_attention_grouped):
+        with pytest.raises(ValueError):
+            fn(q, k, v)
+    assert (gqa_attention.launches, gqa_attention_grouped.launches) == n0
+
+
+def test_natural_attention_divide_is_the_rounded_quotient(card):
+    """The kernel's divide (an inline rcp_rn(l), Markstein's correction, a
+    scaled form below e = 2^-100) bit-equal to __fdiv_rn: on 2^24 pairs, e
+    in (0, 1] (uniform, and log-uniform down to 2^-149) and l in [1, 768];
+    and for every fp32 l in [1, 768], at e = 1 and at a uniform e."""
+    from jatsr_torch.ops.attention import natural_divide
+
+    n = 1 << 24
+    gen = torch.Generator(device=card).manual_seed(29)
+    u = torch.rand(n, generator=gen, device=card)
+    e = torch.where(torch.arange(n, device=card) % 2 == 0, 1.0 - u,
+                    torch.exp2(-149.0 * u))
+    l = 1.0 + 767.0 * torch.rand(n, generator=gen, device=card)
+    fast, ref = natural_divide(e, l)
+    assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
+    lo, hi = (torch.tensor(x, dtype=torch.float32).view(torch.int32).item()
+              for x in (1.0, 768.0))
+    l = torch.arange(lo, hi + 1, device=card, dtype=torch.int32).view(
+        torch.float32)
+    for e in (torch.ones_like(l), 1.0 - torch.rand(l.shape, generator=gen,
+                                                   device=card)):
+        fast, ref = natural_divide(e, l)
+        assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
 
 
 def _assert_rel(got, want, rel=1e-3):

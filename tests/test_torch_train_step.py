@@ -51,7 +51,8 @@ from jatsr_torch.models.dit import DenseDiT
 from jatsr_torch.models.from_jax import (dense_tree_from_module,
                                          init_dense_params,
                                          random_dense_params)
-from jatsr_torch.sampling.flow import flow_interpolate, u_shaped
+from jatsr_torch.sampling.flow import (flow_interpolate, u_shaped,
+                                       u_shaped_timesteps)
 from jatsr_torch.train import (create_train_state, make_eval_step,
                                make_optimizer, make_train_step)
 from jatsr_torch.train.schedule import warmup_cosine
@@ -132,6 +133,20 @@ def test_optimizer_matches_optax(moments, grad_scale):
             atol=1e-6 * np.abs(want_mu).max(), err_msg=k)
         assert str(ts.mu[i].dtype).endswith(moments)
     assert ts.count == int(adam.count) == 3
+
+
+def test_u_shaped_timesteps_on_the_cpu_when_asked():
+    gen = torch.Generator().manual_seed(3)
+    t = u_shaped_timesteps(1000, generator=gen, device="cpu")
+    assert t.shape == (1000,) and t.dtype == torch.float32
+    assert t.device.type == "cpu"
+    assert float(t.min()) >= 0.0 and float(t.max()) <= 1.0
+
+
+def test_u_shaped_timesteps_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        u_shaped_timesteps(4)
 
 
 def test_flow_draws_match_jax():
