@@ -460,7 +460,14 @@ class NaturalPlan:
     shared memory: K and V (V at K's offset where they are not resident
     together), the q rows, the row statistics ``[2][pairs][W][16]`` fp32
     and the partial outputs ``[pairs][W][8][32]`` fp32x4 (at K's offset
-    where K is dead by then: one round, V resident)."""
+    where K is dead by then: one round, V resident).
+
+    ``balanced`` (B10's forward): each (y, batch) takes all its tiles
+    (``row_rounds``), and the ``total`` rounds of all of them, flattened
+    (batch, y, round), are cut into spans of ``span``: CTA x of the 1-D
+    grid takes rounds ``x * span ..`` and reloads K and V where the batch
+    or y changes, so the card's SMs share the work evenly.  ``span`` 0:
+    the grid's own (x, y, batch)."""
 
     N: int
     nk: int
@@ -478,6 +485,8 @@ class NaturalPlan:
     q_off: int
     red_off: int
     part_off: int
+    span: int
+    total: int
     grid: tuple
     warps: int
     smem: int
@@ -485,7 +494,7 @@ class NaturalPlan:
 
 @functools.cache
 def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
-                  sms: int) -> NaturalPlan:
+                  sms: int, balanced: bool = False) -> NaturalPlan:
     """The launch plan of B15 (``grouped=False``) or B16 at N keys, batch B,
     on a card of ``sms`` SMs.
 
@@ -519,10 +528,12 @@ def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
     part = pairs * W * 8 * 32 * 16 if W > 1 else 0
     tiles = -(-N // rows)
     row_rounds = 1                       # where K and V cannot stay resident
-    if 2 * kv + q_bytes + red + part <= _SMEM_SM90:
+    if balanced:
+        row_rounds = tiles
+    elif 2 * kv + q_bytes + red + part <= _SMEM_SM90:
         row_rounds = -(-tiles // min(tiles, max(1, sms // (ny * B))))
     rounds = head_rounds * row_rounds
-    alias = rounds == 1 and part <= kv
+    alias = rounds == 1 and part <= kv and not balanced
     resident = 2 * kv + q_bytes + red + (0 if alias else part) <= _SMEM_SM90
     alias = alias and resident
     q_off = (2 if resident else 1) * kv
@@ -530,10 +541,16 @@ def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
     end = _round_up(red_off + red, 128)
     part_off = 0 if alias else end
     smem = end if alias else end + part
+    span = total = 0
+    grid = (-(-tiles // row_rounds), ny)
+    if balanced:
+        total = B * ny * rounds
+        span = -(-total // sms)
+        grid = (-(-total // span), 1)
     return NaturalPlan(N, nk, hq, hkv, rows, W, heads, hc, head_rounds,
                        row_rounds, int(resident), 0, kv if resident else 0,
-                       q_off, red_off, part_off,
-                       (-(-tiles // row_rounds), ny), pairs * W, smem)
+                       q_off, red_off, part_off, span, total, grid,
+                       pairs * W, smem)
 
 
 class _NaturalArgs(ctypes.Structure):
@@ -542,7 +559,7 @@ class _NaturalArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "N", "nk", "hq", "hkv", "rows", "W", "heads", "hc", "head_rounds",
         "row_rounds", "resident", "k_off", "v_off", "q_off", "red_off",
-        "part_off")]
+        "part_off", "span", "total")]
         + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
         + [("scale", ctypes.c_float)])
 
@@ -578,7 +595,7 @@ def _launch_natural(q, k, v, grouped):
     lib = _natural_lib()
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
     args = _NaturalArgs(
-        *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:16]),
+        *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:18]),
         q_row, k_row, v_row, 1.0 / math.sqrt(D))
     out = torch.empty((B, N, hq, D), dtype=torch.bfloat16, device=q.device)
     err = lib.attention_natural(

@@ -17,11 +17,15 @@ computes in int64 and keeps 32 bits after every multiply and add.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
-from .attention import _FLASH_VMEM_BUDGET, _round_up, flash_supported
+from .attention import (_FLASH_VMEM_BUDGET, NATURAL_MAX_N, NaturalPlan,
+                        _natural_plan, _NaturalArgs, _round_up, _sm_count,
+                        _smem_optin, flash_supported)
 
 _GOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -257,43 +261,149 @@ def _kernel_args(q, k, v, hq, hkv, rate, seed):
                 dropout=int(rate > 0.0))
 
 
-def _lib(q, N):
-    """The kernels' library, after checking that K and V of N keys fit the
-    card's shared memory."""
+_TILE = 64          # query rows of a backward tile
+_CHUNK = 128        # keys of a backward CTA (and of a forward warp)
+_BWD_WARPS = 16     # two groups of 8 warps, 16 keys a warp
+_ROW = 144          # shared-memory bytes of a 64-wide bf16 row plus 8 pad
+_PART_ROW = 288     # bytes of a 64-wide fp32 partial dq row plus 8 pad
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """The launches of csrc/attention_train.cu at one (N, heads, batch).
+
+    ``fwd`` is the forward's plan: attention_rows.cuh's body on B16's
+    layout (``_natural_plan(grouped=True, balanced=True)``: the G q-heads
+    side by side over K and V, the (batch, kv-head) rounds spread evenly
+    over the SMs).  The backward's main launch is a grid ``grid + (B,)``
+    = (W, hkv, B) of CTAs of ``warps`` warps in
+    clusters of ``cluster`` = W along x: CTA c of cluster (kv-head, batch)
+    takes keys ``c * 128 .. + 127`` (``nk = 128 W``), warp w the 16 keys
+    ``c * 128 + (w % 8) * 16 ..``.  Its two groups of 8 warps take the
+    G heads' ``T`` 64-row tiles two at a time, ``steps`` steps: in step
+    i, group g takes tile ``j = 2 i + g`` of them (head ``kv-head * G + j //
+    T``, rows ``(j % T) * 64 ..``), none where ``j >= G T``.  The partial
+    dq of step i's two tiles, float4 column x in ``[0, 2048)`` (group ``x
+    // 1024``, row ``x // 16 % 64``), is added up and stored by CTA ``(x
+    // 512) % W``.  Offsets are bytes of dynamic shared memory: K and V of
+    the chunk, the q and do tiles ``[2 bufs][2 groups][2][64]`` rows, the
+    row statistics ``[2][2][64]`` float4, ds^T ``[2 groups][128]`` rows and
+    the partial dq ``[2][2][64]`` fp32 rows."""
+
+    fwd: NaturalPlan
+    N: int
+    hq: int
+    hkv: int
+    G: int
+    T: int
+    W: int
+    steps: int
+    k_off: int
+    v_off: int
+    tile_off: int
+    info_off: int
+    ds_off: int
+    part_off: int
+    grid: tuple
+    cluster: int
+    warps: int
+    smem: int
+
+
+@functools.cache
+def _train_plan(N: int, hq: int, hkv: int, B: int, sms: int) -> TrainPlan:
+    """The launch plan of B10's forward and backward at N keys, batch B, on
+    a card of ``sms`` SMs.  Raises ``ValueError`` past ``NATURAL_MAX_N``
+    (768: W <= 6 CTAs a cluster) or where the heads do not group."""
+    if not 1 <= N <= NATURAL_MAX_N:
+        raise ValueError(f"attention_train kernels: N={N} outside [1, "
+                         f"{NATURAL_MAX_N}]")
+    if hq % hkv:
+        raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    G = hq // hkv
+    T = -(-N // _TILE)
+    W = -(-N // _CHUNK)
+    kv = _CHUNK * _ROW
+    tile_off = 2 * kv
+    info_off = tile_off + 2 * 2 * 2 * _TILE * _ROW
+    ds_off = info_off + 2 * 2 * _TILE * 16
+    part_off = ds_off + 2 * _CHUNK * _ROW
+    smem = part_off + 2 * 2 * _TILE * _PART_ROW
+    fwd = _natural_plan(N, hq, hkv, True, B, sms, balanced=True)
+    return TrainPlan(fwd, N, hq, hkv, G, T, W, -(-G * T // 2), 0, kv,
+                     tile_off, info_off, ds_off, part_off, (W, hkv), W,
+                     _BWD_WARPS, smem)
+
+
+class _TrainRows(ctypes.Structure):
+    """``TrainRows`` of csrc/attention_rows.cuh, field for field."""
+
+    _fields_ = [("stats", ctypes.c_void_p), ("seed", ctypes.c_uint32),
+                ("thr", ctypes.c_uint32), ("np", ctypes.c_int),
+                ("dropout", ctypes.c_int), ("coef", ctypes.c_float)]
+
+
+_BWD_INTS = ("N", "hq", "hkv", "G", "T", "W", "steps", "k_off", "v_off",
+             "tile_off", "info_off", "ds_off", "part_off")
+
+
+class _TrainBwdArgs(ctypes.Structure):
+    """``TrainBwdPlan`` of csrc/attention_train.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in _BWD_INTS + ("np", "dropout")]
+                + [("seed", ctypes.c_uint32), ("thr", ctypes.c_uint32)]
+                + [(f, ctypes.c_float) for f in ("scale2", "scale",
+                                                 "coef")])
+
+
+@functools.cache
+def _lib():
+    """csrc/attention_train.cu's library, its entry points' C types set."""
     from . import _build
 
     lib = _build.load("attention_train")
-    lib.attn_train_smem_bytes.restype = ctypes.c_int
-    lib.attn_train_smem_bytes.argtypes = [ctypes.c_int]
-    smem = lib.attn_train_smem_bytes(N)
-    limit = torch.cuda.get_device_properties(q.device) \
-        .shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"attention_train: N={N} needs {smem} B of shared "
-                         f"memory, the card gives {limit}")
+    lib.attn_train_fwd.restype = ctypes.c_int
+    lib.attn_train_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs),
+                                 ctypes.POINTER(_TrainRows)]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.attn_train_bwd.restype = ctypes.c_int
+    lib.attn_train_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(_TrainBwdArgs)]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     return lib
 
 
-_PTR, _INT, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                          ctypes.c_float)
+def _plan_for(q, hq, hkv):
+    B, N, _ = q.shape
+    plan = _train_plan(N, hq, hkv, B, _sm_count(q.device.index))
+    limit = _smem_optin(q.device.index)
+    if max(plan.smem, plan.fwd.smem) > limit:
+        raise ValueError(f"attention_train: N={N} needs "
+                         f"{max(plan.smem, plan.fwd.smem)} B of shared "
+                         f"memory, the card gives {limit}")
+    return plan
 
 
 def _launch_fwd(q, k, v, seed, hq, hkv, rate):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
-    lib = _lib(q, a["N"])
-    fn = lib.attn_train_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_U32, _U32, _F32, _F32, _INT,
-                                             _PTR]
+    plan = _plan_for(q, hq, hkv)
+    lib = _lib()
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     B, N = a["B"], a["N"]
     out = torch.empty_like(q)
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             stats.data_ptr(), B, N, hq, hkv, a["seed"], a["thr"],
-             a["scale2"], a["coef"], a["dropout"], _build.stream_ptr(q.device))
+    fp = plan.fwd
+    ints = (getattr(fp, f) for f, _ in _NaturalArgs._fields_[:18])
+    args = _NaturalArgs(*ints, hq * 64, hkv * 64, hkv * 64, a["scale2"])
+    rows = _TrainRows(stats.data_ptr(), a["seed"], a["thr"], _round_up(N, 8),
+                      a["dropout"], a["coef"])
+    err = lib.attn_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), ctypes.byref(args),
+                             ctypes.byref(rows), 1, *fp.grid, fp.warps,
+                             fp.smem, _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train fwd")
     attention_train_fwd.launches += 1
     return out, stats
@@ -303,11 +413,6 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
-    lib = _lib(q, a["N"])
-    fn = lib.attn_train_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_PTR] * 10 + [_INT] * 4 + [_U32, _U32, _F32, _F32, _F32,
-                                              _INT, _PTR]
     B, N = a["B"], a["N"]
     q, k, v, o = (_build.aligned(t) for t in (q, k, v, o))
     do = _build.aligned(do.to(q.dtype))
@@ -315,14 +420,24 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
             or stats.shape != (B, hq, N, 2):
         raise ValueError("o, do must match q and stats must be "
                          f"[{B}, {hq}, {N}, 2]")
+    plan = _plan_for(q, hq, hkv)
+    if B * hq * plan.T * _TILE * 8 >= 2 ** 31:
+        raise ValueError(f"attention_train bwd: batch {B} x {hq} heads x "
+                         f"{plan.T * _TILE} rows is past the kernels' int "
+                         f"indexing")
+    lib = _lib()
     stats = stats.float().contiguous()
-    delta = torch.empty((B, hq, N), dtype=torch.float32, device=q.device)
+    info = torch.empty((B, hq, plan.T * _TILE, 4), dtype=torch.float32,
+                       device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B, N, hq, hkv, a["seed"],
-             a["thr"], a["scale2"], a["scale"], a["coef"], a["dropout"],
-             _build.stream_ptr(q.device))
+    args = _TrainBwdArgs(*(getattr(plan, f) for f in _BWD_INTS),
+                         _round_up(N, 8), a["dropout"], a["seed"], a["thr"],
+                         a["scale2"], a["scale"], a["coef"])
+    err = lib.attn_train_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        stats.data_ptr(), info.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ctypes.byref(args), B, plan.smem,
+        _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train bwd")
     attention_train_bwd.launches += 1
     return dq, dk, dv

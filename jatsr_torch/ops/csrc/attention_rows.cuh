@@ -1,0 +1,516 @@
+// The attention body with the exact row max and the scores computed once
+// in registers, shared by two epilogues:
+//   natural (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
+//       e = expf(s - m), w = bf16(e / l) correctly rounded, o = bf16(w @ v)
+//   train   (attention_train.cu, B10's forward): q' = bf16(q * scale2),
+//       s = q' @ k^T, e = exp2f(s - m), l summed before the dropout
+//       zeroing, o = bf16((bf16(e) @ v) * (coef / l)), and the row max and
+//       l written for the backward
+// Keys at or past N are masked to -inf; m is the exact row max (a running
+// max would round bf16(w) or bf16(e) against another max than the TPU
+// kernels).
+//
+// Layout (see attention_natural.cu's header for the design):
+//  - q, K and V come straight from the [B, N, H * 64] views by 16-byte
+//    cp.async at their row strides; rows at or past N are zero-filled by
+//    cp.async's source size, and nothing is read for them.  Rows are padded
+//    by 8 bf16 (144 B), so each 8-row fragment load hits 8 distinct 16-byte
+//    bank groups.  V stays row-major: the B operand of w @ V comes from
+//    ldmatrix.x4.trans.
+//  - A warp owns 16 query rows over a chunk of 128 keys (16 n-tiles x 4
+//    fp32 = 64 score registers a thread); W = nk / 128 warps share a row
+//    group and combine the row max, the row sum and their partial outputs
+//    through shared memory in a fixed warp order, so no row's arithmetic
+//    depends on the grid.
+//  - A CTA takes its tiles in turn over K and V loaded once where they stay
+//    resident, the next round's q in flight behind the current softmax.
+//    The train grid instead cuts the flattened (batch, head group, tile)
+//    rounds into equal spans, one a CTA, and reloads K and V where a span
+//    crosses into the next (batch, head group).
+//  - The row groups share only K and V: where those stay resident, a row
+//    group's warps wait for each other alone, on a named barrier.
+//  The launch plan is ops/attention.py:_natural_plan (field for field).
+#pragma once
+
+#include <math.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "fdiv_rn.cuh"
+
+// The launch plan of ops/attention.py:_natural_plan (field for field).
+struct NaturalPlan {
+  int N, nk, hq, hkv;
+  int rows;     // query rows a round covers per head: 16 x row groups
+  int W;        // warps sharing a row group, each over 128 keys (nk = 128 W)
+  int heads;    // q-heads a CTA covers: 1 (B15) or G (B16)
+  int hc;       // q-heads taken at once
+  int head_rounds;  // heads / hc, rounded up
+  int row_rounds;   // row tiles of `rows` a CTA takes in turn
+  int resident;  // K and V in shared memory together
+  int k_off, v_off, q_off, red_off, part_off;  // shared-memory byte offsets
+  int span, total;  // train: rounds a CTA, of `total` (batch, y, round); else 0
+  long long q_row, k_row, v_row;                // row strides (elements)
+  float scale;  // natural: 1 / sqrt(D); train: bf16(scale * log2 e)
+};
+
+// What the train epilogue adds: the dropout and the statistics.
+struct TrainRows {
+  float* stats;  // [B, hq, N, 2] fp32: row max, row sum of exp2
+  uint32_t seed, thr;
+  int np;        // round_up(N, 8): the hash lattice
+  int dropout;   // 0 or 1
+  float coef;    // 1 / (1 - rate)
+};
+
+namespace {
+
+constexpr int D = 64;          // head dim; the wrappers check
+constexpr int STR = D + 8;     // shared-memory row stride of q, K and V (bf16)
+constexpr int NT = 16;         // n-tiles of 8 keys a warp holds: 128 keys
+constexpr int MAX_WARPS = 15;  // warps a CTA
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// bf16(x * s) of both halves of a bf16 pair, s a bf16 pair: one rounding of
+// the exact product, as bf16(fp32(x) * fp32(s)).
+__device__ __forceinline__ uint32_t mul_pair(uint32_t x, __nv_bfloat162 s) {
+  __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&x), s);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t r[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t r[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// `bytes` (0..16) from src into 16 bytes of shared memory, the rest zero.
+__device__ __forceinline__ void copy16(unsigned dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 16 bytes from src into shared memory, or 16 zero bytes (nothing read).
+__device__ __forceinline__ void copy16(unsigned dst, const void* src, bool valid) {
+  copy16(dst, src, valid ? 16 : 0);
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Rows [0, n) of one head into shared memory at stride STR: row i from
+// src + i * stride, zero where i >= N.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long stride, int n, int N) {
+  const unsigned base = smem_u32(dst);
+  for (int c = threadIdx.x; c < n * 8; c += blockDim.x) {
+    const int i = c >> 3, part = c & 7;
+    const bool ok = i < N;
+    copy16(base + (i * STR + part * 8) * 2, ok ? src + i * stride + part * 8 : src, ok);
+  }
+}
+
+// The counter-hash dropout of the JAX package (lowbias32).
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The (batch, head) stream with its half of the score hash's first
+// xor-shift applied: (s ^ i) >> 16 = (s >> 16) ^ (i >> 16), so kept() does
+// one shift and one three-way xor for it.
+__device__ __forceinline__ uint32_t stream_of(int b, int h, uint32_t seed) {
+  const uint32_t s = hash_u32((uint32_t)b * 0x9E3779B9u + (uint32_t)h + seed * 0x85EBCA6Bu);
+  return s ^ (s >> 16);
+}
+
+// keep = h32(stream ^ (row * np + col)) <= thr, `stream` from stream_of().
+__device__ __forceinline__ bool kept(uint32_t stream, int row, int col, int np, uint32_t thr) {
+  const uint32_t i = (uint32_t)(row * np + col);
+  uint32_t x = stream ^ i ^ (i >> 16);
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x <= thr;
+}
+
+// The A fragments of w @ V from e (s[nt][0..1] row gid, [2..3] row
+// gid + 8) and the row sums l0, l1: w = bf16(e / l), 16 keys a k-step.
+template <bool EXACT>
+__device__ __forceinline__ void weights(const float (&s)[NT][4], uint32_t (&wa)[NT / 2][4],
+                                        float l0, float l1) {
+  const float y0 = reciprocal(l0), y1 = reciprocal(l1);
+  auto w = [&](float e, int row) {
+    const float l = row ? l1 : l0, y = row ? y1 : y0;
+    return EXACT ? quotient(e, l, y) : markstein(e, l, y);
+  };
+#pragma unroll
+  for (int t = 0; t < NT / 2; ++t) {
+    wa[t][0] = pack2(w(s[2 * t][0], 0), w(s[2 * t][1], 0));
+    wa[t][1] = pack2(w(s[2 * t][2], 1), w(s[2 * t][3], 1));
+    wa[t][2] = pack2(w(s[2 * t + 1][0], 0), w(s[2 * t + 1][1], 0));
+    wa[t][3] = pack2(w(s[2 * t + 1][2], 1), w(s[2 * t + 1][3], 1));
+  }
+}
+
+// One CTA: blockIdx.x the group of row tiles, blockIdx.y the q-head (B15,
+// B10) or the kv-head (B16), blockIdx.z the batch.  Warp w: key chunk
+// j = w % W of the pair w / W, which is row group pair % R of head slot
+// pair / R.  `tr` is read only by the train epilogue; DROP (train only):
+// the dropout is on.
+template <bool TRAIN, bool DROP>
+__device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__ q,
+                                               const __nv_bfloat16* __restrict__ k,
+                                               const __nv_bfloat16* __restrict__ v,
+                                               __nv_bfloat16* __restrict__ out, const NaturalPlan& p,
+                                               const TrainRows& tr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + p.q_off);
+  float* red = reinterpret_cast<float*>(smem + p.red_off);     // [2][pairs][W][16]
+  float4* part = reinterpret_cast<float4*>(smem + p.part_off);  // [pairs][W][8][32]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int W = p.W, N = p.N;
+  const int j = warp % W, pair = warp / W, pairs = blockDim.x / 32 / W;
+  const int R = p.rows / 16, r = pair % R, hs = pair / R;
+  const int key0 = j * NT * 8;
+  float* red_max = red + (pair * W) * 16;
+  float* red_sum = red + ((pairs + pair) * W) * 16;
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale);  // exact: a bf16 value
+
+  // Round rd of the CTA: batch b, q-heads head0 + [0, heads), row tile
+  // `tile`, head slots hr * hc + [0, hc).  natural: the grid's own (x, y,
+  // batch), tile x * row_rounds + rd / head_rounds; train: round
+  // blockIdx.x * span + rd of the flattened (batch, y, tile, hr) list, so
+  // that the rounds spread evenly over the SMs.
+  struct Round {
+    int b, head0, tile, hr;
+  };
+  const int per_y = p.row_rounds * p.head_rounds;  // rounds of one (batch, y)
+  const int first = TRAIN ? blockIdx.x * p.span : 0;
+  const int rounds = TRAIN ? min(p.span, p.total - first) : per_y;
+  auto round_of = [&](int rd) {
+    Round o;
+    if (TRAIN) {
+      const int f = first + rd, by = f / per_y, rr = f - by * per_y, ny = p.hq / p.heads;
+      o.b = by / ny;
+      o.head0 = (by - o.b * ny) * p.heads;
+      o.tile = rr / p.head_rounds;
+      o.hr = rr - o.tile * p.head_rounds;
+    } else {
+      o.b = blockIdx.z;
+      o.head0 = blockIdx.y * p.heads;
+      o.tile = blockIdx.x * p.row_rounds + rd / p.head_rounds;
+      o.hr = rd % p.head_rounds;
+    }
+    return o;
+  };
+  auto load_kv = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long stride, const Round& o) {
+    const int kvh = o.head0 / (p.hq / p.hkv);
+    load_rows(dst, src + (long long)o.b * N * stride + kvh * D, stride, p.nk, N);
+  };
+  auto load_q = [&](int rd) {  // the pair's 16 rows, by its own warps; zero past N or the heads
+    const Round o = round_of(rd);
+    const unsigned base = smem_u32(qs + pair * 16 * STR);
+    const int slot = o.hr * p.hc + hs;
+    for (int c = j * 32 + lane; c < 128; c += W * 32) {
+      const int i = c >> 3, part8 = c & 7;
+      const int row = o.tile * p.rows + r * 16 + i;
+      const bool ok = slot < p.heads && row < N;
+      const __nv_bfloat16* src = q + ((long long)o.b * N + (ok ? row : 0)) * p.q_row +
+                                 (o.head0 + (ok ? slot : 0)) * D + part8 * 8;
+      copy16(base + (i * STR + part8 * 8) * 2, src, ok);
+    }
+  };
+  // The pairs share only K and V.  Where those stay resident for the CTA's
+  // life and the partial outputs have a buffer of their own, a pair's
+  // warps wait for each other alone (a named barrier a pair) once K and V
+  // have landed (round 0), so one pair's softmax overlaps another's
+  // products; otherwise the whole CTA waits together.
+  const bool whole = !p.resident || (W > 1 && p.part_off == p.k_off);
+  auto sync = [&](bool cta) {
+    if (cta)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + pair), "r"(W * 32) : "memory");
+  };
+  // cp.async groups: [K, q of round 0] then [V] where K and V are resident
+  // together (train: [K], [V] again where the batch or y changes); else
+  // [K (+ q of round 0)] each round and [V] after the scores.  The next
+  // round's q is one more group, issued once the pair's scores are done
+  // with its q rows.
+  if (p.resident) {
+    const Round o = round_of(0);
+    load_kv(ks, k, p.k_row, o);
+    load_q(0);
+    commit();
+    load_kv(vs, v, p.v_row, o);  // lands while the scores run
+    commit();
+  }
+  for (int rd = 0; rd < rounds; ++rd) {
+    const Round cur = round_of(rd);
+    bool fresh = rd == 0;  // K and V land in this round
+    if (TRAIN && p.resident && rd > 0) {
+      const Round before = round_of(rd - 1);
+      if (before.b != cur.b || before.head0 != cur.head0) {
+        fresh = true;
+        __syncthreads();  // every pair is done with the last K and V
+        load_kv(ks, k, p.k_row, cur);
+        commit();
+        load_kv(vs, v, p.v_row, cur);
+        commit();
+      }
+    }
+    if (!p.resident) {
+      load_kv(ks, k, p.k_row, cur);
+      if (rd == 0) load_q(0);
+      commit();
+    }
+    if (p.resident && fresh)
+      wait_copies<1>();
+    else
+      wait_copies<0>();
+    sync(whole || fresh);
+
+    // s over the warp's keys: s[nt][0..1] row gid, s[nt][2..3] row gid + 8,
+    // keys key0 + nt*8 + tig*2 + {0, 1}.  natural: (q @ k^T) * scale; train:
+    // q' @ k^T, q' = bf16(q * scale2).  The depth (kk) outermost: one q
+    // fragment live at a time.
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t qa[4];
+      ldsm4(qa, smem_u32(qs + (pair * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 +
+                         (lane >> 4) * 8));
+      if (TRAIN) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = mul_pair(qa[i], scale2);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t kb[4];
+        ldsm4(kb, smem_u32(ks + (key0 + nt * 8 + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 +
+                           ((lane >> 3) & 1) * 8));
+        mma_bf16(s[nt], qa, kb[0], kb[1]);
+        mma_bf16(s[nt + 1], qa, kb[2], kb[3]);
+      }
+    }
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (!TRAIN) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = __fmul_rn(s[nt][i], p.scale);
+      }
+      if (key0 + nt * 8 + 8 > N) {  // the tile reaches past N
+        const int col = key0 + nt * 8 + tig * 2;
+        if (col >= N) s[nt][0] = s[nt][2] = -INFINITY;
+        if (col + 1 >= N) s[nt][1] = s[nt][3] = -INFINITY;
+      }
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    if (tig == 0) {
+      red_max[j * 16 + gid] = m0;
+      red_max[j * 16 + gid + 8] = m1;
+    }
+    sync(whole);  // the pair's warps (or every warp: K's buffer) are done with K and q
+    if (!p.resident) {
+      load_kv(vs, v, p.v_row, cur);  // V takes K's buffer
+      commit();
+    }
+    if (rd + 1 < rounds) load_q(rd + 1);
+    commit();
+    m0 = red_max[gid];
+    m1 = red_max[gid + 8];
+    for (int jj = 1; jj < W; ++jj) {
+      m0 = fmaxf(m0, red_max[jj * 16 + gid]);
+      m1 = fmaxf(m1, red_max[jj * 16 + gid + 8]);
+    }
+
+    // e = expf(s - m) (train: exp2f) in place, and the row sums in a fixed
+    // order.
+    float l0 = 0.f, l1 = 0.f;
+    bool rare = false;  // a score below 2^-100: the exact divide's slow form
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (TRAIN) {
+        s[nt][0] = exp2f(__fsub_rn(s[nt][0], m0));
+        s[nt][1] = exp2f(__fsub_rn(s[nt][1], m0));
+        s[nt][2] = exp2f(__fsub_rn(s[nt][2], m1));
+        s[nt][3] = exp2f(__fsub_rn(s[nt][3], m1));
+      } else {
+        s[nt][0] = expf(__fsub_rn(s[nt][0], m0));
+        s[nt][1] = expf(__fsub_rn(s[nt][1], m0));
+        s[nt][2] = expf(__fsub_rn(s[nt][2], m1));
+        s[nt][3] = expf(__fsub_rn(s[nt][3], m1));
+        rare |= tiny(s[nt][0]) | tiny(s[nt][1]) | tiny(s[nt][2]) | tiny(s[nt][3]);
+      }
+      l0 = __fadd_rn(__fadd_rn(l0, s[nt][0]), s[nt][1]);
+      l1 = __fadd_rn(__fadd_rn(l1, s[nt][2]), s[nt][3]);
+    }
+    if (!TRAIN) rare = __any_sync(0xffffffffu, rare);
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // a + b == b + a: every lane of a quad agrees
+      l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, o));
+      l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, o));
+    }
+    if (tig == 0) {
+      red_sum[j * 16 + gid] = l0;
+      red_sum[j * 16 + gid + 8] = l1;
+    }
+    wait_copies<1>();  // V; the next round's q may still be landing
+    sync(whole || fresh);
+    l0 = red_sum[gid];
+    l1 = red_sum[gid + 8];
+    for (int jj = 1; jj < W; ++jj) {
+      l0 = __fadd_rn(l0, red_sum[jj * 16 + gid]);
+      l1 = __fadd_rn(l1, red_sum[jj * 16 + gid + 8]);
+    }
+
+    const int slot = cur.hr * p.hc + hs;
+    const int ra = cur.tile * p.rows + r * 16 + gid;
+    const int rb = ra + 8;
+    const bool store = slot < p.heads;
+
+    // train: the statistics of the row and its output factor coef / l
+    // (correctly rounded), once a row, here so that m and l die early.
+    float f0 = 1.f, f1 = 1.f;
+    if (TRAIN) {
+      if (j == 0 && tig == 0 && store) {
+        float* sp = tr.stats + ((long long)cur.b * p.hq + cur.head0 + slot) * N * 2;
+        if (ra < N) { sp[ra * 2] = m0; sp[ra * 2 + 1] = l0; }
+        if (rb < N) { sp[rb * 2] = m1; sp[rb * 2 + 1] = l1; }
+      }
+      f0 = markstein(tr.coef, l0, reciprocal(l0));
+      f1 = markstein(tr.coef, l1, reciprocal(l1));
+    }
+
+    // The A fragments of the value product, 16 keys a k-step.  natural:
+    // w = bf16(e / l), branch-free unless a score of the warp is below
+    // 2^-100.  train: bf16(e) after the dropout zeroing (l is summed).
+    uint32_t wa[NT / 2][4];
+    if (TRAIN) {
+      if (DROP && ra - gid < N) {  // the warp holds a row before N
+        const uint32_t st = stream_of(cur.b, cur.head0 + slot, tr.seed);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = key0 + nt * 8 + tig * 2;
+          if (key0 + nt * 8 >= N) break;  // e is 0 past N
+          if (!kept(st, ra, col, tr.np, tr.thr)) s[nt][0] = 0.f;
+          if (!kept(st, ra, col + 1, tr.np, tr.thr)) s[nt][1] = 0.f;
+          if (!kept(st, rb, col, tr.np, tr.thr)) s[nt][2] = 0.f;
+          if (!kept(st, rb, col + 1, tr.np, tr.thr)) s[nt][3] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) {
+        wa[t][0] = pack2(s[2 * t][0], s[2 * t][1]);
+        wa[t][1] = pack2(s[2 * t][2], s[2 * t][3]);
+        wa[t][2] = pack2(s[2 * t + 1][0], s[2 * t + 1][1]);
+        wa[t][3] = pack2(s[2 * t + 1][2], s[2 * t + 1][3]);
+      }
+    } else if (rare) {
+      weights<true>(s, wa, l0, l1);
+    } else {
+      weights<false>(s, wa, l0, l1);
+    }
+    float acc[8][4];
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t) {
+      const int key = key0 + t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int dt = 0; dt < 8; dt += 2) {
+        uint32_t vb[4];
+        ldsm4t(vb, smem_u32(vs + key * STR + (dt + (lane >> 4)) * 8));
+        mma_bf16(acc[dt], wa[t], vb[0], vb[1]);
+        mma_bf16(acc[dt + 1], wa[t], vb[2], vb[3]);
+      }
+    }
+
+    auto out_pair = [&](float x, float y, float f) {
+      return TRAIN ? pack2(__fmul_rn(x, f), __fmul_rn(y, f)) : pack2(x, y);
+    };
+
+    // The W partial outputs added in warp order, rounded once.
+    __nv_bfloat16* dst = out + (long long)cur.b * N * p.hq * D + (cur.head0 + slot) * D + tig * 2;
+    const long long ostr = (long long)p.hq * D;
+    if (W == 1) {
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        if (store && ra < N)
+          *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = out_pair(acc[dt][0], acc[dt][1], f0);
+        if (store && rb < N)
+          *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = out_pair(acc[dt][2], acc[dt][3], f1);
+      }
+    } else {
+      float4* mine = part + (pair * W + j) * 8 * 32 + lane;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt)
+        mine[dt * 32] = make_float4(acc[dt][0], acc[dt][1], acc[dt][2], acc[dt][3]);
+      sync(whole);
+      const float4* all = part + pair * W * 8 * 32 + lane;
+      for (int dt = j; dt < 8; dt += W) {
+        float4 a = all[dt * 32];
+        for (int jj = 1; jj < W; ++jj) {
+          const float4 c = all[(jj * 8 + dt) * 32];
+          a.x = __fadd_rn(a.x, c.x);
+          a.y = __fadd_rn(a.y, c.y);
+          a.z = __fadd_rn(a.z, c.z);
+          a.w = __fadd_rn(a.w, c.w);
+        }
+        if (store && ra < N) *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = out_pair(a.x, a.y, f0);
+        if (store && rb < N) *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = out_pair(a.z, a.w, f1);
+      }
+    }
+    if (rd + 1 < rounds) sync(whole);  // K/V, the sums and partials are reused
+  }
+}
+
+}  // namespace

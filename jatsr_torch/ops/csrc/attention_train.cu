@@ -10,7 +10,7 @@
 //             m    = rowmax(s); e = exp2f(s - m) fp32; l = sum(e) (before
 //                    the dropout zeroing); e = 0 where dropped
 //             o    = bf16((bf16(e) @ v) fp32 * (coef / l)), coef = 1/(1-rate)
-//   backward  p    = exp2f(s - m) / l; kc = keep ? coef : 0
+//   backward  p    = exp2f(s - m) / l (correctly rounded); kc = keep ? coef : 0
 //             dw   = (do v^T) kc; wd = p kc
 //             delta= rowsum(do * o) fp32 from the stored bf16 do and o
 //             ds   = bf16(p (dw - delta) scale)
@@ -27,529 +27,498 @@
 // 989 TFLOP/s bf16 peak) against ~59 MB of compulsory traffic (q, k, v in,
 // o out: 18 us at 3.35 TB/s); the backward's five products are 42.6 GFLOP
 // (43 us) against ~119 MB (q, k, v, o, do in, dq, dk, dv out: 35 us).  Both
-// sit near the ridge; the 67 M exp2 and two hashes per score add SFU and
-// integer work beside the tensor cores.
+// sit near the ridge; the exp2, the divide and the hash of each of the
+// 67 M scores add SFU and integer work beside the tensor cores.
 //
 // Design (mma.sync m16n8k16 bf16 with fp32 accumulation; wgmma and TMA are
 // left to a later version).  The TPU kernel keeps a batch element's whole
 // [Np, Np] score tile per head in VMEM; a CTA cannot, so:
-//   forward   one CTA of 4 warps per (64-query tile, q-head, batch), each
-//             warp 16 rows.  The kv-head's whole K and V sit in shared memory
-//             (cp.async, zero rows past N).  The exact row max (the rounding
-//             of bf16(e) depends on it, so no online softmax) takes a first
-//             pass over the keys; the second forms e, l, the dropout and
-//             bf16(e) @ v (V read with ldmatrix.trans).  It also writes the
-//             row max and l ([B, Hq, N, 2] fp32) for the backward.
+//   forward   attention_rows.cuh's body (B15's and B16's) with the train
+//             epilogue, on B16's layout: the G q-heads side by side over
+//             one copy of K and V in shared memory (15 warps at v3), and the
+//             (batch, kv-head, 16-row tile) rounds cut into equal spans, one
+//             a CTA (2464 rounds in spans of 19 over 130 CTAs at B 28), K
+//             and V reloaded where a span crosses into the next (batch,
+//             kv-head).  A warp holds 16 rows x 128 keys of scores in
+//             registers, so q' k^T runs once; the row max and l are combined
+//             across the W = nk / 128 warps of a row group in warp order;
+//             exp2f and the keep bit once a score (no hash past N); bf16(e)
+//             @ V over the warp's chunk, the W partial outputs added in warp
+//             order.  It writes the row max and l ([B, Hq, N, 2] fp32) for
+//             the backward.  The plan is ops/attention.py:_natural_plan
+//             (grouped, balanced).
 //   backward  two launches, no atomics, so two runs give bit-equal grads:
-//     1. dq: one CTA per (64-query tile, q-head, batch) over all key blocks,
-//        K and V in shared memory; it also writes delta for launch 2.
-//     2. dk, dv: one CTA per (64-key block, kv-head, batch); each warp owns
-//        16 keys and the CTA walks the G query heads and every 64-query tile
-//        (q, do, m, l, delta staged in shared memory), computing the
-//        transposed tiles s^T and (do v^T)^T so that wd^T and ds^T are
-//        already A fragments; dk and dv accumulate in registers over all
-//        G heads and are rounded once.
-// Query rows and keys past N are zero in shared memory and forced to p = 0.
+//     1. rows: per (batch, q-head, row) the float4 (m, l, rcp_rn(l), delta)
+//        into a [B, Hq, T * 64] scratch (T = 64-row tiles a head; padded
+//        rows (0, 1, 1, 0)), so that the main launch reads them by aligned
+//        16-byte copies.
+//     2. main: a thread-block cluster per (kv-head, batch), one CTA per
+//        128-key chunk (W = nk / 128 CTAs, 3 at N = 345).  A CTA of 16
+//        warps keeps its chunk's K and V in shared memory; warp w owns the
+//        16 keys (w % 8) and its dk and dv [16, 64] in fp32 registers; its
+//        two groups of 8 warps take the G heads' 64-row tiles two at a
+//        time (q, do and the row statistics double-buffered by cp.async,
+//        the next pair in flight behind the math).  On each tile a warp
+//        forms s^T = k q'^T and dwd^T = v do^T once, in 16-row slices, then
+//        p, wd and ds once a score (one exp2f, one inline correctly rounded
+//        divide from fdiv_rn.cuh, one hash), and dv += bf16(wd)^T do,
+//        dk += ds^T q at once from registers.  ds^T goes to shared memory;
+//        the tile's partial dq = ds @ K_chunk follows (each warp 16 rows x
+//        32 columns), and the cluster adds its CTAs' partials through
+//        distributed shared memory in rank order, rounds once and stores.
+//        dk and dv: the two groups' sums added in group order, rounded once.
+// Each of the five products runs once: at most 5 x 2 x B x Hq x nk x
+// (T * 64) x 64 FLOP (52.9 GFLOP at the v3 shape), 45.2 issued there as
+// 16-row slices and 16-key warps wholly past N skip theirs; the forward's
+// two 2 x 2 x B x Hq x round_up(N, 16) x nk x 64 (19.4 GFLOP).  The launch plan is
+// ops/attention_train.py:_train_plan, checked on the CPU for every N <= 768.
+//
+// Registers (-Xptxas -v, sm_90a; chip_smoke.py's [build] line prints them on
+// every run): the backward 128 a thread, no spills; the forward 128 (its
+// 15-warp CTA caps them), spilling 92 B with dropout and 16 B without.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "attention_rows.cuh"
+
+namespace cg = cooperative_groups;
+
+extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+// The backward's launch plan, ops/attention_train.py:_train_plan (field for
+// field), and its per-call arguments.
+struct TrainBwdPlan {
+  int N, hq, hkv, G;
+  int T;      // 64-row tiles a head
+  int W;      // CTAs of a cluster: 128-key chunks (nk = 128 W)
+  int steps;  // tile pairs a CTA takes: ceil(G T / 2)
+  int k_off, v_off, tile_off, info_off, ds_off, part_off;  // shared-memory bytes
+  int np, dropout;
+  uint32_t seed, thr;
+  float scale2, scale, coef;
+};
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+constexpr int BWD_WARPS = 16;  // two groups of 8; warp w owns keys 16 (w % 8) ..
+constexpr int KEYS = 128;      // keys of a CTA
+constexpr int TR = 64;         // rows of a tile
+constexpr int PSTR = D + 8;    // fp32 row stride of the partial dq tiles
+constexpr int SR = 16;         // query rows of a backward slice
+constexpr int NS = SR / 8;     // n-tiles of a slice's scores
 
-constexpr int D = 64;      // head dim; the wrapper checks
-constexpr int BQ = 64;     // query rows per CTA (forward, dq)
-constexpr int BKEY = 64;   // keys per block
-constexpr int KSTR = D + 8;  // smem row stride (bf16): conflict-free fragment loads
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+template <bool DROP>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1) train_fwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const TrainRows tr) {
+  rows_attention<true, DROP>(q, k, v, out, p, tr);
 }
 
-// bf16(x * s) of both halves of a bf16 pair.
-__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float s) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  return pack2(__fmul_rn(__bfloat162float(v.x), s), __fmul_rn(__bfloat162float(v.y), s));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t stream_of(int b, int h, uint32_t seed) {
-  return hash_u32((uint32_t)b * 0x9E3779B9u + (uint32_t)h + seed * 0x85EBCA6Bu);
-}
-
-__device__ __forceinline__ bool kept(uint32_t stream, int row, int col, int np, uint32_t thr) {
-  return hash_u32(stream ^ (uint32_t)(row * np + col)) <= thr;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;  // 0: no bytes read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-// Rows r0 .. r0 + rows - 1 of one head (D columns at `src`, row stride `gstr`
-// elements) into smem [rows][KSTR]; rows >= n are zero.
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int gstr, int r0, int rows,
-                                          int n) {
-  for (int c = threadIdx.x; c < rows * (D / 8); c += blockDim.x) {
-    const int i = c / (D / 8), ch = c % (D / 8), r = r0 + i;
-    const bool ok = r < n;
-    cp16(dst + i * KSTR + ch * 8, ok ? src + (size_t)r * gstr + ch * 8 : src, ok);
-  }
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// A fragments of a warp's 16 rows (r0 ..) x 64 columns straight from global
-// memory (row stride `gstr`), rows >= n zero.
-__device__ __forceinline__ void load_a_global(uint32_t a[4][4], const bf16* base, int gstr, int r0,
-                                              int n, int gid, int tig) {
-  const int ra = r0 + gid, rb = ra + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    a[kk][0] = ra < n ? ld32(base + (size_t)ra * gstr + c) : 0u;
-    a[kk][1] = rb < n ? ld32(base + (size_t)rb * gstr + c) : 0u;
-    a[kk][2] = ra < n ? ld32(base + (size_t)ra * gstr + c + 8) : 0u;
-    a[kk][3] = rb < n ? ld32(base + (size_t)rb * gstr + c + 8) : 0u;
-  }
-}
-
-// A fragment of rows r0 .., columns k0 .. k0 + 15 of a smem tile [.][KSTR].
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int r0, int k0, int gid,
-                                       int tig) {
-  const bf16* p = s + (r0 + gid) * KSTR + k0 + tig * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * KSTR);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * KSTR + 8);
-}
-
-// B fragments of B[k][n] = T[n][k] for n0 .. n0 + 7, k0 .. k0 + 15, from a
-// row-major smem tile T [.][KSTR] (k contiguous).
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1, const bf16* t, int n0, int k0,
-                                          int gid, int tig) {
-  const bf16* p = t + (n0 + gid) * KSTR + k0 + tig * 2;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragments of B[k][n] = T[k][n] for k0 .. k0 + 15 and n0 .. n0 + 15 (two
-// n-tiles: r[0..1] the first, r[2..3] the second), from a row-major smem tile
-// T [.][KSTR] (n contiguous), transposed on load.
-__device__ __forceinline__ void load_b_kn(uint32_t r[4], const bf16* t, int k0, int n0, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  const bf16* p = t + (k0 + ri + (mi & 1) * 8) * KSTR + n0 + (mi >> 1) * 8;
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// s[nt] = A (16 rows x 64) @ T^T for the 64 rows of T starting at n0.
-__device__ __forceinline__ void rows_by_tile(float s[8][4], const uint32_t a[4][4], const bf16* t,
-                                             int n0, int gid, int tig) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t b0, b1;
-      load_b_nk(b0, b1, t, n0 + nt * 8, kk * 16, gid, tig);
-      mma_bf16(s[nt], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc (16 x 64) += P (16 x 64, C-fragment floats rounded to bf16) @ T, T the
-// 64 rows of a row-major smem tile starting at k0.
-__device__ __forceinline__ void tile_by_rows(float acc[8][4], const float p[8][4], const bf16* t,
-                                             int k0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack2(p[2 * kk][0], p[2 * kk][1]), pack2(p[2 * kk][2], p[2 * kk][3]),
-                            pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t r[4];
-      load_b_kn(r, t, k0 + kk * 16, np * 16, lane);
-      mma_bf16(acc[2 * np], pa, r[0], r[1]);
-      mma_bf16(acc[2 * np + 1], pa, r[2], r[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8x4(float a[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-}
-
-// Store rows ra, ra + 8 of a 16 x 64 fp32 tile as bf16 (rows >= n skipped).
-__device__ __forceinline__ void store_rows(bf16* base, int gstr, int ra, int n, const float acc[8][4],
-                                           float r0, float r1, int tig) {
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + tig * 2;
-    if (ra < n)
-      *reinterpret_cast<uint32_t*>(base + (size_t)ra * gstr + c) =
-          pack2(acc[dt][0] * r0, acc[dt][1] * r0);
-    if (ra + 8 < n)
-      *reinterpret_cast<uint32_t*>(base + (size_t)(ra + 8) * gstr + c) =
-          pack2(acc[dt][2] * r1, acc[dt][3] * r1);
-  }
-}
-
-struct Params {
-  const bf16 *q, *k, *v, *o, *dout;
-  bf16 *out, *dq, *dk, *dv;
-  float *stats, *delta;
-  int N, hq, hkv, nk, np;
-  uint32_t seed, thr;
-  float scale2, scale, coef;
-  int dropout;
-};
-
-__global__ void __launch_bounds__(128) attn_fwd_kernel(Params P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [nk][KSTR]
-  bf16* vs = ks + P.nk * KSTR;               // [nk][KSTR]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (P.hq / P.hkv), qd = P.hq * D, kd = P.hkv * D;
-  load_rows(ks, P.k + (size_t)b * P.N * kd + kvh * D, kd, 0, P.nk, P.N);
-  load_rows(vs, P.v + (size_t)b * P.N * kd + kvh * D, kd, 0, P.nk, P.N);
-  asm volatile("cp.async.commit_group;\n" ::);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int ra = qt * BQ + warp * 16 + gid, rb = ra + 8;
-  uint32_t qa[4][4];
-  load_a_global(qa, P.q + (size_t)b * P.N * qd + h * D, qd, qt * BQ + warp * 16, P.N, gid, tig);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], P.scale2);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-
-  const int nblk = P.nk / BKEY;
-  float m0 = -INFINITY, m1 = -INFINITY;
-  for (int jb = 0; jb < nblk; ++jb) {  // pass 1: exact row max
-    float s[8][4];
-    rows_by_tile(s, qa, ks, jb * BKEY, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = jb * BKEY + nt * 8 + tig * 2;
-      if (col < P.N) { m0 = fmaxf(m0, s[nt][0]); m1 = fmaxf(m1, s[nt][2]); }
-      if (col + 1 < P.N) { m0 = fmaxf(m0, s[nt][1]); m1 = fmaxf(m1, s[nt][3]); }
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-
-  const uint32_t st = stream_of(b, h, P.seed);
-  float acc[8][4];
-  zero8x4(acc);
-  float l0 = 0.f, l1 = 0.f;
-  for (int jb = 0; jb < nblk; ++jb) {  // pass 2: e, l, dropout, bf16(e) @ v
-    float s[8][4];
-    rows_by_tile(s, qa, ks, jb * BKEY, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jb * BKEY + nt * 8 + tig * 2 + (e & 1);
-        const float x = col < P.N ? exp2f(s[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
-        if (e < 2) l0 += x; else l1 += x;
-        s[nt][e] = (P.dropout && !kept(st, e < 2 ? ra : rb, col, P.np, P.thr)) ? 0.f : x;
-      }
-    }
-    tile_by_rows(acc, s, vs, jb * BKEY, lane);
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  store_rows(P.out + (size_t)b * P.N * qd + h * D, qd, ra, P.N, acc, P.coef / l0, P.coef / l1,
-             tig);
-  if (tig == 0) {
-    float* sp = P.stats + ((size_t)b * P.hq + h) * P.N * 2;
-    if (ra < P.N) { sp[ra * 2] = m0; sp[ra * 2 + 1] = l0; }
-    if (rb < P.N) { sp[rb * 2] = m1; sp[rb * 2 + 1] = l1; }
-  }
-}
-
-// p, dw and the dropout factor of one score: returns ds (unrounded) and sets
-// wd; `valid` false forces p = 0.
-__device__ __forceinline__ float grad_of_score(const Params& P, float s, float dwd, float m, float l,
-                                               float delta, bool valid, uint32_t st, int row,
-                                               int col, float& wd) {
-  const float p = valid ? __fdiv_rn(exp2f(s - m), l) : 0.f;
-  float dw = dwd;
-  wd = p;
-  if (P.dropout) {
-    const float kc = kept(st, row, col, P.np, P.thr) ? P.coef : 0.f;
-    dw = __fmul_rn(dwd, kc);
-    wd = __fmul_rn(p, kc);
-  }
-  return __fmul_rn(__fmul_rn(p, __fsub_rn(dw, delta)), P.scale);
-}
-
-__global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Params P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [nk][KSTR]
-  bf16* vs = ks + P.nk * KSTR;               // [nk][KSTR]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (P.hq / P.hkv), qd = P.hq * D, kd = P.hkv * D;
-  load_rows(ks, P.k + (size_t)b * P.N * kd + kvh * D, kd, 0, P.nk, P.N);
-  load_rows(vs, P.v + (size_t)b * P.N * kd + kvh * D, kd, 0, P.nk, P.N);
-  asm volatile("cp.async.commit_group;\n" ::);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int r0 = qt * BQ + warp * 16, ra = r0 + gid, rb = ra + 8;
-  const size_t head = (size_t)b * P.N * qd + h * D;
-  uint32_t qa[4][4], da[4][4], oa[4][4];
-  load_a_global(qa, P.q + head, qd, r0, P.N, gid, tig);
-  load_a_global(da, P.dout + head, qd, r0, P.N, gid, tig);
-  load_a_global(oa, P.o + head, qd, r0, P.N, gid, tig);
-  float d0 = 0.f, d1 = 0.f;  // delta of rows ra, rb
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+// Launch 1 of the backward: eight threads a (batch, row < T * 64, q-head),
+// the heads fastest, so that a warp reads contiguous bytes of do and o.
+__global__ void __launch_bounds__(256) bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
+                                                       const __nv_bfloat16* __restrict__ dout,
+                                                       const float* __restrict__ stats,
+                                                       float4* __restrict__ info, int N, int hq,
+                                                       int rows, int total) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;  // total < 2^31: the wrapper checks
+  const int part = g & 7, rest = g >> 3;
+  const int h = rest % hq, br = rest / hq;
+  const int row = br % rows, b = br / rows;
+  const int bh = b * hq + h;
+  const bool ok = g < total && row < N;
+  float t = 0.f;
+  if (ok) {
+    const long long at = ((long long)b * N + row) * hq * D + h * D + part * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(dout + at);
+    const uint4 y = *reinterpret_cast<const uint4*>(o + at);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&da[kk][i]);
-      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&oa[kk][i]);
-      const float t = __fadd_rn(__fmul_rn(__bfloat162float(x.x), __bfloat162float(y.x)),
-                                __fmul_rn(__bfloat162float(x.y), __bfloat162float(y.y)));
-      if (i == 0 || i == 2) d0 += t; else d1 += t;
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&xs[i]);
+      const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(&ys[i]);
+      t = __fadd_rn(t, __fmul_rn(__bfloat162float(a.x), __bfloat162float(c.x)));
+      t = __fadd_rn(t, __fmul_rn(__bfloat162float(a.y), __bfloat162float(c.y)));
     }
-    for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], P.scale2);
   }
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    d0 += __shfl_xor_sync(0xffffffffu, d0, o);
-    d1 += __shfl_xor_sync(0xffffffffu, d1, o);
-  }
-  const size_t row_base = ((size_t)b * P.hq + h) * P.N;
-  if (tig == 0) {
-    if (ra < P.N) P.delta[row_base + ra] = d0;
-    if (rb < P.N) P.delta[row_base + rb] = d1;
-  }
-  const float m0 = ra < P.N ? P.stats[(row_base + ra) * 2] : 0.f;
-  const float l0 = ra < P.N ? P.stats[(row_base + ra) * 2 + 1] : 1.f;
-  const float m1 = rb < P.N ? P.stats[(row_base + rb) * 2] : 0.f;
-  const float l1 = rb < P.N ? P.stats[(row_base + rb) * 2 + 1] : 1.f;
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-
-  const uint32_t st = stream_of(b, h, P.seed);
-  float acc[8][4];
-  zero8x4(acc);
-  for (int jb = 0; jb < P.nk / BKEY; ++jb) {
-    float s[8][4], w[8][4];
-    rows_by_tile(s, qa, ks, jb * BKEY, gid, tig);
-    rows_by_tile(w, da, vs, jb * BKEY, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jb * BKEY + nt * 8 + tig * 2 + (e & 1);
-        const bool top = e < 2;
-        float wd;
-        s[nt][e] = grad_of_score(P, s[nt][e], w[nt][e], top ? m0 : m1, top ? l0 : l1,
-                                 top ? d0 : d1, col < P.N, st, top ? ra : rb, col, wd);
-      }
+  for (int s = 4; s >= 1; s >>= 1) t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, s));
+  if (part == 0 && g < total) {
+    float4 r = make_float4(0.f, 1.f, 1.f, 0.f);
+    if (ok) {
+      const float* sp = stats + ((long long)bh * N + row) * 2;
+      r = make_float4(sp[0], sp[1], reciprocal(sp[1]), t);
     }
-    tile_by_rows(acc, s, ks, jb * BKEY, lane);  // dq += bf16(ds) @ k
+    info[bh * rows + row] = r;
   }
-  store_rows(P.dq + head, qd, ra, P.N, acc, 1.f, 1.f, tig);
 }
 
-__global__ void __launch_bounds__(128) attn_bwd_dkdv_kernel(Params P) {
-  __shared__ __align__(16) bf16 kb[BKEY * KSTR], vb[BKEY * KSTR];
-  __shared__ __align__(16) bf16 qt[BQ * KSTR], qst[BQ * KSTR], dot[BQ * KSTR];
-  __shared__ float sm[BQ], sl[BQ], sd[BQ];
-  const int kbk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = P.hq / P.hkv, qd = P.hq * D, kd = P.hkv * D;
-  load_rows(kb, P.k + (size_t)b * P.N * kd + kvh * D, kd, kbk * BKEY, BKEY, P.N);
-  load_rows(vb, P.v + (size_t)b * P.N * kd + kvh * D, kd, kbk * BKEY, BKEY, P.N);
-  asm volatile("cp.async.commit_group;\n" ::);
+// A barrier of the 8 warps of group g (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory");
+}
 
+// The cluster's barrier in two halves: arrive (release this thread's
+// shared-memory writes) and, later, wait for every thread of the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The tile of step i for group grp: head h and first row row0; a step past
+// the G T tiles gets row0 = T * 64 (every row masked, nothing stored).
+__device__ __forceinline__ void tile_of(const TrainBwdPlan& p, int kvh, int i, int grp, int& h,
+                                        int& row0) {
+  const int j = 2 * i + grp;
+  const bool ok = j < p.G * p.T;
+  h = kvh * p.G + (ok ? j / p.T : 0);
+  row0 = ok ? (j % p.T) * TR : p.T * TR;
+}
+
+// p = e / l, wd and ds of one 16-key x SR-row slice in place: s (e) becomes
+// wd, w (do v^T) becomes ds; `info` the slice's rows' (m, l, rcp_rn(l),
+// delta), `row` the thread's first.  EXACT: a score of the warp is below
+// 2^-100, so the divide takes its scaled form where needed.
+template <bool EXACT, bool DROP>
+__device__ __forceinline__ void slice_grads(const TrainBwdPlan& p, float (&s)[NS][4],
+                                            float (&w)[NS][4], const float4* info, uint32_t st,
+                                            int row, int keyA) {
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 ri = info[nt * 8 + (i & 1)];
+      const float pr = EXACT ? quotient(s[nt][i], ri.y, ri.z) : markstein(s[nt][i], ri.y, ri.z);
+      float dw = w[nt][i], wd = pr;
+      if (DROP) {
+        const float kc =
+            kept(st, row + nt * 8 + (i & 1), keyA + (i >> 1) * 8, p.np, p.thr) ? p.coef : 0.f;
+        dw = __fmul_rn(dw, kc);
+        wd = __fmul_rn(pr, kc);
+      }
+      s[nt][i] = wd;
+      w[nt][i] = __fmul_rn(__fmul_rn(pr, __fsub_rn(dw, ri.w)), p.scale);
+    }
+  }
+}
+
+// Launch 2 of the backward.  Grid (W, hkv, B), clusters of W along x: the
+// CTA of rank c takes keys c * 128 .. c * 128 + 127.  DROP: the dropout is on.
+template <bool DROP>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float4* __restrict__ info, __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, const TrainBwdPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);     // [128][STR]
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);     // [128][STR]
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem + p.tile_off);  // [2][2][q, do][64][STR]
+  float4* infos = reinterpret_cast<float4*>(smem + p.info_off);             // [2][2][64]
+  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(smem + p.ds_off);   // [2][128][STR]: ds^T
+  float* part = reinterpret_cast<float*>(smem + p.part_off);                // [2][2][64][PSTR]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int kvh = blockIdx.y, b = blockIdx.z, N = p.N;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int ka_ = kbk * BKEY + warp * 16 + gid, kb_ = ka_ + 8;  // this thread's keys
-  float dk[8][4], dv[8][4];
-  zero8x4(dk);
-  zero8x4(dv);
-  const int nrb = (P.N + BQ - 1) / BQ;
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const uint32_t st = stream_of(b, h, P.seed);
-    const size_t head = (size_t)b * P.N * qd + h * D, row_base = ((size_t)b * P.hq + h) * P.N;
-    for (int rt = 0; rt < nrb; ++rt) {
-      const int q0 = rt * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_rows(qt, P.q + head, qd, q0, BQ, P.N);
-      load_rows(dot, P.dout + head, qd, q0, BQ, P.N);
-      if (tid < BQ) {
-        const int r = q0 + tid;
-        const bool ok = r < P.N;
-        sm[tid] = ok ? P.stats[(row_base + r) * 2] : 0.f;
-        sl[tid] = ok ? P.stats[(row_base + r) * 2 + 1] : 1.f;
-        sd[tid] = ok ? P.delta[row_base + r] : 0.f;
-      }
-      cp_wait_all();
-      __syncthreads();
-      for (int c = tid; c < BQ * D / 2; c += blockDim.x) {  // q' = bf16(q * scale2)
-        const int off = (c / (D / 2)) * KSTR + (c % (D / 2)) * 2;
-        *reinterpret_cast<uint32_t*>(qst + off) = scale_pair(ld32(qt + off), P.scale2);
-      }
-      __syncthreads();
+  const int g = warp >> 3, kw = warp & 7;
+  const long long qd = (long long)p.hq * D, kd = (long long)p.hkv * D;
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale2);  // exact: a bf16 value
 
-      // Transposed tiles: s^T = k q'^T and w^T = v do^T, rows = this warp's
-      // 16 keys, columns = the tile's 64 queries.
-      float s[8][4], w[8][4];
-      zero8x4(s);
-      zero8x4(w);
+  load_rows(ks, k + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
+  load_rows(vs, v + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
+  // q, do and the row statistics of group g's tile of step i, by the
+  // group's own 256 threads.
+  const int gt = tid & 255;
+  auto load_step = [&](int i) {
+    const int bf = i & 1;
+    int h, row0;
+    tile_of(p, kvh, i, g, h, row0);
+    for (int x = gt; x < 2 * TR * 8; x += 256) {
+      const int t = x >> 9, row = (x >> 3) & 63, c8 = x & 7;
+      const int r = row0 + row;
+      const bool ok = r < N;
+      const __nv_bfloat16* src = (t ? dout : q) + ((long long)b * N + (ok ? r : 0)) * qd + h * D + c8 * 8;
+      copy16(smem_u32(tiles + (((bf * 2 + g) * 2 + t) * TR + row) * STR + c8 * 8), src, ok);
+    }
+    if (gt < TR) {
+      const bool ok = row0 < p.T * TR;
+      const float4* src = info + ((long long)b * p.hq + h) * p.T * TR + (ok ? row0 + gt : 0);
+      copy16(smem_u32(infos + (bf * 2 + g) * TR + gt), src, ok);
+    }
+    commit();
+  };
+  load_step(0);  // one group with K and V
+
+  float dka[8][4], dva[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  const int keyA = c * KEYS + kw * 16 + gid;  // this thread's keys: keyA, keyA + 8
+  const bool keyA_ok = keyA < N, keyB_ok = keyA + 8 < N;
+  const bool keys_live = c * KEYS + kw * 16 < N;  // else the warp's ds^T rows stay 0
+  __nv_bfloat16* dsT = dsb + g * KEYS * STR;
+  if (!keys_live)
+    for (int x = lane; x < 16 * STR / 2; x += 32)
+      reinterpret_cast<uint32_t*>(dsT + kw * 16 * STR)[x] = 0u;
+
+  // dq of step i's two tiles: the W partials added in rank order, rounded
+  // once.  CTA c takes float4 columns x = c * 512 + tid, x += W * 512.
+  auto reduce_dq = [&](int i) {
+    const int bf = i & 1;
+    for (int x = c * BWD_WARPS * 32 + tid; x < 2 * TR * (D / 4); x += p.W * BWD_WARPS * 32) {
+      const int grp = x >> 10, row = (x >> 4) & 63, c4 = x & 15;
+      int hh, r0;
+      tile_of(p, kvh, i, grp, hh, r0);
+      if (r0 + row >= N) continue;
+      float* mine = part + ((bf * 2 + grp) * TR + row) * PSTR + c4 * 4;
+      float4 a = *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, 0));
+      for (int jj = 1; jj < p.W; ++jj) {
+        const float4 y = *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, jj));
+        a.x = __fadd_rn(a.x, y.x);
+        a.y = __fadd_rn(a.y, y.y);
+        a.z = __fadd_rn(a.z, y.z);
+        a.w = __fadd_rn(a.w, y.w);
+      }
+      *reinterpret_cast<uint2*>(dq + ((long long)b * N + r0 + row) * qd + hh * D + c4 * 4) =
+          make_uint2(pack2(a.x, a.y), pack2(a.z, a.w));
+    }
+  };
+
+#pragma unroll 1
+  for (int i = 0; i < p.steps; ++i) {
+    if (i + 1 < p.steps) {
+      load_step(i + 1);  // its buffers were last read before the group's step i - 1 barrier
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    if (i == 0)
+      __syncthreads();  // K and V too
+    else
+      group_sync(g);  // and the group's warps are done with ds^T of step i - 1
+    const int bf = i & 1;
+    int h, row0;
+    tile_of(p, kvh, i, g, h, row0);
+    const __nv_bfloat16* qt = tiles + ((bf * 2 + g) * 2) * TR * STR;
+    const __nv_bfloat16* dt = qt + TR * STR;
+    const float4* inf = infos + (bf * 2 + g) * TR;
+    const uint32_t st = stream_of(b, h, p.seed);
+
+#pragma unroll 1
+    for (int sub = 0; sub < TR / SR; ++sub) {
+      if (!keys_live || row0 + sub * SR >= N) continue;  // p = 0 throughout
+      // s^T = k q'^T and w^T = v do^T: rows = this warp's 16 keys, columns =
+      // the slice's SR query rows; [nt][0..1] key gid, [2..3] key gid + 8,
+      // rows sub*SR + nt*8 + tig*2 + {0, 1}.
+      float s[NS][4] = {}, w[NS][4] = {};
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t ka[4], va[4];
-        load_a(ka, kb, warp * 16, kk * 16, gid, tig);
-        load_a(va, vb, warp * 16, kk * 16, gid, tig);
+        const int ar = (kw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 + (lane >> 4) * 8;
+        ldsm4(ka, smem_u32(ks + ar));
+        ldsm4(va, smem_u32(vs + ar));
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_nk(b0, b1, qst, nt * 8, kk * 16, gid, tig);
-          mma_bf16(s[nt], ka, b0, b1);
-          load_b_nk(b0, b1, dot, nt * 8, kk * 16, gid, tig);
-          mma_bf16(w[nt], va, b0, b1);
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t qb[4], db[4];
+          const int br =
+              (sub * SR + n * 8 + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 + ((lane >> 3) & 1) * 8;
+          ldsm4(qb, smem_u32(qt + br));
+          ldsm4(db, smem_u32(dt + br));
+#pragma unroll
+          for (int x = 0; x < 4; ++x) qb[x] = mul_pair(qb[x], scale2);
+          mma_bf16(s[n], ka, qb[0], qb[1]);
+          mma_bf16(s[n + 1], ka, qb[2], qb[3]);
+          mma_bf16(w[n], va, db[0], db[1]);
+          mma_bf16(w[n + 1], va, db[2], db[3]);
         }
       }
+      // e = exp2f(s - m) in place, zero where the row or the key is past N.
+      const int row = row0 + sub * SR + tig * 2;  // + nt * 8 + (i & 1)
+      const float4* ri = inf + sub * SR + tig * 2;
+      bool rare = false;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < NS; ++nt) {
+        const float m0 = ri[nt * 8].x, m1 = ri[nt * 8 + 1].x;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = nt * 8 + tig * 2 + (e & 1), row = q0 + rl;
-          const int key = e < 2 ? ka_ : kb_;
-          float wd;
-          const float ds = grad_of_score(P, s[nt][e], w[nt][e], sm[rl], sl[rl], sd[rl],
-                                         row < P.N && key < P.N, st, row, key, wd);
-          s[nt][e] = wd;
-          w[nt][e] = ds;
+        for (int x = 0; x < 4; ++x) {
+          const bool ok = row + nt * 8 + (x & 1) < N && (x < 2 ? keyA_ok : keyB_ok);
+          s[nt][x] = ok ? exp2f(__fsub_rn(s[nt][x], x & 1 ? m1 : m0)) : 0.f;
+          rare |= tiny(s[nt][x]);
         }
       }
-      tile_by_rows(dv, s, dot, 0, lane);  // dv += bf16(wd)^T do
-      tile_by_rows(dk, w, qt, 0, lane);   // dk += bf16(ds)^T q
+      if (__any_sync(0xffffffffu, rare))
+        slice_grads<true, DROP>(p, s, w, ri, st, row, keyA);
+      else
+        slice_grads<false, DROP>(p, s, w, ri, st, row, keyA);
+      // A fragments (16 keys x 16 rows a k-step): dv += bf16(wd)^T do,
+      // dk += ds^T q; ds^T [key][row] staged for the partial dq.
+#pragma unroll
+      for (int t = 0; t < NS / 2; ++t) {
+        const uint32_t wa[4] = {pack2(s[2 * t][0], s[2 * t][1]), pack2(s[2 * t][2], s[2 * t][3]),
+                                pack2(s[2 * t + 1][0], s[2 * t + 1][1]),
+                                pack2(s[2 * t + 1][2], s[2 * t + 1][3])};
+        const uint32_t da[4] = {pack2(w[2 * t][0], w[2 * t][1]), pack2(w[2 * t][2], w[2 * t][3]),
+                                pack2(w[2 * t + 1][0], w[2 * t + 1][1]),
+                                pack2(w[2 * t + 1][2], w[2 * t + 1][3])};
+        const int r16 = sub * SR + t * 16;
+        const int vr = (r16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + (lane >> 4) * 8;
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {
+          uint32_t r[4];
+          ldsm4t(r, smem_u32(dt + vr + n * 8));
+          mma_bf16(dva[n], wa, r[0], r[1]);
+          mma_bf16(dva[n + 1], wa, r[2], r[3]);
+          ldsm4t(r, smem_u32(qt + vr + n * 8));
+          mma_bf16(dka[n], da, r[0], r[1]);
+          mma_bf16(dka[n + 1], da, r[2], r[3]);
+        }
+        uint32_t* d0 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid) * STR + r16 + tig * 2);
+        uint32_t* d1 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid + 8) * STR + r16 + tig * 2);
+        d0[0] = da[0];
+        d1[0] = da[1];
+        d0[4] = da[2];
+        d1[4] = da[3];
+      }
+    }
+    group_sync(g);  // the group's ds^T staged
+
+    // The chunk's partial dq = ds @ K_chunk: warp kw takes rows
+    // (kw % 4) * 16 .. and columns (kw / 4) * 32 .. of its group's tile.
+    {
+      const int rq = (kw & 3) * 16, dh = (kw >> 2) * 32;
+      float acc[4][4] = {};
+      if (row0 + rq < N)  // else the rows are past N: nothing is stored
+#pragma unroll
+      for (int kt = 0; kt < KEYS / 16; ++kt) {
+        uint32_t a[4], r[4];
+        ldsm4t(a, smem_u32(dsT + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * STR + rq +
+                           ((lane >> 3) & 1) * 8));
+        const int kr = (kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + dh + (lane >> 4) * 8;
+#pragma unroll
+        for (int n = 0; n < 4; n += 2) {
+          ldsm4t(r, smem_u32(ks + kr + n * 8));
+          mma_bf16(acc[n], a, r[0], r[1]);
+          mma_bf16(acc[n + 1], a, r[2], r[3]);
+        }
+      }
+      // Step i - 1's exchange: every CTA arrived after writing its
+      // partials (and after reducing step i - 2's, whose buffer this step
+      // writes next).
+      if (i > 0) {
+        cluster_wait();
+        reduce_dq(i - 1);
+      }
+      float* pt = part + ((bf * 2 + g) * TR + rq + gid) * PSTR + dh + tig * 2;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        *reinterpret_cast<float2*>(pt + n * 8) = make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(pt + 8 * PSTR + n * 8) = make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+    cluster_arrive();
+  }
+  cluster_wait();
+  reduce_dq(p.steps - 1);
+
+  // dk and dv: group 1's sums into shared memory (the tiles are dead), then
+  // group 0 adds them to its own in that order and stores.
+  float4* sums = reinterpret_cast<float4*>(tiles) + (kw * 16) * 32 + lane;  // [8][16][32]
+  __syncthreads();  // group 0 is done with its tiles
+  if (g == 1) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sums[n * 32] = make_float4(dka[n][0], dka[n][1], dka[n][2], dka[n][3]);
+      sums[(8 + n) * 32] = make_float4(dva[n][0], dva[n][1], dva[n][2], dva[n][3]);
     }
   }
-  const size_t base = (size_t)b * P.N * kd + kvh * D;
-  store_rows(P.dk + base, kd, ka_, P.N, dk, 1.f, 1.f, tig);
-  store_rows(P.dv + base, kd, ka_, P.N, dv, 1.f, 1.f, tig);
-}
-
-int keys_padded(int N) { return (N + BKEY - 1) / BKEY * BKEY; }
-
-Params make_params(int N, int hq, int hkv, unsigned seed, unsigned thr, float scale2, float scale,
-                   float coef, int dropout) {
-  Params P = {};
-  P.N = N;
-  P.hq = hq;
-  P.hkv = hkv;
-  P.nk = keys_padded(N);
-  P.np = (N + 7) / 8 * 8;
-  P.seed = seed;
-  P.thr = thr;
-  P.scale2 = scale2;
-  P.scale = scale;
-  P.coef = coef;
-  P.dropout = dropout;
-  return P;
+  __syncthreads();
+  if (g == 0) {
+    const long long base = (long long)b * N * kd + kvh * D + tig * 2;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float4 x = sums[n * 32], y = sums[(8 + n) * 32];
+      if (keyA_ok) {
+        *reinterpret_cast<uint32_t*>(dk + base + keyA * kd + n * 8) =
+            pack2(__fadd_rn(dka[n][0], x.x), __fadd_rn(dka[n][1], x.y));
+        *reinterpret_cast<uint32_t*>(dv + base + keyA * kd + n * 8) =
+            pack2(__fadd_rn(dva[n][0], y.x), __fadd_rn(dva[n][1], y.y));
+      }
+      if (keyB_ok) {
+        *reinterpret_cast<uint32_t*>(dk + base + (keyA + 8) * kd + n * 8) =
+            pack2(__fadd_rn(dka[n][2], x.z), __fadd_rn(dka[n][3], x.w));
+        *reinterpret_cast<uint32_t*>(dv + base + (keyA + 8) * kd + n * 8) =
+            pack2(__fadd_rn(dva[n][2], y.z), __fadd_rn(dva[n][3], y.w));
+      }
+    }
+  }
+  cluster_arrive();  // no CTA leaves while another may read its partials
+  cluster_wait();
 }
 
 }  // namespace
 
-extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
-
-// Dynamic shared memory of the forward and of the dq launch: K and V of all
-// keys (padded to a multiple of 64).
-extern "C" int attn_train_smem_bytes(int N) { return 2 * keys_padded(N) * KSTR * 2; }
-
-// q [B, N, hq * 64], k/v [B, N, hkv * 64] bf16 -> out [B, N, hq * 64] bf16,
-// stats [B, hq, N, 2] f32 (row max, row sum of exp2).  scale2 is
-// bf16(scale * log2 e) as a float; coef = 1 / (1 - rate); thr the keep
-// threshold; dropout 0 or 1.
-extern "C" int attn_train_fwd(const void* q, const void* k, const void* v, void* out, void* stats,
-                              int B, int N, int hq, int hkv, unsigned seed, unsigned thr,
-                              float scale2, float coef, int dropout, void* stream) {
-  Params P = make_params(N, hq, hkv, seed, thr, scale2, 0.f, coef, dropout);
-  P.q = (const bf16*)q;
-  P.k = (const bf16*)k;
-  P.v = (const bf16*)v;
-  P.out = (bf16*)out;
-  P.stats = (float*)stats;
-  const int smem = attn_train_smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  attn_fwd_kernel<<<dim3((N + BQ - 1) / BQ, hq, B), 128, smem, (cudaStream_t)stream>>>(P);
+// q [B, N, hq * 64], k/v [B, N, hkv * 64] bf16 (contiguous, 16-byte
+// aligned) -> out [B, N, hq * 64] bf16 and tr->stats [B, hq, N, 2] f32 (row
+// max, row sum of exp2).  One launch of grid (gx, gy, B) with `warps` warps
+// and `smem` bytes of dynamic shared memory (ops/attention_train.py's plan).
+extern "C" int attn_train_fwd(const void* q, const void* k, const void* v, void* out,
+                              const NaturalPlan* plan, const TrainRows* tr, int B, int gx, int gy,
+                              int warps, int smem, void* stream) {
+  auto kernel = tr->dropout ? train_fwd_kernel<true> : train_fwd_kernel<false>;
+  static int smem_set[2] = {0, 0};
+  if (smem > smem_set[tr->dropout]) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set[tr->dropout] = smem;
+  }
+  kernel<<<dim3(gx, gy, B), warps * 32, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, *plan, *tr);
   return cudaGetLastError();
 }
 
-// The backward: o and do as q, stats from the forward, delta a [B, hq, N]
-// f32 scratch -> dq as q, dk/dv as k.  Two launches: dq (and delta), then
-// dk/dv.
+// The backward: o and do as q, stats from the forward, info a [B, hq, T * 64]
+// float4 scratch -> dq as q, dk/dv as k.  Two launches: the row statistics,
+// then the clusters.
 extern "C" int attn_train_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dout, const void* stats, void* delta, void* dq, void* dk,
-                              void* dv, int B, int N, int hq, int hkv, unsigned seed, unsigned thr,
-                              float scale2, float scale, float coef, int dropout, void* stream) {
-  Params P = make_params(N, hq, hkv, seed, thr, scale2, scale, coef, dropout);
-  P.q = (const bf16*)q;
-  P.k = (const bf16*)k;
-  P.v = (const bf16*)v;
-  P.o = (const bf16*)o;
-  P.dout = (const bf16*)dout;
-  P.stats = (float*)stats;
-  P.delta = (float*)delta;
-  P.dq = (bf16*)dq;
-  P.dk = (bf16*)dk;
-  P.dv = (bf16*)dv;
+                              const void* dout, const void* stats, void* info, void* dq, void* dk,
+                              void* dv, const TrainBwdPlan* plan, int B, int smem, void* stream) {
+  const TrainBwdPlan& p = *plan;
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = attn_train_smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int total = B * p.hq * p.T * TR * 8;
+  bwd_rows_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)stats, (float4*)info, p.N,
+      p.hq, p.T * TR, total);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<<<dim3((N + BQ - 1) / BQ, hq, B), 128, smem, st>>>(P);
-  e = cudaGetLastError();
+  auto kernel = p.dropout ? attn_bwd_kernel<true> : attn_bwd_kernel<false>;
+  static int smem_set[2] = {0, 0};
+  if (smem > smem_set[p.dropout]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set[p.dropout] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.W, p.hkv, B);
+  cfg.blockDim = dim3(BWD_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.W;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                         (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float4*)info,
+                         (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, p);
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<<<dim3(P.nk / BKEY, hkv, B), 128, 0, st>>>(P);
   return cudaGetLastError();
 }

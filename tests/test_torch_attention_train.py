@@ -4,7 +4,9 @@ Pallas interpret mode.
 
 Inputs are fp32 and made with numpy from a seed.  Tolerances are the JAX
 package's own for this kernel (``tests/test_attention_train.py``): forward
-2e-5, gradients 5e-4.  The keep mask is bit-equal.
+2e-5, gradients 5e-4.  The keep mask is bit-equal.  The CUDA kernels'
+launch plan, pure Python, is checked here too (the kernels themselves run
+on a card only: ``tests/test_torch_cuda.py``).
 """
 
 import jax
@@ -107,3 +109,129 @@ def test_bf16_plain_keeps_the_rounding_points():
     got = tat.attention_train_fwd_plain(tq, tk, tv, 3, hq, hkv, 0.1).float()
     np.testing.assert_allclose(got.numpy(), want,
                                atol=2.0 ** -8 * np.abs(want).max())
+
+
+# ---- the kernels' launch plan (csrc/attention_train.cu), on the CPU --------
+# ``_train_plan`` is pure Python.  The enumerations below follow the
+# kernels' own indexing: the forward is attention_natural.cu's body on
+# balanced rounds (round rd of CTA x is f = x * span + rd of the flattened
+# list: (batch, y) = divmod(f // per_y, ny), tile = f % per_y //
+# head_rounds, hr = f % per_y % head_rounds; it covers rows tile * rows +
+# (pair % R) * 16 + [0, 16) of q-head y * heads + hr * hc + pair // R);
+# the backward's CTA c of cluster (kv-head,
+# batch) owns keys c * 128 + (w % 8) * 16 + [0, 16) by warp w, and in step
+# i its group g takes tile j = 2 i + g of the G * T (head, 64-row tile)
+# pairs; float4 column x of step i's partial dq is stored by CTA
+# (x // 512) % W.
+
+SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory (227 KB)
+SMS = 132               # an H100 SXM's SMs
+ROW = 144               # bytes of a 64-wide bf16 row plus its 8 pad
+PLAN_N = [1, 7, 8, 45, 127, 128, 129, 345, 480, 600, 768]
+
+
+def _fwd_coverage(plan, B):
+    """How often the forward computes and stores each (batch, row, q-head)."""
+    count = np.zeros((B, plan.N, plan.hq), np.int64)
+    R = plan.rows // 16
+    pairs = plan.warps // plan.W
+    per_y, ny = plan.row_rounds * plan.head_rounds, plan.hq // plan.heads
+    for x in range(plan.grid[0]):
+        for rd in range(min(plan.span, plan.total - x * plan.span)):
+            f = x * plan.span + rd
+            b, y = divmod(f // per_y, ny)
+            tile, hr = divmod(f % per_y, plan.head_rounds)
+            for pair in range(pairs):
+                slot = hr * plan.hc + pair // R
+                if slot >= plan.heads:
+                    continue
+                rows = tile * plan.rows + (pair % R) * 16 + np.arange(16)
+                rows = rows[rows < plan.N]
+                count[b, rows, y * plan.heads + slot] += 1
+    return count
+
+
+def _bwd_coverage(plan, B):
+    """How often the backward's tiles take each (batch, q-head, row), its
+    warps own each (batch, kv-head, key) and its CTAs store each (batch,
+    q-head, row, float4 column of dq)."""
+    rows = np.zeros((B, plan.hq, plan.N), np.int64)
+    keys = np.zeros((B, plan.hkv, plan.N), np.int64)
+    dq = np.zeros((B, plan.hq, plan.N, 16), np.int64)
+    W, hkv = plan.grid
+    assert (W, plan.cluster) == (plan.W, plan.W)
+
+    def tile(kvh, i, g):
+        j = 2 * i + g
+        if j >= plan.G * plan.T:
+            return None, plan.T * 64
+        return kvh * plan.G + j // plan.T, (j % plan.T) * 64
+
+    threads = plan.warps * 32
+    for b in range(B):
+        for kvh in range(hkv):
+            for c in range(W):
+                for w in range(plan.warps // 2):
+                    k = c * 128 + w * 16 + np.arange(16)
+                    keys[b, kvh, k[k < plan.N]] += 1
+                for i in range(plan.steps):
+                    for g in (0, 1):
+                        h, row0 = tile(kvh, i, g)
+                        r = row0 + np.arange(64)
+                        if h is not None and c == 0:  # every CTA: the same
+                            rows[b, h, r[r < plan.N]] += 1
+                    for start in range(c * threads, 2 * 64 * 16, W * threads):
+                        for x in range(start, min(start + threads, 2048)):
+                            h, row0 = tile(kvh, i, x >> 10)
+                            row = row0 + ((x >> 4) & 63)
+                            if row < plan.N:
+                                dq[b, h, row, x & 15] += 1
+    return rows, keys, dq
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 5])
+@pytest.mark.parametrize("N", PLAN_N)
+def test_train_plan_fits_and_covers_once(N, G):
+    B, hkv = 2, 2
+    plan = tat._train_plan(N, G * hkv, hkv, B, SMS)
+    fwd = plan.fwd
+    # Forward: B16's grid of attention_natural.cu's body.
+    assert fwd.smem <= SMEM_SM90 and fwd.warps * 32 <= 480
+    assert fwd.heads == G and fwd.grid[1] == 1 and fwd.nk >= N
+    assert fwd.grid[0] <= SMS and fwd.total == B * hkv * fwd.row_rounds \
+        * fwd.head_rounds and (fwd.grid[0] - 1) * fwd.span < fwd.total
+    assert (_fwd_coverage(fwd, B) == 1).all()
+    # Backward: clusters of W CTAs of 128 keys, at most 8 a cluster.
+    assert plan.W * 128 >= N > (plan.W - 1) * 128 and plan.cluster <= 8
+    assert plan.T * 64 >= N > (plan.T - 1) * 64
+    assert 2 * plan.steps >= G * plan.T > 2 * (plan.steps - 1)
+    assert plan.warps == 16 and plan.smem <= SMEM_SM90
+    regions = [(plan.k_off, 128 * ROW), (plan.v_off, 128 * ROW),
+               (plan.tile_off, 2 * 2 * 2 * 64 * ROW),
+               (plan.info_off, 2 * 2 * 64 * 16), (plan.ds_off, 2 * 128 * ROW),
+               (plan.part_off, 2 * 2 * 64 * 72 * 4)]
+    for (a, sa), (b_, _) in zip(regions, regions[1:]):
+        assert a % 16 == 0 and a + sa <= b_
+    assert regions[-1][0] + regions[-1][1] <= plan.smem
+    rows, keys, dq = _bwd_coverage(plan, B)
+    assert (rows == 1).all() and (keys == 1).all() and (dq == 1).all()
+
+
+def test_train_plan_at_the_v3_training_shape():
+    """q [28, 345, 1280], k/v [28, 345, 256]: the forward's 2464 rounds
+    (28 batches x 4 kv-heads x 22 16-row tiles, five q-heads of three
+    128-key warps side by side: 15 warps) in spans of 19 over 130 CTAs; the
+    backward clusters of three 16-warp CTAs, one per (kv-head, batch), 15
+    steps of two 64-row tiles (G T = 30)."""
+    plan = tat._train_plan(345, 20, 4, 28, SMS)
+    assert (plan.fwd.grid, plan.fwd.warps, plan.fwd.row_rounds,
+            plan.fwd.span, plan.fwd.total, plan.fwd.resident) == \
+        ((130, 1), 15, 22, 19, 2464, 1)
+    assert (plan.grid, plan.cluster, plan.warps, plan.steps, plan.T) == \
+        ((3, 4), 3, 16, 15, 6)
+
+
+@pytest.mark.parametrize("N", [0, 769])
+def test_train_plan_raises_outside_the_kernels(N):
+    with pytest.raises(ValueError):
+        tat._train_plan(N, 20, 4, 28, SMS)
