@@ -214,11 +214,14 @@ def sdpa_inputs(torch, qkv, cos, sin, hq, hkv):
 def check_attention(torch):
     """flash_qkv against its plain version at the main path's qkv
     [6, 352, 1792] bf16 with keys masked past 345, and at the no-prologue
-    path's [6, 345, 1792]; timed at the main path's shape."""
+    path's [6, 345, 1792]; bit-equal at [6, 352] (no key masked) to
+    flash_split on PyTorch's bf16 RoPE of q and k; timed at the main path's
+    shape."""
     import torch.nn.functional as F
 
     from jatsr_torch.models.dit import rope_cos_sin
-    from jatsr_torch.ops.attention import (flash_qkv_plain,
+    from jatsr_torch.ops.attention import (_rope, flash_qkv_plain,
+                                           gqa_attention_flash,
                                            gqa_attention_flash_qkv)
 
     hq, hkv, D = 20, 4, 64
@@ -236,6 +239,22 @@ def check_attention(torch):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
         err = max(err, (got.float() - want.float()).abs().max().item())
+    # B2's in-kernel RoPE against PyTorch's, through B11 (one body).
+    heads = qkv.reshape(B, NP, hq + 2 * hkv, D)
+    cb, sb = cos.bfloat16()[:, None], sin.bfloat16()[:, None]
+    roped = (_rope(heads[:, :, :hq], cb, sb).reshape(B, NP, hq * D),
+             _rope(heads[:, :, hq:hq + hkv], cb, sb).reshape(B, NP, hkv * D),
+             qkv[..., (hq + hkv) * D:])
+    a = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv)
+    b = gqa_attention_flash(*roped, hq, hkv)
+    torch.cuda.synchronize()
+    d = (a.float() - b.float()).abs().max().item()
+    log(f"[kernel] flash_qkv vs flash_split on PyTorch-roped q, k: max abs "
+        f"{d:.3e}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"flash_qkv and flash_split on roped inputs "
+                             f"differ by up to {d}: they must be bit-equal")
+    del heads, roped, a, b
 
     q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
     t = timings(lambda x, c, s, q, k, v: gqa_attention_flash_qkv(
@@ -249,7 +268,7 @@ def check_attention(torch):
     # Two products over the valid keys: what this run's mask needs.
     b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_BF16)
     return {"name": "flash_qkv", "route": "cuda",
-            "source": "jatsr_torch/ops/csrc/flash_qkv.cu",
+            "source": "jatsr_torch/ops/csrc/attention_deferred.cu",
             "replaces": "ops/attention.py:415 (JAX package, "
                         "gqa_attention_flash_qkv; pallas_call :449)",
             "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
@@ -260,9 +279,10 @@ def check_split_attention(torch):
     """flash_split (B11), gqa_attention (B15) and gqa_attention_grouped
     (B16) against their plain versions at the split paths' q [6, 345, 20,
     64] and k/v [6, 345, 4, 64] bf16 (k and v column slices of one fused
-    projection, as the model hands v over), B15 bit-equal to B16; each timed on
-    contiguous copies beside SDPA at N = 345 with the kv heads repeated
-    (no mask needed there)."""
+    projection, as the model hands v over), B15 bit-equal to B16; B11 also
+    where every real score is negative, so that its zero keys set the row
+    max; each timed on contiguous copies beside SDPA at N = 345 with the kv
+    heads repeated (no mask needed there)."""
     import torch.nn.functional as F
 
     from jatsr_torch.ops.attention import (flash_split_plain, gqa_attention,
@@ -318,7 +338,7 @@ def check_split_attention(torch):
                     lambda *a: F.scaled_dot_product_attention(*a[3:]), args,
                     big=(0, 1, 2, 3, 4, 5), reps=200)
         out[name] = {"name": name, "route": "cuda",
-                     "source": ("jatsr_torch/ops/csrc/attention_split.cu"
+                     "source": ("jatsr_torch/ops/csrc/attention_deferred.cu"
                                 if name == "flash_split" else
                                 "jatsr_torch/ops/csrc/attention_natural.cu"),
                      "replaces": replaces,
@@ -332,6 +352,19 @@ def check_split_attention(torch):
         raise AssertionError(f"gqa_attention and gqa_attention_grouped differ "
                              f"by up to {d.item()}: they must be bit-equal")
     out["gqa_attention"]["vs_grouped_max_abs"] = d.item()
+    # B11's zero keys (345 padded to 352) set the max of every row.  v is
+    # about 1, so every output is about 1: a kernel that left the zero
+    # keys' share in l (7 % of it) would miss every output by about 2.8
+    # times the tolerance.
+    qp = (views[0].float().abs() * 0.5).bfloat16()
+    kp = (views[1].float().abs() * -0.5).bfloat16()
+    vp = (views[2].float() * 0.5 + 1).bfloat16()
+    got = gqa_attention_flash(flat(qp), flat(kp), flat(vp), hq, hkv).float()
+    want = flash_split_plain(flat(qp), flat(kp), flat(vp), hq, hkv).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    out["flash_split"]["pad_keys_max_abs_err"] = (got - want).abs().max(
+        ).item()
     return out
 
 
@@ -1390,7 +1423,7 @@ def main() -> int:
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
                "mlp_full", "dac_res", "snake_tr", "attention_train",
-               "attention_split", "attention_natural")
+               "attention_deferred", "attention_natural")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:

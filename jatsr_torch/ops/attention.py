@@ -7,10 +7,11 @@ Ports of ``gqa_attention_flash_qkv``, ``gqa_attention_flash_out``,
 ``gqa_attention_flash``, ``gqa_attention`` and ``gqa_attention_grouped``
 (JAX package, ``ops/attention.py``).  Each wrapper dispatches on the
 tensor's device: a CPU tensor takes the plain PyTorch version below, a CUDA
-tensor launches the hand-written kernel in ``csrc/flash_qkv.cu``,
-``csrc/attention_split.cu`` (the split flash kernel) or
-``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels) or
-raises.  Nothing falls back.
+tensor launches the hand-written kernel in ``csrc/attention_deferred.cu``
+(the two base-2 flash kernels, from the unsplit projection and on split
+q/k/v), ``csrc/flash_qkv.cu`` (the flash kernel with the out projection)
+or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels)
+or raises.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -108,15 +109,31 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
     if qkv.device.type == "cpu":
         return flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads,
                                n_valid)
-    return _launch(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid or N)
+    from . import _build
+
+    hq, hkv = num_q_heads, num_kv_heads
+    D = TD // (hq + 2 * hkv)
+    if qkv.dtype != torch.bfloat16 or D != 64:
+        raise TypeError(f"the flash kernels take bf16 with head dim 64, got "
+                        f"{qkv.dtype} with head dim {D}")
+    if cos.shape != (N, D) or sin.shape != (N, D):
+        raise ValueError(f"cos/sin must be [{N}, {D}]")
+    qkv = _build.aligned(qkv)
+    q, k, v = (qkv[..., a * D:b * D]
+               for a, b in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
+    out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, _build.aligned(
+        cos.float()), _build.aligned(sin.float()))
+    gqa_attention_flash_qkv.launches += 1
+    return out
 
 
 gqa_attention_flash_qkv.launches = 0
 
 
 def _prepare(qkv, cos, sin, hq, hkv):
-    """The library, the prep images' scratch and bf16(scale * log2 e) of a
-    flash launch, after the checks both kernels share."""
+    """The library, the prep images' scratch and bf16(scale * log2 e) of
+    the flash kernel with the out projection (csrc/flash_qkv.cu: a prep
+    launch writes q, K and V^T images to scratch), after its checks."""
     from . import _build
 
     B, N, TD = qkv.shape
@@ -145,28 +162,6 @@ def _scale2_bf16(d: int) -> float:
     """bf16(scale * log2 e), the flash kernels' q factor, as a float."""
     return float(torch.tensor((1.0 / math.sqrt(d)) * math.log2(math.e),
                               dtype=torch.bfloat16))
-
-
-def _launch(qkv, cos, sin, hq, hkv, n_valid):
-    from . import _build
-
-    B, N, _ = qkv.shape
-    lib, scratch, scale2 = _prepare(qkv, cos, sin, hq, hkv)
-    fn = lib.flash_qkv
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    qkv = _build.aligned(qkv)
-    cos = cos.float().contiguous()
-    sin = sin.float().contiguous()
-    out = torch.empty((B, N, hq * 64), dtype=torch.bfloat16,
-                      device=qkv.device)
-    err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-             scratch.data_ptr(), out.data_ptr(), B, N, n_valid, hq, hkv,
-             scale2, _build.stream_ptr(qkv.device))
-    _build.check(lib, err, "flash_qkv")
-    gqa_attention_flash_qkv.launches += 1
-    return out
 
 
 def flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, num_q_heads,
@@ -309,7 +304,7 @@ def gqa_attention_flash(q, k, v, num_q_heads: int, num_kv_heads: int):
                          f"{tuple(v.shape)} are not {hq}/{hkv}-head GQA inputs")
     if q.device.type == "cpu":
         return flash_split_plain(q, k, v, hq, hkv)
-    out = _launch_split(q, k, v, hq, hkv, q.shape[2] // hq)
+    out = _flash_deferred(q, k, v, hq, hkv, None)
     gqa_attention_flash.launches += 1
     return out
 
@@ -381,24 +376,6 @@ def _check_split(q, k, v, D):
 
 
 @functools.cache
-def _split_lib():
-    """csrc/attention_split.cu's library, its entry points' C types set."""
-    from . import _build
-
-    lib = _build.load("attention_split")
-    lib.attention_split_smem_bytes.restype = ctypes.c_int
-    lib.attention_split_smem_bytes.argtypes = [ctypes.c_int]
-    lib.attention_split_scratch_bytes.restype = ctypes.c_longlong
-    lib.attention_split_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    lib.attention_split.restype = ctypes.c_int
-    lib.attention_split.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_void_p])
-    return lib
-
-
-@functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -408,34 +385,9 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
-def _launch_split(q, k, v, hq, hkv, D):
-    """The flash kernel's C call in csrc/attention_split.cu (a prep launch
-    into scratch, then the attention body)."""
-    from . import _build
-
-    B, N = q.shape[:2]
-    _check_split(q, k, v, D)
-    lib = _split_lib()
-    smem, limit = lib.attention_split_smem_bytes(N), _smem_optin(
-        q.device.index)
-    if smem > limit:
-        raise ValueError(f"split attention: N={N} needs {smem} B of shared "
-                         f"memory, the card gives {limit}")
-    scratch = torch.empty(lib.attention_split_scratch_bytes(B, N, hq, hkv),
-                          dtype=torch.uint8, device=q.device)
-    (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
-    out = torch.empty((B, N, hq * D), dtype=torch.bfloat16, device=q.device)
-    err = lib.attention_split(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_row, k_row, v_row,
-        scratch.data_ptr(), out.data_ptr(), B, N, hq, hkv, _scale2_bf16(D),
-        _build.stream_ptr(q.device))
-    _build.check(lib, err, "flash_split")
-    return out
-
-
 # ---- B15 and B16: one kernel, two grids (csrc/attention_natural.cu) --------
 
-NATURAL_MAX_N = 768     # the split flash kernel's limit at D = 64, too
+NATURAL_MAX_N = 768     # W <= 6 key chunks; B2's and B11's limit, too
 _NATURAL_CHUNK = 128    # keys a warp holds in registers (16 n-tiles)
 _NATURAL_WARPS = 15     # warps a CTA: 128 registers a thread
 _NATURAL_ROW = 144      # shared-memory bytes of a 64-wide bf16 row + 8 pad
@@ -460,7 +412,9 @@ class NaturalPlan:
     shared memory: K and V (V at K's offset where they are not resident
     together), the q rows, the row statistics ``[2][pairs][W][16]`` fp32
     and the partial outputs ``[pairs][W][8][32]`` fp32x4 (at K's offset
-    where K is dead by then: one round, V resident).
+    where K is dead by then: one round, V resident).  Keys at or past
+    ``limit`` are masked (N here; the deferred plan's own below), and
+    ``npad`` zero keys below it have their share taken off the row sum.
 
     ``balanced`` (B10's forward): each (y, batch) takes all its tiles
     (``row_rounds``), and the ``total`` rounds of all of them, flattened
@@ -487,9 +441,16 @@ class NaturalPlan:
     part_off: int
     span: int
     total: int
+    limit: int
+    npad: int
     grid: tuple
     warps: int
     smem: int
+
+    def launch_grid(self, B: int) -> tuple:
+        """The 3-D launch grid at batch B: ``grid + (B,)``, or the balanced
+        grid's ``grid + (1,)`` (its spans already run over the batch)."""
+        return (*self.grid, 1 if self.span else B)
 
 
 @functools.cache
@@ -549,19 +510,29 @@ def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
         grid = (-(-total // span), 1)
     return NaturalPlan(N, nk, hq, hkv, rows, W, heads, hc, head_rounds,
                        row_rounds, int(resident), 0, kv if resident else 0,
-                       q_off, red_off, part_off, span, total, grid,
+                       q_off, red_off, part_off, span, total, N, 0, grid,
                        pairs * W, smem)
 
 
 class _NaturalArgs(ctypes.Structure):
-    """``NaturalPlan`` of csrc/attention_natural.cu, field for field."""
+    """``NaturalPlan`` of csrc/attention_rows.cuh, field for field."""
 
     _fields_ = ([(f, ctypes.c_int) for f in (
         "N", "nk", "hq", "hkv", "rows", "W", "heads", "hc", "head_rounds",
         "row_rounds", "resident", "k_off", "v_off", "q_off", "red_off",
         "part_off", "span", "total")]
         + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
-        + [("scale", ctypes.c_float)])
+        + [("scale", ctypes.c_float)]
+        + [(f, ctypes.c_int) for f in ("limit", "npad")])
+
+
+def _natural_args(plan: NaturalPlan, q_row: int, k_row: int, v_row: int,
+                  scale: float) -> _NaturalArgs:
+    """The C struct of ``plan`` with the views' row strides and q's
+    factor."""
+    return _NaturalArgs(
+        *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:18]),
+        q_row, k_row, v_row, scale, plan.limit, plan.npad)
 
 
 @functools.cache
@@ -594,13 +565,12 @@ def _launch_natural(q, k, v, grouped):
                          f"of shared memory, the card gives {limit}")
     lib = _natural_lib()
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
-    args = _NaturalArgs(
-        *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:18]),
-        q_row, k_row, v_row, 1.0 / math.sqrt(D))
+    args = _natural_args(plan, q_row, k_row, v_row, 1.0 / math.sqrt(D))
     out = torch.empty((B, N, hq, D), dtype=torch.bfloat16, device=q.device)
+    gx, gy, gz = plan.launch_grid(B)
     err = lib.attention_natural(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.byref(args), B, *plan.grid, plan.warps, plan.smem,
+        ctypes.byref(args), gz, gx, gy, plan.warps, plan.smem,
         _build.stream_ptr(q.device))
     _build.check(lib, err, "gqa_attention_grouped" if grouped
                  else "gqa_attention")
@@ -620,3 +590,76 @@ def natural_divide(e, l):
                                        e.numel(), _build.stream_ptr(e.device))
     _build.check(lib, err, "attention_natural_divide")
     return fast, ref
+
+
+# ---- B2 and B11: the deferred epilogue (csrc/attention_deferred.cu) -------
+
+@functools.cache
+def _deferred_plan(N: int, hq: int, hkv: int, B: int, sms: int,
+                   n_valid: int | None, balanced: bool) -> NaturalPlan:
+    """The launch plan of B2 (``n_valid``: keys at or past it are masked)
+    or B11 (``n_valid`` None: N is padded with zero keys to a multiple of 8,
+    which take part in the row max, and their share comes off the row
+    sum): B16's per-kv-head layout, the G q-heads side by side over K and V
+    loaded once, on its own grid or the balanced one.  Raises
+    ``ValueError`` outside [1, ``NATURAL_MAX_N``]."""
+    plan = _natural_plan(N, hq, hkv, True, B, sms, balanced=balanced)
+    if n_valid is None:
+        limit = _round_up(N, 8)
+        return dataclasses.replace(plan, limit=limit, npad=limit - N)
+    if not 1 <= n_valid <= N:
+        raise ValueError(f"n_valid {n_valid} outside [1, {N}]")
+    return dataclasses.replace(plan, limit=n_valid)
+
+
+@functools.cache
+def _deferred_lib():
+    """csrc/attention_deferred.cu's library, its entry point's C types set."""
+    from . import _build
+
+    lib = _build.load("attention_deferred")
+    lib.attention_deferred.restype = ctypes.c_int
+    lib.attention_deferred.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    return lib
+
+
+def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
+                    balanced=None):
+    """One launch of csrc/attention_deferred.cu on [B, N, H * 64] views q,
+    k and v: B2 with ``n_valid`` and the fp32 RoPE tables ``cos``, ``sin``
+    ([N, 64], 8-byte aligned), B11 with ``n_valid`` None and no tables.
+    ``balanced`` None takes the grid that was faster at the serving shapes
+    (PERF.md §6): B2 B16's per-kv-head grid (120 CTAs of 5
+    rounds), where each CTA loads and rotates K once; B11 the balanced one
+    (132 CTAs of 4 rounds), whose K and V reloads where a span crosses a
+    (batch, kv-head) cost no rotation.  True or False forces a grid, for
+    the test that holds the two grids bit-equal and for
+    tools/torch_deferred_grids.py, which times both."""
+    from . import _build
+
+    B, N = q.shape[:2]
+    D = q.shape[2] // hq
+    _check_split(q, k, v, D)
+    if balanced is None:
+        balanced = cos is None
+    plan = _deferred_plan(N, hq, hkv, B, _sm_count(q.device.index), n_valid,
+                          balanced)
+    limit = _smem_optin(q.device.index)
+    if plan.smem > limit:
+        raise ValueError(f"flash kernels: N={N} needs {plan.smem} B of "
+                         f"shared memory, the card gives {limit}")
+    (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    args = _natural_args(plan, q_row, k_row, v_row, _scale2_bf16(D))
+    out = torch.empty((B, N, hq * D), dtype=torch.bfloat16, device=q.device)
+    lib = _deferred_lib()
+    gx, gy, gz = plan.launch_grid(B)
+    err = lib.attention_deferred(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.byref(args), None if cos is None else cos.data_ptr(),
+        None if sin is None else sin.data_ptr(), gz, gx, gy, plan.warps,
+        plan.smem, _build.stream_ptr(q.device))
+    _build.check(lib, err, "gqa_attention_flash" if cos is None
+                 else "gqa_attention_flash_qkv")
+    return out

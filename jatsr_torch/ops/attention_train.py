@@ -24,8 +24,8 @@ import math
 import torch
 
 from .attention import (_FLASH_VMEM_BUDGET, NATURAL_MAX_N, NaturalPlan,
-                        _natural_plan, _NaturalArgs, _round_up, _sm_count,
-                        _smem_optin, flash_supported)
+                        _natural_args, _natural_plan, _NaturalArgs, _round_up,
+                        _sm_count, _smem_optin, flash_supported)
 
 _GOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -396,14 +396,14 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate):
     out = torch.empty_like(q)
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
     fp = plan.fwd
-    ints = (getattr(fp, f) for f, _ in _NaturalArgs._fields_[:18])
-    args = _NaturalArgs(*ints, hq * 64, hkv * 64, hkv * 64, a["scale2"])
+    args = _natural_args(fp, hq * 64, hkv * 64, hkv * 64, a["scale2"])
     rows = _TrainRows(stats.data_ptr(), a["seed"], a["thr"], _round_up(N, 8),
                       a["dropout"], a["coef"])
     err = lib.attn_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), ctypes.byref(args),
-                             ctypes.byref(rows), 1, *fp.grid, fp.warps,
-                             fp.smem, _build.stream_ptr(q.device))
+                             ctypes.byref(rows), fp.launch_grid(B)[2],
+                             *fp.grid, fp.warps, fp.smem,
+                             _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train fwd")
     attention_train_fwd.launches += 1
     return out, stats

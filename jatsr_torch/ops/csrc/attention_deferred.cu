@@ -1,0 +1,119 @@
+// The base-2 flash GQA attention with deferred normalisation, for Hopper:
+// one launch of attention_rows.cuh's body with its deferred epilogue, no
+// prep launch and no scratch.
+//
+// Replaces two TPU kernels of the JAX package's ops/attention.py:
+//   B2   gqa_attention_flash_qkv  (:415, _attn_kernel_flash_qkv :237,
+//                                  pallas_call :449; default branch)
+//   B11  gqa_attention_flash      (:186, _attn_kernel_flash :134,
+//                                  pallas_call :213)
+// Their rounding points:
+//   B2   k, q = RoPE in bf16 from the unsplit fused-QKV projection:
+//               bf16(bf16(x cos) + bf16(rot(x) sin)), one rounding per
+//               operation, cos and sin the fp32 tables cast to bf16 first
+//        s    = -inf where key col >= n_valid
+//   B11  q, k, v already RoPE'd; N padded to Np = round_up(N, 8) with zero
+//        rows and NOT masked: the Np - N zero keys score exactly 0 and take
+//        part in the row max
+//   both q'   = bf16(q * bf16(scale * log2 e)); s = q' @ k^T, fp32
+//        e    = exp2f(s - m), m the exact row max
+//        l    = sum(e) (B11: minus npad * exp2f(-m), the zero keys' share)
+//        o    = bf16((bf16(e) @ v) * rcp_rn(l))
+//
+// What bounds it on the H100: at the serving shapes (B2: qkv [6, 352,
+// 1792], keys masked past 345; B11: q [6, 345, 1280], k/v [6, 345, 256])
+// the two products are 3.66 GFLOP (3.7 us at the 989 TFLOP/s bf16 peak)
+// against 13.2 and 12.7 MB of compulsory traffic (3.93 and 3.80 us at
+// 3.35 TB/s).  Bytes bound both, by a hair.
+//
+// Design (the body and its layout: attention_rows.cuh, attention_natural.cu):
+//  1. One launch.  q, K and V come by 16-byte cp.async straight from the
+//     [B, N, H * 64] views at their row strides: for B2 three column views
+//     of the unsplit qkv (row stride (hq + 2 hkv) * 64), for B11 its q, k
+//     and v (k and v may be column slices of the fused projection).  Rows
+//     at or past N are zero-filled by cp.async's source size.
+//  2. B2's RoPE inside the kernel, in shared memory, outside the register-
+//     heavy score loop: once K has landed the CTA rotates its K rows in
+//     place (a thread two (d, d + 32) element pairs at a time, the fp32
+//     tables read from L2), and each round the pair's own warps rotate its
+//     q rows (four pairs at a time) behind the pair's barrier and scale them
+//     in the same pass, after the rotation's rounding (one rounding, as
+//     B11's and B10's packed multiply at the fragment load rounds it; there
+//     it left B2's kernel spilling); a barrier follows before any scores.
+//     This costs B2 about 9 us of its time at the serving shape (PERF.md):
+//     each CTA reads the whole 180 KB table for K, and each round waits on
+//     its q rows' table reads.  Staging the tables in shared memory or
+//     prefetching them into L1 made the kernel spill and run slower.
+//  3. The scores once, in registers: a warp holds 16 rows x 128 keys; the
+//     exact row max and the row sum are combined across the W = nk / 128
+//     warps of a row group in warp order; exp2f once a score; bf16(e) @ V
+//     over the warp's chunk (ldmatrix.trans); the W partial outputs added in
+//     warp order, times rcp_rn(l), rounded once.  l is summed again from
+//     shared memory after the product, so that it is not live across it.
+//  4. B11's zero keys: the mask limit is Np, the rows between N and Np are
+//     zero-filled (not masked), and npad * exp2f(-m) comes off l once,
+//     after the warp-order sum (B2's kernel has no such keys: no code).
+//  5. The grid: B16's per-kv-head layout, the G q-heads side by side over K
+//     and V loaded (and for B2 rotated) once: 15 warps at G = 5, N <= 384.
+//     Two plans (ops/attention.py:_deferred_plan), one kernel for both (the
+//     plan's span): the per-kv-head grid (120 CTAs of 5 rounds at the
+//     serving shape) and the balanced one (132 CTAs of 4 rounds, K and V
+//     reloaded where a span crosses a (batch, kv-head)).  Each kernel takes
+//     the one that was faster at its serving shape (PERF.md; timed by
+//     tools/torch_deferred_grids.py): B2 the per-kv-head grid (a reload
+//     would rotate K again), B11 the balanced.
+//  Every N <= 768 runs.
+//
+// Registers (-Xptxas -v, sm_90a): 128 a thread (the 15-warp CTA caps them),
+// no spills; chip_smoke.py's [build] line prints them on every run.  Which
+// of the choices above spill is a matter of ptxas's allocation at the cap:
+// every other combination of them tried on CUDA 12.8 spilled.
+
+#include "attention_rows.cuh"
+
+extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+namespace {
+
+template <bool ROPE>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1) deferred_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt) {
+  rows_attention<Epilogue::kDeferred, false, ROPE, Grid::kPlan>(q, k, v, out, p, TrainRows{}, rt);
+}
+
+template <bool ROPE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
+                   const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(deferred_kernel<ROPE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  deferred_kernel<ROPE><<<grid, warps * 32, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, p, rt);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, N, hq * 64], k and v [B, N, hkv * 64] bf16 views (16-byte aligned,
+// row strides in the plan) -> out [B, N, hq * 64] bf16, contiguous.  With
+// cos_t and sin_t ([N, 64] f32, 8-byte aligned) q and K are RoPE'd first
+// (B2); with null tables they are taken as they are (B11).  The plan's
+// span picks the grid: 0 the per-kv-head grid, else the balanced one.  One
+// launch of grid (gx, gy, B) with `warps` warps and `smem` bytes of
+// dynamic shared memory.
+extern "C" int attention_deferred(const void* q, const void* k, const void* v, void* out,
+                                  const NaturalPlan* plan, const float* cos_t, const float* sin_t,
+                                  int B, int gx, int gy, int warps, int smem, void* stream) {
+  const RopeTables rt{cos_t, sin_t};
+  const dim3 grid(gx, gy, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  return cos_t ? launch<true>(q, k, v, out, *plan, rt, grid, warps, smem, st)
+               : launch<false>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+}

@@ -1,14 +1,19 @@
 // The attention body with the exact row max and the scores computed once
-// in registers, shared by two epilogues:
-//   natural (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
+// in registers, shared by three epilogues:
+//   natural  (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
 //       e = expf(s - m), w = bf16(e / l) correctly rounded, o = bf16(w @ v)
-//   train   (attention_train.cu, B10's forward): q' = bf16(q * scale2),
+//   train    (attention_train.cu, B10's forward): q' = bf16(q * scale2),
 //       s = q' @ k^T, e = exp2f(s - m), l summed before the dropout
 //       zeroing, o = bf16((bf16(e) @ v) * (coef / l)), and the row max and
 //       l written for the backward
-// Keys at or past N are masked to -inf; m is the exact row max (a running
-// max would round bf16(w) or bf16(e) against another max than the TPU
-// kernels).
+//   deferred (attention_deferred.cu, B2 and B11): the train epilogue
+//       without dropout or statistics (coef = 1); B11 takes the share of
+//       its npad zero keys off l once, l - npad * exp2f(-m); B2 rotates q
+//       and K by RoPE in shared memory first (ROPE)
+// Keys at or past the plan's `limit` are masked to -inf (N, but for B2
+// its n_valid and for B11 N rounded up to 8, whose zero keys score 0 and
+// take part in the max); m is the exact row max (a running max would round
+// bf16(w) or bf16(e) against another max than the TPU kernels).
 //
 // Layout (see attention_natural.cu's header for the design):
 //  - q, K and V come straight from the [B, N, H * 64] views by 16-byte
@@ -24,9 +29,9 @@
 //    depends on the grid.
 //  - A CTA takes its tiles in turn over K and V loaded once where they stay
 //    resident, the next round's q in flight behind the current softmax.
-//    The train grid instead cuts the flattened (batch, head group, tile)
-//    rounds into equal spans, one a CTA, and reloads K and V where a span
-//    crosses into the next (batch, head group).
+//    The balanced grid (BAL) instead cuts the flattened (batch, head group,
+//    tile) rounds into equal spans, one a CTA, and reloads K and V where a
+//    span crosses into the next (batch, head group).
 //  - The row groups share only K and V: where those stay resident, a row
 //    group's warps wait for each other alone, on a named barrier.
 //  The launch plan is ops/attention.py:_natural_plan (field for field).
@@ -52,8 +57,17 @@ struct NaturalPlan {
   int k_off, v_off, q_off, red_off, part_off;  // shared-memory byte offsets
   int span, total;  // train: rounds a CTA, of `total` (batch, y, round); else 0
   long long q_row, k_row, v_row;                // row strides (elements)
-  float scale;  // natural: 1 / sqrt(D); train: bf16(scale * log2 e)
+  float scale;  // natural: 1 / sqrt(D); train, deferred: bf16(scale * log2 e)
+  int limit;    // keys at or past it are masked: N; B2 n_valid; B11 round_up(N, 8)
+  int npad;     // deferred: zero keys below `limit` whose share comes off l; else 0
 };
+
+// The softmax epilogue of rows_attention (see the header).
+enum class Epilogue { kNatural, kTrain, kDeferred };
+
+// The grid of rows_attention: its own (x, y, batch), the balanced one, or
+// the one the plan's span names (0: its own).
+enum class Grid { kOwn, kBalanced, kPlan };
 
 // What the train epilogue adds: the dropout and the statistics.
 struct TrainRows {
@@ -62,6 +76,12 @@ struct TrainRows {
   int np;        // round_up(N, 8): the hash lattice
   int dropout;   // 0 or 1
   float coef;    // 1 / (1 - rate)
+};
+
+// B2's RoPE tables, [N, 64] fp32 each, read only with ROPE.
+struct RopeTables {
+  const float* cos;
+  const float* sin;
 };
 
 namespace {
@@ -139,6 +159,56 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// bf16(bf16(x * bf16(c)) + bf16(y * bf16(s))) for bf16 x and y: RoPE's
+// half of one element, each operation rounded (the fp32 product of two
+// bf16 values is exact, so each rounds once; no FMA contracts across a
+// rounding).  The caller's store rounds the sum.
+__device__ __forceinline__ float rope_half(float x, float y, float c, float s) {
+  const float cb = __bfloat162float(__float2bfloat16_rn(c));
+  const float sb = __bfloat162float(__float2bfloat16_rn(s));
+  const float a = __bfloat162float(__float2bfloat16_rn(__fmul_rn(x, cb)));
+  const float b = __bfloat162float(__float2bfloat16_rn(__fmul_rn(y, sb)));
+  return __fadd_rn(a, b);
+}
+
+// RoPE (the half rotation: element d < 32 pairs with d + 32) in place on
+// `n` rows of 64 at stride STR in shared memory, row i at position
+// pos0 + i; with SCALE then bf16(x * scale), one rounding.  Rows at
+// positions at or past N (zero) are left alone.  Thread t of `threads`
+// takes VEC adjacent elements of each half in turn.
+template <bool SCALE, int VEC>
+__device__ __forceinline__ void rope_rows(__nv_bfloat16* x, int n, int pos0, int N,
+                                          const RopeTables& rt, __nv_bfloat162 scale, int t,
+                                          int threads) {
+  constexpr int PER_ROW = D / 2 / VEC;
+  for (int c = t; c < n * PER_ROW; c += threads) {
+    const int i = c / PER_ROW, d = (c % PER_ROW) * VEC, pos = pos0 + i;
+    if (pos >= N) break;  // c grows with i
+#pragma unroll
+    for (int h = 0; h < VEC; h += 2) {
+      __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(x + i * STR + d + h);
+      __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(x + i * STR + d + h + D / 2);
+      const float* cr = rt.cos + (long long)pos * D + d + h;
+      const float* sr = rt.sin + (long long)pos * D + d + h;
+      const float2 cl = __ldg(reinterpret_cast<const float2*>(cr));
+      const float2 ch = __ldg(reinterpret_cast<const float2*>(cr + D / 2));
+      const float2 sl = __ldg(reinterpret_cast<const float2*>(sr));
+      const float2 sh = __ldg(reinterpret_cast<const float2*>(sr + D / 2));
+      const float2 a = __bfloat1622float2(*lo), b = __bfloat1622float2(*hi);
+      __nv_bfloat162 a2 = __floats2bfloat162_rn(rope_half(a.x, -b.x, cl.x, sl.x),
+                                                rope_half(a.y, -b.y, cl.y, sl.y));
+      __nv_bfloat162 b2 = __floats2bfloat162_rn(rope_half(b.x, a.x, ch.x, sh.x),
+                                                rope_half(b.y, a.y, ch.y, sh.y));
+      if (SCALE) {
+        a2 = __hmul2(a2, scale);
+        b2 = __hmul2(b2, scale);
+      }
+      *lo = a2;
+      *hi = b2;
+    }
+  }
+}
+
 // The counter-hash dropout of the JAX package (lowbias32).
 __device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
   x ^= x >> 16;
@@ -190,14 +260,19 @@ __device__ __forceinline__ void weights(const float (&s)[NT][4], uint32_t (&wa)[
 // One CTA: blockIdx.x the group of row tiles, blockIdx.y the q-head (B15,
 // B10) or the kv-head (B16), blockIdx.z the batch.  Warp w: key chunk
 // j = w % W of the pair w / W, which is row group pair % R of head slot
-// pair / R.  `tr` is read only by the train epilogue; DROP (train only):
-// the dropout is on.
-template <bool TRAIN, bool DROP>
+// pair / R.  `tr` is read only by the train epilogue, `rt` only with
+// ROPE.  DROP (train only): the dropout is on.  ROPE (deferred only, B2):
+// q and K are rotated in shared memory before their product, and q is
+// scaled there too (B11 and train scale q at its fragment load: the
+// placements that left each kernel without spills; one rounding either
+// way, after RoPE).
+template <Epilogue EPI, bool DROP, bool ROPE, Grid GRID>
 __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__ q,
                                                const __nv_bfloat16* __restrict__ k,
                                                const __nv_bfloat16* __restrict__ v,
                                                __nv_bfloat16* __restrict__ out, const NaturalPlan& p,
-                                               const TrainRows& tr) {
+                                               const TrainRows& tr, const RopeTables& rt) {
+  constexpr bool NATURAL = EPI == Epilogue::kNatural, TRAIN = EPI == Epilogue::kTrain;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);
@@ -208,6 +283,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int W = p.W, N = p.N;
+  const int limit = NATURAL || TRAIN ? N : p.limit;  // the plan's limit is N there
   const int j = warp % W, pair = warp / W, pairs = blockDim.x / 32 / W;
   const int R = p.rows / 16, r = pair % R, hs = pair / R;
   const int key0 = j * NT * 8;
@@ -216,19 +292,20 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale);  // exact: a bf16 value
 
   // Round rd of the CTA: batch b, q-heads head0 + [0, heads), row tile
-  // `tile`, head slots hr * hc + [0, hc).  natural: the grid's own (x, y,
-  // batch), tile x * row_rounds + rd / head_rounds; train: round
+  // `tile`, head slots hr * hc + [0, hc).  The grid's own (x, y, batch),
+  // tile x * row_rounds + rd / head_rounds; balanced: round
   // blockIdx.x * span + rd of the flattened (batch, y, tile, hr) list, so
   // that the rounds spread evenly over the SMs.
   struct Round {
     int b, head0, tile, hr;
   };
   const int per_y = p.row_rounds * p.head_rounds;  // rounds of one (batch, y)
-  const int first = TRAIN ? blockIdx.x * p.span : 0;
-  const int rounds = TRAIN ? min(p.span, p.total - first) : per_y;
+  const bool BAL = GRID == Grid::kBalanced || (GRID == Grid::kPlan && p.span > 0);
+  const int first = BAL ? blockIdx.x * p.span : 0;
+  const int rounds = BAL ? min(p.span, p.total - first) : per_y;
   auto round_of = [&](int rd) {
     Round o;
-    if (TRAIN) {
+    if (BAL) {
       const int f = first + rd, by = f / per_y, rr = f - by * per_y, ny = p.hq / p.heads;
       o.b = by / ny;
       o.head0 = (by - o.b * ny) * p.heads;
@@ -272,7 +349,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       asm volatile("bar.sync %0, %1;\n" ::"r"(1 + pair), "r"(W * 32) : "memory");
   };
   // cp.async groups: [K, q of round 0] then [V] where K and V are resident
-  // together (train: [K], [V] again where the batch or y changes); else
+  // together (balanced: [K], [V] again where the batch or y changes); else
   // [K (+ q of round 0)] each round and [V] after the scores.  The next
   // round's q is one more group, issued once the pair's scores are done
   // with its q rows.
@@ -287,7 +364,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
   for (int rd = 0; rd < rounds; ++rd) {
     const Round cur = round_of(rd);
     bool fresh = rd == 0;  // K and V land in this round
-    if (TRAIN && p.resident && rd > 0) {
+    if (BAL && p.resident && rd > 0) {
       const Round before = round_of(rd - 1);
       if (before.b != cur.b || before.head0 != cur.head0) {
         fresh = true;
@@ -308,10 +385,17 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     else
       wait_copies<0>();
     sync(whole || fresh);
+    if (ROPE) {  // K where it landed this round (every thread), the pair's q rows scaled
+      const bool k_new = fresh || !p.resident;
+      if (k_new) rope_rows<false, 2>(ks, p.nk, 0, N, rt, scale2, threadIdx.x, blockDim.x);
+      rope_rows<true, 4>(qs + pair * 16 * STR, 16, cur.tile * p.rows + r * 16, N, rt, scale2,
+                         j * 32 + lane, W * 32);
+      sync(whole || k_new);
+    }
 
     // s over the warp's keys: s[nt][0..1] row gid, s[nt][2..3] row gid + 8,
-    // keys key0 + nt*8 + tig*2 + {0, 1}.  natural: (q @ k^T) * scale; train:
-    // q' @ k^T, q' = bf16(q * scale2).  The depth (kk) outermost: one q
+    // keys key0 + nt*8 + tig*2 + {0, 1}.  natural: (q @ k^T) * scale; train
+    // and deferred: q' @ k^T, q' = bf16(q * scale2).  The depth (kk) outermost: one q
     // fragment live at a time.
     float s[NT][4];
 #pragma unroll
@@ -321,7 +405,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       uint32_t qa[4];
       ldsm4(qa, smem_u32(qs + (pair * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 +
                          (lane >> 4) * 8));
-      if (TRAIN) {
+      if (!NATURAL && !ROPE) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) qa[i] = mul_pair(qa[i], scale2);
       }
@@ -337,14 +421,14 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      if (!TRAIN) {
+      if (NATURAL) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[nt][i] = __fmul_rn(s[nt][i], p.scale);
       }
-      if (key0 + nt * 8 + 8 > N) {  // the tile reaches past N
+      if (key0 + nt * 8 + 8 > limit) {  // the tile reaches past the limit
         const int col = key0 + nt * 8 + tig * 2;
-        if (col >= N) s[nt][0] = s[nt][2] = -INFINITY;
-        if (col + 1 >= N) s[nt][1] = s[nt][3] = -INFINITY;
+        if (col >= limit) s[nt][0] = s[nt][2] = -INFINITY;
+        if (col + 1 >= limit) s[nt][1] = s[nt][3] = -INFINITY;
       }
       m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
       m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
@@ -372,13 +456,13 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       m1 = fmaxf(m1, red_max[jj * 16 + gid + 8]);
     }
 
-    // e = expf(s - m) (train: exp2f) in place, and the row sums in a fixed
-    // order.
+    // e = expf(s - m) (train, deferred: exp2f) in place, and the row sums in
+    // a fixed order.
     float l0 = 0.f, l1 = 0.f;
     bool rare = false;  // a score below 2^-100: the exact divide's slow form
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      if (TRAIN) {
+      if (!NATURAL) {
         s[nt][0] = exp2f(__fsub_rn(s[nt][0], m0));
         s[nt][1] = exp2f(__fsub_rn(s[nt][1], m0));
         s[nt][2] = exp2f(__fsub_rn(s[nt][2], m1));
@@ -393,7 +477,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       l0 = __fadd_rn(__fadd_rn(l0, s[nt][0]), s[nt][1]);
       l1 = __fadd_rn(__fadd_rn(l1, s[nt][2]), s[nt][3]);
     }
-    if (!TRAIN) rare = __any_sync(0xffffffffu, rare);
+    if (NATURAL) rare = __any_sync(0xffffffffu, rare);
 #pragma unroll
     for (int o = 1; o <= 2; o <<= 1) {  // a + b == b + a: every lane of a quad agrees
       l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, o));
@@ -419,6 +503,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
 
     // train: the statistics of the row and its output factor coef / l
     // (correctly rounded), once a row, here so that m and l die early.
+    // (deferred: 1 / l after the value product.)
     float f0 = 1.f, f1 = 1.f;
     if (TRAIN) {
       if (j == 0 && tig == 0 && store) {
@@ -432,10 +517,11 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
 
     // The A fragments of the value product, 16 keys a k-step.  natural:
     // w = bf16(e / l), branch-free unless a score of the warp is below
-    // 2^-100.  train: bf16(e) after the dropout zeroing (l is summed).
+    // 2^-100.  train: bf16(e) after the dropout zeroing (l is summed);
+    // deferred: bf16(e).
     uint32_t wa[NT / 2][4];
-    if (TRAIN) {
-      if (DROP && ra - gid < N) {  // the warp holds a row before N
+    if (!NATURAL) {
+      if (TRAIN && DROP && ra - gid < N) {  // the warp holds a row before N
         const uint32_t st = stream_of(cur.b, cur.head0 + slot, tr.seed);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -474,8 +560,30 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       }
     }
 
+    if (EPI == Epilogue::kDeferred) {
+      // 1 / l (correctly rounded) from the row sums in shared memory, again
+      // in warp order, so that l is not live across the product; B11 first
+      // takes its zero keys' share off the combined l, once.
+      f0 = red_sum[gid];
+      f1 = red_sum[gid + 8];
+      for (int jj = 1; jj < W; ++jj) {
+        f0 = __fadd_rn(f0, red_sum[jj * 16 + gid]);
+        f1 = __fadd_rn(f1, red_sum[jj * 16 + gid + 8]);
+      }
+      if (!ROPE && p.npad) {
+        float a = red_max[gid], b = red_max[gid + 8];
+        for (int jj = 1; jj < W; ++jj) {
+          a = fmaxf(a, red_max[jj * 16 + gid]);
+          b = fmaxf(b, red_max[jj * 16 + gid + 8]);
+        }
+        f0 = __fsub_rn(f0, __fmul_rn((float)p.npad, exp2f(-a)));
+        f1 = __fsub_rn(f1, __fmul_rn((float)p.npad, exp2f(-b)));
+      }
+      f0 = markstein(1.f, f0, reciprocal(f0));
+      f1 = markstein(1.f, f1, reciprocal(f1));
+    }
     auto out_pair = [&](float x, float y, float f) {
-      return TRAIN ? pack2(__fmul_rn(x, f), __fmul_rn(y, f)) : pack2(x, y);
+      return NATURAL ? pack2(x, y) : pack2(__fmul_rn(x, f), __fmul_rn(y, f));
     };
 
     // The W partial outputs added in warp order, rounded once.

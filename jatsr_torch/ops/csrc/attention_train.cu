@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1) train_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const TrainRows tr) {
-  rows_attention<true, DROP>(q, k, v, out, p, tr);
+  rows_attention<Epilogue::kTrain, DROP, false, Grid::kBalanced>(q, k, v, out, p, tr, RopeTables{});
 }
 
 // Launch 1 of the backward: eight threads a (batch, row < T * 64, q-head),

@@ -1,10 +1,11 @@
-// The attention body the port's flash attention kernels share, for Hopper:
-// B2 and B12 (flash_qkv.cu) and B11 (attention_split.cu).  (B15 and B16
-// have a body of their own, attention_natural.cu.)
-// Each of those files first writes the exact shared-memory images of q, K
-// and V^T to scratch with its own prep launch (q [B,Hq,nk,KSTR], K
-// [B,Hkv,nk,KSTR], V^T [B,Hkv,D,nk+8]; rows >= N are zero; nk = N rounded
-// up to 64), then launches attention_kernel below.
+// The attention body of B12, the flash attention with the int8 out
+// projection fused in (flash_qkv.cu).  (B2 and B11 run attention_rows.cuh's
+// body with its deferred epilogue, attention_deferred.cu; B15 and B16 its
+// natural one.)
+// flash_qkv.cu first writes the exact shared-memory images of q, K and V^T
+// to scratch with its prep launch (q [B,Hq,nk,KSTR], K [B,Hkv,nk,KSTR], V^T
+// [B,Hkv,D,nk+8]; rows >= N are zero; nk = N rounded up to 64), then
+// launches attention_kernel below.
 //
 // A CTA of 4 warps owns a 64-row query tile of one q-head; each warp owns
 // 16 query rows.  The CTA copies its kv-head's K and V^T (and the q tile) into
@@ -12,13 +13,13 @@
 // operands are contiguous 32-bit loads; row strides are padded by 8 bf16 so
 // fragment loads hit 32 distinct banks.
 //
-// The TPU kernels keep the whole [N, N] score tile in VMEM and take one row
-// max; an online (running-max) softmax would round bf16(e) against another
-// max than the TPU kernels.  So the kernel makes passes over the keys: pass
-// 1 takes the exact row max; kNormalised then takes the row sum of e (so
-// that w = bf16(e / l) can round before its product); the last pass forms e
-// or w and accumulates it @ v in registers.  The score product runs two or
-// three times, which is cheaper than an HBM round trip of the fp32 scores.
+// The TPU kernel keeps the whole [N, N] score tile in VMEM and takes one row
+// max; an online (running-max) softmax would round bf16(w) against another
+// max than the TPU kernel.  So the kernel makes three passes over the keys:
+// the exact row max; the row sum of e (so that w = bf16(e / l) can round
+// before its product); then w, accumulated @ v in registers.  The score
+// product runs three times, which is cheaper than an HBM round trip of the
+// fp32 scores.
 
 #pragma once
 
@@ -33,16 +34,6 @@ constexpr int D = 64;          // head dim; the wrappers check
 constexpr int BQ = 64;         // query rows per CTA
 constexpr int BKEY = 64;       // keys per inner block
 constexpr int KSTR = D + 8;    // smem row stride of K and q (bf16 elements)
-
-// How a kernel forms its softmax from the scores of the prepared q and K.
-enum Softmax {
-  // B2, B11: q carries bf16(scale * log2 e); e = exp2f(s - m); o = bf16(e) @ v
-  // times 1 / (sum(e) - npad * exp2f(-m)), where npad zero keys take part in
-  // the row max and the sum (B11; 0 for B2).
-  kDeferred,
-  // B12: the same scores and e; w = bf16(e / sum(e)), a true divide; o = w @ v.
-  kNormalised,
-};
 
 // Keys covered by the shared-memory images of N rows.
 __host__ __device__ __forceinline__ int key_rows(int N) { return (N + BKEY - 1) / BKEY * BKEY; }
@@ -70,12 +61,11 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
 
 // One warp's 16 query rows of q-head h in the tile qt, from the q tile qs
 // and the kv-head's ks and vt in shared memory, into out [B, N, hq * 64].
-// Keys at col >= n_valid are masked.
-template <Softmax SM>
+// q carries bf16(scale * log2 e); keys at col >= n_valid are masked;
+// e = exp2f(s - m); w = bf16(e / sum(e)), a true divide; o = bf16(w @ v).
 __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloat16* vt,
                                        const __nv_bfloat16* qs, __nv_bfloat16* __restrict__ out,
-                                       int qt, int h, int b, int N, int n_valid, int npad,
-                                       int hq, int nk) {
+                                       int qt, int h, int b, int N, int n_valid, int hq, int nk) {
   const int vstr = nk + 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -134,42 +124,36 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
 
-  constexpr bool NORM = SM != kDeferred;
   float l0 = 0.f, l1 = 0.f;
-  if (NORM) {
-    for (int jb = 0; jb < nblk; ++jb) {  // the row sum of e, before any product
-      float s[8][4];
-      scores(jb, s);
+  for (int jb = 0; jb < nblk; ++jb) {  // the row sum of e, before any product
+    float s[8][4];
+    scores(jb, s);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        l0 += exp2f(s[nt][0] - m0) + exp2f(s[nt][1] - m0);
-        l1 += exp2f(s[nt][2] - m1) + exp2f(s[nt][3] - m1);
-      }
+    for (int nt = 0; nt < 8; ++nt) {
+      l0 += exp2f(s[nt][0] - m0) + exp2f(s[nt][1] - m0);
+      l1 += exp2f(s[nt][2] - m1) + exp2f(s[nt][3] - m1);
     }
-    quad_sum(l0, l1);
   }
+  quad_sum(l0, l1);
 
   float acc[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  for (int jb = 0; jb < nblk; ++jb) {  // e (and sum(e)) or w, then @ v
+  for (int jb = 0; jb < nblk; ++jb) {  // w, then @ v
     float s[8][4];
     scores(jb, s);
+    // e, then w, as two statements: as one expression ptxas gave the kernel
+    // 119 registers instead of 117, and it ran 5 % slower on an H100.
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       s[nt][0] = exp2f(s[nt][0] - m0);
       s[nt][1] = exp2f(s[nt][1] - m0);
       s[nt][2] = exp2f(s[nt][2] - m1);
       s[nt][3] = exp2f(s[nt][3] - m1);
-      if (NORM) {
-        s[nt][0] = __fdiv_rn(s[nt][0], l0);
-        s[nt][1] = __fdiv_rn(s[nt][1], l0);
-        s[nt][2] = __fdiv_rn(s[nt][2], l1);
-        s[nt][3] = __fdiv_rn(s[nt][3], l1);
-      } else {
-        l0 += s[nt][0] + s[nt][1];
-        l1 += s[nt][2] + s[nt][3];
-      }
+      s[nt][0] = __fdiv_rn(s[nt][0], l0);
+      s[nt][1] = __fdiv_rn(s[nt][1], l0);
+      s[nt][2] = __fdiv_rn(s[nt][2], l1);
+      s[nt][3] = __fdiv_rn(s[nt][3], l1);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // keys kk*16 .. kk*16+15 of the block
@@ -184,16 +168,6 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
       }
     }
   }
-  float rr0 = 1.0f, rr1 = 1.0f;
-  if (!NORM) {
-    quad_sum(l0, l1);
-    if (npad) {  // the zero keys' share of the sum, each rounded as the TPU kernel rounds it
-      l0 = __fsub_rn(l0, __fmul_rn((float)npad, exp2f(-m0)));
-      l1 = __fsub_rn(l1, __fmul_rn((float)npad, exp2f(-m1)));
-    }
-    rr0 = 1.0f / l0;
-    rr1 = 1.0f / l1;
-  }
 
   const int row0 = qt * BQ + r0 + gid, row1 = row0 + 8;
   const int ostr = hq * D;
@@ -202,19 +176,18 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* ks, const __nv_bfloa
     const int col = h * D + dt * 8 + tig * 2;
     if (row0 < N)
       *reinterpret_cast<uint32_t*>(out + ((size_t)b * N + row0) * ostr + col) =
-          NORM ? pack2(acc[dt][0], acc[dt][1]) : pack2(acc[dt][0] * rr0, acc[dt][1] * rr0);
+          pack2(acc[dt][0], acc[dt][1]);
     if (row1 < N)
       *reinterpret_cast<uint32_t*>(out + ((size_t)b * N + row1) * ostr + col) =
-          NORM ? pack2(acc[dt][2], acc[dt][3]) : pack2(acc[dt][2] * rr1, acc[dt][3] * rr1);
+          pack2(acc[dt][2], acc[dt][3]);
   }
 }
 
 // A CTA per (64-row query tile, q-head, batch).
-template <Softmax SM>
 __global__ void __launch_bounds__(128) attention_kernel(
     const __nv_bfloat16* __restrict__ qp, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vtp, __nv_bfloat16* __restrict__ out, int N, int n_valid,
-    int npad, int hq, int hkv, int nk) {
+    int hq, int hkv, int nk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vstr = nk + 8;
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [nk][KSTR]
@@ -229,7 +202,7 @@ __global__ void __launch_bounds__(128) attention_kernel(
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  attend<SM>(ks, vt, qs, out, qt, h, b, N, n_valid, npad, hq, nk);
+  attend(ks, vt, qs, out, qt, h, b, N, n_valid, hq, nk);
 }
 
 // Dynamic shared memory of attention_kernel for N keys.
@@ -257,16 +230,15 @@ Images images(void* scratch, int B, int N, int hq, int hkv) {
 }
 
 // attention_kernel on prepared images into out [B, N, hq * 64] bf16.
-template <Softmax SM>
 cudaError_t run_attention(const Images& im, __nv_bfloat16* out, int B, int N, int n_valid,
-                          int npad, int hq, int hkv, cudaStream_t st) {
+                          int hq, int hkv, cudaStream_t st) {
   const int smem = smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<SM>,
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((N + BQ - 1) / BQ, hq, B);
-  attention_kernel<SM><<<grid, 128, smem, st>>>(im.q, im.k, im.vt, out, N, n_valid, npad, hq,
-                                                hkv, key_rows(N));
+  attention_kernel<<<grid, 128, smem, st>>>(im.q, im.k, im.vt, out, N, n_valid, hq, hkv,
+                                            key_rows(N));
   return cudaGetLastError();
 }
 

@@ -1,53 +1,42 @@
-// Flash GQA attention from the unsplit fused-QKV projection, for Hopper.
+// Flash GQA attention with the int8 out projection fused in, for Hopper.
 //
-// Replaces the TPU kernel gqa_attention_flash_qkv (_attn_kernel_flash_qkv,
-// default branch: no int8_qk, no bf16_weights) in the JAX package's
-// ops/attention.py.  Same math and rounding points:
+// Replaces the TPU kernel gqa_attention_flash_out (_attn_kernel_flash_out
+// in the JAX package's ops/attention.py, :534, pallas_call :565), B12: B2's
+// attention from the unsplit fused-QKV projection with NORMALISED weights,
+// then the row quant of the [N, Hq*D] output, the int8 out projection and
+// its bias.  Its rounding points:
 //   k, q  = RoPE in bf16: x*cos + rot(x)*sin, each op rounded to bf16
 //           (cos/sin are the fp32 tables cast to bf16 first)
 //   q     = bf16(q * bf16(scale * log2 e))
 //   s     = q @ k^T, fp32 accumulation; s = -inf where key col >= n_valid
 //   e     = exp2f(s - rowmax(s)), fp32 (no fast-math exp2)
-//   o     = (bf16(e) @ v) fp32, then * (1 / sum(e)), then bf16
+//   l     = sum(e) over the row, fp32
+//   w     = bf16(e / l), a true fp32 divide, rounded BEFORE the product
+//   o_h   = bf16(w @ v) per head, no rescale
+//   so    = max(max|o_row| * INV127, 1e-12) over the whole Hq*D row
+//   o_q   = rint(o / so); out = bf16(((float)(o_q @ wo) * so) * wos + bo)
+// (B2 itself, the same attention with deferred normalisation, is
+// attention_deferred.cu.)
 //
-// What bounds it on the H100: at the v3 serving shape (qkv [6, 345, 1792],
-// Hq=20, Hkv=4, D=64) the two products are 3.66 GFLOP (3.7 us at the
-// 989 TFLOP/s bf16 peak) against 12.9 MB of compulsory traffic (qkv and
-// the tables in, the output out: 3.9 us at 3.35 TB/s).  The two bounds
-// are level, bytes slightly ahead; the 14 M exp2 evaluations add SFU
-// work beside both.
+// What bounds it on the H100: at the serving shape (qkv [6, 352, 1792],
+// keys masked past 345, wo [1280, 1280]) it is 3.80 GFLOP bf16 (3.84 us at
+// 989 TFLOP/s) plus 6.92 G int8 operations (3.50 us at 1979 TOP/s) against
+// 14.6 MB (4.4 us at 3.35 TB/s): operations bound it.
 //
-// Design.  Two launches in one C call.
+// Design.  Four launches in one C call:
 //   1. flash_prep, fully parallel: RoPE and the q scale in bf16, and V
 //      transposed, written to scratch as the exact shared-memory images
 //      the attention CTAs use (flash_attn.cuh).  A first version did this
 //      inside every attention CTA, element by element: a serial chain of
 //      dependent loads that took most of the kernel's time.
-//   2. attention_kernel<kDeferred> of flash_attn.cuh: one CTA of 4 warps per
-//      (64-row query tile, q-head, batch), mma.sync m16n8k16 bf16, two
-//      passes over the keys (the exact row max, then bf16(e) @ v and
-//      sum(e)).  The score product runs twice (5.5 GFLOP in all instead of
-//      3.7), which is cheaper than an HBM round trip of the 57 MB fp32 score
-//      tensor.  Padded keys are zero and masked.
-//
-// The same file holds B12, gqa_attention_flash_out (_attn_kernel_flash_out
-// in the JAX package's ops/attention.py): B2's attention with NORMALISED
-// weights, then the row quant of the [N, Hq*D] output, the int8 out
-// projection and its bias.  Its rounding points where they differ from B2:
-//   l     = sum(e) over the row, fp32 (a third pass over the keys)
-//   w     = bf16(e / l), a true fp32 divide, rounded BEFORE the product
-//   o_h   = bf16(w @ v) per head, no rescale
-//   so    = max(max|o_row| * INV127, 1e-12) over the whole Hq*D row
-//   o_q   = rint(o / so); out = bf16(((float)(o_q @ wo) * so) * wos + bo)
-// At the serving shape (qkv [6, 352, 1792], keys masked past 345, wo
-// [1280, 1280]) it is 3.80 GFLOP bf16 (3.84 us at 989 TFLOP/s) plus 6.92 G
-// int8 operations (3.50 us at 1979 TOP/s) against 14.6 MB (4.4 us at
-// 3.35 TB/s): operations bound it.  Design: four launches in one C call,
-// flash_prep, attention_kernel<kNormalised> (it writes the bf16 o to
-// device memory), quant_rows and gemm_dequant<true> of
-// int8_gemm.cuh.  The TPU kernel keeps o in VMEM and quantises it there; a
-// CTA here owns one head of 64 rows, not the whole 1280-wide row the
-// quantisation needs, so o makes one round trip (5.4 MB, L2-resident).
+//   2. attention_kernel of flash_attn.cuh: one CTA of 4 warps per (64-row
+//      query tile, q-head, batch), mma.sync m16n8k16 bf16, three passes
+//      over the keys (the exact row max, the row sum, then w @ v); it
+//      writes the bf16 o to device memory.  Padded keys are zero and masked.
+//   3. quant_rows and 4. gemm_dequant<true> of int8_gemm.cuh.  The TPU
+//      kernel keeps o in VMEM and quantises it there; a CTA here owns one
+//      head of 64 rows, not the whole 1280-wide row the quantisation needs,
+//      so o makes one round trip (5.4 MB, L2-resident).
 
 #include "flash_attn.cuh"
 #include "int8_gemm.cuh"
@@ -103,7 +92,6 @@ __global__ void __launch_bounds__(256) flash_prep(
 }
 
 // flash_prep into scratch, then the attention kernel into out [B, N, hq * 64].
-template <Softmax SM>
 cudaError_t attention(const void* qkv, const void* cos_t, const void* sin_t, void* scratch,
                       __nv_bfloat16* out, int B, int N, int n_valid, int hq, int hkv,
                       float scale2, cudaStream_t st) {
@@ -114,7 +102,7 @@ cudaError_t attention(const void* qkv, const void* cos_t, const void* sin_t, voi
       nk, hq, hkv, scale2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return run_attention<SM>(im, out, B, N, n_valid, 0, hq, hkv, st);
+  return run_attention(im, out, B, N, n_valid, hq, hkv, st);
 }
 
 }  // namespace
@@ -126,27 +114,18 @@ extern "C" long long flash_qkv_scratch_bytes(int B, int N, int hq, int hkv) {
   return image_bytes(B, N, hq, hkv);
 }
 
-// qkv [B, N, (hq + 2 hkv) * 64] bf16, cos/sin [N, 64] f32 -> out [B, N, hq * 64]
-// bf16.  scale2 is bf16(scale * log2 e), passed as a float.  scratch holds
-// flash_qkv_scratch_bytes(B, N, hq, hkv) bytes.
-extern "C" int flash_qkv(const void* qkv, const void* cos_t, const void* sin_t, void* scratch,
-                         void* out, int B, int N, int n_valid, int hq, int hkv, float scale2,
-                         void* stream) {
-  return attention<kDeferred>(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)out, B, N, n_valid,
-                              hq, hkv, scale2, (cudaStream_t)stream);
-}
-
-// B12.  As flash_qkv, then the out projection: wo [hq * 64, H] s8, wos and
-// bo [H] f32 -> out [B, N, H] bf16.  Scratch besides the prep images: o
-// [B * N, hq * 64] bf16, oq [B * N, hq * 64] s8, so [B * N] f32.  Needs
-// H % 128 == 0.
+// qkv [B, N, (hq + 2 hkv) * 64] bf16, cos/sin [N, 64] f32, wo [hq * 64, H]
+// s8, wos and bo [H] f32 -> out [B, N, H] bf16.  scale2 is bf16(scale *
+// log2 e), passed as a float.  scratch holds flash_qkv_scratch_bytes(B, N,
+// hq, hkv) bytes of prep images; besides them o [B * N, hq * 64] bf16, oq
+// [B * N, hq * 64] s8, so [B * N] f32.  Needs H % 128 == 0.
 extern "C" int flash_out(const void* qkv, const void* cos_t, const void* sin_t, const void* wo,
                          const void* wos, const void* bo, void* scratch, void* o, void* oq,
                          void* so, void* out, int B, int N, int n_valid, int hq, int hkv, int H,
                          float scale2, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = attention<kNormalised>(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)o, B, N,
-                                         n_valid, hq, hkv, scale2, st);
+  cudaError_t e = attention(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)o, B, N, n_valid, hq,
+                            hkv, scale2, st);
   if (e != cudaSuccess) return e;
   const int M = B * N, K = hq * D;
   quant_rows<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (int8_t*)oq, (float*)so,

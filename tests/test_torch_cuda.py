@@ -45,7 +45,9 @@ kernel's fp32 sums run in another order, which can move a normalised weight
 or a head's output by one bf16 ulp and so a code of the row quantisation by
 one; max abs error <= 1e-2 x max |plain|.  The split q/k/v attention
 kernels (B11, B15, B16): atol = rtol = 2e-2, as the other attention kernels;
-B15 and B16 bit-equal to each other.
+B15 and B16 bit-equal to each other.  B2 and B11 (one body) are each
+bit-equal on their two grids, and B2 is bit-equal to B11 on PyTorch's bf16
+RoPE of q and k where N % 8 == 0 and no key is masked.
 """
 
 import numpy as np
@@ -342,17 +344,85 @@ def test_split_attention_kernels_match_plain(card, B, N, hq, hkv):
             gqa_attention_grouped.launches) == tuple(n + 1 for n in n0)
 
 
-def test_split_flash_kernel_keeps_the_padding_in_the_max(card):
-    """Every real score negative: the zero keys padding N = 90 to 96 set
-    the row max, in the kernel as in its plain version."""
+@pytest.mark.parametrize("B,N,hq,hkv", [(2, 90, 8, 2), (6, 345, 20, 4)])
+def test_split_flash_kernel_keeps_the_padding_in_the_max(card, B, N, hq, hkv):
+    """Every real score negative: the zero keys padding N = 90 to 96 (and
+    the serving shape's 345 to 352) set the row max, in the kernel as in
+    its plain version. v is about 1, so that every output is about 1 and
+    leaving the zero keys' share in l (7 % of it at N = 345) puts every
+    output about 2.8 times past the tolerance."""
     gen = torch.Generator(device=card).manual_seed(26)
-    q = torch.randn((2, 90, 8 * 64), generator=gen, device=card).abs()
-    k = -torch.randn((2, 90, 2 * 64), generator=gen, device=card).abs()
-    v = torch.randn((2, 90, 2 * 64), generator=gen, device=card)
-    q, k, v = (x.mul(0.5).bfloat16() for x in (q, k, v))
-    got = gqa_attention_flash(q, k, v, 8, 2).float()
-    torch.testing.assert_close(got, flash_split_plain(q, k, v, 8, 2).float(),
+    q = torch.randn((B, N, hq * 64), generator=gen, device=card).abs()
+    k = -torch.randn((B, N, hkv * 64), generator=gen, device=card).abs()
+    v = torch.randn((B, N, hkv * 64), generator=gen, device=card)
+    q, k, v = (x.mul(0.5).bfloat16() for x in (q, k, v + 2))
+    got = gqa_attention_flash(q, k, v, hq, hkv).float()
+    torch.testing.assert_close(got, flash_split_plain(q, k, v, hq,
+                                                      hkv).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+DEFERRED = [(2, N, 0, 10, 2) for N in (1, 17, 64, 65, 345, 513, 768)] + [
+    (6, 352, 345, 20, 4)]
+
+
+@pytest.mark.parametrize("B,N,n_valid,hq,hkv", DEFERRED)
+def test_flash_deferred_kernels_match_plain_on_both_grids(card, B, N,
+                                                          n_valid, hq, hkv):
+    """B2 and B11 (one launch each, counted once) against their plain
+    versions across the kernels' range of N (one and several key chunks,
+    K and V resident or not), with k and v column-slice views; each
+    bit-equal on the per-kv-head and the balanced grid (no row's arithmetic
+    depends on the grid)."""
+    from jatsr_torch.ops.attention import _flash_deferred
+
+    gen = torch.Generator(device=card).manual_seed(31 + N)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
+                      device=card).bfloat16()
+    cos, sin = rope_cos_sin(N, 64, device=card)
+    n0 = gqa_attention_flash_qkv.launches
+    got = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, n_valid=n_valid)
+    assert gqa_attention_flash_qkv.launches == n0 + 1
+    torch.testing.assert_close(
+        got.float(), flash_qkv_plain(qkv, cos, sin, hq, hkv,
+                                     n_valid=n_valid).float(),
+        atol=2e-2, rtol=2e-2)
+    q, k, v = (qkv[..., :hq * 64], qkv[..., hq * 64:(hq + hkv) * 64],
+               qkv[..., (hq + hkv) * 64:])
+    n0 = gqa_attention_flash.launches
+    got_split = gqa_attention_flash(q, k, v, hq, hkv)
+    assert gqa_attention_flash.launches == n0 + 1
+    torch.testing.assert_close(
+        got_split.float(), flash_split_plain(q, k, v, hq, hkv).float(),
+        atol=2e-2, rtol=2e-2)
+    for balanced in (False, True):
+        assert torch.equal(got, _flash_deferred(
+            q, k, v, hq, hkv, n_valid or N, cos, sin, balanced=balanced))
+        assert torch.equal(got_split, _flash_deferred(
+            q, k, v, hq, hkv, None, balanced=balanced))
+
+
+def test_flash_qkv_equals_flash_split_on_roped_inputs(card):
+    """B2 on the unsplit qkv [6, 352, 1792] (RoPE inside, no key masked)
+    bit-equal to B11 on PyTorch's bf16 RoPE of q and k and on v: N % 8 == 0,
+    so B11 has no zero keys, and the kernels' RoPE rounds each operation as
+    PyTorch's does (an FMA contraction or a missed rounding of the tables
+    would show here)."""
+    from jatsr_torch.ops.attention import _rope
+
+    B, N, hq, hkv = 6, 352, 20, 4
+    gen = torch.Generator(device=card).manual_seed(32)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
+                      device=card).bfloat16()
+    cos, sin = rope_cos_sin(N, 64, device=card)
+    heads = qkv.reshape(B, N, hq + 2 * hkv, 64)
+    cb, sb = cos.bfloat16()[:, None], sin.bfloat16()[:, None]
+    q = _rope(heads[:, :, :hq], cb, sb).reshape(B, N, hq * 64)
+    k = _rope(heads[:, :, hq:hq + hkv], cb, sb).reshape(B, N, hkv * 64)
+    v = qkv[..., (hq + hkv) * 64:]
+    a = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv)
+    b = gqa_attention_flash(q, k, v, hq, hkv)
+    assert torch.equal(a, b), (a.float() - b.float()).abs().max().item()
 
 
 @pytest.mark.parametrize("G", [1, 2, 5])
