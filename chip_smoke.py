@@ -36,6 +36,11 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   gqa_attention_grouped; the patch embed and every mlp_in run
   dense_gelu_quant; then the fused decode.
 
+The attention kernels are also held against their plain versions at head
+dim 32 (tiny's heads) and at N = 1000 (timed there too), with the
+bit-equalities at head dim 32, N = 864; B8 is the wgmma GEMM of
+``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0.
+
 It checks each path's launch counts, the waveform, each full-width DiT on
 the card against the same DiT's plain path on the CPU at a small input,
 the full-width fused decoder on the card against its plain path on the
@@ -49,7 +54,8 @@ backward) against its plain versions at the v3 training shapes, then the
 ``create_train_state``, one counted step (B10 forward 56, backward 28),
 timed steps (finite losses, moved parameters), and one step of the same
 model (all 28 blocks, batch 4) on the card against the CPU (plain
-versions) on the same weights, batch and draws.
+versions) on the same weights, batch and draws; and one step of the tiny
+preset (head dim 32) on the card against the CPU.
 
 The timed passes of the six serving paths run in turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
@@ -142,6 +148,35 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def build_report(log_text: str):
+    """``(kernel, registers, spills)`` of each entry function in an
+    ``nvcc -Xptxas -v`` log, the name demangled where ``c++filt`` is on the
+    machine (a template's arguments show each head-dim instance)."""
+    import re
+
+    rows, name, spills = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif "spill stores" in line and name:
+            if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills = line.strip()
+        elif "Used " in line and " registers" in line and name:
+            rows.append([name, int(line.split("Used ")[1].split()[0]),
+                         spills])
+            name = None
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        for r, p in zip(rows, plain):
+            r[0] = p.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 def time_ms(fn, arg_sets, reps):
@@ -366,6 +401,120 @@ def check_split_attention(torch):
     out["flash_split"]["pad_keys_max_abs_err"] = (got - want).abs().max(
         ).item()
     return out
+
+
+# ---- the attention kernels at head dim 32 and past 768 keys ----------------
+# Each against its plain version under the path shapes' tolerances
+# (attention atol = rtol = 2e-2; B12 1e-2 x max |plain|): at tiny's heads
+# (4/2, head dim 32, N 345, keys masked past 340 for B2 and B12), and at
+# N = 1000, the largest patch count JAX's flash_supported admits at head dim
+# 16 (B2, B11, B12 at v1's 8/4 heads, out projection 512 wide; B15, B16 at
+# v3's 20/4; head dim 64), where each is also timed; and the bit-equalities
+# at head dim 32, N = 864.
+EXTRA_B = 6
+EXTRA_N = 1000
+
+
+def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
+                    timed):
+    """B2, B11, B12 on one fused projection, B15 and B16 on split views of
+    ``split_heads`` heads: {kernel: {"shape", "max_abs_err"[, "ms"]}}."""
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
+                                           flash_split_plain, gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_flash_out,
+                                           gqa_attention_flash_qkv,
+                                           gqa_attention_grouped,
+                                           gqa_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((EXTRA_B, N, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    cos, sin = rope_cos_sin(N, D, device="cuda")
+    q, k, v = (qkv[..., :hq * D], qkv[..., hq * D:(hq + hkv) * D],
+               qkv[..., (hq + hkv) * D:])
+    _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, seed + 1)
+    shq, shkv = split_heads
+    split = torch.randn((EXTRA_B, N, (shq + 2 * shkv) * D), generator=gen,
+                        device="cuda").bfloat16()
+    q4, k4, v4 = (split[..., a * D:b * D].reshape(EXTRA_B, N, -1, D)
+                  for a, b in ((0, shq), (shq, shq + shkv),
+                               (shq + shkv, shq + 2 * shkv)))
+    cases = {
+        "flash_qkv": (lambda: gqa_attention_flash_qkv(
+            qkv, cos, sin, hq, hkv, n_valid=n_valid), lambda: flash_qkv_plain(
+            qkv, cos, sin, hq, hkv, n_valid=n_valid), None),
+        "flash_split": (lambda: gqa_attention_flash(q, k, v, hq, hkv),
+                        lambda: flash_split_plain(q, k, v, hq, hkv), None),
+        "flash_out": (lambda: gqa_attention_flash_out(
+            qkv, cos, sin, wo_q, wo_s, bo, hq, hkv, n_valid=n_valid),
+            lambda: flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                    n_valid=n_valid), REL_FLASH_OUT),
+        "gqa_attention": (lambda: gqa_attention(q4, k4, v4),
+                          lambda: gqa_attention_plain(q4, k4, v4), None),
+        "gqa_attention_grouped": (lambda: gqa_attention_grouped(q4, k4, v4),
+                                  lambda: gqa_attention_plain(q4, k4, v4),
+                                  None),
+    }
+    out, got = {}, {}
+    for name, (kernel, plain, rel) in cases.items():
+        got[name] = kernel().float()
+        want = plain().float()
+        torch.cuda.synchronize()
+        err = (got[name] - want).abs().max().item()
+        if rel is None:
+            torch.testing.assert_close(got[name], want, atol=2e-2, rtol=2e-2)
+        elif not bool(torch.isfinite(got[name]).all()) or \
+                err > rel * want.abs().max().item():
+            raise AssertionError(f"{name} at N {N}, D {D}: max abs {err}")
+        heads = split_heads if name.startswith("gqa") else (hq, hkv)
+        out[name] = {"shape": [EXTRA_B, N, *heads, D], "max_abs_err": err}
+        if timed:
+            out[name]["ms"] = time_ms(lambda *_: kernel(), [()], 50)
+    if not torch.equal(got["gqa_attention"], got["gqa_attention_grouped"]):
+        raise AssertionError(f"gqa_attention and gqa_attention_grouped differ "
+                             f"at N {N}, D {D}")
+    return out
+
+
+def check_attention_extra(torch):
+    """The five serving attention kernels at head dim 32 and at N = 1000,
+    and the bit-equalities at head dim 32, N = 864 (see above)."""
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (_rope, gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_flash_qkv,
+                                           gqa_attention_grouped)
+
+    d32 = attention_extra(torch, 4, 2, 32, N_VALID, N_VALID - 5, 128,
+                          SEED + 30, (4, 2), timed=False)
+    far = attention_extra(torch, 8, 4, 64, EXTRA_N, EXTRA_N - 3, 512,
+                          SEED + 31, (20, 4), timed=True)
+    B_, N, hq, hkv, D = 2, 864, 4, 2, 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    qkv = torch.randn((B_, N, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    cos, sin = rope_cos_sin(N, D, device="cuda")
+    heads = qkv.reshape(B_, N, hq + 2 * hkv, D)
+    cb, sb = cos.bfloat16()[:, None], sin.bfloat16()[:, None]
+    q = _rope(heads[:, :, :hq], cb, sb)
+    k = _rope(heads[:, :, hq:hq + hkv], cb, sb)
+    v = heads[:, :, hq + hkv:]
+    a = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv)
+    b = gqa_attention_flash(q.reshape(B_, N, -1), k.reshape(B_, N, -1),
+                            v.reshape(B_, N, -1), hq, hkv)
+    if not torch.equal(a, b):
+        raise AssertionError("flash_qkv and flash_split on roped inputs "
+                             "differ at D 32, N 864")
+    if not torch.equal(gqa_attention(q, k, v), gqa_attention_grouped(q, k,
+                                                                      v)):
+        raise AssertionError("gqa_attention and gqa_attention_grouped "
+                             "differ at D 32, N 864")
+    log("[kernel] D 32, N 864: flash_qkv == flash_split on roped inputs, "
+        "gqa_attention == gqa_attention_grouped, bit for bit")
+    return {name: {"head_dim_32": d32[name], f"n_{EXTRA_N}": far[name]}
+            for name in d32}
 
 
 def dense_inputs(torch, M, K, N, seed):
@@ -850,6 +999,15 @@ def check_transpose(torch, ci, co, s, T):
                                   **kw).transpose(1, 2)
 
     m_out = (T - 1) * s - 2 * kw["padding"] + 2 * s + s % 2
+    gemm = {}
+    if entry is dk.snake_conv_transpose_streamed:
+        # B8's kernel alone, on the input its wrapper has snaked.
+        y = [dk.snake_b16(x, a) for _ in range(rotations(x.nbytes // 2))]
+        gemm["gemm_ms"] = time_ms(
+            lambda y: dk._launch_stream(y, w, b, s, kw["padding"],
+                                        kw["output_padding"]),
+            [(t,) for t in y], 20)
+        del y
     r = dac_check(torch, f"transpose {ci}->{co} s{s} T {T}",
                   lambda x, *_: entry(x, w, b, a, **kw),
                   lambda x, *_: dk.snake_conv_transpose_plain(x, w, b, a,
@@ -857,7 +1015,7 @@ def check_transpose(torch, ci, co, s, T):
                   library, (x, wt, bt), big=(0,),
                   nbytes=x.nbytes + nbytes_of(w, b, a) + m_out * co * 4,
                   ops=4 * ci * co * m_out, rel=REL_TRANSPOSE)
-    return {"shape": [1, T, ci, co], "stride": s, **r}
+    return {"shape": [1, T, ci, co], "stride": s, **r, **gemm}
 
 
 def check_dac_kernels(torch):
@@ -868,7 +1026,7 @@ def check_dac_kernels(torch):
     return {
         "snake_conv_transpose_streamed": per_launch(
             "snake_conv_transpose_streamed",
-            "jatsr_torch/ops/csrc/snake_tr.cu",
+            "jatsr_torch/ops/csrc/snake_tr_stream.cu",
             replaces.format(569, "_snake_conv_transpose_streamed", 604),
             ups[:1]),
         "snake_conv_transpose_fused": per_launch(
@@ -1165,20 +1323,115 @@ def check_attention_train(torch):
     replaces = ("ops/attention_train.py:340 (JAX package, "
                 "gqa_attention_train; {} pallas_call :{})")
     shape = [TRAIN_B, TRAIN_N, hq, hkv, D]
+    fwd32, bwd32 = check_attention_train_d32(torch)
     return {
         "attention_train_fwd": {
             "name": "attention_train_fwd", "route": "cuda",
             "source": "jatsr_torch/ops/csrc/attention_train.cu",
             "replaces": replaces.format("_fwd_call :258,", 266),
             "max_abs_err": err_f, **fwd, "bound_ms": b_f[0],
-            "bound_by": b_f[1], "shape": shape, "dropout": rate},
+            "bound_by": b_f[1], "shape": shape, "dropout": rate,
+            "head_dim_32": fwd32},
         "attention_train_bwd": {
             "name": "attention_train_bwd", "route": "cuda",
             "source": "jatsr_torch/ops/csrc/attention_train.cu",
             "replaces": replaces.format("_attn_train_bwd :300,", 312),
             "max_abs_err": err_b, "max_rel_to_max": rel_b, **bwd,
             "bound_ms": b_b[0], "bound_by": b_b[1], "shape": shape,
-            "dropout": rate}}
+            "dropout": rate, "head_dim_32": bwd32}}
+
+
+def check_attention_train_d32(torch):
+    """B10 forward and backward at tiny's heads (4/2) and head dim 32,
+    batch 4, N 345, dropout 0.1, against their plain versions (the
+    tolerances above), two runs of each bit-equal."""
+    from jatsr_torch.ops import attention_train as at
+
+    hq, hkv, D, rate, seed = 4, 2, 32, 0.1, -123456789
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    q, k, v, do = (torch.randn((4, TRAIN_N, w * D), generator=gen,
+                               device="cuda").bfloat16()
+                   for w in (hq, hkv, hkv, hq))
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    o2, stats2 = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(stats, stats2)):
+        raise AssertionError("B10 forward at D 32: two runs differ")
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    got = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    again = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    ref = at.attention_train_bwd_plain(q, k, v, o, do, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        e = (a.float() - r.float()).abs().max().item()
+        if not torch.equal(a, a2) or e > REL_ATTN_BWD * r.float().abs().max(
+                ).item():
+            raise AssertionError(f"B10 backward {name} at D 32: max abs {e}")
+        err_b = max(err_b, e)
+    shape = [4, TRAIN_N, hq, hkv, D]
+    return ({"shape": shape, "max_abs_err": (o.float() - want.float()).abs()
+             .max().item()}, {"shape": shape, "max_abs_err": err_b})
+
+
+def check_tiny_train_step(torch):
+    """One train step of the tiny preset (head dim 32: B10 at D = 32, twice
+    a block forward and once backward) on the card against the CPU on the
+    same weights, batch [4, 130, 1024] and draws: loss rtol 1e-2, grad norm
+    2e-2, updated parameters within 2 lr and 2 % of lr on average (the
+    card test's bounds)."""
+    import numpy as np
+
+    from jatsr_torch.configs import LossConfig, TrainConfig, get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    cfg = get_preset("tiny").model
+    C = cfg.input_channels
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, cfg_dropout_prob=0.2)
+    dense = random_dense_params(cfg, SEED + 34)
+    rng = np.random.default_rng(SEED + 35)
+    hr, lr = (torch.from_numpy(rng.standard_normal((4, 130, C),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    draws = {"noise": rng.standard_normal((4, 130, C), dtype=np.float32),
+             "u": rng.random(4, dtype=np.float32),
+             "cond_noise": rng.standard_normal((4, 130, C), dtype=np.float32),
+             "cfg_u": rng.random((4, 1, 1), dtype=np.float32),
+             "layer_seeds": [3, 4]}
+    ones = np.ones(C, np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
+                                   100, (hr, lr), device=dev)
+        step = make_train_step(LossConfig(), tcfg,
+                               Normalizer(0 * ones, ones, 0 * ones, ones,
+                                          device=dev))
+        n0 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        state, m = step(state, hr, lr, draws=draws)
+        n = (at.attention_train_fwd.launches - n0[0],
+             at.attention_train_bwd.launches - n0[1])
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in state.params], n)
+    (m_c, p_c, n_c), (m_g, p_g, n_g) = out["cpu"], out["cuda"]
+    p_max = max((a - b).abs().max().item() for a, b in zip(p_g, p_c))
+    p_mean = max((a - b).abs().mean().item() for a, b in zip(p_g, p_c))
+    log(f"[train tiny] card vs CPU: loss {m_g['loss']:.6f} vs "
+        f"{m_c['loss']:.6f}, grad_norm {m_g['grad_norm']:.6f} vs "
+        f"{m_c['grad_norm']:.6f}; params max {p_max / tcfg.lr:.3f} lr, worst "
+        f"leaf mean {p_mean / tcfg.lr:.5f} lr; B10 launches {n_g}")
+    if (n_c != (0, 0) or n_g != (2 * cfg.depth, cfg.depth)
+            or abs(m_g["loss"] - m_c["loss"]) > 1e-2 * abs(m_c["loss"])
+            or abs(m_g["grad_norm"] - m_c["grad_norm"])
+            > 2e-2 * m_c["grad_norm"]
+            or p_max > 2 * tcfg.lr * 1.01 or p_mean > 0.02 * tcfg.lr):
+        raise AssertionError("the tiny train step on the card disagrees "
+                             "with the CPU's")
 
 
 def train_batch(torch, cfg):
@@ -1422,17 +1675,14 @@ def main() -> int:
 
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
-               "mlp_full", "dac_res", "snake_tr", "attention_train",
-               "attention_deferred", "attention_natural")
+               "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
+               "attention_train", "attention_deferred", "attention_natural")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
-        regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                       for line in _build.build_log(name).splitlines()
-                       if "registers" in line})
-        spills = [line.strip() for line in _build.build_log(name).splitlines()
-                  if "spill" in line and " 0 bytes spill stores" not in line]
-        log(f"[build] {name}: registers {regs}, spills {spills or 'none'}")
+        for kernel, regs, spills in build_report(_build.build_log(name)):
+            log(f"[build] {name}: {kernel}: {regs} registers, "
+                f"{spills or 'no spills'}")
     phases.done("environment and build")
 
     # 3. Kernels against their plain versions at the paths' shapes.
@@ -1449,6 +1699,8 @@ def main() -> int:
         "int8_matmul": check_int8_matmul(torch),
         **check_split_attention(torch),
     }
+    for name, extra in check_attention_extra(torch).items():
+        checks[name].update(extra)
     patch = check_dense_gelu(torch, B * NP, 8192, 512)
     mlp_in = check_dense_gelu(torch, B * N_VALID, 1280, 5120)
     checks["dense_gelu_quant"] = {
@@ -1566,7 +1818,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("training")
     check_train_reference(torch, dense)
-    phases.done("training reference")
+    check_tiny_train_step(torch)
+    phases.done("training references")
 
     # Result lines.
     kernels = [dict(checks[k], launches=launches[

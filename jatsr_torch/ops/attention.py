@@ -112,17 +112,8 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
     from . import _build
 
     hq, hkv = num_q_heads, num_kv_heads
-    D = TD // (hq + 2 * hkv)
-    if qkv.dtype != torch.bfloat16 or D != 64:
-        raise TypeError(f"the flash kernels take bf16 with head dim 64, got "
-                        f"{qkv.dtype} with head dim {D}")
-    if cos.shape != (N, D) or sin.shape != (N, D):
-        raise ValueError(f"cos/sin must be [{N}, {D}]")
-    qkv = _build.aligned(qkv)
-    q, k, v = (qkv[..., a * D:b * D]
-               for a, b in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
-    out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, _build.aligned(
-        cos.float()), _build.aligned(sin.float()))
+    q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
+    out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, cos, sin)
     gqa_attention_flash_qkv.launches += 1
     return out
 
@@ -130,31 +121,24 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
 gqa_attention_flash_qkv.launches = 0
 
 
-def _prepare(qkv, cos, sin, hq, hkv):
-    """The library, the prep images' scratch and bf16(scale * log2 e) of
-    the flash kernel with the out projection (csrc/flash_qkv.cu: a prep
-    launch writes q, K and V^T images to scratch), after its checks."""
+def _qkv_views(qkv, cos, sin, hq, hkv):
+    """The q, k and v column views of the unsplit projection and the fp32
+    RoPE tables as the kernels of B2 and B12 read them, after their
+    checks."""
     from . import _build
 
-    B, N, TD = qkv.shape
+    N, TD = qkv.shape[1:]
     D = TD // (hq + 2 * hkv)
-    if qkv.dtype != torch.bfloat16 or D != 64:
-        raise TypeError(f"the flash kernels take bf16 with head dim 64, got "
-                        f"{qkv.dtype} with head dim {D}")
+    if qkv.dtype != torch.bfloat16 or D not in HEAD_DIMS:
+        raise TypeError(f"the flash kernels take bf16 with head dim "
+                        f"{HEAD_DIMS}, got {qkv.dtype} with head dim {D}")
     if cos.shape != (N, D) or sin.shape != (N, D):
         raise ValueError(f"cos/sin must be [{N}, {D}]")
-    lib = _build.load("flash_qkv")
-    lib.flash_qkv_smem_bytes.restype = ctypes.c_int
-    lib.flash_qkv_smem_bytes.argtypes = [ctypes.c_int]
-    smem, limit = lib.flash_qkv_smem_bytes(N), _smem_optin(qkv.device.index)
-    if smem > limit:
-        raise ValueError(f"flash kernels: N={N} needs {smem} B of shared "
-                         f"memory, the card gives {limit}")
-    lib.flash_qkv_scratch_bytes.restype = ctypes.c_longlong
-    lib.flash_qkv_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    scratch = torch.empty(lib.flash_qkv_scratch_bytes(B, N, hq, hkv),
-                          dtype=torch.uint8, device=qkv.device)
-    return lib, scratch, _scale2_bf16(D)
+    qkv = _build.aligned(qkv)
+    q, k, v = (qkv[..., a * D:b * D]
+               for a, b in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
+    return (q, k, v, _build.aligned(cos.float()),
+            _build.aligned(sin.float()))
 
 
 @functools.cache
@@ -206,39 +190,57 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
                          f"{hq}+2x{hkv} heads")
     if not 0 <= n_valid <= N:
         raise ValueError(f"n_valid {n_valid} outside [0, {N}]")
-    _, H = check_weights("flash_out", hq * (TD // (hq + 2 * hkv)), wo_q,
-                         wo_scale, wo_bias)
+    D = TD // (hq + 2 * hkv)
+    _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias)
     if qkv.device.type == "cpu":
         return flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, hq, hkv,
                                n_valid)
     from . import _build
 
-    lib, scratch, scale2 = _prepare(qkv, cos, sin, hq, hkv)
-    fn = lib.flash_out
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
+    K = hq * D
+    if K % 64 or H % 128:
+        raise ValueError(f"flash_out: the int8 out projection needs "
+                         f"Hq*D % 64 == 0 and H % 128 == 0, got {K}, {H}")
     dev = qkv.device
-    M, K = B * N, hq * 64
-    qkv = _build.aligned(qkv)
-    cos = cos.float().contiguous()
-    sin = sin.float().contiguous()
+    plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(dev.index),
+                          n_valid or N, False)
+    _check_smem(plan, dev, "flash_out")
+    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1),
+                         _scale2_bf16(D))
     wo_q = _build.aligned(wo_q)
     wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
-    o = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
-    oq = torch.empty((M, K), dtype=torch.int8, device=dev)
-    so = torch.empty((M,), dtype=torch.float32, device=dev)
+    o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
+    oq = torch.empty((B * N, K), dtype=torch.int8, device=dev)
+    so = torch.empty((B * N,), dtype=torch.float32, device=dev)
     out = torch.empty((B, N, H), dtype=torch.bfloat16, device=dev)
-    err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), wo_q.data_ptr(),
-             wos.data_ptr(), bo.data_ptr(), scratch.data_ptr(), o.data_ptr(),
-             oq.data_ptr(), so.data_ptr(), out.data_ptr(), B, N, n_valid or N,
-             hq, hkv, H, scale2, _build.stream_ptr(dev))
+    lib = _flash_out_lib()
+    gx, gy, gz = plan.launch_grid(B)
+    err = lib.flash_out(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
+        cos.data_ptr(), sin.data_ptr(), wo_q.data_ptr(), wos.data_ptr(),
+        bo.data_ptr(), o.data_ptr(), oq.data_ptr(), so.data_ptr(),
+        out.data_ptr(), D, gz, gx, gy, plan.warps, plan.smem, H,
+        _build.stream_ptr(dev))
     _build.check(lib, err, "flash_out")
     gqa_attention_flash_out.launches += 1
     return out
 
 
 gqa_attention_flash_out.launches = 0
+
+
+@functools.cache
+def _flash_out_lib():
+    """csrc/flash_qkv.cu's library, its entry point's C types set."""
+    from . import _build
+
+    lib = _build.load("flash_qkv")
+    lib.flash_out.restype = ctypes.c_int
+    lib.flash_out.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(_NaturalArgs)]
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return lib
 
 
 # ---- split q/k/v: B11 (flash), B15 (per q-head), B16 (per kv-head) ----------
@@ -368,11 +370,18 @@ def _row_view(t):
 
 
 def _check_split(q, k, v, D):
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D != 64:
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D not in HEAD_DIMS:
         raise TypeError(f"the split attention kernels take bf16 with head dim "
-                        f"64, got {q.dtype} with head dim {D}")
+                        f"{HEAD_DIMS}, got {q.dtype} with head dim {D}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
+
+
+def _check_smem(plan, device, what):
+    limit = _smem_optin(device.index)
+    if plan.smem > limit:
+        raise ValueError(f"{what}: N={plan.N} needs {plan.smem} B of shared "
+                         f"memory, the card gives {limit}")
 
 
 @functools.cache
@@ -387,16 +396,22 @@ def _smem_optin(index: int) -> int:
 
 # ---- B15 and B16: one kernel, two grids (csrc/attention_natural.cu) --------
 
-NATURAL_MAX_N = 768     # W <= 6 key chunks; B2's and B11's limit, too
+NATURAL_MAX_N = 1024    # W <= 8 key chunks; B2's, B11's and B12's limit, too
+HEAD_DIMS = (16, 32, 64)  # the head dims the attention kernels are built for
 _NATURAL_CHUNK = 128    # keys a warp holds in registers (16 n-tiles)
-_NATURAL_WARPS = 15     # warps a CTA: 128 registers a thread
-_NATURAL_ROW = 144      # shared-memory bytes of a 64-wide bf16 row + 8 pad
+_NATURAL_WARPS = 16     # warps a CTA: 128 registers a thread, the whole file
 _SMEM_SM90 = 232_448    # an sm_90 block's opt-in shared memory
+
+
+def _row_bytes(d: int) -> int:
+    """Shared-memory bytes of a ``d``-wide bf16 row plus its 8 pad."""
+    return 2 * d + 16
 
 
 @dataclasses.dataclass(frozen=True)
 class NaturalPlan:
-    """The launch of csrc/attention_natural.cu at one (N, heads, batch).
+    """The launch of csrc/attention_natural.cu at one (N, heads, head dim
+    D, batch).
 
     The keys are padded to ``nk``, ``W`` chunks of 128 (zero rows, masked).
     A round covers ``rows`` query rows of ``hc`` q-heads.  A CTA covers
@@ -411,7 +426,7 @@ class NaturalPlan:
     group, y the q-head or the kv-head.  Offsets are bytes of dynamic
     shared memory: K and V (V at K's offset where they are not resident
     together), the q rows, the row statistics ``[2][pairs][W][16]`` fp32
-    and the partial outputs ``[pairs][W][8][32]`` fp32x4 (at K's offset
+    and the partial outputs ``[pairs][W][D / 8][32]`` fp32x4 (at K's offset
     where K is dead by then: one round, V resident).  Keys at or past
     ``limit`` are masked (N here; the deferred plan's own below), and
     ``npad`` zero keys below it have their share taken off the row sum.
@@ -454,21 +469,29 @@ class NaturalPlan:
 
 
 @functools.cache
-def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
+def _natural_plan(N: int, hq: int, hkv: int, D: int, grouped: bool, B: int,
                   sms: int, balanced: bool = False) -> NaturalPlan:
-    """The launch plan of B15 (``grouped=False``) or B16 at N keys, batch B,
-    on a card of ``sms`` SMs.
+    """The launch plan of B15 (``grouped=False``) or B16 at N keys, head
+    dim D, batch B, on a card of ``sms`` SMs.
 
     Each (q-head or kv-head, batch) gets as many CTAs as fill the SMs once,
     and each CTA takes its share of the row tiles in turn where K and V
     stay resident: they are then read from L2 once a CTA, not once a tile
     (at the serving shape that traffic bounded the kernels).
 
+    Past 768 keys at D = 64 (W = 7 or 8 chunks) K and V no longer fit
+    together: V then takes K's buffer once the scores are done, and K is
+    loaded again each round.
+
     Raises ``ValueError`` past ``NATURAL_MAX_N``, so that the three split
-    attention kernels serve the same N."""
+    attention kernels serve the same N, and ``TypeError`` for a head dim the
+    kernels are not built for."""
     if not 1 <= N <= NATURAL_MAX_N:
         raise ValueError(f"gqa_attention kernels: N={N} outside [1, "
                          f"{NATURAL_MAX_N}]")
+    if D not in HEAD_DIMS:
+        raise TypeError(f"gqa_attention kernels: head dim {D} is not one of "
+                        f"{HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
     g = hq // hkv
@@ -483,10 +506,10 @@ def _natural_plan(N: int, hq: int, hkv: int, grouped: bool, B: int,
         head_rounds, hc = 1, 1
         pairs = min(4, fit)
         rows, heads, ny = 16 * pairs, 1, hq
-    kv = nk * _NATURAL_ROW
-    q_bytes = pairs * 16 * _NATURAL_ROW
+    kv = nk * _row_bytes(D)
+    q_bytes = pairs * 16 * _row_bytes(D)
     red = 2 * pairs * W * 16 * 4
-    part = pairs * W * 8 * 32 * 16 if W > 1 else 0
+    part = pairs * W * (D // 8) * 32 * 16 if W > 1 else 0
     tiles = -(-N // rows)
     row_rounds = 1                       # where K and V cannot stay resident
     if balanced:
@@ -544,7 +567,7 @@ def _natural_lib():
     lib.attention_natural.restype = ctypes.c_int
     lib.attention_natural.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.attention_natural_divide.restype = ctypes.c_int
     lib.attention_natural_divide.argtypes = ([ctypes.c_void_p] * 4
                                              + [ctypes.c_int, ctypes.c_void_p])
@@ -552,17 +575,14 @@ def _natural_lib():
 
 
 def _launch_natural(q, k, v, grouped):
-    """One launch of csrc/attention_natural.cu on [B, N, H, 64] q, k, v."""
+    """One launch of csrc/attention_natural.cu on [B, N, H, D] q, k, v."""
     from . import _build
 
     B, N, hq, D = q.shape
     _check_split(q, k, v, D)
-    plan = _natural_plan(N, hq, k.shape[2], grouped, B,
+    plan = _natural_plan(N, hq, k.shape[2], D, grouped, B,
                          _sm_count(q.device.index))
-    limit = _smem_optin(q.device.index)
-    if plan.smem > limit:
-        raise ValueError(f"gqa_attention kernels: N={N} needs {plan.smem} B "
-                         f"of shared memory, the card gives {limit}")
+    _check_smem(plan, q.device, "gqa_attention kernels")
     lib = _natural_lib()
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
     args = _natural_args(plan, q_row, k_row, v_row, 1.0 / math.sqrt(D))
@@ -570,7 +590,7 @@ def _launch_natural(q, k, v, grouped):
     gx, gy, gz = plan.launch_grid(B)
     err = lib.attention_natural(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.byref(args), gz, gx, gy, plan.warps, plan.smem,
+        ctypes.byref(args), D, gz, gx, gy, plan.warps, plan.smem,
         _build.stream_ptr(q.device))
     _build.check(lib, err, "gqa_attention_grouped" if grouped
                  else "gqa_attention")
@@ -595,15 +615,15 @@ def natural_divide(e, l):
 # ---- B2 and B11: the deferred epilogue (csrc/attention_deferred.cu) -------
 
 @functools.cache
-def _deferred_plan(N: int, hq: int, hkv: int, B: int, sms: int,
+def _deferred_plan(N: int, hq: int, hkv: int, D: int, B: int, sms: int,
                    n_valid: int | None, balanced: bool) -> NaturalPlan:
-    """The launch plan of B2 (``n_valid``: keys at or past it are masked)
-    or B11 (``n_valid`` None: N is padded with zero keys to a multiple of 8,
-    which take part in the row max, and their share comes off the row
-    sum): B16's per-kv-head layout, the G q-heads side by side over K and V
-    loaded once, on its own grid or the balanced one.  Raises
+    """The launch plan of B2 and B12 (``n_valid``: keys at or past it are
+    masked) or B11 (``n_valid`` None: N is padded with zero keys to a
+    multiple of 8, which take part in the row max, and their share comes
+    off the row sum): B16's per-kv-head layout, the G q-heads side by side
+    over K and V loaded once, on its own grid or the balanced one.  Raises
     ``ValueError`` outside [1, ``NATURAL_MAX_N``]."""
-    plan = _natural_plan(N, hq, hkv, True, B, sms, balanced=balanced)
+    plan = _natural_plan(N, hq, hkv, D, True, B, sms, balanced=balanced)
     if n_valid is None:
         limit = _round_up(N, 8)
         return dataclasses.replace(plan, limit=limit, npad=limit - N)
@@ -621,15 +641,15 @@ def _deferred_lib():
     lib.attention_deferred.restype = ctypes.c_int
     lib.attention_deferred.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
 
 
 def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
                     balanced=None):
-    """One launch of csrc/attention_deferred.cu on [B, N, H * 64] views q,
+    """One launch of csrc/attention_deferred.cu on [B, N, H * D] views q,
     k and v: B2 with ``n_valid`` and the fp32 RoPE tables ``cos``, ``sin``
-    ([N, 64], 8-byte aligned), B11 with ``n_valid`` None and no tables.
+    ([N, D], 8-byte aligned), B11 with ``n_valid`` None and no tables.
     ``balanced`` None takes the grid that was faster at the serving shapes
     (PERF.md §6): B2 B16's per-kv-head grid (120 CTAs of 5
     rounds), where each CTA loads and rotates K once; B11 the balanced one
@@ -644,12 +664,9 @@ def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
     _check_split(q, k, v, D)
     if balanced is None:
         balanced = cos is None
-    plan = _deferred_plan(N, hq, hkv, B, _sm_count(q.device.index), n_valid,
-                          balanced)
-    limit = _smem_optin(q.device.index)
-    if plan.smem > limit:
-        raise ValueError(f"flash kernels: N={N} needs {plan.smem} B of "
-                         f"shared memory, the card gives {limit}")
+    plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(q.device.index),
+                          n_valid, balanced)
+    _check_smem(plan, q.device, "flash kernels")
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
     args = _natural_args(plan, q_row, k_row, v_row, _scale2_bf16(D))
     out = torch.empty((B, N, hq * D), dtype=torch.bfloat16, device=q.device)
@@ -658,7 +675,7 @@ def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
     err = lib.attention_deferred(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.byref(args), None if cos is None else cos.data_ptr(),
-        None if sin is None else sin.data_ptr(), gz, gx, gy, plan.warps,
+        None if sin is None else sin.data_ptr(), D, gz, gx, gy, plan.warps,
         plan.smem, _build.stream_ptr(q.device))
     _build.check(lib, err, "gqa_attention_flash" if cos is None
                  else "gqa_attention_flash_qkv")

@@ -23,9 +23,10 @@ import math
 
 import torch
 
-from .attention import (_FLASH_VMEM_BUDGET, NATURAL_MAX_N, NaturalPlan,
-                        _natural_args, _natural_plan, _NaturalArgs, _round_up,
-                        _sm_count, _smem_optin, flash_supported)
+from .attention import (_FLASH_VMEM_BUDGET, HEAD_DIMS, NaturalPlan,
+                        _natural_args, _natural_plan, _NaturalArgs,
+                        _round_up, _row_bytes, _sm_count, _smem_optin,
+                        flash_supported)
 
 _GOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -250,13 +251,13 @@ def _kernel_args(q, k, v, hq, hkv, rate, seed):
     B, N, QD = q.shape
     D = QD // hq
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype \
-            or D != 64:
+            or D not in HEAD_DIMS:
         raise TypeError(f"attention_train kernels take bf16 with head dim "
-                        f"64, got {q.dtype} with head dim {D}")
+                        f"{HEAD_DIMS}, got {q.dtype} with head dim {D}")
     scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
                                 dtype=torch.bfloat16))
     coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
-    return dict(B=B, N=N, seed=seed & _M32, thr=keep_threshold(rate),
+    return dict(B=B, N=N, D=D, seed=seed & _M32, thr=keep_threshold(rate),
                 scale2=scale2, scale=1.0 / math.sqrt(D), coef=coef,
                 dropout=int(rate > 0.0))
 
@@ -264,13 +265,13 @@ def _kernel_args(q, k, v, hq, hkv, rate, seed):
 _TILE = 64          # query rows of a backward tile
 _CHUNK = 128        # keys of a backward CTA (and of a forward warp)
 _BWD_WARPS = 16     # two groups of 8 warps, 16 keys a warp
-_ROW = 144          # shared-memory bytes of a 64-wide bf16 row plus 8 pad
-_PART_ROW = 288     # bytes of a 64-wide fp32 partial dq row plus 8 pad
+TRAIN_MAX_N = 768   # W <= 6 CTAs a cluster; JAX's gate stops at 680
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainPlan:
-    """The launches of csrc/attention_train.cu at one (N, heads, batch).
+    """The launches of csrc/attention_train.cu at one (N, heads, head dim
+    D, batch).
 
     ``fwd`` is the forward's plan: attention_rows.cuh's body on B16's
     layout (``_natural_plan(grouped=True, balanced=True)``: the G q-heads
@@ -283,15 +284,17 @@ class TrainPlan:
     G heads' ``T`` 64-row tiles two at a time, ``steps`` steps: in step
     i, group g takes tile ``j = 2 i + g`` of them (head ``kv-head * G + j //
     T``, rows ``(j % T) * 64 ..``), none where ``j >= G T``.  The partial
-    dq of step i's two tiles, float4 column x in ``[0, 2048)`` (group ``x
-    // 1024``, row ``x // 16 % 64``), is added up and stored by CTA ``(x
-    // 512) % W``.  Offsets are bytes of dynamic shared memory: K and V of
-    the chunk, the q and do tiles ``[2 bufs][2 groups][2][64]`` rows, the
-    row statistics ``[2][2][64]`` float4, ds^T ``[2 groups][128]`` rows and
-    the partial dq ``[2][2][64]`` fp32 rows."""
+    dq of step i's two tiles, float4 column x in ``[0, 32 D)`` (group ``x
+    // (16 D)``, row ``x // (D / 4) % 64``), is added up and stored by CTA
+    ``(x // 512) % W``.  Offsets are bytes of dynamic shared memory: K and
+    V of the chunk, the q and do tiles ``[2 bufs][2 groups][2][64]`` rows,
+    the row statistics ``[2][2][64]`` float4, ds^T ``[2 groups][128 keys]``
+    rows of 64 query rows plus 8, and the partial dq ``[2][2][64]`` fp32
+    rows of D plus 8 (K, V, q and do: bf16 rows of D plus 8)."""
 
     fwd: NaturalPlan
     N: int
+    D: int
     hq: int
     hkv: int
     G: int
@@ -311,26 +314,29 @@ class TrainPlan:
 
 
 @functools.cache
-def _train_plan(N: int, hq: int, hkv: int, B: int, sms: int) -> TrainPlan:
-    """The launch plan of B10's forward and backward at N keys, batch B, on
-    a card of ``sms`` SMs.  Raises ``ValueError`` past ``NATURAL_MAX_N``
-    (768: W <= 6 CTAs a cluster) or where the heads do not group."""
-    if not 1 <= N <= NATURAL_MAX_N:
+def _train_plan(N: int, hq: int, hkv: int, D: int, B: int,
+                sms: int) -> TrainPlan:
+    """The launch plan of B10's forward and backward at N keys, head dim
+    D, batch B, on a card of ``sms`` SMs.  Raises ``ValueError`` past
+    ``TRAIN_MAX_N`` (768: W <= 6 CTAs a cluster) or where the heads do not
+    group, ``TypeError`` for a head dim the kernels are not built for."""
+    if not 1 <= N <= TRAIN_MAX_N:
         raise ValueError(f"attention_train kernels: N={N} outside [1, "
-                         f"{NATURAL_MAX_N}]")
+                         f"{TRAIN_MAX_N}]")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    fwd = _natural_plan(N, hq, hkv, D, True, B, sms, balanced=True)
     G = hq // hkv
     T = -(-N // _TILE)
     W = -(-N // _CHUNK)
-    kv = _CHUNK * _ROW
+    row = _row_bytes(D)
+    kv = _CHUNK * row
     tile_off = 2 * kv
-    info_off = tile_off + 2 * 2 * 2 * _TILE * _ROW
+    info_off = tile_off + 2 * 2 * 2 * _TILE * row
     ds_off = info_off + 2 * 2 * _TILE * 16
-    part_off = ds_off + 2 * _CHUNK * _ROW
-    smem = part_off + 2 * 2 * _TILE * _PART_ROW
-    fwd = _natural_plan(N, hq, hkv, True, B, sms, balanced=True)
-    return TrainPlan(fwd, N, hq, hkv, G, T, W, -(-G * T // 2), 0, kv,
+    part_off = ds_off + 2 * _CHUNK * _row_bytes(_TILE)  # ds^T: [key][row]
+    smem = part_off + 2 * 2 * _TILE * 2 * row
+    return TrainPlan(fwd, N, D, hq, hkv, G, T, W, -(-G * T // 2), 0, kv,
                      tile_off, info_off, ds_off, part_off, (W, hkv), W,
                      _BWD_WARPS, smem)
 
@@ -366,17 +372,17 @@ def _lib():
     lib.attn_train_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs),
                                  ctypes.POINTER(_TrainRows)]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.attn_train_bwd.restype = ctypes.c_int
     lib.attn_train_bwd.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.POINTER(_TrainBwdArgs)]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 
 def _plan_for(q, hq, hkv):
-    B, N, _ = q.shape
-    plan = _train_plan(N, hq, hkv, B, _sm_count(q.device.index))
+    B, N, QD = q.shape
+    plan = _train_plan(N, hq, hkv, QD // hq, B, _sm_count(q.device.index))
     limit = _smem_optin(q.device.index)
     if max(plan.smem, plan.fwd.smem) > limit:
         raise ValueError(f"attention_train: N={N} needs "
@@ -392,16 +398,16 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate):
     plan = _plan_for(q, hq, hkv)
     lib = _lib()
     q, k, v = (_build.aligned(t) for t in (q, k, v))
-    B, N = a["B"], a["N"]
+    B, N, D = a["B"], a["N"], a["D"]
     out = torch.empty_like(q)
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
     fp = plan.fwd
-    args = _natural_args(fp, hq * 64, hkv * 64, hkv * 64, a["scale2"])
+    args = _natural_args(fp, hq * D, hkv * D, hkv * D, a["scale2"])
     rows = _TrainRows(stats.data_ptr(), a["seed"], a["thr"], _round_up(N, 8),
                       a["dropout"], a["coef"])
     err = lib.attn_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), ctypes.byref(args),
-                             ctypes.byref(rows), fp.launch_grid(B)[2],
+                             ctypes.byref(rows), D, fp.launch_grid(B)[2],
                              *fp.grid, fp.warps, fp.smem,
                              _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train fwd")
@@ -421,7 +427,7 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
         raise ValueError("o, do must match q and stats must be "
                          f"[{B}, {hq}, {N}, 2]")
     plan = _plan_for(q, hq, hkv)
-    if B * hq * plan.T * _TILE * 8 >= 2 ** 31:
+    if B * hq * plan.T * _TILE * (plan.D // 8) >= 2 ** 31:
         raise ValueError(f"attention_train bwd: batch {B} x {hq} heads x "
                          f"{plan.T * _TILE} rows is past the kernels' int "
                          f"indexing")
@@ -436,7 +442,7 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
     err = lib.attn_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         stats.data_ptr(), info.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), ctypes.byref(args), B, plan.smem,
+        dv.data_ptr(), ctypes.byref(args), plan.D, B, plan.smem,
         _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train bwd")
     attention_train_bwd.launches += 1

@@ -28,7 +28,7 @@
 //
 // Design (the body and its layout: attention_rows.cuh, attention_natural.cu):
 //  1. One launch.  q, K and V come by 16-byte cp.async straight from the
-//     [B, N, H * 64] views at their row strides: for B2 three column views
+//     [B, N, H * D] views at their row strides: for B2 three column views
 //     of the unsplit qkv (row stride (hq + 2 hkv) * 64), for B11 its q, k
 //     and v (k and v may be column slices of the fused projection).  Rows
 //     at or past N are zero-filled by cp.async's source size.
@@ -62,9 +62,10 @@
 //     the one that was faster at its serving shape (PERF.md; timed by
 //     tools/torch_deferred_grids.py): B2 the per-kv-head grid (a reload
 //     would rotate K again), B11 the balanced.
-//  Every N <= 768 runs.
+//  Every N <= 1024 runs (W <= 8 key chunks; past 768, K and V no longer
+//  fit together at D = 64 and V takes K's buffer), at head dims 16, 32, 64.
 //
-// Registers (-Xptxas -v, sm_90a): 128 a thread (the 15-warp CTA caps them),
+// Registers (-Xptxas -v, sm_90a): 128 a thread (the 16-warp CTA caps them),
 // no spills; chip_smoke.py's [build] line prints them on every run.  Which
 // of the choices above spill is a matter of ptxas's allocation at the cap:
 // every other combination of them tried on CUDA 12.8 spilled.
@@ -75,45 +76,57 @@ extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaE
 
 namespace {
 
-template <bool ROPE>
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1) deferred_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const RopeTables rt) {
-  rows_attention<Epilogue::kDeferred, false, ROPE, Grid::kPlan>(q, k, v, out, p, TrainRows{}, rt);
+  rows_attention<D, Epilogue::kDeferred, false, ROPE, Grid::kPlan>(q, k, v, out, p, TrainRows{},
+                                                                  rt);
 }
 
-template <bool ROPE>
+template <int D, bool ROPE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
                    const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
   static int smem_set = 0;
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(deferred_kernel<ROPE>,
+    cudaError_t e = cudaFuncSetAttribute(deferred_kernel<D, ROPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  deferred_kernel<ROPE><<<grid, warps * 32, smem, st>>>(
+  deferred_kernel<D, ROPE><<<grid, warps * 32, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, p, rt);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
+                     const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
+  return rt.cos ? launch<D, true>(q, k, v, out, p, rt, grid, warps, smem, st)
+                : launch<D, false>(q, k, v, out, p, rt, grid, warps, smem, st);
+}
+
 }  // namespace
 
-// q [B, N, hq * 64], k and v [B, N, hkv * 64] bf16 views (16-byte aligned,
-// row strides in the plan) -> out [B, N, hq * 64] bf16, contiguous.  With
-// cos_t and sin_t ([N, 64] f32, 8-byte aligned) q and K are RoPE'd first
-// (B2); with null tables they are taken as they are (B11).  The plan's
-// span picks the grid: 0 the per-kv-head grid, else the balanced one.  One
-// launch of grid (gx, gy, B) with `warps` warps and `smem` bytes of
-// dynamic shared memory.
+// q [B, N, hq * D], k and v [B, N, hkv * D] bf16 views (16-byte aligned,
+// row strides in the plan), D 16, 32 or 64 -> out [B, N, hq * D] bf16,
+// contiguous.  With cos_t and sin_t ([N, D] f32, 8-byte aligned) q and K
+// are RoPE'd first (B2); with null tables they are taken as they are
+// (B11).  The plan's span picks the grid: 0 the per-kv-head grid, else the
+// balanced one.  One launch of grid (gx, gy, B) with `warps` warps and
+// `smem` bytes of dynamic shared memory.
 extern "C" int attention_deferred(const void* q, const void* k, const void* v, void* out,
                                   const NaturalPlan* plan, const float* cos_t, const float* sin_t,
-                                  int B, int gx, int gy, int warps, int smem, void* stream) {
+                                  int D, int B, int gx, int gy, int warps, int smem, void* stream) {
   const RopeTables rt{cos_t, sin_t};
   const dim3 grid(gx, gy, B);
   cudaStream_t st = (cudaStream_t)stream;
-  return cos_t ? launch<true>(q, k, v, out, *plan, rt, grid, warps, smem, st)
-               : launch<false>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+  switch (D) {
+    case 16: return launch_d<16>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+    case 32: return launch_d<32>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+    case 64: return launch_d<64>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

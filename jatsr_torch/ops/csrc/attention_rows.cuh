@@ -1,5 +1,5 @@
 // The attention body with the exact row max and the scores computed once
-// in registers, shared by three epilogues:
+// in registers, for head dims D of 16, 32 and 64, shared by four epilogues:
 //   natural  (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
 //       e = expf(s - m), w = bf16(e / l) correctly rounded, o = bf16(w @ v)
 //   train    (attention_train.cu, B10's forward): q' = bf16(q * scale2),
@@ -10,18 +10,22 @@
 //       without dropout or statistics (coef = 1); B11 takes the share of
 //       its npad zero keys off l once, l - npad * exp2f(-m); B2 rotates q
 //       and K by RoPE in shared memory first (ROPE)
+//   normed   (flash_qkv.cu, B12): the deferred epilogue's base-2 scores
+//       (RoPE inside, keys masked at n_valid) with the natural epilogue's
+//       weights: w = bf16(e / l) correctly rounded, o = bf16(w @ v)
 // Keys at or past the plan's `limit` are masked to -inf (N, but for B2
 // its n_valid and for B11 N rounded up to 8, whose zero keys score 0 and
 // take part in the max); m is the exact row max (a running max would round
 // bf16(w) or bf16(e) against another max than the TPU kernels).
 //
 // Layout (see attention_natural.cu's header for the design):
-//  - q, K and V come straight from the [B, N, H * 64] views by 16-byte
+//  - q, K and V come straight from the [B, N, H * D] views by 16-byte
 //    cp.async at their row strides; rows at or past N are zero-filled by
 //    cp.async's source size, and nothing is read for them.  Rows are padded
-//    by 8 bf16 (144 B), so each 8-row fragment load hits 8 distinct 16-byte
-//    bank groups.  V stays row-major: the B operand of w @ V comes from
-//    ldmatrix.x4.trans.
+//    by 8 bf16 (2 D + 16 bytes: 48, 80 or 144), so each 8-row fragment load
+//    hits 8 distinct 16-byte bank groups.  V stays row-major: the B operand
+//    of w @ V comes from ldmatrix.x4.trans.  D enters as D / 16 k-steps of
+//    the scores and D / 8 n-tiles of the output and its partials.
 //  - A warp owns 16 query rows over a chunk of 128 keys (16 n-tiles x 4
 //    fp32 = 64 score registers a thread); W = nk / 128 warps share a row
 //    group and combine the row max, the row sum and their partial outputs
@@ -63,7 +67,7 @@ struct NaturalPlan {
 };
 
 // The softmax epilogue of rows_attention (see the header).
-enum class Epilogue { kNatural, kTrain, kDeferred };
+enum class Epilogue { kNatural, kTrain, kDeferred, kNormed };
 
 // The grid of rows_attention: its own (x, y, batch), the balanced one, or
 // the one the plan's span names (0: its own).
@@ -78,7 +82,7 @@ struct TrainRows {
   float coef;    // 1 / (1 - rate)
 };
 
-// B2's RoPE tables, [N, 64] fp32 each, read only with ROPE.
+// The RoPE tables of B2 and B12, [N, D] fp32 each, read only with ROPE.
 struct RopeTables {
   const float* cos;
   const float* sin;
@@ -86,10 +90,8 @@ struct RopeTables {
 
 namespace {
 
-constexpr int D = 64;          // head dim; the wrappers check
-constexpr int STR = D + 8;     // shared-memory row stride of q, K and V (bf16)
 constexpr int NT = 16;         // n-tiles of 8 keys a warp holds: 128 keys
-constexpr int MAX_WARPS = 15;  // warps a CTA
+constexpr int MAX_WARPS = 16;  // warps a CTA: 16 x 32 x 128 registers, the whole file
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -147,13 +149,15 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Rows [0, n) of one head into shared memory at stride STR: row i from
-// src + i * stride, zero where i >= N.
+// Rows [0, n) of one head (D wide) into shared memory at stride D + 8:
+// row i from src + i * stride, zero where i >= N.
+template <int D>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int n, int N) {
+  constexpr int STR = D + 8, PARTS = D / 8, SH = D == 64 ? 3 : D == 32 ? 2 : 1;
   const unsigned base = smem_u32(dst);
-  for (int c = threadIdx.x; c < n * 8; c += blockDim.x) {
-    const int i = c >> 3, part = c & 7;
+  for (int c = threadIdx.x; c < n * PARTS; c += blockDim.x) {
+    const int i = c >> SH, part = c & (PARTS - 1);
     const bool ok = i < N;
     copy16(base + (i * STR + part * 8) * 2, ok ? src + i * stride + part * 8 : src, ok);
   }
@@ -171,16 +175,16 @@ __device__ __forceinline__ float rope_half(float x, float y, float c, float s) {
   return __fadd_rn(a, b);
 }
 
-// RoPE (the half rotation: element d < 32 pairs with d + 32) in place on
-// `n` rows of 64 at stride STR in shared memory, row i at position
+// RoPE (the half rotation: element d < D / 2 pairs with d + D / 2) in place
+// on `n` rows of D at stride D + 8 in shared memory, row i at position
 // pos0 + i; with SCALE then bf16(x * scale), one rounding.  Rows at
 // positions at or past N (zero) are left alone.  Thread t of `threads`
 // takes VEC adjacent elements of each half in turn.
-template <bool SCALE, int VEC>
+template <int D, bool SCALE, int VEC>
 __device__ __forceinline__ void rope_rows(__nv_bfloat16* x, int n, int pos0, int N,
                                           const RopeTables& rt, __nv_bfloat162 scale, int t,
                                           int threads) {
-  constexpr int PER_ROW = D / 2 / VEC;
+  constexpr int STR = D + 8, PER_ROW = D / 2 / VEC;
   for (int c = t; c < n * PER_ROW; c += threads) {
     const int i = c / PER_ROW, d = (c % PER_ROW) * VEC, pos = pos0 + i;
     if (pos >= N) break;  // c grows with i
@@ -258,27 +262,32 @@ __device__ __forceinline__ void weights(const float (&s)[NT][4], uint32_t (&wa)[
 }
 
 // One CTA: blockIdx.x the group of row tiles, blockIdx.y the q-head (B15,
-// B10) or the kv-head (B16), blockIdx.z the batch.  Warp w: key chunk
+// B10) or the kv-head (B16, B2, B12), blockIdx.z the batch.  Warp w: key chunk
 // j = w % W of the pair w / W, which is row group pair % R of head slot
 // pair / R.  `tr` is read only by the train epilogue, `rt` only with
-// ROPE.  DROP (train only): the dropout is on.  ROPE (deferred only, B2):
-// q and K are rotated in shared memory before their product, and q is
+// ROPE.  DROP (train only): the dropout is on.  ROPE (deferred and normed:
+// B2, B12): q and K are rotated in shared memory before their product, and q is
 // scaled there too (B11 and train scale q at its fragment load: the
 // placements that left each kernel without spills; one rounding either
 // way, after RoPE).
-template <Epilogue EPI, bool DROP, bool ROPE, Grid GRID>
+template <int D, Epilogue EPI, bool DROP, bool ROPE, Grid GRID>
 __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__ q,
                                                const __nv_bfloat16* __restrict__ k,
                                                const __nv_bfloat16* __restrict__ v,
                                                __nv_bfloat16* __restrict__ out, const NaturalPlan& p,
                                                const TrainRows& tr, const RopeTables& rt) {
   constexpr bool NATURAL = EPI == Epilogue::kNatural, TRAIN = EPI == Epilogue::kTrain;
+  constexpr bool BASE2 = !NATURAL;                           // q' scaled, exp2f
+  constexpr bool NORMED = NATURAL || EPI == Epilogue::kNormed;  // w = bf16(e / l)
+  constexpr int STR = D + 8, DT = D / 8;  // row stride (bf16); output n-tiles
+  constexpr int DSH = D == 64 ? 3 : D == 32 ? 2 : 1;  // log2(DT)
+  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + p.q_off);
   float* red = reinterpret_cast<float*>(smem + p.red_off);     // [2][pairs][W][16]
-  float4* part = reinterpret_cast<float4*>(smem + p.part_off);  // [pairs][W][8][32]
+  float4* part = reinterpret_cast<float4*>(smem + p.part_off);  // [pairs][W][DT][32]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -321,14 +330,14 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
   };
   auto load_kv = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long stride, const Round& o) {
     const int kvh = o.head0 / (p.hq / p.hkv);
-    load_rows(dst, src + (long long)o.b * N * stride + kvh * D, stride, p.nk, N);
+    load_rows<D>(dst, src + (long long)o.b * N * stride + kvh * D, stride, p.nk, N);
   };
   auto load_q = [&](int rd) {  // the pair's 16 rows, by its own warps; zero past N or the heads
     const Round o = round_of(rd);
     const unsigned base = smem_u32(qs + pair * 16 * STR);
     const int slot = o.hr * p.hc + hs;
-    for (int c = j * 32 + lane; c < 128; c += W * 32) {
-      const int i = c >> 3, part8 = c & 7;
+    for (int c = j * 32 + lane; c < 16 * DT; c += W * 32) {
+      const int i = c >> DSH, part8 = c & (DT - 1);
       const int row = o.tile * p.rows + r * 16 + i;
       const bool ok = slot < p.heads && row < N;
       const __nv_bfloat16* src = q + ((long long)o.b * N + (ok ? row : 0)) * p.q_row +
@@ -387,25 +396,25 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     sync(whole || fresh);
     if (ROPE) {  // K where it landed this round (every thread), the pair's q rows scaled
       const bool k_new = fresh || !p.resident;
-      if (k_new) rope_rows<false, 2>(ks, p.nk, 0, N, rt, scale2, threadIdx.x, blockDim.x);
-      rope_rows<true, 4>(qs + pair * 16 * STR, 16, cur.tile * p.rows + r * 16, N, rt, scale2,
-                         j * 32 + lane, W * 32);
+      if (k_new) rope_rows<D, false, 2>(ks, p.nk, 0, N, rt, scale2, threadIdx.x, blockDim.x);
+      rope_rows<D, true, 4>(qs + pair * 16 * STR, 16, cur.tile * p.rows + r * 16, N, rt, scale2,
+                            j * 32 + lane, W * 32);
       sync(whole || k_new);
     }
 
     // s over the warp's keys: s[nt][0..1] row gid, s[nt][2..3] row gid + 8,
-    // keys key0 + nt*8 + tig*2 + {0, 1}.  natural: (q @ k^T) * scale; train
-    // and deferred: q' @ k^T, q' = bf16(q * scale2).  The depth (kk) outermost: one q
-    // fragment live at a time.
+    // keys key0 + nt*8 + tig*2 + {0, 1}.  natural: (q @ k^T) * scale; the
+    // base-2 epilogues: q' @ k^T, q' = bf16(q * scale2).  The depth (kk)
+    // outermost: one q fragment live at a time.
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t qa[4];
       ldsm4(qa, smem_u32(qs + (pair * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 +
                          (lane >> 4) * 8));
-      if (!NATURAL && !ROPE) {
+      if (BASE2 && !ROPE) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) qa[i] = mul_pair(qa[i], scale2);
       }
@@ -456,13 +465,13 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       m1 = fmaxf(m1, red_max[jj * 16 + gid + 8]);
     }
 
-    // e = expf(s - m) (train, deferred: exp2f) in place, and the row sums in
-    // a fixed order.
+    // e = expf(s - m) (the base-2 epilogues: exp2f) in place, and the row
+    // sums in a fixed order.
     float l0 = 0.f, l1 = 0.f;
     bool rare = false;  // a score below 2^-100: the exact divide's slow form
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      if (!NATURAL) {
+      if (BASE2) {
         s[nt][0] = exp2f(__fsub_rn(s[nt][0], m0));
         s[nt][1] = exp2f(__fsub_rn(s[nt][1], m0));
         s[nt][2] = exp2f(__fsub_rn(s[nt][2], m1));
@@ -472,12 +481,12 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
         s[nt][1] = expf(__fsub_rn(s[nt][1], m0));
         s[nt][2] = expf(__fsub_rn(s[nt][2], m1));
         s[nt][3] = expf(__fsub_rn(s[nt][3], m1));
-        rare |= tiny(s[nt][0]) | tiny(s[nt][1]) | tiny(s[nt][2]) | tiny(s[nt][3]);
       }
+      if (NORMED) rare |= tiny(s[nt][0]) | tiny(s[nt][1]) | tiny(s[nt][2]) | tiny(s[nt][3]);
       l0 = __fadd_rn(__fadd_rn(l0, s[nt][0]), s[nt][1]);
       l1 = __fadd_rn(__fadd_rn(l1, s[nt][2]), s[nt][3]);
     }
-    if (NATURAL) rare = __any_sync(0xffffffffu, rare);
+    if (NORMED) rare = __any_sync(0xffffffffu, rare);
 #pragma unroll
     for (int o = 1; o <= 2; o <<= 1) {  // a + b == b + a: every lane of a quad agrees
       l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, o));
@@ -515,12 +524,12 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       f1 = markstein(tr.coef, l1, reciprocal(l1));
     }
 
-    // The A fragments of the value product, 16 keys a k-step.  natural:
-    // w = bf16(e / l), branch-free unless a score of the warp is below
-    // 2^-100.  train: bf16(e) after the dropout zeroing (l is summed);
+    // The A fragments of the value product, 16 keys a k-step.  natural and
+    // normed: w = bf16(e / l), branch-free unless a score of the warp is
+    // below 2^-100.  train: bf16(e) after the dropout zeroing (l is summed);
     // deferred: bf16(e).
     uint32_t wa[NT / 2][4];
-    if (!NATURAL) {
+    if (!NORMED) {
       if (TRAIN && DROP && ra - gid < N) {  // the warp holds a row before N
         const uint32_t st = stream_of(cur.b, cur.head0 + slot, tr.seed);
 #pragma unroll
@@ -545,14 +554,14 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     } else {
       weights<false>(s, wa, l0, l1);
     }
-    float acc[8][4];
+    float acc[DT][4];
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 #pragma unroll
     for (int t = 0; t < NT / 2; ++t) {
       const int key = key0 + t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
+      for (int dt = 0; dt < DT; dt += 2) {
         uint32_t vb[4];
         ldsm4t(vb, smem_u32(vs + key * STR + (dt + (lane >> 4)) * 8));
         mma_bf16(acc[dt], wa[t], vb[0], vb[1]);
@@ -583,7 +592,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       f1 = markstein(1.f, f1, reciprocal(f1));
     }
     auto out_pair = [&](float x, float y, float f) {
-      return NATURAL ? pack2(x, y) : pack2(__fmul_rn(x, f), __fmul_rn(y, f));
+      return NORMED ? pack2(x, y) : pack2(__fmul_rn(x, f), __fmul_rn(y, f));
     };
 
     // The W partial outputs added in warp order, rounded once.
@@ -591,23 +600,23 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     const long long ostr = (long long)p.hq * D;
     if (W == 1) {
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
+      for (int dt = 0; dt < DT; ++dt) {
         if (store && ra < N)
           *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = out_pair(acc[dt][0], acc[dt][1], f0);
         if (store && rb < N)
           *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = out_pair(acc[dt][2], acc[dt][3], f1);
       }
     } else {
-      float4* mine = part + (pair * W + j) * 8 * 32 + lane;
+      float4* mine = part + (pair * W + j) * DT * 32 + lane;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
+      for (int dt = 0; dt < DT; ++dt)
         mine[dt * 32] = make_float4(acc[dt][0], acc[dt][1], acc[dt][2], acc[dt][3]);
       sync(whole);
-      const float4* all = part + pair * W * 8 * 32 + lane;
-      for (int dt = j; dt < 8; dt += W) {
+      const float4* all = part + pair * W * DT * 32 + lane;
+      for (int dt = j; dt < DT; dt += W) {
         float4 a = all[dt * 32];
         for (int jj = 1; jj < W; ++jj) {
-          const float4 c = all[(jj * 8 + dt) * 32];
+          const float4 c = all[(jj * DT + dt) * 32];
           a.x = __fadd_rn(a.x, c.x);
           a.y = __fadd_rn(a.y, c.y);
           a.z = __fadd_rn(a.z, c.z);

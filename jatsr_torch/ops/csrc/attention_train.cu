@@ -55,7 +55,7 @@
 //     2. main: a thread-block cluster per (kv-head, batch), one CTA per
 //        128-key chunk (W = nk / 128 CTAs, 3 at N = 345).  A CTA of 16
 //        warps keeps its chunk's K and V in shared memory; warp w owns the
-//        16 keys (w % 8) and its dk and dv [16, 64] in fp32 registers; its
+//        16 keys (w % 8) and its dk and dv [16, D] in fp32 registers; its
 //        two groups of 8 warps take the G heads' 64-row tiles two at a
 //        time (q, do and the row statistics double-buffered by cp.async,
 //        the next pair in flight behind the math).  On each tile a warp
@@ -72,10 +72,12 @@
 // 16-row slices and 16-key warps wholly past N skip theirs; the forward's
 // two 2 x 2 x B x Hq x round_up(N, 16) x nk x 64 (19.4 GFLOP).  The launch plan is
 // ops/attention_train.py:_train_plan, checked on the CPU for every N <= 768.
+// Head dims 16, 32 and 64 are template instances of one source (D / 16
+// k-steps, D / 8 n-tiles, rows of D + 8); the FLOP counts above are D = 64's.
 //
 // Registers (-Xptxas -v, sm_90a; chip_smoke.py's [build] line prints them on
 // every run): the backward 128 a thread, no spills; the forward 128 (its
-// 15-warp CTA caps them), spilling 92 B with dropout and 16 B without.
+// 16-warp CTA caps them), spilling 16 B with dropout and 92 B without.
 
 #include <cooperative_groups.h>
 
@@ -103,27 +105,29 @@ namespace {
 constexpr int BWD_WARPS = 16;  // two groups of 8; warp w owns keys 16 (w % 8) ..
 constexpr int KEYS = 128;      // keys of a CTA
 constexpr int TR = 64;         // rows of a tile
-constexpr int PSTR = D + 8;    // fp32 row stride of the partial dq tiles
 constexpr int SR = 16;         // query rows of a backward slice
 constexpr int NS = SR / 8;     // n-tiles of a slice's scores
 
-template <bool DROP>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1) train_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const TrainRows tr) {
-  rows_attention<Epilogue::kTrain, DROP, false, Grid::kBalanced>(q, k, v, out, p, tr, RopeTables{});
+  rows_attention<D, Epilogue::kTrain, DROP, false, Grid::kBalanced>(q, k, v, out, p, tr,
+                                                                   RopeTables{});
 }
 
-// Launch 1 of the backward: eight threads a (batch, row < T * 64, q-head),
+// Launch 1 of the backward: D / 8 threads a (batch, row < T * 64, q-head),
 // the heads fastest, so that a warp reads contiguous bytes of do and o.
+template <int D>
 __global__ void __launch_bounds__(256) bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
                                                        const __nv_bfloat16* __restrict__ dout,
                                                        const float* __restrict__ stats,
                                                        float4* __restrict__ info, int N, int hq,
                                                        int rows, int total) {
+  constexpr int TPR = D / 8, SH = D == 64 ? 3 : D == 32 ? 2 : 1;  // threads a row, log2
   const int g = blockIdx.x * blockDim.x + threadIdx.x;  // total < 2^31: the wrapper checks
-  const int part = g & 7, rest = g >> 3;
+  const int part = g & (TPR - 1), rest = g >> SH;
   const int h = rest % hq, br = rest / hq;
   const int row = br % rows, b = br / rows;
   const int bh = b * hq + h;
@@ -143,7 +147,7 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const __nv_bfloat16* __re
     }
   }
 #pragma unroll
-  for (int s = 4; s >= 1; s >>= 1) t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, s));
+  for (int s = TPR / 2; s >= 1; s >>= 1) t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, s));
   if (part == 0 && g < total) {
     float4 r = make_float4(0.f, 1.f, 1.f, 0.f);
     if (ok) {
@@ -206,19 +210,28 @@ __device__ __forceinline__ void slice_grads(const TrainBwdPlan& p, float (&s)[NS
 }
 
 // Launch 2 of the backward.  Grid (W, hkv, B), clusters of W along x: the
-// CTA of rank c takes keys c * 128 .. c * 128 + 127.  DROP: the dropout is on.
-template <bool DROP>
+// CTA of rank c takes keys c * 128 .. c * 128 + 127.  D: the head dim (16,
+// 32 or 64: D / 16 k-steps of s^T and w^T, D / 8 n-tiles of dk and dv, a
+// warp's partial dq D / 16 n-tiles wide).  DROP: the dropout is on.
+template <int D, bool DROP>
 __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float4* __restrict__ info, __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, const TrainBwdPlan p) {
+  constexpr int STR = D + 8;   // bf16 row stride of K, V and the q and do tiles
+  constexpr int DSTR = TR + 8; // bf16 row stride of ds^T ([key][query row])
+  constexpr int PSTR = D + 8;  // fp32 row stride of the partial dq tiles
+  constexpr int DT = D / 8;    // n-tiles of dk and dv
+  constexpr int QN = D / 16;   // n-tiles of a warp's partial dq
+  constexpr int C8 = D / 8;    // 16-byte chunks of a row
+  constexpr int CSH = D == 64 ? 3 : D == 32 ? 2 : 1;  // log2(C8)
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);     // [128][STR]
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);     // [128][STR]
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem + p.tile_off);  // [2][2][q, do][64][STR]
   float4* infos = reinterpret_cast<float4*>(smem + p.info_off);             // [2][2][64]
-  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(smem + p.ds_off);   // [2][128][STR]: ds^T
+  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(smem + p.ds_off);   // [2][128][DSTR]: ds^T
   float* part = reinterpret_cast<float*>(smem + p.part_off);                // [2][2][64][PSTR]
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -229,8 +242,8 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   const long long qd = (long long)p.hq * D, kd = (long long)p.hkv * D;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale2);  // exact: a bf16 value
 
-  load_rows(ks, k + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
-  load_rows(vs, v + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
+  load_rows<D>(ks, k + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
+  load_rows<D>(vs, v + ((long long)b * N + c * KEYS) * kd + kvh * D, kd, KEYS, N - c * KEYS);
   // q, do and the row statistics of group g's tile of step i, by the
   // group's own 256 threads.
   const int gt = tid & 255;
@@ -238,8 +251,8 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
     const int bf = i & 1;
     int h, row0;
     tile_of(p, kvh, i, g, h, row0);
-    for (int x = gt; x < 2 * TR * 8; x += 256) {
-      const int t = x >> 9, row = (x >> 3) & 63, c8 = x & 7;
+    for (int x = gt; x < 2 * TR * C8; x += 256) {
+      const int t = x >> (6 + CSH), row = (x >> CSH) & (TR - 1), c8 = x & (C8 - 1);
       const int r = row0 + row;
       const bool ok = r < N;
       const __nv_bfloat16* src = (t ? dout : q) + ((long long)b * N + (ok ? r : 0)) * qd + h * D + c8 * 8;
@@ -254,25 +267,25 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   };
   load_step(0);  // one group with K and V
 
-  float dka[8][4], dva[8][4];
+  float dka[DT][4], dva[DT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
   const int keyA = c * KEYS + kw * 16 + gid;  // this thread's keys: keyA, keyA + 8
   const bool keyA_ok = keyA < N, keyB_ok = keyA + 8 < N;
   const bool keys_live = c * KEYS + kw * 16 < N;  // else the warp's ds^T rows stay 0
-  __nv_bfloat16* dsT = dsb + g * KEYS * STR;
+  __nv_bfloat16* dsT = dsb + g * KEYS * DSTR;
   if (!keys_live)
-    for (int x = lane; x < 16 * STR / 2; x += 32)
-      reinterpret_cast<uint32_t*>(dsT + kw * 16 * STR)[x] = 0u;
+    for (int x = lane; x < 16 * DSTR / 2; x += 32)
+      reinterpret_cast<uint32_t*>(dsT + kw * 16 * DSTR)[x] = 0u;
 
   // dq of step i's two tiles: the W partials added in rank order, rounded
   // once.  CTA c takes float4 columns x = c * 512 + tid, x += W * 512.
   auto reduce_dq = [&](int i) {
     const int bf = i & 1;
     for (int x = c * BWD_WARPS * 32 + tid; x < 2 * TR * (D / 4); x += p.W * BWD_WARPS * 32) {
-      const int grp = x >> 10, row = (x >> 4) & 63, c4 = x & 15;
+      const int grp = x >> (7 + CSH), row = (x >> (CSH + 1)) & (TR - 1), c4 = x & (D / 4 - 1);
       int hh, r0;
       tile_of(p, kvh, i, grp, hh, r0);
       if (r0 + row >= N) continue;
@@ -318,7 +331,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
       // rows sub*SR + nt*8 + tig*2 + {0, 1}.
       float s[NS][4] = {}, w[NS][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t ka[4], va[4];
         const int ar = (kw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + kk * 16 + (lane >> 4) * 8;
         ldsm4(ka, smem_u32(ks + ar));
@@ -369,7 +382,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
         const int r16 = sub * SR + t * 16;
         const int vr = (r16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + (lane >> 4) * 8;
 #pragma unroll
-        for (int n = 0; n < 8; n += 2) {
+        for (int n = 0; n < DT; n += 2) {
           uint32_t r[4];
           ldsm4t(r, smem_u32(dt + vr + n * 8));
           mma_bf16(dva[n], wa, r[0], r[1]);
@@ -378,8 +391,8 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
           mma_bf16(dka[n], da, r[0], r[1]);
           mma_bf16(dka[n + 1], da, r[2], r[3]);
         }
-        uint32_t* d0 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid) * STR + r16 + tig * 2);
-        uint32_t* d1 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid + 8) * STR + r16 + tig * 2);
+        uint32_t* d0 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid) * DSTR + r16 + tig * 2);
+        uint32_t* d1 = reinterpret_cast<uint32_t*>(dsT + (kw * 16 + gid + 8) * DSTR + r16 + tig * 2);
         d0[0] = da[0];
         d1[0] = da[1];
         d0[4] = da[2];
@@ -389,22 +402,23 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
     group_sync(g);  // the group's ds^T staged
 
     // The chunk's partial dq = ds @ K_chunk: warp kw takes rows
-    // (kw % 4) * 16 .. and columns (kw / 4) * 32 .. of its group's tile.
+    // (kw % 4) * 16 .. and columns (kw / 4) * D / 2 .. of its group's tile
+    // (at D = 16 one n-tile: the second of the x4 load is not used).
     {
-      const int rq = (kw & 3) * 16, dh = (kw >> 2) * 32;
-      float acc[4][4] = {};
+      const int rq = (kw & 3) * 16, dh = (kw >> 2) * (D / 2);
+      float acc[QN < 2 ? 2 : QN][4] = {};
       if (row0 + rq < N)  // else the rows are past N: nothing is stored
 #pragma unroll
       for (int kt = 0; kt < KEYS / 16; ++kt) {
         uint32_t a[4], r[4];
-        ldsm4t(a, smem_u32(dsT + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * STR + rq +
+        ldsm4t(a, smem_u32(dsT + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * DSTR + rq +
                            ((lane >> 3) & 1) * 8));
         const int kr = (kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + dh + (lane >> 4) * 8;
 #pragma unroll
-        for (int n = 0; n < 4; n += 2) {
+        for (int n = 0; n < QN; n += 2) {
           ldsm4t(r, smem_u32(ks + kr + n * 8));
           mma_bf16(acc[n], a, r[0], r[1]);
-          mma_bf16(acc[n + 1], a, r[2], r[3]);
+          if (n + 1 < QN) mma_bf16(acc[n + 1], a, r[2], r[3]);
         }
       }
       // Step i - 1's exchange: every CTA arrived after writing its
@@ -416,7 +430,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
       }
       float* pt = part + ((bf * 2 + g) * TR + rq + gid) * PSTR + dh + tig * 2;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < QN; ++n) {
         *reinterpret_cast<float2*>(pt + n * 8) = make_float2(acc[n][0], acc[n][1]);
         *reinterpret_cast<float2*>(pt + 8 * PSTR + n * 8) = make_float2(acc[n][2], acc[n][3]);
       }
@@ -428,21 +442,21 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
 
   // dk and dv: group 1's sums into shared memory (the tiles are dead), then
   // group 0 adds them to its own in that order and stores.
-  float4* sums = reinterpret_cast<float4*>(tiles) + (kw * 16) * 32 + lane;  // [8][16][32]
+  float4* sums = reinterpret_cast<float4*>(tiles) + (kw * 2 * DT) * 32 + lane;  // [8][2 DT][32]
   __syncthreads();  // group 0 is done with its tiles
   if (g == 1) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < DT; ++n) {
       sums[n * 32] = make_float4(dka[n][0], dka[n][1], dka[n][2], dka[n][3]);
-      sums[(8 + n) * 32] = make_float4(dva[n][0], dva[n][1], dva[n][2], dva[n][3]);
+      sums[(DT + n) * 32] = make_float4(dva[n][0], dva[n][1], dva[n][2], dva[n][3]);
     }
   }
   __syncthreads();
   if (g == 0) {
     const long long base = (long long)b * N * kd + kvh * D + tig * 2;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float4 x = sums[n * 32], y = sums[(8 + n) * 32];
+    for (int n = 0; n < DT; ++n) {
+      const float4 x = sums[n * 32], y = sums[(DT + n) * 32];
       if (keyA_ok) {
         *reinterpret_cast<uint32_t*>(dk + base + keyA * kd + n * 8) =
             pack2(__fadd_rn(dka[n][0], x.x), __fadd_rn(dka[n][1], x.y));
@@ -461,43 +475,32 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   cluster_wait();
 }
 
-}  // namespace
-
-// q [B, N, hq * 64], k/v [B, N, hkv * 64] bf16 (contiguous, 16-byte
-// aligned) -> out [B, N, hq * 64] bf16 and tr->stats [B, hq, N, 2] f32 (row
-// max, row sum of exp2).  One launch of grid (gx, gy, B) with `warps` warps
-// and `smem` bytes of dynamic shared memory (ops/attention_train.py's plan).
-extern "C" int attn_train_fwd(const void* q, const void* k, const void* v, void* out,
-                              const NaturalPlan* plan, const TrainRows* tr, int B, int gx, int gy,
-                              int warps, int smem, void* stream) {
-  auto kernel = tr->dropout ? train_fwd_kernel<true> : train_fwd_kernel<false>;
+template <int D>
+cudaError_t train_fwd(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
+                      const TrainRows& tr, dim3 grid, int warps, int smem, cudaStream_t st) {
+  auto kernel = tr.dropout ? train_fwd_kernel<D, true> : train_fwd_kernel<D, false>;
   static int smem_set[2] = {0, 0};
-  if (smem > smem_set[tr->dropout]) {
+  if (smem > smem_set[tr.dropout]) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    smem_set[tr->dropout] = smem;
+    smem_set[tr.dropout] = smem;
   }
-  kernel<<<dim3(gx, gy, B), warps * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, *plan, *tr);
+  kernel<<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                         (const __nv_bfloat16*)v, (__nv_bfloat16*)out, p, tr);
   return cudaGetLastError();
 }
 
-// The backward: o and do as q, stats from the forward, info a [B, hq, T * 64]
-// float4 scratch -> dq as q, dk/dv as k.  Two launches: the row statistics,
-// then the clusters.
-extern "C" int attn_train_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dout, const void* stats, void* info, void* dq, void* dk,
-                              void* dv, const TrainBwdPlan* plan, int B, int smem, void* stream) {
-  const TrainBwdPlan& p = *plan;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int total = B * p.hq * p.T * TR * 8;
-  bwd_rows_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+template <int D>
+cudaError_t train_bwd(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* stats, void* info, void* dq, void* dk,
+                      void* dv, const TrainBwdPlan& p, int B, int smem, cudaStream_t st) {
+  const int total = B * p.hq * p.T * TR * (D / 8);
+  bwd_rows_kernel<D><<<(total + 255) / 256, 256, 0, st>>>(
       (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)stats, (float4*)info, p.N,
       p.hq, p.T * TR, total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kernel = p.dropout ? attn_bwd_kernel<true> : attn_bwd_kernel<false>;
+  auto kernel = p.dropout ? attn_bwd_kernel<D, true> : attn_bwd_kernel<D, false>;
   static int smem_set[2] = {0, 0};
   if (smem > smem_set[p.dropout]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -521,4 +524,40 @@ extern "C" int attn_train_bwd(const void* q, const void* k, const void* v, const
                          (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, N, hq * D], k/v [B, N, hkv * D] bf16 (contiguous, 16-byte
+// aligned), D 16, 32 or 64 -> out [B, N, hq * D] bf16 and tr->stats
+// [B, hq, N, 2] f32 (row max, row sum of exp2).  One launch of grid (gx, gy,
+// B) with `warps` warps and `smem` bytes of dynamic shared memory
+// (ops/attention_train.py's plan).
+extern "C" int attn_train_fwd(const void* q, const void* k, const void* v, void* out,
+                              const NaturalPlan* plan, const TrainRows* tr, int D, int B, int gx,
+                              int gy, int warps, int smem, void* stream) {
+  const dim3 grid(gx, gy, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return train_fwd<16>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
+    case 32: return train_fwd<32>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
+    case 64: return train_fwd<64>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The backward: o and do as q, stats from the forward, info a [B, hq, T * 64]
+// float4 scratch -> dq as q, dk/dv as k.  Two launches: the row statistics,
+// then the clusters.
+extern "C" int attn_train_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* stats, void* info, void* dq, void* dk,
+                              void* dv, const TrainBwdPlan* plan, int D, int B, int smem,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return train_bwd<16>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
+    case 32: return train_bwd<32>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
+    case 64: return train_bwd<64>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,7 @@
 // The one bf16 GEMM of the port's DAC kernels: an implicit-GEMM tile over
 // shifted rows, mma.sync m16n8k16 with fp32 accumulation, and the snake
-// activation they share.  dac_res.cu (B6, B9) and snake_tr.cu (B7, B8)
-// include it; each is built into its own shared library, so everything
+// activation they share.  dac_res.cu (B6, B9) and snake_tr.cu (B7)
+// include it (B8 runs bf16_wgmma.cuh's wgmma tile); each is built into its own shared library, so everything
 // here lives in an anonymous namespace.
 //
 // The product.  For a batch element b and a GEMM row r,
@@ -21,7 +21,7 @@
 // rows outside [0, T), columns past Cin or N) into a two-stage ring.  B is
 // read from shared memory with ldmatrix.trans, so the weight stays in its
 // row-major [Cin, N] layout.  Needs Cin % 8 == 0 and N % 8 == 0 (16-byte
-// chunks); the wrappers check.  wgmma and TMA are left to a later version.
+// chunks); the wrappers check.
 //
 // Rounding points: snake is x + (1 / (a + 1e-9)) * sin(a x)^2 in fp32, in
 // that order, with sinf (no fast math) and __fmul_rn / __fadd_rn /

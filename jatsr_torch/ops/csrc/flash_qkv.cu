@@ -11,123 +11,87 @@
 //   s     = q @ k^T, fp32 accumulation; s = -inf where key col >= n_valid
 //   e     = exp2f(s - rowmax(s)), fp32 (no fast-math exp2)
 //   l     = sum(e) over the row, fp32
-//   w     = bf16(e / l), a true fp32 divide, rounded BEFORE the product
+//   w     = bf16(e / l), a correctly rounded divide, rounded BEFORE the product
 //   o_h   = bf16(w @ v) per head, no rescale
 //   so    = max(max|o_row| * INV127, 1e-12) over the whole Hq*D row
 //   o_q   = rint(o / so); out = bf16(((float)(o_q @ wo) * so) * wos + bo)
-// (B2 itself, the same attention with deferred normalisation, is
-// attention_deferred.cu.)
 //
 // What bounds it on the H100: at the serving shape (qkv [6, 352, 1792],
 // keys masked past 345, wo [1280, 1280]) it is 3.80 GFLOP bf16 (3.84 us at
 // 989 TFLOP/s) plus 6.92 G int8 operations (3.50 us at 1979 TOP/s) against
 // 14.6 MB (4.4 us at 3.35 TB/s): operations bound it.
 //
-// Design.  Four launches in one C call:
-//   1. flash_prep, fully parallel: RoPE and the q scale in bf16, and V
-//      transposed, written to scratch as the exact shared-memory images
-//      the attention CTAs use (flash_attn.cuh).  A first version did this
-//      inside every attention CTA, element by element: a serial chain of
-//      dependent loads that took most of the kernel's time.
-//   2. attention_kernel of flash_attn.cuh: one CTA of 4 warps per (64-row
-//      query tile, q-head, batch), mma.sync m16n8k16 bf16, three passes
-//      over the keys (the exact row max, the row sum, then w @ v); it
-//      writes the bf16 o to device memory.  Padded keys are zero and masked.
-//   3. quant_rows and 4. gemm_dequant<true> of int8_gemm.cuh.  The TPU
+// Design.  Three launches in one C call:
+//   1. The attention: attention_rows.cuh's body with its normed epilogue,
+//      on B2's grid (a CTA per (kv-head, batch, group of 16-row tiles), the
+//      G q-heads side by side over K and V loaded and rotated once, the
+//      launch plan ops/attention.py:_deferred_plan).  q, K and V come by
+//      cp.async straight from three column views of the qkv projection;
+//      q and K are rotated in shared memory (B2's RoPE pass, the q scale
+//      folded in); the scores once, in registers, with the exact row max;
+//      w = bf16(e / l) by fdiv_rn.cuh's correctly rounded divide (B15's);
+//      it writes the bf16 o.  Every N <= 1024 and head dims 16, 32, 64 run:
+//      past 768 keys at D = 64, V takes K's buffer once the scores are done.
+//   2. quant_rows and 3. gemm_dequant<true> of int8_gemm.cuh.  The TPU
 //      kernel keeps o in VMEM and quantises it there; a CTA here owns one
-//      head of 64 rows, not the whole 1280-wide row the quantisation needs,
-//      so o makes one round trip (5.4 MB, L2-resident).
+//      kv-head's rows, not the whole Hq*D row the quantisation needs, so o
+//      makes one round trip (5.4 MB at the serving shape, L2-resident).
 
-#include "flash_attn.cuh"
+#include "attention_rows.cuh"
 #include "int8_gemm.cuh"
 
 namespace {
 
-// RoPE of element d of one head row (half rotation), bf16 rounding per op.
-__device__ __forceinline__ float rope(const __nv_bfloat16* x, int d, float c, float s) {
-  float xd = __bfloat162float(x[d]);
-  float xr = (d < D / 2) ? -__bfloat162float(x[d + D / 2]) : __bfloat162float(x[d - D / 2]);
-  float a = bf16r(xd * bf16r(c));
-  float b = bf16r(xr * bf16r(s));
-  return bf16r(a + b);
+template <int D>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1) normed_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt) {
+  rows_attention<D, Epilogue::kNormed, false, true, Grid::kOwn>(q, k, v, out, p, TrainRows{}, rt);
 }
 
-// Scratch images of q (roped, scaled), K (roped) and V^T; see the header.
-__global__ void __launch_bounds__(256) flash_prep(
-    const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ qp,
-    __nv_bfloat16* __restrict__ kp, __nv_bfloat16* __restrict__ vtp,
-    int N, int nk, int hq, int hkv, float scale2) {
-  __shared__ float tile[32][D + 1];
-  const int hh = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * 32;
-  const int td = (hq + 2 * hkv) * D;
-  const bool is_v = hh >= hq + hkv;
-  for (int e = threadIdx.x; e < 32 * D; e += blockDim.x) {
-    const int i = e / D, d = e % D, j = r0 + i;
-    float val = 0.f;
-    if (j < N) {
-      const __nv_bfloat16* x = qkv + ((size_t)b * N + j) * td + hh * D;
-      if (is_v) {
-        val = __bfloat162float(x[d]);
-      } else {
-        val = rope(x, d, cos_t[j * D + d], sin_t[j * D + d]);
-        if (hh < hq) val = bf16r(val * scale2);
-      }
-    }
-    if (hh < hq)
-      qp[(((size_t)b * hq + hh) * nk + j) * KSTR + d] = __float2bfloat16_rn(val);
-    else if (!is_v)
-      kp[(((size_t)b * hkv + hh - hq) * nk + j) * KSTR + d] = __float2bfloat16_rn(val);
-    else
-      tile[i][d] = val;
+template <int D>
+cudaError_t attention(const void* q, const void* k, const void* v, void* o, const NaturalPlan& p,
+                      const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(normed_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
   }
-  if (!is_v) return;
-  __syncthreads();
-  const int vstr = nk + 8;
-  __nv_bfloat16* vt = vtp + ((size_t)b * hkv + hh - hq - hkv) * D * vstr;
-  for (int e = threadIdx.x; e < 32 * D; e += blockDim.x) {
-    const int d = e / 32, i = e % 32;
-    vt[d * vstr + r0 + i] = __float2bfloat16_rn(tile[i][d]);
-  }
-}
-
-// flash_prep into scratch, then the attention kernel into out [B, N, hq * 64].
-cudaError_t attention(const void* qkv, const void* cos_t, const void* sin_t, void* scratch,
-                      __nv_bfloat16* out, int B, int N, int n_valid, int hq, int hkv,
-                      float scale2, cudaStream_t st) {
-  const int nk = key_rows(N);
-  const Images im = images(scratch, B, N, hq, hkv);
-  flash_prep<<<dim3(nk / 32, hq + 2 * hkv, B), 256, 0, st>>>(
-      (const __nv_bfloat16*)qkv, (const float*)cos_t, (const float*)sin_t, im.q, im.k, im.vt, N,
-      nk, hq, hkv, scale2);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return run_attention(im, out, B, N, n_valid, hq, hkv, st);
+  normed_kernel<D><<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q,
+                                                   (const __nv_bfloat16*)k,
+                                                   (const __nv_bfloat16*)v, (__nv_bfloat16*)o, p,
+                                                   rt);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int flash_qkv_smem_bytes(int N) { return smem_bytes(N); }
-
-// Bytes of scratch for the prep images (q, K, V^T), all 16-byte aligned.
-extern "C" long long flash_qkv_scratch_bytes(int B, int N, int hq, int hkv) {
-  return image_bytes(B, N, hq, hkv);
-}
-
-// qkv [B, N, (hq + 2 hkv) * 64] bf16, cos/sin [N, 64] f32, wo [hq * 64, H]
-// s8, wos and bo [H] f32 -> out [B, N, H] bf16.  scale2 is bf16(scale *
-// log2 e), passed as a float.  scratch holds flash_qkv_scratch_bytes(B, N,
-// hq, hkv) bytes of prep images; besides them o [B * N, hq * 64] bf16, oq
-// [B * N, hq * 64] s8, so [B * N] f32.  Needs H % 128 == 0.
-extern "C" int flash_out(const void* qkv, const void* cos_t, const void* sin_t, const void* wo,
-                         const void* wos, const void* bo, void* scratch, void* o, void* oq,
-                         void* so, void* out, int B, int N, int n_valid, int hq, int hkv, int H,
-                         float scale2, void* stream) {
+// q, k and v: the three column views of qkv [B, N, (hq + 2 hkv) * D] bf16
+// (16-byte aligned, row stride in the plan), D 16, 32 or 64; cos/sin [N, D]
+// f32; wo [hq * D, H] s8, wos and bo [H] f32 -> out [B, N, H] bf16.  o
+// [B * N, hq * D] bf16, oq [B * N, hq * D] s8 and so [B * N] f32 are
+// scratch.  The attention is one launch of grid (gx, gy, B) with `warps`
+// warps and `smem` bytes of dynamic shared memory.  Needs hq * D % 64 == 0
+// and H % 128 == 0.
+extern "C" int flash_out(const void* q, const void* k, const void* v, const NaturalPlan* plan,
+                         const float* cos_t, const float* sin_t, const void* wo, const void* wos,
+                         const void* bo, void* o, void* oq, void* so, void* out, int D, int B,
+                         int gx, int gy, int warps, int smem, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = attention(qkv, cos_t, sin_t, scratch, (__nv_bfloat16*)o, B, N, n_valid, hq,
-                            hkv, scale2, st);
+  const RopeTables rt{cos_t, sin_t};
+  const dim3 grid(gx, gy, B);
+  cudaError_t e;
+  switch (D) {
+    case 16: e = attention<16>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
+    case 32: e = attention<32>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
+    case 64: e = attention<64>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
+    default: return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
-  const int M = B * N, K = hq * D;
+  const int M = B * plan->N, K = plan->hq * D;
   quant_rows<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (int8_t*)oq, (float*)so,
                                           nullptr, M, K);
   e = cudaGetLastError();

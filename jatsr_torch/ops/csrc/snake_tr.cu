@@ -1,23 +1,21 @@
 // snake -> ConvTranspose1d (K = 2s) by the polyphase identity, for Hopper.
 //
-// Replaces the TPU kernels snake_conv_transpose_fused (_snake_tr_kernel,
-// B7) and _snake_conv_transpose_streamed (_snake_tr_stream_kernel, B8) in
-// the JAX package's ops/dac_kernels.py.  Both compute
+// Replaces the TPU kernel snake_conv_transpose_fused (_snake_tr_kernel, B7)
+// in the JAX package's ops/dac_kernels.py.  It computes
 //   flat[t*s + p] = y[t] @ w[p] + y[t-1] @ w[p+s] + b,   y = bf16(snake(x, a))
 //   out[m]        = flat[m + pad],  m in [0, m_out)
-// with bf16 products summed in fp32 and y zero outside [0, T).  B8 exists on
-// the TPU only because stage 0's weights (37.7 MB) overflow a core's VMEM;
-// here the two entries differ only in what they read: B7 takes fp32 x and
-// snakes it in a first pass, B8 takes the bf16 y its wrapper snaked.
+// with bf16 products summed in fp32 and y zero outside [0, T).  (B8, the
+// same product on stage 0's pre-snaked input, is snake_tr_stream.cu, on
+// bf16_wgmma.cuh.)
 //
 // What bounds it on the H100, at one 2884-frame decode segment: stage 1
 // (768 -> 384, s 8, T 23,072) is 2.18e11 bf16 operations (0.22 ms at 989
 // TFLOP/s); stages 2 and 3 (s 4 and 2) move 0.85 and 1.13 GB (0.25, 0.34
-// ms at 3.35 TB/s); B8 at stage 0 (1536 -> 768, s 8) is 1.09e11 operations
-// (0.11 ms).
+// ms at 3.35 TB/s).
 //
-// Design.  For phase p the output rows m = t*s + p - pad form one GEMM over
-// the input times t in [0, T] with depth 2 Cin: A is [y[t], y[t-1]], B is
+// Design.  A first pass snakes x into a bf16 y.  For phase p the output rows
+// m = t*s + p - pad form one GEMM over the input times t in [0, T] with
+// depth 2 Cin: A is [y[t], y[t-1]], B is
 // [w[p]; w[p+s]] read in place from the [2s, Cin, Cout] weight (bf16_gemm.cuh,
 // taps 2, shift_step -1).  The epilogue adds the bias and writes out[m]
 // directly, dropping rows outside [0, m_out): no flat buffer, no slice, no
@@ -55,27 +53,23 @@ __global__ void __launch_bounds__(NT) polyphase_kernel(const __nv_bfloat16* __re
 
 }  // namespace
 
-// B7 (alpha given): x [B, T, Cin] fp32, alpha [Cin], y [B, T, Cin] bf16
-// scratch.  B8 (alpha null): x is the snaked bf16 [B, T, Cin], y unused.
-// w [2s, Cin, Cout] bf16, bias [Cout] fp32, out [B, m_out, Cout] fp32.
-// Needs Cin % 8 == 0 and Cout % 8 == 0 (the wrapper checks).
+// x [B, T, Cin] fp32, alpha [Cin], y [B, T, Cin] bf16 scratch, w [2s,
+// Cin, Cout] bf16, bias [Cout] fp32 -> out [B, m_out, Cout] fp32.  Needs
+// Cin % 8 == 0 and Cout % 8 == 0 (the wrapper checks).
 extern "C" int snake_conv_transpose(const void* x, const void* alpha, void* y, const void* w,
                                     const void* bias, void* out, int B, int T, int Cin, int Cout,
                                     int s, int pad, int m_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const __nv_bfloat16* yb = (const __nv_bfloat16*)x;
-  if (alpha) {
-    const size_t n = (size_t)B * T * Cin;
-    const size_t blocks = (n / 4 + 255) / 256;
-    snake_rows<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, st>>>(
-        (const float*)x, (const float*)alpha, (__nv_bfloat16*)y, n, Cin);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    yb = (const __nv_bfloat16*)y;
-  }
+  const size_t n = (size_t)B * T * Cin;
+  const size_t blocks = (n / 4 + 255) / 256;
+  snake_rows<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, st>>>(
+      (const float*)x, (const float*)alpha, (__nv_bfloat16*)y, n, Cin);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   const int ntiles = (Cout + BN - 1) / BN;
   const dim3 grid(((T + 1 + BM - 1) / BM) * ntiles, s, B);
-  polyphase_kernel<<<grid, NT, 0, st>>>(yb, (const __nv_bfloat16*)w, (const float*)bias,
-                                        (float*)out, T, Cin, Cout, s, pad, m_out);
+  polyphase_kernel<<<grid, NT, 0, st>>>((const __nv_bfloat16*)y, (const __nv_bfloat16*)w,
+                                        (const float*)bias, (float*)out, T, Cin, Cout, s, pad,
+                                        m_out);
   return cudaGetLastError();
 }

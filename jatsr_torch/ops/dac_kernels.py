@@ -15,8 +15,9 @@ Ports of the JAX package's ``ops/dac_kernels.py`` (its B6-B9):
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the hand-written kernel
-(``csrc/dac_res.cu`` for B6 and B9, ``csrc/snake_tr.cu`` for B7 and B8) or
-raises.  Nothing falls back.
+(``csrc/dac_res.cu`` for B6 and B9, ``csrc/snake_tr.cu`` for B7,
+``csrc/snake_tr_stream.cu``, a wgmma GEMM, for B8) or raises.  Nothing
+falls back.
 
 Rounding points, as the TPU kernels have them: snake in fp32, then bf16
 (:func:`snake_b16`); bf16 x bf16 products summed in fp32; biases and the
@@ -39,6 +40,8 @@ sides alike.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -312,8 +315,7 @@ def snake_conv_transpose_streamed(x, w, b, alpha, *, stride: int,
         out = polyphase_plain(y, w, b, stride=stride, padding=padding,
                               output_padding=output_padding)
     else:
-        out = _launch_tr(y, None, w, b, stride, padding, output_padding,
-                         "snake_conv_transpose_streamed")
+        out = _launch_stream(y, w, b, stride, padding, output_padding)
         snake_conv_transpose_streamed.launches += 1
     return out[0] if squeeze else out
 
@@ -321,21 +323,25 @@ def snake_conv_transpose_streamed(x, w, b, alpha, *, stride: int,
 snake_conv_transpose_streamed.launches = 0
 
 
-def _launch_tr(x, alpha, w, b, s, pad, op, what):
-    """B7 (``alpha`` given: fp32 x, snaked inside) or B8 (``alpha`` None:
-    bf16 y, snaked already)."""
-    from . import _build
-
-    want = torch.float32 if alpha is not None else torch.bfloat16
-    if x.dtype != want:
-        raise TypeError(f"{what} kernel takes {want}, got {x.dtype}")
+def _transpose_shapes(x, w, s, pad, op, what):
+    """``(B, T, Cin, Cout, m_out)`` of a polyphase transpose, after its
+    checks."""
     B, T, ci = x.shape
     k, ci2, co = w.shape
     _check_channels(what, ci, co)
     if ci2 != ci or k != 2 * s:
         raise ValueError(f"{what}: weight {tuple(w.shape)} does not fit "
                          f"Cin = {ci}, stride {s}")
-    m_out = (T - 1) * s - 2 * pad + k + op
+    return B, T, ci, co, (T - 1) * s - 2 * pad + k + op
+
+
+def _launch_tr(x, alpha, w, b, s, pad, op, what):
+    """B7: fp32 x, snaked inside (csrc/snake_tr.cu)."""
+    from . import _build
+
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes fp32, got {x.dtype}")
+    B, T, ci, co, m_out = _transpose_shapes(x, w, s, pad, op, what)
     lib = _build.load("snake_tr")
     fn = lib.snake_conv_transpose
     fn.restype = ctypes.c_int
@@ -345,13 +351,89 @@ def _launch_tr(x, alpha, w, b, s, pad, op, what):
     x = _build.aligned(x)
     wb = _build.aligned(w.to(torch.bfloat16))
     bias = b.float().contiguous()
-    a = alpha.float().contiguous() if alpha is not None else None
-    y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev) \
-        if alpha is not None else None
+    a = alpha.float().contiguous()
+    y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, m_out, co), dtype=torch.float32, device=dev)
-    err = fn(x.data_ptr(), a.data_ptr() if a is not None else None,
-             y.data_ptr() if y is not None else None, wb.data_ptr(),
+    err = fn(x.data_ptr(), a.data_ptr(), y.data_ptr(), wb.data_ptr(),
              bias.data_ptr(), out.data_ptr(), B, T, ci, co, s, pad, m_out,
              _build.stream_ptr(dev))
+    _build.check(lib, err, what)
+    return out
+
+
+# ---- B8's launch plan (csrc/snake_tr_stream.cu on csrc/bf16_wgmma.cuh) -----
+
+_WG_BM, _WG_BN, _WG_BK = 128, 192, 64   # output rows, columns; stage depth
+_WG_STAGES = 5                          # the TMA ring
+_WG_THREADS = 384                       # a producer and two consumer warpgroups
+_SMEM_SM90 = 232_448                    # an sm_90 block's opt-in shared memory
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The launch of csrc/snake_tr_stream.cu at one shape: grid ``(mtiles
+    * ntiles, s, B)``; CTA (x, p, b) takes rows t in ``[mt * 128, mt * 128 +
+    128)`` (of ``[0, T]``), columns ``[nt * 192, nt * 192 + 192)`` of phase
+    p, ``mt, nt = divmod(x, ntiles)``, over ``kblocks`` k-blocks of 64
+    (``Cin / 64`` a tap), through a ring of ``stages`` stages of
+    ``stage_bytes`` (A ``[128][64]``, B three ``[64][64]`` bf16 boxes);
+    ``smem`` bytes of dynamic shared memory with the barriers and the
+    1024-byte alignment (``WG_SMEM`` of csrc/bf16_wgmma.cuh)."""
+
+    mtiles: int
+    ntiles: int
+    kblocks: int
+    stages: int
+    stage_bytes: int
+    grid: tuple
+    threads: int
+    smem: int
+
+
+@functools.cache
+def _stream_plan(B: int, T: int, Cin: int, Cout: int, s: int) -> StreamPlan:
+    """B8's launch plan.  Raises ``ValueError`` where Cin is not a multiple
+    of 64 (a k-block would straddle the two taps) or Cout not of 8."""
+    if Cin % _WG_BK or Cout % 8 or T < 1 or B < 1:
+        raise ValueError(f"snake_conv_transpose_streamed kernel: Cin {Cin} "
+                         f"must be a multiple of {_WG_BK}, Cout {Cout} of 8")
+    mtiles = -(-(T + 1) // _WG_BM)
+    ntiles = -(-Cout // _WG_BN)
+    stage = (_WG_BM + _WG_BN) * _WG_BK * 2
+    smem = _WG_STAGES * stage + 2 * _WG_STAGES * 8 + 1024
+    return StreamPlan(mtiles, ntiles, 2 * Cin // _WG_BK, _WG_STAGES, stage,
+                      (mtiles * ntiles, s, B), _WG_THREADS, smem)
+
+
+@functools.cache
+def _stream_lib():
+    """csrc/snake_tr_stream.cu's library, its entry point's C types set."""
+    from . import _build
+
+    lib = _build.load("snake_tr_stream")
+    lib.snake_conv_transpose_streamed.restype = ctypes.c_int
+    lib.snake_conv_transpose_streamed.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return lib
+
+
+def _launch_stream(y, w, b, s, pad, op):
+    """B8: the bf16 y, snaked already (csrc/snake_tr_stream.cu)."""
+    from . import _build
+
+    what = "snake_conv_transpose_streamed"
+    if y.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {y.dtype}")
+    B, T, ci, co, m_out = _transpose_shapes(y, w, s, pad, op, what)
+    plan = _stream_plan(B, T, ci, co, s)
+    lib = _stream_lib()
+    dev = y.device
+    y = _build.aligned(y)
+    wb = _build.aligned(w.to(torch.bfloat16))
+    bias = b.float().contiguous()
+    out = torch.empty((B, m_out, co), dtype=torch.float32, device=dev)
+    err = lib.snake_conv_transpose_streamed(
+        y.data_ptr(), wb.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, ci,
+        co, s, pad, m_out, plan.grid[0], plan.smem, _build.stream_ptr(dev))
     _build.check(lib, err, what)
     return out

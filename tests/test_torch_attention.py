@@ -63,6 +63,29 @@ def test_flash_qkv_matches_jax(dtype, tol, n_valid):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 2e-2)])
+def test_flash_qkv_matches_jax_at_head_dim_16_past_768_keys(dtype, tol):
+    """D = 16 (the JAX kernel tests' smallest head dim) at N = 864, where
+    the port's kernel holds eight 128-key chunks a row group; keys masked
+    past 850."""
+    n, d, n_valid = 864, 16, 850
+    rng = np.random.default_rng(6)
+    qkv = rng.standard_normal((B, n, (HQ + 2 * HKV) * d), dtype=np.float32)
+    cos, sin = (np.asarray(a) for a in rope_cos_sin(n, d))
+    want = jax_flash_qkv(jnp.asarray(qkv, dtype), jnp.asarray(cos),
+                         jnp.asarray(sin), HQ, HKV, interpret=True,
+                         n_valid=n_valid)
+    got = gqa_attention_flash_qkv(
+        torch.from_numpy(qkv).to(getattr(torch, dtype)),
+        torch.from_numpy(cos), torch.from_numpy(sin), HQ, HKV,
+        n_valid=n_valid)
+    assert got.shape == (B, n, HQ * d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
 def test_flash_qkv_key_mask_ignores_masked_keys():
     """Keys at positions >= n_valid carry no weight: changing them leaves
     every output row unchanged."""
@@ -86,24 +109,27 @@ def test_flash_qkv_rejects_bad_shapes():
                                 torch.from_numpy(sin), HQ, HKV, n_valid=N + 1)
 
 
-def _out_inputs(seed, D, H):
-    """qkv [2, 90, 12 D], the RoPE tables, and an int8 [8 D, H] out
+def _out_inputs(seed, D, H, n=N):
+    """qkv [2, n, 12 D], the RoPE tables, and an int8 [8 D, H] out
     projection with a non-zero bias (the JAX package's test draws)."""
     rng = np.random.default_rng(seed)
-    qkv = rng.standard_normal((B, N, (HQ + 2 * HKV) * D), dtype=np.float32)
-    cos, sin = (np.array(a) for a in rope_cos_sin(N, D))
+    qkv = rng.standard_normal((B, n, (HQ + 2 * HKV) * D), dtype=np.float32)
+    cos, sin = (np.array(a) for a in rope_cos_sin(n, D))
     wo_q, wo_s = (np.array(a) for a in quantize_cols(jnp.asarray(
         rng.standard_normal((HQ * D, H), dtype=np.float32) * 0.05)))
     bo = (0.1 * rng.standard_normal((1, H))).astype(np.float32)
     return qkv, cos, sin, wo_q, wo_s, bo
 
 
-@pytest.mark.parametrize("D,H,n_valid", [(32, 128, 0), (64, 256, 77)])
+@pytest.mark.parametrize("D,H,n,n_valid", [(32, 128, N, 0),
+                                           (64, 256, N, 77),
+                                           (16, 128, 864, 850)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_out_matches_jax(D, H, n_valid, dtype):
-    """The JAX test's geometry (D 32, H 128), and D 64 with keys masked
-    past 77 of 90."""
-    qkv, cos, sin, wo_q, wo_s, bo = _out_inputs(10 + D, D, H)
+def test_flash_out_matches_jax(D, H, n, n_valid, dtype):
+    """The JAX test's geometry (D 32, H 128), D 64 with keys masked past 77
+    of 90, and D 16 at N = 864 (eight 128-key chunks in the port's kernel)
+    with keys masked past 850."""
+    qkv, cos, sin, wo_q, wo_s, bo = _out_inputs(10 + D, D, H, n)
     want = jax_flash_out(jnp.asarray(qkv, dtype), jnp.asarray(cos),
                          jnp.asarray(sin), jnp.asarray(wo_q),
                          jnp.asarray(wo_s), jnp.asarray(bo), HQ, HKV,
@@ -112,7 +138,7 @@ def test_flash_out_matches_jax(D, H, n_valid, dtype):
         torch.from_numpy(qkv).to(getattr(torch, dtype)),
         *map(torch.from_numpy, (cos, sin, wo_q, wo_s, bo)), HQ, HKV,
         n_valid=n_valid)
-    assert got.dtype == getattr(torch, dtype) and got.shape == (B, N, H)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, n, H)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=2e-3, rtol=2e-3)

@@ -1,10 +1,12 @@
 """The launch plan of the base-2 flash attention kernels B2 and B11
-(``csrc/attention_deferred.cu``), checked where no card exists.
+(``csrc/attention_deferred.cu``) and of B12's attention (``csrc/flash_qkv.cu``,
+B2's plan), checked where no card exists.
 
 ``_deferred_plan`` is pure Python: B16's per-kv-head layout of
 ``_natural_plan`` on its own grid or the balanced one, with the key mask
 limit and the zero keys of B11.  For every N the kernels take, each grid,
-batch 1 and 6 and G 1, 2 and 5, its shared memory must fit an sm_90 block,
+batch 1 and 6, G 1, 2 and 5 and head dims 16, 32 and 64, its shared memory
+must fit an sm_90 block,
 its CTA must launch, its shared-memory regions must not overlap, its
 rounds must cover every (batch, query row, q-head) exactly once, and its
 limit must be B2's n_valid or B11's N rounded up to 8 (npad the zero keys
@@ -24,7 +26,11 @@ from jatsr_torch.ops.attention import (NATURAL_MAX_N, _deferred_plan,
 
 SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory
 SMS = 132               # an H100 SXM's SMs
-ROW = 144               # bytes of a 64-wide bf16 row plus its 8 pad
+
+
+def row_bytes(D):
+    """Bytes of a D-wide bf16 row plus its 8 pad."""
+    return 2 * D + 16
 
 
 def _rounds(plan, B):
@@ -70,23 +76,23 @@ def _coverage(plan, B):
     return count
 
 
-def _check_layout(plan, B):
+def _check_layout(plan, B, D):
     assert plan.smem <= SMEM_SM90
-    assert plan.warps * 32 <= 480                 # the kernel's launch bound
+    assert plan.warps * 32 <= 512                 # the kernel's launch bound
     assert plan.nk >= plan.N and plan.nk == 128 * plan.W
     assert plan.W * (plan.rows // 16) * plan.hc == plan.warps
     hr = plan.head_rounds
     assert hr * plan.hc >= plan.heads > (hr - 1) * plan.hc
     pairs = plan.warps // plan.W
-    kv = plan.nk * ROW
-    regions = [(plan.k_off, kv), (plan.q_off, pairs * 16 * ROW),
+    kv = plan.nk * row_bytes(D)
+    regions = [(plan.k_off, kv), (plan.q_off, pairs * 16 * row_bytes(D)),
                (plan.red_off, 2 * pairs * plan.W * 16 * 4)]
     if plan.resident:
         regions.append((plan.v_off, kv))
     else:  # V takes K's buffer; K is reloaded each round
         assert plan.v_off == plan.k_off
         assert plan.row_rounds == 1 or plan.span
-    part = pairs * plan.W * 8 * 32 * 16 if plan.W > 1 else 0
+    part = pairs * plan.W * (D // 8) * 32 * 16 if plan.W > 1 else 0
     if part and plan.part_off != plan.k_off:
         regions.append((plan.part_off, part))
     elif part:  # K's buffer, once K is dead for good
@@ -99,26 +105,29 @@ def _check_layout(plan, B):
     assert (_coverage(plan, B) == 1).all()
 
 
+@pytest.mark.parametrize("D", [16, 32, 64])
 @pytest.mark.parametrize("balanced", [False, True])
 @pytest.mark.parametrize("B", [1, 6])
 @pytest.mark.parametrize("G", [1, 2, 5])
 def test_deferred_plan_fits_and_covers_every_row_and_head_once(G, B,
-                                                               balanced):
-    """B2 (keys masked at n_valid: N and N - 7) and B11 (zero keys up to
-    round_up(N, 8)) at every N in [1, 768]: one layout, its own limit."""
+                                                               balanced, D):
+    """B2 and B12 (keys masked at n_valid: N and N - 7) and B11 (zero keys
+    up to round_up(N, 8)) at every N in [1, 1024]: one layout, its own
+    limit."""
     hkv = 2
     for N in range(1, NATURAL_MAX_N + 1):
-        split = _deferred_plan(N, G * hkv, hkv, B, SMS, None, balanced)
+        split = _deferred_plan(N, G * hkv, hkv, D, B, SMS, None, balanced)
         np_ = -(-N // 8) * 8
         assert (split.limit, split.npad) == (np_, np_ - N), N
         assert split.limit <= split.nk, N
         for n_valid in {N, max(1, N - 7)}:
-            qkv = _deferred_plan(N, G * hkv, hkv, B, SMS, n_valid, balanced)
+            qkv = _deferred_plan(N, G * hkv, hkv, D, B, SMS, n_valid,
+                                 balanced)
             assert vars(qkv) == {**vars(split), "limit": n_valid,
                                  "npad": 0}, N
         assert split.heads == G and bool(split.span) == balanced, N
         try:
-            _check_layout(split, B)
+            _check_layout(split, B, D)
         except AssertionError as e:
             raise AssertionError(f"N={N}") from e
 
@@ -132,7 +141,7 @@ def test_deferred_plan_at_the_serving_shape(n_valid, balanced):
     16-row tiles a (batch, kv-head); 120 CTAs of 5 rounds on the
     per-kv-head grid, or the 528 rounds in spans of 4 over 132 CTAs."""
     N = 352 if n_valid else 345
-    plan = _deferred_plan(N, 20, 4, 6, SMS, n_valid, balanced)
+    plan = _deferred_plan(N, 20, 4, 64, 6, SMS, n_valid, balanced)
     assert (plan.N, plan.nk, plan.hq, plan.hkv, plan.rows, plan.W,
             plan.heads, plan.hc, plan.head_rounds, plan.resident,
             plan.warps) == (N, 384, 20, 4, 16, 3, 5, 5, 1, 1, 15)
@@ -147,7 +156,7 @@ def test_deferred_plan_at_the_serving_shape(n_valid, balanced):
         assert (plan.row_rounds, plan.span, plan.total, plan.grid) == (
             5, 0, 0, (5, 4))
     # The natural plan of the same layout differs only in the limit.
-    natural = _natural_plan(N, 20, 4, True, 6, SMS, balanced=balanced)
+    natural = _natural_plan(N, 20, 4, 64, True, 6, SMS, balanced=balanced)
     assert (natural.limit, natural.npad) == (N, 0)
     assert vars(natural) == {**vars(plan), "limit": N, "npad": 0}
 
@@ -158,4 +167,4 @@ def test_deferred_plan_at_the_serving_shape(n_valid, balanced):
 def test_deferred_plan_raises_outside_the_kernels(N, n_valid):
     for balanced in (False, True):
         with pytest.raises(ValueError):
-            _deferred_plan(N, 20, 4, 6, SMS, n_valid, balanced)
+            _deferred_plan(N, 20, 4, 64, 6, SMS, n_valid, balanced)

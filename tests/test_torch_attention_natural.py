@@ -1,8 +1,9 @@
 """The launch plan of the per-q-head and per-kv-head attention kernel
 (``csrc/attention_natural.cu``), checked where no card exists.
 
-``_natural_plan`` is pure Python: for every N the kernel takes and each
-grid, its shared memory must fit an sm_90 block, its CTA must launch, its
+``_natural_plan`` is pure Python: for every N the kernel takes, each head
+dim it is built for (16, 32, 64) and each grid, its shared memory must fit
+an sm_90 block, its CTA must launch, its
 shared-memory regions must not overlap where they are live together, and
 its CTAs, rounds and warps must cover every (query row, q-head) exactly
 once.  The enumeration below follows the kernel's own indexing: in round
@@ -19,7 +20,11 @@ from jatsr_torch.ops.attention import NATURAL_MAX_N, _natural_plan
 
 SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory
 SMS = 132               # an H100 SXM's SMs
-ROW = 144               # bytes of a 64-wide bf16 row plus its 8 pad
+
+
+def row_bytes(D):
+    """Bytes of a D-wide bf16 row plus its 8 pad."""
+    return 2 * D + 16
 
 
 def _coverage(plan):
@@ -42,35 +47,37 @@ def _coverage(plan):
     return count
 
 
-def _regions(plan):
+def _regions(plan, D):
     """The live shared-memory regions (offset, bytes) of one round."""
     pairs = plan.warps // plan.W
-    kv = plan.nk * ROW
-    out = [(plan.k_off, kv), (plan.q_off, pairs * 16 * ROW),
+    kv = plan.nk * row_bytes(D)
+    out = [(plan.k_off, kv), (plan.q_off, pairs * 16 * row_bytes(D)),
            (plan.red_off, 2 * pairs * plan.W * 16 * 4)]
     if plan.resident:
         out.append((plan.v_off, kv))
-    part = pairs * plan.W * 8 * 32 * 16 if plan.W > 1 else 0
+    part = pairs * plan.W * (D // 8) * 32 * 16 if plan.W > 1 else 0
     if part and plan.part_off != plan.k_off:
         out.append((plan.part_off, part))
     return out, part
 
 
+@pytest.mark.parametrize("D", [16, 32, 64])
 @pytest.mark.parametrize("B", [1, 6])
 @pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("G", [1, 2, 4, 5])
-def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B):
+def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B,
+                                                              D):
     hkv = 2
     for N in range(1, NATURAL_MAX_N + 1):
-        plan = _natural_plan(N, G * hkv, hkv, grouped, B, SMS)
+        plan = _natural_plan(N, G * hkv, hkv, D, grouped, B, SMS)
         assert plan.smem <= SMEM_SM90, N
-        assert plan.warps * 32 <= 480, N          # the kernel's launch bound
+        assert plan.warps * 32 <= 512, N          # the kernel's launch bound
         assert plan.nk >= N and plan.nk == 128 * plan.W, N
         assert plan.W * (plan.rows // 16) * plan.hc == plan.warps, N
         hr = plan.head_rounds
         assert hr * plan.hc >= plan.heads > (hr - 1) * plan.hc, N
         assert plan.row_rounds == 1 or plan.resident, N
-        regions, part = _regions(plan)
+        regions, part = _regions(plan, D)
         for off, size in regions:
             assert off % 16 == 0 and off + size <= plan.smem, (N, off)
         spans = sorted(regions)
@@ -80,7 +87,7 @@ def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B):
             # The partial outputs take K's buffer only once K is dead for
             # good: one round, V in a buffer of its own.
             assert plan.row_rounds == hr == 1 and plan.resident
-            assert part <= plan.nk * ROW
+            assert part <= plan.nk * row_bytes(D)
         if not plan.resident:
             assert plan.v_off == plan.k_off
         cover = _coverage(plan)
@@ -94,7 +101,7 @@ def test_natural_plan_at_the_serving_shape(grouped):
     q-head taking its six 64-row tiles in turn, B16 a CTA per fifth of a
     kv-head's 16-row tiles (five in turn) with its five q-heads side by
     side."""
-    plan = _natural_plan(345, 20, 4, grouped, 6, SMS)
+    plan = _natural_plan(345, 20, 4, 64, grouped, 6, SMS)
     assert (plan.nk, plan.W, plan.head_rounds, plan.resident) == (384, 3, 1,
                                                                   1)
     if grouped:
@@ -109,4 +116,24 @@ def test_natural_plan_at_the_serving_shape(grouped):
 def test_natural_plan_raises_outside_the_kernel(N):
     for grouped in (False, True):
         with pytest.raises(ValueError):
-            _natural_plan(N, 20, 4, grouped, 6, SMS)
+            _natural_plan(N, 20, 4, 64, grouped, 6, SMS)
+
+
+@pytest.mark.parametrize("D", [8, 48, 128])
+def test_natural_plan_raises_for_a_head_dim_without_a_kernel(D):
+    for grouped in (False, True):
+        with pytest.raises(TypeError):
+            _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_natural_plan_past_768_keys_at_head_dim_64(grouped):
+    """N = 1000 at v3's heads: eight chunks of 128 keys a row group, two
+    row groups (16 warps) a CTA; K and V (144 KB each at D = 64) no longer
+    fit together, so V takes K's buffer and each CTA takes one row tile; at
+    D = 32 they fit again."""
+    plan = _natural_plan(1000, 20, 4, 64, grouped, 6, SMS)
+    assert (plan.nk, plan.W, plan.resident, plan.row_rounds) == (1024, 8, 0,
+                                                                 1)
+    assert plan.v_off == plan.k_off == 0 and plan.warps == 16
+    assert _natural_plan(1000, 20, 4, 32, grouped, 6, SMS).resident == 1

@@ -74,11 +74,14 @@ def _assert_bf16_close(got, want):
 
 
 @pytest.mark.parametrize("kind", ["flash", "pallas", "pallas2"])
-@pytest.mark.parametrize("N,D", [(90, 32), (90, 64), (345, 32), (345, 64)])
+@pytest.mark.parametrize("N,D", [(90, 32), (90, 64), (345, 32), (345, 64),
+                                 (864, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_attention_matches_jax(kind, N, D, dtype):
     """N = 90 pads to 96 (flash) and 128 (pallas, pallas2); N = 345, the
-    serving patch count, to 352 and 384."""
+    serving patch count, to 352 and 384; N = 864 at D = 16, the JAX kernel
+    tests' smallest head dim, past the 768 keys the port's kernels held
+    before (eight 128-key chunks)."""
     q, k, v = _inputs(N + D, N, D)
     want = np.asarray(_jax(kind, *(jnp.asarray(x, dtype) for x in (q, k, v))),
                       np.float32)

@@ -126,8 +126,12 @@ def test_bf16_plain_keeps_the_rounding_points():
 
 SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory (227 KB)
 SMS = 132               # an H100 SXM's SMs
-ROW = 144               # bytes of a 64-wide bf16 row plus its 8 pad
 PLAN_N = [1, 7, 8, 45, 127, 128, 129, 345, 480, 600, 768]
+
+
+def row_bytes(D):
+    """Bytes of a D-wide bf16 row plus its 8 pad."""
+    return 2 * D + 16
 
 
 def _fwd_coverage(plan, B):
@@ -155,9 +159,10 @@ def _bwd_coverage(plan, B):
     """How often the backward's tiles take each (batch, q-head, row), its
     warps own each (batch, kv-head, key) and its CTAs store each (batch,
     q-head, row, float4 column of dq)."""
+    c4 = plan.D // 4  # float4 columns of a dq row
     rows = np.zeros((B, plan.hq, plan.N), np.int64)
     keys = np.zeros((B, plan.hkv, plan.N), np.int64)
-    dq = np.zeros((B, plan.hq, plan.N, 16), np.int64)
+    dq = np.zeros((B, plan.hq, plan.N, c4), np.int64)
     W, hkv = plan.grid
     assert (W, plan.cluster) == (plan.W, plan.W)
 
@@ -180,23 +185,26 @@ def _bwd_coverage(plan, B):
                         r = row0 + np.arange(64)
                         if h is not None and c == 0:  # every CTA: the same
                             rows[b, h, r[r < plan.N]] += 1
-                    for start in range(c * threads, 2 * 64 * 16, W * threads):
-                        for x in range(start, min(start + threads, 2048)):
-                            h, row0 = tile(kvh, i, x >> 10)
-                            row = row0 + ((x >> 4) & 63)
+                    for start in range(c * threads, 2 * 64 * c4, W * threads):
+                        for x in range(start, min(start + threads,
+                                                  2 * 64 * c4)):
+                            h, row0 = tile(kvh, i, x // (64 * c4))
+                            row = row0 + (x // c4) % 64
                             if row < plan.N:
-                                dq[b, h, row, x & 15] += 1
+                                dq[b, h, row, x % c4] += 1
     return rows, keys, dq
 
 
+@pytest.mark.parametrize("D", [16, 32, 64])
 @pytest.mark.parametrize("G", [1, 2, 4, 5])
 @pytest.mark.parametrize("N", PLAN_N)
-def test_train_plan_fits_and_covers_once(N, G):
+def test_train_plan_fits_and_covers_once(N, G, D):
     B, hkv = 2, 2
-    plan = tat._train_plan(N, G * hkv, hkv, B, SMS)
+    plan = tat._train_plan(N, G * hkv, hkv, D, B, SMS)
+    row = row_bytes(D)
     fwd = plan.fwd
     # Forward: B16's grid of attention_natural.cu's body.
-    assert fwd.smem <= SMEM_SM90 and fwd.warps * 32 <= 480
+    assert fwd.smem <= SMEM_SM90 and fwd.warps * 32 <= 512
     assert fwd.heads == G and fwd.grid[1] == 1 and fwd.nk >= N
     assert fwd.grid[0] <= SMS and fwd.total == B * hkv * fwd.row_rounds \
         * fwd.head_rounds and (fwd.grid[0] - 1) * fwd.span < fwd.total
@@ -206,10 +214,13 @@ def test_train_plan_fits_and_covers_once(N, G):
     assert plan.T * 64 >= N > (plan.T - 1) * 64
     assert 2 * plan.steps >= G * plan.T > 2 * (plan.steps - 1)
     assert plan.warps == 16 and plan.smem <= SMEM_SM90
-    regions = [(plan.k_off, 128 * ROW), (plan.v_off, 128 * ROW),
-               (plan.tile_off, 2 * 2 * 2 * 64 * ROW),
-               (plan.info_off, 2 * 2 * 64 * 16), (plan.ds_off, 2 * 128 * ROW),
-               (plan.part_off, 2 * 2 * 64 * 72 * 4)]
+    regions = [(plan.k_off, 128 * row), (plan.v_off, 128 * row),
+               (plan.tile_off, 2 * 2 * 2 * 64 * row),
+               (plan.info_off, 2 * 2 * 64 * 16),
+               (plan.ds_off, 2 * 128 * row_bytes(64)),  # ds^T: 64 rows wide
+               (plan.part_off, 2 * 2 * 64 * (D + 8) * 4)]
+    # The dk and dv sums, [8 warps][2 D / 8][32] float4, reuse the tiles.
+    assert 8 * 2 * (D // 8) * 32 * 16 <= 2 * 2 * 2 * 64 * row
     for (a, sa), (b_, _) in zip(regions, regions[1:]):
         assert a % 16 == 0 and a + sa <= b_
     assert regions[-1][0] + regions[-1][1] <= plan.smem
@@ -223,7 +234,7 @@ def test_train_plan_at_the_v3_training_shape():
     128-key warps side by side: 15 warps) in spans of 19 over 130 CTAs; the
     backward clusters of three 16-warp CTAs, one per (kv-head, batch), 15
     steps of two 64-row tiles (G T = 30)."""
-    plan = tat._train_plan(345, 20, 4, 28, SMS)
+    plan = tat._train_plan(345, 20, 4, 64, 28, SMS)
     assert (plan.fwd.grid, plan.fwd.warps, plan.fwd.row_rounds,
             plan.fwd.span, plan.fwd.total, plan.fwd.resident) == \
         ((130, 1), 15, 22, 19, 2464, 1)
@@ -234,4 +245,44 @@ def test_train_plan_at_the_v3_training_shape():
 @pytest.mark.parametrize("N", [0, 769])
 def test_train_plan_raises_outside_the_kernels(N):
     with pytest.raises(ValueError):
-        tat._train_plan(N, 20, 4, 28, SMS)
+        tat._train_plan(N, 20, 4, 64, 28, SMS)
+
+
+@pytest.mark.parametrize("D", [8, 48, 128])
+def test_train_plan_raises_for_a_head_dim_without_a_kernel(D):
+    with pytest.raises(TypeError):
+        tat._train_plan(345, 20, 4, D, 28, SMS)
+
+
+def test_plans_take_every_n_the_jax_gates_admit():
+    """Every preset's (q-heads, kv-heads, head dim), and the JAX kernel
+    tests' head dim 16 at tiny's heads, at every N <= 1024: B15 and B16
+    (the JAX ``pallas`` and ``pallas2`` branches, which have no gate), B2,
+    B11 and B12 wherever JAX's ``flash_supported`` admits N, and B10
+    wherever ``train_flash_supported`` does: each of the port's launch
+    plans accepts it and fits an sm_90 block.  (The gates admit N up to
+    976 at tiny, 864 at v1, 792 at v2, 768 at v3 and 1000 at head dim 16.)"""
+    from jatsr_torch.configs import get_preset, list_presets
+    from jatsr_torch.ops.attention import (NATURAL_MAX_N, _deferred_plan,
+                                           _natural_plan)
+    from jatsr_tpu.ops.attention import flash_supported
+
+    geoms = {(m.num_q_heads, m.num_kv_heads, m.hidden_size // m.num_q_heads)
+             for m in (get_preset(p).model for p in list_presets())}
+    geoms.add((4, 2, 16))
+    assert {d for _, _, d in geoms} == {16, 32, 64}
+    top = {}
+    for hq, hkv, D in sorted(geoms):
+        for N in range(1, NATURAL_MAX_N + 1):
+            plans = [_natural_plan(N, hq, hkv, D, grouped, 6, SMS)
+                     for grouped in (False, True)]
+            if flash_supported(N, hq, hkv, D):
+                top[hq, hkv, D] = N
+                plans += [_deferred_plan(N, hq, hkv, D, 6, SMS, n_valid, bal)
+                          for n_valid in (None, N) for bal in (False, True)]
+            if jat.train_flash_supported(N, hq, hkv, D):
+                plan = tat._train_plan(N, hq, hkv, D, 28, SMS)
+                plans += [plan.fwd, plan]
+            assert all(p.smem <= SMEM_SM90 for p in plans), (hq, hkv, D, N)
+    assert top == {(4, 2, 32): 976, (8, 4, 64): 864, (16, 4, 64): 792,
+                   (20, 4, 64): 768, (12, 12, 64): 704, (4, 2, 16): 1000}

@@ -312,14 +312,14 @@ def test_flash_out_kernel_matches_plain(card, B, N, n_valid, hq, hkv, H):
     _assert_rel(got, want, 1e-2)
 
 
-def _split_inputs(card, B, N, hq, hkv, seed):
-    """q, k and v as column slices of one fused [B, N, (hq + 2 hkv) * 64]
+def _split_inputs(card, B, N, hq, hkv, seed, D=64):
+    """q, k and v as column slices of one fused [B, N, (hq + 2 hkv) * D]
     projection, as the split branch hands them over (k and v strided)."""
     gen = torch.Generator(device=card).manual_seed(seed)
-    qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
                       device=card).bfloat16()
-    return (qkv[..., :hq * 64].contiguous(),
-            qkv[..., hq * 64:(hq + hkv) * 64], qkv[..., (hq + hkv) * 64:])
+    return (qkv[..., :hq * D].contiguous(),
+            qkv[..., hq * D:(hq + hkv) * D], qkv[..., (hq + hkv) * D:])
 
 
 @pytest.mark.parametrize("B,N,hq,hkv", [(6, 345, 20, 4), (2, 90, 8, 2),
@@ -461,9 +461,9 @@ def test_natural_attention_kernels_with_scores_below_2_to_minus_100(card):
 
 
 def test_natural_attention_raises_past_its_largest_n(card):
-    """N = 769 raises before any launch, in both grids."""
-    q, k, v = (x.reshape(1, 769, -1, 64)
-               for x in _split_inputs(card, 1, 769, 4, 2, seed=28))
+    """N = 1025 raises before any launch, in both grids."""
+    q, k, v = (x.reshape(1, 1025, -1, 64)
+               for x in _split_inputs(card, 1, 1025, 4, 2, seed=28))
     n0 = (gqa_attention.launches, gqa_attention_grouped.launches)
     for fn in (gqa_attention, gqa_attention_grouped):
         with pytest.raises(ValueError):
@@ -562,9 +562,13 @@ def test_snake_conv_transpose_kernel_matches_plain(card, B, T, ci, co, s):
 
 
 @pytest.mark.parametrize("B,T,ci,co,s", [(2, 77, 1024, 200, 4),
-                                         (1, 2884, 1536, 768, 8)])
+                                         (1, 2884, 1536, 768, 8),
+                                         (3, 300, 1536, 768, 8)])
 def test_snake_conv_transpose_streamed_kernel_matches_plain(card, B, T, ci,
                                                             co, s):
+    """B8's wgmma kernel: Cout 200 (a partial column tile) at one partial
+    row tile, stage 0 at one decode segment, and three batch elements whose
+    T + 1 = 301 rows end inside a row tile."""
     x, w, b, a = _tr_inputs(card, B, T, ci, co, s, seed=14)
     kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
     n0 = dk.snake_conv_transpose_streamed.launches
@@ -595,9 +599,9 @@ def test_fused_decode_on_card_matches_cpu(card):
     assert (got - want).abs().max().item() <= 5e-3
 
 
-def _attn_train_inputs(card, B, N, hq, hkv, seed):
+def _attn_train_inputs(card, B, N, hq, hkv, seed, D=64):
     gen = torch.Generator(device=card).manual_seed(seed)
-    return [torch.randn((B, N, w * 64), generator=gen, device=card).bfloat16()
+    return [torch.randn((B, N, w * D), generator=gen, device=card).bfloat16()
             for w in (hq, hkv, hkv, hq)]
 
 
@@ -605,17 +609,17 @@ def _assert_grads(got, ref, q, k, v, do, hq, hkv, rate):
     """Each gradient within 1e-2 x max |plain|, but where it vanishes in
     exact arithmetic: at N = 1 without dropout p = 1 and o = v, so ds =
     scale (do v^T - rowsum(do o)) is the difference of two fp32 sums of the
-    same 64 products, and dq and dk hold only their rounding, in both
-    versions.  The products are exact; a sum of 64 of them with an
-    accumulator that may truncate (the tensor cores') is off by at most 64
+    same D products (D <= 64), and dq and dk hold only their rounding, in
+    both versions.  The products are exact; a sum of D of them with an
+    accumulator that may truncate (the tensor cores') is off by at most D
     x 2u x sum |do v|, u = 2^-24, so there both must stay below scale x
-    2^-15 x max sum |do v| (one bf16 rounding more each), times max |k|
-    (dq) or G x max |q| (dk, a sum over the G q-heads)."""
-    B, N, _ = q.shape
-    G = hq // hkv
-    d = do.float().reshape(B, N, hkv, G, 64)
-    prods = (d * v.float().reshape(B, N, hkv, 1, 64)).abs().sum(-1).max()
-    ds_noise = 0.125 * 2.0 ** -15 * prods.item() * (1 + 2.0 ** -7)
+    2^-15 x max sum |do v| (one bf16 rounding more each; scale = D^-1/2),
+    times max |k| (dq) or G x max |q| (dk, a sum over the G q-heads)."""
+    B, N, QD = q.shape
+    G, D = hq // hkv, QD // hq
+    d = do.float().reshape(B, N, hkv, G, D)
+    prods = (d * v.float().reshape(B, N, hkv, 1, D)).abs().sum(-1).max()
+    ds_noise = D ** -0.5 * 2.0 ** -15 * prods.item() * (1 + 2.0 ** -7)
     vanish = N == 1 and rate == 0.0
     for name, g, r, other in zip(("dq", "dk", "dv"), got, ref,
                                  (k, G * q, None)):
@@ -713,3 +717,205 @@ def test_narrow_dense_dit_step_on_card_matches_cpu(card):
         d = (a - b).abs()
         assert d.max().item() <= 2 * tcfg.lr * 1.01
         assert d.mean().item() <= 0.02 * tcfg.lr
+
+
+# ---- head dims 16 and 32, and N past 768 ------------------------------------
+
+def _qkv_inputs(card, B, N, hq, hkv, D, seed):
+    """A fused [B, N, (hq + 2 hkv) * D] projection and its RoPE tables."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
+                      device=card).bfloat16()
+    return (qkv, *rope_cos_sin(N, D, device=card))
+
+
+def _serving_attention_cases(card, B, N, hq, hkv, D, n_valid, H, seed,
+                             split_heads=None):
+    """B2 (keys masked past n_valid), B11 and B12 (an int8 [hq D, H] out
+    projection) on one fused projection, and B15 and B16 on the split views
+    of ``split_heads`` (hq, hkv) heads (default the same), each launched
+    once and counted, against their plain versions; B15 bit-equal to B16."""
+    qkv, cos, sin = _qkv_inputs(card, B, N, hq, hkv, D, seed)
+    counters = (gqa_attention_flash_qkv, gqa_attention_flash,
+                gqa_attention_flash_out, gqa_attention, gqa_attention_grouped)
+    n0 = [f.launches for f in counters]
+    got = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, n_valid=n_valid)
+    torch.testing.assert_close(
+        got.float(), flash_qkv_plain(qkv, cos, sin, hq, hkv,
+                                     n_valid=n_valid).float(),
+        atol=2e-2, rtol=2e-2)
+    q, k, v = (qkv[..., :hq * D], qkv[..., hq * D:(hq + hkv) * D],
+               qkv[..., (hq + hkv) * D:])
+    got = gqa_attention_flash(q, k, v, hq, hkv)
+    torch.testing.assert_close(
+        got.float(), flash_split_plain(q, k, v, hq, hkv).float(),
+        atol=2e-2, rtol=2e-2)
+    _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * D, H, seed=seed + 1)
+    got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                  n_valid=n_valid).float().cpu()
+    # The plain version on the CPU: cuBLAS's int8 product (torch._int_mm)
+    # refuses the 64-deep out projection of head dim 16 on the card.
+    want = flash_out_plain(*(x.cpu() for x in (qkv, cos, sin, wo_q, wo_s,
+                                               bo)), hq, hkv, n_valid=n_valid)
+    _assert_rel(got, want.float(), 1e-2)
+    shq, shkv = split_heads or (hq, hkv)
+    q, k, v = (x.reshape(B, N, -1, D) for x in _split_inputs(
+        card, B, N, shq, shkv, seed + 2, D))
+    a, b = gqa_attention(q, k, v), gqa_attention_grouped(q, k, v)
+    want = gqa_attention_plain(q, k, v).float()
+    for x in (a, b):
+        torch.testing.assert_close(x.float(), want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(a, b)
+    assert [f.launches - n for f, n in zip(counters, n0)] == [1] * 5
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("N", [45, 345])
+def test_serving_attention_kernels_at_head_dims_16_and_32(card, N, D):
+    """B2, B11, B12, B15 and B16 at tiny's heads (4 q-heads, 2 kv-heads)
+    with head dim 32 (tiny's) and 16 (the JAX kernel tests' smallest); keys
+    masked past N - 5 for B2 and B12."""
+    _serving_attention_cases(card, 2, N, 4, 2, D, N - 5, 128, seed=40 + D)
+
+
+@pytest.mark.parametrize("N", [769, 864, 1000])
+def test_serving_attention_kernels_past_768_keys(card, N):
+    """B2, B11 and B12 at v1's heads (8/4, head dim 64, out projection 512
+    wide) and B15 and B16 at v3's (20/4), at N past the 768 keys the
+    kernels took before: seven or eight 128-key chunks, K and V no longer
+    together in shared memory."""
+    _serving_attention_cases(card, 2, N, 8, 4, 64, N - 3, 512, seed=N,
+                             split_heads=(20, 4))
+
+
+def test_bit_equalities_at_head_dim_32_past_768_keys(card):
+    """At head dim 32 and N = 864 (tiny's heads): B15 bit-equal to B16, and
+    B2 on the unsplit projection bit-equal to B11 on PyTorch's bf16 RoPE of
+    q and k (N % 8 == 0: no zero keys; no key masked)."""
+    from jatsr_torch.ops.attention import _rope
+
+    B, N, hq, hkv, D = 2, 864, 4, 2, 32
+    qkv, cos, sin = _qkv_inputs(card, B, N, hq, hkv, D, seed=50)
+    heads = qkv.reshape(B, N, hq + 2 * hkv, D)
+    cb, sb = cos.bfloat16()[:, None], sin.bfloat16()[:, None]
+    q = _rope(heads[:, :, :hq], cb, sb)
+    k = _rope(heads[:, :, hq:hq + hkv], cb, sb)
+    v = heads[:, :, hq + hkv:]
+    a = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv)
+    b = gqa_attention_flash(q.reshape(B, N, -1), k.reshape(B, N, -1),
+                            v.reshape(B, N, -1), hq, hkv)
+    assert torch.equal(a, b), (a.float() - b.float()).abs().max().item()
+    assert torch.equal(gqa_attention(q, k, v), gqa_attention_grouped(q, k, v))
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -123456789)])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("N", [45, 345])
+def test_attention_train_kernels_at_head_dims_16_and_32(card, N, D, rate,
+                                                        seed):
+    """B10 forward and backward at tiny's heads (4/2) with head dim 32 and
+    16, against their plain versions (the tolerances of
+    ``test_attention_train_kernels_match_plain``)."""
+    hq, hkv = 4, 2
+    q, k, v, do = _attn_train_inputs(card, 2, N, hq, hkv, 60 + D, D)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    _assert_grads(grads, at.attention_train_bwd_plain(
+        q, k, v, o, do, seed, hq, hkv, rate), q, k, v, do, hq, hkv, rate)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_attention_train_is_deterministic_at_head_dims_16_and_32(card, D):
+    """Two runs of B10's forward and backward bit-equal at head dim D."""
+    q, k, v, do = _attn_train_inputs(card, 4, 345, 4, 2, 61, D)
+    o, stats = at.attention_train_fwd(q, k, v, 5, 4, 2, 0.1)
+    o2, stats2 = at.attention_train_fwd(q, k, v, 5, 4, 2, 0.1)
+    assert torch.equal(o, o2) and torch.equal(stats, stats2)
+    a = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
+    b = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_tiny_train_step_on_card_matches_cpu(card):
+    """One train step of the tiny preset (head dim 32: B10 at D = 32; remat
+    "full"; 130 frames, 33 patches) on the card against the CPU on the same
+    weights, batch and draws, under the tolerances of
+    ``test_narrow_dense_dit_step_on_card_matches_cpu``."""
+    from jatsr_torch.configs import LossConfig, TrainConfig, get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    cfg = get_preset("tiny").model
+    C = cfg.input_channels
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, cfg_dropout_prob=0.2)
+    dense = random_dense_params(cfg, 22)
+    rng = np.random.default_rng(23)
+    hr, lr = (torch.from_numpy(rng.standard_normal((4, 130, C),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    draws = {"noise": rng.standard_normal((4, 130, C), dtype=np.float32),
+             "u": rng.random(4, dtype=np.float32),
+             "cond_noise": rng.standard_normal((4, 130, C), dtype=np.float32),
+             "cfg_u": rng.random((4, 1, 1), dtype=np.float32),
+             "layer_seeds": [3, 4]}
+    ones = np.ones(C, np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
+                                   100, (hr, lr), device=dev)
+        step = make_train_step(LossConfig(), tcfg,
+                               Normalizer(0 * ones, ones, 0 * ones, ones,
+                                          device=dev))
+        n0 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        state, m = step(state, hr, lr, draws=draws)
+        n1 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in state.params],
+                    (n1[0] - n0[0], n1[1] - n0[1]))
+    (m_c, p_c, l_c), (m_g, p_g, l_g) = out["cpu"], out["cuda"]
+    assert l_c == (0, 0) and l_g == (2 * cfg.depth, cfg.depth)
+    np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-2)
+    np.testing.assert_allclose(m_g["grad_norm"], m_c["grad_norm"], rtol=2e-2)
+    for a, b in zip(p_g, p_c):
+        d = (a - b).abs()
+        assert d.max().item() <= 2 * tcfg.lr * 1.01
+        assert d.mean().item() <= 0.02 * tcfg.lr
+
+
+@pytest.mark.parametrize("impl", ["flash", "pallas", "pallas2"])
+def test_tiny_dense_dit_eval_forward_on_card_matches_cpu(card, impl):
+    """The deterministic forward of the tiny trainable DiT (head dim 32)
+    under ``attention_impl`` flash (B11), pallas (B15) and pallas2 (B16),
+    one launch a block, on the card against the CPU on 45 patches: within
+    2e-2 x the output's max, the bound of the eval path against JAX
+    (``tests/test_torch_train_step.py``)."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+
+    cfg = dataclasses.replace(get_preset("tiny").model, attention_impl=impl)
+    counter = {"flash": gqa_attention_flash, "pallas": gqa_attention,
+               "pallas2": gqa_attention_grouped}[impl]
+    dense = random_dense_params(cfg, 24)
+    rng = np.random.default_rng(25)
+    x, c = (torch.from_numpy(rng.standard_normal(
+        (2, 45 * 4, cfg.input_channels), dtype=np.float32)) for _ in range(2))
+    t = torch.tensor([0.3, 0.8])
+    with torch.no_grad():
+        want = DenseDiT(cfg, dense, device="cpu")(x, t, c)
+        n0 = counter.launches
+        got = DenseDiT(cfg, dense, device="cuda")(x.cuda(), t.cuda(),
+                                                  c.cuda()).cpu()
+    assert counter.launches - n0 == cfg.depth
+    scale = want.abs().max().item()
+    assert torch.isfinite(got).all() and scale > 0.1
+    assert (got - want).abs().max().item() <= 2e-2 * scale

@@ -245,3 +245,45 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     assert (dk.res_stage_fused.launches, dk.res_unit_fused.launches,
             dk.snake_conv_transpose_fused.launches,
             dk.snake_conv_transpose_streamed.launches) == n0
+
+
+# ---- B8's launch plan (csrc/snake_tr_stream.cu), on the CPU ----------------
+# ``_stream_plan`` is pure Python.  The enumeration follows the kernel's own
+# indexing: CTA (x, p, b) takes rows t of ``[mt * 128, mt * 128 + 128)`` and
+# columns ``[nt * 192, nt * 192 + 192)`` of phase p, ``mt, nt = divmod(x,
+# ntiles)``, and its epilogue writes out[b, t * s + p - pad] where t <= T
+# and 0 <= m < m_out.
+
+@pytest.mark.parametrize("B,T,ci,co,s", [(1, 2884, 1536, 768, 8),
+                                         (2, 77, 1024, 200, 4),
+                                         (1, 300, 1536, 768, 8),
+                                         (3, 160, 128, 64, 2)])
+def test_stream_plan_fits_and_writes_each_output_once(B, T, ci, co, s):
+    """Stage 0 at one decode segment, the card test's odd shape (Cout 200,
+    T 77: one partial row tile), a T + 1 that is not a multiple of the row
+    tile, and the smallest Cin the gate takes at s 2."""
+    plan = dk._stream_plan(B, T, ci, co, s)
+    pad, op = (s + 1) // 2, s % 2
+    m_out = (T - 1) * s - 2 * pad + 2 * s + op
+    assert plan.smem <= 232_448 and plan.threads == 384
+    assert plan.stages >= 3 and plan.stage_bytes == (128 + 192) * 64 * 2
+    assert plan.kblocks * 64 == 2 * ci            # Cin / 64 k-blocks a tap
+    assert plan.mtiles * 128 >= T + 1 > (plan.mtiles - 1) * 128
+    assert plan.ntiles * 192 >= co > (plan.ntiles - 1) * 192
+    assert plan.grid == (plan.mtiles * plan.ntiles, s, B)
+    count = np.zeros((B, m_out, plan.ntiles), np.int64)
+    for x in range(plan.grid[0]):
+        mt, nt = divmod(x, plan.ntiles)
+        t = np.arange(mt * 128, mt * 128 + 128)
+        for p in range(s):
+            m = t * s + p - pad
+            m = m[(t <= T) & (m >= 0) & (m < m_out)]
+            for b in range(B):
+                np.add.at(count[b, :, nt], m, 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("ci,co", [(96, 64), (128, 100)])
+def test_stream_plan_raises_where_the_kernel_cannot_tile(ci, co):
+    with pytest.raises(ValueError):
+        dk._stream_plan(1, 300, ci, co, 8)
