@@ -37,9 +37,12 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   dense_gelu_quant; then the fused decode.
 
 The attention kernels are also held against their plain versions at head
-dim 32 (tiny's heads) and at N = 1000 (timed there too), with the
+dim 32 (tiny's heads), at N = 1000, at head dims 128 and 48 (v3's heads,
+N = 345; 48 zero-padded to the 64 instance) and, B15 and B16, at N = 1378
+(the streaming mode), timed where they are past the paths' shapes, with the
 bit-equalities at head dim 32, N = 864; B8 is the wgmma GEMM of
-``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0.
+``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0, and
+B6 and B9 the wgmma kernel of ``csrc/dac_res.cu``.
 
 It checks each path's launch counts, the waveform, each full-width DiT on
 the card against the same DiT's plain path on the CPU at a small input,
@@ -403,22 +406,28 @@ def check_split_attention(torch):
     return out
 
 
-# ---- the attention kernels at head dim 32 and past 768 keys ----------------
+# ---- the attention kernels at other head dims and past 768 keys ------------
 # Each against its plain version under the path shapes' tolerances
 # (attention atol = rtol = 2e-2; B12 1e-2 x max |plain|): at tiny's heads
 # (4/2, head dim 32, N 345, keys masked past 340 for B2 and B12), and at
 # N = 1000, the largest patch count JAX's flash_supported admits at head dim
 # 16 (B2, B11, B12 at v1's 8/4 heads, out projection 512 wide; B15, B16 at
 # v3's 20/4; head dim 64), where each is also timed; and the bit-equalities
-# at head dim 32, N = 864.
+# at head dim 32, N = 864.  Then at v3's 20/4 heads and N = 345 (keys masked
+# past 340), out projection 1280 wide, with head dim 128 (its own instance,
+# 8-warp CTAs) and 48 (zero-padded to the 64 instance), and B15 and B16 at
+# N = 1378 (a 16 s chunk unpatchified: the streaming mode), each timed.
 EXTRA_B = 6
 EXTRA_N = 1000
+LONG_N = 1378
+SPLIT_KERNELS = ("gqa_attention", "gqa_attention_grouped")
 
 
 def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
-                    timed):
+                    timed, only=None):
     """B2, B11, B12 on one fused projection, B15 and B16 on split views of
-    ``split_heads`` heads: {kernel: {"shape", "max_abs_err"[, "ms"]}}."""
+    ``split_heads`` heads (``only``: these of them):
+    {kernel: {"shape", "max_abs_err"[, "ms"]}}."""
     from jatsr_torch.models.dit import rope_cos_sin
     from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
                                            flash_split_plain, gqa_attention,
@@ -459,6 +468,8 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
     }
     out, got = {}, {}
     for name, (kernel, plain, rel) in cases.items():
+        if only is not None and name not in only:
+            continue
         got[name] = kernel().float()
         want = plain().float()
         torch.cuda.synchronize()
@@ -479,8 +490,9 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
 
 
 def check_attention_extra(torch):
-    """The five serving attention kernels at head dim 32 and at N = 1000,
-    and the bit-equalities at head dim 32, N = 864 (see above)."""
+    """The five serving attention kernels at head dims 32, 128 and 48 and at
+    N = 1000, B15 and B16 at N = 1378, and the bit-equalities at head dim
+    32, N = 864 (see above)."""
     from jatsr_torch.models.dit import rope_cos_sin
     from jatsr_torch.ops.attention import (_rope, gqa_attention,
                                            gqa_attention_flash,
@@ -491,6 +503,13 @@ def check_attention_extra(torch):
                           SEED + 30, (4, 2), timed=False)
     far = attention_extra(torch, 8, 4, 64, EXTRA_N, EXTRA_N - 3, 512,
                           SEED + 31, (20, 4), timed=True)
+    wide = {D: attention_extra(torch, 20, 4, D, N_VALID, N_VALID - 5, H,
+                               SEED + 33 + D, (20, 4), timed=True)
+            for D in (128, 48)}
+    long = attention_extra(torch, 20, 4, 64, LONG_N, LONG_N, H, SEED + 35,
+                           (20, 4), timed=True, only=SPLIT_KERNELS)
+    log(f"[kernel] N {LONG_N}: gqa_attention == gqa_attention_grouped, bit "
+        f"for bit (the streaming mode)")
     B_, N, hq, hkv, D = 2, 864, 4, 2, 32
     gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
     qkv = torch.randn((B_, N, (hq + 2 * hkv) * D), generator=gen,
@@ -513,8 +532,12 @@ def check_attention_extra(torch):
                              "differ at D 32, N 864")
     log("[kernel] D 32, N 864: flash_qkv == flash_split on roped inputs, "
         "gqa_attention == gqa_attention_grouped, bit for bit")
-    return {name: {"head_dim_32": d32[name], f"n_{EXTRA_N}": far[name]}
-            for name in d32}
+    out = {name: {"head_dim_32": d32[name], f"n_{EXTRA_N}": far[name],
+                  "head_dim_128": wide[128][name],
+                  "head_dim_48": wide[48][name]} for name in d32}
+    for name in SPLIT_KERNELS:
+        out[name][f"n_{LONG_N}"] = long[name]
+    return out
 
 
 def dense_inputs(torch, M, K, N, seed):

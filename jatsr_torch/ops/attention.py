@@ -55,14 +55,16 @@ def _rope(x, cos, sin):
     return x * cos + xr * sin
 
 
-def _scores_plain(qkv, cos, sin, hq, hkv, n_valid):
+def _scores_plain(qkv, cos, sin, hq, hkv, n_valid, scale_dim=None):
     """The flash kernels' masked base-2 scores ``[B, Hq, N, N]`` fp32 and
-    the ``[B, Hq, N, D]`` values (kv heads repeated)."""
+    the ``[B, Hq, N, D]`` values (kv heads repeated); ``scale_dim`` (D by
+    default) is the head dim whose ``1/sqrt`` scales q (the true one where
+    the heads are zero-padded, :func:`pad_heads`)."""
     B, N, TD = qkv.shape
     D = TD // (hq + 2 * hkv)
     g = hq // hkv
     dt = qkv.dtype
-    scale2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    scale2 = (1.0 / math.sqrt(scale_dim or D)) * math.log2(math.e)
     cos = cos.to(dt)
     sin = sin.to(dt)
     heads = qkv.reshape(B, N, hq + 2 * hkv, D).permute(0, 2, 1, 3)
@@ -77,11 +79,14 @@ def _scores_plain(qkv, cos, sin, hq, hkv, n_valid):
     return s, v
 
 
-def flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid=0):
-    """Plain PyTorch version of the kernel, with its rounding points."""
+def flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid=0,
+                    scale_dim=None):
+    """Plain PyTorch version of the kernel, with its rounding points
+    (``scale_dim``: see :func:`_scores_plain`)."""
     B, N, _ = qkv.shape
     dt = qkv.dtype
-    s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid)
+    s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid,
+                         scale_dim)
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     r = 1.0 / e.sum(dim=-1, keepdim=True)
     o = (e.to(dt).float() @ v.float()) * r
@@ -129,9 +134,11 @@ def _qkv_views(qkv, cos, sin, hq, hkv):
 
     N, TD = qkv.shape[1:]
     D = TD // (hq + 2 * hkv)
-    if qkv.dtype != torch.bfloat16 or D not in HEAD_DIMS:
-        raise TypeError(f"the flash kernels take bf16 with head dim "
-                        f"{HEAD_DIMS}, got {qkv.dtype} with head dim {D}")
+    if qkv.dtype != torch.bfloat16 or D % 2:
+        raise TypeError(f"the flash kernels take bf16 with an even head dim "
+                        f"(RoPE pairs its halves), got {qkv.dtype} with head "
+                        f"dim {D}")
+    padded_head_dim(D)
     if cos.shape != (N, D) or sin.shape != (N, D):
         raise ValueError(f"cos/sin must be [{N}, {D}]")
     qkv = _build.aligned(qkv)
@@ -149,14 +156,15 @@ def _scale2_bf16(d: int) -> float:
 
 
 def flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, num_q_heads,
-                    num_kv_heads, n_valid=0):
+                    num_kv_heads, n_valid=0, scale_dim=None):
     """Plain PyTorch version of the fused out-projection kernel, with its
     rounding points: normalised weights rounded before the value product,
     each head's output rounded, the whole row quantised by a true divide by
     its floored scale, then ``((acc * so) * wos + bo)``."""
     B, N, _ = qkv.shape
     dt = qkv.dtype
-    s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid)
+    s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid,
+                         scale_dim)
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     w = (e / e.sum(dim=-1, keepdim=True)).to(dt)
     o = (w.float() @ v.float()).to(dt)                   # [B, Hq, N, D]
@@ -191,13 +199,21 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     if not 0 <= n_valid <= N:
         raise ValueError(f"n_valid {n_valid} outside [0, {N}]")
     D = TD // (hq + 2 * hkv)
-    _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias)
+    # The kernel's GEMM contracts over the heads at their padded width.
+    Dp = padded_head_dim(D) if D <= HEAD_DIMS[-1] else D
+    _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias,
+                         k_run=hq * Dp)
     if qkv.device.type == "cpu":
         return flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, hq, hkv,
                                n_valid)
     from . import _build
 
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
+    scale2 = _scale2_bf16(D)
+    if Dp != D:  # zero head columns: the same scores, outputs and codes
+        q, k, v, cos, sin = (pad_heads(t, D, Dp) for t in (q, k, v, cos, sin))
+        wo_q = pad_heads(wo_q.t(), D, Dp).t()
+        D = Dp
     K = hq * D
     if K % 64 or H % 128:
         raise ValueError(f"flash_out: the int8 out projection needs "
@@ -206,8 +222,7 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(dev.index),
                           n_valid or N, False)
     _check_smem(plan, dev, "flash_out")
-    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1),
-                         _scale2_bf16(D))
+    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
     wo_q = _build.aligned(wo_q)
     wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
     o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
@@ -245,11 +260,12 @@ def _flash_out_lib():
 
 # ---- split q/k/v: B11 (flash), B15 (per q-head), B16 (per kv-head) ----------
 
-def flash_split_plain(q, k, v, num_q_heads, num_kv_heads):
+def flash_split_plain(q, k, v, num_q_heads, num_kv_heads, scale_dim=None):
     """Plain PyTorch version of the split-input flash kernel, with its
     rounding points: zero rows pad N to a multiple of 8 and are NOT masked:
     they score 0 and take part in the row max m, and their share of the
-    sum, ``npad * exp2(-m)``, is taken off the denominator."""
+    sum, ``npad * exp2(-m)``, is taken off the denominator (``scale_dim``:
+    see :func:`_scores_plain`)."""
     B, N, _ = q.shape
     hq, hkv = num_q_heads, num_kv_heads
     D = q.shape[2] // hq
@@ -260,7 +276,7 @@ def flash_split_plain(q, k, v, num_q_heads, num_kv_heads):
         x = F.pad(x, (0, 0, 0, npad)).reshape(B, N + npad, h, D)
         return x.transpose(1, 2).repeat_interleave(hq // h, dim=1)
 
-    scale2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    scale2 = (1.0 / math.sqrt(scale_dim or D)) * math.log2(math.e)
     s = ((heads(q, hq) * torch.tensor(scale2, dtype=dt)).float()
          @ heads(k, hkv).float().transpose(-1, -2))
     m = s.amax(dim=-1, keepdim=True)
@@ -272,19 +288,20 @@ def flash_split_plain(q, k, v, num_q_heads, num_kv_heads):
     return o.to(dt).transpose(1, 2).reshape(B, N + npad, hq * D)[:, :N]
 
 
-def gqa_attention_plain(q, k, v):
+def gqa_attention_plain(q, k, v, scale_dim=None):
     """Plain PyTorch version of the per-q-head and the per-kv-head kernels
     (one function), with their rounding points: fp32 scores times
     ``1/sqrt(D)`` after the product, keys past N carry no weight (the
     kernels' padding to 128 adds only zeros), ``e = exp(s - m)``, the
-    weights ``bf16(e / sum(e))`` before the value product."""
+    weights ``bf16(e / sum(e))`` before the value product (``scale_dim``:
+    see :func:`_scores_plain`)."""
     B, N, hq, D = q.shape
     g = hq // k.shape[2]
     dt = q.dtype
     kh, vh = (x.transpose(1, 2).repeat_interleave(g, dim=1).float()
               for x in (k, v))
     s = (q.transpose(1, 2).float() @ kh.transpose(-1, -2)) * (
-        1.0 / math.sqrt(D))
+        1.0 / math.sqrt(scale_dim or D))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = (e / e.sum(dim=-1, keepdim=True)).to(dt)
     return (w.float() @ vh).to(dt).transpose(1, 2)
@@ -370,9 +387,10 @@ def _row_view(t):
 
 
 def _check_split(q, k, v, D):
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D not in HEAD_DIMS:
-        raise TypeError(f"the split attention kernels take bf16 with head dim "
-                        f"{HEAD_DIMS}, got {q.dtype} with head dim {D}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"the split attention kernels take bf16, got "
+                        f"{q.dtype}")
+    padded_head_dim(D)
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
 
@@ -397,10 +415,60 @@ def _smem_optin(index: int) -> int:
 # ---- B15 and B16: one kernel, two grids (csrc/attention_natural.cu) --------
 
 NATURAL_MAX_N = 1024    # W <= 8 key chunks; B2's, B11's and B12's limit, too
-HEAD_DIMS = (16, 32, 64)  # the head dims the attention kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the attention kernels are built for
 _NATURAL_CHUNK = 128    # keys a warp holds in registers (16 n-tiles)
-_NATURAL_WARPS = 16     # warps a CTA: 128 registers a thread, the whole file
+_STREAM_WARPS = 8       # warps a CTA of the streaming mode: 255 registers a thread
 _SMEM_SM90 = 232_448    # an sm_90 block's opt-in shared memory
+
+
+def _max_warps(d: int) -> int:
+    """Warps a CTA of the attention body at head dim ``d``: 16 (128
+    registers a thread), but 8 at 128, whose fp32 output tile alone is 64
+    registers a thread."""
+    return 8 if d == 128 else 16
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim of the kernel instance that runs head dim ``d``: the
+    next of ``HEAD_DIMS`` up (``d`` itself where it is one).  Raises
+    ``TypeError`` past 128: a head's fp32 output row would outgrow the
+    attention body's registers."""
+    for dp in HEAD_DIMS:
+        if 1 <= d <= dp:
+            return dp
+    raise TypeError(f"the attention kernels take head dims up to "
+                    f"{HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_heads(x: torch.Tensor, d: int, dp: int) -> torch.Tensor:
+    """``x [.., H * d]`` as ``[.., H * dp]``, each head's columns widened by
+    zeros: an even ``d``'s halves at ``[0, d/2)`` and ``[dp/2, dp/2 +
+    d/2)``, so that RoPE's half rotation (column i with i + dp/2) pairs the
+    true columns; an odd ``d`` at ``[0, d)``.  A zero column adds exactly 0
+    to every score and leaves its own output column 0."""
+    if d == dp:
+        return x
+    *lead, w = x.shape
+    h = w // d
+    if d % 2:
+        out = x.new_zeros((*lead, h, dp))
+        out[..., :d] = x.reshape(*lead, h, d)
+    else:
+        out = x.new_zeros((*lead, h, 2, dp // 2))
+        out[..., :d // 2] = x.reshape(*lead, h, 2, d // 2)
+    return out.reshape(*lead, h * dp)
+
+
+def unpad_heads(x: torch.Tensor, d: int, dp: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads`: ``[.., H * dp]`` -> ``[.., H * d]``."""
+    if d == dp:
+        return x
+    *lead, w = x.shape
+    h = w // dp
+    if d % 2:
+        return x.reshape(*lead, h, dp)[..., :d].reshape(*lead, h * d)
+    return x.reshape(*lead, h, 2, dp // 2)[..., :d // 2].reshape(*lead,
+                                                                  h * d)
 
 
 def _row_bytes(d: int) -> int:
@@ -436,7 +504,16 @@ class NaturalPlan:
     (batch, y, round), are cut into spans of ``span``: CTA x of the 1-D
     grid takes rounds ``x * span ..`` and reloads K and V where the batch
     or y changes, so the card's SMs share the work evenly.  ``span`` 0:
-    the grid's own (x, y, batch)."""
+    the grid's own (x, y, batch).
+
+    ``stream`` (csrc/attention_stream.cuh): K and V pass through shared
+    memory in 128-key chunks (two buffers each, at ``k_off`` and
+    ``v_off``), so N has no cap; each warp owns 16 rows of one head over all
+    ``nk`` keys (``W`` 1), three passes over K.  The CTA covers ``hc``
+    heads of ``heads`` in ``head_rounds`` rounds times ``rows / 16`` row
+    groups, one tile (``row_rounds`` 1); the warps' q rows at ``q_off``;
+    no statistics or partial outputs (``red_off`` = ``part_off`` = the
+    end).  ``N``-wide grids as the other modes'."""
 
     N: int
     nk: int
@@ -461,6 +538,7 @@ class NaturalPlan:
     grid: tuple
     warps: int
     smem: int
+    stream: int = 0
 
     def launch_grid(self, B: int) -> tuple:
         """The 3-D launch grid at batch B: ``grid + (B,)``, or the balanced
@@ -481,23 +559,34 @@ def _natural_plan(N: int, hq: int, hkv: int, D: int, grouped: bool, B: int,
 
     Past 768 keys at D = 64 (W = 7 or 8 chunks) K and V no longer fit
     together: V then takes K's buffer once the scores are done, and K is
-    loaded again each round.
+    loaded again each round.  Past ``NATURAL_MAX_N`` keys, and at D = 128
+    where K and the partial outputs outgrow shared memory (past 640), the
+    plan is the
+    streaming mode's (:func:`_stream_plan`, its own grid whatever
+    ``balanced`` asks; B10's forward has no streaming mode, and
+    ``attention_train._train_plan`` raises there).
 
-    Raises ``ValueError`` past ``NATURAL_MAX_N``, so that the three split
-    attention kernels serve the same N, and ``TypeError`` for a head dim the
-    kernels are not built for."""
-    if not 1 <= N <= NATURAL_MAX_N:
-        raise ValueError(f"gqa_attention kernels: N={N} outside [1, "
-                         f"{NATURAL_MAX_N}]")
-    if D not in HEAD_DIMS:
-        raise TypeError(f"gqa_attention kernels: head dim {D} is not one of "
-                        f"{HEAD_DIMS}")
+    A head dim that is not one of ``HEAD_DIMS`` runs on the next one up,
+    zero-padded (:func:`pad_heads`): the plan is that instance's.  Raises
+    ``TypeError`` past 128, ``ValueError`` for N < 1."""
+    if N < 1:
+        raise ValueError(f"gqa_attention kernels: N={N} < 1")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    D = padded_head_dim(D)
+    plan = (_rows_plan(N, hq, hkv, D, grouped, B, sms, balanced)
+            if N <= NATURAL_MAX_N else None)
+    if plan is not None and plan.smem <= _SMEM_SM90:
+        return plan
+    return _stream_plan(N, hq, hkv, D, grouped)
+
+
+def _rows_plan(N, hq, hkv, D, grouped, B, sms, balanced):
+    """The resident or non-resident plan (K whole in shared memory)."""
     g = hq // hkv
     nk = _round_up(N, _NATURAL_CHUNK)
     W = nk // _NATURAL_CHUNK
-    fit = _NATURAL_WARPS // W            # (row group, head) pairs a CTA holds
+    fit = _max_warps(D) // W             # (row group, head) pairs a CTA holds
     if grouped:
         head_rounds = -(-g // fit)
         hc = -(-g // head_rounds)
@@ -537,6 +626,29 @@ def _natural_plan(N: int, hq: int, hkv: int, D: int, grouped: bool, B: int,
                        pairs * W, smem)
 
 
+def _stream_plan(N, hq, hkv, D, grouped):
+    """The streaming mode's plan (see :class:`NaturalPlan`): 8 warps a CTA;
+    B15 a CTA per (q-head, batch, 128-row tile), B16 a CTA per (kv-head,
+    batch, tile) with its G q-heads side by side (in rounds of 8 where G
+    is larger), over K and V loaded once a pass."""
+    g = hq // hkv
+    if grouped:
+        head_rounds = -(-g // _STREAM_WARPS)
+        hc = -(-g // head_rounds)
+        heads, ny = g, hkv
+    else:
+        head_rounds, hc, heads, ny = 1, 1, 1, hq
+    R = _STREAM_WARPS // hc
+    chunk = _NATURAL_CHUNK * _row_bytes(D)
+    q_off = 4 * chunk
+    smem = q_off + hc * R * 16 * _row_bytes(D)
+    rows = 16 * R
+    return NaturalPlan(N, _round_up(N, _NATURAL_CHUNK), hq, hkv, rows, 1,
+                       heads, hc, head_rounds, 1, 0, 0, 2 * chunk, q_off,
+                       smem, smem, 0, 0, N, 0, (-(-N // rows), ny), hc * R,
+                       smem, 1)
+
+
 class _NaturalArgs(ctypes.Structure):
     """``NaturalPlan`` of csrc/attention_rows.cuh, field for field."""
 
@@ -546,7 +658,7 @@ class _NaturalArgs(ctypes.Structure):
         "part_off", "span", "total")]
         + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
         + [("scale", ctypes.c_float)]
-        + [(f, ctypes.c_int) for f in ("limit", "npad")])
+        + [(f, ctypes.c_int) for f in ("limit", "npad", "stream")])
 
 
 def _natural_args(plan: NaturalPlan, q_row: int, k_row: int, v_row: int,
@@ -555,7 +667,7 @@ def _natural_args(plan: NaturalPlan, q_row: int, k_row: int, v_row: int,
     factor."""
     return _NaturalArgs(
         *(getattr(plan, f) for f, _ in _NaturalArgs._fields_[:18]),
-        q_row, k_row, v_row, scale, plan.limit, plan.npad)
+        q_row, k_row, v_row, scale, plan.limit, plan.npad, plan.stream)
 
 
 @functools.cache
@@ -580,20 +692,27 @@ def _launch_natural(q, k, v, grouped):
 
     B, N, hq, D = q.shape
     _check_split(q, k, v, D)
-    plan = _natural_plan(N, hq, k.shape[2], D, grouped, B,
+    scale = 1.0 / math.sqrt(D)
+    Dp = padded_head_dim(D)
+    if Dp != D:  # zero head columns: the same scores and outputs
+        q, k, v = (pad_heads(x.reshape(B, N, -1), D, Dp).reshape(B, N, -1, Dp)
+                   for x in (q, k, v))
+    plan = _natural_plan(N, hq, k.shape[2], Dp, grouped, B,
                          _sm_count(q.device.index))
     _check_smem(plan, q.device, "gqa_attention kernels")
     lib = _natural_lib()
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
-    args = _natural_args(plan, q_row, k_row, v_row, 1.0 / math.sqrt(D))
-    out = torch.empty((B, N, hq, D), dtype=torch.bfloat16, device=q.device)
+    args = _natural_args(plan, q_row, k_row, v_row, scale)
+    out = torch.empty((B, N, hq, Dp), dtype=torch.bfloat16, device=q.device)
     gx, gy, gz = plan.launch_grid(B)
     err = lib.attention_natural(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.byref(args), D, gz, gx, gy, plan.warps, plan.smem,
+        ctypes.byref(args), Dp, gz, gx, gy, plan.warps, plan.smem,
         _build.stream_ptr(q.device))
     _build.check(lib, err, "gqa_attention_grouped" if grouped
                  else "gqa_attention")
+    if Dp != D:
+        out = unpad_heads(out.reshape(B, N, -1), D, Dp).reshape(B, N, hq, D)
     return out
 
 
@@ -621,8 +740,13 @@ def _deferred_plan(N: int, hq: int, hkv: int, D: int, B: int, sms: int,
     masked) or B11 (``n_valid`` None: N is padded with zero keys to a
     multiple of 8, which take part in the row max, and their share comes
     off the row sum): B16's per-kv-head layout, the G q-heads side by side
-    over K and V loaded once, on its own grid or the balanced one.  Raises
-    ``ValueError`` outside [1, ``NATURAL_MAX_N``]."""
+    over K and V loaded once, on its own grid or the balanced one (at D =
+    128 past 640 keys, the streaming mode's plan, whose grid is its own).
+    Raises ``ValueError`` outside [1, ``NATURAL_MAX_N``]: JAX's
+    ``flash_supported`` stops these branches below it."""
+    if N > NATURAL_MAX_N:
+        raise ValueError(f"flash kernels: N={N} outside [1, "
+                         f"{NATURAL_MAX_N}]")
     plan = _natural_plan(N, hq, hkv, D, True, B, sms, balanced=balanced)
     if n_valid is None:
         limit = _round_up(N, 8)
@@ -664,19 +788,25 @@ def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
     _check_split(q, k, v, D)
     if balanced is None:
         balanced = cos is None
-    plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(q.device.index),
+    scale2 = _scale2_bf16(D)
+    Dp = padded_head_dim(D)
+    if Dp != D:  # zero head columns, RoPE's halves kept apart (pad_heads)
+        q, k, v = (pad_heads(x, D, Dp) for x in (q, k, v))
+        if cos is not None:
+            cos, sin = (pad_heads(t, D, Dp) for t in (cos, sin))
+    plan = _deferred_plan(N, hq, hkv, Dp, B, _sm_count(q.device.index),
                           n_valid, balanced)
     _check_smem(plan, q.device, "flash kernels")
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
-    args = _natural_args(plan, q_row, k_row, v_row, _scale2_bf16(D))
-    out = torch.empty((B, N, hq * D), dtype=torch.bfloat16, device=q.device)
+    args = _natural_args(plan, q_row, k_row, v_row, scale2)
+    out = torch.empty((B, N, hq * Dp), dtype=torch.bfloat16, device=q.device)
     lib = _deferred_lib()
     gx, gy, gz = plan.launch_grid(B)
     err = lib.attention_deferred(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.byref(args), None if cos is None else cos.data_ptr(),
-        None if sin is None else sin.data_ptr(), D, gz, gx, gy, plan.warps,
+        None if sin is None else sin.data_ptr(), Dp, gz, gx, gy, plan.warps,
         plan.smem, _build.stream_ptr(q.device))
     _build.check(lib, err, "gqa_attention_flash" if cos is None
                  else "gqa_attention_flash_qkv")
-    return out
+    return unpad_heads(out, D, Dp)

@@ -23,10 +23,10 @@ import math
 
 import torch
 
-from .attention import (_FLASH_VMEM_BUDGET, HEAD_DIMS, NaturalPlan,
-                        _natural_args, _natural_plan, _NaturalArgs,
-                        _round_up, _row_bytes, _sm_count, _smem_optin,
-                        flash_supported)
+from .attention import (_FLASH_VMEM_BUDGET, NaturalPlan, _natural_args,
+                        _natural_plan, _NaturalArgs, _round_up, _row_bytes,
+                        _sm_count, _smem_optin, flash_supported,
+                        pad_heads, padded_head_dim, unpad_heads)
 
 _GOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -104,7 +104,7 @@ def _heads(q, k, v, hq, hkv):
     return qh, kh, vh
 
 
-def _probs(qh, kh, D, seed, rate, normalise):
+def _probs(qh, kh, D, seed, rate, normalise):  # D: the scale's head dim
     """Scores of the bf16-rounded scaled q against k, fp32; then ``e`` (and
     ``l``) or ``p = e / l``; and the keep mask (None without dropout)."""
     scale2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
@@ -118,15 +118,18 @@ def _probs(qh, kh, D, seed, rate, normalise):
 
 
 def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
-                              num_kv_heads: int, rate: float):
+                              num_kv_heads: int, rate: float,
+                              scale_dim=None):
     """Plain PyTorch version of the forward kernel, with its rounding
     points: ``l`` summed before the dropout zeroing, ``bf16(e) @ v`` in
-    fp32, times ``coef / l``, rounded to the input dtype."""
+    fp32, times ``coef / l``, rounded to the input dtype.  ``scale_dim``
+    (D by default): the head dim whose ``1/sqrt`` scales the scores, the
+    true one where the heads are zero-padded (``attention.pad_heads``)."""
     B, N, QD = q.shape
     D = QD // num_q_heads
     dt = q.dtype
     qh, kh, vh = _heads(q, k, v, num_q_heads, num_kv_heads)
-    e, l, keep = _probs(qh, kh, D, seed, rate, normalise=False)
+    e, l, keep = _probs(qh, kh, scale_dim or D, seed, rate, normalise=False)
     if keep is not None:
         e = torch.where(keep, e, 0.0)
     coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
@@ -135,12 +138,14 @@ def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
 
 
 def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
-                              num_kv_heads: int, rate: float):
+                              num_kv_heads: int, rate: float,
+                              scale_dim=None):
     """Plain PyTorch version of the backward kernels, with their rounding
     points: ``delta = rowsum(do * o)`` in fp32 from the stored ``o`` and
     ``do``; ``ds = rd(p (dw - delta) scale)``; ``dv = rd(wd)^T do``,
     ``dk = ds^T q`` (q unscaled), ``dq = ds k``; dk and dv summed over the
-    query group in fp32 and rounded once (``rd`` = the input dtype)."""
+    query group in fp32 and rounded once (``rd`` = the input dtype);
+    ``scale_dim`` as :func:`attention_train_fwd_plain`'s."""
     B, N, QD = q.shape
     hq, hkv = num_q_heads, num_kv_heads
     D, g = QD // hq, hq // hkv
@@ -148,7 +153,7 @@ def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
     qh, kh, vh = _heads(q, k, v, hq, hkv)
     doh = do.to(dt).reshape(B, N, hq, D).transpose(1, 2).float()
     oh = o.reshape(B, N, hq, D).transpose(1, 2).float()
-    p, _, keep = _probs(qh, kh, D, seed, rate, normalise=True)
+    p, _, keep = _probs(qh, kh, scale_dim or D, seed, rate, normalise=True)
     dw = doh @ vh.float().transpose(-1, -2)
     wd = p
     if keep is not None:
@@ -156,7 +161,7 @@ def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
         dw = dw * kc
         wd = p * kc
     delta = (doh * oh).sum(dim=-1, keepdim=True)
-    ds = (p * (dw - delta) * (1.0 / math.sqrt(D))).to(dt).float()
+    ds = (p * (dw - delta) * (1.0 / math.sqrt(scale_dim or D))).to(dt).float()
     dv = wd.to(dt).float().transpose(-1, -2) @ doh
     dk = ds.transpose(-1, -2) @ qh.float()
     dq = (ds @ kh.float()).to(dt)
@@ -250,10 +255,9 @@ def gqa_attention_train(q, k, v, seed: int, num_q_heads: int,
 def _kernel_args(q, k, v, hq, hkv, rate, seed):
     B, N, QD = q.shape
     D = QD // hq
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype \
-            or D not in HEAD_DIMS:
-        raise TypeError(f"attention_train kernels take bf16 with head dim "
-                        f"{HEAD_DIMS}, got {q.dtype} with head dim {D}")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention_train kernels take bf16, got {q.dtype}")
+    padded_head_dim(D)
     scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
                                 dtype=torch.bfloat16))
     coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
@@ -264,8 +268,14 @@ def _kernel_args(q, k, v, hq, hkv, rate, seed):
 
 _TILE = 64          # query rows of a backward tile
 _CHUNK = 128        # keys of a backward CTA (and of a forward warp)
-_BWD_WARPS = 16     # two groups of 8 warps, 16 keys a warp
 TRAIN_MAX_N = 768   # W <= 6 CTAs a cluster; JAX's gate stops at 680
+
+
+def _bwd_groups(d: int) -> int:
+    """Groups of 8 warps (16 keys a warp) in the backward's CTA: two, but
+    one at head dim 128, whose dk and dv sums are 128 registers a thread
+    and whose shared memory holds one group's tiles."""
+    return 1 if d == 128 else 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,17 +290,19 @@ class TrainPlan:
     = (W, hkv, B) of CTAs of ``warps`` warps in
     clusters of ``cluster`` = W along x: CTA c of cluster (kv-head, batch)
     takes keys ``c * 128 .. + 127`` (``nk = 128 W``), warp w the 16 keys
-    ``c * 128 + (w % 8) * 16 ..``.  Its two groups of 8 warps take the
-    G heads' ``T`` 64-row tiles two at a time, ``steps`` steps: in step
-    i, group g takes tile ``j = 2 i + g`` of them (head ``kv-head * G + j //
-    T``, rows ``(j % T) * 64 ..``), none where ``j >= G T``.  The partial
-    dq of step i's two tiles, float4 column x in ``[0, 32 D)`` (group ``x
-    // (16 D)``, row ``x // (D / 4) % 64``), is added up and stored by CTA
-    ``(x // 512) % W``.  Offsets are bytes of dynamic shared memory: K and
-    V of the chunk, the q and do tiles ``[2 bufs][2 groups][2][64]`` rows,
-    the row statistics ``[2][2][64]`` float4, ds^T ``[2 groups][128 keys]``
-    rows of 64 query rows plus 8, and the partial dq ``[2][2][64]`` fp32
-    rows of D plus 8 (K, V, q and do: bf16 rows of D plus 8)."""
+    ``c * 128 + (w % 8) * 16 ..``.  Its ``groups`` groups of 8 warps (two;
+    one at D = 128) take the G heads' ``T`` 64-row tiles ``groups`` at a
+    time, ``steps`` steps: in step i, group g takes tile ``j = groups i +
+    g`` of them (head ``kv-head * G + j // T``, rows ``(j % T) * 64 ..``),
+    none where ``j >= G T``.  The partial dq of step i's tiles, float4
+    column x in ``[0, groups * 16 D)`` (group ``x // (16 D)``, row ``x //
+    (D / 4) % 64``), is added up and stored by CTA ``(x // (32 warps)) %
+    W``.  Offsets are bytes of dynamic shared memory: K and V of the chunk,
+    the q and do tiles ``[2 bufs][groups][2][64]`` rows, the row statistics
+    ``[2][groups][64]`` float4, ds^T ``[groups][128 keys]`` rows of 64
+    query rows plus 8, and the partial dq ``[2][groups][64]`` fp32 rows of
+    D plus 8 (K, V, q and do: bf16 rows of D plus 8).  ``D`` is the kernel
+    instance's head dim (:func:`padded_head_dim`)."""
 
     fwd: NaturalPlan
     N: int
@@ -301,6 +313,7 @@ class TrainPlan:
     T: int
     W: int
     steps: int
+    groups: int
     k_off: int
     v_off: int
     tile_off: int
@@ -317,28 +330,37 @@ class TrainPlan:
 def _train_plan(N: int, hq: int, hkv: int, D: int, B: int,
                 sms: int) -> TrainPlan:
     """The launch plan of B10's forward and backward at N keys, head dim
-    D, batch B, on a card of ``sms`` SMs.  Raises ``ValueError`` past
-    ``TRAIN_MAX_N`` (768: W <= 6 CTAs a cluster) or where the heads do not
-    group, ``TypeError`` for a head dim the kernels are not built for."""
+    D, batch B, on a card of ``sms`` SMs.  A head dim that is not one of
+    ``HEAD_DIMS`` runs on the next one up, zero-padded.  Raises
+    ``ValueError`` past ``TRAIN_MAX_N`` (768: W <= 6 CTAs a cluster), where
+    the forward outgrows shared memory (D = 128 past 640 keys; JAX's gate
+    stops there below 600) or where the heads do not group, ``TypeError``
+    past head dim 128."""
     if not 1 <= N <= TRAIN_MAX_N:
         raise ValueError(f"attention_train kernels: N={N} outside [1, "
                          f"{TRAIN_MAX_N}]")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    D = padded_head_dim(D)
     fwd = _natural_plan(N, hq, hkv, D, True, B, sms, balanced=True)
+    if fwd.stream:
+        raise ValueError(f"attention_train kernels: N={N} at head dim {D} "
+                         f"outgrows shared memory (the forward has no "
+                         f"streaming mode)")
     G = hq // hkv
     T = -(-N // _TILE)
     W = -(-N // _CHUNK)
+    groups = _bwd_groups(D)
     row = _row_bytes(D)
     kv = _CHUNK * row
     tile_off = 2 * kv
-    info_off = tile_off + 2 * 2 * 2 * _TILE * row
-    ds_off = info_off + 2 * 2 * _TILE * 16
-    part_off = ds_off + 2 * _CHUNK * _row_bytes(_TILE)  # ds^T: [key][row]
-    smem = part_off + 2 * 2 * _TILE * 2 * row
-    return TrainPlan(fwd, N, D, hq, hkv, G, T, W, -(-G * T // 2), 0, kv,
-                     tile_off, info_off, ds_off, part_off, (W, hkv), W,
-                     _BWD_WARPS, smem)
+    info_off = tile_off + 2 * groups * 2 * _TILE * row
+    ds_off = info_off + 2 * groups * _TILE * 16
+    part_off = ds_off + groups * _CHUNK * _row_bytes(_TILE)  # ds^T: [key][row]
+    smem = part_off + 2 * groups * _TILE * 2 * row
+    return TrainPlan(fwd, N, D, hq, hkv, G, T, W, -(-G * T // groups), groups,
+                     0, kv, tile_off, info_off, ds_off, part_off, (W, hkv), W,
+                     8 * groups, smem)
 
 
 class _TrainRows(ctypes.Structure):
@@ -395,10 +417,11 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
+    B, N, Dt = a["B"], a["N"], a["D"]
+    D = padded_head_dim(Dt)
+    q, k, v = (_build.aligned(pad_heads(t, Dt, D)) for t in (q, k, v))
     plan = _plan_for(q, hq, hkv)
     lib = _lib()
-    q, k, v = (_build.aligned(t) for t in (q, k, v))
-    B, N, D = a["B"], a["N"], a["D"]
     out = torch.empty_like(q)
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
     fp = plan.fwd
@@ -412,20 +435,21 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate):
                              _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train fwd")
     attention_train_fwd.launches += 1
-    return out, stats
+    return unpad_heads(out, Dt, D), stats
 
 
 def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
-    B, N = a["B"], a["N"]
-    q, k, v, o = (_build.aligned(t) for t in (q, k, v, o))
-    do = _build.aligned(do.to(q.dtype))
+    B, N, Dt = a["B"], a["N"], a["D"]
     if o.shape != q.shape or do.shape != q.shape \
             or stats.shape != (B, hq, N, 2):
         raise ValueError("o, do must match q and stats must be "
                          f"[{B}, {hq}, {N}, 2]")
+    D = padded_head_dim(Dt)
+    q, k, v, o, do = (_build.aligned(pad_heads(t.to(q.dtype), Dt, D))
+                      for t in (q, k, v, o, do))
     plan = _plan_for(q, hq, hkv)
     if B * hq * plan.T * _TILE * (plan.D // 8) >= 2 ** 31:
         raise ValueError(f"attention_train bwd: batch {B} x {hq} heads x "
@@ -446,4 +470,4 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
         _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train bwd")
     attention_train_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(t, Dt, D) for t in (dq, dk, dv))

@@ -63,21 +63,24 @@
 //     tools/torch_deferred_grids.py): B2 the per-kv-head grid (a reload
 //     would rotate K again), B11 the balanced.
 //  Every N <= 1024 runs (W <= 8 key chunks; past 768, K and V no longer
-//  fit together at D = 64 and V takes K's buffer), at head dims 16, 32, 64.
+//  fit together at D = 64 and V takes K's buffer), at head dims 16, 32, 64
+//  and 128 (8-warp CTAs at 128; past 640 keys there, K and the partial
+//  outputs outgrow shared memory and the plan takes attention_stream.cuh's mode: K and V
+//  in 128-key chunks, three passes over K, RoPE on each chunk as it lands).
 //
 // Registers (-Xptxas -v, sm_90a): 128 a thread (the 16-warp CTA caps them),
 // no spills; chip_smoke.py's [build] line prints them on every run.  Which
 // of the choices above spill is a matter of ptxas's allocation at the cap:
 // every other combination of them tried on CUDA 12.8 spilled.
 
-#include "attention_rows.cuh"
+#include "attention_stream.cuh"
 
 extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 namespace {
 
 template <int D, bool ROPE>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1) deferred_kernel(
+__global__ void __launch_bounds__(max_warps(D) * 32, 1) deferred_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const RopeTables rt) {
@@ -85,33 +88,55 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1) deferred_kernel(
                                                                   rt);
 }
 
+// The streaming mode (attention_stream.cuh), which the plans take only at
+// D = 128 (past 640 keys K and the partial outputs outgrow shared memory; the flash kernels
+// stop at 1024 keys).
 template <int D, bool ROPE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
-                   const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
-  static int smem_set = 0;
+__global__ void __launch_bounds__(STREAM_WARPS * 32, 1) deferred_stream_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt) {
+  stream_attention<D, Epilogue::kDeferred, ROPE>(q, k, v, out, p, rt);
+}
+
+template <class Kernel>
+cudaError_t launch(Kernel kernel, int& smem_set, const void* q, const void* k, const void* v,
+                   void* out, const NaturalPlan& p, const RopeTables& rt, dim3 grid, int warps,
+                   int smem, cudaStream_t st) {
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(deferred_kernel<D, ROPE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  deferred_kernel<D, ROPE><<<grid, warps * 32, smem, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, p, rt);
+  kernel<<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                         (const __nv_bfloat16*)v, (__nv_bfloat16*)out, p, rt);
   return cudaGetLastError();
+}
+
+template <int D, bool ROPE>
+cudaError_t launch_rope(const void* q, const void* k, const void* v, void* out,
+                        const NaturalPlan& p, const RopeTables& rt, dim3 grid, int warps, int smem,
+                        cudaStream_t st) {
+  static int smem_set[2] = {0, 0};
+  if (D == 128 && p.stream)
+    return launch(deferred_stream_kernel<128, ROPE>, smem_set[1], q, k, v, out, p, rt, grid,
+                  warps, smem, st);
+  if (p.stream) return cudaErrorInvalidValue;  // no streaming instance below D = 128
+  return launch(deferred_kernel<D, ROPE>, smem_set[0], q, k, v, out, p, rt, grid, warps, smem,
+                st);
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, const NaturalPlan& p,
                      const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
-  return rt.cos ? launch<D, true>(q, k, v, out, p, rt, grid, warps, smem, st)
-                : launch<D, false>(q, k, v, out, p, rt, grid, warps, smem, st);
+  return rt.cos ? launch_rope<D, true>(q, k, v, out, p, rt, grid, warps, smem, st)
+                : launch_rope<D, false>(q, k, v, out, p, rt, grid, warps, smem, st);
 }
 
 }  // namespace
 
 // q [B, N, hq * D], k and v [B, N, hkv * D] bf16 views (16-byte aligned,
-// row strides in the plan), D 16, 32 or 64 -> out [B, N, hq * D] bf16,
+// row strides in the plan), D 16, 32, 64 or 128 -> out [B, N, hq * D] bf16,
 // contiguous.  With cos_t and sin_t ([N, D] f32, 8-byte aligned) q and K
 // are RoPE'd first (B2); with null tables they are taken as they are
 // (B11).  The plan's span picks the grid: 0 the per-kv-head grid, else the
@@ -127,6 +152,7 @@ extern "C" int attention_deferred(const void* q, const void* k, const void* v, v
     case 16: return launch_d<16>(q, k, v, out, *plan, rt, grid, warps, smem, st);
     case 32: return launch_d<32>(q, k, v, out, *plan, rt, grid, warps, smem, st);
     case 64: return launch_d<64>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+    case 128: return launch_d<128>(q, k, v, out, *plan, rt, grid, warps, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

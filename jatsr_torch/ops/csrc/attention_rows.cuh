@@ -1,5 +1,6 @@
 // The attention body with the exact row max and the scores computed once
-// in registers, for head dims D of 16, 32 and 64, shared by four epilogues:
+// in registers, for head dims D of 16, 32, 64 and 128, shared by four
+// epilogues:
 //   natural  (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
 //       e = expf(s - m), w = bf16(e / l) correctly rounded, o = bf16(w @ v)
 //   train    (attention_train.cu, B10's forward): q' = bf16(q * scale2),
@@ -64,6 +65,7 @@ struct NaturalPlan {
   float scale;  // natural: 1 / sqrt(D); train, deferred: bf16(scale * log2 e)
   int limit;    // keys at or past it are masked: N; B2 n_valid; B11 round_up(N, 8)
   int npad;     // deferred: zero keys below `limit` whose share comes off l; else 0
+  int stream;   // 1: attention_stream.cuh's mode (K and V in 128-key chunks)
 };
 
 // The softmax epilogue of rows_attention (see the header).
@@ -92,6 +94,13 @@ namespace {
 
 constexpr int NT = 16;         // n-tiles of 8 keys a warp holds: 128 keys
 constexpr int MAX_WARPS = 16;  // warps a CTA: 16 x 32 x 128 registers, the whole file
+
+// Warps a CTA at head dim D: 16 (128 registers a thread) up to D = 64; 8
+// at D = 128, whose fp32 output tile alone is 64 registers a thread (255
+// registers a thread, the whole file).
+__host__ __device__ constexpr int max_warps(int D) { return D == 128 ? 8 : MAX_WARPS; }
+
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -154,7 +163,7 @@ __device__ __forceinline__ void wait_copies() {
 template <int D>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int n, int N) {
-  constexpr int STR = D + 8, PARTS = D / 8, SH = D == 64 ? 3 : D == 32 ? 2 : 1;
+  constexpr int STR = D + 8, PARTS = D / 8, SH = ilog2(PARTS);
   const unsigned base = smem_u32(dst);
   for (int c = threadIdx.x; c < n * PARTS; c += blockDim.x) {
     const int i = c >> SH, part = c & (PARTS - 1);
@@ -280,8 +289,8 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
   constexpr bool BASE2 = !NATURAL;                           // q' scaled, exp2f
   constexpr bool NORMED = NATURAL || EPI == Epilogue::kNormed;  // w = bf16(e / l)
   constexpr int STR = D + 8, DT = D / 8;  // row stride (bf16); output n-tiles
-  constexpr int DSH = D == 64 ? 3 : D == 32 ? 2 : 1;  // log2(DT)
-  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
+  constexpr int DSH = ilog2(DT);
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);

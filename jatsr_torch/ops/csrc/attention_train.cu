@@ -72,8 +72,11 @@
 // 16-row slices and 16-key warps wholly past N skip theirs; the forward's
 // two 2 x 2 x B x Hq x round_up(N, 16) x nk x 64 (19.4 GFLOP).  The launch plan is
 // ops/attention_train.py:_train_plan, checked on the CPU for every N <= 768.
-// Head dims 16, 32 and 64 are template instances of one source (D / 16
+// Head dims 16, 32, 64 and 128 are template instances of one source (D / 16
 // k-steps, D / 8 n-tiles, rows of D + 8); the FLOP counts above are D = 64's.
+// At D = 128 the forward runs 8-warp CTAs and the backward one group of 8
+// warps (255 registers a thread; its shared memory holds one group's
+// tiles), taking the G T tiles one at a time.
 //
 // Registers (-Xptxas -v, sm_90a; chip_smoke.py's [build] line prints them on
 // every run): the backward 128 a thread, no spills; the forward 128 (its
@@ -103,13 +106,19 @@ struct TrainBwdPlan {
 namespace {
 
 constexpr int BWD_WARPS = 16;  // two groups of 8; warp w owns keys 16 (w % 8) ..
+
+// Groups of 8 warps in the backward's CTA at head dim D: two up to D = 64;
+// one at D = 128, whose dk and dv sums alone are 128 registers a thread
+// (255 a thread, the whole file), and whose shared memory holds one
+// group's tiles.
+__host__ __device__ constexpr int bwd_groups(int D) { return D == 128 ? 1 : 2; }
 constexpr int KEYS = 128;      // keys of a CTA
 constexpr int TR = 64;         // rows of a tile
 constexpr int SR = 16;         // query rows of a backward slice
 constexpr int NS = SR / 8;     // n-tiles of a slice's scores
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1) train_fwd_kernel(
+__global__ void __launch_bounds__(max_warps(D) * 32, 1) train_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const TrainRows tr) {
@@ -125,7 +134,7 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(const __nv_bfloat16* __re
                                                        const float* __restrict__ stats,
                                                        float4* __restrict__ info, int N, int hq,
                                                        int rows, int total) {
-  constexpr int TPR = D / 8, SH = D == 64 ? 3 : D == 32 ? 2 : 1;  // threads a row, log2
+  constexpr int TPR = D / 8, SH = ilog2(TPR);  // threads a row, log2
   const int g = blockIdx.x * blockDim.x + threadIdx.x;  // total < 2^31: the wrapper checks
   const int part = g & (TPR - 1), rest = g >> SH;
   const int h = rest % hq, br = rest / hq;
@@ -172,11 +181,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The tile of step i for group grp: head h and first row row0; a step past
-// the G T tiles gets row0 = T * 64 (every row masked, nothing stored).
+// The tile of step i for group grp of GROUPS: head h and first row row0; a
+// step past the G T tiles gets row0 = T * 64 (every row masked, nothing
+// stored).
+template <int GROUPS>
 __device__ __forceinline__ void tile_of(const TrainBwdPlan& p, int kvh, int i, int grp, int& h,
                                         int& row0) {
-  const int j = 2 * i + grp;
+  const int j = GROUPS * i + grp;
   const bool ok = j < p.G * p.T;
   h = kvh * p.G + (ok ? j / p.T : 0);
   row0 = ok ? (j % p.T) * TR : p.T * TR;
@@ -211,10 +222,11 @@ __device__ __forceinline__ void slice_grads(const TrainBwdPlan& p, float (&s)[NS
 
 // Launch 2 of the backward.  Grid (W, hkv, B), clusters of W along x: the
 // CTA of rank c takes keys c * 128 .. c * 128 + 127.  D: the head dim (16,
-// 32 or 64: D / 16 k-steps of s^T and w^T, D / 8 n-tiles of dk and dv, a
-// warp's partial dq D / 16 n-tiles wide).  DROP: the dropout is on.
+// 32, 64 or 128: D / 16 k-steps of s^T and w^T, D / 8 n-tiles of dk and dv,
+// a warp's partial dq D / 16 n-tiles wide; bwd_groups(D) groups of 8
+// warps).  DROP: the dropout is on.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
+__global__ void __launch_bounds__(bwd_groups(D) * 256, 1) attn_bwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float4* __restrict__ info, __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
@@ -225,14 +237,15 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   constexpr int DT = D / 8;    // n-tiles of dk and dv
   constexpr int QN = D / 16;   // n-tiles of a warp's partial dq
   constexpr int C8 = D / 8;    // 16-byte chunks of a row
-  constexpr int CSH = D == 64 ? 3 : D == 32 ? 2 : 1;  // log2(C8)
+  constexpr int CSH = ilog2(C8);
+  constexpr int GROUPS = bwd_groups(D), THREADS = GROUPS * 256;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + p.k_off);     // [128][STR]
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + p.v_off);     // [128][STR]
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem + p.tile_off);  // [2][2][q, do][64][STR]
-  float4* infos = reinterpret_cast<float4*>(smem + p.info_off);             // [2][2][64]
-  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(smem + p.ds_off);   // [2][128][DSTR]: ds^T
-  float* part = reinterpret_cast<float*>(smem + p.part_off);                // [2][2][64][PSTR]
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem + p.tile_off);  // [2][GROUPS][q, do][64][STR]
+  float4* infos = reinterpret_cast<float4*>(smem + p.info_off);             // [2][GROUPS][64]
+  __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(smem + p.ds_off);   // [GROUPS][128][DSTR]: ds^T
+  float* part = reinterpret_cast<float*>(smem + p.part_off);                // [2][GROUPS][64][PSTR]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.block_rank();
@@ -250,18 +263,18 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   auto load_step = [&](int i) {
     const int bf = i & 1;
     int h, row0;
-    tile_of(p, kvh, i, g, h, row0);
+    tile_of<GROUPS>(p, kvh, i, g, h, row0);
     for (int x = gt; x < 2 * TR * C8; x += 256) {
       const int t = x >> (6 + CSH), row = (x >> CSH) & (TR - 1), c8 = x & (C8 - 1);
       const int r = row0 + row;
       const bool ok = r < N;
       const __nv_bfloat16* src = (t ? dout : q) + ((long long)b * N + (ok ? r : 0)) * qd + h * D + c8 * 8;
-      copy16(smem_u32(tiles + (((bf * 2 + g) * 2 + t) * TR + row) * STR + c8 * 8), src, ok);
+      copy16(smem_u32(tiles + (((bf * GROUPS + g) * 2 + t) * TR + row) * STR + c8 * 8), src, ok);
     }
     if (gt < TR) {
       const bool ok = row0 < p.T * TR;
       const float4* src = info + ((long long)b * p.hq + h) * p.T * TR + (ok ? row0 + gt : 0);
-      copy16(smem_u32(infos + (bf * 2 + g) * TR + gt), src, ok);
+      copy16(smem_u32(infos + (bf * GROUPS + g) * TR + gt), src, ok);
     }
     commit();
   };
@@ -280,16 +293,17 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
     for (int x = lane; x < 16 * DSTR / 2; x += 32)
       reinterpret_cast<uint32_t*>(dsT + kw * 16 * DSTR)[x] = 0u;
 
-  // dq of step i's two tiles: the W partials added in rank order, rounded
-  // once.  CTA c takes float4 columns x = c * 512 + tid, x += W * 512.
+  // dq of step i's GROUPS tiles: the W partials added in rank order,
+  // rounded once.  CTA c takes float4 columns x = c * THREADS + tid, x +=
+  // W * THREADS.
   auto reduce_dq = [&](int i) {
     const int bf = i & 1;
-    for (int x = c * BWD_WARPS * 32 + tid; x < 2 * TR * (D / 4); x += p.W * BWD_WARPS * 32) {
+    for (int x = c * THREADS + tid; x < GROUPS * TR * (D / 4); x += p.W * THREADS) {
       const int grp = x >> (7 + CSH), row = (x >> (CSH + 1)) & (TR - 1), c4 = x & (D / 4 - 1);
       int hh, r0;
-      tile_of(p, kvh, i, grp, hh, r0);
+      tile_of<GROUPS>(p, kvh, i, grp, hh, r0);
       if (r0 + row >= N) continue;
-      float* mine = part + ((bf * 2 + grp) * TR + row) * PSTR + c4 * 4;
+      float* mine = part + ((bf * GROUPS + grp) * TR + row) * PSTR + c4 * 4;
       float4 a = *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, 0));
       for (int jj = 1; jj < p.W; ++jj) {
         const float4 y = *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, jj));
@@ -317,10 +331,10 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
       group_sync(g);  // and the group's warps are done with ds^T of step i - 1
     const int bf = i & 1;
     int h, row0;
-    tile_of(p, kvh, i, g, h, row0);
-    const __nv_bfloat16* qt = tiles + ((bf * 2 + g) * 2) * TR * STR;
+    tile_of<GROUPS>(p, kvh, i, g, h, row0);
+    const __nv_bfloat16* qt = tiles + ((bf * GROUPS + g) * 2) * TR * STR;
     const __nv_bfloat16* dt = qt + TR * STR;
-    const float4* inf = infos + (bf * 2 + g) * TR;
+    const float4* inf = infos + (bf * GROUPS + g) * TR;
     const uint32_t st = stream_of(b, h, p.seed);
 
 #pragma unroll 1
@@ -428,7 +442,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
         cluster_wait();
         reduce_dq(i - 1);
       }
-      float* pt = part + ((bf * 2 + g) * TR + rq + gid) * PSTR + dh + tig * 2;
+      float* pt = part + ((bf * GROUPS + g) * TR + rq + gid) * PSTR + dh + tig * 2;
 #pragma unroll
       for (int n = 0; n < QN; ++n) {
         *reinterpret_cast<float2*>(pt + n * 8) = make_float2(acc[n][0], acc[n][1]);
@@ -441,7 +455,25 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
   reduce_dq(p.steps - 1);
 
   // dk and dv: group 1's sums into shared memory (the tiles are dead), then
-  // group 0 adds them to its own in that order and stores.
+  // group 0 adds them to its own in that order and stores.  One group
+  // stores its own sums (shared memory past its tiles may still be read by
+  // the cluster's other CTAs).
+  if (GROUPS == 1) {
+    const long long base = (long long)b * N * kd + kvh * D + tig * 2;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      if (keyA_ok) {
+        *reinterpret_cast<uint32_t*>(dk + base + keyA * kd + n * 8) = pack2(dka[n][0], dka[n][1]);
+        *reinterpret_cast<uint32_t*>(dv + base + keyA * kd + n * 8) = pack2(dva[n][0], dva[n][1]);
+      }
+      if (keyB_ok) {
+        *reinterpret_cast<uint32_t*>(dk + base + (keyA + 8) * kd + n * 8) =
+            pack2(dka[n][2], dka[n][3]);
+        *reinterpret_cast<uint32_t*>(dv + base + (keyA + 8) * kd + n * 8) =
+            pack2(dva[n][2], dva[n][3]);
+      }
+    }
+  } else {
   float4* sums = reinterpret_cast<float4*>(tiles) + (kw * 2 * DT) * 32 + lane;  // [8][2 DT][32]
   __syncthreads();  // group 0 is done with its tiles
   if (g == 1) {
@@ -470,6 +502,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1) attn_bwd_kernel(
             pack2(__fadd_rn(dva[n][2], y.z), __fadd_rn(dva[n][3], y.w));
       }
     }
+  }
   }
   cluster_arrive();  // no CTA leaves while another may read its partials
   cluster_wait();
@@ -509,7 +542,7 @@ cudaError_t train_bwd(const void* q, const void* k, const void* v, const void* o
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.W, p.hkv, B);
-  cfg.blockDim = dim3(BWD_WARPS * 32);
+  cfg.blockDim = dim3(bwd_groups(D) * 256);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -529,7 +562,7 @@ cudaError_t train_bwd(const void* q, const void* k, const void* v, const void* o
 }  // namespace
 
 // q [B, N, hq * D], k/v [B, N, hkv * D] bf16 (contiguous, 16-byte
-// aligned), D 16, 32 or 64 -> out [B, N, hq * D] bf16 and tr->stats
+// aligned), D 16, 32, 64 or 128 -> out [B, N, hq * D] bf16 and tr->stats
 // [B, hq, N, 2] f32 (row max, row sum of exp2).  One launch of grid (gx, gy,
 // B) with `warps` warps and `smem` bytes of dynamic shared memory
 // (ops/attention_train.py's plan).
@@ -542,6 +575,7 @@ extern "C" int attn_train_fwd(const void* q, const void* k, const void* v, void*
     case 16: return train_fwd<16>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
     case 32: return train_fwd<32>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
     case 64: return train_fwd<64>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
+    case 128: return train_fwd<128>(q, k, v, out, *plan, *tr, grid, warps, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -558,6 +592,7 @@ extern "C" int attn_train_bwd(const void* q, const void* k, const void* v, const
     case 16: return train_bwd<16>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
     case 32: return train_bwd<32>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
     case 64: return train_bwd<64>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
+    case 128: return train_bwd<128>(q, k, v, o, dout, stats, info, dq, dk, dv, *plan, B, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,8 @@
-// The one bf16 GEMM of the port's DAC kernels: an implicit-GEMM tile over
-// shifted rows, mma.sync m16n8k16 with fp32 accumulation, and the snake
-// activation they share.  dac_res.cu (B6, B9) and snake_tr.cu (B7)
-// include it (B8 runs bf16_wgmma.cuh's wgmma tile); each is built into its own shared library, so everything
-// here lives in an anonymous namespace.
+// The mma.sync bf16 GEMM of B7: an implicit-GEMM tile over shifted rows,
+// mma.sync m16n8k16 with fp32 accumulation.  snake_tr.cu (B7) includes it
+// (B6, B8 and B9 run bf16_wgmma.cuh's wgmma core); each csrc/*.cu is built
+// into its own shared library, so everything here lives in an anonymous
+// namespace.
 //
 // The product.  For a batch element b and a GEMM row r,
 //   out[r, n] = sum_{tap < taps} sum_{c < Cin} A[r, tap, c] * W_tap[c, n]
@@ -23,10 +23,7 @@
 // row-major [Cin, N] layout.  Needs Cin % 8 == 0 and N % 8 == 0 (16-byte
 // chunks); the wrappers check.
 //
-// Rounding points: snake is x + (1 / (a + 1e-9)) * sin(a x)^2 in fp32, in
-// that order, with sinf (no fast math) and __fmul_rn / __fadd_rn /
-// __fdiv_rn so that nvcc contracts nothing into an FMA; bf16 rounding is
-// __float2bfloat16_rn.
+// Rounding points: snake.cuh's; bf16 rounding is __float2bfloat16_rn.
 
 #pragma once
 
@@ -34,6 +31,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "snake.cuh"
 
 extern "C" const char* jt_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
@@ -55,29 +54,6 @@ struct Gemm {
   int T, Cin, N, rows;     // rows: GEMM rows per batch element
   int taps, shift0, shift_step;
 };
-
-__device__ __forceinline__ float snake(float x, float a) {
-  const float inv = __fdiv_rn(1.0f, __fadd_rn(a, 1e-9f));
-  const float s = sinf(__fmul_rn(a, x));
-  return __fadd_rn(x, __fmul_rn(inv, __fmul_rn(s, s)));
-}
-
-// y[i] = bf16(snake(x[i], a[i % C])) over n elements (n and C multiples of
-// 4), grid-stride from element 4 * first, 4 * step elements per stride.
-__device__ __forceinline__ void snake_pass(const float* __restrict__ x, const float* __restrict__ a,
-                                           __nv_bfloat16* __restrict__ y, size_t n, int C,
-                                           size_t first, size_t step) {
-  for (size_t i = first * 4; i < n; i += step * 4) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(x + i));
-    const int c = (int)(i % C);
-    __nv_bfloat162 lo = __floats2bfloat162_rn(snake(v.x, a[c]), snake(v.y, a[c + 1]));
-    __nv_bfloat162 hi = __floats2bfloat162_rn(snake(v.z, a[c + 2]), snake(v.w, a[c + 3]));
-    uint2 o;
-    o.x = *reinterpret_cast<uint32_t*>(&lo);
-    o.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(y + i) = o;
-  }
-}
 
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);

@@ -1,18 +1,22 @@
 // The bf16 GEMM core for Hopper: wgmma.mma_async with fp32 accumulators in
-// registers, fed by TMA through a ring of shared-memory stages.  Its first
-// consumer is snake_tr_stream.cu (B8); B6 and B7 still run bf16_gemm.cuh's
-// mma.sync tile.  Each csrc/*.cu that includes this file is built into its
-// own shared library, so everything here lives in an anonymous namespace.
+// registers, fed by TMA through a ring of shared-memory stages.  Its
+// consumers are snake_tr_stream.cu (B8, wg_gemm_tile at BN = 192) and
+// dac_res.cu (B6 and B9, their own loop on these primitives at BN = 96 or
+// 192); B7 still runs bf16_gemm.cuh's mma.sync tile.  Each csrc/*.cu that
+// includes this file is built into its own shared library, so everything
+// here lives in an anonymous namespace.
 //
-// The tile: 128 x 192 outputs a CTA of three warpgroups.  Warpgroup 0 is the
+// The tile: 128 x BN outputs a CTA of three warpgroups (BN 192 below; the
+// tile width is a template parameter, 96 or 192: wgmma takes n in multiples
+// of 8 up to 256).  Warpgroup 0 is the
 // producer: one thread waits for a free stage and issues the stage's TMA
 // copies, which complete on the stage's "full" mbarrier with their byte
 // count.  Warpgroups 1 and 2 are the consumers, each owning 64 rows: per
-// stage four wgmma.mma_async m64n192k16 (96 fp32 accumulators a thread),
+// stage four wgmma.mma_async m64nBNk16 (BN / 2 fp32 accumulators a thread),
 // then each of their 8 warps arrives on the stage's "empty" mbarrier.
 // Stages are 64 deep in K (one 128-byte row of bf16, the TMA box's inner
 // extent under the 128-byte swizzle): A a [128 rows][64 k] box, K-major;
-// B three [64 k][64 n] boxes, N-major, read by wgmma as the transposed
+// B BN / 64 (rounded up) [64 k][64 n] boxes, N-major, read by wgmma as the transposed
 // operand (the weight stays in its [K, N] layout, N contiguous).  Five
 // stages of 40 KB.  The TMA boxes zero-fill what lies outside the tensor
 // (rows before 0 or past the end, columns past N), so a caller needs no
@@ -41,8 +45,9 @@ constexpr int WG_THREADS = 384;                     // producer + two consumer w
 constexpr int WG_CONSUMER_WARPS = 8;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;       // 16 KB
 constexpr int WG_B_BOX = 64 * WG_BK * 2;            // one [64 k][64 n] box: 8 KB
-constexpr int WG_B_BYTES = WG_BN / 64 * WG_B_BOX;   // 24 KB
-constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
+// A stage of a BN-wide tile: A, then B's boxes.
+__host__ __device__ constexpr int wg_stage_bytes(int bn) { return WG_A_BYTES + (bn + 63) / 64 * WG_B_BOX; }
+constexpr int WG_STAGE_BYTES = wg_stage_bytes(WG_BN);
 // Dynamic shared memory: the stages, the full and empty barriers, and up to
 // 1023 bytes to align the stages to 1024.
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8 + 1024;
@@ -116,12 +121,18 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Until at most N committed groups of this warpgroup's products are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving a read or write of an accumulator across
 // the asynchronous products.
-__device__ __forceinline__ void wg_fence_acc(float (&d)[96]) {
+template <int R>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A B for one k-step of 16: A 64 x 16 (K-major), B 16 x 192 (N-major,
@@ -152,19 +163,49 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a, uin
       : "l"(a), "l"(b), "r"(1));
 }
 
-// One 128 x 192 output tile over `nk` k-blocks of 64.  load(kb, a, b, bar)
+// The same at n = 96: 48 fp32 accumulators a thread.
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B for one k-step of 16 at n = BN (96 or 192).
+template <int BN>
+__device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  static_assert(BN == 96 || BN == 192, "tile width 96 or 192");
+  if constexpr (BN == 96)
+    wgmma_m64n96k16(d, a, b);
+  else
+    wgmma_m64n192k16(d, a, b);
+}
+
+// One 128 x BN output tile over `nk` k-blocks of 64.  load(kb, a, b, bar)
 // issues the TMA copies of k-block kb (A into a: a [128][64] box; B into b:
-// three [64][64] boxes 8 KB apart), completing on bar with WG_STAGE_BYTES
-// bytes; it runs on one thread.  epi(row, col, v0, v1) takes outputs (row,
+// BN / 64 [64][64] boxes 8 KB apart), completing on bar with
+// wg_stage_bytes(BN) bytes; it runs on one thread.  epi(row, col, v0, v1) takes outputs (row,
 // col) and (row, col + 1) of the tile, col even, each pair once.  The
 // producer warpgroup returns from here early: the caller does nothing after
-// the call that needs the whole CTA.  Dynamic shared memory: WG_SMEM bytes.
-template <class Load, class Epi>
+// the call that needs the whole CTA.  Dynamic shared memory: WG_SMEM bytes
+// at BN = 192.
+template <int BN = WG_BN, class Load, class Epi>
 __device__ __forceinline__ void wg_gemm_tile(int nk, const Load& load, const Epi& epi) {
+  constexpr int STAGE = wg_stage_bytes(BN);
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   const uint32_t raw = wg_smem_u32(wg_raw);
   unsigned char* ring = wg_raw + (((raw + 1023) & ~1023u) - raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * STAGE);
   uint64_t* empty = full + WG_STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
@@ -181,8 +222,8 @@ __device__ __forceinline__ void wg_gemm_tile(int nk, const Load& load, const Epi
       for (int kb = 0; kb < nk; ++kb) {
         const int s = kb % WG_STAGES;
         if (kb >= WG_STAGES) mbar_wait(&empty[s], (kb / WG_STAGES - 1) & 1);
-        unsigned char* a = ring + s * WG_STAGE_BYTES;
-        mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+        unsigned char* a = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
         load(kb, a, a + WG_A_BYTES, &full[s]);
       }
     }
@@ -190,19 +231,19 @@ __device__ __forceinline__ void wg_gemm_tile(int nk, const Load& load, const Epi
   }
 
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  float acc[96];
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   wg_fence_acc(acc);
   for (int kb = 0; kb < nk; ++kb) {
     const int s = kb % WG_STAGES;
     mbar_wait(&full[s], (kb / WG_STAGES) & 1);
-    const uint32_t a = wg_smem_u32(ring + s * WG_STAGE_BYTES) + (wg - 1) * 64 * 128;
-    const uint32_t b = wg_smem_u32(ring + s * WG_STAGE_BYTES + WG_A_BYTES);
+    const uint32_t a = wg_smem_u32(ring + s * STAGE) + (wg - 1) * 64 * 128;
+    const uint32_t b = wg_smem_u32(ring + s * STAGE + WG_A_BYTES);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk)
-      wgmma_m64n192k16(acc, wg_desc(a + kk * 32, 16, 1024), wg_desc(b + kk * 2048, WG_B_BOX, 1024));
+      wgmma_k16<BN>(acc, wg_desc(a + kk * 32, 16, 1024), wg_desc(b + kk * 2048, WG_B_BOX, 1024));
     wgmma_commit();
     wgmma_wait_all();
     wg_fence_acc(acc);
@@ -213,7 +254,7 @@ __device__ __forceinline__ void wg_gemm_tile(int nk, const Load& load, const Epi
   // 2 (lane % 4) + (e & 1), of the warpgroup's 64 rows.
   const int row = (wg - 1) * 64 + warp * 16 + (lane >> 2), col = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < WG_BN / 8; ++i) {
+  for (int i = 0; i < BN / 8; ++i) {
     epi(row, 8 * i + col, acc[4 * i], acc[4 * i + 1]);
     epi(row + 8, 8 * i + col, acc[4 * i + 2], acc[4 * i + 3]);
   }

@@ -30,47 +30,65 @@
 //      q and K are rotated in shared memory (B2's RoPE pass, the q scale
 //      folded in); the scores once, in registers, with the exact row max;
 //      w = bf16(e / l) by fdiv_rn.cuh's correctly rounded divide (B15's);
-//      it writes the bf16 o.  Every N <= 1024 and head dims 16, 32, 64 run:
-//      past 768 keys at D = 64, V takes K's buffer once the scores are done.
+//      it writes the bf16 o.  Every N <= 1024 and head dims 16, 32, 64 and
+//      128 run: past 768 keys at D = 64, V takes K's buffer once the scores
+//      are done; at D = 128 (8-warp CTAs) past 640 keys the plan takes
+//      attention_stream.cuh's mode (K and V in 128-key chunks).
 //   2. quant_rows and 3. gemm_dequant<true> of int8_gemm.cuh.  The TPU
 //      kernel keeps o in VMEM and quantises it there; a CTA here owns one
 //      kv-head's rows, not the whole Hq*D row the quantisation needs, so o
 //      makes one round trip (5.4 MB at the serving shape, L2-resident).
 
-#include "attention_rows.cuh"
+#include "attention_stream.cuh"
 #include "int8_gemm.cuh"
 
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1) normed_kernel(
+__global__ void __launch_bounds__(max_warps(D) * 32, 1) normed_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
     const RopeTables rt) {
   rows_attention<D, Epilogue::kNormed, false, true, Grid::kOwn>(q, k, v, out, p, TrainRows{}, rt);
 }
 
-template <int D>
-cudaError_t attention(const void* q, const void* k, const void* v, void* o, const NaturalPlan& p,
-                      const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
-  static int smem_set = 0;
+// The streaming mode (attention_stream.cuh), which the plan takes only at
+// D = 128, past 640 keys.
+__global__ void __launch_bounds__(STREAM_WARPS * 32, 1) normed_stream_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt) {
+  stream_attention<128, Epilogue::kNormed, true>(q, k, v, out, p, rt);
+}
+
+template <class Kernel>
+cudaError_t launch(Kernel kernel, int& smem_set, const void* q, const void* k, const void* v,
+                   void* o, const NaturalPlan& p, const RopeTables& rt, dim3 grid, int warps,
+                   int smem, cudaStream_t st) {
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(normed_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  normed_kernel<D><<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q,
-                                                   (const __nv_bfloat16*)k,
-                                                   (const __nv_bfloat16*)v, (__nv_bfloat16*)o, p,
-                                                   rt);
+  kernel<<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                         (const __nv_bfloat16*)v, (__nv_bfloat16*)o, p, rt);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t attention(const void* q, const void* k, const void* v, void* o, const NaturalPlan& p,
+                      const RopeTables& rt, dim3 grid, int warps, int smem, cudaStream_t st) {
+  static int smem_set[2] = {0, 0};
+  if (D == 128 && p.stream)
+    return launch(normed_stream_kernel, smem_set[1], q, k, v, o, p, rt, grid, warps, smem, st);
+  if (p.stream) return cudaErrorInvalidValue;  // no streaming instance below D = 128
+  return launch(normed_kernel<D>, smem_set[0], q, k, v, o, p, rt, grid, warps, smem, st);
 }
 
 }  // namespace
 
 // q, k and v: the three column views of qkv [B, N, (hq + 2 hkv) * D] bf16
-// (16-byte aligned, row stride in the plan), D 16, 32 or 64; cos/sin [N, D]
+// (16-byte aligned, row stride in the plan), D 16, 32, 64 or 128; cos/sin [N, D]
 // f32; wo [hq * D, H] s8, wos and bo [H] f32 -> out [B, N, H] bf16.  o
 // [B * N, hq * D] bf16, oq [B * N, hq * D] s8 and so [B * N] f32 are
 // scratch.  The attention is one launch of grid (gx, gy, B) with `warps`
@@ -88,6 +106,7 @@ extern "C" int flash_out(const void* q, const void* k, const void* v, const Natu
     case 16: e = attention<16>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
     case 32: e = attention<32>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
     case 64: e = attention<64>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
+    case 128: e = attention<128>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;

@@ -233,6 +233,7 @@ res_unit_fused.launches = 0
 
 
 def _launch_res(x, w7s, b7s, w1s, b1s, a1s, a2s, dils, what):
+    """B6 or B9: one cooperative launch of csrc/dac_res.cu."""
     from . import _build
 
     if x.dtype != torch.float32:
@@ -243,28 +244,63 @@ def _launch_res(x, w7s, b7s, w1s, b1s, a1s, a2s, dils, what):
     if w7s.shape != (U, 7, C, C) or w1s.shape != (U, C, C):
         raise ValueError(f"{what}: weights {tuple(w7s.shape)}, "
                          f"{tuple(w1s.shape)} do not fit C = {C}")
-    lib = _build.load("dac_res")
-    fn = lib.res_units
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
     dev = x.device
+    plan = _res_plan(B, T, C, U, _sm_count(dev.index))
+    lib = _res_lib()
     x = _build.aligned(x)
     rows = [_build.aligned(v.reshape(U, C).float()) for v in
             (b7s, b1s, a1s, a2s)]
     w7b = _build.aligned(w7s.to(torch.bfloat16))
     w1b = _build.aligned(w1s.to(torch.bfloat16))
     out = torch.empty_like(x)
-    y = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
-    h = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((2, B, T, C), dtype=torch.bfloat16, device=dev)
     bar = torch.empty(2, dtype=torch.int32, device=dev)
     d = list(dils) + [0] * (3 - U)
-    err = fn(x.data_ptr(), out.data_ptr(), y.data_ptr(), h.data_ptr(),
-             bar.data_ptr(), w7b.data_ptr(), rows[0].data_ptr(),
-             w1b.data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
-             rows[3].data_ptr(), B, T, C, U, *d, _build.stream_ptr(dev))
+    err = lib.res_units(x.data_ptr(), out.data_ptr(), y.data_ptr(),
+                        bar.data_ptr(), w7b.data_ptr(), rows[0].data_ptr(),
+                        w1b.data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+                        rows[3].data_ptr(), B, T, C, U, *d, plan.bn,
+                        plan.stages, plan.smem, _build.stream_ptr(dev))
     _build.check(lib, err, what)
     return out
+
+
+@functools.cache
+def _res_lib():
+    """csrc/dac_res.cu's library, its entry point's C types set."""
+    from . import _build
+
+    lib = _build.load("dac_res")
+    lib.res_units.restype = ctypes.c_int
+    lib.res_units.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                              + [ctypes.c_void_p])
+    lib.res_snake_check.restype = ctypes.c_int
+    lib.res_snake_check.argtypes = ([ctypes.c_void_p] * 4
+                                    + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def snake_check(x, a):
+    """B6's batched snake (csrc/snake.cuh:snake_batch) and ``snake()`` of
+    the CUDA kernels on fp32 CUDA tensors ``x`` and ``a``, elementwise:
+    ``(kernel, reference)``."""
+    from . import _build
+
+    x, a = (t.float().contiguous() for t in (x, a))
+    if x.shape != a.shape or x.numel() % 8:
+        raise ValueError("x and a: one shape, a multiple of 8 elements")
+    got, ref = torch.empty_like(x), torch.empty_like(x)
+    lib = _res_lib()
+    err = lib.res_snake_check(x.data_ptr(), a.data_ptr(), got.data_ptr(),
+                              ref.data_ptr(), x.numel(),
+                              _build.stream_ptr(x.device))
+    _build.check(lib, err, "res_snake_check")
+    return got, ref
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def snake_conv_transpose_fused(x, w, b, alpha, *, stride: int, padding: int,
@@ -361,12 +397,72 @@ def _launch_tr(x, alpha, w, b, s, pad, op, what):
     return out
 
 
-# ---- B8's launch plan (csrc/snake_tr_stream.cu on csrc/bf16_wgmma.cuh) -----
+# ---- the wgmma kernels' launch plans (csrc/bf16_wgmma.cuh's core) ----------
 
 _WG_BM, _WG_BN, _WG_BK = 128, 192, 64   # output rows, columns; stage depth
-_WG_STAGES = 5                          # the TMA ring
+_WG_STAGES = 5                          # B8's TMA ring
 _WG_THREADS = 384                       # a producer and two consumer warpgroups
+_WG_A_BYTES = _WG_BM * _WG_BK * 2       # a stage's A box (and a 64-column block of h)
+_WG_B_BOX = 64 * _WG_BK * 2             # one [64 k][64 n] B box
 _SMEM_SM90 = 232_448                    # an sm_90 block's opt-in shared memory
+_SMEM_SM = 233_472                      # an SM's shared memory, 1 KB of it kept a block
+_RES_MAX_STAGES = 6                     # B6/B9's ring at most
+_RES_COLS = 6                           # B6/B9's per-channel fp32 constants
+
+
+@dataclasses.dataclass(frozen=True)
+class ResPlan:
+    """The launch of csrc/dac_res.cu (B6, B9) at one shape.  A persistent
+    grid of ``grid`` CTAs (no more than fit on the card at once: the grid
+    barrier needs every CTA resident) walks the ``tiles`` 128-row tiles of
+    ``[B, T]``, CTA c the tiles c, c + grid, ..; a CTA owns a tile across
+    all C columns, in ``halves`` column tiles of ``bn`` (96 or 192).  Per
+    tile and unit the ring passes ``halves * 7 * kc`` conv7 k-blocks (A a
+    box of y, B ``ceil(bn / 64)`` boxes of w7) then ``halves * kc`` conv1
+    k-blocks (B only; A is h in shared memory, ``kc`` 64-column blocks of
+    16 KB).  Dynamic shared memory: 1024 bytes of alignment slack, the
+    ``stages`` stages of ``stage_bytes``, h, two mbarriers a stage, and a
+    unit's per-channel constants (``_RES_COLS`` rows of C fp32)."""
+
+    bn: int
+    halves: int
+    kc: int
+    tiles: int
+    stages: int
+    stage_bytes: int
+    h_bytes: int
+    smem: int
+    per_sm: int
+    grid: int
+
+
+@functools.cache
+def _res_plan(B: int, T: int, C: int, units: int, sms: int) -> ResPlan:
+    """B6's (``units`` 3) or B9's (1) launch plan on a card of ``sms``
+    SMs: the mirror of csrc/dac_res.cu's ``launch`` (whose grid comes from
+    the occupancy at ``smem``; here from the SM's shared memory, which
+    binds first: one CTA an SM at every C).  The column tile is 96 up to
+    C = 192 (at C = 192 two halves of 96 ran faster than one of 192, whose
+    epilogue spills: PERF.md), else 192.  Raises ``ValueError`` for C past
+    384 or not a multiple of 8."""
+    if C % 8 or not 8 <= C <= 384 or T < 1 or B < 1 or units not in (1, 3):
+        raise ValueError(f"res units kernel: C {C} must be a multiple of 8 "
+                         f"up to 384")
+    bn = 96 if C <= 192 else _WG_BN
+    kc = -(-C // _WG_BK)
+    stage = _WG_A_BYTES + -(-bn // 64) * _WG_B_BOX
+    h_bytes = kc * _WG_A_BYTES
+    cols = _RES_COLS * C * 4
+    stages = min(_RES_MAX_STAGES,
+                 (_SMEM_SM90 - 1024 - h_bytes - cols) // (stage + 16))
+    smem = 1024 + stages * stage + h_bytes + 2 * stages * 8 + cols
+    per_sm = _SMEM_SM // (smem + 1024)
+    tiles = B * -(-T // _WG_BM)
+    return ResPlan(bn, -(-C // bn), kc, tiles, stages, stage, h_bytes, smem,
+                   per_sm, min(tiles, per_sm * sms))
+
+
+# ---- B8's launch plan (csrc/snake_tr_stream.cu) ------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

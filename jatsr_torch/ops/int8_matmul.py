@@ -87,12 +87,14 @@ def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
     return torch.round(g / gs).to(torch.int8), gs
 
 
-def check_weights(what, K, w_q, w_scale, bias=None):
+def check_weights(what, K, w_q, w_scale, bias=None, k_run=None):
     """``(K, N)`` of an int8 ``[K, N]`` kernel the GEMM of the CUDA kernels
-    takes (K % 64 == 0, N % 128 == 0), with its ``[1, N]`` scale and
-    optional bias; raises ``ValueError`` otherwise."""
+    takes (K % 64 == 0, N % 128 == 0; ``k_run``, where given, is the
+    contraction the GEMM runs, K widened by zero rows, and K % 64 applies to
+    it), with its ``[1, N]`` scale and optional bias; raises ``ValueError``
+    otherwise."""
     K2, N = w_q.shape
-    if K != K2 or K % 64 or N % 128:
+    if K != K2 or (k_run or K) % 64 or N % 128:
         raise ValueError(f"{what}: contraction {K} x kernel {tuple(w_q.shape)} "
                          f"needs K % 64 == 0, N % 128 == 0")
     if (w_q.dtype != torch.int8 or w_scale.numel() != N

@@ -78,11 +78,23 @@ def _coverage(plan, B):
 
 def _check_layout(plan, B, D):
     assert plan.smem <= SMEM_SM90
-    assert plan.warps * 32 <= 512                 # the kernel's launch bound
-    assert plan.nk >= plan.N and plan.nk == 128 * plan.W
+    # the kernels' launch bounds: 16 warps, 8 at D = 128 and streaming
+    assert plan.warps <= (8 if D == 128 or plan.stream else 16)
+    assert plan.nk >= plan.N and plan.nk % 128 == 0
     assert plan.W * (plan.rows // 16) * plan.hc == plan.warps
     hr = plan.head_rounds
     assert hr * plan.hc >= plan.heads > (hr - 1) * plan.hc
+    if plan.stream:  # K's and V's two 128-key chunk buffers, the q rows
+        assert plan.W == 1 and plan.row_rounds == 1 and not plan.span
+        chunk = 128 * row_bytes(D)
+        spans = sorted([(plan.k_off, 2 * chunk), (plan.v_off, 2 * chunk),
+                        (plan.q_off, plan.warps * 16 * row_bytes(D))])
+        for (a, sa), (b, _) in zip(spans, spans[1:]):
+            assert a + sa <= b, spans
+        assert spans[-1][0] + spans[-1][1] <= plan.smem
+        assert (_coverage(plan, B) == 1).all()
+        return
+    assert plan.nk == 128 * plan.W
     pairs = plan.warps // plan.W
     kv = plan.nk * row_bytes(D)
     regions = [(plan.k_off, kv), (plan.q_off, pairs * 16 * row_bytes(D)),
@@ -105,7 +117,7 @@ def _check_layout(plan, B, D):
     assert (_coverage(plan, B) == 1).all()
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("balanced", [False, True])
 @pytest.mark.parametrize("B", [1, 6])
 @pytest.mark.parametrize("G", [1, 2, 5])
@@ -113,7 +125,8 @@ def test_deferred_plan_fits_and_covers_every_row_and_head_once(G, B,
                                                                balanced, D):
     """B2 and B12 (keys masked at n_valid: N and N - 7) and B11 (zero keys
     up to round_up(N, 8)) at every N in [1, 1024]: one layout, its own
-    limit."""
+    limit (at D = 128 past 640 keys the streaming mode's, on its own
+    grid)."""
     hkv = 2
     for N in range(1, NATURAL_MAX_N + 1):
         split = _deferred_plan(N, G * hkv, hkv, D, B, SMS, None, balanced)
@@ -125,7 +138,9 @@ def test_deferred_plan_fits_and_covers_every_row_and_head_once(G, B,
                                  balanced)
             assert vars(qkv) == {**vars(split), "limit": n_valid,
                                  "npad": 0}, N
-        assert split.heads == G and bool(split.span) == balanced, N
+        assert split.stream == (D == 128 and N > 640), N
+        assert split.heads == G, N
+        assert bool(split.span) == (balanced and not split.stream), N
         try:
             _check_layout(split, B, D)
         except AssertionError as e:

@@ -1,9 +1,10 @@
 """The launch plan of the per-q-head and per-kv-head attention kernel
 (``csrc/attention_natural.cu``), checked where no card exists.
 
-``_natural_plan`` is pure Python: for every N the kernel takes, each head
-dim it is built for (16, 32, 64) and each grid, its shared memory must fit
-an sm_90 block, its CTA must launch, its
+``_natural_plan`` is pure Python: for every N up to 2048 (past 1024, and
+at head dim 128 past 640, the streaming mode), each head dim it is built
+for (16, 32, 64, 128) and each grid, its shared memory must fit an sm_90
+block, its CTA must launch, its
 shared-memory regions must not overlap where they are live together, and
 its CTAs, rounds and warps must cover every (query row, q-head) exactly
 once.  The enumeration below follows the kernel's own indexing: in round
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 
 from jatsr_torch.ops.attention import NATURAL_MAX_N, _natural_plan
+
+STREAM_N = 2048         # the largest N the plan tests walk
 
 SMEM_SM90 = 232_448     # an sm_90 block's opt-in shared memory
 SMS = 132               # an H100 SXM's SMs
@@ -49,6 +52,10 @@ def _coverage(plan):
 
 def _regions(plan, D):
     """The live shared-memory regions (offset, bytes) of one round."""
+    if plan.stream:  # K's and V's two chunk buffers, the warps' q rows
+        chunk = 128 * row_bytes(D)
+        return [(plan.k_off, 2 * chunk), (plan.v_off, 2 * chunk),
+                (plan.q_off, plan.warps * 16 * row_bytes(D))], 0
     pairs = plan.warps // plan.W
     kv = plan.nk * row_bytes(D)
     out = [(plan.k_off, kv), (plan.q_off, pairs * 16 * row_bytes(D)),
@@ -61,18 +68,21 @@ def _regions(plan, D):
     return out, part
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("B", [1, 6])
 @pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("G", [1, 2, 4, 5])
 def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B,
                                                               D):
     hkv = 2
-    for N in range(1, NATURAL_MAX_N + 1):
+    for N in range(1, STREAM_N + 1):
         plan = _natural_plan(N, G * hkv, hkv, D, grouped, B, SMS)
         assert plan.smem <= SMEM_SM90, N
-        assert plan.warps * 32 <= 512, N          # the kernel's launch bound
-        assert plan.nk >= N and plan.nk == 128 * plan.W, N
+        # the kernels' launch bounds: 16 warps, 8 at D = 128 and streaming
+        assert plan.warps <= (8 if D == 128 or plan.stream else 16), N
+        assert plan.stream == (N > NATURAL_MAX_N or (D == 128 and N > 640)), N
+        assert plan.nk >= N and plan.nk % 128 == 0, N
+        assert plan.stream or plan.nk == 128 * plan.W, N
         assert plan.W * (plan.rows // 16) * plan.hc == plan.warps, N
         hr = plan.head_rounds
         assert hr * plan.hc >= plan.heads > (hr - 1) * plan.hc, N
@@ -88,7 +98,7 @@ def test_natural_plan_fits_and_covers_every_row_and_head_once(G, grouped, B,
             # good: one round, V in a buffer of its own.
             assert plan.row_rounds == hr == 1 and plan.resident
             assert part <= plan.nk * row_bytes(D)
-        if not plan.resident:
+        if not plan.resident and not plan.stream:
             assert plan.v_off == plan.k_off
         cover = _coverage(plan)
         assert (cover == 1).all(), (N, np.argwhere(cover != 1)[:4])
@@ -114,16 +124,36 @@ def test_natural_plan_at_the_serving_shape(grouped):
 
 @pytest.mark.parametrize("N", [0, NATURAL_MAX_N + 1])
 def test_natural_plan_raises_outside_the_kernel(N):
+    """N = 0 raises.  Past ``NATURAL_MAX_N`` the kernel has no edge any
+    more: N = 1025 (which raised before the streaming mode) takes that mode,
+    nine 128-key chunks through shared memory, on both grids."""
     for grouped in (False, True):
-        with pytest.raises(ValueError):
-            _natural_plan(N, 20, 4, 64, grouped, 6, SMS)
+        if N < 1:
+            with pytest.raises(ValueError):
+                _natural_plan(N, 20, 4, 64, grouped, 6, SMS)
+            continue
+        plan = _natural_plan(N, 20, 4, 64, grouped, 6, SMS)
+        assert plan.stream == 1 and plan.nk == 9 * 128
+        assert plan.smem <= SMEM_SM90 and plan.warps <= 8
+        assert plan.grid == ((-(-N // 16) if grouped else -(-N // 128)),
+                             4 if grouped else 20)
 
 
-@pytest.mark.parametrize("D", [8, 48, 128])
+@pytest.mark.parametrize("D", [8, 48, 128, 136, 256])
 def test_natural_plan_raises_for_a_head_dim_without_a_kernel(D):
+    """Head dims up to 128 run (8 and 48 zero-padded to the 16 and 64
+    instances, 128 its own) and fit an sm_90 block on both grids; past 128
+    the plan raises ``TypeError``: a head's fp32 output row would outgrow
+    the attention body's registers."""
     for grouped in (False, True):
-        with pytest.raises(TypeError):
-            _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+        if D > 128:
+            with pytest.raises(TypeError):
+                _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+            continue
+        plan = _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+        padded = next(p for p in (16, 32, 64, 128) if D <= p)
+        assert plan.smem <= SMEM_SM90 and not plan.stream
+        assert plan == _natural_plan(345, 20, 4, padded, grouped, 6, SMS)
 
 
 @pytest.mark.parametrize("grouped", [False, True])

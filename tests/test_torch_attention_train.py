@@ -165,9 +165,10 @@ def _bwd_coverage(plan, B):
     dq = np.zeros((B, plan.hq, plan.N, c4), np.int64)
     W, hkv = plan.grid
     assert (W, plan.cluster) == (plan.W, plan.W)
+    groups = plan.groups
 
     def tile(kvh, i, g):
-        j = 2 * i + g
+        j = groups * i + g
         if j >= plan.G * plan.T:
             return None, plan.T * 64
         return kvh * plan.G + j // plan.T, (j % plan.T) * 64
@@ -176,18 +177,18 @@ def _bwd_coverage(plan, B):
     for b in range(B):
         for kvh in range(hkv):
             for c in range(W):
-                for w in range(plan.warps // 2):
+                for w in range(8):  # a group's warps; each group the same
                     k = c * 128 + w * 16 + np.arange(16)
                     keys[b, kvh, k[k < plan.N]] += 1
                 for i in range(plan.steps):
-                    for g in (0, 1):
+                    for g in range(groups):
                         h, row0 = tile(kvh, i, g)
                         r = row0 + np.arange(64)
                         if h is not None and c == 0:  # every CTA: the same
                             rows[b, h, r[r < plan.N]] += 1
-                    for start in range(c * threads, 2 * 64 * c4, W * threads):
-                        for x in range(start, min(start + threads,
-                                                  2 * 64 * c4)):
+                    cols = groups * 64 * c4
+                    for start in range(c * threads, cols, W * threads):
+                        for x in range(start, min(start + threads, cols)):
                             h, row0 = tile(kvh, i, x // (64 * c4))
                             row = row0 + (x // c4) % 64
                             if row < plan.N:
@@ -195,16 +196,26 @@ def _bwd_coverage(plan, B):
     return rows, keys, dq
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 5])
 @pytest.mark.parametrize("N", PLAN_N)
 def test_train_plan_fits_and_covers_once(N, G, D):
+    """At head dim 128 the forward's CTAs have 8 warps, the backward's one
+    group of 8; past 640 keys there the forward outgrows shared memory
+    (it has no streaming mode) and the plan raises (JAX's gate stops below
+    600 at head dim 128)."""
     B, hkv = 2, 2
+    if D == 128 and N > 640:
+        with pytest.raises(ValueError):
+            tat._train_plan(N, G * hkv, hkv, D, B, SMS)
+        return
     plan = tat._train_plan(N, G * hkv, hkv, D, B, SMS)
     row = row_bytes(D)
     fwd = plan.fwd
+    groups = 1 if D == 128 else 2
     # Forward: B16's grid of attention_natural.cu's body.
-    assert fwd.smem <= SMEM_SM90 and fwd.warps * 32 <= 512
+    assert fwd.smem <= SMEM_SM90 and not fwd.stream
+    assert fwd.warps <= (8 if D == 128 else 16)
     assert fwd.heads == G and fwd.grid[1] == 1 and fwd.nk >= N
     assert fwd.grid[0] <= SMS and fwd.total == B * hkv * fwd.row_rounds \
         * fwd.head_rounds and (fwd.grid[0] - 1) * fwd.span < fwd.total
@@ -212,15 +223,18 @@ def test_train_plan_fits_and_covers_once(N, G, D):
     # Backward: clusters of W CTAs of 128 keys, at most 8 a cluster.
     assert plan.W * 128 >= N > (plan.W - 1) * 128 and plan.cluster <= 8
     assert plan.T * 64 >= N > (plan.T - 1) * 64
-    assert 2 * plan.steps >= G * plan.T > 2 * (plan.steps - 1)
-    assert plan.warps == 16 and plan.smem <= SMEM_SM90
+    assert plan.groups == groups
+    assert groups * plan.steps >= G * plan.T > groups * (plan.steps - 1)
+    assert plan.warps == 8 * groups and plan.smem <= SMEM_SM90
     regions = [(plan.k_off, 128 * row), (plan.v_off, 128 * row),
-               (plan.tile_off, 2 * 2 * 2 * 64 * row),
-               (plan.info_off, 2 * 2 * 64 * 16),
-               (plan.ds_off, 2 * 128 * row_bytes(64)),  # ds^T: 64 rows wide
-               (plan.part_off, 2 * 2 * 64 * (D + 8) * 4)]
-    # The dk and dv sums, [8 warps][2 D / 8][32] float4, reuse the tiles.
-    assert 8 * 2 * (D // 8) * 32 * 16 <= 2 * 2 * 2 * 64 * row
+               (plan.tile_off, 2 * groups * 2 * 64 * row),
+               (plan.info_off, 2 * groups * 64 * 16),
+               (plan.ds_off, groups * 128 * row_bytes(64)),  # ds^T: 64 rows
+               (plan.part_off, 2 * groups * 64 * (D + 8) * 4)]
+    # Two groups: group 1's dk and dv sums, [8 warps][2 D / 8][32] float4,
+    # reuse the tiles (one group stores its own from registers).
+    if groups == 2:
+        assert 8 * 2 * (D // 8) * 32 * 16 <= 2 * 2 * 2 * 64 * row
     for (a, sa), (b_, _) in zip(regions, regions[1:]):
         assert a % 16 == 0 and a + sa <= b_
     assert regions[-1][0] + regions[-1][1] <= plan.smem
@@ -248,20 +262,31 @@ def test_train_plan_raises_outside_the_kernels(N):
         tat._train_plan(N, 20, 4, 64, 28, SMS)
 
 
-@pytest.mark.parametrize("D", [8, 48, 128])
+@pytest.mark.parametrize("D", [8, 48, 128, 136, 256])
 def test_train_plan_raises_for_a_head_dim_without_a_kernel(D):
-    with pytest.raises(TypeError):
-        tat._train_plan(345, 20, 4, D, 28, SMS)
+    """Head dims up to 128 run (8 and 48 zero-padded to the 16 and 64
+    instances) and fit an sm_90 block; past 128 the plan raises
+    ``TypeError``."""
+    if D > 128:
+        with pytest.raises(TypeError):
+            tat._train_plan(345, 20, 4, D, 28, SMS)
+        return
+    plan = tat._train_plan(345, 20, 4, D, 28, SMS)
+    padded = next(p for p in (16, 32, 64, 128) if D <= p)
+    assert plan.D == padded and plan == tat._train_plan(345, 20, 4, padded,
+                                                        28, SMS)
+    assert max(plan.smem, plan.fwd.smem) <= SMEM_SM90
 
 
 def test_plans_take_every_n_the_jax_gates_admit():
-    """Every preset's (q-heads, kv-heads, head dim), and the JAX kernel
-    tests' head dim 16 at tiny's heads, at every N <= 1024: B15 and B16
-    (the JAX ``pallas`` and ``pallas2`` branches, which have no gate), B2,
-    B11 and B12 wherever JAX's ``flash_supported`` admits N, and B10
-    wherever ``train_flash_supported`` does: each of the port's launch
-    plans accepts it and fits an sm_90 block.  (The gates admit N up to
-    976 at tiny, 864 at v1, 792 at v2, 768 at v3 and 1000 at head dim 16.)"""
+    """Every preset's (q-heads, kv-heads, head dim), the JAX kernel tests'
+    head dim 16 at tiny's heads, and head dim 128 at 4/2, 8/2 and 16/4
+    heads: B15 and B16 (the JAX ``pallas`` and ``pallas2`` branches, which
+    have no gate) at every N <= 2048, B2, B11 and B12 wherever JAX's
+    ``flash_supported`` admits N, and B10 wherever ``train_flash_supported``
+    does: each of the port's launch plans accepts it and fits an sm_90
+    block.  (The gates admit N up to 976 at tiny, 864 at v1, 792 at v2,
+    768 at v3, 1000 at head dim 16, and 864, 792 and 632 at head dim 128.)"""
     from jatsr_torch.configs import get_preset, list_presets
     from jatsr_torch.ops.attention import (NATURAL_MAX_N, _deferred_plan,
                                            _natural_plan)
@@ -271,9 +296,10 @@ def test_plans_take_every_n_the_jax_gates_admit():
              for m in (get_preset(p).model for p in list_presets())}
     geoms.add((4, 2, 16))
     assert {d for _, _, d in geoms} == {16, 32, 64}
+    geoms |= {(4, 2, 128), (8, 2, 128), (16, 4, 128)}
     top = {}
     for hq, hkv, D in sorted(geoms):
-        for N in range(1, NATURAL_MAX_N + 1):
+        for N in range(1, 2 * NATURAL_MAX_N + 1):
             plans = [_natural_plan(N, hq, hkv, D, grouped, 6, SMS)
                      for grouped in (False, True)]
             if flash_supported(N, hq, hkv, D):
@@ -285,4 +311,5 @@ def test_plans_take_every_n_the_jax_gates_admit():
                 plans += [plan.fwd, plan]
             assert all(p.smem <= SMEM_SM90 for p in plans), (hq, hkv, D, N)
     assert top == {(4, 2, 32): 976, (8, 4, 64): 864, (16, 4, 64): 792,
-                   (20, 4, 64): 768, (12, 12, 64): 704, (4, 2, 16): 1000}
+                   (20, 4, 64): 768, (12, 12, 64): 704, (4, 2, 16): 1000,
+                   (4, 2, 128): 864, (8, 2, 128): 792, (16, 4, 128): 632}

@@ -460,15 +460,22 @@ def test_natural_attention_kernels_with_scores_below_2_to_minus_100(card):
     assert torch.equal(a, b)
 
 
-def test_natural_attention_raises_past_its_largest_n(card):
-    """N = 1025 raises before any launch, in both grids."""
-    q, k, v = (x.reshape(1, 1025, -1, 64)
-               for x in _split_inputs(card, 1, 1025, 4, 2, seed=28))
+@pytest.mark.parametrize("N", [1025, 1378, 2048])
+def test_natural_attention_raises_past_its_largest_n(card, N):
+    """Past 1024 keys (where both grids raised before the streaming mode):
+    N = 1025, 1378 (a 16 s chunk unpatchified) and 2048 at v3's heads, K
+    and V through shared memory in 128-key chunks.  Both grids launch, match
+    their plain version and are bit-equal to each other."""
+    q, k, v = (x.reshape(2, N, -1, 64)
+               for x in _split_inputs(card, 2, N, 20, 4, seed=28))
     n0 = (gqa_attention.launches, gqa_attention_grouped.launches)
-    for fn in (gqa_attention, gqa_attention_grouped):
-        with pytest.raises(ValueError):
-            fn(q, k, v)
-    assert (gqa_attention.launches, gqa_attention_grouped.launches) == n0
+    a, b = gqa_attention(q, k, v), gqa_attention_grouped(q, k, v)
+    assert (gqa_attention.launches, gqa_attention_grouped.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = gqa_attention_plain(q, k, v).float()
+    for got in (a, b):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(a, b)
 
 
 def test_natural_attention_divide_is_the_rounded_quotient(card):
@@ -530,13 +537,40 @@ def test_res_unit_kernel_matches_plain(card, B, T, C, d):
                                        a2[0], d), 4e-3)
 
 
-@pytest.mark.parametrize("B,T,C", [(2, 777, 96), (1, 184576, 384)])
+@pytest.mark.parametrize("B,T,C", [(2, 777, 96), (2, 1001, 192),
+                                   (2, 333, 384), (2, 130, 136),
+                                   (1, 184576, 384), (1, 738304, 192),
+                                   (1, 1476608, 96)])
 def test_res_stage_kernel_matches_plain(card, B, T, C):
+    """B = 2 at an odd T for each column tile (96 and 192; C 384 in two
+    halves; C 136 a partial tile and a partial last k-block), and the
+    decode's three stage shapes (one 2884-frame segment)."""
     args = _dac_unit_inputs(card, B, T, C, 3, seed=12)
     n0 = dk.res_stage_fused.launches
     got = dk.res_stage_fused(*args)
     assert dk.res_stage_fused.launches == n0 + 1
     _assert_rel(got, dk.res_stage_plain(*args), 4e-3)
+
+
+def test_res_batched_snake_is_snake_bit_for_bit(card):
+    """B6's snakes run in batches of branch-free sines (sinf's fast path,
+    the same operations; the rare argument at or past 105615 by sinf
+    itself): bit-equal to snake() on 2^24 x of every magnitude and sign
+    (random bit patterns, NaN and infinities among them) and on 2^22 x
+    around the fast path's edge, at alphas in [0.5, 1.5); NaN as NaN."""
+    gen = torch.Generator(device=card).manual_seed(17)
+    n = 1 << 24
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                         device=card, dtype=torch.int32)
+    edge = (105615.0 * (0.5 + torch.rand(1 << 22, generator=gen,
+                                         device=card)))
+    for x in (bits.view(torch.float32), edge):
+        a = torch.rand(x.shape, generator=gen, device=card) + 0.5
+        got, ref = dk.snake_check(x, a)
+        same = (got.view(torch.int32) == ref.view(torch.int32)) | (
+            torch.isnan(got) & torch.isnan(ref))
+        assert bool(same.all()), (x[~same][:4], got[~same][:4],
+                                  ref[~same][:4])
 
 
 def _tr_inputs(card, B, T, ci, co, s, seed):
@@ -919,3 +953,55 @@ def test_tiny_dense_dit_eval_forward_on_card_matches_cpu(card, impl):
     scale = want.abs().max().item()
     assert torch.isfinite(got).all() and scale > 0.1
     assert (got - want).abs().max().item() <= 2e-2 * scale
+
+
+# ---- head dims 24, 48 and 128 ----------------------------------------------
+
+@pytest.mark.parametrize("D", [24, 48, 128])
+@pytest.mark.parametrize("N", [45, 345])
+def test_serving_attention_kernels_at_head_dims_24_48_and_128(card, N, D):
+    """B2, B11, B12, B15 and B16 at tiny's heads (4/2) with head dim 24
+    and 48 (zero-padded to the 32 and 64 instances: RoPE's halves kept
+    apart, the true head dim's scale) and 128 (its own instance, 8-warp
+    CTAs); keys masked past N - 5 for B2 and B12."""
+    _serving_attention_cases(card, 2, N, 4, 2, D, N - 5, 128, seed=70 + D)
+
+
+@pytest.mark.parametrize("N", [641, 864])
+def test_serving_attention_kernels_at_head_dim_128_past_640_keys(card, N):
+    """At head dim 128 past 640 keys K and the partial outputs outgrow
+    shared memory and B2, B11, B12, B15 and B16 take the streaming mode (K
+    and V in 128-key chunks): 4/2 heads, up to 864, the largest N JAX's
+    flash_supported admits there."""
+    _serving_attention_cases(card, 2, N, 4, 2, 128, N - 3, 128, seed=N + 1)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -123456789)])
+@pytest.mark.parametrize("D", [24, 48, 128])
+@pytest.mark.parametrize("N", [45, 345])
+def test_attention_train_kernels_at_head_dims_24_48_and_128(card, N, D, rate,
+                                                            seed):
+    """B10 forward and backward at 4/2 heads with head dim 24, 48 (zero-
+    padded) and 128 (8-warp forward CTAs, a one-group backward), against
+    their plain versions (the tolerances of
+    ``test_attention_train_kernels_match_plain``)."""
+    hq, hkv = 4, 2
+    q, k, v, do = _attn_train_inputs(card, 2, N, hq, hkv, 80 + D, D)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    _assert_grads(grads, at.attention_train_bwd_plain(
+        q, k, v, o, do, seed, hq, hkv, rate), q, k, v, do, hq, hkv, rate)
+
+
+def test_attention_train_is_deterministic_at_head_dim_128(card):
+    """Two runs of B10's forward and backward bit-equal at head dim 128."""
+    q, k, v, do = _attn_train_inputs(card, 4, 345, 4, 2, 81, 128)
+    o, stats = at.attention_train_fwd(q, k, v, 5, 4, 2, 0.1)
+    o2, stats2 = at.attention_train_fwd(q, k, v, 5, 4, 2, 0.1)
+    assert torch.equal(o, o2) and torch.equal(stats, stats2)
+    a = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
+    b = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

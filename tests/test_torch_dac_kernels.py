@@ -287,3 +287,67 @@ def test_stream_plan_fits_and_writes_each_output_once(B, T, ci, co, s):
 def test_stream_plan_raises_where_the_kernel_cannot_tile(ci, co):
     with pytest.raises(ValueError):
         dk._stream_plan(1, 300, ci, co, 8)
+
+
+# ---- B6's and B9's launch plan (csrc/dac_res.cu), on the CPU ---------------
+# ``_res_plan`` is pure Python, the mirror of the kernel's ``launch``.  The
+# enumeration follows the kernel's own indexing: CTA c of the persistent
+# grid takes tiles c, c + grid, ..; tile x is batch x // mtiles, rows
+# ``(x % mtiles) * 128 + [0, 128)``; consumer warpgroup wg (1, 2), warp w,
+# lane l hold rows ``(wg - 1) * 64 + 16 w + l // 4 + 8 e`` and columns
+# ``hf * bn + 8 i + 2 (l % 4) + {0, 1}`` of each half hf, and the epilogue
+# writes those below T and C.
+
+def _res_tile_cover(bn):
+    """How often the threads of a tile hold each (row, column) of its 128 x
+    bn outputs."""
+    wg, w, lane, e, i, f = np.meshgrid(
+        np.arange(1, 3), np.arange(4), np.arange(32), np.arange(2),
+        np.arange(bn // 8), np.arange(2), indexing="ij")
+    rows = (wg - 1) * 64 + 16 * w + lane // 4 + 8 * e
+    cols = 8 * i + 2 * (lane % 4) + f
+    count = np.zeros((128, bn), np.int64)
+    np.add.at(count, (rows.ravel(), cols.ravel()), 1)
+    return count
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 184_576, 384), (1, 738_304, 192),
+                                   (1, 1_476_608, 96), (2, 777, 96),
+                                   (2, 1001, 192), (2, 333, 384),
+                                   (2, 130, 136)])
+def test_res_plan_fits_and_writes_each_output_once(B, T, C):
+    """The decode's three stage shapes (one 2884-frame segment), the card
+    tests' odd shapes at B = 2 (T not a multiple of 128), and a C that is
+    not a multiple of 64: the dynamic shared memory fits an sm_90 block,
+    the grid is no larger than the CTAs the card holds at once (the grid
+    barrier needs them all resident), and each unit writes every (batch,
+    row, column) of out once."""
+    plan = dk._res_plan(B, T, C, 3, 132)
+    assert plan.smem <= 232_448
+    assert plan.per_sm >= 1 and plan.per_sm * (plan.smem + 1024) <= 233_472
+    assert plan.grid <= plan.per_sm * 132 and plan.grid <= plan.tiles
+    assert plan.bn == (96 if C <= 192 else 192)
+    assert plan.halves * plan.bn >= C > (plan.halves - 1) * plan.bn
+    assert plan.kc * 64 >= C > (plan.kc - 1) * 64
+    assert plan.h_bytes == plan.kc * 128 * 128       # h: [128 rows][kc * 64]
+    assert plan.stages >= 3
+    mtiles = -(-T // 128)
+    assert plan.tiles == B * mtiles
+    assert (_res_tile_cover(plan.bn) == 1).all()
+    row_count = np.zeros((B, T), np.int64)
+    for c in range(plan.grid):
+        for x in range(c, plan.tiles, plan.grid):
+            t = (x % mtiles) * 128 + np.arange(128)
+            np.add.at(row_count[x // mtiles], t[t < T], 1)
+    assert (row_count == 1).all()
+    col_count = np.zeros(C, np.int64)
+    for hf in range(plan.halves):
+        n = hf * plan.bn + np.arange(plan.bn)
+        np.add.at(col_count, n[n < C], 1)
+    assert (col_count == 1).all()
+
+
+@pytest.mark.parametrize("C", [100, 392])
+def test_res_plan_raises_where_the_kernel_cannot_tile(C):
+    with pytest.raises(ValueError):
+        dk._res_plan(1, 1000, C, 3, 132)

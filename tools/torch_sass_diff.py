@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Compares the SASS of the attention kernels' head-dim-64 instances with
-another tree's kernels, on a machine with nvcc (no card needed).
+"""Compares the SASS of the attention kernels' instances (B2, B10, B11, B12,
+B15, B16), and of the DAC upsample kernels B7 and B8, with another tree's
+kernels, on a machine with nvcc (no card needed).
 
     python3 tools/torch_sass_diff.py OTHER_CSRC_DIR
 
 OTHER_CSRC_DIR is another checkout's ``jatsr_torch/ops/csrc`` (for example
 a ``git archive`` of the parent commit unpacked into a gitignored
-directory).  Both trees' ``attention_natural.cu``, ``attention_deferred.cu``
-and ``attention_train.cu`` are compiled to cubins with the port's nvcc
-flags; for each kernel of the other tree it finds this tree's instance with
-head dim 64 (the same kernel with ``64`` as its first template argument),
+directory).  Both trees' ``attention_natural.cu``, ``attention_deferred.cu``,
+``attention_train.cu``, ``flash_qkv.cu``, ``snake_tr.cu`` and
+``snake_tr_stream.cu`` are
+compiled to cubins with the port's nvcc flags; for each kernel of the other
+tree it finds this tree's instance of the same name or, where the other
+tree has no head-dim template argument, the instance with head dim 64 (the
+same kernel with ``64`` as its first template argument),
 strips addresses and encodings from ``cuobjdump -sass`` and prints the
 instruction counts and whether the streams are identical (else how many
 instructions differ, by ``difflib``).  Exits 1 if any pair differs.
@@ -32,7 +36,11 @@ from jatsr_torch.ops import _build  # noqa: E402
 SOURCES = {"attention_natural.cu": ("natural_kernel",),
            "attention_deferred.cu": ("deferred_kernel",),
            "attention_train.cu": ("train_fwd_kernel", "attn_bwd_kernel",
-                                  "bwd_rows_kernel")}
+                                  "bwd_rows_kernel"),
+           "flash_qkv.cu": ("normed_kernel",),
+           "snake_tr.cu": ("",),
+           "snake_tr_stream.cu": ("",)}
+UNTEMPLATED = ("snake_tr.cu", "snake_tr_stream.cu")  # matched by name
 
 
 def sass(src: Path, out: Path) -> dict:
@@ -78,7 +86,8 @@ def main() -> int:
                 if not name.startswith(kernels):
                     continue
                 base, _, args = name.partition("<")
-                key = f"{base}<64{', ' + args if args else '>'}"
+                key = (name if f in UNTEMPLATED or name in new
+                       else f"{base}<64{', ' + args if args else '>'}")
                 vn = new.get(key)
                 if vn is None:
                     print(f"[sass] {f} {name}: no instance {key} here")
