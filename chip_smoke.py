@@ -37,10 +37,15 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   dense_gelu_quant; then the fused decode.
 
 The attention kernels are also held against their plain versions at head
-dim 32 (tiny's heads), at N = 1000, at head dims 128 and 48 (v3's heads,
-N = 345; 48 zero-padded to the 64 instance) and, B15 and B16, at N = 1378
-(the streaming mode), timed where they are past the paths' shapes, with the
-bit-equalities at head dim 32, N = 864; B8 is the wgmma GEMM of
+dim 32 (tiny's heads), at N = 1000, at head dims 128, 48 and 256 (v3's
+heads, N = 345; 48 zero-padded to the 64 instance, 256 on the wide kernels
+of ``csrc/attention_wide.cu``) and, B15 and B16, at N = 1378 (the
+streaming mode), timed where they are past the paths' shapes, with the
+bit-equalities at head dim 32, N = 864; B10 at head dims 32 and 256 (timed
+at 256).  B1 and B3 (norm_mod_dense_gelu_quant, norm_mod_dot) run the s8
+wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
+prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
+one against their plain versions.  B8 is the wgmma GEMM of
 ``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0, and
 B6 and B9 the wgmma kernel of ``csrc/dac_res.cu``.
 
@@ -505,7 +510,7 @@ def check_attention_extra(torch):
                           SEED + 31, (20, 4), timed=True)
     wide = {D: attention_extra(torch, 20, 4, D, N_VALID, N_VALID - 5, H,
                                SEED + 33 + D, (20, 4), timed=True)
-            for D in (128, 48)}
+            for D in (128, 48, 256)}
     long = attention_extra(torch, 20, 4, 64, LONG_N, LONG_N, H, SEED + 35,
                            (20, 4), timed=True, only=SPLIT_KERNELS)
     log(f"[kernel] N {LONG_N}: gqa_attention == gqa_attention_grouped, bit "
@@ -534,7 +539,8 @@ def check_attention_extra(torch):
         "gqa_attention == gqa_attention_grouped, bit for bit")
     out = {name: {"head_dim_32": d32[name], f"n_{EXTRA_N}": far[name],
                   "head_dim_128": wide[128][name],
-                  "head_dim_48": wide[48][name]} for name in d32}
+                  "head_dim_48": wide[48][name],
+                  "head_dim_256": wide[256][name]} for name in d32}
     for name in SPLIT_KERNELS:
         out[name][f"n_{LONG_N}"] = long[name]
     return out
@@ -631,10 +637,12 @@ def check_norm_mod_dot(torch, norm):
 
     N = 1792
     x, per, shared, w_q, w_s, b = prologue_inputs(torch, N, SEED + 1)
+    w_t = w_q.t().contiguous()  # the K-major copy the DiT makes once
     err = far = 0.0
     for kind in ("rms", "layer"):
         for sc, sh in (per, shared):
-            got = int8_norm_mod_dot(x, sc, sh, w_q, w_s, b, norm=kind).float()
+            got = int8_norm_mod_dot(x, sc, sh, w_q, w_s, b, norm=kind,
+                                    w_t=w_t).float()
             want = norm_mod_dot_plain(x, sc, sh, w_q, w_s, b, kind).float()
             torch.cuda.synchronize()
             # One bf16 ulp, but for rows whose code moved by one where the
@@ -651,10 +659,13 @@ def check_norm_mod_dot(torch, norm):
         y = int8_mm(a_q, w_q).float() * s * w_s + b
         return y.bfloat16().reshape(B, NP, N)
 
+    log(f"[kernel] norm_mod_dot: {far:.6%} of the outputs past one bf16 "
+        f"ulp of the plain version's")
     sc, sh = shared  # the sampler's hoisted row, as on the main path
-    t = timings(lambda *a: int8_norm_mod_dot(*a, norm=norm),
-                lambda *a: norm_mod_dot_plain(*a, norm=norm), library,
-                (x, sc, sh, w_q, w_s, b), big=(0, 3))
+    t = timings(lambda *a: int8_norm_mod_dot(*a[:6], norm=norm, w_t=a[6]),
+                lambda *a: norm_mod_dot_plain(*a[:6], norm=norm),
+                lambda *a: library(*a[:6]), (x, sc, sh, w_q, w_s, b, w_t),
+                big=(0, 3, 6))
     b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * N * 2,
                        2 * B * NP * H * N, PEAK_INT8)
     return {"name": "norm_mod_dot", "route": "cuda",
@@ -674,11 +685,12 @@ def check_norm_mod_gelu(torch, norm):
 
     N = 5120
     x, per, shared, w_q, w_s, b = prologue_inputs(torch, N, SEED + 2)
+    w_t = w_q.t().contiguous()
     err = frac = 0.0
     for kind in ("rms", "layer"):
         for sc, sh in (per, shared):
             got = int8_norm_mod_dense_gelu_quant(x, sc, sh, w_q, w_s, b,
-                                                 norm=kind)
+                                                 norm=kind, w_t=w_t)
             want = norm_mod_dense_gelu_quant_plain(x, sc, sh, w_q, w_s, b,
                                                    kind)
             torch.cuda.synchronize()
@@ -695,10 +707,14 @@ def check_norm_mod_gelu(torch, norm):
         gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
         return torch.round(g / gs).to(torch.int8), gs
 
+    log(f"[kernel] norm_mod_dense_gelu_quant: {frac:.6%} of the codes off "
+        f"by one from the plain version's")
     sc, sh = shared
-    t = timings(lambda *a: int8_norm_mod_dense_gelu_quant(*a, norm=norm),
-                lambda *a: norm_mod_dense_gelu_quant_plain(*a, norm=norm),
-                library, (x, sc, sh, w_q, w_s, b), big=(0, 3))
+    t = timings(lambda *a: int8_norm_mod_dense_gelu_quant(*a[:6], norm=norm,
+                                                          w_t=a[6]),
+                lambda *a: norm_mod_dense_gelu_quant_plain(*a[:6], norm=norm),
+                lambda *a: library(*a[:6]), (x, sc, sh, w_q, w_s, b, w_t),
+                big=(0, 3, 6))
     b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * (N + 4),
                        2 * B * NP * H * N, PEAK_INT8)
     return {"name": "norm_mod_dense_gelu_quant", "route": "cuda",
@@ -1346,7 +1362,10 @@ def check_attention_train(torch):
     replaces = ("ops/attention_train.py:340 (JAX package, "
                 "gqa_attention_train; {} pallas_call :{})")
     shape = [TRAIN_B, TRAIN_N, hq, hkv, D]
-    fwd32, bwd32 = check_attention_train_d32(torch)
+    fwd32, bwd32 = check_attention_train_at(torch, 4, 2, 32, SEED + 33,
+                                            timed=False)
+    fwd256, bwd256 = check_attention_train_at(torch, 20, 4, 256, SEED + 36,
+                                              timed=True)
     return {
         "attention_train_fwd": {
             "name": "attention_train_fwd", "route": "cuda",
@@ -1354,24 +1373,26 @@ def check_attention_train(torch):
             "replaces": replaces.format("_fwd_call :258,", 266),
             "max_abs_err": err_f, **fwd, "bound_ms": b_f[0],
             "bound_by": b_f[1], "shape": shape, "dropout": rate,
-            "head_dim_32": fwd32},
+            "head_dim_32": fwd32, "head_dim_256": fwd256},
         "attention_train_bwd": {
             "name": "attention_train_bwd", "route": "cuda",
             "source": "jatsr_torch/ops/csrc/attention_train.cu",
             "replaces": replaces.format("_attn_train_bwd :300,", 312),
             "max_abs_err": err_b, "max_rel_to_max": rel_b, **bwd,
             "bound_ms": b_b[0], "bound_by": b_b[1], "shape": shape,
-            "dropout": rate, "head_dim_32": bwd32}}
+            "dropout": rate, "head_dim_32": bwd32, "head_dim_256": bwd256}}
 
 
-def check_attention_train_d32(torch):
-    """B10 forward and backward at tiny's heads (4/2) and head dim 32,
-    batch 4, N 345, dropout 0.1, against their plain versions (the
-    tolerances above), two runs of each bit-equal."""
+def check_attention_train_at(torch, hq, hkv, D, seed_, timed):
+    """B10 forward and backward at hq/hkv heads and head dim D (32: tiny's
+    4/2; 256: v3's 20/4 past 128, csrc/attention_wide.cu), batch 4, N 345,
+    dropout 0.1, against their plain versions (the tolerances above), two
+    runs of each bit-equal; with ``timed`` the ms of each (50 and 20 calls
+    on one input set)."""
     from jatsr_torch.ops import attention_train as at
 
-    hq, hkv, D, rate, seed = 4, 2, 32, 0.1, -123456789
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    rate, seed = 0.1, -123456789
+    gen = torch.Generator(device="cuda").manual_seed(seed_)
     q, k, v, do = (torch.randn((4, TRAIN_N, w * D), generator=gen,
                                device="cuda").bfloat16()
                    for w in (hq, hkv, hkv, hq))
@@ -1380,7 +1401,7 @@ def check_attention_train_d32(torch):
     want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
     torch.cuda.synchronize()
     if not (torch.equal(o, o2) and torch.equal(stats, stats2)):
-        raise AssertionError("B10 forward at D 32: two runs differ")
+        raise AssertionError(f"B10 forward at D {D}: two runs differ")
     torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
     got = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
     again = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
@@ -1391,11 +1412,18 @@ def check_attention_train_d32(torch):
         e = (a.float() - r.float()).abs().max().item()
         if not torch.equal(a, a2) or e > REL_ATTN_BWD * r.float().abs().max(
                 ).item():
-            raise AssertionError(f"B10 backward {name} at D 32: max abs {e}")
+            raise AssertionError(f"B10 backward {name} at D {D}: max abs {e}")
         err_b = max(err_b, e)
     shape = [4, TRAIN_N, hq, hkv, D]
-    return ({"shape": shape, "max_abs_err": (o.float() - want.float()).abs()
-             .max().item()}, {"shape": shape, "max_abs_err": err_b})
+    fwd = {"shape": shape,
+           "max_abs_err": (o.float() - want.float()).abs().max().item()}
+    bwd = {"shape": shape, "max_abs_err": err_b}
+    if timed:
+        fwd["ms"] = time_ms(lambda *_: at.attention_train_fwd(
+            q, k, v, seed, hq, hkv, rate), [()], 50)
+        bwd["ms"] = time_ms(lambda *_: at.attention_train_bwd(
+            q, k, v, o, do, seed, hq, hkv, rate, stats), [()], 20)
+    return fwd, bwd
 
 
 def check_tiny_train_step(torch):
@@ -1699,7 +1727,8 @@ def main() -> int:
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
                "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
-               "attention_train", "attention_deferred", "attention_natural")
+               "attention_train", "attention_deferred", "attention_natural",
+               "attention_wide")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:

@@ -244,6 +244,11 @@ class GQAttention(nn.Module):
             b = proj.bias
             self.register_buffer(name, torch.zeros_like(
                 proj.kernel_scale[0]) if b is None else b.float())
+        # The fused-prologue qkv kernel's s8 wgmma GEMM reads the weight
+        # K-major, [N, H]: made once here, not on every call.
+        self.register_buffer("qkv_kernel_t",
+                             self.qkv_proj.kernel_q.t().contiguous(),
+                             persistent=False)
 
     def forward(self, x, cos, sin, n_valid=0, prenorm=None):
         """``prenorm=(scale, shift)``, fp32 ``[B or 1, H]`` AdaLN rows,
@@ -255,7 +260,7 @@ class GQAttention(nn.Module):
             p = self.qkv_proj
             qkv = int8_norm_mod_dot(x, prenorm[0], prenorm[1], p.kernel_q,
                                     p.kernel_scale, self.qkv_bias,
-                                    norm=cfg.norm)
+                                    norm=cfg.norm, w_t=self.qkv_kernel_t)
         else:
             qkv = self.qkv_proj(x)
         B, N, _ = qkv.shape
@@ -298,6 +303,10 @@ class DiTBlock(nn.Module):
         self.attn = GQAttention(cfg, p["attn"], i)
         self.mlp_in = _quant_dense(p["mlp_in"], i)
         self.mlp_out = _quant_dense(p["mlp_out"], i)
+        # mlp_in's K-major copy for the fused-prologue kernel (as qkv's).
+        self.register_buffer("mlp_in_kernel_t",
+                             self.mlp_in.kernel_q.t().contiguous(),
+                             persistent=False)
         self.adaln = adaln
 
     def forward(self, x, t_emb, cos, sin, mod=None, n_valid=0, fused=False):
@@ -318,7 +327,8 @@ class DiTBlock(nn.Module):
             g_q, g_s = int8_norm_mod_dense_gelu_quant(
                 x, scale_mlp.float(), shift_mlp.float(), self.mlp_in.kernel_q,
                 self.mlp_in.kernel_scale, self.mlp_in.bias.float(),
-                norm=cfg.norm, gelu_impl=cfg.gelu_impl)
+                norm=cfg.norm, gelu_impl=cfg.gelu_impl,
+                w_t=self.mlp_in_kernel_t)
             h = _dequant_dense(g_q, g_s, self.mlp_out)
         else:
             h = (_norm(x, cfg.norm) * (1 + scale_mlp[:, None])

@@ -10,8 +10,9 @@ tensor's device: a CPU tensor takes the plain PyTorch version below, a CUDA
 tensor launches the hand-written kernel in ``csrc/attention_deferred.cu``
 (the two base-2 flash kernels, from the unsplit projection and on split
 q/k/v), ``csrc/flash_qkv.cu`` (the flash kernel with the out projection)
-or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels)
-or raises.  Nothing falls back.
+or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels),
+at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises.
+Nothing falls back.
 """
 
 from __future__ import annotations
@@ -200,7 +201,7 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
         raise ValueError(f"n_valid {n_valid} outside [0, {N}]")
     D = TD // (hq + 2 * hkv)
     # The kernel's GEMM contracts over the heads at their padded width.
-    Dp = padded_head_dim(D) if D <= HEAD_DIMS[-1] else D
+    Dp = padded_head_dim(D)
     _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias,
                          k_run=hq * Dp)
     if qkv.device.type == "cpu":
@@ -222,13 +223,26 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(dev.index),
                           n_valid or N, False)
     _check_smem(plan, dev, "flash_out")
-    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
     wo_q = _build.aligned(wo_q)
     wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
     o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
     oq = torch.empty((B * N, K), dtype=torch.int8, device=dev)
     so = torch.empty((B * N,), dtype=torch.float32, device=dev)
     out = torch.empty((B, N, H), dtype=torch.bfloat16, device=dev)
+    if isinstance(plan, WidePlan):  # the rope pass, attention, quant, GEMM
+        args = _wide_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
+        qr, kr = _rope_scratch(q, k, B, N, hq, hkv, D)
+        lib = _wide_lib()
+        err = lib.flash_out_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
+            cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(),
+            wo_q.data_ptr(), wos.data_ptr(), bo.data_ptr(), o.data_ptr(),
+            oq.data_ptr(), so.data_ptr(), out.data_ptr(), B, H,
+            _build.stream_ptr(dev))
+        _build.check(lib, err, "flash_out_wide")
+        gqa_attention_flash_out.launches += 1
+        return out
+    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
     lib = _flash_out_lib()
     gx, gy, gz = plan.launch_grid(B)
     err = lib.flash_out(
@@ -419,6 +433,9 @@ HEAD_DIMS = (16, 32, 64, 128)  # the head dims the attention kernels are built f
 _NATURAL_CHUNK = 128    # keys a warp holds in registers (16 n-tiles)
 _STREAM_WARPS = 8       # warps a CTA of the streaming mode: 255 registers a thread
 _SMEM_SM90 = 232_448    # an sm_90 block's opt-in shared memory
+WIDE_COLS = 128         # past 128 a head pads to a multiple: depth chunk, column group
+_WIDE_ROWS = 64         # query rows a CTA of the wide forward (4 warps)
+_WIDE_KEYS = 128        # keys a chunk of the wide forward
 
 
 def _max_warps(d: int) -> int:
@@ -429,15 +446,17 @@ def _max_warps(d: int) -> int:
 
 
 def padded_head_dim(d: int) -> int:
-    """The head dim of the kernel instance that runs head dim ``d``: the
-    next of ``HEAD_DIMS`` up (``d`` itself where it is one).  Raises
-    ``TypeError`` past 128: a head's fp32 output row would outgrow the
-    attention body's registers."""
+    """The head dim of the kernel that runs head dim ``d``: the next of
+    ``HEAD_DIMS`` up (``d`` itself where it is one); past 128 the next
+    multiple of ``WIDE_COLS``, which ``csrc/attention_wide.cu`` runs (a
+    head's fp32 output row would outgrow the attention body's registers).
+    Raises ``TypeError`` below 1."""
     for dp in HEAD_DIMS:
         if 1 <= d <= dp:
             return dp
-    raise TypeError(f"the attention kernels take head dims up to "
-                    f"{HEAD_DIMS[-1]}, got {d}")
+    if d > HEAD_DIMS[-1]:
+        return _round_up(d, WIDE_COLS)
+    raise TypeError(f"the attention kernels take head dims from 1, got {d}")
 
 
 def pad_heads(x: torch.Tensor, d: int, dp: int) -> torch.Tensor:
@@ -567,13 +586,16 @@ def _natural_plan(N: int, hq: int, hkv: int, D: int, grouped: bool, B: int,
     ``attention_train._train_plan`` raises there).
 
     A head dim that is not one of ``HEAD_DIMS`` runs on the next one up,
-    zero-padded (:func:`pad_heads`): the plan is that instance's.  Raises
-    ``TypeError`` past 128, ``ValueError`` for N < 1."""
+    zero-padded (:func:`pad_heads`): the plan is that instance's; past 128
+    it is :func:`_wide_plan`'s (both grids, and ``balanced``, are then
+    one).  Raises ``ValueError`` for N < 1."""
     if N < 1:
         raise ValueError(f"gqa_attention kernels: N={N} < 1")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
     D = padded_head_dim(D)
+    if D > HEAD_DIMS[-1]:
+        return _wide_plan(N, hq, hkv, D)
     plan = (_rows_plan(N, hq, hkv, D, grouped, B, sms, balanced)
             if N <= NATURAL_MAX_N else None)
     if plan is not None and plan.smem <= _SMEM_SM90:
@@ -649,6 +671,86 @@ def _stream_plan(N, hq, hkv, D, grouped):
                        smem, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """The launch of csrc/attention_wide.cu's forward at a head dim ``dp``
+    past 128, a multiple of ``WIDE_COLS``: a CTA of ``warps`` warps covers
+    ``rows`` query rows of one q-head (warp w rows ``16 w ..``) and one of
+    the ``groups`` = dp / 128 output column groups; the grid is ``grid +
+    (B,)`` = (row tiles, hq * groups, B), y = q-head * groups + group.  The
+    keys pass in chunks of 128 (``nk`` in all), each chunk's scores summed
+    over the ``groups`` depth chunks of 128 in order.  ``smem``: the q rows'
+    and K's depth chunk, V's group chunk ([64 + 2 * 128] rows of 136 bf16).
+    Keys at or past ``limit`` are masked, and ``npad`` zero keys below it
+    have their share taken off the row sum (B11), as in
+    :class:`NaturalPlan`."""
+
+    N: int
+    nk: int
+    hq: int
+    hkv: int
+    dp: int
+    groups: int
+    rows: int
+    grid: tuple
+    warps: int
+    smem: int
+    limit: int
+    npad: int = 0
+
+
+@functools.cache
+def _wide_plan(N: int, hq: int, hkv: int, dp: int) -> WidePlan:
+    """The wide forward's plan (see :class:`WidePlan`), any N."""
+    groups = dp // WIDE_COLS
+    smem = (_WIDE_ROWS + 2 * _WIDE_KEYS) * _row_bytes(WIDE_COLS)
+    return WidePlan(N, _round_up(N, _WIDE_KEYS), hq, hkv, dp, groups,
+                    _WIDE_ROWS, (-(-N // _WIDE_ROWS), hq * groups), 4, smem,
+                    N)
+
+
+class _WideArgs(ctypes.Structure):
+    """``WidePlan`` of csrc/attention_wide.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in ("N", "hq", "hkv", "dp",
+                                              "groups")]
+                + [(f, ctypes.c_longlong) for f in ("q_row", "k_row",
+                                                    "v_row")]
+                + [("scale", ctypes.c_float)]
+                + [(f, ctypes.c_int) for f in ("limit", "npad",
+                                               "prescaled")])
+
+
+def _wide_args(plan: WidePlan, q_row: int, k_row: int, v_row: int,
+               scale: float) -> _WideArgs:
+    return _WideArgs(plan.N, plan.hq, plan.hkv, plan.dp, plan.groups, q_row,
+                     k_row, v_row, scale, plan.limit, plan.npad, 0)
+
+
+@functools.cache
+def _wide_lib():
+    """csrc/attention_wide.cu's library, its serving entries' C types set."""
+    from . import _build
+
+    lib = _build.load("attention_wide")
+    lib.attention_wide.restype = ctypes.c_int
+    lib.attention_wide.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_WideArgs)]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.flash_out_wide.restype = ctypes.c_int
+    lib.flash_out_wide.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(_WideArgs)]
+        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return lib
+
+
+def _rope_scratch(q, k, B, N, hq, hkv, dp):
+    """The rope pass's outputs: q' [B, N, hq, dp] and K' [B, N, hkv, dp]."""
+    return (torch.empty((B, N, hq, dp), dtype=torch.bfloat16, device=q.device),
+            torch.empty((B, N, hkv, dp), dtype=torch.bfloat16,
+                        device=k.device))
+
+
 class _NaturalArgs(ctypes.Structure):
     """``NaturalPlan`` of csrc/attention_rows.cuh, field for field."""
 
@@ -700,8 +802,11 @@ def _launch_natural(q, k, v, grouped):
     plan = _natural_plan(N, hq, k.shape[2], Dp, grouped, B,
                          _sm_count(q.device.index))
     _check_smem(plan, q.device, "gqa_attention kernels")
-    lib = _natural_lib()
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    if isinstance(plan, WidePlan):  # both grids: the same launch
+        out = _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale, 0)
+        return unpad_heads(out.reshape(B, N, -1), D, Dp).reshape(B, N, hq, D)
+    lib = _natural_lib()
     args = _natural_args(plan, q_row, k_row, v_row, scale)
     out = torch.empty((B, N, hq, Dp), dtype=torch.bfloat16, device=q.device)
     gx, gy, gz = plan.launch_grid(B)
@@ -713,6 +818,30 @@ def _launch_natural(q, k, v, grouped):
                  else "gqa_attention")
     if Dp != D:
         out = unpad_heads(out.reshape(B, N, -1), D, Dp).reshape(B, N, hq, D)
+    return out
+
+
+def _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale, kind, cos=None,
+                 sin=None):
+    """One call of csrc/attention_wide.cu's ``attention_wide`` (kind 0
+    natural, 1 deferred; with ``cos``/``sin`` the rope pass first) on row
+    views q, k, v: ``[B, N, hq * dp]`` bf16."""
+    from . import _build
+
+    B, N = q.shape[:2]
+    hq, hkv, dp = plan.hq, plan.hkv, plan.dp
+    args = _wide_args(plan, q_row, k_row, v_row, scale)
+    out = torch.empty((B, N, hq * dp), dtype=torch.bfloat16, device=q.device)
+    qr = kr = None
+    if cos is not None:
+        qr, kr = _rope_scratch(q, k, B, N, hq, hkv, dp)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lib = _wide_lib()
+    err = lib.attention_wide(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), ctypes.byref(args), ptr(cos),
+                             ptr(sin), ptr(qr), ptr(kr), kind, B,
+                             _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_wide")
     return out
 
 
@@ -741,8 +870,9 @@ def _deferred_plan(N: int, hq: int, hkv: int, D: int, B: int, sms: int,
     multiple of 8, which take part in the row max, and their share comes
     off the row sum): B16's per-kv-head layout, the G q-heads side by side
     over K and V loaded once, on its own grid or the balanced one (at D =
-    128 past 640 keys, the streaming mode's plan, whose grid is its own).
-    Raises ``ValueError`` outside [1, ``NATURAL_MAX_N``]: JAX's
+    128 past 640 keys, the streaming mode's plan, whose grid is its own;
+    past head dim 128 the wide plan, :func:`_wide_plan`).  Raises
+    ``ValueError`` outside [1, ``NATURAL_MAX_N``]: JAX's
     ``flash_supported`` stops these branches below it."""
     if N > NATURAL_MAX_N:
         raise ValueError(f"flash kernels: N={N} outside [1, "
@@ -798,6 +928,10 @@ def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
                           n_valid, balanced)
     _check_smem(plan, q.device, "flash kernels")
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    if isinstance(plan, WidePlan):  # one grid
+        out = _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale2, 1,
+                           cos, sin)
+        return unpad_heads(out, D, Dp)
     args = _natural_args(plan, q_row, k_row, v_row, scale2)
     out = torch.empty((B, N, hq * Dp), dtype=torch.bfloat16, device=q.device)
     lib = _deferred_lib()

@@ -3,7 +3,8 @@
 Port of ``gqa_attention_train`` (JAX package, ``ops/attention_train.py``).
 The two wrappers dispatch on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the hand-written kernels
-in ``csrc/attention_train.cu`` or raises.  Nothing falls back.
+in ``csrc/attention_train.cu`` (at head dims past 128 those of
+``csrc/attention_wide.cu``) or raises.  Nothing falls back.
 
 Dropout acts on the normalised softmax weights and uses the JAX package's
 counter hash (lowbias32 over ``stream(b, h, seed) ^ (row * Np + col)``), so
@@ -23,9 +24,10 @@ import math
 
 import torch
 
-from .attention import (_FLASH_VMEM_BUDGET, NaturalPlan, _natural_args,
-                        _natural_plan, _NaturalArgs, _round_up, _row_bytes,
-                        _sm_count, _smem_optin, flash_supported,
+from .attention import (_FLASH_VMEM_BUDGET, HEAD_DIMS, WIDE_COLS,
+                        NaturalPlan, WidePlan, _natural_args, _natural_plan,
+                        _NaturalArgs, _round_up, _row_bytes, _sm_count,
+                        _smem_optin, _wide_args, _WideArgs, flash_supported,
                         pad_heads, padded_head_dim, unpad_heads)
 
 _GOLD = 0x9E3779B9
@@ -326,22 +328,60 @@ class TrainPlan:
     smem: int
 
 
+@dataclasses.dataclass(frozen=True)
+class WideTrainPlan:
+    """B10 at a head dim ``D`` past 128 (a multiple of ``WIDE_COLS``),
+    csrc/attention_wide.cu: ``fwd`` the wide forward's plan (the train
+    epilogue); the backward a row launch, then dk/dv on a grid
+    (``ceil(N / 64)``, hkv * groups, B) of 4-warp CTAs (warp w 16 keys, the
+    G heads' rows in slices of 32, one column group of dk and dv), then dq
+    on the forward's grid (warp w 16 rows, the keys in chunks of 64).
+    ``smem``: the larger of the two backward launches' shared memory (K, V,
+    q and do depth chunks and the group's columns, rows of 136 bf16)."""
+
+    fwd: WidePlan
+    N: int
+    D: int
+    hq: int
+    hkv: int
+    G: int
+    groups: int
+    dkdv_grid: tuple
+    dq_grid: tuple
+    warps: int
+    smem: int
+
+
+def _wide_train_plan(N, hq, hkv, D):
+    row = _row_bytes(WIDE_COLS)
+    dkdv = (2 * 64 + 4 * 32) * row + 32 * 16
+    dq = (2 * 64 + 3 * 64) * row
+    fwd = _natural_plan(N, hq, hkv, D, True, 1, 1)
+    groups = D // WIDE_COLS
+    return WideTrainPlan(fwd, N, D, hq, hkv, hq // hkv, groups,
+                         (-(-N // 64), hkv * groups), (-(-N // 64),
+                                                       hq * groups),
+                         4, max(dkdv, dq))
+
+
 @functools.cache
 def _train_plan(N: int, hq: int, hkv: int, D: int, B: int,
                 sms: int) -> TrainPlan:
     """The launch plan of B10's forward and backward at N keys, head dim
     D, batch B, on a card of ``sms`` SMs.  A head dim that is not one of
-    ``HEAD_DIMS`` runs on the next one up, zero-padded.  Raises
-    ``ValueError`` past ``TRAIN_MAX_N`` (768: W <= 6 CTAs a cluster), where
-    the forward outgrows shared memory (D = 128 past 640 keys; JAX's gate
-    stops there below 600) or where the heads do not group, ``TypeError``
-    past head dim 128."""
+    ``HEAD_DIMS`` runs on the next one up, zero-padded; past 128 the plan
+    is a :class:`WideTrainPlan`.  Raises ``ValueError`` past
+    ``TRAIN_MAX_N`` (768: W <= 6 CTAs a cluster), where the forward
+    outgrows shared memory (D = 128 past 640 keys; JAX's gate stops there
+    below 600) or where the heads do not group."""
     if not 1 <= N <= TRAIN_MAX_N:
         raise ValueError(f"attention_train kernels: N={N} outside [1, "
                          f"{TRAIN_MAX_N}]")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
     D = padded_head_dim(D)
+    if D > HEAD_DIMS[-1]:
+        return _wide_train_plan(N, hq, hkv, D)
     fwd = _natural_plan(N, hq, hkv, D, True, B, sms, balanced=True)
     if fwd.stream:
         raise ValueError(f"attention_train kernels: N={N} at head dim {D} "
@@ -384,6 +424,35 @@ class _TrainBwdArgs(ctypes.Structure):
                                                  "coef")])
 
 
+class _WideBwdArgs(ctypes.Structure):
+    """``WideBwdPlan`` of csrc/attention_wide.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in ("N", "hq", "hkv", "dp",
+                                              "groups", "np", "dropout")]
+                + [("seed", ctypes.c_uint32), ("thr", ctypes.c_uint32)]
+                + [(f, ctypes.c_float) for f in ("scale2", "scale",
+                                                 "coef")])
+
+
+@functools.cache
+def _wide_lib():
+    """csrc/attention_wide.cu's library, its training entries' C types
+    set."""
+    from . import _build
+
+    lib = _build.load("attention_wide")
+    lib.attn_train_fwd_wide.restype = ctypes.c_int
+    lib.attn_train_fwd_wide.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_WideArgs),
+                                 ctypes.POINTER(_TrainRows), ctypes.c_int,
+                                 ctypes.c_void_p])
+    lib.attn_train_bwd_wide.restype = ctypes.c_int
+    lib.attn_train_bwd_wide.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(_WideBwdArgs), ctypes.c_int,
+                                  ctypes.c_void_p])
+    return lib
+
+
 @functools.cache
 def _lib():
     """csrc/attention_train.cu's library, its entry points' C types set."""
@@ -421,18 +490,26 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate):
     D = padded_head_dim(Dt)
     q, k, v = (_build.aligned(pad_heads(t, Dt, D)) for t in (q, k, v))
     plan = _plan_for(q, hq, hkv)
-    lib = _lib()
     out = torch.empty_like(q)
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
     fp = plan.fwd
-    args = _natural_args(fp, hq * D, hkv * D, hkv * D, a["scale2"])
     rows = _TrainRows(stats.data_ptr(), a["seed"], a["thr"], _round_up(N, 8),
                       a["dropout"], a["coef"])
-    err = lib.attn_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), ctypes.byref(args),
-                             ctypes.byref(rows), D, fp.launch_grid(B)[2],
-                             *fp.grid, fp.warps, fp.smem,
-                             _build.stream_ptr(q.device))
+    if isinstance(plan, WideTrainPlan):
+        lib = _wide_lib()
+        args = _wide_args(fp, hq * D, hkv * D, hkv * D, a["scale2"])
+        err = lib.attn_train_fwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.byref(args), ctypes.byref(rows), B,
+            _build.stream_ptr(q.device))
+    else:
+        lib = _lib()
+        args = _natural_args(fp, hq * D, hkv * D, hkv * D, a["scale2"])
+        err = lib.attn_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 out.data_ptr(), ctypes.byref(args),
+                                 ctypes.byref(rows), D, fp.launch_grid(B)[2],
+                                 *fp.grid, fp.warps, fp.smem,
+                                 _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train fwd")
     attention_train_fwd.launches += 1
     return unpad_heads(out, Dt, D), stats
@@ -451,23 +528,36 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
     q, k, v, o, do = (_build.aligned(pad_heads(t.to(q.dtype), Dt, D))
                       for t in (q, k, v, o, do))
     plan = _plan_for(q, hq, hkv)
-    if B * hq * plan.T * _TILE * (plan.D // 8) >= 2 ** 31:
-        raise ValueError(f"attention_train bwd: batch {B} x {hq} heads x "
-                         f"{plan.T * _TILE} rows is past the kernels' int "
-                         f"indexing")
-    lib = _lib()
     stats = stats.float().contiguous()
-    info = torch.empty((B, hq, plan.T * _TILE, 4), dtype=torch.float32,
-                       device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args = _TrainBwdArgs(*(getattr(plan, f) for f in _BWD_INTS),
-                         _round_up(N, 8), a["dropout"], a["seed"], a["thr"],
-                         a["scale2"], a["scale"], a["coef"])
-    err = lib.attn_train_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        stats.data_ptr(), info.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), ctypes.byref(args), plan.D, B, plan.smem,
-        _build.stream_ptr(q.device))
+    if isinstance(plan, WideTrainPlan):
+        info = torch.empty((B, hq, N, 4), dtype=torch.float32,
+                           device=q.device)
+        args = _WideBwdArgs(N, hq, hkv, D, plan.groups, _round_up(N, 8),
+                            a["dropout"], a["seed"], a["thr"], a["scale2"],
+                            a["scale"], a["coef"])
+        lib = _wide_lib()
+        err = lib.attn_train_bwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), stats.data_ptr(), info.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ctypes.byref(args), B,
+            _build.stream_ptr(q.device))
+    else:
+        if B * hq * plan.T * _TILE * (plan.D // 8) >= 2 ** 31:
+            raise ValueError(f"attention_train bwd: batch {B} x {hq} heads x "
+                             f"{plan.T * _TILE} rows is past the kernels' "
+                             f"int indexing")
+        lib = _lib()
+        info = torch.empty((B, hq, plan.T * _TILE, 4), dtype=torch.float32,
+                           device=q.device)
+        args = _TrainBwdArgs(*(getattr(plan, f) for f in _BWD_INTS),
+                             _round_up(N, 8), a["dropout"], a["seed"],
+                             a["thr"], a["scale2"], a["scale"], a["coef"])
+        err = lib.attn_train_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), stats.data_ptr(), info.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ctypes.byref(args), plan.D, B,
+            plan.smem, _build.stream_ptr(q.device))
     _build.check(lib, err, "attention_train bwd")
     attention_train_bwd.launches += 1
     return tuple(unpad_heads(t, Dt, D) for t in (dq, dk, dv))

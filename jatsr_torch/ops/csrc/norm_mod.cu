@@ -17,6 +17,10 @@
 // 1/sqrt is two correctly rounded operations, as the plain version's
 // 1 / torch.sqrt; XLA's rsqrt on the CPU may differ from it in the last
 // bit, which can move a code by one (the tests state that tolerance).
+// Then acc = a_q @ w_q in int32 (exact), y = ((float)acc * s) * ws + b with
+// no FMA contraction, and for mlp_in g = gelu(y) in fp32 (int8_gemm.cuh's
+// forms), gs = max(max|g_row| * INV127, 1e-12) over the whole row, codes
+// rint(g / gs).
 //
 // What bounds it on the H100, at the serving shape (x [6, 352, 1280]):
 // the qkv product (N = 1792) is 9.69 G int8 operations, 4.90 us at the
@@ -29,13 +33,25 @@
 // each row's sample as row / Np; the modulation rows have an explicit batch
 // stride, 0 for the sampler's shared [1, H] row, H for [B, H].
 //   1. norm_mod_quant: one warp per row; three passes over the row (stats,
-//      absmax of y, codes), recomputing y, with x read from L1/L2.
-//   2. the s8 GEMM of int8_gemm.cuh with the dequant + bias epilogue (qkv),
-//      or with the GELU epilogue and the whole-row requant (mlp_in).
-// The int8 rows go through device memory between the passes; keeping a
-// CTA's rows in shared memory is a later version's work.
+//      absmax of y, codes), recomputing y, with x read from L1/L2; it
+//      writes a_q [M, H] s8 and s (2.7 MB: ~1.6 us of traffic, a launch of
+//      its own).
+//   2. the s8 GEMM of s8_wgmma.cuh (wgmma fed by TMA, 128 x 128 tiles) on
+//      a_q and the K-major weight [N, H]:
+//      qkv (B3): the dequant + bias epilogue straight to bf16;
+//      mlp_in (B1): two passes of the products, so that the fp32 g never
+//      goes through device memory.  Pass 1 computes each tile's g and
+//      writes its rows' max |g| (a [M, N / 128] fp32 partial, no atomics);
+//      pass 2 recomputes g (the same instructions, so the same bits), takes
+//      its rows' exact max over the partials and writes the s8 codes and
+//      gs.  The tensor work doubles (28 us at the int8 peak) and the 43 MB
+//      g round trip of the mma.sync version (written, then read back by a
+//      requant launch) is gone.  A cluster spanning a whole row, with the
+//      maxima exchanged through distributed shared memory, would run the
+//      products once; it is not built (PERF.md says why).
 
 #include "int8_gemm.cuh"
+#include "s8_wgmma.cuh"
 
 namespace {
 
@@ -44,8 +60,7 @@ __global__ void norm_mod_quant(const __nv_bfloat16* __restrict__ x,
                                const float* __restrict__ scale,
                                const float* __restrict__ shift, int mod_stride,
                                int rows_per_sample, int8_t* __restrict__ aq,
-                               float* __restrict__ s, int* __restrict__ rowmax,
-                               int M, int H) {
+                               float* __restrict__ s, int M, int H) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= M) return;
@@ -113,68 +128,282 @@ __global__ void norm_mod_quant(const __nv_bfloat16* __restrict__ x,
     norm_mod8(k, y);
     *reinterpret_cast<uint2*>(qr + k) = quant8(y, q);
   }
-  if (lane == 0) {
-    s[row] = q;
-    if (rowmax) rowmax[row] = 0;
-  }
+  if (lane == 0) s[row] = q;
 }
 
 cudaError_t launch_prologue(const void* x, const void* scale, const void* shift,
-                            int mod_stride, int np, void* aq, void* s, void* rowmax,
-                            int M, int H, int rms, cudaStream_t st) {
+                            int mod_stride, int np, void* aq, void* s, int M, int H,
+                            int rms, cudaStream_t st) {
   const dim3 grid((M + 7) / 8), block(256);
   auto X = (const __nv_bfloat16*)x;
   auto SC = (const float*)scale;
   auto SH = (const float*)shift;
   if (rms)
     norm_mod_quant<true><<<grid, block, 0, st>>>(X, SC, SH, mod_stride, np, (int8_t*)aq,
-                                                 (float*)s, (int*)rowmax, M, H);
+                                                 (float*)s, M, H);
   else
     norm_mod_quant<false><<<grid, block, 0, st>>>(X, SC, SH, mod_stride, np, (int8_t*)aq,
-                                                  (float*)s, (int*)rowmax, M, H);
+                                                  (float*)s, M, H);
   return cudaGetLastError();
+}
+
+
+// B3's GEMM: out = bf16(((float)acc * s) * ws + b).  Needs N % 128 == 0.
+__global__ void __launch_bounds__(S8_THREADS, 2) s8_dot_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  const int n0 = blockIdx.x * S8_BN, m0 = blockIdx.y * S8_BM;
+  s8_gemm_tile(
+      K / S8_BK,
+      [&](int kb, unsigned char* a, unsigned char* b, uint64_t* bar) {
+        tma_load_2d(a, &am, bar, kb * S8_BK, m0);
+        tma_load_2d(b, &bm, bar, kb * S8_BK, n0);
+      },
+      [](int, int) {},
+      [&](const int (&acc)[S8_ACC], int row, int col, unsigned char* stage) {
+        // The tile in bf16 through shared memory (rows of 272 bytes: the
+        // 8 rows of a store hit distinct banks), then 16-byte stores.
+        constexpr int STR = S8_BN * 2 + 16;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + row + 8 * h;
+          const float sr = r < M ? s[r] : 0.f;
+#pragma unroll
+          for (int i = 0; i < S8_BN / 8; ++i) {
+            const int c = n0 + 8 * i + col;
+            const float2 w = *reinterpret_cast<const float2*>(ws + c);
+            const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+            const float y0 =
+                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h]), sr), w.x), bb.x);
+            const float y1 =
+                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h + 1]), sr), w.y), bb.y);
+            *reinterpret_cast<__nv_bfloat162*>(stage + (row + 8 * h) * STR + (8 * i + col) * 2) =
+                __floats2bfloat162_rn(y0, y1);
+          }
+        }
+        __syncthreads();
+        for (int x = threadIdx.x; x < S8_BM * S8_BN / 8; x += S8_THREADS) {
+          const int rr = x / (S8_BN / 8), cc = (x % (S8_BN / 8)) * 8;
+          if (m0 + rr < M)
+            *reinterpret_cast<uint4*>(out + (size_t)(m0 + rr) * N + n0 + cc) =
+                *reinterpret_cast<const uint4*>(stage + rr * STR + cc * 2);
+        }
+      });
+}
+
+// B1's GEMM, pass PASS of two: g = gelu(((float)acc * s) * ws + b) in fp32.
+// Pass 1 writes the max |g| of each of the tile's rows to part[row][tile];
+// pass 2 takes the row's max over its N / 128 partials (a max is exact in
+// any order), gs = max(rowmax * INV127, 1e-12), and writes the codes
+// rint(g / gs) and gs.  Both passes compute g by the same instructions.
+// Needs N % 128 == 0.
+template <int GELU, int PASS>
+__global__ void __launch_bounds__(S8_THREADS, 2) s8_gelu_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
+    float* __restrict__ part, int8_t* __restrict__ gq, float* __restrict__ gs, int M, int K,
+    int N) {
+  const int n0 = blockIdx.x * S8_BN, m0 = blockIdx.y * S8_BM, nt = gridDim.x;
+  float sc[2] = {1.f, 1.f};  // pass 2: the scales of the thread's two rows
+  s8_gemm_tile(
+      K / S8_BK,
+      [&](int kb, unsigned char* a, unsigned char* b, uint64_t* bar) {
+        tma_load_2d(a, &am, bar, kb * S8_BK, m0);
+        tma_load_2d(b, &bm, bar, kb * S8_BK, n0);
+      },
+      [&](int row, int col) {
+        if (PASS == 1) return;
+        // The rows' maxima over their partials, a quad's four lanes taking
+        // every fourth (a max is exact in any order), read while the
+        // products run.
+        float rm[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + row + 8 * h;
+          if (r >= M) continue;
+          const float* pr = part + (size_t)r * nt;
+#pragma unroll 4
+          for (int j = col / 2; j < nt; j += 4) rm[h] = fmaxf(rm[h], pr[j]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rm[h] = fmaxf(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 1));
+          rm[h] = fmaxf(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 2));
+          sc[h] = fmaxf(__fmul_rn(rm[h], INV127), 1e-12f);
+          const int r = m0 + row + 8 * h;
+          if (blockIdx.x == 0 && col == 0 && r < M) gs[r] = sc[h];
+        }
+      },
+      [&](const int (&acc)[S8_ACC], int row, int col, unsigned char* stage) {
+        // Pass 2 stages the codes in shared memory (rows of 144 bytes: the
+        // 8 rows of a store hit distinct banks), then 16-byte stores.
+        constexpr int STR = S8_BN + 16;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + row + 8 * h;
+          const bool ok = r < M;  // uniform over a quad: the shuffles below
+          const float sr = ok ? s[r] : 0.f;
+          float amax = 0.f;
+#pragma unroll
+          for (int i = 0; i < S8_BN / 8; ++i) {
+            const int c = n0 + 8 * i + col;
+            const float2 w = *reinterpret_cast<const float2*>(ws + c);
+            const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+            const float g0 = gelu<GELU>(
+                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h]), sr), w.x), bb.x));
+            const float g1 = gelu<GELU>(
+                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h + 1]), sr), w.y), bb.y));
+            if (PASS == 1) {
+              amax = fmaxf(amax, fmaxf(fabsf(g0), fabsf(g1)));
+            } else {
+              const uint32_t q0 = (uint32_t)__float2int_rn(__fdiv_rn(g0, sc[h])) & 0xffu;
+              const uint32_t q1 = (uint32_t)__float2int_rn(__fdiv_rn(g1, sc[h])) & 0xffu;
+              *reinterpret_cast<uint16_t*>(stage + (row + 8 * h) * STR + 8 * i + col) =
+                  (uint16_t)(q0 | (q1 << 8));
+            }
+          }
+          if (PASS == 1) {
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+            if (ok && col == 0) part[(size_t)r * nt + blockIdx.x] = amax;
+          }
+        }
+        if (PASS == 2) {
+          __syncthreads();
+          for (int x = threadIdx.x; x < S8_BM * S8_BN / 16; x += S8_THREADS) {
+            const int rr = x / (S8_BN / 16), cc = (x % (S8_BN / 16)) * 16;
+            if (m0 + rr < M)
+              *reinterpret_cast<uint4*>(gq + (size_t)(m0 + rr) * N + n0 + cc) =
+                  *reinterpret_cast<const uint4*>(stage + rr * STR + cc);
+          }
+        }
+      });
+}
+
+// The tensor maps of a_q [M, K] and the K-major weight wt [N, K].
+cudaError_t s8_maps(CUtensorMap* am, CUtensorMap* bm, const void* aq, const void* wt, int M,
+                    int K, int N) {
+  cudaError_t e = s8_tensor_map(am, aq, M, K, S8_BM);
+  return e != cudaSuccess ? e : s8_tensor_map(bm, wt, N, K, S8_BN);
+}
+
+template <class Kernel>
+cudaError_t s8_smem(Kernel kernel, int& set) {
+  if (set) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S8_SMEM);
+  if (e == cudaSuccess) set = 1;
+  return e;
+}
+
+cudaError_t launch_dot(const void* aq, const void* s, const void* wt, const void* ws,
+                       const void* bias, void* out, int M, int K, int N, cudaStream_t st) {
+  CUtensorMap am, bm;
+  cudaError_t e = s8_maps(&am, &bm, aq, wt, M, K, N);
+  if (e != cudaSuccess) return e;
+  static int set = 0;
+  e = s8_smem(s8_dot_kernel, set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + S8_BN - 1) / S8_BN, (M + S8_BM - 1) / S8_BM);
+  s8_dot_kernel<<<grid, S8_THREADS, S8_SMEM, st>>>(am, bm, (const float*)s, (const float*)ws,
+                                                   (const float*)bias, (__nv_bfloat16*)out, M, K,
+                                                   N);
+  return cudaGetLastError();
+}
+
+template <int GELU, int PASS>
+cudaError_t launch_gelu_pass(const CUtensorMap& am, const CUtensorMap& bm, const void* s,
+                             const void* ws, const void* bias, void* part, void* gq, void* gs,
+                             int M, int K, int N, cudaStream_t st) {
+  static int set = 0;
+  const cudaError_t e = s8_smem(s8_gelu_kernel<GELU, PASS>, set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + S8_BN - 1) / S8_BN, (M + S8_BM - 1) / S8_BM);
+  s8_gelu_kernel<GELU, PASS><<<grid, S8_THREADS, S8_SMEM, st>>>(
+      am, bm, (const float*)s, (const float*)ws, (const float*)bias, (float*)part, (int8_t*)gq,
+      (float*)gs, M, K, N);
+  return cudaGetLastError();
+}
+
+template <int GELU>
+cudaError_t launch_gelu_t(const CUtensorMap& am, const CUtensorMap& bm, const void* s,
+                          const void* ws, const void* bias, void* part, void* gq, void* gs, int M,
+                          int K, int N, int passes, cudaStream_t st) {
+  cudaError_t e = cudaSuccess;
+  if (passes & 1) e = launch_gelu_pass<GELU, 1>(am, bm, s, ws, bias, part, gq, gs, M, K, N, st);
+  if (e == cudaSuccess && (passes & 2))
+    e = launch_gelu_pass<GELU, 2>(am, bm, s, ws, bias, part, gq, gs, M, K, N, st);
+  return e;
+}
+
+cudaError_t launch_gelu(const void* aq, const void* s, const void* wt, const void* ws,
+                        const void* bias, void* part, void* gq, void* gs, int M, int K, int N,
+                        int gelu_impl, int passes, cudaStream_t st) {
+  CUtensorMap am, bm;
+  const cudaError_t e = s8_maps(&am, &bm, aq, wt, M, K, N);
+  if (e != cudaSuccess) return e;
+  if (gelu_impl == 1)
+    return launch_gelu_t<1>(am, bm, s, ws, bias, part, gq, gs, M, K, N, passes, st);
+  if (gelu_impl == 2)
+    return launch_gelu_t<2>(am, bm, s, ws, bias, part, gq, gs, M, K, N, passes, st);
+  return launch_gelu_t<0>(am, bm, s, ws, bias, part, gq, gs, M, K, N, passes, st);
 }
 
 }  // namespace
 
+// The prologue alone: x [M = B*np, H] bf16; scale, shift [B or 1, H] f32
+// with row stride mod_stride (0 or H) -> aq [M, H] s8, s [M] f32.
+extern "C" int norm_mod_prologue(const void* x, const void* scale, const void* shift,
+                                 int mod_stride, int np, void* aq, void* s, int M, int H, int rms,
+                                 void* stream) {
+  return launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms,
+                         (cudaStream_t)stream);
+}
+
+// B3's GEMM alone on a prologue's aq [M, K] s8 and s [M] f32: wt [N, K] s8
+// (the weight K-major); ws, bias [N] f32 -> out [M, N] bf16.  Needs
+// K % 128 == 0 and N % 128 == 0.
+extern "C" int s8_dot(const void* aq, const void* s, const void* wt, const void* ws,
+                      const void* bias, void* out, int M, int K, int N, void* stream) {
+  return launch_dot(aq, s, wt, ws, bias, out, M, K, N, (cudaStream_t)stream);
+}
+
+// B1's GEMM alone on a prologue's aq and s: wt, ws, bias as s8_dot; part
+// [M, ceil(N / 128)] f32 scratch -> gq [M, N] s8, gs [M] f32.  `passes`: 1
+// the row maxima, 2 the codes (on part from pass 1), 3 both.
+extern "C" int s8_gelu_quant(const void* aq, const void* s, const void* wt, const void* ws,
+                             const void* bias, void* part, void* gq, void* gs, int M, int K,
+                             int N, int gelu_impl, int passes, void* stream) {
+  return launch_gelu(aq, s, wt, ws, bias, part, gq, gs, M, K, N, gelu_impl, passes,
+                     (cudaStream_t)stream);
+}
+
 // x [M = B*np, H] bf16; scale, shift [B or 1, H] f32 with row stride
-// mod_stride (0 or H); wq [H, N] s8; ws, bias [N] f32.  Scratch: aq [M, H]
-// s8, s [M] f32.  Output: out [M, N] bf16.  Needs H % 64 == 0, N % 128 == 0.
+// mod_stride (0 or H); wt [N, H] s8 (the weight K-major); ws, bias [N] f32.
+// Scratch: aq [M, H] s8, s [M] f32.  Output: out [M, N] bf16.  Needs
+// H % 128 == 0, N % 128 == 0.  Two launches.
 extern "C" int norm_mod_dot(const void* x, const void* scale, const void* shift,
-                            int mod_stride, const void* wq, const void* ws,
+                            int mod_stride, const void* wt, const void* ws,
                             const void* bias, void* aq, void* s, void* out, int M,
                             int np, int H, int N, int rms, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, nullptr, M,
-                                  H, rms, st);
+  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st);
   if (e != cudaSuccess) return e;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_dequant<true><<<grid, 128, 0, st>>>((const int8_t*)aq, (const int8_t*)wq,
-                                           (const float*)ws, (const float*)bias,
-                                           (const float*)s, (__nv_bfloat16*)out, M, H, N);
-  return cudaGetLastError();
+  return launch_dot(aq, s, wt, ws, bias, out, M, H, N, st);
 }
 
 // As norm_mod_dot, with the GELU epilogue (fp32) and the whole-row requant.
-// Scratch: aq [M, H] s8, s [M] f32, g [M, N] f32, rowmax [M] s32.  Outputs:
-// gq [M, N] s8, gs [M] f32.
+// Scratch: aq [M, H] s8, s [M] f32, part [M, N / 128] f32.  Outputs:
+// gq [M, N] s8, gs [M] f32.  Three launches: the prologue, the two passes.
 extern "C" int norm_mod_dense_gelu_quant(const void* x, const void* scale,
                                          const void* shift, int mod_stride,
-                                         const void* wq, const void* ws,
-                                         const void* bias, void* aq, void* s, void* g,
-                                         void* rowmax, void* gq, void* gs, int M,
-                                         int np, int H, int N, int rms, int gelu_impl,
-                                         void* stream) {
+                                         const void* wt, const void* ws,
+                                         const void* bias, void* aq, void* s, void* part,
+                                         void* gq, void* gs, int M, int np, int H, int N,
+                                         int rms, int gelu_impl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, rowmax, M,
-                                  H, rms, st);
+  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st);
   if (e != cudaSuccess) return e;
-  launch_gemm_gelu(gelu_impl, true, st, (const int8_t*)aq, (const int8_t*)wq,
-                   (const float*)ws, (const float*)bias, (const float*)s, (float*)g,
-                   (int*)rowmax, M, H, N);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  requant<<<M, 256, 0, st>>>((const float*)g, (const int*)rowmax, (int8_t*)gq,
-                             (float*)gs, N);
-  return cudaGetLastError();
+  return launch_gelu(aq, s, wt, ws, bias, part, gq, gs, M, H, N, gelu_impl, 3, st);
 }

@@ -7,7 +7,14 @@ residual stream ``x [B, Np, H]`` and one AdaLN ``(scale, shift)`` row per
 sample, ``[B, H]`` or ``[1, H]`` (the sampler's hoisted table, shared over
 the batch).  Each wrapper dispatches on the tensor's device: a CPU tensor
 takes the plain PyTorch version below, a CUDA tensor launches the
-hand-written kernel in ``csrc/norm_mod.cu`` or raises.  Nothing falls back.
+hand-written kernel in ``csrc/norm_mod.cu`` (the prologue, then the s8
+``wgmma`` GEMM of ``csrc/s8_wgmma.cuh``) or raises.  Nothing falls back.
+
+``wgmma`` reads 8-bit operands K-major only, so on the card the GEMM takes
+the weight a second time as ``w_t [N, H]``, ``w_q`` transposed and
+contiguous: the serving DiT makes that copy once, beside ``w_q``
+(``models/dit.py``).  The plain versions read ``w_q [H, N]``; they check
+``w_t``'s shape where it is given and do not read it.
 """
 
 from __future__ import annotations
@@ -71,14 +78,33 @@ def _prologue_plain(x, scale, shift, norm):
     return torch.round(y / s).to(torch.int8), s
 
 
+def s8_dot_plain(a_q, s, w_q, w_scale, bias):
+    """Plain PyTorch version of the qkv kernel's GEMM and epilogue on a
+    prologue's codes ``a_q [M, H]`` and scales ``s [M, 1]``: ``bf16(((acc *
+    s) * ws) + b)``, ``[M, N]``."""
+    acc = int8_mm(a_q, w_q).float()
+    y = acc * s.reshape(-1, 1) * w_scale.reshape(1, -1) \
+        + bias.reshape(1, -1).float()
+    return y.to(torch.bfloat16)
+
+
+def s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl="tanh"):
+    """Plain PyTorch version of the mlp_in kernel's GEMM and epilogue on a
+    prologue's ``a_q`` and ``s``: the fp32 GELU and the whole-row requant;
+    ``(int8 [M, N], fp32 [M, 1])``."""
+    acc = int8_mm(a_q, w_q).float()
+    g = _gelu(acc * s.reshape(-1, 1) * w_scale.reshape(1, -1)
+              + bias.reshape(1, -1).float(), gelu_impl)
+    gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    return torch.round(g / gs).to(torch.int8), gs
+
+
 def norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm="rms"):
     """Plain PyTorch version of the qkv kernel: ``bf16(((acc * s) * ws)
     + b)``, ``[B, Np, N]``."""
     B, Np, _ = x.shape
     a_q, s = _prologue_plain(x, scale, shift, norm)
-    acc = int8_mm(a_q, w_q).float()
-    y = acc * s * w_scale.reshape(1, -1) + bias.reshape(1, -1).float()
-    return y.to(torch.bfloat16).reshape(B, Np, -1)
+    return s8_dot_plain(a_q, s, w_q, w_scale, bias).reshape(B, Np, -1)
 
 
 def norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale, bias,
@@ -87,15 +113,22 @@ def norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale, bias,
     whole-row requant; ``(int8 [B, Np, N], fp32 [B, Np, 1])``."""
     B, Np, _ = x.shape
     a_q, s = _prologue_plain(x, scale, shift, norm)
-    acc = int8_mm(a_q, w_q).float()
-    g = _gelu(acc * s * w_scale.reshape(1, -1) + bias.reshape(1, -1).float(),
-              gelu_impl)
-    gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
-    g_q = torch.round(g / gs).to(torch.int8)
+    g_q, gs = s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl)
     return g_q.reshape(B, Np, -1), gs.reshape(B, Np, 1)
 
 
-def _check(what, x, scale, shift, w_q, w_scale, bias, norm):
+def _check_t(what, w_q, w_t):
+    """``w_t`` is ``w_q`` K-major: ``[N, H]`` int8, contiguous."""
+    if w_t is not None and (w_t.shape != w_q.shape[::-1]
+                            or w_t.dtype != torch.int8
+                            or not w_t.is_contiguous()):
+        raise ValueError(f"{what}: w_t must be w_q.t() contiguous, int8 "
+                         f"{tuple(w_q.shape[::-1])}, got {tuple(w_t.shape)} "
+                         f"{w_t.dtype}")
+
+
+def _check(what, x, scale, shift, w_q, w_scale, bias, norm, w_t=None):
+    _check_t(what, w_q, w_t)
     if x.dim() != 3:
         raise ValueError(f"{what}: x must be [B, Np, H], got {tuple(x.shape)}")
     B, Np, H = x.shape
@@ -108,7 +141,8 @@ def _check(what, x, scale, shift, w_q, w_scale, bias, norm):
     return (B, Np) + check_weights(what, H, w_q, w_scale, bias)
 
 
-def int8_norm_mod_dot(x, scale, shift, w_q, w_scale, bias, *, norm="rms"):
+def int8_norm_mod_dot(x, scale, shift, w_q, w_scale, bias, *, norm="rms",
+                      w_t=None):
     """``bf16(dequant(quant(norm_mod(x)) @ w_q) + bias)`` -> [B, Np, N].
 
     Args:
@@ -116,14 +150,16 @@ def int8_norm_mod_dot(x, scale, shift, w_q, w_scale, bias, *, norm="rms"):
         scale, shift: [B or 1, H] AdaLN rows (the "1 +" is inside).
         w_q: [H, N] int8; w_scale: [1, N] fp32; bias: [1, N] fp32 (zeros
             when the projection has none).
+        w_t: [N, H] int8, ``w_q.t()`` contiguous: the K-major copy the
+            kernel reads; needed on the card.
     """
     B, Np, H, N = _check("norm_mod_dot", x, scale, shift, w_q, w_scale, bias,
-                         norm)
+                         norm, w_t)
     if x.device.type == "cpu":
         return norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm)
     from . import _build
 
-    lib, head, _ = _shared_args("norm_mod_dot", x, scale, shift, w_q, w_scale,
+    lib, head, _ = _shared_args("norm_mod_dot", x, scale, shift, w_t, w_scale,
                                 bias)
     out = torch.empty((B, Np, N), dtype=torch.bfloat16, device=x.device)
     fn = lib.norm_mod_dot
@@ -141,7 +177,7 @@ int8_norm_mod_dot.launches = 0
 
 
 def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
-                                   norm="rms", gelu_impl="tanh"):
+                                   norm="rms", gelu_impl="tanh", w_t=None):
     """``quantize(gelu(dequant(quant(norm_mod(x)) @ w_q) + b))`` with an
     fp32 epilogue -> (int8 [B, Np, N], fp32 row scales [B, Np, 1]).
 
@@ -150,26 +186,25 @@ def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
     if gelu_impl not in GELU_IMPLS:
         raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
     B, Np, H, N = _check("norm_mod_dense_gelu_quant", x, scale, shift, w_q,
-                         w_scale, bias, norm)
+                         w_scale, bias, norm, w_t)
     if x.device.type == "cpu":
         return norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale,
                                                bias, norm, gelu_impl)
     from . import _build
 
     lib, head, _ = _shared_args("norm_mod_dense_gelu_quant", x, scale, shift,
-                                w_q, w_scale, bias)
+                                w_t, w_scale, bias)
     M, dev = B * Np, x.device
-    g = torch.empty((M, N), dtype=torch.float32, device=dev)
-    rowmax = torch.empty((M,), dtype=torch.int32, device=dev)
+    part = torch.empty((M, -(-N // _TILE_N)), dtype=torch.float32, device=dev)
     g_q = torch.empty((B, Np, N), dtype=torch.int8, device=dev)
     g_s = torch.empty((B, Np, 1), dtype=torch.float32, device=dev)
     fn = lib.norm_mod_dense_gelu_quant
     fn.restype = ctypes.c_int
-    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
-    err = fn(*head, g.data_ptr(), rowmax.data_ptr(), g_q.data_ptr(),
-             g_s.data_ptr(), M, Np, H, N, int(norm == "rms"),
-             GELU_IMPLS.index(gelu_impl), _build.stream_ptr(dev))
+    err = fn(*head, part.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), M, Np, H,
+             N, int(norm == "rms"), GELU_IMPLS.index(gelu_impl),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "norm_mod_dense_gelu_quant")
     int8_norm_mod_dense_gelu_quant.launches += 1
     return g_q, g_s
@@ -178,11 +213,29 @@ def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
 int8_norm_mod_dense_gelu_quant.launches = 0
 
 # C types of the leading arguments both entry points take:
-# x, scale, shift, mod_stride, wq, ws, bias, aq, s.
+# x, scale, shift, mod_stride, wt, ws, bias, aq, s.
 _HEAD_TYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+_TILE_N = 128  # output columns of an s8_wgmma.cuh tile: B1's row-max partials
 
 
-def _shared_args(what, x, scale, shift, w_q, w_scale, bias):
+def _weights_t(what, w_t, w_scale, bias):
+    """The K-major weight as the kernels read it (16-byte aligned; K a
+    multiple of the GEMM's 128-deep stages) and the fp32 scale and bias
+    vectors."""
+    from . import _build
+
+    if w_t is None:
+        raise ValueError(f"{what}: the card's kernel reads the weight K-major: "
+                         f"pass w_t = w_q.t().contiguous(), made once")
+    N, K = w_t.shape
+    if K % 128 or N % 128:
+        raise ValueError(f"{what}: the s8 wgmma GEMM needs H % 128 == 0 and "
+                         f"N % 128 == 0, got {K}, {N}")
+    return (_build.aligned(w_t), w_scale.reshape(N).float().contiguous(),
+            bias.reshape(N).float().contiguous())
+
+
+def _shared_args(what, x, scale, shift, w_t, w_scale, bias):
     """Load the kernels' library and lay out the leading C arguments (see
     ``_HEAD_TYPES``), with the scratch they need.  Returns the library, the
     arguments and the tensors behind the pointers, which the caller holds
@@ -192,17 +245,76 @@ def _shared_args(what, x, scale, shift, w_q, w_scale, bias):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what} kernel takes bf16, got {x.dtype}")
     B, Np, H = x.shape
-    N = w_q.shape[1]
+    w_t, ws, b = _weights_t(what, w_t, w_scale, bias)
     lib = _build.load("norm_mod")
     x = _build.aligned(x)
     sc = _build.aligned(scale.float())
     sh = _build.aligned(shift.float())
-    w_q = _build.aligned(w_q)
-    ws = w_scale.reshape(N).float().contiguous()
-    b = bias.reshape(N).float().contiguous()
     a_q = torch.empty((B * Np, H), dtype=torch.int8, device=x.device)
     s = torch.empty((B * Np,), dtype=torch.float32, device=x.device)
     mod_stride = 0 if sc.shape[0] == 1 else H
-    tensors = (x, sc, sh, w_q, ws, b, a_q, s)
+    tensors = (x, sc, sh, w_t, ws, b, a_q, s)
     ptrs = [t.data_ptr() for t in tensors]
     return lib, ptrs[:3] + [mod_stride] + ptrs[3:], tensors
+
+
+def _gemm_args(what, a_q, s, w_t, w_scale, bias):
+    """The card's GEMM entries' inputs: ``a_q [M, K]`` int8 codes and ``s``
+    their ``M`` fp32 row scales, as a prologue writes them."""
+    from . import _build
+
+    M, K = a_q.shape
+    if a_q.dtype != torch.int8 or s.numel() != M or w_t.shape[1] != K:
+        raise ValueError(f"{what}: a_q int8 [M, K], s [M], w_t [N, K]; got "
+                         f"{tuple(a_q.shape)} {a_q.dtype}, {s.numel()}, "
+                         f"{tuple(w_t.shape)}")
+    w_t, ws, b = _weights_t(what, w_t, w_scale, bias)
+    return (_build.aligned(a_q), s.reshape(M).float().contiguous(), w_t, ws,
+            b)
+
+
+def s8_dot(a_q, s, w_t, w_scale, bias):
+    """B3's GEMM and epilogue alone on the card, on a prologue's ``a_q``
+    and ``s`` (``csrc/norm_mod.cu:s8_dot``; the card tests hold it against
+    :func:`s8_dot_plain`): ``[M, N]`` bf16.  Not counted as a launch of
+    :func:`int8_norm_mod_dot`."""
+    from . import _build
+
+    a_q, s, w_t, ws, b = _gemm_args("s8_dot", a_q, s, w_t, w_scale, bias)
+    (M, K), N = a_q.shape, w_t.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a_q.device)
+    lib = _build.load("norm_mod")
+    lib.s8_dot.restype = ctypes.c_int
+    lib.s8_dot.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    err = lib.s8_dot(a_q.data_ptr(), s.data_ptr(), w_t.data_ptr(),
+                     ws.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                     _build.stream_ptr(a_q.device))
+    _build.check(lib, err, "s8_dot")
+    return out
+
+
+def s8_gelu_quant(a_q, s, w_t, w_scale, bias, gelu_impl="tanh"):
+    """B1's two GEMM passes alone on the card, on a prologue's ``a_q`` and
+    ``s`` (``csrc/norm_mod.cu:s8_gelu_quant``; held against
+    :func:`s8_gelu_quant_plain`): ``(int8 [M, N], fp32 [M, 1])``.  Not
+    counted as a launch of :func:`int8_norm_mod_dense_gelu_quant`."""
+    from . import _build
+
+    a_q, s, w_t, ws, b = _gemm_args("s8_gelu_quant", a_q, s, w_t, w_scale,
+                                    bias)
+    (M, K), N = a_q.shape, w_t.shape[0]
+    dev = a_q.device
+    part = torch.empty((M, -(-N // _TILE_N)), dtype=torch.float32, device=dev)
+    g_q = torch.empty((M, N), dtype=torch.int8, device=dev)
+    g_s = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    lib = _build.load("norm_mod")
+    lib.s8_gelu_quant.restype = ctypes.c_int
+    lib.s8_gelu_quant.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    err = lib.s8_gelu_quant(
+        a_q.data_ptr(), s.data_ptr(), w_t.data_ptr(), ws.data_ptr(),
+        b.data_ptr(), part.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), M, K,
+        N, GELU_IMPLS.index(gelu_impl), 3, _build.stream_ptr(dev))
+    _build.check(lib, err, "s8_gelu_quant")
+    return g_q, g_s

@@ -2,16 +2,18 @@
 keys, against the JAX kernels in interpret mode.
 
 The attention kernels are built for head dims 16, 32, 64 and 128.  Any
-other head dim up to 128 runs on the next instance up: the wrappers widen
-each head with zero columns (``pad_heads``: an even head's halves at
-``[0, d/2)`` and ``[dp/2, dp/2 + d/2)``, and RoPE's tables alike, so that
-the half rotation pairs the true columns), launch the instance at the true
-head dim's scale, and slice the output back (``unpad_heads``).  Here that
-transform runs through the plain versions at the padded width (the card
-runs the kernels on it) and is held against the plain version at the true
-width and against the JAX kernel in interpret mode, at D = 8, 24, 48 and
-128: B2 with and without the key mask, B11, B15, B16, and B10's forward
-and gradients.  Inputs are fp32 made with numpy from a seed.
+other head dim up to 128 runs on the next instance up, and a head dim past
+128 on the wide kernels (``csrc/attention_wide.cu``) at the next multiple
+of 128: the wrappers widen each head with zero columns (``pad_heads``: an
+even head's halves at ``[0, d/2)`` and ``[dp/2, dp/2 + d/2)``, and RoPE's
+tables alike, so that the half rotation pairs the true columns), launch
+the kernel at the true head dim's scale, and slice the output back
+(``unpad_heads``).  Here that transform runs through the plain versions at
+the padded width (the card runs the kernels on it) and is held against the
+plain version at the true width and against the JAX kernel in interpret
+mode, at D = 8, 24, 48, 128, 192 (padded to 256) and 256: B2 with and
+without the key mask, B11, B15, B16, and B10's forward and gradients.
+Inputs are fp32 made with numpy from a seed.
 
 Tolerances are those of the existing attention parity tests: 2e-5 for the
 forwards (``tests/test_torch_attention.py``,
@@ -36,7 +38,7 @@ from jatsr_torch.ops.attention import (flash_qkv_plain, flash_split_plain,
                                        gqa_attention_plain, pad_heads,
                                        padded_head_dim, unpad_heads)
 
-DS = [8, 24, 48, 128]
+DS = [8, 24, 48, 128, 192, 256]
 B, N, HQ, HKV = 2, 45, 4, 2
 
 
@@ -57,13 +59,10 @@ def _padded(fn, D, *xs):
 def test_pad_heads_layout(D):
     """Each head's halves land at [0, D/2) and [Dp/2, Dp/2 + D/2) of its
     Dp columns, zeros elsewhere; unpad_heads inverts it; past 128 the
-    padded head dim raises."""
-    if D > 128:
-        with pytest.raises(TypeError):
-            padded_head_dim(D)
-        return
+    padded head dim is the next multiple of 128 (the wide kernels)."""
     Dp = padded_head_dim(D)
-    assert Dp == next(p for p in (16, 32, 64, 128) if D <= p)
+    assert Dp == (next(p for p in (16, 32, 64, 128) if D <= p) if D <= 128
+                  else -(-D // 128) * 128)
     x = torch.arange(1, 3 * D + 1, dtype=torch.float32).reshape(1, 3 * D)
     y = pad_heads(x, D, Dp).reshape(3, 2, Dp // 2)
     for h in range(3):

@@ -17,7 +17,8 @@ slot is below ``heads``.
 import numpy as np
 import pytest
 
-from jatsr_torch.ops.attention import NATURAL_MAX_N, _natural_plan
+from jatsr_torch.ops.attention import (NATURAL_MAX_N, WidePlan,
+                                       _deferred_plan, _natural_plan)
 
 STREAM_N = 2048         # the largest N the plan tests walk
 
@@ -143,12 +144,16 @@ def test_natural_plan_raises_outside_the_kernel(N):
 def test_natural_plan_raises_for_a_head_dim_without_a_kernel(D):
     """Head dims up to 128 run (8 and 48 zero-padded to the 16 and 64
     instances, 128 its own) and fit an sm_90 block on both grids; past 128
-    the plan raises ``TypeError``: a head's fp32 output row would outgrow
-    the attention body's registers."""
+    (where a head's fp32 output row would outgrow the attention body's
+    registers) the plan is the wide kernels' at the next multiple of 128,
+    one plan for both grids, which fits an sm_90 block too."""
     for grouped in (False, True):
         if D > 128:
-            with pytest.raises(TypeError):
-                _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+            plan = _natural_plan(345, 20, 4, D, grouped, 6, SMS)
+            assert isinstance(plan, WidePlan) and plan.dp == 256
+            assert plan.smem <= SMEM_SM90 and plan.warps == 4
+            assert plan == _natural_plan(345, 20, 4, 256, not grouped, 6,
+                                         SMS)
             continue
         plan = _natural_plan(345, 20, 4, D, grouped, 6, SMS)
         padded = next(p for p in (16, 32, 64, 128) if D <= p)
@@ -167,3 +172,38 @@ def test_natural_plan_past_768_keys_at_head_dim_64(grouped):
                                                                  1)
     assert plan.v_off == plan.k_off == 0 and plan.warps == 16
     assert _natural_plan(1000, 20, 4, 32, grouped, 6, SMS).resident == 1
+
+
+@pytest.mark.parametrize("D", [136, 192, 256, 384])
+@pytest.mark.parametrize("G", [1, 5])
+def test_wide_plans_fit_and_cover_every_row_head_and_group_once(G, D):
+    """Past head dim 128 (csrc/attention_wide.cu): B15's and B16's plan,
+    B2's and B11's (keys masked at n_valid, or N padded with zero keys to a
+    multiple of 8 whose share comes off l), at N up to 1100: 4-warp CTAs
+    in an sm_90 block, the keys in 128-key chunks, and CTA (x, y) covering
+    rows ``64 x + [0, 64)`` of q-head ``y // groups`` in output column
+    group ``y % groups``, each (row, q-head, group) once."""
+    hkv = 2
+    hq = G * hkv
+    dp = -(-D // 128) * 128
+    for N in list(range(1, 300)) + [345, 640, 1000, 1024, 1100]:
+        plan = _natural_plan(N, hq, hkv, D, True, 6, SMS)
+        assert isinstance(plan, WidePlan)
+        assert (plan.dp, plan.groups, plan.warps) == (dp, dp // 128, 4)
+        assert plan.smem <= SMEM_SM90 and plan.nk >= N and plan.nk % 128 == 0
+        assert (plan.limit, plan.npad) == (N, 0)
+        x, y = np.meshgrid(np.arange(plan.grid[0]), np.arange(plan.grid[1]),
+                           indexing="ij")
+        count = np.zeros((N, hq, plan.groups), np.int64)
+        rows = x[..., None] * plan.rows + np.arange(plan.rows)
+        heads = np.broadcast_to((y // plan.groups)[..., None], rows.shape)
+        groups = np.broadcast_to((y % plan.groups)[..., None], rows.shape)
+        keep = rows < N
+        np.add.at(count, (rows[keep], heads[keep], groups[keep]), 1)
+        assert (count == 1).all(), N
+        if N <= NATURAL_MAX_N:
+            b11 = _deferred_plan(N, hq, hkv, D, 6, SMS, None, True)
+            assert (b11.limit, b11.npad) == (-(-N // 8) * 8, -N % 8)
+            b2 = _deferred_plan(N, hq, hkv, D, 6, SMS, max(1, N - 3), False)
+            assert (b2.limit, b2.npad, b2.grid) == (max(1, N - 3), 0,
+                                                    plan.grid)

@@ -265,11 +265,17 @@ def test_train_plan_raises_outside_the_kernels(N):
 @pytest.mark.parametrize("D", [8, 48, 128, 136, 256])
 def test_train_plan_raises_for_a_head_dim_without_a_kernel(D):
     """Head dims up to 128 run (8 and 48 zero-padded to the 16 and 64
-    instances) and fit an sm_90 block; past 128 the plan raises
-    ``TypeError``."""
+    instances) and fit an sm_90 block; past 128 the plan is the wide
+    kernels' (csrc/attention_wide.cu) at the next multiple of 128: the
+    forward on the serving wide plan, the backward's dk/dv CTAs per
+    (64 keys, kv-head, column group) and dq CTAs per (64 rows, q-head,
+    column group), all in an sm_90 block."""
     if D > 128:
-        with pytest.raises(TypeError):
-            tat._train_plan(345, 20, 4, D, 28, SMS)
+        plan = tat._train_plan(345, 20, 4, D, 28, SMS)
+        assert isinstance(plan, tat.WideTrainPlan) and plan.D == 256
+        assert plan.fwd.dp == 256 and plan.groups == 2 and plan.G == 5
+        assert plan.dkdv_grid == (6, 8) and plan.dq_grid == (6, 40)
+        assert max(plan.smem, plan.fwd.smem) <= SMEM_SM90
         return
     plan = tat._train_plan(345, 20, 4, D, 28, SMS)
     padded = next(p for p in (16, 32, 64, 128) if D <= p)

@@ -70,10 +70,13 @@ from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
                                          matmul_fused_plain,
                                          matmul_prequant_plain, mlp_plain,
                                          quantize_rows)
-from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+from jatsr_torch.ops.prologue import (_prologue_plain,
+                                      int8_norm_mod_dense_gelu_quant,
                                       int8_norm_mod_dot,
                                       norm_mod_dense_gelu_quant_plain,
-                                      norm_mod_dot_plain)
+                                      norm_mod_dot_plain, s8_dot,
+                                      s8_dot_plain, s8_gelu_quant,
+                                      s8_gelu_quant_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -163,7 +166,8 @@ def _assert_bf16_rows(got, want):
 
 
 SHAPES = pytest.mark.parametrize("B,Np,H,N", [(6, 352, 1280, 1792),
-                                              (3, 40, 128, 256)])
+                                              (3, 40, 128, 256),
+                                              (2, 37, 1280, 1792)])
 ROWS = pytest.mark.parametrize("rows", ["per_sample", "shared"])
 
 
@@ -173,22 +177,45 @@ ROWS = pytest.mark.parametrize("rows", ["per_sample", "shared"])
 def test_norm_mod_dot_kernel_matches_plain(card, B, Np, H, N, rows, norm):
     args = _prologue_inputs(card, B, Np, H, N, rows, seed=7)
     n0 = int8_norm_mod_dot.launches
-    got = int8_norm_mod_dot(*args, norm=norm)
+    got = int8_norm_mod_dot(*args, norm=norm, w_t=args[3].t().contiguous())
     assert int8_norm_mod_dot.launches == n0 + 1
     _assert_bf16_rows(got, norm_mod_dot_plain(*args, norm=norm))
 
 
-@pytest.mark.parametrize("B,Np,H", [(6, 352, 1280), (3, 40, 128)])
+@pytest.mark.parametrize("B,Np,H", [(6, 352, 1280), (3, 40, 128),
+                                    (2, 37, 1280)])
 @ROWS
 def test_norm_mod_dense_gelu_quant_kernel_matches_plain(card, B, Np, H, rows):
     args = _prologue_inputs(card, B, Np, H, 4 * H, rows, seed=8)
     n0 = int8_norm_mod_dense_gelu_quant.launches
-    got_q, got_s = int8_norm_mod_dense_gelu_quant(*args, norm="rms")
+    got_q, got_s = int8_norm_mod_dense_gelu_quant(
+        *args, norm="rms", w_t=args[3].t().contiguous())
     assert int8_norm_mod_dense_gelu_quant.launches == n0 + 1
     want_q, want_s = norm_mod_dense_gelu_quant_plain(*args, norm="rms")
     _assert_codes((got_q.reshape(B * Np, -1), got_s.reshape(-1, 1)),
                   (want_q.reshape(B * Np, -1), want_s.reshape(-1, 1)),
                   scale_rtol=2e-3)
+
+
+@pytest.mark.parametrize("gelu_impl", ["tanh", "erf", "sigmoid"])
+@pytest.mark.parametrize("B,Np,H,N", [(6, 352, 1280, 1792),
+                                      (2, 37, 1280, 1792), (3, 40, 128, 256)])
+def test_prologue_gemms_are_bit_equal_to_the_plain_epilogue(card, B, Np, H, N,
+                                                            gelu_impl):
+    """B3's and B1's s8 wgmma GEMMs alone (``s8_dot``, ``s8_gelu_quant``:
+    the prologue skipped) on the plain prologue's codes and scales: B3's
+    bf16 outputs, B1's codes and row scales bit-equal to the plain
+    epilogue's (an exact int32 product, then the same fp32 operations in
+    the same order; B1's GELU at N = 4 H), at M = 2112, 74 and 120."""
+    x, sc, sh, w_q, w_s, b = _prologue_inputs(card, B, Np, H, N, "per_sample",
+                                              seed=11)
+    a_q, s = _prologue_plain(x, sc, sh, "layer")
+    assert torch.equal(s8_dot(a_q, s, w_q.t().contiguous(), w_s, b),
+                       s8_dot_plain(a_q, s, w_q, w_s, b))
+    _, w_q, w_s, b = _dense_inputs(card, 1, H, 4 * H, seed=12)
+    got = s8_gelu_quant(a_q, s, w_q.t().contiguous(), w_s, b, gelu_impl)
+    want = s8_gelu_quant_plain(a_q, s, w_q, w_s, b, gelu_impl)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("M,K,N", [(2112, 1280, 1280), (100, 256, 384)])
@@ -1003,5 +1030,52 @@ def test_attention_train_is_deterministic_at_head_dim_128(card):
     assert torch.equal(o, o2) and torch.equal(stats, stats2)
     a = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
     b = at.attention_train_bwd(q, k, v, o, do, 5, 4, 2, 0.1, stats)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# ---- head dims past 128 ------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,hq,hkv", [(6, 345, 20, 4), (2, 45, 4, 2),
+                                         (2, 130, 4, 4)])
+@pytest.mark.parametrize("D", [136, 256])
+def test_serving_attention_kernels_at_head_dims_136_and_256(card, D, B, N, hq,
+                                                            hkv):
+    """B2, B11, B12, B15 and B16 with head dim 136 (zero-padded to 256) and
+    256: csrc/attention_wide.cu, two output column groups, the scores over
+    two depth chunks; at v3's heads (20/4) and N = 345, at tiny's (4/2) and
+    N = 45, and without grouping (4/4) at N = 130 (past a 128-key chunk and
+    two 64-row tiles); keys masked past N - 5 for B2 and B12, whose out
+    projection is 1280 wide; B15 bit-equal to B16."""
+    _serving_attention_cases(card, B, N, hq, hkv, D, N - 5, 1280,
+                             seed=90 + D + N)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -123456789)])
+@pytest.mark.parametrize("N,hq,hkv", [(345, 20, 4), (45, 4, 2), (130, 4, 4)])
+@pytest.mark.parametrize("D", [136, 256])
+def test_attention_train_kernels_at_head_dims_136_and_256(card, D, N, hq, hkv,
+                                                          rate, seed):
+    """B10 forward and backward at head dim 136 (zero-padded) and 256, at
+    v3's heads (20/4) and N = 345, tiny's (4/2) and N = 45, and 4/4 at N =
+    130, against their plain versions (the tolerances of
+    ``test_attention_train_kernels_match_plain``)."""
+    q, k, v, do = _attn_train_inputs(card, 2, N, hq, hkv, 90 + D + N, D)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    _assert_grads(grads, at.attention_train_bwd_plain(
+        q, k, v, o, do, seed, hq, hkv, rate), q, k, v, do, hq, hkv, rate)
+
+
+def test_attention_train_is_deterministic_at_head_dim_256(card):
+    """Two runs of B10's forward and backward bit-equal at head dim 256."""
+    q, k, v, do = _attn_train_inputs(card, 2, 345, 20, 4, 91, 256)
+    o, stats = at.attention_train_fwd(q, k, v, 5, 20, 4, 0.1)
+    o2, stats2 = at.attention_train_fwd(q, k, v, 5, 20, 4, 0.1)
+    assert torch.equal(o, o2) and torch.equal(stats, stats2)
+    a = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
+    b = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
     for x, y in zip(a, b):
         assert torch.equal(x, y)

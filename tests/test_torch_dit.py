@@ -157,6 +157,34 @@ def test_prologue_dit_hoisted_adaln_matches_jax(norm, monkeypatch):
     _assert_close(got.numpy(), np.asarray(want))
 
 
+def test_kmajor_kernels_are_the_transposed_jax_kernels(monkeypatch):
+    """The serving DiT keeps the qkv and mlp_in int8 kernels a second time
+    K-major (``[N, H]``, contiguous), made once where it registers its
+    quantized buffers: the s8 ``wgmma`` GEMM of the fused-prologue kernels
+    reads 8-bit operands K-major only.  In a model built from the JAX
+    package's quantized parameters they equal ``kernel_q.t()``, stay out of
+    the state dict, and are what the fused prologue passes as ``w_t``."""
+    from jatsr_torch.models.dit import DiT
+
+    _, jparams, _, _ = build_pair("layer", seed=10, **PROLOGUE)
+    cfg = narrow_cfg(get_preset, "layer", **PROLOGUE)
+    model = DiT(cfg, to_numpy_tree(jparams), device="cpu")
+    for blk in model.blocks:
+        for t, w in ((blk.attn.qkv_kernel_t, blk.attn.qkv_proj.kernel_q),
+                     (blk.mlp_in_kernel_t, blk.mlp_in.kernel_q)):
+            assert t.dtype == torch.int8 and t.is_contiguous()
+            assert torch.equal(t, w.t())
+    assert not [k for k in model.state_dict() if k.endswith("kernel_t")]
+    qkv = Spy(monkeypatch, "int8_norm_mod_dot")
+    mlp = Spy(monkeypatch, "int8_norm_mod_dense_gelu_quant")
+    x_t, t, x_c = _inputs(seed=11)
+    model(torch.from_numpy(x_t), torch.from_numpy(t), torch.from_numpy(x_c))
+    assert [kw["w_t"] for _, kw in qkv.calls] == [
+        b.attn.qkv_kernel_t for b in model.blocks]
+    assert [kw["w_t"] for _, kw in mlp.calls] == [
+        b.mlp_in_kernel_t for b in model.blocks]
+
+
 def test_prologue_without_align_n_takes_the_unfused_branch(monkeypatch):
     """fused_prologue on, align_n off: 33 patches have no 8-aligned row
     block, so JAX silently takes the unfused branch, and so does the port."""

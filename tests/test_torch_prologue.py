@@ -29,10 +29,14 @@ import torch
 
 from jatsr_tpu.ops import int8_matmul as jax_mm
 from jatsr_torch.ops.int8_matmul import int8_matmul_fused, matmul_fused_plain
-from jatsr_torch.ops.prologue import (_pick_bn_rows,
+from jatsr_torch.ops.prologue import (_pick_bn_rows, _prologue_plain,
                                       int8_norm_mod_dense_gelu_quant,
                                       int8_norm_mod_dot, norm_mod,
-                                      norm_mod_dot_supported)
+                                      norm_mod_dense_gelu_quant_plain,
+                                      norm_mod_dot_plain,
+                                      norm_mod_dot_supported, s8_dot,
+                                      s8_dot_plain, s8_gelu_quant,
+                                      s8_gelu_quant_plain)
 from jatsr_torch.ops.quant import round_to_bf16, w8a8_dot
 
 from test_torch_int8_matmul import assert_codes_close
@@ -201,3 +205,46 @@ def test_wrappers_run_the_plain_version_on_cpu_and_check_shapes():
     with pytest.raises(ValueError, match="gelu_impl"):
         int8_norm_mod_dense_gelu_quant(x, sc, sh, w_q, w_s, b,
                                        gelu_impl="relu")
+
+
+def test_wrappers_take_the_kmajor_weight():
+    """``w_t``, the weight K-major (``w_q.t()`` contiguous, ``[N, H]``),
+    is what the card's s8 wgmma GEMM reads; on the CPU the plain versions
+    read ``w_q`` and only check ``w_t``'s shape and type: the same outputs
+    with it as without.  A ``w_t`` that is not ``w_q``'s transpose in shape,
+    type or layout raises."""
+    x, sc, sh, w_q, w_s, b = (torch.from_numpy(a) for a in _inputs(17))
+    x = x.bfloat16()
+    w_t = w_q.t().contiguous()
+    for fn in (int8_norm_mod_dot, int8_norm_mod_dense_gelu_quant):
+        got, want = fn(x, sc, sh, w_q, w_s, b, w_t=w_t), \
+            fn(x, sc, sh, w_q, w_s, b)
+        for g, w in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+        for bad in (w_q, w_q.t(), w_t.float(), w_t[:, :64]):
+            with pytest.raises(ValueError, match="w_t"):
+                fn(x, sc, sh, w_q, w_s, b, w_t=bad)
+
+
+def test_plain_gemm_epilogues_compose_the_plain_kernels():
+    """The card's GEMM entries without the prologue (``s8_dot``,
+    ``s8_gelu_quant``) are held on the card against ``s8_dot_plain`` and
+    ``s8_gelu_quant_plain``; on the plain prologue's codes and scales those
+    give exactly the whole kernels' plain versions, and the entries take
+    only tensors on the card."""
+    x, sc, sh, w_q, w_s, b = (torch.from_numpy(a) for a in _inputs(18))
+    x = x.bfloat16()
+    a_q, s = _prologue_plain(x, sc, sh, "layer")
+    torch.testing.assert_close(
+        s8_dot_plain(a_q, s, w_q, w_s, b).reshape(B, NP, N),
+        norm_mod_dot_plain(x, sc, sh, w_q, w_s, b, "layer"), atol=0, rtol=0)
+    g_q, g_s = s8_gelu_quant_plain(a_q, s, w_q, w_s, b, "erf")
+    want_q, want_s = norm_mod_dense_gelu_quant_plain(x, sc, sh, w_q, w_s, b,
+                                                     "layer", "erf")
+    assert torch.equal(g_q.reshape(B, NP, N), want_q)
+    assert torch.equal(g_s.reshape(B, NP, 1), want_s)
+    with pytest.raises(ValueError, match="a_q int8"):
+        s8_dot(a_q.float(), s, w_q.t().contiguous(), w_s, b)
+    with pytest.raises(ValueError, match="a_q int8"):
+        s8_gelu_quant(a_q, s[:3], w_q.t().contiguous(), w_s, b)
