@@ -45,9 +45,14 @@ bit-equalities at head dim 32, N = 864; B10 at head dims 32 and 256 (timed
 at 256).  B1 and B3 (norm_mod_dense_gelu_quant, norm_mod_dot) run the s8
 wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
-one against their plain versions.  B8 is the wgmma GEMM of
-``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0, and
-B6 and B9 the wgmma kernel of ``csrc/dac_res.cu``.
+one against their plain versions.  B4 (matmul_fused) runs a row-quant
+launch and the same s8 wgmma GEMM (``csrc/w8a8_fused.cu``), bit-equal to
+its plain version.  B8 is the wgmma GEMM of ``csrc/snake_tr_stream.cu``,
+checked and timed beside cuDNN at stage 0; B7 (``csrc/snake_tr.cu``) one
+wgmma launch at stages 2 and 3 and a snake pass in front of B8's kernel at
+stage 1, checked at each stage's shape and at batch 2 with an odd T, each
+stage's launches timed apart; B6 and B9 are the wgmma kernel of
+``csrc/dac_res.cu``.
 
 It checks each path's launch counts, the waveform, each full-width DiT on
 the card against the same DiT's plain path on the CPU at a small input,
@@ -726,23 +731,33 @@ def check_norm_mod_gelu(torch, norm):
 
 
 def check_matmul_fused(torch):
-    """matmul_fused (out_proj) against its plain version at [2112, 1280] x
-    [1280, 1280]: bit-equal."""
+    """matmul_fused (out_proj, B4) against its plain version at [2112, 1280]
+    x [1280, 1280], with an all-zero row (the floored scale) and a row whose
+    one large value sets its scale: bit-equal.  The kernel reads the weight
+    K-major (``w_t``), made once, as the DiT makes it."""
     from jatsr_torch.ops.int8_matmul import (int8_matmul_fused,
                                              matmul_fused_plain)
     from jatsr_torch.ops.quant import w8a8_dot
 
     M = B * NP
     a, w_q, w_s, _ = dense_inputs(torch, M, H, H, SEED + 3)
-    got = int8_matmul_fused(a, w_q, w_s)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    w_t = w_q.t().contiguous()
+    got = int8_matmul_fused(a, w_q, w_s, w_t=w_t)
     want = matmul_fused_plain(a, w_q, w_s)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
-    t = timings(int8_matmul_fused, matmul_fused_plain, w8a8_dot,
-                (a, w_q, w_s), big=(0, 1))
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("matmul_fused: not bit-equal to its plain "
+                             "version")
+    t = timings(lambda a, w_q, w_s, w_t: int8_matmul_fused(a, w_q, w_s,
+                                                           w_t=w_t),
+                lambda a, w_q, w_s, w_t: matmul_fused_plain(a, w_q, w_s),
+                lambda a, w_q, w_s, w_t: w8a8_dot(a, w_q, w_s),
+                (a, w_q, w_s, w_t), big=(0, 1, 3))
     b_ms, b_by = bound(nbytes_of(a, w_q, w_s, got), 2 * M * H * H, PEAK_INT8)
     return {"name": "matmul_fused", "route": "cuda",
-            "source": "jatsr_torch/ops/csrc/matmul_fused.cu",
+            "source": "jatsr_torch/ops/csrc/w8a8_fused.cu",
             "replaces": "ops/int8_matmul.py:103 (JAX package, "
                         "int8_matmul_fused; pallas_call :151)",
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
@@ -1016,20 +1031,34 @@ def check_res(torch, B, T, C, dils):
     return {"shape": [B, T, C], "dilations": list(dils), **r}
 
 
-def check_transpose(torch, ci, co, s, T):
-    """B7 (Cin in the resident table) or B8 (stage 0) at [1, T, Cin]."""
-    import torch.nn.functional as F
+ODD_T = 1001  # B7 beside the path's shapes: batch 2, an odd T
 
-    from jatsr_torch.ops import dac_kernels as dk
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + ci)
-    x = torch.randn((1, T, ci), generator=gen, device="cuda")
+def transpose_inputs(torch, Bn, T, ci, co, s, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((Bn, T, ci), generator=gen, device="cuda")
     w = ((torch.rand((2 * s, ci, co), generator=gen, device="cuda") * 2 - 1)
          * (2 * s * ci) ** -0.5).bfloat16()
     b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
     a = torch.rand((ci,), generator=gen, device="cuda") + 0.5
+    return x, w, b, a
+
+
+def check_transpose(torch, ci, co, s, T):
+    """B7 (Cin in the resident table) or B8 (stage 0) at [1, T, Cin], the
+    path's shape; B7 also at batch 2 and T = ``ODD_T``.  Timed apart: B8's
+    kernel alone on the input its wrapper has snaked, and stage 1's two
+    launches (B7's snake pass, then B8's kernel); B7 at stages 2 and 3 is
+    one launch."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops import _build
+    from jatsr_torch.ops import dac_kernels as dk
+
+    x, w, b, a = transpose_inputs(torch, 1, T, ci, co, s, SEED + ci)
     kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
-    entry = (dk.snake_conv_transpose_fused if ci in dk._TBLK_TR
+    fused = ci in dk._TBLK_TR
+    entry = (dk.snake_conv_transpose_fused if fused
              else dk.snake_conv_transpose_streamed)
     wt, bt = w.permute(1, 2, 0).contiguous(), b.bfloat16()
 
@@ -1038,14 +1067,28 @@ def check_transpose(torch, ci, co, s, T):
                                   **kw).transpose(1, 2)
 
     m_out = (T - 1) * s - 2 * kw["padding"] + 2 * s + s % 2
-    gemm = {}
-    if entry is dk.snake_conv_transpose_streamed:
-        # B8's kernel alone, on the input its wrapper has snaked.
+    split = {}
+    if not fused or ci > dk._TR_MAX_CIN:
+        # B8's kernel alone, on the input snaked before it.
         y = [dk.snake_b16(x, a) for _ in range(rotations(x.nbytes // 2))]
-        gemm["gemm_ms"] = time_ms(
+        split["gemm_ms"] = time_ms(
             lambda y: dk._launch_stream(y, w, b, s, kw["padding"],
                                         kw["output_padding"]),
             [(t,) for t in y], 20)
+        del y
+    if fused and ci > dk._TR_MAX_CIN:
+        # Stage 1's snake pass alone.
+        lib, plan = dk._tr_lib(), dk._tr_plan(1, T, ci, co, s,
+                                               dk._sm_count(0))
+        y = torch.empty((1, T, ci), dtype=torch.bfloat16, device="cuda")
+
+        def snake(x):
+            _build.check(lib, lib.snake_b16(
+                x.data_ptr(), a.data_ptr(), y.data_ptr(), x.numel(), ci,
+                plan.snake_blocks, _build.stream_ptr(x.device)), "snake_b16")
+
+        split["snake_ms"] = time_ms(
+            snake, [(x.clone(),) for _ in range(rotations(x.nbytes))], 20)
         del y
     r = dac_check(torch, f"transpose {ci}->{co} s{s} T {T}",
                   lambda x, *_: entry(x, w, b, a, **kw),
@@ -1054,7 +1097,21 @@ def check_transpose(torch, ci, co, s, T):
                   library, (x, wt, bt), big=(0,),
                   nbytes=x.nbytes + nbytes_of(w, b, a) + m_out * co * 4,
                   ops=4 * ci * co * m_out, rel=REL_TRANSPOSE)
-    return {"shape": [1, T, ci, co], "stride": s, **r, **gemm}
+    if fused:
+        xo, wo, bo, ao = transpose_inputs(torch, 2, ODD_T, ci, co, s,
+                                          SEED + ci + 1)
+        got = entry(xo, wo, bo, ao, **kw)
+        want = dk.snake_conv_transpose_plain(xo, wo, bo, ao, **kw)
+        torch.cuda.synchronize()
+        err, scale = ((got - want).abs().max().item(),
+                      want.abs().max().item())
+        if not bool(torch.isfinite(got).all()) or err > REL_TRANSPOSE * scale:
+            raise AssertionError(f"transpose {ci}->{co} s{s} [2, {ODD_T}]: "
+                                 f"max abs error {err} > {REL_TRANSPOSE} x "
+                                 f"max |plain| {scale}")
+        split[f"batch_2_t_{ODD_T}"] = {"max_abs_err": err,
+                                       "max_abs_plain": scale}
+    return {"shape": [1, T, ci, co], "stride": s, **r, **split}
 
 
 def check_dac_kernels(torch):
@@ -1725,7 +1782,8 @@ def main() -> int:
         raise AssertionError("TF32 must be off")
 
     # 2. Build.
-    sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "matmul_fused",
+    sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "w8a8_fused",
+               "matmul_fused",
                "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
                "attention_train", "attention_deferred", "attention_natural",
                "attention_wide")

@@ -245,10 +245,18 @@ class GQAttention(nn.Module):
             self.register_buffer(name, torch.zeros_like(
                 proj.kernel_scale[0]) if b is None else b.float())
         # The fused-prologue qkv kernel's s8 wgmma GEMM reads the weight
-        # K-major, [N, H]: made once here, not on every call.
+        # K-major, [N, H]: made once here, not on every call.  So does the
+        # fused out-projection kernel the fused prologue runs behind the
+        # attention (out_proj's own copy where it keeps one).
         self.register_buffer("qkv_kernel_t",
                              self.qkv_proj.kernel_q.t().contiguous(),
                              persistent=False)
+        out_t = None
+        if cfg.fused_prologue and not cfg.attention_bias:
+            out_t = self.out_proj.kernel_t
+            if out_t is None:
+                out_t = self.out_proj.kernel_q.t().contiguous()
+        self.register_buffer("out_kernel_t", out_t, persistent=False)
 
     def forward(self, x, cos, sin, n_valid=0, prenorm=None):
         """``prenorm=(scale, shift)``, fp32 ``[B or 1, H]`` AdaLN rows,
@@ -276,9 +284,9 @@ class GQAttention(nn.Module):
                                           n_valid=n_valid)
             if prenorm is not None and not cfg.attention_bias:
                 o = self.out_proj
-                return int8_matmul_fused(out.reshape(B * N, hq * D),
-                                         o.kernel_q,
-                                         o.kernel_scale).reshape(B, N, -1)
+                return int8_matmul_fused(
+                    out.reshape(B * N, hq * D), o.kernel_q, o.kernel_scale,
+                    w_t=self.out_kernel_t).reshape(B, N, -1)
             return self.out_proj(out)
         # The split q/k/v: the JAX model's apply_rope in the compute dtype
         # (the tables cast first), then the attention of its branch.

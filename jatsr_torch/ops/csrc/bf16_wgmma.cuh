@@ -1,8 +1,8 @@
 // The bf16 GEMM core for Hopper: wgmma.mma_async with fp32 accumulators in
 // registers, fed by TMA through a ring of shared-memory stages.  Its
-// consumers are snake_tr_stream.cu (B8, wg_gemm_tile at BN = 192) and
-// dac_res.cu (B6 and B9, their own loop on these primitives at BN = 96 or
-// 192); B7 still runs bf16_gemm.cuh's mma.sync tile.  Each csrc/*.cu that
+// consumers are snake_tr_stream.cu (B8, wg_gemm_tile at BN = 192),
+// dac_res.cu (B6 and B9) and snake_tr.cu (B7), the last two with their own
+// loops on these primitives at BN = 96 or 192.  Each csrc/*.cu that
 // includes this file is built into its own shared library, so everything
 // here lives in an anonymous namespace.
 //

@@ -27,7 +27,7 @@
 // 0 <= m < m_out and t <= T: no flat buffer, no slice.  Grid: (row tiles x
 // column tiles, phase, batch), the column tiles of one row tile adjacent so
 // that they share A in L2.  At stage 0: 23 x 4 x 8 = 736 CTAs, 5.6 waves of
-// 132.  Sum order is the only change from bf16_gemm.cuh's mma.sync tile.
+// 132.  Sum order is the only change from the mma.sync tile it replaced.
 // Needs Cin % 64 == 0 (a k-block never straddles the taps; B8's gate takes
 // Cin % 128 == 0) and Cout % 8 == 0 (16-byte rows for the tensor map).
 

@@ -15,9 +15,10 @@ Ports of the JAX package's ``ops/dac_kernels.py`` (its B6-B9):
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the hand-written kernel
-(``csrc/dac_res.cu`` for B6 and B9, ``csrc/snake_tr.cu`` for B7,
-``csrc/snake_tr_stream.cu``, a wgmma GEMM, for B8) or raises.  Nothing
-falls back.
+(``csrc/dac_res.cu`` for B6 and B9, ``csrc/snake_tr.cu`` for B7: at Cin
+<= 384 one wgmma kernel that snakes each row once into shared memory, at
+Cin 768 a snake pass in front of B8's kernel; ``csrc/snake_tr_stream.cu``,
+a wgmma GEMM, for B8) or raises.  Nothing falls back.
 
 Rounding points, as the TPU kernels have them: snake in fp32, then bf16
 (:func:`snake_b16`); bf16 x bf16 products summed in fp32; biases and the
@@ -307,7 +308,8 @@ def snake_conv_transpose_fused(x, w, b, alpha, *, stride: int, padding: int,
                                output_padding: int = 0):
     """snake(x) -> conv_transpose in one kernel (B7); Cin outside
     ``_TBLK_TR`` goes to :func:`snake_conv_transpose_streamed` (B8), as in
-    the JAX package.
+    the JAX package.  On the card a call is one launch of csrc/snake_tr.cu
+    at Cin <= 384 and two at Cin 768 (``_tr_plan``), counted once.
 
     Args:
         x: [B, T, Cin] fp32 (or [T, Cin]).
@@ -372,29 +374,50 @@ def _transpose_shapes(x, w, s, pad, op, what):
 
 
 def _launch_tr(x, alpha, w, b, s, pad, op, what):
-    """B7: fp32 x, snaked inside (csrc/snake_tr.cu)."""
+    """B7: fp32 x, snaked inside (csrc/snake_tr.cu).  At Cin <= 384 one
+    launch of ``snake_tr_rows``; at Cin 768 the snake pass, then B8's
+    polyphase GEMM (csrc/snake_tr_stream.cu), as ``_tr_plan`` says."""
     from . import _build
 
     if x.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes fp32, got {x.dtype}")
     B, T, ci, co, m_out = _transpose_shapes(x, w, s, pad, op, what)
-    lib = _build.load("snake_tr")
-    fn = lib.snake_conv_transpose
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
     dev = x.device
+    plan = _tr_plan(B, T, ci, co, s, _sm_count(dev.index))
+    lib = _tr_lib()
     x = _build.aligned(x)
-    wb = _build.aligned(w.to(torch.bfloat16))
-    bias = b.float().contiguous()
     a = alpha.float().contiguous()
-    y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev)
+    if plan.route == "stream":
+        y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev)
+        err = lib.snake_b16(x.data_ptr(), a.data_ptr(), y.data_ptr(), x.numel(),
+                            ci, plan.snake_blocks, _build.stream_ptr(dev))
+        _build.check(lib, err, what)
+        return _launch_stream(y, w, b, s, pad, op)
+    wb = _build.aligned(w.to(torch.bfloat16))
+    bias = _build.aligned(b.float())
     out = torch.empty((B, m_out, co), dtype=torch.float32, device=dev)
-    err = fn(x.data_ptr(), a.data_ptr(), y.data_ptr(), wb.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), B, T, ci, co, s, pad, m_out,
-             _build.stream_ptr(dev))
+    err = lib.snake_conv_transpose_rows(
+        x.data_ptr(), a.data_ptr(), wb.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, T, ci, co, s, pad, m_out, plan.bn, plan.threads,
+        plan.stages, plan.xbufs, plan.xc, plan.grid, plan.smem,
+        _build.stream_ptr(dev))
     _build.check(lib, err, what)
     return out
+
+
+@functools.cache
+def _tr_lib():
+    """csrc/snake_tr.cu's library, its entry points' C types set."""
+    from . import _build
+
+    lib = _build.load("snake_tr")
+    lib.snake_conv_transpose_rows.restype = ctypes.c_int
+    lib.snake_conv_transpose_rows.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+    lib.snake_b16.restype = ctypes.c_int
+    lib.snake_b16.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return lib
 
 
 # ---- the wgmma kernels' launch plans (csrc/bf16_wgmma.cuh's core) ----------
@@ -460,6 +483,92 @@ def _res_plan(B: int, T: int, C: int, units: int, sms: int) -> ResPlan:
     tiles = B * -(-T // _WG_BM)
     return ResPlan(bn, -(-C // bn), kc, tiles, stages, stage, h_bytes, smem,
                    per_sm, min(tiles, per_sm * sms))
+
+
+# ---- B7's launch plan (csrc/snake_tr.cu) ------------------------------------
+
+_TR_TB = 128                    # rows t a tile
+_TR_ROWS = _TR_TB + 1           # x and y rows a tile: the halo t0 - 1, then t0 ..
+_TR_STRIP = 130 * 16            # bytes between y's 8-channel strips
+_TR_MAX_STAGES = 6              # the weight ring at most
+_TR_MAX_CIN = 384               # y of a tile in shared memory: 8 strips a 64 channels
+
+
+@dataclasses.dataclass(frozen=True)
+class TrPlan:
+    """The launch of csrc/snake_tr.cu (B7) at one shape.
+
+    ``route`` "rows" (Cin <= 384): one launch of ``snake_tr_rows``, a
+    persistent grid of ``grid`` CTAs of ``threads`` threads (a producer
+    warp, ``threads / 32 - 9`` snake warps, two consumer warpgroups) walking
+    the ``tiles`` tiles of ``_TR_TB`` rows t of ``[0, T]`` (``mtiles`` a
+    batch element; CTA c the tiles c, c + grid, ..).  A tile reads x rows
+    ``t0 - 1 .. t0 + 127`` (``_TR_ROWS``; tap 0 reads y slot ``r + 1``, tap
+    1 slot ``r`` for tile row r) in chunks of ``xc`` channels through
+    ``xbufs`` staging buffers, keeps y (``y_bytes``) and runs every phase and every
+    column tile of ``bn`` (``ntiles`` of them) over ``2 * kc`` k-blocks of
+    64 through a ring of ``stages`` weight stages of ``stage_bytes``;
+    ``smem`` bytes of dynamic shared memory.  ``route`` "stream" (Cin past
+    384): the snake pass on ``snake_blocks`` blocks, then B8's kernel on
+    ``stream``."""
+
+    route: str
+    bn: int = 0
+    ntiles: int = 0
+    kc: int = 0
+    mtiles: int = 0
+    tiles: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+    xbufs: int = 0
+    xc: int = 0
+    y_bytes: int = 0
+    threads: int = 0
+    smem: int = 0
+    grid: int = 0
+    snake_blocks: int = 0
+    stream: "StreamPlan | None" = None
+
+
+@functools.cache
+def _tr_plan(B: int, T: int, Cin: int, Cout: int, s: int, sms: int) -> TrPlan:
+    """B7's launch plan on a card of ``sms`` SMs.  Raises ``ValueError``
+    where Cin is not a multiple of 64 (a k-block of 64 channels, two x
+    chunks of 32) or Cout not of 8."""
+    if Cin % 64 or Cout % 8 or T < 1 or B < 1 or s < 1:
+        raise ValueError(f"snake_conv_transpose_fused kernel: Cin {Cin} must "
+                         f"be a multiple of 64, Cout {Cout} of 8")
+    if Cin > _TR_MAX_CIN:
+        return TrPlan("stream", snake_blocks=min(-(-B * T * Cin // 2048),
+                                                 8 * sms),
+                      stream=_stream_plan(B, T, Cin, Cout, s))
+    bn = 96 if Cout <= 96 else _WG_BN
+    ntiles = -(-Cout // bn)
+    kc = Cin // _WG_BK
+    stage = -(-bn // 64) * _WG_B_BOX
+    y_bytes = Cin // 8 * _TR_STRIP
+    tables = (2 * Cin + ntiles * bn) * 4
+    # Two x chunks in flight: 64 channels wide beside 96-column tiles (13 %
+    # faster than 32 at stage 3; more chunks in flight did not help:
+    # PERF.md), 32 beside 192-column tiles, where a wider pair would leave
+    # room for two weight stages only.  Then as many stages as fit.
+    threads, xc, xbufs = (512, 64, 2) if bn == 96 else (384, 32, 2)
+    bars = 8 * (2 * _TR_MAX_STAGES + xbufs + 2 * kc + 1)
+    fixed = 1024 + xbufs * tr_xbytes(xc) + y_bytes + bars + tables
+    stages = min(_TR_MAX_STAGES, (_SMEM_SM90 - fixed) // stage)
+    nbar = 2 * stages + xbufs + 2 * kc
+    smem = (1024 + stages * stage + xbufs * tr_xbytes(xc) + y_bytes
+            + 8 * (nbar + nbar % 2) + tables)
+    mtiles = -(-(T + 1) // _TR_TB)
+    tiles = B * mtiles
+    return TrPlan("rows", bn, ntiles, kc, mtiles, tiles, stages, stage, xbufs,
+                  xc, y_bytes, threads, smem, min(tiles, sms))
+
+
+def tr_xbytes(xc: int) -> int:
+    """Bytes of one fp32 x chunk of B7's kernel: ``_TR_ROWS`` rows of
+    ``xc`` channels."""
+    return _TR_ROWS * xc * 4
 
 
 # ---- B8's launch plan (csrc/snake_tr_stream.cu) ------------------------------

@@ -5,8 +5,9 @@ Ports of ``int8_dense_gelu_quant``, ``int8_matmul_fused``, ``int8_matmul``
 and ``int8_mlp`` (JAX package, ``ops/int8_matmul.py``).  Each wrapper
 dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the hand-written kernel in
-``csrc/dense_gelu_quant.cu``, ``csrc/matmul_fused.cu`` (the fused dot and
-``matmul_prequant``) or ``csrc/mlp_full.cu``, or raises.  Nothing falls
+``csrc/dense_gelu_quant.cu``, ``csrc/w8a8_fused.cu`` (the fused dot, on
+the s8 ``wgmma`` GEMM of ``csrc/s8_wgmma.cuh``), ``csrc/matmul_fused.cu``
+(``matmul_prequant``) or ``csrc/mlp_full.cu``, or raises.  Nothing falls
 back.
 """
 
@@ -170,37 +171,59 @@ def matmul_fused_plain(a, w_q, w_scale):
     return (acc * s * w_scale.reshape(1, -1)).to(torch.bfloat16)
 
 
-def int8_matmul_fused(a, w_q, w_scale):
+def check_t(what, w_q, w_t):
+    """``w_t`` is ``w_q`` K-major: ``[N, K]`` int8, contiguous (the copy
+    the s8 ``wgmma`` GEMMs read, made once by the caller)."""
+    if w_t is not None and (w_t.shape != w_q.shape[::-1]
+                            or w_t.dtype != torch.int8
+                            or not w_t.is_contiguous()):
+        raise ValueError(f"{what}: w_t must be w_q.t() contiguous, int8 "
+                         f"{tuple(w_q.shape[::-1])}, got {tuple(w_t.shape)} "
+                         f"{w_t.dtype}")
+
+
+def int8_matmul_fused(a, w_q, w_scale, *, w_t=None):
     """W8A8 product with the per-row quantisation of ``a`` inside the
     kernel (the serving out_proj).
 
     Args:
         a: [M, K] bf16 activations (unquantised).
         w_q: [K, N] int8 kernel; w_scale: [1, N] fp32.
+        w_t: [N, K] int8, ``w_q.t()`` contiguous: the K-major copy the
+            card's kernel reads (``wgmma`` takes 8-bit operands K-major
+            only); needed on the card, made once by the caller.  The plain
+            version checks its shape and reads ``w_q``.
     Returns:
         [M, N] bf16.
     """
     M = a.shape[0]
     K, N = check_weights("matmul_fused", a.shape[1], w_q, w_scale)
+    check_t("matmul_fused", w_q, w_t)
     if a.device.type == "cpu":
         return matmul_fused_plain(a, w_q, w_scale)
     from . import _build
 
     if a.dtype != torch.bfloat16:
         raise TypeError(f"matmul_fused kernel takes bf16, got {a.dtype}")
-    lib = _build.load("matmul_fused")
-    fn = lib.matmul_fused
+    if w_t is None:
+        raise ValueError("matmul_fused: the card's kernel reads the weight "
+                         "K-major: pass w_t = w_q.t().contiguous(), made once")
+    if K < 128:
+        raise ValueError(f"matmul_fused: the s8 wgmma GEMM needs K >= 128, "
+                         f"got {K}")
+    lib = _build.load("w8a8_fused")
+    fn = lib.w8a8_fused
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     dev = a.device
     a = _build.aligned(a)
-    w_q = _build.aligned(w_q)
+    w_t = _build.aligned(w_t)
     ws = w_scale.reshape(N).float().contiguous()
     a_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    err = fn(a.data_ptr(), w_q.data_ptr(), ws.data_ptr(), a_q.data_ptr(),
+    err = fn(a.data_ptr(), w_t.data_ptr(), ws.data_ptr(), a_q.data_ptr(),
              s.data_ptr(), out.data_ptr(), M, K, N, _build.stream_ptr(dev))
     _build.check(lib, err, "matmul_fused")
     int8_matmul_fused.launches += 1

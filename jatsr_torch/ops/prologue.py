@@ -23,8 +23,8 @@ import ctypes
 
 import torch
 
-from .int8_matmul import (_INV127, GELU_IMPLS, _gelu, check_weights,
-                          int8_mm)
+from .int8_matmul import (_INV127, GELU_IMPLS, _gelu, check_t,
+                          check_weights, int8_mm)
 
 NORMS = ("rms", "layer")
 
@@ -117,18 +117,8 @@ def norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale, bias,
     return g_q.reshape(B, Np, -1), gs.reshape(B, Np, 1)
 
 
-def _check_t(what, w_q, w_t):
-    """``w_t`` is ``w_q`` K-major: ``[N, H]`` int8, contiguous."""
-    if w_t is not None and (w_t.shape != w_q.shape[::-1]
-                            or w_t.dtype != torch.int8
-                            or not w_t.is_contiguous()):
-        raise ValueError(f"{what}: w_t must be w_q.t() contiguous, int8 "
-                         f"{tuple(w_q.shape[::-1])}, got {tuple(w_t.shape)} "
-                         f"{w_t.dtype}")
-
-
 def _check(what, x, scale, shift, w_q, w_scale, bias, norm, w_t=None):
-    _check_t(what, w_q, w_t)
+    check_t(what, w_q, w_t)
     if x.dim() != 3:
         raise ValueError(f"{what}: x must be [B, Np, H], got {tuple(x.shape)}")
     B, Np, H = x.shape

@@ -16,13 +16,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .int8_matmul import _INV127, int8_matmul, int8_matmul_fused, int8_mm
+from .int8_matmul import (_INV127, check_t, int8_matmul, int8_matmul_fused,
+                          int8_mm)
 
 INT8_IMPLS = ("xla", "fused", "pallas")
 
 
 def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-             impl: str = "xla") -> torch.Tensor:
+             impl: str = "xla", w_t: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """``lhs [..., K] @ (w_q * w_scale) -> [..., N]`` in lhs's dtype.
 
     The absmax is taken on lhs's own dtype (bf16 -> fp32 is exact), the
@@ -34,16 +36,19 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     rows) and lhs lies on the card; elsewhere both are this plain path,
     which the kernels equal bit for bit ("fused" floors the rescale, which
     only differs on an all-zero row, whose product is zero either way).
+    The fused kernel reads the weight K-major: ``w_t``, ``w_q.t()``
+    contiguous, made once by the caller (:class:`QuantDense` keeps it).
     """
     if impl not in INT8_IMPLS:
         raise ValueError(f"int8_impl={impl!r} not in {INT8_IMPLS}")
+    check_t("w8a8_dot", w_q, w_t)
     K, N = w_q.shape
     lead = lhs.shape[:-1]
     M = lhs.numel() // K
     kernel = (lhs.device.type == "cuda" and K % 128 == 0 and N % 128 == 0
               and M >= 32)
     if impl == "fused" and kernel:
-        out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale)
+        out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale, w_t=w_t)
         return out.reshape(*lead, N)
     a_scale = lhs.abs().amax(dim=-1, keepdim=True).float() * _INV127
     a_q = torch.round(lhs.float() / a_scale.clamp_min(1e-12)).to(torch.int8)
@@ -58,7 +63,9 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 class QuantDense(nn.Module):
     """Serving Dense with an int8 ``[K, N]`` kernel and fp32 ``[1, N]``
     per-column scales; bf16 in and out, the optional bias added in bf16.
-    ``int8_impl`` is :func:`w8a8_dot`'s ``impl``."""
+    ``int8_impl`` is :func:`w8a8_dot`'s ``impl``; with ``"fused"`` the
+    kernel is kept a second time K-major, ``kernel_t [N, K]`` (not in the
+    state dict), which the fused kernel's s8 ``wgmma`` GEMM reads."""
 
     def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
                  bias: torch.Tensor | None = None, int8_impl: str = "xla"):
@@ -67,11 +74,14 @@ class QuantDense(nn.Module):
         self.register_buffer("kernel_scale",
                              kernel_scale.float().reshape(1, -1))
         self.register_buffer("bias", bias)
+        self.register_buffer(
+            "kernel_t", self.kernel_q.t().contiguous()
+            if int8_impl == "fused" else None, persistent=False)
         self.int8_impl = int8_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = w8a8_dot(x.to(torch.bfloat16), self.kernel_q, self.kernel_scale,
-                       impl=self.int8_impl)
+                       impl=self.int8_impl, w_t=self.kernel_t)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out

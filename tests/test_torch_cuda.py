@@ -220,12 +220,19 @@ def test_prologue_gemms_are_bit_equal_to_the_plain_epilogue(card, B, Np, H, N,
 
 @pytest.mark.parametrize("M,K,N", [(2112, 1280, 1280), (100, 256, 384)])
 def test_matmul_fused_kernel_matches_plain(card, M, K, N):
+    """B4 (the row quant, then the s8 wgmma GEMM on the K-major weight) bit
+    for bit, with an all-zero row (the floored scale) and a row whose one
+    large value sets its scale; on the card it raises without ``w_t``."""
     a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=9)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
     n0 = int8_matmul_fused.launches
-    got = int8_matmul_fused(a, w_q, w_s)
+    got = int8_matmul_fused(a, w_q, w_s, w_t=w_q.t().contiguous())
     assert int8_matmul_fused.launches == n0 + 1
-    torch.testing.assert_close(got, matmul_fused_plain(a, w_q, w_s), atol=0,
-                               rtol=0)
+    want = matmul_fused_plain(a, w_q, w_s)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    with pytest.raises(ValueError, match="w_t"):
+        int8_matmul_fused(a, w_q, w_s)
 
 
 def test_w8a8_dot_fused_equals_xla_on_card(card):
@@ -237,7 +244,7 @@ def test_w8a8_dot_fused_equals_xla_on_card(card):
     a, w_q, w_s, _ = _dense_inputs(card, 2 * 352, 1280, 1280, seed=10)
     x = a.reshape(2, 352, 1280)
     n0 = int8_matmul_fused.launches
-    got = w8a8_dot(x, w_q, w_s, impl="fused")
+    got = w8a8_dot(x, w_q, w_s, impl="fused", w_t=w_q.t().contiguous())
     assert int8_matmul_fused.launches == n0 + 1
     torch.testing.assert_close(got, w8a8_dot(x, w_q, w_s, impl="xla"),
                                atol=0, rtol=0)
@@ -279,6 +286,45 @@ def test_narrow_dit_on_card_matches_cpu(card, knobs):
                                           x_c.cuda()).cpu()
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+def test_dit_out_projection_reads_its_kmajor_copy(card, monkeypatch):
+    """The fused-prologue DiT on the card hands B4 the K-major copy of
+    out_proj's kernel that it made at construction (the very tensor, no
+    copy a call), and launches B4 once a block; the weights' buffers do not
+    grow with the calls."""
+    import dataclasses
+
+    import jatsr_torch.models.dit as tdit
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
+        fused_mlp=True, attention_impl="flash", fused_prologue=True,
+        align_n=True)
+    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5)),
+                     device="cuda")
+    seen, fn = [], tdit.int8_matmul_fused
+
+    def spy(*a, **kw):
+        seen.append(kw["w_t"].data_ptr())
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(tdit, "int8_matmul_fused", spy)
+    x_t, x_c = (torch.randn((2, 130, 64), device=card) for _ in range(2))
+    t = torch.tensor([0.2, 0.9], device=card)
+    n0 = int8_matmul_fused.launches
+    model(x_t, t, x_c)
+    torch.cuda.synchronize()
+    assert int8_matmul_fused.launches - n0 == cfg.depth
+    assert seen == [b.attn.out_kernel_t.data_ptr() for b in model.blocks]
+    buffers = sum(b.numel() for b in model.buffers())
+    model(x_t, t, x_c)
+    assert sum(b.numel() for b in model.buffers()) == buffers
 
 
 @pytest.mark.parametrize("M,K,N", [(2112, 1280, 1792), (100, 256, 384)])
@@ -620,6 +666,34 @@ def test_snake_conv_transpose_kernel_matches_plain(card, B, T, ci, co, s):
     got = dk.snake_conv_transpose_fused(x, w, b, a, **kw)
     assert dk.snake_conv_transpose_fused.launches == n0 + 1
     _assert_rel(got, dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+
+
+@pytest.mark.parametrize("ci,co,s", [(768, 384, 8), (384, 192, 4),
+                                    (192, 96, 2)])
+@pytest.mark.parametrize("T", [129, 1000])
+def test_snake_conv_transpose_kernel_at_the_stage_shapes(card, ci, co, s, T):
+    """B7 at the decode's three stage widths, batch 2: T = 129 (a tile and
+    the row t = T alone, the tile boundary inside the halo) and T = 1000
+    (eight tiles, the last partial); both batch elements' first rows read
+    the zero row t = -1."""
+    x, w, b, a = _tr_inputs(card, 2, T, ci, co, s, seed=17)
+    kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+    n0 = dk.snake_conv_transpose_fused.launches
+    got = dk.snake_conv_transpose_fused(x, w, b, a, **kw)
+    assert dk.snake_conv_transpose_fused.launches == n0 + 1
+    _assert_rel(got, dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+
+
+@pytest.mark.parametrize("ci,co,s,T", [(768, 384, 8, 3000),
+                                       (384, 192, 4, 5000),
+                                       (192, 96, 2, 20000)])
+def test_snake_conv_transpose_kernel_is_deterministic(card, ci, co, s, T):
+    """Two runs of B7 give the same bits (no atomics, one sum order)."""
+    x, w, b, a = _tr_inputs(card, 1, T, ci, co, s, seed=18)
+    kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+    one = dk.snake_conv_transpose_fused(x, w, b, a, **kw)
+    two = dk.snake_conv_transpose_fused(x, w, b, a, **kw)
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
 
 
 @pytest.mark.parametrize("B,T,ci,co,s", [(2, 77, 1024, 200, 4),

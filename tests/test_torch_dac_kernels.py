@@ -351,3 +351,80 @@ def test_res_plan_fits_and_writes_each_output_once(B, T, C):
 def test_res_plan_raises_where_the_kernel_cannot_tile(C):
     with pytest.raises(ValueError):
         dk._res_plan(1, 1000, C, 3, 132)
+
+
+# ---- B7's launch plan (csrc/snake_tr.cu), on the CPU -----------------------
+# ``_tr_plan`` is pure Python.  The enumeration follows the kernel's own
+# indexing at Cin <= 384: CTA c of the persistent grid takes tiles c, c +
+# grid, ..; tile x is batch x // mtiles, rows t of ``(x % mtiles) * 128 +
+# [0, 128)``; its x box starts at row t0 - 1 and holds ``_TR_ROWS`` rows, so
+# slot j is row t0 - 1 + j (tap 0 of row t reads slot t - t0 + 1, tap 1 slot
+# t - t0); for every phase p and column tile nt the epilogue writes out[b, t
+# * s + p - pad] where t <= T and 0 <= m < m_out.  At Cin 768 the plan is
+# the snake pass and B8's plan (whose cover is tested above).
+
+_TR_STAGES = {768: (384, 8, 23_072), 384: (192, 4, 184_576),
+              192: (96, 2, 738_304)}  # Cout, stride, T of one decode segment
+
+
+@pytest.mark.parametrize("ci", [768, 384, 192])
+@pytest.mark.parametrize("B,T", [(1, None), (2, 1), (2, 127), (2, 128),
+                                 (2, 129)])
+def test_tr_plan_fits_and_writes_each_output_once(B, T, ci):
+    """The three stage shapes at one decode segment, and T = 1, 127, 128,
+    129 (no full tile, one, one and the row t = T alone, two) at batch 2:
+    the dynamic shared memory fits an sm_90 block, each output row of each
+    batch element is written once, by the tile whose x rows hold both of its
+    taps, and the column tiles cover Cout once."""
+    co, s, seg_t = _TR_STAGES[ci]
+    T = T or seg_t
+    plan = dk._tr_plan(B, T, ci, co, s, 132)
+    pad, op = (s + 1) // 2, s % 2
+    m_out = (T - 1) * s - 2 * pad + 2 * s + op
+    if ci > 384:
+        assert plan.route == "stream"
+        assert plan.stream == dk._stream_plan(B, T, ci, co, s)
+        assert 1 <= plan.snake_blocks <= 8 * 132
+        return
+    assert plan.route == "rows"
+    assert plan.smem <= 232_448 and plan.threads in (384, 512)
+    assert plan.threads // 32 - 1 - 8 >= 3       # snake warps
+    assert plan.stages >= 3 and plan.xbufs == 2 and plan.xc in (32, 64)
+    assert plan.bn == (96 if co <= 96 else 192)
+    assert plan.ntiles * plan.bn >= co > (plan.ntiles - 1) * plan.bn
+    assert plan.kc * 64 == ci and plan.y_bytes == ci // 8 * 130 * 16
+    assert plan.stage_bytes == -(-plan.bn // 64) * 64 * 64 * 2
+    nbar = 2 * plan.stages + plan.xbufs + 2 * plan.kc
+    assert plan.smem == (1024 + plan.stages * plan.stage_bytes
+                         + plan.xbufs * dk.tr_xbytes(plan.xc) + plan.y_bytes
+                         + 8 * (nbar + nbar % 2)
+                         + (2 * ci + plan.ntiles * plan.bn) * 4)
+    assert plan.mtiles * 128 >= T + 1 > (plan.mtiles - 1) * 128
+    assert plan.tiles == B * plan.mtiles
+    assert plan.grid == min(plan.tiles, 132)
+    walked = np.concatenate([np.arange(c, plan.tiles, plan.grid)
+                             for c in range(plan.grid)])
+    assert (np.bincount(walked, minlength=plan.tiles) == 1).all()
+    tile = np.arange(plan.tiles)
+    b, t0 = tile // plan.mtiles, (tile % plan.mtiles) * 128
+    t = t0[:, None] + np.arange(128)[None]
+    slot0, slot1 = t - (t0[:, None] - 1), t - 1 - (t0[:, None] - 1)
+    assert ((slot0 >= 1) & (slot0 < dk._TR_ROWS)).all()
+    assert ((slot1 >= 0) & (slot1 < dk._TR_ROWS - 1)).all()
+    count = np.zeros(B * m_out, np.int64)
+    for p in range(s):
+        m = t * s + p - pad
+        ok = (t <= T) & (m >= 0) & (m < m_out)
+        np.add.at(count, (b[:, None] * m_out + m)[ok], 1)
+    assert (count == 1).all()
+    cols = np.zeros(co, np.int64)
+    for nt in range(plan.ntiles):
+        n = nt * plan.bn + np.arange(plan.bn)
+        np.add.at(cols, n[n < co], 1)
+    assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("ci,co", [(96, 48), (200, 96), (384, 100)])
+def test_tr_plan_raises_where_the_kernel_cannot_tile(ci, co):
+    with pytest.raises(ValueError):
+        dk._tr_plan(1, 300, ci, co, 4, 132)

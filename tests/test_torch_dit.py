@@ -17,6 +17,8 @@ The AdaLN tables are one bf16 product and one bf16 add from the same fp32
 time embedding: within 2 bf16 ulps (rtol 1e-2, atol 1e-3).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,6 +185,42 @@ def test_kmajor_kernels_are_the_transposed_jax_kernels(monkeypatch):
         b.attn.qkv_kernel_t for b in model.blocks]
     assert [kw["w_t"] for _, kw in mlp.calls] == [
         b.mlp_in_kernel_t for b in model.blocks]
+
+
+def test_out_projection_keeps_its_kmajor_kernel(monkeypatch):
+    """B4, the fused out projection, reads out_proj's kernel K-major on the
+    card: the fused-prologue DiT keeps it a second time as ``out_kernel_t``
+    (``[N, K]``, equal to ``kernel_q.t()``, contiguous, not in the state
+    dict), made once at construction, and passes that very tensor to every
+    ``int8_matmul_fused`` call.  A ``QuantDense`` keeps ``kernel_t`` with
+    ``int8_impl="fused"`` only, and the DiT's copy is then out_proj's own."""
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.ops.quant import QuantDense
+
+    cfg = narrow_cfg(get_preset, "layer", **PROLOGUE)
+    params = quantize_params_static(random_dense_params(cfg, 12))
+    model = DiT(cfg, params, device="cpu")
+    for blk in model.blocks:
+        t, w = blk.attn.out_kernel_t, blk.attn.out_proj.kernel_q
+        assert t.dtype == torch.int8 and t.is_contiguous()
+        assert torch.equal(t, w.t())
+        assert blk.attn.out_proj.kernel_t is None  # int8_impl "xla"
+    assert not [k for k in model.state_dict() if k.endswith("kernel_t")]
+    out = Spy(monkeypatch, "int8_matmul_fused")
+    x_t, t, x_c = _inputs(seed=13)
+    model(torch.from_numpy(x_t), torch.from_numpy(t), torch.from_numpy(x_c))
+    assert [kw["w_t"] for _, kw in out.calls] == [
+        b.attn.out_kernel_t for b in model.blocks]
+    fused = DiT(dataclasses.replace(cfg, int8_impl="fused"), params,
+                device="cpu")
+    for blk in fused.blocks:
+        for proj in (blk.attn.qkv_proj, blk.attn.out_proj):
+            assert isinstance(proj, QuantDense)
+            assert torch.equal(proj.kernel_t, proj.kernel_q.t())
+            assert proj.kernel_t.is_contiguous()
+        assert blk.attn.out_kernel_t is blk.attn.out_proj.kernel_t
+    plain = DiT(narrow_cfg(get_preset, "layer"), params, device="cpu")
+    assert all(b.attn.out_kernel_t is None for b in plain.blocks)
 
 
 def test_prologue_without_align_n_takes_the_unfused_branch(monkeypatch):

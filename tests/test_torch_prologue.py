@@ -248,3 +248,28 @@ def test_plain_gemm_epilogues_compose_the_plain_kernels():
         s8_dot(a_q.float(), s, w_q.t().contiguous(), w_s, b)
     with pytest.raises(ValueError, match="a_q int8"):
         s8_gelu_quant(a_q, s[:3], w_q.t().contiguous(), w_s, b)
+
+
+def test_matmul_fused_takes_the_kmajor_weight():
+    """B4's wrapper checks ``w_t`` as the prologue kernels do: on the CPU
+    the plain version reads ``w_q`` (the same outputs with ``w_t`` as
+    without, through ``w8a8_dot(impl="fused")`` too), and a ``w_t`` that is
+    not ``w_q``'s transpose in shape, type or layout raises."""
+    rng = np.random.default_rng(19)
+    a = torch.from_numpy(round_to_bf16(rng.standard_normal((64, 256))))
+    a = a.bfloat16()
+    w_q = torch.from_numpy(rng.integers(-127, 128, (256, 384),
+                                        dtype=np.int8))
+    w_s = torch.from_numpy((rng.uniform(0.5, 1.5, (1, 384)) / 127).astype(
+        np.float32))
+    w_t = w_q.t().contiguous()
+    want = int8_matmul_fused(a, w_q, w_s)
+    torch.testing.assert_close(int8_matmul_fused(a, w_q, w_s, w_t=w_t), want,
+                               atol=0, rtol=0)
+    torch.testing.assert_close(w8a8_dot(a, w_q, w_s, impl="fused", w_t=w_t),
+                               want, atol=0, rtol=0)
+    for bad in (w_q, w_q.t(), w_t.float(), w_t[:, :64]):
+        with pytest.raises(ValueError, match="w_t"):
+            int8_matmul_fused(a, w_q, w_s, w_t=bad)
+        with pytest.raises(ValueError, match="w_t"):
+            w8a8_dot(a, w_q, w_s, impl="fused", w_t=bad)

@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
 """Compares the SASS of the attention kernels' instances (B2, B10, B11, B12,
-B15, B16), of the DAC upsample kernels B7 and B8, and of the kernels of
-``int8_gemm.cuh``'s users (B4, B5, B12's quant and GEMM, B13, B14) with
-another tree's kernels, on a machine with nvcc (no card needed).
+B15, B16), of the DAC kernels B8, B6 and B9 (on ``bf16_wgmma.cuh``), of B1
+and B3 (on ``s8_wgmma.cuh``) and of the kernels of ``int8_gemm.cuh``'s users
+(B5, B12's quant and GEMM, B13, B14's GEMM) with another tree's kernels, on
+a machine with nvcc (no card needed).
 
     python3 tools/torch_sass_diff.py OTHER_CSRC_DIR
 
 OTHER_CSRC_DIR is another checkout's ``jatsr_torch/ops/csrc`` (for example
 a ``git archive`` of the parent commit unpacked into a gitignored
 directory).  Both trees' ``attention_natural.cu``, ``attention_deferred.cu``,
-``attention_train.cu``, ``flash_qkv.cu``, ``snake_tr.cu``,
-``snake_tr_stream.cu``, ``matmul_fused.cu``, ``dense_gelu_quant.cu`` and
-``mlp_full.cu`` are
-compiled to cubins with the port's nvcc flags; for each kernel of the other
-tree it finds this tree's instance of the same name or, where the other
+``attention_train.cu``, ``flash_qkv.cu``, ``snake_tr_stream.cu``,
+``dac_res.cu``, ``norm_mod.cu``, ``matmul_fused.cu`` (its GEMM),
+``dense_gelu_quant.cu`` and ``mlp_full.cu`` are compiled to cubins with
+the port's nvcc flags; for each kernel of the other tree it finds this tree's instance of the same name or, where the other
 tree has no head-dim template argument, the instance with head dim 64 (the
 same kernel with ``64`` as its first template argument),
 strips addresses and encodings from ``cuobjdump -sass`` and prints the
@@ -41,13 +41,15 @@ SOURCES = {"attention_natural.cu": ("natural_kernel",),
                                   "bwd_rows_kernel"),
            "flash_qkv.cu": ("normed_kernel", "quant_rows", "gemm_",
                             "requant"),
-           "snake_tr.cu": ("",),
            "snake_tr_stream.cu": ("",),
-           "matmul_fused.cu": ("",),
+           "dac_res.cu": ("",),
+           "norm_mod.cu": ("",),
+           "matmul_fused.cu": ("gemm_",),
            "dense_gelu_quant.cu": ("",),
            "mlp_full.cu": ("",)}
-UNTEMPLATED = ("snake_tr.cu", "snake_tr_stream.cu", "matmul_fused.cu",
-               "dense_gelu_quant.cu", "mlp_full.cu")  # matched by name
+UNTEMPLATED = ("snake_tr_stream.cu", "dac_res.cu", "norm_mod.cu",
+               "matmul_fused.cu", "dense_gelu_quant.cu",
+               "mlp_full.cu")  # matched by name
 
 
 def sass(src: Path, out: Path) -> dict:
