@@ -47,8 +47,14 @@ wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
 one against their plain versions.  B4 (matmul_fused) runs a row-quant
 launch and the same s8 wgmma GEMM (``csrc/w8a8_fused.cu``), bit-equal to
-its plain version.  B8 is the wgmma GEMM of ``csrc/snake_tr_stream.cu``,
-checked and timed beside cuDNN at stage 0; B7 (``csrc/snake_tr.cu``) one
+its plain version.  B5 (dense_gelu_quant) runs a row-quant launch and B1's
+two passes of that GEMM (``csrc/s8_gelu.cuh``), held in both epilogue
+modes at both path shapes; B13 (int8_mlp) a row-quant launch, a first
+product whose CTAs each keep one (64-row block, slab) of bf16 g in shared
+memory and write its codes, and the second product folded slab by slab
+(``csrc/mlp_full.cu``), each on the weights K-major.  B8 is the wgmma GEMM
+of ``csrc/snake_tr_stream.cu``, checked and timed beside cuDNN at stage 0;
+B7 (``csrc/snake_tr.cu``) one
 wgmma launch at stages 2 and 3 and a snake pass in front of B8's kernel at
 stage 1, checked at each stage's shape and at batch 2 with an odd T, each
 stage's launches timed apart; B6 and B9 are the wgmma kernel of
@@ -577,7 +583,10 @@ def assert_codes(what, got_q, got_s, want_q, want_s, scale_rtol=1e-5):
 
 
 def check_dense_gelu(torch, M, K, N):
-    """dense_gelu_quant against its plain version at one path shape."""
+    """dense_gelu_quant (B5) against its plain version at one path shape,
+    in both epilogue modes (fp32, and y and g rounded to bf16); timed in
+    the paths' mode (fp32).  The kernel reads the weight K-major (``w_t``),
+    made once, as the DiT makes it."""
     import torch.nn.functional as F
 
     from jatsr_torch.ops.int8_matmul import (_INV127, dense_gelu_quant_plain,
@@ -585,21 +594,28 @@ def check_dense_gelu(torch, M, K, N):
                                              quantize_rows)
 
     args = dense_inputs(torch, M, K, N, SEED + K)
-    got_q, got_s = int8_dense_gelu_quant(*args)
-    want_q, want_s = dense_gelu_quant_plain(*args)
-    torch.cuda.synchronize()
-    err, frac = assert_codes(f"dense_gelu_quant {M}x{K}x{N}", got_q, got_s,
-                             want_q, want_s)
+    w_t = args[1].t().contiguous()
+    err = frac = 0.0
+    for fast in (False, True):
+        got_q, got_s = int8_dense_gelu_quant(*args, fast_epilogue=fast,
+                                             w_t=w_t)
+        want_q, want_s = dense_gelu_quant_plain(*args, fast_epilogue=fast)
+        torch.cuda.synchronize()
+        e, f = assert_codes(f"dense_gelu_quant {M}x{K}x{N} fast={fast}",
+                            got_q, got_s, want_q, want_s)
+        err, frac = max(err, e), max(frac, f)
 
-    def library(a, w_q, w_s, b):
+    def library(a, w_q, w_s, b, _):
         a_q, s = quantize_rows(a)
         y = int8_mm(a_q, w_q).float() * s.clamp_min(1e-12) * w_s + b
         g = F.gelu(y, approximate="tanh")
         gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
         return torch.round(g / gs).to(torch.int8), gs
 
-    t = timings(int8_dense_gelu_quant, dense_gelu_quant_plain, library, args,
-                big=(0, 1))
+    t = timings(lambda a, w_q, w_s, b, w_t: int8_dense_gelu_quant(
+                    a, w_q, w_s, b, w_t=w_t),
+                lambda *x: dense_gelu_quant_plain(*x[:4]), library,
+                (*args, w_t), big=(0, 1, 4))
     b_ms, b_by = bound(nbytes_of(*args, got_q, got_s), 2 * M * K * N,
                        PEAK_INT8)
     return {"shape": [M, K, N], "max_abs_err": err, "code_mismatch_frac": frac,
@@ -837,7 +853,9 @@ def check_int8_mlp(torch):
     a, w1q, w1s, b1 = dense_inputs(torch, M, H, N1, SEED + 13)
     _, w2q, w2s, b2 = dense_inputs(torch, 1, N1, H, SEED + 14)
     args = (a, w1q, w1s, b1, w2q, w2s, b2)
-    got = int8_mlp(*args).float()
+    # The K-major copies of both weights, made once, as the DiT makes them.
+    kt = {"w1_t": w1q.t().contiguous(), "w2_t": w2q.t().contiguous()}
+    got = int8_mlp(*args, **kt).float()
     want = mlp_plain(*args).float()
     torch.cuda.synchronize()
     frac = (got != want).float().mean().item()
@@ -857,7 +875,8 @@ def check_int8_mlp(torch):
                   * gs[:, j] for j in range(n))
         return (acc * w2s + b2).bfloat16()
 
-    t = timings(int8_mlp, mlp_plain, library, args, big=(0,), plain_reps=5)
+    t = timings(lambda *x: int8_mlp(*x, **kt), mlp_plain, library, args,
+                big=(0,), plain_reps=5)
     b_ms, b_by = bound(nbytes_of(*args) + M * H * 2, 0.0, PEAK_INT8,
                        int8_ops=4 * M * H * N1)
     return {"name": "int8_mlp", "route": "cuda",

@@ -143,13 +143,14 @@ def _dequant_dense(g_q, g_s, second: QuantDense):
 
 
 def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
-                           gelu_impl="tanh", fast_epilogue=True):
+                           first_t, gelu_impl="tanh", fast_epilogue=True):
     """The fused Dense-GELU-Dense of the patch embed and the block MLP:
-    the int8 kernel for the first half, an exact s8 product and an fp32
-    dequant for the second; bf16 out."""
+    the int8 kernel for the first half (on ``first_t``, the first kernel
+    K-major, as the card's kernel reads it), an exact s8 product and an
+    fp32 dequant for the second; bf16 out."""
     g_q, g_s = int8_dense_gelu_quant(
         x2d, first.kernel_q, first.kernel_scale, first.bias.float(),
-        gelu_impl=gelu_impl, fast_epilogue=fast_epilogue)
+        gelu_impl=gelu_impl, fast_epilogue=fast_epilogue, w_t=first_t)
     return _dequant_dense(g_q, g_s, second)
 
 
@@ -311,10 +312,15 @@ class DiTBlock(nn.Module):
         self.attn = GQAttention(cfg, p["attn"], i)
         self.mlp_in = _quant_dense(p["mlp_in"], i)
         self.mlp_out = _quant_dense(p["mlp_out"], i)
-        # mlp_in's K-major copy for the fused-prologue kernel (as qkv's).
+        # mlp_in's K-major copy for the s8 wgmma kernels (the fused
+        # prologue's, the dense+GELU and the whole MLP's first product), and
+        # mlp_out's for the whole MLP's second product where it runs.
         self.register_buffer("mlp_in_kernel_t",
                              self.mlp_in.kernel_q.t().contiguous(),
                              persistent=False)
+        self.register_buffer(
+            "mlp_out_kernel_t", self.mlp_out.kernel_q.t().contiguous()
+            if cfg.fused_mlp_impl == "full" else None, persistent=False)
         self.adaln = adaln
 
     def forward(self, x, t_emb, cos, sin, mod=None, n_valid=0, fused=False):
@@ -347,9 +353,12 @@ class DiTBlock(nn.Module):
                 w1, w2 = self.mlp_in, self.mlp_out
                 h = int8_mlp(h, w1.kernel_q, w1.kernel_scale, w1.bias.float(),
                              w2.kernel_q, w2.kernel_scale, w2.bias.float(),
-                             gelu_impl=cfg.gelu_impl)
+                             gelu_impl=cfg.gelu_impl,
+                             w1_t=self.mlp_in_kernel_t,
+                             w2_t=self.mlp_out_kernel_t)
             else:
                 h = _int8_dense_gelu_dense(h, self.mlp_in, self.mlp_out,
+                                           self.mlp_in_kernel_t,
                                            cfg.gelu_impl, cfg.fast_epilogue)
             h = h.reshape(B, N, H)
         return x + gate_mlp[:, None] * h
@@ -380,6 +389,10 @@ class DiT(nn.Module):
         bf16, f32 = torch.bfloat16, torch.float32
         self.patch_in = _quant_dense(p["patch_in"])
         self.patch_out = _quant_dense(p["patch_out"])
+        # patch_in's K-major copy, which the dense+GELU kernel reads.
+        self.register_buffer("patch_in_kernel_t",
+                             self.patch_in.kernel_q.t().contiguous(),
+                             persistent=False)
         self.t_mlp1 = Dense(p["t_mlp1"]["kernel"], p["t_mlp1"]["bias"], f32)
         self.t_mlp2 = Dense(p["t_mlp2"]["kernel"], p["t_mlp2"]["bias"], f32)
         blocks = p["blocks"]
@@ -430,7 +443,8 @@ class DiT(nn.Module):
 
         x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B * N, P * 2 * C)
         # The JAX model passes no gelu knobs to the patch embed: tanh, fp32.
-        h = _int8_dense_gelu_dense(x_in, self.patch_in, self.patch_out)
+        h = _int8_dense_gelu_dense(x_in, self.patch_in, self.patch_out,
+                                   self.patch_in_kernel_t)
         h = h.reshape(B, N, cfg.hidden_size)
 
         t_emb = None if adaln_mod is not None else self.time_embedding(t)

@@ -1,8 +1,9 @@
 // The pieces the port's W8A8 kernels share: per-row int8 quantisation, the
-// mma.sync s8 GEMM tile loop, and the three epilogues (dequant to bf16 with
-// or without a bias; dequant + bias + GELU to fp32 with a row max; whole-row
-// requant).  Each csrc/*.cu that includes this file is built into its own
-// shared library, so everything here lives in an anonymous namespace.
+// mma.sync s8 GEMM tile loop with its dequant epilogue (to bf16, with or
+// without a bias: B12's out projection and B14), and the GELU forms that
+// s8_gelu.cuh's wgmma epilogues evaluate.  Each csrc/*.cu that includes this
+// file is built into its own shared library, so everything here lives in an
+// anonymous namespace.
 //
 // Rounding points, as the JAX package's Pallas kernels have them:
 //   s    = max(max|a_row| * INV127, 1e-12)        INV127 is a multiply
@@ -54,7 +55,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---- per-row int8 quantisation of bf16 A ------------------------------------
-// One warp per row.  rowmax (may be null) is zeroed for gemm_gelu's atomics.
+// One warp per row; two reads of the row.  rowmax (may be null) is zeroed.
 __global__ void quant_rows(const __nv_bfloat16* __restrict__ a,
                            int8_t* __restrict__ aq, float* __restrict__ s,
                            int* __restrict__ rowmax, int M, int K) {
@@ -223,7 +224,7 @@ __global__ void __launch_bounds__(128) gemm_dequant(
   }
 }
 
-// ---- epilogue 2: dequant + bias + GELU -> fp32 g and the row max ---------------
+// ---- the GELU forms of the s8 wgmma epilogues (s8_gelu.cuh) ---------------------
 __device__ __forceinline__ float a_s_erf(float x) {
   // Abramowitz-Stegun 7.1.26, in the order the JAX kernel evaluates it.
   float sign = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
@@ -252,96 +253,6 @@ __device__ __forceinline__ float gelu(float y) {
   float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, y), y), y);
   float inner = __fmul_rn(c, __fadd_rn(y, cube));
   return __fmul_rn(__fmul_rn(0.5f, y), __fadd_rn(1.0f, tanhf(inner)));
-}
-
-// FAST=false rounds y and g to bf16, as the unfused path does.  The row max
-// is an atomicMax on the float bits (all values are >= 0, so int order is
-// float order).
-template <int GELU, bool FAST>
-__global__ void __launch_bounds__(128) gemm_gelu(
-    const int8_t* __restrict__ aq, const int8_t* __restrict__ wq,
-    const float* __restrict__ ws, const float* __restrict__ bias,
-    const float* __restrict__ s, float* __restrict__ g,
-    int* __restrict__ rowmax, int M, int K, int N) {
-  __shared__ __align__(16) int8_t As[BM * SSTR];
-  __shared__ __align__(16) int8_t Wt[BN * SSTR];  // K-major: Wt[n][k]
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int acc[2][8][4];
-  gemm_tile(aq, K, wq, M, K, N, m0, n0, As, Wt, acc);
-
-  // Rows (gid, gid+8) of each m16 tile; columns tig*2, tig*2+1.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3, wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 32 + mt * 16 + gid + half * 8;
-      const float srow = (row < M) ? s[row] : 0.f;
-      float amax = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + tig * 2;
-        float out[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float y = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][half * 2 + e]), srow),
-                                        ws[col + e]),
-                              bias[col + e]);
-          if (!FAST) y = bf16r(y);
-          float gv = gelu<GELU>(y);
-          if (!FAST) gv = bf16r(gv);
-          out[e] = gv;
-          amax = fmaxf(amax, fabsf(gv));
-        }
-        if (row < M)
-          *reinterpret_cast<float2*>(g + (size_t)row * N + col) = make_float2(out[0], out[1]);
-      }
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-      if (tig == 0 && row < M) atomicMax(rowmax + row, __float_as_int(amax));
-    }
-  }
-}
-
-template <int GELU, bool FAST>
-void launch_gemm_gelu_t(dim3 grid, cudaStream_t st, const int8_t* aq, const int8_t* wq,
-                        const float* ws, const float* b, const float* s, float* g,
-                        int* rowmax, int M, int K, int N) {
-  gemm_gelu<GELU, FAST><<<grid, 128, 0, st>>>(aq, wq, ws, b, s, g, rowmax, M, K, N);
-}
-
-void launch_gemm_gelu(int gelu_impl, bool fast, cudaStream_t st, const int8_t* aq,
-                      const int8_t* wq, const float* ws, const float* b, const float* s,
-                      float* g, int* rowmax, int M, int K, int N) {
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  if (fast) {
-    if (gelu_impl == 1) launch_gemm_gelu_t<1, true>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-    else if (gelu_impl == 2) launch_gemm_gelu_t<2, true>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-    else launch_gemm_gelu_t<0, true>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-  } else {
-    if (gelu_impl == 1) launch_gemm_gelu_t<1, false>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-    else if (gelu_impl == 2) launch_gemm_gelu_t<2, false>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-    else launch_gemm_gelu_t<0, false>(grid, st, aq, wq, ws, b, s, g, rowmax, M, K, N);
-  }
-}
-
-// ---- epilogue 3: requantise g over the whole row -------------------------------
-__global__ void requant(const float* __restrict__ g, const int* __restrict__ rowmax,
-                        int8_t* __restrict__ gq, float* __restrict__ gs, int N) {
-  const int row = blockIdx.x;
-  const float sc = fmaxf(__fmul_rn(__int_as_float(rowmax[row]), INV127), 1e-12f);
-  const float* gr = g + (size_t)row * N;
-  int8_t* qr = gq + (size_t)row * N;
-  for (int c = threadIdx.x * 4; c < N; c += blockDim.x * 4) {
-    float4 v = *reinterpret_cast<const float4*>(gr + c);
-    uint32_t w = (uint32_t)(__float2int_rn(__fdiv_rn(v.x, sc)) & 0xff) |
-                 ((uint32_t)(__float2int_rn(__fdiv_rn(v.y, sc)) & 0xff) << 8) |
-                 ((uint32_t)(__float2int_rn(__fdiv_rn(v.z, sc)) & 0xff) << 16) |
-                 ((uint32_t)(__float2int_rn(__fdiv_rn(v.w, sc)) & 0xff) << 24);
-    *reinterpret_cast<uint32_t*>(qr + c) = w;
-  }
-  if (threadIdx.x == 0) gs[row] = sc;
 }
 
 }  // namespace

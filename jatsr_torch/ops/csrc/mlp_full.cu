@@ -22,219 +22,460 @@
 // matrices, the output: 5.6 us at 3.35 TB/s): the tensor cores bound it.
 //
 // Design.  The TPU kernel holds both weight matrices (13.1 MB) in VMEM and
-// a row block's hidden activation in registers; a CTA here has 227 KB of
-// shared memory, and a slab's row max spans ten 128-wide output tiles.  So
-// four launches in one C call, built from the s8 GEMM of int8_gemm.cuh:
-//   1. quant_rows_rcp: one warp per row, codes and scale of A; it also
-//      zeroes the row's slab maxima.
-//   2. gemm_gelu_slabs: the first product, its epilogue writes bf16 g (g is
-//      bf16-valued, so nothing is lost) and takes each (row, slab) max
-//      with atomicMax (all values >= 0, so int order is float order).
-//   3. requant_slabs: one CTA per row turns g into codes and writes gs.
-//   4. gemm_slabs_dequant: the second product, one K slice per slab; at
-//      each slab's end the int32 partial becomes fp32 and is added to the
-//      running sum times its row's gs, in slab order.
-// g (21.6 MB bf16) and g_q (10.8 MB) make one round trip through device
-// memory, the known cost the TPU kernel avoids.
+// a row block's hidden activation in registers.  Here three launches in one
+// C call, each started by programmatic stream serialisation while the one
+// before drains, on s8_wgmma.cuh's primitives (s8 wgmma fed by TMA), both
+// weights K-major ([N1, H] and [H, N1], made once by the caller: wgmma
+// reads 8-bit operands K-major only):
+//   1. s8_rows.cuh's row quant, reciprocal form (the row in registers):
+//      a_q [M, H] s8 and s [M].
+//   2. mlp_hidden_kernel: a CTA owns one (64-row block, slab) and keeps its
+//      bf16 g on chip (64 x 1280 x 2 = 160 KB), so a slab's row max is
+//      taken there: two consumer warpgroups take the slab's 128-wide column
+//      tiles in turns (one's GELU epilogue beside the other's products, an
+//      ordered pair of named barriers between their main loops), a producer
+//      warp streams [64 x 128] a_q and [128 x 128] w1 stages through a ring
+//      of four; then every thread turns the slab's g into codes.  g lies in
+//      shared memory but for each warpgroup's last tile, which stays in its
+//      registers (32 a thread): that leaves room for four stages, not two,
+//      and the stages' reads from L2 (324 MB at v3), not the tensor cores,
+//      bound this launch.  Only g_q [M, N1] s8 and gs [M, n_slabs] go
+//      through device memory.  33 row blocks x 4 slabs are 132 CTAs at M =
+//      2112: one a streaming multiprocessor, one wave.
+//   3. mlp_out_kernel: the second product, K = N1 in slab order through a
+//      ring of four stages fed by thread 0; at each slab's end the s32
+//      accumulators are folded into fp32 ones with their rows' gs and
+//      zeroed.  64 s32 and 64 fp32 accumulators a thread need more than the
+//      128 registers of two CTAs an SM, so one CTA an SM, of three
+//      warpgroups: 192 x 128 tiles, 110 at M = 2112 (one wave; 128-row
+//      tiles would be 170, 1.3 waves), each stage's 16 KB of w2 shared by
+//      192 rows.
 
-#include "int8_gemm.cuh"
+#include "s8_gelu.cuh"
+#include "s8_rows.cuh"
 
 namespace {
 
-// Eight int8 codes of bf16 values times rcp, packed little-endian.
-__device__ __forceinline__ uint2 quant8_rcp(uint4 v, float rcp) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int q = __float2int_rn(__fmul_rn(__bfloat162float(e[i]), rcp));
-    w[i >> 2] |= (uint32_t)(q & 0xff) << (8 * (i & 3));
-  }
-  return make_uint2(w[0], w[1]);
+// ---- 2. the first product, GELU and the per-(row, slab) codes ------------
+constexpr int H_BM = 64;                                   // rows a CTA
+constexpr int H_STAGES = 4;                                // the ring
+constexpr int H_THREADS = 288;                             // 2 consumer warpgroups + producer
+constexpr int H_MAX_SLAB = 1280;                           // g's room on chip
+constexpr int H_REG_TILES = 2;  // the last column tile of each warpgroup stays in registers
+constexpr int H_A_BYTES = H_BM * S8_BK;                    // 8 KB
+constexpr int H_STAGE_BYTES = H_A_BYTES + S8_BN * S8_BK;   // + 16 KB
+// The column tiles whose g goes to shared memory: all but the last two.
+__host__ __device__ constexpr int h_smem_tiles(int slab) {
+  return slab / S8_BN > H_REG_TILES ? slab / S8_BN - H_REG_TILES : 0;
+}
+// A row of g in shared memory: those tiles in bf16 and 16 bytes, so that
+// the 8 rows of a warp's store hit distinct banks.
+__host__ __device__ constexpr int h_gstride(int slab) {
+  return 2 * S8_BN * h_smem_tiles(slab) + 16;
+}
+// The ring, g, the row maxima of each warpgroup and the reciprocal scales,
+// the full and empty barriers, and up to 1023 bytes to align the ring:
+// 232,256 bytes at a slab of 1280, 192 below the H100's limit.
+__host__ __device__ constexpr int h_smem(int slab) {
+  return H_STAGES * H_STAGE_BYTES + H_BM * h_gstride(slab) + 3 * H_BM * 4 + 2 * H_STAGES * 8 +
+         1024;
 }
 
-__global__ void quant_rows_rcp(const __nv_bfloat16* __restrict__ a, int8_t* __restrict__ aq,
-                               float* __restrict__ s, int* __restrict__ rowmax, int n_slabs,
-                               int M, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= M) return;
-  const __nv_bfloat16* ar = a + (size_t)row * K;
-  float amax = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    uint4 v = *reinterpret_cast<const uint4*>(ar + k);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
-  }
-  amax = warp_max(amax);
-  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
-  const float rcp = __fdiv_rn(1.0f, sc);
-  int8_t* qr = aq + (size_t)row * K;
-  for (int k = lane * 8; k < K; k += 256)
-    *reinterpret_cast<uint2*>(qr + k) = quant8_rcp(*reinterpret_cast<const uint4*>(ar + k), rcp);
-  for (int j = lane; j < n_slabs; j += 32) rowmax[(size_t)row * n_slabs + j] = 0;
-  if (lane == 0) s[row] = sc;
+// Named barriers 1 and 2: "warpgroup 0 (1) may start its next tile's main
+// loop", arrived at by the other warpgroup's 128 threads when its own main
+// loop is done.
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// The first product; a CTA's 128 columns lie in one slab (slab % 128 == 0).
+__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+
 template <int GELU>
-__global__ void __launch_bounds__(128) gemm_gelu_slabs(
-    const int8_t* __restrict__ aq, const int8_t* __restrict__ wq,
-    const float* __restrict__ ws, const float* __restrict__ bias,
-    const float* __restrict__ s, __nv_bfloat16* __restrict__ g,
-    int* __restrict__ rowmax, int slab, int n_slabs, int M, int K, int N) {
-  __shared__ __align__(16) int8_t As[BM * SSTR];
-  __shared__ __align__(16) int8_t Wt[BN * SSTR];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int acc[2][8][4];
-  gemm_tile(aq, K, wq, M, K, N, m0, n0, As, Wt, acc);
+__global__ void __launch_bounds__(H_THREADS, 1) mlp_hidden_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
+    int8_t* __restrict__ gq, float* __restrict__ gs, int M, int K, int N1, int slab) {
+  extern __shared__ __align__(1024) unsigned char h_raw[];
+  const uint32_t raw = wg_smem_u32(h_raw);
+  unsigned char* ring = h_raw + (((raw + 1023) & ~1023u) - raw);
+  const int gstr = h_gstride(slab);
+  unsigned char* gbuf = ring + H_STAGES * H_STAGE_BYTES;
+  float* rmax = reinterpret_cast<float*>(gbuf + H_BM * gstr);  // [2][64]
+  float* rcps = rmax + 2 * H_BM;                                // [64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rcps + H_BM);
+  uint64_t* empty = full + H_STAGES;
+  const int j = blockIdx.x, m0 = blockIdx.y * H_BM, c0 = j * slab;
+  const int nk = K / S8_BK, ntiles = slab / S8_BN, nsm = h_smem_tiles(slab);
+  griddep_launch();  // the second product may set up as these CTAs finish
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < H_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4);  // the 4 warps of the warpgroup that read it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3, wm = warp >> 1, wn = warp & 1;
-  const int j = n0 / slab;
+  const int lane = threadIdx.x & 31;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int row = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+  // The last tile of each warpgroup, g in bf16 pairs: greg[h][i] holds rows
+  // row + 8 h, columns 8 i + col and + 1 of tile treg.
+  uint32_t greg[2][S8_BN / 8];
+  int treg = -1;
+  if (threadIdx.x >= 256) {
+    // The producer: stage i holds k-block i % nk of column tile i / nk.
+    if (lane == 0) {
+      for (int i = 0; i < nk * ntiles; ++i) {
+        const int st = i % H_STAGES, t = i / nk, kb = i % nk;
+        if (i >= H_STAGES) mbar_wait(&empty[st], (i / H_STAGES - 1) & 1);
+        unsigned char* a = ring + st * H_STAGE_BYTES;
+        mbar_expect_tx(&full[st], H_STAGE_BYTES);
+        tma_load_2d(a + H_A_BYTES, &bm, &full[st], kb * S8_BK, c0 + t * S8_BN);
+        if (i == 0) griddep_wait();  // a_q: the quant launch's
+        tma_load_2d(a, &am, &full[st], kb * S8_BK, m0);
+      }
+    }
+  } else {
+    // Warpgroup wg takes column tiles wg, wg + 2, ...; its thread holds
+    // rows row and row + 8 of the 64, columns 8 i + col and + 1.
+    griddep_wait();  // s: the quant launch's
+    float sr[2], amax[2] = {0.f, 0.f};
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int h = 0; h < 2; ++h) sr[h] = m0 + row + 8 * h < M ? s[m0 + row + 8 * h] : 0.f;
+    for (int t = wg; t < ntiles; t += 2) {
+      // The other warpgroup's main loop of tile t - 1 is done, so no stage
+      // wait below runs more than one phase ahead of its barrier.
+      if (t > 0) named_sync(1 + wg);
+      int acc[S8_ACC];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 32 + mt * 16 + gid + half * 8;
-      const float srow = (row < M) ? s[row] : 0.f;
-      float amax = 0.f;
+      for (int i = 0; i < S8_ACC; ++i) acc[i] = 0;
+      s8_fence_acc(acc);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int i = t * nk + kb, st = i % H_STAGES;
+        mbar_wait(&full[st], (i / H_STAGES) & 1);
+        const uint32_t a = wg_smem_u32(ring + st * H_STAGE_BYTES);
+        wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + tig * 2;
-        float out[2];
+        for (int kk = 0; kk < S8_BK / 32; ++kk)
+          wgmma_s8_m64n128k32(acc, wg_desc(a + kk * 32, 16, 1024),
+                              wg_desc(a + H_A_BYTES + kk * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();  // stage i - 1's products are done: release it
+        s8_fence_acc(acc);
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % H_STAGES]);
+        __syncwarp();
+      }
+      wgmma_wait_all();
+      s8_fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[(t * nk + nk - 1) % H_STAGES]);
+      if (t + 1 < ntiles) named_arrive(2 - wg);
+      // The epilogue, beside the other warpgroup's products: g in bf16
+      // into its slab row (or, the last tile, the registers), and the rows'
+      // running max |g|.
+      const bool keep = t >= nsm;
+      if (keep) treg = t;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float y = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][half * 2 + e]), srow),
-                                        ws[col + e]),
-                              bias[col + e]);
-          out[e] = bf16r(gelu<GELU>(bf16r(y)));
-          amax = fmaxf(amax, fabsf(out[e]));
+      for (int h = 0; h < 2; ++h) {
+        unsigned char* gr = gbuf + (row + 8 * h) * gstr + t * S8_BN * 2;
+#pragma unroll
+        for (int i = 0; i < S8_BN / 8; ++i) {
+          const int c = c0 + t * S8_BN + 8 * i + col;
+          const float2 w = *reinterpret_cast<const float2*>(ws + c);
+          const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+          const float g0 = s8_gelu_of<GELU, true>(acc[4 * i + 2 * h], sr[h], w.x, bb.x);
+          const float g1 = s8_gelu_of<GELU, true>(acc[4 * i + 2 * h + 1], sr[h], w.y, bb.y);
+          amax[h] = fmaxf(amax[h], fmaxf(fabsf(g0), fabsf(g1)));
+          const __nv_bfloat162 p = __floats2bfloat162_rn(g0, g1);  // exact: bf16-valued
+          if (keep)
+            greg[h][i] = *reinterpret_cast<const uint32_t*>(&p);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(gr + (8 * i + col) * 2) = p;
         }
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(g + (size_t)row * N + col) =
-              __floats2bfloat162_rn(out[0], out[1]);
       }
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-      if (tig == 0 && row < M) atomicMax(rowmax + (size_t)row * n_slabs + j, __float_as_int(amax));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 1));
+      amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 2));
+      if (col == 0) rmax[wg * H_BM + row + 8 * h] = amax[h];
     }
   }
-}
-
-__device__ __forceinline__ float slab_scale(const int* rowmax, int i) {
-  return fmaxf(__fmul_rn(__int_as_float(rowmax[i]), INV127), 1e-12f);
-}
-
-// One CTA per row: g -> codes by the reciprocal of the slab's scale.
-__global__ void requant_slabs(const __nv_bfloat16* __restrict__ g,
-                              const int* __restrict__ rowmax, int8_t* __restrict__ gq,
-                              float* __restrict__ gs, int slab, int n_slabs, int N) {
-  const int row = blockIdx.x;
-  const __nv_bfloat16* gr = g + (size_t)row * N;
-  int8_t* qr = gq + (size_t)row * N;
-  const int* rm = rowmax + (size_t)row * n_slabs;
-  for (int c = threadIdx.x * 8; c < N; c += blockDim.x * 8) {  // 8 | slab
-    const float rcp = __fdiv_rn(1.0f, slab_scale(rm, c / slab));
-    *reinterpret_cast<uint2*>(qr + c) = quant8_rcp(*reinterpret_cast<const uint4*>(gr + c), rcp);
+  __syncthreads();  // g and both warpgroups' row maxima are on chip
+  const int n_slabs = N1 / slab;
+  if (threadIdx.x < H_BM) {
+    const int r = threadIdx.x;
+    const float sc = fmaxf(__fmul_rn(fmaxf(rmax[r], rmax[H_BM + r]), INV127), 1e-12f);
+    rcps[r] = __fdiv_rn(1.0f, sc);
+    if (m0 + r < M) gs[(size_t)(m0 + r) * n_slabs + j] = sc;
   }
-  for (int j = threadIdx.x; j < n_slabs; j += blockDim.x)
-    gs[(size_t)row * n_slabs + j] = slab_scale(rm, j);
-}
-
-// The second product: gq [M, K] (K = n_slabs * slab) @ wq [K, N], the
-// int32 partial of each slab folded into fp32 with its row's gs.
-__global__ void __launch_bounds__(128) gemm_slabs_dequant(
-    const int8_t* __restrict__ gq, const int8_t* __restrict__ wq,
-    const float* __restrict__ gs, const float* __restrict__ ws,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int slab,
-    int n_slabs, int M, int N) {
-  __shared__ __align__(16) int8_t As[BM * SSTR];
-  __shared__ __align__(16) int8_t Wt[BN * SSTR];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int K = slab * n_slabs;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3, wm = warp >> 1, wn = warp & 1;
-  float acc2[2][8][4];
+  __syncthreads();
+  // The codes, rint(g * (1 / gs)).  The register tiles' through the ring
+  // (free: every stage is consumed; rows of 272 bytes), the rest 16 a
+  // thread at a time from g in shared memory.
+  constexpr int RSTR = H_REG_TILES * S8_BN + 16;
+  if (treg >= 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const float rcp = rcps[row + 8 * h];
+      unsigned char* dst = ring + (row + 8 * h) * RSTR + (treg - nsm) * S8_BN;
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc2[i][t][r] = 0.f;
-
-  for (int j = 0; j < n_slabs; ++j) {
-    int acc[2][8][4];
-    gemm_tile(gq + (size_t)j * slab, K, wq + (size_t)j * slab * N, M, slab, N, m0, n0, As, Wt,
-              acc);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 32 + mt * 16 + gid + half * 8;
-        const float sc = (row < M) ? gs[(size_t)row * n_slabs + j] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& a2 = acc2[mt][nt][half * 2 + e];
-            a2 = __fadd_rn(a2, __fmul_rn(__int2float_rn(acc[mt][nt][half * 2 + e]), sc));
-          }
+      for (int i = 0; i < S8_BN / 8; ++i) {
+        const uint32_t q0 = (uint32_t)__float2int_rn(__fmul_rn(bf16_lo(greg[h][i]), rcp)) & 0xffu;
+        const uint32_t q1 = (uint32_t)__float2int_rn(__fmul_rn(bf16_hi(greg[h][i]), rcp)) & 0xffu;
+        *reinterpret_cast<uint16_t*>(dst + 8 * i + col) = (uint16_t)(q0 | (q1 << 8));
       }
     }
   }
+  const int per_row = nsm * S8_BN / 16;
+  for (int x = threadIdx.x; x < H_BM * per_row; x += H_THREADS) {
+    const int rr = x / per_row, cc = (x % per_row) * 16;
+    if (m0 + rr >= M) break;  // rows past M come last
+    const uint4* src = reinterpret_cast<const uint4*>(gbuf + rr * gstr + cc * 2);
+    const float rcp = rcps[rr];
+    uint32_t w[4];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const uint4 u = src[v];
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+      float f[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f[q] = __bfloat162float(e[q]);
+      const uint2 p = quant8_rcp(f, rcp);
+      w[2 * v] = p.x;
+      w[2 * v + 1] = p.y;
+    }
+    *reinterpret_cast<uint4*>(gq + (size_t)(m0 + rr) * N1 + c0 + cc) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __syncthreads();
+  const int nreg = ntiles - nsm, reg_row = nreg * S8_BN / 16;
+  for (int x = threadIdx.x; x < H_BM * reg_row; x += H_THREADS) {
+    const int rr = x / reg_row, cc = (x % reg_row) * 16;
+    if (m0 + rr >= M) break;
+    *reinterpret_cast<uint4*>(gq + (size_t)(m0 + rr) * N1 + c0 + nsm * S8_BN + cc) =
+        *reinterpret_cast<const uint4*>(ring + rr * RSTR + cc);
+  }
+}
 
+// ---- 3. the second product, folded slab by slab ---------------------------
+constexpr int O_BM = 192;                                  // rows a CTA: 3 warpgroups
+constexpr int O_STAGES = 4;
+constexpr int O_THREADS = 384;
+constexpr int O_A_BYTES = O_BM * S8_BK;                    // 24 KB
+constexpr int O_STAGE_BYTES = O_A_BYTES + S8_BN * S8_BK;   // + 16 KB
+constexpr int O_SMEM = O_STAGES * O_STAGE_BYTES + 2 * O_STAGES * 8 + 1024;
+
+__global__ void __launch_bounds__(O_THREADS, 1) mlp_out_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ gs, const float* __restrict__ ws, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int M, int N1, int N2, int slab) {
+  extern __shared__ __align__(1024) unsigned char o_raw[];
+  const uint32_t raw = wg_smem_u32(o_raw);
+  unsigned char* ring = o_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + O_STAGES * O_STAGE_BYTES);
+  uint64_t* empty = full + O_STAGES;
+  const int n0 = blockIdx.x * S8_BN, m0 = blockIdx.y * O_BM;
+  const int nk = N1 / S8_BK, skb = slab / S8_BK, n_slabs = N1 / slab;
+  auto issue = [&](int kb) {  // thread 0: k-block kb into its stage
+    const int st = kb % O_STAGES;
+    unsigned char* a = ring + st * O_STAGE_BYTES;
+    mbar_expect_tx(&full[st], O_STAGE_BYTES);
+    tma_load_2d(a + O_A_BYTES, &bm, &full[st], kb * S8_BK, n0);  // w2: no dependence
+    if (kb == 0) griddep_wait();                                  // g_q: launch 2's
+    tma_load_2d(a, &am, &full[st], kb * S8_BK, m0);
+  };
+  // Thread 0 refills k-block r's stage with r + O_STAGES once every warp
+  // has released it.
+  auto refill = [&](int r) {
+    if (r + O_STAGES >= nk) return;
+    mbar_wait(&empty[r % O_STAGES], (r / O_STAGES) & 1);
+    issue(r + O_STAGES);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < O_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], O_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int kb = 0; kb < O_STAGES && kb < nk; ++kb) issue(kb);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int row = wg * 64 + warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+  griddep_wait();  // gs: launch 2's
+  int acc[S8_ACC];
+  float acc2[S8_ACC];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int i = 0; i < S8_ACC; ++i) {
+    acc[i] = 0;
+    acc2[i] = 0.f;
+  }
+  s8_fence_acc(acc);
+  float g[2] = {0.f, 0.f};
+  for (int kb = 0; kb < nk; ++kb) {
+    const int st = kb % O_STAGES;
+    if (kb % skb == 0) {  // a slab starts: its rows' scales, used at its end
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 32 + mt * 16 + gid + half * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + tig * 2;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          y[e] = __fadd_rn(__fmul_rn(acc2[mt][nt][half * 2 + e], ws[col + e]), bias[col + e]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(y[0], y[1]);
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + row + 8 * h;
+        g[h] = r < M ? gs[(size_t)r * n_slabs + kb / skb] : 0.f;
       }
     }
+    mbar_wait(&full[st], (kb / O_STAGES) & 1);
+    const uint32_t a = wg_smem_u32(ring + st * O_STAGE_BYTES) + wg * 64 * S8_BK;
+    const uint32_t b = wg_smem_u32(ring + st * O_STAGE_BYTES + O_A_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk)
+      wgmma_s8_m64n128k32(acc, wg_desc(a + kk * 32, 16, 1024), wg_desc(b + kk * 32, 16, 1024));
+    wgmma_commit();
+    const bool end = (kb + 1) % skb == 0;
+    if (end)
+      wgmma_wait_all();
+    else
+      wgmma_wait<1>();
+    s8_fence_acc(acc);
+    // k-block kb - 1 is released here unless it ended a slab (then it was
+    // released at once); a slab's last k-block at once.
+    const bool prev = kb > 0 && kb % skb != 0;
+    if (lane == 0) {
+      if (prev) mbar_arrive(&empty[(kb - 1) % O_STAGES]);
+      if (end) mbar_arrive(&empty[st]);
+    }
+    if (threadIdx.x == 0) {
+      if (prev) refill(kb - 1);
+      if (end) refill(kb);
+    }
+    __syncwarp();  // warp 0 reconverges before its next .aligned wgmma
+    if (end) {     // acc2 += (float)acc * gs, in slab order; acc = 0
+#pragma unroll
+      for (int i = 0; i < S8_ACC; ++i) {
+        acc2[i] = __fadd_rn(acc2[i], __fmul_rn(__int2float_rn(acc[i]), g[(i >> 1) & 1]));
+        acc[i] = 0;
+      }
+      s8_fence_acc(acc);
+    }
   }
+  __syncthreads();  // every product is done: the ring stages the outputs
+  // out = bf16(acc2 * w2s + b2) through shared memory (rows of 272 bytes:
+  // the 8 rows of a store hit distinct banks), then 16-byte stores.
+  constexpr int STR = S8_BN * 2 + 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < S8_BN / 8; ++i) {
+      const int c = n0 + 8 * i + col;
+      const float2 w = *reinterpret_cast<const float2*>(ws + c);
+      const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+      const float y0 = __fadd_rn(__fmul_rn(acc2[4 * i + 2 * h], w.x), bb.x);
+      const float y1 = __fadd_rn(__fmul_rn(acc2[4 * i + 2 * h + 1], w.y), bb.y);
+      *reinterpret_cast<__nv_bfloat162*>(ring + (row + 8 * h) * STR + (8 * i + col) * 2) =
+          __floats2bfloat162_rn(y0, y1);
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < O_BM * S8_BN / 8; x += O_THREADS) {
+    const int rr = x / (S8_BN / 8), cc = (x % (S8_BN / 8)) * 8;
+    if (m0 + rr < M)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + rr) * N2 + n0 + cc) =
+          *reinterpret_cast<const uint4*>(ring + rr * STR + cc * 2);
+  }
+}
+
+// Checks the shapes the three launches take; the slab width.
+int mlp_slab(int K, int N1, int N2, int n_slabs) {
+  if (K % S8_BK || K > 4096 || N2 % S8_BN || n_slabs < 1 || N1 % n_slabs) return 0;
+  const int slab = N1 / n_slabs;
+  return slab % S8_BN || slab > H_MAX_SLAB ? 0 : slab;
+}
+
+cudaError_t launch_hidden(const void* aq, const void* s, const void* w1t, const void* w1s,
+                          const void* b1, void* gq, void* gs, int M, int K, int N1, int slab,
+                          int gelu_impl, cudaStream_t st) {
+  CUtensorMap am, bm;
+  cudaError_t e = s8_tensor_map(&am, aq, M, K, H_BM);
+  if (e == cudaSuccess) e = s8_tensor_map(&bm, w1t, N1, K, S8_BN);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(N1 / slab, (M + H_BM - 1) / H_BM);
+  auto S = (const float*)s;
+  auto WS = (const float*)w1s;
+  auto B = (const float*)b1;
+  auto Q = (int8_t*)gq;
+  auto GS = (float*)gs;
+  const int smem = h_smem(slab);
+  if (gelu_impl == 1)
+    return s8_launch<mlp_hidden_kernel<1>>(grid, H_THREADS, smem, true, st, am, bm, S, WS, B, Q,
+                                           GS, M, K, N1, slab);
+  if (gelu_impl == 2)
+    return s8_launch<mlp_hidden_kernel<2>>(grid, H_THREADS, smem, true, st, am, bm, S, WS, B, Q,
+                                           GS, M, K, N1, slab);
+  return s8_launch<mlp_hidden_kernel<0>>(grid, H_THREADS, smem, true, st, am, bm, S, WS, B, Q,
+                                         GS, M, K, N1, slab);
+}
+
+cudaError_t launch_out(const void* gq, const void* gs, const void* w2t, const void* w2s,
+                       const void* b2, void* out, int M, int N1, int N2, int slab,
+                       cudaStream_t st) {
+  CUtensorMap am, bm;
+  cudaError_t e = s8_tensor_map(&am, gq, M, N1, O_BM);
+  if (e == cudaSuccess) e = s8_tensor_map(&bm, w2t, N2, N1, S8_BN);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(N2 / S8_BN, (M + O_BM - 1) / O_BM);
+  return s8_launch<mlp_out_kernel>(grid, O_THREADS, O_SMEM, true, st, am, bm, (const float*)gs,
+                                   (const float*)w2s, (const float*)b2, (__nv_bfloat16*)out, M,
+                                   N1, N2, slab);
 }
 
 }  // namespace
 
-// a [M, K] bf16; w1q [K, N1] s8, w1s and b1 [N1] f32; w2q [N1, N2] s8, w2s and
-// b2 [N2] f32.  Scratch: aq [M, K] s8, s [M] f32, g [M, N1] bf16, rowmax
-// [M, n_slabs] s32, gq [M, N1] s8, gs [M, n_slabs] f32.  Output: out [M, N2]
-// bf16.  Needs K % 64 == 0, N1 = n_slabs * slab with slab % 128 == 0, and
-// N2 % 128 == 0 (the wrapper checks).
-extern "C" int int8_mlp(const void* a, const void* w1q, const void* w1s, const void* b1,
-                        const void* w2q, const void* w2s, const void* b2, void* aq, void* s,
-                        void* g, void* rowmax, void* gq, void* gs, void* out, int M, int K,
-                        int N1, int N2, int n_slabs, int gelu_impl, void* stream) {
+// Launch 1 alone: a [M, K] bf16 -> aq [M, K] s8, s [M] f32 (reciprocal
+// codes).  Needs K <= 4096, K % 8 == 0.
+extern "C" int mlp_quant(const void* a, void* aq, void* s, int M, int K, void* stream) {
+  return launch_quant_rows<true>(a, aq, s, M, K, (cudaStream_t)stream);
+}
+
+// Launch 2 alone, on launch 1's aq and s: w1t [N1, K] s8 (w1 K-major), w1s
+// and b1 [N1] f32 -> gq [M, N1] s8, gs [M, n_slabs] f32.
+extern "C" int mlp_hidden(const void* aq, const void* s, const void* w1t, const void* w1s,
+                          const void* b1, void* gq, void* gs, int M, int K, int N1, int n_slabs,
+                          int gelu_impl, void* stream) {
+  const int slab = mlp_slab(K, N1, S8_BN, n_slabs);
+  if (!slab) return cudaErrorInvalidValue;
+  return launch_hidden(aq, s, w1t, w1s, b1, gq, gs, M, K, N1, slab, gelu_impl,
+                       (cudaStream_t)stream);
+}
+
+// Launch 3 alone, on launch 2's gq and gs: w2t [N2, N1] s8 (w2 K-major),
+// w2s and b2 [N2] f32 -> out [M, N2] bf16.
+extern "C" int mlp_out(const void* gq, const void* gs, const void* w2t, const void* w2s,
+                       const void* b2, void* out, int M, int N1, int N2, int n_slabs,
+                       void* stream) {
+  const int slab = mlp_slab(S8_BK, N1, N2, n_slabs);
+  if (!slab) return cudaErrorInvalidValue;
+  return launch_out(gq, gs, w2t, w2s, b2, out, M, N1, N2, slab, (cudaStream_t)stream);
+}
+
+// a [M, K] bf16; w1t [N1, K] s8 (w1 K-major), w1s and b1 [N1] f32; w2t
+// [N2, N1] s8 (w2 K-major), w2s and b2 [N2] f32.  Scratch: aq [M, K] s8, s
+// [M] f32, gq [M, N1] s8, gs [M, n_slabs] f32.  Output: out [M, N2] bf16.
+// Needs K % 128 == 0, K <= 4096, N1 = n_slabs * slab with slab % 128 == 0
+// and slab <= 1280, N2 % 128 == 0 (the wrapper checks).  Three launches.
+extern "C" int int8_mlp(const void* a, const void* w1t, const void* w1s, const void* b1,
+                        const void* w2t, const void* w2s, const void* b2, void* aq, void* s,
+                        void* gq, void* gs, void* out, int M, int K, int N1, int N2, int n_slabs,
+                        int gelu_impl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int slab = N1 / n_slabs;
-  quant_rows_rcp<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)a, (int8_t*)aq, (float*)s,
-                                              (int*)rowmax, n_slabs, M, K);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  auto gemm1 = gelu_impl == 1 ? gemm_gelu_slabs<1>
-               : gelu_impl == 2 ? gemm_gelu_slabs<2> : gemm_gelu_slabs<0>;
-  gemm1<<<dim3(N1 / BN, (M + BM - 1) / BM), 128, 0, st>>>(
-      (const int8_t*)aq, (const int8_t*)w1q, (const float*)w1s, (const float*)b1,
-      (const float*)s, (__nv_bfloat16*)g, (int*)rowmax, slab, n_slabs, M, K, N1);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  requant_slabs<<<M, 256, 0, st>>>((const __nv_bfloat16*)g, (const int*)rowmax, (int8_t*)gq,
-                                   (float*)gs, slab, n_slabs, N1);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  gemm_slabs_dequant<<<dim3(N2 / BN, (M + BM - 1) / BM), 128, 0, st>>>(
-      (const int8_t*)gq, (const int8_t*)w2q, (const float*)gs, (const float*)w2s,
-      (const float*)b2, (__nv_bfloat16*)out, slab, n_slabs, M, N2);
-  return cudaGetLastError();
+  const int slab = mlp_slab(K, N1, N2, n_slabs);
+  if (!slab) return cudaErrorInvalidValue;
+  cudaError_t e = launch_quant_rows<true>(a, aq, s, M, K, st);
+  if (e == cudaSuccess)
+    e = launch_hidden(aq, s, w1t, w1s, b1, gq, gs, M, K, N1, slab, gelu_impl, st);
+  return e != cudaSuccess ? e : launch_out(gq, gs, w2t, w2s, b2, out, M, N1, N2, slab, st);
 }

@@ -39,19 +39,19 @@
 //   2. the s8 GEMM of s8_wgmma.cuh (wgmma fed by TMA, 128 x 128 tiles) on
 //      a_q and the K-major weight [N, H]:
 //      qkv (B3): the dequant + bias epilogue straight to bf16;
-//      mlp_in (B1): two passes of the products, so that the fp32 g never
-//      goes through device memory.  Pass 1 computes each tile's g and
-//      writes its rows' max |g| (a [M, N / 128] fp32 partial, no atomics);
-//      pass 2 recomputes g (the same instructions, so the same bits), takes
-//      its rows' exact max over the partials and writes the s8 codes and
-//      gs.  The tensor work doubles (28 us at the int8 peak) and the 43 MB
+//      mlp_in (B1): s8_gelu.cuh's two passes of the products, so that the
+//      fp32 g never goes through device memory.  Pass 1 computes each
+//      tile's g and writes its rows' max |g| (a [M, N / 128] fp32 partial,
+//      no atomics); pass 2 recomputes g (the same instructions, so the same
+//      bits), takes its rows' exact max over the partials and writes the s8
+//      codes and gs (the pass is shared with B5).  The tensor work doubles
+//      (28 us at the int8 peak) and the 43 MB
 //      g round trip of the mma.sync version (written, then read back by a
 //      requant launch) is gone.  A cluster spanning a whole row, with the
 //      maxima exchanged through distributed shared memory, would run the
 //      products once; it is not built (PERF.md says why).
 
-#include "int8_gemm.cuh"
-#include "s8_wgmma.cuh"
+#include "s8_gelu.cuh"
 
 namespace {
 
@@ -192,100 +192,16 @@ __global__ void __launch_bounds__(S8_THREADS, 2) s8_dot_kernel(
       });
 }
 
-// B1's GEMM, pass PASS of two: g = gelu(((float)acc * s) * ws + b) in fp32.
-// Pass 1 writes the max |g| of each of the tile's rows to part[row][tile];
-// pass 2 takes the row's max over its N / 128 partials (a max is exact in
-// any order), gs = max(rowmax * INV127, 1e-12), and writes the codes
-// rint(g / gs) and gs.  Both passes compute g by the same instructions.
-// Needs N % 128 == 0.
+// B1's GEMM, pass PASS of two (s8_gelu.cuh): g = gelu(((float)acc * s) *
+// ws + b) in fp32; pass 1 writes each tile's row maxima to part, pass 2 the
+// codes rint(g / gs) and gs.  Needs N % 128 == 0.
 template <int GELU, int PASS>
 __global__ void __launch_bounds__(S8_THREADS, 2) s8_gelu_kernel(
     const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
     const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
     float* __restrict__ part, int8_t* __restrict__ gq, float* __restrict__ gs, int M, int K,
     int N) {
-  const int n0 = blockIdx.x * S8_BN, m0 = blockIdx.y * S8_BM, nt = gridDim.x;
-  float sc[2] = {1.f, 1.f};  // pass 2: the scales of the thread's two rows
-  s8_gemm_tile(
-      K / S8_BK,
-      [&](int kb, unsigned char* a, unsigned char* b, uint64_t* bar) {
-        tma_load_2d(a, &am, bar, kb * S8_BK, m0);
-        tma_load_2d(b, &bm, bar, kb * S8_BK, n0);
-      },
-      [&](int row, int col) {
-        if (PASS == 1) return;
-        // The rows' maxima over their partials, a quad's four lanes taking
-        // every fourth (a max is exact in any order), read while the
-        // products run.
-        float rm[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = m0 + row + 8 * h;
-          if (r >= M) continue;
-          const float* pr = part + (size_t)r * nt;
-#pragma unroll 4
-          for (int j = col / 2; j < nt; j += 4) rm[h] = fmaxf(rm[h], pr[j]);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          rm[h] = fmaxf(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 1));
-          rm[h] = fmaxf(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 2));
-          sc[h] = fmaxf(__fmul_rn(rm[h], INV127), 1e-12f);
-          const int r = m0 + row + 8 * h;
-          if (blockIdx.x == 0 && col == 0 && r < M) gs[r] = sc[h];
-        }
-      },
-      [&](const int (&acc)[S8_ACC], int row, int col, unsigned char* stage) {
-        // Pass 2 stages the codes in shared memory (rows of 144 bytes: the
-        // 8 rows of a store hit distinct banks), then 16-byte stores.
-        constexpr int STR = S8_BN + 16;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = m0 + row + 8 * h;
-          const bool ok = r < M;  // uniform over a quad: the shuffles below
-          const float sr = ok ? s[r] : 0.f;
-          float amax = 0.f;
-#pragma unroll
-          for (int i = 0; i < S8_BN / 8; ++i) {
-            const int c = n0 + 8 * i + col;
-            const float2 w = *reinterpret_cast<const float2*>(ws + c);
-            const float2 bb = *reinterpret_cast<const float2*>(bias + c);
-            const float g0 = gelu<GELU>(
-                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h]), sr), w.x), bb.x));
-            const float g1 = gelu<GELU>(
-                __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + 2 * h + 1]), sr), w.y), bb.y));
-            if (PASS == 1) {
-              amax = fmaxf(amax, fmaxf(fabsf(g0), fabsf(g1)));
-            } else {
-              const uint32_t q0 = (uint32_t)__float2int_rn(__fdiv_rn(g0, sc[h])) & 0xffu;
-              const uint32_t q1 = (uint32_t)__float2int_rn(__fdiv_rn(g1, sc[h])) & 0xffu;
-              *reinterpret_cast<uint16_t*>(stage + (row + 8 * h) * STR + 8 * i + col) =
-                  (uint16_t)(q0 | (q1 << 8));
-            }
-          }
-          if (PASS == 1) {
-            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-            if (ok && col == 0) part[(size_t)r * nt + blockIdx.x] = amax;
-          }
-        }
-        if (PASS == 2) {
-          __syncthreads();
-          for (int x = threadIdx.x; x < S8_BM * S8_BN / 16; x += S8_THREADS) {
-            const int rr = x / (S8_BN / 16), cc = (x % (S8_BN / 16)) * 16;
-            if (m0 + rr < M)
-              *reinterpret_cast<uint4*>(gq + (size_t)(m0 + rr) * N + n0 + cc) =
-                  *reinterpret_cast<const uint4*>(stage + rr * STR + cc);
-          }
-        }
-      });
-}
-
-// The tensor maps of a_q [M, K] and the K-major weight wt [N, K].
-cudaError_t s8_maps(CUtensorMap* am, CUtensorMap* bm, const void* aq, const void* wt, int M,
-                    int K, int N) {
-  cudaError_t e = s8_tensor_map(am, aq, M, K, S8_BM);
-  return e != cudaSuccess ? e : s8_tensor_map(bm, wt, N, K, S8_BN);
+  s8_gelu_tile<GELU, PASS, false, false>(am, bm, s, ws, bias, part, gq, gs, M, K, N);
 }
 
 template <class Kernel>

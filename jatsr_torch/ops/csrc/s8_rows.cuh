@@ -1,0 +1,166 @@
+// Per-row int8 quantisation of a bf16 activation, in front of the s8 wgmma
+// GEMMs of s8_wgmma.cuh: B4 (w8a8_fused.cu), B5 (dense_gelu_quant.cu) and
+// B13 (mlp_full.cu).  Each csrc/*.cu that includes this file is built into
+// its own shared library, so everything here lives in an anonymous
+// namespace.
+//
+//   s    = max(max|a_row| * INV127, 1e-12)        the floored scale
+//   a_q  = rint(a / s)                            B4, B5: a true divide
+//   a_q  = rint(a * (1 / s))                      B13: a reciprocal multiply
+// Both round half to even.  One warp a row; V 16-byte vectors a lane (K <=
+// 256 V), all loaded at once and kept in registers between the max and the
+// codes, so the row is read once with every load of a lane in flight
+// together.  The kernel's first instruction lets the next launch start
+// (griddepcontrol): the GEMM behind it waits only where it reads a_q and s.
+
+#pragma once
+
+#include "int8_gemm.cuh"
+#include "s8_wgmma.cuh"
+
+namespace {
+
+// Eight int8 codes of v * rcp, packed little-endian into two words.
+__device__ __forceinline__ uint2 quant8_rcp(const float v[8], float rcp) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int q = __float2int_rn(__fmul_rn(v[i], rcp));
+    w[i >> 2] |= (uint32_t)(q & 0xff) << (8 * (i & 3));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+template <int V, bool RCP>
+__device__ __forceinline__ void quant_row_v(const __nv_bfloat16* __restrict__ a,
+                                            int8_t* __restrict__ aq, float* __restrict__ s,
+                                            int M, int K) {
+  griddep_launch();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const __nv_bfloat16* ar = a + (size_t)row * K;
+  uint4 v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 32 + lane) * 8;
+    v[i] = k < K ? __ldg(reinterpret_cast<const uint4*>(ar + k)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
+  }
+  amax = warp_max(amax);
+  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
+  const float rcp = RCP ? __fdiv_rn(1.0f, sc) : 0.f;
+  int8_t* qr = aq + (size_t)row * K;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 32 + lane) * 8;
+    if (k >= K) continue;
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+    *reinterpret_cast<uint2*>(qr + k) = RCP ? quant8_rcp(f, rcp) : quant8(f, sc);
+  }
+  if (lane == 0) s[row] = sc;
+}
+
+// The divide form (B4, B5).  The codes are quant8's: rint(a / s).
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_v(const __nv_bfloat16* __restrict__ a,
+                                                    int8_t* __restrict__ aq,
+                                                    float* __restrict__ s, int M, int K) {
+  quant_row_v<V, false>(a, aq, s, M, K);
+}
+
+// The reciprocal form (B13).
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_rcp_v(const __nv_bfloat16* __restrict__ a,
+                                                        int8_t* __restrict__ aq,
+                                                        float* __restrict__ s, int M, int K) {
+  quant_row_v<V, true>(a, aq, s, M, K);
+}
+
+// A wide row (the patch embed's 8192) a CTA of 256 threads, V 16-byte
+// vectors a thread (K <= 2048 V), the row max through shared memory: eight
+// warps a row keep more loads and divides in flight than one.  The divide
+// form.
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_block(const __nv_bfloat16* __restrict__ a,
+                                                        int8_t* __restrict__ aq,
+                                                        float* __restrict__ s, int K) {
+  griddep_launch();
+  __shared__ float part[8];
+  const int row = blockIdx.x;
+  const __nv_bfloat16* ar = a + (size_t)row * K;
+  uint4 v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 256 + threadIdx.x) * 8;
+    v[i] = k < K ? __ldg(reinterpret_cast<const uint4*>(ar + k)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
+  }
+  amax = warp_max(amax);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < 8; ++w) amax = fmaxf(amax, part[w]);
+  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
+  int8_t* qr = aq + (size_t)row * K;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 256 + threadIdx.x) * 8;
+    if (k >= K) continue;
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+    *reinterpret_cast<uint2*>(qr + k) = quant8(f, sc);
+  }
+  if (threadIdx.x == 0) s[row] = sc;
+}
+
+// Launches the divide form (RCP false) for any K % 8 == 0: up to 4096 a
+// warp a row, the row in its registers; up to 8192 (the patch embed's K) a
+// CTA a row; past that int8_gemm.cuh's two reads (which do not start the
+// next launch early).  The reciprocal form (RCP) up to K = 4096 (the caller
+// checks).  A template, so that a library builds only the kernels it
+// launches.
+template <bool RCP>
+cudaError_t launch_quant_rows(const void* a, void* aq, void* s, int M, int K, cudaStream_t st) {
+  const dim3 grid((M + 7) / 8), block(256);
+  auto A = (const __nv_bfloat16*)a;
+  auto Q = (int8_t*)aq;
+  auto S = (float*)s;
+  if constexpr (RCP) {
+    if (K <= 2048)
+      quant_rows_rcp_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 4096)
+      quant_rows_rcp_v<16><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else
+      return cudaErrorInvalidValue;
+  } else {
+    if (K <= 2048)
+      quant_rows_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 4096)
+      quant_rows_v<16><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 8192)
+      quant_rows_block<4><<<M, block, 0, st>>>(A, Q, S, K);
+    else
+      quant_rows<<<grid, block, 0, st>>>(A, Q, S, nullptr, M, K);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,9 +1,11 @@
 // The s8 GEMM core for Hopper: wgmma.mma_async s8 x s8 -> s32 with the
 // int32 accumulators in registers, fed by TMA through a ring of
 // shared-memory stages.  A sibling of bf16_wgmma.cuh, whose mbarrier, TMA
-// and descriptor primitives it shares; its consumer is norm_mod.cu (B1 and
-// B3).  Each csrc/*.cu that includes this file is built into its own shared
-// library, so everything here lives in an anonymous namespace.
+// and descriptor primitives it shares; its tile serves B1 and B3
+// (norm_mod.cu), B4 (w8a8_fused.cu) and B5 (dense_gelu_quant.cu), and B13
+// (mlp_full.cu) builds its own loops on these primitives.  Each csrc/*.cu
+// that includes this file is built into its own shared library, so
+// everything here lives in an anonymous namespace.
 //
 // The tile: 128 x 128 outputs a CTA of two warpgroups, two CTAs an SM, so
 // that one CTA's epilogue runs beside the other's products (128 registers
@@ -66,6 +68,17 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t a, ui
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// Programmatic dependent launch: a kernel launched with programmatic stream
+// serialisation (s8_launch below) may start while the launch before it
+// drains.  griddep_launch lets the next launch start; griddep_wait waits
+// until the launch before has finished and its writes are visible.
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 template <int R>
@@ -162,6 +175,32 @@ cudaError_t s8_tensor_map(CUtensorMap* map, const void* base, int rows, int cols
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches `kernel` on `st` with `smem` bytes of dynamic shared memory (the
+// attribute set at a kernel's first launch), and with programmatic stream
+// serialisation where `pdl` is set.
+template <auto kernel, class... A>
+cudaError_t s8_launch(dim3 grid, int threads, int smem, bool pdl, cudaStream_t st, A... args) {
+  static int set = -1;
+  if (set != smem) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    set = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace

@@ -16,11 +16,10 @@
 // it, narrowly.
 //
 // Design: two launches.
-//   1. quant_rows_v: one warp a row, the row's 16-byte vectors all loaded at
-//      once and kept in registers between the max and the codes (the row is
-//      read once, every load of a lane in flight together); it writes a_q
-//      [M, K] s8 and s [M] (2.7 MB at the serving shape, L2-resident).  Its
-//      first instruction lets the next launch start (griddepcontrol).
+//   1. s8_rows.cuh's quant_rows_v: one warp a row, the row kept in
+//      registers between the max and the codes; it writes a_q [M, K] s8 and
+//      s [M] (2.7 MB at the serving shape, L2-resident).  Its first
+//      instruction lets the next launch start (griddepcontrol).
 //   2. the s8 GEMM of s8_wgmma.cuh (wgmma fed by TMA, 128 x 128 tiles, two
 //      CTAs an SM) on a_q and the weight K-major, wt [N, K], which the
 //      caller makes once (wgmma reads 8-bit operands K-major only); the
@@ -33,57 +32,9 @@
 // tile taking its rows' max over all K first) would read A from L2 once per
 // column tile and twice per CTA: PERF.md has the sums.
 
-#include "int8_gemm.cuh"
-#include "s8_wgmma.cuh"
+#include "s8_rows.cuh"
 
 namespace {
-
-__device__ __forceinline__ void griddep_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// One warp a row; V 16-byte vectors a lane (K <= 256 V), all in flight at
-// once, the row kept in registers.  The codes are quant8's: rint(a / s).
-template <int V>
-__global__ void __launch_bounds__(256) quant_rows_v(const __nv_bfloat16* __restrict__ a,
-                                                    int8_t* __restrict__ aq,
-                                                    float* __restrict__ s, int M, int K) {
-  griddep_launch();
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const __nv_bfloat16* ar = a + (size_t)row * K;
-  uint4 v[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    v[i] = k < K ? __ldg(reinterpret_cast<const uint4*>(ar + k)) : make_uint4(0u, 0u, 0u, 0u);
-  }
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
-  }
-  amax = warp_max(amax);
-  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
-  int8_t* qr = aq + (size_t)row * K;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k >= K) continue;
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
-    float f[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
-    *reinterpret_cast<uint2*>(qr + k) = quant8(f, sc);
-  }
-  if (lane == 0) s[row] = sc;
-}
 
 // out = bf16(((float)acc * s) * ws) on s8_wgmma.cuh's tile.  Needs N % 128
 // == 0; K is covered by ceil(K / 128) stages (the boxes zero-fill past K).
@@ -128,46 +79,15 @@ __global__ void __launch_bounds__(S8_THREADS, 2) s8_fused_kernel(
       });
 }
 
-cudaError_t launch_quant(const void* a, void* aq, void* s, int M, int K, cudaStream_t st) {
-  const dim3 grid((M + 7) / 8), block(256);
-  auto A = (const __nv_bfloat16*)a;
-  auto Q = (int8_t*)aq;
-  auto S = (float*)s;
-  if (K <= 2048)
-    quant_rows_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
-  else if (K <= 4096)
-    quant_rows_v<16><<<grid, block, 0, st>>>(A, Q, S, M, K);
-  else  // a row past 4096 does not fit the registers: int8_gemm.cuh's two reads
-    quant_rows<<<grid, block, 0, st>>>(A, Q, S, nullptr, M, K);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_gemm(const void* aq, const void* s, const void* wt, const void* ws, void* out,
                         int M, int K, int N, bool pdl, cudaStream_t st) {
   CUtensorMap am, bm;
   cudaError_t e = s8_tensor_map(&am, aq, M, K, S8_BM);
   if (e == cudaSuccess) e = s8_tensor_map(&bm, wt, N, K, S8_BN);
   if (e != cudaSuccess) return e;
-  static bool set = false;
-  if (!set) {
-    e = cudaFuncSetAttribute(s8_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             S8_SMEM);
-    if (e != cudaSuccess) return e;
-    set = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + S8_BN - 1) / S8_BN, (M + S8_BM - 1) / S8_BM);
-  cfg.blockDim = dim3(S8_THREADS);
-  cfg.dynamicSmemBytes = S8_SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, s8_fused_kernel, am, bm, (const float*)s, (const float*)ws,
-                         (__nv_bfloat16*)out, M, K, N);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  const dim3 grid((N + S8_BN - 1) / S8_BN, (M + S8_BM - 1) / S8_BM);
+  return s8_launch<s8_fused_kernel>(grid, S8_THREADS, S8_SMEM, pdl, st, am, bm, (const float*)s,
+                                    (const float*)ws, (__nv_bfloat16*)out, M, K, N);
 }
 
 }  // namespace
@@ -175,7 +95,7 @@ cudaError_t launch_gemm(const void* aq, const void* s, const void* wt, const voi
 // The quant launch alone: a [M, K] bf16 -> aq [M, K] s8, s [M] f32 (the
 // floored scales).  Needs K % 8 == 0, 16-byte aligned rows.
 extern "C" int w8a8_quant(const void* a, void* aq, void* s, int M, int K, void* stream) {
-  return launch_quant(a, aq, s, M, K, (cudaStream_t)stream);
+  return launch_quant_rows<false>(a, aq, s, M, K, (cudaStream_t)stream);
 }
 
 // The GEMM launch alone, on a quant launch's aq and s: wt [N, K] s8 (the
@@ -193,6 +113,6 @@ extern "C" int w8a8_gemm(const void* aq, const void* s, const void* wt, const vo
 extern "C" int w8a8_fused(const void* a, const void* wt, const void* ws, void* aq, void* s,
                           void* out, int M, int K, int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e = launch_quant(a, aq, s, M, K, st);
+  const cudaError_t e = launch_quant_rows<false>(a, aq, s, M, K, st);
   return e != cudaSuccess ? e : launch_gemm(aq, s, wt, ws, out, M, K, N, true, st);
 }

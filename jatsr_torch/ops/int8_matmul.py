@@ -5,15 +5,18 @@ Ports of ``int8_dense_gelu_quant``, ``int8_matmul_fused``, ``int8_matmul``
 and ``int8_mlp`` (JAX package, ``ops/int8_matmul.py``).  Each wrapper
 dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the hand-written kernel in
-``csrc/dense_gelu_quant.cu``, ``csrc/w8a8_fused.cu`` (the fused dot, on
-the s8 ``wgmma`` GEMM of ``csrc/s8_wgmma.cuh``), ``csrc/matmul_fused.cu``
-(``matmul_prequant``) or ``csrc/mlp_full.cu``, or raises.  Nothing falls
-back.
+``csrc/dense_gelu_quant.cu``, ``csrc/w8a8_fused.cu`` (the fused dot),
+``csrc/matmul_fused.cu`` (``matmul_prequant``) or ``csrc/mlp_full.cu``, or
+raises.  Nothing falls back.  All but ``matmul_prequant`` run on the s8
+``wgmma`` core of ``csrc/s8_wgmma.cuh``, which reads 8-bit operands
+K-major only: their wrappers take the weights a second time, transposed
+(``w_t``, made once by the caller), and raise on the card without it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -110,53 +113,65 @@ def _check(a, w_q, w_scale, bias):
 
 
 def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
-                          fast_epilogue=True):
+                          fast_epilogue=True, w_t=None):
     """Fused ``quantize(gelu(dequant(a @ w_q) + b))``.
 
     Args:
         a: [M, K] bf16 activations (unquantised).
         w_q: [K, N] int8 kernel; w_scale: [1, N] fp32; bias: [1, N].
+        w_t: [N, K] int8, ``w_q.t()`` contiguous: the K-major copy the
+            card's kernel reads (``wgmma`` takes 8-bit operands K-major
+            only); needed on the card, made once by the caller.  The plain
+            version checks its shape and reads ``w_q``.
     Returns:
         (int8 [M, N], fp32 row scales [M, 1]).
     """
     if gelu_impl not in GELU_IMPLS:
         raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
     M, K, N = _check(a, w_q, w_scale, bias)
+    check_t("dense_gelu_quant", w_q, w_t)
     if a.device.type == "cpu":
         return dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl,
                                       fast_epilogue)
-    return _launch(a, w_q, w_scale, bias, M, K, N, gelu_impl, fast_epilogue)
+    return _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue)
 
 
 int8_dense_gelu_quant.launches = 0
 
+_TILE = 128  # rows, columns and depth of a stage of the s8 wgmma tiles
 
-def _launch(a, w_q, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
+
+def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     from . import _build
 
     if a.dtype != torch.bfloat16:
         raise TypeError(f"dense_gelu_quant kernel takes bf16, got {a.dtype}")
+    if w_t is None:
+        raise ValueError("dense_gelu_quant: the card's kernel reads the "
+                         "weight K-major: pass w_t = w_q.t().contiguous(), "
+                         "made once")
+    if K % _TILE:
+        raise ValueError(f"dense_gelu_quant: the s8 wgmma GEMM takes K in "
+                         f"stages of 128, got K = {K}")
     lib = _build.load("dense_gelu_quant")
     fn = lib.dense_gelu_quant
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     dev = a.device
     a = _build.aligned(a)
-    w_q = _build.aligned(w_q)
+    w_t = _build.aligned(w_t)
     ws = w_scale.reshape(N).float().contiguous()
     b = bias.reshape(N).float().contiguous()
     a_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
-    g = torch.empty((M, N), dtype=torch.float32, device=dev)
-    rowmax = torch.empty((M,), dtype=torch.int32, device=dev)
+    part = torch.empty((M, N // _TILE), dtype=torch.float32, device=dev)
     g_q = torch.empty((M, N), dtype=torch.int8, device=dev)
     g_s = torch.empty((M, 1), dtype=torch.float32, device=dev)
-    err = fn(a.data_ptr(), w_q.data_ptr(), ws.data_ptr(), b.data_ptr(),
-             a_q.data_ptr(), s.data_ptr(), g.data_ptr(), rowmax.data_ptr(),
-             g_q.data_ptr(), g_s.data_ptr(), M, K, N,
-             GELU_IMPLS.index(gelu_impl), int(bool(fast_epilogue)),
-             _build.stream_ptr(dev))
+    err = fn(a.data_ptr(), w_t.data_ptr(), ws.data_ptr(), b.data_ptr(),
+             a_q.data_ptr(), s.data_ptr(), part.data_ptr(), g_q.data_ptr(),
+             g_s.data_ptr(), M, K, N, GELU_IMPLS.index(gelu_impl),
+             int(bool(fast_epilogue)), _build.stream_ptr(dev))
     _build.check(lib, err, "dense_gelu_quant")
     int8_dense_gelu_quant.launches += 1
     return g_q, g_s
@@ -311,7 +326,79 @@ def mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl="tanh"):
             ).to(torch.bfloat16)
 
 
-def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh"):
+@dataclasses.dataclass(frozen=True)
+class MlpPlan:
+    """The card's launches of :func:`int8_mlp` (``csrc/mlp_full.cu``), as
+    that source computes them.
+
+    The hidden launch runs a CTA of ``hidden_rows`` rows and one slab of
+    ``slab`` columns at ``hidden_grid = (n_slabs, row blocks)``: its two
+    consumer warpgroups take the slab's ``tiles`` 128-wide column tiles in
+    turns (warpgroup ``t % 2`` takes tile ``t``), with ``hidden_smem`` bytes
+    of shared memory (the slab's bf16 g among them, but for each
+    warpgroup's last tile, kept in its registers).  The second product
+    runs ``out_rows`` x 128 tiles at ``out_grid = (N2 / 128, ceil(M /
+    out_rows))``.
+    """
+
+    M: int
+    K: int
+    N1: int
+    N2: int
+    n_slabs: int
+    slab: int
+    hidden_rows: int
+    hidden_grid: tuple
+    tiles: int
+    hidden_smem: int
+    out_rows: int
+    out_grid: tuple
+
+    def hidden_cover(self):
+        """Every ``(row, slab, column tile)`` each hidden CTA's warpgroups
+        write, as ``(cta, warpgroup, row, slab, tile)`` tuples (rows past M
+        are skipped, as the kernel skips their stores)."""
+        gx, gy = self.hidden_grid
+        for by in range(gy):
+            for j in range(gx):
+                for t in range(self.tiles):
+                    for r in range(by * self.hidden_rows,
+                                   min((by + 1) * self.hidden_rows, self.M)):
+                        yield (j, by), t % 2, r, j, t
+
+
+_MLP_HIDDEN_ROWS, _MLP_STAGES, _MLP_MAX_SLAB, _MLP_OUT_ROWS = 64, 4, 1280, 192
+_MLP_REG_TILES = 2  # the last column tile of each warpgroup: in registers
+_SMEM_LIMIT = 232448  # the H100's largest dynamic shared memory a CTA
+
+
+def mlp_plan(M: int, K: int, N1: int, N2: int) -> MlpPlan:
+    """The launch plan of :func:`int8_mlp` on the card; raises
+    ``ValueError`` for a shape its kernels do not take: K % 128, K <= 4096
+    (the row quant keeps a row in registers), N2 % 128, and each slab
+    (``_pick_slabs``) a multiple of 128 no wider than 1280 (its g fills the
+    hidden CTA's shared memory)."""
+    n_slabs = _pick_slabs(N1)
+    slab = N1 // n_slabs
+    if K % _TILE or K > 4096 or N2 % _TILE:
+        raise ValueError(f"int8_mlp: the kernels take K % 128 == 0, K <= "
+                         f"4096 and N2 % 128 == 0, got K = {K}, N2 = {N2}")
+    if slab % _TILE or slab > _MLP_MAX_SLAB:
+        raise ValueError(f"int8_mlp: a slab of {slab} (N1 = {N1}) is not a "
+                         f"multiple of 128 up to {_MLP_MAX_SLAB}")
+    rows = _MLP_HIDDEN_ROWS
+    in_smem = max(slab // _TILE - _MLP_REG_TILES, 0)
+    smem = (_MLP_STAGES * (rows + _TILE) * _TILE
+            + rows * (2 * _TILE * in_smem + 16) + 3 * rows * 4
+            + 2 * _MLP_STAGES * 8 + 1024)
+    assert smem <= _SMEM_LIMIT, smem
+    return MlpPlan(M, K, N1, N2, n_slabs, slab, rows,
+                   (n_slabs, -(-M // rows)), slab // _TILE, smem,
+                   _MLP_OUT_ROWS, (N2 // _TILE, -(-M // _MLP_OUT_ROWS)))
+
+
+def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh",
+             w1_t=None, w2_t=None):
     """The whole serving MLP, ``dequant(quant(gelu(a @ w1 + b1)) @ w2) + b2``,
     with per-(row, slab) requant scales of the hidden activation.
 
@@ -319,6 +406,10 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh"):
         a: [M, K] bf16 activations (unquantised).
         w1_q: [K, N1] int8; w1_scale, b1: [1, N1] fp32.
         w2_q: [N1, N2] int8; w2_scale, b2: [1, N2].
+        w1_t, w2_t: [N1, K] and [N2, N1] int8, ``w1_q.t()`` and
+            ``w2_q.t()`` contiguous: the K-major copies the card's kernels
+            read; needed on the card, made once by the caller.  The plain
+            version checks their shapes and reads ``w1_q`` and ``w2_q``.
     Returns:
         [M, N2] bf16.
     """
@@ -327,34 +418,38 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh"):
     M = a.shape[0]
     K, N1 = check_weights("int8_mlp", a.shape[1], w1_q, w1_scale, b1)
     _, N2 = check_weights("int8_mlp", N1, w2_q, w2_scale, b2)
+    check_t("int8_mlp", w1_q, w1_t)
+    check_t("int8_mlp", w2_q, w2_t)
     if a.device.type == "cpu":
         return mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl)
     from . import _build
 
     if a.dtype != torch.bfloat16:
         raise TypeError(f"int8_mlp kernel takes bf16, got {a.dtype}")
+    if w1_t is None or w2_t is None:
+        raise ValueError("int8_mlp: the card's kernels read both weights "
+                         "K-major: pass w1_t = w1_q.t().contiguous() and "
+                         "w2_t = w2_q.t().contiguous(), made once")
+    plan = mlp_plan(M, K, N1, N2)
     lib = _build.load("mlp_full")
     fn = lib.int8_mlp
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     dev = a.device
-    n_slabs = _pick_slabs(N1)
-    a, w1_q, w2_q = (_build.aligned(t) for t in (a, w1_q, w2_q))
+    a, w1_t, w2_t = (_build.aligned(t) for t in (a, w1_t, w2_t))
     w1s, bb1, w2s, bb2 = (t.reshape(-1).float().contiguous()
                           for t in (w1_scale, b1, w2_scale, b2))
     aq = torch.empty((M, K), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
-    g = torch.empty((M, N1), dtype=torch.bfloat16, device=dev)
-    rowmax = torch.empty((M, n_slabs), dtype=torch.int32, device=dev)
     gq = torch.empty((M, N1), dtype=torch.int8, device=dev)
-    gs = torch.empty((M, n_slabs), dtype=torch.float32, device=dev)
+    gs = torch.empty((M, plan.n_slabs), dtype=torch.float32, device=dev)
     out = torch.empty((M, N2), dtype=torch.bfloat16, device=dev)
-    err = fn(a.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(), bb1.data_ptr(),
-             w2_q.data_ptr(), w2s.data_ptr(), bb2.data_ptr(), aq.data_ptr(),
-             s.data_ptr(), g.data_ptr(), rowmax.data_ptr(), gq.data_ptr(),
-             gs.data_ptr(), out.data_ptr(), M, K, N1, N2, n_slabs,
-             GELU_IMPLS.index(gelu_impl), _build.stream_ptr(dev))
+    err = fn(a.data_ptr(), w1_t.data_ptr(), w1s.data_ptr(), bb1.data_ptr(),
+             w2_t.data_ptr(), w2s.data_ptr(), bb2.data_ptr(), aq.data_ptr(),
+             s.data_ptr(), gq.data_ptr(), gs.data_ptr(), out.data_ptr(), M, K,
+             N1, N2, plan.n_slabs, GELU_IMPLS.index(gelu_impl),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "int8_mlp")
     int8_mlp.launches += 1
     return out

@@ -36,7 +36,9 @@ norm rtol 2e-2, updated parameters within 2 lr (a first Adam step moves
 each by +-lr, so a gradient whose sign differs in bf16 moves it the other
 way) and within 2 % of lr on average.
 The s8 product on a pre-quantised A (B14) is bit-equal to its plain version
-and to ``w8a8_dot(impl="xla")``.  The whole MLP (B13) rounds at the same
+and to ``w8a8_dot(impl="xla")``.  B5 and B13 read their weights K-major
+(``w_t``, ``w1_t``, ``w2_t``), raise on the card without them, and give the
+same bits on two calls.  The whole MLP (B13) rounds at the same
 points as its plain version; tanhf / expf may differ from PyTorch's in the
 last bit and move a bf16 g, and so a code, by one: at most 0.1 % of the
 outputs differ, each within 0.02 absolute plus 0.02 relative (the bound of
@@ -133,7 +135,7 @@ def _assert_codes(got, want, scale_rtol=1e-5):
 def test_dense_gelu_quant_kernel_matches_plain(card, M, K, N):
     args = _dense_inputs(card, M, K, N, seed=3)
     n0 = int8_dense_gelu_quant.launches
-    got = int8_dense_gelu_quant(*args)
+    got = int8_dense_gelu_quant(*args, w_t=args[1].t().contiguous())
     assert int8_dense_gelu_quant.launches == n0 + 1
     _assert_codes(got, dense_gelu_quant_plain(*args))
 
@@ -143,9 +145,32 @@ def test_dense_gelu_quant_kernel_matches_plain(card, M, K, N):
 def test_dense_gelu_quant_kernel_epilogues(card, gelu_impl, fast_epilogue):
     args = _dense_inputs(card, 100, 256, 512, seed=4)
     got = int8_dense_gelu_quant(*args, gelu_impl=gelu_impl,
-                                fast_epilogue=fast_epilogue)
+                                fast_epilogue=fast_epilogue,
+                                w_t=args[1].t().contiguous())
     _assert_codes(got, dense_gelu_quant_plain(*args, gelu_impl=gelu_impl,
                                               fast_epilogue=fast_epilogue))
+
+
+@pytest.mark.parametrize("fast_epilogue", [True, False])
+@pytest.mark.parametrize("M,K,N", [(2070, 1280, 5120), (2112, 8192, 512)])
+def test_dense_gelu_quant_kernel_at_the_path_shapes(card, M, K, N,
+                                                    fast_epilogue):
+    """B5 at mlp_in (the second and split-attention paths) and the patch
+    embed (every path), in both epilogue modes: the codes within the
+    dense+GELU bound, and two calls bit-equal (no atomics)."""
+    args = _dense_inputs(card, M, K, N, seed=5)
+    w_t = args[1].t().contiguous()
+    got = int8_dense_gelu_quant(*args, fast_epilogue=fast_epilogue, w_t=w_t)
+    _assert_codes(got, dense_gelu_quant_plain(*args,
+                                              fast_epilogue=fast_epilogue))
+    again = int8_dense_gelu_quant(*args, fast_epilogue=fast_epilogue, w_t=w_t)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_dense_gelu_quant_kernel_raises_without_its_kmajor_copy(card):
+    args = _dense_inputs(card, 100, 256, 512, seed=6)
+    with pytest.raises(ValueError, match="w_t"):
+        int8_dense_gelu_quant(*args)
 
 
 def _prologue_inputs(card, B, Np, H, N, rows, seed):
@@ -352,18 +377,48 @@ def _mlp_args(card, M, H, N1, seed):
     return a, w1q, w1s, b1, w2q, w2s, b2
 
 
+def _mlp_t(args):
+    """The K-major copies of both weights, as the DiT keeps them."""
+    return {"w1_t": args[1].t().contiguous(), "w2_t": args[4].t().contiguous()}
+
+
 @pytest.mark.parametrize("M,H,N1,gelu_impl", [
     (2112, 1280, 5120, "tanh"), (96, 128, 2560, "erf"),
-    (100, 256, 1024, "sigmoid")])
+    (100, 256, 1024, "sigmoid"), (70, 256, 384, "erf")])
 def test_int8_mlp_kernel_matches_plain(card, M, H, N1, gelu_impl):
-    """B13 at the v3 block (four slabs), two slabs, and one."""
+    """B13 at the v3 block (four slabs), two slabs, one, and one slab of
+    three column tiles (one in shared memory, one in each warpgroup's
+    registers)."""
     args = _mlp_args(card, M, H, N1, seed=22)
     n0 = int8_mlp.launches
-    got = int8_mlp(*args, gelu_impl=gelu_impl).float()
+    got = int8_mlp(*args, gelu_impl=gelu_impl, **_mlp_t(args)).float()
     assert int8_mlp.launches == n0 + 1
     want = mlp_plain(*args, gelu_impl=gelu_impl).float()
     assert (got != want).float().mean().item() <= 1e-3
     torch.testing.assert_close(got, want, atol=0.02, rtol=0.02)
+
+
+@pytest.mark.parametrize("gelu_impl", ["tanh", "erf", "sigmoid"])
+@pytest.mark.parametrize("M", [2070, 100])
+def test_int8_mlp_kernel_at_v3_width_every_gelu(card, M, gelu_impl):
+    """B13 at v3's widths (H 1280, four slabs of 1280) with M past a
+    multiple of 64 (2070: the second path's rows; 100), in each GELU: the
+    bound above, and two calls bit-equal (no atomics)."""
+    args = _mlp_args(card, M, 1280, 5120, seed=23)
+    kt = _mlp_t(args)
+    got = int8_mlp(*args, gelu_impl=gelu_impl, **kt)
+    want = mlp_plain(*args, gelu_impl=gelu_impl).float()
+    assert (got.float() != want).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got.float(), want, atol=0.02, rtol=0.02)
+    assert torch.equal(got, int8_mlp(*args, gelu_impl=gelu_impl, **kt))
+
+
+def test_int8_mlp_kernel_raises_without_its_kmajor_copies(card):
+    args = _mlp_args(card, 100, 256, 1024, seed=24)
+    kt = _mlp_t(args)
+    for missing in ("w1_t", "w2_t"):
+        with pytest.raises(ValueError, match="K-major"):
+            int8_mlp(*args, **{k: v for k, v in kt.items() if k != missing})
 
 
 @pytest.mark.parametrize("B,N,n_valid,hq,hkv,H", [
