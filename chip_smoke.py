@@ -25,8 +25,9 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
 - The third path is ``bench.py --flash-out --fused-mlp-impl full
   --int8-impl pallas`` (352 patches, keys masked past 345; the fused
   prologue is off there, as in the JAX model): each block runs
-  int8_matmul (the qkv product on the torch-quantised A), flash_out
-  (attention with the int8 out projection) and int8_mlp (the whole MLP);
+  int8_matmul (the qkv product, behind w8a8_dot's row-quant launch),
+  flash_out (attention with the int8 out projection) and int8_mlp (the
+  whole MLP);
   the patch embed runs dense_gelu_quant; then the fused decode.
 - The fourth, fifth and sixth paths are ``bench.py --no-flash-qkv``,
   ``--attention pallas`` and ``--attention pallas2`` (the fused prologue
@@ -47,9 +48,13 @@ wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
 one against their plain versions.  B4 (matmul_fused) runs a row-quant
 launch and the same s8 wgmma GEMM (``csrc/w8a8_fused.cu``), bit-equal to
-its plain version.  B5 (dense_gelu_quant) runs a row-quant launch and B1's
-two passes of that GEMM (``csrc/s8_gelu.cuh``), held in both epilogue
-modes at both path shapes; B13 (int8_mlp) a row-quant launch, a first
+its plain version; B14 (int8_matmul) is that GEMM alone, in bf16 and fp32
+output, bit-equal to its plain version, and w8a8_dot(impl="pallas") (a
+row-quant launch writing the unfloored scale, then B14) bit-equal to
+impl="xla"; B12 (flash_out) runs its attention launch, then the same row
+quant and GEMM with a bias.  B5 (dense_gelu_quant) runs a row-quant
+launch and B1's two passes of that GEMM (``csrc/s8_gelu.cuh``), held in
+both epilogue modes at both path shapes; B13 (int8_mlp) a row-quant launch, a first
 product whose CTAs each keep one (64-row block, slab) of bf16 g in shared
 memory and write its codes, and the second product folded slab by slab
 (``csrc/mlp_full.cu``), each on the weights K-major.  B8 is the wgmma GEMM
@@ -142,6 +147,9 @@ FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
 KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                "int8_matmul": "opt_in", "flash_split": "split_flash",
                "gqa_attention": "pallas", "gqa_attention_grouped": "pallas2"}
+# Counted launches that replace no TPU kernel (w8a8_dot's row quant, XLA's
+# in the JAX package): checked on each path, left off the kernel line.
+HELPERS = ("prequant_quant",)
 
 
 def log(*a):
@@ -446,6 +454,7 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
     {kernel: {"shape", "max_abs_err"[, "ms"]}}."""
     from jatsr_torch.models.dit import rope_cos_sin
     from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
+                                           flash_out_weight_t,
                                            flash_split_plain, gqa_attention,
                                            gqa_attention_flash,
                                            gqa_attention_flash_out,
@@ -460,6 +469,7 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
     q, k, v = (qkv[..., :hq * D], qkv[..., hq * D:(hq + hkv) * D],
                qkv[..., (hq + hkv) * D:])
     _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, seed + 1)
+    wo_t = flash_out_weight_t(wo_q, hq, D)  # made once, as the DiT makes it
     shq, shkv = split_heads
     split = torch.randn((EXTRA_B, N, (shq + 2 * shkv) * D), generator=gen,
                         device="cuda").bfloat16()
@@ -473,7 +483,8 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
         "flash_split": (lambda: gqa_attention_flash(q, k, v, hq, hkv),
                         lambda: flash_split_plain(q, k, v, hq, hkv), None),
         "flash_out": (lambda: gqa_attention_flash_out(
-            qkv, cos, sin, wo_q, wo_s, bo, hq, hkv, n_valid=n_valid),
+            qkv, cos, sin, wo_q, wo_s, bo, hq, hkv, n_valid=n_valid,
+            wo_t=wo_t),
             lambda: flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
                                     n_valid=n_valid), REL_FLASH_OUT),
         "gqa_attention": (lambda: gqa_attention(q4, k4, v4),
@@ -790,11 +801,13 @@ REL_FLASH_OUT = 1e-2
 
 def check_flash_out(torch):
     """flash_out (B12) against its plain version at qkv [6, 352, 1792],
-    keys masked past 345, wo [1280, 1280] with a non-zero bias."""
+    keys masked past 345, wo [1280, 1280] with a non-zero bias; its GEMM
+    reads the weight K-major (``wo_t``), made once, as the DiT makes it."""
     import torch.nn.functional as F
 
     from jatsr_torch.models.dit import rope_cos_sin
     from jatsr_torch.ops.attention import (flash_out_plain,
+                                           flash_out_weight_t,
                                            gqa_attention_flash_out)
     from jatsr_torch.ops.int8_matmul import quantize_rows
 
@@ -804,8 +817,9 @@ def check_flash_out(torch):
                       device="cuda").bfloat16()
     cos, sin = rope_cos_sin(NP, D, device="cuda")
     _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, SEED + 12)
+    wo_t = flash_out_weight_t(wo_q, hq, D)
     got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
-                                  n_valid=N_VALID).float()
+                                  n_valid=N_VALID, wo_t=wo_t).float()
     want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
                            n_valid=N_VALID).float()
     torch.cuda.synchronize()
@@ -824,7 +838,8 @@ def check_flash_out(torch):
         return y.bfloat16()
 
     t = timings(lambda x, c, s, *_: gqa_attention_flash_out(
-                    x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID),
+                    x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID,
+                    wo_t=wo_t),
                 lambda x, c, s, *_: flash_out_plain(
                     x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID),
                 library, (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=200)
@@ -889,36 +904,62 @@ def check_int8_mlp(torch):
 
 
 def check_int8_matmul(torch):
-    """int8_matmul (B14) at the qkv product [2112, 1280] x [1280, 1792]:
-    bit-equal to its plain version and to ``w8a8_dot(impl="xla")``."""
+    """int8_matmul (B14) at the qkv product [2112, 1280] x [1280, 1792] on
+    the weight K-major (``w_t``, made once, as the DiT makes it), in bf16
+    and fp32 output: bit-equal to its plain version.  Then
+    ``w8a8_dot(impl="pallas")``, the row-quant launch and B14 started
+    behind it under programmatic stream serialisation, bit-equal to
+    ``impl="xla"``, with an all-zero row and a row whose max|a| * (1/127)
+    is below 1e-12 (there the floored and unfloored scales differ)."""
     from jatsr_torch.ops.int8_matmul import (int8_matmul,
+                                             int8_quantize_rows,
                                              matmul_prequant_plain,
                                              quantize_rows)
     from jatsr_torch.ops.quant import w8a8_dot
 
     M, N = B * NP, 1792
     a, w_q, w_s, _ = dense_inputs(torch, M, H, N, SEED + 15)
+    a[3] = 0.0
+    a[7] *= 1e-12
+    w_t = w_q.t().contiguous()
     a_q, a_s = quantize_rows(a)
-    got = int8_matmul(a_q, a_s, w_q, w_s)
+    for dt in (torch.bfloat16, torch.float32):
+        got = int8_matmul(a_q, a_s, w_q, w_s, out_dtype=dt, w_t=w_t)
+        want = matmul_prequant_plain(a_q, a_s, w_q, w_s, dt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or got.dtype != dt:
+            raise AssertionError(f"int8_matmul: not bit-equal to its plain "
+                                 f"version in {dt}")
+    got = w8a8_dot(a, w_q, w_s, impl="pallas", w_t=w_t)
+    want = w8a8_dot(a, w_q, w_s, impl="xla")
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, matmul_prequant_plain(a_q, a_s, w_q, w_s),
-                               atol=0, rtol=0)
-    torch.testing.assert_close(got, w8a8_dot(a, w_q, w_s, impl="xla"),
-                               atol=0, rtol=0)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("w8a8_dot(impl='pallas'): not bit-equal to "
+                             "impl='xla'")
+    log("[kernel] int8_matmul bit-equal to its plain version (bf16, fp32); "
+        "w8a8_dot pallas == xla, bit for bit")
 
-    def library(a_q, a_s, w_q, w_s):
+    def library(a_q, a_s, w_q, w_s, _):
         return (torch._int_mm(a_q, w_q).float() * a_s * w_s).bfloat16()
 
-    t = timings(int8_matmul, matmul_prequant_plain, library,
-                (a_q, a_s, w_q, w_s), big=(0, 2))
+    t = timings(lambda a_q, a_s, w_q, w_s, w_t: int8_matmul(
+                    a_q, a_s, w_q, w_s, w_t=w_t),
+                lambda a_q, a_s, w_q, w_s, _: matmul_prequant_plain(
+                    a_q, a_s, w_q, w_s),
+                library, (a_q, a_s, w_q, w_s, w_t), big=(0, 4))
+    sets = [(a.clone(),) for _ in range(rotations(a.nbytes + w_t.nbytes))]
+    whole = {"quant_ms": time_ms(int8_quantize_rows, sets, 100),
+             "w8a8_dot_pallas_ms": time_ms(lambda x: w8a8_dot(
+                 x, w_q, w_s, impl="pallas", w_t=w_t), sets, 100)}
     b_ms, b_by = bound(nbytes_of(a_q, a_s, w_q, w_s, got), 2 * M * H * N,
                        PEAK_INT8)
     return {"name": "int8_matmul", "route": "cuda",
-            "source": "jatsr_torch/ops/csrc/matmul_fused.cu",
+            "source": "jatsr_torch/ops/csrc/w8a8_fused.cu",
             "replaces": "ops/int8_matmul.py:757 (JAX package, int8_matmul; "
                         "pallas_call :794)",
-            "max_abs_err": 0.0, **t, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": [M, H, N]}
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, N],
+            **whole}
 
 
 # ---- the fused decode's kernels (B6-B9) ------------------------------------
@@ -1783,7 +1824,7 @@ def main() -> int:
                                            gqa_attention_grouped)
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
                                              int8_matmul, int8_matmul_fused,
-                                             int8_mlp)
+                                             int8_mlp, int8_quantize_rows)
     from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
                                           int8_norm_mod_dot)
     from jatsr_torch.ops.quant import quantize_params_static
@@ -1802,7 +1843,6 @@ def main() -> int:
 
     # 2. Build.
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "w8a8_fused",
-               "matmul_fused",
                "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
                "attention_train", "attention_deferred", "attention_natural",
                "attention_wide")
@@ -1874,7 +1914,8 @@ def main() -> int:
                 "int8_matmul": int8_matmul,
                 "flash_split": gqa_attention_flash,
                 "gqa_attention": gqa_attention,
-                "gqa_attention_grouped": gqa_attention_grouped}
+                "gqa_attention_grouped": gqa_attention_grouped,
+                "prequant_quant": int8_quantize_rows}
     per_block = STEPS * cfgs["prologue"].depth
     segments = 2  # 3790 frames: two decode segments, one per decode call
     fused_decode = {"snake_conv_transpose_streamed": segments,
@@ -1890,7 +1931,7 @@ def main() -> int:
                         "dense_gelu_quant": per_block + STEPS},
         "opt_in": {**none, "dense_gelu_quant": STEPS, "flash_out": per_block,
                    "int8_mlp": per_block, "int8_matmul": per_block,
-                   **fused_decode},
+                   "prequant_quant": per_block, **fused_decode},
     }
     for name, kernel in (("split_flash", "flash_split"),
                          ("pallas", "gqa_attention"),
@@ -1952,7 +1993,8 @@ def main() -> int:
 
     # Result lines.
     kernels = [dict(checks[k], launches=launches[
-        KERNEL_PATH.get(k, "prologue")][k]) for k in counters]
+        KERNEL_PATH.get(k, "prologue")][k]) for k in counters
+        if k not in HELPERS]
     kernels += [dict(checks[k], launches=n)
                 for k, n in launches["train"].items()]
     print(json.dumps({"kernels": kernels}))

@@ -38,9 +38,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs import ModelConfig
-from ..ops.attention import (_rope, flash_supported, gqa_attention,
-                             gqa_attention_flash, gqa_attention_flash_out,
-                             gqa_attention_flash_qkv, gqa_attention_grouped)
+from ..ops.attention import (_rope, flash_out_weight_t, flash_supported,
+                             gqa_attention, gqa_attention_flash,
+                             gqa_attention_flash_out, gqa_attention_flash_qkv,
+                             gqa_attention_grouped, padded_head_dim)
 from ..ops.attention_train import gqa_attention_train, train_flash_supported
 from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
                                int8_mlp, int8_mm)
@@ -245,18 +246,26 @@ class GQAttention(nn.Module):
             b = proj.bias
             self.register_buffer(name, torch.zeros_like(
                 proj.kernel_scale[0]) if b is None else b.float())
-        # The fused-prologue qkv kernel's s8 wgmma GEMM reads the weight
-        # K-major, [N, H]: made once here, not on every call.  So does the
-        # fused out-projection kernel the fused prologue runs behind the
-        # attention (out_proj's own copy where it keeps one).
-        self.register_buffer("qkv_kernel_t",
-                             self.qkv_proj.kernel_q.t().contiguous(),
+        # The s8 wgmma GEMMs read their weights K-major: each copy is made
+        # once here, not on every call, and no weight is held K-major twice
+        # (a QuantDense's own kernel_t is reused).  qkv: the fused-prologue
+        # kernel.  out: B12 where flash_fused_out can take it (the heads
+        # padded to its kernel's head dim), else the fused out projection
+        # the fused prologue runs behind the attention.
+        def kmajor(proj):
+            t = proj.kernel_t
+            return proj.kernel_q.t().contiguous() if t is None else t
+
+        self.register_buffer("qkv_kernel_t", kmajor(self.qkv_proj),
                              persistent=False)
+        hq, D = cfg.num_q_heads, cfg.head_dim
         out_t = None
-        if cfg.fused_prologue and not cfg.attention_bias:
-            out_t = self.out_proj.kernel_t
-            if out_t is None:
-                out_t = self.out_proj.kernel_q.t().contiguous()
+        if (cfg.flash_fused_out and cfg.attention_impl == "flash"
+                and cfg.flash_qkv):
+            out_t = (kmajor(self.out_proj) if padded_head_dim(D) == D else
+                     flash_out_weight_t(self.out_proj.kernel_q, hq, D))
+        elif cfg.fused_prologue and not cfg.attention_bias:
+            out_t = kmajor(self.out_proj)
         self.register_buffer("out_kernel_t", out_t, persistent=False)
 
     def forward(self, x, cos, sin, n_valid=0, prenorm=None):
@@ -280,7 +289,8 @@ class GQAttention(nn.Module):
                 o = self.out_proj
                 return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
                                                o.kernel_scale, self.out_bias,
-                                               hq, hkv, n_valid=n_valid)
+                                               hq, hkv, n_valid=n_valid,
+                                               wo_t=self.out_kernel_t)
             out = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv,
                                           n_valid=n_valid)
             if prenorm is not None and not cfg.attention_bias:

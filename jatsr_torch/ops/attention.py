@@ -177,9 +177,22 @@ def flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, num_q_heads,
     return out.to(dt).reshape(B, N, -1)
 
 
+def flash_out_weight_t(wo_q, num_q_heads: int, head_dim: int):
+    """The out projection's ``[Hq*D, H]`` int8 kernel as B12's card kernel
+    reads it: K-major, ``[H, Hq*Dp]`` contiguous, each head's rows widened
+    by zeros to the kernel's head dim ``Dp`` (:func:`padded_head_dim`,
+    :func:`pad_heads`: a zero code times a zero row adds nothing).  Made
+    once by the caller (the DiT), not on every call."""
+    if wo_q.shape[0] != num_q_heads * head_dim:
+        raise ValueError(f"wo_q rows {wo_q.shape[0]} != {num_q_heads} heads x "
+                         f"{head_dim}")
+    return pad_heads(wo_q.t(), head_dim, padded_head_dim(head_dim)
+                     ).contiguous()
+
+
 def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
                             num_q_heads: int, num_kv_heads: int,
-                            n_valid: int = 0):
+                            n_valid: int = 0, *, wo_t=None):
     """Flash GQA with the int8 output projection fused in.
 
     Args:
@@ -189,6 +202,11 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
             per-column scales; wo_bias: [1, H] fp32 (zeros where the
             projection has none).
         n_valid: keys at positions >= n_valid are masked; 0 means N.
+        wo_t: [H, Hq*Dp] int8, :func:`flash_out_weight_t` of ``wo_q``: the
+            K-major copy (heads padded to the kernel's head dim) that the
+            card's s8 ``wgmma`` GEMM reads; needed on the card, made once
+            by the caller.  The plain version checks its shape and reads
+            ``wo_q``.
     Returns:
         [B, N, H] in qkv's dtype: the attention branch before the residual.
     """
@@ -202,28 +220,33 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     D = TD // (hq + 2 * hkv)
     # The kernel's GEMM contracts over the heads at their padded width.
     Dp = padded_head_dim(D)
+    K = hq * Dp
     _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias,
-                         k_run=hq * Dp)
+                         k_run=K, k_mult=16)
+    if wo_t is not None and (wo_t.shape != (H, K) or wo_t.dtype != torch.int8
+                             or not wo_t.is_contiguous()):
+        raise ValueError(f"flash_out: wo_t must be flash_out_weight_t(wo_q), "
+                         f"int8 [{H}, {K}] contiguous, got "
+                         f"{tuple(wo_t.shape)} {wo_t.dtype}")
     if qkv.device.type == "cpu":
         return flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, hq, hkv,
                                n_valid)
     from . import _build
 
+    if wo_t is None:
+        raise ValueError("flash_out: the card's kernel reads the out "
+                         "projection K-major: pass wo_t = "
+                         "flash_out_weight_t(wo_q, hq, D), made once")
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
     scale2 = _scale2_bf16(D)
     if Dp != D:  # zero head columns: the same scores, outputs and codes
         q, k, v, cos, sin = (pad_heads(t, D, Dp) for t in (q, k, v, cos, sin))
-        wo_q = pad_heads(wo_q.t(), D, Dp).t()
         D = Dp
-    K = hq * D
-    if K % 64 or H % 128:
-        raise ValueError(f"flash_out: the int8 out projection needs "
-                         f"Hq*D % 64 == 0 and H % 128 == 0, got {K}, {H}")
     dev = qkv.device
     plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(dev.index),
                           n_valid or N, False)
     _check_smem(plan, dev, "flash_out")
-    wo_q = _build.aligned(wo_q)
+    wo_t = _build.aligned(wo_t)
     wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
     o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
     oq = torch.empty((B * N, K), dtype=torch.int8, device=dev)
@@ -236,7 +259,7 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
         err = lib.flash_out_wide(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
             cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(),
-            wo_q.data_ptr(), wos.data_ptr(), bo.data_ptr(), o.data_ptr(),
+            wo_t.data_ptr(), wos.data_ptr(), bo.data_ptr(), o.data_ptr(),
             oq.data_ptr(), so.data_ptr(), out.data_ptr(), B, H,
             _build.stream_ptr(dev))
         _build.check(lib, err, "flash_out_wide")
@@ -247,7 +270,7 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     gx, gy, gz = plan.launch_grid(B)
     err = lib.flash_out(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
-        cos.data_ptr(), sin.data_ptr(), wo_q.data_ptr(), wos.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), wo_t.data_ptr(), wos.data_ptr(),
         bo.data_ptr(), o.data_ptr(), oq.data_ptr(), so.data_ptr(),
         out.data_ptr(), D, gz, gx, gy, plan.warps, plan.smem, H,
         _build.stream_ptr(dev))
@@ -261,7 +284,8 @@ gqa_attention_flash_out.launches = 0
 
 @functools.cache
 def _flash_out_lib():
-    """csrc/flash_qkv.cu's library, its entry point's C types set."""
+    """csrc/flash_qkv.cu's library, its entry points' C types set
+    (``flash_out_gemm``: the GEMM stage alone, for the card tests)."""
     from . import _build
 
     lib = _build.load("flash_qkv")
@@ -269,6 +293,9 @@ def _flash_out_lib():
     lib.flash_out.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.POINTER(_NaturalArgs)]
         + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.flash_out_gemm.restype = ctypes.c_int
+    lib.flash_out_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p])
     return lib
 
 

@@ -24,7 +24,9 @@
 //   backward p = exp2f(s - m) / l, dw = (do v^T) kc, wd = p kc, ds =
 //            bf16(p (dw - delta) scale), dv = bf16(wd)^T do, dk = ds^T q,
 //            dq = ds k, each summed in fp32 and rounded once
-// with the exact row max (no online softmax).  B2 and B12 rotate q and K
+// with the exact row max (no online softmax); B12's out projection behind
+// it as at D <= 128 (s8_dequant.cuh: s8_rows.cuh's row quant, then the s8
+// wgmma GEMM on the weight K-major).  B2 and B12 rotate q and K
 // first in a launch of their own (wide_rope: rope_half, q scaled after,
 // the same operations as rope_rows in shared memory) into a [B, N, H, dp]
 // scratch; the attention then reads q' as it is.
@@ -58,7 +60,7 @@
 // wgmma accumulators this shape asks for.  Needs dp % 128 == 0.
 
 #include "attention_rows.cuh"
-#include "int8_gemm.cuh"
+#include "s8_dequant.cuh"
 
 // The launch of the wide forward and the rope pass (ops/attention.py:
 // _wide_plan, field for field).
@@ -762,25 +764,19 @@ extern "C" int attention_wide(const void* q, const void* k, const void* v, void*
 }
 
 // B12 at dp: the rope pass, the normed attention into o [B * N, hq * dp]
-// bf16, then quant_rows and the s8 GEMM of int8_gemm.cuh with wo [hq * dp,
-// H] s8, wos and bo [H] f32 -> out [B, N, H] bf16 (oq, so scratch), as
-// flash_qkv.cu's flash_out.  Needs H % 128 == 0.
+// bf16, then the row quant and the s8 wgmma GEMM with wo_t [H, hq * dp] s8
+// (the out projection's weight K-major, zero-padded heads), wos and bo [H]
+// f32 -> out [B, N, H] bf16 (oq, so scratch), as flash_qkv.cu's flash_out.
+// Needs H % 128 == 0.
 extern "C" int flash_out_wide(const void* q, const void* k, const void* v, const WidePlan* plan,
                               const float* cos_t, const float* sin_t, void* qr, void* kr,
-                              const void* wo, const void* wos, const void* bo, void* o, void* oq,
-                              void* so, void* out, int B, int H, void* stream) {
+                              const void* wo_t, const void* wos, const void* bo, void* o,
+                              void* oq, void* so, void* out, int B, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = roped<Epilogue::kNormed>(q, k, v, o, *plan, cos_t, sin_t, qr, kr, B, st);
+  const cudaError_t e = roped<Epilogue::kNormed>(q, k, v, o, *plan, cos_t, sin_t, qr, kr, B, st);
   if (e != cudaSuccess) return e;
   const int M = B * plan->N, K = plan->hq * plan->dp;
-  quant_rows<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (int8_t*)oq, (float*)so,
-                                          nullptr, M, K);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  gemm_dequant<true><<<dim3(H / BN, (M + BM - 1) / BM), 128, 0, st>>>(
-      (const int8_t*)oq, (const int8_t*)wo, (const float*)wos, (const float*)bo,
-      (const float*)so, (__nv_bfloat16*)out, M, K, H);
-  return cudaGetLastError();
+  return s8_quant_dequant<true>(o, oq, so, wo_t, wos, bo, out, M, K, H, st);
 }
 
 // B10's forward at dp: q [B, N, hq * dp], k/v [B, N, hkv * dp] bf16

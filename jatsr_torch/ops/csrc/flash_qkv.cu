@@ -14,7 +14,8 @@
 //   w     = bf16(e / l), a correctly rounded divide, rounded BEFORE the product
 //   o_h   = bf16(w @ v) per head, no rescale
 //   so    = max(max|o_row| * INV127, 1e-12) over the whole Hq*D row
-//   o_q   = rint(o / so); out = bf16(((float)(o_q @ wo) * so) * wos + bo)
+//   o_q   = rint(o / so)                          a true divide
+//   out   = bf16(((float)(o_q @ wo) * so) * wos + bo), each op rounded
 //
 // What bounds it on the H100: at the serving shape (qkv [6, 352, 1792],
 // keys masked past 345, wo [1280, 1280]) it is 3.80 GFLOP bf16 (3.84 us at
@@ -34,13 +35,21 @@
 //      128 run: past 768 keys at D = 64, V takes K's buffer once the scores
 //      are done; at D = 128 (8-warp CTAs) past 640 keys the plan takes
 //      attention_stream.cuh's mode (K and V in 128-key chunks).
-//   2. quant_rows and 3. gemm_dequant<true> of int8_gemm.cuh.  The TPU
-//      kernel keeps o in VMEM and quantises it there; a CTA here owns one
-//      kv-head's rows, not the whole Hq*D row the quantisation needs, so o
-//      makes one round trip (5.4 MB at the serving shape, L2-resident).
+//   2. s8_rows.cuh's row quant (quant_rows_v, the divide form: one warp a
+//      row, the row in registers), which lets the next launch start at its
+//      first instruction; 3. s8_dequant.cuh's s8 wgmma GEMM with the bias
+//      (B3's epilogue) on o_q and the out projection's weight K-major, wo_t
+//      [H, Hq*D], which the DiT makes once; it starts under programmatic
+//      stream serialisation and waits only before reading o_q and so.  The
+//      TPU kernel keeps o in VMEM and quantises it there; a CTA here owns
+//      one kv-head's rows, not the whole Hq*D row the quantisation needs, so
+//      o makes one round trip (5.4 MB at the serving shape, L2-resident).
+//      Keeping o on chip would take a cluster of the hkv CTAs of a row tile
+//      swapping row maxima and int32 partial products through distributed
+//      shared memory: untried (ROADMAP has the sums).
 
 #include "attention_stream.cuh"
-#include "int8_gemm.cuh"
+#include "s8_dequant.cuh"
 
 namespace {
 
@@ -89,13 +98,13 @@ cudaError_t attention(const void* q, const void* k, const void* v, void* o, cons
 
 // q, k and v: the three column views of qkv [B, N, (hq + 2 hkv) * D] bf16
 // (16-byte aligned, row stride in the plan), D 16, 32, 64 or 128; cos/sin [N, D]
-// f32; wo [hq * D, H] s8, wos and bo [H] f32 -> out [B, N, H] bf16.  o
-// [B * N, hq * D] bf16, oq [B * N, hq * D] s8 and so [B * N] f32 are
-// scratch.  The attention is one launch of grid (gx, gy, B) with `warps`
-// warps and `smem` bytes of dynamic shared memory.  Needs hq * D % 64 == 0
-// and H % 128 == 0.
+// f32; wo_t [H, hq * D] s8 (the out projection's weight K-major), wos and bo
+// [H] f32 -> out [B, N, H] bf16.  o [B * N, hq * D] bf16, oq [B * N, hq *
+// D] s8 and so [B * N] f32 are scratch.  The attention is one launch of
+// grid (gx, gy, B) with `warps` warps and `smem` bytes of dynamic shared
+// memory.  Needs H % 128 == 0.
 extern "C" int flash_out(const void* q, const void* k, const void* v, const NaturalPlan* plan,
-                         const float* cos_t, const float* sin_t, const void* wo, const void* wos,
+                         const float* cos_t, const float* sin_t, const void* wo_t, const void* wos,
                          const void* bo, void* o, void* oq, void* so, void* out, int D, int B,
                          int gx, int gy, int warps, int smem, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -111,12 +120,14 @@ extern "C" int flash_out(const void* q, const void* k, const void* v, const Natu
   }
   if (e != cudaSuccess) return e;
   const int M = B * plan->N, K = plan->hq * D;
-  quant_rows<<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (int8_t*)oq, (float*)so,
-                                          nullptr, M, K);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  gemm_dequant<true><<<dim3(H / BN, (M + BM - 1) / BM), 128, 0, st>>>(
-      (const int8_t*)oq, (const int8_t*)wo, (const float*)wos, (const float*)bo,
-      (const float*)so, (__nv_bfloat16*)out, M, K, H);
-  return cudaGetLastError();
+  return s8_quant_dequant<true>(o, oq, so, wo_t, wos, bo, out, M, K, H, st);
+}
+
+// The GEMM stage alone, on a quant launch's oq [M, K] s8 and so [M] f32:
+// wo_t [H, K] s8, wos and bo [H] f32 -> out [M, H] bf16, launched without
+// programmatic stream serialisation.  Needs H % 128 == 0, K % 16 == 0.
+extern "C" int flash_out_gemm(const void* oq, const void* so, const void* wo_t, const void* wos,
+                              const void* bo, void* out, int M, int K, int H, void* stream) {
+  return s8_dequant<true, __nv_bfloat16>(oq, so, wo_t, wos, bo, out, M, K, H, false,
+                                         (cudaStream_t)stream);
 }

@@ -1,17 +1,21 @@
 // Per-row int8 quantisation of a bf16 activation, in front of the s8 wgmma
-// GEMMs of s8_wgmma.cuh: B4 (w8a8_fused.cu), B5 (dense_gelu_quant.cu) and
-// B13 (mlp_full.cu).  Each csrc/*.cu that includes this file is built into
-// its own shared library, so everything here lives in an anonymous
-// namespace.
+// GEMMs of s8_wgmma.cuh: B4 and B14 (w8a8_fused.cu), B5
+// (dense_gelu_quant.cu), B12's out projection (flash_qkv.cu,
+// attention_wide.cu) and B13 (mlp_full.cu).  Each csrc/*.cu that includes
+// this file is built into its own shared library, so everything here lives
+// in an anonymous namespace.
 //
 //   s    = max(max|a_row| * INV127, 1e-12)        the floored scale
-//   a_q  = rint(a / s)                            B4, B5: a true divide
+//   a_q  = rint(a / s)                            B4, B5, B12, B14: a true divide
 //   a_q  = rint(a * (1 / s))                      B13: a reciprocal multiply
-// Both round half to even.  One warp a row; V 16-byte vectors a lane (K <=
-// 256 V), all loaded at once and kept in registers between the max and the
-// codes, so the row is read once with every load of a lane in flight
-// together.  The kernel's first instruction lets the next launch start
-// (griddepcontrol): the GEMM behind it waits only where it reads a_q and s.
+// Both round half to even.  The scale written is s, but for B14's
+// (w8a8_dot(impl="pallas")): the unfloored max|a_row| * INV127, which its
+// GEMM rescales by, as the JAX package's w8a8_dot does (the RAW forms).
+// One warp a row; V 16-byte vectors a lane (K <= 256 V), all loaded at once
+// and kept in registers between the max and the codes, so the row is read
+// once with every load of a lane in flight together.  The kernel's first
+// instruction lets the next launch start (griddepcontrol): the GEMM behind
+// it waits only where it reads a_q and s.
 
 #pragma once
 
@@ -31,7 +35,7 @@ __device__ __forceinline__ uint2 quant8_rcp(const float v[8], float rcp) {
   return make_uint2(w[0], w[1]);
 }
 
-template <int V, bool RCP>
+template <int V, bool RCP, bool RAW = false>
 __device__ __forceinline__ void quant_row_v(const __nv_bfloat16* __restrict__ a,
                                             int8_t* __restrict__ aq, float* __restrict__ s,
                                             int M, int K) {
@@ -67,15 +71,23 @@ __device__ __forceinline__ void quant_row_v(const __nv_bfloat16* __restrict__ a,
     for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
     *reinterpret_cast<uint2*>(qr + k) = RCP ? quant8_rcp(f, rcp) : quant8(f, sc);
   }
-  if (lane == 0) s[row] = sc;
+  if (lane == 0) s[row] = RAW ? __fmul_rn(amax, INV127) : sc;
 }
 
-// The divide form (B4, B5).  The codes are quant8's: rint(a / s).
+// The divide form (B4, B5, B12).  The codes are quant8's: rint(a / s).
 template <int V>
 __global__ void __launch_bounds__(256) quant_rows_v(const __nv_bfloat16* __restrict__ a,
                                                     int8_t* __restrict__ aq,
                                                     float* __restrict__ s, int M, int K) {
   quant_row_v<V, false>(a, aq, s, M, K);
+}
+
+// The divide form with the unfloored scale (B14).
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_raw_v(const __nv_bfloat16* __restrict__ a,
+                                                        int8_t* __restrict__ aq,
+                                                        float* __restrict__ s, int M, int K) {
+  quant_row_v<V, false, true>(a, aq, s, M, K);
 }
 
 // The reciprocal form (B13).
@@ -90,10 +102,10 @@ __global__ void __launch_bounds__(256) quant_rows_rcp_v(const __nv_bfloat16* __r
 // vectors a thread (K <= 2048 V), the row max through shared memory: eight
 // warps a row keep more loads and divides in flight than one.  The divide
 // form.
-template <int V>
-__global__ void __launch_bounds__(256) quant_rows_block(const __nv_bfloat16* __restrict__ a,
-                                                        int8_t* __restrict__ aq,
-                                                        float* __restrict__ s, int K) {
+template <int V, bool RAW>
+__device__ __forceinline__ void quant_row_block(const __nv_bfloat16* __restrict__ a,
+                                                int8_t* __restrict__ aq, float* __restrict__ s,
+                                                int K) {
   griddep_launch();
   __shared__ float part[8];
   const int row = blockIdx.x;
@@ -128,17 +140,39 @@ __global__ void __launch_bounds__(256) quant_rows_block(const __nv_bfloat16* __r
     for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
     *reinterpret_cast<uint2*>(qr + k) = quant8(f, sc);
   }
-  if (threadIdx.x == 0) s[row] = sc;
+  if (threadIdx.x == 0) s[row] = RAW ? __fmul_rn(amax, INV127) : sc;
+}
+
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_block(const __nv_bfloat16* __restrict__ a,
+                                                        int8_t* __restrict__ aq,
+                                                        float* __restrict__ s, int K) {
+  quant_row_block<V, false>(a, aq, s, K);
+}
+
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_block_raw(const __nv_bfloat16* __restrict__ a,
+                                                            int8_t* __restrict__ aq,
+                                                            float* __restrict__ s, int K) {
+  quant_row_block<V, true>(a, aq, s, K);
+}
+
+// int8_gemm.cuh's two reads of a row, with the unfloored scale (B14 past K
+// = 8192).
+__global__ void quant_rows_raw(const __nv_bfloat16* __restrict__ a, int8_t* __restrict__ aq,
+                               float* __restrict__ s, int M, int K) {
+  quant_row_twice<true>(a, aq, s, nullptr, M, K);
 }
 
 // Launches the divide form (RCP false) for any K % 8 == 0: up to 4096 a
 // warp a row, the row in its registers; up to 8192 (the patch embed's K) a
 // CTA a row; past that int8_gemm.cuh's two reads (which do not start the
-// next launch early).  The reciprocal form (RCP) up to K = 4096 (the caller
-// checks).  A template, so that a library builds only the kernels it
-// launches.
-template <bool RCP>
+// next launch early).  RAW writes the unfloored scale (B14).  The
+// reciprocal form (RCP) up to K = 4096 (the caller checks).  A template, so
+// that a library builds only the kernels it launches.
+template <bool RCP, bool RAW = false>
 cudaError_t launch_quant_rows(const void* a, void* aq, void* s, int M, int K, cudaStream_t st) {
+  static_assert(!(RCP && RAW), "B13's reciprocal form floors its scale");
   const dim3 grid((M + 7) / 8), block(256);
   auto A = (const __nv_bfloat16*)a;
   auto Q = (int8_t*)aq;
@@ -150,6 +184,15 @@ cudaError_t launch_quant_rows(const void* a, void* aq, void* s, int M, int K, cu
       quant_rows_rcp_v<16><<<grid, block, 0, st>>>(A, Q, S, M, K);
     else
       return cudaErrorInvalidValue;
+  } else if constexpr (RAW) {
+    if (K <= 2048)
+      quant_rows_raw_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 4096)
+      quant_rows_raw_v<16><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 8192)
+      quant_rows_block_raw<4><<<M, block, 0, st>>>(A, Q, S, K);
+    else
+      quant_rows_raw<<<grid, block, 0, st>>>(A, Q, S, M, K);
   } else {
     if (K <= 2048)
       quant_rows_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);

@@ -5,12 +5,12 @@ Ports of ``int8_dense_gelu_quant``, ``int8_matmul_fused``, ``int8_matmul``
 and ``int8_mlp`` (JAX package, ``ops/int8_matmul.py``).  Each wrapper
 dispatches on the tensor's device: a CPU tensor takes the plain PyTorch
 version below, a CUDA tensor launches the hand-written kernel in
-``csrc/dense_gelu_quant.cu``, ``csrc/w8a8_fused.cu`` (the fused dot),
-``csrc/matmul_fused.cu`` (``matmul_prequant``) or ``csrc/mlp_full.cu``, or
-raises.  Nothing falls back.  All but ``matmul_prequant`` run on the s8
-``wgmma`` core of ``csrc/s8_wgmma.cuh``, which reads 8-bit operands
-K-major only: their wrappers take the weights a second time, transposed
-(``w_t``, made once by the caller), and raise on the card without it.
+``csrc/dense_gelu_quant.cu``, ``csrc/w8a8_fused.cu`` (the fused dot and
+the product on a pre-quantised A) or ``csrc/mlp_full.cu``, or raises.
+Nothing falls back.  All run on the s8 ``wgmma`` core of
+``csrc/s8_wgmma.cuh``, which reads 8-bit operands K-major only: their
+wrappers take the weights a second time, transposed (``w_t``, made once by
+the caller), and raise on the card without it.
 """
 
 from __future__ import annotations
@@ -91,16 +91,16 @@ def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
     return torch.round(g / gs).to(torch.int8), gs
 
 
-def check_weights(what, K, w_q, w_scale, bias=None, k_run=None):
+def check_weights(what, K, w_q, w_scale, bias=None, k_run=None, k_mult=64):
     """``(K, N)`` of an int8 ``[K, N]`` kernel the GEMM of the CUDA kernels
-    takes (K % 64 == 0, N % 128 == 0; ``k_run``, where given, is the
-    contraction the GEMM runs, K widened by zero rows, and K % 64 applies to
-    it), with its ``[1, N]`` scale and optional bias; raises ``ValueError``
-    otherwise."""
+    takes (K % ``k_mult`` == 0, N % 128 == 0; ``k_run``, where given, is the
+    contraction the GEMM runs, K widened by zero rows, and K % ``k_mult``
+    applies to it), with its ``[1, N]`` scale and optional bias; raises
+    ``ValueError`` otherwise."""
     K2, N = w_q.shape
-    if K != K2 or (k_run or K) % 64 or N % 128:
+    if K != K2 or (k_run or K) % k_mult or N % 128:
         raise ValueError(f"{what}: contraction {K} x kernel {tuple(w_q.shape)} "
-                         f"needs K % 64 == 0, N % 128 == 0")
+                         f"needs K % {k_mult} == 0, N % 128 == 0")
     if (w_q.dtype != torch.int8 or w_scale.numel() != N
             or (bias is not None and bias.numel() != N)):
         raise ValueError(f"{what}: w_q int8 [K, N], w_scale and bias [1, N]")
@@ -256,43 +256,95 @@ def matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16):
             ).to(out_dtype)
 
 
-def int8_matmul(a_q, a_scale, w_q, w_scale, *, out_dtype=torch.bfloat16):
+def int8_matmul(a_q, a_scale, w_q, w_scale, *, out_dtype=torch.bfloat16,
+                w_t=None):
     """``(a_q * a_scale) @ (w_q * w_scale) -> [M, N] out_dtype``.
 
     Args:
         a_q: [M, K] int8 codes; a_scale: [M, 1] fp32 (the quantiser's
             unfloored scale, as ``w8a8_dot`` passes it).
         w_q: [K, N] int8 kernel; w_scale: [1, N] fp32.
-    The kernel writes bf16 only.
+        w_t: [N, K] int8, ``w_q.t()`` contiguous: the K-major copy the
+            card's kernel reads; needed on the card, made once by the
+            caller.  The plain version checks its shape and reads ``w_q``.
+    The card's kernel writes bf16 or fp32 (K % 16 == 0); the plain version
+    any ``out_dtype``.  It is launched under programmatic stream
+    serialisation: it starts while the launch in front of it drains
+    (``w8a8_dot``'s row quant, :func:`int8_quantize_rows`) and waits for it
+    before it reads anything but ``w_t``, which no launch that lets the
+    next one start early (the port's row quants, ``int8_mlp``'s first
+    product) writes.
     """
     M = a_q.shape[0]
-    K, N = check_weights("int8_matmul", a_q.shape[1], w_q, w_scale)
+    K, N = check_weights("int8_matmul", a_q.shape[1], w_q, w_scale, k_mult=16)
     if a_q.dtype != torch.int8 or a_scale.numel() != M:
         raise ValueError("int8_matmul: a_q int8 [M, K], a_scale [M, 1]")
+    check_t("int8_matmul", w_q, w_t)
     if a_q.device.type == "cpu":
         return matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype)
     from . import _build
 
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"int8_matmul kernel writes bf16, not {out_dtype}")
-    lib = _build.load("matmul_fused")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_matmul kernel writes bf16 or fp32, not "
+                        f"{out_dtype}")
+    if w_t is None:
+        raise ValueError("int8_matmul: the card's kernel reads the weight "
+                         "K-major: pass w_t = w_q.t().contiguous(), made once")
+    lib = _build.load("w8a8_fused")
     fn = lib.matmul_prequant
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     a_q = _build.aligned(a_q)
-    w_q = _build.aligned(w_q)
+    w_t = _build.aligned(w_t)
     s = a_scale.reshape(M).float().contiguous()
     ws = w_scale.reshape(N).float().contiguous()
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=a_q.device)
-    err = fn(a_q.data_ptr(), s.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-             out.data_ptr(), M, K, N, _build.stream_ptr(a_q.device))
+    out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
+    err = fn(a_q.data_ptr(), s.data_ptr(), w_t.data_ptr(), ws.data_ptr(),
+             out.data_ptr(), M, K, N, int(out_dtype == torch.float32), 1,
+             _build.stream_ptr(a_q.device))
     _build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
     return out
 
 
 int8_matmul.launches = 0
+
+
+def int8_quantize_rows(a):
+    """``w8a8_dot``'s quantisation of ``a [M, K]``: ``(a_q int8 [M, K],
+    a_scale fp32 [M, 1])``, the codes by the scale floored at 1e-12, the
+    scale written unfloored (:func:`quantize_rows`, its plain version).
+
+    The JAX package leaves it to XLA; on the card it is one launch of
+    ``csrc/w8a8_fused.cu``'s row quant (bf16, K % 8 == 0), bit-equal to the
+    plain version, which lets the launch behind it (:func:`int8_matmul`)
+    start early.
+    """
+    if a.device.type == "cpu":
+        return quantize_rows(a)
+    from . import _build
+
+    M, K = a.shape
+    if a.dtype != torch.bfloat16 or K % 8:
+        raise TypeError(f"int8_quantize_rows kernel takes bf16 rows of a "
+                        f"multiple of 8, got {a.dtype} [{M}, {K}]")
+    lib = _build.load("w8a8_fused")
+    fn = lib.prequant_quant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    a = _build.aligned(a)
+    a_q = torch.empty((M, K), dtype=torch.int8, device=a.device)
+    s = torch.empty((M, 1), dtype=torch.float32, device=a.device)
+    err = fn(a.data_ptr(), a_q.data_ptr(), s.data_ptr(), M, K,
+             _build.stream_ptr(a.device))
+    _build.check(lib, err, "int8_quantize_rows")
+    int8_quantize_rows.launches += 1
+    return a_q, s
+
+
+int8_quantize_rows.launches = 0
 
 
 def _pick_slabs(n1: int, target: int = 1280) -> int:

@@ -6,8 +6,9 @@ per row, the weight per output column (once, at load time, by
 and the rescale is fp32.  On the ``"xla"`` path the int32 product is a plain
 product outside any kernel, so it goes to ``torch._int_mm``; on the card
 ``"fused"`` launches the fused W8A8 kernel, which quantises inside, and
-``"pallas"`` quantises in torch ops and launches the s8 kernel on the
-pre-quantised A.
+``"pallas"`` quantises (one row-quant launch for a bf16 lhs, torch ops for
+an fp32 one, as the JAX package does in XLA) and launches the s8 kernel on
+the pre-quantised A.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from .int8_matmul import (_INV127, check_t, int8_matmul, int8_matmul_fused,
-                          int8_mm)
+                          int8_mm, int8_quantize_rows)
 
 INT8_IMPLS = ("xla", "fused", "pallas")
 
@@ -36,8 +37,12 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     rows) and lhs lies on the card; elsewhere both are this plain path,
     which the kernels equal bit for bit ("fused" floors the rescale, which
     only differs on an all-zero row, whose product is zero either way).
-    The fused kernel reads the weight K-major: ``w_t``, ``w_q.t()``
-    contiguous, made once by the caller (:class:`QuantDense` keeps it).
+    On the card "pallas" quantises a bf16 lhs in one launch
+    (:func:`int8_quantize_rows`, bit-equal to the torch ops below) and
+    starts the s8 kernel behind it early; an fp32 lhs keeps the torch ops,
+    and the kernel writes fp32.  Both kernels read the weight K-major:
+    ``w_t``, ``w_q.t()`` contiguous, made once by the caller
+    (:class:`QuantDense` keeps it).
     """
     if impl not in INT8_IMPLS:
         raise ValueError(f"int8_impl={impl!r} not in {INT8_IMPLS}")
@@ -50,11 +55,16 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if impl == "fused" and kernel:
         out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale, w_t=w_t)
         return out.reshape(*lead, N)
+    if impl == "pallas" and kernel and lhs.dtype == torch.bfloat16:
+        a_q, a_scale = int8_quantize_rows(lhs.reshape(M, K))
+        out = int8_matmul(a_q, a_scale, w_q, w_scale, out_dtype=lhs.dtype,
+                          w_t=w_t)
+        return out.reshape(*lead, N)
     a_scale = lhs.abs().amax(dim=-1, keepdim=True).float() * _INV127
     a_q = torch.round(lhs.float() / a_scale.clamp_min(1e-12)).to(torch.int8)
     if impl == "pallas" and kernel:
         out = int8_matmul(a_q.reshape(M, K), a_scale.reshape(M, 1), w_q,
-                          w_scale, out_dtype=lhs.dtype)
+                          w_scale, out_dtype=lhs.dtype, w_t=w_t)
         return out.reshape(*lead, N)
     acc = int8_mm(a_q.reshape(-1, K), w_q).float().reshape(*lead, N)
     return (acc * a_scale * w_scale.reshape(N)).to(lhs.dtype)
@@ -63,9 +73,10 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 class QuantDense(nn.Module):
     """Serving Dense with an int8 ``[K, N]`` kernel and fp32 ``[1, N]``
     per-column scales; bf16 in and out, the optional bias added in bf16.
-    ``int8_impl`` is :func:`w8a8_dot`'s ``impl``; with ``"fused"`` the
-    kernel is kept a second time K-major, ``kernel_t [N, K]`` (not in the
-    state dict), which the fused kernel's s8 ``wgmma`` GEMM reads."""
+    ``int8_impl`` is :func:`w8a8_dot`'s ``impl``; with ``"fused"`` or
+    ``"pallas"`` the kernel is kept a second time K-major, ``kernel_t [N,
+    K]`` (not in the state dict), which their kernels' s8 ``wgmma`` GEMM
+    reads."""
 
     def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
                  bias: torch.Tensor | None = None, int8_impl: str = "xla"):
@@ -76,7 +87,7 @@ class QuantDense(nn.Module):
         self.register_buffer("bias", bias)
         self.register_buffer(
             "kernel_t", self.kernel_q.t().contiguous()
-            if int8_impl == "fused" else None, persistent=False)
+            if int8_impl in ("fused", "pallas") else None, persistent=False)
         self.int8_impl = int8_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

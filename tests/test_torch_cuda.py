@@ -35,8 +35,11 @@ against the CPU: loss rtol 1e-2, grad
 norm rtol 2e-2, updated parameters within 2 lr (a first Adam step moves
 each by +-lr, so a gradient whose sign differs in bf16 moves it the other
 way) and within 2 % of lr on average.
-The s8 product on a pre-quantised A (B14) is bit-equal to its plain version
-and to ``w8a8_dot(impl="xla")``.  B5 and B13 read their weights K-major
+The s8 product on a pre-quantised A (B14, the s8 ``wgmma`` GEMM on the
+weight K-major) is bit-equal to its plain version in bf16 and fp32 output,
+and ``w8a8_dot(impl="pallas")`` (its row-quant launch, then B14) to
+``impl="xla"``; B12's GEMM stage alone is bit-equal to the ``_int_mm``
+chain on the same codes.  B5 and B13 read their weights K-major
 (``w_t``, ``w1_t``, ``w2_t``), raise on the card without them, and give the
 same bits on two calls.  The whole MLP (B13) rounds at the same
 points as its plain version; tanhf / expf may differ from PyTorch's in the
@@ -59,7 +62,8 @@ import torch
 from jatsr_torch.models.dit import rope_cos_sin
 from jatsr_torch.ops import attention_train as at
 from jatsr_torch.ops import dac_kernels as dk
-from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
+from jatsr_torch.ops.attention import (_flash_out_lib, flash_out_plain,
+                                       flash_out_weight_t, flash_qkv_plain,
                                        flash_split_plain, gqa_attention,
                                        gqa_attention_flash,
                                        gqa_attention_flash_out,
@@ -69,6 +73,7 @@ from jatsr_torch.ops.attention import (flash_out_plain, flash_qkv_plain,
 from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
                                          int8_dense_gelu_quant, int8_matmul,
                                          int8_matmul_fused, int8_mlp,
+                                         int8_mm, int8_quantize_rows,
                                          matmul_fused_plain,
                                          matmul_prequant_plain, mlp_plain,
                                          quantize_rows)
@@ -354,21 +359,104 @@ def test_dit_out_projection_reads_its_kmajor_copy(card, monkeypatch):
 
 @pytest.mark.parametrize("M,K,N", [(2112, 1280, 1792), (100, 256, 384)])
 def test_int8_matmul_kernel_bit_equal_to_plain_and_xla(card, M, K, N):
-    """B14 at the qkv shape, and a small one; ``w8a8_dot(impl="pallas")``
-    launches it and equals ``impl="xla"`` bit for bit."""
+    """B14 at the qkv shape, and a small one, on the weight K-major;
+    ``w8a8_dot(impl="pallas")`` launches it and equals ``impl="xla"`` bit
+    for bit."""
     from jatsr_torch.ops.quant import w8a8_dot
 
     a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=21)
+    w_t = w_q.t().contiguous()
     a_q, a_s = quantize_rows(a)
     n0 = int8_matmul.launches
-    got = int8_matmul(a_q, a_s, w_q, w_s)
+    got = int8_matmul(a_q, a_s, w_q, w_s, w_t=w_t)
     assert int8_matmul.launches == n0 + 1
     torch.testing.assert_close(got, matmul_prequant_plain(a_q, a_s, w_q, w_s),
                                atol=0, rtol=0)
-    torch.testing.assert_close(w8a8_dot(a, w_q, w_s, impl="pallas"),
+    torch.testing.assert_close(w8a8_dot(a, w_q, w_s, impl="pallas", w_t=w_t),
                                w8a8_dot(a, w_q, w_s, impl="xla"),
                                atol=0, rtol=0)
     assert int8_matmul.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [1792, 1280, 384])
+@pytest.mark.parametrize("M", [2112, 2070, 33])
+def test_int8_matmul_kernel_at_the_listed_shapes(card, M, N, dtype):
+    """B14 bit-equal to its plain version at K = 1280, in bf16 and fp32
+    output, with an all-zero row; two runs give the same bits."""
+    a, w_q, w_s, _ = _dense_inputs(card, M, 1280, N, seed=M + N)
+    a[1] = 0.0
+    a_q, a_s = quantize_rows(a)
+    w_t = w_q.t().contiguous()
+    got = int8_matmul(a_q, a_s, w_q, w_s, out_dtype=dtype, w_t=w_t)
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = matmul_prequant_plain(a_q, a_s, w_q, w_s, dtype)
+    assert torch.equal(got, want)
+    assert torch.equal(got, int8_matmul(a_q, a_s, w_q, w_s, out_dtype=dtype,
+                                        w_t=w_t))
+
+
+def test_int8_matmul_kernel_raises_without_its_kmajor_copy(card):
+    """On the card B14 reads the weight K-major and raises without it, and
+    writes bf16 or fp32 only."""
+    a, w_q, w_s, _ = _dense_inputs(card, 64, 256, 384, seed=22)
+    a_q, a_s = quantize_rows(a)
+    with pytest.raises(ValueError, match="K-major"):
+        int8_matmul(a_q, a_s, w_q, w_s)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        int8_matmul(a_q, a_s, w_q, w_s, out_dtype=torch.float16,
+                    w_t=w_q.t().contiguous())
+
+
+def _tiny_rows(a):
+    """``a`` with row 3 all zero and row 5 scaled so that max|a| / 127 is
+    below 1e-12: there the floored and unfloored scales differ."""
+    a[3] = 0.0
+    a[5] *= 1e-12
+    return a
+
+
+@pytest.mark.parametrize("lead,K,N", [((2, 352), 1280, 1792),
+                                      ((2112,), 1280, 1280),
+                                      ((40,), 256, 384)])
+def test_w8a8_dot_pallas_equals_xla_on_card(card, lead, K, N):
+    """``impl="pallas"`` on the card: one row-quant launch for a bf16 lhs,
+    then B14, bit-equal to ``impl="xla"``, with an all-zero row and a row
+    below the scale floor; an fp32 lhs keeps the torch quantisation and B14
+    writes fp32, bit-equal too."""
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    a, w_q, w_s, _ = _dense_inputs(card, int(np.prod(lead)), K, N, seed=K + N)
+    x = _tiny_rows(a).reshape(*lead, K)
+    assert (x.reshape(-1, K)[5].float().abs().max() / 127).item() < 1e-12
+    w_t = w_q.t().contiguous()
+    n0, q0 = int8_matmul.launches, int8_quantize_rows.launches
+    got = w8a8_dot(x, w_q, w_s, impl="pallas", w_t=w_t)
+    assert (int8_matmul.launches - n0, int8_quantize_rows.launches - q0) == (
+        1, 1)
+    want = w8a8_dot(x, w_q, w_s, impl="xla")
+    assert got.dtype == torch.bfloat16 and got.shape == (*lead, N)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert got.reshape(-1, N)[5].abs().max().item() > 0
+    xf = x.float()
+    got = w8a8_dot(xf, w_q, w_s, impl="pallas", w_t=w_t)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, w8a8_dot(xf, w_q, w_s, impl="xla"))
+    assert int8_quantize_rows.launches - q0 == 1
+
+
+@pytest.mark.parametrize("M,K", [(2112, 1280), (100, 4096), (70, 5120),
+                                 (33, 10240)])
+def test_int8_quantize_rows_kernel_bit_equal_to_plain(card, M, K):
+    """The row quant in front of B14 at each of its forms (a warp a row up
+    to K = 4096, a CTA a row up to 8192, two reads past it): the codes by
+    the floored scale and the unfloored scale, bit-equal to
+    ``quantize_rows``."""
+    a = _tiny_rows(_dense_inputs(card, M, K, 128, seed=K)[0])
+    got_q, got_s = int8_quantize_rows(a)
+    want_q, want_s = quantize_rows(a)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    assert got_s[3].item() == 0.0 and 0 < got_s[5].item() < 1e-12
 
 
 def _mlp_args(card, M, H, N1, seed):
@@ -425,7 +513,7 @@ def test_int8_mlp_kernel_raises_without_its_kmajor_copies(card):
     (6, 352, 345, 20, 4, 1280), (2, 90, 0, 8, 2, 256)])
 def test_flash_out_kernel_matches_plain(card, B, N, n_valid, hq, hkv, H):
     """B12 at the serving shape (keys masked past 345) and a small one,
-    with a non-zero bias."""
+    with a non-zero bias, on the out projection's weight K-major."""
     gen = torch.Generator(device=card).manual_seed(23)
     qkv = torch.randn((B, N, (hq + 2 * hkv) * 64), generator=gen,
                       device=card).bfloat16()
@@ -433,11 +521,107 @@ def test_flash_out_kernel_matches_plain(card, B, N, n_valid, hq, hkv, H):
     _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * 64, H, seed=24)
     n0 = gqa_attention_flash_out.launches
     got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
-                                  n_valid=n_valid).float()
+                                  n_valid=n_valid,
+                                  wo_t=flash_out_weight_t(wo_q, hq, 64)).float()
     assert gqa_attention_flash_out.launches == n0 + 1
     want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
                            n_valid=n_valid).float()
     _assert_rel(got, want, 1e-2)
+    with pytest.raises(ValueError, match="K-major"):
+        gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv)
+
+
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 256])
+def test_flash_out_kernel_at_v3_heads_every_head_dim(card, D):
+    """B12 at v3's heads (20/4), 352 patches with keys masked past 345 and
+    a 1280-wide out projection, at head dims 32, 48 (zero-padded to the 64
+    instance, the DiT's padded K-major weight), 64, 128 and 256 (the wide
+    kernels): within 1e-2 x max |plain|."""
+    B, N, hq, hkv, H = 6, 352, 20, 4, 1280
+    qkv, cos, sin = _qkv_inputs(card, B, N, hq, hkv, D, seed=110 + D)
+    _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * D, H, seed=111 + D)
+    wo_t = flash_out_weight_t(wo_q, hq, D)
+    got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                  n_valid=N - 7, wo_t=wo_t).float()
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=N - 7).float()
+    assert torch.isfinite(got).all()
+    _assert_rel(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("M,K,H", [(2112, 1280, 1280), (2070, 2560, 384),
+                                   (90, 64, 256), (33, 5120, 1280)])
+def test_flash_out_gemm_stage_bit_equal_to_the_int_mm_chain(card, M, K, H):
+    """B12's GEMM stage alone (``flash_out_gemm``: the s8 wgmma GEMM with
+    the dequant and bias epilogue) on given codes and scales: bit-equal to
+    ``bf16(((float)(o_q @ wo) * so) * wos + bo)`` by ``_int_mm`` and fp32
+    torch ops (on the CPU, which takes any K); K = 64 is less than one
+    stage (the TMA boxes zero-fill past K)."""
+    from jatsr_torch.ops import _build
+
+    o, wo_q, wo_s, bo = _dense_inputs(card, M, K, H, seed=M + K)
+    o_q, so = quantize_rows(o)
+    so = so.clamp_min(1e-12)
+    wos, b = wo_s.reshape(H).contiguous(), bo.reshape(H).contiguous()
+    wo_t = wo_q.t().contiguous()
+    out = torch.empty((M, H), dtype=torch.bfloat16, device=card)
+    lib = _flash_out_lib()
+    err = lib.flash_out_gemm(o_q.data_ptr(), so.data_ptr(), wo_t.data_ptr(),
+                             wos.data_ptr(), b.data_ptr(), out.data_ptr(), M,
+                             K, H, _build.stream_ptr(card))
+    _build.check(lib, err, "flash_out_gemm")
+    acc = int8_mm(o_q.cpu(), wo_q.cpu()).float()
+    want = (acc * so.cpu() * wos.cpu() + b.cpu()).bfloat16()
+    assert torch.equal(out.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_opt_in_dit_hands_its_kernels_their_kmajor_copies(card, monkeypatch):
+    """The third path's DiT on the card (flash_fused_out, the whole MLP,
+    int8_impl "pallas"): B14 reads qkv_proj's K-major kernel, which is the
+    DiT's qkv_kernel_t (one copy), and B12 the out_kernel_t made at
+    construction, each launched once a block, no copy a call."""
+    import dataclasses
+
+    import jatsr_torch.models.dit as tdit
+    import jatsr_torch.ops.quant as tquant
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
+        fused_mlp=True, attention_impl="flash", fused_prologue=True,
+        align_n=True, flash_fused_out=True, fused_mlp_impl="full",
+        int8_impl="pallas")
+    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5)),
+                     device="cuda")
+    seen = {"qkv": [], "out": []}
+    mm, fo = tquant.int8_matmul, tdit.gqa_attention_flash_out
+
+    def spy_mm(*a, **kw):
+        seen["qkv"].append(kw["w_t"].data_ptr())
+        return mm(*a, **kw)
+
+    def spy_fo(*a, **kw):
+        seen["out"].append(kw["wo_t"].data_ptr())
+        return fo(*a, **kw)
+
+    monkeypatch.setattr(tquant, "int8_matmul", spy_mm)
+    monkeypatch.setattr(tdit, "gqa_attention_flash_out", spy_fo)
+    x_t, x_c = (torch.randn((2, 130, 64), device=card) for _ in range(2))
+    t = torch.tensor([0.2, 0.9], device=card)
+    n0 = (int8_matmul.launches, gqa_attention_flash_out.launches)
+    model(x_t, t, x_c)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches - n0[0],
+            gqa_attention_flash_out.launches - n0[1]) == (cfg.depth,) * 2
+    blocks = model.blocks
+    assert seen["qkv"] == [b.attn.qkv_kernel_t.data_ptr() for b in blocks]
+    assert all(b.attn.qkv_kernel_t is b.attn.qkv_proj.kernel_t
+               for b in blocks)
+    assert seen["out"] == [b.attn.out_kernel_t.data_ptr() for b in blocks]
 
 
 def _split_inputs(card, B, N, hq, hkv, seed, D=64):
@@ -942,7 +1126,9 @@ def _serving_attention_cases(card, B, N, hq, hkv, D, n_valid, H, seed,
         atol=2e-2, rtol=2e-2)
     _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * D, H, seed=seed + 1)
     got = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
-                                  n_valid=n_valid).float().cpu()
+                                  n_valid=n_valid,
+                                  wo_t=flash_out_weight_t(wo_q, hq, D)
+                                  ).float().cpu()
     # The plain version on the CPU: cuBLAS's int8 product (torch._int_mm)
     # refuses the 64-deep out projection of head dim 16 on the card.
     want = flash_out_plain(*(x.cpu() for x in (qkv, cos, sin, wo_q, wo_s,

@@ -223,6 +223,73 @@ def test_out_projection_keeps_its_kmajor_kernel(monkeypatch):
     assert all(b.attn.out_kernel_t is None for b in plain.blocks)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "fused"])
+def test_each_weight_is_held_kmajor_once(impl):
+    """Under ``int8_impl`` "pallas" and "fused" the qkv and out
+    projections' QuantDense keep their kernel K-major (``kernel_t``), and
+    the DiT's copies are those very tensors: ``qkv_kernel_t`` is
+    ``qkv_proj.kernel_t``, and with flash_fused_out (B12, head dim 32: no
+    padding) ``out_kernel_t`` is ``out_proj.kernel_t``."""
+    from jatsr_torch.models.dit import DiT
+
+    cfg = narrow_cfg(get_preset, "layer", **PROLOGUE, **dict(
+        OPT_IN, int8_impl=impl))
+    model = DiT(cfg, quantize_params_static(random_dense_params(cfg, 14)),
+                device="cpu")
+    for blk in model.blocks:
+        a = blk.attn
+        for t, proj in ((a.qkv_kernel_t, a.qkv_proj),
+                        (a.out_kernel_t, a.out_proj)):
+            assert t is proj.kernel_t
+            assert t.untyped_storage().data_ptr() == \
+                proj.kernel_t.untyped_storage().data_ptr()
+            assert torch.equal(t, proj.kernel_q.t()) and t.is_contiguous()
+    assert not [k for k in model.state_dict() if k.endswith("kernel_t")]
+
+
+def test_flash_out_dit_keeps_the_padded_kmajor_out_projection(monkeypatch):
+    """Where flash_fused_out can take B12 the DiT makes ``out_kernel_t``
+    once, with or without the fused prologue; at head dim 48 (hidden 384,
+    8/4 heads) it is the padded ``pad_heads(wo_q.t(), 48, 64)``, contiguous,
+    which the DiT hands to every B12 call; the output matches the JAX
+    model's.  Without flash_qkv (no B12) there is none."""
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.ops.attention import pad_heads
+
+    knobs = dict(flash_fused_out=True, int8_impl="pallas")
+    jmodel, jparams, tmodel, dense = build_pair(
+        "rms", seed=15, hidden_size=384, num_q_heads=8, num_kv_heads=4,
+        **knobs)
+    assert tmodel.cfg.head_dim == 48
+    for blk in tmodel.blocks:
+        wo_q = blk.attn.out_proj.kernel_q
+        t = blk.attn.out_kernel_t
+        assert t.shape == (384, 8 * 64) and t.is_contiguous()
+        assert torch.equal(t, pad_heads(wo_q.t(), 48, 64))
+    out = Spy(monkeypatch, "gqa_attention_flash_out")
+    x_t, t, x_c = _inputs(seed=16)
+    want = jmodel.apply({"params": jparams}, jnp.asarray(x_t), jnp.asarray(t),
+                        jnp.asarray(x_c))
+    got = tmodel(torch.from_numpy(x_t), torch.from_numpy(t),
+                 torch.from_numpy(x_c))
+    assert [kw["wo_t"] for _, kw in out.calls] == [
+        b.attn.out_kernel_t for b in tmodel.blocks]
+    _assert_close(got.numpy(), np.asarray(want))
+    cfg = tmodel.cfg
+    static = quantize_params_static(dense)
+    no_b12 = DiT(dataclasses.replace(cfg, flash_qkv=False), static,
+                 device="cpu")
+    assert all(b.attn.out_kernel_t is None for b in no_b12.blocks)
+    narrow = narrow_cfg(get_preset, "rms", flash_fused_out=True)
+    plain = DiT(narrow, quantize_params_static(random_dense_params(narrow,
+                                                                   15)),
+                device="cpu")
+    for blk in plain.blocks:  # int8_impl "xla": the DiT's own copy
+        assert blk.attn.out_proj.kernel_t is None
+        assert torch.equal(blk.attn.out_kernel_t,
+                           blk.attn.out_proj.kernel_q.t())
+
+
 def test_prologue_without_align_n_takes_the_unfused_branch(monkeypatch):
     """fused_prologue on, align_n off: 33 patches have no 8-aligned row
     block, so JAX silently takes the unfused branch, and so does the port."""

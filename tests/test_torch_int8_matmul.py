@@ -12,7 +12,9 @@ exact), so the outputs are bit-equal.
 
 ``int8_matmul`` (the s8 product on a pre-quantised A): the JAX kernel in
 interpret mode, the port's plain version and ``w8a8_dot(impl="xla")`` use
-only an exact int32 product and the same two fp32 multiplies: bit-equal.
+only an exact int32 product and the same two fp32 multiplies: bit-equal,
+in bf16 and fp32 output, and ``w8a8_dot(impl="pallas")`` with them, also
+on rows where the floored and unfloored scales differ.
 
 ``int8_mlp`` (the whole MLP): both sides round at the same points, so the
 outputs are equal but where the two frameworks' tanh/exp/erf differ in the
@@ -32,7 +34,8 @@ from jatsr_tpu.ops import int8_matmul as jax_mm
 from jatsr_tpu.ops.int8_matmul import int8_dense_gelu_quant as jax_dgq
 from jatsr_tpu.ops.quant import w8a8_dot as jax_w8a8_dot
 from jatsr_torch.ops.int8_matmul import (_pick_slabs, int8_dense_gelu_quant,
-                                         int8_matmul, int8_mlp)
+                                         int8_matmul, int8_mlp,
+                                         int8_quantize_rows, quantize_rows)
 from jatsr_torch.ops.quant import QuantDense, w8a8_dot
 
 
@@ -144,6 +147,95 @@ def test_int8_matmul_bit_equal_to_jax_and_xla(M, K, N):
         torch.testing.assert_close(
             w8a8_dot(x, torch.from_numpy(w_q), torch.from_numpy(w_s),
                      impl=impl), got, atol=0, rtol=0)
+
+
+def _rows_below_the_floor(seed, M, K, N):
+    """Seeded lhs ``[M, K]`` with row 3 all zero and row 5 scaled so that
+    max|a| / 127 is below 1e-12 (the floored and unfloored scales differ
+    there), an int8 kernel and its column scales."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    x[3] = 0.0
+    x[5] *= 1e-12
+    w_q = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    w_s = (rng.uniform(0.5, 1.5, (1, N)) / (127 * np.sqrt(K))).astype(
+        np.float32)
+    return x, w_q, w_s
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_w8a8_dot_pallas_bit_equal_to_jax_below_the_scale_floor(dtype):
+    """``w8a8_dot(impl="pallas")`` against the JAX ``w8a8_dot`` on the same
+    input (an all-zero row, a row below the scale floor), and the port's
+    ``int8_matmul`` on the JAX quantiser's codes against the JAX kernel in
+    interpret mode, in the lhs's dtype: bit-equal.  The port's quantiser
+    (the card's row-quant launch's plain version) gives the JAX codes and
+    unfloored scales."""
+    x, w_q, w_s = _rows_below_the_floor(13, 40, 256, 384)
+    a = jnp.asarray(x, dtype)
+    want = np.asarray(jax_w8a8_dot(a, jnp.asarray(w_q), jnp.asarray(w_s),
+                                   impl="pallas"), np.float32)
+    t = torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    w_qt, w_st = torch.from_numpy(w_q), torch.from_numpy(w_s)
+    got = w8a8_dot(t, w_qt, w_st, impl="pallas", w_t=w_qt.t().contiguous())
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert np.abs(want[5]).max() > 0
+    a_s = (jnp.max(jnp.abs(a), axis=-1, keepdims=True).astype(jnp.float32)
+           * jax_mm._INV127)
+    a_q = jnp.round(a.astype(jnp.float32) / jnp.maximum(a_s, 1e-12)).astype(
+        jnp.int8)
+    assert float(a_s[5, 0]) < 1e-12
+    q, s = int8_quantize_rows(t)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(a_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(a_s))
+    want = jax_mm.int8_matmul(a_q, a_s, jnp.asarray(w_q), jnp.asarray(w_s),
+                              out_dtype=getattr(jnp, dtype), interpret=True)
+    got = int8_matmul(q, s, w_qt, w_st, out_dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_int8_matmul_fp32_plain_matches_jax_kernel():
+    """B14's fp32 output mode: the plain version against the JAX
+    ``int8_matmul(..., out_dtype=float32, interpret=True)`` on the JAX
+    quantiser's codes (a zero row, a row below the floor), bit for bit."""
+    x, w_q, w_s = _rows_below_the_floor(14, 64, 128, 256)
+    a_q, a_s = jax_mm.quantize_rows(jnp.asarray(x, jnp.bfloat16))
+    want = jax_mm.int8_matmul(a_q, a_s, jnp.asarray(w_q), jnp.asarray(w_s),
+                              out_dtype=jnp.float32, interpret=True)
+    w_qt = torch.from_numpy(w_q)
+    got = int8_matmul(torch.from_numpy(np.array(a_q)),
+                      torch.from_numpy(np.array(a_s)), w_qt,
+                      torch.from_numpy(w_s), out_dtype=torch.float32,
+                      w_t=w_qt.t().contiguous())
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_int8_matmul_checks_its_kmajor_copy_on_the_cpu():
+    """``w_t`` is checked before the device branch: on the CPU a ``w_t``
+    of the wrong shape, dtype or layout raises ``ValueError`` (the plain
+    version reads ``w_q``); on the CPU none is needed.  The card's K only
+    needs TMA's 16-byte rows."""
+    x, w_q, w_s = _rows_below_the_floor(15, 40, 128, 256)
+    a_q, a_s = quantize_rows(torch.from_numpy(x).bfloat16())
+    w_qt, w_st = torch.from_numpy(w_q), torch.from_numpy(w_s)
+    n0 = int8_matmul.launches
+    want = int8_matmul(a_q, a_s, w_qt, w_st)
+    assert int8_matmul.launches == n0  # the plain version on the CPU
+    torch.testing.assert_close(
+        int8_matmul(a_q, a_s, w_qt, w_st, w_t=w_qt.t().contiguous()), want,
+        atol=0, rtol=0)
+    for bad in (w_qt, w_qt.t(), w_qt.t().contiguous().float(),
+                w_qt.t().contiguous()[:128]):
+        with pytest.raises(ValueError, match="w_t"):
+            int8_matmul(a_q, a_s, w_qt, w_st, w_t=bad)
+    with pytest.raises(ValueError, match="w_t"):
+        w8a8_dot(torch.from_numpy(x), w_qt, w_st, impl="pallas", w_t=w_qt)
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_matmul(a_q[:, :120], a_s, w_qt[:120], w_st)
 
 
 def _mlp_inputs(seed, M=96, H=128, N1=512):

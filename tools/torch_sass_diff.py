@@ -1,29 +1,30 @@
 #!/usr/bin/env python3
-"""Compares the SASS of the attention kernels' instances (B2, B10, B11, B12,
-B15, B16), of the DAC kernels B8, B6 and B9 (on ``bf16_wgmma.cuh``), of B1,
-B3 and B4 (on ``s8_wgmma.cuh``) and of the ``mma.sync`` kernels of
-``int8_gemm.cuh``'s users (B12's quant and GEMM, B14's GEMM) with another
-tree's kernels, on a machine with nvcc (no card needed).
+"""Compares the SASS of the port's kernels with another tree's, on a machine
+with nvcc (no card needed): the attention kernels' instances (B2, B10, B11,
+B12, B15, B16, and past head dim 128 ``attention_wide.cu``), the DAC
+kernels B6, B7, B8 and B9, B1 and B3, and the s8 ``wgmma`` kernels of B4,
+B5, B12, B13 and B14 with their row quants.
 
     python3 tools/torch_sass_diff.py OTHER_CSRC_DIR
 
 OTHER_CSRC_DIR is another checkout's ``jatsr_torch/ops/csrc`` (for example
 a ``git archive`` of the parent commit unpacked into a gitignored
-directory).  Both trees' ``attention_natural.cu``, ``attention_deferred.cu``,
-``attention_train.cu``, ``flash_qkv.cu``, ``snake_tr_stream.cu``,
-``dac_res.cu``, ``norm_mod.cu``, ``w8a8_fused.cu`` and ``matmul_fused.cu``
-(its GEMM) are compiled to cubins with the port's nvcc flags; for each
-kernel of the other tree it finds this tree's instance of the same name or,
-where the other tree has no head-dim template argument, the instance with
-head dim 64 (the same kernel with ``64`` as its first template argument),
-strips addresses and encodings from ``cuobjdump -sass`` and prints the
-instruction counts and whether the streams are identical (else how many
-instructions differ, by ``difflib``).  The kernels in RETIRED are the
-other tree's that this one deleted on purpose (``int8_gemm.cuh``'s
-``requant`` and ``gemm_gelu`` instances, which every library that included
-it compiled); they are listed and not compared.  B5 and B13
-(``dense_gelu_quant.cu``, ``mlp_full.cu``) were redesigned on the s8
-``wgmma`` core and are not compared.  Exits 1 if any other pair differs.
+directory).  Each source of SOURCES that the other tree has is compiled in
+both trees to a cubin with the port's nvcc flags; for each kernel of the
+other tree it finds this tree's instance of the same name (or its new name,
+RENAMED) or, where the other tree has no head-dim template argument, the
+instance with head dim 64 (the same kernel with ``64`` as its first
+template argument), strips addresses and encodings from ``cuobjdump -sass``
+and prints the instruction counts and whether the streams are identical
+(else how many instructions differ, by ``difflib``).  The kernels in
+RETIRED, and every kernel of a source this tree no longer has
+(``matmul_fused.cu``, B14's ``mma.sync`` GEMM, now in ``w8a8_fused.cu``),
+are the other tree's that this one deleted on purpose (``int8_gemm.cuh``'s
+``mma.sync`` kernels: ``requant``, ``gemm_gelu``, ``gemm_dequant``); they
+are listed and not compared.  B4's GEMM ``s8_fused_kernel`` is now
+``s8_dequant.cuh``'s ``s8_dequant_kernel<false, __nv_bfloat16>``, the one
+body that B12 (with a bias) and B14 (bf16 or fp32) instantiate too.  Exits
+1 if any other pair differs.
 """
 
 from __future__ import annotations
@@ -46,14 +47,20 @@ SOURCES = {"attention_natural.cu": ("natural_kernel",),
                                   "bwd_rows_kernel"),
            "flash_qkv.cu": ("normed_kernel", "quant_rows", "gemm_",
                             "requant"),
+           "attention_wide.cu": ("",),
+           "snake_tr.cu": ("",),
            "snake_tr_stream.cu": ("",),
            "dac_res.cu": ("",),
            "norm_mod.cu": ("",),
            "w8a8_fused.cu": ("",),
+           "dense_gelu_quant.cu": ("",),
+           "mlp_full.cu": ("",),
            "matmul_fused.cu": ("gemm_",)}
-UNTEMPLATED = ("snake_tr_stream.cu", "dac_res.cu", "norm_mod.cu",
-               "w8a8_fused.cu", "matmul_fused.cu")  # matched by name
-RETIRED = ("requant", "gemm_gelu")
+UNTEMPLATED = ("attention_wide.cu", "snake_tr.cu", "snake_tr_stream.cu",
+               "dac_res.cu", "norm_mod.cu", "w8a8_fused.cu",
+               "dense_gelu_quant.cu", "mlp_full.cu")  # matched by name
+RETIRED = ("requant", "gemm_gelu", "gemm_dequant")
+RENAMED = {"s8_fused_kernel": "s8_dequant_kernel<false, __nv_bfloat16>"}
 
 
 def sass(src: Path, out: Path) -> dict:
@@ -91,16 +98,23 @@ def main() -> int:
     differ = 0
     with tempfile.TemporaryDirectory() as tmp:
         for f, kernels in SOURCES.items():
+            if not (other / f).exists():
+                continue
             (Path(tmp) / "this").mkdir(exist_ok=True)
             (Path(tmp) / "other").mkdir(exist_ok=True)
-            new = sass(_build.CSRC / f, Path(tmp) / "this")
+            here = (_build.CSRC / f).exists()
+            new = sass(_build.CSRC / f, Path(tmp) / "this") if here else {}
             old = sass(other / f, Path(tmp) / "other")
             for name, vo in sorted(old.items()):
                 if not name.startswith(kernels):
                     continue
+                if not here:
+                    print(f"[sass] {f} {name}: retired here (no {f})")
+                    continue
                 base, _, args = name.partition("<")
-                key = (name if f in UNTEMPLATED or name in new
-                       else f"{base}<64{', ' + args if args else '>'}")
+                key = RENAMED.get(name) or (
+                    name if f in UNTEMPLATED or name in new
+                    else f"{base}<64{', ' + args if args else '>'}")
                 vn = new.get(key)
                 if vn is None and name.startswith(RETIRED):
                     print(f"[sass] {f} {name}: retired here")
