@@ -81,7 +81,19 @@ model (all 28 blocks, batch 4) on the card against the CPU (plain
 versions) on the same weights, batch and draws; and one step of the tiny
 preset (head dim 32) on the card against the CPU.
 
-The timed passes of the six serving paths run in turns.  With
+Audio in, audio out: 44.0 s of mono 16 kHz audio (704,000 samples from
+the seed) through ``super_resolve_audio`` on the main path's DiT and the
+fused codec with its encoder and nine-codebook RVQ: resampled to 44.1 kHz
+(1,940,400 samples), encoded to the main path's 3790 frames, sampled and
+decoded interleaved, its launches counted against the main path's, the
+waveform checked, and the interleaved path held bit-equal to the
+two-phase one under ``chunk_noise="batch"``.  On the card against the
+CPU: the production encoder and RVQ on 4096 samples, the 16 kHz -> 44.1
+kHz resample of 1 s, and one Heun call of the main path's sampler (its
+forwards counted).
+
+The timed passes of the six serving paths and the audio path run in
+turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused) and one more train step with
 ``torch.profiler`` and prints, for each, the card's busy share and device
@@ -1355,9 +1367,11 @@ def counted_pass(torch, name, serve, counters, expected, C):
     return launches, latent
 
 
-def timed_passes(servers):
+def timed_passes(servers, card):
     """``TIMED_RUNS`` serving passes of each path, in turns (A B B A ...),
-    so that a drift of the host or the card touches both alike."""
+    so that a drift of the host or the card touches both alike.  A server
+    returns ``(..., sampler s, end-to-end s)``; the audio path's sampler
+    time is None (its one entry point runs encode, sampler and decode)."""
     names = list(servers)
     times = {n: [] for n in names}
     for r in range(TIMED_RUNS):
@@ -1365,8 +1379,16 @@ def timed_passes(servers):
             times[n].append(servers[n]()[2:])
     audio_sec = LATENT_FRAMES * 512 / 44100
     for n, ts in times.items():
-        t_sample = sorted(t for t, _ in ts)[len(ts) // 2]
         t_e2e = sorted(t for _, t in ts)[len(ts) // 2]
+        if ts[0][0] is None:
+            log(f"[serve {n}] {TIMED_RUNS} runs, audio in, audio out ms "
+                f"{[round(t * 1e3, 1) for _, t in ts]}")
+            log(f"[serve {n}] median: audio in, audio out "
+                f"{AUDIO_SEC / t_e2e:.2f} audio-sec/s ({t_e2e * 1e3:.1f} "
+                f"ms); {AUDIO_SEC:.1f} s of {AUDIO_SR} Hz audio, {STEPS} "
+                f"steps CFG {CFG_SCALE}, batch 6; {card}")
+            continue
+        t_sample = sorted(t for t, _ in ts)[len(ts) // 2]
         log(f"[serve {n}] {TIMED_RUNS} runs, sampler ms "
             f"{[round(t * 1e3, 1) for t, _ in ts]}, end-to-end ms "
             f"{[round(t * 1e3, 1) for _, t in ts]}")
@@ -1398,6 +1420,190 @@ def check_reference(torch, name, model, cpu_model, frames):
     if not bool(torch.isfinite(out).all()) or rel > 5e-2:
         raise AssertionError(f"{name}: card DiT disagrees with the plain "
                              f"path: rel L2 {rel} > 5e-2")
+
+
+# ---- audio in, audio out ----------------------------------------------------
+AUDIO_SR = 16000
+AUDIO_SAMPLES = 704_000       # 44.0 s of mono 16 kHz audio: 3790 frames
+AUDIO_SEC = AUDIO_SAMPLES / AUDIO_SR
+# Heun on the card against the CPU: one forward's card-vs-CPU bound is 5e-2
+# (check_reference; measured ~2e-2, int8 code flips where the fp32 sums run
+# in another order); 15 forwards feed those flips back through the ODE, and
+# CFG 3.0 extrapolates the conditional-unconditional difference x3: twice
+# the one-forward bound.
+REL_HEUN = 1e-1
+
+
+def lr_audio():
+    """The phase's input, from the seed: two tones and noise, fp32."""
+    import numpy as np
+
+    t = np.arange(AUDIO_SAMPLES) / AUDIO_SR
+    noise = np.random.default_rng(SEED + 3).standard_normal(AUDIO_SAMPLES)
+    return (0.3 * np.sin(2 * np.pi * 440 * t)
+            + 0.15 * np.sin(2 * np.pi * 3000 * t) + 0.05 * noise).astype(
+        np.float32)
+
+
+def audio_pipeline(model, codec, chunk_noise="per_chunk"):
+    import numpy as np
+
+    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.train.step import Normalizer
+
+    C = model.cfg.input_channels
+    norm = Normalizer(np.zeros(C), np.ones(C), np.zeros(C), np.ones(C))
+    return InferencePipeline(model, norm, codec, SamplerConfig(
+        num_steps=STEPS, cfg_scale=CFG_SCALE, chunk_noise=chunk_noise))
+
+
+def audio_phase(torch, model, codec, counters, expected, card):
+    """The main path's DiT and the fused codec behind
+    ``super_resolve_audio``: 44.0 s of 16 kHz audio, resampled to 44.1 kHz,
+    encoded (3790 frames), sampled and decoded interleaved.  A warm-up
+    pass, then one with every launch count set to 0 just before it and
+    read just after (the main path's counts); the waveform; the
+    interleaved path bit-equal to the two-phase one under
+    ``chunk_noise="batch"``.  Returns ``(launches, serve)``."""
+    import numpy as np
+
+    audio = lr_audio()
+    pipe = audio_pipeline(model, codec)
+
+    def serve():
+        t0 = time.perf_counter()
+        wav = pipe.super_resolve_audio(audio, AUDIO_SR, SEED, STEPS,
+                                       CFG_SCALE, max_batch=3)
+        return wav, None, None, time.perf_counter() - t0
+
+    serve()  # warm-up: cuDNN's choice at the encoder's shapes
+    enc = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lat = pipe.encode_lr_audio(audio, AUDIO_SR)
+        enc.append(time.perf_counter() - t0)
+    log(f"[audio] resample 16 kHz -> 44.1 kHz and encode {AUDIO_SEC:.1f} s "
+        f"(3 runs): ms {[round(t * 1e3, 1) for t in enc]}; latent "
+        f"{lat.shape}")
+    if lat.shape != (LATENT_FRAMES, model.cfg.input_channels):
+        raise AssertionError(f"audio latent {lat.shape}")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    wav = serve()[0]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[audio] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"audio: launch counts {launches} != {expected}")
+    n_out = LATENT_FRAMES * codec.cfg.hop_length
+    if wav.shape != (n_out,) or not np.isfinite(wav).all() \
+            or np.abs(wav).max() > 1.0:
+        raise AssertionError(f"audio: wav {wav.shape} not finite, of "
+                             f"{n_out} samples in [-1, 1]")
+    log(f"[audio] {AUDIO_SEC:.1f} s of {AUDIO_SR} Hz audio in, "
+        f"{wav.shape[0]} samples at 44.1 kHz out, max |wav| "
+        f"{np.abs(wav).max():.3f}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    batch = audio_pipeline(model, codec, chunk_noise="batch")
+    lat = batch.encode_lr_audio(audio, AUDIO_SR)
+    a = batch.super_resolve_latent_to_audio(lat, SEED, STEPS, CFG_SCALE,
+                                            max_batch=3)
+    b = batch.decode_latent(batch.super_resolve_latent_device(
+        lat, SEED, STEPS, CFG_SCALE, max_batch=3))
+    log(f"[audio] interleaved vs two-phase under chunk_noise='batch': "
+        f"bit-equal {np.array_equal(a, b)}, max abs "
+        f"{np.abs(a - b).max():.3e}")
+    if not np.array_equal(a, b):
+        raise AssertionError("interleaved sample/decode != two-phase")
+    return launches, serve
+
+
+def check_audio_references(torch, codec):
+    """The production codec's encoder and RVQ on the card against the CPU
+    (plain path) on 4096 samples: z_e within 3e-4 of its scale and at most
+    2 % of the codes differing, the bounds of ``tests/test_dac.py`` against
+    the torch mirror (fp32 sums in another order flip near-tied argmaxes);
+    no decode kernel in the encoder.  Then resampling 16 kHz -> 44.1 kHz,
+    1 s: within 2e-6 (one fp32 conv; the taps summed in another order)."""
+    import numpy as np
+
+    from jatsr_torch.models.dac import DAC
+    from jatsr_torch.ops import dac_kernels as dk
+    from jatsr_torch.ops.resample import resample
+
+    rng = np.random.default_rng(SEED + 4)
+    t = np.arange(4096) / 44100.0
+    x = torch.from_numpy((0.3 * np.sin(2 * np.pi * 440 * t)
+                          + 0.05 * rng.standard_normal(4096)).astype(
+        np.float32)).reshape(1, -1, 1)
+    cpu = DAC.random_init(SEED, codec.cfg, device="cpu")
+    n0 = dk.res_unit_fused.launches + dk.res_stage_fused.launches
+    z_e = codec.encode_continuous(x.cuda()).cpu()
+    _, codes = codec.encode(x.cuda())
+    if dk.res_unit_fused.launches + dk.res_stage_fused.launches != n0:
+        raise AssertionError("the encoder launched a decode kernel")
+    want_e = cpu.encode_continuous(x)
+    _, want_codes = cpu.encode(x)
+    err = (z_e - want_e).abs().max().item()
+    scale = want_e.abs().max().item()
+    flips = (codes.cpu() != want_codes).float().mean().item()
+    log(f"[reference audio] encoder, card vs CPU plain path, production "
+        f"codec, 4096 samples: z_e max abs {err:.3e} of max {scale:.3e} "
+        f"(bound 3e-4 x max); codes differing {flips:.4%} of "
+        f"{codes.numel()} (bound 2 %)")
+    if err > 3e-4 * scale or flips > 0.02:
+        raise AssertionError(f"encoder: card vs CPU z_e {err}, codes {flips}")
+    y = torch.from_numpy(lr_audio()[:AUDIO_SR])[None]
+    got = resample(y.cuda(), AUDIO_SR, 44100).cpu()
+    want = resample(y, AUDIO_SR, 44100)
+    err = (got - want).abs().max().item()
+    log(f"[reference audio] resample 16 kHz -> 44.1 kHz, 1 s, card vs CPU: "
+        f"{tuple(got.shape)}, max abs {err:.3e} (bound 2e-6)")
+    if got.shape != (1, 44100) or err > 2e-6:
+        raise AssertionError(f"resample: card vs CPU {err}")
+
+
+def check_heun(torch, model, cpu_model, frames=100):
+    """One Heun call of the main path's sampler (8 steps, CFG 3.0,
+    doubled) on one [1, frames, C] chunk, on the card and on the CPU (plain
+    path), each counting its forwards: 2 x 8 - 1, the last interval's
+    Euler step taking one.  Relative L2 < ``REL_HEUN``."""
+    import numpy as np
+
+    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.models.dit import adaln_tables
+    from jatsr_torch.sampling import FlowSampler
+
+    C = model.cfg.input_channels
+    rng = np.random.default_rng(SEED + 5)
+    cond, z0 = (torch.from_numpy(rng.standard_normal((1, frames, C),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    outs, forwards = [], []
+    for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        calls = [0]
+
+        def fn(z, t, c, mod=None, m=m, calls=calls):
+            calls[0] += 1
+            return m(z, t, c, adaln_mod=mod)
+
+        sampler = FlowSampler(fn, SamplerConfig(num_steps=STEPS,
+                                                solver="heun"),
+                              adaln_fn=lambda tv, m=m: adaln_tables(m, tv),
+                              device=dev)
+        outs.append(sampler(cond.to(dev), STEPS, CFG_SCALE,
+                            z0=z0.to(dev)).cpu())
+        forwards.append(calls[0])
+    out, ref = outs
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log(f"[reference heun] main path's DiT, Heun {STEPS} steps CFG "
+        f"{CFG_SCALE} on [1, {frames}, {C}]: forwards card {forwards[0]}, "
+        f"CPU {forwards[1]} (expected {2 * STEPS - 1}); card vs CPU rel L2 "
+        f"{rel:.3e}, max abs {(out - ref).abs().max().item():.3e}")
+    if forwards != [2 * STEPS - 1] * 2 or not bool(
+            torch.isfinite(out).all()) or rel > REL_HEUN:
+        raise AssertionError(f"heun: forwards {forwards}, rel L2 {rel}")
 
 
 # ---- the training path: B10 and the v3mod2 train step ----------------------
@@ -1954,7 +2160,14 @@ def main() -> int:
             torch, name, fns[name][2], counters, expected[name],
             cfgs[name].input_channels)
     phases.done("counted passes")
-    timed_passes({name: f[2] for name, f in fns.items()})
+    # Audio in, audio out: the main path's DiT behind super_resolve_audio,
+    # with the fused codec's encoder; timed in the same turns.
+    launches["audio"], audio_serve = audio_phase(
+        torch, models["prologue"], codecs[True], counters,
+        expected["prologue"], card)
+    phases.done("audio in, audio out")
+    timed_passes({**{name: f[2] for name, f in fns.items()},
+                  "audio": audio_serve}, card)
     phases.done("timed passes")
     if args.profile:
         for name, (sample, _, _) in fns.items():
@@ -1966,17 +2179,21 @@ def main() -> int:
         phases.done("profiles")
     check_decode(torch, codecs[True], codecs[False],
                  latents["prologue"][:DECODE_L][None])
-    del codecs, fns, latents
-    phases.done("decode references")
+    check_audio_references(torch, codecs[True])
+    del codecs, fns, latents, audio_serve
+    phases.done("decode and audio references")
 
     # 5. Reference on a small input: each full-width DiT on the card
     #    (kernels) and on the CPU (plain versions).  100 frames are 25
     #    patches: aligned to 32 (keys masked past 25) where align_n is
     #    taken, padded to 32 inside flash_split.
     for name, cfg in cfgs.items():
-        check_reference(torch, name, models[name],
-                        DiT(cfg, static, device="cpu"),
+        cpu_model = DiT(cfg, static, device="cpu")
+        check_reference(torch, name, models[name], cpu_model,
                         100 if cfg.align_n else 64)
+        if name == "prologue":
+            check_heun(torch, models[name], cpu_model)
+        del cpu_model
 
     del models, static
     torch.cuda.empty_cache()

@@ -167,7 +167,7 @@ class SamplerConfig:
 
     num_steps: int = 50
     cfg_scale: float = 1.0
-    solver: str = "euler"  # "euler" | "heun" (a later slice)
+    solver: str = "euler"  # "euler" | "heun"
     t_jump_threshold: float = 0.999  # jump to x0 at t >= this
     velocity_eps: float = 1e-5  # 1 / (1 - t + eps) guard
     # Guidance interval (fractions of the schedule): CFG only for t in
@@ -176,8 +176,8 @@ class SamplerConfig:
     cfg_batching: str = "doubled"  # one 2B forward | "split": two B forwards
     chunk_duration: float = 16.0
     overlap_duration: float = 2.0
-    chunk_noise: str = "per_chunk"  # "per_chunk" | "batch" (a later slice)
-    pad_tail_group: bool = False  # a later slice
+    chunk_noise: str = "per_chunk"  # "per_chunk" | "batch" (one per group)
+    pad_tail_group: bool = False  # pad a short tail group to max_batch
 
 
 @dataclass(frozen=True)

@@ -1,3 +1,5 @@
-from .pipeline import InferencePipeline, chunk_plan, crossfade_chunks
+from .pipeline import (InferencePipeline, chunk_plan, crossfade_chunks,
+                       group_noise)
 
-__all__ = ["InferencePipeline", "chunk_plan", "crossfade_chunks"]
+__all__ = ["InferencePipeline", "chunk_plan", "crossfade_chunks",
+           "group_noise"]

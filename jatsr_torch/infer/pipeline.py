@@ -1,12 +1,21 @@
-"""Chunked latent super-resolution with crossfade stitching, and the
-segmented DAC decode.
+"""Chunked super-resolution with crossfade stitching: audio or latent in,
+latent or audio out.
 
-Port of the JAX package's ``infer/pipeline.py`` on the serving path that
-``bench.py --end-to-end`` measures: ``super_resolve_latent_device`` then
-``decode_latent_pieces``.  The whole chain (normalize, chunk, sample,
-denormalize, crossfade, decode) stays on the pipeline's device.
-``super_resolve_latent_to_audio``, audio encode, meshes and
-``decode_devices`` come in later slices.
+Port of the JAX package's ``infer/pipeline.py``: ``super_resolve_latent``
+(chunk, normalize, sample in groups, denormalize, crossfade), the
+segmented ``decode_latent``, ``encode_lr_audio`` (resample to the codec's
+rate, encode), ``super_resolve_audio`` and ``super_resolve_latent_to_audio``
+(sampling and decoding interleaved: each decode segment is enqueued as
+soon as its frames are final).  The whole chain stays on the pipeline's
+device.  Meshes and ``decode_devices`` come with ``parallel/``.
+
+The initial noise: under ``chunk_noise="per_chunk"`` (the default),
+``super_resolve_latent`` draws each chunk's from (seed, chunk); under
+``"batch"`` each group draws one from (seed, group) through
+:func:`group_noise`.  ``super_resolve_latent_to_audio`` always draws per
+group, as the JAX package does, so it equals
+``decode_latent(super_resolve_latent_device(...))`` under ``"batch"``
+only.
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ import torch.nn.functional as F
 
 from ..configs import SamplerConfig
 from ..models.dac import DAC
-from ..models.dit import DiT, adaln_tables
+from ..models.dit import DenseDiT, DiT, adaln_tables
+from ..ops.resample import resample
 from ..sampling import FlowSampler
 from ..sampling.flow import linspace_f32
 from ..train.step import Normalizer
@@ -37,6 +47,12 @@ def chunk_plan(total_frames: int, chunk_frames: int,
             for i in range(n)]
 
 
+def _stream_seed(*words: int) -> int:
+    """A 64-bit generator seed that is a pure function of ``words``."""
+    return int(np.random.SeedSequence(list(words))
+               .generate_state(1, np.uint64)[0])
+
+
 def _per_chunk_noise(seed: int, n: int, frames: int, channels: int,
                      device) -> torch.Tensor:
     """``[n, frames, channels]`` initial noise; slice i is a pure function
@@ -47,11 +63,20 @@ def _per_chunk_noise(seed: int, n: int, frames: int, channels: int,
                       device=device)
     for i in range(n):
         g = torch.Generator(device=device)
-        g.manual_seed(int(np.random.SeedSequence([seed, i])
-                          .generate_state(1, np.uint64)[0]))
+        g.manual_seed(_stream_seed(seed, i))
         out[i] = torch.randn((frames, channels), generator=g,
                              dtype=torch.float32, device=device)
     return out
+
+
+def group_noise(seed: int, gi: int, shape, device) -> torch.Tensor:
+    """The initial noise of chunk group ``gi`` where chunks draw no noise
+    of their own: one fp32 draw of the group's ``shape``, a pure function
+    of (seed, gi)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_stream_seed(seed, gi, 1))
+    return torch.randn(tuple(shape), generator=g, dtype=torch.float32,
+                       device=device)
 
 
 def crossfade_chunks(chunks: List[torch.Tensor],
@@ -82,14 +107,16 @@ class InferencePipeline:
     """Raw LR latent -> generated HR latent -> 44.1 kHz audio.
 
     Args:
-        model: the port's :class:`DiT`.
+        model: the port's int8 serving :class:`DiT` or the bf16
+            :class:`DenseDiT`.
         normalizer: latent statistics (:class:`Normalizer`).
-        codec: the decode-only :class:`DAC` (needed for audio).
+        codec: the :class:`DAC` (needed for audio; audio input needs its
+            encoder too).
         sampler_cfg: chunking and sampler settings.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
     """
 
-    def __init__(self, model: DiT, normalizer: Normalizer,
+    def __init__(self, model: DiT | DenseDiT, normalizer: Normalizer,
                  codec: Optional[DAC] = None,
                  sampler_cfg: Optional[SamplerConfig] = None,
                  data_sample_rate: int = 44100, hop_length: int = 512,
@@ -101,13 +128,8 @@ class InferencePipeline:
         self.cfg = sampler_cfg or SamplerConfig()
         self.sr = data_sample_rate
         self.hop = hop_length
-        if self.cfg.chunk_noise != "per_chunk":
-            raise NotImplementedError(
-                "chunk_noise='batch' (the whole-batch draw) comes in a later "
-                "slice")
-        if self.cfg.pad_tail_group:
-            raise NotImplementedError(
-                "pad_tail_group comes with the CUDA-graph slice")
+        if self.cfg.chunk_noise not in ("per_chunk", "batch"):
+            raise ValueError(f"unknown chunk_noise {self.cfg.chunk_noise!r}")
         self.sampler = FlowSampler(
             lambda z, t, c, mod=None: model(z, t, c, adaln_mod=mod),
             self.cfg, adaln_fn=lambda tv: adaln_tables(model, tv),
@@ -130,6 +152,18 @@ class InferencePipeline:
         return self.super_resolve_latent_device(
             lr_latent, seed, num_steps, cfg_scale, max_batch).cpu().numpy()
 
+    def _chunk_cond(self, lr_latent, plan) -> torch.Tensor:
+        """``[n_chunks, chunk_frames, C]`` normalized condition chunks.
+        Normalizes first, then zero-pads the short tail chunk: zeros in
+        normalized space are the CFG null token."""
+        CF = self.chunk_frames
+        lat = torch.as_tensor(lr_latent, dtype=torch.float32).to(self.device)
+        lat_n = self.norm.norm_lr(lat[None])[0]
+        tail = plan[-1][1] - plan[-1][0]
+        if tail < CF:
+            lat_n = F.pad(lat_n, (0, 0, 0, CF - tail))
+        return torch.stack([lat_n[s: s + CF] for s, _ in plan])
+
     @torch.no_grad()
     def super_resolve_latent_device(self, lr_latent, seed: int = 0,
                                     num_steps: Optional[int] = None,
@@ -137,30 +171,130 @@ class InferencePipeline:
                                     max_batch: int = 0) -> torch.Tensor:
         """As :meth:`super_resolve_latent`, result left on the device.
 
-        Normalizes first, then zero-pads the short tail chunk (zeros in
-        normalized space are the CFG null token), samples the chunks in
-        groups of ``max_batch`` (0: one group), denormalizes and
-        crossfades."""
+        Samples the chunks in groups of ``max_batch`` (0: one group),
+        denormalizes and crossfades.  With ``pad_tail_group`` and per-chunk
+        noise, a short tail group is padded with null chunks (zero
+        condition, zero noise) to ``max_batch``; their outputs are dropped.
+        """
         T = lr_latent.shape[0]
         plan = chunk_plan(T, self.chunk_frames, self.overlap_frames)
-        CF = self.chunk_frames
-        lat = torch.as_tensor(lr_latent, dtype=torch.float32).to(self.device)
-        lat_n = self.norm.norm_lr(lat[None])[0]
-        tail = plan[-1][1] - plan[-1][0]
-        if tail < CF:
-            lat_n = F.pad(lat_n, (0, 0, 0, CF - tail))
-        cond = torch.stack([lat_n[s: s + CF] for s, _ in plan])
-        z0_all = _per_chunk_noise(seed, len(plan), CF, lat_n.shape[-1],
-                                  self.device)
+        cond = self._chunk_cond(lr_latent, plan)
+        z0_all = None
+        if self.cfg.chunk_noise == "per_chunk":
+            z0_all = _per_chunk_noise(seed, len(plan), self.chunk_frames,
+                                      cond.shape[-1], self.device)
         step = max_batch if max_batch > 0 else len(plan)
         outs = []
-        for s_g in range(0, len(plan), step):
-            gen = self.sampler(cond[s_g:s_g + step], num_steps, cfg_scale,
-                               z0=z0_all[s_g:s_g + step])
+        for gi, s_g in enumerate(range(0, len(plan), step)):
+            g = cond[s_g:s_g + step]
+            n_real = g.shape[0]
+            if z0_all is None:
+                z0 = group_noise(seed, gi, g.shape, self.device)
+            else:
+                z0 = z0_all[s_g:s_g + step]
+                if self.cfg.pad_tail_group and gi > 0 and n_real < max_batch:
+                    pad = (0, 0, 0, 0, 0, max_batch - n_real)
+                    g, z0 = F.pad(g, pad), F.pad(z0, pad)
+            gen = self.sampler(g, num_steps, cfg_scale, z0=z0)[:n_real]
             outs.append(self.norm.denorm_hr(gen))
         gen_all = torch.cat(outs)
         chunks = [gen_all[i, : e - s] for i, (s, e) in enumerate(plan)]
         return crossfade_chunks(chunks, self.overlap_frames)[:T]
+
+    def encode_lr_audio(self, audio, sr: int) -> np.ndarray:
+        """Mono audio ``[T]`` at any rate -> LR latent ``[T', C]`` on the
+        host (resampled to the codec's rate, then encoded)."""
+        return self._encode_lr_audio_device(audio, sr).cpu().numpy()
+
+    @torch.no_grad()
+    def _encode_lr_audio_device(self, audio, sr: int) -> torch.Tensor:
+        if self.codec is None:
+            raise ValueError("audio input needs a codec")
+        x = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        x = x.reshape(1, -1, 1)
+        if sr != self.sr:
+            x = resample(x, sr, self.sr)
+        z, _ = self.codec.encode(x)
+        return z[0]
+
+    def super_resolve_audio(self, audio, sr: int, seed: int = 0,
+                            num_steps: Optional[int] = None,
+                            cfg_scale: Optional[float] = None,
+                            max_batch: int = 8) -> np.ndarray:
+        """Mono LR audio at any rate -> generated full-band audio at the
+        codec's rate, on the host: resample, encode, then
+        :meth:`super_resolve_latent_to_audio`."""
+        if self.codec is None:
+            raise ValueError("audio output needs a codec")
+        lr_latent = self._encode_lr_audio_device(audio, sr)
+        return self.super_resolve_latent_to_audio(
+            lr_latent, seed, num_steps, cfg_scale, max_batch=max_batch)
+
+    @torch.no_grad()
+    def super_resolve_latent_to_audio(self, lr_latent, seed: int = 0,
+                                      num_steps: Optional[int] = None,
+                                      cfg_scale: Optional[float] = None,
+                                      max_batch: int = 8,
+                                      segment_frames: int = 2756,
+                                      ctx_frames: int = 64) -> np.ndarray:
+        """``[T, C]`` LR latent -> mono audio on the host, with sampling and
+        decoding interleaved: the crossfade runs incrementally as each
+        group's chunks come out of the sampler, and every decode segment
+        whose frames are final is enqueued before the next group's sampler
+        call.  The arithmetic is that of :func:`crossfade_chunks` and the
+        windows those of :meth:`decode_latent`.
+
+        Each group draws its initial noise from (seed, group)
+        (:func:`group_noise`) whatever ``chunk_noise`` is, as the JAX
+        package does.  A short input (one chunk, or one decode segment)
+        takes ``decode_latent(super_resolve_latent_device(...))``."""
+        if self.codec is None:
+            raise ValueError("audio output needs a codec")
+        T = lr_latent.shape[0]
+        CF, OV, hop = self.chunk_frames, self.overlap_frames, self.hop
+        plan = chunk_plan(T, CF, OV)
+        if T <= segment_frames + 2 * ctx_frames or len(plan) < 2:
+            gen = self.super_resolve_latent_device(
+                lr_latent, seed, num_steps, cfg_scale, max_batch)
+            return self.decode_latent(gen, segment_frames, ctx_frames)
+
+        cond = self._chunk_cond(lr_latent, plan)
+        segs = self._decode_plan(T, segment_frames, ctx_frames)
+        L = segment_frames + 2 * ctx_frames
+        fade_out = _ramp(1.0, 0.0, OV, self.device)
+        fade_in = _ramp(0.0, 1.0, OV, self.device)
+        mb = max_batch if max_batch > 0 else len(plan)
+        stitched = None  # frames [0, done): final values
+        pending = None   # the trailing OV frames the next chunk blends into
+        pieces, next_seg, ci = [], 0, 0
+        for gi, i in enumerate(range(0, len(plan), mb)):
+            g = cond[i:i + mb]
+            z0 = group_noise(seed, gi, g.shape, self.device)
+            gen = self.norm.denorm_hr(
+                self.sampler(g, num_steps, cfg_scale, z0=z0))
+            for j, (s, e) in enumerate(plan[i:i + mb]):
+                cur = gen[j, : e - s]
+                if stitched is None:
+                    stitched, pending = cur[:-OV], cur[-OV:]
+                else:
+                    blended = pending * fade_out + cur[:OV] * fade_in
+                    body = torch.cat([blended, cur[OV:]])
+                    if ci == len(plan) - 1:
+                        stitched, pending = torch.cat([stitched, body]), None
+                    else:
+                        stitched = torch.cat([stitched, body[:-OV]])
+                        pending = body[-OV:]
+                ci += 1
+            done = stitched.shape[0]
+            while next_seg < len(segs) and segs[next_seg][3] <= done:
+                s, e, lo, hi = segs[next_seg]
+                seg = F.pad(stitched[lo:hi], (0, 0, 0, L - (hi - lo)))
+                wav = self.codec.decode(seg[None])[0, :, 0]
+                pieces.append(wav[(s - lo) * hop: (e - lo) * hop])
+                next_seg += 1
+        assert pending is None and stitched.shape[0] == T
+        assert next_seg == len(segs)
+        return torch.cat(pieces).cpu().numpy()
 
     @staticmethod
     def _decode_plan(T: int, segment_frames: int, ctx_frames: int):

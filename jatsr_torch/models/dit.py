@@ -470,43 +470,62 @@ class DiT(nn.Module):
 
 
 @torch.no_grad()
-def adaln_tables(model: DiT, t: torch.Tensor) -> torch.Tensor:
+def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
     """Every layer's AdaLN modulation for flow times ``t [B]``:
-    ``[depth, B, 6H]`` bf16, the rows each block's adaln Dense would give."""
+    ``[depth, B, 6H]`` bf16, the rows each block's adaln Dense would give.
+    ``model`` is a :class:`DiT` or a :class:`DenseDiT`."""
     a = F.silu(model.time_embedding(t))
+    if isinstance(model, DenseDiT):
+        return torch.stack([blk.adaln(a) for blk in model.blocks])
     return (torch.einsum("bh,dhm->dbm", a, model.adaln_kernel)
             + model.adaln_bias[:, None, :])
 
 
 # ---- the trainable bf16 model -----------------------------------------------
 
-# ModelConfig fields that select a branch of the JAX model's training path,
-# with the values the port trains and the later slice that brings the others.
-_TRAINING_BRANCH = {
-    "matmul_precision": (("bf16",), "the dynamic-int8 training path"),
+# ModelConfig fields that select a branch of the JAX model's bf16 path, with
+# the values the port has and the later slice that brings the others: those
+# both paths read (checked where the model is built), then those only the
+# training path reads (checked where it trains, so that serving the model
+# never raises for them).
+_DENSE_BRANCH = {
+    "matmul_precision": (("bf16",), "the dynamic-int8 path"),
     "dtype": (("bfloat16",), "other compute dtypes"),
     "param_dtype": (("float32",), "other parameter dtypes"),
     "pos_embed": (("rope",), "learned positions (v1legacy)"),
     "fused_qkv": ((False,), "the fused qkv projection"),
     "attention_impl": (("flash", "pallas", "pallas2", "xla"),
                        "other attention"),
+}
+_TRAINING_BRANCH = {
     "train_attention_impl": (("flash", "xla"), "other training attention"),
-    "scores_dtype": (("float32",), "bf16 score storage"),
+    "scores_dtype": (("float32",), "bf16 score storage in training"),
     "remat_policy": (("full", "none"), "the selective remat policies dots, "
                                        "attn_out and mlp"),
 }
 
 
-def check_training_config(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the trainable
-    branch the port has."""
-    for name, (have_ported, later) in _TRAINING_BRANCH.items():
+def _check_branch(cfg: ModelConfig, branch: dict, what: str) -> None:
+    for name, (have_ported, later) in branch.items():
         have = getattr(cfg, name)
         if have not in have_ported:
             raise NotImplementedError(
                 f"ModelConfig.{name}={have!r} selects {later}, which a later "
-                f"slice of the port brings; the port trains {name} in "
+                f"slice of the port brings; the port {what} {name} in "
                 f"{have_ported!r}")
+
+
+def check_dense_config(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose bf16 model (served
+    or trained) takes a branch the port does not have."""
+    _check_branch(cfg, _DENSE_BRANCH, "has")
+
+
+def check_training_config(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the trainable
+    branch the port has."""
+    check_dense_config(cfg)
+    _check_branch(cfg, _TRAINING_BRANCH, "trains")
 
 
 class TrainDense(nn.Module):
@@ -617,12 +636,14 @@ class TrainBlock(nn.Module):
         self.mlp_out = _dense(p["mlp_out"], bf16, device, i)
         self.dp_rate = dp_rate
 
-    def forward(self, x, t_emb, cos, sin, seed=None):
+    def forward(self, x, t_emb, cos, sin, seed=None, mod=None):
         """``seed``: the block's (step, layer) seed on the training path,
-        None on the deterministic one."""
+        None on the deterministic one.  ``mod``: the block's hoisted AdaLN
+        row ``[B or 1, 6H]``, else computed here from ``t_emb``."""
         cfg = self.cfg
         gen = None if seed is None else _block_generator(seed, x.device)
-        mod = self.adaln(F.silu(t_emb))
+        if mod is None:
+            mod = self.adaln(F.silu(t_emb))
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
         h = _norm(x, cfg.norm) * (1 + scale_msa[:, None]) + shift_msa[:, None]
@@ -639,8 +660,9 @@ class DenseDiT(nn.Module):
     """The trainable DiT: the JAX model at ``matmul_precision="bf16"``.
 
     Args:
-        cfg: the model config; must be on the ported training branch
-            (:func:`check_training_config`).
+        cfg: the model config; must be on the ported bf16 branch
+            (:func:`check_dense_config`; the training path also checks
+            :func:`check_training_config`).
         params: the JAX float param tree (``blocks`` stacked ``[depth,
             ...]``) as nested dicts of numpy arrays or tensors (see
             ``models/from_jax.py``); None draws it as flax initialises it
@@ -654,7 +676,7 @@ class DenseDiT(nn.Module):
     def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",
                  generator: torch.Generator = None):
         super().__init__()
-        check_training_config(cfg)
+        check_dense_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -671,13 +693,22 @@ class DenseDiT(nn.Module):
             for i in range(cfg.depth))
         self.final_proj = _dense(params["final_proj"], bf16, dev)
 
+    def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        """fp32 t-MLP over the sinusoid; bf16 out."""
+        te = self.t_mlp1(sinusoidal_time_embedding(t, self.cfg.hidden_size))
+        return self.t_mlp2(F.silu(te)).to(torch.bfloat16)
+
     def forward(self, x_t, t, x_cond, deterministic: bool = True,
-                layer_seeds=None):
+                layer_seeds=None, adaln_mod=None):
         """``x_t``, ``x_cond``: [B, T, C]; ``t``: [B].  The training path
         (``deterministic=False``) needs ``layer_seeds``: one int32 seed per
-        block for this step, drawn on the host before the forward.  Returns
-        the predicted clean latent [B, T, C] fp32."""
+        block for this step, drawn on the host before the forward.
+        ``adaln_mod``: optional hoisted tables ``[depth, B or 1, 6H]``
+        (:func:`adaln_tables`), as the sampler passes them.  Returns the
+        predicted clean latent [B, T, C] fp32."""
         cfg = self.cfg
+        if not deterministic:
+            check_training_config(cfg)
         B, T_orig, C = x_t.shape
         if C != cfg.input_channels:
             raise ValueError(f"expected {cfg.input_channels} channels, got {C}")
@@ -696,19 +727,19 @@ class DenseDiT(nn.Module):
         x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B, N, P * 2 * C)
         h = self.patch_out(F.gelu(self.patch_in(x_in), approximate="none"))
 
-        te = self.t_mlp1(sinusoidal_time_embedding(t, cfg.hidden_size))
-        t_emb = self.t_mlp2(F.silu(te)).to(torch.bfloat16)
+        t_emb = None if adaln_mod is not None else self.time_embedding(t)
         cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
         cos = cos[:, None].to(torch.bfloat16)
         sin = sin[:, None].to(torch.bfloat16)
         remat = cfg.remat_policy == "full" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             seed = None if deterministic else int(layer_seeds[i])
+            mod = None if adaln_mod is None else adaln_mod[i]
             if remat:
                 h = torch.utils.checkpoint.checkpoint(
-                    blk, h, t_emb, cos, sin, seed, use_reentrant=False,
+                    blk, h, t_emb, cos, sin, seed, mod, use_reentrant=False,
                     preserve_rng_state=False)
             else:
-                h = blk(h, t_emb, cos, sin, seed)
+                h = blk(h, t_emb, cos, sin, seed, mod)
         h = self.final_proj(_norm(h, cfg.norm))
         return h.reshape(B, T, C)[:, :T_orig].float()

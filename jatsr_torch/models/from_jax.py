@@ -8,9 +8,10 @@ numpy's extended ``bfloat16`` dtype), so the port never imports JAX:
   ``[depth, ...]``, Dense kernels ``[in, out]``, int8_static leaves
   ``kernel_q`` ``[K, N]`` / ``kernel_scale`` ``[1, N]`` / ``bias``.
   :class:`models.dit.DiT` takes it as it is;
-- the DAC decoder dict ``{"w": [K, Cin, Cout], "b", "alpha"}`` is permuted
-  to PyTorch's conv layouts: ``[Cout, Cin, K]`` for a convolution,
-  ``[Cin, Cout, K]`` for the transposed convolutions (the ``up`` layers);
+- the DAC dicts (encoder, quantizer, decoder: ``{"w": [K, Cin, Cout],
+  "b", "alpha", "codebook"}``) are permuted to PyTorch's conv layouts:
+  ``[Cout, Cin, K]`` for a convolution, ``[Cin, Cout, K]`` for the
+  transposed convolutions (the ``up`` layers);
   for the fused decode, :func:`dac_fused_pack` also keeps the kernels'
   weights as bf16 in the JAX layout.
 
@@ -46,19 +47,23 @@ def tree_to_torch(tree: dict, device="cpu") -> dict:
             else as_tensor(v).to(device) for k, v in tree.items()}
 
 
-def dac_decoder_from_jax(dec: dict, device="cpu") -> dict:
-    """The JAX DAC decoder dict -> the same dict with PyTorch conv layouts."""
+def dac_tree_from_jax(tree: dict, device="cpu",
+                      dtype=torch.float32) -> dict:
+    """A JAX DAC dict (the encoder's, the quantizer's or the decoder's) ->
+    the same dict with PyTorch conv layouts, every leaf in ``dtype`` (the
+    JAX codec casts its decoder to its compute dtype once).  The
+    codebooks keep their ``[size, dim]`` layout."""
     out = {}
-    for k, v in dec.items():
+    for k, v in tree.items():
         if isinstance(v, dict) and "w" in v:
             w = as_tensor(v["w"]).float()
             w = w.permute(1, 2, 0) if k == "up" else w.permute(2, 1, 0)
-            out[k] = {"w": w.contiguous().to(device),
-                      "b": as_tensor(v["b"]).float().to(device)}
+            out[k] = {"w": w.contiguous().to(device, dtype),
+                      "b": as_tensor(v["b"]).to(device, dtype)}
         elif isinstance(v, dict):
-            out[k] = dac_decoder_from_jax(v, device)
+            out[k] = dac_tree_from_jax(v, device, dtype)
         else:
-            out[k] = as_tensor(v).float().to(device)
+            out[k] = as_tensor(v).to(device, dtype)
     return out
 
 

@@ -1,20 +1,30 @@
-"""Flow-matching math and the Euler ODE sampler with classifier-free guidance.
+"""Flow-matching math and the ODE sampler with classifier-free guidance.
 
 Port of the JAX package's ``sampling/flow.py``: the training draws
 (``flow_interpolate``, ``u_shaped_timesteps``) and ``FlowSampler``:
 
-- x-prediction Euler steps with the ``1/(1 - t + eps)`` velocity guard;
+- x-prediction Euler or Heun steps with the ``1/(1 - t + eps)`` velocity
+  guard; Heun's second velocity is taken at ``t_next`` with the table at
+  ``i + 1``, and an interval with ``t_next >= t_jump_threshold`` (the last
+  one) is an Euler step;
 - the jump to x0 at ``t >= t_jump_threshold`` as a scalar step-size select
   (``dt_eff``), never a tensor select;
 - CFG ``doubled`` (one forward on 2B, conditional half first, zero null
   condition) or ``split`` (two forwards on B), and ``cfg_interval``;
 - hoisted AdaLN tables for every schedule point;
-- a caller-supplied initial noise ``z0``.
+- a caller-supplied initial noise ``z0``;
+- ``renoise_sample``, the stochastic re-noising sampler (no CFG, no
+  tables).
 
-The schedule's scalars (``t``, ``dt``, ``dt_eff``, the guard) are computed
+The schedule's scalars (``t``, ``dt``, ``dt_eff``, the guards) are computed
 on the host in fp32, the dtype the JAX sampler computes them in, so the
-loop never waits on the device.  ``heun`` and ``renoise_sample`` come in a
-later slice.
+loop never waits on the device.
+
+Forwards a call makes, n steps: Euler n; Heun ``2n - k``, k the intervals
+with ``t_next >= t_jump_threshold`` (1 for n < 1000), whose second forward
+the JAX sampler computes and discards (``jnp.where``) and this one skips.
+Each forward is one model call on 2B rows under ``doubled`` CFG and two on
+B under ``split``.
 """
 
 from __future__ import annotations
@@ -71,8 +81,16 @@ def timesteps(num_steps: int) -> np.ndarray:
     return linspace_f32(0.0, 1.0, num_steps + 1)
 
 
+def renoise_draw(generator: torch.Generator, shape, i: int,
+                 device) -> torch.Tensor:
+    """The i-th standard normal draw of :meth:`FlowSampler.renoise_sample`
+    (i = n + 1 is the initial noise), fp32, from ``generator``."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+
+
 class FlowSampler:
-    """Euler ODE sampler for an x0-prediction model.
+    """Euler or Heun ODE sampler for an x0-prediction model.
 
     Args:
         model_fn: ``f(z [B,T,C], t [B], cond [B,T,C], mod) -> x0 [B,T,C]``;
@@ -89,9 +107,8 @@ class FlowSampler:
         self.cfg = cfg or SamplerConfig()
         self.adaln_fn = adaln_fn
         self.device = resolve_device(device)
-        if self.cfg.solver != "euler":
-            raise NotImplementedError(
-                f"solver={self.cfg.solver!r}: Heun comes in a later slice")
+        if self.cfg.solver not in ("euler", "heun"):
+            raise ValueError(f"unknown solver {self.cfg.solver!r}")
         if self.cfg.cfg_batching not in ("doubled", "split"):
             raise ValueError(f"unknown cfg_batching {self.cfg.cfg_batching!r}")
 
@@ -134,7 +151,8 @@ class FlowSampler:
         eps = np.float32(c.velocity_eps)
         jump = np.float32(c.t_jump_threshold)
         s32 = float(np.float32(scale))
-        guards = (np.float32(1.0) - ts[:n]) + eps
+        heun = c.solver == "heun"
+        guards = (np.float32(1.0) - ts) + eps  # at every schedule point
         # A divide by a host scalar becomes a reciprocal multiply on the
         # card; a 0-dim device tensor keeps it a true fp32 divide, as JAX's.
         guards_dev = torch.from_numpy(guards).to(cond.device)
@@ -145,10 +163,10 @@ class FlowSampler:
             mod = None if mods is None else mods[:, i:i + 1]
             return self.model_fn(z, t_b, cnd, mod).to(z.dtype)
 
-        z = z0
-        for i in range(n):
-            t, t_next = ts[i], ts[i + 1]
-            if i_lo <= i < i_hi:
+        def velocity(z, i, guided):
+            """The velocity at schedule point i."""
+            t = ts[i]
+            if guided:
                 if cond2 is not None:
                     pred = model(torch.cat([z, z]), t, cond2, i)
                     x_c, x_u = pred[:B], pred[B:]
@@ -158,8 +176,40 @@ class FlowSampler:
                 x_pred = x_u + s32 * (x_c - x_u)
             else:
                 x_pred = model(z, t, cond, i)
-            v = (x_pred - z) / guards_dev[i]
+            return (x_pred - z) / guards_dev[i]
+
+        z = z0
+        for i in range(n):
+            t, t_next = ts[i], ts[i + 1]
+            guided = i_lo <= i < i_hi
+            dt = np.float32(t_next - t)
+            v = velocity(z, i, guided)
+            if heun and t_next < jump:
+                v2 = velocity(z + v * float(dt), i + 1, guided)
+                v = 0.5 * (v + v2)
             # t >= jump steps straight to x_pred = z + v * (1 - t + eps).
-            dt_eff = np.float32(t_next - t) if t < jump else guards[i]
+            dt_eff = dt if t < jump else guards[i]
             z = z + v * float(dt_eff)
+        return z
+
+    @torch.no_grad()
+    def renoise_sample(self, generator: torch.Generator, cond: torch.Tensor,
+                       num_steps: Optional[int] = None) -> torch.Tensor:
+        """Re-noising sampler: predict x0, then re-interpolate it with
+        fresh noise at the next t (``t_next * x0 + (1 - t_next) * noise``),
+        the prediction itself at t = 1.  No CFG and no AdaLN tables.  The
+        draws come from ``generator`` through :func:`renoise_draw`: the
+        initial noise (i = n + 1), then one per step (i)."""
+        n = num_steps or self.cfg.num_steps
+        ts = timesteps(n)
+        z = renoise_draw(generator, cond.shape, n + 1, self.device)
+        for i in range(n):
+            t_b = torch.full((z.shape[0],), float(ts[i]),
+                             dtype=torch.float32, device=z.device)
+            x_pred = self.model_fn(z, t_b, cond, None).to(z.dtype)
+            noise = renoise_draw(generator, z.shape, i, self.device)
+            t_next = ts[i + 1]
+            z = (float(t_next) * x_pred
+                 + float(np.float32(1.0) - t_next) * noise
+                 if t_next < 1.0 else x_pred)
         return z

@@ -9,6 +9,28 @@ from __future__ import annotations
 
 import torch
 
+# The ATen unary ops that hand a contiguous fp32 CPU tensor to MKL's vector
+# math library (VML), in chunks of 2048 on the OpenMP threads.
+_VML_OPS = ("acos", "asin", "atan", "cos", "cosh", "erf", "erfc", "erfinv",
+            "exp", "expm1", "lgamma", "log", "log10", "log1p", "sin", "sinh",
+            "sqrt", "tan", "tanh", "trunc")
+
+
+def settle_cpu_math() -> None:
+    """Call each VML-backed op once, on one element, on this thread.
+
+    VML picks each function's kernel at its first call, and that choice is
+    not thread-safe: where the first call of a function is a multi-threaded
+    one, a thread can run its chunks through the low-accuracy ("EP")
+    kernel (tanh off by up to 5e-5), in a few processes in a hundred
+    under load.  One single-threaded call first makes every later call
+    take the accurate kernel, so the plain (CPU) paths give the same bits
+    in every process.
+    """
+    x = torch.full((1,), 0.5)
+    for name in _VML_OPS:
+        getattr(torch, name)(x)
+
 
 def resolve_device(device="cuda") -> torch.device:
     """Check ``device`` and return it as a ``torch.device``.

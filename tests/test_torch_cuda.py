@@ -53,6 +53,13 @@ kernels (B11, B15, B16): atol = rtol = 2e-2, as the other attention kernels;
 B15 and B16 bit-equal to each other.  B2 and B11 (one body) are each
 bit-equal on their two grids, and B2 is bit-equal to B11 on PyTorch's bf16
 RoPE of q and k where N % 8 == 0 and no key is masked.
+Audio in, audio out: the production codec's encoder and RVQ on the card
+against the CPU within ``tests/test_dac.py``'s bounds against the torch
+mirror (z_e 3e-4 x max, at most 2 % of the codes); the resample within
+2e-6 (one fp32 conv); ``python -m jatsr_torch.cli.infer`` at ``tiny`` on
+the card against ``--platform cpu`` on the same (CPU-drawn) noise within
+relative L2 5e-2, the bound of the port's pipeline against JAX's
+(measured 1.1e-2).
 """
 
 import numpy as np
@@ -1394,3 +1401,122 @@ def test_attention_train_is_deterministic_at_head_dim_256(card):
     b = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---- audio in, audio out ----------------------------------------------------
+
+
+def test_dac_encoder_on_card_matches_cpu(card):
+    """The production codec's encoder and residual VQ (random weights of a
+    seed) on 4096 samples: z_e within 3e-4 of its scale, the bound of
+    ``tests/test_dac.py`` against the torch mirror; at most 2 % of the codes
+    differ (that test's bound: fp32 sums in another order flip near-tied
+    argmaxes).  No decode kernel runs in the encoder."""
+    from jatsr_torch.models.dac import DAC, DACConfig
+
+    rng = np.random.default_rng(30)
+    t = np.arange(4096) / 44100.0
+    audio = torch.from_numpy((0.3 * np.sin(2 * np.pi * 440 * t)
+                              + 0.05 * rng.standard_normal(4096)).astype(
+        np.float32)).reshape(1, -1, 1)
+    cpu = DAC.random_init(0, DACConfig(), device="cpu")
+    gpu = DAC.random_init(0, DACConfig(), fused_res_units=True,
+                          device="cuda")
+    counters = (dk.res_unit_fused, dk.res_stage_fused)
+    n0 = [c.launches for c in counters]
+    z_e = gpu.encode_continuous(audio.cuda()).cpu()
+    z_q, codes = gpu.encode(audio.cuda())
+    assert [c.launches for c in counters] == n0
+    want_e = cpu.encode_continuous(audio)
+    want_q, want_codes = cpu.encode(audio)
+    assert z_e.shape == (1, 8, 1024) and codes.dtype == torch.int32
+    assert (z_e - want_e).abs().max().item() <= \
+        3e-4 * want_e.abs().max().item()
+    assert (codes.cpu() != want_codes).float().mean().item() <= 0.02
+
+
+def test_resample_on_card_matches_cpu(card):
+    from jatsr_torch.ops.resample import resample
+
+    x = torch.from_numpy(np.random.default_rng(31).uniform(
+        -1, 1, (1, 16000)).astype(np.float32))
+    got = resample(x.cuda(), 16000, 44100).cpu()
+    want = resample(x, 16000, 44100)
+    assert got.shape == want.shape == (1, 44100)
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+def _reference_state_dict(cfg, seed):
+    """A reference-format DiT ``model_state_dict`` (the key names
+    ``models/convert_dit.py`` reads, torch ``[out, in]`` weights) of
+    normal weights, std 1/sqrt(fan_in), and biases of std 0.02."""
+    rng = np.random.default_rng(seed)
+    H, P = cfg.hidden_size, cfg.patch_len
+    D = cfg.head_dim
+    C2 = cfg.input_channels + cfg.cond_channels
+    mlp = int(H * cfg.mlp_ratio)
+    shapes = {"patch_embed.proj.0": (cfg.bottleneck_dim, P * C2),
+              "patch_embed.proj.2": (H, cfg.bottleneck_dim),
+              "t_embedder.1": (H, H), "t_embedder.3": (H, H),
+              "final_layer.1": (P * cfg.input_channels, H)}
+    for i in range(cfg.depth):
+        b = f"blocks.{i}."
+        shapes.update({b + "adaLN_modulation.1": (6 * H, H),
+                       b + "mlp.0": (mlp, H), b + "mlp.3": (H, mlp)})
+        for name, out_in in (("q_proj", (cfg.num_q_heads * D, H)),
+                             ("k_proj", (cfg.num_kv_heads * D, H)),
+                             ("v_proj", (cfg.num_kv_heads * D, H)),
+                             ("out_proj", (H, cfg.num_q_heads * D))):
+            shapes[b + "attn." + name] = out_in
+    sd = {}
+    for k, (o, i) in shapes.items():
+        sd[k + ".weight"] = torch.from_numpy(
+            rng.standard_normal((o, i), dtype=np.float32) / np.sqrt(i))
+        if ".attn." not in k:
+            sd[k + ".bias"] = torch.from_numpy(
+                0.02 * rng.standard_normal(o, dtype=np.float32))
+    return sd
+
+
+def test_cli_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """``python -m jatsr_torch.cli.infer`` at ``tiny`` (the bf16 model, the
+    random production codec, the fused decode) on the card and with
+    ``--platform cpu``: the same wav within relative L2 5e-2, the bound of
+    the port's pipeline against JAX's.  A device's generator draws its own
+    numbers, so both runs take the CPU's per-chunk noise here."""
+    import json
+
+    from jatsr_torch.cli import infer as cli
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.infer import pipeline
+    from jatsr_torch.utils.audio_io import load_wav, save_wav
+
+    drawn = pipeline._per_chunk_noise
+    monkeypatch.setattr(pipeline, "_per_chunk_noise",
+                        lambda seed, n, frames, channels, device: drawn(
+                            seed, n, frames, channels, "cpu").to(device))
+
+    cfg = get_preset("tiny").model
+    torch.save({"model_state_dict": _reference_state_dict(cfg, 32)},
+               tmp_path / "model.pt")
+    ones, zeros = [1.0] * 1024, [0.0] * 1024
+    (tmp_path / "stats.json").write_text(json.dumps(
+        {"hr_mean": zeros, "hr_std": ones, "lr_mean": zeros,
+         "lr_std": ones}))
+    save_wav(tmp_path / "song.wav", (0.3 * np.sin(
+        2 * np.pi * 440 * np.arange(8000) / 16000)).astype(np.float32),
+        16000)
+    wavs = {}
+    for platform in ("cuda", "cpu"):
+        cli.main(["--torch-checkpoint", str(tmp_path / "model.pt"),
+                  "--preset", "tiny", "--stats", str(tmp_path / "stats.json"),
+                  "--input", str(tmp_path / "song.wav"), "--output-dir",
+                  str(tmp_path / platform), "--steps", "4", "--cfg-scale",
+                  "2.0", "--attention", "flash", "--platform", platform])
+        wavs[platform], sr = load_wav(tmp_path / platform /
+                                      "song_generated_cfg2.0.wav")
+    got, want = wavs["cuda"], wavs["cpu"]
+    assert sr == 44100 and got.shape == want.shape == (44 * 512,)
+    assert np.isfinite(got).all() and np.abs(got).max() <= 1.0
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 5e-2, rel

@@ -36,6 +36,16 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 14
 
 
+def test_audio_modules_are_among_those_imported():
+    """The audio-in, audio-out modules: the codec's converter, resampling,
+    stats, WAV I/O, the DiT checkpoint converter and the CLI."""
+    assert {"jatsr_torch.models.dac.convert", "jatsr_torch.ops.resample",
+            "jatsr_torch.data", "jatsr_torch.data.dataset",
+            "jatsr_torch.utils.audio_io", "jatsr_torch.models.convert_dit",
+            "jatsr_torch.cli", "jatsr_torch.cli.infer"} <= set(
+        _port_modules())
+
+
 def test_port_sources_never_name_the_jax_package():
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
@@ -69,7 +79,7 @@ def _entry_points():
     from jatsr_torch.configs import SamplerConfig, TrainConfig
     from jatsr_torch.infer import InferencePipeline
     from jatsr_torch.models.dac import DAC, DACConfig
-    from jatsr_torch.models.dac.model import init_decoder_params
+    from jatsr_torch.models.dac.model import init_decoder_params, init_params
     from jatsr_torch.models.dit import DiT
     from jatsr_torch.sampling import FlowSampler
     from jatsr_torch.models.dit import DenseDiT
@@ -83,6 +93,9 @@ def _entry_points():
         "DiT": lambda: DiT(*_tiny_static()),
         "DAC": lambda: DAC(init_decoder_params(small), small),
         "DAC.random_init": lambda: DAC.random_init(0, small),
+        "DAC whole codec": lambda: DAC(init_params(small), small),
+        "DAC bf16 decode": lambda: DAC(init_params(small), small,
+                                       compute_dtype=torch.bfloat16),
         "Normalizer": lambda: Normalizer(ones, ones, ones, ones),
         "FlowSampler": lambda: FlowSampler(lambda *a: None, SamplerConfig()),
         "InferencePipeline": lambda: InferencePipeline(None, None),
@@ -100,6 +113,7 @@ def _tiny_train_cfg():
 
 
 @pytest.mark.parametrize("name", ["DiT", "DAC", "DAC.random_init",
+                                  "DAC whole codec", "DAC bf16 decode",
                                   "Normalizer", "FlowSampler",
                                   "InferencePipeline", "DenseDiT",
                                   "create_train_state"])

@@ -456,5 +456,31 @@ def test_init_dense_params_draws_as_flax():
                                   dict(matmul_precision="int8"),
                                   dict(remat_policy="mlp")])
 def test_training_knobs_of_later_slices_raise(knob):
+    """A knob of a training branch the port lacks raises where the model
+    trains (the training forward); one that every path reads
+    (``matmul_precision``) already where the model is built."""
+    x = torch.zeros(1, 8, 1024)
     with pytest.raises(NotImplementedError, match="later slice"):
-        DenseDiT(_tiny(get_preset, **knob), device="cpu")
+        DenseDiT(_tiny(get_preset, **knob), device="cpu")(
+            x, torch.zeros(1), x, deterministic=False, layer_seeds=[0, 1])
+
+
+@pytest.mark.parametrize("knob", [dict(remat_policy="dots"),
+                                  dict(remat_policy="mlp"),
+                                  dict(scores_dtype="bfloat16")])
+def test_training_only_knobs_do_not_stop_serving(knob):
+    """The deterministic (serving) forward reads none of these: the model
+    builds and serves; with bf16 scores its einsum attention stores them in
+    bf16, as the JAX model's deterministic einsum does."""
+    cfg = _tiny(get_preset, attention_impl="xla", **knob)
+    tree = random_dense_params(cfg, 3)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 32, 1024), dtype=np.float32))
+    with torch.no_grad():
+        got = DenseDiT(cfg, tree, device="cpu")(x, torch.tensor([0.4]), x)
+    want = np.asarray(JaxDiT(_tiny(jax_get_preset, attention_impl="xla",
+                                   **knob)).apply(
+        {"params": jax.tree_util.tree_map(jnp.asarray, tree)},
+        x.numpy(), np.array([0.4], np.float32), x.numpy()))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-2 * scale)
