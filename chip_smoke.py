@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's six serving paths end to end at full width, each
+then drives the port's eleven serving paths end to end at full width, each
 once with its launches counted and then timed: the v3 766 M int8 DiT
 (random weights from a seed, quantized by the port) through the Euler CFG
 sampler over ~44 s of latent, then the segmented DAC decode (two
@@ -36,6 +36,28 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   RoPE in bf16 and runs flash_split, gqa_attention or
   gqa_attention_grouped; the patch embed and every mlp_in run
   dense_gelu_quant; then the fused decode.
+- ``int8_cli``: the DiT as the JAX CLI's ``--int8 --quantize-head``
+  builds it (fused q/k/v, the unfused QuantDense MLP, the int8 head, the
+  einsum attention with fp32 scores, ``int8_impl="xla"``): no kernel in
+  the DiT; then the fused decode.
+- ``split_qkv``: ``bench.py --no-fused-qkv --int8-impl pallas`` (345
+  patches): q, k, v and out_proj each int8_matmul behind its row-quant
+  launch, flash_split, dense_gelu_quant for the patch embed and every
+  mlp_in; then the fused decode.
+- ``dynamic``: ``bench.py --precision int8 --int8-impl fused`` on
+  ``DenseDiT`` (the weights quantized at every call): matmul_fused for the
+  patch embed's two products and the six of every block, flash_split;
+  then the fused decode.
+- ``int8_qk``: the main path with ``--flash-int8-qk`` (flash_qkv with its
+  s8 value product: a codes launch, then the attention, both counted apart
+  from flash_qkv's bf16 launches, which are 0 here) and the decode under
+  ``--snake-bf16`` (the DAC kernels' snake in bf16; their launches in that
+  mode are counted apart too, and are 0 on every other path).
+- ``v1legacy``: the ``v1legacy`` preset at full width (768 wide, 12
+  layers, 12/12 heads, learned positions, attention biases; 345
+  patches: no RoPE, so neither the fused prologue nor the flash-QKV
+  kernel): flash_split at one q-head a kv-head and dense_gelu_quant; then
+  the fused decode.
 
 The attention kernels are also held against their plain versions at head
 dim 32 (tiny's heads), at N = 1000, at head dims 128, 48 and 256 (v3's
@@ -43,7 +65,15 @@ heads, N = 345; 48 zero-padded to the 64 instance, 256 on the wide kernels
 of ``csrc/attention_wide.cu``) and, B15 and B16, at N = 1378 (the
 streaming mode), timed where they are past the paths' shapes, with the
 bit-equalities at head dim 32, N = 864; B10 at head dims 32 and 256 (timed
-at 256).  B1 and B3 (norm_mod_dense_gelu_quant, norm_mod_dot) run the s8
+at 256).  flash_qkv's int8 value product (``int8_qk``) at the main path's
+shape with one of the padded rows past 345 holding every v column's max,
+at 345 patches, at those head dims and N = 1000, and at D 128, N 700
+(the streaming mode), within one bf16 ulp of the largest output and its
+codes bit-equal to the plain version's; the four DAC kernels again with
+the bf16 snake, at the same shapes, beside the same torch bf16 snake and
+cuDNN, each also run in fp32 mode on the same inputs to show the mode
+changes the result.  B1 and B3
+(norm_mod_dense_gelu_quant, norm_mod_dot) run the s8
 wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
 one against their plain versions.  B4 (matmul_fused) runs a row-quant
@@ -92,7 +122,7 @@ CPU: the production encoder and RVQ on 4096 samples, the 16 kHz -> 44.1
 kHz resample of 1 s, and one Heun call of the main path's sampler (its
 forwards counted).
 
-The timed passes of the six serving paths and the audio path run in
+The timed passes of the eleven serving paths and the audio path run in
 turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused) and one more train step with
@@ -140,6 +170,15 @@ SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
                matmul_precision="int8_static", fused_qkv=True, fused_mlp=True,
                fused_mlp_impl="half", attention_impl="flash", flash_qkv=True,
                gelu_impl="tanh", fast_epilogue=True, int8_impl="xla")
+# Then the serving branches of the int8 DiT that the JAX CLI and bench.py
+# reach besides: the CLI's --int8 --quantize-head (the unfused QuantDense
+# MLP, the int8 head, the einsum attention, fp32 scores, no prologue),
+# bench.py --no-fused-qkv --int8-impl pallas (q/k/v apart through B14),
+# --flash-int8-qk --snake-bf16 (the main path with B2's s8 value product,
+# the decode's snake in bf16), the v1legacy preset (learned positions,
+# attention biases, 12/12 heads) and --precision int8 --int8-impl fused
+# (the dynamic W8A8 model, DenseDiT; fp32 parameters, which equal
+# bench.py's bf16 ones once the kernels are cast to bf16 at each product).
 PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "no_prologue": dict(fused_prologue=False, align_n=False),
          "opt_in": dict(fused_prologue=True, align_n=True,
@@ -150,18 +189,55 @@ PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "pallas": dict(fused_prologue=True, align_n=True,
                         attention_impl="pallas"),
          "pallas2": dict(fused_prologue=True, align_n=True,
-                         attention_impl="pallas2")}
+                         attention_impl="pallas2"),
+         "int8_cli": dict(fused_prologue=False, align_n=False,
+                          fused_mlp=False, quantize_head=True,
+                          attention_impl="xla", scores_dtype="float32"),
+         "split_qkv": dict(fused_prologue=True, align_n=True,
+                           fused_qkv=False, int8_impl="pallas"),
+         "int8_qk": dict(fused_prologue=True, align_n=True,
+                         flash_int8_qk=True),
+         "v1legacy": dict(fused_prologue=True, align_n=True),
+         "dynamic": dict(fused_prologue=True, align_n=True,
+                         matmul_precision="int8", fused_qkv=False,
+                         int8_impl="fused", param_dtype="float32")}
+PRESETS = {"v1legacy": "v1legacy"}        # the others: v3
+SNAKE = {"int8_qk": "bfloat16"}           # the decode's snake; else fp32
 FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
                 "opt_in": True, "split_flash": True, "pallas": True,
-                "pallas2": True}
+                "pallas2": True, "int8_cli": True, "split_qkv": True,
+                "int8_qk": True, "v1legacy": True, "dynamic": True}
 # The kernels the main path does not run, by the path the kernel line takes
 # their launches from; the others' come from the main path.
 KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                "int8_matmul": "opt_in", "flash_split": "split_flash",
-               "gqa_attention": "pallas", "gqa_attention_grouped": "pallas2"}
-# Counted launches that replace no TPU kernel (w8a8_dot's row quant, XLA's
-# in the JAX package): checked on each path, left off the kernel line.
-HELPERS = ("prequant_quant",)
+               "gqa_attention": "pallas", "gqa_attention_grouped": "pallas2",
+               "flash_qkv_int8_qk": "int8_qk",
+               **{f"{k}_snake_bf16": "int8_qk" for k in (
+                   "snake_conv_transpose_streamed",
+                   "snake_conv_transpose_fused", "res_stage_fused",
+                   "res_unit_fused")}}
+# Counted launches that are no kernel line of their own: w8a8_dot's row
+# quant (XLA's in the JAX package) and B2's int8_qk codes launch (part of
+# B2's option, timed on its line as codes_ms): checked on each path.
+HELPERS = ("prequant_quant", "v_codes")
+
+
+class Count:
+    """The launch count a wrapper keeps under another name than
+    ``launches`` (``gqa_attention_flash_qkv.int8_qk_launches``, the DAC
+    wrappers' ``b16_launches``), read and set as ``launches``."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
 
 
 def log(*a):
@@ -349,6 +425,156 @@ def check_attention(torch):
             "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
 
 
+# B2 with int8_qk against its plain version.  Both take the same codes
+# (v_codes_kernel bit-equal to v_codes_plain) and exact integer sums, so
+# they part only where the score product's order moves an e across a code
+# boundary or the fp32 scale product across a bf16 rounding boundary: at
+# most one bf16 ulp of the largest output, at under INT8_QK_SHARE of the
+# outputs.  This script's run on an H100 (700 W): at most 1.953e-3, half
+# the bound, at 0.020-0.104 % of the outputs; the bf16 value product
+# 3.503e-2 off at 91.7 % of them at the main shape.
+INT8_QK_SHARE = 1e-2
+
+
+def assert_int8_qk(torch, got, want, what):
+    """``got`` (the kernel) against ``want`` (the plain version), both
+    bf16: the bound above; returns the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    share = (got != want).float().mean().item()
+    log(f"[kernel] flash_qkv int8_qk {what}: max abs {err:.3e} (bound one "
+        f"bf16 ulp of max |plain|, {ulp:.3e}), {share:.3e} of the outputs "
+        f"differ")
+    if not bool(torch.isfinite(got).all()) or err > ulp or \
+            share > INT8_QK_SHARE:
+        raise AssertionError(f"flash_qkv int8_qk {what}: max abs {err} > "
+                             f"{ulp} or {share} of the outputs differ")
+    return err
+
+
+def check_v_codes(torch, qkv, hq, hkv, n_valid, what):
+    """v_codes_kernel on ``qkv``'s v heads as flash_qkv's int8_qk launch
+    makes them (heads zero-padded to the kernel's head dim, keys to the
+    plan's count) against v_codes_plain: codes and scales bit for bit."""
+    from jatsr_torch.ops.attention import (_deferred_plan, _row_view,
+                                           _sm_count, _v_codes, pad_heads,
+                                           padded_head_dim, v_codes_plain)
+
+    Bn, N, TD = qkv.shape
+    D = TD // (hq + 2 * hkv)
+    Dp = padded_head_dim(D)
+    v, v_row = _row_view(pad_heads(qkv[..., (hq + hkv) * D:], D, Dp))
+    nk = _deferred_plan(N, hq, hkv, Dp, Bn, _sm_count(qkv.device.index),
+                        n_valid or N, False).nk
+    codes, sv = _v_codes(v, v_row, hkv, Dp, nk)
+    want_codes, want_sv = v_codes_plain(v, hkv, nk)
+    if not (torch.equal(codes, want_codes) and torch.equal(sv, want_sv)):
+        raise AssertionError(f"v_codes {what}: codes or scales differ from "
+                             f"the plain version's")
+    log(f"[kernel] v_codes {what}: codes and scales bit-equal")
+
+
+def check_attention_int8_qk(torch):
+    """flash_qkv with int8_qk (B2's s8 value product: a v_codes launch, then
+    the attention launch) against its plain version at the main path's qkv
+    [6, 352, 1792] (keys masked past 345) with one of the padded rows
+    between 345 and 352 holding every v column's absmax (the codes' scale
+    is taken over all 352 rows, as in the JAX kernel), and at [6, 345,
+    1792]; at D 128 and N 700 (past 640 keys: the streaming mode); each
+    within ``assert_int8_qk``'s bound, its codes bit-equal to the plain
+    version's, and at the main shape the bf16 value product (flash_qkv
+    without int8_qk) outside that bound.  Timed at the main path's shape
+    beside SDPA, and its codes launch alone; the bound counts the score
+    product at the bf16 peak and the value product at the int8 peak."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (_row_view, _v_codes,
+                                           flash_qkv_plain,
+                                           gqa_attention_flash_qkv)
+
+    hq, hkv, D = 20, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    qkv[:, N_VALID + 3, (hq + hkv) * D:] = 6.0  # a padded row: every max
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    err = 0.0
+    cases = [(qkv, cos, sin, hq, hkv, N_VALID),
+             (qkv[:, :N_VALID].contiguous(), cos[:N_VALID].contiguous(),
+              sin[:N_VALID].contiguous(), hq, hkv, 0)]
+    g2 = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    c7, s7 = rope_cos_sin(700, 128, device="cuda")
+    cases.append((torch.randn((2, 700, 8 * 128), generator=g2,
+                              device="cuda").bfloat16(), c7, s7, 4, 2, 690))
+    for x, c, s, h1, h2, n_valid in cases:
+        got = gqa_attention_flash_qkv(x, c, s, h1, h2, n_valid=n_valid,
+                                      int8_qk=True)
+        want = flash_qkv_plain(x, c, s, h1, h2, n_valid=n_valid,
+                               int8_qk=True)
+        torch.cuda.synchronize()
+        what = f"{tuple(x.shape)} n_valid {n_valid}"
+        err = max(err, assert_int8_qk(torch, got, want, what))
+        check_v_codes(torch, x, h1, h2, n_valid, what)
+    # The bound tells the two value products apart.
+    want = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=N_VALID,
+                           int8_qk=True)
+    try:
+        assert_int8_qk(torch, gqa_attention_flash_qkv(
+            qkv, cos, sin, hq, hkv, n_valid=N_VALID), want, "(bf16 value "
+            "product against the int8 plain version)")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("the bf16 value product passes int8_qk's bound")
+    del want
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
+    t = timings(lambda x, c, s, q, k, v: gqa_attention_flash_qkv(
+                    x, c, s, hq, hkv, n_valid=N_VALID, int8_qk=True),
+                lambda x, c, s, q, k, v: flash_qkv_plain(
+                    x, c, s, hq, hkv, n_valid=N_VALID, int8_qk=True),
+                lambda x, c, s, q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask),
+                (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=200)
+    views = [_row_view(x[..., (hq + hkv) * D:]) for x in
+             [qkv.clone() for _ in range(rotations(qkv.nbytes))]]
+    t["codes_ms"] = time_ms(lambda v, row: _v_codes(v, row, hkv, D, 384),
+                            views, 200)
+    nbytes = nbytes_of(qkv, cos, sin) + B * NP * hq * D * 2
+    prod = 2 * B * hq * NP * N_VALID * D  # each product, the valid keys
+    b_ms, b_by = bound(nbytes, prod, PEAK_BF16, int8_ops=prod)
+    return {"name": "flash_qkv_int8_qk", "route": "cuda",
+            "source": "jatsr_torch/ops/csrc/attention_deferred.cu",
+            "replaces": "ops/attention.py:415 (JAX package, "
+                        "gqa_attention_flash_qkv with int8_qk, :276-290 and "
+                        ":387-395; pallas_call :449)",
+            "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
+
+
+def check_dac_kernels_snake_bf16(torch):
+    """The four DAC kernels at the fused decode's shapes with the snake in
+    bf16 (``set_snake_compute_dtype("bfloat16")``; ``bench.py
+    --snake-bf16``), against their plain versions in the same mode, and
+    timed beside the same torch bf16 snake and cuDNN.  Entries named
+    ``<kernel>_snake_bf16``."""
+    from jatsr_torch.ops import dac_kernels as dk
+
+    dk.set_snake_compute_dtype("bfloat16")
+    try:
+        out = check_dac_kernels(torch)
+    finally:
+        dk.set_snake_compute_dtype("float32")
+    renamed = {}
+    for name, c in out.items():
+        c = dict(c, name=f"{name}_snake_bf16",
+                 replaces=c["replaces"] + " with SNAKE_COMPUTE_DTYPE "
+                          "bfloat16, ops/dac_kernels.py:83-106")
+        renamed[f"{name}_snake_bf16"] = c
+    return renamed
+
+
 def check_split_attention(torch):
     """flash_split (B11), gqa_attention (B15) and gqa_attention_grouped
     (B16) against their plain versions at the split paths' q [6, 345, 20,
@@ -492,6 +718,10 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
         "flash_qkv": (lambda: gqa_attention_flash_qkv(
             qkv, cos, sin, hq, hkv, n_valid=n_valid), lambda: flash_qkv_plain(
             qkv, cos, sin, hq, hkv, n_valid=n_valid), None),
+        "flash_qkv_int8_qk": (lambda: gqa_attention_flash_qkv(
+            qkv, cos, sin, hq, hkv, n_valid=n_valid, int8_qk=True),
+            lambda: flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=n_valid,
+                                    int8_qk=True), None),
         "flash_split": (lambda: gqa_attention_flash(q, k, v, hq, hkv),
                         lambda: flash_split_plain(q, k, v, hq, hkv), None),
         "flash_out": (lambda: gqa_attention_flash_out(
@@ -513,7 +743,11 @@ def attention_extra(torch, hq, hkv, D, N, n_valid, H, seed, split_heads,
         want = plain().float()
         torch.cuda.synchronize()
         err = (got[name] - want).abs().max().item()
-        if rel is None:
+        if name == "flash_qkv_int8_qk":
+            what = f"N {N}, D {D}"
+            assert_int8_qk(torch, got[name], want, what)
+            check_v_codes(torch, qkv, hq, hkv, n_valid, what)
+        elif rel is None:
             torch.testing.assert_close(got[name], want, atol=2e-2, rtol=2e-2)
         elif not bool(torch.isfinite(got[name]).all()) or \
                 err > rel * want.abs().max().item():
@@ -996,6 +1230,8 @@ def dac_check(torch, what, kernel, plain, library, args, big, nbytes, ops,
               rel):
     """One DAC kernel at one shape against its plain version (max abs error
     <= ``rel`` x max |plain|), then kernel, plain and library ms."""
+    from jatsr_torch.ops import dac_kernels as dk
+
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -1006,12 +1242,52 @@ def dac_check(torch, what, kernel, plain, library, args, big, nbytes, ops,
     if not bool(torch.isfinite(got).all()) or err > rel * scale:
         raise AssertionError(f"{what}: max abs error {err} > {rel} x "
                              f"max |plain| {scale}")
+    mode = {}
+    if dk._snake_b16_mode():
+        mode = snake_mode_shows(torch, what, kernel, plain, args, got,
+                                diff.mean().item())
     del got, want, diff
     t = timings(kernel, plain, library, args, big, reps=20, plain_reps=3)
     b_ms, b_by = bound(nbytes, ops, PEAK_BF16)
     return {"max_abs_err": err, "max_abs_plain": scale,
-            "beyond_1e-3_frac": beyond, **t, "bound_ms": b_ms,
+            "beyond_1e-3_frac": beyond, **mode, **t, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+# In bf16-snake mode a DAC kernel's output must show the mode: the same
+# call in fp32 mode gives another output, and its mean abs error from the
+# fp32-mode plain version is at least SNAKE_GAP times that from the
+# bf16-mode one.  This script's run on an H100 (700 W): 3.2x at B6's C 384
+# stage (the bf16 h between its products spreads the error of a sum's
+# order over whole rows), 6.2x and 21.6x at C 192 and 96, 605x for B9 and
+# over 1000x for the transposes.
+SNAKE_GAP = 2.0
+
+
+def snake_mode_shows(torch, what, kernel, plain, args, got, mean):
+    """``got``, ``kernel(*args)`` in bf16-snake mode, ``mean`` abs error
+    from its plain version, against the kernel and the plain version in
+    fp32 mode on the same inputs (see ``SNAKE_GAP``)."""
+    from jatsr_torch.ops import dac_kernels as dk
+
+    dk.set_snake_compute_dtype("float32")
+    try:
+        got32, want32 = kernel(*args), plain(*args)
+    finally:
+        dk.set_snake_compute_dtype("bfloat16")
+    torch.cuda.synchronize()
+    other = (got - want32).abs().mean().item()
+    moved = (got - got32).abs().max().item()
+    log(f"[kernel] {what} bf16 snake: mean abs {mean:.3e} from the "
+        f"bf16-mode plain version, {other:.3e} from the fp32-mode one; max "
+        f"abs {moved:.3e} from the fp32-mode kernel")
+    if moved == 0.0 or other < SNAKE_GAP * mean:
+        raise AssertionError(f"{what}: the bf16 snake does not show "
+                             f"(fp32-mode kernel {moved} away, mean abs "
+                             f"{other} from the fp32-mode plain version "
+                             f"against {mean})")
+    return {"mean_abs_err": mean, "fp32_mode_plain_mean_abs": other,
+            "fp32_mode_kernel_max_abs": moved}
 
 
 def per_launch(name, source, replaces, shapes):
@@ -1157,7 +1433,8 @@ def check_transpose(torch, ci, co, s, T):
         def snake(x):
             _build.check(lib, lib.snake_b16(
                 x.data_ptr(), a.data_ptr(), y.data_ptr(), x.numel(), ci,
-                plan.snake_blocks, _build.stream_ptr(x.device)), "snake_b16")
+                plan.snake_blocks, dk._snake_b16_mode(),
+                _build.stream_ptr(x.device)), "snake_b16")
 
         split["snake_ms"] = time_ms(
             snake, [(x.clone(),) for _ in range(rotations(x.nbytes))], 20)
@@ -1307,14 +1584,16 @@ def profile_phase(torch, name, fn):
             f"{n:6d}x  {kname[:100]}")
 
 
-def make_server(torch, model, codec, lr):
+def make_server(torch, model, codec, lr, snake="float32"):
     """``(sample, decode, serve)`` for one DiT path: the pipeline's
-    sampler over the whole latent, the segmented decode, and one timed
-    serving pass ``-> (latent, pieces, sampler s, end-to-end s)``."""
+    sampler over the whole latent, the segmented decode (the DAC kernels'
+    snake in ``snake``), and one timed serving pass ``-> (latent, pieces,
+    sampler s, end-to-end s)``."""
     import numpy as np
 
     from jatsr_torch.configs import SamplerConfig
     from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.ops import dac_kernels as dk
     from jatsr_torch.train.step import Normalizer
 
     C = model.cfg.input_channels
@@ -1328,7 +1607,12 @@ def make_server(torch, model, codec, lr):
                                                 max_batch=3)
 
     def decode(latent):
-        return pipe.decode_latent_pieces(latent, SEGMENT_FRAMES, CTX_FRAMES)
+        dk.set_snake_compute_dtype(snake)
+        try:
+            return pipe.decode_latent_pieces(latent, SEGMENT_FRAMES,
+                                             CTX_FRAMES)
+        finally:
+            dk.set_snake_compute_dtype("float32")
 
     def serve():
         t0 = time.perf_counter()
@@ -2019,11 +2303,11 @@ def main() -> int:
 
     from jatsr_torch.configs import get_preset
     from jatsr_torch.models.dac import DAC, DACConfig
-    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.models.dit import DenseDiT, DiT
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.ops import _build
     from jatsr_torch.ops import dac_kernels as dk
-    from jatsr_torch.ops.attention import (gqa_attention,
+    from jatsr_torch.ops.attention import (_v_codes, gqa_attention,
                                            gqa_attention_flash,
                                            gqa_attention_flash_out,
                                            gqa_attention_flash_qkv,
@@ -2061,7 +2345,8 @@ def main() -> int:
     phases.done("environment and build")
 
     # 3. Kernels against their plain versions at the paths' shapes.
-    cfgs = {k: dataclasses.replace(get_preset("v3").model, **{**SERVING, **v})
+    cfgs = {k: dataclasses.replace(get_preset(PRESETS.get(k, "v3")).model,
+                                   **{**SERVING, **v})
             for k, v in PATHS.items()}
     norm = cfgs["prologue"].norm
     checks = {
@@ -2072,6 +2357,7 @@ def main() -> int:
         "flash_out": check_flash_out(torch),
         "int8_mlp": check_int8_mlp(torch),
         "int8_matmul": check_int8_matmul(torch),
+        "flash_qkv_int8_qk": check_attention_int8_qk(torch),
         **check_split_attention(torch),
     }
     for name, extra in check_attention_extra(torch).items():
@@ -2087,17 +2373,39 @@ def main() -> int:
                                  "bound_by", "library_ms")},
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
     checks.update(check_dac_kernels(torch))
+    checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
     torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
     phases.done("kernels against their plain versions")
 
-    # 4. The six serving paths at full width, on one set of weights for
-    #    the DiT and one for each decode (fused, unfused).
+    # 4. The eleven serving paths at full width, on one set of dense
+    #    weights for each preset (quantized for each int8_static layout)
+    #    and one for each decode (fused, unfused).
     t0 = time.perf_counter()
     dense = random_dense_params(cfgs["prologue"], SEED)
-    static = quantize_params_static(dense)
+    denses = {"v3": dense,
+              "v1legacy": random_dense_params(cfgs["v1legacy"], SEED)}
+    statics = {}
+
+    def static_of(name):
+        """The int8_static tree of path ``name``'s layout (q/k/v fused or
+        apart, the head quantized or not), quantized once."""
+        cfg = cfgs[name]
+        key = (PRESETS.get(name, "v3"), cfg.fused_qkv, cfg.quantize_head)
+        if key not in statics:
+            statics[key] = quantize_params_static(denses[key[0]], cfg)
+        return statics[key]
+
+    def build(name, device):
+        cfg = cfgs[name]
+        if cfg.matmul_precision == "int8":
+            return DenseDiT(cfg, denses[PRESETS.get(name, "v3")],
+                            device=device)
+        return DiT(cfg, static_of(name), device=device)
+
+    static_of("prologue")
     log(f"[model] v3 int8_static weights: {time.perf_counter() - t0:.1f} s "
         f"to draw and quantize")
     codecs = {f: DAC.random_init(SEED, DACConfig(), fused_res_units=f,
@@ -2121,7 +2429,14 @@ def main() -> int:
                 "flash_split": gqa_attention_flash,
                 "gqa_attention": gqa_attention,
                 "gqa_attention_grouped": gqa_attention_grouped,
-                "prequant_quant": int8_quantize_rows}
+                "flash_qkv_int8_qk": Count(gqa_attention_flash_qkv,
+                                           "int8_qk_launches"),
+                **{f"{k}_snake_bf16": Count(getattr(dk, k), "b16_launches")
+                   for k in ("snake_conv_transpose_streamed",
+                             "snake_conv_transpose_fused", "res_stage_fused",
+                             "res_unit_fused")},
+                "prequant_quant": int8_quantize_rows,
+                "v_codes": _v_codes}
     per_block = STEPS * cfgs["prologue"].depth
     segments = 2  # 3790 frames: two decode segments, one per decode call
     fused_decode = {"snake_conv_transpose_streamed": segments,
@@ -2145,11 +2460,36 @@ def main() -> int:
         expected[name] = {**none, kernel: per_block,
                           "dense_gelu_quant": per_block + STEPS,
                           **fused_decode}
+    # --int8 --quantize-head: no kernel in the DiT (the einsum attention,
+    # the QuantDense products by torch._int_mm); q/k/v apart: B11, B5 for
+    # the patch embed and every mlp_in, and B14 behind its row quant for
+    # each of q, k, v and out_proj; int8_qk: the main path's counts, but
+    # B2 each time with its s8 value product behind its codes launch, and
+    # every DAC launch in bf16-snake mode; v1legacy (12 blocks): B11 and B5;
+    # dynamic int8: B11, and B4 for the patch embed's two products and the
+    # six of every block.
+    per_block_v1 = STEPS * cfgs["v1legacy"].depth
+    expected.update({
+        "int8_cli": {**none, **fused_decode},
+        "split_qkv": {**none, "flash_split": per_block,
+                      "dense_gelu_quant": per_block + STEPS,
+                      "int8_matmul": 4 * per_block,
+                      "prequant_quant": 4 * per_block, **fused_decode},
+        "int8_qk": {**expected["prologue"], "flash_qkv": 0,
+                    "flash_qkv_int8_qk": per_block, "v_codes": per_block,
+                    **{f"{k}_snake_bf16": n for k, n in fused_decode.items()}},
+        "v1legacy": {**none, "flash_split": per_block_v1,
+                     "dense_gelu_quant": per_block_v1 + STEPS,
+                     **fused_decode},
+        "dynamic": {**none, "flash_split": per_block,
+                    "matmul_fused": STEPS * (2 + 6 * cfgs["dynamic"].depth),
+                    **fused_decode}})
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
-        models[name] = DiT(cfg, static, device="cuda")
+        models[name] = build(name, "cuda")
         fns[name] = make_server(torch, models[name],
-                                codecs[FUSED_DECODE[name]], lr)
+                                codecs[FUSED_DECODE[name]], lr,
+                                SNAKE.get(name, "float32"))
         fns[name][2]()  # warm-up: cuDNN algorithm choice, allocator
     phases.done("weights, codecs and warm-up passes")
     # Each path's counted pass; the kernel line takes a kernel's launches
@@ -2188,14 +2528,14 @@ def main() -> int:
     #    patches: aligned to 32 (keys masked past 25) where align_n is
     #    taken, padded to 32 inside flash_split.
     for name, cfg in cfgs.items():
-        cpu_model = DiT(cfg, static, device="cpu")
+        cpu_model = build(name, "cpu")
         check_reference(torch, name, models[name], cpu_model,
                         100 if cfg.align_n else 64)
         if name == "prologue":
             check_heun(torch, models[name], cpu_model)
         del cpu_model
 
-    del models, static
+    del models, statics, denses
     torch.cuda.empty_cache()
     phases.done("DiT references")
 

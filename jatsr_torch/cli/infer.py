@@ -12,14 +12,15 @@ saved ``.npy`` latent, and writes ``<name>_generated[_cfgX].wav``; for a
 latent also ``_lr_input.wav`` and, where the ``.hr.npy`` beside it exists,
 ``_hr_gt.wav``.  Weights come from ``--torch-checkpoint`` (a reference
 ``.pt``); without ``--int8`` the bf16 model serves, with it the int8 serving
-DiT on weights the port quantizes.  ``--platform cpu`` runs the plain
-PyTorch path on the CPU; otherwise the run uses the card.
+DiT on weights the port quantizes for its config: ``--int8`` alone is the
+unfused QuantDense MLP (``--fused-mlp`` the fused one), ``--quantize-head``
+adds the int8 output head, and at ``tiny`` (bottleneck 64) the patch embed
+is the unfused one.  ``--platform cpu`` runs the plain PyTorch path on the
+CPU; otherwise the run uses the card.
 
 ``--run-dir`` (checkpoints of a training run) and ``--mesh`` raise
 ``NotImplementedError``: they come with the checkpoint manager and with
-``parallel/``.  A flag that selects a model branch the port does not have
-(``--quantize-head``, ``--int8`` without ``--fused-mlp``) raises through
-the model's config check.
+``parallel/``.
 """
 
 from __future__ import annotations
@@ -144,7 +145,8 @@ def main(argv=None):
             serving, matmul_precision="int8_static",
             quantize_head=args.quantize_head, fused_mlp=args.fused_mlp,
             fused_qkv=True, dropout=0.0, drop_path_rate=0.0)
-        model = DiT(mcfg, quantize_params_static(params), device=device)
+        model = DiT(mcfg, quantize_params_static(params, mcfg),
+                    device=device)
         print("[infer] int8 serving: weights quantized (static W8A8)")
     else:
         model = DenseDiT(dataclasses.replace(serving, dropout=0.0,

@@ -1,30 +1,36 @@
 """The DiT in PyTorch: the int8 serving forward and the trainable bf16 model.
 
 Port of the JAX package's ``models/dit.py``.  :class:`DenseDiT` is the
-branch the JAX model trains with (``matmul_precision="bf16"``, split q/k/v):
-fp32 parameters cast to bf16 at each product, dropout and drop-path, the
-training attention kernel (B10) or the einsum attention, remat per block;
-its deterministic (eval) forward takes the serving attention the JAX model
-takes there.
+model at ``matmul_precision="bf16"`` (the branch the JAX model trains with,
+split q/k/v): fp32 parameters cast to bf16 at each product, dropout and
+drop-path, the training attention kernel (B10) or the einsum attention,
+remat per block; its deterministic (eval) forward takes the serving
+attention the JAX model takes there.  Under ``matmul_precision="int8"`` it
+serves the dynamic W8A8 model: every projection but the t-MLP, the AdaLN
+and (without ``quantize_head``) ``final_proj`` is ``int8_dot_general``,
+through ``w8a8_dot(int8_impl)``.
 
-:class:`DiT` is the int8 serving branch:
-the ``int8_static`` DiT with fused QKV, the "half" fused MLP and the fused
-patch embed, with or without the fused prologue (``fused_prologue``, with
-``align_n``: ``bench.py``'s default DiT; ``bench.py --no-fused-prologue``
-without it); the opt-in knobs ``flash_fused_out`` (attention with the int8
-out projection inside), ``fused_mlp_impl="full"`` (the whole MLP in one
-kernel) and ``int8_impl="pallas"`` (the s8 kernel on a pre-quantised A).
-Its attention is the flash-QKV kernel on the fused projection, or, on the
-split q/k/v (``flash_qkv=False``, ``attention_impl`` "pallas", "pallas2" or
-"xla", or past the flash budget), the split flash kernel, the per-q-head or
-per-kv-head kernel, or the einsum.  Inputs are time-major
-``[B, T, C]``; the residual stream is bf16; the output is fp32.  Module
-names mirror the JAX modules (``patch_in``, ``blocks[i].attn.qkv_proj``,
-``final_proj``...).
+:class:`DiT` is the ``int8_static`` serving model on every branch the JAX
+model has there: fused QKV (with the flash-QKV kernel, RoPE inside, with
+``flash_int8_qk`` its int8 value product, with ``flash_fused_out`` the out
+projection inside) or split q/k/v projections; the "half" or "full" fused
+MLP or the unfused QuantDense MLP; the fused or unfused patch embed; the
+fused prologue (``fused_prologue`` with ``align_n``: ``bench.py``'s
+default DiT); an int8 ``final_proj`` (``quantize_head``); RoPE or learned
+positions with attention biases (``v1legacy``); ``int8_impl`` "xla",
+"pallas" or "fused".  On the split q/k/v (``fused_qkv=False``,
+``flash_qkv=False``, learned positions, ``attention_impl`` "pallas",
+"pallas2" or "xla", or past the flash budget) the attention is the split
+flash kernel, the per-q-head or per-kv-head kernel, or the einsum.  Inputs
+are time-major ``[B, T, C]``; the residual stream is bf16; the output is
+fp32.  Module names mirror the JAX modules (``patch_in``,
+``blocks[i].attn.qkv_proj``, ``final_proj``...).
 
-Any serving knob that would send the JAX model down another branch raises
-``NotImplementedError`` (:func:`check_serving_config`): the port never takes
-a different branch silently.
+A knob whose branch the port does not have (a compute dtype other than
+bf16; on :class:`DiT` a precision other than ``int8_static``) raises
+``NotImplementedError`` (:func:`check_serving_config`,
+:func:`check_dense_config`): the port never takes a different branch
+silently.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
                                int8_mlp, int8_mm)
 from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
                             int8_norm_mod_dot, norm_mod_dot_supported)
-from ..ops.quant import QuantDense
+from ..ops.quant import QuantDense, int8_dot_general
 from ..sampling.flow import linspace_f32
 from ..utils.device import resolve_device
 from .from_jax import init_dense_params, tree_to_torch
@@ -55,28 +61,23 @@ from .from_jax import init_dense_params, tree_to_torch
 # ModelConfig fields that select a branch, with the values the port serves
 # and the later slice that brings the others.
 _SERVING_BRANCH = {
-    "matmul_precision": (("int8_static",), "the bf16 and dynamic-int8 paths"),
     "dtype": (("bfloat16",), "other compute dtypes"),
-    "pos_embed": (("rope",), "learned positions (v1legacy)"),
-    "fused_qkv": ((True,), "the split q/k/v projections"),
     "attention_impl": (("flash", "pallas", "pallas2", "xla"),
                        "other attention"),
-    "flash_int8_qk": ((False,), "the int8 value product of the flash kernel"),
-    "fused_mlp": ((True,), "the unfused QuantDense MLP"),
-    "quantize_head": ((False,), "the int8 output head"),
 }
 
 
 def check_serving_config(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the ported
-    branches."""
-    for name, (served, later) in _SERVING_BRANCH.items():
-        have = getattr(cfg, name)
-        if have not in served:
-            raise NotImplementedError(
-                f"ModelConfig.{name}={have!r} selects {later}, which a later "
-                f"slice of the port brings; the port serves {name} in "
-                f"{served!r}")
+    """Raise ``NotImplementedError`` for a config outside the int8 DiT's
+    ported branches: a precision other than ``int8_static`` (the bf16 and
+    dynamic-int8 models are :class:`DenseDiT`'s) or a compute dtype other
+    than bf16."""
+    if cfg.matmul_precision != "int8_static":
+        raise NotImplementedError(
+            f"ModelConfig.matmul_precision={cfg.matmul_precision!r}: the "
+            f"int8 DiT serves 'int8_static'; DenseDiT serves 'bf16' and "
+            f"'int8'")
+    _check_branch(cfg, _SERVING_BRANCH, "serves")
     if cfg.gelu_impl not in ("tanh", "erf", "sigmoid"):
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
 
@@ -229,23 +230,29 @@ def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
 
 
 class GQAttention(nn.Module):
-    """Fused qkv projection, then as the JAX model branches: the flash-QKV
-    kernel (RoPE inside; with ``flash_fused_out`` the out projection too),
-    or the split q/k/v with bf16 RoPE and :func:`split_attention`; then the
-    out projection."""
+    """The qkv projection (fused, or q/k/v apart with ``fused_qkv=False``),
+    then as the JAX model branches: the flash-QKV kernel (RoPE inside; with
+    ``flash_int8_qk`` its int8 value product; with ``flash_fused_out`` the
+    out projection too), or the split q/k/v with bf16 RoPE (none under
+    learned positions) and :func:`split_attention`; then the out
+    projection."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int):
         super().__init__()
         self.cfg = cfg
-        self.qkv_proj = _quant_dense(p["qkv_proj"], i, cfg.int8_impl)
-        self.out_proj = _quant_dense(p["out_proj"], i, cfg.int8_impl)
+        impl = cfg.int8_impl
+        names = ("qkv_proj",) if cfg.fused_qkv else ("q_proj", "k_proj",
+                                                    "v_proj")
+        for name in names + ("out_proj",):
+            setattr(self, name, _quant_dense(p[name], i, impl))
         # The fused-prologue qkv kernel and the fused out-projection kernel
         # always add an fp32 bias: zeros where the projection has none.
-        for name, proj in (("qkv_bias", self.qkv_proj),
+        for name, proj in (("qkv_bias", getattr(self, "qkv_proj", None)),
                            ("out_bias", self.out_proj)):
-            b = proj.bias
-            self.register_buffer(name, torch.zeros_like(
-                proj.kernel_scale[0]) if b is None else b.float())
+            b = None if proj is None else proj.bias
+            self.register_buffer(name, None if proj is None else
+                                 torch.zeros_like(proj.kernel_scale[0])
+                                 if b is None else b.float())
         # The s8 wgmma GEMMs read their weights K-major: each copy is made
         # once here, not on every call, and no weight is held K-major twice
         # (a QuantDense's own kernel_t is reused).  qkv: the fused-prologue
@@ -256,12 +263,13 @@ class GQAttention(nn.Module):
             t = proj.kernel_t
             return proj.kernel_q.t().contiguous() if t is None else t
 
-        self.register_buffer("qkv_kernel_t", kmajor(self.qkv_proj),
-                             persistent=False)
+        self.register_buffer("qkv_kernel_t", kmajor(self.qkv_proj)
+                             if cfg.fused_qkv else None, persistent=False)
         hq, D = cfg.num_q_heads, cfg.head_dim
         out_t = None
         if (cfg.flash_fused_out and cfg.attention_impl == "flash"
-                and cfg.flash_qkv):
+                and cfg.flash_qkv and cfg.fused_qkv
+                and cfg.pos_embed == "rope"):
             out_t = (kmajor(self.out_proj) if padded_head_dim(D) == D else
                      flash_out_weight_t(self.out_proj.kernel_q, hq, D))
         elif cfg.fused_prologue and not cfg.attention_bias:
@@ -272,8 +280,16 @@ class GQAttention(nn.Module):
         """``prenorm=(scale, shift)``, fp32 ``[B or 1, H]`` AdaLN rows,
         selects the fused-prologue path: ``x`` is then the raw residual
         stream, normed, modulated and quantised inside the qkv kernel, and
-        the bias-free out_proj quantises inside its kernel too."""
+        the bias-free out_proj quantises inside its kernel too.  ``cos``
+        and ``sin`` are None under learned positions."""
         cfg = self.cfg
+        B, N, _ = x.shape
+        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+        if not cfg.fused_qkv:
+            q = self.q_proj(x).reshape(B, N, hq, D)
+            k = self.k_proj(x).reshape(B, N, hkv, D)
+            v = self.v_proj(x).reshape(B, N, hkv, D)
+            return self._split(q, k, v, cos, sin)
         if prenorm is not None:
             p = self.qkv_proj
             qkv = int8_norm_mod_dot(x, prenorm[0], prenorm[1], p.kernel_q,
@@ -281,9 +297,8 @@ class GQAttention(nn.Module):
                                     norm=cfg.norm, w_t=self.qkv_kernel_t)
         else:
             qkv = self.qkv_proj(x)
-        B, N, _ = qkv.shape
-        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
         if (cfg.attention_impl == "flash" and cfg.flash_qkv
+                and cfg.pos_embed == "rope"
                 and flash_supported(N, hq, hkv, D)):
             if cfg.flash_fused_out:
                 o = self.out_proj
@@ -292,45 +307,58 @@ class GQAttention(nn.Module):
                                                hq, hkv, n_valid=n_valid,
                                                wo_t=self.out_kernel_t)
             out = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv,
-                                          n_valid=n_valid)
+                                          n_valid=n_valid,
+                                          int8_qk=cfg.flash_int8_qk)
             if prenorm is not None and not cfg.attention_bias:
                 o = self.out_proj
                 return int8_matmul_fused(
                     out.reshape(B * N, hq * D), o.kernel_q, o.kernel_scale,
                     w_t=self.out_kernel_t).reshape(B, N, -1)
             return self.out_proj(out)
-        # The split q/k/v: the JAX model's apply_rope in the compute dtype
-        # (the tables cast first), then the attention of its branch.
-        c, s = cos[:, None].to(qkv.dtype), sin[:, None].to(qkv.dtype)
-        q = _rope(qkv[..., :hq * D].reshape(B, N, hq, D), c, s)
-        k = _rope(qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D), c, s)
+        q = qkv[..., :hq * D].reshape(B, N, hq, D)
+        k = qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D)
         v = qkv[..., (hq + hkv) * D:].reshape(B, N, hkv, D)
-        return self.out_proj(split_attention(cfg, q, k, v))
+        return self._split(q, k, v, cos, sin)
+
+    def _split(self, q, k, v, cos, sin):
+        """The split q/k/v: the JAX model's apply_rope in the compute dtype
+        (the tables cast first) unless the positions are learned, then the
+        attention of its branch and the out projection."""
+        if cos is not None:
+            c, s = cos[:, None].to(q.dtype), sin[:, None].to(q.dtype)
+            q, k = _rope(q, c, s), _rope(k, c, s)
+        return self.out_proj(split_attention(self.cfg, q, k, v))
 
 
 class DiTBlock(nn.Module):
     """AdaLN-Zero block: norm, modulate, attention, gate; norm, modulate,
-    fused MLP ("half": one kernel and an s8 product; "full": one kernel),
-    gate.  ``mod`` is the block's ``[B or 1, 6H]`` AdaLN
-    row (the hoisted table, or computed here from ``t_emb``).  With
-    ``fused`` the norm and modulate of both branches happen inside the
-    qkv and mlp_in kernels."""
+    MLP, gate.  The MLP is fused ("half": one kernel and an s8 product;
+    "full": one kernel) or, with ``fused_mlp=False``, the QuantDense
+    mlp_in, exact GELU on its bf16 output and the QuantDense mlp_out.
+    ``mod`` is the block's ``[B or 1, 6H]`` AdaLN row (the hoisted table,
+    or computed here from ``t_emb``).  With ``fused`` the norm and modulate
+    of both branches happen inside the qkv and mlp_in kernels."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, adaln: Dense):
         super().__init__()
         self.cfg = cfg
         self.attn = GQAttention(cfg, p["attn"], i)
-        self.mlp_in = _quant_dense(p["mlp_in"], i)
-        self.mlp_out = _quant_dense(p["mlp_out"], i)
+        # The fused MLP kernels read the raw int8 weights; only the unfused
+        # QuantDense MLP runs w8a8_dot(int8_impl).
+        impl = "xla" if cfg.fused_mlp else cfg.int8_impl
+        self.mlp_in = _quant_dense(p["mlp_in"], i, impl)
+        self.mlp_out = _quant_dense(p["mlp_out"], i, impl)
         # mlp_in's K-major copy for the s8 wgmma kernels (the fused
         # prologue's, the dense+GELU and the whole MLP's first product), and
         # mlp_out's for the whole MLP's second product where it runs.
+        fused = cfg.fused_mlp
         self.register_buffer("mlp_in_kernel_t",
-                             self.mlp_in.kernel_q.t().contiguous(),
-                             persistent=False)
+                             self.mlp_in.kernel_q.t().contiguous()
+                             if fused else None, persistent=False)
         self.register_buffer(
             "mlp_out_kernel_t", self.mlp_out.kernel_q.t().contiguous()
-            if cfg.fused_mlp_impl == "full" else None, persistent=False)
+            if fused and cfg.fused_mlp_impl == "full" else None,
+            persistent=False)
         self.adaln = adaln
 
     def forward(self, x, t_emb, cos, sin, mod=None, n_valid=0, fused=False):
@@ -357,6 +385,9 @@ class DiTBlock(nn.Module):
         else:
             h = (_norm(x, cfg.norm) * (1 + scale_mlp[:, None])
                  + shift_mlp[:, None])
+            if not cfg.fused_mlp:
+                h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="none"))
+                return x + gate_mlp[:, None] * h
             B, N, H = h.shape
             h = h.reshape(B * N, H)
             if cfg.fused_mlp_impl == "full":
@@ -391,18 +422,22 @@ class DiT(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         P, C = cfg.patch_len, cfg.input_channels
-        if (P * 2 * C) % 128 or cfg.bottleneck_dim % 128:
-            raise NotImplementedError(
-                "the unfused patch embed (patch width or bottleneck not a "
-                "multiple of 128) comes with the bf16 path, a later slice")
+        # The fused patch embed (the dense+GELU kernel, an s8 product) where
+        # the JAX model takes it; else QuantDense, exact GELU, QuantDense.
+        self.fused_patch = (cfg.fused_mlp and (P * 2 * C) % 128 == 0
+                            and cfg.bottleneck_dim % 128 == 0)
         p = tree_to_torch(params, self.device)
         bf16, f32 = torch.bfloat16, torch.float32
-        self.patch_in = _quant_dense(p["patch_in"])
-        self.patch_out = _quant_dense(p["patch_out"])
+        impl = "xla" if self.fused_patch else cfg.int8_impl
+        self.patch_in = _quant_dense(p["patch_in"], None, impl)
+        self.patch_out = _quant_dense(p["patch_out"], None, impl)
         # patch_in's K-major copy, which the dense+GELU kernel reads.
         self.register_buffer("patch_in_kernel_t",
-                             self.patch_in.kernel_q.t().contiguous(),
-                             persistent=False)
+                             self.patch_in.kernel_q.t().contiguous()
+                             if self.fused_patch else None, persistent=False)
+        # v1legacy: learned absolute positions, added after the patch embed.
+        self.register_buffer("pos_embed", p["pos_embed"].float()
+                             if cfg.pos_embed == "learned" else None)
         self.t_mlp1 = Dense(p["t_mlp1"]["kernel"], p["t_mlp1"]["bias"], f32)
         self.t_mlp2 = Dense(p["t_mlp2"]["kernel"], p["t_mlp2"]["bias"], f32)
         blocks = p["blocks"]
@@ -412,8 +447,10 @@ class DiT(nn.Module):
             DiTBlock(cfg, blocks, i,
                      Dense(self.adaln_kernel[i], self.adaln_bias[i], bf16))
             for i in range(cfg.depth))
-        self.final_proj = Dense(p["final_proj"]["kernel"],
-                                p["final_proj"]["bias"], bf16)
+        self.final_proj = (
+            _quant_dense(p["final_proj"], None, cfg.int8_impl)
+            if cfg.quantize_head else
+            Dense(p["final_proj"]["kernel"], p["final_proj"]["bias"], bf16))
 
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
         """fp32 t-MLP over the sinusoid; bf16 out."""
@@ -452,13 +489,22 @@ class DiT(nn.Module):
             raise ValueError(f"sequence length {N} exceeds max_len {cfg.max_len}")
 
         x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B * N, P * 2 * C)
-        # The JAX model passes no gelu knobs to the patch embed: tanh, fp32.
-        h = _int8_dense_gelu_dense(x_in, self.patch_in, self.patch_out,
-                                   self.patch_in_kernel_t)
+        if self.fused_patch:
+            # The JAX model passes no gelu knobs to the patch embed: tanh,
+            # fp32.
+            h = _int8_dense_gelu_dense(x_in, self.patch_in, self.patch_out,
+                                       self.patch_in_kernel_t)
+        else:
+            h = self.patch_out(F.gelu(self.patch_in(x_in),
+                                      approximate="none"))
         h = h.reshape(B, N, cfg.hidden_size)
+        if self.pos_embed is not None:
+            h = h + self.pos_embed[None, :N].to(h.dtype)
 
         t_emb = None if adaln_mod is not None else self.time_embedding(t)
-        cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
+        cos = sin = None
+        if cfg.pos_embed == "rope":
+            cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
         fused = fused_prologue_taken(cfg, N)
         for i, blk in enumerate(self.blocks):
             h = blk(h, t_emb, cos, sin,
@@ -481,23 +527,24 @@ def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
             + model.adaln_bias[:, None, :])
 
 
-# ---- the trainable bf16 model -----------------------------------------------
+# ---- the trainable bf16 model, and the dynamic-int8 one --------------------
 
-# ModelConfig fields that select a branch of the JAX model's bf16 path, with
-# the values the port has and the later slice that brings the others: those
-# both paths read (checked where the model is built), then those only the
-# training path reads (checked where it trains, so that serving the model
-# never raises for them).
+# ModelConfig fields that select a branch of the JAX model's bf16 and
+# dynamic-int8 paths, with the values the port has and the later slice that
+# brings the others: those both paths read (checked where the model is
+# built), then those only the training path reads (checked where it trains,
+# so that serving the model never raises for them).  The knobs of the
+# int8_static branches (fused_qkv, fused_mlp, fused_prologue,
+# flash_int8_qk...) select nothing here, as in the JAX model.
 _DENSE_BRANCH = {
-    "matmul_precision": (("bf16",), "the dynamic-int8 path"),
+    "matmul_precision": (("bf16", "int8"), "the int8_static model (DiT)"),
     "dtype": (("bfloat16",), "other compute dtypes"),
     "param_dtype": (("float32",), "other parameter dtypes"),
-    "pos_embed": (("rope",), "learned positions (v1legacy)"),
-    "fused_qkv": ((False,), "the fused qkv projection"),
     "attention_impl": (("flash", "pallas", "pallas2", "xla"),
                        "other attention"),
 }
 _TRAINING_BRANCH = {
+    "matmul_precision": (("bf16",), "dynamic int8 in training"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
     "scores_dtype": (("float32",), "bf16 score storage in training"),
     "remat_policy": (("full", "none"), "the selective remat policies dots, "
@@ -530,9 +577,12 @@ def check_training_config(cfg: ModelConfig) -> None:
 
 class TrainDense(nn.Module):
     """flax ``nn.Dense(dtype, param_dtype=float32)``: an fp32 kernel
-    ``[in, out]`` and bias, both cast to ``dtype`` at each product."""
+    ``[in, out]`` and bias, both cast to ``dtype`` at each product.  With
+    ``int8_impl`` (``matmul_precision="int8"``; bf16 only) the product is
+    :func:`int8_dot_general` through ``w8a8_dot(int8_impl)``, the kernel
+    quantised at each call; the bias is added after it."""
 
-    def __init__(self, kernel, bias, dtype, device):
+    def __init__(self, kernel, bias, dtype, device, int8_impl=None):
         super().__init__()
 
         def param(t):
@@ -542,17 +592,28 @@ class TrainDense(nn.Module):
         self.kernel = param(kernel)
         self.bias = None if bias is None else param(bias)
         self.dtype = dtype
+        self.int8_impl = int8_impl
 
     def forward(self, x):
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.int8_impl is None:
+            y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        else:
+            y = int8_dot_general(x.to(self.dtype), self.kernel.to(self.dtype),
+                                 self.int8_impl)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
-def _dense(p: dict, dtype, device, i=None) -> TrainDense:
+def _dense(p: dict, dtype, device, i=None, int8_impl=None) -> TrainDense:
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
     return TrainDense(pick(p["kernel"]), None if b is None else pick(b),
-                      dtype, device)
+                      dtype, device, int8_impl)
+
+
+def _int8_impl(cfg: ModelConfig):
+    """The ``int8_impl`` of the projections ``mk`` makes: the config's
+    under dynamic int8, else None (a bf16 product)."""
+    return cfg.int8_impl if cfg.matmul_precision == "int8" else None
 
 
 def _block_generator(seed: int, device) -> torch.Generator:
@@ -588,30 +649,33 @@ def _drop_path(x, rate: np.float32, gen):
 
 
 class TrainAttention(nn.Module):
-    """Split q/k/v projections, bf16 RoPE, then the training kernel (B10)
-    or the einsum attention on the training path, the JAX model's serving
-    attention (:func:`split_attention`) on the deterministic one, and the
-    out projection."""
+    """Split q/k/v projections, bf16 RoPE (none under learned positions),
+    then the training kernel (B10) or the einsum attention on the training
+    path, the JAX model's serving attention (:func:`split_attention`) on
+    the deterministic one, and the out projection."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, device):
         super().__init__()
         self.cfg = cfg
         bf16 = torch.bfloat16
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, _dense(p[name], bf16, device, i))
+            setattr(self, name, _dense(p[name], bf16, device, i,
+                                       _int8_impl(cfg)))
 
     def forward(self, x, cos, sin, seed, gen):
-        """``cos``/``sin``: ``[N, 1, D]`` in bf16; ``gen`` None on the
-        deterministic path."""
+        """``cos``/``sin``: ``[N, 1, D]`` in bf16, None under learned
+        positions; ``gen`` None on the deterministic path."""
         cfg = self.cfg
         B, N, _ = x.shape
         hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
-        q = _rope(self.q_proj(x).reshape(B, N, hq, D), cos, sin)
-        k = _rope(self.k_proj(x).reshape(B, N, hkv, D), cos, sin)
+        q = self.q_proj(x).reshape(B, N, hq, D)
+        k = self.k_proj(x).reshape(B, N, hkv, D)
         v = self.v_proj(x).reshape(B, N, hkv, D)
+        if cos is not None:
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
         if gen is None:
             return self.out_proj(split_attention(cfg, q, k, v))
-        if (cfg.train_attention_impl == "flash"
+        if (cfg.train_attention_impl == "flash" and cos is not None
                 and train_flash_supported(N, hq, hkv, D)):
             out = gqa_attention_train(
                 q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D),
@@ -632,8 +696,8 @@ class TrainBlock(nn.Module):
         bf16 = torch.bfloat16
         self.adaln = _dense(p["adaln"], bf16, device, i)
         self.attn = TrainAttention(cfg, p["attn"], i, device)
-        self.mlp_in = _dense(p["mlp_in"], bf16, device, i)
-        self.mlp_out = _dense(p["mlp_out"], bf16, device, i)
+        self.mlp_in = _dense(p["mlp_in"], bf16, device, i, _int8_impl(cfg))
+        self.mlp_out = _dense(p["mlp_out"], bf16, device, i, _int8_impl(cfg))
         self.dp_rate = dp_rate
 
     def forward(self, x, t_emb, cos, sin, seed=None, mod=None):
@@ -657,12 +721,13 @@ class TrainBlock(nn.Module):
 
 
 class DenseDiT(nn.Module):
-    """The trainable DiT: the JAX model at ``matmul_precision="bf16"``.
+    """The trainable DiT: the JAX model at ``matmul_precision="bf16"``;
+    at ``"int8"`` the dynamic W8A8 serving model on the same tree.
 
     Args:
-        cfg: the model config; must be on the ported bf16 branch
-            (:func:`check_dense_config`; the training path also checks
-            :func:`check_training_config`).
+        cfg: the model config; must be on a ported bf16 or dynamic-int8
+            branch (:func:`check_dense_config`; the training path also
+            checks :func:`check_training_config`).
         params: the JAX float param tree (``blocks`` stacked ``[depth,
             ...]``) as nested dicts of numpy arrays or tensors (see
             ``models/from_jax.py``); None draws it as flax initialises it
@@ -670,7 +735,8 @@ class DenseDiT(nn.Module):
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
 
     Parameters are fp32 ``nn.Parameter`` s named after the JAX tree
-    (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``...).
+    (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``, ``pos_embed``
+    under learned positions...).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",
@@ -683,15 +749,20 @@ class DenseDiT(nn.Module):
             params = init_dense_params(
                 cfg, generator or torch.Generator().manual_seed(0))
         bf16, f32, dev = torch.bfloat16, torch.float32, self.device
-        self.patch_in = _dense(params["patch_in"], bf16, dev)
-        self.patch_out = _dense(params["patch_out"], bf16, dev)
+        mk = _int8_impl(cfg)
+        self.patch_in = _dense(params["patch_in"], bf16, dev, None, mk)
+        self.patch_out = _dense(params["patch_out"], bf16, dev, None, mk)
+        self.pos_embed = (nn.Parameter(torch.as_tensor(
+            params["pos_embed"]).to(device=dev, dtype=f32, copy=True))
+            if cfg.pos_embed == "learned" else None)
         self.t_mlp1 = _dense(params["t_mlp1"], f32, dev)
         self.t_mlp2 = _dense(params["t_mlp2"], f32, dev)
         dpr = linspace_f32(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
             TrainBlock(cfg, params["blocks"], i, dpr[i], dev)
             for i in range(cfg.depth))
-        self.final_proj = _dense(params["final_proj"], bf16, dev)
+        self.final_proj = _dense(params["final_proj"], bf16, dev, None,
+                                 mk if cfg.quantize_head else None)
 
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
         """fp32 t-MLP over the sinusoid; bf16 out."""
@@ -726,11 +797,15 @@ class DenseDiT(nn.Module):
             raise ValueError(f"sequence length {N} exceeds max_len {cfg.max_len}")
         x_in = torch.cat([x_t, x_cond], dim=-1).reshape(B, N, P * 2 * C)
         h = self.patch_out(F.gelu(self.patch_in(x_in), approximate="none"))
+        if self.pos_embed is not None:
+            h = h + self.pos_embed[None, :N].to(h.dtype)
 
         t_emb = None if adaln_mod is not None else self.time_embedding(t)
-        cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
-        cos = cos[:, None].to(torch.bfloat16)
-        sin = sin[:, None].to(torch.bfloat16)
+        cos = sin = None
+        if cfg.pos_embed == "rope":
+            cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
+            cos = cos[:, None].to(torch.bfloat16)
+            sin = sin[:, None].to(torch.bfloat16)
         remat = cfg.remat_policy == "full" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             seed = None if deterministic else int(layer_seeds[i])

@@ -106,9 +106,12 @@ def random_dense_params(cfg, seed: int = 0) -> dict:
     """A dense DiT param tree (the layout of ``matmul_precision="bf16"``,
     separate q/k/v) as fp32 numpy, from ``seed``.
 
-    Projections are normal with std ``1/sqrt(fan_in)``; biases, ``adaln``
-    and ``final_proj`` normal with std 0.02.  Feed it to
-    ``ops.quant.quantize_params_static`` for the int8_static tree.
+    Projections are normal with std ``1/sqrt(fan_in)``; biases, ``adaln``,
+    ``final_proj`` and the learned positions (``pos_embed [max_len, H]``
+    where ``cfg.pos_embed == "learned"``) normal with std 0.02.  Feed it to
+    ``ops.quant.quantize_params_static(tree, cfg)`` for the int8_static
+    tree of ``cfg``; the dynamic-int8 model (``DenseDiT`` under
+    ``matmul_precision="int8"``) takes it as it is.
     """
     rng = np.random.default_rng(seed)
 
@@ -122,8 +125,9 @@ def random_dense_params(cfg, seed: int = 0) -> dict:
 def _dense_layout(cfg) -> dict:
     """``{path: (shape, kind)}`` of every leaf of the dense DiT tree, in
     the JAX init's order; ``shape`` is one block's under ``blocks``; kind
-    is "kernel" (a projection) or "zero" (biases, and the AdaLN-Zero
-    ``adaln`` and ``final_proj`` kernels)."""
+    is "kernel" (a projection), "zero" (biases, and the AdaLN-Zero
+    ``adaln`` and ``final_proj`` kernels) or "pos" (the learned positions,
+    normal with std 0.02)."""
     H, P, C = cfg.hidden_size, cfg.patch_len, cfg.input_channels
     hd, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
     mlp = int(H * cfg.mlp_ratio)
@@ -137,6 +141,8 @@ def _dense_layout(cfg) -> dict:
 
     dense(("patch_in",), P * 2 * C, cfg.bottleneck_dim)
     dense(("patch_out",), cfg.bottleneck_dim, H)
+    if cfg.pos_embed == "learned":
+        out[("pos_embed",)] = ((cfg.max_len, H), "pos")
     dense(("t_mlp1",), H, H)
     dense(("t_mlp2",), H, H)
     dense(("blocks", "adaln"), H, 6 * H, zero=True)
@@ -168,8 +174,9 @@ def init_dense_params(cfg, generator: torch.Generator) -> dict:
     """The dense DiT tree (JAX layout, fp32 CPU tensors) drawn as flax
     initialises it: ``lecun_normal`` kernels (a normal truncated to
     [-2, 2], times ``sqrt(1 / fan_in) / 0.8796``), zero biases, zero
-    ``adaln`` and ``final_proj`` (AdaLN-Zero).  The numbers differ from
-    JAX's (another generator); the distribution is the same."""
+    ``adaln`` and ``final_proj`` (AdaLN-Zero), learned positions normal
+    with std 0.02.  The numbers differ from JAX's (another generator); the
+    distribution is the same."""
     std_of_truncated = 0.87962566103423978  # std of N(0, 1) cut at +-2
 
     def leaf(path, shape, fan_in, kind):
@@ -178,6 +185,8 @@ def init_dense_params(cfg, generator: torch.Generator) -> dict:
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                         generator=generator)
             t.mul_(fan_in ** -0.5 / std_of_truncated)
+        elif kind == "pos":
+            t.normal_(0.0, 0.02, generator=generator)
         return t
 
     return _build_tree(cfg, leaf)

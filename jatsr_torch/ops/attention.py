@@ -8,9 +8,9 @@ Ports of ``gqa_attention_flash_qkv``, ``gqa_attention_flash_out``,
 (JAX package, ``ops/attention.py``).  Each wrapper dispatches on the
 tensor's device: a CPU tensor takes the plain PyTorch version below, a CUDA
 tensor launches the hand-written kernel in ``csrc/attention_deferred.cu``
-(the two base-2 flash kernels, from the unsplit projection and on split
-q/k/v), ``csrc/flash_qkv.cu`` (the flash kernel with the out projection)
-or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels),
+(the two base-2 flash kernels, from the unsplit projection, with or without
+its int8 value product, and on split q/k/v), ``csrc/flash_qkv.cu`` (the
+flash kernel with the out projection) or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels),
 at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises.
 Nothing falls back.
 """
@@ -81,21 +81,36 @@ def _scores_plain(qkv, cos, sin, hq, hkv, n_valid, scale_dim=None):
 
 
 def flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid=0,
-                    scale_dim=None):
+                    scale_dim=None, int8_qk=False):
     """Plain PyTorch version of the kernel, with its rounding points
-    (``scale_dim``: see :func:`_scores_plain`)."""
+    (``scale_dim``: see :func:`_scores_plain`).
+
+    ``int8_qk``: the value product in s8 x s8 -> s32.  e (fp32, unrounded,
+    row max exactly 1) becomes ``round(e * 127)``; v is quantised per
+    (batch, kv-head, column) over all N rows, the rows past ``n_valid``
+    too (masked only as keys): ``sv = max(absmax * _INV127, 1e-12)``,
+    ``round(v / sv)``; ``o = (acc * (r * _INV127)) * sv``, ``r = 1 /
+    sum(e)``.  Every product and sum of the codes is an integer below
+    2^24, so the float64 product here is exact."""
     B, N, _ = qkv.shape
     dt = qkv.dtype
     s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid,
                          scale_dim)
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     r = 1.0 / e.sum(dim=-1, keepdim=True)
-    o = (e.to(dt).float() @ v.float()) * r
+    if int8_qk:
+        vf = v.float()
+        sv = (vf.abs().amax(dim=2, keepdim=True) * _INV127).clamp_min(1e-12)
+        acc = torch.round(e * 127.0).double() @ torch.round(vf / sv).double()
+        o = (acc.float() * (r * _INV127)) * sv
+    else:
+        o = (e.to(dt).float() @ v.float()) * r
     return o.to(dt).permute(0, 2, 1, 3).reshape(B, N, -1)
 
 
 def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
-                            num_kv_heads: int, n_valid: int = 0):
+                            num_kv_heads: int, n_valid: int = 0,
+                            int8_qk: bool = False):
     """Flash GQA from the raw fused-QKV projection output.
 
     Args:
@@ -103,6 +118,11 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
             before RoPE (the rotation happens inside).
         cos/sin: [N, D] fp32 RoPE tables.
         n_valid: keys at positions >= n_valid are masked; 0 means N.
+        int8_qk: the value product in s8 x s8 -> s32 (see
+            :func:`flash_qkv_plain`).  On the card v's codes and scales
+            are made by a launch of their own before the attention's.
+            Launches are counted apart: ``launches`` counts those with the
+            bf16 value product, ``int8_qk_launches`` those with the s8 one.
     Returns:
         [B, N, Hq*D] in qkv's dtype.
     """
@@ -114,17 +134,20 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
         raise ValueError(f"n_valid {n_valid} outside [0, {N}]")
     if qkv.device.type == "cpu":
         return flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads,
-                               n_valid)
-    from . import _build
-
+                               n_valid, int8_qk=int8_qk)
     hq, hkv = num_q_heads, num_kv_heads
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
-    out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, cos, sin)
-    gqa_attention_flash_qkv.launches += 1
+    out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, cos, sin,
+                          int8_v=int8_qk)
+    if int8_qk:
+        gqa_attention_flash_qkv.int8_qk_launches += 1
+    else:
+        gqa_attention_flash_qkv.launches += 1
     return out
 
 
 gqa_attention_flash_qkv.launches = 0
+gqa_attention_flash_qkv.int8_qk_launches = 0
 
 
 def _qkv_views(qkv, cos, sin, hq, hkv):
@@ -764,6 +787,10 @@ def _wide_lib():
     lib.attention_wide.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(_WideArgs)]
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.attention_wide_s8v.restype = ctypes.c_int
+    lib.attention_wide_s8v.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_WideArgs)]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
     lib.flash_out_wide.restype = ctypes.c_int
     lib.flash_out_wide.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.POINTER(_WideArgs)]
@@ -849,10 +876,12 @@ def _launch_natural(q, k, v, grouped):
 
 
 def _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale, kind, cos=None,
-                 sin=None):
+                 sin=None, sv=None):
     """One call of csrc/attention_wide.cu's ``attention_wide`` (kind 0
     natural, 1 deferred; with ``cos``/``sin`` the rope pass first) on row
-    views q, k, v: ``[B, N, hq * dp]`` bf16."""
+    views q, k, v: ``[B, N, hq * dp]`` bf16.  With ``sv`` (B2's int8 value
+    product) ``v`` is V's codes (:func:`_v_codes`) and the call is
+    ``attention_wide_s8v``."""
     from . import _build
 
     B, N = q.shape[:2]
@@ -864,6 +893,15 @@ def _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale, kind, cos=None,
         qr, kr = _rope_scratch(q, k, B, N, hq, hkv, dp)
     ptr = (lambda t: None if t is None else t.data_ptr())
     lib = _wide_lib()
+    if sv is not None:
+        err = lib.attention_wide_s8v(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), ctypes.byref(args),
+                                     cos.data_ptr(), sin.data_ptr(),
+                                     qr.data_ptr(), kr.data_ptr(),
+                                     sv.data_ptr(), B,
+                                     _build.stream_ptr(q.device))
+        _build.check(lib, err, "attention_wide_s8v")
+        return out
     err = lib.attention_wide(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), ctypes.byref(args), ptr(cos),
                              ptr(sin), ptr(qr), ptr(kr), kind, B,
@@ -923,14 +961,69 @@ def _deferred_lib():
     lib.attention_deferred.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.attention_deferred_s8v.restype = ctypes.c_int
+    lib.attention_deferred_s8v.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(_NaturalArgs)]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.attention_v_codes.restype = ctypes.c_int
+    lib.attention_v_codes.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p] * 3)
     return lib
 
 
+def _v_codes(v, v_row, hkv, D, nk):
+    """V's codes and scales for B2's int8 value product, one launch of
+    csrc/attention_deferred.cu's ``v_codes_kernel`` on the row view ``v``
+    ``[B, N, hkv * D]`` (row stride ``v_row``): codes ``[B, hkv, D, nk]``
+    int8 (K-major, each 32-key block in ``kperm`` order, zero past N) and
+    ``sv [B, hkv, D]`` fp32, ``max(absmax * _INV127, 1e-12)`` over all N
+    rows."""
+    from . import _build
+
+    B, N = v.shape[:2]
+    codes = torch.empty((B, hkv, D, nk), dtype=torch.int8, device=v.device)
+    sv = torch.empty((B, hkv, D), dtype=torch.float32, device=v.device)
+    lib = _deferred_lib()
+    err = lib.attention_v_codes(v.data_ptr(), v_row, B, N, hkv, D, nk,
+                                codes.data_ptr(), sv.data_ptr(),
+                                _build.stream_ptr(v.device))
+    _build.check(lib, err, "attention_v_codes")
+    _v_codes.launches += 1
+    return codes, sv
+
+
+_v_codes.launches = 0
+
+
+def kperm(p: int) -> int:
+    """The key that position ``p`` of a 32-key block of V's codes holds
+    (``csrc/attention_rows.cuh:kperm``: the order in which the s8 product's
+    A fragments take a thread's weights)."""
+    return (p & 16) | ((p & 2) << 2) | (((p >> 2) & 3) << 1) | (p & 1)
+
+
+def v_codes_plain(v, hkv, nk):
+    """Plain version of ``v_codes_kernel`` on ``v [B, N, hkv * D]``: the
+    codes ``[B, hkv, D, nk]`` int8 in its layout and ``sv [B, hkv, D]``."""
+    B, N, w = v.shape
+    D = w // hkv
+    vf = v.float().reshape(B, N, hkv, D).permute(0, 2, 3, 1)  # [B, hkv, D, N]
+    sv = (vf.abs().amax(dim=-1) * _INV127).clamp_min(1e-12)
+    q = torch.round(vf / sv[..., None]).to(torch.int8)
+    q = F.pad(q, (0, nk - N))
+    perm = torch.tensor([b * 32 + kperm(p) for b in range(nk // 32)
+                         for p in range(32)], device=v.device)
+    return q[..., perm].contiguous(), sv
+
+
 def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
-                    balanced=None):
+                    balanced=None, int8_v=False):
     """One launch of csrc/attention_deferred.cu on [B, N, H * D] views q,
     k and v: B2 with ``n_valid`` and the fp32 RoPE tables ``cos``, ``sin``
     ([N, D], 8-byte aligned), B11 with ``n_valid`` None and no tables.
+    ``int8_v`` (B2's ``int8_qk``): V's codes and scales first, one launch
+    of :func:`_v_codes`, then B2 on them.
     ``balanced`` None takes the grid that was faster at the serving shapes
     (PERF.md §6): B2 B16's per-kv-head grid (120 CTAs of 5
     rounds), where each CTA loads and rotates K once; B11 the balanced one
@@ -955,14 +1048,27 @@ def _flash_deferred(q, k, v, hq, hkv, n_valid, cos=None, sin=None,
                           n_valid, balanced)
     _check_smem(plan, q.device, "flash kernels")
     (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    sv = None
+    if int8_v:
+        if cos is None:
+            raise ValueError("the int8 value product is B2's (RoPE tables)")
+        v, sv = _v_codes(v, v_row, hkv, Dp, plan.nk)
     if isinstance(plan, WidePlan):  # one grid
         out = _launch_wide(plan, q, k, v, q_row, k_row, v_row, scale2, 1,
-                           cos, sin)
+                           cos, sin, sv)
         return unpad_heads(out, D, Dp)
     args = _natural_args(plan, q_row, k_row, v_row, scale2)
     out = torch.empty((B, N, hq * Dp), dtype=torch.bfloat16, device=q.device)
     lib = _deferred_lib()
     gx, gy, gz = plan.launch_grid(B)
+    if sv is not None:
+        err = lib.attention_deferred_s8v(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.byref(args), cos.data_ptr(), sin.data_ptr(),
+            sv.data_ptr(), Dp, gz, gx, gy, plan.warps, plan.smem,
+            _build.stream_ptr(q.device))
+        _build.check(lib, err, "gqa_attention_flash_qkv(int8_qk)")
+        return unpad_heads(out, D, Dp)
     err = lib.attention_deferred(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.byref(args), None if cos is None else cos.data_ptr(),

@@ -62,6 +62,17 @@
 //     the one that was faster at its serving shape (PERF.md; timed by
 //     tools/torch_deferred_grids.py): B2 the per-kv-head grid (a reload
 //     would rotate K again), B11 the balanced.
+//  6. int8_qk (B2's int8 value product, attention_rows.cuh's int8 v
+//     epilogue): a launch of v_codes_kernel first, then B2's launch with
+//     V's codes and scales in place of V.  The codes are quantised per
+//     (batch, kv-head, column) over all N rows, the rows past n_valid too
+//     (align_n's padded patches: real values, masked only as keys), as the
+//     JAX kernel's v block holds them; a zero-padded head column gets sv =
+//     1e-12 and code 0.  They are written K-major, [B, hkv, D, nk] s8 (each
+//     32-key block in kperm order, zero past N), which the s8 mma reads as
+//     its B operand by ldmatrix.  The scores, e and l are B2's; w_q =
+//     rn(e * 127) goes straight from the score registers into the A
+//     fragments.
 //  Every N <= 1024 runs (W <= 8 key chunks; past 768, K and V no longer
 //  fit together at D = 64 and V takes K's buffer), at head dims 16, 32, 64
 //  and 128 (8-warp CTAs at 128; past 640 keys there, K and the partial
@@ -99,6 +110,67 @@ __global__ void __launch_bounds__(STREAM_WARPS * 32, 1) deferred_stream_kernel(
   stream_attention<D, Epilogue::kDeferred, ROPE>(q, k, v, out, p, rt);
 }
 
+// int8_qk: B2 on V's codes (v_codes_kernel) with the int8 v epilogue.
+template <int D>
+__global__ void __launch_bounds__(max_warps(D) * 32, 1) deferred_s8v_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const int8_t* __restrict__ codes, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt, const float* __restrict__ sv) {
+  rows_attention<D, Epilogue::kInt8V, false, true, Grid::kPlan>(
+      q, k, reinterpret_cast<const __nv_bfloat16*>(codes), out, p, TrainRows{}, rt, sv);
+}
+
+__global__ void __launch_bounds__(STREAM_WARPS * 32, 1) deferred_s8v_stream_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const int8_t* __restrict__ codes, __nv_bfloat16* __restrict__ out, const NaturalPlan p,
+    const RopeTables rt, const float* __restrict__ sv) {
+  stream_attention<128, Epilogue::kInt8V, true>(
+      q, k, reinterpret_cast<const __nv_bfloat16*>(codes), out, p, rt, sv);
+}
+
+// V's codes for the int8 value product.  CTA (column group of 16, kv-head,
+// batch) of 256 threads: the absmax of each of its 16 columns over the N
+// rows of v (row stride v_row), sv = max(absmax * f32(1/127), 1e-12), then
+// codes[b, kvh, d, key'] = rn(v[key, d] / sv) (a true divide), key' the
+// position of key in its 32-key block's kperm order, zero past N; nk a
+// multiple of 128.
+__global__ void __launch_bounds__(256) v_codes_kernel(const __nv_bfloat16* __restrict__ v,
+                                                      long long v_row, int N, int hkv, int D,
+                                                      int nk, int8_t* __restrict__ codes,
+                                                      float* __restrict__ sv) {
+  __shared__ float red[16][17];
+  __shared__ float scale[16];
+  const int groups = D / 16, kvh = blockIdx.x / groups, c0 = (blockIdx.x % groups) * 16;
+  const int b = blockIdx.y, col = threadIdx.x & 15, stripe = threadIdx.x >> 4;
+  const __nv_bfloat16* src = v + (long long)b * N * v_row + (long long)kvh * D + c0;
+  float m = 0.f;
+  for (int r = stripe; r < N; r += 16) m = fmaxf(m, fabsf(__bfloat162float(src[r * v_row + col])));
+  red[stripe][col] = m;
+  __syncthreads();
+  if (threadIdx.x < 16) {
+    float a = red[0][threadIdx.x];
+    for (int i = 1; i < 16; ++i) a = fmaxf(a, red[i][threadIdx.x]);
+    const float s = fmaxf(__fmul_rn(a, kInv127), 1e-12f);
+    scale[threadIdx.x] = s;
+    sv[((long long)b * hkv + kvh) * D + c0 + threadIdx.x] = s;
+  }
+  __syncthreads();
+  int8_t* dst = codes + (((long long)b * hkv + kvh) * D + c0) * nk;
+  for (int i = threadIdx.x; i < 16 * (nk / 4); i += blockDim.x) {
+    const int d = i / (nk / 4), pos = (i - d * (nk / 4)) * 4;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = ((pos + j) & ~31) + kperm((pos + j) & 31);
+      if (key < N) {
+        const float x = __bfloat162float(src[key * v_row + d]);
+        word |= ((uint32_t)__float2int_rn(__fdiv_rn(x, scale[d])) & 0xffu) << (8 * j);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(dst + (long long)d * nk + pos) = word;
+  }
+}
+
 template <class Kernel>
 cudaError_t launch(Kernel kernel, int& smem_set, const void* q, const void* k, const void* v,
                    void* out, const NaturalPlan& p, const RopeTables& rt, dim3 grid, int warps,
@@ -124,6 +196,26 @@ cudaError_t launch_rope(const void* q, const void* k, const void* v, void* out,
   if (p.stream) return cudaErrorInvalidValue;  // no streaming instance below D = 128
   return launch(deferred_kernel<D, ROPE>, smem_set[0], q, k, v, out, p, rt, grid, warps, smem,
                 st);
+}
+
+template <int D>
+cudaError_t launch_s8v(const void* q, const void* k, const void* codes, void* out,
+                       const NaturalPlan& p, const RopeTables& rt, const float* sv, dim3 grid,
+                       int warps, int smem, cudaStream_t st) {
+  static int smem_set[2] = {0, 0};
+  auto go = [&](auto kernel, int& set) {
+    if (smem > set) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      set = smem;
+    }
+    kernel<<<grid, warps * 32, smem, st>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                           (const int8_t*)codes, (__nv_bfloat16*)out, p, rt, sv);
+    return cudaGetLastError();
+  };
+  if (D == 128 && p.stream) return go(deferred_s8v_stream_kernel, smem_set[1]);
+  if (p.stream) return cudaErrorInvalidValue;  // no streaming instance below D = 128
+  return go(deferred_s8v_kernel<D>, smem_set[0]);
 }
 
 template <int D>
@@ -153,6 +245,36 @@ extern "C" int attention_deferred(const void* q, const void* k, const void* v, v
     case 32: return launch_d<32>(q, k, v, out, *plan, rt, grid, warps, smem, st);
     case 64: return launch_d<64>(q, k, v, out, *plan, rt, grid, warps, smem, st);
     case 128: return launch_d<128>(q, k, v, out, *plan, rt, grid, warps, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// int8_qk, first launch: v [B, N, hkv * D] bf16 view (row stride v_row,
+// D a multiple of 16) -> codes [B, hkv, D, nk] s8 and sv [B, hkv, D] f32
+// (see v_codes_kernel).  Used by B2 at every head dim (attention_wide.cu's
+// too).
+extern "C" int attention_v_codes(const void* v, long long v_row, int B, int N, int hkv, int D,
+                                 int nk, void* codes, void* sv, void* stream) {
+  if (D % 16 || nk % 128) return cudaErrorInvalidValue;
+  v_codes_kernel<<<dim3(hkv * D / 16, B), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)v, v_row, N, hkv, D, nk, (int8_t*)codes, (float*)sv);
+  return cudaGetLastError();
+}
+
+// int8_qk, second launch: B2 as attention_deferred with the RoPE tables,
+// on V's codes and scales (attention_v_codes) in place of v.
+extern "C" int attention_deferred_s8v(const void* q, const void* k, const void* codes, void* out,
+                                      const NaturalPlan* plan, const float* cos_t,
+                                      const float* sin_t, const float* sv, int D, int B, int gx,
+                                      int gy, int warps, int smem, void* stream) {
+  const RopeTables rt{cos_t, sin_t};
+  const dim3 grid(gx, gy, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_s8v<16>(q, k, codes, out, *plan, rt, sv, grid, warps, smem, st);
+    case 32: return launch_s8v<32>(q, k, codes, out, *plan, rt, sv, grid, warps, smem, st);
+    case 64: return launch_s8v<64>(q, k, codes, out, *plan, rt, sv, grid, warps, smem, st);
+    case 128: return launch_s8v<128>(q, k, codes, out, *plan, rt, sv, grid, warps, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
 // The attention body with the exact row max and the scores computed once
-// in registers, for head dims D of 16, 32, 64 and 128, shared by four
+// in registers, for head dims D of 16, 32, 64 and 128, shared by five
 // epilogues:
 //   natural  (attention_natural.cu, B15 and B16): s = (q @ k^T) * scale,
 //       e = expf(s - m), w = bf16(e / l) correctly rounded, o = bf16(w @ v)
@@ -14,6 +14,13 @@
 //   normed   (flash_qkv.cu, B12): the deferred epilogue's base-2 scores
 //       (RoPE inside, keys masked at n_valid) with the natural epilogue's
 //       weights: w = bf16(e / l) correctly rounded, o = bf16(w @ v)
+//   int8 v   (attention_deferred.cu, B2 with int8_qk): B2's scores and l,
+//       then the value product s8 x s8 -> s32 (mma.sync m16n8k32): w_q =
+//       rn(e * 127) from the unrounded e (its row max is exactly 1), v's
+//       codes and per-column scales sv made before the launch
+//       (v_codes_kernel), o = bf16((f32(acc) * (rcp_rn(l) * f32(1/127)))
+//       * sv); V's codes sit in shared memory K-major ([D][nk + 16] bytes),
+//       each 32-key block in the order the A fragments take e (kperm)
 // Keys at or past the plan's `limit` are masked to -inf (N, but for B2
 // its n_valid and for B11 N rounded up to 8, whose zero keys score 0 and
 // take part in the max); m is the exact row max (a running max would round
@@ -69,15 +76,19 @@ struct NaturalPlan {
 };
 
 // The softmax epilogue of rows_attention (see the header).
-enum class Epilogue { kNatural, kTrain, kDeferred, kNormed };
+enum class Epilogue { kNatural, kTrain, kDeferred, kNormed, kInt8V };
 
 // The grid of rows_attention: its own (x, y, batch), the balanced one, or
 // the one the plan's span names (0: its own).
 enum class Grid { kOwn, kBalanced, kPlan };
 
-// What the train epilogue adds: the dropout and the statistics.
+// What the train epilogue adds: the dropout and the statistics.  One other
+// reader: attention_wide.cu's kInt8V forward (B2 with int8_qk past head dim
+// 128) takes `stats` as V's per-column scales sv [B, hkv, dp] fp32 and reads
+// no other field, so that every other instance keeps its parameter layout.
 struct TrainRows {
-  float* stats;  // [B, hq, N, 2] fp32: row max, row sum of exp2
+  float* stats;  // train: [B, hq, N, 2] fp32, row max, row sum of exp2;
+                 // wide kInt8V: sv [B, hkv, dp] fp32 (read only)
   uint32_t seed, thr;
   int np;        // round_up(N, 8): the hash lattice
   int dropout;   // 0 or 1
@@ -116,6 +127,14 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 __device__ __forceinline__ uint32_t mul_pair(uint32_t x, __nv_bfloat162 s) {
   __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&x), s);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
@@ -270,22 +289,91 @@ __device__ __forceinline__ void weights(const float (&s)[NT][4], uint32_t (&wa)[
   }
 }
 
+// ---- the int8 value product (B2 with int8_qk) --------------------------------
+
+constexpr float kInv127 = 0x1.020408p-7f;  // f32(1 / 127), the JAX package's _INV127
+
+// The key that position p of a 32-key block of V's codes holds: the A
+// fragment of m16n8k32 gives thread (gid, tig) the k positions tig * 4 +
+// [0, 4) (and + 16), and the bf16 score tiles give it the keys tig * 2 +
+// {0, 1} of n-tiles 2 i and 2 i + 1, so the codes are stored in that order
+// and the e of a thread packs into its A fragment as it is (an exact int32
+// sum does not depend on the order of its keys).
+__host__ __device__ __forceinline__ int kperm(int p) {
+  return (p & 16) | ((p & 2) << 2) | (((p >> 2) & 3) << 1) | (p & 1);
+}
+
+// rn(e * 127) of four e in [0, 1] as four s8 codes, the first lowest.
+__device__ __forceinline__ uint32_t codes4(float a, float b, float c, float d) {
+  return (uint32_t)__float2int_rn(__fmul_rn(a, 127.f)) |
+         ((uint32_t)__float2int_rn(__fmul_rn(b, 127.f)) << 8) |
+         ((uint32_t)__float2int_rn(__fmul_rn(c, 127.f)) << 16) |
+         ((uint32_t)__float2int_rn(__fmul_rn(d, 127.f)) << 24);
+}
+
+// acc += rn(e * 127) @ V's codes over one chunk of 128 keys: e as the
+// scores s[nt][..] hold it; vq the codes [D rows][stride vstr bytes] in
+// shared memory, the chunk's keys from byte key0 (kperm order); B
+// fragments by ldmatrix (8 d-rows x 16 keys a matrix).
+template <int DT>
+__device__ __forceinline__ void value_s8(int (&acc)[DT][4], const float (&e)[NT][4],
+                                         const int8_t* vq, int vstr, int key0, int lane) {
+#pragma unroll
+  for (int t = 0; t < NT / 4; ++t) {
+    uint32_t a[4];
+    a[0] = codes4(e[4 * t][0], e[4 * t][1], e[4 * t + 1][0], e[4 * t + 1][1]);
+    a[1] = codes4(e[4 * t][2], e[4 * t][3], e[4 * t + 1][2], e[4 * t + 1][3]);
+    a[2] = codes4(e[4 * t + 2][0], e[4 * t + 2][1], e[4 * t + 3][0], e[4 * t + 3][1]);
+    a[3] = codes4(e[4 * t + 2][2], e[4 * t + 2][3], e[4 * t + 3][2], e[4 * t + 3][3]);
+#pragma unroll
+    for (int dt = 0; dt < DT; dt += 2) {
+      uint32_t b[4];
+      ldsm4(b, smem_u32(vq + (dt * 8 + (lane & 7) + (lane >> 4) * 8) * vstr + key0 + t * 32 +
+                        ((lane >> 3) & 1) * 16));
+      mma_s8(acc[dt], a, b[0], b[1]);
+      mma_s8(acc[dt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// bf16((f32(acc) * f) * sv) of an output pair: f = rcp_rn(l) * f32(1/127).
+__device__ __forceinline__ uint32_t s8_out(int a, int b, float f, float2 sv) {
+  return pack2(__fmul_rn(__fmul_rn(__int2float_rn(a), f), sv.x),
+               __fmul_rn(__fmul_rn(__int2float_rn(b), f), sv.y));
+}
+
+// `rows` rows of n code bytes (n a multiple of 16) from src (row stride
+// src_row bytes) into shared memory at stride n + 16; thread t of
+// `threads`.
+__device__ __forceinline__ void load_codes(int8_t* dst, const int8_t* src, long long src_row,
+                                           int rows, int n, int t, int threads) {
+  const int parts = n / 16;
+  const unsigned base = smem_u32(dst);
+  for (int c = t; c < rows * parts; c += threads) {
+    const int i = c / parts, part = c - i * parts;
+    copy16(base + i * (n + 16) + part * 16, src + i * src_row + part * 16, true);
+  }
+}
+
 // One CTA: blockIdx.x the group of row tiles, blockIdx.y the q-head (B15,
 // B10) or the kv-head (B16, B2, B12), blockIdx.z the batch.  Warp w: key chunk
 // j = w % W of the pair w / W, which is row group pair % R of head slot
 // pair / R.  `tr` is read only by the train epilogue, `rt` only with
-// ROPE.  DROP (train only): the dropout is on.  ROPE (deferred and normed:
-// B2, B12): q and K are rotated in shared memory before their product, and q is
-// scaled there too (B11 and train scale q at its fragment load: the
-// placements that left each kernel without spills; one rounding either
-// way, after RoPE).
+// ROPE.  DROP (train only): the dropout is on.  ROPE (deferred, normed and
+// int8 v: B2, B12): q and K are rotated in shared memory before their
+// product, and q is scaled there too (B11 and train scale q at its fragment
+// load: the placements that left each kernel without spills; one rounding
+// either way, after RoPE).  The int8 v epilogue reads `v` as V's codes
+// [B, hkv, D, nk] s8 (v_codes_kernel) and `sv` [B, hkv, D] f32.
 template <int D, Epilogue EPI, bool DROP, bool ROPE, Grid GRID>
 __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__ q,
                                                const __nv_bfloat16* __restrict__ k,
                                                const __nv_bfloat16* __restrict__ v,
                                                __nv_bfloat16* __restrict__ out, const NaturalPlan& p,
-                                               const TrainRows& tr, const RopeTables& rt) {
+                                               const TrainRows& tr, const RopeTables& rt,
+                                               const float* __restrict__ sv = nullptr) {
   constexpr bool NATURAL = EPI == Epilogue::kNatural, TRAIN = EPI == Epilogue::kTrain;
+  constexpr bool I8V = EPI == Epilogue::kInt8V;
   constexpr bool BASE2 = !NATURAL;                           // q' scaled, exp2f
   constexpr bool NORMED = NATURAL || EPI == Epilogue::kNormed;  // w = bf16(e / l)
   constexpr int STR = D + 8, DT = D / 8;  // row stride (bf16); output n-tiles
@@ -341,6 +429,16 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     const int kvh = o.head0 / (p.hq / p.hkv);
     load_rows<D>(dst, src + (long long)o.b * N * stride + kvh * D, stride, p.nk, N);
   };
+  auto load_v = [&](const Round& o) {  // V, or (int8 v) V's codes [D][nk + 16]
+    if (I8V) {
+      const int kvh = o.head0 / (p.hq / p.hkv);
+      load_codes(reinterpret_cast<int8_t*>(vs),
+                 reinterpret_cast<const int8_t*>(v) + ((long long)o.b * p.hkv + kvh) * D * p.nk,
+                 p.nk, D, p.nk, threadIdx.x, blockDim.x);
+    } else {
+      load_kv(vs, v, p.v_row, o);
+    }
+  };
   auto load_q = [&](int rd) {  // the pair's 16 rows, by its own warps; zero past N or the heads
     const Round o = round_of(rd);
     const unsigned base = smem_u32(qs + pair * 16 * STR);
@@ -376,7 +474,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     load_kv(ks, k, p.k_row, o);
     load_q(0);
     commit();
-    load_kv(vs, v, p.v_row, o);  // lands while the scores run
+    load_v(o);  // lands while the scores run
     commit();
   }
   for (int rd = 0; rd < rounds; ++rd) {
@@ -389,7 +487,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
         __syncthreads();  // every pair is done with the last K and V
         load_kv(ks, k, p.k_row, cur);
         commit();
-        load_kv(vs, v, p.v_row, cur);
+        load_v(cur);
         commit();
       }
     }
@@ -462,7 +560,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     }
     sync(whole);  // the pair's warps (or every warp: K's buffer) are done with K and q
     if (!p.resident) {
-      load_kv(vs, v, p.v_row, cur);  // V takes K's buffer
+      load_v(cur);  // V takes K's buffer
       commit();
     }
     if (rd + 1 < rounds) load_q(rd + 1);
@@ -538,7 +636,12 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     // below 2^-100.  train: bf16(e) after the dropout zeroing (l is summed);
     // deferred: bf16(e).
     uint32_t wa[NT / 2][4];
-    if (!NORMED) {
+    int iacc[DT][4];  // int8 v: the exact s32 product
+    if (I8V) {
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) iacc[dt][0] = iacc[dt][1] = iacc[dt][2] = iacc[dt][3] = 0;
+      value_s8<DT>(iacc, s, reinterpret_cast<const int8_t*>(vs), p.nk + 16, key0, lane);
+    } else if (!NORMED) {
       if (TRAIN && DROP && ra - gid < N) {  // the warp holds a row before N
         const uint32_t st = stream_of(cur.b, cur.head0 + slot, tr.seed);
 #pragma unroll
@@ -566,19 +669,21 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
     float acc[DT][4];
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    if (!I8V) {
 #pragma unroll
-    for (int t = 0; t < NT / 2; ++t) {
-      const int key = key0 + t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      for (int t = 0; t < NT / 2; ++t) {
+        const int key = key0 + t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t vb[4];
-        ldsm4t(vb, smem_u32(vs + key * STR + (dt + (lane >> 4)) * 8));
-        mma_bf16(acc[dt], wa[t], vb[0], vb[1]);
-        mma_bf16(acc[dt + 1], wa[t], vb[2], vb[3]);
+        for (int dt = 0; dt < DT; dt += 2) {
+          uint32_t vb[4];
+          ldsm4t(vb, smem_u32(vs + key * STR + (dt + (lane >> 4)) * 8));
+          mma_bf16(acc[dt], wa[t], vb[0], vb[1]);
+          mma_bf16(acc[dt + 1], wa[t], vb[2], vb[3]);
+        }
       }
     }
 
-    if (EPI == Epilogue::kDeferred) {
+    if (EPI == Epilogue::kDeferred || I8V) {
       // 1 / l (correctly rounded) from the row sums in shared memory, again
       // in warp order, so that l is not live across the product; B11 first
       // takes its zero keys' share off the combined l, once.
@@ -599,15 +704,55 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       }
       f0 = markstein(1.f, f0, reciprocal(f0));
       f1 = markstein(1.f, f1, reciprocal(f1));
+      if (I8V) {
+        f0 = __fmul_rn(f0, kInv127);
+        f1 = __fmul_rn(f1, kInv127);
+      }
     }
     auto out_pair = [&](float x, float y, float f) {
       return NORMED ? pack2(x, y) : pack2(__fmul_rn(x, f), __fmul_rn(y, f));
+    };
+    // int8 v: the scales of a pair of columns, dt * 8 + tig * 2 + {0, 1}.
+    auto sv2 = [&](int dt) {
+      const int kvh = cur.head0 / (p.hq / p.hkv);
+      return *reinterpret_cast<const float2*>(sv + ((long long)cur.b * p.hkv + kvh) * D + dt * 8 +
+                                              tig * 2);
     };
 
     // The W partial outputs added in warp order, rounded once.
     __nv_bfloat16* dst = out + (long long)cur.b * N * p.hq * D + (cur.head0 + slot) * D + tig * 2;
     const long long ostr = (long long)p.hq * D;
-    if (W == 1) {
+    if (I8V && W == 1) {
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const float2 sc = sv2(dt);
+        if (store && ra < N)
+          *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = s8_out(iacc[dt][0], iacc[dt][1], f0, sc);
+        if (store && rb < N)
+          *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = s8_out(iacc[dt][2], iacc[dt][3], f1, sc);
+      }
+    } else if (I8V) {  // the W partial products added as exact s32 sums
+      int4* ipart = reinterpret_cast<int4*>(part);
+      int4* mine = ipart + (pair * W + j) * DT * 32 + lane;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        mine[dt * 32] = make_int4(iacc[dt][0], iacc[dt][1], iacc[dt][2], iacc[dt][3]);
+      sync(whole);
+      const int4* all = ipart + pair * W * DT * 32 + lane;
+      for (int dt = j; dt < DT; dt += W) {
+        int4 a = all[dt * 32];
+        for (int jj = 1; jj < W; ++jj) {
+          const int4 c = all[(jj * DT + dt) * 32];
+          a.x += c.x;
+          a.y += c.y;
+          a.z += c.z;
+          a.w += c.w;
+        }
+        const float2 sc = sv2(dt);
+        if (store && ra < N) *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = s8_out(a.x, a.y, f0, sc);
+        if (store && rb < N) *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = s8_out(a.z, a.w, f1, sc);
+      }
+    } else if (W == 1) {
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         if (store && ra < N)

@@ -19,7 +19,10 @@
 //      known before any weight is rounded), the deferred one's bf16(e);
 //      o += w @ V's chunk in the fp32 accumulators.
 // o = bf16(o) (natural, normed) or bf16(o * rcp_rn(l)) (deferred; B11 first
-// takes its npad zero keys' share off l: l - npad * exp2f(-m)).  A one-pass
+// takes its npad zero keys' share off l: l - npad * exp2f(-m)).  The int8 v
+// epilogue (B2 with int8_qk) passes V's codes through the V buffers
+// instead ([D][128 + 16] bytes a chunk), takes o += rn(e * 127) @ codes in
+// s32 in pass 3, and writes bf16((f32(o) * (rcp_rn(l) * f32(1/127))) * sv).  A one-pass
 // online softmax would round w (or e) against a running max, so the mode
 // computes the scores three times; its time is the price of the exact max.
 // No row's arithmetic depends on the grid, so B15 and B16 stay bit-equal.
@@ -44,8 +47,10 @@ __device__ __forceinline__ void stream_attention(const __nv_bfloat16* __restrict
                                                  const __nv_bfloat16* __restrict__ k,
                                                  const __nv_bfloat16* __restrict__ v,
                                                  __nv_bfloat16* __restrict__ out,
-                                                 const NaturalPlan& p, const RopeTables& rt) {
+                                                 const NaturalPlan& p, const RopeTables& rt,
+                                                 const float* __restrict__ sv = nullptr) {
   constexpr bool NATURAL = EPI == Epilogue::kNatural;
+  constexpr bool I8V = EPI == Epilogue::kInt8V;
   constexpr bool NORMED = NATURAL || EPI == Epilogue::kNormed;
   static_assert(EPI != Epilogue::kTrain, "the train epilogue has no streaming mode");
   constexpr int STR = D + 8, DT = D / 8, DSH = ilog2(DT), CHUNK = NT * 8;
@@ -64,6 +69,7 @@ __device__ __forceinline__ void stream_attention(const __nv_bfloat16* __restrict
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale);  // exact: a bf16 value
   const __nv_bfloat16* kb = k + (long long)b * N * p.k_row + kvh * D;
   const __nv_bfloat16* vb = v + (long long)b * N * p.v_row + kvh * D;
+  const int8_t* vq = reinterpret_cast<const int8_t*>(v) + ((long long)b * p.hkv + kvh) * D * p.nk;
 
   for (int hr = 0; hr < p.head_rounds; ++hr) {
     const int slot = hr * p.hc + hs;
@@ -82,7 +88,10 @@ __device__ __forceinline__ void stream_attention(const __nv_bfloat16* __restrict
       const int c = u % chunks, buf = u & 1;
       load_rows<D>(kbuf + buf * CHUNK * STR, kb + (long long)c * CHUNK * p.k_row, p.k_row, CHUNK,
                    N - c * CHUNK);
-      if (u >= 2 * chunks)
+      if (u >= 2 * chunks && I8V)
+        load_codes(reinterpret_cast<int8_t*>(vbuf + buf * CHUNK * STR), vq + c * CHUNK, p.nk, D,
+                   CHUNK, threadIdx.x, blockDim.x);
+      else if (u >= 2 * chunks)
         load_rows<D>(vbuf + buf * CHUNK * STR, vb + (long long)c * CHUNK * p.v_row, p.v_row,
                      CHUNK, N - c * CHUNK);
       commit();
@@ -205,10 +214,18 @@ __device__ __forceinline__ void stream_attention(const __nv_bfloat16* __restrict
     float acc[DT][4];
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    int iacc[DT][4];  // int8 v: the exact s32 product
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) iacc[dt][0] = iacc[dt][1] = iacc[dt][2] = iacc[dt][3] = 0;
     for (int c = 0; c < chunks; ++c) {
       float s[NT][4];
       const __nv_bfloat16* vs = scores(s);
       exps(s, m0, m1);
+      if (I8V) {
+        value_s8<DT>(iacc, s, reinterpret_cast<const int8_t*>(vs), CHUNK + 16, 0, lane);
+        done();
+        continue;
+      }
       uint32_t wa[NT / 2][4];
       if (NORMED) {
         bool rare = false;  // a score below 2^-100: the exact divide's slow form
@@ -254,6 +271,20 @@ __device__ __forceinline__ void stream_attention(const __nv_bfloat16* __restrict
     const int ra = row0 + gid, rb = ra + 8;
     __nv_bfloat16* dst = out + (long long)b * N * p.hq * D + head * D + tig * 2;
     const long long ostr = (long long)p.hq * D;
+    if (I8V) {
+      f0 = __fmul_rn(f0, kInv127);
+      f1 = __fmul_rn(f1, kInv127);
+      const float* svb = sv + ((long long)b * p.hkv + kvh) * D + tig * 2;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const float2 sc = *reinterpret_cast<const float2*>(svb + dt * 8);
+        if (live && ra < N)
+          *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = s8_out(iacc[dt][0], iacc[dt][1], f0, sc);
+        if (live && rb < N)
+          *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = s8_out(iacc[dt][2], iacc[dt][3], f1, sc);
+      }
+      continue;
+    }
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const float x0 = NORMED ? acc[dt][0] : __fmul_rn(acc[dt][0], f0);

@@ -19,6 +19,11 @@
 //   deferred q' = bf16(q * scale2), s = q' @ k^T, e = exp2f(s - m),
 //            o = bf16((bf16(e) @ v) * rcp_rn(l')), l' = l - npad exp2f(-m)
 //   normed   the deferred scores with the natural weights
+//   int8 v   the deferred scores and l, o = bf16((f32(rn(e * 127) @ vq)
+//            * (rcp_rn(l) * f32(1/127))) * sv), the s32 product over each
+//            key chunk on V's codes (B2 with int8_qk: attention_v_codes in
+//            attention_deferred.cu makes them, [B, hkv, dp, nk] s8 K-major,
+//            and sv [B, hkv, dp]; a column group reads its 128 rows)
 //   train    the deferred scores, l before the dropout zeroing, o =
 //            bf16((bf16(e) @ v) * (coef / l)), (m, l) written
 //   backward p = exp2f(s - m) / l, dw = (do v^T) kc, wd = p kc, ds =
@@ -117,6 +122,8 @@ __device__ __forceinline__ void frag_b(uint32_t (&b)[4], const __nv_bfloat16* t,
 }
 
 // ---- the forward ------------------------------------------------------------
+// The int8 v epilogue reads `v` as V's codes and their scales sv through
+// tr.stats (the rule is stated at TrainRows in attention_rows.cuh).
 template <Epilogue EPI, bool DROP>
 __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                                                        const __nv_bfloat16* __restrict__ k,
@@ -124,6 +131,7 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
                                                        __nv_bfloat16* __restrict__ out,
                                                        const WidePlan p, const TrainRows tr) {
   constexpr bool NATURAL = EPI == Epilogue::kNatural, TRAIN = EPI == Epilogue::kTrain;
+  constexpr bool I8V = EPI == Epilogue::kInt8V;
   constexpr bool NORMED = NATURAL || EPI == Epilogue::kNormed;
   constexpr int DT = WCOL / 8;  // output n-tiles of the group
   extern __shared__ __align__(128) unsigned char smem[];
@@ -140,6 +148,9 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
   const __nv_bfloat16* qb = q + (long long)b * N * p.q_row + (long long)head * p.dp;
   const __nv_bfloat16* kb = k + (long long)b * N * p.k_row + (long long)kvh * p.dp;
   const __nv_bfloat16* vb = v + (long long)b * N * p.v_row + (long long)kvh * p.dp + grp * WCOL;
+  const int nk = (N + WKEYS - 1) / WKEYS * WKEYS;  // int8 v: the codes' key stride
+  const int8_t* vq = reinterpret_cast<const int8_t*>(v) +
+                     (((long long)b * p.hkv + kvh) * p.dp + grp * WCOL) * nk;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale);  // exact: a bf16 value
   const bool scale_q = !NATURAL && !p.prescaled;
 
@@ -153,7 +164,11 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
       __syncthreads();  // every warp is done with the last stage (and V)
       load_tile(qs, qb, p.q_row, WROWS, row0, dc * WCOL, N);
       load_tile(ks, kb, p.k_row, WKEYS, c * WKEYS, dc * WCOL, N);
-      if (with_v && dc == 0) load_tile(vs, vb, p.v_row, WKEYS, c * WKEYS, 0, N);
+      if (with_v && dc == 0 && I8V)
+        load_codes(reinterpret_cast<int8_t*>(vs), vq + c * WKEYS, nk, WCOL, WKEYS, threadIdx.x,
+                   blockDim.x);
+      else if (with_v && dc == 0)
+        load_tile(vs, vb, p.v_row, WKEYS, c * WKEYS, 0, N);
       commit();
       wait_copies<0>();
       __syncthreads();
@@ -248,10 +263,17 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  int iacc[DT][4];  // int8 v: the exact s32 product
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) iacc[dt][0] = iacc[dt][1] = iacc[dt][2] = iacc[dt][3] = 0;
   for (int c = 0; c < chunks; ++c) {
     float s[NT][4];
     scores(s, c, true);
     exps(s, m0, m1);
+    if (I8V) {
+      value_s8<DT>(iacc, s, reinterpret_cast<const int8_t*>(vs), WKEYS + 16, 0, lane);
+      continue;
+    }
     const int key0 = c * WKEYS;
     uint32_t wa[NT / 2][4];
     if (NORMED) {
@@ -316,6 +338,18 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
   __nv_bfloat16* dst =
       out + (long long)b * N * p.hq * p.dp + (long long)head * p.dp + grp * WCOL + tig * 2;
   const long long ostr = (long long)p.hq * p.dp;
+  if (I8V) {
+    f0 = __fmul_rn(f0, kInv127);
+    f1 = __fmul_rn(f1, kInv127);
+    const float* svb = tr.stats + ((long long)b * p.hkv + kvh) * p.dp + grp * WCOL + tig * 2;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const float2 sc = *reinterpret_cast<const float2*>(svb + dt * 8);
+      if (ra < N) *reinterpret_cast<uint32_t*>(dst + ra * ostr + dt * 8) = s8_out(iacc[dt][0], iacc[dt][1], f0, sc);
+      if (rb < N) *reinterpret_cast<uint32_t*>(dst + rb * ostr + dt * 8) = s8_out(iacc[dt][2], iacc[dt][3], f1, sc);
+    }
+    return;
+  }
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const float x0 = NORMED ? acc[dt][0] : __fmul_rn(acc[dt][0], f0);
@@ -730,11 +764,12 @@ cudaError_t rope(const void* x, long long x_row, int H, int dp, int N, int B, co
 }
 
 // B2 and B12's attention: the rope pass into qr, kr, then the forward on
-// q' (p.prescaled) with the epilogue EPI.
+// q' (p.prescaled) with the epilogue EPI (int8 v: on V's codes, `v`, and
+// their scales sv).
 template <Epilogue EPI>
 cudaError_t roped(const void* q, const void* k, const void* v, void* out, const WidePlan& p,
                   const float* cos_t, const float* sin_t, void* qr, void* kr, int B,
-                  cudaStream_t st) {
+                  cudaStream_t st, const float* sv = nullptr) {
   cudaError_t e = rope(q, p.q_row, p.hq, p.dp, p.N, B, cos_t, sin_t, p.scale, qr, true, st);
   if (e != cudaSuccess) return e;
   e = rope(k, p.k_row, p.hkv, p.dp, p.N, B, cos_t, sin_t, 0.f, kr, false, st);
@@ -743,7 +778,9 @@ cudaError_t roped(const void* q, const void* k, const void* v, void* out, const 
   r.q_row = (long long)p.hq * p.dp;
   r.k_row = (long long)p.hkv * p.dp;
   r.prescaled = 1;
-  return fwd<EPI, false>(qr, kr, v, out, r, TrainRows{}, B, st);
+  TrainRows tr{};
+  tr.stats = const_cast<float*>(sv);  // int8 v: the codes' scales
+  return fwd<EPI, false>(qr, kr, v, out, r, tr, B, st);
 }
 
 }  // namespace
@@ -761,6 +798,16 @@ extern "C" int attention_wide(const void* q, const void* k, const void* v, void*
   if (kind == 0) return fwd<Epilogue::kNatural, false>(q, k, v, out, *plan, TrainRows{}, B, st);
   if (cos_t) return roped<Epilogue::kDeferred>(q, k, v, out, *plan, cos_t, sin_t, qr, kr, B, st);
   return fwd<Epilogue::kDeferred, false>(q, k, v, out, *plan, TrainRows{}, B, st);
+}
+
+// B2 with int8_qk at dp: the rope pass, then the forward on V's codes
+// [B, hkv, dp, round_up(N, 128)] s8 and their scales sv [B, hkv, dp] f32
+// (attention_deferred.cu's attention_v_codes) -> out as attention_wide's.
+extern "C" int attention_wide_s8v(const void* q, const void* k, const void* codes, void* out,
+                                  const WidePlan* plan, const float* cos_t, const float* sin_t,
+                                  void* qr, void* kr, const float* sv, int B, void* stream) {
+  return roped<Epilogue::kInt8V>(q, k, codes, out, *plan, cos_t, sin_t, qr, kr, B,
+                                 (cudaStream_t)stream, sv);
 }
 
 // B12 at dp: the rope pass, the normed attention into o [B * N, hq * dp]

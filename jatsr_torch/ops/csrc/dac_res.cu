@@ -156,7 +156,7 @@ enum Col { kB7, kA2, kInv2, kB1, kA1, kInv1, COLS };
 // h = bf16(snake(acc + b7, a2)) into the swizzled h: this thread's columns
 // n0 + 8 i + col (+ 1) of rows row and row + 8, two column pairs (eight
 // snakes) a batch (snake_batch), where every column is below C.
-template <int BN>
+template <int BN, bool B16>
 __device__ __forceinline__ void store_h(const float (&acc)[BN / 2], unsigned char* h,
                                         const float* cols, int C, int n0, int row, int col) {
   static_assert(BN % 16 == 0, "column pairs in twos");
@@ -177,7 +177,7 @@ __device__ __forceinline__ void store_h(const float (&acc)[BN / 2], unsigned cha
         a[j] = aa.x, a[j + 1] = aa.y, inv[j] = vv.x, inv[j + 1] = vv.y;
       }
     }
-    snake_batch(v, a, inv, y);
+    snake_batch_t<8, B16>(v, a, inv, y);
 #pragma unroll
     for (int ii = 0; ii < 2; ++ii) {
       const int n = n0 + 8 * (i + ii) + col;
@@ -194,7 +194,7 @@ __device__ __forceinline__ void store_h(const float (&acc)[BN / 2], unsigned cha
 // element offsets at0, at0 + 8 C; ok0, ok1: below T), where every column is
 // below C.  x is read four column pairs ahead of its use, so that the
 // loads overlap; the snakes run eight a batch.
-template <int BN, bool NEXT>
+template <int BN, bool NEXT, bool B16>
 __device__ __forceinline__ void store_out(const float (&acc)[BN / 2], const float* xin, float* out,
                                           __nv_bfloat16* yn, const float* cols, int C, int n0,
                                           int col, size_t at0, bool ok0, bool ok1) {
@@ -234,7 +234,7 @@ __device__ __forceinline__ void store_out(const float (&acc)[BN / 2], const floa
           a[j] = aa.x, a[j + 1] = aa.y, inv[j] = vv.x, inv[j + 1] = vv.y;
         }
       }
-      if (NEXT) snake_batch(o, a, inv, y);
+      if (NEXT) snake_batch_t<8, B16>(o, a, inv, y);
 #pragma unroll
       for (int ii = 0; ii < 2; ++ii) {
         const int n = n0 + 8 * (i + ii) + col;
@@ -252,12 +252,21 @@ __device__ __forceinline__ void store_out(const float (&acc)[BN / 2], const floa
   }
 }
 
-// snake_with out of line, for the epilogues below: one copy of sinf.
+// snake_with out of line, for the epilogues below: one copy of sinf (and
+// of the bf16 mode's).
 __device__ __noinline__ float snake_call(float x, float a, float inv) { return snake_with(x, a, inv); }
+__device__ __noinline__ float snake_call_b16(float x, float a, float inv) {
+  return snake_with_b16(x, a, inv);
+}
+template <bool B16>
+__device__ __forceinline__ float snake_call_t(float x, float a, float inv) {
+  if constexpr (B16) return snake_call_b16(x, a, inv);
+  else return snake_call(x, a, inv);
+}
 
 // The same two epilogues where the column tile reaches past C (C not a
 // multiple of the tile width): a column pair at a time, each snake a call.
-template <int BN>
+template <int BN, bool B16>
 __device__ __forceinline__ void store_h_part(const float (&acc)[BN / 2], unsigned char* h,
                                              const float* cols, int C, int n0, int row, int col) {
 #pragma unroll
@@ -265,14 +274,14 @@ __device__ __forceinline__ void store_h_part(const float (&acc)[BN / 2], unsigne
     const int n = n0 + 8 * (j >> 1) + col;
     if (n >= C) continue;
     *reinterpret_cast<__nv_bfloat162*>(h + h_offset(row + 8 * (j & 1), n)) =
-        __floats2bfloat162_rn(snake_call(__fadd_rn(acc[2 * j], cols[kB7 * C + n]),
-                                         cols[kA2 * C + n], cols[kInv2 * C + n]),
-                              snake_call(__fadd_rn(acc[2 * j + 1], cols[kB7 * C + n + 1]),
-                                         cols[kA2 * C + n + 1], cols[kInv2 * C + n + 1]));
+        __floats2bfloat162_rn(snake_call_t<B16>(__fadd_rn(acc[2 * j], cols[kB7 * C + n]),
+                                                cols[kA2 * C + n], cols[kInv2 * C + n]),
+                              snake_call_t<B16>(__fadd_rn(acc[2 * j + 1], cols[kB7 * C + n + 1]),
+                                                cols[kA2 * C + n + 1], cols[kInv2 * C + n + 1]));
   }
 }
 
-template <int BN>
+template <int BN, bool B16>
 __device__ __forceinline__ void store_out_part(const float (&acc)[BN / 2], const float* xin,
                                                float* out, __nv_bfloat16* yn, const float* cols,
                                                int C, int n0, int col, size_t at0, bool ok0,
@@ -288,12 +297,12 @@ __device__ __forceinline__ void store_out_part(const float (&acc)[BN / 2], const
     *reinterpret_cast<float2*>(out + at) = make_float2(o0, o1);
     if (next)
       *reinterpret_cast<__nv_bfloat162*>(yn + at) = __floats2bfloat162_rn(
-          snake_call(o0, cols[kA1 * C + n], cols[kInv1 * C + n]),
-          snake_call(o1, cols[kA1 * C + n + 1], cols[kInv1 * C + n + 1]));
+          snake_call_t<B16>(o0, cols[kA1 * C + n], cols[kInv1 * C + n]),
+          snake_call_t<B16>(o1, cols[kA1 * C + n + 1], cols[kInv1 * C + n + 1]));
   }
 }
 
-template <int BN>
+template <int BN, bool B16>
 __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
     const __grid_constant__ CUtensorMap y0m, const __grid_constant__ CUtensorMap y1m,
     const __grid_constant__ CUtensorMap w7m, const __grid_constant__ CUtensorMap w1m,
@@ -323,8 +332,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
   fence_async_shared();
   // y = bf16(snake(x, a1)) of the first unit, 4 channels a thread a step.
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    cols[kA1 * C + c] = p.a1s[c];
-    cols[kInv1 * C + c] = snake_inv(p.a1s[c]);
+    cols[kA1 * C + c] = snake_a_t<B16>(p.a1s[c]);
+    cols[kInv1 * C + c] = snake_inv_t<B16>(p.a1s[c]);
   }
   __syncthreads();
   const size_t plane = (size_t)B * T * C;
@@ -337,7 +346,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
     const float x4[4] = {v.x, v.y, v.z, v.w}, a4[4] = {aa.x, aa.y, aa.z, aa.w},
                 i4[4] = {ii.x, ii.y, ii.z, ii.w};
     float y4[4];
-    snake_batch(x4, a4, i4, y4);
+    snake_batch_t<4, B16>(x4, a4, i4, y4);
     const __nv_bfloat162 lo = __floats2bfloat162_rn(y4[0], y4[1]);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(y4[2], y4[3]);
     *reinterpret_cast<uint2*>(p.y + i) =
@@ -396,12 +405,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
       for (int c = threadIdx.x - 128; c < C; c += 256) {  // the unit's constants
         const size_t at = (size_t)u * C + c;
         cols[kB7 * C + c] = p.b7s[at];
-        cols[kA2 * C + c] = p.a2s[at];
-        cols[kInv2 * C + c] = snake_inv(p.a2s[at]);
+        cols[kA2 * C + c] = snake_a_t<B16>(p.a2s[at]);
+        cols[kInv2 * C + c] = snake_inv_t<B16>(p.a2s[at]);
         cols[kB1 * C + c] = p.b1s[at];
         if (next) {
-          cols[kA1 * C + c] = p.a1s[at + C];
-          cols[kInv1 * C + c] = snake_inv(p.a1s[at + C]);
+          cols[kA1 * C + c] = snake_a_t<B16>(p.a1s[at + C]);
+          cols[kInv1 * C + c] = snake_inv_t<B16>(p.a1s[at + C]);
         }
       }
       asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the consumers' barrier
@@ -452,9 +461,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
             for (int cb = 0; cb < kc; ++cb) kblock(false, 0, ksteps(C, cb));
           drain();
           if ((hf + 1) * BN <= C)
-            store_h<BN>(acc, h, cols, C, hf * BN, row, col);
+            store_h<BN, B16>(acc, h, cols, C, hf * BN, row, col);
           else
-            store_h_part<BN>(acc, h, cols, C, hf * BN, row, col);
+            store_h_part<BN, B16>(acc, h, cols, C, hf * BN, row, col);
         }
         fence_async_shared();
         warpgroup_sync(wg);
@@ -468,11 +477,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
           const int n0 = hf * BN;
           const bool full_n = n0 + BN <= C;
           if (!full_n)
-            store_out_part<BN>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1, next);
+            store_out_part<BN, B16>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1, next);
           else if (next)
-            store_out<BN, true>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1);
+            store_out<BN, true, B16>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1);
           else
-            store_out<BN, false>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1);
+            store_out<BN, false, B16>(acc, xin, p.out, yn, cols, C, n0, col, at0, ok0, ok1);
         }
         // The next tile's conv7 epilogue rewrites h: every wgmma of this
         // warpgroup that read it has completed (wait_group 0 above).
@@ -485,7 +494,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) res_units_kernel(
   }
 }
 
-template <int BN>
+template <int BN, bool B16>
 cudaError_t launch(const ResArgs& p, const void* w7s, const void* w1s, int smem,
                    cudaStream_t st) {
   const int B = p.B, T = p.T, C = p.C, U = p.units;
@@ -508,7 +517,7 @@ cudaError_t launch(const ResArgs& p, const void* w7s, const void* w1s, int smem,
   if (e != cudaSuccess) return e;
   static int smem_set = 0;
   if (smem > smem_set) {
-    e = cudaFuncSetAttribute(res_units_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(res_units_kernel<BN, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
@@ -520,7 +529,7 @@ cudaError_t launch(const ResArgs& p, const void* w7s, const void* w1s, int smem,
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, res_units_kernel<BN>, WG_THREADS,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, res_units_kernel<BN, B16>, WG_THREADS,
                                                     smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (long long)B * ((T + WG_BM - 1) / WG_BM);
@@ -530,7 +539,7 @@ cudaError_t launch(const ResArgs& p, const void* w7s, const void* w1s, int smem,
   if (e != cudaSuccess) return e;
   ResArgs args = p;
   void* kargs[] = {&y0m, &y1m, &w7m, &w1m, &args};
-  e = cudaLaunchCooperativeKernel((const void*)res_units_kernel<BN>, dim3(grid), dim3(WG_THREADS),
+  e = cudaLaunchCooperativeKernel((const void*)res_units_kernel<BN, B16>, dim3(grid), dim3(WG_THREADS),
                                   kargs, smem, st);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -570,18 +579,20 @@ extern "C" int res_snake_check(const float* x, const float* a, float* got, float
 // [U, C] fp32; U units with dilations d0, d1, d2; all 16-byte aligned.  A
 // column tile of bn (96 or 192) and a ring of `stages` stages in `smem`
 // bytes of dynamic shared memory (ops/dac_kernels.py:_res_plan).  Needs C % 8 == 0 and C <= 384 (the
-// wrapper checks).
+// wrapper checks).  b16: the snakes in the bf16 mode (snake.cuh).
 extern "C" int res_units(const void* x, void* out, void* y, void* bar, const void* w7s,
                          const void* b7s, const void* w1s, const void* b1s, const void* a1s,
                          const void* a2s, int B, int T, int C, int units, int d0, int d1, int d2,
-                         int bn, int stages, int smem, void* stream) {
+                         int bn, int stages, int smem, int b16, void* stream) {
   const ResArgs p{(const float*)x, (float*)out, (__nv_bfloat16*)y, (unsigned*)bar,
                   (const float*)b7s, (const float*)b1s, (const float*)a1s, (const float*)a2s,
                   B, T, C, units, stages, {d0, d1, d2}};
   cudaStream_t st = (cudaStream_t)stream;
   switch (bn) {
-    case 96: return launch<96>(p, w7s, w1s, smem, st);
-    case 192: return launch<192>(p, w7s, w1s, smem, st);
+    case 96: return b16 ? launch<96, true>(p, w7s, w1s, smem, st)
+                        : launch<96, false>(p, w7s, w1s, smem, st);
+    case 192: return b16 ? launch<192, true>(p, w7s, w1s, smem, st)
+                         : launch<192, false>(p, w7s, w1s, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

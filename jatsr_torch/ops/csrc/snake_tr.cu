@@ -117,7 +117,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (ops/dac_kernels.py:_tr_plan): the 1024-aligned ring of `stages` weight
 // stages, `xbufs` x chunks, y (Cin / 8 strips), the mbarriers, then alpha,
 // 1 / (alpha + 1e-9) and the bias in fp32.
-template <int BN, int NWG, int XC>
+template <int BN, int NWG, int XC, bool B16>
 __global__ void __launch_bounds__(NWG * 128, 1) snake_tr_rows(
     const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
     const TrArgs p) {
@@ -161,8 +161,8 @@ __global__ void __launch_bounds__(NWG * 128, 1) snake_tr_rows(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int c = threadIdx.x; c < Cin; c += blockDim.x) {
-    alpha[c] = p.alpha[c];
-    inv[c] = snake_inv(p.alpha[c]);
+    alpha[c] = snake_a_t<B16>(p.alpha[c]);
+    inv[c] = snake_inv_t<B16>(p.alpha[c]);
   }
   for (int n = threadIdx.x; n < ntiles * BN; n += blockDim.x) bias[n] = n < Cout ? p.bias[n] : 0.f;
   __syncthreads();
@@ -219,7 +219,7 @@ __global__ void __launch_bounds__(NWG * 128, 1) snake_tr_rows(
           const float4 v1 = *reinterpret_cast<const float4*>(xc + r * XC + 4);
           const float xv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
           float yv[8];
-          snake_batch(xv, a, iv, yv);
+          snake_batch_t<8, B16>(xv, a, iv, yv);
           *reinterpret_cast<uint4*>(ys + r * 16) =
               make_uint4(pack_bf16(yv[0], yv[1]), pack_bf16(yv[2], yv[3]),
                          pack_bf16(yv[4], yv[5]), pack_bf16(yv[6], yv[7]));
@@ -311,15 +311,16 @@ __global__ void __launch_bounds__(NWG * 128, 1) snake_tr_rows(
 
 // Stage 1's snake pass: y[i] = bf16(snake(x[i], a[i % C])), eight elements
 // a thread at a time (C % 8 == 0), the per-channel alpha and reciprocal in
-// shared memory (2 C floats of dynamic shared memory).
+// shared memory (2 C floats of dynamic shared memory); B16: the bf16 mode.
+template <bool B16>
 __global__ void __launch_bounds__(256) snake_b16_kernel(const float* __restrict__ x,
                                                         const float* __restrict__ alpha,
                                                         __nv_bfloat16* __restrict__ y, size_t n,
                                                         int C) {
   extern __shared__ float tab[];
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    tab[c] = alpha[c];
-    tab[C + c] = snake_inv(alpha[c]);
+    tab[c] = snake_a_t<B16>(alpha[c]);
+    tab[C + c] = snake_inv_t<B16>(alpha[c]);
   }
   __syncthreads();
   for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8; i < n;
@@ -331,7 +332,7 @@ __global__ void __launch_bounds__(256) snake_b16_kernel(const float* __restrict_
     float a[8], iv[8], yv[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) a[j] = tab[c + j], iv[j] = tab[C + c + j];
-    snake_batch(xv, a, iv, yv);
+    snake_batch_t<8, B16>(xv, a, iv, yv);
     *reinterpret_cast<uint4*>(y + i) = make_uint4(pack_bf16(yv[0], yv[1]), pack_bf16(yv[2], yv[3]),
                                                   pack_bf16(yv[4], yv[5]), pack_bf16(yv[6], yv[7]));
   }
@@ -353,17 +354,17 @@ cudaError_t x_map(CUtensorMap* map, const void* x, int B, int T, int Cin, int xc
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, int NWG, int XC>
+template <int BN, int NWG, int XC, bool B16>
 cudaError_t launch_rows(const CUtensorMap& xm, const CUtensorMap& wm, const TrArgs& a, int grid,
                         int smem, cudaStream_t st) {
   static int smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        snake_tr_rows<BN, NWG, XC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        snake_tr_rows<BN, NWG, XC, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  snake_tr_rows<BN, NWG, XC><<<grid, NWG * 128, smem, st>>>(xm, wm, a);
+  snake_tr_rows<BN, NWG, XC, B16><<<grid, NWG * 128, smem, st>>>(xm, wm, a);
   return cudaGetLastError();
 }
 
@@ -375,12 +376,12 @@ cudaError_t launch_rows(const CUtensorMap& xm, const CUtensorMap& wm, const TrAr
 // `threads` threads (512 at bn 96, 384 at bn 192) with `smem` bytes of
 // dynamic shared memory, `stages` weight stages and `xbufs` x chunks of
 // `xc` channels (32 or 64; ops/dac_kernels.py:_tr_plan).  Needs Cout % 8
-// == 0.
+// == 0.  b16: the snake in the bf16 mode (snake.cuh).
 extern "C" int snake_conv_transpose_rows(const void* x, const void* alpha, const void* w,
                                          const void* bias, void* out, int B, int T, int Cin,
                                          int Cout, int s, int pad, int m_out, int bn, int threads,
                                          int stages, int xbufs, int xc, int grid, int smem,
-                                         void* stream) {
+                                         int b16, void* stream) {
   CUtensorMap xm, wm;
   cudaError_t e = x_map(&xm, x, B, T, Cin, xc);
   if (e != cudaSuccess) return e;
@@ -393,17 +394,23 @@ extern "C" int snake_conv_transpose_rows(const void* x, const void* alpha, const
                  m_out, stages, xbufs};
   cudaStream_t st = (cudaStream_t)stream;
   if (bn == 96 && threads == 512 && xc == 64)
-    return launch_rows<96, 4, 64>(xm, wm, a, grid, smem, st);
+    return b16 ? launch_rows<96, 4, 64, true>(xm, wm, a, grid, smem, st)
+               : launch_rows<96, 4, 64, false>(xm, wm, a, grid, smem, st);
   if (bn == 192 && threads == 384 && xc == 32)
-    return launch_rows<192, 3, 32>(xm, wm, a, grid, smem, st);
+    return b16 ? launch_rows<192, 3, 32, true>(xm, wm, a, grid, smem, st)
+               : launch_rows<192, 3, 32, false>(xm, wm, a, grid, smem, st);
   return cudaErrorInvalidValue;
 }
 
 // Stage 1's snake pass: x [n] fp32 (rows of C channels, C % 8 == 0), alpha
-// [C] -> y [n] bf16, on `blocks` blocks of 256 threads.
+// [C] -> y [n] bf16, on `blocks` blocks of 256 threads; b16: the bf16 mode.
 extern "C" int snake_b16(const void* x, const void* alpha, void* y, long long n, int C,
-                         int blocks, void* stream) {
-  snake_b16_kernel<<<blocks, 256, 2 * C * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)alpha, (__nv_bfloat16*)y, (size_t)n, C);
+                         int blocks, int b16, void* stream) {
+  if (b16)
+    snake_b16_kernel<true><<<blocks, 256, 2 * C * sizeof(float), (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)alpha, (__nv_bfloat16*)y, (size_t)n, C);
+  else
+    snake_b16_kernel<false><<<blocks, 256, 2 * C * sizeof(float), (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)alpha, (__nv_bfloat16*)y, (size_t)n, C);
   return cudaGetLastError();
 }

@@ -25,8 +25,11 @@ Rounding points, as the TPU kernels have them: snake in fp32, then bf16
 residual added in fp32.  The plain versions cast to bf16 and back to fp32
 before an fp32 matmul: a product of two bf16 values is exact in fp32, so
 only the order of the fp32 sums differs from the kernels.  Snake runs in
-fp32, the JAX package's default ``SNAKE_COMPUTE_DTYPE``; its bf16 mode is
-not ported.
+``SNAKE_COMPUTE_DTYPE``: fp32 (the JAX package's default) or, after
+``set_snake_compute_dtype("bfloat16")`` (``bench.py --snake-bf16``), in
+bf16, each operation rounded; every wrapper and plain version reads the
+mode when it is called.  Each wrapper's ``launches`` counts its kernel's
+launches; ``b16_launches`` counts those made in bf16 mode.
 
 Weights arrive in the JAX layout (``[K, Cin, Cout]``), in any float dtype;
 the kernels read them as bf16 in that layout, so weights packed once as
@@ -93,11 +96,39 @@ def conv_transpose_supported(c_in: int, c_out: int, stride: int,
     return c_in % 128 == 0 and t >= _TBLK_TR_STREAM
 
 
+# ---- the snake's compute dtype ----------------------------------------------
+
+# The dtype the snake of B6-B9 computes in (the JAX package's
+# SNAKE_COMPUTE_DTYPE): "float32" (default) or "bfloat16".
+SNAKE_COMPUTE_DTYPE = "float32"
+
+
+def set_snake_compute_dtype(name: str) -> None:
+    """Serving knob: "float32" (default) or "bfloat16".  The kernels' and
+    the plain versions' snake read it at each call."""
+    global SNAKE_COMPUTE_DTYPE
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"snake compute dtype {name!r} not in "
+                         f"('float32', 'bfloat16')")
+    SNAKE_COMPUTE_DTYPE = name
+
+
+def _snake_b16_mode() -> int:
+    return int(SNAKE_COMPUTE_DTYPE == "bfloat16")
+
+
 # ---- plain versions -------------------------------------------------------
 
 
 def snake_b16(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """``x + (1/(a + 1e-9)) * sin(a*x)^2`` in fp32, then bf16."""
+    """``x + (1/(a + 1e-9)) * sin(a*x)^2`` in ``SNAKE_COMPUTE_DTYPE``, then
+    bf16: in fp32; or in bf16, x and a cast first and each operation (a x,
+    sin, the square, a + bf16(1e-9), the reciprocal, the product, the sum)
+    rounded to bf16, as the JAX package's chain of bf16 ops."""
+    if SNAKE_COMPUTE_DTYPE == "bfloat16":
+        xb, ab = x.to(torch.bfloat16), a.to(torch.bfloat16)
+        eps = torch.tensor(1e-9, dtype=torch.bfloat16, device=x.device)
+        return xb + torch.reciprocal(ab + eps) * torch.sin(ab * xb).square()
     xf, af = x.float(), a.float()
     return (xf + (1.0 / (af + 1e-9)) * torch.sin(af * xf).square()) \
         .to(torch.bfloat16)
@@ -200,10 +231,12 @@ def res_stage_fused(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s,
         out = _launch_res(x, w7s, b7s, w1s, b1s, alpha1s, alpha2s,
                           tuple(dilations), "res_stage_fused")
         res_stage_fused.launches += 1
+        res_stage_fused.b16_launches += _snake_b16_mode()
     return out[0] if squeeze else out
 
 
 res_stage_fused.launches = 0
+res_stage_fused.b16_launches = 0
 
 
 def res_unit_fused(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int):
@@ -227,10 +260,12 @@ def res_unit_fused(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int):
                           alpha1[None], alpha2[None], (dilation,),
                           "res_unit_fused")
         res_unit_fused.launches += 1
+        res_unit_fused.b16_launches += _snake_b16_mode()
     return out[0] if squeeze else out
 
 
 res_unit_fused.launches = 0
+res_unit_fused.b16_launches = 0
 
 
 def _launch_res(x, w7s, b7s, w1s, b1s, a1s, a2s, dils, what):
@@ -261,7 +296,8 @@ def _launch_res(x, w7s, b7s, w1s, b1s, a1s, a2s, dils, what):
                         bar.data_ptr(), w7b.data_ptr(), rows[0].data_ptr(),
                         w1b.data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
                         rows[3].data_ptr(), B, T, C, U, *d, plan.bn,
-                        plan.stages, plan.smem, _build.stream_ptr(dev))
+                        plan.stages, plan.smem, _snake_b16_mode(),
+                        _build.stream_ptr(dev))
     _build.check(lib, err, what)
     return out
 
@@ -273,7 +309,7 @@ def _res_lib():
 
     lib = _build.load("dac_res")
     lib.res_units.restype = ctypes.c_int
-    lib.res_units.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    lib.res_units.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                               + [ctypes.c_void_p])
     lib.res_snake_check.restype = ctypes.c_int
     lib.res_snake_check.argtypes = ([ctypes.c_void_p] * 4
@@ -334,10 +370,12 @@ def snake_conv_transpose_fused(x, w, b, alpha, *, stride: int, padding: int,
         out = _launch_tr(x, alpha, w, b, stride, padding, output_padding,
                          "snake_conv_transpose_fused")
         snake_conv_transpose_fused.launches += 1
+        snake_conv_transpose_fused.b16_launches += _snake_b16_mode()
     return out[0] if squeeze else out
 
 
 snake_conv_transpose_fused.launches = 0
+snake_conv_transpose_fused.b16_launches = 0
 
 
 def snake_conv_transpose_streamed(x, w, b, alpha, *, stride: int,
@@ -355,10 +393,12 @@ def snake_conv_transpose_streamed(x, w, b, alpha, *, stride: int,
     else:
         out = _launch_stream(y, w, b, stride, padding, output_padding)
         snake_conv_transpose_streamed.launches += 1
+        snake_conv_transpose_streamed.b16_launches += _snake_b16_mode()
     return out[0] if squeeze else out
 
 
 snake_conv_transpose_streamed.launches = 0
+snake_conv_transpose_streamed.b16_launches = 0
 
 
 def _transpose_shapes(x, w, s, pad, op, what):
@@ -390,7 +430,8 @@ def _launch_tr(x, alpha, w, b, s, pad, op, what):
     if plan.route == "stream":
         y = torch.empty((B, T, ci), dtype=torch.bfloat16, device=dev)
         err = lib.snake_b16(x.data_ptr(), a.data_ptr(), y.data_ptr(), x.numel(),
-                            ci, plan.snake_blocks, _build.stream_ptr(dev))
+                            ci, plan.snake_blocks, _snake_b16_mode(),
+                            _build.stream_ptr(dev))
         _build.check(lib, err, what)
         return _launch_stream(y, w, b, s, pad, op)
     wb = _build.aligned(w.to(torch.bfloat16))
@@ -400,7 +441,7 @@ def _launch_tr(x, alpha, w, b, s, pad, op, what):
         x.data_ptr(), a.data_ptr(), wb.data_ptr(), bias.data_ptr(),
         out.data_ptr(), B, T, ci, co, s, pad, m_out, plan.bn, plan.threads,
         plan.stages, plan.xbufs, plan.xc, plan.grid, plan.smem,
-        _build.stream_ptr(dev))
+        _snake_b16_mode(), _build.stream_ptr(dev))
     _build.check(lib, err, what)
     return out
 
@@ -413,10 +454,10 @@ def _tr_lib():
     lib = _build.load("snake_tr")
     lib.snake_conv_transpose_rows.restype = ctypes.c_int
     lib.snake_conv_transpose_rows.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
     lib.snake_b16.restype = ctypes.c_int
     lib.snake_b16.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 

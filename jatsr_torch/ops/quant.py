@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``ops/quant.py``: the activation is quantised
 per row, the weight per output column (once, at load time, by
-:func:`quantize_params_static`), the product accumulates exactly in int32
-and the rescale is fp32.  On the ``"xla"`` path the int32 product is a plain
-product outside any kernel, so it goes to ``torch._int_mm``; on the card
+:func:`quantize_params_static`; or at every call, by
+:func:`int8_dot_general`, under ``matmul_precision="int8"``), the product
+accumulates exactly in int32 and the rescale is fp32.  On the ``"xla"``
+path the int32 product is a plain product outside any kernel, so it goes
+to ``torch._int_mm``; on the card
 ``"fused"`` launches the fused W8A8 kernel, which quantises inside, and
 ``"pallas"`` quantises (one row-quant launch for a bf16 lhs, torch ops for
 an fp32 one, as the JAX package does in XLA) and launches the s8 kernel on
@@ -98,9 +100,26 @@ class QuantDense(nn.Module):
         return out
 
 
-# Projections the int8_static serving DiT stores as int8 kernels.
-_QUANTIZED = ("patch_in", "patch_out", "qkv_proj", "out_proj", "mlp_in",
-              "mlp_out")
+def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla"
+                     ) -> torch.Tensor:
+    """The dynamic W8A8 product of ``matmul_precision="int8"``: ``x [...,
+    K] @ kernel [K, N]`` with the kernel quantised per output column at
+    every call (JAX's ``int8_dot_general``; nothing is cached across calls,
+    as there), then :func:`w8a8_dot`.
+
+    ``kernel`` is the kernel after flax's cast to the compute dtype (bf16),
+    so the codes and scales equal :func:`quantize_params_static`'s bit for
+    bit: ``s = max|w| * _INV127``, ``q = round(w / max(s, 1e-12))``, half
+    to even.  Where ``impl`` is "fused" or "pallas" the codes are made
+    K-major (``kernel.t()``, the layout their s8 ``wgmma`` GEMM reads) and
+    ``w_q`` is that copy's transposed view, so one quantisation serves
+    both."""
+    w_t = kernel.t().float()                       # [N, K]
+    scale = w_t.abs().amax(dim=1, keepdim=True) * _INV127
+    codes = torch.round(w_t / scale.clamp_min(1e-12)).to(
+        torch.int8).contiguous()
+    return w8a8_dot(x, codes.t(), scale.reshape(1, -1), impl=impl,
+                    w_t=codes if impl in ("fused", "pallas") else None)
 
 
 def round_to_bf16(x: np.ndarray) -> np.ndarray:
@@ -122,19 +141,35 @@ def _quantize_leaf(src: dict) -> dict:
     return leaf
 
 
-def quantize_params_static(params: dict) -> dict:
+def quantize_params_static(params: dict, cfg) -> dict:
     """Convert a dense (bf16/fp32) DiT param tree, as nested dicts of numpy
-    arrays, to the int8_static serving layout.
+    arrays, to the int8_static serving layout of ``cfg`` (a
+    ``ModelConfig``), as the JAX package's version does for the static
+    model's tree.
 
-    The q/k/v projections are concatenated on the feature axis into
-    ``qkv_proj`` first (per-column scales keep that identical to three
-    separate products); every projection in ``_QUANTIZED`` then becomes
-    ``{kernel_q, kernel_scale[, bias]}``.  Stacked ``[depth, K, N]`` kernels
-    are fine.  Everything else is passed through unchanged.
+    With ``cfg.fused_qkv`` the q/k/v projections are concatenated on the
+    feature axis into ``qkv_proj`` first (per-column scales keep that
+    identical to three separate products); else they stay ``q_proj``,
+    ``k_proj`` and ``v_proj``.  Every projection the static model holds as
+    int8 (``patch_in``, ``patch_out``, the attention projections,
+    ``mlp_in``, ``mlp_out``, and ``final_proj`` under
+    ``cfg.quantize_head``) becomes ``{kernel_q, kernel_scale[, bias]}``,
+    each kernel rounded through bf16 (the compute dtype) first.  Stacked
+    ``[depth, K, N]`` kernels are fine.  Everything else (``pos_embed``
+    too) is passed through unchanged.
     """
+    fused = cfg.fused_qkv
+    quantized = {"patch_in", "patch_out", "out_proj", "mlp_in", "mlp_out"}
+    quantized |= {"qkv_proj"} if fused else {"q_proj", "k_proj", "v_proj"}
+    if cfg.quantize_head:
+        quantized.add("final_proj")
+    return _quantize_tree(params, quantized, fused)
+
+
+def _quantize_tree(params: dict, quantized: set, fused: bool) -> dict:
     out = {}
     for k, v in params.items():
-        if k == "q_proj":
+        if fused and k == "q_proj":
             parts = [params[n] for n in ("q_proj", "k_proj", "v_proj")]
             merged = {"kernel": np.concatenate(
                 [np.asarray(p["kernel"], np.float32) for p in parts], axis=-1)}
@@ -142,12 +177,12 @@ def quantize_params_static(params: dict) -> dict:
                 merged["bias"] = np.concatenate(
                     [np.asarray(p["bias"]) for p in parts], axis=-1)
             out["qkv_proj"] = _quantize_leaf(merged)
-        elif k in ("k_proj", "v_proj"):
+        elif fused and k in ("k_proj", "v_proj"):
             continue
-        elif k in _QUANTIZED and isinstance(v, dict) and "kernel" in v:
+        elif k in quantized and isinstance(v, dict) and "kernel" in v:
             out[k] = _quantize_leaf(v)
         elif isinstance(v, dict):
-            out[k] = quantize_params_static(v)
+            out[k] = _quantize_tree(v, quantized, fused)
         else:
             out[k] = v
     return out

@@ -103,12 +103,53 @@ def test_cli_flags_of_later_slices_raise(files, flag, match):
         cli.main(_args(files, "song.wav", "out_x", *flag))
 
 
+def _int8_library_wav(d, **knobs):
+    """The wav the library gives for the CLI's files with the int8 DiT as
+    the CLI builds it (``--int8`` and ``knobs``: the CLI's defaults, the
+    einsum attention, fp32 scores, fused q/k/v), quantized for its
+    layout."""
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = get_preset("tiny")
+    params = load_reference_checkpoint(d / "model.pt", cfg.model)
+    mcfg = dataclasses.replace(
+        cfg.model, scores_dtype="float32", attention_impl="xla",
+        matmul_precision="int8_static", fused_qkv=True, dropout=0.0,
+        drop_path_rate=0.0, **knobs)
+    model = DiT(mcfg, quantize_params_static(params, mcfg), device="cpu")
+    codec = DAC(load_torch_checkpoint(d / "dac.pth"), DACConfig(),
+                fused_res_units=True, device="cpu")
+    pipe = InferencePipeline(
+        model, Normalizer(*load_stats(d / "stats.json"), device="cpu"),
+        codec, dataclasses.replace(cfg.sampler, num_steps=2, cfg_scale=2.0),
+        device="cpu")
+    audio, sr = load_wav(d / "song.wav", mono=True)
+    return pipe.super_resolve_audio(audio, sr, 0, 2, 2.0)
+
+
 def test_cli_model_branches_the_port_lacks_raise(files):
-    """``--int8`` at ``tiny`` selects the unfused patch embed (bottleneck
-    64) and ``--quantize-head`` the int8 head: the model's config check
-    raises for both."""
-    with pytest.raises(NotImplementedError, match="quantize_head"):
-        cli.main(_args(files, "song.wav", "out_x", "--int8", "--fused-mlp",
-                       "--quantize-head"))
-    with pytest.raises(NotImplementedError, match="patch embed"):
-        cli.main(_args(files, "song.wav", "out_x", "--int8", "--fused-mlp"))
+    """``--int8 --quantize-head`` at ``tiny``, the branches the port once
+    lacked (the int8 head, the unfused QuantDense MLP, and the unfused
+    patch embed of tiny's bottleneck 64), now serves: its wav equals the
+    library's, bit for bit."""
+    cli.main(_args(files, "song.wav", "out_head", "--int8",
+                   "--quantize-head"))
+    got, _ = load_wav(files / "out_head" / "song_generated_cfg2.0.wav")
+    want = _int8_library_wav(files, quantize_head=True, fused_mlp=False)
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).all() and np.abs(got).max() <= 1.0
+
+
+@pytest.mark.parametrize("flags,knobs", [
+    ([], dict(fused_mlp=False)),
+    (["--fused-mlp"], dict(fused_mlp=True)),
+], ids=["int8", "int8_fused_mlp"])
+def test_cli_int8_serves_at_tiny(files, flags, knobs):
+    """``--int8`` alone (the unfused QuantDense MLP) and with
+    ``--fused-mlp`` (B5's MLP; the patch embed stays unfused at tiny's
+    bottleneck 64) serve on the CPU and equal the library, bit for bit."""
+    out = "out_" + "_".join(["int8", *(f.strip("-") for f in flags)])
+    cli.main(_args(files, "song.wav", out, "--int8", *flags))
+    got, _ = load_wav(files / out / "song_generated_cfg2.0.wav")
+    np.testing.assert_array_equal(got, _int8_library_wav(files, **knobs))

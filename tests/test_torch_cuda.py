@@ -62,6 +62,8 @@ relative L2 5e-2, the bound of the port's pipeline against JAX's
 (measured 1.1e-2).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -293,13 +295,23 @@ def test_w8a8_dot_fused_equals_xla_on_card(card):
     {"fused_prologue": True, "align_n": True, "flash_fused_out": True,
      "fused_mlp_impl": "full", "int8_impl": "pallas"},
     {"fused_prologue": True, "align_n": True, "flash_qkv": False},
-    {"attention_impl": "pallas"}, {"attention_impl": "pallas2"}])
+    {"attention_impl": "pallas"}, {"attention_impl": "pallas2"},
+    {"fused_prologue": True, "align_n": True, "fused_qkv": False,
+     "int8_impl": "pallas"},
+    {"fused_mlp": False, "int8_impl": "fused"},
+    {"quantize_head": True, "fused_mlp": False},
+    {"fused_prologue": True, "align_n": True, "pos_embed": "learned",
+     "attention_bias": True, "num_kv_heads": 4},
+    {"fused_prologue": True, "align_n": True, "flash_int8_qk": True}])
 def test_narrow_dit_on_card_matches_cpu(card, knobs):
     """A narrow int8 DiT (head dim 64, as the kernel needs) on the card
     against the same weights on the CPU's plain path, without and with the
     fused prologue (130 frames: 33 patches, aligned to 40), with the
-    three opt-in kernels (B12, B13, B14) in place of the prologue, and on
-    the split q/k/v through B11, B15 and B16 (33 patches)."""
+    three opt-in kernels (B12, B13, B14) in place of the prologue, on
+    the split q/k/v through B11, B15 and B16 (33 patches), and on the
+    branches past those: q/k/v projections apart through B14, the unfused
+    QuantDense MLP through B4, the int8 head, learned positions at G = 1
+    (B11), and B2's s8 value product behind the fused prologue."""
     import dataclasses
 
     from jatsr_torch.configs import get_preset
@@ -307,12 +319,12 @@ def test_narrow_dit_on_card_matches_cpu(card, knobs):
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.ops.quant import quantize_params_static
 
-    cfg = dataclasses.replace(
-        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
-        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
-        cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
-        fused_mlp=True, **{"attention_impl": "flash", **knobs})
-    static = quantize_params_static(random_dense_params(cfg, 5))
+    cfg = dataclasses.replace(get_preset("tiny").model, **{
+        **dict(hidden_size=256, num_q_heads=4, num_kv_heads=2,
+               bottleneck_dim=128, input_channels=64, cond_channels=64,
+               matmul_precision="int8_static", fused_qkv=True,
+               fused_mlp=True, attention_impl="flash"), **knobs})
+    static = quantize_params_static(random_dense_params(cfg, 5), cfg)
     rng = np.random.default_rng(6)
     x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
                                                      dtype=np.float32))
@@ -343,8 +355,8 @@ def test_dit_out_projection_reads_its_kmajor_copy(card, monkeypatch):
         cond_channels=64, matmul_precision="int8_static", fused_qkv=True,
         fused_mlp=True, attention_impl="flash", fused_prologue=True,
         align_n=True)
-    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5)),
-                     device="cuda")
+    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5),
+                                                 cfg), device="cuda")
     seen, fn = [], tdit.int8_matmul_fused
 
     def spy(*a, **kw):
@@ -602,8 +614,8 @@ def test_opt_in_dit_hands_its_kernels_their_kmajor_copies(card, monkeypatch):
         fused_mlp=True, attention_impl="flash", fused_prologue=True,
         align_n=True, flash_fused_out=True, fused_mlp_impl="full",
         int8_impl="pallas")
-    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5)),
-                     device="cuda")
+    model = tdit.DiT(cfg, quantize_params_static(random_dense_params(cfg, 5),
+                                                 cfg), device="cuda")
     seen = {"qkv": [], "out": []}
     mm, fo = tquant.int8_matmul, tdit.gqa_attention_flash_out
 
@@ -642,10 +654,11 @@ def _split_inputs(card, B, N, hq, hkv, seed, D=64):
 
 
 @pytest.mark.parametrize("B,N,hq,hkv", [(6, 345, 20, 4), (2, 90, 8, 2),
-                                        (1, 64, 4, 4)])
+                                        (1, 64, 4, 4), (6, 345, 12, 12)])
 def test_split_attention_kernels_match_plain(card, B, N, hq, hkv):
-    """B11, B15 and B16 at the serving shape, a small padded one and an
-    aligned one without grouping; k and v strided views."""
+    """B11, B15 and B16 at the serving shape, a small padded one, an
+    aligned one without grouping, and v1legacy's 12/12 heads at 345 (G =
+    1); k and v strided views."""
     q, k, v = _split_inputs(card, B, N, hq, hkv, seed=25)
     n0 = (gqa_attention_flash.launches, gqa_attention.launches,
           gqa_attention_grouped.launches)
@@ -1520,3 +1533,144 @@ def test_cli_on_card_matches_cpu(card, tmp_path, monkeypatch):
     assert np.isfinite(got).all() and np.abs(got).max() <= 1.0
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel < 5e-2, rel
+
+
+# ---- B2's int8 value product and the DAC kernels' bf16 snake ---------------
+
+INT8_QK = [(6, 352, 345, 20, 4, 64), (6, 345, 0, 20, 4, 64),
+           (2, 130, 125, 4, 2, 16), (2, 130, 125, 4, 2, 32),
+           (6, 345, 340, 20, 4, 48), (6, 345, 340, 20, 4, 128),
+           (2, 700, 690, 4, 2, 128), (6, 345, 340, 20, 4, 256),
+           (2, 1000, 997, 8, 4, 64), (6, 345, 0, 12, 12, 64)]
+
+
+@pytest.mark.parametrize("B,N,n_valid,hq,hkv,D", INT8_QK)
+def test_flash_qkv_int8_qk_kernel_matches_plain(card, B, N, n_valid, hq, hkv,
+                                                D):
+    """B2 with int8_qk (the v codes launch, then the attention, each
+    counted apart from B2's bf16 launches) at every head dim it runs:
+    16/32/64/128 instances, 48 zero-padded to 64, 128 past 640 keys (the
+    streaming mode), 256 on the wide kernel; the main path's shape, N =
+    1000, and G = 1.  One of the padded rows between n_valid and N holds
+    every v column's absmax.  The codes and scales equal their plain
+    versions bit for bit, so the outputs part only where a code of e or a
+    bf16 rounding flips: within one bf16 ulp of max |plain|, at under 1%
+    of the outputs (chip_smoke.py's bound; the bf16 value product is off
+    at ~90% of them)."""
+    from jatsr_torch.ops.attention import (_deferred_plan, _row_view,
+                                           _sm_count, _v_codes, pad_heads,
+                                           padded_head_dim, v_codes_plain)
+
+    gen = torch.Generator(device=card).manual_seed(D + N)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
+                      device=card).bfloat16()
+    if n_valid:
+        qkv[:, n_valid + 1, (hq + hkv) * D:] = 6.0
+    cos, sin = rope_cos_sin(N, D, device=card)
+    n0 = (gqa_attention_flash_qkv.launches,
+          gqa_attention_flash_qkv.int8_qk_launches, _v_codes.launches)
+    got = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, n_valid=n_valid,
+                                  int8_qk=True).float()
+    assert (gqa_attention_flash_qkv.launches,
+            gqa_attention_flash_qkv.int8_qk_launches,
+            _v_codes.launches) == (n0[0], n0[1] + 1, n0[2] + 1)
+    want = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=n_valid,
+                           int8_qk=True).float()
+    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ulp
+    assert (got != want).float().mean().item() <= 1e-2
+    Dp = padded_head_dim(D)
+    v, v_row = _row_view(pad_heads(qkv[..., (hq + hkv) * D:], D, Dp))
+    nk = _deferred_plan(N, hq, hkv, Dp, B, _sm_count(card.index or 0),
+                        n_valid or N, False).nk
+    codes, sv = _v_codes(v, v_row, hkv, Dp, nk)
+    want_codes, want_sv = v_codes_plain(v, hkv, nk)
+    assert torch.equal(codes, want_codes) and torch.equal(sv, want_sv)
+
+
+@pytest.fixture
+def snake_bf16():
+    dk.set_snake_compute_dtype("bfloat16")
+    yield
+    dk.set_snake_compute_dtype("float32")
+
+
+def test_dac_kernels_in_bf16_snake_mode_match_plain(card, snake_bf16):
+    """B9, B6 (both column tiles, C 384 in two halves), B7 at the three
+    stage widths and B8, with the snake in bf16, against their plain
+    versions in the same mode: the fp32 mode's bounds."""
+    x, w7, b7, w1, b1, a1, a2 = _dac_unit_inputs(card, 2, 1001, 96, 1,
+                                                 seed=31)
+    _assert_rel(dk.res_unit_fused(x, w7[0], b7[0], w1[0], b1[0], a1[0],
+                                  a2[0], dilation=3),
+                dk.res_unit_plain(x, w7[0], b7[0], w1[0], b1[0], a1[0],
+                                  a2[0], 3), 4e-3)
+    for B, T, C in ((2, 777, 96), (2, 1001, 192), (2, 333, 384)):
+        args = _dac_unit_inputs(card, B, T, C, 3, seed=32)
+        _assert_rel(dk.res_stage_fused(*args), dk.res_stage_plain(*args),
+                    4e-3)
+    for B, T, ci, co, s in ((2, 101, 192, 96, 2), (2, 100, 384, 192, 4),
+                            (1, 2000, 768, 384, 8), (2, 77, 1536, 768, 8)):
+        x, w, b, a = _tr_inputs(card, B, T, ci, co, s, seed=33)
+        kw = dict(stride=s, padding=(s + 1) // 2, output_padding=s % 2)
+        _assert_rel(dk.snake_conv_transpose_fused(x, w, b, a, **kw),
+                    dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+
+
+def test_snake_mode_is_read_at_each_call(card):
+    """The same B7 call in fp32 and in bf16 snake mode gives different
+    outputs, each its own mode's plain version's; ``b16_launches`` counts
+    the bf16-mode launch only."""
+    x, w, b, a = _tr_inputs(card, 2, 100, 384, 192, 4, seed=34)
+    kw = dict(stride=4, padding=2, output_padding=0)
+    fn = dk.snake_conv_transpose_fused
+    outs, counts = [], []
+    for mode in ("float32", "bfloat16", "float32"):
+        dk.set_snake_compute_dtype(mode)
+        n0 = (fn.launches, fn.b16_launches)
+        try:
+            got = fn(x, w, b, a, **kw)
+            _assert_rel(got, dk.snake_conv_transpose_plain(x, w, b, a, **kw))
+        finally:
+            dk.set_snake_compute_dtype("float32")
+        outs.append(got)
+        counts.append((fn.launches - n0[0], fn.b16_launches - n0[1]))
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+    assert counts == [(1, 0), (1, 1), (1, 0)]
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_dynamic_int8_dense_dit_on_card_matches_cpu(card, impl):
+    """DenseDiT under matmul_precision="int8" (B4 or B14 at every
+    projection, the weights quantized at every call) on the card against
+    the same weights on the CPU: relative L2 < 2e-2."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.int8_matmul import int8_matmul_fused
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, matmul_precision="int8", int8_impl=impl,
+        attention_impl="flash")
+    dense = random_dense_params(cfg, 7)
+    rng = np.random.default_rng(8)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    with torch.no_grad():
+        ref = DenseDiT(cfg, dense, device="cpu")(x_t, t, x_c)
+        model = DenseDiT(cfg, dense, device="cuda")
+        n0 = (int8_matmul_fused.launches, int8_matmul.launches)
+        out = model(x_t.cuda(), t.cuda(), x_c.cuda()).cpu()
+    n = 2 + 6 * cfg.depth
+    assert (int8_matmul_fused.launches - n0[0],
+            int8_matmul.launches - n0[1]) == (
+        (n, 0) if impl == "fused" else (0, n))
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2

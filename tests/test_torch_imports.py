@@ -72,7 +72,7 @@ def _tiny_static():
     from jatsr_torch.ops.quant import quantize_params_static
 
     cfg = narrow_cfg(get_preset)
-    return cfg, quantize_params_static(random_dense_params(cfg))
+    return cfg, quantize_params_static(random_dense_params(cfg), cfg)
 
 
 def _entry_points():

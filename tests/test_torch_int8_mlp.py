@@ -31,8 +31,8 @@ PROLOGUE = dict(fused_prologue=True, align_n=True)
 
 def _model(seed, **knobs):
     cfg = narrow_cfg(get_preset, "rms", **knobs)
-    return DiT(cfg, quantize_params_static(random_dense_params(cfg, seed)),
-               device="cpu")
+    return DiT(cfg, quantize_params_static(random_dense_params(cfg, seed),
+                                           cfg), device="cpu")
 
 
 def _run(model, seed):

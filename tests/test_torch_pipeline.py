@@ -361,3 +361,60 @@ def test_flow_sampler_with_per_head_attention_matches_jax(pallas_pair):
         device="cpu")
     got = sampler(torch.from_numpy(cond), 4, 2.0, z0=torch.from_numpy(z0))
     _assert_close(got.numpy(), np.asarray(want), atol=5e-2)
+
+
+CLI_INT8 = dict(fused_mlp=False, quantize_head=True, attention_impl="xla",
+                fused_qkv=False)
+
+
+@pytest.fixture(scope="module")
+def cli_int8_pair():
+    from test_torch_dit import _build_knobs
+
+    return _build_knobs(CLI_INT8, seed=26, norm="layer")
+
+
+def test_flow_sampler_with_unfused_int8_branches_matches_jax(cli_int8_pair):
+    """The int8 DiT on its unfused branches (q/k/v projections apart, the
+    QuantDense MLP, the int8 head, the einsum attention) under the
+    doubled-CFG sampler with hoisted tables, against JAX; the bounds of
+    test_flow_sampler_matches_jax."""
+    jmodel, jparams, tmodel, _ = cli_int8_pair
+    cond, z0 = _sampler_inputs()
+    want = _jax_sampler(jmodel, jparams, "doubled")(
+        jax.random.PRNGKey(0), jnp.asarray(cond), 4, 2.0, z0=jnp.asarray(z0))
+    sampler = FlowSampler(
+        lambda z, t, c, mod=None: tmodel(z, t, c, adaln_mod=mod),
+        SamplerConfig(num_steps=4), adaln_fn=lambda tv: adaln_tables(tmodel, tv),
+        device="cpu")
+    got = sampler(torch.from_numpy(cond), 4, 2.0, z0=torch.from_numpy(z0))
+    _assert_close(got.numpy(), np.asarray(want), atol=5e-2)
+
+
+def test_super_resolve_latent_device_with_unfused_int8_branches_matches_jax(
+        cli_int8_pair, monkeypatch):
+    """The port's pipeline with that DiT against the JAX pipeline (66-frame
+    chunks); the bounds of test_super_resolve_latent_matches_jax."""
+    jmodel, jparams, tmodel, _ = cli_int8_pair
+    rng = np.random.default_rng(27)
+    stats = [rng.uniform(0.5, 1.5, C).astype(np.float32) if i % 2 else
+             rng.standard_normal(C).astype(np.float32) for i in range(4)]
+    lr = rng.standard_normal((150, C)).astype(np.float32)
+    kw = dict(num_steps=4, chunk_duration=66 * 512 / 44100,
+              overlap_duration=16 * 512 / 44100)
+    key = jax.random.PRNGKey(28)
+    jpipe = JaxPipeline(jmodel, jparams, JaxNormalizer(*stats),
+                        sampler_cfg=JaxSamplerConfig(**kw))
+    want = jpipe.super_resolve_latent(lr, key, cfg_scale=2.0, max_batch=2)
+
+    def jax_noise(seed, n, frames, channels, device):
+        return torch.from_numpy(np.array(
+            jax_chunk_noise(key, n, frames, channels))).to(device)
+
+    monkeypatch.setattr(torch_pipeline, "_per_chunk_noise", jax_noise)
+    pipe = InferencePipeline(tmodel, Normalizer(*stats, device="cpu"),
+                             sampler_cfg=SamplerConfig(**kw), device="cpu")
+    got = pipe.super_resolve_latent_device(torch.from_numpy(lr), 0,
+                                           cfg_scale=2.0, max_batch=2)
+    assert got.shape == (150, C)
+    _assert_close(got.numpy(), want, atol=6e-2)

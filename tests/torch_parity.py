@@ -45,7 +45,7 @@ def build_pair(norm="layer", seed=0, **knobs):
         lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, x,
                             jnp.zeros((1,)), x)["params"])
     jparams = jax_quantize(jax.tree_util.tree_map(jnp.asarray, dense), shape)
-    tmodel = DiT(tcfg, quantize_params_static(dense), device="cpu")
+    tmodel = DiT(tcfg, quantize_params_static(dense, tcfg), device="cpu")
     return jmodel, jparams, tmodel, dense
 
 

@@ -110,6 +110,8 @@ def main() -> int:
     tag = "parent" if csrc != _build.CSRC else "this"
     new_b4 = (csrc / "w8a8_fused.cu").exists()
     new_b7 = "snake_conv_transpose_rows" in (csrc / "snake_tr.cu").read_text()
+    # A tree whose B7 entries take the snake mode (0: fp32) before the stream.
+    mode = (0,) if "int b16" in (csrc / "snake_tr.cu").read_text() else ()
     out_dir = _build.BUILD / f"b4_b7_split_{tag}"  # gitignored, as the kernels
     out_dir.mkdir(parents=True, exist_ok=True)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -217,7 +219,7 @@ def main() -> int:
             def snake(x_):
                 assert tr.snake_b16(_ptr(x_), _ptr(al), _ptr(y),
                                     ctypes.c_longlong(x_.numel()), ci,
-                                    plan.snake_blocks, stream) == 0
+                                    plan.snake_blocks, *mode, stream) == 0
 
             def poly(y_):
                 assert st.snake_conv_transpose_streamed(
@@ -235,7 +237,8 @@ def main() -> int:
             assert tr.snake_conv_transpose_rows(
                 _ptr(x_), _ptr(al), _ptr(w), _ptr(b), _ptr(o), 1, T, ci, co,
                 stride, pad, m_out, plan.bn, plan.threads, plan.stages,
-                plan.xbufs, plan.xc, plan.grid, plan.smem, stream) == 0
+                plan.xbufs, plan.xc, plan.grid, plan.smem, *mode,
+                stream) == 0
 
         record(f"{name} one launch (snake_tr_rows)", rows_launch, xsets,
                DAC_REPS)

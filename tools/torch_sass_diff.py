@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compares the SASS of the port's kernels with another tree's, on a machine
 with nvcc (no card needed): the attention kernels' instances (B2, B10, B11,
-B12, B15, B16, and past head dim 128 ``attention_wide.cu``), the DAC
+B12, B15, B16, their streaming modes, and past head dim 128
+``attention_wide.cu``), the DAC
 kernels B6, B7, B8 and B9, B1 and B3, and the s8 ``wgmma`` kernels of B4,
 B5, B12, B13 and B14 with their row quants.
 
@@ -23,8 +24,10 @@ are the other tree's that this one deleted on purpose (``int8_gemm.cuh``'s
 ``mma.sync`` kernels: ``requant``, ``gemm_gelu``, ``gemm_dequant``); they
 are listed and not compared.  B4's GEMM ``s8_fused_kernel`` is now
 ``s8_dequant.cuh``'s ``s8_dequant_kernel<false, __nv_bfloat16>``, the one
-body that B12 (with a bias) and B14 (bf16 or fp32) instantiate too.  Exits
-1 if any other pair differs.
+body that B12 (with a bias) and B14 (bf16 or fp32) instantiate too.  A
+kernel that gained a last template flag since (the snake mode of B6, B7 and
+B9: ``res_units_kernel<96, false>``, ``snake_b16_kernel<false>``) is
+compared with that flag off.  Exits 1 if any other pair differs.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ sys.path.insert(0, str(ROOT))
 
 from jatsr_torch.ops import _build  # noqa: E402
 
-SOURCES = {"attention_natural.cu": ("natural_kernel",),
-           "attention_deferred.cu": ("deferred_kernel",),
+SOURCES = {"attention_natural.cu": ("natural_kernel", "natural_stream_kernel"),
+           "attention_deferred.cu": ("deferred_kernel",
+                                     "deferred_stream_kernel"),
            "attention_train.cu": ("train_fwd_kernel", "attn_bwd_kernel",
                                   "bwd_rows_kernel"),
-           "flash_qkv.cu": ("normed_kernel", "quant_rows", "gemm_",
-                            "requant"),
+           "flash_qkv.cu": ("normed_kernel", "normed_stream_kernel",
+                            "quant_rows", "gemm_", "requant"),
            "attention_wide.cu": ("",),
            "snake_tr.cu": ("",),
            "snake_tr_stream.cu": ("",),
@@ -86,8 +90,23 @@ def sass(src: Path, out: Path) -> dict:
     names = subprocess.run(["c++filt"], input="\n".join(funcs),
                            capture_output=True, text=True,
                            check=True).stdout.splitlines()
-    return {n.replace("(anonymous namespace)::", "").replace("void ", "")
-            .split("(")[0]: v for n, v in zip(names, funcs.values())}
+    return {_kernel_name(n): v for n, v in zip(names, funcs.values())}
+
+
+def _kernel_name(demangled: str) -> str:
+    """``f<(Epilogue)1, false>`` of ``void (anonymous namespace)::f<
+    (Epilogue)1, false>(args...)``: the name up to its parameter list, the
+    first ``(`` outside the template arguments."""
+    n = demangled.replace("(anonymous namespace)::", "").replace("void ", "")
+    depth = 0
+    for i, ch in enumerate(n):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            return n[:i]
+    return n
 
 
 def main() -> int:
@@ -116,6 +135,11 @@ def main() -> int:
                     name if f in UNTEMPLATED or name in new
                     else f"{base}<64{', ' + args if args else '>'}")
                 vn = new.get(key)
+                if vn is None:  # a template flag added last, off
+                    flagged = (f"{key[:-1]}, false>" if key.endswith(">")
+                               else f"{key}<false>")
+                    if flagged in new:
+                        key, vn = flagged, new[flagged]
                 if vn is None and name.startswith(RETIRED):
                     print(f"[sass] {f} {name}: retired here")
                     continue
