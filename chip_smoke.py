@@ -111,6 +111,24 @@ model (all 28 blocks, batch 4) on the card against the CPU (plain
 versions) on the same weights, batch and draws; and one step of the tiny
 preset (head dim 32) on the card against the CPU.
 
+The training entry point at full width: ``python -m jatsr_torch.cli.train
+--preset v3mod2 --epochs 1 --native-loader`` on seeded latents (ten
+2000-frame songs of 1024 fp16 channels: two steps of 28 crops; five for
+validation: one batch), each step synchronised and timed with the
+loader's wait, B10's launches a step (56 forward, 28 backward), the
+bytes and seconds of each checkpoint written (``last``, ``best``: fp32
+parameters and two fp32 moments); a fresh ``Trainer`` resumed from the
+run directory (parameters, moments, count and step bit-equal to the first
+trainer's) takes one more step; a tiny run trained the same way is served
+by ``python -m jatsr_torch.cli.infer --run-dir`` on a ``.npy`` latent,
+bit-equal to sampling with its restored parameters.  The run lives in a
+temporary directory, removed at the end.  Then two ``v3mod2`` steps at
+batch 28 under each remat policy ("none", "full", "dots", "attn_out",
+"mlp") from the same weights, batch and draws: the first's B10 launches
+(forward 28 under "none", 56 under the others) and parameters (within the
+card-step bounds of those under "none"), the second's time, the peak
+memory.
+
 Audio in, audio out: 44.0 s of mono 16 kHz audio (704,000 samples from
 the seed) through ``super_resolve_audio`` on the main path's DiT and the
 fused codec with its encoder and nine-codebook RVQ: resampled to 44.1 kHz
@@ -125,8 +143,8 @@ forwards counted).
 The timed passes of the eleven serving paths and the audio path run in
 turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
-decode of each (fused and unfused) and one more train step with
-``torch.profiler`` and prints, for each, the card's busy share and device
+decode of each (fused and unfused), one more train step and one more
+step under each remat policy with ``torch.profiler`` and prints, for each, the card's busy share and device
 time and launches by kernel name.
 
 Every phase raises on failure.  The last line of standard output is
@@ -2283,6 +2301,319 @@ def check_train_reference(torch, dense):
         raise AssertionError("the card's train step disagrees with the CPU's")
 
 
+# The training entry point's synthetic data: v3mod2 width (1024 channels,
+# fp16), 10 training songs of 2000 frames (60 crops a 6x epoch: two steps
+# of 28) and 5 validation songs (30 crops: one batch of 28).
+CLI_TRAIN_SONGS, CLI_VAL_SONGS, CLI_FRAMES = 10, 5, 2000
+CLI_RUN, TINY_RUN = "01010101", "02020202"
+
+
+def make_latents(root, C=1024):
+    """Seeded fp16 latents under ``root/train`` and ``root/val`` and a stats
+    file: what ``python -m jatsr_torch.cli.train --data-dir root`` reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    for split, n in (("train", CLI_TRAIN_SONGS), ("val", CLI_VAL_SONGS)):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            hr = rng.standard_normal((CLI_FRAMES, C), dtype=np.float32)
+            lr = 0.8 * hr + 0.2 * rng.standard_normal((CLI_FRAMES, C),
+                                                      dtype=np.float32)
+            for name, x in (("hr", hr), ("lr", lr)):
+                np.save(root / split / f"song{i:02d}.{name}.npy",
+                        x.astype(np.float16))
+    (root / "global_stats_separated.json").write_text(json.dumps({
+        "hr_mean": (0.05 * rng.standard_normal(C)).tolist(),
+        "hr_std": (0.9 + 0.2 * rng.random(C)).tolist(),
+        "lr_mean": (0.05 * rng.standard_normal(C)).tolist(),
+        "lr_std": (0.7 + 0.2 * rng.random(C)).tolist()}))
+
+
+class StepClock:
+    """Wraps the trainer's step: synchronises after each and records its
+    wall time since the previous step returned (the loader's wait and the
+    step), so that step times are the card's, not the enqueue's."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step, self.times = torch, step, []
+        self.t = None
+
+    def __call__(self, *a, **k):
+        t0 = self.t if self.t is not None else time.perf_counter()
+        out = self.step(*a, **k)
+        self.torch.cuda.synchronize()
+        self.t = time.perf_counter()
+        self.times.append(self.t - t0)
+        return out
+
+
+def state_tensors(state):
+    sd = state.state_dict()
+    return {**{f"params.{k}": v for k, v in sd["params"].items()},
+            **{f"mu.{k}": v for k, v in sd["opt"]["mu"].items()},
+            **{f"nu.{k}": v for k, v in sd["opt"]["nu"].items()}}
+
+
+def cli_train_phase(torch, card):
+    """The training entry point at full width: ``python -m
+    jatsr_torch.cli.train --preset v3mod2`` (766 M, batch 28 of 1378
+    frames, remat "full") for one epoch of seeded latents on the native
+    loader (two steps, one validation batch, ``last`` and ``best`` of ~9.2
+    GB each: fp32 parameters and two fp32 moments); a fresh ``Trainer``
+    resumed from the run (parameters, moments, count and step bit-equal to
+    the first trainer's) takes one more step; then a tiny run, trained the
+    same way, served by ``python -m jatsr_torch.cli.infer --run-dir`` on a
+    ``.npy`` latent, bit-equal to sampling with its restored parameters.
+    Everything is written under a temporary directory removed at the end.
+    Returns the B10 launches a step."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from jatsr_torch.cli import infer as infer_cli
+    from jatsr_torch.cli import train as train_cli
+    from jatsr_torch.configs import Preset, get_preset
+    from jatsr_torch.data import load_stats
+    from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.models.dac import DAC
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import dense_tree_from_named
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.ops.attention import gqa_attention_flash
+    from jatsr_torch.train import CheckpointManager, Normalizer
+    from jatsr_torch.train import loop
+    from jatsr_torch.utils.audio_io import load_wav, save_wav
+    from jatsr_torch.utils.flops import mfu
+
+    preset = get_preset("v3mod2")
+    cfg = preset.model
+    n_params = 766e6
+    need = 3 * 12 * n_params  # last and best, with room for one more
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    free = shutil.disk_usage(tmp).free
+    log(f"[cli train] {free / 1e9:.1f} GB free under {tmp}; the checkpoints "
+        f"need ~{need / 3e9:.1f} GB each")
+    if free < need:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"{free / 1e9:.1f} GB free, need "
+                             f"{need / 1e9:.1f}")
+    cwd = os.getcwd()
+    clocks = []
+    real_step = loop.make_train_step
+
+    def clocked(*a, **k):
+        clocks.append(StepClock(torch, real_step(*a, **k)))
+        return clocks[-1]
+
+    try:
+        t0 = time.perf_counter()
+        make_latents(tmp / "data")
+        log(f"[cli train] latents: {time.perf_counter() - t0:.1f} s")
+        os.chdir(tmp)  # the run goes under ./checkpoints/<preset>/<run>
+        loop.make_train_step = clocked
+        counters = (at.attention_train_fwd, at.attention_train_bwd,
+                    gqa_attention_flash)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = train_cli.main([
+            "--preset", "v3mod2", "--data-dir", str(tmp / "data"),
+            "--epochs", "1", "--native-loader", "--run-name", CLI_RUN])
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        steps = first.steps_done
+        run = tmp / "checkpoints" / "v3mod2" / CLI_RUN
+        per_step = {"attention_train_fwd": launches[0] / steps,
+                    "attention_train_bwd": launches[1] / steps}
+        times = clocks[-1].times
+        log(f"[cli train] {steps} steps, B10 launches a step {per_step} "
+            f"(expected 56 and 28); validation ({len(first.val_loader)} "
+            f"batch) takes the einsum attention of attention_impl "
+            f"{cfg.attention_impl!r}: split flash launches {launches[2]}; "
+            f"{wall:.1f} s in all (model drawn from the seed, data, steps, "
+            f"validation, saves)")
+        if (steps != 2 or per_step != {"attention_train_fwd": 2 * cfg.depth,
+                                       "attention_train_bwd": cfg.depth}
+                or launches[2] != 0):
+            raise AssertionError(f"CLI run: {steps} steps, launches "
+                                 f"{launches}")
+        flops = first._flops_per_step
+        log(f"[cli train] {card}: step ms (loader wait + step, synchronised) "
+            f"{[round(t * 1e3, 1) for t in times]}; second step "
+            f"{times[-1] * 1e3:.1f} ms, {TRAIN_B / times[-1]:.2f} samples/s, "
+            f"MFU {mfu(flops, times[-1]):.4f}; loader wait "
+            f"{first.loader_wait_s * 1e3:.1f} ms over {steps} steps "
+            f"({first.loader_wait_s / sum(times):.4f} of the steps' time)")
+        for op, name, nbytes, sec in first.ckpt.io:
+            log(f"[cli train] {card}: {op} {name}: {nbytes / 1e9:.3f} GB in "
+                f"{sec:.2f} s ({nbytes / 1e9 / sec:.2f} GB/s)")
+        for name in ("last", "best", "preset.json", "last.meta.json",
+                     "best.meta.json"):
+            if not (run / name).exists():
+                raise AssertionError(f"the run lacks {name}")
+
+        # A fresh trainer resumes from the run directory.
+        loop.make_train_step = real_step
+        t0 = time.perf_counter()
+        second = loop.Trainer(Preset.from_json((run / "preset.json")
+                                               .read_text()),
+                              data_dir=str(tmp / "data"), resume=str(run),
+                              native_loader=True)
+        log(f"[cli train] resumed trainer: {time.perf_counter() - t0:.1f} s "
+            f"(draw, restore)")
+        for op, name, nbytes, sec in second.ckpt.io:
+            log(f"[cli train] {card}: {op} {name}: {nbytes / 1e9:.3f} GB in "
+                f"{sec:.2f} s ({nbytes / 1e9 / sec:.2f} GB/s)")
+        a, b = state_tensors(first.state), state_tensors(second.state)
+        same = [k for k in a if torch.equal(a[k], b[k])]
+        log(f"[cli train] restore: {len(same)} of {len(a)} tensors "
+            f"bit-equal; step {second.state.step} vs {first.state.step}, "
+            f"count {second.state.opt_state.count} vs "
+            f"{first.state.opt_state.count}, start epoch "
+            f"{second.start_epoch}")
+        if (len(same) != len(a) or second.state.step != first.state.step
+                or second.state.opt_state.count
+                != first.state.opt_state.count or second.start_epoch != 1):
+            raise AssertionError("the resumed state differs")
+        del first, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        second.train_loader.set_epoch(1)
+        hr, lr = second._ready(*next(iter(second.train_loader)))
+        t0 = time.perf_counter()
+        state, m = second.train_step(second.state, hr, lr)
+        loss = float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[cli train] one more step: {ms:.1f} ms, loss {loss:.5f}, "
+            f"step {state.step}")
+        if not math.isfinite(loss) or state.step != 3:
+            raise AssertionError(f"the resumed step: loss {loss}")
+        del second, state, hr, lr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # A tiny run, served from its run directory.
+        train_cli.main(["--preset", "tiny", "--data-dir", str(tmp / "data"),
+                        "--max-steps", "2", "--run-name", TINY_RUN])
+        tiny = tmp / "checkpoints" / "tiny" / TINY_RUN
+        latent = np.load(tmp / "data" / "val" / "song00.lr.npy")[:300]
+        np.save(tmp / "song.lr.npy", latent)
+        stats = tmp / "data" / "global_stats_separated.json"
+        infer_cli.main(["--run-dir", str(tiny), "--stats", str(stats),
+                        "--input", str(tmp / "song.lr.npy"), "--output-dir",
+                        str(tmp / "out"), "--steps", "2", "--cfg-scale",
+                        "2.0"])
+        got, _ = load_wav(tmp / "out" / "song.lr_generated_cfg2.0.wav")
+        tp = Preset.from_json((tiny / "preset.json").read_text())
+        model = DenseDiT(
+            dataclasses.replace(tp.model, attention_impl="xla", dropout=0.0,
+                                drop_path_rate=0.0),
+            dense_tree_from_named(CheckpointManager(tiny, primary=False)
+                                  .load("best")["state"]["params"], tp.model),
+            device="cuda")
+        pipe = InferencePipeline(
+            model, Normalizer(*load_stats(stats)),
+            DAC.random_init(0, fused_res_units=True, device="cuda"),
+            dataclasses.replace(tp.sampler, num_steps=2, cfg_scale=2.0))
+        save_wav(tmp / "want.wav", pipe.decode_latent(
+            pipe.super_resolve_latent(latent.astype(np.float32), 0, 2, 2.0)),
+            44100)
+        want, _ = load_wav(tmp / "want.wav")
+        log(f"[cli infer] --run-dir {tiny.name} (tiny, best): "
+            f"{got.shape[0]} samples, equal to the library's: "
+            f"{bool(np.array_equal(got, want))}")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("cli.infer --run-dir differs from sampling "
+                                 "with the run's parameters")
+        return per_step
+    finally:
+        loop.make_train_step = real_step
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def remat_phase(torch, dense, card, profile=False):
+    """Two v3mod2 steps at batch 28 (dropout 0.1, drop-path 0.05, warmup
+    0) under each remat policy, from the same weights, batch and draws:
+    the first step's B10 launches (forward 28 under "none", 56 under the
+    others; backward 28), parameters (within the card-step bounds of those
+    under "none": 2 lr at most, 2 % of lr on average) and peak memory over
+    what was allocated before it (the gradients and what the policy keeps
+    for backward), the second step's time (the first grows the allocator's
+    pool for the policy's activations).  With ``profile`` a third step of
+    each is traced."""
+    import gc
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    preset = get_preset("v3mod2")
+    tcfg = dataclasses.replace(preset.train, warmup_steps=0)
+    hr, lr, stats = train_batch(torch, preset.model)
+    out = {}
+    for policy in ("none", "full", "dots", "attn_out", "mlp"):
+        cfg = dataclasses.replace(preset.model, remat_policy=policy)
+        state = create_train_state(DenseDiT(cfg, dense, device="cuda"),
+                                   tcfg, 1000, (hr, lr), device="cuda")
+        step = make_train_step(preset.loss, tcfg, Normalizer(*stats))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n0 = (at.attention_train_fwd.launches, at.attention_train_bwd.launches)
+        t0 = time.perf_counter()
+        state, m = step(state, hr, lr)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        n = (at.attention_train_fwd.launches - n0[0],
+             at.attention_train_bwd.launches - n0[1])
+        peak = torch.cuda.max_memory_allocated()
+        params = [p.detach().clone() for p in state.params]
+        out[policy] = params
+        t0 = time.perf_counter()
+        state, m2 = step(state, hr, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gib = 2.0 ** 30
+        log(f"[remat] {card}: {policy}: second step {ms:.1f} ms (first "
+            f"{first:.1f}), first step's peak {peak / gib:.2f} GiB "
+            f"({(peak - base) / gib:.2f} GiB over the {base / gib:.2f} GiB "
+            f"before it: the state, the batch, the parameters of 'none' "
+            f"kept to compare), B10 launches "
+            f"a step forward {n[0]}, backward {n[1]}, loss "
+            f"{float(m['loss']):.6f}, {float(m2['loss']):.6f}")
+        want = ((1 if policy == "none" else 2) * cfg.depth, cfg.depth)
+        if n != want:
+            raise AssertionError(f"remat {policy}: launches {n} != {want}")
+        if policy != "none":
+            pairs = list(zip(params, out["none"]))
+            p_max = max((a - b).abs().max().item() for a, b in pairs) \
+                / tcfg.lr
+            p_mean = max((a - b).abs().mean().item() for a, b in pairs) \
+                / tcfg.lr
+            equal = all(torch.equal(a, b) for a, b in zip(params,
+                                                         out["none"]))
+            log(f"[remat] {policy} against none: parameters max "
+                f"{p_max:.4f} lr, worst leaf mean {p_mean:.6f} lr, "
+                f"bit-equal {equal}")
+            if p_max > 2.02 or p_mean > 0.02:
+                raise AssertionError(f"remat {policy} moves the step")
+            del out[policy], pairs
+        if profile:
+            profile_phase(torch, f"remat {policy} step",
+                          lambda: step(state, hr, lr))
+        del state, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import argparse
 
@@ -2291,8 +2622,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one more sampler call of each serving path, "
-                         "one more decode of each kind, and one more train "
-                         "step, with torch.profiler")
+                         "one more decode of each kind, one more train "
+                         "step, and one more step under each remat policy, "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2547,6 +2879,15 @@ def main() -> int:
     check_train_reference(torch, dense)
     check_tiny_train_step(torch)
     phases.done("training references")
+
+    # 7. The training entry point at full width (train, checkpoint, resume,
+    #    serve a run), then two steps under each remat policy.
+    cli_train_phase(torch, card)
+    phases.done("training entry point")
+    remat_phase(torch, dense, card, args.profile)
+    del dense
+    torch.cuda.empty_cache()
+    phases.done("remat policies")
 
     # Result lines.
     kernels = [dict(checks[k], launches=launches[

@@ -11,16 +11,17 @@ takes a WAV (resampled and encoded to an LR latent through the codec) or a
 saved ``.npy`` latent, and writes ``<name>_generated[_cfgX].wav``; for a
 latent also ``_lr_input.wav`` and, where the ``.hr.npy`` beside it exists,
 ``_hr_gt.wav``.  Weights come from ``--torch-checkpoint`` (a reference
-``.pt``); without ``--int8`` the bf16 model serves, with it the int8 serving
+``.pt``) or from ``--run-dir`` (a run of ``python -m jatsr_torch.cli.train``:
+its ``--checkpoint``, ``best`` by default, and its ``preset.json`` unless
+``--preset`` is given); without ``--int8`` the bf16 model serves, with it
+the int8 serving
 DiT on weights the port quantizes for its config: ``--int8`` alone is the
 unfused QuantDense MLP (``--fused-mlp`` the fused one), ``--quantize-head``
 adds the int8 output head, and at ``tiny`` (bottleneck 64) the patch embed
 is the unfused one.  ``--platform cpu`` runs the plain PyTorch path on the
 CPU; otherwise the run uses the card.
 
-``--run-dir`` (checkpoints of a training run) and ``--mesh`` raise
-``NotImplementedError``: they come with the checkpoint manager and with
-``parallel/``.
+``--mesh`` raises ``NotImplementedError``: it comes with ``parallel/``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from pathlib import Path
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--run-dir", default=None,
-                    help="run dir with training checkpoints (not ported yet)")
+                    help="run dir with training checkpoints")
     ap.add_argument("--checkpoint", default="best",
                     help="checkpoint name inside the run dir")
     ap.add_argument("--torch-checkpoint", default=None,
@@ -100,15 +101,11 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.run_dir:
-        raise NotImplementedError(
-            "--run-dir needs the checkpoint manager (train/checkpoint.py), "
-            "ROADMAP section A item 5; pass --torch-checkpoint")
     if args.mesh:
         raise NotImplementedError(
             "--mesh needs parallel/ (ROADMAP section A item 8)")
-    if not args.torch_checkpoint:
-        raise SystemExit("need --torch-checkpoint")
+    if not (args.torch_checkpoint or args.run_dir):
+        raise SystemExit("need --run-dir or --torch-checkpoint")
     if args.fused_mlp and not args.int8:
         raise SystemExit("--fused-mlp requires --int8")
     if args.platform not in (None, "cpu", "cuda", "gpu"):
@@ -118,18 +115,40 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..configs import get_preset
+    from ..configs import Preset, get_preset
     from ..data import load_stats
     from ..infer import InferencePipeline
     from ..models.convert_dit import load_reference_checkpoint
     from ..models.dac import DAC
     from ..models.dit import DenseDiT, DiT
+    from ..models.from_jax import dense_tree_from_named
+    from ..train.checkpoint import CheckpointManager
     from ..train.step import Normalizer
     from ..utils.audio_io import load_wav, save_wav
 
-    preset = get_preset(args.preset or "v3mod2")
-    params = load_reference_checkpoint(args.torch_checkpoint, preset.model)
-    print(f"[infer] converted reference checkpoint {args.torch_checkpoint}")
+    if args.preset:
+        preset = get_preset(args.preset)
+    else:
+        pj = Path(args.run_dir or ".") / "preset.json"
+        if pj.exists():
+            preset = Preset.from_json(pj.read_text())
+            print(f"[infer] preset '{preset.name}' from {pj}")
+        else:
+            preset = get_preset("v3mod2")
+    # Checkpoints hold the float parameters; the int8 model is quantized
+    # from them after the restore.
+    if args.torch_checkpoint:
+        params = load_reference_checkpoint(args.torch_checkpoint,
+                                           preset.model)
+        print(f"[infer] converted reference checkpoint "
+              f"{args.torch_checkpoint}")
+    else:
+        blob = CheckpointManager(args.run_dir, primary=False).load(
+            args.checkpoint)
+        params = dense_tree_from_named(blob["state"]["params"], preset.model)
+        print(f"[infer] restored {args.checkpoint} @ step "
+              f"{blob['meta']['global_step']}")
+        del blob
     serving = dataclasses.replace(
         preset.model, scores_dtype=args.scores_dtype,
         attention_impl=args.attention, gelu_impl=args.gelu,

@@ -24,6 +24,8 @@ All presets share the DAC latent geometry: 1024 channels, x512 hop at
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -188,6 +190,26 @@ class Preset:
     train: TrainConfig
     data: DataConfig = field(default_factory=DataConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Preset":
+        """Rebuild a preset from :meth:`to_json` output (the ``preset.json``
+        of a run directory, the JAX package's too)."""
+        d = json.loads(s)
+        return cls(
+            name=d["name"],
+            model=ModelConfig(**{**d["model"],
+                                 "rope_base": float(d["model"]["rope_base"])}),
+            loss=LossConfig(**{**d["loss"],
+                               "ms_scales": tuple(d["loss"]["ms_scales"])}),
+            train=TrainConfig(**{**d["train"], "mesh_shape": tuple(
+                d["train"]["mesh_shape"])}),
+            data=DataConfig(**d["data"]),
+            sampler=SamplerConfig(**{**d["sampler"], "cfg_interval": tuple(
+                d["sampler"].get("cfg_interval", (0.0, 1.0)))}))
 
 
 def _mk(name, model_kw, loss_kw, train_kw) -> Preset:

@@ -1,3 +1,4 @@
-from .dataset import load_stats
+from .dataset import (BatchLoader, LatentDataset, ValidationDataset,
+                      load_stats)
 
-__all__ = ["load_stats"]
+__all__ = ["BatchLoader", "LatentDataset", "ValidationDataset", "load_stats"]

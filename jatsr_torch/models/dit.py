@@ -547,8 +547,8 @@ _TRAINING_BRANCH = {
     "matmul_precision": (("bf16",), "dynamic int8 in training"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
     "scores_dtype": (("float32",), "bf16 score storage in training"),
-    "remat_policy": (("full", "none"), "the selective remat policies dots, "
-                                       "attn_out and mlp"),
+    "remat_policy": (("full", "dots", "attn_out", "mlp", "none"),
+                     "other remat policies"),
 }
 
 
@@ -688,7 +688,18 @@ class TrainAttention(nn.Module):
 
 class TrainBlock(nn.Module):
     """AdaLN-Zero block: norm, modulate, attention, gate, drop-path; norm,
-    modulate, Dense, exact GELU, dropout, Dense, dropout, gate, drop-path."""
+    modulate, Dense, exact GELU, dropout, Dense, dropout, gate, drop-path.
+
+    Under the selective remat policies the block runs as checkpointed
+    segments whose outputs are kept for backward, each segment replayed
+    from its inputs: the JAX model's ``checkpoint_name`` s are their
+    boundaries.  Under "attn_out" the first segment ends at the attention
+    module's output after ``out_proj``, the second runs the rest of the
+    block.  Under "mlp" ``mlp_in`` runs between two segments, so that its
+    output, the pre-GELU hidden, is kept and its product never replayed;
+    its backward keeps its input (the modulated norm), and the residual
+    stream after attention is kept as the segments' boundary: two ``[B, N,
+    H]`` tensors a block that the JAX model recomputes."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, dp_rate, device):
         super().__init__()
@@ -700,24 +711,92 @@ class TrainBlock(nn.Module):
         self.mlp_out = _dense(p["mlp_out"], bf16, device, i, _int8_impl(cfg))
         self.dp_rate = dp_rate
 
-    def forward(self, x, t_emb, cos, sin, seed=None, mod=None):
+    def forward(self, x, t_emb, cos, sin, seed=None, mod=None,
+                segments: bool = False):
         """``seed``: the block's (step, layer) seed on the training path,
         None on the deterministic one.  ``mod``: the block's hoisted AdaLN
-        row ``[B or 1, 6H]``, else computed here from ``t_emb``."""
-        cfg = self.cfg
+        row ``[B or 1, 6H]``, else computed here from ``t_emb``.
+        ``segments``: run the segments of ``cfg.remat_policy`` ("attn_out"
+        or "mlp") under checkpoints."""
         gen = None if seed is None else _block_generator(seed, x.device)
         if mod is None:
             mod = self.adaln(F.silu(t_emb))
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
-        h = _norm(x, cfg.norm) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-        h = gate_msa[:, None] * self.attn(h, cos, sin, seed, gen)
-        x = x + _drop_path(h, self.dp_rate, gen)
-        h = _norm(x, cfg.norm) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        h = F.gelu(self.mlp_in(h), approximate="none")
-        h = self.mlp_out(_dropout(h, cfg.dropout, gen))
-        h = gate_mlp[:, None] * _dropout(h, cfg.dropout, gen)
+        run = _Segments(gen) if segments else _direct(gen)
+        a = run(self._attention, x, shift_msa, scale_msa, cos, sin, seed)
+        if segments and self.cfg.remat_policy == "mlp":
+            x, h = run(self._mlp_norm, x, a, gate_msa, shift_mlp, scale_mlp)
+            return run(self._mlp_post, x, self.mlp_in(h), gate_mlp)
+        return run(self._mlp, x, a, gate_msa, shift_mlp, scale_mlp, gate_mlp)
+
+    def _attention(self, x, shift, scale, cos, sin, seed, gen):
+        h = _norm(x, self.cfg.norm) * (1 + scale[:, None]) + shift[:, None]
+        return self.attn(h, cos, sin, seed, gen)
+
+    def _mlp_norm(self, x, a, gate_msa, shift, scale, gen):
+        """The attention's gated residual, then norm and modulate: ``(x,
+        the mlp_in input)``."""
+        x = x + _drop_path(gate_msa[:, None] * a, self.dp_rate, gen)
+        return x, _norm(x, self.cfg.norm) * (1 + scale[:, None]) \
+            + shift[:, None]
+
+    def _mlp_post(self, x, pre, gate_mlp, gen):
+        """Exact GELU of the pre-GELU hidden, dropout, ``mlp_out``,
+        dropout, gate, drop-path, residual."""
+        rate = self.cfg.dropout
+        h = self.mlp_out(_dropout(F.gelu(pre, approximate="none"), rate, gen))
+        h = gate_mlp[:, None] * _dropout(h, rate, gen)
         return x + _drop_path(h, self.dp_rate, gen)
+
+    def _mlp(self, x, a, gate_msa, shift_mlp, scale_mlp, gate_mlp, gen):
+        x, h = self._mlp_norm(x, a, gate_msa, shift_mlp, scale_mlp, gen)
+        return self._mlp_post(x, self.mlp_in(h), gate_mlp, gen)
+
+
+def _direct(gen):
+    """Run a block stage as it is, drawing from ``gen``."""
+    return lambda fn, *args: fn(*args, gen)
+
+
+class _Segments:
+    """Run each block stage under ``torch.utils.checkpoint``, its inputs
+    and outputs kept, its insides replayed in backward.  The replay draws
+    the stage's dropout and drop-path masks again: each stage starts from
+    the block generator's state as the stage found it."""
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    def __call__(self, fn, *args):
+        state = None if self.gen is None else self.gen.get_state()
+        return torch.utils.checkpoint.checkpoint(
+            self._replay, fn, state, *args, use_reentrant=False,
+            preserve_rng_state=False)
+
+    def _replay(self, fn, state, *args):
+        if state is not None:
+            self.gen.set_state(state)
+        return fn(*args, self.gen)
+
+
+# aten's products without batch dimensions: the outputs the "dots" policy
+# keeps (JAX's dots_with_no_batch_dims_saveable: every projection; the
+# attention's batched products are replayed).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 class DenseDiT(nn.Module):
@@ -806,15 +885,21 @@ class DenseDiT(nn.Module):
             cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
             cos = cos[:, None].to(torch.bfloat16)
             sin = sin[:, None].to(torch.bfloat16)
-        remat = cfg.remat_policy == "full" and torch.is_grad_enabled()
+        # Remat (only where autograd records): "full" and "dots" replay
+        # the whole block in backward, "dots" keeping its projections'
+        # outputs; "attn_out" and "mlp" run it as checkpointed segments.
+        policy = cfg.remat_policy if torch.is_grad_enabled() else "none"
         for i, blk in enumerate(self.blocks):
             seed = None if deterministic else int(layer_seeds[i])
             mod = None if adaln_mod is None else adaln_mod[i]
-            if remat:
+            if policy in ("full", "dots"):
                 h = torch.utils.checkpoint.checkpoint(
                     blk, h, t_emb, cos, sin, seed, mod, use_reentrant=False,
-                    preserve_rng_state=False)
+                    preserve_rng_state=False,
+                    **({"context_fn": _dots_context} if policy == "dots"
+                       else {}))
             else:
-                h = blk(h, t_emb, cos, sin, seed, mod)
+                h = blk(h, t_emb, cos, sin, seed, mod,
+                        segments=policy in ("attn_out", "mlp"))
         h = self.final_proj(_norm(h, cfg.norm))
         return h.reshape(B, T, C)[:, :T_orig].float()

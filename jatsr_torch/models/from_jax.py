@@ -21,7 +21,8 @@ a machine without JAX: the JAX init zeroes ``adaln`` and ``final_proj``
 vacuous, so here they get std 0.02.  :func:`init_dense_params` draws the
 tree as flax initialises it, for training from scratch;
 :func:`dense_tree_from_module` reads a trained ``DenseDiT`` back out in the
-JAX layout.
+JAX layout, and :func:`train_state_from_jax` carries a JAX train state
+(parameters and AdamW moments) into the port's.
 """
 
 from __future__ import annotations
@@ -195,14 +196,75 @@ def init_dense_params(cfg, generator: torch.Generator) -> dict:
 def dense_tree_from_module(model) -> dict:
     """A ``DenseDiT``'s parameters as the JAX float tree of fp32 numpy
     arrays (block leaves stacked ``[depth, ...]``)."""
-    named = {k: v.detach().float().cpu().numpy()
-             for k, v in model.named_parameters()}
+    return dense_tree_from_named(dict(model.named_parameters()), model.cfg)
+
+
+def dense_tree_from_named(named: dict, cfg) -> dict:
+    """Tensors keyed by ``DenseDiT`` parameter name (``blocks.3.mlp_in.
+    kernel``...; a checkpoint's ``params``) -> the JAX float tree of fp32
+    numpy arrays."""
+    named = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
 
     def leaf(path, shape, fan_in, kind):
         if path[0] != "blocks":
             return named[".".join(path)]
         rest = ".".join(path[1:])
         return np.stack([named[f"blocks.{i}.{rest}"]
-                         for i in range(model.cfg.depth)])
+                         for i in range(cfg.depth)])
 
-    return _build_tree(model.cfg, leaf)
+    return _build_tree(cfg, leaf)
+
+
+def named_from_tree(tree: dict, prefix: str = "") -> dict:
+    """A JAX dense tree -> tensors keyed by ``DenseDiT`` parameter name
+    (copies): each ``blocks`` leaf ``[depth, ...]`` is cut into
+    ``blocks.<i>.<path>``."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(named_from_tree(v, name + "."))
+        elif name.startswith("blocks."):
+            t = _copy(v)
+            rest = name[len("blocks."):]
+            out.update({f"blocks.{i}.{rest}": t[i] for i in range(len(t))})
+        else:
+            out[name] = _copy(v)
+    return out
+
+
+def _copy(a) -> torch.Tensor:
+    """A tensor that owns a copy of ``a`` (a numpy array, read-only ones
+    too, or a tensor)."""
+    return a.clone() if isinstance(a, torch.Tensor) else as_tensor(np.array(a))
+
+
+def _adam_state(opt_state):
+    """The first node of an optax state that carries ``mu`` and ``nu``
+    (``ScaleByAdamState``), found through its tuples."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params: dict, opt_state, step: int,
+                         seed: int = 0) -> dict:
+    """A JAX ``TrainState``'s ``params``, ``opt_state`` and ``step`` (numpy,
+    e.g. through ``jax.device_get``) as the port's train-state dict
+    (``TrainState.state_dict``'s layout, CPU tensors), for
+    ``TrainState.load_state_dict``: the optax chain's ``ScaleByAdamState``
+    count, mu and nu become AdamW's count and moments.  ``seed`` is the
+    port's: its per-step draws do not come from the JAX key."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments")
+    return {"step": int(np.asarray(step)), "seed": int(seed),
+            "params": named_from_tree(params),
+            "opt": {"count": int(np.asarray(adam.count)),
+                    "mu": named_from_tree(adam.mu),
+                    "nu": named_from_tree(adam.nu)}}

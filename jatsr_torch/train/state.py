@@ -15,13 +15,15 @@ warmup-cosine schedule, in optax's order of operations (not
   (optax's ``mu_dtype``): ``b1 * mu`` is then a bf16 product, as JAX's.
 
 The port updates parameters and moments in place, which keeps one copy of
-each in device memory.
+each in device memory.  :meth:`TrainState.state_dict` gives the whole state
+as tensors keyed by parameter name (what a checkpoint holds), and
+:meth:`TrainState.load_state_dict` puts such a dict back bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -109,6 +111,46 @@ class TrainState:
         """Clip, AdamW, in place; the step count advances."""
         self.tx.step(self.params, grads, self.opt_state)
         self.step += 1
+        return self
+
+    def state_dict(self) -> Dict:
+        """``{"step", "seed", "params": {name: tensor}, "opt": {"count",
+        "mu": {name: tensor}, "nu": {name: tensor}}}``: the tensors are the
+        state's own (detached, not copied)."""
+        names = [k for k, _ in self.model.named_parameters()]
+        return {"step": int(self.step), "seed": int(self.seed),
+                "params": {k: p.detach() for k, p in
+                           self.model.named_parameters()},
+                "opt": {"count": int(self.opt_state.count),
+                        "mu": dict(zip(names, self.opt_state.mu)),
+                        "nu": dict(zip(names, self.opt_state.nu))}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict) -> "TrainState":
+        """Copy a :meth:`state_dict` (from any device) into this state in
+        place.  Raises ``KeyError`` / ``ValueError`` where its names, shapes
+        or moment dtypes are not this state's."""
+        named = dict(self.model.named_parameters())
+        opt = sd["opt"]
+        for group in (sd["params"], opt["mu"], opt["nu"]):
+            missing, extra = set(named) - set(group), set(group) - set(named)
+            if missing or extra:
+                raise KeyError(f"state names differ: missing "
+                               f"{sorted(missing)[:4]}, unexpected "
+                               f"{sorted(extra)[:4]}")
+        pairs = [(dst, src, k) for i, (k, p) in enumerate(named.items())
+                 for dst, src in ((p, sd["params"][k]),
+                                  (self.opt_state.mu[i], opt["mu"][k]),
+                                  (self.opt_state.nu[i], opt["nu"][k]))]
+        for dst, src, k in pairs:
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"{k}: {tuple(src.shape)} {src.dtype} cannot "
+                                 f"replace {tuple(dst.shape)} {dst.dtype}")
+        for dst, src, _ in pairs:
+            dst.copy_(src)
+        self.step = int(sd["step"])
+        self.seed = int(sd["seed"])
+        self.opt_state.count = int(opt["count"])
         return self
 
 

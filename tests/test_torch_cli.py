@@ -10,6 +10,10 @@ files, bit for bit; the ``.npy`` branch writes its two wavs.
 
 import dataclasses
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import torch
 
 from jatsr_tpu.configs import get_preset as jax_get_preset
 from jatsr_torch.cli import infer as cli
+from jatsr_torch.cli import train as train_cli
 from jatsr_torch.configs import get_preset
 from jatsr_torch.data import load_stats
 from jatsr_torch.infer import InferencePipeline
@@ -95,12 +100,15 @@ def test_cli_latent_in(files, capsys):
     assert "sampler: heun-2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--run-dir", "runs/x"], "ROADMAP section A item 5"),
-    (["--mesh", "2", "1"], "ROADMAP section A item 8")])
-def test_cli_flags_of_later_slices_raise(files, flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(_args(files, "song.wav", "out_x", *flag))
+@pytest.mark.parametrize("entry,flag", [
+    ("infer", ["--mesh", "2", "1"]), ("train", ["--mesh", "2", "1"]),
+    ("train", ["--distributed"])])
+def test_cli_flags_of_later_slices_raise(files, entry, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP section A item 8"):
+        if entry == "infer":
+            cli.main(_args(files, "song.wav", "out_x", *flag))
+        else:
+            train_cli.main(["--preset", "tiny", "--platform", "cpu", *flag])
 
 
 def _int8_library_wav(d, **knobs):
@@ -153,3 +161,126 @@ def test_cli_int8_serves_at_tiny(files, flags, knobs):
     cli.main(_args(files, "song.wav", out, "--int8", *flags))
     got, _ = load_wav(files / out / "song_generated_cfg2.0.wav")
     np.testing.assert_array_equal(got, _int8_library_wav(files, **knobs))
+
+
+# ---- training, and serving a run ------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def run(files):
+    """``python -m jatsr_torch.cli.train --preset tiny --platform cpu`` on
+    seeded latents (1024 channels; 16 s crops of two 1400-frame songs, one
+    of 900 frames for validation), stopped after 2 of its 6 steps an epoch
+    (``last`` at epoch 0, then ``best``)."""
+    d = files
+    rng = np.random.default_rng(5)
+    for split, frames in (("train", (1400, 1400)), ("val", (900,))):
+        (d / "data" / split).mkdir(parents=True)
+        for i, n in enumerate(frames):
+            hr = rng.standard_normal((n, 1024)).astype(np.float16)
+            np.save(d / "data" / split / f"s{i}.hr.npy", hr)
+            np.save(d / "data" / split / f"s{i}.lr.npy", (0.5 * hr).astype(
+                np.float16))
+    (d / "data" / "global_stats_separated.json").write_text(
+        (d / "stats.json").read_text())
+    out = subprocess.run(
+        [sys.executable, "-m", "jatsr_torch.cli.train", "--preset", "tiny",
+         "--platform", "cpu", "--data-dir", str(d / "data"), "--max-steps",
+         "2", "--run-name", "01020304", "--native-loader"],
+        cwd=d, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[train] done" in out.stdout
+    return d / "checkpoints" / "tiny" / "01020304"
+
+
+def test_cli_train_writes_a_run_in_the_jax_layout(run):
+    names = {p.name for p in run.iterdir()}
+    assert {"last", "best", "last.meta.json", "best.meta.json",
+            "preset.json"} <= names
+    meta = json.loads((run / "last.meta.json").read_text())
+    assert (meta["epoch"], meta["global_step"], meta["preset"]) == \
+        (0, 2, "tiny")
+    from jatsr_torch.configs import Preset
+
+    assert Preset.from_json((run / "preset.json").read_text()) == \
+        get_preset("tiny")
+
+
+def test_cli_train_resumes_the_run(run, monkeypatch):
+    """``--resume RUN_DIR`` restores `last` (bit-equal to the file) and
+    trains the next epoch."""
+    from jatsr_torch.train import CheckpointManager
+    from jatsr_torch.train.loop import Trainer
+
+    restored = {}
+    fit = Trainer.fit
+
+    def spy(self, *a, **k):
+        restored.update({k: v.clone() for k, v in
+                         self.state.state_dict()["params"].items()})
+        restored.update({"count": self.state.opt_state.count,
+                         "step": self.state.step})
+        return fit(self, *a, **k)
+
+    monkeypatch.setattr(Trainer, "fit", spy)
+    monkeypatch.chdir(run.parents[2])
+    saved = CheckpointManager(run).load("last")["state"]
+    tr = train_cli.main(["--preset", "tiny", "--platform", "cpu",
+                         "--data-dir", str(run.parents[2] / "data"),
+                         "--resume", str(run), "--epochs", "2"])
+    assert (restored["step"], restored["count"]) == (2, 2)
+    for k, v in saved["params"].items():
+        assert torch.equal(restored[k], v), k
+    assert tr.start_epoch == 1 and tr.state.step == 2 + 6
+    assert json.loads((run / "last.meta.json").read_text())["epoch"] == 1
+
+
+def _run_pipeline(d, run, name):
+    """What serving ``run``'s checkpoint ``name`` gives for song.lr.npy: the
+    CLI's bf16 model (its default flags) on the restored parameters."""
+    from jatsr_torch.configs import Preset
+    from jatsr_torch.models.from_jax import dense_tree_from_named
+    from jatsr_torch.train import CheckpointManager
+
+    preset = Preset.from_json((run / "preset.json").read_text())
+    params = dense_tree_from_named(
+        CheckpointManager(run).load(name)["state"]["params"], preset.model)
+    model = DenseDiT(dataclasses.replace(
+        preset.model, attention_impl="xla", dropout=0.0, drop_path_rate=0.0),
+        params, device="cpu")
+    codec = DAC(load_torch_checkpoint(d / "dac.pth"), DACConfig(),
+                fused_res_units=True, device="cpu")
+    pipe = InferencePipeline(
+        model, Normalizer(*load_stats(d / "stats.json"), device="cpu"),
+        codec, dataclasses.replace(preset.sampler, num_steps=2,
+                                   cfg_scale=2.0), device="cpu")
+    lr = np.load(d / "song.lr.npy").astype(np.float32)
+    return pipe.decode_latent(pipe.super_resolve_latent(lr, 0, 2, 2.0))
+
+
+def test_cli_infer_serves_a_run(run, capsys):
+    """``--run-dir`` (``best`` by default, the preset from its
+    ``preset.json``) gives, bit for bit, what sampling with the run's
+    restored parameters gives; ``--int8`` quantizes them after the
+    restore and serves."""
+    d = run.parents[2]
+    args = ["--run-dir", str(run), "--stats", str(d / "stats.json"),
+            "--dac-weights", str(d / "dac.pth"), "--input",
+            str(d / "song.lr.npy"), "--steps", "2", "--cfg-scale", "2.0",
+            "--platform", "cpu"]
+    cli.main([*args, "--output-dir", str(d / "out_run")])
+    printed = capsys.readouterr().out
+    assert "preset 'tiny' from" in printed and "restored best @ step" \
+        in printed
+    got, sr = load_wav(d / "out_run" / "song.lr_generated_cfg2.0.wav")
+    save_wav(d / "want.wav", _run_pipeline(d, run, "best"), 44100)
+    want, _ = load_wav(d / "want.wav")
+    np.testing.assert_array_equal(got, want)
+    cli.main([*args, "--output-dir", str(d / "out_run8"), "--int8",
+              "--checkpoint", "last"])
+    got8, _ = load_wav(d / "out_run8" / "song.lr_generated_cfg2.0.wav")
+    assert got8.shape == got.shape and np.isfinite(got8).all()
+    assert not np.array_equal(got8, got)

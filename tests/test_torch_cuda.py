@@ -60,6 +60,12 @@ mirror (z_e 3e-4 x max, at most 2 % of the codes); the resample within
 the card against ``--platform cpu`` on the same (CPU-drawn) noise within
 relative L2 5e-2, the bound of the port's pipeline against JAX's
 (measured 1.1e-2).
+Training entry point: the tiny ``Trainer`` on the card (dropout 0.1, the
+native loader) resumed from its `last` ends bit-equal to two epochs
+straight, and each remat policy's gradients are bit-equal to "none"'s on
+the card (the kernels and cuBLAS give the same bits on the same inputs),
+with B10's forward launched once a block under "none" and twice under the
+others.
 """
 
 import math
@@ -1674,3 +1680,105 @@ def test_dynamic_int8_dense_dit_on_card_matches_cpu(card, impl):
         (n, 0) if impl == "fused" else (0, n))
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+def _tiny_run_preset(tmp, C=32):
+    """tiny at 32 channels on 64-frame crops (16 patches) of three
+    seeded 120-frame songs; a run under ``tmp``."""
+    import dataclasses
+    import json
+
+    from jatsr_torch.configs import get_preset
+
+    rs = np.random.RandomState(0)
+    for split, count in (("train", 3), ("val", 2)):
+        d = tmp / "data" / split
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(count):
+            hr = rs.randn(120, C).astype(np.float16)
+            np.save(d / f"s{i}.hr.npy", hr)
+            np.save(d / f"s{i}.lr.npy",
+                    (0.8 * hr + 0.1 * rs.randn(120, C)).astype(np.float16))
+    (tmp / "data" / "global_stats_separated.json").write_text(json.dumps(
+        {k: [0.0 if k.endswith("mean") else 1.0] * C
+         for k in ("hr_mean", "hr_std", "lr_mean", "lr_std")}))
+    p = get_preset("tiny")
+    return dataclasses.replace(
+        p, model=dataclasses.replace(p.model, input_channels=C,
+                                     cond_channels=C, dropout=0.1),
+        train=dataclasses.replace(
+            p.train, batch_size=2, save_dir_base=str(tmp / "ckpt"),
+            save_interval_steps=0, num_epochs=2, warmup_steps=5, lr=1e-3),
+        data=dataclasses.replace(p.data, target_duration=64 * 512 / 44100,
+                                 samples_per_epoch_multiplier=2))
+
+
+def test_tiny_trainer_on_card_and_its_resume(card, tmp_path):
+    """The Trainer on the card (B10 at head dim 32, dropout 0.1; the
+    native loader): two epochs straight, then one epoch, a resume from its
+    `last` and one more epoch: parameters, moments and count bit-equal
+    (the kernels and cuBLAS give the same bits on the same inputs); B10's
+    launches 2 x depth forward and depth backward a step (remat
+    "full")."""
+    from jatsr_torch.train.loop import Trainer
+
+    preset = _tiny_run_preset(tmp_path)
+    kw = dict(data_dir=str(tmp_path / "data"), writer=False,
+              native_loader=True)
+    n0 = (at.attention_train_fwd.launches, at.attention_train_bwd.launches)
+    straight = Trainer(preset, run_name="11112222", **kw)
+    straight.fit(verbose=False)
+    steps = straight.state.step
+    depth = preset.model.depth
+    assert steps == 6 and straight.model.device.type == "cuda"
+    assert (at.attention_train_fwd.launches - n0[0],
+            at.attention_train_bwd.launches - n0[1]) == (
+        2 * depth * steps, depth * steps)
+    first = Trainer(preset, run_name="22223333", **kw)
+    first.fit(verbose=False, max_steps=3)
+    second = Trainer(preset, resume=str(first.ckpt.run_dir), **kw)
+    assert second.start_epoch == 1 and second.state.step == 3
+    second.fit(verbose=False)
+    a, b = straight.state.state_dict(), second.state.state_dict()
+    assert (a["step"], a["opt"]["count"]) == (b["step"], b["opt"]["count"])
+    for group in ("mu", "nu"):
+        for k, v in a["opt"][group].items():
+            assert torch.equal(v, b["opt"][group][k]), (group, k)
+    for k, v in a["params"].items():
+        assert v.device.type == "cuda" and torch.equal(v, b["params"][k]), k
+
+
+@pytest.mark.parametrize("policy", ["none", "full", "dots", "attn_out",
+                                    "mlp"])
+def test_remat_policies_on_card(card, policy):
+    """One training forward and backward of the tiny DiT (dropout 0.1,
+    drop-path 0.3) under each remat policy on the card: B10's forward
+    launches once a block under "none" and twice under the others, its
+    backward once; the gradients are bit-equal to those under "none"."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+
+    def grads(p):
+        cfg = dataclasses.replace(get_preset("tiny").model, dropout=0.1,
+                                  drop_path_rate=0.3, remat_policy=p)
+        model = DenseDiT(cfg, random_dense_params(cfg, 6), device="cuda")
+        rng = np.random.default_rng(7)
+        x, c = (torch.from_numpy(rng.standard_normal(
+            (2, 130, 1024), dtype=np.float32)).cuda() for _ in range(2))
+        n0 = (at.attention_train_fwd.launches,
+              at.attention_train_bwd.launches)
+        out = model(x, torch.tensor([0.2, 0.6], device="cuda"), c,
+                    deterministic=False, layer_seeds=[5, -6])
+        (out ** 2).mean().backward()
+        n = (at.attention_train_fwd.launches - n0[0],
+             at.attention_train_bwd.launches - n0[1])
+        return [q.grad for q in model.parameters()], n, cfg.depth
+
+    g, n, depth = grads(policy)
+    assert n == ((1 if policy == "none" else 2) * depth, depth)
+    g_none, _, _ = grads("none")
+    for a, b in zip(g, g_none):
+        assert torch.equal(a, b)

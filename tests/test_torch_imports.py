@@ -46,6 +46,14 @@ def test_audio_modules_are_among_those_imported():
         _port_modules())
 
 
+def test_training_modules_are_among_those_imported():
+    """The training entry point: the loop, checkpoints, the datasets and
+    the native loader's binding, profiling and the CLI."""
+    assert {"jatsr_torch.train.loop", "jatsr_torch.train.checkpoint",
+            "jatsr_torch.data.native_loader", "jatsr_torch.utils.profiling",
+            "jatsr_torch.cli.train"} <= set(_port_modules())
+
+
 def test_port_sources_never_name_the_jax_package():
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
@@ -85,6 +93,9 @@ def _entry_points():
     from jatsr_torch.models.dit import DenseDiT
     from jatsr_torch.train import create_train_state
     from jatsr_torch.train.step import Normalizer
+    from jatsr_torch.cli import train as train_cli
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.train.loop import Trainer
 
     small = DACConfig(encoder_dim=256, encoder_rates=(2, 4), decoder_dim=16,
                       decoder_rates=(4, 2))
@@ -103,6 +114,9 @@ def _entry_points():
         "create_train_state": lambda: create_train_state(
             DenseDiT(_tiny_train_cfg(), device="cpu"), TrainConfig(), 10,
             (np.zeros((1, 8, 1024)),) * 2),
+        "Trainer": lambda: Trainer(get_preset("tiny"), data_dir="absent"),
+        "train CLI": lambda: train_cli.main(["--preset", "tiny",
+                                             "--data-dir", "absent"]),
     }
 
 
@@ -116,7 +130,8 @@ def _tiny_train_cfg():
                                   "DAC whole codec", "DAC bf16 decode",
                                   "Normalizer", "FlowSampler",
                                   "InferencePipeline", "DenseDiT",
-                                  "create_train_state"])
+                                  "create_train_state", "Trainer",
+                                  "train CLI"])
 def test_entry_points_refuse_to_run_on_cpu_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")

@@ -450,15 +450,17 @@ def test_init_dense_params_draws_as_flax():
         np.testing.assert_array_equal(back[k], v)
 
 
-@pytest.mark.parametrize("knob", [dict(remat_policy="dots"),
-                                  dict(remat_policy="attn_out"),
+@pytest.mark.parametrize("knob", [dict(dtype="float32"),
+                                  dict(param_dtype="bfloat16"),
                                   dict(scores_dtype="bfloat16"),
                                   dict(matmul_precision="int8"),
-                                  dict(remat_policy="mlp")])
+                                  dict(matmul_precision="int8_static")])
 def test_training_knobs_of_later_slices_raise(knob):
     """A knob of a training branch the port lacks raises where the model
-    trains (the training forward); one that every path reads
-    (``matmul_precision``) already where the model is built."""
+    trains (the training forward); one that every path reads (the compute
+    and parameter dtypes, ``matmul_precision="int8_static"``) already where
+    the model is built.  Every remat policy trains
+    (``tests/test_torch_remat.py``)."""
     x = torch.zeros(1, 8, 1024)
     with pytest.raises(NotImplementedError, match="later slice"):
         DenseDiT(_tiny(get_preset, **knob), device="cpu")(
