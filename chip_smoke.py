@@ -78,7 +78,10 @@ wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
 one against their plain versions.  B4 (matmul_fused) runs a row-quant
 launch and the same s8 wgmma GEMM (``csrc/w8a8_fused.cu``), bit-equal to
-its plain version; B14 (int8_matmul) is that GEMM alone, in bf16 and fp32
+its plain version, and so is its fp32 mode (an fp32 a, fp32 out: the row
+quant on fp32 rows, the GEMM's fp32 instance), timed beside it, which
+``w8a8_dot(impl="fused")`` takes for an fp32 lhs; B14 (int8_matmul) is that
+GEMM alone, in bf16 and fp32
 output, bit-equal to its plain version, and w8a8_dot(impl="pallas") (a
 row-quant launch writing the unfloored scale, then B14) bit-equal to
 impl="xla"; B12 (flash_out) runs its attention launch, then the same row
@@ -140,6 +143,21 @@ CPU: the production encoder and RVQ on 4096 samples, the 16 kHz -> 44.1
 kHz resample of 1 s, and one Heun call of the main path's sampler (its
 forwards counted).
 
+``python -m jatsr_torch.cli.evaluate`` grades the audio path's output
+against its input (the report's LSD and mel numbers must be finite).
+
+Data in, last: ``python -m jatsr_torch.cli.prepare_dataset`` on a corpus
+of five synthetic songs at 48 and 44.1 kHz (60, 20, 12, 5 s, and 0.5 s,
+under ``min_duration``) with the production codec at full width (random
+weights from seed 0, as the CLI takes without ``--dac-weights``): the log
+(four done, one skipped, no error), fp16 ``[frames, 1024]`` latents, the
+stats files, ``LatentDataset`` and ``load_stats`` on them, audio-sec/s
+and the peak memory; a second run encodes nothing; the pipeline in turns
+without and with its prefetch thread (bit-equal to the CLI's latents);
+the 60 s song alone; and one 1.5 s song on the card against the CPU
+plain path.  The corpus lives in a temporary directory, removed at the
+end.
+
 The timed passes of the eleven serving paths and the audio path run in
 turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
@@ -162,6 +180,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 STEPS, CFG_SCALE = 8, 3.0
@@ -1052,7 +1071,54 @@ def check_matmul_fused(torch):
             "replaces": "ops/int8_matmul.py:103 (JAX package, "
                         "int8_matmul_fused; pallas_call :151)",
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
-            **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H]}
+            **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H],
+            "fp32": check_b4_fp32(torch, a, w_q, w_s, w_t)}
+
+
+def check_b4_fp32(torch, a, w_q, w_s, w_t):
+    """B4's fp32 mode (``w8a8_dot(impl="fused")`` with an fp32 lhs: the row
+    quant on fp32 rows, then the GEMM's fp32 instance) at the out_proj
+    shape, on ``a`` in fp32 with 1e-3 of noise below its bf16 values (the
+    zero row and the large value kept): bit-equal to its plain version, as
+    the bf16 mode is (abs, max, multiply, divide and round before an exact
+    int32 product, then ``(acc * s) * ws`` in fp32).  ``w8a8_dot`` with the
+    fp32 lhs launches B4 once, returns fp32 and equals ``impl="xla"``.
+    Timed beside the bf16 mode."""
+    from jatsr_torch.ops.int8_matmul import (int8_matmul_fused,
+                                             matmul_fused_plain)
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    a32 = a.float() + 1e-3 * torch.randn(a.shape, generator=gen,
+                                         device="cuda")
+    a32[3] = 0.0
+    a32[5, 7] = 3.0e4
+    f32 = torch.float32
+    got = int8_matmul_fused(a32, w_q, w_s, out_dtype=f32, w_t=w_t)
+    want = matmul_fused_plain(a32, w_q, w_s, f32)
+    torch.cuda.synchronize()
+    if got.dtype != f32 or not torch.equal(got, want):
+        raise AssertionError("matmul_fused fp32: not bit-equal to its plain "
+                             "version")
+    n0 = int8_matmul_fused.launches
+    dot = w8a8_dot(a32[None], w_q, w_s, impl="fused", w_t=w_t)
+    if (int8_matmul_fused.launches != n0 + 1 or dot.dtype != f32
+            or not torch.equal(dot, w8a8_dot(a32[None], w_q, w_s))):
+        raise AssertionError("w8a8_dot(fp32 lhs, impl='fused'): not one B4 "
+                             "launch, fp32 and equal to impl='xla'")
+    log("[kernel] matmul_fused fp32 mode bit-equal to its plain version; "
+        "w8a8_dot(fp32 lhs, impl='fused') launches B4, fp32, == impl='xla'")
+    t = timings(lambda a, w_q, w_s, w_t: int8_matmul_fused(
+                    a, w_q, w_s, out_dtype=f32, w_t=w_t),
+                lambda a, w_q, w_s, w_t: matmul_fused_plain(a, w_q, w_s, f32),
+                lambda a, w_q, w_s, w_t: w8a8_dot(a, w_q, w_s),
+                (a32, w_q, w_s, w_t), big=(0, 1, 3))
+    M, K = a32.shape
+    b_ms, b_by = bound(nbytes_of(a32, w_q, w_s, got), 2 * M * K * got.shape[1],
+                       PEAK_INT8)
+    return {"max_abs_err": (got - want).abs().max().item(), **t,
+            "bound_ms": b_ms, "bound_by": b_by, "dtypes": ["float32",
+                                                           "float32"]}
 
 
 # ---- the third path's kernels (B12-B14) -------------------------------------
@@ -1807,6 +1873,7 @@ def audio_phase(torch, model, codec, counters, expected, card):
         f"{wav.shape[0]} samples at 44.1 kHz out, max |wav| "
         f"{np.abs(wav).max():.3f}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    evaluate_line(audio, wav)
     batch = audio_pipeline(model, codec, chunk_noise="batch")
     lat = batch.encode_lr_audio(audio, AUDIO_SR)
     a = batch.super_resolve_latent_to_audio(lat, SEED, STEPS, CFG_SCALE,
@@ -1819,6 +1886,42 @@ def audio_phase(torch, model, codec, counters, expected, card):
     if not np.array_equal(a, b):
         raise AssertionError("interleaved sample/decode != two-phase")
     return launches, serve
+
+
+def evaluate_line(audio, wav):
+    """``python -m jatsr_torch.cli.evaluate`` on the audio phase's output
+    against its input (resampled to 44.1 kHz on the host): the JAX CLI's
+    report (LSD, mel L1/L2, multi-scale, grade) of a random DiT's output;
+    the numbers must be finite."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jatsr_torch.cli import evaluate
+    from jatsr_torch.ops.resample import resample
+    from jatsr_torch.utils.audio_io import save_wav
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_evaluate_"))
+    try:
+        gt = resample(torch.from_numpy(audio)[None], AUDIO_SR, 44100)[0]
+        save_wav(tmp / "gt.wav", gt.numpy(), 44100)
+        save_wav(tmp / "pred.wav", wav, 44100)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            got = evaluate.main(["--pred", str(tmp / "pred.wav"), "--gt",
+                                 str(tmp / "gt.wav")])
+        log(f"[evaluate] the audio phase's output against its input "
+            f"({time.perf_counter() - t0:.1f} s on the host): "
+            + " | ".join(x.strip() for x in text.getvalue().splitlines()))
+        if not all(np.isfinite(v) for v in got.values()):
+            raise AssertionError(f"evaluate: {got}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check_audio_references(torch, codec):
@@ -2537,6 +2640,215 @@ def cli_train_phase(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The data-preparation corpus: (name, rate, seconds) of synthetic songs at
+# the rates users bring.  "long" is nine 8 s windows (7 s valid + 0.5 s
+# context each side; the JAX package pads the count to 16), "short" is
+# under DataConfig.min_duration (1 s) and is skipped.
+CORPUS = (("long", 48000, 60.0), ("b", 44100, 12.0), ("c", 48000, 20.0),
+          ("d", 44100, 5.0), ("short", 48000, 0.5))
+# The card-vs-CPU song (8 s at 48 kHz) runs at DataConfig's own windows: two
+# 8 s windows, stitched and trimmed as the corpus is (~1.8 TFLOP on the
+# CPU).  Frames with the same codes agree within one fp16 ulp + 1e-5 x max
+# |z| (the projection of the same codebook rows, sums in another order).
+# The quantizer works frame by frame, so a code flipped by a distance tie
+# that fp32 rounding breaks the other way moves that one frame only: 1 %
+# of the frames allows a few such ties (none seen in 260 frames at 1 s
+# chunks, PERF.md), while a fault in one window or in the trim moves half
+# of the song's frames.
+PREP_FRAMES_OFF = 0.01
+LATENT = 1024  # the 44.1 kHz codec's latent channels
+
+
+def write_corpus(root):
+    """The corpus as float32 WAVs under ``root`` (two tones a song and
+    noise, from the seed)."""
+    import numpy as np
+
+    from jatsr_torch.utils.audio_io import save_wav
+
+    rng = np.random.default_rng(SEED + 31)
+    for i, (name, sr, secs) in enumerate(CORPUS):
+        t = np.arange(int(sr * secs)) / sr
+        save_wav(root / f"{name}.wav", (
+            0.3 * np.sin(2 * np.pi * (220 + 55 * i) * t)
+            + 0.1 * np.sin(2 * np.pi * (6000 + 500 * i) * t)
+            + 0.03 * rng.standard_normal(len(t))).astype(np.float32), sr)
+
+
+def check_prepared(out):
+    """What a prepare run wrote: every song but "short" done, "short"
+    skipped, no error line; fp16 ``[frames, LATENT]`` latents (frames as the
+    metadata says, within 0.2 % of duration x 44100 / 512: the trim's hop
+    is measured on the padded window, 690 frames for 689.06); the port's
+    ``LatentDataset`` and ``load_stats`` read them.  Returns the songs'
+    seconds."""
+    import numpy as np
+
+    from jatsr_torch.data import LatentDataset, load_stats
+
+    lines = [json.loads(x) for x in
+             (out / "processed_files.jsonl").read_text().splitlines()]
+    status = {Path(e["path"]).stem: e["status"] for e in lines}
+    want = {name: "skipped" if name == "short" else "done"
+            for name, _, _ in CORPUS}
+    if status != want or any(e["status"] == "error" for e in lines):
+        raise AssertionError(f"prepare: log {lines}")
+    seconds = 0.0
+    for meta in out.glob("*/*.meta.json"):
+        m = json.loads(meta.read_text())
+        base = str(meta).removesuffix(".meta.json")
+        for part in ("hr", "lr"):
+            z = np.load(f"{base}.{part}.npy")
+            if (z.dtype != np.float16 or z.shape != (m["frames"], LATENT)
+                    or not np.isfinite(z).all()
+                    or abs(m["frames"] / (m["duration"] * 44100 / 512) - 1)
+                    > 2e-3):
+                raise AssertionError(f"prepare: {base}.{part}.npy {z.dtype} "
+                                     f"{z.shape}, meta {m}")
+        seconds += m["duration"]
+    stats = load_stats(str(out / "global_stats_separated.json"))
+    ds = LatentDataset(str(out), "train", target_frames=1378)
+    hr, lr = ds[0]
+    if (hr.shape != (1378, LATENT) or stats[0].shape != (LATENT,)
+            or not (stats[1] > 0).all()):
+        raise AssertionError(f"prepare: dataset {hr.shape}, stats "
+                             f"{stats[0].shape}")
+    for name in ("running_stats.npz", "global_stats.json"):
+        if not (out / name).exists():
+            raise AssertionError(f"prepare: no {name}")
+    return seconds
+
+
+def prepare_phase(torch, card):
+    """``python -m jatsr_torch.cli.prepare_dataset`` at the full width of the
+    44.1 kHz codec (random weights from seed 0, as the CLI takes without
+    ``--dac-weights``) on CORPUS: the log, the files and their shapes, the
+    dataset and stats reading them, audio-sec/s and the peak memory; a
+    second run encodes nothing.  Then the prefetch overlap: the pipeline
+    in turns without and with its prefetch thread (P S S P), each run's
+    latents bit-equal to the CLI's; the 60 s song alone (its peak memory);
+    and the card against the CPU plain path on one song."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from jatsr_torch.cli import prepare_dataset
+    from jatsr_torch.configs import DataConfig
+    from jatsr_torch.data import PreprocessPipeline
+    from jatsr_torch.models.dac import DAC
+    from jatsr_torch.utils.audio_io import save_wav
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_prepare_"))
+    try:
+        write_corpus(tmp / "src")
+        total = sum(secs for name, _, secs in CORPUS if name != "short")
+        args = ["--source-dirs", str(tmp / "src"), "--output-dir",
+                str(tmp / "out")]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts = prepare_dataset.main(args)
+        t_cli = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if counts != {"done": 4, "skipped": 1, "error": 0}:
+            raise AssertionError(f"prepare: counts {counts}")
+        seconds = check_prepared(tmp / "out")
+        log(f"[prepare] cli: {len(CORPUS) - 1} songs, {seconds:.1f} audio-s "
+            f"in {t_cli:.2f} s ({seconds / t_cli:.1f} audio-sec/s, codec "
+            f"build and first calls in it), peak {peak:.2f} GiB; {card}")
+        t0 = time.perf_counter()
+        again = prepare_dataset.main(args)
+        log(f"[prepare] second run: {again} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if again != {"done": 0, "skipped": 1, "error": 0}:
+            raise AssertionError(f"prepare: the second run {again}")
+
+        codec = DAC.random_init(0, device="cuda")
+        ref = {p.name: np.load(p) for p in (tmp / "out").glob("*/*.npy")}
+        runs = {"prefetch": [], "serial": []}
+        for i, mode in enumerate(("prefetch", "serial", "serial",
+                                  "prefetch")):
+            out = tmp / f"ab{i}"
+            pipe = PreprocessPipeline(codec, DataConfig(), str(out))
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                counts = pipe.run([str(tmp / "src")], verbose=False,
+                                  prefetch=mode == "prefetch")
+                torch.cuda.synchronize()
+                runs[mode].append(time.perf_counter() - t0)
+            names = {p.name for p in out.glob("*/*.npy")}
+            if (counts != {"done": 4, "skipped": 1, "error": 0}
+                    or names != set(ref)):
+                raise AssertionError(f"prepare: {mode} run {counts}, wrote "
+                                     f"{sorted(names)}, the CLI "
+                                     f"{sorted(ref)}")
+            for p in out.glob("*/*.npy"):
+                if not np.array_equal(np.load(p), ref[p.name]):
+                    raise AssertionError(f"prepare: {mode} {p.name} differs "
+                                         f"from the CLI's")
+            shutil.rmtree(out)
+        rate = {k: [round(total / t, 1) for t in v] for k, v in runs.items()}
+        log(f"[prepare] overlap A/B (P S S P), {total:.1f} audio-s a run: "
+            f"prefetch s {[round(t, 3) for t in runs['prefetch']]} "
+            f"({rate['prefetch']} audio-sec/s), serial s "
+            f"{[round(t, 3) for t in runs['serial']]} ({rate['serial']} "
+            f"audio-sec/s); latents bit-equal to the CLI's; {card}")
+
+        pipe = PreprocessPipeline(codec, DataConfig(), str(tmp / "one"))
+        prepared = pipe._prepare_song(str(tmp / "src" / "long.wav"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z = pipe._dispatch_encode(prepared)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        hr, _, meta = pipe._finalize_encode(str(tmp / "src" / "long.wav"),
+                                            prepared, z)
+        log(f"[prepare] the 60 s song alone: {z[0].shape[0]} windows of "
+            f"{z[2]} samples, resample, window and encode {t_enc * 1e3:.1f} ms "
+            f"({60.0 / t_enc:.1f} audio-sec/s), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{hr.shape[0]} frames; {card}")
+        if not np.array_equal(hr, ref["long.hr.npy"]):
+            raise AssertionError("prepare: the 60 s song alone differs")
+
+        rng = np.random.default_rng(SEED + 32)
+        t = np.arange(8 * 48000) / 48000
+        save_wav(tmp / "ref" / "song.wav", (
+            0.3 * np.sin(2 * np.pi * 500 * t)
+            + 0.03 * rng.standard_normal(len(t))).astype(np.float32), 48000)
+        cfg = DataConfig()
+        got = PreprocessPipeline(codec, cfg, str(tmp / "ref" / "card")
+                                 ).process_song(str(tmp / "ref" / "song.wav"))
+        cpu = DAC.random_init(0, device="cpu")
+        t0 = time.perf_counter()
+        want = PreprocessPipeline(cpu, cfg, str(tmp / "ref" / "cpu")
+                                  ).process_song(str(tmp / "ref" / "song.wav"))
+        t_cpu = time.perf_counter() - t0
+        off = []
+        for g, w in zip(got[:2], want[:2]):
+            w64 = w.astype(np.float64)
+            tol = (np.spacing(np.abs(w)).astype(np.float64)
+                   + 1e-5 * np.abs(w64).max())
+            bad = (np.abs(g.astype(np.float64) - w64) > tol).any(axis=1)
+            off.append(int(bad.sum()))
+        n = got[0].shape[0]
+        log(f"[prepare] one song (8 s at 48 kHz, two configured 8 s "
+            f"windows), card vs CPU plain path ({t_cpu:.1f} s of CPU): "
+            f"{got[0].shape} fp16; frames beyond one fp16 ulp + 1e-5 x max: "
+            f"HR {off[0]}, LR {off[1]} of {n} (bound "
+            f"{PREP_FRAMES_OFF:.0%}: a code flipped)")
+        if (got[0].shape != want[0].shape or got[2] != want[2]
+                or max(off) > PREP_FRAMES_OFF * n):
+            raise AssertionError(f"prepare: card vs CPU {off} of {n} frames")
+        return {"cli_s": t_cli, "audio_s": seconds, "peak_gib": peak,
+                "prefetch_s": runs["prefetch"], "serial_s": runs["serial"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def remat_phase(torch, dense, card, profile=False):
     """Two v3mod2 steps at batch 28 (dropout 0.1, drop-path 0.05, warmup
     0) under each remat policy, from the same weights, batch and draws:
@@ -2888,6 +3200,11 @@ def main() -> int:
     del dense
     torch.cuda.empty_cache()
     phases.done("remat policies")
+
+    # 8. Data in: python -m jatsr_torch.cli.prepare_dataset on a corpus at
+    #    the codec's full width, resumed; the prefetch overlap; card vs CPU.
+    prepare_phase(torch, card)
+    phases.done("data preparation")
 
     # Result lines.
     kernels = [dict(checks[k], launches=launches[

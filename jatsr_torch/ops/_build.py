@@ -43,17 +43,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _build_all() -> None:
-    """Compile every ``csrc/*.cu`` in parallel into ``build/``."""
-    global build_seconds
-    BUILD.mkdir(parents=True, exist_ok=True)
+def _compile(srcs, out_dir: Path) -> float:
+    """Compile each source into ``out_dir/lib<stem>.so``, one ``nvcc`` per
+    file, all started together; each compiler's output is kept in
+    ``out_dir/<stem>.log``.  Returns the seconds it took; raises with the
+    compiler's output if any build fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        out = BUILD / f"lib{src.stem}.so"
-        tmp = BUILD / f"lib{src.stem}.{os.getpid()}.so"
-        log = open(BUILD / f"{src.stem}.log", "w")
+    for src in srcs:
+        out = out_dir / f"lib{src.stem}.so"
+        tmp = out_dir / f"lib{src.stem}.{os.getpid()}.so"
+        log = open(out_dir / f"{src.stem}.log", "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, out, tmp, log,
                       subprocess.Popen(cmd, stdout=log,
@@ -64,12 +66,24 @@ def _build_all() -> None:
         log.close()
         if rc != 0:
             failed.append(f"{src.name} (rc {rc}):\n"
-                          + (BUILD / f"{src.stem}.log").read_text()[-4000:])
+                          + (out_dir / f"{src.stem}.log").read_text()[-4000:])
         else:
             os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_one(name: str, out_dir) -> float:
+    """Compile ``csrc/<name>.cu`` alone into ``out_dir`` (the environment
+    check's probe: nothing is loaded).  Returns the seconds it took."""
+    return _compile([CSRC / f"{name}.cu"], Path(out_dir))
+
+
+def _build_all() -> None:
+    """Compile every ``csrc/*.cu`` in parallel into ``build/``."""
+    global build_seconds
+    build_seconds = _compile(sorted(CSRC.glob("*.cu")), BUILD)
 
 
 def build_log(name: str) -> str:

@@ -102,7 +102,8 @@ cudaError_t s8_dequant(const void* aq, const void* s, const void* wt, const void
 
 // a [M, K] bf16 -> aq [M, K] s8, s [M] f32 by s8_rows.cuh's divide form (the
 // floored scale), then the GEMM on them under programmatic stream
-// serialisation: B4, and B12's out projection with the bias.
+// serialisation: B12's out projection, with the bias (B4 composes the same
+// two launches in w8a8_fused.cu, in bf16 or fp32).
 template <bool BIAS>
 cudaError_t s8_quant_dequant(const void* a, void* aq, void* s, const void* wt, const void* ws,
                              const void* bias, void* out, int M, int K, int N, cudaStream_t st) {

@@ -164,6 +164,93 @@ __global__ void quant_rows_raw(const __nv_bfloat16* __restrict__ a, int8_t* __re
   quant_row_twice<true>(a, aq, s, nullptr, M, K);
 }
 
+// ---- B4's fp32 mode: the divide form on fp32 rows ---------------------------
+// w8a8_dot(impl="fused") with an fp32 lhs.  The same floored scale and codes
+// as quant_rows_v's, on values that need no widening: each lane's groups of
+// eight, two 16-byte loads each.  Templates, so that only w8a8_fused.cu
+// builds them.
+
+__device__ __forceinline__ float absmax8(const float4& x, const float4& y) {
+  return fmaxf(fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w))),
+               fmaxf(fmaxf(fabsf(y.x), fabsf(y.y)), fmaxf(fabsf(y.z), fabsf(y.w))));
+}
+
+__device__ __forceinline__ uint2 quant8_f32(const float4& x, const float4& y, float sc) {
+  const float f[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+  return quant8(f, sc);
+}
+
+// One warp a row, the row in registers (V groups a lane: K <= 256 V).
+template <int V>
+__global__ void __launch_bounds__(256) quant_rows_f32_v(const float* __restrict__ a,
+                                                        int8_t* __restrict__ aq,
+                                                        float* __restrict__ s, int M, int K) {
+  griddep_launch();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const float4* ar = reinterpret_cast<const float4*>(a + (size_t)row * K);
+  float4 v[2 * V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 32 + lane) * 8;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    v[2 * i] = k < K ? __ldg(ar + k / 4) : z;
+    v[2 * i + 1] = k < K ? __ldg(ar + k / 4 + 1) : z;
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) amax = fmaxf(amax, absmax8(v[2 * i], v[2 * i + 1]));
+  amax = warp_max(amax);
+  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
+  int8_t* qr = aq + (size_t)row * K;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = (i * 32 + lane) * 8;
+    if (k < K) *reinterpret_cast<uint2*>(qr + k) = quant8_f32(v[2 * i], v[2 * i + 1], sc);
+  }
+  if (lane == 0) s[row] = sc;
+}
+
+// One warp a row of any length, read twice (the second read from L1 or L2).
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256) quant_rows_f32_twice(const float* __restrict__ a,
+                                                            int8_t* __restrict__ aq,
+                                                            float* __restrict__ s, int M,
+                                                            int K) {
+  griddep_launch();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const float4* ar = reinterpret_cast<const float4*>(a + (size_t)row * K);
+  float amax = 0.f;
+  for (int k = lane * 8; k < K; k += 256)
+    amax = fmaxf(amax, absmax8(__ldg(ar + k / 4), __ldg(ar + k / 4 + 1)));
+  amax = warp_max(amax);
+  const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
+  int8_t* qr = aq + (size_t)row * K;
+  for (int k = lane * 8; k < K; k += 256)
+    *reinterpret_cast<uint2*>(qr + k) = quant8_f32(__ldg(ar + k / 4), __ldg(ar + k / 4 + 1), sc);
+  if (lane == 0) s[row] = sc;
+}
+
+// a [M, K] fp32 -> aq [M, K] s8, s [M] f32 (the floored scales), for any K %
+// 8 == 0 (16-byte aligned rows): the row in registers up to K = 2048, read
+// twice past it.  Its first instruction lets the next launch start.
+template <int UNUSED = 0>
+cudaError_t launch_quant_rows_f32(const void* a, void* aq, void* s, int M, int K,
+                                  cudaStream_t st) {
+  const dim3 grid((M + 7) / 8), block(256);
+  auto A = (const float*)a;
+  auto Q = (int8_t*)aq;
+  auto S = (float*)s;
+  if (K <= 2048)
+    quant_rows_f32_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
+  else
+    quant_rows_f32_twice<><<<grid, block, 0, st>>>(A, Q, S, M, K);
+  return cudaGetLastError();
+}
+
 // Launches the divide form (RCP false) for any K % 8 == 0: up to 4096 a
 // warp a row, the row in its registers; up to 8192 (the patch embed's K) a
 // CTA a row; past that int8_gemm.cuh's two reads (which do not start the

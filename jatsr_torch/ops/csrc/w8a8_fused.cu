@@ -7,9 +7,11 @@
 // package's ops/int8_matmul.py.  Same math and rounding points:
 //   s    = max(max|a_row| * INV127, 1e-12)        the floored scale
 //   a_q  = rint(a / s)                            a true divide, half to even
-//   out  = bf16(((float)(a_q @ w_q) * s) * ws)    the same floored s, no bias
-// Only abs, max, multiply, divide and round touch the values, so the result
-// equals the two-stage path (quantise, then product) bit for bit.
+//   out  = OUT(((float)(a_q @ w_q) * s) * ws)     the same floored s, no bias
+// with a bf16 or fp32 (the JAX kernel's two) and OUT bf16 or fp32 (its
+// out_dtype, which w8a8_dot sets to the lhs's dtype).  Only abs, max,
+// multiply, divide and round touch the values, so the result equals the
+// two-stage path (quantise, then product) bit for bit.
 //
 // B14 replaces the TPU kernel int8_matmul (_kernel) of the same file: the
 // product on the caller's a_q with the caller's scale, unfloored,
@@ -23,15 +25,16 @@
 // What bounds them on the H100: at the out_proj shape (M = 2112, K = N =
 // 1280) B4's product is 6.92 G int8 operations (3.50 us at the 1979 TOP/s
 // peak) against 12.5 MB of compulsory traffic (3.72 us at 3.35 TB/s): bytes
-// bound it, narrowly.  At the qkv shape (N = 1792) B14's is 9.69 G
-// operations (4.90 us) against 12.6 MB (3.77 us): the tensor cores bound it.
+// bound it, narrowly; in fp32 (a and out) 23.3 MB (6.95 us) bound it.  At
+// the qkv shape (N = 1792) B14's is 9.69 G operations (4.90 us) against
+// 12.6 MB (3.77 us): the tensor cores bound it.
 //
 // Design: two launches.
-//   1. s8_rows.cuh's quant_rows_v (B4) or quant_rows_raw_v (B14): one warp
-//      a row, the row kept in registers between the max and the codes; it
-//      writes a_q [M, K] s8 and s [M] (2.7 MB at the serving shape,
-//      L2-resident).  Its first instruction lets the next launch start
-//      (griddepcontrol).
+//   1. s8_rows.cuh's quant_rows_v (B4; quant_rows_f32_v on fp32 rows) or
+//      quant_rows_raw_v (B14): one warp a row, the row kept in registers
+//      between the max and the codes; it writes a_q [M, K] s8 and s [M]
+//      (2.7 MB at the serving shape, L2-resident).  Its first instruction
+//      lets the next launch start (griddepcontrol).
 //   2. s8_dequant.cuh's GEMM (wgmma fed by TMA, 128 x 128 tiles, two CTAs
 //      an SM) on a_q and the weight K-major, wt [N, K], without the bias:
 //      one kernel body for both products.  It is launched with programmatic
@@ -62,14 +65,29 @@ extern "C" int w8a8_gemm(const void* aq, const void* s, const void* wt, const vo
                                           (cudaStream_t)stream);
 }
 
-// a [M, K] bf16; wt [N, K] s8 (the weight K-major); ws [N] f32.  Scratch:
-// aq [M, K] s8, s [M] f32.  Output: out [M, N] bf16.  Needs K % 64 == 0,
-// K >= 128 and N % 128 == 0.  Two launches, the second overlapping the
-// first's tail.
+// B4: a [M, K] bf16 or (a_f32) fp32; wt [N, K] s8 (the weight K-major); ws
+// [N] f32.  Scratch: aq [M, K] s8, s [M] f32.  Output: out [M, N] bf16 or
+// (out_f32) fp32.  Needs K % 64 == 0, K >= 128 and N % 128 == 0.  Two
+// launches, the second overlapping the first's tail.  An fp32 a takes
+// s8_rows.cuh's fp32 row quant (the same scale and codes, read without a
+// widening); an fp32 out the GEMM's fp32 instance, B14's.
+extern "C" int w8a8_fused_dt(const void* a, const void* wt, const void* ws, void* aq, void* s,
+                             void* out, int M, int K, int N, int a_f32, int out_f32,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = a_f32 ? launch_quant_rows_f32(a, aq, s, M, K, st)
+                              : launch_quant_rows<false>(a, aq, s, M, K, st);
+  if (e != cudaSuccess) return e;
+  return out_f32 ? s8_dequant<false, float>(aq, s, wt, ws, nullptr, out, M, K, N, true, st)
+                 : s8_dequant<false, __nv_bfloat16>(aq, s, wt, ws, nullptr, out, M, K, N, true,
+                                                    st);
+}
+
+// B4 in bf16 (tools/torch_b4_b7_split.py calls it in this tree and its
+// parents').
 extern "C" int w8a8_fused(const void* a, const void* wt, const void* ws, void* aq, void* s,
                           void* out, int M, int K, int N, void* stream) {
-  return s8_quant_dequant<false>(a, aq, s, wt, ws, nullptr, out, M, K, N,
-                                 (cudaStream_t)stream);
+  return w8a8_fused_dt(a, wt, ws, aq, s, out, M, K, N, 0, 0, stream);
 }
 
 // B14's quant launch (w8a8_dot(impl="pallas")): a [M, K] bf16 -> aq [M, K]

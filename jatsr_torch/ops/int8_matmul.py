@@ -177,13 +177,13 @@ def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     return g_q, g_s
 
 
-def matmul_fused_plain(a, w_q, w_scale):
+def matmul_fused_plain(a, w_q, w_scale, out_dtype=torch.bfloat16):
     """Plain PyTorch version of the fused W8A8 kernel: the floored scale
-    both divides and rescales, ``((acc * s) * ws) -> bf16``."""
+    both divides and rescales, ``((acc * s) * ws) -> out_dtype``."""
     a_q, s = quantize_rows(a)
     s = s.clamp_min(1e-12)
     acc = int8_mm(a_q, w_q).float()
-    return (acc * s * w_scale.reshape(1, -1)).to(torch.bfloat16)
+    return (acc * s * w_scale.reshape(1, -1)).to(out_dtype)
 
 
 def check_t(what, w_q, w_t):
@@ -197,29 +197,37 @@ def check_t(what, w_q, w_t):
                          f"{w_t.dtype}")
 
 
-def int8_matmul_fused(a, w_q, w_scale, *, w_t=None):
+_FUSED_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def int8_matmul_fused(a, w_q, w_scale, *, out_dtype=torch.bfloat16,
+                      w_t=None):
     """W8A8 product with the per-row quantisation of ``a`` inside the
-    kernel (the serving out_proj).
+    kernel (the serving out_proj; ``w8a8_dot(impl="fused")``).
 
     Args:
-        a: [M, K] bf16 activations (unquantised).
+        a: [M, K] bf16 or fp32 activations (unquantised).
         w_q: [K, N] int8 kernel; w_scale: [1, N] fp32.
+        out_dtype: bf16 or fp32 on the card (``w8a8_dot`` passes the
+            lhs's dtype, as the JAX package does); the plain version takes
+            any.
         w_t: [N, K] int8, ``w_q.t()`` contiguous: the K-major copy the
             card's kernel reads (``wgmma`` takes 8-bit operands K-major
             only); needed on the card, made once by the caller.  The plain
             version checks its shape and reads ``w_q``.
     Returns:
-        [M, N] bf16.
+        [M, N] out_dtype.
     """
     M = a.shape[0]
     K, N = check_weights("matmul_fused", a.shape[1], w_q, w_scale)
     check_t("matmul_fused", w_q, w_t)
     if a.device.type == "cpu":
-        return matmul_fused_plain(a, w_q, w_scale)
+        return matmul_fused_plain(a, w_q, w_scale, out_dtype)
     from . import _build
 
-    if a.dtype != torch.bfloat16:
-        raise TypeError(f"matmul_fused kernel takes bf16, got {a.dtype}")
+    if a.dtype not in _FUSED_DTYPES or out_dtype not in _FUSED_DTYPES:
+        raise TypeError(f"matmul_fused kernel takes and writes bf16 or fp32, "
+                        f"got a {a.dtype}, out_dtype {out_dtype}")
     if w_t is None:
         raise ValueError("matmul_fused: the card's kernel reads the weight "
                          "K-major: pass w_t = w_q.t().contiguous(), made once")
@@ -227,9 +235,9 @@ def int8_matmul_fused(a, w_q, w_scale, *, w_t=None):
         raise ValueError(f"matmul_fused: the s8 wgmma GEMM needs K >= 128, "
                          f"got {K}")
     lib = _build.load("w8a8_fused")
-    fn = lib.w8a8_fused
+    fn = lib.w8a8_fused_dt
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     dev = a.device
     a = _build.aligned(a)
@@ -237,9 +245,11 @@ def int8_matmul_fused(a, w_q, w_scale, *, w_t=None):
     ws = w_scale.reshape(N).float().contiguous()
     a_q = torch.empty((M, K), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = fn(a.data_ptr(), w_t.data_ptr(), ws.data_ptr(), a_q.data_ptr(),
-             s.data_ptr(), out.data_ptr(), M, K, N, _build.stream_ptr(dev))
+             s.data_ptr(), out.data_ptr(), M, K, N,
+             int(a.dtype == torch.float32), int(out_dtype == torch.float32),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "matmul_fused")
     int8_matmul_fused.launches += 1
     return out

@@ -42,7 +42,8 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     On the card "pallas" quantises a bf16 lhs in one launch
     (:func:`int8_quantize_rows`, bit-equal to the torch ops below) and
     starts the s8 kernel behind it early; an fp32 lhs keeps the torch ops,
-    and the kernel writes fp32.  Both kernels read the weight K-major:
+    and the kernel writes fp32.  "fused" takes a bf16 or fp32 lhs and
+    writes its dtype, as the JAX package's kernel does (``out_dtype``).  Both kernels read the weight K-major:
     ``w_t``, ``w_q.t()`` contiguous, made once by the caller
     (:class:`QuantDense` keeps it).
     """
@@ -55,7 +56,8 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     kernel = (lhs.device.type == "cuda" and K % 128 == 0 and N % 128 == 0
               and M >= 32)
     if impl == "fused" and kernel:
-        out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale, w_t=w_t)
+        out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale,
+                                out_dtype=lhs.dtype, w_t=w_t)
         return out.reshape(*lead, N)
     if impl == "pallas" and kernel and lhs.dtype == torch.bfloat16:
         a_q, a_scale = int8_quantize_rows(lhs.reshape(M, K))

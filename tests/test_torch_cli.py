@@ -284,3 +284,167 @@ def test_cli_infer_serves_a_run(run, capsys):
     got8, _ = load_wav(d / "out_run8" / "song.lr_generated_cfg2.0.wav")
     assert got8.shape == got.shape and np.isfinite(got8).all()
     assert not np.array_equal(got8, got)
+
+
+# ---- data in, quality out --------------------------------------------------
+
+TINY_CODEC = dict(encoder_dim=8, encoder_rates=(2, 4), decoder_dim=16,
+                  decoder_rates=(4, 2), n_codebooks=2, codebook_size=16,
+                  codebook_dim=4)
+
+
+@pytest.fixture
+def tiny_codec(monkeypatch):
+    """The CLI's codec at ``test_data_pipeline.py``'s tiny geometry (the
+    production encoder on 8 s windows is minutes of CPU): ``DAC`` and
+    ``load_torch_checkpoint`` replaced where the CLI imports them; returns
+    the checkpoint paths the CLI loaded."""
+    from jatsr_torch.models import dac as dac_pkg
+    from jatsr_torch.models.dac import convert as dac_convert
+    from jatsr_torch.models.dac import init_params
+
+    cfg = DACConfig(**TINY_CODEC)
+
+    class TinyDAC(DAC):
+        def __init__(self, params, cfg_=None, **kw):
+            super().__init__(params, cfg, **kw)
+
+        @classmethod
+        def random_init(cls, seed=0, cfg_=None, **kw):
+            return cls(init_params(cfg, seed), **kw)
+
+    loaded = []
+    monkeypatch.setattr(dac_pkg, "DAC", TinyDAC)
+    monkeypatch.setattr(dac_convert, "load_torch_checkpoint",
+                        lambda p: loaded.append(p) or init_params(cfg, 7))
+    return TinyDAC, loaded
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """Two songs at the rates users bring (48 and 44.1 kHz) and one under
+    ``min_duration``."""
+    d = tmp_path_factory.mktemp("corpus")
+    rng = np.random.default_rng(3)
+    for name, sr, secs in (("a", 48000, 1.5), ("b", 44100, 1.2),
+                           ("short", 48000, 0.5)):
+        t = np.arange(int(sr * secs)) / sr
+        save_wav(d / f"{name}.wav", (0.3 * np.sin(2 * np.pi * 330 * t)
+                                     + 0.05 * rng.standard_normal(len(t))
+                                     ).astype(np.float32), sr)
+    return d
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """One torch CPU thread for the tiny codec (``tests/
+    test_torch_preprocess.py``'s fixture of that name says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_prepare_dataset_equals_the_pipeline_and_resumes(
+        corpus, tiny_codec, one_cpu_thread, tmp_path, capsys):
+    from jatsr_torch.cli import prepare_dataset as prep
+    from jatsr_torch.configs import DataConfig
+    from jatsr_torch.data import PreprocessPipeline
+
+    TinyDAC, loaded = tiny_codec
+    out = tmp_path / "out"
+    args = ["--source-dirs", str(corpus), "--output-dir", str(out),
+            "--chunk-duration", "1.0", "--overlap-duration", "0.1",
+            "--platform", "cpu"]
+    assert prep.main(args) == {"done": 2, "skipped": 1, "error": 0}
+    assert "RANDOM codec weights" in capsys.readouterr().out
+    want = tmp_path / "want"
+    cfg = dataclasses.replace(DataConfig(), chunk_duration=1.0,
+                              overlap_duration=0.1)
+    PreprocessPipeline(TinyDAC.random_init(0, device="cpu"), cfg,
+                       str(want)).run([str(corpus)], verbose=False)
+    got_files = sorted(p.relative_to(out) for p in out.rglob("*.npy"))
+    assert got_files == sorted(p.relative_to(want)
+                               for p in want.rglob("*.npy"))
+    for p in got_files:
+        np.testing.assert_array_equal(np.load(out / p), np.load(want / p))
+    assert (out / "global_stats_separated.json").read_text() == \
+        (want / "global_stats_separated.json").read_text()
+    # A second run encodes nothing; the weights' flag reaches the loader.
+    assert prep.main([*args, "--dac-weights", "w.pth"]) == {
+        "done": 0, "skipped": 1, "error": 0}
+    assert loaded == ["w.pth"]
+    assert prep.encode_devices(1, "cpu") is None
+    with pytest.raises(SystemExit, match="encode-devices"):
+        prep.encode_devices(2, "cpu")
+
+
+@pytest.fixture(scope="module")
+def graded(tmp_path_factory):
+    """A generated, a ground-truth and an LR wav at 44.1 kHz, 0.5 s."""
+    d = tmp_path_factory.mktemp("graded")
+    rng = np.random.default_rng(4)
+    t = np.arange(22050) / 44100
+    gt = 0.4 * np.sin(2 * np.pi * 440 * t) + 0.1 * np.sin(
+        2 * np.pi * 12000 * t) + 0.01 * rng.standard_normal(len(t))
+    for name, x in (("gt", gt), ("pred", gt + 0.02 * rng.standard_normal(
+            len(t))), ("lr", 0.4 * np.sin(2 * np.pi * 440 * t))):
+        save_wav(d / f"{name}.wav", x.astype(np.float32), 44100)
+    return d
+
+
+def test_cli_evaluate_prints_the_jax_report(graded, capsys):
+    from jatsr_tpu.cli import evaluate as jax_evaluate
+    from jatsr_torch.cli import evaluate
+
+    args = ["--pred", str(graded / "pred.wav"), "--gt",
+            str(graded / "gt.wav"), "--lr-baseline", str(graded / "lr.wav")]
+    jax_evaluate.main(args)
+    want = capsys.readouterr().out
+    got = evaluate.main([*args, "--platform", "cpu"])
+    assert capsys.readouterr().out == want
+    assert "improvement over LR baseline" in want and got["lsd"] > 0
+
+
+def test_cli_plot_spectrum_writes_pngs(graded, tmp_path):
+    from jatsr_torch.cli import plot_spectrum
+
+    one = plot_spectrum.main(["--input", str(graded / "gt.wav"), "--output",
+                              str(tmp_path / "one.png"), "--n-mels", "64"])
+    many = plot_spectrum.main(["--input", str(graded / "gt.wav"),
+                               str(graded / "pred.wav"), "--output",
+                               str(tmp_path / "many.png")])
+    for p in (one, many):
+        assert pathlib.Path(p).read_bytes()[:4] == b"\x89PNG"
+
+
+def test_cli_params_counts_equal_jax(capsys):
+    from jatsr_tpu.cli import params as jax_params
+    from jatsr_tpu.configs import list_presets as jax_presets
+    from jatsr_torch.cli import params
+    from jatsr_torch.configs import list_presets
+
+    assert list_presets() == jax_presets()
+    for name in list_presets():
+        assert params.analytic_counts(get_preset(name).model) == \
+            jax_params.analytic_counts(jax_get_preset(name).model), name
+    for argv in (["--preset", "v3mod2"], ["--compare", "v2", "v3"], []):
+        jax_params.main(argv)
+        want = capsys.readouterr().out
+        params.main(argv)
+        assert capsys.readouterr().out == want
+
+
+def test_cli_check_env(capsys):
+    from jatsr_torch.cli import check_env
+
+    check_env.main(["--platform", "cpu"])
+    out = capsys.readouterr().out
+    assert "environment OK" in out
+    for name in ("torch", "numpy", "scipy", "native latent loader", "nvcc"):
+        assert f"] {name}" in out, name
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            check_env.main([])
+        assert e.value.code == 1
+        assert "REQUIRED-MISSING] torch CUDA" in capsys.readouterr().out

@@ -280,6 +280,43 @@ def test_matmul_fused_kernel_matches_plain(card, M, K, N):
         int8_matmul_fused(a, w_q, w_s)
 
 
+@pytest.mark.parametrize("a_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_matmul_fused_kernel_other_dtypes_match_plain(card, a_dtype,
+                                                      out_dtype):
+    """B4's fp32 mode (the row quant on fp32 rows, the GEMM's fp32
+    instance) at the out_proj shape and past K = 2048 (the row read twice),
+    bit for bit, with an all-zero row and one large value; fp16 raises."""
+    for M, K, N in ((2112, 1280, 1280), (100, 4096, 384)):
+        a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=9)
+        a = (a.float() + 1e-3 * torch.randn_like(a.float())).to(a_dtype)
+        a[3] = 0.0
+        a[5, 7] = 3.0e4
+        w_t = w_q.t().contiguous()
+        n0 = int8_matmul_fused.launches
+        got = int8_matmul_fused(a, w_q, w_s, out_dtype=out_dtype, w_t=w_t)
+        assert int8_matmul_fused.launches == n0 + 1
+        want = matmul_fused_plain(a, w_q, w_s, out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, want)
+    with pytest.raises(TypeError, match="float16"):
+        int8_matmul_fused(a.half(), w_q, w_s, w_t=w_t)
+
+
+def test_w8a8_dot_fused_fp32_lhs_on_card(card):
+    """``w8a8_dot(impl="fused")`` with an fp32 lhs launches B4 and returns
+    fp32, equal to ``impl="xla"`` bit for bit."""
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    a, w_q, w_s, _ = _dense_inputs(card, 2 * 352, 1280, 1280, seed=10)
+    x = a.float().reshape(2, 352, 1280)
+    n0 = int8_matmul_fused.launches
+    got = w8a8_dot(x, w_q, w_s, impl="fused", w_t=w_q.t().contiguous())
+    assert int8_matmul_fused.launches == n0 + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, w8a8_dot(x, w_q, w_s, impl="xla"))
+
+
 def test_w8a8_dot_fused_equals_xla_on_card(card):
     """``impl="fused"`` launches the fused kernel and equals the two-stage
     ``impl="xla"`` path bit for bit (the JAX package's

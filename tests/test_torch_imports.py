@@ -54,6 +54,17 @@ def test_training_modules_are_among_those_imported():
             "jatsr_torch.cli.train"} <= set(_port_modules())
 
 
+def test_data_and_quality_modules_are_among_those_imported():
+    """Data in, quality out: preprocessing, the metrics and plots, the
+    layout helpers and the CLIs of that slice."""
+    assert {"jatsr_torch.data.preprocess", "jatsr_torch.metrics",
+            "jatsr_torch.metrics.audio", "jatsr_torch.metrics.plots",
+            "jatsr_torch.utils.layout", "jatsr_torch.cli.prepare_dataset",
+            "jatsr_torch.cli.evaluate", "jatsr_torch.cli.plot_spectrum",
+            "jatsr_torch.cli.params", "jatsr_torch.cli.check_env"} <= set(
+        _port_modules())
+
+
 def test_port_sources_never_name_the_jax_package():
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
@@ -93,6 +104,7 @@ def _entry_points():
     from jatsr_torch.models.dit import DenseDiT
     from jatsr_torch.train import create_train_state
     from jatsr_torch.train.step import Normalizer
+    from jatsr_torch.cli import prepare_dataset as prepare_cli
     from jatsr_torch.cli import train as train_cli
     from jatsr_torch.configs import get_preset
     from jatsr_torch.train.loop import Trainer
@@ -117,6 +129,8 @@ def _entry_points():
         "Trainer": lambda: Trainer(get_preset("tiny"), data_dir="absent"),
         "train CLI": lambda: train_cli.main(["--preset", "tiny",
                                              "--data-dir", "absent"]),
+        "prepare_dataset CLI": lambda: prepare_cli.main(
+            ["--source-dirs", "absent", "--output-dir", "absent"]),
     }
 
 
@@ -131,7 +145,7 @@ def _tiny_train_cfg():
                                   "Normalizer", "FlowSampler",
                                   "InferencePipeline", "DenseDiT",
                                   "create_train_state", "Trainer",
-                                  "train CLI"])
+                                  "train CLI", "prepare_dataset CLI"])
 def test_entry_points_refuse_to_run_on_cpu_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from jatsr_tpu.ops import int8_matmul as jax_mm
+from jatsr_tpu.ops.quant import w8a8_dot as jax_w8a8_dot
 from jatsr_torch.ops.int8_matmul import int8_matmul_fused, matmul_fused_plain
 from jatsr_torch.ops.prologue import (_pick_bn_rows, _prologue_plain,
                                       int8_norm_mod_dense_gelu_quant,
@@ -150,6 +151,51 @@ def test_matmul_fused_matches_jax(M, K, n):
     assert got.dtype == torch.bfloat16 and got.shape == (M, n)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("a_dtype,out_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32")])
+def test_matmul_fused_out_dtype_matches_jax(a_dtype, out_dtype):
+    """B4's other dtypes: an fp32 ``a`` and ``out_dtype`` fp32, as the JAX
+    kernel takes them (``int8_matmul_fused(..., out_dtype=...)``, interpret
+    mode); an all-zero row and one large value.  Bit-equal, as in bf16."""
+    rng = np.random.default_rng(16)
+    a = rng.standard_normal((100, 256)).astype(np.float32)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    if a_dtype == "bfloat16":
+        a = round_to_bf16(a)
+    w_q = rng.integers(-127, 128, (256, 384), dtype=np.int8)
+    w_s = (rng.uniform(0.5, 1.5, (1, 384)) / 127).astype(np.float32)
+    want = jax_mm.int8_matmul_fused(jnp.asarray(a, a_dtype), jnp.asarray(w_q),
+                                    jnp.asarray(w_s),
+                                    out_dtype=getattr(jnp, out_dtype),
+                                    interpret=True)
+    got = int8_matmul_fused(torch.from_numpy(a).to(getattr(torch, a_dtype)),
+                            torch.from_numpy(w_q), torch.from_numpy(w_s),
+                            out_dtype=getattr(torch, out_dtype))
+    assert got.dtype == getattr(torch, out_dtype) and got.shape == (100, 384)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_w8a8_dot_fused_takes_an_fp32_lhs():
+    """``w8a8_dot(impl="fused")`` with an fp32 lhs returns fp32, equal to
+    the JAX ``w8a8_dot`` (its plain path off a TPU) and to B4's fp32 plain
+    version, bit for bit."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 24, 256)).astype(np.float32)
+    w_q = rng.integers(-127, 128, (256, 384), dtype=np.int8)
+    w_s = (rng.uniform(0.5, 1.5, (1, 384)) / 127).astype(np.float32)
+    want = np.asarray(jax_w8a8_dot(jnp.asarray(x), jnp.asarray(w_q),
+                                   jnp.asarray(w_s), impl="fused"))
+    xt, w_qt, w_st = (torch.from_numpy(v) for v in (x, w_q, w_s))
+    got = w8a8_dot(xt, w_qt, w_st, impl="fused", w_t=w_qt.t().contiguous())
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = matmul_fused_plain(xt.reshape(48, 256), w_qt, w_st,
+                               out_dtype=torch.float32)
+    np.testing.assert_array_equal(plain.reshape(2, 24, 384).numpy(), want)
 
 
 def test_w8a8_dot_fused_equals_xla_on_cpu():
