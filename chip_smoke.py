@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's eleven serving paths end to end at full width, each
+then drives the port's thirteen serving paths end to end at full width, each
 once with its launches counted and then timed: the v3 766 M int8 DiT
 (random weights from a seed, quantized by the port) through the Euler CFG
 sampler over ~44 s of latent, then the segmented DAC decode (two
@@ -45,9 +45,21 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   launch, flash_split, dense_gelu_quant for the patch embed and every
   mlp_in; then the fused decode.
 - ``dynamic``: ``bench.py --precision int8 --int8-impl fused`` on
-  ``DenseDiT`` (the weights quantized at every call): matmul_fused for the
-  patch embed's two products and the six of every block, flash_split;
-  then the fused decode.
+  ``DenseDiT`` with bench.py's bf16 parameters (the weights quantized at
+  every call): matmul_fused for the patch embed's two products and the six
+  of every block, flash_split; then the fused decode.
+- ``bf16``: ``bench.py --bf16``, ``DenseDiT`` at precision bf16 with its
+  bf16 parameters (q/k/v apart, 345 patches: align_n is the int8 DiT's):
+  the products are ``torch.matmul``'s in bf16, flash_split a block; then
+  the fused decode.
+- ``fp32``: the main path's DiT at ``dtype="float32"`` (the fp32 compute
+  dtype of the JAX package's import tool and of a run preset that sets
+  it): the main path's kernels, each in its fp32 mode (norm_mod_dot,
+  flash_qkv on ``csrc/attention_f32.cu``, matmul_fused and
+  norm_mod_dense_gelu_quant a block, dense_gelu_quant for the patch
+  embed), their launches counted apart as ``<kernel>_fp32`` (a wrapper's
+  ``launches`` counts both modes, its ``f32_launches`` the fp32 one); then
+  the fused decode.
 - ``int8_qk``: the main path with ``--flash-int8-qk`` (flash_qkv with its
   s8 value product: a codes launch, then the attention, both counted apart
   from flash_qkv's bf16 launches, which are 0 here) and the decode under
@@ -72,7 +84,13 @@ at 345 patches, at those head dims and N = 1000, and at D 128, N 700
 codes bit-equal to the plain version's; the four DAC kernels again with
 the bf16 snake, at the same shapes, beside the same torch bf16 snake and
 cuDNN, each also run in fp32 mode on the same inputs to show the mode
-changes the result.  B1 and B3
+changes the result.  The five fp32 modes at the fp32 path's shapes, each
+timed beside its bf16 mode (``bf16_ms``): flash_qkv's (fp32 FMAs on the
+CUDA cores, rtol = atol = 1e-5), norm_mod_dot's (the fp32 prologue, the
+GEMM's fp32 instance; at most 0.5 % of the outputs past 2^-20 relative, a
+code moved by the statistics' order), norm_mod_dense_gelu_quant's and
+dense_gelu_quant's (the fp32 row loads; the bf16 modes' code bounds) and
+matmul_fused's.  B1 and B3
 (norm_mod_dense_gelu_quant, norm_mod_dot) run the s8
 wgmma GEMM of ``csrc/s8_wgmma.cuh`` on the weight K-major; the script
 prints the share of B3's outputs past one bf16 ulp and of B1's codes off by
@@ -158,7 +176,7 @@ the 60 s song alone; and one 1.5 s song on the card against the CPU
 plain path.  The corpus lives in a temporary directory, removed at the
 end.
 
-The timed passes of the eleven serving paths and the audio path run in
+The timed passes of the thirteen serving paths and the audio path run in
 turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused), one more train step and one more
@@ -192,6 +210,7 @@ SLEEP_CYCLES = 200_000_000    # the card's spin before a timed run of calls
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core OP/s
+PEAK_FP32 = 67e12             # fp32 FLOP/s outside the tensor cores
 B, NP, N_VALID, H = 6, 352, 345, 1280   # the main path's DiT batch and rows
 # The training path: v3mod2 at its batch of 16 s crops; a short warmup so
 # that the timed steps move the parameters (step 0 has lr 0, step 1 half).
@@ -214,8 +233,11 @@ SERVING = dict(param_dtype="bfloat16", dropout=0.0, drop_path_rate=0.0,
 # --flash-int8-qk --snake-bf16 (the main path with B2's s8 value product,
 # the decode's snake in bf16), the v1legacy preset (learned positions,
 # attention biases, 12/12 heads) and --precision int8 --int8-impl fused
-# (the dynamic W8A8 model, DenseDiT; fp32 parameters, which equal
-# bench.py's bf16 ones once the kernels are cast to bf16 at each product).
+# (the dynamic W8A8 model, DenseDiT, on bench.py's bf16 parameters).  Then
+# bench.py --bf16 (DenseDiT at precision bf16 with its bf16 parameters: q/k/v
+# apart, the split flash kernel) and the main path's DiT at the fp32 compute
+# dtype (the model the JAX package's import tool and a run preset with
+# "dtype": "float32" build: B3, B2, B4, B1 and B5 in their fp32 modes).
 PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "no_prologue": dict(fused_prologue=False, align_n=False),
          "opt_in": dict(fused_prologue=True, align_n=True,
@@ -237,19 +259,26 @@ PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "v1legacy": dict(fused_prologue=True, align_n=True),
          "dynamic": dict(fused_prologue=True, align_n=True,
                          matmul_precision="int8", fused_qkv=False,
-                         int8_impl="fused", param_dtype="float32")}
+                         int8_impl="fused"),
+         "bf16": dict(fused_prologue=True, align_n=True,
+                      matmul_precision="bf16", fused_qkv=False),
+         "fp32": dict(fused_prologue=True, align_n=True, dtype="float32")}
 PRESETS = {"v1legacy": "v1legacy"}        # the others: v3
 SNAKE = {"int8_qk": "bfloat16"}           # the decode's snake; else fp32
 FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
                 "opt_in": True, "split_flash": True, "pallas": True,
                 "pallas2": True, "int8_cli": True, "split_qkv": True,
-                "int8_qk": True, "v1legacy": True, "dynamic": True}
+                "int8_qk": True, "v1legacy": True, "dynamic": True,
+                "bf16": True, "fp32": True}
 # The kernels the main path does not run, by the path the kernel line takes
 # their launches from; the others' come from the main path.
 KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                "int8_matmul": "opt_in", "flash_split": "split_flash",
                "gqa_attention": "pallas", "gqa_attention_grouped": "pallas2",
                "flash_qkv_int8_qk": "int8_qk",
+               **{f"{k}_fp32": "fp32" for k in (
+                   "flash_qkv", "norm_mod_dot", "matmul_fused",
+                   "norm_mod_dense_gelu_quant", "dense_gelu_quant")},
                **{f"{k}_snake_bf16": "int8_qk" for k in (
                    "snake_conv_transpose_streamed",
                    "snake_conv_transpose_fused", "res_stage_fused",
@@ -385,12 +414,13 @@ def timings(kernel, plain, library, args, big, reps=100, plain_reps=20):
 
 def sdpa_inputs(torch, qkv, cos, sin, hq, hkv):
     """The SDPA yardstick's inputs: the RoPE'd, head-split q/k/v (kv heads
-    repeated) and the main path's key mask."""
+    repeated; the tables in qkv's dtype, bf16 or fp32) and the main path's
+    key mask."""
     from jatsr_torch.ops.attention import _rope
 
     D = qkv.shape[-1] // (hq + 2 * hkv)
     heads = qkv.reshape(B, NP, hq + 2 * hkv, D).permute(0, 2, 1, 3)
-    cb, sb = cos.bfloat16(), sin.bfloat16()
+    cb, sb = cos.to(qkv.dtype), sin.to(qkv.dtype)
     q = _rope(heads[:, :hq], cb, sb).contiguous()
     k = _rope(heads[:, hq:hq + hkv], cb, sb).repeat_interleave(hq // hkv, 1)
     v = heads[:, hq + hkv:].repeat_interleave(hq // hkv, 1).contiguous()
@@ -1073,6 +1103,245 @@ def check_matmul_fused(torch):
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H],
             "fp32": check_b4_fp32(torch, a, w_q, w_s, w_t)}
+
+
+# ---- the fp32 modes (the fp32 path: bench.py's default DiT at
+# dtype="float32", which hands B3, B2, B4, B1 and B5 fp32 activations) ------
+# B3's fp32 outputs against its plain version: the prologue's fp32
+# statistics run in another order, which can move a code by one and its
+# row by w/127 of a column, as in bf16 mode; every other output within
+# REL_F32 of the plain version's (the same fp32 operations on the same
+# codes).  At most 0.5 % of the outputs past it.
+REL_F32 = 2.0 ** -20
+
+
+def fp32_line(bf16_line, extra, source=None):
+    """The kernel line of the fp32 mode of ``bf16_line``'s kernel: its name
+    with ``_fp32``, its route, source (or ``source``) and TPU kernel, and
+    the bf16 mode's ms (``bf16_ms``, timed in this run) beside the fp32
+    mode's numbers in ``extra``."""
+    return {"name": bf16_line["name"] + "_fp32", "route": "cuda",
+            "source": source or bf16_line["source"],
+            "replaces": bf16_line["replaces"], "mode": "fp32", **extra,
+            "bf16_ms": bf16_line["ms"]}
+
+
+def check_attention_fp32(torch):
+    """flash_qkv's fp32 mode (``csrc/attention_f32.cu``) against its plain
+    version at the fp32 path's qkv [6, 352, 1792] fp32 with keys masked
+    past 345, and at [6, 345] with none masked: rtol = atol = 1e-5 (fp32
+    products and sums in another order); timed beside SDPA in fp32 on the
+    same RoPE'd heads with the key mask."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (flash_qkv_plain,
+                                           gqa_attention_flash_qkv)
+
+    hq, hkv, D = 20, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda")
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    err = 0.0
+    for n, n_valid in ((NP, N_VALID), (N_VALID, 0)):
+        x = qkv[:, :n].contiguous()
+        c, s = cos[:n].contiguous(), sin[:n].contiguous()
+        n0 = gqa_attention_flash_qkv.f32_launches
+        got = gqa_attention_flash_qkv(x, c, s, hq, hkv, n_valid=n_valid)
+        want = flash_qkv_plain(x, c, s, hq, hkv, n_valid=n_valid)
+        torch.cuda.synchronize()
+        if (got.dtype != torch.float32
+                or gqa_attention_flash_qkv.f32_launches != n0 + 1):
+            raise AssertionError("flash_qkv fp32: not one fp32-mode launch "
+                                 "writing fp32")
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        err = max(err, (got - want).abs().max().item())
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
+    t = timings(lambda x, c, s, q, k, v: gqa_attention_flash_qkv(
+                    x, c, s, hq, hkv, n_valid=N_VALID),
+                lambda x, c, s, q, k, v: flash_qkv_plain(
+                    x, c, s, hq, hkv, n_valid=N_VALID),
+                lambda x, c, s, q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask),
+                (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=50)
+    nbytes = nbytes_of(qkv, cos, sin) + B * NP * hq * D * 4
+    b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_FP32)
+    return {"max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
+
+
+def prologue_inputs_fp32(torch, N, seed):
+    """The fp32 path's prologue inputs: ``prologue_inputs``' with the
+    residual stream in fp32, 1e-3 of noise below its bf16 values."""
+    x, per, shared, w_q, w_s, b = prologue_inputs(torch, N, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x = x.float() + 1e-3 * torch.randn(x.shape, generator=gen, device="cuda")
+    return x, per, shared, w_q, w_s, b
+
+
+def check_norm_mod_dot_fp32(torch, norm):
+    """norm_mod_dot's fp32 mode (an fp32 x [6, 352, 1280], fp32 qkv out:
+    the fp32 prologue, then ``s8_dequant.cuh``'s fp32 GEMM with the bias)
+    against its plain version, both norms, per-sample and shared AdaLN
+    rows: at most 0.5 % of the outputs past ``REL_F32``."""
+    from jatsr_torch.ops.int8_matmul import int8_mm
+    from jatsr_torch.ops.prologue import int8_norm_mod_dot, norm_mod_dot_plain
+
+    N, f32 = 1792, torch.float32
+    x, per, shared, w_q, w_s, b = prologue_inputs_fp32(torch, N, SEED + 32)
+    w_t = w_q.t().contiguous()
+    err = far = 0.0
+    for kind in ("rms", "layer"):
+        for sc, sh in (per, shared):
+            n0 = int8_norm_mod_dot.f32_launches
+            got = int8_norm_mod_dot(x, sc, sh, w_q, w_s, b, norm=kind,
+                                    out_dtype=f32, w_t=w_t)
+            want = norm_mod_dot_plain(x, sc, sh, w_q, w_s, b, kind, f32)
+            torch.cuda.synchronize()
+            if (got.dtype != f32
+                    or int8_norm_mod_dot.f32_launches != n0 + 1):
+                raise AssertionError("norm_mod_dot fp32: not one fp32-mode "
+                                     "launch writing fp32")
+            f = ((got - want).abs() > want.abs() * REL_F32).float().mean()
+            far = max(far, f.item())
+            err = max(err, (got - want).abs().max().item())
+            if far > 0.005:
+                raise AssertionError(f"norm_mod_dot fp32 {kind}: {far:.4%} "
+                                     f"of the outputs past {REL_F32}")
+
+    def library(x, sc, sh, w_q, w_s, b):
+        a_q, s = torch_prologue(torch, x, sc, sh, norm)
+        return (int8_mm(a_q, w_q).float() * s * w_s + b).reshape(B, NP, N)
+
+    log(f"[kernel] norm_mod_dot fp32: {far:.6%} of the outputs past "
+        f"{REL_F32:.3g} of the plain version's")
+    sc, sh = shared
+    t = timings(lambda *a: int8_norm_mod_dot(*a[:6], norm=norm,
+                                             out_dtype=f32, w_t=a[6]),
+                lambda *a: norm_mod_dot_plain(*a[:6], norm=norm,
+                                              out_dtype=f32),
+                lambda *a: library(*a[:6]), (x, sc, sh, w_q, w_s, b, w_t),
+                big=(0, 3, 6))
+    b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * N * 4,
+                       2 * B * NP * H * N, PEAK_INT8)
+    return {"max_abs_err": err, "beyond_rel_frac": far, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, NP, H, N]}
+
+
+def check_norm_mod_gelu_fp32(torch, norm):
+    """norm_mod_dense_gelu_quant's fp32 mode (an fp32 x [6, 352, 1280])
+    against its plain version, both norms and both row shapes: the bf16
+    mode's bound on the codes and scales."""
+    from jatsr_torch.ops.int8_matmul import _INV127, _gelu, int8_mm
+    from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                          norm_mod_dense_gelu_quant_plain)
+
+    N = 5120
+    x, per, shared, w_q, w_s, b = prologue_inputs_fp32(torch, N, SEED + 33)
+    w_t = w_q.t().contiguous()
+    err = frac = 0.0
+    fn = int8_norm_mod_dense_gelu_quant
+    for kind in ("rms", "layer"):
+        for sc, sh in (per, shared):
+            n0 = fn.f32_launches
+            got = fn(x, sc, sh, w_q, w_s, b, norm=kind, w_t=w_t)
+            want = norm_mod_dense_gelu_quant_plain(x, sc, sh, w_q, w_s, b,
+                                                   kind)
+            torch.cuda.synchronize()
+            if fn.f32_launches != n0 + 1:
+                raise AssertionError("norm_mod_dense_gelu_quant fp32: not "
+                                     "one fp32-mode launch")
+            e, f = assert_codes(f"norm_mod_dense_gelu_quant fp32 {kind}",
+                                *got, *want, scale_rtol=2e-3)
+            err, frac = max(err, e), max(frac, f)
+
+    def library(x, sc, sh, w_q, w_s, b):
+        a_q, s = torch_prologue(torch, x, sc, sh, norm)
+        g = _gelu(int8_mm(a_q, w_q).float() * s * w_s + b)
+        gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
+        return torch.round(g / gs).to(torch.int8), gs
+
+    log(f"[kernel] norm_mod_dense_gelu_quant fp32: {frac:.6%} of the codes "
+        f"off by one from the plain version's")
+    sc, sh = shared
+    t = timings(lambda *a: fn(*a[:6], norm=norm, w_t=a[6]),
+                lambda *a: norm_mod_dense_gelu_quant_plain(*a[:6], norm=norm),
+                lambda *a: library(*a[:6]), (x, sc, sh, w_q, w_s, b, w_t),
+                big=(0, 3, 6))
+    b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * (N + 4),
+                       2 * B * NP * H * N, PEAK_INT8)
+    return {"max_abs_err": err, "code_mismatch_frac": frac, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, NP, H, N]}
+
+
+def check_dense_gelu_fp32(torch, M, K, N):
+    """dense_gelu_quant's fp32 mode (fp32 rows: the fp32 row quant, then
+    the same two passes) against its plain version, in both epilogue modes:
+    the bf16 mode's bound; timed in the paths' mode."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.int8_matmul import (_INV127, dense_gelu_quant_plain,
+                                             int8_dense_gelu_quant, int8_mm,
+                                             quantize_rows)
+
+    a, w_q, w_s, b = dense_inputs(torch, M, K, N, SEED + 34 + K)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    a = a.float() + 1e-3 * torch.randn(a.shape, generator=gen, device="cuda")
+    args = (a, w_q, w_s, b)
+    w_t = w_q.t().contiguous()
+    err = frac = 0.0
+    for fast in (False, True):
+        n0 = int8_dense_gelu_quant.f32_launches
+        got_q, got_s = int8_dense_gelu_quant(*args, fast_epilogue=fast,
+                                             w_t=w_t)
+        want_q, want_s = dense_gelu_quant_plain(*args, fast_epilogue=fast)
+        torch.cuda.synchronize()
+        if int8_dense_gelu_quant.f32_launches != n0 + 1:
+            raise AssertionError("dense_gelu_quant fp32: not one fp32-mode "
+                                 "launch")
+        e, f = assert_codes(f"dense_gelu_quant fp32 {M}x{K}x{N} fast={fast}",
+                            got_q, got_s, want_q, want_s)
+        err, frac = max(err, e), max(frac, f)
+
+    def library(a, w_q, w_s, b, _):
+        a_q, s = quantize_rows(a)
+        y = int8_mm(a_q, w_q).float() * s.clamp_min(1e-12) * w_s + b
+        g = F.gelu(y, approximate="tanh")
+        gs = (g.abs().amax(1, keepdim=True) * _INV127).clamp_min(1e-12)
+        return torch.round(g / gs).to(torch.int8), gs
+
+    t = timings(lambda a, w_q, w_s, b, w_t: int8_dense_gelu_quant(
+                    a, w_q, w_s, b, w_t=w_t),
+                lambda *x: dense_gelu_quant_plain(*x[:4]), library,
+                (*args, w_t), big=(0, 1, 4))
+    b_ms, b_by = bound(nbytes_of(*args, got_q, got_s), 2 * M * K * N,
+                       PEAK_INT8)
+    return {"shape": [M, K, N], "max_abs_err": err, "code_mismatch_frac": frac,
+            **t, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_fp32_modes(torch, norm, checks):
+    """The kernel lines of the five fp32 modes the fp32 path runs, each
+    held against its plain version at that path's shapes and timed beside
+    its bf16 mode (``checks``' lines, timed in this run): B2, B3, B1 and
+    B5 here, B4's from ``check_matmul_fused``."""
+    patch = check_dense_gelu_fp32(torch, B * NP, 8192, 512)
+    mlp_in = check_dense_gelu_fp32(torch, B * N_VALID, 1280, 5120)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    lines = [
+        fp32_line(checks["flash_qkv"], check_attention_fp32(torch),
+                  "jatsr_torch/ops/csrc/attention_f32.cu"),
+        fp32_line(checks["norm_mod_dot"], check_norm_mod_dot_fp32(torch, norm)),
+        fp32_line(checks["matmul_fused"], checks["matmul_fused"].pop("fp32")),
+        fp32_line(checks["norm_mod_dense_gelu_quant"],
+                  check_norm_mod_gelu_fp32(torch, norm)),
+        fp32_line(checks["dense_gelu_quant"],
+                  {**{k: patch[k] for k in keys}, "patch_embed": patch,
+                   "mlp_in_no_prologue": mlp_in}),
+    ]
+    return {line["name"]: line for line in lines}
 
 
 def check_b4_fp32(torch, a, w_q, w_s, w_t):
@@ -2979,7 +3248,7 @@ def main() -> int:
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "w8a8_fused",
                "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
                "attention_train", "attention_deferred", "attention_natural",
-               "attention_wide")
+               "attention_wide", "attention_f32")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -3016,6 +3285,7 @@ def main() -> int:
         **{k: patch[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
+    checks.update(check_fp32_modes(torch, norm, checks))
     checks.update(check_dac_kernels(torch))
     checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
@@ -3024,7 +3294,7 @@ def main() -> int:
         log(f"[kernel] {name} {json.dumps(c)}")
     phases.done("kernels against their plain versions")
 
-    # 4. The eleven serving paths at full width, on one set of dense
+    # 4. The thirteen serving paths at full width, on one set of dense
     #    weights for each preset (quantized for each int8_static layout)
     #    and one for each decode (fused, unfused).
     t0 = time.perf_counter()
@@ -3044,7 +3314,7 @@ def main() -> int:
 
     def build(name, device):
         cfg = cfgs[name]
-        if cfg.matmul_precision == "int8":
+        if cfg.matmul_precision in ("int8", "bf16"):
             return DenseDiT(cfg, denses[PRESETS.get(name, "v3")],
                             device=device)
         return DiT(cfg, static_of(name), device=device)
@@ -3075,6 +3345,13 @@ def main() -> int:
                 "gqa_attention_grouped": gqa_attention_grouped,
                 "flash_qkv_int8_qk": Count(gqa_attention_flash_qkv,
                                            "int8_qk_launches"),
+                **{f"{k}_fp32": Count(fn, "f32_launches") for k, fn in (
+                    ("flash_qkv", gqa_attention_flash_qkv),
+                    ("norm_mod_dot", int8_norm_mod_dot),
+                    ("matmul_fused", int8_matmul_fused),
+                    ("norm_mod_dense_gelu_quant",
+                     int8_norm_mod_dense_gelu_quant),
+                    ("dense_gelu_quant", int8_dense_gelu_quant))},
                 **{f"{k}_snake_bf16": Count(getattr(dk, k), "b16_launches")
                    for k in ("snake_conv_transpose_streamed",
                              "snake_conv_transpose_fused", "res_stage_fused",
@@ -3127,7 +3404,15 @@ def main() -> int:
                      **fused_decode},
         "dynamic": {**none, "flash_split": per_block,
                     "matmul_fused": STEPS * (2 + 6 * cfgs["dynamic"].depth),
-                    **fused_decode}})
+                    **fused_decode},
+        # --bf16: B11 a block (the products are torch.matmul's); fp32: the
+        # main path's launches, every one of B2-B5's in its fp32 mode (a
+        # wrapper's launches count both modes, its f32_launches the fp32
+        # one).
+        "bf16": {**none, "flash_split": per_block, **fused_decode},
+        "fp32": {**expected["prologue"],
+                 **{f"{k}_fp32": n for k, n in expected["prologue"].items()
+                    if f"{k}_fp32" in counters}}})
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
         models[name] = build(name, "cuda")

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``models/dit.py``.  :class:`DenseDiT` is the
 model at ``matmul_precision="bf16"`` (the branch the JAX model trains with,
-split q/k/v): fp32 parameters cast to bf16 at each product, dropout and
+split q/k/v): parameters in ``param_dtype`` (fp32, or bf16 as ``bench.py``
+serves them) cast to the compute dtype at each product, dropout and
 drop-path, the training attention kernel (B10) or the einsum attention,
 remat per block; its deterministic (eval) forward takes the serving
 attention the JAX model takes there.  Under ``matmul_precision="int8"`` it
@@ -18,19 +19,23 @@ MLP or the unfused QuantDense MLP; the fused or unfused patch embed; the
 fused prologue (``fused_prologue`` with ``align_n``: ``bench.py``'s
 default DiT); an int8 ``final_proj`` (``quantize_head``); RoPE or learned
 positions with attention biases (``v1legacy``); ``int8_impl`` "xla",
-"pallas" or "fused".  On the split q/k/v (``fused_qkv=False``,
+"pallas" or "fused".  The compute dtype is bf16 or fp32 (``dtype``): at fp32
+the activations the JAX model casts to its compute dtype are fp32, and the
+flash-QKV kernel, the fused prologue, the dense+GELU and the fused W8A8
+kernels take their fp32 modes.  On the split q/k/v (``fused_qkv=False``,
 ``flash_qkv=False``, learned positions, ``attention_impl`` "pallas",
 "pallas2" or "xla", or past the flash budget) the attention is the split
 flash kernel, the per-q-head or per-kv-head kernel, or the einsum.  Inputs
-are time-major ``[B, T, C]``; the residual stream is bf16; the output is
-fp32.  Module names mirror the JAX modules (``patch_in``,
+are time-major ``[B, T, C]``; the residual stream is in the compute dtype;
+the output is fp32.  Module names mirror the JAX modules (``patch_in``,
 ``blocks[i].attn.qkv_proj``, ``final_proj``...).
 
 A knob whose branch the port does not have (a compute dtype other than
-bf16; on :class:`DiT` a precision other than ``int8_static``) raises
-``NotImplementedError`` (:func:`check_serving_config`,
-:func:`check_dense_config`): the port never takes a different branch
-silently.
+bf16 and fp32, a kernel whose fp32 mode is not ported yet; on :class:`DiT`
+a precision other than ``int8_static``) raises ``NotImplementedError``
+where the model is built (:func:`check_serving_config`,
+:func:`check_dense_config`), naming ROADMAP.md, where it is queued: the
+port never takes a different branch silently.
 """
 
 from __future__ import annotations
@@ -56,12 +61,12 @@ from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
 from ..ops.quant import QuantDense, int8_dot_general
 from ..sampling.flow import linspace_f32
 from ..utils.device import resolve_device
-from .from_jax import init_dense_params, tree_to_torch
+from .from_jax import as_tensor, init_dense_params, tree_to_torch
 
 # ModelConfig fields that select a branch, with the values the port serves
 # and the later slice that brings the others.
 _SERVING_BRANCH = {
-    "dtype": (("bfloat16",), "other compute dtypes"),
+    "dtype": (("bfloat16", "float32"), "other compute dtypes"),
     "attention_impl": (("flash", "pallas", "pallas2", "xla"),
                        "other attention"),
 }
@@ -70,16 +75,56 @@ _SERVING_BRANCH = {
 def check_serving_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the int8 DiT's
     ported branches: a precision other than ``int8_static`` (the bf16 and
-    dynamic-int8 models are :class:`DenseDiT`'s) or a compute dtype other
-    than bf16."""
+    dynamic-int8 models are :class:`DenseDiT`'s), a compute dtype other
+    than bf16 and fp32, or an fp32 branch whose kernel has no fp32 mode
+    yet (:func:`f32_kernels_missing`)."""
     if cfg.matmul_precision != "int8_static":
         raise NotImplementedError(
             f"ModelConfig.matmul_precision={cfg.matmul_precision!r}: the "
             f"int8 DiT serves 'int8_static'; DenseDiT serves 'bf16' and "
             f"'int8'")
     _check_branch(cfg, _SERVING_BRANCH, "serves")
+    _check_f32(cfg)
     if cfg.gelu_impl not in ("tanh", "erf", "sigmoid"):
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
+
+
+def f32_kernels_missing(cfg: ModelConfig) -> list:
+    """The kernels whose fp32 modes the JAX model would reach with ``cfg``
+    at ``dtype="float32"`` and the port does not have yet (ROADMAP.md
+    §B.1): on the int8 DiT the split q/k/v flash kernel (B11: split q/k/v,
+    or the fused ones without ``flash_qkv`` or RoPE), the per-q-head and
+    per-kv-head kernels (B15, B16), the flash kernel with the out
+    projection (B12), the whole-MLP kernel (B13) and B2's int8 value
+    product; on ``DenseDiT`` (split q/k/v) B11, B15 and B16.  Decided from
+    the config alone, where the model is built."""
+    attn, int8 = cfg.attention_impl, cfg.matmul_precision == "int8_static"
+    flash_qkv = (int8 and attn == "flash" and cfg.fused_qkv and cfg.flash_qkv
+                 and cfg.pos_embed == "rope")
+    missing = []
+    if attn == "flash" and not flash_qkv:
+        missing.append("B11 (split q/k/v flash attention)")
+    if attn in ("pallas", "pallas2"):
+        missing.append(f"{'B16' if attn == 'pallas2' else 'B15'} "
+                       f"(attention_impl={attn!r})")
+    if flash_qkv and cfg.flash_fused_out:
+        missing.append("B12 (flash_fused_out)")
+    if flash_qkv and cfg.flash_int8_qk and not cfg.flash_fused_out:
+        missing.append("B2's int8 value product (flash_int8_qk)")
+    if int8 and cfg.fused_mlp and cfg.fused_mlp_impl == "full":
+        missing.append("B13 (fused_mlp_impl='full')")
+    return missing
+
+
+def _check_f32(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a served fp32 model on a branch
+    whose kernel has no fp32 mode in the port yet."""
+    missing = cfg.dtype == "float32" and f32_kernels_missing(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"ModelConfig.dtype='float32' reaches {', '.join(missing)} in "
+            f"fp32, whose fp32 modes a later slice of the port brings "
+            f"(ROADMAP.md §B.1)")
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -120,7 +165,8 @@ def _norm(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 class Dense(nn.Module):
     """``x @ kernel + bias`` in ``dtype``, kernel in the JAX ``[in, out]``
-    layout (cast once here, as flax casts before the product)."""
+    layout (cast once here, as flax casts before the product: a bf16
+    parameter is promoted exactly to an fp32 ``dtype``)."""
 
     def __init__(self, kernel, bias, dtype):
         super().__init__()
@@ -136,33 +182,45 @@ class Dense(nn.Module):
 def _dequant_dense(g_q, g_s, second: QuantDense):
     """The fused MLP's second half: an exact s8 product of the codes
     ``g_q [..., K]`` with row scales ``g_s [..., 1]``, then
-    ``((acc * g_s) * ws + b) -> bf16``."""
+    ``((acc * g_s) * ws + b)`` in the compute dtype (``second.dtype``)."""
     lead = g_q.shape[:-1]
     acc = int8_mm(g_q.reshape(-1, g_q.shape[-1]), second.kernel_q).float()
     acc = acc.reshape(*lead, -1)
     return (acc * g_s * second.kernel_scale + second.bias.float()
-            ).to(torch.bfloat16)
+            ).to(second.dtype)
 
 
 def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
                            first_t, gelu_impl="tanh", fast_epilogue=True):
     """The fused Dense-GELU-Dense of the patch embed and the block MLP:
     the int8 kernel for the first half (on ``first_t``, the first kernel
-    K-major, as the card's kernel reads it), an exact s8 product and an
-    fp32 dequant for the second; bf16 out."""
+    K-major, as the card's kernel reads it; its fp32 mode on an fp32
+    ``x2d``), an exact s8 product and an fp32 dequant for the second; out
+    in the compute dtype."""
     g_q, g_s = int8_dense_gelu_quant(
         x2d, first.kernel_q, first.kernel_scale, first.bias.float(),
         gelu_impl=gelu_impl, fast_epilogue=fast_epilogue, w_t=first_t)
     return _dequant_dense(g_q, g_s, second)
 
 
-def _quant_dense(p: dict, i=None, int8_impl="xla") -> QuantDense:
+def _quant_dense(p: dict, i=None, int8_impl="xla",
+                 dtype=torch.bfloat16) -> QuantDense:
     """The int8_static leaf ``p`` (layer ``i`` of a stacked one) as a
-    QuantDense."""
+    QuantDense computing in ``dtype``."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
     return QuantDense(pick(p["kernel_q"]), pick(p["kernel_scale"]),
-                      None if b is None else pick(b), int8_impl)
+                      None if b is None else pick(b), int8_impl, dtype)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The config's compute dtype (``dtype``) as a torch dtype."""
+    return getattr(torch, cfg.dtype)
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The config's parameter dtype (``param_dtype``) as a torch dtype."""
+    return getattr(torch, cfg.param_dtype)
 
 
 def fused_prologue_taken(cfg: ModelConfig, n: int) -> bool:
@@ -212,9 +270,9 @@ def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
     """The JAX model's einsum attention (XLA there; plain PyTorch here, no
     kernel): fp32 scores times ``1/sqrt(D)``; the softmax in fp32, or with
     ``scores_dtype="bfloat16"`` the max-shifted scores stored in bf16 and
-    ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``); bf16
-    weights @ v in fp32, out in q's dtype.  ``[B, N, Hq, D]`` and ``[B, N,
-    Hkv, D]`` -> ``[B, N, Hq*D]``."""
+    ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``); the
+    weights in q's dtype (bf16, or fp32) @ v in fp32, out in q's dtype.
+    ``[B, N, Hq, D]`` and ``[B, N, Hkv, D]`` -> ``[B, N, Hq*D]``."""
     B, N, hq, D = q.shape
     hkv = k.shape[2]
     qg = q.reshape(B, N, hkv, hq // hkv, D).float()
@@ -240,11 +298,11 @@ class GQAttention(nn.Module):
     def __init__(self, cfg: ModelConfig, p: dict, i: int):
         super().__init__()
         self.cfg = cfg
-        impl = cfg.int8_impl
+        impl, dt = cfg.int8_impl, compute_dtype(cfg)
         names = ("qkv_proj",) if cfg.fused_qkv else ("q_proj", "k_proj",
                                                     "v_proj")
         for name in names + ("out_proj",):
-            setattr(self, name, _quant_dense(p[name], i, impl))
+            setattr(self, name, _quant_dense(p[name], i, impl, dt))
         # The fused-prologue qkv kernel and the fused out-projection kernel
         # always add an fp32 bias: zeros where the projection has none.
         for name, proj in (("qkv_bias", getattr(self, "qkv_proj", None)),
@@ -294,7 +352,8 @@ class GQAttention(nn.Module):
             p = self.qkv_proj
             qkv = int8_norm_mod_dot(x, prenorm[0], prenorm[1], p.kernel_q,
                                     p.kernel_scale, self.qkv_bias,
-                                    norm=cfg.norm, w_t=self.qkv_kernel_t)
+                                    norm=cfg.norm, out_dtype=p.dtype,
+                                    w_t=self.qkv_kernel_t)
         else:
             qkv = self.qkv_proj(x)
         if (cfg.attention_impl == "flash" and cfg.flash_qkv
@@ -311,9 +370,10 @@ class GQAttention(nn.Module):
                                           int8_qk=cfg.flash_int8_qk)
             if prenorm is not None and not cfg.attention_bias:
                 o = self.out_proj
-                return int8_matmul_fused(
+                out = int8_matmul_fused(
                     out.reshape(B * N, hq * D), o.kernel_q, o.kernel_scale,
-                    w_t=self.out_kernel_t).reshape(B, N, -1)
+                    out_dtype=o.dtype, w_t=self.out_kernel_t)
+                return out.reshape(B, N, -1)
             return self.out_proj(out)
         q = qkv[..., :hq * D].reshape(B, N, hq, D)
         k = qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D)
@@ -345,9 +405,10 @@ class DiTBlock(nn.Module):
         self.attn = GQAttention(cfg, p["attn"], i)
         # The fused MLP kernels read the raw int8 weights; only the unfused
         # QuantDense MLP runs w8a8_dot(int8_impl).
-        impl = "xla" if cfg.fused_mlp else cfg.int8_impl
-        self.mlp_in = _quant_dense(p["mlp_in"], i, impl)
-        self.mlp_out = _quant_dense(p["mlp_out"], i, impl)
+        impl, dt = ("xla" if cfg.fused_mlp else cfg.int8_impl,
+                    compute_dtype(cfg))
+        self.mlp_in = _quant_dense(p["mlp_in"], i, impl, dt)
+        self.mlp_out = _quant_dense(p["mlp_out"], i, impl, dt)
         # mlp_in's K-major copy for the s8 wgmma kernels (the fused
         # prologue's, the dense+GELU and the whole MLP's first product), and
         # mlp_out's for the whole MLP's second product where it runs.
@@ -427,10 +488,10 @@ class DiT(nn.Module):
         self.fused_patch = (cfg.fused_mlp and (P * 2 * C) % 128 == 0
                             and cfg.bottleneck_dim % 128 == 0)
         p = tree_to_torch(params, self.device)
-        bf16, f32 = torch.bfloat16, torch.float32
+        dt, f32 = compute_dtype(cfg), torch.float32
         impl = "xla" if self.fused_patch else cfg.int8_impl
-        self.patch_in = _quant_dense(p["patch_in"], None, impl)
-        self.patch_out = _quant_dense(p["patch_out"], None, impl)
+        self.patch_in = _quant_dense(p["patch_in"], None, impl, dt)
+        self.patch_out = _quant_dense(p["patch_out"], None, impl, dt)
         # patch_in's K-major copy, which the dense+GELU kernel reads.
         self.register_buffer("patch_in_kernel_t",
                              self.patch_in.kernel_q.t().contiguous()
@@ -441,21 +502,21 @@ class DiT(nn.Module):
         self.t_mlp1 = Dense(p["t_mlp1"]["kernel"], p["t_mlp1"]["bias"], f32)
         self.t_mlp2 = Dense(p["t_mlp2"]["kernel"], p["t_mlp2"]["bias"], f32)
         blocks = p["blocks"]
-        self.register_buffer("adaln_kernel", blocks["adaln"]["kernel"].to(bf16))
-        self.register_buffer("adaln_bias", blocks["adaln"]["bias"].to(bf16))
+        self.register_buffer("adaln_kernel", blocks["adaln"]["kernel"].to(dt))
+        self.register_buffer("adaln_bias", blocks["adaln"]["bias"].to(dt))
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, blocks, i,
-                     Dense(self.adaln_kernel[i], self.adaln_bias[i], bf16))
+                     Dense(self.adaln_kernel[i], self.adaln_bias[i], dt))
             for i in range(cfg.depth))
         self.final_proj = (
-            _quant_dense(p["final_proj"], None, cfg.int8_impl)
+            _quant_dense(p["final_proj"], None, cfg.int8_impl, dt)
             if cfg.quantize_head else
-            Dense(p["final_proj"]["kernel"], p["final_proj"]["bias"], bf16))
+            Dense(p["final_proj"]["kernel"], p["final_proj"]["bias"], dt))
 
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
-        """fp32 t-MLP over the sinusoid; bf16 out."""
+        """fp32 t-MLP over the sinusoid; out in the compute dtype."""
         te = self.t_mlp1(sinusoidal_time_embedding(t, self.cfg.hidden_size))
-        return self.t_mlp2(F.silu(te)).to(torch.bfloat16)
+        return self.t_mlp2(F.silu(te)).to(compute_dtype(self.cfg))
 
     @torch.no_grad()
     def forward(self, x_t, t, x_cond, adaln_mod=None):
@@ -467,8 +528,8 @@ class DiT(nn.Module):
         if C != cfg.input_channels:
             raise ValueError(f"expected {cfg.input_channels} channels, got {C}")
         P = cfg.patch_len
-        x_t = x_t.to(torch.bfloat16)
-        x_cond = x_cond.to(torch.bfloat16)
+        x_t = x_t.to(compute_dtype(cfg))
+        x_cond = x_cond.to(compute_dtype(cfg))
         pad = (-T_orig) % P
         # align_n: pad the patch count to a multiple of 8 with zero frames,
         # masked as attention keys and trimmed from the output, where the
@@ -518,7 +579,8 @@ class DiT(nn.Module):
 @torch.no_grad()
 def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
     """Every layer's AdaLN modulation for flow times ``t [B]``:
-    ``[depth, B, 6H]`` bf16, the rows each block's adaln Dense would give.
+    ``[depth, B, 6H]`` in the compute dtype, the rows each block's adaln
+    Dense would give.
     ``model`` is a :class:`DiT` or a :class:`DenseDiT`."""
     a = F.silu(model.time_embedding(t))
     if isinstance(model, DenseDiT):
@@ -538,15 +600,16 @@ def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
 # flash_int8_qk...) select nothing here, as in the JAX model.
 _DENSE_BRANCH = {
     "matmul_precision": (("bf16", "int8"), "the int8_static model (DiT)"),
-    "dtype": (("bfloat16",), "other compute dtypes"),
-    "param_dtype": (("float32",), "other parameter dtypes"),
+    "dtype": (("bfloat16", "float32"), "other compute dtypes"),
+    "param_dtype": (("float32", "bfloat16"), "other parameter dtypes"),
     "attention_impl": (("flash", "pallas", "pallas2", "xla"),
                        "other attention"),
 }
 _TRAINING_BRANCH = {
     "matmul_precision": (("bf16",), "dynamic int8 in training"),
+    "dtype": (("bfloat16",), "fp32 training (B10's fp32 mode)"),
+    "param_dtype": (("float32",), "training with bf16 parameters"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
-    "scores_dtype": (("float32",), "bf16 score storage in training"),
     "remat_policy": (("full", "dots", "attn_out", "mlp", "none"),
                      "other remat policies"),
 }
@@ -558,14 +621,16 @@ def _check_branch(cfg: ModelConfig, branch: dict, what: str) -> None:
         if have not in have_ported:
             raise NotImplementedError(
                 f"ModelConfig.{name}={have!r} selects {later}, which a later "
-                f"slice of the port brings; the port {what} {name} in "
-                f"{have_ported!r}")
+                f"slice of the port brings (queued in ROADMAP.md); the port "
+                f"{what} {name} in {have_ported!r}")
 
 
 def check_dense_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose bf16 model (served
-    or trained) takes a branch the port does not have."""
+    or trained) takes a branch the port does not have: among them the fp32
+    attention kernels not ported yet (:func:`f32_kernels_missing`)."""
     _check_branch(cfg, _DENSE_BRANCH, "has")
+    _check_f32(cfg)
 
 
 def check_training_config(cfg: ModelConfig) -> None:
@@ -576,18 +641,19 @@ def check_training_config(cfg: ModelConfig) -> None:
 
 
 class TrainDense(nn.Module):
-    """flax ``nn.Dense(dtype, param_dtype=float32)``: an fp32 kernel
-    ``[in, out]`` and bias, both cast to ``dtype`` at each product.  With
-    ``int8_impl`` (``matmul_precision="int8"``; bf16 only) the product is
-    :func:`int8_dot_general` through ``w8a8_dot(int8_impl)``, the kernel
-    quantised at each call; the bias is added after it."""
+    """flax ``nn.Dense(dtype, param_dtype)``: a kernel ``[in, out]`` and
+    bias held in ``param_dtype`` (fp32, or bf16), both cast to ``dtype`` at
+    each product.  With ``int8_impl`` (``matmul_precision="int8"``) the
+    product is :func:`int8_dot_general` through ``w8a8_dot(int8_impl)``,
+    the kernel quantised at each call; the bias is added after it."""
 
-    def __init__(self, kernel, bias, dtype, device, int8_impl=None):
+    def __init__(self, kernel, bias, dtype, device, int8_impl=None,
+                 param_dtype=torch.float32):
         super().__init__()
 
         def param(t):
-            return nn.Parameter(torch.as_tensor(t).to(
-                device=device, dtype=torch.float32, copy=True))
+            return nn.Parameter(as_tensor(t).to(
+                device=device, dtype=param_dtype, copy=True))
 
         self.kernel = param(kernel)
         self.bias = None if bias is None else param(bias)
@@ -603,16 +669,17 @@ class TrainDense(nn.Module):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
-def _dense(p: dict, dtype, device, i=None, int8_impl=None) -> TrainDense:
+def _dense(p: dict, dtype, device, i=None, int8_impl=None,
+           param_dtype=torch.float32) -> TrainDense:
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
     return TrainDense(pick(p["kernel"]), None if b is None else pick(b),
-                      dtype, device, int8_impl)
+                      dtype, device, int8_impl, param_dtype)
 
 
 def _int8_impl(cfg: ModelConfig):
     """The ``int8_impl`` of the projections ``mk`` makes: the config's
-    under dynamic int8, else None (a bf16 product)."""
+    under dynamic int8, else None (a product in the compute dtype)."""
     return cfg.int8_impl if cfg.matmul_precision == "int8" else None
 
 
@@ -649,22 +716,22 @@ def _drop_path(x, rate: np.float32, gen):
 
 
 class TrainAttention(nn.Module):
-    """Split q/k/v projections, bf16 RoPE (none under learned positions),
-    then the training kernel (B10) or the einsum attention on the training
-    path, the JAX model's serving attention (:func:`split_attention`) on
-    the deterministic one, and the out projection."""
+    """Split q/k/v projections, RoPE in the compute dtype (none under
+    learned positions), then the training kernel (B10) or the einsum
+    attention on the training path, the JAX model's serving attention
+    (:func:`split_attention`) on the deterministic one, and the out
+    projection."""
 
     def __init__(self, cfg: ModelConfig, p: dict, i: int, device):
         super().__init__()
         self.cfg = cfg
-        bf16 = torch.bfloat16
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, _dense(p[name], bf16, device, i,
-                                       _int8_impl(cfg)))
+            setattr(self, name, _dense(p[name], compute_dtype(cfg), device, i,
+                                       _int8_impl(cfg), param_dtype(cfg)))
 
     def forward(self, x, cos, sin, seed, gen):
-        """``cos``/``sin``: ``[N, 1, D]`` in bf16, None under learned
-        positions; ``gen`` None on the deterministic path."""
+        """``cos``/``sin``: ``[N, 1, D]`` in the compute dtype, None under
+        learned positions; ``gen`` None on the deterministic path."""
         cfg = self.cfg
         B, N, _ = x.shape
         hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
@@ -682,8 +749,8 @@ class TrainAttention(nn.Module):
                 v.reshape(B, N, hkv * D), seed if cfg.dropout > 0.0 else 0,
                 hq, hkv, cfg.dropout)
             return self.out_proj(out)
-        return self.out_proj(einsum_attention(q, k, v, rate=cfg.dropout,
-                                              gen=gen))
+        return self.out_proj(einsum_attention(q, k, v, cfg.scores_dtype,
+                                              rate=cfg.dropout, gen=gen))
 
 
 class TrainBlock(nn.Module):
@@ -704,11 +771,11 @@ class TrainBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, p: dict, i: int, dp_rate, device):
         super().__init__()
         self.cfg = cfg
-        bf16 = torch.bfloat16
-        self.adaln = _dense(p["adaln"], bf16, device, i)
+        dt, pdt, mk = compute_dtype(cfg), param_dtype(cfg), _int8_impl(cfg)
+        self.adaln = _dense(p["adaln"], dt, device, i, None, pdt)
         self.attn = TrainAttention(cfg, p["attn"], i, device)
-        self.mlp_in = _dense(p["mlp_in"], bf16, device, i, _int8_impl(cfg))
-        self.mlp_out = _dense(p["mlp_out"], bf16, device, i, _int8_impl(cfg))
+        self.mlp_in = _dense(p["mlp_in"], dt, device, i, mk, pdt)
+        self.mlp_out = _dense(p["mlp_out"], dt, device, i, mk, pdt)
         self.dp_rate = dp_rate
 
     def forward(self, x, t_emb, cos, sin, seed=None, mod=None,
@@ -813,9 +880,12 @@ class DenseDiT(nn.Module):
             (``init_dense_params``) from ``generator``.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
 
-    Parameters are fp32 ``nn.Parameter`` s named after the JAX tree
-    (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``, ``pos_embed``
-    under learned positions...).
+    Parameters are ``nn.Parameter`` s in ``param_dtype`` (fp32, or bf16
+    where the JAX model stores bf16 leaves: every Dense, ``adaln``, the
+    t-MLP and ``pos_embed``; a bf16 model serves and does not train), named
+    after the JAX tree (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``,
+    ``pos_embed`` under learned positions...).  The compute dtype is bf16
+    or, serving, fp32 (``dtype``); the t-MLP is fp32 either way.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",
@@ -827,26 +897,27 @@ class DenseDiT(nn.Module):
         if params is None:
             params = init_dense_params(
                 cfg, generator or torch.Generator().manual_seed(0))
-        bf16, f32, dev = torch.bfloat16, torch.float32, self.device
-        mk = _int8_impl(cfg)
-        self.patch_in = _dense(params["patch_in"], bf16, dev, None, mk)
-        self.patch_out = _dense(params["patch_out"], bf16, dev, None, mk)
-        self.pos_embed = (nn.Parameter(torch.as_tensor(
-            params["pos_embed"]).to(device=dev, dtype=f32, copy=True))
+        dt, pdt, dev = compute_dtype(cfg), param_dtype(cfg), self.device
+        f32, mk = torch.float32, _int8_impl(cfg)
+        self.patch_in = _dense(params["patch_in"], dt, dev, None, mk, pdt)
+        self.patch_out = _dense(params["patch_out"], dt, dev, None, mk, pdt)
+        self.pos_embed = (nn.Parameter(as_tensor(params["pos_embed"]).to(
+            device=dev, dtype=pdt, copy=True))
             if cfg.pos_embed == "learned" else None)
-        self.t_mlp1 = _dense(params["t_mlp1"], f32, dev)
-        self.t_mlp2 = _dense(params["t_mlp2"], f32, dev)
+        # The fp32 island: bf16 parameters promoted at each product.
+        self.t_mlp1 = _dense(params["t_mlp1"], f32, dev, None, None, pdt)
+        self.t_mlp2 = _dense(params["t_mlp2"], f32, dev, None, None, pdt)
         dpr = linspace_f32(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
             TrainBlock(cfg, params["blocks"], i, dpr[i], dev)
             for i in range(cfg.depth))
-        self.final_proj = _dense(params["final_proj"], bf16, dev, None,
-                                 mk if cfg.quantize_head else None)
+        self.final_proj = _dense(params["final_proj"], dt, dev, None,
+                                 mk if cfg.quantize_head else None, pdt)
 
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
-        """fp32 t-MLP over the sinusoid; bf16 out."""
+        """fp32 t-MLP over the sinusoid; out in the compute dtype."""
         te = self.t_mlp1(sinusoidal_time_embedding(t, self.cfg.hidden_size))
-        return self.t_mlp2(F.silu(te)).to(torch.bfloat16)
+        return self.t_mlp2(F.silu(te)).to(compute_dtype(self.cfg))
 
     def forward(self, x_t, t, x_cond, deterministic: bool = True,
                 layer_seeds=None, adaln_mod=None):
@@ -866,10 +937,10 @@ class DenseDiT(nn.Module):
                                   or len(layer_seeds) != cfg.depth):
             raise ValueError(f"the training path needs {cfg.depth} layer "
                              f"seeds")
-        P = cfg.patch_len
+        P, dt = cfg.patch_len, compute_dtype(cfg)
         pad = (-T_orig) % P
-        x_t = F.pad(x_t.to(torch.bfloat16), (0, 0, 0, pad))
-        x_cond = F.pad(x_cond.to(torch.bfloat16), (0, 0, 0, pad))
+        x_t = F.pad(x_t.to(dt), (0, 0, 0, pad))
+        x_cond = F.pad(x_cond.to(dt), (0, 0, 0, pad))
         T = T_orig + pad
         N = T // P
         if N > cfg.max_len:
@@ -883,8 +954,7 @@ class DenseDiT(nn.Module):
         cos = sin = None
         if cfg.pos_embed == "rope":
             cos, sin = rope_cos_sin(N, cfg.head_dim, cfg.rope_base, h.device)
-            cos = cos[:, None].to(torch.bfloat16)
-            sin = sin[:, None].to(torch.bfloat16)
+            cos, sin = cos[:, None].to(dt), sin[:, None].to(dt)
         # Remat (only where autograd records): "full" and "dots" replay
         # the whole block in backward, "dots" keeping its projections'
         # outputs; "attn_out" and "mlp" run it as checkpointed segments.

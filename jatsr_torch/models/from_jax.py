@@ -195,7 +195,9 @@ def init_dense_params(cfg, generator: torch.Generator) -> dict:
 
 def dense_tree_from_module(model) -> dict:
     """A ``DenseDiT``'s parameters as the JAX float tree of fp32 numpy
-    arrays (block leaves stacked ``[depth, ...]``)."""
+    arrays (block leaves stacked ``[depth, ...]``); bf16 parameters come
+    out as their exact values, so a bf16 tree goes in and out bit for
+    bit."""
     return dense_tree_from_named(dict(model.named_parameters()), model.cfg)
 
 

@@ -11,8 +11,9 @@ tensor launches the hand-written kernel in ``csrc/attention_deferred.cu``
 (the two base-2 flash kernels, from the unsplit projection, with or without
 its int8 value product, and on split q/k/v), ``csrc/flash_qkv.cu`` (the
 flash kernel with the out projection) or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels),
-at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises.
-Nothing falls back.
+at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises; on
+an fp32 qkv the flash kernel from the unsplit projection takes its fp32
+mode, ``csrc/attention_f32.cu``.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -125,6 +126,12 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
             bf16 value product, ``int8_qk_launches`` those with the s8 one.
     Returns:
         [B, N, Hq*D] in qkv's dtype.
+
+    An fp32 qkv (the JAX model's at ``dtype="float32"``) takes the fp32
+    mode on the card, ``csrc/attention_f32.cu``: every product in fp32, as
+    the JAX kernel computes it on an fp32 input (:func:`flash_qkv_plain`
+    is that too).  ``launches`` counts it as well; ``f32_launches`` counts
+    it alone.  Its int8 value product is not ported (ROADMAP.md §B.1).
     """
     B, N, TD = qkv.shape
     if TD % (num_q_heads + 2 * num_kv_heads) or num_q_heads % num_kv_heads:
@@ -136,6 +143,15 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
         return flash_qkv_plain(qkv, cos, sin, num_q_heads, num_kv_heads,
                                n_valid, int8_qk=int8_qk)
     hq, hkv = num_q_heads, num_kv_heads
+    if qkv.dtype == torch.float32:
+        if int8_qk:
+            raise NotImplementedError(
+                "gqa_attention_flash_qkv: the int8 value product on an fp32 "
+                "qkv is a later slice of the port (ROADMAP.md §B.1)")
+        out = _flash_f32(qkv, cos, sin, hq, hkv, n_valid or N)
+        gqa_attention_flash_qkv.launches += 1
+        gqa_attention_flash_qkv.f32_launches += 1
+        return out
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
     out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, cos, sin,
                           int8_v=int8_qk)
@@ -148,6 +164,38 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
 
 gqa_attention_flash_qkv.launches = 0
 gqa_attention_flash_qkv.int8_qk_launches = 0
+gqa_attention_flash_qkv.f32_launches = 0
+
+F32_MAX_D = 256  # csrc/attention_f32.cu's widest tile
+
+
+def _flash_f32(qkv, cos, sin, hq, hkv, n_valid):
+    """B2's fp32 mode: one launch of ``csrc/attention_f32.cu`` on the
+    unsplit fp32 qkv ``[B, N, (hq + 2 hkv) D]`` and the fp32 tables ``[N,
+    D]``, keys at or past ``n_valid`` masked -> ``[B, N, hq D]`` fp32."""
+    from . import _build
+
+    B, N, TD = qkv.shape
+    D = TD // (hq + 2 * hkv)
+    if D % 2 or D > F32_MAX_D:
+        raise ValueError(f"the fp32 flash kernel takes an even head dim up "
+                         f"to {F32_MAX_D}, got {D}")
+    if cos.shape != (N, D) or sin.shape != (N, D):
+        raise ValueError(f"cos/sin must be [{N}, {D}]")
+    qkv = qkv.contiguous()
+    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    out = torch.empty((B, N, hq * D), dtype=torch.float32, device=qkv.device)
+    scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
+                                dtype=torch.float32))
+    lib = _build.load("attention_f32")
+    fn = lib.attention_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+             B, N, n_valid, hq, hkv, D, scale2, _build.stream_ptr(qkv.device))
+    _build.check(lib, err, "gqa_attention_flash_qkv(fp32)")
+    return out
 
 
 def _qkv_views(qkv, cos, sin, hq, hkv):

@@ -21,7 +21,9 @@
 //
 // Design: B1's GEMM without its prologue, three launches in one C call.
 //   1. s8_rows.cuh's row quant (the row in registers up to K = 8192, the
-//      patch embed's): a_q [M, K] s8 and s [M].
+//      patch embed's): a_q [M, K] s8 and s [M].  The fp32 mode (fp32 rows,
+//      the JAX model's at dtype="float32") takes its fp32 row quant: the
+//      row in registers up to K = 2048, read twice past it.
 //   2. and 3. s8_gelu.cuh's two passes on s8_wgmma.cuh's tile (wgmma fed by
 //      TMA, 128 x 128 tiles, two CTAs an SM) on a_q and the weight K-major,
 //      wt [N, K], which the caller makes once: pass 1 the rows' maxima
@@ -109,15 +111,29 @@ extern "C" int dgq_passes(const void* aq, const void* s, const void* wt, const v
                        (cudaStream_t)stream);
 }
 
-// a [M, K] bf16; wt [N, K] s8 (the weight K-major); ws, bias [N] f32.
-// Scratch: aq [M, K] s8, s [M] f32, part [M, N / 128] f32.  Outputs: gq
-// [M, N] s8, gs [M] f32.  Needs K % 128 == 0 and N % 128 == 0 (the wrapper
-// checks).  Three launches.
+// a [M, K] bf16, or (a_f32) fp32; wt [N, K] s8 (the weight K-major); ws,
+// bias [N] f32.  Scratch: aq [M, K] s8, s [M] f32, part [M, N / 128] f32.
+// Outputs: gq [M, N] s8, gs [M] f32.  Needs K % 128 == 0 and N % 128 == 0
+// (the wrapper checks).  Three launches.  The fp32 mode (an fp32 a: the JAX
+// model's patch embed and mlp_in at dtype="float32") quantises its rows by
+// s8_rows.cuh's fp32 row quant (B4's fp32 mode's: the same floored scale
+// and codes on values read without a widening); the passes are the same.
+extern "C" int dense_gelu_quant_dt(const void* a, const void* wt, const void* ws,
+                                   const void* bias, void* aq, void* s, void* part, void* gq,
+                                   void* gs, int M, int K, int N, int gelu_impl, int fast,
+                                   int a_f32, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = a_f32 ? launch_quant_rows_f32(a, aq, s, M, K, st)
+                              : launch_quant_rows<false>(a, aq, s, M, K, st);
+  if (e != cudaSuccess) return e;
+  return launch_passes(aq, s, wt, ws, bias, part, gq, gs, M, K, N, gelu_impl, fast, 3, st);
+}
+
+// B5 in bf16 (tools/torch_b5_b13_split.py calls it in this tree and its
+// parents').
 extern "C" int dense_gelu_quant(const void* a, const void* wt, const void* ws, const void* bias,
                                 void* aq, void* s, void* part, void* gq, void* gs, int M, int K,
                                 int N, int gelu_impl, int fast, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e = launch_quant_rows<false>(a, aq, s, M, K, st);
-  if (e != cudaSuccess) return e;
-  return launch_passes(aq, s, wt, ws, bias, part, gq, gs, M, K, N, gelu_impl, fast, 3, st);
+  return dense_gelu_quant_dt(a, wt, ws, bias, aq, s, part, gq, gs, M, K, N, gelu_impl, fast, 0,
+                             stream);
 }

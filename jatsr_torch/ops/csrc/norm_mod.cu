@@ -7,8 +7,9 @@
 //   int8_norm_mod_dense_gelu_quant (_norm_mod_gelu_kernel): mlp_in,
 //     g = gelu(((float)acc * s) * ws + b) in fp32, then int8 codes over the
 //     whole 4H row, as int8_dense_gelu_quant's fast epilogue.
-// Both start from the raw bf16 residual stream x and one sample's AdaLN
-// (scale, shift) rows, with _norm_mod's rounding points:
+// Both start from the raw residual stream x (bf16; fp32 in the fp32 mode,
+// the JAX model's at dtype="float32") and one sample's AdaLN (scale, shift)
+// rows, with _norm_mod's rounding points, the same in either mode:
 //   stats  fp32: mean(x), mean(x*x) (true divides by H)
 //   rms    xn = x * (1 / sqrt(mean(x*x) + 1e-6))
 //   layer  xn = (x - mu) * (1 / sqrt(mean(x*x) - mu*mu + 1e-6))  (no clamp)
@@ -33,12 +34,15 @@
 // each row's sample as row / Np; the modulation rows have an explicit batch
 // stride, 0 for the sampler's shared [1, H] row, H for [B, H].
 //   1. norm_mod_quant: one warp per row; three passes over the row (stats,
-//      absmax of y, codes), recomputing y, with x read from L1/L2; it
+//      absmax of y, codes), recomputing y, with x read from L1/L2 (fp32 x:
+//      the same, from two 16-byte loads of four values each); it
 //      writes a_q [M, H] s8 and s (2.7 MB: ~1.6 us of traffic, a launch of
 //      its own).
 //   2. the s8 GEMM of s8_wgmma.cuh (wgmma fed by TMA, 128 x 128 tiles) on
 //      a_q and the K-major weight [N, H]:
-//      qkv (B3): the dequant + bias epilogue straight to bf16;
+//      qkv (B3): the dequant + bias epilogue straight to bf16 (the fp32
+//      mode writes fp32, its out_dtype, through s8_dequant.cuh's fp32
+//      instance with the bias: the same operations, one rounding);
 //      mlp_in (B1): s8_gelu.cuh's two passes of the products, so that the
 //      fp32 g never goes through device memory.  Pass 1 computes each
 //      tile's g and writes its rows' max |g| (a [M, N / 128] fp32 partial,
@@ -51,12 +55,18 @@
 //      maxima exchanged through distributed shared memory, would run the
 //      products once; it is not built (PERF.md says why).
 
+#include <type_traits>
+
+#include "s8_dequant.cuh"
 #include "s8_gelu.cuh"
 
 namespace {
 
-template <bool RMS>
-__global__ void norm_mod_quant(const __nv_bfloat16* __restrict__ x,
+// F32 (the fp32 mode, last so that the bf16 instances keep their names but
+// for the flag): x is fp32, read as two 16-byte loads of four values; the
+// statistics, roundings and codes are the same.
+template <bool RMS, bool F32 = false>
+__global__ void norm_mod_quant(const std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ x,
                                const float* __restrict__ scale,
                                const float* __restrict__ shift, int mod_stride,
                                int rows_per_sample, int8_t* __restrict__ aq,
@@ -64,16 +74,23 @@ __global__ void norm_mod_quant(const __nv_bfloat16* __restrict__ x,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= M) return;
-  const __nv_bfloat16* xr = x + (size_t)row * H;
+  const auto* xr = x + (size_t)row * H;
   const size_t sample = (size_t)(row / rows_per_sample);
   const float* sc = scale + sample * mod_stride;
   const float* sh = shift + sample * mod_stride;
 
   auto load8 = [&](int k, float f[8]) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    if constexpr (F32) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + k);
+      const float4 b = *reinterpret_cast<const float4*>(xr + k + 4);
+      f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+      f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+    } else {
+      uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(e[i]);
+      for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(e[i]);
+    }
   };
 
   float s1 = 0.f, s2 = 0.f;
@@ -131,19 +148,29 @@ __global__ void norm_mod_quant(const __nv_bfloat16* __restrict__ x,
   if (lane == 0) s[row] = q;
 }
 
+template <bool F32>
+void launch_prologue_t(const void* x, const float* sc, const float* sh, int mod_stride, int np,
+                       void* aq, void* s, int M, int H, int rms, cudaStream_t st) {
+  const dim3 grid((M + 7) / 8), block(256);
+  auto X = (const std::conditional_t<F32, float, __nv_bfloat16>*)x;
+  if (rms)
+    norm_mod_quant<true, F32><<<grid, block, 0, st>>>(X, sc, sh, mod_stride, np, (int8_t*)aq,
+                                                      (float*)s, M, H);
+  else
+    norm_mod_quant<false, F32><<<grid, block, 0, st>>>(X, sc, sh, mod_stride, np, (int8_t*)aq,
+                                                       (float*)s, M, H);
+}
+
+// x bf16, or fp32 with x_f32.
 cudaError_t launch_prologue(const void* x, const void* scale, const void* shift,
                             int mod_stride, int np, void* aq, void* s, int M, int H,
-                            int rms, cudaStream_t st) {
-  const dim3 grid((M + 7) / 8), block(256);
-  auto X = (const __nv_bfloat16*)x;
+                            int rms, cudaStream_t st, int x_f32 = 0) {
   auto SC = (const float*)scale;
   auto SH = (const float*)shift;
-  if (rms)
-    norm_mod_quant<true><<<grid, block, 0, st>>>(X, SC, SH, mod_stride, np, (int8_t*)aq,
-                                                 (float*)s, M, H);
+  if (x_f32)
+    launch_prologue_t<true>(x, SC, SH, mod_stride, np, aq, s, M, H, rms, st);
   else
-    norm_mod_quant<false><<<grid, block, 0, st>>>(X, SC, SH, mod_stride, np, (int8_t*)aq,
-                                                  (float*)s, M, H);
+    launch_prologue_t<false>(x, SC, SH, mod_stride, np, aq, s, M, H, rms, st);
   return cudaGetLastError();
 }
 
@@ -295,31 +322,58 @@ extern "C" int s8_gelu_quant(const void* aq, const void* s, const void* wt, cons
                      (cudaStream_t)stream);
 }
 
-// x [M = B*np, H] bf16; scale, shift [B or 1, H] f32 with row stride
-// mod_stride (0 or H); wt [N, H] s8 (the weight K-major); ws, bias [N] f32.
-// Scratch: aq [M, H] s8, s [M] f32.  Output: out [M, N] bf16.  Needs
-// H % 128 == 0, N % 128 == 0.  Two launches.
+// x [M = B*np, H] bf16, or (x_f32) fp32; scale, shift [B or 1, H] f32 with
+// row stride mod_stride (0 or H); wt [N, H] s8 (the weight K-major); ws,
+// bias [N] f32.  Scratch: aq [M, H] s8, s [M] f32.  Output: out [M, N] bf16,
+// or (out_f32) fp32.  Needs H % 128 == 0, N % 128 == 0.  Two launches.  The
+// fp32 mode's GEMM is s8_dequant.cuh's fp32 instance with the bias (the
+// same y = ((float)acc * s) * ws + b, one rounding to fp32), behind the
+// fp32 prologue.
+extern "C" int norm_mod_dot_dt(const void* x, const void* scale, const void* shift,
+                               int mod_stride, const void* wt, const void* ws,
+                               const void* bias, void* aq, void* s, void* out, int M,
+                               int np, int H, int N, int rms, int x_f32, int out_f32,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st, x_f32);
+  if (e != cudaSuccess) return e;
+  if (out_f32) return s8_dequant<true, float>(aq, s, wt, ws, bias, out, M, H, N, false, st);
+  return launch_dot(aq, s, wt, ws, bias, out, M, H, N, st);
+}
+
+// B3 in bf16 (tools/torch_prologue_split.py calls it in this tree and its
+// parents').
 extern "C" int norm_mod_dot(const void* x, const void* scale, const void* shift,
                             int mod_stride, const void* wt, const void* ws,
                             const void* bias, void* aq, void* s, void* out, int M,
                             int np, int H, int N, int rms, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st);
-  if (e != cudaSuccess) return e;
-  return launch_dot(aq, s, wt, ws, bias, out, M, H, N, st);
+  return norm_mod_dot_dt(x, scale, shift, mod_stride, wt, ws, bias, aq, s, out, M, np, H, N, rms,
+                         0, 0, stream);
 }
 
-// As norm_mod_dot, with the GELU epilogue (fp32) and the whole-row requant.
-// Scratch: aq [M, H] s8, s [M] f32, part [M, N / 128] f32.  Outputs:
-// gq [M, N] s8, gs [M] f32.  Three launches: the prologue, the two passes.
+// As norm_mod_dot, with the GELU epilogue (fp32) and the whole-row requant;
+// x bf16, or (x_f32) fp32.  Scratch: aq [M, H] s8, s [M] f32, part [M, N /
+// 128] f32.  Outputs: gq [M, N] s8, gs [M] f32.  Three launches: the
+// prologue, the two passes.
+extern "C" int norm_mod_dense_gelu_quant_dt(const void* x, const void* scale,
+                                            const void* shift, int mod_stride,
+                                            const void* wt, const void* ws,
+                                            const void* bias, void* aq, void* s, void* part,
+                                            void* gq, void* gs, int M, int np, int H, int N,
+                                            int rms, int gelu_impl, int x_f32, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st, x_f32);
+  if (e != cudaSuccess) return e;
+  return launch_gelu(aq, s, wt, ws, bias, part, gq, gs, M, H, N, gelu_impl, 3, st);
+}
+
+// B1 in bf16 (tools/torch_prologue_split.py).
 extern "C" int norm_mod_dense_gelu_quant(const void* x, const void* scale,
                                          const void* shift, int mod_stride,
                                          const void* wt, const void* ws,
                                          const void* bias, void* aq, void* s, void* part,
                                          void* gq, void* gs, int M, int np, int H, int N,
                                          int rms, int gelu_impl, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st);
-  if (e != cudaSuccess) return e;
-  return launch_gelu(aq, s, wt, ws, bias, part, gq, gs, M, H, N, gelu_impl, 3, st);
+  return norm_mod_dense_gelu_quant_dt(x, scale, shift, mod_stride, wt, ws, bias, aq, s, part, gq,
+                                      gs, M, np, H, N, rms, gelu_impl, 0, stream);
 }

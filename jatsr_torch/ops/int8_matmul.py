@@ -117,7 +117,8 @@ def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
     """Fused ``quantize(gelu(dequant(a @ w_q) + b))``.
 
     Args:
-        a: [M, K] bf16 activations (unquantised).
+        a: [M, K] bf16 or fp32 activations (unquantised; fp32 is the JAX
+            model's at ``dtype="float32"``: the row quant reads fp32 values).
         w_q: [K, N] int8 kernel; w_scale: [1, N] fp32; bias: [1, N].
         w_t: [N, K] int8, ``w_q.t()`` contiguous: the K-major copy the
             card's kernel reads (``wgmma`` takes 8-bit operands K-major
@@ -125,6 +126,9 @@ def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
             version checks its shape and reads ``w_q``.
     Returns:
         (int8 [M, N], fp32 row scales [M, 1]).
+
+    ``launches`` counts every launch; ``f32_launches`` those of the fp32
+    mode (an fp32 ``a``).
     """
     if gelu_impl not in GELU_IMPLS:
         raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
@@ -137,6 +141,7 @@ def int8_dense_gelu_quant(a, w_q, w_scale, bias, *, gelu_impl="tanh",
 
 
 int8_dense_gelu_quant.launches = 0
+int8_dense_gelu_quant.f32_launches = 0
 
 _TILE = 128  # rows, columns and depth of a stage of the s8 wgmma tiles
 
@@ -144,8 +149,9 @@ _TILE = 128  # rows, columns and depth of a stage of the s8 wgmma tiles
 def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     from . import _build
 
-    if a.dtype != torch.bfloat16:
-        raise TypeError(f"dense_gelu_quant kernel takes bf16, got {a.dtype}")
+    if a.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"dense_gelu_quant kernel takes bf16 or fp32, got "
+                        f"{a.dtype}")
     if w_t is None:
         raise ValueError("dense_gelu_quant: the card's kernel reads the "
                          "weight K-major: pass w_t = w_q.t().contiguous(), "
@@ -154,10 +160,11 @@ def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
         raise ValueError(f"dense_gelu_quant: the s8 wgmma GEMM takes K in "
                          f"stages of 128, got K = {K}")
     lib = _build.load("dense_gelu_quant")
-    fn = lib.dense_gelu_quant
+    fn = lib.dense_gelu_quant_dt
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
+    f32 = a.dtype == torch.float32
     dev = a.device
     a = _build.aligned(a)
     w_t = _build.aligned(w_t)
@@ -171,9 +178,10 @@ def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     err = fn(a.data_ptr(), w_t.data_ptr(), ws.data_ptr(), b.data_ptr(),
              a_q.data_ptr(), s.data_ptr(), part.data_ptr(), g_q.data_ptr(),
              g_s.data_ptr(), M, K, N, GELU_IMPLS.index(gelu_impl),
-             int(bool(fast_epilogue)), _build.stream_ptr(dev))
+             int(bool(fast_epilogue)), int(f32), _build.stream_ptr(dev))
     _build.check(lib, err, "dense_gelu_quant")
     int8_dense_gelu_quant.launches += 1
+    int8_dense_gelu_quant.f32_launches += f32
     return g_q, g_s
 
 
@@ -197,7 +205,7 @@ def check_t(what, w_q, w_t):
                          f"{w_t.dtype}")
 
 
-_FUSED_DTYPES = (torch.bfloat16, torch.float32)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # what the kernels take and write
 
 
 def int8_matmul_fused(a, w_q, w_scale, *, out_dtype=torch.bfloat16,
@@ -217,6 +225,9 @@ def int8_matmul_fused(a, w_q, w_scale, *, out_dtype=torch.bfloat16,
             version checks its shape and reads ``w_q``.
     Returns:
         [M, N] out_dtype.
+
+    ``launches`` counts every launch; ``f32_launches`` those of the fp32
+    mode (an fp32 ``a``).
     """
     M = a.shape[0]
     K, N = check_weights("matmul_fused", a.shape[1], w_q, w_scale)
@@ -225,7 +236,7 @@ def int8_matmul_fused(a, w_q, w_scale, *, out_dtype=torch.bfloat16,
         return matmul_fused_plain(a, w_q, w_scale, out_dtype)
     from . import _build
 
-    if a.dtype not in _FUSED_DTYPES or out_dtype not in _FUSED_DTYPES:
+    if a.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES:
         raise TypeError(f"matmul_fused kernel takes and writes bf16 or fp32, "
                         f"got a {a.dtype}, out_dtype {out_dtype}")
     if w_t is None:
@@ -252,10 +263,12 @@ def int8_matmul_fused(a, w_q, w_scale, *, out_dtype=torch.bfloat16,
              _build.stream_ptr(dev))
     _build.check(lib, err, "matmul_fused")
     int8_matmul_fused.launches += 1
+    int8_matmul_fused.f32_launches += a.dtype == torch.float32
     return out
 
 
 int8_matmul_fused.launches = 0
+int8_matmul_fused.f32_launches = 0
 
 
 def matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16):

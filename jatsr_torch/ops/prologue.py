@@ -5,7 +5,9 @@ Ports of ``int8_norm_mod_dot`` (the qkv projection) and
 ``ops/int8_matmul.py``, with their eligibility gate.  Both read the raw
 residual stream ``x [B, Np, H]`` and one AdaLN ``(scale, shift)`` row per
 sample, ``[B, H]`` or ``[1, H]`` (the sampler's hoisted table, shared over
-the batch).  Each wrapper dispatches on the tensor's device: a CPU tensor
+the batch), bf16 or fp32 (the JAX model at ``dtype="float32"``: the same
+statistics, roundings and codes from fp32 loads; the qkv kernel then
+writes fp32, its ``out_dtype``).  Each wrapper dispatches on the tensor's device: a CPU tensor
 takes the plain PyTorch version below, a CUDA tensor launches the
 hand-written kernel in ``csrc/norm_mod.cu`` (the prologue, then the s8
 ``wgmma`` GEMM of ``csrc/s8_wgmma.cuh``) or raises.  Nothing falls back.
@@ -23,8 +25,8 @@ import ctypes
 
 import torch
 
-from .int8_matmul import (_INV127, GELU_IMPLS, _gelu, check_t,
-                          check_weights, int8_mm)
+from .int8_matmul import (_INV127, GELU_IMPLS, KERNEL_DTYPES, _gelu,
+                          check_t, check_weights, int8_mm)
 
 NORMS = ("rms", "layer")
 
@@ -78,14 +80,14 @@ def _prologue_plain(x, scale, shift, norm):
     return torch.round(y / s).to(torch.int8), s
 
 
-def s8_dot_plain(a_q, s, w_q, w_scale, bias):
+def s8_dot_plain(a_q, s, w_q, w_scale, bias, out_dtype=torch.bfloat16):
     """Plain PyTorch version of the qkv kernel's GEMM and epilogue on a
-    prologue's codes ``a_q [M, H]`` and scales ``s [M, 1]``: ``bf16(((acc *
-    s) * ws) + b)``, ``[M, N]``."""
+    prologue's codes ``a_q [M, H]`` and scales ``s [M, 1]``: ``out_dtype(((acc
+    * s) * ws) + b)``, ``[M, N]``."""
     acc = int8_mm(a_q, w_q).float()
     y = acc * s.reshape(-1, 1) * w_scale.reshape(1, -1) \
         + bias.reshape(1, -1).float()
-    return y.to(torch.bfloat16)
+    return y.to(out_dtype)
 
 
 def s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl="tanh"):
@@ -99,12 +101,14 @@ def s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl="tanh"):
     return torch.round(g / gs).to(torch.int8), gs
 
 
-def norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm="rms"):
-    """Plain PyTorch version of the qkv kernel: ``bf16(((acc * s) * ws)
-    + b)``, ``[B, Np, N]``."""
+def norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm="rms",
+                       out_dtype=torch.bfloat16):
+    """Plain PyTorch version of the qkv kernel: ``out_dtype(((acc * s) *
+    ws) + b)``, ``[B, Np, N]``."""
     B, Np, _ = x.shape
     a_q, s = _prologue_plain(x, scale, shift, norm)
-    return s8_dot_plain(a_q, s, w_q, w_scale, bias).reshape(B, Np, -1)
+    return s8_dot_plain(a_q, s, w_q, w_scale, bias, out_dtype).reshape(
+        B, Np, -1)
 
 
 def norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale, bias,
@@ -132,38 +136,51 @@ def _check(what, x, scale, shift, w_q, w_scale, bias, norm, w_t=None):
 
 
 def int8_norm_mod_dot(x, scale, shift, w_q, w_scale, bias, *, norm="rms",
-                      w_t=None):
-    """``bf16(dequant(quant(norm_mod(x)) @ w_q) + bias)`` -> [B, Np, N].
+                      out_dtype=torch.bfloat16, w_t=None):
+    """``out_dtype(dequant(quant(norm_mod(x)) @ w_q) + bias)`` -> [B, Np, N].
 
     Args:
-        x: [B, Np, H] bf16 raw residual stream.
+        x: [B, Np, H] bf16 or fp32 raw residual stream.
         scale, shift: [B or 1, H] AdaLN rows (the "1 +" is inside).
         w_q: [H, N] int8; w_scale: [1, N] fp32; bias: [1, N] fp32 (zeros
             when the projection has none).
+        out_dtype: bf16 or fp32 (the JAX kernel's ``out_dtype``, which the
+            JAX model sets to its compute dtype).
         w_t: [N, H] int8, ``w_q.t()`` contiguous: the K-major copy the
             kernel reads; needed on the card.
+
+    ``launches`` counts every launch; ``f32_launches`` those of the fp32
+    mode (an fp32 ``x``).
     """
     B, Np, H, N = _check("norm_mod_dot", x, scale, shift, w_q, w_scale, bias,
                          norm, w_t)
     if x.device.type == "cpu":
-        return norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm)
+        return norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm,
+                                  out_dtype)
     from . import _build
 
+    if out_dtype not in KERNEL_DTYPES:
+        raise TypeError(f"norm_mod_dot kernel writes bf16 or fp32, not "
+                        f"{out_dtype}")
     lib, head, _ = _shared_args("norm_mod_dot", x, scale, shift, w_t, w_scale,
                                 bias)
-    out = torch.empty((B, Np, N), dtype=torch.bfloat16, device=x.device)
-    fn = lib.norm_mod_dot
+    out = torch.empty((B, Np, N), dtype=out_dtype, device=x.device)
+    fn = lib.norm_mod_dot_dt
     fn.restype = ctypes.c_int
-    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
+    f32 = x.dtype == torch.float32
     err = fn(*head, out.data_ptr(), B * Np, Np, H, N, int(norm == "rms"),
+             int(f32), int(out_dtype == torch.float32),
              _build.stream_ptr(x.device))
     _build.check(lib, err, "norm_mod_dot")
     int8_norm_mod_dot.launches += 1
+    int8_norm_mod_dot.f32_launches += f32
     return out
 
 
 int8_norm_mod_dot.launches = 0
+int8_norm_mod_dot.f32_launches = 0
 
 
 def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
@@ -171,7 +188,8 @@ def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
     """``quantize(gelu(dequant(quant(norm_mod(x)) @ w_q) + b))`` with an
     fp32 epilogue -> (int8 [B, Np, N], fp32 row scales [B, Np, 1]).
 
-    Arguments as :func:`int8_norm_mod_dot`.
+    Arguments as :func:`int8_norm_mod_dot` (bf16 or fp32 ``x``); the
+    launches are counted as there.
     """
     if gelu_impl not in GELU_IMPLS:
         raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
@@ -188,19 +206,22 @@ def int8_norm_mod_dense_gelu_quant(x, scale, shift, w_q, w_scale, bias, *,
     part = torch.empty((M, -(-N // _TILE_N)), dtype=torch.float32, device=dev)
     g_q = torch.empty((B, Np, N), dtype=torch.int8, device=dev)
     g_s = torch.empty((B, Np, 1), dtype=torch.float32, device=dev)
-    fn = lib.norm_mod_dense_gelu_quant
+    fn = lib.norm_mod_dense_gelu_quant_dt
     fn.restype = ctypes.c_int
-    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = _HEAD_TYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
+    f32 = x.dtype == torch.float32
     err = fn(*head, part.data_ptr(), g_q.data_ptr(), g_s.data_ptr(), M, Np, H,
-             N, int(norm == "rms"), GELU_IMPLS.index(gelu_impl),
+             N, int(norm == "rms"), GELU_IMPLS.index(gelu_impl), int(f32),
              _build.stream_ptr(dev))
     _build.check(lib, err, "norm_mod_dense_gelu_quant")
     int8_norm_mod_dense_gelu_quant.launches += 1
+    int8_norm_mod_dense_gelu_quant.f32_launches += f32
     return g_q, g_s
 
 
 int8_norm_mod_dense_gelu_quant.launches = 0
+int8_norm_mod_dense_gelu_quant.f32_launches = 0
 
 # C types of the leading arguments both entry points take:
 # x, scale, shift, mod_stride, wt, ws, bias, aq, s.
@@ -232,8 +253,8 @@ def _shared_args(what, x, scale, shift, w_t, w_scale, bias):
     until the launch is enqueued."""
     from . import _build
 
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16, got {x.dtype}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what} kernel takes bf16 or fp32, got {x.dtype}")
     B, Np, H = x.shape
     w_t, ws, b = _weights_t(what, w_t, w_scale, bias)
     lib = _build.load("norm_mod")

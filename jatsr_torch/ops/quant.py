@@ -76,15 +76,18 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 class QuantDense(nn.Module):
     """Serving Dense with an int8 ``[K, N]`` kernel and fp32 ``[1, N]``
-    per-column scales; bf16 in and out, the optional bias added in bf16.
+    per-column scales; in and out in ``dtype`` (the model's compute dtype,
+    bf16 or fp32), the optional bias (in its parameter dtype) added in it.
     ``int8_impl`` is :func:`w8a8_dot`'s ``impl``; with ``"fused"`` or
     ``"pallas"`` the kernel is kept a second time K-major, ``kernel_t [N,
     K]`` (not in the state dict), which their kernels' s8 ``wgmma`` GEMM
     reads."""
 
     def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
-                 bias: torch.Tensor | None = None, int8_impl: str = "xla"):
+                 bias: torch.Tensor | None = None, int8_impl: str = "xla",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
         self.register_buffer("kernel_q", kernel_q.to(torch.int8))
         self.register_buffer("kernel_scale",
                              kernel_scale.float().reshape(1, -1))
@@ -95,7 +98,7 @@ class QuantDense(nn.Module):
         self.int8_impl = int8_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = w8a8_dot(x.to(torch.bfloat16), self.kernel_q, self.kernel_scale,
+        out = w8a8_dot(x.to(self.dtype), self.kernel_q, self.kernel_scale,
                        impl=self.int8_impl, w_t=self.kernel_t)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
@@ -109,9 +112,9 @@ def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla"
     every call (JAX's ``int8_dot_general``; nothing is cached across calls,
     as there), then :func:`w8a8_dot`.
 
-    ``kernel`` is the kernel after flax's cast to the compute dtype (bf16),
-    so the codes and scales equal :func:`quantize_params_static`'s bit for
-    bit: ``s = max|w| * _INV127``, ``q = round(w / max(s, 1e-12))``, half
+    ``kernel`` is the kernel after flax's cast to the compute dtype (bf16,
+    or fp32, which keeps its values), so at bf16 the codes and scales equal
+    :func:`quantize_params_static`'s bit for bit: ``s = max|w| * _INV127``, ``q = round(w / max(s, 1e-12))``, half
     to even.  Where ``impl`` is "fused" or "pallas" the codes are made
     K-major (``kernel.t()``, the layout their s8 ``wgmma`` GEMM reads) and
     ``w_q`` is that copy's transposed view, so one quantisation serves

@@ -1819,3 +1819,186 @@ def test_remat_policies_on_card(card, policy):
     g_none, _, _ = grads("none")
     for a, b in zip(g, g_none):
         assert torch.equal(a, b)
+
+
+# ---- the fp32 modes of B1, B2, B3 and B5, and the dtype branches ------------
+# B2's fp32 mode (csrc/attention_f32.cu: fp32 products and sums in another
+# order than the plain version's): rtol = atol = 1e-5.  B3's: at most 0.5 %
+# of the fp32 outputs past 2^-20 relative (a code moved by the prologue's
+# fp32 statistics, as in bf16 mode).  B1's and B5's: the bf16 modes' code
+# bounds.  Each launch counts in ``launches`` and ``f32_launches``.
+
+@pytest.mark.parametrize("hq,hkv,D,n,n_valid", [
+    (20, 4, 64, 352, 345), (20, 4, 64, 345, 0), (4, 2, 32, 90, 77),
+    (2, 1, 128, 70, 0), (2, 2, 256, 65, 60), (3, 1, 48, 100, 0),
+    (4, 2, 64, 1000, 990)])
+def test_flash_qkv_fp32_kernel_matches_plain(card, hq, hkv, D, n, n_valid):
+    gen = torch.Generator(device=card).manual_seed(40 + D)
+    qkv = torch.randn((3, n, (hq + 2 * hkv) * D), generator=gen, device=card)
+    cos, sin = rope_cos_sin(n, D, device=card)
+    n0 = (gqa_attention_flash_qkv.launches,
+          gqa_attention_flash_qkv.f32_launches)
+    got = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, n_valid=n_valid)
+    assert (gqa_attention_flash_qkv.launches - n0[0],
+            gqa_attention_flash_qkv.f32_launches - n0[1]) == (1, 1)
+    assert got.dtype == torch.float32
+    want = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=n_valid)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, int8_qk=True)
+
+
+def _fp32_rows(x, seed):
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return x.float() + 1e-3 * torch.randn(x.shape, generator=gen,
+                                          device=x.device)
+
+
+@SHAPES
+@ROWS
+@pytest.mark.parametrize("norm", ["rms", "layer"])
+def test_norm_mod_dot_fp32_kernel_matches_plain(card, B, Np, H, N, rows,
+                                                norm):
+    x, *rest = _prologue_inputs(card, B, Np, H, N, rows, seed=41)
+    args = (_fp32_rows(x, 42), *rest)
+    n0 = int8_norm_mod_dot.f32_launches
+    got = int8_norm_mod_dot(*args, norm=norm, out_dtype=torch.float32,
+                            w_t=args[3].t().contiguous())
+    assert int8_norm_mod_dot.f32_launches == n0 + 1
+    assert got.dtype == torch.float32
+    want = norm_mod_dot_plain(*args, norm=norm, out_dtype=torch.float32)
+    far = (got - want).abs() > want.abs() * 2.0 ** -20
+    assert far.float().mean().item() <= 0.005
+
+
+@pytest.mark.parametrize("B,Np,H", [(6, 352, 1280), (3, 40, 128),
+                                    (2, 37, 1280)])
+@ROWS
+def test_norm_mod_dense_gelu_quant_fp32_kernel_matches_plain(card, B, Np, H,
+                                                             rows):
+    x, *rest = _prologue_inputs(card, B, Np, H, 4 * H, rows, seed=43)
+    args = (_fp32_rows(x, 44), *rest)
+    n0 = int8_norm_mod_dense_gelu_quant.f32_launches
+    got_q, got_s = int8_norm_mod_dense_gelu_quant(
+        *args, norm="layer", w_t=args[3].t().contiguous())
+    assert int8_norm_mod_dense_gelu_quant.f32_launches == n0 + 1
+    want_q, want_s = norm_mod_dense_gelu_quant_plain(*args, norm="layer")
+    _assert_codes((got_q.reshape(B * Np, -1), got_s.reshape(-1, 1)),
+                  (want_q.reshape(B * Np, -1), want_s.reshape(-1, 1)),
+                  scale_rtol=2e-3)
+
+
+@pytest.mark.parametrize("fast_epilogue", [True, False])
+@pytest.mark.parametrize("M,K,N", [(2112, 8192, 512), (2070, 1280, 5120),
+                                   (100, 4096, 256)])
+def test_dense_gelu_quant_fp32_kernel_matches_plain(card, M, K, N,
+                                                    fast_epilogue):
+    """B5's fp32 mode at the patch embed, at mlp_in without the prologue,
+    and at K = 4096 (the fp32 row read twice past 2048); two calls
+    bit-equal."""
+    a, *rest = _dense_inputs(card, M, K, N, seed=45)
+    args = (_fp32_rows(a, 46), *rest)
+    w_t = args[1].t().contiguous()
+    n0 = int8_dense_gelu_quant.f32_launches
+    got = int8_dense_gelu_quant(*args, fast_epilogue=fast_epilogue, w_t=w_t)
+    assert int8_dense_gelu_quant.f32_launches == n0 + 1
+    _assert_codes(got, dense_gelu_quant_plain(*args,
+                                              fast_epilogue=fast_epilogue))
+    again = int8_dense_gelu_quant(*args, fast_epilogue=fast_epilogue, w_t=w_t)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(dtype="float32", fused_prologue=True, align_n=True),
+    dict(dtype="float32"),
+    dict(dtype="float32", fused_mlp=False, int8_impl="fused"),
+    dict(param_dtype="bfloat16", fused_prologue=True, align_n=True)],
+    ids=["fp32_prologue", "fp32", "fp32_unfused_mlp", "bf16_tree"])
+def test_narrow_dit_dtypes_on_card_match_cpu(card, knobs):
+    """The narrow int8 DiT at the fp32 compute dtype (with the fused
+    prologue: B3, B2, B4, B1 and B5 in fp32 mode; without it: B2 and B5;
+    the unfused QuantDense MLP through B4's fp32 mode) and from a bf16
+    tree, on the card against the same weights on the CPU's plain path:
+    relative L2 < 2e-2."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    cfg = dataclasses.replace(get_preset("tiny").model, **{
+        **dict(hidden_size=256, num_q_heads=4, num_kv_heads=2,
+               bottleneck_dim=128, input_channels=64, cond_channels=64,
+               matmul_precision="int8_static", fused_qkv=True,
+               fused_mlp=True, attention_impl="flash"), **knobs})
+    static = quantize_params_static(random_dense_params(cfg, 47), cfg)
+    if cfg.param_dtype == "bfloat16":
+        static = _bf16_leaves(static)
+    rng = np.random.default_rng(48)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    ref = DiT(cfg, static, device="cpu")(x_t, t, x_c)
+    n0 = gqa_attention_flash_qkv.f32_launches
+    out = DiT(cfg, static, device="cuda")(x_t.cuda(), t.cuda(),
+                                          x_c.cuda()).cpu()
+    f32 = cfg.dtype == "float32"
+    assert gqa_attention_flash_qkv.f32_launches - n0 == (cfg.depth if f32
+                                                         else 0)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+def _bf16_leaves(tree):
+    """An int8_static numpy tree as a model with bf16 parameters holds it:
+    every float leaf but the fp32 scales as a bf16 tensor."""
+    return {k: _bf16_leaves(v) if isinstance(v, dict)
+            else v if k == "kernel_scale" or v.dtype == np.int8
+            else torch.from_numpy(np.asarray(v, np.float32)).bfloat16()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(matmul_precision="bf16", param_dtype="bfloat16"),
+    dict(matmul_precision="int8", int8_impl="fused", param_dtype="bfloat16"),
+    dict(matmul_precision="bf16", dtype="float32", attention_impl="xla"),
+    dict(matmul_precision="int8", int8_impl="fused", dtype="float32",
+         attention_impl="xla")],
+    ids=["bf16_params", "int8_bf16_params", "fp32", "int8_fp32"])
+def test_dense_dit_dtypes_on_card_match_cpu(card, knobs):
+    """DenseDiT with bf16 parameters (``bench.py --bf16``: B11 a block;
+    ``--precision int8``: B4 at every projection) and at the fp32 compute
+    dtype with the einsum attention (B4's fp32 mode under int8), on the
+    card against the CPU: relative L2 < 2e-2."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, **{"attention_impl": "flash", **knobs})
+    dense = random_dense_params(cfg, 49)
+    rng = np.random.default_rng(50)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    with torch.no_grad():
+        ref = DenseDiT(cfg, dense, device="cpu")(x_t, t, x_c)
+        model = DenseDiT(cfg, dense, device="cuda")
+        assert {p.dtype for p in model.parameters()} == {
+            getattr(torch, cfg.param_dtype)}
+        n0 = (gqa_attention_flash.launches, int8_matmul_fused.f32_launches)
+        out = model(x_t.cuda(), t.cuda(), x_c.cuda()).cpu()
+    n = (gqa_attention_flash.launches - n0[0],
+         int8_matmul_fused.f32_launches - n0[1])
+    f32, int8 = cfg.dtype == "float32", cfg.matmul_precision == "int8"
+    assert n == (0 if f32 else cfg.depth,
+                 2 + 6 * cfg.depth if f32 and int8 else 0)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2

@@ -99,12 +99,13 @@ def test_quantize_params_static_matches_jax():
 
 @pytest.mark.parametrize("knob,value", [
     ("matmul_precision", "bf16"), ("matmul_precision", "int8"),
-    ("dtype", "float32"),
+    ("dtype", "float16"),
 ])
 def test_dit_raises_outside_the_slice(knob, value):
     """What the int8 DiT still raises for: a compute dtype other than bf16
-    (the fp32 variants of B1-B5 and B2 come with it), and a precision
-    other than int8_static, whose models are DenseDiT's."""
+    and fp32 (the fp32 branches whose kernels have no fp32 mode yet:
+    ``tests/test_torch_dtypes.py``), and a precision other than
+    int8_static, whose models are DenseDiT's."""
     import dataclasses
 
     from jatsr_torch.models.dit import DiT

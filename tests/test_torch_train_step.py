@@ -452,15 +452,15 @@ def test_init_dense_params_draws_as_flax():
 
 @pytest.mark.parametrize("knob", [dict(dtype="float32"),
                                   dict(param_dtype="bfloat16"),
-                                  dict(scores_dtype="bfloat16"),
                                   dict(matmul_precision="int8"),
                                   dict(matmul_precision="int8_static")])
 def test_training_knobs_of_later_slices_raise(knob):
     """A knob of a training branch the port lacks raises where the model
-    trains (the training forward); one that every path reads (the compute
-    and parameter dtypes, ``matmul_precision="int8_static"``) already where
-    the model is built.  Every remat policy trains
-    (``tests/test_torch_remat.py``)."""
+    trains (the training forward: fp32 compute, bf16 parameters and
+    dynamic int8 serve, and do not train); one that every path reads
+    (``matmul_precision="int8_static"``) already where the model is built.
+    Every remat policy trains (``tests/test_torch_remat.py``), and so do
+    bf16 scores (``tests/test_torch_dtypes.py``)."""
     x = torch.zeros(1, 8, 1024)
     with pytest.raises(NotImplementedError, match="later slice"):
         DenseDiT(_tiny(get_preset, **knob), device="cpu")(
