@@ -6,11 +6,11 @@
 Builds the hand-written kernels from ``jatsr_torch/ops/csrc/``, holds each
 against its plain PyTorch version at the serving paths' own shapes (and
 times kernel, plain version and a PyTorch library call as a yardstick),
-then drives the port's thirteen serving paths end to end at full width, each
-once with its launches counted and then timed: the v3 766 M int8 DiT
-(random weights from a seed, quantized by the port) through the Euler CFG
-sampler over ~44 s of latent, then the segmented DAC decode (two
-2884-frame segments, random weights from a seed).
+then drives the port's eighteen serving paths end to end at full width,
+each once with its launches counted and (but three short ones) then timed:
+the v3 766 M int8 DiT (random weights from a seed, quantized by the port)
+through the Euler CFG sampler over ~44 s of latent, then the segmented DAC
+decode (two 2884-frame segments, random weights from a seed).
 
 - The main path is ``bench.py``'s default end to end: the fused prologue
   with ``align_n`` (352 patches per chunk, keys masked past 345), where
@@ -70,6 +70,20 @@ sampler over ~44 s of latent, then the segmented DAC decode (two
   patches: no RoPE, so neither the fused prologue nor the flash-QKV
   kernel): flash_split at one q-head a kv-head and dense_gelu_quant; then
   the fused decode.
+- ``fp32_third`` and ``fp32_split``: the third path and ``--no-flash-qkv``
+  at ``dtype="float32"``, on the main path's workload: a block runs
+  int8_matmul writing fp32 (behind w8a8_dot's torch row quant of the fp32
+  qkv input), flash_out and int8_mlp in their fp32 modes
+  (``csrc/attention_f32.cu``, ``csrc/mlp_full.cu``'s fp32 row quant), or
+  flash_split in its fp32 mode and dense_gelu_quant's; dense_gelu_quant's
+  fp32 mode for the patch embed; then the fused decode.  Each fp32 mode's
+  launches are counted apart as ``<kernel>_fp32``.
+- ``fp32_pallas``, ``fp32_pallas2`` and ``fp32_int8_qk``: ``--attention
+  pallas``, ``--attention pallas2`` and ``--flash-int8-qk`` at fp32, on
+  one 16 s chunk (1378 frames) at two Euler steps with CFG and no decode:
+  gqa_attention, gqa_attention_grouped or flash_qkv's s8 value product in
+  fp32 mode a block (``flash_qkv_int8_qk_fp32``, behind the codes launch
+  on the fp32 v); counted, not timed, no CPU reference.
 
 The attention kernels are also held against their plain versions at head
 dim 32 (tiny's heads), at N = 1000, at head dims 128, 48 and 256 (v3's
@@ -84,9 +98,16 @@ at 345 patches, at those head dims and N = 1000, and at D 128, N 700
 codes bit-equal to the plain version's; the four DAC kernels again with
 the bf16 snake, at the same shapes, beside the same torch bf16 snake and
 cuDNN, each also run in fp32 mode on the same inputs to show the mode
-changes the result.  The five fp32 modes at the fp32 path's shapes, each
-timed beside its bf16 mode (``bf16_ms``): flash_qkv's (fp32 FMAs on the
-CUDA cores, rtol = atol = 1e-5), norm_mod_dot's (the fp32 prologue, the
+changes the result.  The eleven fp32 modes at their fp32 paths' shapes,
+each timed beside its bf16 mode (``bf16_ms``): flash_split's,
+gqa_attention's and gqa_attention_grouped's (``csrc/attention_f32.cu``,
+rtol = atol = 1e-5, the last two bit-equal: one launch on one grid),
+flash_out's (within REL_FLASH_OUT of max |plain|; then, through an
+identity out projection, its codes within the row quant's code bounds,
+which a head output in less than fp32 exceeds), int8_mlp's (its bf16 mode's bounds) and
+flash_qkv's s8 value product (atol = rtol = 1e-2, at most 1 % of the
+outputs past 1e-4, its codes of the fp32 v bit-equal), flash_qkv's (fp32
+FMAs on the CUDA cores, rtol = atol = 1e-5), norm_mod_dot's (the fp32 prologue, the
 GEMM's fp32 instance; at most 0.5 % of the outputs past 2^-20 relative, a
 code moved by the statistics' order), norm_mod_dense_gelu_quant's and
 dense_gelu_quant's (the fp32 row loads; the bf16 modes' code bounds) and
@@ -116,8 +137,9 @@ stage 1, checked at each stage's shape and at batch 2 with an odd T, each
 stage's launches timed apart; B6 and B9 are the wgmma kernel of
 ``csrc/dac_res.cu``.
 
-It checks each path's launch counts, the waveform, each full-width DiT on
-the card against the same DiT's plain path on the CPU at a small input,
+It checks each path's launch counts, the waveform (a finite latent on the
+short paths), each full-width DiT but the short paths' on the card against
+the same DiT's plain path on the CPU at a small input,
 the full-width fused decoder on the card against its plain path on the
 CPU (200 latent frames), and the fused decode against the unfused one on
 the card (one segment).
@@ -176,7 +198,7 @@ the 60 s song alone; and one 1.5 s song on the card against the CPU
 plain path.  The corpus lives in a temporary directory, removed at the
 end.
 
-The timed passes of the thirteen serving paths and the audio path run in
+The timed passes of the fifteen timed serving paths and the audio path run in
 turns.  With
 ``--profile`` it then traces one more sampler call of each path, one more
 decode of each (fused and unfused), one more train step and one more
@@ -263,13 +285,24 @@ PATHS = {"prologue": dict(fused_prologue=True, align_n=True),
          "bf16": dict(fused_prologue=True, align_n=True,
                       matmul_precision="bf16", fused_qkv=False),
          "fp32": dict(fused_prologue=True, align_n=True, dtype="float32")}
+# Then every other serving branch at the fp32 compute dtype: the third path
+# (B14 writing fp32, B12, B13 and B5 in fp32 mode) and --no-flash-qkv (B11)
+# on the main path's workload, and --attention pallas, pallas2 and
+# --flash-int8-qk (B15, B16, B2's s8 value product) on one 16 s chunk at
+# SHORT_STEPS (SHORT), without the decode.
+PATHS.update({f"fp32_{k}": dict(PATHS[p], dtype="float32") for k, p in (
+    ("third", "opt_in"), ("split", "split_flash"), ("pallas", "pallas"),
+    ("pallas2", "pallas2"), ("int8_qk", "int8_qk"))})
+SHORT = ("fp32_pallas", "fp32_pallas2", "fp32_int8_qk")
+SHORT_STEPS, SHORT_FRAMES = 2, 1378       # one 16 s chunk
 PRESETS = {"v1legacy": "v1legacy"}        # the others: v3
 SNAKE = {"int8_qk": "bfloat16"}           # the decode's snake; else fp32
 FUSED_DECODE = {"prologue": True, "no_prologue": False,  # --fused-decode
                 "opt_in": True, "split_flash": True, "pallas": True,
                 "pallas2": True, "int8_cli": True, "split_qkv": True,
                 "int8_qk": True, "v1legacy": True, "dynamic": True,
-                "bf16": True, "fp32": True}
+                "bf16": True, "fp32": True, "fp32_third": True,
+                "fp32_split": True}
 # The kernels the main path does not run, by the path the kernel line takes
 # their launches from; the others' come from the main path.
 KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
@@ -279,6 +312,11 @@ KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                **{f"{k}_fp32": "fp32" for k in (
                    "flash_qkv", "norm_mod_dot", "matmul_fused",
                    "norm_mod_dense_gelu_quant", "dense_gelu_quant")},
+               "flash_out_fp32": "fp32_third", "int8_mlp_fp32": "fp32_third",
+               "flash_split_fp32": "fp32_split",
+               "gqa_attention_fp32": "fp32_pallas",
+               "gqa_attention_grouped_fp32": "fp32_pallas2",
+               "flash_qkv_int8_qk_fp32": "fp32_int8_qk",
                **{f"{k}_snake_bf16": "int8_qk" for k in (
                    "snake_conv_transpose_streamed",
                    "snake_conv_transpose_fused", "res_stage_fused",
@@ -892,6 +930,16 @@ def dense_inputs(torch, M, K, N, seed):
     return a, w_q, w_s, b
 
 
+def identity_codes(out):
+    """The codes and row scales of an identity out projection's output
+    ``o_q * so``, a row a token (each row's largest code is 127)."""
+    import torch
+
+    out = out.reshape(-1, out.shape[-1])
+    so = out.abs().amax(dim=1, keepdim=True) / 127
+    return torch.round(out / so).to(torch.int8), so
+
+
 def assert_codes(what, got_q, got_s, want_q, want_s, scale_rtol=1e-5):
     """int8 codes equal but for <= 0.5% off by exactly one (tanhf/expf
     differ in the last bit); scales within ``scale_rtol``."""
@@ -1395,6 +1443,290 @@ def check_b4_fp32(torch, a, w_q, w_s, w_t):
 # kernel's fp32 sums run in another order, which can move a normalised
 # weight or a head's output by one bf16 ulp and so a code of the row
 # quantisation by one (a step of so * |wo| in the outputs of that row).
+def check_split_fp32(torch):
+    """flash_split's (B11), gqa_attention's (B15) and
+    gqa_attention_grouped's (B16) fp32 modes (``csrc/attention_f32.cu``)
+    against their plain versions at the split paths' q [6, 345, 20, 64],
+    k/v [6, 345, 4, 64] fp32 (column slices of one fused projection, as
+    the model hands them over): rtol = atol = 1e-5, B15 bit-equal to B16;
+    B11 also where every real score is negative (its zero keys hold each
+    row's max).  Timed on contiguous copies beside fp32 SDPA with the kv
+    heads repeated (no mask)."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.attention import (flash_split_plain, gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_grouped,
+                                           gqa_attention_plain)
+
+    hq, hkv, D, N = 20, 4, 64, N_VALID
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda")
+    views = (qkv[..., :hq * D].reshape(B, N, hq, D),
+             qkv[..., hq * D:(hq + hkv) * D].reshape(B, N, hkv, D),
+             qkv[..., (hq + hkv) * D:].reshape(B, N, hkv, D))
+
+    def flat(x):
+        return x.reshape(B, N, -1)
+
+    def heads(x):  # [B, N, h, D] -> [B, hq, N, D], kv heads repeated
+        return x.transpose(1, 2).repeat_interleave(
+            hq // x.shape[2], 1).contiguous()
+
+    kernels = {
+        "flash_split": (
+            lambda q, k, v, *_: gqa_attention_flash(flat(q), flat(k),
+                                                    flat(v), hq, hkv),
+            lambda q, k, v, *_: flash_split_plain(flat(q), flat(k), flat(v),
+                                                  hq, hkv), gqa_attention_flash),
+        "gqa_attention": (
+            lambda q, k, v, *_: gqa_attention(q, k, v),
+            lambda q, k, v, *_: gqa_attention_plain(q, k, v), gqa_attention),
+        "gqa_attention_grouped": (
+            lambda q, k, v, *_: gqa_attention_grouped(q, k, v),
+            lambda q, k, v, *_: gqa_attention_plain(q, k, v),
+            gqa_attention_grouped),
+    }
+    q, k, v = (x.contiguous() for x in views)
+    args = (q, k, v, heads(q), heads(k), heads(v))
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    b_ms, b_by = bound(nbytes, 4 * B * hq * N * N * D, PEAK_FP32)
+    out, got = {}, {}
+    for name, (kernel, plain, fn) in kernels.items():
+        n0 = fn.f32_launches
+        got[name] = kernel(*views)
+        want = plain(*views)
+        torch.cuda.synchronize()
+        if got[name].dtype != torch.float32 or fn.f32_launches != n0 + 1:
+            raise AssertionError(f"{name} fp32: not one fp32-mode launch "
+                                 f"writing fp32")
+        torch.testing.assert_close(got[name], want, atol=1e-5, rtol=1e-5)
+        t = timings(kernel, plain,
+                    lambda *a: F.scaled_dot_product_attention(*a[3:]), args,
+                    big=(0, 1, 2, 3, 4, 5), reps=20, plain_reps=5)
+        out[name] = {"max_abs_err": (got[name] - want).abs().max().item(),
+                     **t, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": [B, N, hq, hkv, D]}
+    if not torch.equal(got["gqa_attention"], got["gqa_attention_grouped"]):
+        raise AssertionError("gqa_attention and gqa_attention_grouped differ "
+                             "in fp32 mode: they must be bit-equal")
+    qp, kp = views[0].abs() * 0.5, views[1].abs() * -0.5
+    vp = views[2] * 0.5 + 1
+    got = gqa_attention_flash(flat(qp), flat(kp), flat(vp), hq, hkv)
+    want = flash_split_plain(flat(qp), flat(kp), flat(vp), hq, hkv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    out["flash_split"]["pad_keys_max_abs_err"] = (got - want).abs().max(
+        ).item()
+    return out
+
+
+def check_flash_out_fp32(torch):
+    """flash_out's fp32 mode (B12: the fp32 attention into a scratch, the
+    fp32 row quant, the s8 GEMM with the bias writing fp32) against its
+    plain version at qkv [6, 352, 1792] fp32, keys masked past 345, wo
+    [1280, 1280] K-major: max abs <= REL_FLASH_OUT x max |plain| (its bf16
+    mode's bound: a head output one fp32 ulp apart can move a code); then
+    with an identity out projection, whose output is o_q * so, the codes
+    equal to the plain version's but for <= 0.5 % off by one.
+    Timed beside fp32 SDPA with the key mask, the torch row quant,
+    ``_int_mm`` and the epilogue; the bound counts the attention's two
+    products at the fp32 peak and the out projection at the int8 one."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (flash_out_plain,
+                                           flash_out_weight_t,
+                                           gqa_attention_flash_out)
+    from jatsr_torch.ops.int8_matmul import quantize_rows
+
+    hq, hkv, D = 20, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda")
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, SEED + 52)
+    wo_t = flash_out_weight_t(wo_q, hq, D)
+    f = gqa_attention_flash_out
+    n0 = f.f32_launches
+    got = f(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID,
+            wo_t=wo_t)
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=N_VALID)
+    torch.cuda.synchronize()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if (got.dtype != torch.float32 or f.f32_launches != n0 + 1
+            or not bool(torch.isfinite(got).all())
+            or err > REL_FLASH_OUT * scale):
+        raise AssertionError(f"flash_out fp32: max abs {err} against max "
+                             f"|plain| {scale}, or not one fp32-mode launch")
+    # The codes themselves, read back through an identity out projection
+    # (out = o_q * so): the row quant hides o's precision from the outputs
+    # above, where a head output in less than fp32 still passes, but it
+    # flips many more codes than assert_codes's 0.5 %.
+    eye = torch.eye(hq * D, dtype=torch.int8, device="cuda")
+    ones = torch.ones((1, hq * D), device="cuda")
+    zeros = torch.zeros_like(ones)
+    got = f(qkv, cos, sin, eye, ones, zeros, hq, hkv, n_valid=N_VALID,
+            wo_t=flash_out_weight_t(eye, hq, D))
+    want = flash_out_plain(qkv, cos, sin, eye, ones, zeros, hq, hkv,
+                           n_valid=N_VALID)
+    torch.cuda.synchronize()
+    _, frac = assert_codes("flash_out fp32 (identity out projection)",
+                           *identity_codes(got), *identity_codes(want))
+    log(f"[kernel] flash_out fp32: {frac:.6%} of the codes off by one from "
+        f"the plain version's (identity out projection)")
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
+
+    def library(x, c, s, q, k, v):
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        o_q, so = quantize_rows(o.transpose(1, 2).reshape(B * NP, hq * D))
+        return torch._int_mm(o_q, wo_q).float() * so.clamp_min(1e-12) * wo_s + bo
+
+    t = timings(lambda x, c, s, *_: f(x, c, s, wo_q, wo_s, bo, hq, hkv,
+                                      n_valid=N_VALID, wo_t=wo_t),
+                lambda x, c, s, *_: flash_out_plain(
+                    x, c, s, wo_q, wo_s, bo, hq, hkv, n_valid=N_VALID),
+                library, (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=20,
+                plain_reps=5)
+    nbytes = nbytes_of(qkv, cos, sin, wo_q, wo_s, bo) + B * NP * H * 4
+    b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_FP32,
+                       int8_ops=2 * B * NP * hq * D * H)
+    return {"max_abs_err": err, "max_abs_plain": scale,
+            "code_mismatch_frac": frac, **t, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": [B, NP, (hq + 2 * hkv) * D, H],
+            "n_valid": N_VALID}
+
+
+def check_int8_mlp_fp32(torch):
+    """int8_mlp's fp32 mode (B13: the reciprocal row quant on fp32 rows,
+    the rest as in bf16 mode, bf16 out) against its plain version at
+    [2112, 1280] fp32 x [1280, 5120] x [5120, 1280]: its bf16 mode's
+    bounds.  Timed beside the two ``_int_mm`` chains with an fp32 first row
+    quant."""
+    from jatsr_torch.ops.int8_matmul import (_INV127, _gelu, _pick_slabs,
+                                             int8_mlp, mlp_plain,
+                                             quantize_rows)
+
+    M, N1 = B * NP, 4 * H
+    a, w1q, w1s, b1 = dense_inputs(torch, M, H, N1, SEED + 53)
+    _, w2q, w2s, b2 = dense_inputs(torch, 1, N1, H, SEED + 54)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    a = a.float() + 1e-3 * torch.randn(a.shape, generator=gen, device="cuda")
+    args = (a, w1q, w1s, b1, w2q, w2s, b2)
+    kt = {"w1_t": w1q.t().contiguous(), "w2_t": w2q.t().contiguous()}
+    n0 = int8_mlp.f32_launches
+    got = int8_mlp(*args, **kt).float()
+    want = mlp_plain(*args).float()
+    torch.cuda.synchronize()
+    frac = (got != want).float().mean().item()
+    err = (got - want).abs().max().item()
+    if (int8_mlp.f32_launches != n0 + 1 or frac > 1e-3
+            or not torch.allclose(got, want, atol=0.02, rtol=0.02)):
+        raise AssertionError(f"int8_mlp fp32: {frac:.4%} of the outputs "
+                             f"differ, max abs {err}")
+    n, slab = _pick_slabs(N1), N1 // _pick_slabs(N1)
+
+    def library(a, w1q, w1s, b1, w2q, w2s, b2):
+        a_q, s = quantize_rows(a)
+        g = _gelu(torch._int_mm(a_q, w1q).float() * s.clamp_min(1e-12) * w1s
+                  + b1).bfloat16().float().reshape(M, n, slab)
+        gs = (g.abs().amax(-1, keepdim=True) * _INV127).clamp_min(1e-12)
+        g_q = torch.round(g / gs).to(torch.int8).transpose(0, 1).contiguous()
+        acc = sum(torch._int_mm(g_q[j], w2q[j * slab:(j + 1) * slab]).float()
+                  * gs[:, j] for j in range(n))
+        return (acc * w2s + b2).bfloat16()
+
+    t = timings(lambda *x: int8_mlp(*x, **kt), mlp_plain, library, args,
+                big=(0,), plain_reps=5)
+    b_ms, b_by = bound(nbytes_of(*args) + M * H * 2, 0.0, PEAK_INT8,
+                       int8_ops=4 * M * H * N1)
+    return {"max_abs_err": err, "mismatch_frac": frac, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, N1, H]}
+
+
+def check_int8_qk_fp32(torch):
+    """flash_qkv's int8 value product in fp32 mode (the codes of the fp32
+    v, then fp32 scores and the s8 value product) against its plain version
+    at the main path's qkv [6, 352, 1792] fp32 (keys masked past 345, a
+    padded row holding every v column's absmax) and at [6, 345]: atol =
+    rtol = 1e-2, at most 1 % of the outputs more than 1e-4 apart, the codes
+    and scales bit-equal to ``v_codes_plain``.  Timed beside fp32 SDPA with
+    the key mask; the bound counts the score product at the fp32 peak and
+    the value product at the int8 one."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops.attention import (_row_view, _v_codes,
+                                           flash_qkv_plain,
+                                           gqa_attention_flash_qkv,
+                                           v_codes_plain)
+
+    hq, hkv, D = 20, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda")
+    qkv[:, N_VALID + 3, (hq + hkv) * D:] = 6.0
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    f = gqa_attention_flash_qkv
+    err = 0.0
+    for n, n_valid in ((NP, N_VALID), (N_VALID, 0)):
+        x = qkv[:, :n].contiguous()
+        c, s = cos[:n].contiguous(), sin[:n].contiguous()
+        n0 = f.int8_qk_f32_launches
+        got = f(x, c, s, hq, hkv, n_valid=n_valid, int8_qk=True)
+        want = flash_qkv_plain(x, c, s, hq, hkv, n_valid=n_valid,
+                               int8_qk=True)
+        v, row = _row_view(x[..., (hq + hkv) * D:])
+        codes, sv = _v_codes(v, row, hkv, D, 384)
+        want_codes, want_sv = v_codes_plain(x[..., (hq + hkv) * D:], hkv, 384)
+        torch.cuda.synchronize()
+        far = ((got - want).abs() > 1e-4).float().mean().item()
+        if (got.dtype != torch.float32 or f.int8_qk_f32_launches != n0 + 1
+                or far > 1e-2 or not torch.equal(codes, want_codes)
+                or not torch.equal(sv, want_sv)):
+            raise AssertionError(f"flash_qkv int8_qk fp32 at n {n}: "
+                                 f"{far:.4%} of the outputs past 1e-4, or "
+                                 f"codes differ, or not one fp32-mode launch")
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+        err = max(err, (got - want).abs().max().item())
+    q, k, v, mask = sdpa_inputs(torch, qkv, cos, sin, hq, hkv)
+    t = timings(lambda x, c, s, q, k, v: f(x, c, s, hq, hkv, n_valid=N_VALID,
+                                           int8_qk=True),
+                lambda x, c, s, q, k, v: flash_qkv_plain(
+                    x, c, s, hq, hkv, n_valid=N_VALID, int8_qk=True),
+                lambda x, c, s, q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask),
+                (qkv, cos, sin, q, k, v), big=(0, 3, 4, 5), reps=20,
+                plain_reps=5)
+    views = [_row_view(x[..., (hq + hkv) * D:]) for x in
+             [qkv.clone() for _ in range(rotations(qkv.nbytes))]]
+    t["codes_ms"] = time_ms(lambda v, row: _v_codes(v, row, hkv, D, 384),
+                            views, 200)
+    nbytes = nbytes_of(qkv, cos, sin) + B * NP * hq * D * 4
+    prod = 2 * B * hq * NP * N_VALID * D  # each product, the valid keys
+    b_ms, b_by = bound(nbytes, prod, PEAK_FP32, int8_ops=prod)
+    return {"max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, NP, (hq + 2 * hkv) * D], "n_valid": N_VALID}
+
+
+def check_fp32_slice(torch, checks):
+    """The kernel lines of the six fp32 modes the fp32 paths of this slice
+    run (B11, B15, B16, B12, B13, B2's int8_qk), each held against its
+    plain version at its path's shapes and timed beside its bf16 mode
+    (``checks``' lines, timed in this run)."""
+    f32 = "jatsr_torch/ops/csrc/attention_f32.cu"
+    split = check_split_fp32(torch)
+    lines = [fp32_line(checks[k], split[k], f32) for k in (
+                 "flash_split", "gqa_attention", "gqa_attention_grouped")]
+    lines += [fp32_line(checks["flash_out"], check_flash_out_fp32(torch), f32),
+              fp32_line(checks["int8_mlp"], check_int8_mlp_fp32(torch)),
+              fp32_line(checks["flash_qkv_int8_qk"],
+                        check_int8_qk_fp32(torch), f32)]
+    return {line["name"]: line for line in lines}
+
+
 REL_FLASH_OUT = 1e-2
 
 
@@ -2002,6 +2334,45 @@ def counted_pass(torch, name, serve, counters, expected, C):
         f"{len(pieces)} decode segments, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, latent
+
+
+def short_pass(torch, name, model, lr, counters, expected):
+    """One sampler call of ``model`` on the first 16 s chunk of ``lr``
+    (SHORT_STEPS Euler steps, CFG), every launch count set to 0 just before
+    it and read just after; checks the counts and a finite latent of the
+    chunk's shape.  No decode."""
+    import numpy as np
+
+    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.train.step import Normalizer
+
+    C = model.cfg.input_channels
+    norm = Normalizer(np.zeros(C), np.ones(C), np.zeros(C), np.ones(C))
+    pipe = InferencePipeline(model, norm, None,
+                             SamplerConfig(num_steps=SHORT_STEPS,
+                                           cfg_scale=CFG_SCALE))
+    chunk = lr[:SHORT_FRAMES]
+    pipe.super_resolve_latent_device(chunk, SEED, SHORT_STEPS, CFG_SCALE)
+    torch.cuda.synchronize()  # the warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    latent = pipe.super_resolve_latent_device(chunk, SEED, SHORT_STEPS,
+                                              CFG_SCALE)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[serve {name}] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launch counts {launches} != {expected}")
+    if latent.shape != (SHORT_FRAMES, C) or not bool(
+            torch.isfinite(latent).all()):
+        raise AssertionError(f"{name}: latent {tuple(latent.shape)} not "
+                             f"finite/shaped")
+    log(f"[serve {name}] one {SHORT_FRAMES}-frame chunk, {SHORT_STEPS} steps "
+        f"CFG {CFG_SCALE}: sampler {sec * 1e3:.1f} ms (one counted call)")
+    return launches
 
 
 def timed_passes(servers, card):
@@ -3286,6 +3657,7 @@ def main() -> int:
                                  "bound_by", "library_ms")},
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
     checks.update(check_fp32_modes(torch, norm, checks))
+    checks.update(check_fp32_slice(torch, checks))
     checks.update(check_dac_kernels(torch))
     checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
@@ -3294,7 +3666,7 @@ def main() -> int:
         log(f"[kernel] {name} {json.dumps(c)}")
     phases.done("kernels against their plain versions")
 
-    # 4. The thirteen serving paths at full width, on one set of dense
+    # 4. The eighteen serving paths at full width, on one set of dense
     #    weights for each preset (quantized for each int8_static layout)
     #    and one for each decode (fused, unfused).
     t0 = time.perf_counter()
@@ -3351,7 +3723,14 @@ def main() -> int:
                     ("matmul_fused", int8_matmul_fused),
                     ("norm_mod_dense_gelu_quant",
                      int8_norm_mod_dense_gelu_quant),
-                    ("dense_gelu_quant", int8_dense_gelu_quant))},
+                    ("dense_gelu_quant", int8_dense_gelu_quant),
+                    ("flash_out", gqa_attention_flash_out),
+                    ("int8_mlp", int8_mlp),
+                    ("flash_split", gqa_attention_flash),
+                    ("gqa_attention", gqa_attention),
+                    ("gqa_attention_grouped", gqa_attention_grouped))},
+                "flash_qkv_int8_qk_fp32": Count(gqa_attention_flash_qkv,
+                                                "int8_qk_f32_launches"),
                 **{f"{k}_snake_bf16": Count(getattr(dk, k), "b16_launches")
                    for k in ("snake_conv_transpose_streamed",
                              "snake_conv_transpose_fused", "res_stage_fused",
@@ -3409,13 +3788,39 @@ def main() -> int:
         # main path's launches, every one of B2-B5's in its fp32 mode (a
         # wrapper's launches count both modes, its f32_launches the fp32
         # one).
-        "bf16": {**none, "flash_split": per_block, **fused_decode},
-        "fp32": {**expected["prologue"],
-                 **{f"{k}_fp32": n for k, n in expected["prologue"].items()
-                    if f"{k}_fp32" in counters}}})
+        "bf16": {**none, "flash_split": per_block, **fused_decode}})
+
+    def at_fp32(counts, no_quant=False):
+        """A path's counts at dtype="float32": each launch of a kernel
+        with an fp32 mode is in that mode too (a wrapper's launches count
+        both modes); ``no_quant``: w8a8_dot quantises an fp32 lhs with
+        torch ops (the JAX package's XLA), not the row-quant launch."""
+        out = {**counts, **{f"{k}_fp32": n for k, n in counts.items()
+                            if f"{k}_fp32" in counters}}
+        return {**out, "prequant_quant": 0} if no_quant else out
+
+    # The short paths: one chunk, SHORT_STEPS forwards, no decode.
+    per_short = SHORT_STEPS * cfgs["prologue"].depth
+    short = {"dense_gelu_quant": SHORT_STEPS}
+    expected.update({
+        "fp32": at_fp32(expected["prologue"]),
+        "fp32_third": at_fp32(expected["opt_in"], no_quant=True),
+        "fp32_split": at_fp32(expected["split_flash"]),
+        "fp32_pallas": at_fp32({**none, "gqa_attention": per_short,
+                                "dense_gelu_quant": per_short + SHORT_STEPS}),
+        "fp32_pallas2": at_fp32({**none, "gqa_attention_grouped": per_short,
+                                 "dense_gelu_quant":
+                                     per_short + SHORT_STEPS}),
+        "fp32_int8_qk": at_fp32({**none, **short,
+                                 **{k: per_short for k in (
+                                     "norm_mod_dot", "matmul_fused",
+                                     "norm_mod_dense_gelu_quant",
+                                     "flash_qkv_int8_qk", "v_codes")}})})
     models, fns, launches = {}, {}, {}
     for name, cfg in cfgs.items():
         models[name] = build(name, "cuda")
+        if name in SHORT:
+            continue
         fns[name] = make_server(torch, models[name],
                                 codecs[FUSED_DECODE[name]], lr,
                                 SNAKE.get(name, "float32"))
@@ -3424,10 +3829,13 @@ def main() -> int:
     # Each path's counted pass; the kernel line takes a kernel's launches
     # from the main path, or from the path KERNEL_PATH names.
     latents = {}
-    for name in cfgs:
+    for name in fns:
         launches[name], latents[name] = counted_pass(
             torch, name, fns[name][2], counters, expected[name],
             cfgs[name].input_channels)
+    for name in SHORT:
+        launches[name] = short_pass(torch, name, models[name], lr, counters,
+                                    expected[name])
     phases.done("counted passes")
     # Audio in, audio out: the main path's DiT behind super_resolve_audio,
     # with the fused codec's encoder; timed in the same turns.
@@ -3457,6 +3865,8 @@ def main() -> int:
     #    patches: aligned to 32 (keys masked past 25) where align_n is
     #    taken, padded to 32 inside flash_split.
     for name, cfg in cfgs.items():
+        if name in SHORT:
+            continue
         cpu_model = build(name, "cpu")
         check_reference(torch, name, models[name], cpu_model,
                         100 if cfg.align_n else 64)

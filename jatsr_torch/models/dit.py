@@ -20,9 +20,9 @@ fused prologue (``fused_prologue`` with ``align_n``: ``bench.py``'s
 default DiT); an int8 ``final_proj`` (``quantize_head``); RoPE or learned
 positions with attention biases (``v1legacy``); ``int8_impl`` "xla",
 "pallas" or "fused".  The compute dtype is bf16 or fp32 (``dtype``): at fp32
-the activations the JAX model casts to its compute dtype are fp32, and the
-flash-QKV kernel, the fused prologue, the dense+GELU and the fused W8A8
-kernels take their fp32 modes.  On the split q/k/v (``fused_qkv=False``,
+the activations the JAX model casts to its compute dtype are fp32, and
+every kernel they reach takes its fp32 mode (the whole-MLP kernel writes
+bf16 in both, as the JAX kernel does).  On the split q/k/v (``fused_qkv=False``,
 ``flash_qkv=False``, learned positions, ``attention_impl`` "pallas",
 "pallas2" or "xla", or past the flash budget) the attention is the split
 flash kernel, the per-q-head or per-kv-head kernel, or the einsum.  Inputs
@@ -31,8 +31,8 @@ the output is fp32.  Module names mirror the JAX modules (``patch_in``,
 ``blocks[i].attn.qkv_proj``, ``final_proj``...).
 
 A knob whose branch the port does not have (a compute dtype other than
-bf16 and fp32, a kernel whose fp32 mode is not ported yet; on :class:`DiT`
-a precision other than ``int8_static``) raises ``NotImplementedError``
+bf16 and fp32; on :class:`DiT` a precision other than ``int8_static``)
+raises ``NotImplementedError``
 where the model is built (:func:`check_serving_config`,
 :func:`check_dense_config`), naming ROADMAP.md, where it is queued: the
 port never takes a different branch silently.
@@ -75,56 +75,17 @@ _SERVING_BRANCH = {
 def check_serving_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the int8 DiT's
     ported branches: a precision other than ``int8_static`` (the bf16 and
-    dynamic-int8 models are :class:`DenseDiT`'s), a compute dtype other
-    than bf16 and fp32, or an fp32 branch whose kernel has no fp32 mode
-    yet (:func:`f32_kernels_missing`)."""
+    dynamic-int8 models are :class:`DenseDiT`'s) or a compute dtype other
+    than bf16 and fp32.  At fp32 every branch serves: each kernel it
+    reaches has an fp32 mode."""
     if cfg.matmul_precision != "int8_static":
         raise NotImplementedError(
             f"ModelConfig.matmul_precision={cfg.matmul_precision!r}: the "
             f"int8 DiT serves 'int8_static'; DenseDiT serves 'bf16' and "
             f"'int8'")
     _check_branch(cfg, _SERVING_BRANCH, "serves")
-    _check_f32(cfg)
     if cfg.gelu_impl not in ("tanh", "erf", "sigmoid"):
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
-
-
-def f32_kernels_missing(cfg: ModelConfig) -> list:
-    """The kernels whose fp32 modes the JAX model would reach with ``cfg``
-    at ``dtype="float32"`` and the port does not have yet (ROADMAP.md
-    §B.1): on the int8 DiT the split q/k/v flash kernel (B11: split q/k/v,
-    or the fused ones without ``flash_qkv`` or RoPE), the per-q-head and
-    per-kv-head kernels (B15, B16), the flash kernel with the out
-    projection (B12), the whole-MLP kernel (B13) and B2's int8 value
-    product; on ``DenseDiT`` (split q/k/v) B11, B15 and B16.  Decided from
-    the config alone, where the model is built."""
-    attn, int8 = cfg.attention_impl, cfg.matmul_precision == "int8_static"
-    flash_qkv = (int8 and attn == "flash" and cfg.fused_qkv and cfg.flash_qkv
-                 and cfg.pos_embed == "rope")
-    missing = []
-    if attn == "flash" and not flash_qkv:
-        missing.append("B11 (split q/k/v flash attention)")
-    if attn in ("pallas", "pallas2"):
-        missing.append(f"{'B16' if attn == 'pallas2' else 'B15'} "
-                       f"(attention_impl={attn!r})")
-    if flash_qkv and cfg.flash_fused_out:
-        missing.append("B12 (flash_fused_out)")
-    if flash_qkv and cfg.flash_int8_qk and not cfg.flash_fused_out:
-        missing.append("B2's int8 value product (flash_int8_qk)")
-    if int8 and cfg.fused_mlp and cfg.fused_mlp_impl == "full":
-        missing.append("B13 (fused_mlp_impl='full')")
-    return missing
-
-
-def _check_f32(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a served fp32 model on a branch
-    whose kernel has no fp32 mode in the port yet."""
-    missing = cfg.dtype == "float32" and f32_kernels_missing(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"ModelConfig.dtype='float32' reaches {', '.join(missing)} in "
-            f"fp32, whose fp32 modes a later slice of the port brings "
-            f"(ROADMAP.md §B.1)")
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -452,12 +413,13 @@ class DiTBlock(nn.Module):
             B, N, H = h.shape
             h = h.reshape(B * N, H)
             if cfg.fused_mlp_impl == "full":
+                # bf16 out in both modes, back in the compute dtype here.
                 w1, w2 = self.mlp_in, self.mlp_out
                 h = int8_mlp(h, w1.kernel_q, w1.kernel_scale, w1.bias.float(),
                              w2.kernel_q, w2.kernel_scale, w2.bias.float(),
                              gelu_impl=cfg.gelu_impl,
                              w1_t=self.mlp_in_kernel_t,
-                             w2_t=self.mlp_out_kernel_t)
+                             w2_t=self.mlp_out_kernel_t).to(h.dtype)
             else:
                 h = _int8_dense_gelu_dense(h, self.mlp_in, self.mlp_out,
                                            self.mlp_in_kernel_t,
@@ -627,10 +589,8 @@ def _check_branch(cfg: ModelConfig, branch: dict, what: str) -> None:
 
 def check_dense_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose bf16 model (served
-    or trained) takes a branch the port does not have: among them the fp32
-    attention kernels not ported yet (:func:`f32_kernels_missing`)."""
+    or trained) takes a branch the port does not have."""
     _check_branch(cfg, _DENSE_BRANCH, "has")
-    _check_f32(cfg)
 
 
 def check_training_config(cfg: ModelConfig) -> None:

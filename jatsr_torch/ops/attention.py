@@ -11,9 +11,12 @@ tensor launches the hand-written kernel in ``csrc/attention_deferred.cu``
 (the two base-2 flash kernels, from the unsplit projection, with or without
 its int8 value product, and on split q/k/v), ``csrc/flash_qkv.cu`` (the
 flash kernel with the out projection) or ``csrc/attention_natural.cu`` (the per-q-head and per-kv-head kernels),
-at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises; on
-an fp32 qkv the flash kernel from the unsplit projection takes its fp32
-mode, ``csrc/attention_f32.cu``.  Nothing falls back.
+at head dims past 128 ``csrc/attention_wide.cu`` (all five), or raises.  On
+fp32 inputs (the JAX model's at ``dtype="float32"``) each of the five, and
+the int8 value product, takes its fp32 mode, ``csrc/attention_f32.cu``
+(fp32 products on the CUDA cores); its launches count in ``launches`` (or
+``int8_qk_launches``) and apart in ``f32_launches`` (or
+``int8_qk_f32_launches``).  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -131,7 +134,10 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
     mode on the card, ``csrc/attention_f32.cu``: every product in fp32, as
     the JAX kernel computes it on an fp32 input (:func:`flash_qkv_plain`
     is that too).  ``launches`` counts it as well; ``f32_launches`` counts
-    it alone.  Its int8 value product is not ported (ROADMAP.md §B.1).
+    it alone.  With ``int8_qk`` the fp32 mode takes the codes of the fp32 v
+    (one launch of :func:`_v_codes`), then the s8 value product on fp32
+    scores; ``int8_qk_launches`` counts it as well, ``int8_qk_f32_launches``
+    alone.
     """
     B, N, TD = qkv.shape
     if TD % (num_q_heads + 2 * num_kv_heads) or num_q_heads % num_kv_heads:
@@ -144,13 +150,13 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
                                n_valid, int8_qk=int8_qk)
     hq, hkv = num_q_heads, num_kv_heads
     if qkv.dtype == torch.float32:
+        out = _flash_f32(qkv, cos, sin, hq, hkv, n_valid or N, int8_qk)
         if int8_qk:
-            raise NotImplementedError(
-                "gqa_attention_flash_qkv: the int8 value product on an fp32 "
-                "qkv is a later slice of the port (ROADMAP.md §B.1)")
-        out = _flash_f32(qkv, cos, sin, hq, hkv, n_valid or N)
-        gqa_attention_flash_qkv.launches += 1
-        gqa_attention_flash_qkv.f32_launches += 1
+            gqa_attention_flash_qkv.int8_qk_launches += 1
+            gqa_attention_flash_qkv.int8_qk_f32_launches += 1
+        else:
+            gqa_attention_flash_qkv.launches += 1
+            gqa_attention_flash_qkv.f32_launches += 1
         return out
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
     out = _flash_deferred(q, k, v, hq, hkv, n_valid or N, cos, sin,
@@ -165,36 +171,188 @@ def gqa_attention_flash_qkv(qkv, cos, sin, num_q_heads: int,
 gqa_attention_flash_qkv.launches = 0
 gqa_attention_flash_qkv.int8_qk_launches = 0
 gqa_attention_flash_qkv.f32_launches = 0
+gqa_attention_flash_qkv.int8_qk_f32_launches = 0
+
+# ---- the fp32 modes (csrc/attention_f32.cu) ---------------------------------
 
 F32_MAX_D = 256  # csrc/attention_f32.cu's widest tile
+# attention_f32's modes: B2, B11, B15/B16, B2 with int8_qk, B12's attention.
+_F32_MODE = {"flash_qkv": 0, "flash": 1, "natural": 2, "int8_qk": 3,
+             "flash_out": 4}
 
 
-def _flash_f32(qkv, cos, sin, hq, hkv, n_valid):
+class _F32Args(ctypes.Structure):
+    """``F32Args`` of csrc/attention_f32.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "q", "k", "v", "cos", "sin", "codes", "sv", "out")]
+        + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
+        + [(f, ctypes.c_int) for f in (
+            "N", "limit", "npad", "hq", "hkv", "D", "out_dp", "codes_d", "nk")]
+        + [("scale", ctypes.c_float)])
+
+
+@functools.cache
+def _f32_lib():
+    """csrc/attention_f32.cu's library, its entry points' C types set."""
+    from . import _build
+
+    lib = _build.load("attention_f32")
+    lib.attention_f32.restype = ctypes.c_int
+    lib.attention_f32.argtypes = [ctypes.POINTER(_F32Args), ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+    lib.attention_f32_flash_out.restype = ctypes.c_int
+    lib.attention_f32_flash_out.argtypes = (
+        [ctypes.POINTER(_F32Args), ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _columns(qkv, hq, hkv, D):
+    """The q, k and v column views of the unsplit projection ``[B, N, (hq
+    + 2 hkv) D]``."""
+    return (qkv[..., a * D:b * D]
+            for a, b in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
+
+
+def _f32(x: float) -> float:
+    """fp32(x), as a float: a scale as the JAX kernels multiply by it."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _f32_args(q, k, v, hq, hkv, D, out, limit, scale, npad=0, cos=None,
+              sin=None, out_dp=None, codes=None, sv=None, nk=0):
+    """The C struct of one launch of csrc/attention_f32.cu on fp32 views
+    ``q [B, N, hq * D]``, ``k``/``v [B, N, hkv * D]`` (heads dense, each a
+    row stride apart; ``[B, N, H, D]`` alike) into ``out [B, N, hq,
+    out_dp]``, and the tensors it reads (kept alive by the caller until the
+    launch is queued)."""
+    N = q.shape[1]
+    out_dp = out_dp or D
+    if D > F32_MAX_D or out_dp > F32_MAX_D:
+        raise ValueError(f"the fp32 attention kernels take head dims up to "
+                         f"{F32_MAX_D}, got {D}")
+    (q, q_row), (k, k_row), (v, v_row) = map(_row_view, (q, k, v))
+    widest = max(q_row, k_row, v_row, hq * out_dp)
+    if N * widest >= 2 ** 31:  # the kernel's in-batch offsets
+        raise ValueError(f"fp32 attention: a batch's {N} rows of {widest} "
+                         f"outgrow 32-bit offsets")
+    keep = [q, k, v]
+    if cos is not None:
+        if cos.shape != (N, D) or sin.shape != (N, D):
+            raise ValueError(f"cos/sin must be [{N}, {D}]")
+        cos, sin = cos.float().contiguous(), sin.float().contiguous()
+        keep += [cos, sin]
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = _F32Args(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos),
+                    ptr(sin), ptr(codes), ptr(sv), out.data_ptr(), q_row,
+                    k_row, v_row, N, limit, npad, hq, hkv, D, out_dp,
+                    0 if codes is None else codes.shape[2], nk, scale)
+    return args, keep
+
+
+def _launch_f32(mode, args, B, device, what):
+    from . import _build
+
+    lib = _f32_lib()
+    err = lib.attention_f32(ctypes.byref(args), _F32_MODE[mode], B,
+                            _build.stream_ptr(device))
+    _build.check(lib, err, what)
+
+
+def _scale2_f32(d: int) -> float:
+    """fp32(scale * log2 e), the base-2 kernels' q factor in fp32 mode."""
+    return _f32((1.0 / math.sqrt(d)) * math.log2(math.e))
+
+
+def _flash_f32(qkv, cos, sin, hq, hkv, n_valid, int8_qk=False):
     """B2's fp32 mode: one launch of ``csrc/attention_f32.cu`` on the
     unsplit fp32 qkv ``[B, N, (hq + 2 hkv) D]`` and the fp32 tables ``[N,
-    D]``, keys at or past ``n_valid`` masked -> ``[B, N, hq D]`` fp32."""
+    D]``, keys at or past ``n_valid`` masked -> ``[B, N, hq D]`` fp32.
+    ``int8_qk``: first the codes of the fp32 v (:func:`_v_codes`, each
+    head widened by zero columns at its end to :func:`padded_head_dim`, a
+    multiple of 16), then the s8 value product."""
+    B, N, TD = qkv.shape
+    D = TD // (hq + 2 * hkv)
+    if D % 2:
+        raise ValueError(f"the fp32 flash kernel takes an even head dim "
+                         f"(RoPE pairs its halves), got {D}")
+    q, k, v = _columns(qkv, hq, hkv, D)
+    out = torch.empty((B, N, hq * D), dtype=torch.float32, device=qkv.device)
+    codes = sv = None
+    nk = 0
+    if int8_qk:
+        dc = padded_head_dim(D)
+        vc, v_row = _row_view(F.pad(v.reshape(B, N, hkv, D), (0, dc - D))
+                              .reshape(B, N, hkv * dc) if dc != D else v)
+        nk = _round_up(N, _NATURAL_CHUNK)
+        codes, sv = _v_codes(vc, v_row, hkv, dc, nk)
+    args, keep = _f32_args(q, k, v, hq, hkv, D, out, n_valid, _scale2_f32(D),
+                           cos=cos, sin=sin, codes=codes, sv=sv, nk=nk)
+    _launch_f32("int8_qk" if int8_qk else "flash_qkv", args, B, qkv.device,
+                "gqa_attention_flash_qkv(fp32" + (", int8_qk)" if int8_qk
+                                                  else ")"))
+    return out
+
+
+def _flash_split_f32(q, k, v, hq, hkv):
+    """B11's fp32 mode: one launch on fp32 ``q [B, N, hq D]``, ``k``/``v
+    [B, N, hkv D]``, N padded to a multiple of 8 with zero keys that take
+    part in the row max, their share taken off the row sum."""
+    B, N = q.shape[:2]
+    D = q.shape[2] // hq
+    limit = _round_up(N, 8)
+    out = torch.empty((B, N, hq * D), dtype=torch.float32, device=q.device)
+    args, keep = _f32_args(q, k, v, hq, hkv, D, out, limit, _scale2_f32(D),
+                           npad=limit - N)
+    _launch_f32("flash", args, B, q.device, "gqa_attention_flash(fp32)")
+    return out
+
+
+def _natural_f32(q, k, v, what):
+    """B15's and B16's fp32 mode: one launch on fp32 ``q [B, N, Hq, D]``,
+    ``k``/``v [B, N, Hkv, D]``: the scale after the product, exp, w = e / l
+    rounded, then w @ v.  Both run on B16's grid (a CTA per 64 of a kv
+    head's stacked rows)."""
+    B, N, hq, D = q.shape
+    out = torch.empty((B, N, hq, D), dtype=torch.float32, device=q.device)
+    args, keep = _f32_args(q, k, v, hq, k.shape[2], D, out, N,
+                           _f32(1.0 / math.sqrt(D)))
+    _launch_f32("natural", args, B, q.device, what)
+    return out
+
+
+def _flash_out_f32(qkv, cos, sin, wo_t, wo_scale, wo_bias, hq, hkv, n_valid,
+                   H):
+    """B12's fp32 mode: the attention (RoPE, base 2, natural weights) into
+    an fp32 scratch ``[B N, hq Dp]`` (each head widened to the padded head
+    dim of ``wo_t``'s rows as :func:`pad_heads` widens it), then the fp32
+    row quant and the s8 GEMM with the bias: three launches -> ``[B, N,
+    H]`` fp32."""
     from . import _build
 
     B, N, TD = qkv.shape
     D = TD // (hq + 2 * hkv)
-    if D % 2 or D > F32_MAX_D:
-        raise ValueError(f"the fp32 flash kernel takes an even head dim up "
-                         f"to {F32_MAX_D}, got {D}")
-    if cos.shape != (N, D) or sin.shape != (N, D):
-        raise ValueError(f"cos/sin must be [{N}, {D}]")
-    qkv = qkv.contiguous()
-    cos, sin = cos.float().contiguous(), sin.float().contiguous()
-    out = torch.empty((B, N, hq * D), dtype=torch.float32, device=qkv.device)
-    scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
-                                dtype=torch.float32))
-    lib = _build.load("attention_f32")
-    fn = lib.attention_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-             B, N, n_valid, hq, hkv, D, scale2, _build.stream_ptr(qkv.device))
-    _build.check(lib, err, "gqa_attention_flash_qkv(fp32)")
+    if D % 2:
+        raise ValueError(f"the fp32 flash kernel takes an even head dim "
+                         f"(RoPE pairs its halves), got {D}")
+    Dp = padded_head_dim(D)
+    dev = qkv.device
+    q, k, v = _columns(qkv, hq, hkv, D)
+    o = torch.empty((B * N, hq * Dp), dtype=torch.float32, device=dev)
+    oq = torch.empty((B * N, hq * Dp), dtype=torch.int8, device=dev)
+    so = torch.empty((B * N,), dtype=torch.float32, device=dev)
+    out = torch.empty((B, N, H), dtype=torch.float32, device=dev)
+    args, keep = _f32_args(q, k, v, hq, hkv, D, o, n_valid, _scale2_f32(D),
+                           cos=cos, sin=sin, out_dp=Dp)
+    wo_t = _build.aligned(wo_t)
+    wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
+    lib = _f32_lib()
+    err = lib.attention_f32_flash_out(
+        ctypes.byref(args), B, o.data_ptr(), oq.data_ptr(), so.data_ptr(),
+        wo_t.data_ptr(), wos.data_ptr(), bo.data_ptr(), out.data_ptr(), H,
+        _build.stream_ptr(dev))
+    _build.check(lib, err, "gqa_attention_flash_out(fp32)")
     return out
 
 
@@ -214,8 +372,7 @@ def _qkv_views(qkv, cos, sin, hq, hkv):
     if cos.shape != (N, D) or sin.shape != (N, D):
         raise ValueError(f"cos/sin must be [{N}, {D}]")
     qkv = _build.aligned(qkv)
-    q, k, v = (qkv[..., a * D:b * D]
-               for a, b in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
+    q, k, v = _columns(qkv, hq, hkv, D)
     return (q, k, v, _build.aligned(cos.float()),
             _build.aligned(sin.float()))
 
@@ -280,6 +437,10 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
             ``wo_q``.
     Returns:
         [B, N, H] in qkv's dtype: the attention branch before the residual.
+
+    An fp32 qkv takes the fp32 mode on the card (``csrc/attention_f32.cu``:
+    the attention in fp32 into a scratch, then the fp32 row quant and the s8
+    GEMM writing fp32); ``f32_launches`` counts it apart.
     """
     B, N, TD = qkv.shape
     hq, hkv = num_q_heads, num_kv_heads
@@ -308,6 +469,12 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
         raise ValueError("flash_out: the card's kernel reads the out "
                          "projection K-major: pass wo_t = "
                          "flash_out_weight_t(wo_q, hq, D), made once")
+    if qkv.dtype == torch.float32:
+        out = _flash_out_f32(qkv, cos, sin, wo_t, wo_scale, wo_bias, hq, hkv,
+                             n_valid or N, H)
+        gqa_attention_flash_out.launches += 1
+        gqa_attention_flash_out.f32_launches += 1
+        return out
     q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
     scale2 = _scale2_bf16(D)
     if Dp != D:  # zero head columns: the same scores, outputs and codes
@@ -351,6 +518,7 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
 
 
 gqa_attention_flash_out.launches = 0
+gqa_attention_flash_out.f32_launches = 0
 
 
 @functools.cache
@@ -425,7 +593,8 @@ def gqa_attention_flash(q, k, v, num_q_heads: int, num_kv_heads: int):
     Args:
         q: [B, N, Hq*D]; k/v: [B, N, Hkv*D] (heads in column blocks).
     Returns:
-        [B, N, Hq*D] in q's dtype.
+        [B, N, Hq*D] in q's dtype (bf16; fp32 in its fp32 mode, counted
+        apart in ``f32_launches``).
     """
     hq, hkv = num_q_heads, num_kv_heads
     if (q.dim() != 3 or k.dim() != 3 or k.shape != v.shape
@@ -435,12 +604,17 @@ def gqa_attention_flash(q, k, v, num_q_heads: int, num_kv_heads: int):
                          f"{tuple(v.shape)} are not {hq}/{hkv}-head GQA inputs")
     if q.device.type == "cpu":
         return flash_split_plain(q, k, v, hq, hkv)
-    out = _flash_deferred(q, k, v, hq, hkv, None)
+    if _split_dtype(q, k, v) == torch.float32:
+        out = _flash_split_f32(q, k, v, hq, hkv)
+        gqa_attention_flash.f32_launches += 1
+    else:
+        out = _flash_deferred(q, k, v, hq, hkv, None)
     gqa_attention_flash.launches += 1
     return out
 
 
 gqa_attention_flash.launches = 0
+gqa_attention_flash.f32_launches = 0
 
 
 def _check_heads(q, k, v):
@@ -457,17 +631,23 @@ def gqa_attention(q, k, v):
     Args:
         q: [B, N, Hq, D] (RoPE applied); k/v: [B, N, Hkv, D].
     Returns:
-        [B, N, Hq, D] in q's dtype.
+        [B, N, Hq, D] in q's dtype (bf16; fp32 in its fp32 mode, counted
+        apart in ``f32_launches``).
     """
     _check_heads(q, k, v)
     if q.device.type == "cpu":
         return gqa_attention_plain(q, k, v)
-    out = _launch_natural(q, k, v, grouped=False)
+    if _split_dtype(q, k, v) == torch.float32:
+        out = _natural_f32(q, k, v, "gqa_attention(fp32)")
+        gqa_attention.f32_launches += 1
+    else:
+        out = _launch_natural(q, k, v, grouped=False)
     gqa_attention.launches += 1
     return out
 
 
 gqa_attention.launches = 0
+gqa_attention.f32_launches = 0
 
 
 def gqa_attention_grouped(q, k, v):
@@ -476,12 +656,17 @@ def gqa_attention_grouped(q, k, v):
     _check_heads(q, k, v)
     if q.device.type == "cpu":
         return gqa_attention_plain(q, k, v)
-    out = _launch_natural(q, k, v, grouped=True)
+    if _split_dtype(q, k, v) == torch.float32:
+        out = _natural_f32(q, k, v, "gqa_attention_grouped(fp32)")
+        gqa_attention_grouped.f32_launches += 1
+    else:
+        out = _launch_natural(q, k, v, grouped=True)
     gqa_attention_grouped.launches += 1
     return out
 
 
 gqa_attention_grouped.launches = 0
+gqa_attention_grouped.f32_launches = 0
 
 
 def _row_view(t):
@@ -498,13 +683,23 @@ def _row_view(t):
     return t, t.stride(1)
 
 
-def _check_split(q, k, v, D):
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"the split attention kernels take bf16, got "
-                        f"{q.dtype}")
-    padded_head_dim(D)
+def _split_dtype(q, k, v):
+    """The one dtype of q, k and v, bf16 or fp32 (the fp32 modes), on one
+    device; raises otherwise."""
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.bfloat16,
+                                                             torch.float32):
+        raise TypeError(f"the split attention kernels take bf16 or fp32 "
+                        f"q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    return q.dtype
+
+
+def _check_split(q, k, v, D):
+    if _split_dtype(q, k, v) != torch.bfloat16:
+        raise TypeError(f"the bf16 split attention kernels take bf16, got "
+                        f"{q.dtype}")
+    padded_head_dim(D)
 
 
 def _check_smem(plan, device, what):
@@ -1016,14 +1211,15 @@ def _deferred_lib():
     lib.attention_v_codes.restype = ctypes.c_int
     lib.attention_v_codes.argtypes = (
         [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 5
-        + [ctypes.c_void_p] * 3)
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
 def _v_codes(v, v_row, hkv, D, nk):
     """V's codes and scales for B2's int8 value product, one launch of
     csrc/attention_deferred.cu's ``v_codes_kernel`` on the row view ``v``
-    ``[B, N, hkv * D]`` (row stride ``v_row``): codes ``[B, hkv, D, nk]``
+    ``[B, N, hkv * D]`` bf16 or fp32 (row stride ``v_row``): codes ``[B,
+    hkv, D, nk]``
     int8 (K-major, each 32-key block in ``kperm`` order, zero past N) and
     ``sv [B, hkv, D]`` fp32, ``max(absmax * _INV127, 1e-12)`` over all N
     rows."""
@@ -1035,6 +1231,7 @@ def _v_codes(v, v_row, hkv, D, nk):
     lib = _deferred_lib()
     err = lib.attention_v_codes(v.data_ptr(), v_row, B, N, hkv, D, nk,
                                 codes.data_ptr(), sv.data_ptr(),
+                                int(v.dtype == torch.float32),
                                 _build.stream_ptr(v.device))
     _build.check(lib, err, "attention_v_codes")
     _v_codes.launches += 1

@@ -134,17 +134,22 @@ __global__ void __launch_bounds__(STREAM_WARPS * 32, 1) deferred_s8v_stream_kern
 // codes[b, kvh, d, key'] = rn(v[key, d] / sv) (a true divide), key' the
 // position of key in its 32-key block's kperm order, zero past N; nk a
 // multiple of 128.
-__global__ void __launch_bounds__(256) v_codes_kernel(const __nv_bfloat16* __restrict__ v,
-                                                      long long v_row, int N, int hkv, int D,
-                                                      int nk, int8_t* __restrict__ codes,
+__device__ __forceinline__ float value_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float value_f32(float x) { return x; }
+
+// V in bf16, or in fp32 (the fp32 mode of int8_qk, attention_f32.cu).
+template <class T>
+__global__ void __launch_bounds__(256) v_codes_kernel(const T* __restrict__ v, long long v_row,
+                                                      int N, int hkv, int D, int nk,
+                                                      int8_t* __restrict__ codes,
                                                       float* __restrict__ sv) {
   __shared__ float red[16][17];
   __shared__ float scale[16];
   const int groups = D / 16, kvh = blockIdx.x / groups, c0 = (blockIdx.x % groups) * 16;
   const int b = blockIdx.y, col = threadIdx.x & 15, stripe = threadIdx.x >> 4;
-  const __nv_bfloat16* src = v + (long long)b * N * v_row + (long long)kvh * D + c0;
+  const T* src = v + (long long)b * N * v_row + (long long)kvh * D + c0;
   float m = 0.f;
-  for (int r = stripe; r < N; r += 16) m = fmaxf(m, fabsf(__bfloat162float(src[r * v_row + col])));
+  for (int r = stripe; r < N; r += 16) m = fmaxf(m, fabsf(value_f32(src[r * v_row + col])));
   red[stripe][col] = m;
   __syncthreads();
   if (threadIdx.x < 16) {
@@ -163,7 +168,7 @@ __global__ void __launch_bounds__(256) v_codes_kernel(const __nv_bfloat16* __res
     for (int j = 0; j < 4; ++j) {
       const int key = ((pos + j) & ~31) + kperm((pos + j) & 31);
       if (key < N) {
-        const float x = __bfloat162float(src[key * v_row + d]);
+        const float x = value_f32(src[key * v_row + d]);
         word |= ((uint32_t)__float2int_rn(__fdiv_rn(x, scale[d])) & 0xffu) << (8 * j);
       }
     }
@@ -249,15 +254,22 @@ extern "C" int attention_deferred(const void* q, const void* k, const void* v, v
   }
 }
 
-// int8_qk, first launch: v [B, N, hkv * D] bf16 view (row stride v_row,
-// D a multiple of 16) -> codes [B, hkv, D, nk] s8 and sv [B, hkv, D] f32
-// (see v_codes_kernel).  Used by B2 at every head dim (attention_wide.cu's
-// too).
+// int8_qk, first launch: v [B, N, hkv * D] bf16 (f32: fp32) view (row
+// stride v_row, D a multiple of 16) -> codes [B, hkv, D, nk] s8 and sv [B,
+// hkv, D] f32 (see v_codes_kernel).  Used by B2 at every head dim
+// (attention_wide.cu's too) and, on fp32 v, by its fp32 mode
+// (attention_f32.cu).
 extern "C" int attention_v_codes(const void* v, long long v_row, int B, int N, int hkv, int D,
-                                 int nk, void* codes, void* sv, void* stream) {
+                                 int nk, void* codes, void* sv, int f32, void* stream) {
   if (D % 16 || nk % 128) return cudaErrorInvalidValue;
-  v_codes_kernel<<<dim3(hkv * D / 16, B), 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)v, v_row, N, hkv, D, nk, (int8_t*)codes, (float*)sv);
+  const dim3 grid(hkv * D / 16, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    v_codes_kernel<float><<<grid, 256, 0, st>>>((const float*)v, v_row, N, hkv, D, nk,
+                                                (int8_t*)codes, (float*)sv);
+  else
+    v_codes_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>((const __nv_bfloat16*)v, v_row, N, hkv,
+                                                        D, nk, (int8_t*)codes, (float*)sv);
   return cudaGetLastError();
 }
 

@@ -28,7 +28,9 @@
 // weights K-major ([N1, H] and [H, N1], made once by the caller: wgmma
 // reads 8-bit operands K-major only):
 //   1. s8_rows.cuh's row quant, reciprocal form (the row in registers):
-//      a_q [M, H] s8 and s [M].
+//      a_q [M, H] s8 and s [M].  Its fp32 mode (the JAX model at
+//      dtype="float32" hands the kernel fp32 a) reads fp32 rows: the only
+//      change, as in the TPU kernel, whose output stays bf16.
 //   2. mlp_hidden_kernel: a CTA owns one (64-row block, slab) and keeps its
 //      bf16 g on chip (64 x 1280 x 2 = 160 KB), so a slab's row max is
 //      taken there: two consumer warpgroups take the slab's 128-wide column
@@ -433,6 +435,21 @@ cudaError_t launch_out(const void* gq, const void* gs, const void* w2t, const vo
                                    N1, N2, slab);
 }
 
+// The three launches, the first on bf16 rows or (A_F32) fp32 ones.
+template <bool A_F32>
+cudaError_t mlp_launches(const void* a, const void* w1t, const void* w1s, const void* b1,
+                         const void* w2t, const void* w2s, const void* b2, void* aq, void* s,
+                         void* gq, void* gs, void* out, int M, int K, int N1, int N2,
+                         int n_slabs, int gelu_impl, cudaStream_t st) {
+  const int slab = mlp_slab(K, N1, N2, n_slabs);
+  if (!slab) return cudaErrorInvalidValue;
+  cudaError_t e = A_F32 ? launch_quant_rows_f32<true>(a, aq, s, M, K, st)
+                        : launch_quant_rows<true>(a, aq, s, M, K, st);
+  if (e == cudaSuccess)
+    e = launch_hidden(aq, s, w1t, w1s, b1, gq, gs, M, K, N1, slab, gelu_impl, st);
+  return e != cudaSuccess ? e : launch_out(gq, gs, w2t, w2s, b2, out, M, N1, N2, slab, st);
+}
+
 }  // namespace
 
 // Launch 1 alone: a [M, K] bf16 -> aq [M, K] s8, s [M] f32 (reciprocal
@@ -471,11 +488,15 @@ extern "C" int int8_mlp(const void* a, const void* w1t, const void* w1s, const v
                         const void* w2t, const void* w2s, const void* b2, void* aq, void* s,
                         void* gq, void* gs, void* out, int M, int K, int N1, int N2, int n_slabs,
                         int gelu_impl, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int slab = mlp_slab(K, N1, N2, n_slabs);
-  if (!slab) return cudaErrorInvalidValue;
-  cudaError_t e = launch_quant_rows<true>(a, aq, s, M, K, st);
-  if (e == cudaSuccess)
-    e = launch_hidden(aq, s, w1t, w1s, b1, gq, gs, M, K, N1, slab, gelu_impl, st);
-  return e != cudaSuccess ? e : launch_out(gq, gs, w2t, w2s, b2, out, M, N1, N2, slab, st);
+  return mlp_launches<false>(a, w1t, w1s, b1, w2t, w2s, b2, aq, s, gq, gs, out, M, K, N1, N2,
+                             n_slabs, gelu_impl, (cudaStream_t)stream);
+}
+
+// The same on a [M, K] fp32: the fp32 mode, whose row quant reads fp32 rows.
+extern "C" int int8_mlp_f32(const void* a, const void* w1t, const void* w1s, const void* b1,
+                            const void* w2t, const void* w2s, const void* b2, void* aq, void* s,
+                            void* gq, void* gs, void* out, int M, int K, int N1, int N2,
+                            int n_slabs, int gelu_impl, void* stream) {
+  return mlp_launches<true>(a, w1t, w1s, b1, w2t, w2s, b2, aq, s, gq, gs, out, M, K, N1, N2,
+                            n_slabs, gelu_impl, (cudaStream_t)stream);
 }

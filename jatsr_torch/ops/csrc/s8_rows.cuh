@@ -180,8 +180,9 @@ __device__ __forceinline__ uint2 quant8_f32(const float4& x, const float4& y, fl
   return quant8(f, sc);
 }
 
-// One warp a row, the row in registers (V groups a lane: K <= 256 V).
-template <int V>
+// One warp a row, the row in registers (V groups a lane: K <= 256 V).  RCP:
+// B13's reciprocal form (its fp32 mode), rint(a * (1 / s)).
+template <int V, bool RCP = false>
 __global__ void __launch_bounds__(256) quant_rows_f32_v(const float* __restrict__ a,
                                                         int8_t* __restrict__ aq,
                                                         float* __restrict__ s, int M, int K) {
@@ -203,11 +204,19 @@ __global__ void __launch_bounds__(256) quant_rows_f32_v(const float* __restrict_
   for (int i = 0; i < V; ++i) amax = fmaxf(amax, absmax8(v[2 * i], v[2 * i + 1]));
   amax = warp_max(amax);
   const float sc = fmaxf(__fmul_rn(amax, INV127), 1e-12f);
+  const float rcp = RCP ? __fdiv_rn(1.0f, sc) : 0.f;
   int8_t* qr = aq + (size_t)row * K;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int k = (i * 32 + lane) * 8;
-    if (k < K) *reinterpret_cast<uint2*>(qr + k) = quant8_f32(v[2 * i], v[2 * i + 1], sc);
+    if (k >= K) continue;
+    if constexpr (RCP) {
+      const float4 x = v[2 * i], y = v[2 * i + 1];
+      const float f[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+      *reinterpret_cast<uint2*>(qr + k) = quant8_rcp(f, rcp);
+    } else {
+      *reinterpret_cast<uint2*>(qr + k) = quant8_f32(v[2 * i], v[2 * i + 1], sc);
+    }
   }
   if (lane == 0) s[row] = sc;
 }
@@ -236,15 +245,24 @@ __global__ void __launch_bounds__(256) quant_rows_f32_twice(const float* __restr
 
 // a [M, K] fp32 -> aq [M, K] s8, s [M] f32 (the floored scales), for any K %
 // 8 == 0 (16-byte aligned rows): the row in registers up to K = 2048, read
-// twice past it.  Its first instruction lets the next launch start.
-template <int UNUSED = 0>
+// twice past it.  The reciprocal form (RCP, B13) up to K = 4096, the row in
+// registers (the caller checks).  Its first instruction lets the next
+// launch start.
+template <bool RCP = false>
 cudaError_t launch_quant_rows_f32(const void* a, void* aq, void* s, int M, int K,
                                   cudaStream_t st) {
   const dim3 grid((M + 7) / 8), block(256);
   auto A = (const float*)a;
   auto Q = (int8_t*)aq;
   auto S = (float*)s;
-  if (K <= 2048)
+  if constexpr (RCP) {
+    if (K <= 2048)
+      quant_rows_f32_v<8, true><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else if (K <= 4096)
+      quant_rows_f32_v<16, true><<<grid, block, 0, st>>>(A, Q, S, M, K);
+    else
+      return cudaErrorInvalidValue;
+  } else if (K <= 2048)
     quant_rows_f32_v<8><<<grid, block, 0, st>>>(A, Q, S, M, K);
   else
     quant_rows_f32_twice<><<<grid, block, 0, st>>>(A, Q, S, M, K);

@@ -478,7 +478,9 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh",
     with per-(row, slab) requant scales of the hidden activation.
 
     Args:
-        a: [M, K] bf16 activations (unquantised).
+        a: [M, K] bf16 activations (unquantised), or fp32 (the JAX model's
+            at ``dtype="float32"``: the fp32 mode, whose row quant reads
+            fp32 rows; ``f32_launches`` counts it apart).
         w1_q: [K, N1] int8; w1_scale, b1: [1, N1] fp32.
         w2_q: [N1, N2] int8; w2_scale, b2: [1, N2].
         w1_t, w2_t: [N1, K] and [N2, N1] int8, ``w1_q.t()`` and
@@ -486,7 +488,7 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh",
             read; needed on the card, made once by the caller.  The plain
             version checks their shapes and reads ``w1_q`` and ``w2_q``.
     Returns:
-        [M, N2] bf16.
+        [M, N2] bf16, in either mode (as the JAX kernel writes it).
     """
     if gelu_impl not in GELU_IMPLS:
         raise ValueError(f"gelu_impl {gelu_impl!r} not in {GELU_IMPLS}")
@@ -499,15 +501,16 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh",
         return mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl)
     from . import _build
 
-    if a.dtype != torch.bfloat16:
-        raise TypeError(f"int8_mlp kernel takes bf16, got {a.dtype}")
+    if a.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"int8_mlp kernel takes bf16 or fp32, got {a.dtype}")
     if w1_t is None or w2_t is None:
         raise ValueError("int8_mlp: the card's kernels read both weights "
                          "K-major: pass w1_t = w1_q.t().contiguous() and "
                          "w2_t = w2_q.t().contiguous(), made once")
     plan = mlp_plan(M, K, N1, N2)
     lib = _build.load("mlp_full")
-    fn = lib.int8_mlp
+    f32 = a.dtype == torch.float32
+    fn = lib.int8_mlp_f32 if f32 else lib.int8_mlp
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
@@ -527,7 +530,9 @@ def int8_mlp(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, *, gelu_impl="tanh",
              _build.stream_ptr(dev))
     _build.check(lib, err, "int8_mlp")
     int8_mlp.launches += 1
+    int8_mlp.f32_launches += f32
     return out
 
 
 int8_mlp.launches = 0
+int8_mlp.f32_launches = 0

@@ -1844,8 +1844,7 @@ def test_flash_qkv_fp32_kernel_matches_plain(card, hq, hkv, D, n, n_valid):
     assert got.dtype == torch.float32
     want = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=n_valid)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv, int8_qk=True)
+    _check_int8_qk_fp32(qkv, cos, sin, hq, hkv, n_valid)
 
 
 def _fp32_rows(x, seed):
@@ -2000,5 +1999,274 @@ def test_dense_dit_dtypes_on_card_match_cpu(card, knobs):
     f32, int8 = cfg.dtype == "float32", cfg.matmul_precision == "int8"
     assert n == (0 if f32 else cfg.depth,
                  2 + 6 * cfg.depth if f32 and int8 else 0)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+# ---- the fp32 modes of B11, B12, B13, B15, B16 and B2's int8_qk -----------
+# csrc/attention_f32.cu (B13: mlp_full.cu's fp32 row quant).  B11, B15 and
+# B16: rtol = atol = 1e-5 (fp32 products and sums in another order), B15
+# and B16 bit-equal to each other (one body, two grids).  B12: max abs
+# error <= 1e-2 x max |plain|, its bf16 mode's bound (a head output one
+# fp32 ulp apart can still move a code of the row quant by one).  B13: its
+# bf16 mode's bounds.  int8_qk: V's codes and scales bit-equal to
+# ``v_codes_plain``; the outputs within atol = rtol = 1e-2 (the CPU test's
+# bound: a code of e * 127 on a rounding boundary can flip by one), at most
+# 1 % of them more than 1e-4 apart.  Each launch counts in ``launches``
+# (``int8_qk_launches``) and ``f32_launches`` (``int8_qk_f32_launches``).
+
+def _check_int8_qk_fp32(qkv, cos, sin, hq, hkv, n_valid):
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops.attention import (_v_codes, padded_head_dim,
+                                           v_codes_plain)
+
+    f = gqa_attention_flash_qkv
+    n0 = (f.launches, f.int8_qk_launches, f.int8_qk_f32_launches,
+          _v_codes.launches)
+    got = f(qkv, cos, sin, hq, hkv, n_valid=n_valid, int8_qk=True)
+    assert (f.launches, f.int8_qk_launches, f.int8_qk_f32_launches,
+            _v_codes.launches) == (n0[0], n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    assert got.dtype == torch.float32
+    want = flash_qkv_plain(qkv, cos, sin, hq, hkv, n_valid=n_valid,
+                           int8_qk=True)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+    assert ((got - want).abs() > 1e-4).float().mean().item() <= 1e-2
+    B, N, TD = qkv.shape
+    D = TD // (hq + 2 * hkv)
+    dc = padded_head_dim(D)
+    v = F.pad(qkv[..., (hq + hkv) * D:].reshape(B, N, hkv, D),
+              (0, dc - D)).reshape(B, N, hkv * dc)
+    nk = -(-N // 128) * 128
+    codes, sv = _v_codes(v, v.stride(1), hkv, dc, nk)
+    want_codes, want_sv = v_codes_plain(v, hkv, nk)
+    assert torch.equal(codes, want_codes) and torch.equal(sv, want_sv)
+
+
+def _split_fp32(card, B, N, hq, hkv, D, seed, negative=None):
+    """fp32 q [B, N, hq, D], k/v [B, N, hkv, D]; ``negative``: every q
+    negative and every k positive, so that each real score of every row is
+    below 0 and B11's zero keys hold the row max.  "scaled": q times 4 /
+    sqrt(D), the scores near -4 at every D; "unscaled": as drawn, the
+    scores near -(2 / pi) sqrt(D) (-10 at D 256), where the real keys'
+    share of B11's l is small and taking the zero keys' share off l
+    cancels most of it, in the JAX kernel as here (see
+    :func:`_zero_key_rtol`)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn((B, N, h, D), generator=gen, device=card)
+               for h in (hq, hkv, hkv))
+    if negative:
+        q, k = -q.abs(), k.abs()
+    if negative == "scaled":
+        q = q * (4.0 / math.sqrt(D))
+    return q, k, v
+
+
+def _zero_key_rtol(q, k):
+    """B11's rtol where its zero keys hold the row max: l = l_real + npad
+    exp2(-m), and l_real = l - npad exp2(-m) carries l's rounding error
+    magnified by l / l_real.  Each side's fp32 sum of l's terms rounds at
+    l's scale about log2(limit) times (a lane's running sum, then the
+    tree), a unit roundoff u = 2^-24 each: rtol = 1e-5 + 2 log2(limit) u
+    max(l / l_real) over the rows (float64 here), for the two sides."""
+    B, N, hq, D = q.shape
+    limit = -(-N // 8) * 8
+    kk = k.double().repeat_interleave(hq // k.shape[2], 2)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.double(), kk) * (
+        math.log2(math.e) / math.sqrt(D))
+    m = s.amax(-1).clamp_min(0)  # the zero keys score 0
+    l_real = torch.exp2(s - m[..., None]).sum(-1)
+    ratio = ((l_real + (limit - N) * torch.exp2(-m)) / l_real).max().item()
+    return 1e-5 + 2 * math.log2(limit) * 2.0 ** -24 * ratio
+
+
+@pytest.mark.parametrize("B,N,hq,hkv,D,negative", [
+    (6, 345, 20, 4, 64, None), (2, 45, 4, 2, 16, "scaled"),
+    (2, 130, 4, 2, 64, None), (2, 90, 2, 2, 128, None),
+    (2, 70, 4, 2, 256, "scaled"), (2, 70, 4, 2, 256, "unscaled"),
+    (3, 100, 6, 2, 48, None), (2, 1000, 8, 4, 64, None),
+    (1, 1378, 4, 2, 32, None)])
+def test_split_attention_fp32_kernels_match_plain(card, B, N, hq, hkv, D,
+                                                  negative):
+    """B11 (flat views; N padded to 8 with zero keys in the row max), B15
+    and B16 (head views) in fp32 mode at the serving shape, tiny's and
+    other head dims (16 to 256, 48 not a tile's), N past 1024 (B15/B16's
+    streaming range in bf16), and rows whose real scores are all negative
+    (B11 at :func:`_zero_key_rtol` where they are far below 0)."""
+    q, k, v = _split_fp32(card, B, N, hq, hkv, D, seed=200 + N + D,
+                          negative=negative)
+    flat = [t.reshape(B, N, -1) for t in (q, k, v)]
+    n0 = (gqa_attention_flash.launches, gqa_attention_flash.f32_launches)
+    got = gqa_attention_flash(*flat, hq, hkv)
+    assert (gqa_attention_flash.launches - n0[0],
+            gqa_attention_flash.f32_launches - n0[1]) == (1, 1)
+    assert got.dtype == torch.float32 and got.shape == (B, N, hq * D)
+    rtol = _zero_key_rtol(q, k) if negative == "unscaled" else 1e-5
+    torch.testing.assert_close(got, flash_split_plain(*flat, hq, hkv),
+                               atol=1e-5, rtol=rtol)
+    outs = []
+    for fn in (gqa_attention, gqa_attention_grouped):
+        n0 = (fn.launches, fn.f32_launches)
+        outs.append(fn(q, k, v))
+        assert (fn.launches - n0[0], fn.f32_launches - n0[1]) == (1, 1)
+    assert outs[0].dtype == torch.float32
+    torch.testing.assert_close(outs[0], gqa_attention_plain(q, k, v),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_split_attention_fp32_refuses_mixed_dtypes(card):
+    q, k, v = _split_fp32(card, 1, 40, 4, 2, 32, seed=210)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        gqa_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        gqa_attention_flash(q.reshape(1, 40, -1).half(),
+                            k.reshape(1, 40, -1).half(),
+                            v.reshape(1, 40, -1).half(), 4, 2)
+
+
+@pytest.mark.parametrize("B,N,n_valid,hq,hkv,D,H", [
+    (6, 352, 345, 20, 4, 64, 1280), (2, 90, 0, 8, 2, 32, 256),
+    (6, 352, 345, 20, 4, 48, 1280), (2, 65, 60, 4, 2, 256, 384)])
+def test_flash_out_fp32_kernel_matches_plain(card, B, N, n_valid, hq, hkv, D,
+                                             H):
+    """B12's fp32 mode (the attention into an fp32 scratch at the weight's
+    padded head dim, the fp32 row quant, the s8 GEMM writing fp32) at the
+    serving shape, a small one, head dim 48 (the DiT's padded K-major
+    weight) and 256.  Then the codes themselves, read back through an
+    identity out projection (``out = o_q * so``, zero columns past hq D up
+    to a multiple of 128), against the plain version's: the row quant hides
+    o's precision from the outputs, where a head output in less than fp32
+    still passes, but it flips many more codes than 0.5 %."""
+    gen = torch.Generator(device=card).manual_seed(220 + D)
+    qkv = torch.randn((B, N, (hq + 2 * hkv) * D), generator=gen, device=card)
+    cos, sin = rope_cos_sin(N, D, device=card)
+    _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * D, H, seed=221 + D)
+    f = gqa_attention_flash_out
+    n0 = (f.launches, f.f32_launches)
+    got = f(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv, n_valid=n_valid,
+            wo_t=flash_out_weight_t(wo_q, hq, D))
+    assert (f.launches - n0[0], f.f32_launches - n0[1]) == (1, 1)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=n_valid)
+    _assert_rel(got, want, 1e-2)
+    K = hq * D
+    eye = torch.eye(K, -(-K // 128) * 128, dtype=torch.int8, device=card)
+    ones = torch.ones((1, eye.shape[1]), device=card)
+    zeros = torch.zeros_like(ones)
+    got = f(qkv, cos, sin, eye, ones, zeros, hq, hkv, n_valid=n_valid,
+            wo_t=flash_out_weight_t(eye, hq, D))
+    want = flash_out_plain(qkv, cos, sin, eye, ones, zeros, hq, hkv,
+                           n_valid=n_valid)
+    assert not got[..., K:].any()
+    _assert_codes(_identity_codes(got[..., :K]),
+                  _identity_codes(want[..., :K]))
+
+
+def _identity_codes(out):
+    """The codes and row scales of an identity out projection's output
+    ``o_q * so`` (each row's largest code is 127)."""
+    so = out.abs().amax(dim=-1, keepdim=True) / 127
+    return torch.round(out / so).to(torch.int8), so
+
+
+@pytest.mark.parametrize("M,H,N1,gelu_impl", [
+    (2112, 1280, 5120, "tanh"), (100, 256, 1024, "sigmoid"),
+    (70, 256, 384, "erf")])
+def test_int8_mlp_fp32_kernel_matches_plain(card, M, H, N1, gelu_impl):
+    """B13's fp32 mode: fp32 rows through the reciprocal row quant, the
+    rest as in bf16 mode, bf16 out; its bf16 mode's bounds, and two calls
+    bit-equal."""
+    a, *w = _mlp_args(card, M, H, N1, seed=230)
+    args = (a.float() + 1e-3 * torch.randn(a.shape, device=card), *w)
+    kt = _mlp_t(args)
+    n0 = (int8_mlp.launches, int8_mlp.f32_launches)
+    got = int8_mlp(*args, gelu_impl=gelu_impl, **kt)
+    assert (int8_mlp.launches - n0[0], int8_mlp.f32_launches - n0[1]) == (1, 1)
+    assert got.dtype == torch.bfloat16
+    want = mlp_plain(*args, gelu_impl=gelu_impl).float()
+    assert (got.float() != want).float().mean().item() <= 1e-3
+    torch.testing.assert_close(got.float(), want, atol=0.02, rtol=0.02)
+    assert torch.equal(got, int8_mlp(*args, gelu_impl=gelu_impl, **kt))
+
+
+FP32_BRANCHES = {  # knobs -> (the wrapper whose fp32 mode runs, its counter)
+    "B11": (dict(fused_qkv=False), gqa_attention_flash, "f32_launches"),
+    "B11_no_flash_qkv": (dict(flash_qkv=False), gqa_attention_flash,
+                         "f32_launches"),
+    "B12": (dict(flash_fused_out=True), gqa_attention_flash_out,
+            "f32_launches"),
+    "B13": (dict(fused_mlp_impl="full"), int8_mlp, "f32_launches"),
+    "B15": (dict(attention_impl="pallas"), gqa_attention, "f32_launches"),
+    "B16": (dict(attention_impl="pallas2"), gqa_attention_grouped,
+            "f32_launches"),
+    "int8_qk": (dict(flash_int8_qk=True), gqa_attention_flash_qkv,
+                "int8_qk_f32_launches"),
+}
+
+
+@pytest.mark.parametrize("name", list(FP32_BRANCHES))
+def test_narrow_dit_fp32_branches_on_card_match_cpu(card, name):
+    """The narrow int8 DiT at dtype="float32" on each branch whose kernel
+    gained its fp32 mode here, on the card against the CPU's plain path:
+    the mode launched once a block, relative L2 < 2e-2."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.models.from_jax import random_dense_params
+    from jatsr_torch.ops.quant import quantize_params_static
+
+    knobs, fn, attr = FP32_BRANCHES[name]
+    cfg = dataclasses.replace(get_preset("tiny").model, **{
+        **dict(hidden_size=256, num_q_heads=4, num_kv_heads=2,
+               bottleneck_dim=128, input_channels=64, cond_channels=64,
+               matmul_precision="int8_static", fused_qkv=True,
+               fused_mlp=True, attention_impl="flash", dtype="float32"),
+        **knobs})
+    static = quantize_params_static(random_dense_params(cfg, 240), cfg)
+    rng = np.random.default_rng(241)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    ref = DiT(cfg, static, device="cpu")(x_t, t, x_c)
+    n0 = getattr(fn, attr)
+    out = DiT(cfg, static, device="cuda")(x_t.cuda(), t.cuda(),
+                                          x_c.cuda()).cpu()
+    assert getattr(fn, attr) - n0 == cfg.depth
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+@pytest.mark.parametrize("impl,fn", [("flash", gqa_attention_flash),
+                                     ("pallas", gqa_attention),
+                                     ("pallas2", gqa_attention_grouped)])
+def test_dense_dit_fp32_attention_on_card_matches_cpu(card, impl, fn):
+    """DenseDiT at dtype="float32" with B11, B15 or B16 (fp32 mode, once a
+    block), on the card against the CPU: relative L2 < 2e-2."""
+    import dataclasses
+
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.models.from_jax import random_dense_params
+
+    cfg = dataclasses.replace(
+        get_preset("tiny").model, hidden_size=256, num_q_heads=4,
+        num_kv_heads=2, bottleneck_dim=128, input_channels=64,
+        cond_channels=64, dtype="float32", attention_impl=impl)
+    dense = random_dense_params(cfg, 242)
+    rng = np.random.default_rng(243)
+    x_t, x_c = (torch.from_numpy(rng.standard_normal((2, 130, 64),
+                                                     dtype=np.float32))
+                for _ in range(2))
+    t = torch.tensor([0.2, 0.9])
+    with torch.no_grad():
+        ref = DenseDiT(cfg, dense, device="cpu")(x_t, t, x_c)
+        n0 = fn.f32_launches
+        out = DenseDiT(cfg, dense, device="cuda")(x_t.cuda(), t.cuda(),
+                                                  x_c.cuda()).cpu()
+    assert fn.f32_launches - n0 == cfg.depth
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2

@@ -103,9 +103,8 @@ def test_quantize_params_static_matches_jax():
 ])
 def test_dit_raises_outside_the_slice(knob, value):
     """What the int8 DiT still raises for: a compute dtype other than bf16
-    and fp32 (the fp32 branches whose kernels have no fp32 mode yet:
-    ``tests/test_torch_dtypes.py``), and a precision other than
-    int8_static, whose models are DenseDiT's."""
+    and fp32 (at fp32 every branch serves: ``tests/test_torch_f32_modes.py``),
+    and a precision other than int8_static, whose models are DenseDiT's."""
     import dataclasses
 
     from jatsr_torch.models.dit import DiT

@@ -1,7 +1,9 @@
 """The serving DiT's dtype branches against the JAX package on the CPU:
 bf16 parameters (``param_dtype="bfloat16"``, as ``bench.py`` builds every
 model), the fp32 compute dtype (``dtype="float32"``) with the fp32 modes of
-B1, B2, B3 and B5, and bf16 score storage in training.
+B1, B2, B3 and B5, and bf16 score storage in training.  The fp32 modes of
+B11, B12, B13, B15, B16 and B2's ``int8_qk``, and the fp32 DiT on their
+branches, are ``tests/test_torch_f32_modes.py``'s.
 
 - ``DenseDiT`` with bf16 parameters at precision ``bf16`` (``bench.py
   --bf16``: the split flash kernel, B11) and ``int8`` (``--precision int8
@@ -28,9 +30,8 @@ B1, B2, B3 and B5, and bf16 score storage in training.
   ``int8``) against ``DiT.apply``: within ``test_torch_dit.py``'s bounds
   (the int8 products can still flip a code by one where an fp32 statistic
   differs in its last bit).
-- Each fp32 branch whose kernel has no fp32 mode yet raises
-  ``NotImplementedError`` naming ROADMAP.md where the model is built, and
-  fp32 or bf16-parameter training where the model trains.
+- fp32 or bf16-parameter training raises ``NotImplementedError`` naming
+  ROADMAP.md where the model trains.
 - A train step with ``scores_dtype="bfloat16"`` on the einsum path,
   dropout 0, against JAX's step fed its own draws, under MSE: the bounds of
   ``test_train_steps_match_jax``.
@@ -303,34 +304,6 @@ def test_dense_dit_at_fp32_matches_jax(precision):
             *map(torch.from_numpy, (x, t, c))).numpy()
     assert np.abs(want).mean() > 0.05
     _assert_close(got, want)
-
-
-GATED = {
-    "B11": dict(fused_qkv=False),
-    "B11_no_flash_qkv": dict(flash_qkv=False),
-    "B12": dict(flash_fused_out=True),
-    "B13": dict(fused_mlp_impl="full"),
-    "B15": dict(attention_impl="pallas"),
-    "B16": dict(attention_impl="pallas2"),
-    "int8_qk": dict(flash_int8_qk=True),
-}
-
-
-@pytest.mark.parametrize("knobs", list(GATED.values()), ids=list(GATED))
-def test_fp32_branches_without_kernels_raise(knobs):
-    """Each fp32 branch whose kernel has no fp32 mode in the port yet
-    raises where the model is built, naming ROADMAP.md: the int8 DiT on
-    the narrow config, and ``DenseDiT`` where its attention is a kernel."""
-    cfg = dataclasses.replace(narrow_cfg(get_preset, "rms", dtype="float32"),
-                              **knobs)
-    static = quantize_params_static(random_dense_params(cfg, 39), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiT(cfg, static, device="cpu")
-    if "attention_impl" in knobs or "fused_qkv" in knobs:
-        dcfg = dataclasses.replace(get_preset("tiny").model, dtype="float32",
-                                   attention_impl=cfg.attention_impl)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DenseDiT(dcfg, random_dense_params(dcfg, 39), device="cpu")
 
 
 @pytest.mark.parametrize("knob", [dict(dtype="float32"),

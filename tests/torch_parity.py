@@ -31,7 +31,8 @@ def narrow_cfg(preset_getter, norm="layer", **knobs):
     return dataclasses.replace(
         preset_getter("tiny").model, bottleneck_dim=128, input_channels=C,
         cond_channels=C, norm=norm, matmul_precision="int8_static",
-        fused_qkv=True, fused_mlp=True, **{"attention_impl": "flash", **knobs})
+        **{"attention_impl": "flash", "fused_qkv": True, "fused_mlp": True,
+           **knobs})
 
 
 def build_pair(norm="layer", seed=0, **knobs):
