@@ -144,14 +144,22 @@ the full-width fused decoder on the card against its plain path on the
 CPU (200 latent frames), and the fused decode against the unfused one on
 the card (one segment).
 
-Then the training path: the training attention kernel (B10, forward and
-backward) against its plain versions at the v3 training shapes, then the
-``v3mod2`` train step at full width (766 M, batch 28 of 1378 frames, remat
-"full", dropout 0.1, drop-path 0.05; the serving phase's dense weights):
-``create_train_state``, one counted step (B10 forward 56, backward 28),
-timed steps (finite losses, moved parameters), and one step of the same
-model (all 28 blocks, batch 4) on the card against the CPU (plain
-versions) on the same weights, batch and draws; and one step of the tiny
+Then the training paths: the training attention kernel (B10, forward and
+backward) against its plain versions at the v3 training shapes, and its
+fp32 mode (``csrc/attention_f32.cu``'s train mode, the backward
+``csrc/attention_f32_bwd.cu``) at the same shapes in fp32 (within
+REL_F32_TRAIN of max |plain|, two runs of each bit-equal, timed beside
+fp32 SDPA), at D 32, 128, 256 and at N 768; then the ``v3mod2`` train step
+at full width (766 M, batch 28 of 1378 frames, remat "full", dropout 0.1,
+drop-path 0.05; the serving phase's dense weights) as its preset trains it
+(``train``: bf16 compute, fp32 parameters), at ``dtype="float32"``
+(``train_fp32``: every B10 launch in its fp32 mode) and at
+``param_dtype="bfloat16"`` (``train_bf16_params``: bf16 parameters,
+gradients and second moment): ``create_train_state`` (the state's GiB),
+one counted step (B10 forward 56, backward 28), timed steps (finite
+losses, moved parameters, the peak memory), and one step of each (all 28
+blocks, batch 4) on the card against the CPU (plain versions) on the same
+weights, batch and draws (TRAIN_REF_BOUNDS); and one step of the tiny
 preset (head dim 32) on the card against the CPU.
 
 The training entry point at full width: ``python -m jatsr_torch.cli.train
@@ -238,6 +246,7 @@ B, NP, N_VALID, H = 6, 352, 345, 1280   # the main path's DiT batch and rows
 # that the timed steps move the parameters (step 0 has lr 0, step 1 half).
 TRAIN_B, TRAIN_FRAMES, TRAIN_N = 28, 1378, 345
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_TIMED_DTYPES = 3        # timed steps at fp32 and with bf16 parameters
 REF_B = 4                     # the card-vs-CPU train step's batch
 
 # bench.py's DiT at full width: its default (the fused prologue, which
@@ -2794,6 +2803,129 @@ def check_attention_train_at(torch, hq, hkv, D, seed_, timed):
     return fwd, bwd
 
 
+# B10's fp32 mode (csrc/attention_f32.cu's train mode, the backward in
+# csrc/attention_f32_bwd.cu) against its plain version: every product in
+# fp32 on both sides (TF32 off), the kernels' sums in another order; each
+# output and gradient within 1e-4 x max |plain| (a sum of n fp32 terms in
+# another order moves by at most ~n u of their magnitudes' sum, u = 2^-24:
+# 5e-5 of it at n = 768; the measured errors are far below).
+REL_F32_TRAIN = 1e-4
+
+
+def check_f32_train_pair(torch, B, N, hq, hkv, D, seed_, rate, seed):
+    """B10's fp32 forward and backward at one shape: each against its plain
+    version (``REL_F32_TRAIN``), two runs of each bit-equal.  Returns the
+    inputs, the forward's output and stats and the two max abs errors."""
+    from jatsr_torch.ops import attention_train as at
+
+    gen = torch.Generator(device="cuda").manual_seed(seed_)
+    q, k, v, do = (torch.randn((B, N, w * D), generator=gen, device="cuda")
+                   for w in (hq, hkv, hkv, hq))
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    o2, stats2 = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    what = f"B10 fp32 at [{B}, {N}, {hq}/{hkv}, {D}]"
+    if o.dtype != torch.float32 or not (torch.equal(o, o2)
+                                        and torch.equal(stats, stats2)):
+        raise AssertionError(f"{what} forward: not fp32, or two runs differ")
+    err_f = (o - want).abs().max().item()
+    if not bool(torch.isfinite(o).all()) or \
+            err_f > REL_F32_TRAIN * want.abs().max().item():
+        raise AssertionError(f"{what} forward: max abs {err_f}")
+    got = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    again = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    ref = at.attention_train_bwd_plain(q, k, v, o, do, seed, hq, hkv, rate)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        e = (a - r).abs().max().item()
+        if a.dtype != torch.float32 or not torch.equal(a, a2) \
+                or not bool(torch.isfinite(a).all()) \
+                or e > REL_F32_TRAIN * r.abs().max().item():
+            raise AssertionError(f"{what} backward {name}: max abs {e}, or "
+                                 f"two runs differ")
+        err_b = max(err_b, e)
+    return (q, k, v, do, o, stats), err_f, err_b
+
+
+def check_attention_train_fp32(torch, checks):
+    """B10's fp32 mode at the v3mod2 step's shapes (q [28, 345, 1280], k/v
+    [28, 345, 256] fp32, dropout 0.1, a negative seed) against its plain
+    versions, two runs of each bit-equal, timed beside fp32 SDPA (kv heads
+    repeated, dropout 0.1) forward and autograd backward; then at D 32 (4/2
+    heads), 128 and 256 (20/4) at batch 4, N 345, and at N 768 (D 64), each
+    checked the same way and timed.  The kernel lines carry the bf16 mode's
+    ms of this run beside."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops import attention_train as at
+
+    hq, hkv, D, rate, seed = 20, 4, 64, 0.1, -123456789
+    (q, k, v, do, o, stats), err_f, err_b = check_f32_train_pair(
+        torch, TRAIN_B, TRAIN_N, hq, hkv, D, SEED + 40, rate, seed)
+
+    def heads(x, h):  # [B, N, h*D] -> [B, hq, N, D], kv heads repeated
+        x = x.reshape(TRAIN_B, TRAIN_N, h, D).transpose(1, 2)
+        return x.repeat_interleave(hq // h, 1).contiguous()
+
+    q4, k4, v4, do4 = heads(q, hq), heads(k, hkv), heads(v, hkv), heads(do, hq)
+    fwd = timings(
+        lambda q, k, v, *_: at.attention_train_fwd(q, k, v, seed, hq, hkv,
+                                                   rate),
+        lambda q, k, v, *_: at.attention_train_fwd_plain(q, k, v, seed, hq,
+                                                         hkv, rate),
+        lambda q, k, v, q4, k4, v4: F.scaled_dot_product_attention(
+            q4, k4, v4, dropout_p=rate),
+        (q, k, v, q4, k4, v4), big=(0, 1, 2, 3, 4, 5), reps=20,
+        plain_reps=3)
+    q4g, k4g, v4g = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, dropout_p=rate)
+    bwd = timings(
+        lambda q, k, v, o, do, *_: at.attention_train_bwd(
+            q, k, v, o, do, seed, hq, hkv, rate, stats),
+        lambda q, k, v, o, do, *_: at.attention_train_bwd_plain(
+            q, k, v, o, do, seed, hq, hkv, rate),
+        lambda *a: torch.autograd.grad(out4, (q4g, k4g, v4g), a[5],
+                                       retain_graph=True),
+        (q, k, v, o, do, do4), big=(0, 1, 2, 3, 4), reps=10, plain_reps=3)
+    del out4, q4g, k4g, v4g, q4, k4, v4, do4
+    pairs = TRAIN_B * hq * TRAIN_N * TRAIN_N * D
+    b_f = bound(nbytes_of(q, k, v, o, stats), 4 * pairs, PEAK_FP32)
+    b_b = bound(nbytes_of(q, k, v, o, do, stats) + nbytes_of(q, k, v),
+                10 * pairs, PEAK_FP32)
+    del q, k, v, do, o, stats
+    extra = {"fwd": {}, "bwd": {}}
+    for name, B_, N_, hq_, hkv_, D_ in (
+            ("head_dim_32", 4, TRAIN_N, 4, 2, 32),
+            ("head_dim_128", 4, TRAIN_N, 20, 4, 128),
+            ("head_dim_256", 4, TRAIN_N, 20, 4, 256),
+            ("n_768", 4, 768, 20, 4, 64)):
+        (q, k, v, do, o, stats), ef, eb = check_f32_train_pair(
+            torch, B_, N_, hq_, hkv_, D_, SEED + 41, rate, seed)
+        shape = [B_, N_, hq_, hkv_, D_]
+        extra["fwd"][name] = {"shape": shape, "max_abs_err": ef,
+                              "ms": time_ms(lambda *_: at.attention_train_fwd(
+                                  q, k, v, seed, hq_, hkv_, rate), [()], 20)}
+        extra["bwd"][name] = {"shape": shape, "max_abs_err": eb,
+                              "ms": time_ms(lambda *_: at.attention_train_bwd(
+                                  q, k, v, o, do, seed, hq_, hkv_, rate,
+                                  stats), [()], 10)}
+        del q, k, v, do, o, stats
+    torch.cuda.empty_cache()
+    shape = [TRAIN_B, TRAIN_N, hq, hkv, D]
+    out = {}
+    for way, f, e, b_, src in (
+            ("fwd", fwd, err_f, b_f, "jatsr_torch/ops/csrc/attention_f32.cu"),
+            ("bwd", bwd, err_b, b_b,
+             "jatsr_torch/ops/csrc/attention_f32_bwd.cu")):
+        line = fp32_line(checks[f"attention_train_{way}"], {
+            "max_abs_err": e, **f, "bound_ms": b_[0], "bound_by": b_[1],
+            "shape": shape, "dropout": rate, **extra[way]}, src)
+        out[line["name"]] = line
+    return out
+
+
 def check_tiny_train_step(torch):
     """One train step of the tiny preset (head dim 32: B10 at D = 32, twice
     a block forward and once backward) on the card against the CPU on the
@@ -2868,20 +3000,43 @@ def train_batch(torch, cfg):
     return hr, lr, stats
 
 
-def train_phase(torch, dense, profile):
-    """The v3mod2 train step at full width: one counted step, then timed
-    steps.  Returns the counted step's B10 launches."""
+# The training paths: v3mod2 as its preset trains it (bf16 compute, fp32
+# parameters), at the fp32 compute dtype (the JAX import tool's model,
+# fine-tuned: B10's fp32 mode) and with bf16 parameters (bf16 gradients and
+# second moment; B10's bf16 mode).
+TRAIN_PATHS = {"train": {}, "train_fp32": {"dtype": "float32"},
+               "train_bf16_params": {"param_dtype": "bfloat16"}}
+
+
+def train_counters():
+    """B10's launch counts: ``launches`` counts both modes, the fp32 lines
+    the fp32 one."""
+    from jatsr_torch.ops import attention_train as at
+
+    return {"attention_train_fwd": at.attention_train_fwd,
+            "attention_train_bwd": at.attention_train_bwd,
+            "attention_train_fwd_fp32": Count(at.attention_train_fwd,
+                                              "f32_launches"),
+            "attention_train_bwd_fp32": Count(at.attention_train_bwd,
+                                              "f32_launches")}
+
+
+def train_phase(torch, dense, profile, tag="train", timed=TRAIN_TIMED):
+    """The v3mod2 train step at full width on path ``tag`` of
+    ``TRAIN_PATHS``: one counted step (B10 forward 56, backward 28, in the
+    fp32 mode at dtype="float32", else in bf16), then ``timed`` steps.
+    Returns the counted step's B10 launches."""
     from jatsr_torch.configs import get_preset
     from jatsr_torch.models.dit import DenseDiT
-    from jatsr_torch.ops import attention_train as at
     from jatsr_torch.train import (Normalizer, create_train_state,
                                    make_train_step)
     from jatsr_torch.utils.flops import mfu, train_step_flops
 
     preset = get_preset("v3mod2")
-    cfg = preset.model
+    cfg = dataclasses.replace(preset.model, **TRAIN_PATHS[tag])
     tcfg = dataclasses.replace(preset.train, warmup_steps=TRAIN_WARMUP)
     hr, lr, stats = train_batch(torch, cfg)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = create_train_state(DenseDiT(cfg, dense, device="cuda"), tcfg,
@@ -2890,12 +3045,18 @@ def train_phase(torch, dense, profile):
     named = dict(state.model.named_parameters())
     watch = {k: named[k].detach().clone() for k in
              ("blocks.0.attn.q_proj.kernel", "blocks.27.mlp_out.kernel",
-              "patch_in.kernel", "final_proj.kernel")}
-    log(f"[train] v3mod2 state on the card: {time.perf_counter() - t0:.1f} s; "
-        f"{sum(p.numel() for p in state.params) / 1e6:.1f} M params, "
-        f"warmup {TRAIN_WARMUP} steps, lr {tcfg.lr}")
-    counters = {"attention_train_fwd": at.attention_train_fwd,
-                "attention_train_bwd": at.attention_train_bwd}
+              "patch_in.kernel", "final_proj.kernel", "blocks.5.adaln.bias")}
+    gib = 2.0 ** 30
+    held = sum(t.nbytes for t in (*state.params, *state.opt_state.mu,
+                                  *state.opt_state.nu)) / gib
+    dtypes = sorted({str(t.dtype) for t in state.params})
+    log(f"[{tag}] v3mod2 state on the card: {time.perf_counter() - t0:.1f} s;"
+        f" {sum(p.numel() for p in state.params) / 1e6:.1f} M params "
+        f"({', '.join(dtypes)}), compute {cfg.dtype}, warmup {TRAIN_WARMUP} "
+        f"steps, lr {tcfg.lr}; parameters and moments {held:.2f} GiB (with "
+        f"the gradients {held + sum(p.nbytes for p in state.params) / gib:.2f}"
+        f" GiB)")
+    counters = train_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2903,14 +3064,17 @@ def train_phase(torch, dense, profile):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    f32 = cfg.dtype == "float32"
     expected = {"attention_train_fwd": 2 * cfg.depth,
-                "attention_train_bwd": cfg.depth}
-    log(f"[train] counted step {first * 1e3:.1f} ms, launches {launches}, "
-        f"expected {expected}")
+                "attention_train_bwd": cfg.depth,
+                "attention_train_fwd_fp32": 2 * cfg.depth if f32 else 0,
+                "attention_train_bwd_fp32": cfg.depth if f32 else 0}
+    log(f"[{tag}] counted step {first * 1e3:.1f} ms, launches {launches} "
+        f"(launches count both modes), expected {expected}")
     if launches != expected:
-        raise AssertionError(f"train step launches {launches} != {expected}")
+        raise AssertionError(f"{tag} step launches {launches} != {expected}")
     losses, times = [float(m["loss"])], []
-    for _ in range(TRAIN_TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         state, m = step(state, hr, lr)
         torch.cuda.synchronize()
@@ -2918,19 +3082,20 @@ def train_phase(torch, dense, profile):
         losses.append(float(m["loss"]))
     moved = {k: (named[k].detach() - w).abs().max().item()
              for k, w in watch.items()}
-    log(f"[train] losses {losses}; grad_norm {float(m['grad_norm']):.4f}, "
+    log(f"[{tag}] losses {losses}; grad_norm {float(m['grad_norm']):.4f}, "
         f"snr_db {float(m['snr_db']):.3f}; max |param change| {moved}")
-    if not all(math.isfinite(x) for x in losses) or min(moved.values()) <= 0:
-        raise AssertionError(f"train steps: losses {losses}, moved {moved}")
+    if not all(math.isfinite(x) for x in losses) or min(moved.values()) <= 0 \
+            or sorted({str(t.dtype) for t in state.params}) != dtypes:
+        raise AssertionError(f"{tag} steps: losses {losses}, moved {moved}")
     med = sorted(times)[len(times) // 2]
     flops = train_step_flops(cfg, TRAIN_B, TRAIN_FRAMES)
-    log(f"[train] {TRAIN_TIMED} timed steps ms "
+    log(f"[{tag}] {timed} timed steps ms "
         f"{[round(t * 1e3, 1) for t in times]}; median {med * 1e3:.1f} ms, "
         f"{TRAIN_B / med:.2f} samples/s, MFU {mfu(flops, med):.4f} "
         f"({flops / 1e12:.2f} TFLOP per step against 989 TFLOP/s bf16), "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"peak {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
     if profile:
-        profile_phase(torch, "train step", lambda: step(state, hr, lr))
+        profile_phase(torch, f"{tag} step", lambda: step(state, hr, lr))
     return launches
 
 
@@ -2965,21 +3130,47 @@ def check_loss_stack(torch, loss_cfg):
         raise AssertionError(f"loss gradient: {err} x max")
 
 
-def check_train_reference(torch, dense):
-    """One train step of v3mod2 at full width and depth, dropout and
-    drop-path 0, on the card against the CPU (plain versions) on the same
-    weights, batch [4, 1378, 1024] and draws (~20 s on 8 CPU cores).
+# The card-vs-CPU train steps' bounds: loss and grad norm relative, the
+# first moments (0.1 x the clipped grads) per leaf normalised by their max,
+# the updated parameters' largest and worst leaf-mean difference in lr.
+# bf16 compute: loss 1e-2, grad norm 2e-2, moments 3e-2 (the JAX package's
+# bound for B10 against its einsum path), parameters 2 lr (a first Adam
+# step moves each by +-lr, so a gradient whose sign differs in bf16 moves
+# it the other way) and 2 % of lr on average.  fp32 compute: every product
+# in fp32 on both sides, the sums in another order: loss and grad norm
+# 1e-5, moments 1e-4, parameters 0.5 lr and 0.1 % of lr (a gradient error
+# of ~1e-6 of its leaf's max moves Adam's g / (|g| + eps) by far less than
+# lr, also near g = 0, where eps keeps it continuous; measured on an NVIDIA
+# H100 80GB HBM3 at a 700 W limit: loss 0, grad norm 6.5e-8, moments
+# 1.9e-6, parameters 0.022 lr at most, 97 % bit-equal).  bf16 parameters:
+# the bf16 bounds, but each new parameter is p + u rounded once to bf16,
+# which can land on either neighbour where the two updates straddle a
+# rounding boundary, so an element may differ by 2 lr plus one bf16 ulp of
+# its value (2^-7 |p|; at lr 5e-5 an ulp of a weight near 0.02 is 2.4 lr);
+# on average the straddles cost what the fp32 difference of the updates
+# does (the chance of a straddle is |du| lr / ulp, its cost one ulp), so
+# the 2 % mean bound stands.
+TRAIN_REF_BOUNDS = {
+    "train": dict(loss=1e-2, grad_norm=2e-2, mu=3e-2, p_max=2.02,
+                  p_mean=0.02, ulp=False),
+    "train_fp32": dict(loss=1e-5, grad_norm=1e-5, mu=1e-4, p_max=0.5,
+                       p_mean=1e-3, ulp=False),
+    "train_bf16_params": dict(loss=1e-2, grad_norm=2e-2, mu=3e-2,
+                              p_max=2.02, p_mean=0.02, ulp=True)}
+
+
+def check_train_reference(torch, dense, tag="train"):
+    """One train step of v3mod2 at full width and depth on path ``tag`` of
+    ``TRAIN_PATHS``, dropout and drop-path 0, on the card against the CPU
+    (plain versions) on the same weights, batch [4, 1378, 1024] and draws
+    (~20 s of 8 CPU cores), within ``TRAIN_REF_BOUNDS[tag]``.
 
     The loss is the reconstruction (MSE) alone: the perceptual stack's
     log-magnitude gradient is 1 / |rfft(pred)| at each bin, so at random
     weights a few near-zero bins dominate it and a bf16 ulp of the
     prediction moves it by tens of percent; its values and gradients are
-    held on identical inputs (``check_loss_stack``).  Compared: loss rtol
-    1e-2, grad norm rtol 2e-2, the first moments (0.1 x the clipped grads)
-    per leaf normalised by their max atol 3e-2 (the JAX package's bound for
-    B10 against its einsum path), and the updated parameters within 2 lr
-    (a first Adam step moves each by +-lr, so a gradient whose sign differs
-    in bf16 moves it the other way) and within 2 % of lr on average."""
+    held on identical inputs (``check_loss_stack``, on the bf16 path).  Each
+    parameter leaf must move by 0.5 lr somewhere."""
     import numpy as np
 
     from jatsr_torch.configs import get_preset
@@ -2989,10 +3180,13 @@ def check_train_reference(torch, dense):
                                    make_train_step)
 
     preset = get_preset("v3mod2")
-    cfg = dataclasses.replace(preset.model, dropout=0.0, drop_path_rate=0.0)
+    cfg = dataclasses.replace(preset.model, dropout=0.0, drop_path_rate=0.0,
+                              **TRAIN_PATHS[tag])
     tcfg = dataclasses.replace(preset.train, warmup_steps=0)
     loss_cfg = dataclasses.replace(preset.loss, use_latent_perceptual=False)
-    check_loss_stack(torch, preset.loss)
+    bounds = TRAIN_REF_BOUNDS[tag]
+    if tag == "train":
+        check_loss_stack(torch, preset.loss)
     hr, lr, stats = train_batch(torch, cfg)
     hr, lr = hr[:REF_B].cpu(), lr[:REF_B].cpu()
     rng = np.random.default_rng(SEED + 10)
@@ -3002,46 +3196,66 @@ def check_train_reference(torch, dense):
              "cond_noise": rng.standard_normal(shape, dtype=np.float32),
              "layer_seeds": [int(s) for s in rng.integers(-2**31, 2**31,
                                                           cfg.depth)]}
+    f32 = cfg.dtype == "float32"
     out = {}
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
         state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
                                    1000, (hr, lr), device=dev)
         if dev == "cpu":
-            start = [p.detach().clone() for p in state.params]
+            start = [p.detach().float().clone() for p in state.params]
         step = make_train_step(loss_cfg, tcfg, Normalizer(*stats, device=dev))
-        n0 = at.attention_train_fwd.launches
+        n0 = (at.attention_train_fwd.launches,
+              at.attention_train_fwd.f32_launches)
         state, m = step(state, hr, lr, draws=draws)
         if dev == "cuda":
             torch.cuda.synchronize()
-        if (at.attention_train_fwd.launches - n0 > 0) != (dev == "cuda"):
-            raise AssertionError(f"{dev} step took the wrong attention path")
+        n = (at.attention_train_fwd.launches - n0[0],
+             at.attention_train_fwd.f32_launches - n0[1])
+        want = ((2 * cfg.depth, 2 * cfg.depth if f32 else 0)
+                if dev == "cuda" else (0, 0))
+        if n != want:
+            raise AssertionError(f"{tag} {dev} step: B10 launches {n} (both "
+                                 f"modes, fp32) != {want}")
         out[dev] = ({k: float(v) for k, v in m.items()},
-                    [p.detach().cpu() for p in state.params],
-                    [mu.float().cpu() for mu in state.opt_state.mu])
-        log(f"[train reference] {dev} step {time.perf_counter() - t0:.1f} s: "
-            f"loss {out[dev][0]['loss']:.6f}, grad_norm "
-            f"{out[dev][0]['grad_norm']:.6f}")
+                    [p.detach().float().cpu() for p in state.params],
+                    [mu.float().cpu() for mu in state.opt_state.mu],
+                    sorted({f"{p.dtype}/{mu.dtype}/{nu.dtype}" for p, mu, nu
+                            in zip(state.params, state.opt_state.mu,
+                                   state.opt_state.nu)}))
+        log(f"[{tag} reference] {dev} step {time.perf_counter() - t0:.1f} s:"
+            f" loss {out[dev][0]['loss']:.6f}, grad_norm "
+            f"{out[dev][0]['grad_norm']:.6f}, parameter/mu/nu dtypes "
+            f"{out[dev][3]}")
         del state, step
-    (mc, pc, uc), (mg, pg, ug) = out["cpu"], out["cuda"]
+    (mc, pc, uc, dc), (mg, pg, ug, dg) = out["cpu"], out["cuda"]
     lr0 = tcfg.lr
     grad_err = max((a - b).abs().max().item() / max(b.abs().max().item(),
                                                      1e-30)
                    for a, b in zip(ug, uc))
-    d = [(a - b).abs() for a, b in zip(pg, pc)]
+    # bf16 parameters: the part of each difference past one bf16 ulp.
+    d = [((a - b).abs() - (2.0 ** -7 * b.abs() if bounds["ulp"] else 0.0)
+          ).clamp(min=0.0) for a, b in zip(pg, pc)]
     p_max = max(x.max().item() for x in d) / lr0
-    p_mean = max(x.mean().item() for x in d) / lr0
+    p_mean = max((a - b).abs().mean().item() for a, b in zip(pg, pc)) / lr0
+    equal = sum(int((a == b).sum()) for a, b in zip(pg, pc)) \
+        / sum(a.numel() for a in pg)
     moved = min((a - s).abs().max().item() for a, s in zip(pc, start)) / lr0
-    log(f"[train reference] v3mod2, batch {REF_B}, card vs CPU: loss {mg['loss']:.6f} vs {mc['loss']:.6f}, grad_norm "
-        f"{mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; grads (first "
-        f"moments) max abs {grad_err:.3e} x max; updated params max "
-        f"{p_max:.3f} lr, worst leaf mean {p_mean:.5f} lr; min leaf move "
-        f"{moved:.3f} lr over {len(start)} leaves")
-    if (abs(mg["loss"] - mc["loss"]) > 1e-2 * abs(mc["loss"])
-            or abs(mg["grad_norm"] - mc["grad_norm"]) > 2e-2 * mc["grad_norm"]
-            or grad_err > 3e-2 or p_max > 2.02 or p_mean > 0.02
-            or moved < 0.5):
-        raise AssertionError("the card's train step disagrees with the CPU's")
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    gn_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    log(f"[{tag} reference] v3mod2, batch {REF_B}, card vs CPU: loss "
+        f"{mg['loss']:.6f} vs {mc['loss']:.6f} (rel {loss_rel:.3e}), "
+        f"grad_norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f} (rel "
+        f"{gn_rel:.3e}); grads (first moments) max abs {grad_err:.3e} x max;"
+        f" updated params max {p_max:.3f} lr"
+        f"{' past one bf16 ulp' if bounds['ulp'] else ''}, worst leaf mean "
+        f"{p_mean:.5f} lr, {100 * equal:.2f} % bit-equal; min leaf move "
+        f"{moved:.3f} lr over {len(start)} leaves; bounds {bounds}")
+    if (dg != dc or loss_rel > bounds["loss"] or gn_rel > bounds["grad_norm"]
+            or grad_err > bounds["mu"] or p_max > bounds["p_max"]
+            or p_mean > bounds["p_mean"] or moved < 0.5):
+        raise AssertionError(f"the card's {tag} step disagrees with the "
+                             f"CPU's")
 
 
 # The training entry point's synthetic data: v3mod2 width (1024 channels,
@@ -3619,7 +3833,7 @@ def main() -> int:
     sources = ("flash_qkv", "dense_gelu_quant", "norm_mod", "w8a8_fused",
                "mlp_full", "dac_res", "snake_tr", "snake_tr_stream",
                "attention_train", "attention_deferred", "attention_natural",
-               "attention_wide", "attention_f32")
+               "attention_wide", "attention_f32", "attention_f32_bwd")
     _build.load("flash_qkv")
     log(f"[build] {_build.build_seconds:.1f} s for all kernels")
     for name in sources:
@@ -3661,6 +3875,7 @@ def main() -> int:
     checks.update(check_dac_kernels(torch))
     checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
+    checks.update(check_attention_train_fp32(torch, checks))
     torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
@@ -3878,12 +4093,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("DiT references")
 
-    # 6. The training path: the v3mod2 train step at full width (the same
-    #    dense weights), then one step of it at batch 4 against the CPU.
+    # 6. The training paths: the v3mod2 train step at full width (the same
+    #    dense weights) as its preset trains it, at fp32 and with bf16
+    #    parameters, then one step of each at batch 4 against the CPU.
     launches["train"] = train_phase(torch, dense, args.profile)
     torch.cuda.empty_cache()
+    for tag in ("train_fp32", "train_bf16_params"):
+        launches[tag] = train_phase(torch, dense, args.profile, tag,
+                                    timed=TRAIN_TIMED_DTYPES)
+        torch.cuda.empty_cache()
     phases.done("training")
-    check_train_reference(torch, dense)
+    for tag in TRAIN_PATHS:
+        check_train_reference(torch, dense, tag)
     check_tiny_train_step(torch)
     phases.done("training references")
 
@@ -3905,8 +4126,9 @@ def main() -> int:
     kernels = [dict(checks[k], launches=launches[
         KERNEL_PATH.get(k, "prologue")][k]) for k in counters
         if k not in HELPERS]
-    kernels += [dict(checks[k], launches=n)
-                for k, n in launches["train"].items()]
+    kernels += [dict(checks[k], launches=launches[
+        "train_fp32" if k.endswith("_fp32") else "train"][k])
+        for k in train_counters()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

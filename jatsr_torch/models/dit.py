@@ -1,4 +1,4 @@
-"""The DiT in PyTorch: the int8 serving forward and the trainable bf16 model.
+"""The DiT in PyTorch: the int8 serving forward and the trainable model.
 
 Port of the JAX package's ``models/dit.py``.  :class:`DenseDiT` is the
 model at ``matmul_precision="bf16"`` (the branch the JAX model trains with,
@@ -551,7 +551,7 @@ def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
             + model.adaln_bias[:, None, :])
 
 
-# ---- the trainable bf16 model, and the dynamic-int8 one --------------------
+# ---- the trainable model, and the dynamic-int8 one -------------------------
 
 # ModelConfig fields that select a branch of the JAX model's bf16 and
 # dynamic-int8 paths, with the values the port has and the later slice that
@@ -569,8 +569,6 @@ _DENSE_BRANCH = {
 }
 _TRAINING_BRANCH = {
     "matmul_precision": (("bf16",), "dynamic int8 in training"),
-    "dtype": (("bfloat16",), "fp32 training (B10's fp32 mode)"),
-    "param_dtype": (("float32",), "training with bf16 parameters"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
     "remat_policy": (("full", "dots", "attn_out", "mlp", "none"),
                      "other remat policies"),
@@ -842,10 +840,11 @@ class DenseDiT(nn.Module):
 
     Parameters are ``nn.Parameter`` s in ``param_dtype`` (fp32, or bf16
     where the JAX model stores bf16 leaves: every Dense, ``adaln``, the
-    t-MLP and ``pos_embed``; a bf16 model serves and does not train), named
+    t-MLP and ``pos_embed``; their gradients are in the same dtype), named
     after the JAX tree (``patch_in.kernel``, ``blocks.3.attn.q_proj.kernel``,
     ``pos_embed`` under learned positions...).  The compute dtype is bf16
-    or, serving, fp32 (``dtype``); the t-MLP is fp32 either way.
+    or fp32 (``dtype``; at fp32 B10 runs its fp32 mode), served and
+    trained; the t-MLP is fp32 either way.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",

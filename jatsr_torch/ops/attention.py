@@ -176,9 +176,10 @@ gqa_attention_flash_qkv.int8_qk_f32_launches = 0
 # ---- the fp32 modes (csrc/attention_f32.cu) ---------------------------------
 
 F32_MAX_D = 256  # csrc/attention_f32.cu's widest tile
-# attention_f32's modes: B2, B11, B15/B16, B2 with int8_qk, B12's attention.
+# attention_f32's modes: B2, B11, B15/B16, B2 with int8_qk, B12's attention,
+# B10's forward (ops/attention_train.py).
 _F32_MODE = {"flash_qkv": 0, "flash": 1, "natural": 2, "int8_qk": 3,
-             "flash_out": 4}
+             "flash_out": 4, "train": 5}
 
 
 class _F32Args(ctypes.Structure):
@@ -189,7 +190,10 @@ class _F32Args(ctypes.Structure):
         + [(f, ctypes.c_longlong) for f in ("q_row", "k_row", "v_row")]
         + [(f, ctypes.c_int) for f in (
             "N", "limit", "npad", "hq", "hkv", "D", "out_dp", "codes_d", "nk")]
-        + [("scale", ctypes.c_float)])
+        + [("scale", ctypes.c_float), ("stats", ctypes.c_void_p)]
+        + [(f, ctypes.c_uint32) for f in ("seed", "thr")]
+        + [(f, ctypes.c_int) for f in ("np", "dropout")]
+        + [("coef", ctypes.c_float)])
 
 
 @functools.cache

@@ -3,8 +3,13 @@
 Port of ``gqa_attention_train`` (JAX package, ``ops/attention_train.py``).
 The two wrappers dispatch on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the hand-written kernels
-in ``csrc/attention_train.cu`` (at head dims past 128 those of
-``csrc/attention_wide.cu``) or raises.  Nothing falls back.
+or raises.  Nothing falls back.  A bf16 input runs ``csrc/attention_train.cu``
+(at head dims past 128 ``csrc/attention_wide.cu``); an fp32 one, the JAX
+model at ``dtype="float32"``, the fp32 mode: the forward is
+``csrc/attention_f32.cu``'s train mode, the backward
+``csrc/attention_f32_bwd.cu`` (every product in fp32 on the CUDA cores, as
+the JAX kernel computes at fp32).  ``launches`` counts both modes,
+``f32_launches`` the fp32 one.
 
 Dropout acts on the normalised softmax weights and uses the JAX package's
 counter hash (lowbias32 over ``stream(b, h, seed) ^ (row * Np + col)``), so
@@ -24,9 +29,10 @@ import math
 
 import torch
 
-from .attention import (_FLASH_VMEM_BUDGET, HEAD_DIMS, WIDE_COLS,
-                        NaturalPlan, WidePlan, _natural_args, _natural_plan,
-                        _NaturalArgs, _round_up, _row_bytes, _sm_count,
+from .attention import (_FLASH_VMEM_BUDGET, F32_MAX_D, HEAD_DIMS, WIDE_COLS,
+                        NaturalPlan, WidePlan, _f32, _f32_args, _launch_f32,
+                        _natural_args, _natural_plan, _NaturalArgs,
+                        _round_up, _row_bytes, _scale2_f32, _sm_count,
                         _smem_optin, _wide_args, _WideArgs, flash_supported,
                         pad_heads, padded_head_dim, unpad_heads)
 
@@ -123,8 +129,10 @@ def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
                               num_kv_heads: int, rate: float,
                               scale_dim=None):
     """Plain PyTorch version of the forward kernel, with its rounding
-    points: ``l`` summed before the dropout zeroing, ``bf16(e) @ v`` in
-    fp32, times ``coef / l``, rounded to the input dtype.  ``scale_dim``
+    points: ``q * scale2`` with ``scale2`` in the input dtype, ``l`` summed
+    before the dropout zeroing, ``rd(e) @ v`` in fp32, times ``coef / l``,
+    rounded to the input dtype ``rd`` (bf16, or fp32, where no cast
+    rounds).  ``scale_dim``
     (D by default): the head dim whose ``1/sqrt`` scales the scores, the
     true one where the heads are zero-padded (``attention.pad_heads``)."""
     B, N, QD = q.shape
@@ -194,10 +202,13 @@ def attention_train_fwd(q, k, v, seed: int, num_q_heads: int,
     if q.device.type == "cpu":
         return attention_train_fwd_plain(q, k, v, seed, num_q_heads,
                                          num_kv_heads, rate), None
+    if q.dtype == torch.float32:
+        return _launch_fwd_f32(q, k, v, seed, num_q_heads, num_kv_heads, rate)
     return _launch_fwd(q, k, v, seed, num_q_heads, num_kv_heads, rate)
 
 
 attention_train_fwd.launches = 0
+attention_train_fwd.f32_launches = 0
 
 
 def attention_train_bwd(q, k, v, o, do, seed: int, num_q_heads: int,
@@ -209,11 +220,13 @@ def attention_train_bwd(q, k, v, o, do, seed: int, num_q_heads: int,
                                          num_kv_heads, rate)
     if stats is None:
         raise ValueError("the backward kernels need the forward's stats")
-    return _launch_bwd(q, k, v, o, do, stats, seed, num_q_heads,
-                       num_kv_heads, rate)
+    launch = _launch_bwd_f32 if q.dtype == torch.float32 else _launch_bwd
+    return launch(q, k, v, o, do, stats, seed, num_q_heads, num_kv_heads,
+                  rate)
 
 
 attention_train_bwd.launches = 0
+attention_train_bwd.f32_launches = 0
 
 
 class _AttentionTrain(torch.autograd.Function):
@@ -258,7 +271,8 @@ def _kernel_args(q, k, v, hq, hkv, rate, seed):
     B, N, QD = q.shape
     D = QD // hq
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention_train kernels take bf16, got {q.dtype}")
+        raise TypeError(f"attention_train kernels take bf16 or fp32 q/k/v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     padded_head_dim(D)
     scale2 = float(torch.tensor((1.0 / math.sqrt(D)) * math.log2(math.e),
                                 dtype=torch.bfloat16))
@@ -561,3 +575,159 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate):
     _build.check(lib, err, "attention_train bwd")
     attention_train_bwd.launches += 1
     return tuple(unpad_heads(t, Dt, D) for t in (dq, dk, dv))
+
+
+# ---- the fp32 mode (csrc/attention_f32.cu, csrc/attention_f32_bwd.cu) -------
+
+_F32_DP = (32, 64, 128, 256)  # attention_f32.cu's tiles: the padded head dim
+_F32_THREADS = 256
+_F32_ROW_INFO = 24            # bytes of attention_f32_bwd.cu's RowInfo
+
+
+@dataclasses.dataclass(frozen=True)
+class F32TrainPlan:
+    """The backward launches of B10's fp32 mode, csrc/attention_f32_bwd.cu,
+    at N keys, head dim D (``DP`` the padded one, as attention_f32.cu's
+    forward pads it: its sums are the backward's scores) and hq/hkv heads.
+
+    After a delta launch (a warp a (batch, row, q head)): dk/dv on the grid
+    ``dkdv_grid + (B,)``, a CTA per (``T`` keys, kv head, batch) taking the
+    kv head's G N stacked rows in chunks of ``T``; dq on ``dq_grid + (B,)``,
+    a CTA per (``T`` stacked rows, kv head, batch) taking the keys in chunks
+    of ``T``; ``threads`` each.  Shared memory (bytes): K, V, q and do tiles
+    of ``T`` rows of ``DP + 1`` fp32, the ds (and, dk/dv, wd) tiles ``T x
+    (T + 1)``, each row's statistics."""
+
+    N: int
+    D: int
+    DP: int
+    hq: int
+    hkv: int
+    G: int
+    T: int
+    dkdv_grid: tuple
+    dq_grid: tuple
+    dkdv_smem: int
+    dq_smem: int
+    threads: int
+
+
+@functools.cache
+def _f32_train_plan(N: int, hq: int, hkv: int, D: int) -> F32TrainPlan:
+    """The launch plan of B10's fp32 backward; raises ``ValueError`` past
+    ``TRAIN_MAX_N`` keys (the divide of ``fdiv_rn.cuh`` takes l <= 768),
+    past ``F32_MAX_D`` or where the heads do not group."""
+    if not 1 <= N <= TRAIN_MAX_N:
+        raise ValueError(f"attention_train fp32 kernels: N={N} outside [1, "
+                         f"{TRAIN_MAX_N}]")
+    if not 1 <= D <= F32_MAX_D:
+        raise ValueError(f"attention_train fp32 kernels take head dims 1 to "
+                         f"{F32_MAX_D}, got {D}")
+    if hq % hkv:
+        raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    DP = next(dp for dp in _F32_DP if D <= dp)
+    T = 64 if DP <= 128 else 32
+    tiles = 4 * T * (DP + 1) * 4
+    ds = T * (T + 1) * 4
+    G = hq // hkv
+    return F32TrainPlan(N, D, DP, hq, hkv, G, T, (-(-N // T), hkv),
+                        (-(-G * N // T), hkv),
+                        tiles + 2 * ds + T * _F32_ROW_INFO,
+                        tiles + ds + T * _F32_ROW_INFO, _F32_THREADS)
+
+
+class _F32BwdArgs(ctypes.Structure):
+    """``F32BwdArgs`` of csrc/attention_f32_bwd.cu, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "q", "k", "v", "o", "dout", "stats", "delta", "dq", "dk", "dv")]
+        + [(f, ctypes.c_int) for f in ("N", "hq", "hkv", "D", "np",
+                                         "dropout")]
+        + [(f, ctypes.c_uint32) for f in ("seed", "thr")]
+        + [(f, ctypes.c_float) for f in ("scale2", "scale", "coef")])
+
+
+@functools.cache
+def _f32_bwd_lib():
+    """csrc/attention_f32_bwd.cu's library, its entry point's C types set."""
+    from . import _build
+
+    lib = _build.load("attention_f32_bwd")
+    lib.attention_f32_bwd.restype = ctypes.c_int
+    lib.attention_f32_bwd.argtypes = (
+        [ctypes.POINTER(_F32BwdArgs)] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
+    return lib
+
+
+def _f32_scalars(D, rate, seed):
+    """The fp32 mode's scalars as the JAX kernel takes them at fp32."""
+    coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    return dict(seed=seed & _M32, thr=keep_threshold(rate),
+                dropout=int(rate > 0.0), scale2=_scale2_f32(D),
+                scale=_f32(1.0 / math.sqrt(D)), coef=_f32(coef))
+
+
+def _check_f32(q, k, v):
+    if k.dtype != torch.float32 or v.dtype != torch.float32:
+        raise TypeError(f"attention_train fp32 kernels take fp32 q/k/v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _launch_fwd_f32(q, k, v, seed, hq, hkv, rate):
+    """B10's fp32 forward: one launch of csrc/attention_f32.cu's train mode
+    -> ``(o [B, N, hq D] fp32, stats [B, hq, N, 2])``."""
+    _check_f32(q, k, v)
+    B, N, QD = q.shape
+    D = QD // hq
+    _f32_train_plan(N, hq, hkv, D)
+    c = _f32_scalars(D, rate, seed)
+    out = torch.empty((B, N, QD), dtype=torch.float32, device=q.device)
+    stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
+    args, keep = _f32_args(q, k, v, hq, hkv, D, out, N, c["scale2"])
+    args.stats = stats.data_ptr()
+    args.seed, args.thr, args.np = c["seed"], c["thr"], _round_up(N, 8)
+    args.dropout, args.coef = c["dropout"], c["coef"]
+    _launch_f32("train", args, B, q.device, "attention_train fwd(fp32)")
+    attention_train_fwd.launches += 1
+    attention_train_fwd.f32_launches += 1
+    return out, stats
+
+
+def _launch_bwd_f32(q, k, v, o, do, stats, seed, hq, hkv, rate):
+    """B10's fp32 backward: three launches of csrc/attention_f32_bwd.cu
+    (delta, dk/dv, dq) -> ``(dq, dk, dv)`` fp32."""
+    from . import _build
+
+    _check_f32(q, k, v)
+    B, N, QD = q.shape
+    D = QD // hq
+    if o.shape != q.shape or do.shape != q.shape \
+            or stats.shape != (B, hq, N, 2):
+        raise ValueError("o, do must match q and stats must be "
+                         f"[{B}, {hq}, {N}, 2]")
+    plan = _f32_train_plan(N, hq, hkv, D)
+    limit = _smem_optin(q.device.index)
+    if max(plan.dkdv_smem, plan.dq_smem) > limit:
+        raise ValueError(f"attention_train fp32 bwd needs "
+                         f"{max(plan.dkdv_smem, plan.dq_smem)} B of shared "
+                         f"memory, the card gives {limit}")
+    q, k, v, o, do, stats = (_build.aligned(t.float())
+                             for t in (q, k, v, o, do, stats))
+    c = _f32_scalars(D, rate, seed)
+    delta = torch.empty((B, hq, N), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    args = _F32BwdArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       do.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), N, hq,
+                       hkv, D, _round_up(N, 8), c["dropout"], c["seed"],
+                       c["thr"], c["scale2"], c["scale"], c["coef"])
+    lib = _f32_bwd_lib()
+    err = lib.attention_f32_bwd(ctypes.byref(args), plan.DP, B,
+                                plan.dkdv_grid[0], plan.dq_grid[0],
+                                plan.dkdv_smem, plan.dq_smem,
+                                _build.stream_ptr(q.device))
+    _build.check(lib, err, "attention_train bwd(fp32)")
+    attention_train_bwd.launches += 1
+    attention_train_bwd.f32_launches += 1
+    return dq, dk, dv

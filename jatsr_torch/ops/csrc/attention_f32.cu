@@ -1,6 +1,7 @@
-// The serving attention kernels in fp32, for Hopper: the fp32 modes of B2,
-// B11, B12, B15, B16 and of B2's int8 value product, on fp32 FMAs outside
-// the tensor cores (the s8 products of B12 and int8_qk on the s8 ones).
+// The attention kernels in fp32, for Hopper: the fp32 modes of B2, B11,
+// B12, B15, B16, of B2's int8 value product and of B10's forward, on fp32
+// FMAs outside the tensor cores (the s8 products of B12 and int8_qk on the
+// s8 ones).
 //
 // Replaces, on an fp32 input (the JAX model at dtype="float32" hands them
 // one), the TPU kernels of the JAX package's ops/attention.py:
@@ -10,6 +11,9 @@
 //   B12 gqa_attention_flash_out (_attn_kernel_flash_out, pallas_call :565)
 //   B15 gqa_attention (_attn_kernel, pallas_call :109)
 //   B16 gqa_attention_grouped (_attn_kernel_grouped, pallas_call :651)
+// and of the JAX package's ops/attention_train.py:
+//   B10 gqa_attention_train's forward (_attn_train_fwd_kernel, pallas_call
+//       :266 in _fwd_call; its backward is attention_f32_bwd.cu)
 // Their rounding points there, every operation in fp32:
 //   q, k = x * cos + rot(x) * sin       B2, B12: each product and the sum rounded
 //   base 2 (B2, B11, B12): q' = q * fp32(scale * log2 e), s = q' @ k^T,
@@ -21,6 +25,10 @@
 //       whose share npad * exp2(-m) comes off l
 //   m the exact row max; l = sum(e)
 //   deferred (B2, B11): o = (e @ v) * (1 / l)
+//   train (B10): base 2, keys masked at N, l summed before the dropout
+//       zeroing (dropout_hash.cuh's keep bit on the round_up(N, 8)
+//       lattice, no hash past N), o = (e @ v) * (coef / l), and the row
+//       max and l written [B, hq, N, 2] for the backward
 //   natural (B12, B15, B16): w = e / l rounded per element, o = w @ v
 //   int8 v (B2 int8_qk): w_q = rn(e * 127), acc = w_q @ v_q (s8 x s8 ->
 //       s32, exact), o = (f32(acc) * ((1 / l) * f32(1/127))) * sv, v_q and
@@ -67,6 +75,7 @@
 
 #include <math.h>
 
+#include "dropout_hash.cuh"
 #include "s8_dequant.cuh"
 
 // The launch's views and scalars.  Element d of head h of row n of batch b
@@ -87,6 +96,11 @@ struct F32Args {
   long long q_row, k_row, v_row;
   int N, limit, npad, hq, hkv, D, out_dp, codes_d, nk;
   float scale;           // base 2: fp32(scale * log2 e), folded into q; natural: fp32(scale)
+  // B10's forward (train) only:
+  float* stats;          // [B, hq, N, 2]: the row max and l
+  uint32_t seed, thr;    // the dropout stream's seed and keep threshold
+  int np, dropout;       // the hash lattice round_up(N, 8); 0 or 1
+  float coef;            // fp32(1 / (1 - rate))
 };
 
 namespace {
@@ -98,7 +112,7 @@ constexpr int S8_ROW = KC + 16;  // bytes a row of s8 codes in shared memory
 
 // The epilogues (an int template argument, so that a kernel's name reads
 // plainly in the build report).
-constexpr int kDeferred = 0, kNatural = 1, kInt8V = 2;
+constexpr int kDeferred = 0, kNatural = 1, kInt8V = 2, kTrain = 3;
 
 template <int DP>
 struct F32Tiles {
@@ -296,7 +310,18 @@ __device__ __forceinline__ void query_tile(const F32Args& a, F32Smem<DP>& sm, in
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
 
-  // Pass 2: e and l, and (deferred, int8 v) the value product.
+  // train: each row's dropout stream and position.
+  uint32_t st[4];
+  int pos[4];
+  if constexpr (EPI == kTrain)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int h;
+      head_row(4 * ty + i, h, pos[i]);
+      st[i] = stream_of(b, h, a.seed);
+    }
+
+  // Pass 2: e and l, and (deferred, train, int8 v) the value product.
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
   const int rg = warp & 3, ch = warp >> 2;  // the int8 product's rows and columns
   constexpr int NT = DP / 16;               // its n-tiles of 8 columns a warp
@@ -321,14 +346,16 @@ __device__ __forceinline__ void query_tile(const F32Args& a, F32Smem<DP>& sm, in
       const bool valid = k0 + tx + 16 * j < limit;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float e = valid ? expo<NATURAL>(__fsub_rn(s[i][j], m[i])) : 0.f;
+        float e = valid ? expo<NATURAL>(__fsub_rn(s[i][j], m[i])) : 0.f;
         l[i] = __fadd_rn(l[i], e);
-        if constexpr (EPI == kDeferred) sm.u.f.e[4 * ty + i][tx + 16 * j] = e;
+        if constexpr (EPI == kTrain)
+          if (a.dropout && valid && !kept(st[i], pos[i], k0 + tx + 16 * j, a.np, a.thr)) e = 0.f;
+        if constexpr (EPI == kDeferred || EPI == kTrain) sm.u.f.e[4 * ty + i][tx + 16 * j] = e;
         if constexpr (EPI == kInt8V)
           sm.u.s8.e[4 * ty + i][tx + 16 * j] = (int8_t)__float2int_rn(__fmul_rn(e, 127.f));
       }
     }
-    if constexpr (EPI == kDeferred) {
+    if constexpr (EPI == kDeferred || EPI == kTrain) {
       __syncthreads();
       value_product(acc);
     }
@@ -408,13 +435,20 @@ __device__ __forceinline__ void query_tile(const F32Args& a, F32Smem<DP>& sm, in
   for (int i = 0; i < 4; ++i) {
     int h, row;
     if (!head_row(4 * ty + i, h, row)) continue;
-    const float r = EPI == kDeferred ? __fdiv_rn(1.0f, l[i]) : 1.f;
+    const float r = EPI == kDeferred ? __fdiv_rn(1.0f, l[i])
+                    : EPI == kTrain  ? __fdiv_rn(a.coef, l[i])
+                                     : 1.f;
+    if (EPI == kTrain && tx == 0) {
+      float* sp = a.stats + (((size_t)b * a.hq + h) * N + row) * 2;
+      sp[0] = m[i];
+      sp[1] = l[i];
+    }
 #pragma unroll
     for (int j = 0; j < OJ; ++j) {
       const int d = tx + 16 * j;
       if (d < a.out_dp)
         ob[row * out_row + h * a.out_dp + out_col(d, D, a.out_dp)] =
-            EPI == kDeferred ? __fmul_rn(acc[i][j], r) : acc[i][j];
+            EPI == kNatural ? acc[i][j] : __fmul_rn(acc[i][j], r);
     }
   }
 }
@@ -461,9 +495,10 @@ cudaError_t launch_mode(const F32Args& a, int B, cudaStream_t st) {
 // 2, deferred; limit N rounded up to 8, npad = limit - N); 2: B15 and B16
 // (natural, limit N); 3: B2's int8 value product (RoPE,
 // base 2, codes and sv from attention_v_codes on the fp32 v); 4: B12's
-// attention (RoPE, base 2, natural weights).  The views and scalars in *a
-// (F32Args above); D <= out_dp <= 256, out_dp - D even (and codes_d <=
-// 256), D even under RoPE.  One launch.
+// attention (RoPE, base 2, natural weights); 5: B10's forward (base 2,
+// limit N, dropout and the statistics of F32Args' train fields).  The
+// views and scalars in *a (F32Args above); D <= out_dp <= 256, out_dp - D
+// even (and codes_d <= 256), D even under RoPE.  One launch.
 extern "C" int attention_f32(const F32Args* a, int mode, int B, void* stream) {
   const bool rope = mode == 0 || mode == 3 || mode == 4;
   if (a->D < 1 || (rope && a->D % 2) || a->out_dp < a->D || (a->out_dp - a->D) % 2 ||
@@ -478,6 +513,7 @@ extern "C" int attention_f32(const F32Args* a, int mode, int B, void* stream) {
     case 2: return launch_mode<false, kNatural, true>(*a, B, st);
     case 3: return launch_mode<true, kInt8V, false>(*a, B, st);
     case 4: return launch_mode<true, kNatural, false>(*a, B, st);
+    case 5: return launch_mode<false, kTrain, false>(*a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

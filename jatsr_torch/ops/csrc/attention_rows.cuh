@@ -54,6 +54,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
 #include "fdiv_rn.cuh"
 
 // The launch plan of ops/attention.py:_natural_plan (field for field).
@@ -239,35 +240,6 @@ __device__ __forceinline__ void rope_rows(__nv_bfloat16* x, int n, int pos0, int
       *hi = b2;
     }
   }
-}
-
-// The counter-hash dropout of the JAX package (lowbias32).
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// The (batch, head) stream with its half of the score hash's first
-// xor-shift applied: (s ^ i) >> 16 = (s >> 16) ^ (i >> 16), so kept() does
-// one shift and one three-way xor for it.
-__device__ __forceinline__ uint32_t stream_of(int b, int h, uint32_t seed) {
-  const uint32_t s = hash_u32((uint32_t)b * 0x9E3779B9u + (uint32_t)h + seed * 0x85EBCA6Bu);
-  return s ^ (s >> 16);
-}
-
-// keep = h32(stream ^ (row * np + col)) <= thr, `stream` from stream_of().
-__device__ __forceinline__ bool kept(uint32_t stream, int row, int col, int np, uint32_t thr) {
-  const uint32_t i = (uint32_t)(row * np + col);
-  uint32_t x = stream ^ i ^ (i >> 16);
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x <= thr;
 }
 
 // The A fragments of w @ V from e (s[nt][0..1] row gid, [2..3] row

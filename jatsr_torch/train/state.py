@@ -14,6 +14,15 @@ warmup-cosine schedule, in optax's order of operations (not
 - ``adam_moments_dtype="bfloat16"`` stores only the first moment in bf16
   (optax's ``mu_dtype``): ``b1 * mu`` is then a bf16 product, as JAX's.
 
+Each leaf runs in its own dtypes, as optax's does under JAX's type
+promotion: a Python constant takes the dtype of the array it meets (JAX's
+weak typing), two arrays promote to the wider.  With bf16 parameters (and so
+bf16 gradients) the clip's global norm is a bf16 sum of each JAX leaf's
+squares (bf16 squares summed in fp32, rounded to bf16), the second moment is
+bf16, the first ``mu_dtype``, and the new parameter is ``p + u`` in the
+promoted dtype, rounded to the parameter's once.  fp32 parameters take the
+same steps in fp32.
+
 The port updates parameters and moments in place, which keeps one copy of
 each in device memory.  :meth:`TrainState.state_dict` gives the whole state
 as tensors keyed by parameter name (what a checkpoint holds), and
@@ -50,34 +59,75 @@ class ClipAdamW:
         self.mu_dtype = mu_dtype
 
     def init(self, params) -> AdamState:
+        """``mu`` in ``mu_dtype``, ``nu`` in each parameter's dtype."""
         return AdamState(0, [torch.zeros_like(p, dtype=self.mu_dtype)
                              for p in params],
-                         [torch.zeros_like(p, dtype=torch.float32)
-                          for p in params])
+                         [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
-    def step(self, params, grads, state: AdamState) -> None:
-        """One update of ``params`` and ``state`` in place."""
-        g_norm = global_norm(grads)
-        clip = g_norm >= self.max_norm
+    def step(self, params, grads, state: AdamState, groups=None) -> None:
+        """One update of ``params`` and ``state`` in place.  ``groups``:
+        the parameters' indices by JAX leaf in the JAX tree's order
+        (:func:`leaf_groups`), the terms of a bf16 clip norm; each
+        parameter its own leaf by default."""
+        g_norm = clip_norm(grads, groups)
+        keep = g_norm < _weak(self.max_norm, g_norm)
         count = state.count + 1
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
         bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
         neg_lr = -float(self.schedule(state.count))
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
-            g = torch.where(clip, (g / g_norm) * self.max_norm, g)
-            if mu.dtype == torch.float32:
-                m = g * (1 - self.b1) + mu * self.b1
-            else:  # b1 * mu in the moment's dtype, as a weak-typed JAX scalar
-                m = g * (1 - self.b1) + mu * torch.tensor(
-                    self.b1, dtype=mu.dtype, device=mu.device)
-            nu.copy_((g * g) * (1 - self.b2) + nu * self.b2)
-            u = (m / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            g = torch.where(keep, g, (g / g_norm.to(g.dtype))
+                            * _weak(self.max_norm, g))
+            m = g * _weak(1 - self.b1, g) + mu * _weak(self.b1, mu)
+            n = (g * g) * _weak(1 - self.b2, g) + nu * _weak(self.b2, nu)
+            u = (m / _weak(bc1, m)) / (torch.sqrt(n / _weak(bc2, n))
+                                       + _weak(self.eps, n))
             mu.copy_(m)
-            u = u + p * self.wd
-            p.add_(u * neg_lr)
+            nu.copy_(n)
+            u = u + p * _weak(self.wd, p)
+            p.copy_(p + u * _weak(neg_lr, u))
         state.count = count
+
+
+def _weak(x: float, like: torch.Tensor):
+    """The Python constant ``x`` as JAX's weak typing applies it to
+    ``like``: in ``like``'s dtype (a Python float where that is fp32, which
+    PyTorch rounds to fp32 itself).  A 0-dim CPU tensor: a card's kernel
+    takes its value as an argument, with no copy to the card."""
+    if like.dtype == torch.float32:
+        return x
+    return torch.tensor(x, dtype=like.dtype)
+
+
+def leaf_groups(names) -> List[List[int]]:
+    """Parameter names (``DenseDiT``'s) -> their indices grouped by JAX
+    leaf (``blocks.<i>.<path>`` stacked over the blocks), the groups in the
+    JAX tree's leaf order (dict keys sorted at each level)."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, name in enumerate(names):
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            parts = ["blocks"] + parts[2:]
+        groups.setdefault(tuple(parts), []).append(i)
+    return [groups[k] for k in sorted(groups)]
+
+
+def clip_norm(grads, groups=None) -> torch.Tensor:
+    """optax's ``global_norm`` in the gradients' dtype: fp32 gradients give
+    :func:`global_norm`; otherwise each JAX leaf's sum of squares (squares
+    in the gradient's dtype, summed in fp32 and rounded to it, as ``jnp.sum``
+    does), those sums added in the leaves' order in their dtype, then the
+    square root.  ``groups`` as :meth:`ClipAdamW.step` takes it."""
+    if all(g.dtype == torch.float32 for g in grads):
+        return global_norm(grads)
+    total = 0
+    for group in groups or [[i] for i in range(len(grads))]:
+        sq = sum((grads[i] * grads[i]).sum(dtype=torch.float32)
+                 for i in group)
+        total = total + sq.to(grads[group[0]].dtype)
+    return torch.sqrt(total)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -109,7 +159,8 @@ class TrainState:
 
     def apply_gradients(self, grads) -> "TrainState":
         """Clip, AdamW, in place; the step count advances."""
-        self.tx.step(self.params, grads, self.opt_state)
+        names = [k for k, _ in self.model.named_parameters()]
+        self.tx.step(self.params, grads, self.opt_state, leaf_groups(names))
         self.step += 1
         return self
 

@@ -1278,18 +1278,27 @@ def test_attention_train_is_deterministic_at_head_dims_16_and_32(card, D):
         assert torch.equal(x, y)
 
 
-def test_tiny_train_step_on_card_matches_cpu(card):
+@pytest.mark.parametrize("knob", ["bf16", "float32", "bf16_params"])
+def test_tiny_train_step_on_card_matches_cpu(card, knob):
     """One train step of the tiny preset (head dim 32: B10 at D = 32; remat
     "full"; 130 frames, 33 patches) on the card against the CPU on the same
     weights, batch and draws, under the tolerances of
-    ``test_narrow_dense_dit_step_on_card_matches_cpu``."""
+    ``test_narrow_dense_dit_step_on_card_matches_cpu``: as the preset
+    trains it, at dtype="float32" (B10's fp32 mode) and at
+    param_dtype="bfloat16" (bf16 parameters, gradients and second moment),
+    where an updated parameter may also differ by one bf16 ulp of its value
+    (its single rounding of p + u can land on either neighbour)."""
+    import dataclasses
+
     from jatsr_torch.configs import LossConfig, TrainConfig, get_preset
     from jatsr_torch.models.dit import DenseDiT
     from jatsr_torch.models.from_jax import random_dense_params
     from jatsr_torch.train import (Normalizer, create_train_state,
                                    make_train_step)
 
-    cfg = get_preset("tiny").model
+    kw = {"bf16": {}, "float32": {"dtype": "float32"},
+          "bf16_params": {"param_dtype": "bfloat16"}}[knob]
+    cfg = dataclasses.replace(get_preset("tiny").model, **kw)
     C = cfg.input_channels
     tcfg = TrainConfig(lr=1e-3, warmup_steps=0, cfg_dropout_prob=0.2)
     dense = random_dense_params(cfg, 22)
@@ -1303,6 +1312,7 @@ def test_tiny_train_step_on_card_matches_cpu(card):
              "cfg_u": rng.random((4, 1, 1), dtype=np.float32),
              "layer_seeds": [3, 4]}
     ones = np.ones(C, np.float32)
+    counts = (at.attention_train_fwd, at.attention_train_bwd)
     out = {}
     for dev in ("cpu", "cuda"):
         state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
@@ -1310,21 +1320,29 @@ def test_tiny_train_step_on_card_matches_cpu(card):
         step = make_train_step(LossConfig(), tcfg,
                                Normalizer(0 * ones, ones, 0 * ones, ones,
                                           device=dev))
-        n0 = (at.attention_train_fwd.launches,
-              at.attention_train_bwd.launches)
+        n0 = [getattr(f, a) for f in counts
+              for a in ("launches", "f32_launches")]
         state, m = step(state, hr, lr, draws=draws)
-        n1 = (at.attention_train_fwd.launches,
-              at.attention_train_bwd.launches)
+        n1 = [getattr(f, a) for f in counts
+              for a in ("launches", "f32_launches")]
         out[dev] = ({k: float(v) for k, v in m.items()},
                     [p.detach().cpu() for p in state.params],
-                    (n1[0] - n0[0], n1[1] - n0[1]))
-    (m_c, p_c, l_c), (m_g, p_g, l_g) = out["cpu"], out["cuda"]
-    assert l_c == (0, 0) and l_g == (2 * cfg.depth, cfg.depth)
+                    tuple(b - a for a, b in zip(n0, n1)),
+                    {str(p.dtype) for p in state.params})
+    (m_c, p_c, l_c, t_c), (m_g, p_g, l_g, t_g) = out["cpu"], out["cuda"]
+    f32 = knob == "float32"
+    assert l_c == (0, 0, 0, 0)
+    assert l_g == (2 * cfg.depth, 2 * cfg.depth if f32 else 0, cfg.depth,
+                   cfg.depth if f32 else 0)
+    assert t_c == t_g == {"torch.bfloat16" if knob == "bf16_params"
+                          else "torch.float32"}
     np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-2)
     np.testing.assert_allclose(m_g["grad_norm"], m_c["grad_norm"], rtol=2e-2)
     for a, b in zip(p_g, p_c):
+        a, b = a.float(), b.float()
+        ulp = 2.0 ** -7 * b.abs() if knob == "bf16_params" else 0.0
         d = (a - b).abs()
-        assert d.max().item() <= 2 * tcfg.lr * 1.01
+        assert bool((d <= 2 * tcfg.lr * 1.01 + ulp).all())
         assert d.mean().item() <= 0.02 * tcfg.lr
 
 
@@ -2270,3 +2288,85 @@ def test_dense_dit_fp32_attention_on_card_matches_cpu(card, impl, fn):
     assert fn.f32_launches - n0 == cfg.depth
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 2e-2
+
+
+# ---- B10's fp32 mode (csrc/attention_f32.cu's train mode, the backward in
+# csrc/attention_f32_bwd.cu), and training at fp32 and with bf16 parameters.
+# Both versions compute every product in fp32 (TF32 off), the kernels' sums
+# in another order: each output and gradient within 1e-4 x max |plain| (a
+# sum of n fp32 terms in another order moves it by at most ~n u of the sum
+# of their magnitudes, u = 2^-24: at n = 768 about 5e-5 of it; measured
+# errors are far below); where dq and dk vanish in exact arithmetic (N = 1:
+# p = 1 and o = c v, c = coef where the weight is kept, so ds = scale (c
+# do.v - do.o), two fp32 sums of the same D products and two roundings of
+# c; ds = 0 where it is dropped) both stay below scale x (2 D + 4) u x c x
+# max sum |do v| times max |k| (dq) or G max |q| (dk).
+REL_F32_TRAIN = 1e-4
+
+
+def _f32_train_inputs(card, B, N, hq, hkv, D, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((B, N, w * D), generator=gen, device=card)
+            for w in (hq, hkv, hkv, hq)]
+
+
+def _assert_f32_grads(got, ref, q, k, v, do, hq, hkv, rate):
+    B, N, QD = q.shape
+    G, D = hq // hkv, QD // hq
+    d = do.reshape(B, N, hkv, G, D)
+    prods = (d * v.reshape(B, N, hkv, 1, D)).abs().sum(-1).max().item()
+    ds_noise = D ** -0.5 * (2 * D + 4) * 2.0 ** -24 * prods / (1.0 - rate)
+    vanish = N == 1
+    for name, g, r, other in zip(("dq", "dk", "dv"), got, ref,
+                                 (k, G * q, None)):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert torch.isfinite(g).all(), name
+        if vanish and other is not None:
+            bound = ds_noise * other.abs().max().item()
+            for x in (g, r):
+                assert x.abs().max().item() <= bound, (name, bound)
+            continue
+        err = (g - r).abs().max().item()
+        assert err <= REL_F32_TRAIN * r.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -123456789)])
+@pytest.mark.parametrize("N,hq,hkv,D", [
+    (1, 4, 2, 32), (45, 4, 2, 32), (129, 8, 4, 64), (345, 20, 4, 64),
+    (70, 3, 1, 48), (200, 4, 2, 128), (100, 4, 2, 256), (768, 4, 2, 64),
+    (768, 4, 2, 256)])
+def test_attention_train_fp32_kernels_match_plain(card, N, hq, hkv, D, rate,
+                                                  seed):
+    """B10's fp32 forward and backward against their plain versions: batch
+    28 at the v3mod2 shape, batch 2 elsewhere (G 1, 2, 3, 5; D 32 to 256;
+    N 1 to 768, a multiple of 8 and not); each launch counted in both
+    ``launches`` and ``f32_launches``."""
+    B = 28 if (N, hq, D) == (345, 20, 64) else 2
+    q, k, v, do = _f32_train_inputs(card, B, N, hq, hkv, D, 31)
+    fwd, bwd = at.attention_train_fwd, at.attention_train_bwd
+    n0 = (fwd.launches, fwd.f32_launches, bwd.launches, bwd.f32_launches)
+    o, stats = fwd(q, k, v, seed, hq, hkv, rate)
+    grads = bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    assert (fwd.launches, fwd.f32_launches, bwd.launches,
+            bwd.f32_launches) == tuple(n + 1 for n in n0)
+    want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate)
+    assert o.dtype == torch.float32 and torch.isfinite(o).all()
+    err = (o - want).abs().max().item()
+    assert err <= REL_F32_TRAIN * want.abs().max().item(), err
+    _assert_f32_grads(grads, at.attention_train_bwd_plain(
+        q, k, v, o, do, seed, hq, hkv, rate), q, k, v, do, hq, hkv, rate)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_train_fp32_backward_is_deterministic(card, D):
+    """Two runs of the fp32 forward (output and statistics) and of the fp32
+    backward are bit-equal (no atomics)."""
+    q, k, v, do = _f32_train_inputs(card, 28 if D == 64 else 4, 345, 20, 4,
+                                    D, 32)
+    o, stats = at.attention_train_fwd(q, k, v, 5, 20, 4, 0.1)
+    o2, stats2 = at.attention_train_fwd(q, k, v, 5, 20, 4, 0.1)
+    assert torch.equal(o, o2) and torch.equal(stats, stats2)
+    a = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
+    b = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

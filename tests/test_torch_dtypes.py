@@ -30,8 +30,9 @@ branches, are ``tests/test_torch_f32_modes.py``'s.
   ``int8``) against ``DiT.apply``: within ``test_torch_dit.py``'s bounds
   (the int8 products can still flip a code by one where an fp32 statistic
   differs in its last bit).
-- fp32 or bf16-parameter training raises ``NotImplementedError`` naming
-  ROADMAP.md where the model trains.
+- fp32 and bf16-parameter models serve and run their training forward
+  and backward, each gradient in its parameter's dtype (their steps
+  against JAX: ``tests/test_torch_train_f32.py``).
 - A train step with ``scores_dtype="bfloat16"`` on the einsum path,
   dropout 0, against JAX's step fed its own draws, under MSE: the bounds of
   ``test_train_steps_match_jax``.
@@ -308,17 +309,23 @@ def test_dense_dit_at_fp32_matches_jax(precision):
 
 @pytest.mark.parametrize("knob", [dict(dtype="float32"),
                                   dict(param_dtype="bfloat16")])
-def test_fp32_and_bf16_parameter_training_raise(knob):
-    """Both serve (the einsum attention), and neither trains: the training
-    forward raises, naming ROADMAP.md."""
+def test_fp32_and_bf16_parameter_models_serve_and_train(knob):
+    """Both serve (the einsum attention) and run their training forward and
+    backward (B10's plain versions), the gradients in the parameters' dtype;
+    ``tests/test_torch_train_f32.py`` holds their steps against JAX."""
     cfg = dataclasses.replace(get_preset("tiny").model, attention_impl="xla",
                               **knob)
     model = DenseDiT(cfg, random_dense_params(cfg, 40), device="cpu")
-    x = torch.zeros(1, 8, 1024)
+    x = torch.from_numpy(np.random.default_rng(40).standard_normal(
+        (1, 8, 1024), dtype=np.float32))
     with torch.no_grad():
         assert model(x, torch.zeros(1), x).shape == x.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x, torch.zeros(1), x, deterministic=False, layer_seeds=[0, 1])
+    out = model(x, torch.zeros(1), x, deterministic=False, layer_seeds=[0, 1])
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    (out ** 2).mean().backward()
+    for p in model.parameters():
+        assert p.grad is not None and p.grad.dtype == p.dtype
+        assert torch.isfinite(p.grad).all()
 
 
 # ---- 4. bf16 scores in training ---------------------------------------------

@@ -8,7 +8,9 @@ is set, so the tests set it (monkeypatch) to compare the branch the port
 takes.  Tolerances:
 
 - schedule and optimizer on identical fp32 inputs: rtol 1e-6 (the bf16
-  first moment: one bf16 ulp);
+  first moment: one bf16 ulp); with bf16 parameters and gradients the
+  optimizer is bit-equal to optax (eager JAX rounds each operation as the
+  port does);
 - the bf16 DiT: loss rtol 1e-2, grads normalised by their max atol 3e-2
   (the JAX package's own bound for B10 against its einsum path,
   ``tests/test_attention_train.py``);
@@ -90,14 +92,20 @@ def test_schedule_matches_jax():
                                        atol=0)
 
 
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
 @pytest.mark.parametrize("grad_scale", [1.0, 0.01])
-def test_optimizer_matches_optax(moments, grad_scale):
+def test_optimizer_matches_optax(moments, grad_scale, param_dtype):
     """clip_by_global_norm + adamw under warmup-cosine, three updates on
-    identical grads (grad_scale 1.0 clips, 0.01 does not)."""
+    identical grads (grad_scale 1.0 clips, 0.01 does not), on fp32 or bf16
+    parameters and gradients.  bf16: the clip norm in bf16 over the leaves
+    in the JAX tree's order (``leaf_groups``), ``nu`` bf16, ``mu`` in
+    ``mu_dtype``, the new parameter rounded once; every leaf's values and
+    dtypes equal to optax's."""
     from jatsr_tpu.configs import TrainConfig as JaxTrainConfig
 
     from jatsr_torch.configs import TrainConfig
+    from jatsr_torch.train.state import leaf_groups
 
     kw = dict(lr=1e-2, warmup_steps=2, weight_decay=0.1, grad_clip=1.0,
               adam_moments_dtype=moments)
@@ -106,19 +114,32 @@ def test_optimizer_matches_optax(moments, grad_scale):
           "b": rng.standard_normal((16,), dtype=np.float32)}
     grads = [{k: grad_scale * rng.standard_normal(v.shape, dtype=np.float32)
               for k, v in p0.items()} for _ in range(3)]
+    jdt, tdt = jnp.dtype(param_dtype), getattr(torch, param_dtype)
 
     tx = jax_make_optimizer(JaxTrainConfig(**kw), 20)
-    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), p0)
     js = tx.init(jp)
     opt = make_optimizer(TrainConfig(**kw), 20)
     keys = sorted(p0)
-    tp = [torch.from_numpy(p0[k].copy()) for k in keys]
+    tp = [torch.from_numpy(p0[k].copy()).to(tdt) for k in keys]
     ts = opt.init(tp)
     for g in grads:
-        u, js = tx.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
+        u, js = tx.update(jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jdt), g), js, jp)
         jp = optax.apply_updates(jp, u)
-        opt.step(tp, [torch.from_numpy(g[k]) for k in keys], ts)
+        opt.step(tp, [torch.from_numpy(g[k]).to(tdt) for k in keys], ts,
+                 leaf_groups(keys))
     adam = js[1][0]
+    if param_dtype == "bfloat16":
+        for i, k in enumerate(keys):
+            for got, want in ((tp[i], jp[k]), (ts.nu[i], adam.nu[k]),
+                              (ts.mu[i], adam.mu[k])):
+                assert str(got.dtype).endswith(str(want.dtype)), k
+                np.testing.assert_array_equal(got.float().numpy(),
+                                              np.asarray(want, np.float32),
+                                              err_msg=k)
+        assert ts.count == int(adam.count) == 3
+        return
     for i, k in enumerate(keys):
         np.testing.assert_allclose(tp[i].numpy(), np.asarray(jp[k]),
                                    rtol=1e-6, atol=1e-7, err_msg=k)
@@ -450,17 +471,16 @@ def test_init_dense_params_draws_as_flax():
         np.testing.assert_array_equal(back[k], v)
 
 
-@pytest.mark.parametrize("knob", [dict(dtype="float32"),
-                                  dict(param_dtype="bfloat16"),
-                                  dict(matmul_precision="int8"),
+@pytest.mark.parametrize("knob", [dict(matmul_precision="int8"),
                                   dict(matmul_precision="int8_static")])
 def test_training_knobs_of_later_slices_raise(knob):
     """A knob of a training branch the port lacks raises where the model
-    trains (the training forward: fp32 compute, bf16 parameters and
-    dynamic int8 serve, and do not train); one that every path reads
-    (``matmul_precision="int8_static"``) already where the model is built.
-    Every remat policy trains (``tests/test_torch_remat.py``), and so do
-    bf16 scores (``tests/test_torch_dtypes.py``)."""
+    trains (the training forward: dynamic int8 serves, and does not train);
+    one that every path reads (``matmul_precision="int8_static"``) already
+    where the model is built.  Every remat policy trains
+    (``tests/test_torch_remat.py``), and so do bf16 scores
+    (``tests/test_torch_dtypes.py``), fp32 compute and bf16 parameters
+    (``tests/test_torch_train_f32.py``)."""
     x = torch.zeros(1, 8, 1024)
     with pytest.raises(NotImplementedError, match="later slice"):
         DenseDiT(_tiny(get_preset, **knob), device="cpu")(
