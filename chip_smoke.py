@@ -180,6 +180,21 @@ batch 28 under each remat policy ("none", "full", "dots", "attn_out",
 card-step bounds of those under "none"), the second's time, the peak
 memory.
 
+Data parallelism (``jatsr_torch/parallel/``) on the one card: B10 at a
+batch offset (rows 14-27 of the training batch with ``b0 = 14``, bf16 and
+fp32, forward and backward: bit-equal to those rows of the whole batch's
+launch, within the plain version's bounds, timed against ``b0 = 0``);
+inside the training entry point's phase, ``[dp nccl]``: the same v3mod2
+run under ``python -m torch.distributed.run --standalone --nproc_per_node
+1`` with ``--distributed --mesh 1 1 --shard-opt-state`` (NCCL, a world of
+one), its ``last`` and ``best`` bit-equal to the plain run's, resumed for
+a third step bit-equal to the resumed trainer's, and ``cli.infer --mesh 1
+1`` on the tiny run bit-equal to the plain call's wav; after the remat
+policies, ``[dp shared card]``: two ranks spawned on card 0 over gloo (NCCL refuses
+two ranks on one GPU), two v3mod2 steps at batch 28 (14 a rank) with and
+without ZeRO-1 against the single-card steps, and the main path's sampler
+on a (2, 1) mesh against the single-card pass (bounds at ``DP_RANKS``).
+
 Audio in, audio out: 44.0 s of mono 16 kHz audio (704,000 samples from
 the seed) through ``super_resolve_audio`` on the main path's DiT and the
 fused codec with its encoder and nine-codebook RVQ: resampled to 44.1 kHz
@@ -3263,6 +3278,7 @@ def check_train_reference(torch, dense, tag="train"):
 # of 28) and 5 validation songs (30 crops: one batch of 28).
 CLI_TRAIN_SONGS, CLI_VAL_SONGS, CLI_FRAMES = 10, 5, 2000
 CLI_RUN, TINY_RUN = "01010101", "02020202"
+CLI_RUN_NCCL = "01010102"     # the same run under torchrun, NCCL, mesh 1 1
 
 
 def make_latents(root, C=1024):
@@ -3322,8 +3338,13 @@ def cli_train_phase(torch, card):
     the first trainer's) takes one more step; then a tiny run, trained the
     same way, served by ``python -m jatsr_torch.cli.infer --run-dir`` on a
     ``.npy`` latent, bit-equal to sampling with its restored parameters.
+    ``[dp nccl]``: the v3mod2 run again under torchrun with ``DP_NCCL`` (NCCL,
+    a world of one, ZeRO-1): its ``last`` and ``best`` bit-equal to the
+    first run's; resumed under torchrun for its third step, bit-equal to
+    the resumed trainer's third step; and ``cli.infer --mesh 1 1`` under
+    torchrun on the tiny run, bit-equal to the plain call's wav.
     Everything is written under a temporary directory removed at the end.
-    Returns the B10 launches a step."""
+    Returns the B10 launches a step and the ``[dp nccl]`` seconds."""
     import gc
     import os
     import shutil
@@ -3350,7 +3371,7 @@ def cli_train_phase(torch, card):
     preset = get_preset("v3mod2")
     cfg = preset.model
     n_params = 766e6
-    need = 3 * 12 * n_params  # last and best, with room for one more
+    need = 5 * 12 * n_params  # two runs' last and best, and one more
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     free = shutil.disk_usage(tmp).free
     log(f"[cli train] {free / 1e9:.1f} GB free under {tmp}; the checkpoints "
@@ -3414,6 +3435,19 @@ def cli_train_phase(torch, card):
             if not (run / name).exists():
                 raise AssertionError(f"the run lacks {name}")
 
+        # [dp nccl]: the same call under torchrun on a mesh of one.
+        nccl = {"train_s": torchrun([
+            "-m", "jatsr_torch.cli.train", "--preset", "v3mod2",
+            "--data-dir", str(tmp / "data"), "--epochs", "1",
+            "--native-loader", "--run-name", CLI_RUN_NCCL, *DP_NCCL], tmp)}
+        run_nccl = run.parent / CLI_RUN_NCCL
+        for name in ("last", "best"):
+            ok, n = same_checkpoint(torch, run / name, run_nccl / name)
+            log(f"[dp nccl] torchrun cli.train {' '.join(DP_NCCL)}: {name} "
+                f"bit-equal to the plain run's ({n} tensors, meta): {ok}")
+            if not ok:
+                raise AssertionError(f"[dp nccl] {name} differs")
+
         # A fresh trainer resumes from the run directory.
         loop.make_train_step = real_step
         t0 = time.perf_counter()
@@ -3450,7 +3484,28 @@ def cli_train_phase(torch, card):
             f"step {state.step}")
         if not math.isfinite(loss) or state.step != 3:
             raise AssertionError(f"the resumed step: loss {loss}")
-        del second, state, hr, lr
+        del hr, lr
+        nccl["resume_s"] = torchrun([
+            "-m", "jatsr_torch.cli.train", "--preset", "v3mod2",
+            "--data-dir", str(tmp / "data"), "--native-loader", "--resume",
+            str(run_nccl), "--max-steps", "3", "--save-best-every", "1000",
+            *DP_NCCL],
+            tmp)
+        blob = CheckpointManager(run_nccl, primary=False).load("last",
+                                                              "cuda")
+        mine = state_tensors(state)
+        theirs = {**{f"params.{k}": v for k, v in
+                     blob["state"]["params"].items()},
+                  **{f"{m}.{k}": v for m in ("mu", "nu")
+                     for k, v in blob["state"]["opt"][m].items()}}
+        same = [k for k in mine if torch.equal(mine[k], theirs[k])]
+        log(f"[dp nccl] torchrun --resume to step 3: {len(same)} of "
+            f"{len(mine)} tensors bit-equal to the resumed trainer's step; "
+            f"step {blob['state']['step']}; {nccl['resume_s']:.1f} s")
+        if (len(same) != len(mine) or mine.keys() != theirs.keys()
+                or blob["state"]["step"] != 3):
+            raise AssertionError("[dp nccl] the resumed run differs")
+        del second, state, blob, mine, theirs
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3466,6 +3521,19 @@ def cli_train_phase(torch, card):
                         str(tmp / "out"), "--steps", "2", "--cfg-scale",
                         "2.0"])
         got, _ = load_wav(tmp / "out" / "song.lr_generated_cfg2.0.wav")
+        nccl["infer_s"] = torchrun([
+            "-m", "jatsr_torch.cli.infer", "--run-dir", str(tiny), "--stats",
+            str(stats), "--input", str(tmp / "song.lr.npy"), "--output-dir",
+            str(tmp / "out_nccl"), "--steps", "2", "--cfg-scale", "2.0",
+            "--mesh", "1", "1"], tmp)
+        got_nccl, _ = load_wav(tmp / "out_nccl" /
+                               "song.lr_generated_cfg2.0.wav")
+        log(f"[dp nccl] torchrun cli.infer --mesh 1 1 on the tiny run: equal "
+            f"to the plain call's wav: {bool(np.array_equal(got, got_nccl))};"
+            f" {nccl['infer_s']:.1f} s; the train call {nccl['train_s']:.1f} "
+            f"s")
+        if not np.array_equal(got, got_nccl):
+            raise AssertionError("[dp nccl] cli.infer --mesh 1 1 differs")
         tp = Preset.from_json((tiny / "preset.json").read_text())
         model = DenseDiT(
             dataclasses.replace(tp.model, attention_impl="xla", dropout=0.0,
@@ -3487,7 +3555,7 @@ def cli_train_phase(torch, card):
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError("cli.infer --run-dir differs from sampling "
                                  "with the run's parameters")
-        return per_step
+        return per_step, nccl
     finally:
         loop.make_train_step = real_step
         os.chdir(cwd)
@@ -3780,6 +3848,419 @@ def remat_phase(torch, dense, card, profile=False):
         torch.cuda.empty_cache()
 
 
+# B10 at a batch offset: the rows of the v3 training batch a second rank of
+# two holds (rows 14-27, b0 = 14).
+B10_OFFSET = TRAIN_B // 2
+
+
+def check_attention_train_offset(torch, checks):
+    """B10 as a data-parallel rank launches it: rows ``B10_OFFSET ..`` of
+    the v3 training batch (q [14, 345, 1280], dropout 0.1) with the batch
+    offset ``b0 = 14``, bf16 and fp32, forward and backward.  Each is
+    bit-equal to those rows of a launch over the whole batch (a CTA reads
+    only its (batch, head); the offset keys the dropout hash by the global
+    row) and within the plain version's bounds above at that offset; a
+    launch at ``b0 = 0`` on the same rows differs.  Timed at ``b0 = 14``
+    and ``b0 = 0`` on the same 14 rows in turns (0, 14, 14, 0): the offset
+    argument's cost.  Adds a ``batch_offset`` entry to each B10 line."""
+    from jatsr_torch.ops import attention_train as at
+
+    hq, hkv, D, rate, seed = 20, 4, 64, 0.1, -123456789
+    b0 = B10_OFFSET
+    for dt, suffix in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+        q, k, v, do = (torch.randn((TRAIN_B, TRAIN_N, w * D), generator=gen,
+                                   device="cuda").to(dt)
+                       for w in (hq, hkv, hkv, hq))
+        o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+        full = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate,
+                                      stats)
+        part_in = [t[b0:].contiguous() for t in (q, k, v, do)]
+        qs, ks, vs, dos = part_in
+        o1, st1 = at.attention_train_fwd(qs, ks, vs, seed, hq, hkv, rate,
+                                         b0=b0)
+        part = at.attention_train_bwd(qs, ks, vs, o1, dos, seed, hq, hkv,
+                                      rate, st1, b0=b0)
+        o0, _ = at.attention_train_fwd(qs, ks, vs, seed, hq, hkv, rate)
+        torch.cuda.synchronize()
+        what = f"B10{suffix} at b0 {b0}"
+        if not (torch.equal(o1, o[b0:]) and torch.equal(st1, stats[b0:])
+                and all(torch.equal(a, f[b0:]) for a, f in zip(part, full))):
+            raise AssertionError(f"{what}: not the whole batch's rows")
+        if torch.equal(o0, o1):
+            raise AssertionError(f"{what}: the offset leaves the output")
+        want = at.attention_train_fwd_plain(qs, ks, vs, seed, hq, hkv, rate,
+                                            b0=b0)
+        ref = at.attention_train_bwd_plain(qs, ks, vs, o1, dos, seed, hq,
+                                           hkv, rate, b0=b0)
+        err_f = (o1.float() - want.float()).abs().max().item()
+        if suffix and err_f > REL_F32_TRAIN * want.abs().max().item():
+            raise AssertionError(f"{what} forward: max abs {err_f}")
+        if not suffix:
+            torch.testing.assert_close(o1.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+        err_b = 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), part, ref):
+            e = (a.float() - r.float()).abs().max().item()
+            lim = (REL_F32_TRAIN if suffix else REL_ATTN_BWD) \
+                * r.float().abs().max().item()
+            if e > lim:
+                raise AssertionError(f"{what} backward {name}: max abs {e} "
+                                     f"> {lim}")
+            err_b = max(err_b, e)
+        del o, stats, full, want, ref, o0, q, k, v, do
+        ms = {"fwd": {0: [], b0: []}, "bwd": {0: [], b0: []}}
+        for off in (0, b0, b0, 0):
+            ms["fwd"][off].append(time_ms(lambda *_: at.attention_train_fwd(
+                qs, ks, vs, seed, hq, hkv, rate, b0=off), [()], 30))
+            ms["bwd"][off].append(time_ms(lambda *_: at.attention_train_bwd(
+                qs, ks, vs, o1, dos, seed, hq, hkv, rate, st1, b0=off),
+                [()], 20))
+        for way, err in (("fwd", err_f), ("bwd", err_b)):
+            line = checks[f"attention_train_{way}{suffix}"]
+            t0, t1 = (sum(ms[way][x]) / 2 for x in (0, b0))
+            line["batch_offset"] = {
+                "shape": [TRAIN_B - b0, TRAIN_N, hq, hkv, D], "b0": b0,
+                "max_abs_err": err, "ms": t1, "ms_b0_0": t0,
+                "turns_ms": ms[way][0][:1] + ms[way][b0] + ms[way][0][1:],
+                "whole_batch_rows_bit_equal": True}
+            log(f"[kernel] attention_train_{way}{suffix} at b0 {b0}: "
+                f"{t1:.5f} ms against {t0:.5f} at b0 0 on the same "
+                f"{TRAIN_B - b0} rows ({(t1 / t0 - 1) * 100:+.2f} %), max "
+                f"abs {err:.3g}, rows bit-equal to the whole batch's")
+        del qs, ks, vs, dos, o1, st1, part
+        torch.cuda.empty_cache()
+
+
+# [dp shared card]: two data-parallel ranks on the one card of this machine,
+# over gloo (NCCL refuses two ranks on one GPU), spawned after the parent
+# has built the kernels (the ranks load that build) and freed its models.
+# Against the parent's single-card runs on the same weights and inputs:
+# (a) two v3mod2 steps at the global batch of 28 (14 a rank), remat "full",
+# dropout 0.1, drop-path 0.05, the loss the reconstruction (MSE) alone, as
+# in check_train_reference: under the preset's perceptual stack the
+# log-magnitude gradient 1 / |rfft(pred)| turns the last-bit differences of
+# a prediction at 14 rows (cuBLAS's bf16 GEMMs take other algorithms than
+# at 28) into gradients tens of percent apart on some bins (with it, on an
+# NVIDIA H100 80GB HBM3 at 700 W: grad norms 1.6e-3 and 3.4e-3 apart, the
+# worst leaf's parameters 0.073 lr apart on average).  Bounds: the loss
+# within rtol 2e-4 (the JAX package's bound for its mesh step), the grad
+# norm within 1e-3, the parameters within DP_PARAM_BOUNDS in units of the
+# steps' summed learning rate: a rank's weight gradients are its rows' bf16
+# sums before the all-reduce adds them, so a gradient near 0 can take
+# Adam's +-lr step the other way (2 lr a step; 2 % of lr on average, the
+# CPU test's bound).  Both ranks' parameters bit-equal.  (b) The same steps
+# under ZeRO-1, bit-equal to (a).  (c) The main path's sampler pass over
+# the 3790-frame latent at STEPS steps on a (2, 1) mesh (the group of three
+# chunks padded to four, two a rank), against the single-card pass:
+# bit-equal, or within the JAX package's pipeline bound (atol 2e-2,
+# relative L2 5e-2) with the difference reported.
+DP_RANKS = 2
+DP_STEPS = 2
+DP_PARAM_BOUNDS = dict(p_max=2.02, p_mean=0.02)
+DP_SERVE_ATOL, DP_SERVE_REL_L2 = 2e-2, 5e-2
+
+
+def dp_train_inputs(torch):
+    """v3mod2 as chip_smoke trains it, its batch, the step's config and the
+    reconstruction loss."""
+    from jatsr_torch.configs import get_preset
+
+    preset = get_preset("v3mod2")
+    tcfg = dataclasses.replace(preset.train, warmup_steps=TRAIN_WARMUP)
+    loss = dataclasses.replace(preset.loss, use_latent_perceptual=False)
+    hr, lr, stats = train_batch(torch, preset.model)
+    return preset, tcfg, loss, hr, lr, stats
+
+
+def dp_serve_inputs(torch):
+    """The main path's DiT config and its latent, as ``main`` draws it."""
+    from jatsr_torch.configs import get_preset
+
+    cfg = dataclasses.replace(get_preset("v3").model,
+                              **{**SERVING, **PATHS["prologue"]})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr = torch.randn((LATENT_FRAMES, cfg.input_channels), generator=gen,
+                     device="cuda")
+    return cfg, lr
+
+
+def dp_pipeline(model, mesh=None):
+    import numpy as np
+
+    from jatsr_torch.configs import SamplerConfig
+    from jatsr_torch.infer import InferencePipeline
+    from jatsr_torch.train.step import Normalizer
+
+    C = model.cfg.input_channels
+    return InferencePipeline(
+        model, Normalizer(np.zeros(C), np.ones(C), np.zeros(C), np.ones(C)),
+        None, SamplerConfig(num_steps=STEPS, cfg_scale=CFG_SCALE),
+        mesh=mesh)
+
+
+def dp_steps(torch, state, step, hr, lr):
+    """``DP_STEPS`` steps, each synchronised: losses, grad norms and ms."""
+    losses, norms, times = [], [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, hr, lr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, times
+
+
+def dp_rank(rank, root):
+    """One rank of ``[dp shared card]``: (a), (b) and (c) of the comment
+    above on its rows, the results into ``root/rank<r>.json``."""
+    import gc
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from jatsr_torch.models.dit import DenseDiT, DiT
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.parallel import (DataGroup, batch_rows, init_distributed,
+                                      make_mesh)
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    root = Path(root)
+    init_distributed(f"file://{root}/store", DP_RANKS, rank, local_rank=rank,
+                     backend="gloo", device="cuda")
+    mesh = make_mesh(DP_RANKS, 1, device="cuda")
+    dp = DataGroup(mesh)
+    out = {"rank": rank, "card": torch.cuda.current_device(),
+           "backend": dist.get_backend(), "mesh": list(mesh.shape)}
+    preset, tcfg, loss, hr, lr, stats = dp_train_inputs(torch)
+    rows = batch_rows(mesh, TRAIN_B)
+    hr, lr = hr[rows].contiguous(), lr[rows].contiguous()
+    out["rows"] = [rows.start, rows.stop]
+    dense = torch.load(root / "dense.pt", mmap=True, weights_only=True)
+    finals = {}
+    for zero in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(
+            DenseDiT(preset.model, dense, device="cuda"), tcfg, 1000,
+            (hr, lr), device="cuda", mesh=mesh, shard_opt_state=zero)
+        step = make_train_step(loss, tcfg, Normalizer(*stats), mesh=mesh)
+        at.attention_train_fwd.launches = at.attention_train_bwd.launches = 0
+        losses, norms, times = dp_steps(torch, state, step, hr, lr)
+        finals[zero] = [p.detach().clone() for p in state.params]
+        names = [k for k, _ in state.model.named_parameters()]
+        lr_sum = sum(float(state.tx.schedule(i)) for i in range(DP_STEPS))
+        out["zero" if zero else "plain"] = {
+            "losses": losses, "grad_norms": norms, "ms": times,
+            "launches": [at.attention_train_fwd.launches,
+                         at.attention_train_bwd.launches],
+            "moment_elements": sum(m.numel() for m in state.opt_state.mu),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2.0 ** 30}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dense
+    out["zero_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                zip(finals[False], finals[True]))
+    same = True
+    for p in finals[False]:
+        buf = p.clone()
+        dp.broadcast_(buf)
+        same = same and torch.equal(buf, p)
+    out["ranks_bit_equal"] = same
+    if rank == 0:
+        ref = torch.load(root / "ref_params.pt")
+        leaves, past, n = [], 0, 0
+        for name, p, r in zip(names, finals[False], ref):
+            d = (p - r.to(p.device)).abs()
+            leaves.append((d.mean().item(), d.max().item(), name))
+            past += int((d > lr_sum).sum())
+            n += d.numel()
+        leaves.sort(reverse=True)
+        out["vs_single"] = {"max": max(x[1] for x in leaves),
+                            "worst_mean": leaves[0][0],
+                            "worst_leaves": leaves[:4],
+                            "share_past_lr": past / n}
+        del ref
+    del finals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, latent = dp_serve_inputs(torch)
+    static = torch.load(root / "static.pt", mmap=True, weights_only=True)
+    pipe = dp_pipeline(DiT(cfg, static, device="cuda"), mesh)
+    del static
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipe.super_resolve_latent_device(latent, SEED, STEPS, CFG_SCALE,
+                                           max_batch=3)
+    torch.cuda.synchronize()
+    out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+    want = torch.load(root / "ref_serve.pt").to(got.device)
+    diff = (got - want).abs()
+    out["serve"] = {"shape": list(got.shape),
+                    "finite": bool(torch.isfinite(got).all()),
+                    "bit_equal": bool(torch.equal(got, want)),
+                    "max_abs": diff.max().item(),
+                    "rel_l2": ((got - want).norm() / want.norm()).item(),
+                    "differing": (diff > 0).float().mean().item()}
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_shared_card_phase(torch, dense, static, card):
+    """``[dp shared card]``: the parent's single-card references, then the
+    two ranks (:func:`dp_rank`) on this card, then their results checked."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    from jatsr_torch.models.dit import DenseDiT, DiT
+    from jatsr_torch.models.from_jax import tree_to_torch
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        t0 = time.perf_counter()
+        torch.save(tree_to_torch(dense), root / "dense.pt")
+        torch.save(tree_to_torch(static), root / "static.pt")
+        preset, tcfg, loss, hr, lr, stats = dp_train_inputs(torch)
+        state = create_train_state(
+            DenseDiT(preset.model, dense, device="cuda"), tcfg, 1000,
+            (hr, lr), device="cuda")
+        step = make_train_step(loss, tcfg, Normalizer(*stats))
+        lr_sum = sum(float(state.tx.schedule(i)) for i in range(DP_STEPS))
+        losses, norms, times = dp_steps(torch, state, step, hr, lr)
+        torch.save([p.detach().cpu() for p in state.params],
+                   root / "ref_params.pt")
+        del state, step, hr, lr
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, latent = dp_serve_inputs(torch)
+        pipe = dp_pipeline(DiT(cfg, static, device="cuda"))
+        ref = pipe.super_resolve_latent_device(latent, SEED, STEPS,
+                                               CFG_SCALE, max_batch=3)
+        torch.save(ref.cpu(), root / "ref_serve.pt")
+        del pipe, ref, latent
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[dp shared card] single-card references: losses {losses}, "
+            f"grad norms {norms}, ms {[round(t, 1) for t in times]}; inputs "
+            f"written; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank, args=(str(root),), nprocs=DP_RANKS,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        outs = [json.loads((root / f"rank{r}.json").read_text())
+                for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for o in outs:
+        log(f"[dp shared card] rank {o['rank']}: {json.dumps(o)}")
+    a = outs[0]
+    depth = preset.model.depth
+    bad = []
+    for o in outs:
+        if (o["card"], o["backend"], o["mesh"]) != (0, "gloo", [DP_RANKS, 1]):
+            bad.append(f"rank {o['rank']} on card {o['card']} over "
+                       f"{o['backend']}")
+        for kind in ("plain", "zero"):
+            if o[kind]["losses"] != a["plain"]["losses"]:
+                bad.append(f"rank {o['rank']} {kind} losses differ")
+            if o[kind]["launches"] != [2 * depth * DP_STEPS,
+                                       depth * DP_STEPS]:
+                bad.append(f"rank {o['rank']} {kind} B10 launches "
+                           f"{o[kind]['launches']}")
+        if not (o["zero_bit_equal"] and o["ranks_bit_equal"]):
+            bad.append(f"rank {o['rank']}: ZeRO-1 or the ranks not bit-equal")
+        s = o["serve"]
+        if not s["finite"] or s["shape"] != [LATENT_FRAMES,
+                                             cfg.input_channels] or (
+                not s["bit_equal"] and (s["max_abs"] > DP_SERVE_ATOL or
+                                        s["rel_l2"] > DP_SERVE_REL_L2)):
+            bad.append(f"rank {o['rank']} serve {s}")
+    for got, want in zip(a["plain"]["losses"], losses):
+        if abs(got - want) > 2e-4 * abs(want):
+            bad.append(f"loss {got} against the single card's {want}")
+    for got, want in zip(a["plain"]["grad_norms"], norms):
+        if abs(got - want) > 1e-3 * abs(want):
+            bad.append(f"grad norm {got} against the single card's {want}")
+    p = a["vs_single"]
+    p_max, p_mean = p["max"] / lr_sum, p["worst_mean"] / lr_sum
+    if (p_max > DP_PARAM_BOUNDS["p_max"]
+            or p_mean > DP_PARAM_BOUNDS["p_mean"]):
+        bad.append(f"parameters {p_max} lr max, {p_mean} lr mean")
+    log(f"[dp shared card] {card}: 2 ranks on card 0 over gloo, spawned and "
+        f"joined in {wall:.1f} s; (a) losses {a['plain']['losses']} against "
+        f"{losses} (single card), grad norms {a['plain']['grad_norms']} "
+        f"against {norms}, parameters max {p_max:.4f} lr, worst mean "
+        f"{p_mean:.5f} lr (summed lr {lr_sum:.3g}; worst leaves "
+        f"{p['worst_leaves']}, {p['share_past_lr']:.3g} of the elements past "
+        f"1 lr); step ms a rank "
+        f"{a['plain']['ms']} against {[round(t, 1) for t in times]}; (b) "
+        f"ZeRO-1 bit-equal {a['zero_bit_equal']}, moment elements a rank "
+        f"{a['zero']['moment_elements']} against {a['plain']['moment_elements']},"
+        f" step ms {a['zero']['ms']}; (c) serve {a['serve']} in "
+        f"{a['serve_ms']:.1f} ms")
+    if bad:
+        raise AssertionError("[dp shared card]: " + "; ".join(bad))
+
+
+# [dp nccl]: the NCCL path users launch, at a world of one:
+# ``python -m torch.distributed.run --standalone --nproc_per_node 1`` of
+# ``cli.train --distributed --mesh 1 1 --shard-opt-state`` and of
+# ``cli.infer --mesh 1 1``.  cli_train_phase holds each against the same
+# call without a mesh.
+DP_NCCL = ["--distributed", "--mesh", "1", "1", "--shard-opt-state"]
+
+
+def torchrun(args, cwd):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1
+    args`` in ``cwd`` with this checkout on the path; raises with its
+    output's end on failure; returns its seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    env = {**os.environ,
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", *args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args)}: rc "
+                             f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def same_checkpoint(torch, a, b):
+    """Tensors of two ``state.pt`` files bit-equal, and their metas equal:
+    ``(equal, tensors)``."""
+    sa = torch.load(a / "state.pt", weights_only=True)
+    sb = torch.load(b / "state.pt", weights_only=True)
+    ta, tb = sa["state"], sb["state"]
+    pairs = [(ta["params"], tb["params"]), (ta["opt"]["mu"], tb["opt"]["mu"]),
+             (ta["opt"]["nu"], tb["opt"]["nu"])]
+    n, ok = 0, sa["meta"] == sb["meta"]
+    for x, y in pairs:
+        ok = ok and x.keys() == y.keys()
+        for k in x:
+            n += 1
+            ok = ok and torch.equal(x[k], y[k])
+    return ok and ta["step"] == tb["step"], n
+
+
 def main() -> int:
     import argparse
 
@@ -3876,6 +4357,7 @@ def main() -> int:
     checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
     checks.update(check_attention_train_fp32(torch, checks))
+    check_attention_train_offset(torch, checks)
     torch.cuda.empty_cache()
     for name, c in checks.items():
         log(f"[kernel] {name} {json.dumps(c)}")
@@ -4089,6 +4571,7 @@ def main() -> int:
             check_heun(torch, models[name], cpu_model)
         del cpu_model
 
+    main_static = static_of("prologue")  # for [dp shared card]
     del models, statics, denses
     torch.cuda.empty_cache()
     phases.done("DiT references")
@@ -4110,14 +4593,20 @@ def main() -> int:
 
     # 7. The training entry point at full width (train, checkpoint, resume,
     #    serve a run), then two steps under each remat policy.
-    cli_train_phase(torch, card)
-    phases.done("training entry point")
+    _, nccl = cli_train_phase(torch, card)
+    phases.done("training entry point and [dp nccl] ("
+                f"{sum(nccl.values()):.1f} s of torchrun calls)")
     remat_phase(torch, dense, card, args.profile)
-    del dense
     torch.cuda.empty_cache()
     phases.done("remat policies")
 
-    # 8. Data in: python -m jatsr_torch.cli.prepare_dataset on a corpus at
+    # 8. Data-parallel training and serving over two ranks on this card.
+    dp_shared_card_phase(torch, dense, main_static, card)
+    del dense, main_static
+    torch.cuda.empty_cache()
+    phases.done("[dp shared card]")
+
+    # 9. Data in: python -m jatsr_torch.cli.prepare_dataset on a corpus at
     #    the codec's full width, resumed; the prefetch overlap; card vs CPU.
     prepare_phase(torch, card)
     phases.done("data preparation")

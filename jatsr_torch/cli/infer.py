@@ -21,7 +21,13 @@ adds the int8 output head, and at ``tiny`` (bottleneck 64) the patch embed
 is the unfused one.  ``--platform cpu`` runs the plain PyTorch path on the
 CPU; otherwise the run uses the card.
 
-``--mesh`` raises ``NotImplementedError``: it comes with ``parallel/``.
+``--mesh D M`` samples the chunks data-parallel over a ``(D, M)`` mesh of
+D x M processes, launched one a card by torchrun (``torchrun
+--nproc_per_node D -m jatsr_torch.cli.infer --mesh D 1 ...``; ``--mesh 1
+1`` alone is a world of one); every rank loads the weights and the input,
+and rank 0 alone decodes and writes the output.  A model axis past 1
+(tensor parallelism) raises ``NotImplementedError`` (ROADMAP section A item
+8(b)).
 """
 
 from __future__ import annotations
@@ -74,8 +80,8 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["xla", "pallas", "pallas2", "flash"])
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("DATA", "MODEL"),
-                    help="shard serving over a (data, model) mesh (not "
-                         "ported yet)")
+                    help="sample over a (data, model) mesh of the "
+                         "torchrun processes (model 1)")
     ap.add_argument("--unroll-blocks", action="store_true",
                     help="a compile knob of the JAX package; same math")
     ap.add_argument("--fused-decode", action="store_true", default=True,
@@ -101,9 +107,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh needs parallel/ (ROADMAP section A item 8)")
     if not (args.torch_checkpoint or args.run_dir):
         raise SystemExit("need --run-dir or --torch-checkpoint")
     if args.fused_mlp and not args.int8:
@@ -111,6 +114,14 @@ def main(argv=None):
     if args.platform not in (None, "cpu", "cuda", "gpu"):
         raise SystemExit(f"unknown --platform {args.platform!r}")
     device = "cpu" if args.platform == "cpu" else "cuda"
+    mesh = None
+    if args.mesh:
+        from ..parallel import init_distributed, make_mesh
+
+        init_distributed(device=device)
+        mesh = make_mesh(*args.mesh, device=device)
+        print(f"[infer] serving mesh: data={args.mesh[0]} x "
+              f"model={args.mesh[1]}")
 
     import numpy as np
     import torch
@@ -193,10 +204,12 @@ def main(argv=None):
           f"cfg_interval=({scfg.cfg_interval[0]}, {scfg.cfg_interval[1]})"
           + ("" if scfg.cfg_interval == (0.0, 1.0)
              else " [non-parity guidance schedule]"))
-    pipe = InferencePipeline(model, norm, codec, scfg, device=device)
+    pipe = InferencePipeline(model, norm, codec, scfg, device=device,
+                             mesh=mesh)
 
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    if pipe.primary:
+        out.mkdir(parents=True, exist_ok=True)
     inp = Path(args.input)
     cfg_suffix = f"_cfg{args.cfg_scale:.1f}" if args.cfg_scale != 1.0 else ""
     if inp.suffix == ".npy":
@@ -205,6 +218,8 @@ def main(argv=None):
             lr_latent = lr_latent[:int(args.total_seconds * 44100 / 512)]
         gen = pipe.super_resolve_latent(lr_latent, 0, args.steps,
                                         args.cfg_scale)
+        if not pipe.primary:
+            return
         save_wav(out / f"{inp.stem}_generated{cfg_suffix}.wav",
                  pipe.decode_latent(gen), 44100)
         save_wav(out / f"{inp.stem}_lr_input.wav",
@@ -220,6 +235,8 @@ def main(argv=None):
             audio = audio[: int(args.total_seconds * sr)]
         wav = pipe.super_resolve_audio(audio, sr, 0, args.steps,
                                        args.cfg_scale)
+        if not pipe.primary:
+            return
         save_wav(out / f"{inp.stem}_generated{cfg_suffix}.wav", wav, 44100)
     print(f"[infer] wrote results to {out}/")
 

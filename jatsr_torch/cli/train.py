@@ -5,23 +5,34 @@ Usage:
         [--resume [auto|RUN_DIR]] [--epochs N] [--max-steps N] \
         [--native-loader] [--remat full|attn_out|mlp|dots|none]
 
+Data-parallel on N cards of one host, one process a card:
+    torchrun --nproc_per_node N -m jatsr_torch.cli.train --distributed \
+        --mesh N 1 [--shard-opt-state] --preset v3mod2 --data-dir ...
+
 The port of the JAX package's ``cli/train.py``, with its flags.  Runs go
 under ``<save_dir_base>/<preset>/<run name>/`` (``checkpoints/`` by
 default): ``last``, ``best``, ``interval_<step>`` and ``preset.json``;
 ``python -m jatsr_torch.cli.infer --run-dir`` serves them.  ``--platform
 cpu`` runs the plain PyTorch path on the CPU; otherwise the run uses the
 card.  ``--profile-steps N`` traces the first N steps with
-``torch.profiler`` into ``<run dir>/profile``.  ``--mesh`` and
-``--distributed`` raise ``NotImplementedError``: multi-card training
-comes with ``parallel/``; ``--shard-opt-state`` acts only with a mesh.
+``torch.profiler`` into ``<run dir>/profile`` (rank 0's steps under a
+mesh).  ``--distributed`` joins
+the process group from torchrun's environment (``--platform cpu``: gloo,
+else NCCL, one card a rank); ``--mesh D M`` trains data-parallel over a
+``(D, M)`` mesh of the group's D x M processes (the JAX CLI's stand-in for
+``torchrun --nproc_per_node=N`` is ``--mesh N 1``; here torchrun launches
+the processes and ``--mesh`` lays them out; ``--mesh 1 1`` without a
+launcher is a world of one).  ``--batch-size`` is the global batch; it
+must divide by D.  ``--shard-opt-state`` splits the Adam moments over the
+data axis (ZeRO-1) and acts only with a mesh.  A model axis past 1
+(tensor parallelism) raises ``NotImplementedError`` (ROADMAP section A
+item 8(b)).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-
-_MULTI_CARD = "needs parallel/ (ROADMAP section A item 8)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -31,7 +42,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", nargs="?", const="auto", default=None)
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"),
-                    help="data x model parallel mesh (not ported yet)")
+                    help="data x model mesh over the process group (model "
+                         "1: tensor parallelism is not ported)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -61,22 +73,25 @@ def _parser() -> argparse.ArgumentParser:
                     help="cpu runs the plain path on the CPU; cuda (the "
                          "default) the card")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (not ported yet)")
+                    help="join the process group from torchrun's "
+                         "environment (MASTER_ADDR, MASTER_PORT, RANK, "
+                         "WORLD_SIZE, LOCAL_RANK)")
     return ap
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {_MULTI_CARD}")
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_MULTI_CARD}")
     if args.platform not in (None, "cpu", "cuda", "gpu"):
         raise SystemExit(f"unknown --platform {args.platform!r}")
     device = "cpu" if args.platform == "cpu" else "cuda"
 
     from ..configs import get_preset
+    from ..parallel import init_distributed, is_primary, make_mesh
     from ..train.loop import Trainer
+
+    if args.distributed:
+        init_distributed(device=device)
+    mesh = make_mesh(*args.mesh, device=device) if args.mesh else None
 
     preset = get_preset(args.preset)
     over = {"batch_size": args.batch_size or None,
@@ -94,19 +109,24 @@ def main(argv=None):
         preset = dataclasses.replace(preset, model=dataclasses.replace(
             preset.model, remat_policy=args.remat))
     trainer = Trainer(preset, data_dir=args.data_dir, resume=args.resume,
-                      native_loader=args.native_loader,
+                      mesh=mesh, native_loader=args.native_loader,
                       run_name=args.run_name, device=device)
-    print(f"[train] preset={preset.name} params={trainer.n_params / 1e6:.1f}M "
-          f"steps/epoch={len(trainer.train_loader)} device={device}")
+    say = print if is_primary() else (lambda *a, **k: None)
+    say(f"[train] preset={preset.name} params={trainer.n_params / 1e6:.1f}M "
+        f"steps/epoch={len(trainer.train_loader)} device={device} "
+        f"mesh={args.mesh}")
     if args.profile_steps:
+        import contextlib
+
         from ..utils.profiling import trace
 
-        with trace(str(trainer.ckpt.run_dir / "profile")):
+        with (trace(str(trainer.ckpt.run_dir / "profile")) if is_primary()
+              else contextlib.nullcontext()):
             trainer.fit(num_epochs=args.epochs,
                         max_steps=trainer.state.step + args.profile_steps)
-        print(f"[train] profile trace in {trainer.ckpt.run_dir}/profile")
+        say(f"[train] profile trace in {trainer.ckpt.run_dir}/profile")
     best = trainer.fit(num_epochs=args.epochs, max_steps=args.max_steps)
-    print(f"[train] done; best val loss {best:.5f}")
+    say(f"[train] done; best val loss {best:.5f}")
     return trainer
 
 

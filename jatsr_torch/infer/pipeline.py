@@ -7,7 +7,19 @@ segmented ``decode_latent``, ``encode_lr_audio`` (resample to the codec's
 rate, encode), ``super_resolve_audio`` and ``super_resolve_latent_to_audio``
 (sampling and decoding interleaved: each decode segment is enqueued as
 soon as its frames are final).  The whole chain stays on the pipeline's
-device.  Meshes and ``decode_devices`` come with ``parallel/``.
+device.
+
+Data-parallel serving (``mesh=``, a ``(D, 1)`` mesh over D processes, one
+a card): every rank runs the pipeline on the same input; each group of
+chunks is padded to a multiple of D with null chunks (zero condition, zero
+noise), each rank samples its span of the group (CFG on its own rows), and
+the rows are gathered (``all_gather``) on every rank.  The initial noise is
+drawn for the group as one card draws it, so the output is the single-card
+output.  Audio input is encoded on every rank and rank 0's latent is
+broadcast; the interleaved decode of :meth:`super_resolve_latent_to_audio`
+runs on rank 0 alone (the others return None).  ``decode_devices``: cards
+of this process that take the decodes round robin, one decoder weight copy
+a card (:func:`split_serve_devices` partitions a device list).
 
 The initial noise: under ``chunk_noise="per_chunk"`` (the default),
 ``super_resolve_latent`` draws each chunk's from (seed, chunk); under
@@ -20,6 +32,7 @@ only.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +43,7 @@ from ..configs import SamplerConfig
 from ..models.dac import DAC
 from ..models.dit import DenseDiT, DiT, adaln_tables
 from ..ops.resample import resample
+from ..parallel.distributed import DataGroup
 from ..sampling import FlowSampler
 from ..sampling.flow import linspace_f32
 from ..train.step import Normalizer
@@ -79,6 +93,19 @@ def group_noise(seed: int, gi: int, shape, device) -> torch.Tensor:
                        device=device)
 
 
+def split_serve_devices(devices=None, n_decode: int = 1):
+    """Partition devices (this host's cards by default) into ``(sampler
+    devices, decode devices)``: the last ``n_decode`` decode
+    (``InferencePipeline(decode_devices=...)``), the rest sample."""
+    devices = list(devices if devices is not None else [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    if not 0 < n_decode < len(devices):
+        raise ValueError(
+            f"n_decode={n_decode} must leave >=1 sampler device of "
+            f"{len(devices)}")
+    return devices[:-n_decode], devices[-n_decode:]
+
+
 def crossfade_chunks(chunks: List[torch.Tensor],
                      overlap_frames: int) -> torch.Tensor:
     """Linear fade-out/fade-in stitch of ``[T_i, C]`` chunks, on their
@@ -114,14 +141,29 @@ class InferencePipeline:
             encoder too).
         sampler_cfg: chunking and sampler settings.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
+        mesh: None, or a ``(D, 1)`` mesh (``parallel.make_mesh``): the
+            chunks sampled data-parallel over its D processes.
+        decode_devices: None, or devices that take the decodes round robin
+            (each holding a copy of the decoder's weights).
     """
+
+    # Class-level defaults, so that a decode-only pipeline built without
+    # __init__ (codec, hop and device set by hand) decodes in place.
+    decode_devices = None
+    _decode_rr = 0
 
     def __init__(self, model: DiT | DenseDiT, normalizer: Normalizer,
                  codec: Optional[DAC] = None,
                  sampler_cfg: Optional[SamplerConfig] = None,
                  data_sample_rate: int = 44100, hop_length: int = 512,
-                 device="cuda"):
+                 device="cuda", mesh=None, decode_devices=None):
         self.device = resolve_device(device)
+        self._dp = DataGroup.of(mesh)
+        self.primary = self._dp is None or self._dp.rank == 0
+        self.decode_devices = ([resolve_device(d) for d in decode_devices]
+                               if decode_devices else None)
+        self._decoders = {}
+        self._decode_rr = 0
         self.model = model
         self.norm = normalizer
         self.codec = codec
@@ -134,6 +176,34 @@ class InferencePipeline:
             lambda z, t, c, mod=None: model(z, t, c, adaln_mod=mod),
             self.cfg, adaln_fn=lambda tv: adaln_tables(model, tv),
             device=self.device)
+
+    def _sample(self, g, num_steps, cfg_scale, z0) -> torch.Tensor:
+        """One group of chunks through the sampler.  Under a mesh the group
+        is padded to a multiple of the data dim with null chunks, each rank
+        samples its span, and the spans are gathered."""
+        if self._dp is None or self._dp.size == 1:
+            return self.sampler(g, num_steps, cfg_scale, z0=z0)
+        n = g.shape[0]
+        pad = (0, 0, 0, 0, 0, (-n) % self._dp.size)
+        g, z0 = F.pad(g, pad), F.pad(z0, pad)
+        rows = self._dp.rows(g.shape[0])
+        mine = self.sampler(g[rows], num_steps, cfg_scale, z0=z0[rows])
+        return self._dp.gather_rows(mine)[:n]
+
+    def _decode(self, batch: torch.Tensor) -> torch.Tensor:
+        """``[S, L, C]`` -> ``[S, L * hop, 1]`` on the pipeline's device:
+        the codec's decode, or on the next of ``decode_devices`` round
+        robin (its decoder copy made at first use)."""
+        if self.decode_devices is None:
+            return self.codec.decode(batch)
+        dev = self.decode_devices[self._decode_rr % len(self.decode_devices)]
+        self._decode_rr += 1
+        if dev not in self._decoders:
+            self._decoders[dev] = self.codec.decoder_copy(dev)
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            wav = self._decoders[dev].decode(batch.to(dev))
+        return wav.to(self.device)
 
     @property
     def chunk_frames(self) -> int:
@@ -195,7 +265,7 @@ class InferencePipeline:
                 if self.cfg.pad_tail_group and gi > 0 and n_real < max_batch:
                     pad = (0, 0, 0, 0, 0, max_batch - n_real)
                     g, z0 = F.pad(g, pad), F.pad(z0, pad)
-            gen = self.sampler(g, num_steps, cfg_scale, z0=z0)[:n_real]
+            gen = self._sample(g, num_steps, cfg_scale, z0)[:n_real]
             outs.append(self.norm.denorm_hr(gen))
         gen_all = torch.cat(outs)
         chunks = [gen_all[i, : e - s] for i, (s, e) in enumerate(plan)]
@@ -227,6 +297,8 @@ class InferencePipeline:
         if self.codec is None:
             raise ValueError("audio output needs a codec")
         lr_latent = self._encode_lr_audio_device(audio, sr)
+        if self._dp is not None and self._dp.size > 1:
+            self._dp.broadcast_(lr_latent)  # one condition on every rank
         return self.super_resolve_latent_to_audio(
             lr_latent, seed, num_steps, cfg_scale, max_batch=max_batch)
 
@@ -247,7 +319,8 @@ class InferencePipeline:
         Each group draws its initial noise from (seed, group)
         (:func:`group_noise`) whatever ``chunk_noise`` is, as the JAX
         package does.  A short input (one chunk, or one decode segment)
-        takes ``decode_latent(super_resolve_latent_device(...))``."""
+        takes ``decode_latent(super_resolve_latent_device(...))``.  Under a
+        mesh rank 0 decodes and every other rank returns None."""
         if self.codec is None:
             raise ValueError("audio output needs a codec")
         T = lr_latent.shape[0]
@@ -256,7 +329,8 @@ class InferencePipeline:
         if T <= segment_frames + 2 * ctx_frames or len(plan) < 2:
             gen = self.super_resolve_latent_device(
                 lr_latent, seed, num_steps, cfg_scale, max_batch)
-            return self.decode_latent(gen, segment_frames, ctx_frames)
+            return (self.decode_latent(gen, segment_frames, ctx_frames)
+                    if self.primary else None)
 
         cond = self._chunk_cond(lr_latent, plan)
         segs = self._decode_plan(T, segment_frames, ctx_frames)
@@ -271,7 +345,7 @@ class InferencePipeline:
             g = cond[i:i + mb]
             z0 = group_noise(seed, gi, g.shape, self.device)
             gen = self.norm.denorm_hr(
-                self.sampler(g, num_steps, cfg_scale, z0=z0))
+                self._sample(g, num_steps, cfg_scale, z0))
             for j, (s, e) in enumerate(plan[i:i + mb]):
                 cur = gen[j, : e - s]
                 if stitched is None:
@@ -286,13 +360,16 @@ class InferencePipeline:
                         pending = body[-OV:]
                 ci += 1
             done = stitched.shape[0]
-            while next_seg < len(segs) and segs[next_seg][3] <= done:
+            while (self.primary and next_seg < len(segs)
+                   and segs[next_seg][3] <= done):
                 s, e, lo, hi = segs[next_seg]
                 seg = F.pad(stitched[lo:hi], (0, 0, 0, L - (hi - lo)))
-                wav = self.codec.decode(seg[None])[0, :, 0]
+                wav = self._decode(seg[None])[0, :, 0]
                 pieces.append(wav[(s - lo) * hop: (e - lo) * hop])
                 next_seg += 1
         assert pending is None and stitched.shape[0] == T
+        if not self.primary:
+            return None
         assert next_seg == len(segs)
         return torch.cat(pieces).cpu().numpy()
 
@@ -334,7 +411,7 @@ class InferencePipeline:
         T = z.shape[0]
         hop = self.hop
         if segment_frames <= 0 or T <= segment_frames + 2 * ctx_frames:
-            return [self.codec.decode(z[None])[0, :, 0]]
+            return [self._decode(z[None])[0, :, 0]]
         L = segment_frames + 2 * ctx_frames
         plan = self._decode_plan(T, segment_frames, ctx_frames)
         segs = [F.pad(z[lo:hi], (0, 0, 0, L - (hi - lo)))
@@ -346,7 +423,7 @@ class InferencePipeline:
             batch = torch.stack(group)
             if len(group) < nb:
                 batch = F.pad(batch, (0, 0, 0, 0, 0, nb - len(group)))
-            wavs = self.codec.decode(batch)
+            wavs = self._decode(batch)
             for j in range(len(group)):
                 s, e, lo, hi = plan[i + j]
                 pieces.append(wavs[j, (s - lo) * hop: (e - lo) * hop, 0])

@@ -22,6 +22,7 @@ XLA, so they stay ``F.conv1d`` and ``torch.matmul`` here.
 
 from __future__ import annotations
 
+import copy
 import math
 import warnings
 from dataclasses import dataclass
@@ -261,6 +262,12 @@ def decoder_forward(dec: Dict, z: torch.Tensor, cfg: DACConfig,
     return torch.tanh(x)
 
 
+def _tree_to(tree: Dict, device) -> Dict:
+    """A nested dict of tensors with every tensor copied to ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 class DAC:
     """Frozen codec: encode, quantize and decode on the codec's device.
 
@@ -302,6 +309,15 @@ class DAC:
         if fused_res_units and self.dtype == torch.float32:
             for name, packed in dac_fused_pack(dec, self.device).items():
                 self.decoder[name]["fused"] = packed
+
+    def decoder_copy(self, device) -> "DAC":
+        """A decode-only copy of this codec on ``device``: its decoder
+        weights (the fused kernels' packs too) copied there."""
+        out = copy.copy(self)
+        out.device = resolve_device(device)
+        out.encoder = out.quantizer = None
+        out.decoder = _tree_to(self.decoder, out.device)
+        return out
 
     @classmethod
     def random_init(cls, seed: int = 0, cfg: DACConfig | None = None,

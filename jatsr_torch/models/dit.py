@@ -231,7 +231,8 @@ def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
     """The JAX model's einsum attention (XLA there; plain PyTorch here, no
     kernel): fp32 scores times ``1/sqrt(D)``; the softmax in fp32, or with
     ``scores_dtype="bfloat16"`` the max-shifted scores stored in bf16 and
-    ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``); the
+    ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``, the
+    block's :class:`BlockDraws`); the
     weights in q's dtype (bf16, or fp32) @ v in fp32, out in q's dtype.
     ``[B, N, Hq, D]`` and ``[B, N, Hkv, D]`` -> ``[B, N, Hq*D]``."""
     B, N, hq, D = q.shape
@@ -641,20 +642,45 @@ def _int8_impl(cfg: ModelConfig):
     return cfg.int8_impl if cfg.matmul_precision == "int8" else None
 
 
-def _block_generator(seed: int, device) -> torch.Generator:
-    """The generator of a block's dropout and drop-path masks.  It is made
-    from the block's (step, layer) seed inside the block, so the forward
-    that remat replays in backward draws the same masks."""
-    return torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
+class BlockDraws:
+    """A block's dropout and drop-path draws: a generator made from the
+    block's (step, layer) seed inside the block, so the forward that remat
+    replays in backward draws the same masks.
+
+    ``rows``: None, or ``(b0, total)`` where the block sees rows ``b0 ..``
+    of a batch of ``total`` rows (a data-parallel rank's span of its
+    micro-batch): each draw is then one over the whole batch, of which the
+    block keeps its rows, so that every rank's masks are those one process
+    draws for the whole batch."""
+
+    def __init__(self, seed: int, device, rows=None):
+        self.gen = torch.Generator(device=device).manual_seed(
+            seed & 0xFFFFFFFF)
+        self.rows = rows
+
+    @property
+    def b0(self) -> int:
+        """The first row's row in the whole batch (B10's hash offset)."""
+        return 0 if self.rows is None else self.rows[0]
+
+    def rand(self, shape, device) -> torch.Tensor:
+        """Uniforms of ``shape`` for this block's rows."""
+        if self.rows is None:
+            return torch.rand(shape, generator=self.gen, device=device)
+        b0, total = self.rows
+        u = torch.rand((total,) + tuple(shape[1:]), generator=self.gen,
+                       device=device)
+        return u[b0:b0 + shape[0]]
 
 
 def _dropout(x, rate: float, gen):
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
-    divided by ``keep_prob`` in x's dtype."""
+    divided by ``keep_prob`` in x's dtype.  ``gen``: the block's
+    :class:`BlockDraws`."""
     if rate == 0.0 or gen is None:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    keep = gen.rand(x.shape, x.device) < keep_prob
     kp = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / kp, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
@@ -666,8 +692,7 @@ def _drop_path(x, rate: np.float32, gen):
     if rate == 0.0 or gen is None:
         return x  # keep = 1, mask = 1: the identity
     keep = np.float32(1.0) - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=gen,
-                   device=x.device)
+    u = gen.rand((x.shape[0],) + (1,) * (x.ndim - 1), x.device)
     mask = torch.floor(float(keep) + u).to(x.dtype)
     return (x / torch.tensor(float(keep), dtype=x.dtype,
                              device=x.device)) * mask
@@ -705,7 +730,7 @@ class TrainAttention(nn.Module):
             out = gqa_attention_train(
                 q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D),
                 v.reshape(B, N, hkv * D), seed if cfg.dropout > 0.0 else 0,
-                hq, hkv, cfg.dropout)
+                hq, hkv, cfg.dropout, b0=gen.b0)
             return self.out_proj(out)
         return self.out_proj(einsum_attention(q, k, v, cfg.scores_dtype,
                                               rate=cfg.dropout, gen=gen))
@@ -737,13 +762,14 @@ class TrainBlock(nn.Module):
         self.dp_rate = dp_rate
 
     def forward(self, x, t_emb, cos, sin, seed=None, mod=None,
-                segments: bool = False):
+                segments: bool = False, rows=None):
         """``seed``: the block's (step, layer) seed on the training path,
         None on the deterministic one.  ``mod``: the block's hoisted AdaLN
         row ``[B or 1, 6H]``, else computed here from ``t_emb``.
         ``segments``: run the segments of ``cfg.remat_policy`` ("attn_out"
-        or "mlp") under checkpoints."""
-        gen = None if seed is None else _block_generator(seed, x.device)
+        or "mlp") under checkpoints.  ``rows``: as :class:`BlockDraws`
+        takes it."""
+        gen = None if seed is None else BlockDraws(seed, x.device, rows)
         if mod is None:
             mod = self.adaln(F.silu(t_emb))
         (shift_msa, scale_msa, gate_msa,
@@ -794,14 +820,14 @@ class _Segments:
         self.gen = gen
 
     def __call__(self, fn, *args):
-        state = None if self.gen is None else self.gen.get_state()
+        state = None if self.gen is None else self.gen.gen.get_state()
         return torch.utils.checkpoint.checkpoint(
             self._replay, fn, state, *args, use_reentrant=False,
             preserve_rng_state=False)
 
     def _replay(self, fn, state, *args):
         if state is not None:
-            self.gen.set_state(state)
+            self.gen.gen.set_state(state)
         return fn(*args, self.gen)
 
 
@@ -879,10 +905,13 @@ class DenseDiT(nn.Module):
         return self.t_mlp2(F.silu(te)).to(compute_dtype(self.cfg))
 
     def forward(self, x_t, t, x_cond, deterministic: bool = True,
-                layer_seeds=None, adaln_mod=None):
+                layer_seeds=None, adaln_mod=None, rows=None):
         """``x_t``, ``x_cond``: [B, T, C]; ``t``: [B].  The training path
         (``deterministic=False``) needs ``layer_seeds``: one int32 seed per
         block for this step, drawn on the host before the forward.
+        ``rows``: None, or ``(b0, total)``: the batch is rows ``b0 ..`` of
+        a (micro-)batch of ``total`` rows whose dropout and drop-path masks
+        are drawn whole (a data-parallel rank's span).
         ``adaln_mod``: optional hoisted tables ``[depth, B or 1, 6H]``
         (:func:`adaln_tables`), as the sampler passes them.  Returns the
         predicted clean latent [B, T, C] fp32."""
@@ -923,12 +952,12 @@ class DenseDiT(nn.Module):
             mod = None if adaln_mod is None else adaln_mod[i]
             if policy in ("full", "dots"):
                 h = torch.utils.checkpoint.checkpoint(
-                    blk, h, t_emb, cos, sin, seed, mod, use_reentrant=False,
-                    preserve_rng_state=False,
+                    blk, h, t_emb, cos, sin, seed, mod, rows=rows,
+                    use_reentrant=False, preserve_rng_state=False,
                     **({"context_fn": _dots_context} if policy == "dots"
                        else {}))
             else:
                 h = blk(h, t_emb, cos, sin, seed, mod,
-                        segments=policy in ("attn_out", "mlp"))
+                        segments=policy in ("attn_out", "mlp"), rows=rows)
         h = self.final_proj(_norm(h, cfg.norm))
         return h.reshape(B, T, C)[:, :T_orig].float()

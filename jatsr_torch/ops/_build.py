@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exposes plain C entry points and is compiled by
 ``nvcc`` into ``build/lib<name>.so``, then loaded with ``ctypes``.  No
 PyTorch headers are included, so a build takes seconds.  The first call of
 :func:`load` builds every source at once, one ``nvcc`` process per file,
-all started together.  A failed build raises; nothing falls back.
+all started together, unless ``build/`` already holds every library, each
+newer than every source and header (so the ranks and subprocesses of one
+run load the first process's build instead of racing to rebuild it).  A
+failed build raises; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches; the
 wrappers pass that code to :func:`check`, which raises on non-zero.
@@ -80,10 +83,21 @@ def build_one(name: str, out_dir) -> float:
     return _compile([CSRC / f"{name}.cu"], Path(out_dir))
 
 
+def _built(srcs) -> bool:
+    """``build/`` holds each source's library, newer than every file of
+    ``csrc/``."""
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+    libs = [BUILD / f"lib{s.stem}.so" for s in srcs]
+    return all(lib.exists() and lib.stat().st_mtime >= newest for lib in libs)
+
+
 def _build_all() -> None:
-    """Compile every ``csrc/*.cu`` in parallel into ``build/``."""
+    """Compile every ``csrc/*.cu`` in parallel into ``build/``, unless it is
+    built already (:func:`_built`)."""
     global build_seconds
-    build_seconds = _compile(sorted(CSRC.glob("*.cu")), BUILD)
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not _built(srcs):
+        build_seconds = _compile(srcs, BUILD)
 
 
 def build_log(name: str) -> str:

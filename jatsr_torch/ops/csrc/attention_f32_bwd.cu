@@ -70,6 +70,7 @@ struct F32BwdArgs {
   int np, dropout;
   uint32_t seed, thr;
   float scale2, scale, coef;  // fp32(scale * log2 e), fp32(scale), fp32(1 / (1 - rate))
+  int b0;                     // the batch's first row in the global batch (the hash's b)
 };
 
 namespace {
@@ -135,7 +136,7 @@ __device__ __forceinline__ RowInfo row_info(const F32BwdArgs& a, int b, int kvh,
   r.l = a.stats[2 * at + 1];
   r.y = reciprocal(r.l);
   r.delta = a.delta[at];
-  r.stream = stream_of(b, h, a.seed);
+  r.stream = stream_of(b + a.b0, h, a.seed);
   r.pos = n;
   return r;
 }

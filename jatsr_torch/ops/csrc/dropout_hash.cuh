@@ -4,6 +4,10 @@
 // forward, attention_f32_bwd.cu).  keep = h32(stream ^ (row * np + col))
 // <= thr, stream = h32(b * 0x9E3779B9 + h + seed * 0x85EBCA6B), all uint32
 // with wrap-around; np = round_up(N, 8), the JAX wrapper's padded lattice.
+// b is the row of the global batch: a launch's own batch index plus its
+// args' b0, the first row of the batch it holds (a data-parallel rank's
+// span), so that every rank draws the mask one launch over the whole
+// batch would draw.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -19,6 +19,11 @@ into place, so an interrupted write never stands as a checkpoint; the
 Resume is exact: the step's draws are a pure function of ``(seed, step)``
 (``train/step.py``) and the crops of ``(seed, epoch, index)``, so the
 state in the file is all the randomness there is.
+
+Several processes (a mesh): every rank calls :meth:`CheckpointManager.save`
+(the state dict gathers ZeRO-1's moments), only the primary writes the
+files, the meta and the prunes, and every rank waits at a barrier before
+:meth:`~CheckpointManager.save` returns and before a restore reads.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.distributed import barrier
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -61,7 +67,9 @@ def find_latest_run(base_dir: str) -> Optional[Path]:
 class CheckpointManager:
     """Saves and restores the checkpoints of one run directory.
 
-    ``io`` lists ``(op, name, bytes, seconds)`` for each :meth:`save` and
+    ``primary``: this process writes (rank 0 of a mesh; every other rank
+    passes False and only joins the collectives and barriers).  ``io``
+    lists ``(op, name, bytes, seconds)`` for each :meth:`save` and
     :meth:`restore` (op "save" or "restore"), the file's size and the wall
     time of the whole call.
     """
@@ -75,8 +83,12 @@ class CheckpointManager:
 
     def save(self, name: str, state: TrainState, epoch: int,
              best_val_loss: float, extra: Optional[Dict] = None):
-        if not self.primary:
-            return
+        sd = state.state_dict()  # on every rank: ZeRO-1 gathers here
+        if self.primary:
+            self._write(name, sd, state, epoch, best_val_loss, extra)
+        barrier()
+
+    def _write(self, name, sd, state, epoch, best_val_loss, extra):
         t0 = time.perf_counter()
         meta = {"epoch": int(epoch), "global_step": int(state.step),
                 "best_val_loss": float(best_val_loss), **(extra or {})}
@@ -84,8 +96,7 @@ class CheckpointManager:
         tmp = self.run_dir / f".{name}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save({"state": state.state_dict(), "meta": meta},
-                   tmp / STATE_FILE)
+        torch.save({"state": sd, "meta": meta}, tmp / STATE_FILE)
         nbytes = (tmp / STATE_FILE).stat().st_size
         old = None
         if final.exists():
@@ -112,7 +123,9 @@ class CheckpointManager:
     def restore(self, name: str, state: TrainState
                 ) -> Tuple[TrainState, Dict]:
         """Load checkpoint ``name`` into ``state`` (in place) and return it
-        with the checkpoint's meta."""
+        with the checkpoint's meta (every rank of a mesh reads it, after a
+        barrier)."""
+        barrier()
         t0 = time.perf_counter()
         blob = self.load(name, state.model.device)
         state.load_state_dict(blob["state"])

@@ -2,7 +2,8 @@
 resume.
 
 The port of the JAX package's ``train/loop.py``, on one card (or the CPU
-when asked):
+when asked), or data-parallel over the processes of a ``(D, 1)`` mesh
+(``mesh=``; one process a card under ``torchrun``):
 
 - the epoch loop, the training loader reshuffled per epoch
   (``set_epoch``);
@@ -27,9 +28,18 @@ step still reads it.  The loaders' transform holds the device and the
 stream, not the trainer, so a trainer that is dropped frees its state at
 once (no reference cycle waits for the collector).
 
-MFU is against the H100's dense bf16 peak (``utils/flops.py``).  There is
-no multi-card path: a mesh or more than one process raises
-``NotImplementedError`` (ROADMAP section A item 8).
+Under a mesh each rank loads its span of every global batch
+(``BatchLoader(shard=(rank, D))``; ``batch_size`` is the global batch and
+must divide by D), the model is drawn from the seed and broadcast from rank
+0, the step and the validation reduce over ``"data"`` (so ``best`` is
+chosen alike everywhere), and rank 0 alone names the run
+(``shared_run_name``), writes the checkpoints, ``preset.json`` and the
+TensorBoard scalars.  ``train.shard_opt_state`` splits the moments
+(ZeRO-1).  A model dim past 1 raises ``NotImplementedError`` (ROADMAP
+section A item 8(b)).
+
+MFU is against the H100's dense bf16 peak (``utils/flops.py``), a card's
+share: the step's FLOPs over the world size.
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ from ..configs import Preset
 from ..data import BatchLoader, LatentDataset, ValidationDataset, load_stats
 from ..models.dit import DenseDiT
 from ..models.from_jax import init_dense_params
+from ..parallel.distributed import (DataGroup, is_primary, shared_run_name,
+                                    world)
+from ..parallel.mesh import data_rank, data_size
 from ..utils.device import resolve_device
 from ..utils.flops import H100_BF16_PEAK_FLOPS, train_step_flops
 from ..utils.profiling import StepTimer
@@ -55,8 +68,6 @@ from .step import Normalizer, make_eval_step, make_train_step
 
 # Validation batch i draws its t and noise from seed (_VAL_SEED << 32) + i.
 _VAL_SEED = 1234
-_MULTI_CARD = ("multi-card training needs parallel/ (ROADMAP section A "
-               "item 8)")
 
 
 def _default_writer(log_dir: Path):
@@ -99,7 +110,9 @@ class Trainer:
         resume: None (a new run), ``"auto"`` (the latest run under
             ``<save_dir_base>/<preset>`` with a ``last``, else a new one)
             or a run directory.
-        mesh: must be None (no multi-card path yet).
+        mesh: None (one process), or a ``(D, 1)`` mesh
+            (``parallel.make_mesh``) over the process group: data-parallel
+            over D ranks.
         run_name: the new run's directory name (a ``MMDDHHMM`` stamp by
             default).
         writer: an object with ``add_scalar(tag, value, step)`` and
@@ -117,16 +130,19 @@ class Trainer:
                  resume: Optional[str] = None, mesh=None,
                  run_name: Optional[str] = None, writer=None,
                  native_loader: bool = False, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh: {_MULTI_CARD}")
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(f"{torch.distributed.get_world_size()} "
-                                      f"processes: {_MULTI_CARD}")
         self.preset = preset
         mcfg, tcfg, dcfg = preset.model, preset.train, preset.data
         data_dir = data_dir or dcfg.data_dir
+        D = data_size(mesh)  # raises for a model dim past 1
+        self.n_procs = world()[1]
+        self.primary = is_primary()
+        if self.n_procs > 1 and mesh is None:
+            raise ValueError("multi-process training requires a device mesh")
+        if tcfg.batch_size % D:
+            raise ValueError(f"batch_size {tcfg.batch_size} must be divisible "
+                             f"by the data-parallel axis ({D}): pass "
+                             f"--batch-size accordingly")
+        shard = (data_rank(mesh), D) if D > 1 else None
         self.device = resolve_device(device)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -137,11 +153,11 @@ class Trainer:
             LatentDataset(data_dir, "train", target,
                           dcfg.samples_per_epoch_multiplier, seed=tcfg.seed),
             tcfg.batch_size, shuffle=True, seed=tcfg.seed,
-            native=native_loader)
+            native=native_loader, shard=shard)
         self.val_loader = BatchLoader(
             ValidationDataset(data_dir, "val", target,
                               dcfg.samples_per_epoch_multiplier),
-            tcfg.batch_size, shuffle=False)
+            tcfg.batch_size, shuffle=False, shard=shard)
         if len(self.val_loader) == 0:
             raise ValueError(f"the validation split of {data_dir} gives no "
                              f"batch of {tcfg.batch_size}")
@@ -149,22 +165,31 @@ class Trainer:
             *load_stats(str(Path(data_dir) / dcfg.stats_file)),
             device=self.device)
 
-        # Model and state, drawn from the seed as flax initialises them.
+        # Model and state, drawn from the seed as flax initialises them
+        # (under a mesh, rank 0's weights broadcast: one start everywhere).
         self.model = DenseDiT(
             mcfg, init_dense_params(mcfg,
                                     torch.Generator().manual_seed(tcfg.seed)),
             device=self.device)
+        if mesh is not None and D > 1:
+            dp = DataGroup(mesh)
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    dp.broadcast_(p.data)
         sample = next(iter(BatchLoader(self.train_loader.ds, tcfg.batch_size,
                                        shuffle=False, prefetch=0)))
         self.total_steps = len(self.train_loader) * tcfg.num_epochs
         self.state = create_train_state(self.model, tcfg, self.total_steps,
-                                        sample, device=self.device)
+                                        sample, device=self.device, mesh=mesh)
         self.n_params = sum(p.numel() for p in self.state.params)
-        self._flops_per_step = train_step_flops(mcfg, tcfg.batch_size, target,
-                                                tcfg.grad_accum_steps)
+        self._flops_per_step = train_step_flops(
+            mcfg, tcfg.batch_size, target,
+            tcfg.grad_accum_steps) / self.n_procs
         self._peak_flops = H100_BF16_PEAK_FLOPS
-        self.train_step = make_train_step(preset.loss, tcfg, self.normalizer)
-        self.eval_step = make_eval_step(preset.loss, self.normalizer)
+        self.train_step = make_train_step(preset.loss, tcfg, self.normalizer,
+                                          mesh=mesh)
+        self.eval_step = make_eval_step(preset.loss, self.normalizer,
+                                        mesh=mesh)
         self._put = functools.partial(put_batch, device=self.device,
                                       stream=self._copy_stream)
         self.train_loader.transform = self.val_loader.transform = self._put
@@ -184,19 +209,24 @@ class Trainer:
             run_dir = Path(resume)
         else:
             run_dir = base / (run_name or timestamp_run_name())
-        self.ckpt = CheckpointManager(run_dir)
+        if self.n_procs > 1:
+            run_dir = Path(run_dir).parent / shared_run_name(
+                Path(run_dir).name)
+        self.ckpt = CheckpointManager(run_dir, primary=self.primary)
         if resume and self.ckpt.has("last"):
             self.state, meta = self.ckpt.restore("last", self.state)
             self.start_epoch = meta["epoch"] + 1
             self.best_val_loss = meta["best_val_loss"]
-            print(f"[trainer] resumed from {run_dir} at epoch "
-                  f"{self.start_epoch}, step {self.state.step}")
+            if self.primary:
+                print(f"[trainer] resumed from {run_dir} at epoch "
+                      f"{self.start_epoch}, step {self.state.step}")
 
-        self.writer = writer
+        self.writer = writer if self.primary else False
         if self.writer is None:
             self.writer = _default_writer(Path(tcfg.log_dir_base)
                                           / preset.name / run_dir.name)
-        (self.ckpt.run_dir / "preset.json").write_text(preset.to_json())
+        if self.primary:
+            (self.ckpt.run_dir / "preset.json").write_text(preset.to_json())
 
     # ------------------------------------------------------------------
 
@@ -217,7 +247,9 @@ class Trainer:
 
     def validate(self) -> Dict[str, float]:
         """Mean of each eval metric over the validation batches, and
-        ``loss_std`` over the batch losses; one host read at the end."""
+        ``loss_std`` over the batch losses; one host read at the end.  Under
+        a mesh each batch's metrics are the global batch's (the eval step
+        reduces them), so every rank gets the same numbers."""
         device_metrics = []
         for i, (hr, lr) in enumerate(self.val_loader):
             hr, lr = self._ready(hr, lr)
@@ -318,7 +350,7 @@ class Trainer:
                     self.ckpt.save("best", self.state, epoch,
                                    self.best_val_loss, extra)
                     self._last_best_save_epoch = epoch
-            if verbose:
+            if verbose and self.primary:
                 print(f"[epoch {epoch}] {epoch_batches} steps in "
                       f"{time.time() - t0:.1f}s | train loss "
                       f"{mean_train_loss:.5f} | val loss {val['loss']:.5f} "

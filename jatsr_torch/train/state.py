@@ -27,17 +27,29 @@ The port updates parameters and moments in place, which keeps one copy of
 each in device memory.  :meth:`TrainState.state_dict` gives the whole state
 as tensors keyed by parameter name (what a checkpoint holds), and
 :meth:`TrainState.load_state_dict` puts such a dict back bit for bit.
+
+ZeRO-1 (``create_train_state(mesh=..., shard_opt_state=True)``): each data
+rank keeps ``mu`` and ``nu`` only for its span of each moment whose leading
+dim divides by the data dim (``parallel.mesh.opt_state_plan``; the others
+whole on every rank), updates that span of the parameter from the full,
+already averaged gradient and the global clip norm, then gathers the
+updated spans from every rank.  AdamW is elementwise, so the update is bit
+for bit the one without ZeRO-1.  A state dict holds the whole moments
+(gathered on every rank; the primary writes them), and loading one keeps
+this rank's span: a checkpoint moves between meshes of any data size.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..configs import TrainConfig
+from ..parallel.distributed import DataGroup
+from ..parallel.mesh import opt_state_plan
 from ..utils.device import resolve_device
 from .schedule import warmup_cosine
 
@@ -65,12 +77,16 @@ class ClipAdamW:
                          [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
-    def step(self, params, grads, state: AdamState, groups=None) -> None:
+    def step(self, params, grads, state: AdamState, groups=None,
+             g_norm=None) -> None:
         """One update of ``params`` and ``state`` in place.  ``groups``:
         the parameters' indices by JAX leaf in the JAX tree's order
         (:func:`leaf_groups`), the terms of a bf16 clip norm; each
-        parameter its own leaf by default."""
-        g_norm = clip_norm(grads, groups)
+        parameter its own leaf by default.  ``g_norm``: the clip norm where
+        ``grads`` are spans of the gradients (ZeRO-1), else computed from
+        them."""
+        if g_norm is None:
+            g_norm = clip_norm(grads, groups)
         keep = g_norm < _weak(self.max_norm, g_norm)
         count = state.count + 1
         f32 = np.float32
@@ -145,36 +161,82 @@ def make_optimizer(cfg: TrainConfig, total_steps: int) -> ClipAdamW:
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the trained state), the optimizer and
-    its moments, the step count and the seed the per-step draws come from."""
+    its moments, the step count and the seed the per-step draws come from.
+    ``dp`` and ``split``: ZeRO-1's data group and, for each parameter,
+    whether this rank holds only its span of the moments (None: whole
+    moments)."""
 
     step: int
     model: torch.nn.Module
     opt_state: AdamState
     seed: int
     tx: ClipAdamW
+    dp: Optional[DataGroup] = None
+    split: Optional[List[bool]] = None
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
         return list(self.model.parameters())
 
+    def span(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Parameter ``i``'s ``t`` as this rank's moments cover it: its span
+        of the leading dim under ZeRO-1 where the leaf splits, else whole
+        (a view)."""
+        if self.split is None or not self.split[i]:
+            return t
+        return t.chunk(self.dp.size, 0)[self.dp.rank]
+
     def apply_gradients(self, grads) -> "TrainState":
-        """Clip, AdamW, in place; the step count advances."""
+        """Clip, AdamW, in place; the step count advances.  Under ZeRO-1
+        each rank updates its spans, then the spans are gathered."""
         names = [k for k, _ in self.model.named_parameters()]
-        self.tx.step(self.params, grads, self.opt_state, leaf_groups(names))
+        groups = leaf_groups(names)
+        params = self.params
+        if self.split is None:
+            self.tx.step(params, grads, self.opt_state, groups)
+        else:
+            g_norm = clip_norm(grads, groups)
+            self.tx.step([self.span(p.data, i) for i, p in enumerate(params)],
+                         [self.span(g, i) for i, g in enumerate(grads)],
+                         self.opt_state, g_norm=g_norm)
+            with torch.no_grad():
+                for i, p in enumerate(params):
+                    if self.split[i]:
+                        self._gather(p.data, self.span(p.data, i).clone())
         self.step += 1
         return self
+
+    def _gather(self, full: torch.Tensor, mine: torch.Tensor) -> None:
+        """Every rank's span of ``full`` into it, from this rank's
+        ``mine``."""
+        self.dp.gather(mine, list(full.chunk(self.dp.size, 0)))
+
+    def _whole(self, moments: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The moments whole: under ZeRO-1 the split ones gathered."""
+        if self.split is None:
+            return list(moments)
+        out = []
+        for p, m, s in zip(self.params, moments, self.split):
+            if s:
+                full = torch.empty(p.shape, dtype=m.dtype, device=m.device)
+                self._gather(full, m)
+                m = full
+            out.append(m)
+        return out
 
     def state_dict(self) -> Dict:
         """``{"step", "seed", "params": {name: tensor}, "opt": {"count",
         "mu": {name: tensor}, "nu": {name: tensor}}}``: the tensors are the
-        state's own (detached, not copied)."""
+        state's own (detached, not copied), but for the moments ZeRO-1
+        splits, which are gathered (every rank must call this)."""
         names = [k for k, _ in self.model.named_parameters()]
         return {"step": int(self.step), "seed": int(self.seed),
                 "params": {k: p.detach() for k, p in
                            self.model.named_parameters()},
                 "opt": {"count": int(self.opt_state.count),
-                        "mu": dict(zip(names, self.opt_state.mu)),
-                        "nu": dict(zip(names, self.opt_state.nu))}}
+                        "mu": dict(zip(names, self._whole(self.opt_state.mu))),
+                        "nu": dict(zip(names,
+                                       self._whole(self.opt_state.nu)))}}
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict) -> "TrainState":
@@ -190,9 +252,10 @@ class TrainState:
                                f"{sorted(missing)[:4]}, unexpected "
                                f"{sorted(extra)[:4]}")
         pairs = [(dst, src, k) for i, (k, p) in enumerate(named.items())
-                 for dst, src in ((p, sd["params"][k]),
-                                  (self.opt_state.mu[i], opt["mu"][k]),
-                                  (self.opt_state.nu[i], opt["nu"][k]))]
+                 for dst, src in (
+                     (p, sd["params"][k]),
+                     (self.opt_state.mu[i], self.span(opt["mu"][k], i)),
+                     (self.opt_state.nu[i], self.span(opt["nu"][k], i)))]
         for dst, src, k in pairs:
             if src.shape != dst.shape or src.dtype != dst.dtype:
                 raise ValueError(f"{k}: {tuple(src.shape)} {src.dtype} cannot "
@@ -207,12 +270,15 @@ class TrainState:
 
 def create_train_state(model, cfg: TrainConfig, total_steps: int,
                        sample_batch, seed: int = None,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh=None,
+                       shard_opt_state: bool = None) -> TrainState:
     """The train state of a trainable DiT (``models.dit.DenseDiT``, whose
     parameters are initialised at construction) on ``device``.
 
     ``sample_batch`` is an (hr, lr) pair ``[B, T, C]``: its channel count
-    is checked against the model.
+    is checked against the model.  ``mesh`` with ``shard_opt_state``
+    (``cfg.shard_opt_state`` by default) splits the moments over the data
+    dim (ZeRO-1); without a mesh it does nothing.
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -223,5 +289,14 @@ def create_train_state(model, cfg: TrainConfig, total_steps: int,
             raise ValueError(f"sample batch has {x.shape[-1]} channels, the "
                              f"model takes {C}")
     tx = make_optimizer(cfg, total_steps)
-    return TrainState(step=0, model=model, opt_state=tx.init(list(model.parameters())),
-                      seed=cfg.seed if seed is None else seed, tx=tx)
+    state = TrainState(step=0, model=model, opt_state=None,
+                       seed=cfg.seed if seed is None else seed, tx=tx)
+    if shard_opt_state is None:
+        shard_opt_state = cfg.shard_opt_state
+    if mesh is not None and shard_opt_state:
+        state.dp = DataGroup(mesh)
+        state.split = opt_state_plan([p.shape for p in state.params],
+                                     state.dp.size)
+    state.opt_state = tx.init([state.span(p.detach(), i)
+                               for i, p in enumerate(state.params)])
+    return state

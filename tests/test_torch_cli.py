@@ -101,10 +101,12 @@ def test_cli_latent_in(files, capsys):
 
 
 @pytest.mark.parametrize("entry,flag", [
-    ("infer", ["--mesh", "2", "1"]), ("train", ["--mesh", "2", "1"]),
-    ("train", ["--distributed"])])
+    ("infer", ["--mesh", "1", "2"]), ("train", ["--mesh", "1", "2"]),
+    ("train", ["--distributed", "--mesh", "2", "2"])])
 def test_cli_flags_of_later_slices_raise(files, entry, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP section A item 8"):
+    """A model axis past 1 (tensor parallelism) is the next slice's."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP section A item 8\(b\)"):
         if entry == "infer":
             cli.main(_args(files, "song.wav", "out_x", *flag))
         else:
@@ -284,6 +286,65 @@ def test_cli_infer_serves_a_run(run, capsys):
     got8, _ = load_wav(d / "out_run8" / "song.lr_generated_cfg2.0.wav")
     assert got8.shape == got.shape and np.isfinite(got8).all()
     assert not np.array_equal(got8, got)
+
+
+def test_cli_train_on_a_mesh_of_one_under_torchrun(run):
+    """``torchrun --standalone --nproc_per_node 1`` of ``cli.train
+    --distributed --mesh 1 1 --shard-opt-state`` on the CPU (gloo, a world
+    of one) writes the run the plain CLI writes (both started together on
+    the fixture's data): its ``last`` checkpoint bit-equal, parameters and
+    whole moments, and its meta."""
+    from jatsr_torch.train import CheckpointManager
+
+    d = run.parents[2]
+    args = ["-m", "jatsr_torch.cli.train", "--preset", "tiny", "--platform",
+            "cpu", "--data-dir", str(d / "data"), "--max-steps", "2",
+            "--native-loader"]
+    procs = [subprocess.Popen(
+        [sys.executable, *pre, *args, "--run-name", name, *extra],
+        cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+        for pre, name, extra in (
+            ((), "01020306", ()),
+            (("-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", "1"), "01020305",
+             ("--distributed", "--mesh", "1", "1", "--shard-opt-state")))]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stderr[-3000:]
+        assert "[train] done" in stdout
+    assert "mesh=[1, 1]" in outs[1][0]
+    want = CheckpointManager(run.parent / "01020306").load("last")
+    got = CheckpointManager(run.parent / "01020305").load("last")
+    assert got["meta"] == want["meta"]
+    for k, v in want["state"]["params"].items():
+        assert torch.equal(got["state"]["params"][k], v), k
+    for m in ("mu", "nu"):
+        for k, v in want["state"]["opt"][m].items():
+            assert torch.equal(got["state"]["opt"][m][k], v), (m, k)
+
+
+def test_cli_infer_on_a_mesh_of_one_equals_the_plain_cli(run):
+    """``cli.infer --mesh 1 1`` (no launcher: a world of one) writes the
+    plain CLI's wav, bit for bit."""
+    import torch.distributed as dist
+
+    d = run.parents[2]
+    args = ["--run-dir", str(run), "--stats", str(d / "stats.json"),
+            "--dac-weights", str(d / "dac.pth"), "--input",
+            str(d / "song.lr.npy"), "--steps", "2", "--cfg-scale", "2.0",
+            "--platform", "cpu"]
+    cli.main([*args, "--output-dir", str(d / "out_plain")])
+    try:
+        cli.main([*args, "--output-dir", str(d / "out_mesh"), "--mesh", "1",
+                  "1"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    name = "song.lr_generated_cfg2.0.wav"
+    got, _ = load_wav(d / "out_mesh" / name)
+    want, _ = load_wav(d / "out_plain" / name)
+    np.testing.assert_array_equal(got, want)
 
 
 # ---- data in, quality out --------------------------------------------------

@@ -2370,3 +2370,43 @@ def test_attention_train_fp32_backward_is_deterministic(card, D):
     b = at.attention_train_bwd(q, k, v, o, do, 5, 20, 4, 0.1, stats)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_train_kernels_with_a_batch_offset(card, dtype, D):
+    """B10 at a batch offset ``b0 = 3`` (the rows a data-parallel rank holds
+    from the fourth on): forward and backward against their plain versions
+    at that offset (the bounds above), and bit-equal to the same rows of a
+    launch over the whole batch (a CTA reads only its own (batch, head), so
+    the offset is the only change); at ``b0 = 0`` a launch differs from it
+    (the hash takes the offset)."""
+    B, N, hq, hkv, rate, seed, b0 = 6, 345, 20, 4, 0.1, -123456789, 3
+    q, k, v, do = (_attn_train_inputs(card, B, N, hq, hkv, 51, D)
+                   if dtype == "bfloat16"
+                   else _f32_train_inputs(card, B, N, hq, hkv, D, 51))
+    sl = slice(b0, B)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    full = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    qs, ks, vs, dos = (t[sl].contiguous() for t in (q, k, v, do))
+    o3, stats3 = at.attention_train_fwd(qs, ks, vs, seed, hq, hkv, rate,
+                                        b0=b0)
+    part = at.attention_train_bwd(qs, ks, vs, o3, dos, seed, hq, hkv, rate,
+                                  stats3, b0=b0)
+    assert torch.equal(o3, o[sl]) and torch.equal(stats3, stats[sl])
+    for a, f in zip(part, full):
+        assert torch.equal(a, f[sl])
+    want = at.attention_train_fwd_plain(qs, ks, vs, seed, hq, hkv, rate,
+                                        b0=b0)
+    ref = at.attention_train_bwd_plain(qs, ks, vs, o3, dos, seed, hq, hkv,
+                                       rate, b0=b0)
+    if dtype == "bfloat16":
+        torch.testing.assert_close(o3.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        _assert_grads(part, ref, qs, ks, vs, dos, hq, hkv, rate)
+    else:
+        err = (o3 - want).abs().max().item()
+        assert err <= REL_F32_TRAIN * want.abs().max().item(), err
+        _assert_f32_grads(part, ref, qs, ks, vs, dos, hq, hkv, rate)
+    o0, _ = at.attention_train_fwd(qs, ks, vs, seed, hq, hkv, rate)
+    assert not torch.equal(o0, o3)

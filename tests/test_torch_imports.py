@@ -65,6 +65,13 @@ def test_data_and_quality_modules_are_among_those_imported():
         _port_modules())
 
 
+def test_parallel_modules_are_among_those_imported():
+    """Data-parallel training and serving: the mesh and the process
+    group."""
+    assert {"jatsr_torch.parallel", "jatsr_torch.parallel.mesh",
+            "jatsr_torch.parallel.distributed"} <= set(_port_modules())
+
+
 def test_port_sources_never_name_the_jax_package():
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
@@ -102,6 +109,7 @@ def _entry_points():
     from jatsr_torch.models.dit import DiT
     from jatsr_torch.sampling import FlowSampler
     from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.parallel import make_mesh
     from jatsr_torch.train import create_train_state
     from jatsr_torch.train.step import Normalizer
     from jatsr_torch.cli import prepare_dataset as prepare_cli
@@ -131,6 +139,7 @@ def _entry_points():
                                              "--data-dir", "absent"]),
         "prepare_dataset CLI": lambda: prepare_cli.main(
             ["--source-dirs", "absent", "--output-dir", "absent"]),
+        "make_mesh": lambda: make_mesh(1, 1),
     }
 
 
@@ -145,7 +154,8 @@ def _tiny_train_cfg():
                                   "Normalizer", "FlowSampler",
                                   "InferencePipeline", "DenseDiT",
                                   "create_train_state", "Trainer",
-                                  "train CLI", "prepare_dataset CLI"])
+                                  "train CLI", "prepare_dataset CLI",
+                                  "make_mesh"])
 def test_entry_points_refuse_to_run_on_cpu_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
