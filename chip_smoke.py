@@ -240,6 +240,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -344,7 +345,10 @@ KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                **{f"{k}_snake_bf16": "int8_qk" for k in (
                    "snake_conv_transpose_streamed",
                    "snake_conv_transpose_fused", "res_stage_fused",
-                   "res_unit_fused")}}
+                   "res_unit_fused")},
+               **{f"{k}_split": "tp" for k in (
+                   "matmul_fused", "norm_mod_dense_gelu_quant",
+                   "dense_gelu_quant")}}
 # Counted launches that are no kernel line of their own: w8a8_dot's row
 # quant (XLA's in the JAX package) and B2's int8_qk codes launch (part of
 # B2's option, timed on its line as codes_ms): checked on each path.
@@ -465,13 +469,15 @@ def nbytes_of(*tensors) -> int:
 def timings(kernel, plain, library, args, big, reps=100, plain_reps=20):
     """Kernel, plain and library ms at ``args``; the inputs at positions
     ``big`` are copied so that the kernel's and the library's calls rotate
-    past L2."""
+    past L2.  ``library`` None: no one PyTorch call computes the function
+    (``library_ms`` None)."""
     n = rotations(sum(args[i].nbytes for i in big))
     sets = [tuple(a.clone() if i in big else a for i, a in enumerate(args))
             for _ in range(n)]
     return {"ms": time_ms(kernel, sets, reps),
             "plain_ms": time_ms(plain, sets[:4], plain_reps),
-            "library_ms": time_ms(library, sets, max(2, reps // 2))}
+            "library_ms": None if library is None else
+            time_ms(library, sets, max(2, reps // 2))}
 
 
 def sdpa_inputs(torch, qkv, cos, sin, hq, hkv):
@@ -1175,6 +1181,139 @@ def check_matmul_fused(torch):
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             **t, "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, H],
             "fp32": check_b4_fp32(torch, a, w_q, w_s, w_t)}
+
+
+# ---- the split entries of tensor parallelism (ops/split.py) ---------------
+# Each at a rank's shapes on a (1, 2) mesh of v3 (mlp_in's 2560 columns,
+# out_proj's 640 input columns and kernel rows), in one process (no
+# collective): bit-equal to the whole-width kernel on the same columns (the
+# rank's own row maxima are then the whole row's) and to, or within the
+# whole kernel's bound of, the plain version; timed beside the whole
+# kernel on the same columns; no one PyTorch call computes a rank's share
+# (library_ms None).  [tp shared card] joins two ranks' shares.
+TP_M = 2
+
+
+def check_split_kernels(torch, norm, checks):
+    """The three split entries' kernel lines (see the comment above)."""
+    from jatsr_torch.ops import split as sp
+    from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
+                                             int8_dense_gelu_quant,
+                                             int8_matmul_fused,
+                                             matmul_fused_plain)
+    from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                          norm_mod_dense_gelu_quant_plain)
+
+    out = {}
+    # B1: [6, 352, 1280] x [1280, 5120 / M], the shared AdaLN row.
+    N = 5120 // TP_M
+    x, _, (sc, sh), w_q, w_s, b = prologue_inputs(torch, N, SEED + 2)
+    w_t = w_q.t().contiguous()
+    got = sp.int8_norm_mod_dense_gelu_quant_split(x, sc, sh, w_q, w_s, b,
+                                                  None, norm=norm, w_t=w_t)
+    whole = int8_norm_mod_dense_gelu_quant(x, sc, sh, w_q, w_s, b, norm=norm,
+                                           w_t=w_t)
+    want = sp.int8_norm_mod_dense_gelu_quant_split(
+        x.cpu(), sc.cpu(), sh.cpu(), w_q.cpu(), w_s.cpu(), b.cpu(), None,
+        norm=norm)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])):
+        raise AssertionError("norm_mod_dense_gelu_quant_split: not the whole "
+                             "kernel's bits on its columns")
+    err, frac = assert_codes("norm_mod_dense_gelu_quant_split",
+                             got[0].cpu(), got[1].cpu(), *want,
+                             scale_rtol=2e-3)
+    args = (x, sc, sh, w_q, w_s, b, w_t)
+    t = timings(
+        lambda *a: sp.int8_norm_mod_dense_gelu_quant_split(
+            *a[:6], None, norm=norm, w_t=a[6]),
+        lambda *a: norm_mod_dense_gelu_quant_plain(*a[:6], norm=norm), None,
+        args, big=(0, 3, 6))
+    whole_ms = time_ms(lambda *a: int8_norm_mod_dense_gelu_quant(
+        *a[:6], norm=norm, w_t=a[6]), [args], 100)
+    b_ms, b_by = bound(nbytes_of(x, sc, sh, w_q, w_s, b) + B * NP * (N + 4),
+                       2 * B * NP * H * N, PEAK_INT8)
+    line = checks["norm_mod_dense_gelu_quant"]
+    out["norm_mod_dense_gelu_quant_split"] = {
+        "name": "norm_mod_dense_gelu_quant_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/norm_mod.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's columns",
+        "max_abs_err": err, "code_mismatch_frac": frac, **t,
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [B, NP, H, N],
+        "whole_same_columns_ms": whole_ms, "whole_full_width_ms": line["ms"]}
+
+    # B5: mlp_in without the prologue, [2070, 1280] x [1280, 5120 / M].
+    M = B * N_VALID
+    a, w_q, w_s, b = dense_inputs(torch, M, H, N, SEED + 21)
+    w_t = w_q.t().contiguous()
+    got = sp.int8_dense_gelu_quant_split(a, w_q, w_s, b, None, w_t=w_t)
+    whole = int8_dense_gelu_quant(a, w_q, w_s, b, w_t=w_t)
+    want = sp.int8_dense_gelu_quant_split(a.cpu(), w_q.cpu(), w_s.cpu(),
+                                          b.cpu(), None)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])):
+        raise AssertionError("dense_gelu_quant_split: not the whole kernel's "
+                             "bits on its columns")
+    err, frac = assert_codes("dense_gelu_quant_split", got[0].cpu(),
+                             got[1].cpu(), *want)
+    args = (a, w_q, w_s, b, w_t)
+    t = timings(
+        lambda *x: sp.int8_dense_gelu_quant_split(*x[:4], None, w_t=x[4]),
+        lambda *x: dense_gelu_quant_plain(*x[:4]), None, args,
+        big=(0, 1, 4))
+    whole_ms = time_ms(lambda *x: int8_dense_gelu_quant(*x[:4], w_t=x[4]),
+                       [args], 100)
+    b_ms, b_by = bound(nbytes_of(a, w_q, w_s, b) + M * (N + 4),
+                       2 * M * H * N, PEAK_INT8)
+    line = checks["dense_gelu_quant"]
+    out["dense_gelu_quant_split"] = {
+        "name": "dense_gelu_quant_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/dense_gelu_quant.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's columns of mlp_in",
+        "max_abs_err": err, "code_mismatch_frac": frac, **t,
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [M, H, N],
+        "whole_same_columns_ms": whole_ms,
+        "whole_full_width_ms": line["mlp_in_no_prologue"]["ms"]}
+
+    # B4: out_proj, [2112, 1280 / M] x [1280 / M, 1280], with an all-zero
+    # row and a row whose one large value sets its scale.
+    M, K = B * NP, H // TP_M
+    a, w_q, w_s, _ = dense_inputs(torch, M, K, H, SEED + 23)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    w_t = w_q.t().contiguous()
+    got = sp.int8_matmul_fused_split(a, w_q, w_s, None, w_t=w_t)
+    whole = int8_matmul_fused(a, w_q, w_s, w_t=w_t)
+    want = sp.int8_matmul_fused_split(a.cpu(), w_q.cpu(), w_s.cpu(), None)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, whole) and torch.equal(got.cpu(), want)):
+        raise AssertionError("matmul_fused_split: not bit-equal to the whole "
+                             "kernel and its plain version")
+    args = (a, w_q, w_s, w_t)
+    t = timings(
+        lambda a, w_q, w_s, w_t: sp.int8_matmul_fused_split(a, w_q, w_s, None,
+                                                            w_t=w_t),
+        lambda a, w_q, w_s, w_t: matmul_fused_plain(a, w_q, w_s),
+        None, args, big=(0, 1, 3))
+    whole_ms = time_ms(lambda a, w_q, w_s, w_t: int8_matmul_fused(
+        a, w_q, w_s, w_t=w_t), [args], 100)
+    # The function's bytes: a, the kernel's rows and the output.  This
+    # design also writes and reads the int32 partial products the
+    # collective adds: its own floor (``design_bound_ms``) counts them.
+    b_ms, b_by = bound(nbytes_of(a, w_q, w_s, got), 2 * M * K * H,
+                       PEAK_INT8)
+    d_ms, d_by = bound(nbytes_of(a, w_q, w_s, got) + 2 * M * H * 4,
+                       2 * M * K * H, PEAK_INT8)
+    line = checks["matmul_fused"]
+    out["matmul_fused_split"] = {
+        "name": "matmul_fused_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/w8a8_fused.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's rows",
+        "max_abs_err": 0.0, **t, "bound_ms": b_ms, "bound_by": b_by,
+        "design_bound_ms": d_ms, "design_bound_by": d_by,
+        "shape": [M, K, H], "whole_same_columns_ms": whole_ms,
+        "whole_full_width_ms": line["ms"]}
+    return out
 
 
 # ---- the fp32 modes (the fp32 path: bench.py's default DiT at
@@ -3017,10 +3156,16 @@ def train_batch(torch, cfg):
 
 # The training paths: v3mod2 as its preset trains it (bf16 compute, fp32
 # parameters), at the fp32 compute dtype (the JAX import tool's model,
-# fine-tuned: B10's fp32 mode) and with bf16 parameters (bf16 gradients and
-# second moment; B10's bf16 mode).
+# fine-tuned: B10's fp32 mode), with bf16 parameters (bf16 gradients and
+# second moment; B10's bf16 mode) and under dynamic int8
+# (matmul_precision="int8", int8_impl="fused": B4 at every projection but
+# the t-MLP and AdaLN, replayed under remat "full"; the backward's int32
+# products are torch._int_mm, as JAX leaves them to XLA).
 TRAIN_PATHS = {"train": {}, "train_fp32": {"dtype": "float32"},
-               "train_bf16_params": {"param_dtype": "bfloat16"}}
+               "train_bf16_params": {"param_dtype": "bfloat16"},
+               "train_int8": {"matmul_precision": "int8",
+                              "int8_impl": "fused"}}
+TRAIN_REF_DEPTH = 8   # blocks of the card-vs-CPU steps (the CPU's share)
 
 
 def train_counters():
@@ -3071,7 +3216,9 @@ def train_phase(torch, dense, profile, tag="train", timed=TRAIN_TIMED):
         f"steps, lr {tcfg.lr}; parameters and moments {held:.2f} GiB (with "
         f"the gradients {held + sum(p.nbytes for p in state.params) / gib:.2f}"
         f" GiB)")
-    counters = train_counters()
+    from jatsr_torch.ops.int8_matmul import int8_matmul_fused
+
+    counters = {**train_counters(), "matmul_fused": int8_matmul_fused}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3080,10 +3227,14 @@ def train_phase(torch, dense, profile, tag="train", timed=TRAIN_TIMED):
     first = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     f32 = cfg.dtype == "float32"
+    int8 = cfg.matmul_precision == "int8"
+    # Under int8 B4 runs each product of the forward (the patch embed's
+    # two, six a block) and the block's six again in remat's replay.
     expected = {"attention_train_fwd": 2 * cfg.depth,
                 "attention_train_bwd": cfg.depth,
                 "attention_train_fwd_fp32": 2 * cfg.depth if f32 else 0,
-                "attention_train_bwd_fp32": cfg.depth if f32 else 0}
+                "attention_train_bwd_fp32": cfg.depth if f32 else 0,
+                "matmul_fused": 2 + 12 * cfg.depth if int8 else 0}
     log(f"[{tag}] counted step {first * 1e3:.1f} ms, launches {launches} "
         f"(launches count both modes), expected {expected}")
     if launches != expected:
@@ -3164,21 +3315,147 @@ def check_loss_stack(torch, loss_cfg):
 # its value (2^-7 |p|; at lr 5e-5 an ulp of a weight near 0.02 is 2.4 lr);
 # on average the straddles cost what the fp32 difference of the updates
 # does (the chance of a straddle is |du| lr / ulp, its cost one ulp), so
-# the 2 % mean bound stands.
+# the 2 % mean bound stands.  Dynamic int8 (``"count"``): the bf16 bounds
+# on the loss, the grad norm and the parameters, but a product's
+# cotangents land on maxima: the activation's on its row maximum, the
+# weight's on its column maximum.  So where the card's forward and the
+# CPU's (equal to within bf16 rounding) take a row's maximum at another
+# element of a near tie, that row's cotangent moves whole to another
+# column upstream (the GELU output's maximum decides which column of
+# mlp_in gets a row's gradient, the attention output's which column of v;
+# through the attention's backward q and k see it in every column).  The
+# moments are held instead by: the int8 kernels' moments nonzero only on
+# the kernel's column maxima (on both sides); each leaf's moments past 3e-2
+# x max at most twice the rows whose maxima moved (``RowMaxima``: each
+# moved row changes a column it left and one it took); each leaf's
+# relative L2 difference at most 0.5 (measured on an NVIDIA H100 80GB HBM3
+# at a 700 W limit: 0.238 at most, block 7's k_proj, with 1349 moved rows
+# over 34 product inputs and 130 elements past the bound at most; a
+# cotangent whose sign is wrong reads 2, one off by half 0.5).
+# ``check_int8_cotangents`` holds the product's cotangents on the card
+# against the CPU's on identical inputs, where nothing moves: the same
+# positions, within one bf16 ulp.  The parameters' worst leaf mean is the
+# bf16 bound (0.02 lr;
+# measured 0.01976, blocks.7.adaln.bias, whose modulation columns get the
+# small cotangents of the row maxima, so more elements step on a gradient
+# near 0 whose sign the two sides round apart).
 TRAIN_REF_BOUNDS = {
     "train": dict(loss=1e-2, grad_norm=2e-2, mu=3e-2, p_max=2.02,
                   p_mean=0.02, ulp=False),
     "train_fp32": dict(loss=1e-5, grad_norm=1e-5, mu=1e-4, p_max=0.5,
                        p_mean=1e-3, ulp=False),
     "train_bf16_params": dict(loss=1e-2, grad_norm=2e-2, mu=3e-2,
-                              p_max=2.02, p_mean=0.02, ulp=True)}
+                              p_max=2.02, p_mean=0.02, ulp=True),
+    "train_int8": dict(loss=1e-2, grad_norm=2e-2, mu=3e-2, count=True,
+                       mu_l2=0.5, p_max=2.02, p_mean=0.02, ulp=False)}
+# The dynamic int8 kernels of DenseDiT (every projection but the t-MLP,
+# the AdaLN and final_proj): their gradients lie on column maxima alone.
+INT8_KERNEL = re.compile(
+    r"^(patch_in|patch_out|blocks\.\d+\.(attn\.(q|k|v|out)_proj|mlp_in|"
+    r"mlp_out))"
+    r"\.kernel$")
+
+
+class RowMaxima:
+    """Records, for each distinct ``int8_dot_general`` input of a step (the
+    replays of remat compute the same values, and q, k and v share one,
+    so each is kept once), the flat positions of every row's maxima of |x|
+    (ties kept), on the host."""
+
+    def __init__(self):
+        from jatsr_torch.models import dit
+
+        self.dit, self.real, self.calls, self.seen = (
+            dit, dit.int8_dot_general, [], set())
+
+    def __enter__(self):
+        def record(x, kernel, impl="xla"):
+            a = x.detach().abs().reshape(-1, x.shape[-1])
+            hit = (a == a.amax(dim=-1, keepdim=True)).flatten()
+            pos = hit.nonzero().flatten().cpu()
+            key = (a.shape, pos.numel(), int(pos.sum()), float(a.sum()))
+            if key not in self.seen:
+                self.seen.add(key)
+                self.calls.append((a.shape[1], pos))
+            return self.real(x, kernel, impl)
+
+        self.dit.int8_dot_general = record
+        return self
+
+    def __exit__(self, *exc):
+        self.dit.int8_dot_general = self.real
+
+
+def moved_rows(torch, calls_a, calls_b):
+    """The rows, over the calls of two runs of one step, whose set of
+    maxima differs."""
+    if len(calls_a) != len(calls_b):
+        raise AssertionError(f"int8 products: {len(calls_a)} vs "
+                             f"{len(calls_b)} calls")
+    n = 0
+    for (K, a), (_, b) in zip(calls_a, calls_b):
+        pos, count = torch.cat([a, b]).unique(return_counts=True)
+        n += (pos[count == 1] // K).unique().numel()
+    return n
+
+
+def check_int8_cotangents(torch):
+    """``int8_dot_general(impl="fused")`` forward and backward on the card
+    against the CPU on identical inputs at a projection of v3mod2 (x
+    [4096, 1280] bf16, a kernel [1280, 1280] bf16 whose column 7 holds a
+    tied maximum, an all-zero row of x): the forward bit-equal, the
+    cotangents of x and of the kernel nonzero at the same positions, and
+    within one bf16 ulp of their largest (2^-8 x max: the fp32 sums run in
+    another order, then round to bf16)."""
+    from jatsr_torch.ops.quant import int8_dot_general
+
+    gen = torch.Generator().manual_seed(SEED + 42)
+    x = torch.randn(4096, 1280, generator=gen).bfloat16()
+    x[3] = 0.0
+    w = (0.02 * torch.randn(1280, 1280, generator=gen)).bfloat16()
+    w[5, 7], w[9, 7] = 0.1, -0.1
+    g = torch.randn(4096, 1280, generator=gen).bfloat16()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, copy=True).requires_grad_()
+        wd = w.to(dev, copy=True).requires_grad_()
+        y = int8_dot_general(xd, wd, "fused")
+        y.backward(g.to(dev))
+        out[dev] = [t.cpu() for t in (y.detach(), xd.grad, wd.grad)]
+    (yc, xc, wc), (yg, xg, wg) = out["cpu"], out["cuda"]
+    errs = {}
+    for name, a, b in (("x", xg, xc), ("kernel", wg, wc)):
+        same = torch.equal(a != 0, b != 0)
+        err = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        errs[name] = (same, err, int((b != 0).sum()))
+        if not same or err > 2.0 ** -8:
+            raise AssertionError(f"int8_dot_general's cotangent of {name}: "
+                                 f"same positions {same}, {err} x max")
+    if not torch.equal(yg, yc) or wc[5, 7] != -wc[9, 7] or xc[3].any():
+        raise AssertionError("int8_dot_general: the forward, the tie or the "
+                             "zero row")
+    log(f"[train_int8 reference] int8_dot_general on identical inputs, card "
+        f"vs CPU: forward bit-equal; cotangents (same positions, max abs x "
+        f"max, nonzero): {errs}")
+
+
+def shallow(dense, depth):
+    """The dense tree of the first ``depth`` blocks (views)."""
+    return {**dense, "blocks": _cut_blocks(dense["blocks"], depth)}
+
+
+def _cut_blocks(tree, depth):
+    return {k: _cut_blocks(v, depth) if isinstance(v, dict) else v[:depth]
+            for k, v in tree.items()}
 
 
 def check_train_reference(torch, dense, tag="train"):
-    """One train step of v3mod2 at full width and depth on path ``tag`` of
-    ``TRAIN_PATHS``, dropout and drop-path 0, on the card against the CPU
-    (plain versions) on the same weights, batch [4, 1378, 1024] and draws
-    (~20 s of 8 CPU cores), within ``TRAIN_REF_BOUNDS[tag]``.
+    """One train step of v3mod2 at full width and ``TRAIN_REF_DEPTH``
+    blocks on path ``tag`` of ``TRAIN_PATHS``, dropout and drop-path 0, on
+    the card against the CPU (plain versions) on the same weights (the
+    first blocks), batch [4, 1378, 1024] and draws (a few s of 8 CPU
+    cores), within ``TRAIN_REF_BOUNDS[tag]``.
 
     The loss is the reconstruction (MSE) alone: the perceptual stack's
     log-magnitude gradient is 1 / |rfft(pred)| at each bin, so at random
@@ -3196,12 +3473,15 @@ def check_train_reference(torch, dense, tag="train"):
 
     preset = get_preset("v3mod2")
     cfg = dataclasses.replace(preset.model, dropout=0.0, drop_path_rate=0.0,
-                              **TRAIN_PATHS[tag])
+                              depth=TRAIN_REF_DEPTH, **TRAIN_PATHS[tag])
+    dense = shallow(dense, TRAIN_REF_DEPTH)
     tcfg = dataclasses.replace(preset.train, warmup_steps=0)
     loss_cfg = dataclasses.replace(preset.loss, use_latent_perceptual=False)
     bounds = TRAIN_REF_BOUNDS[tag]
     if tag == "train":
         check_loss_stack(torch, preset.loss)
+    if bounds.get("count"):
+        check_int8_cotangents(torch)
     hr, lr, stats = train_batch(torch, cfg)
     hr, lr = hr[:REF_B].cpu(), lr[:REF_B].cpu()
     rng = np.random.default_rng(SEED + 10)
@@ -3212,7 +3492,7 @@ def check_train_reference(torch, dense, tag="train"):
              "layer_seeds": [int(s) for s in rng.integers(-2**31, 2**31,
                                                           cfg.depth)]}
     f32 = cfg.dtype == "float32"
-    out = {}
+    out, maxima = {}, {}
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
         state = create_train_state(DenseDiT(cfg, dense, device=dev), tcfg,
@@ -3222,7 +3502,9 @@ def check_train_reference(torch, dense, tag="train"):
         step = make_train_step(loss_cfg, tcfg, Normalizer(*stats, device=dev))
         n0 = (at.attention_train_fwd.launches,
               at.attention_train_fwd.f32_launches)
-        state, m = step(state, hr, lr, draws=draws)
+        with RowMaxima() as rec:
+            state, m = step(state, hr, lr, draws=draws)
+        maxima[dev] = rec.calls
         if dev == "cuda":
             torch.cuda.synchronize()
         n = (at.attention_train_fwd.launches - n0[0],
@@ -3237,38 +3519,72 @@ def check_train_reference(torch, dense, tag="train"):
                     [mu.float().cpu() for mu in state.opt_state.mu],
                     sorted({f"{p.dtype}/{mu.dtype}/{nu.dtype}" for p, mu, nu
                             in zip(state.params, state.opt_state.mu,
-                                   state.opt_state.nu)}))
-        log(f"[{tag} reference] {dev} step {time.perf_counter() - t0:.1f} s:"
+                                   state.opt_state.nu)}),
+                    [k for k, _ in state.model.named_parameters()])
+        log(f"[{tag} reference] {dev} step ({cfg.depth} blocks) "
+            f"{time.perf_counter() - t0:.1f} s:"
             f" loss {out[dev][0]['loss']:.6f}, grad_norm "
             f"{out[dev][0]['grad_norm']:.6f}, parameter/mu/nu dtypes "
             f"{out[dev][3]}")
         del state, step
-    (mc, pc, uc, dc), (mg, pg, ug, dg) = out["cpu"], out["cuda"]
+    (mc, pc, uc, dc, names), (mg, pg, ug, dg, _) = out["cpu"], out["cuda"]
     lr0 = tcfg.lr
     grad_err = max((a - b).abs().max().item() / max(b.abs().max().item(),
                                                      1e-30)
                    for a, b in zip(ug, uc))
+    # Each leaf's moments past the bound and their relative L2 difference;
+    # (int8) the rows whose maxima moved between the two forwards and the
+    # int8 kernels' moments off their column maxima.
+    off = [int(((a - b).abs() > bounds["mu"] * b.abs().max()).sum())
+           for a, b in zip(ug, uc)]
+    l2 = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+          for a, b in zip(ug, uc)]
+    moved = moved_rows(torch, maxima["cpu"], maxima["cuda"])
+    int8 = [i for i, k in enumerate(names) if INT8_KERNEL.match(k)]
+    places = 0
+    for i in int8:  # moments off the kernel's column maxima (bf16 cast)
+        w = start[i].bfloat16().float().abs()
+        top = w == w.amax(dim=0, keepdim=True)
+        places += int(((ug[i] != 0) & ~top).sum() + ((uc[i] != 0) & ~top)
+                      .sum())
+    worst = sorted(range(len(off)), key=lambda i: -off[i])[:6]
+    worst_l2 = sorted(range(len(l2)), key=lambda i: -l2[i])[:6]
     # bf16 parameters: the part of each difference past one bf16 ulp.
     d = [((a - b).abs() - (2.0 ** -7 * b.abs() if bounds["ulp"] else 0.0)
           ).clamp(min=0.0) for a, b in zip(pg, pc)]
     p_max = max(x.max().item() for x in d) / lr0
-    p_mean = max((a - b).abs().mean().item() for a, b in zip(pg, pc)) / lr0
+    mean = [(a - b).abs().mean().item() / lr0 for a, b in zip(pg, pc)]
+    p_mean = max(mean)
     equal = sum(int((a == b).sum()) for a, b in zip(pg, pc)) \
         / sum(a.numel() for a in pg)
-    moved = min((a - s).abs().max().item() for a, s in zip(pc, start)) / lr0
+    min_move = min((a - s).abs().max().item()
+                   for a, s in zip(pc, start)) / lr0
     loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
     gn_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
-    log(f"[{tag} reference] v3mod2, batch {REF_B}, card vs CPU: loss "
+    log(f"[{tag} reference] v3mod2 at {cfg.depth} blocks, batch {REF_B}, "
+        f"card vs CPU: loss "
         f"{mg['loss']:.6f} vs {mc['loss']:.6f} (rel {loss_rel:.3e}), "
         f"grad_norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f} (rel "
-        f"{gn_rel:.3e}); grads (first moments) max abs {grad_err:.3e} x max;"
+        f"{gn_rel:.3e}); grads (first moments) max abs {grad_err:.3e} x max,"
+        f" elements past {bounds['mu']} x max: {sum(off)} in all, most in "
+        f"{[(names[i], off[i], pc[i].numel()) for i in worst]};"
         f" updated params max {p_max:.3f} lr"
         f"{' past one bf16 ulp' if bounds['ulp'] else ''}, worst leaf mean "
-        f"{p_mean:.5f} lr, {100 * equal:.2f} % bit-equal; min leaf move "
-        f"{moved:.3f} lr over {len(start)} leaves; bounds {bounds}")
+        f"{p_mean:.5f} lr ({names[mean.index(p_mean)]}), {100 * equal:.2f} "
+        f"% bit-equal; min leaf move "
+        f"{min_move:.3f} lr over {len(start)} leaves; bounds {bounds}")
+    if bounds.get("count"):
+        log(f"[{tag} reference] rows whose maxima moved: {moved} over "
+            f"{len(maxima['cpu'])} int8 products; moments off the int8 "
+            f"kernels' column maxima: {places} over {len(int8)} kernels; "
+            f"each leaf's moments' relative L2 difference, the largest "
+            f"{[(names[i], round(l2[i], 5)) for i in worst_l2]}")
+        mu_bad = places or max(off) > 2 * moved or max(l2) > bounds["mu_l2"]
+    else:
+        mu_bad = grad_err > bounds["mu"]
     if (dg != dc or loss_rel > bounds["loss"] or gn_rel > bounds["grad_norm"]
-            or grad_err > bounds["mu"] or p_max > bounds["p_max"]
-            or p_mean > bounds["p_mean"] or moved < 0.5):
+            or mu_bad or p_max > bounds["p_max"]
+            or p_mean > bounds["p_mean"] or min_move < 0.5):
         raise AssertionError(f"the card's {tag} step disagrees with the "
                              f"CPU's")
 
@@ -3328,7 +3644,7 @@ def state_tensors(state):
             **{f"nu.{k}": v for k, v in sd["opt"]["nu"].items()}}
 
 
-def cli_train_phase(torch, card):
+def cli_train_phase(torch, card, dense_pt):
     """The training entry point at full width: ``python -m
     jatsr_torch.cli.train --preset v3mod2`` (766 M, batch 28 of 1378
     frames, remat "full") for one epoch of seeded latents on the native
@@ -3338,6 +3654,9 @@ def cli_train_phase(torch, card):
     the first trainer's) takes one more step; then a tiny run, trained the
     same way, served by ``python -m jatsr_torch.cli.infer --run-dir`` on a
     ``.npy`` latent, bit-equal to sampling with its restored parameters.
+    Every v3mod2 trainer starts from ``dense_pt`` (the serving phase's
+    dense weights, saved once; :func:`use_saved_draw`, and this script's
+    ``--train-from`` mode under torchrun) instead of a 766 M draw.
     ``[dp nccl]``: the v3mod2 run again under torchrun with ``DP_NCCL`` (NCCL,
     a world of one, ZeRO-1): its ``last`` and ``best`` bit-equal to the
     first run's; resumed under torchrun for its third step, bit-equal to
@@ -3382,7 +3701,7 @@ def cli_train_phase(torch, card):
                              f"{need / 1e9:.1f}")
     cwd = os.getcwd()
     clocks = []
-    real_step = loop.make_train_step
+    real_step, loop_draw = loop.make_train_step, loop.init_dense_params
 
     def clocked(*a, **k):
         clocks.append(StepClock(torch, real_step(*a, **k)))
@@ -3392,6 +3711,14 @@ def cli_train_phase(torch, card):
         t0 = time.perf_counter()
         make_latents(tmp / "data")
         log(f"[cli train] latents: {time.perf_counter() - t0:.1f} s")
+        # Each v3mod2 trainer below (the CLI's, torchrun's two and the
+        # resumed one) starts from the serving phase's dense weights, saved
+        # once (``dense_pt``), instead of drawing 766 M weights from the
+        # seed: in this process by use_saved_draw, under torchrun by this
+        # script's --train-from mode.
+        drawn = use_saved_draw(torch, dense_pt)
+        train_saved = [str(Path(__file__).resolve()), "--train-from",
+                       str(dense_pt)]
         os.chdir(tmp)  # the run goes under ./checkpoints/<preset>/<run>
         loop.make_train_step = clocked
         counters = (at.attention_train_fwd, at.attention_train_bwd,
@@ -3413,7 +3740,7 @@ def cli_train_phase(torch, card):
             f"(expected 56 and 28); validation ({len(first.val_loader)} "
             f"batch) takes the einsum attention of attention_impl "
             f"{cfg.attention_impl!r}: split flash launches {launches[2]}; "
-            f"{wall:.1f} s in all (model drawn from the seed, data, steps, "
+            f"{wall:.1f} s in all (the saved weights, data, steps, "
             f"validation, saves)")
         if (steps != 2 or per_step != {"attention_train_fwd": 2 * cfg.depth,
                                        "attention_train_bwd": cfg.depth}
@@ -3437,9 +3764,9 @@ def cli_train_phase(torch, card):
 
         # [dp nccl]: the same call under torchrun on a mesh of one.
         nccl = {"train_s": torchrun([
-            "-m", "jatsr_torch.cli.train", "--preset", "v3mod2",
-            "--data-dir", str(tmp / "data"), "--epochs", "1",
-            "--native-loader", "--run-name", CLI_RUN_NCCL, *DP_NCCL], tmp)}
+            *train_saved, "--preset", "v3mod2", "--data-dir",
+            str(tmp / "data"), "--epochs", "1", "--native-loader",
+            "--run-name", CLI_RUN_NCCL, *DP_NCCL], tmp)}
         run_nccl = run.parent / CLI_RUN_NCCL
         for name in ("last", "best"):
             ok, n = same_checkpoint(torch, run / name, run_nccl / name)
@@ -3456,7 +3783,7 @@ def cli_train_phase(torch, card):
                               data_dir=str(tmp / "data"), resume=str(run),
                               native_loader=True)
         log(f"[cli train] resumed trainer: {time.perf_counter() - t0:.1f} s "
-            f"(draw, restore)")
+            f"(the saved weights, restore)")
         for op, name, nbytes, sec in second.ckpt.io:
             log(f"[cli train] {card}: {op} {name}: {nbytes / 1e9:.3f} GB in "
                 f"{sec:.2f} s ({nbytes / 1e9 / sec:.2f} GB/s)")
@@ -3486,11 +3813,9 @@ def cli_train_phase(torch, card):
             raise AssertionError(f"the resumed step: loss {loss}")
         del hr, lr
         nccl["resume_s"] = torchrun([
-            "-m", "jatsr_torch.cli.train", "--preset", "v3mod2",
-            "--data-dir", str(tmp / "data"), "--native-loader", "--resume",
-            str(run_nccl), "--max-steps", "3", "--save-best-every", "1000",
-            *DP_NCCL],
-            tmp)
+            *train_saved, "--preset", "v3mod2", "--data-dir",
+            str(tmp / "data"), "--native-loader", "--resume", str(run_nccl),
+            "--max-steps", "3", "--save-best-every", "1000", *DP_NCCL], tmp)
         blob = CheckpointManager(run_nccl, primary=False).load("last",
                                                               "cuda")
         mine = state_tensors(state)
@@ -3509,7 +3834,8 @@ def cli_train_phase(torch, card):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # A tiny run, served from its run directory.
+        # A tiny run (drawn from its seed), served from its run directory.
+        loop.init_dense_params = drawn
         train_cli.main(["--preset", "tiny", "--data-dir", str(tmp / "data"),
                         "--max-steps", "2", "--run-name", TINY_RUN])
         tiny = tmp / "checkpoints" / "tiny" / TINY_RUN
@@ -3558,8 +3884,35 @@ def cli_train_phase(torch, card):
         return per_step, nccl
     finally:
         loop.make_train_step = real_step
+        loop.init_dense_params = loop_draw
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def use_saved_draw(torch, path):
+    """Make the trainers this process builds start from the dense tree
+    saved at ``path`` (``torch.save`` of the draw) instead of the draw
+    ``train/loop.py`` makes from the seed (766 M weights: ~4 s of CPU a
+    trainer); returns the drawing function it replaced."""
+    from jatsr_torch.train import loop
+
+    drawn = loop.init_dense_params
+    loop.init_dense_params = lambda cfg, generator: torch.load(
+        path, mmap=True, weights_only=True)
+    return drawn
+
+
+def train_from_saved(path, argv) -> int:
+    """``python -m jatsr_torch.cli.train argv`` whose trainers start from
+    the dense tree saved at ``path``: this script's mode under torchrun,
+    ``chip_smoke.py --train-from PATH ARGS``."""
+    import torch
+
+    from jatsr_torch.cli import train as train_cli
+
+    use_saved_draw(torch, path)
+    train_cli.main(argv)
+    return 0
 
 
 # The data-preparation corpus: (name, rate, seconds) of synthetic songs at
@@ -4012,7 +4365,7 @@ def dp_steps(torch, state, step, hr, lr):
     return losses, norms, times
 
 
-def dp_rank(rank, root):
+def dp_rank(rank, root, weights):
     """One rank of ``[dp shared card]``: (a), (b) and (c) of the comment
     above on its rows, the results into ``root/rank<r>.json``."""
     import gc
@@ -4039,7 +4392,8 @@ def dp_rank(rank, root):
     rows = batch_rows(mesh, TRAIN_B)
     hr, lr = hr[rows].contiguous(), lr[rows].contiguous()
     out["rows"] = [rows.start, rows.stop]
-    dense = torch.load(root / "dense.pt", mmap=True, weights_only=True)
+    dense = torch.load(Path(weights) / "dense.pt", mmap=True,
+                       weights_only=True)
     finals = {}
     for zero in (False, True):
         torch.cuda.reset_peak_memory_stats()
@@ -4089,7 +4443,8 @@ def dp_rank(rank, root):
     torch.cuda.empty_cache()
 
     cfg, latent = dp_serve_inputs(torch)
-    static = torch.load(root / "static.pt", mmap=True, weights_only=True)
+    static = torch.load(Path(weights) / "static.pt", mmap=True,
+                        weights_only=True)
     pipe = dp_pipeline(DiT(cfg, static, device="cuda"), mesh)
     del static
     torch.cuda.synchronize()
@@ -4111,7 +4466,7 @@ def dp_rank(rank, root):
     dist.destroy_process_group()
 
 
-def dp_shared_card_phase(torch, dense, static, card):
+def dp_shared_card_phase(torch, dense, static, card, weights):
     """``[dp shared card]``: the parent's single-card references, then the
     two ranks (:func:`dp_rank`) on this card, then their results checked."""
     import gc
@@ -4122,15 +4477,12 @@ def dp_shared_card_phase(torch, dense, static, card):
     import torch.multiprocessing as mp
 
     from jatsr_torch.models.dit import DenseDiT, DiT
-    from jatsr_torch.models.from_jax import tree_to_torch
     from jatsr_torch.train import (Normalizer, create_train_state,
                                    make_train_step)
 
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     try:
         t0 = time.perf_counter()
-        torch.save(tree_to_torch(dense), root / "dense.pt")
-        torch.save(tree_to_torch(static), root / "static.pt")
         preset, tcfg, loss, hr, lr, stats = dp_train_inputs(torch)
         state = create_train_state(
             DenseDiT(preset.model, dense, device="cuda"), tcfg, 1000,
@@ -4157,8 +4509,8 @@ def dp_shared_card_phase(torch, dense, static, card):
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        mp.start_processes(dp_rank, args=(str(root),), nprocs=DP_RANKS,
-                           start_method="spawn")
+        mp.start_processes(dp_rank, args=(str(root), str(weights)),
+                           nprocs=DP_RANKS, start_method="spawn")
         wall = time.perf_counter() - t0
         outs = [json.loads((root / f"rank{r}.json").read_text())
                 for r in range(DP_RANKS)]
@@ -4215,6 +4567,309 @@ def dp_shared_card_phase(torch, dense, static, card):
         raise AssertionError("[dp shared card]: " + "; ".join(bad))
 
 
+# [tp shared card]: the int8 DiT tensor-parallel on a (1, TP_M) mesh, its
+# TP_M ranks spawned on card 0 over gloo (a rank each, sharing the card;
+# the collectives go through host memory, so the times say nothing of
+# NVLink).  Each rank loads the main path's int8_static tree (saved by the
+# parent) and keeps its leaves.  (a) B1's, B5's and B4's split entries at
+# the v3 shapes on each rank's share of seeded inputs: the shares joined
+# bit-equal to the whole-width kernel on one card.  (b) The main path's
+# forward (B3, B2, B4 split, B1 split a block; B5 for the patch embed) on
+# a given AdaLN table, [6, 1378, 1024]: bit-equal to the single card's.
+# (c) The main path's sampler over the 3790-frame latent (three chunks) at
+# TP_STEPS Euler steps: within the JAX package's own tensor-parallel bounds
+# of the single-card pass (atol 2e-2, relative L2 5e-2,
+# tests/test_trainer_and_infer.py), the max abs difference reported.  (d)
+# One forward of --no-fused-prologue (B2, B5 split a block, w8a8_dot's
+# torch ops split for out_proj), held as (b).  (e) Each rank's launches of
+# (b) and (d).  (f) Each rank's forward ms and peak memory beside the
+# single card's.
+TP_STEPS = 2
+TP_SERVE_ATOL, TP_SERVE_REL_L2 = 2e-2, 5e-2
+TP_TIMED = 3
+
+
+def tp_cfgs():
+    """The main path's DiT config and its --no-fused-prologue sibling."""
+    from jatsr_torch.configs import get_preset
+
+    base = get_preset("v3").model
+    return {name: dataclasses.replace(base, **{**SERVING, **PATHS[name]})
+            for name in ("prologue", "no_prologue")}
+
+
+def tp_split_inputs(torch):
+    """(a)'s inputs at the v3 shapes: B1's x, AdaLN row and mlp_in; B5's
+    rows; B4's rows (an all-zero row, one large value) and out_proj."""
+    x, _, (sc, sh), w1, ws1, b1 = prologue_inputs(torch, 5120, SEED + 31)
+    a5 = dense_inputs(torch, B * N_VALID, H, 5120, SEED + 32)
+    a4, wo, wso, _ = dense_inputs(torch, B * NP, H, H, SEED + 33)
+    a4[3] = 0.0
+    a4[5, 7] = 3.0e4
+    return (x, sc, sh, w1, ws1, b1), a5, (a4, wo, wso)
+
+
+def tp_splits(torch, group, r):
+    """(a) on rank ``r``'s share (its columns of mlp_in, its columns of
+    out_proj's input and rows of its kernel): CPU copies."""
+    from jatsr_torch.ops import split as sp
+
+    (x, sc, sh, w1, ws1, b1), (a, w5, ws5, b5), (a4, wo, wso) = \
+        tp_split_inputs(torch)
+
+    def cols(t):
+        n = t.shape[-1] // TP_M
+        return t[..., r * n:(r + 1) * n].contiguous()
+
+    def rows(t):
+        n = t.shape[0] // TP_M
+        return t[r * n:(r + 1) * n].contiguous()
+
+    w1r, w5r, wor = cols(w1), cols(w5), rows(wo)
+    out = {"b1": sp.int8_norm_mod_dense_gelu_quant_split(
+               x, sc, sh, w1r, cols(ws1), cols(b1), group, norm="layer",
+               w_t=w1r.t().contiguous()),
+           "b5": sp.int8_dense_gelu_quant_split(
+               a, w5r, cols(ws5), cols(b5), group, w_t=w5r.t().contiguous()),
+           "b4": sp.int8_matmul_fused_split(cols(a4), wor, wso, group,
+                                            w_t=wor.t().contiguous())}
+    torch.cuda.synchronize()
+    return {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+            for k, v in out.items()}
+
+
+def tp_forward_inputs(torch, C):
+    """``x_t``, ``x_cond`` [6, 1378, C] and ``t`` [6] on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    x_t, x_c = (torch.randn((B, SHORT_FRAMES, C), generator=gen,
+                            device="cuda") for _ in range(2))
+    return x_t, torch.linspace(0.1, 0.9, B, device="cuda"), x_c
+
+
+def tp_forwards(torch, model, table, counters):
+    """One counted forward on the given table, then TP_TIMED timed ones:
+    the output, the counts, the median ms and the peak GiB."""
+    x_t, t, x_c = tp_forward_inputs(torch, model.cfg.input_channels)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = model(x_t, t, x_c, adaln_mod=table)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    times = []
+    for _ in range(TP_TIMED):
+        t0 = time.perf_counter()
+        model(x_t, t, x_c, adaln_mod=table)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (got, counts, sorted(times)[len(times) // 2],
+            torch.cuda.max_memory_allocated() / 2.0 ** 30)
+
+
+def tp_counters():
+    from jatsr_torch.ops import split as sp
+    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
+                                             int8_matmul_fused)
+    from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
+                                          int8_norm_mod_dot)
+
+    return {"norm_mod_dot": int8_norm_mod_dot,
+            "flash_qkv": gqa_attention_flash_qkv,
+            "matmul_fused": int8_matmul_fused,
+            "norm_mod_dense_gelu_quant": int8_norm_mod_dense_gelu_quant,
+            "dense_gelu_quant": int8_dense_gelu_quant,
+            "matmul_fused_split": sp.int8_matmul_fused_split,
+            "norm_mod_dense_gelu_quant_split":
+                sp.int8_norm_mod_dense_gelu_quant_split,
+            "dense_gelu_quant_split": sp.int8_dense_gelu_quant_split}
+
+
+def tp_rank(rank, root, weights):
+    """One rank of ``[tp shared card]``: (a)-(f) of the comment above, the
+    results into ``root/rank<r>.json`` and its outputs into
+    ``root/out<r>.pt``."""
+    import gc
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from jatsr_torch.models.dit import DiT
+    from jatsr_torch.parallel import ModelGroup, init_distributed, make_mesh
+
+    root = Path(root)
+    cfgs = tp_cfgs()
+    init_distributed(f"file://{root}/store", TP_M, rank, local_rank=rank,
+                     backend="gloo", device="cuda")
+    mesh = make_mesh(1, TP_M, device="cuda")
+    out = {"rank": rank, "card": torch.cuda.current_device(),
+           "backend": dist.get_backend(), "mesh": list(mesh.shape)}
+    tensors = {"splits": tp_splits(torch, ModelGroup(mesh), rank)}
+    static = torch.load(Path(weights) / "static.pt", mmap=True,
+                        weights_only=True)
+    table = torch.load(root / "table.pt").cuda()
+    counters = tp_counters()
+    for name, cfg in cfgs.items():
+        torch.cuda.reset_peak_memory_stats()
+        model = DiT(cfg, static, device="cuda", mesh=mesh)
+        held = sum(b.nbytes for b in model.buffers()) / 2.0 ** 30
+        got, counts, ms, peak = tp_forwards(torch, model, table, counters)
+        tensors[name] = got.cpu()
+        out[name] = {"launches": counts, "ms": ms, "peak_gib": peak,
+                     "model_gib": held}
+        if name == "prologue":
+            _, latent = dp_serve_inputs(torch)
+            pipe = dp_pipeline(model, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tensors["serve"] = pipe.super_resolve_latent_device(
+                latent, SEED, TP_STEPS, CFG_SCALE, max_batch=3).cpu()
+            out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+            del pipe, latent
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(tensors, root / f"out{rank}.pt")
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_shared_card_phase(torch, static, card, weights):
+    """``[tp shared card]``: the single-card references, then the ranks
+    (:func:`tp_rank`) on this card, then their results checked.  Returns
+    rank 0's launches of (b) and (d) for the kernel lines."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    from jatsr_torch.models.dit import DiT, adaln_tables
+    from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
+                                             int8_matmul_fused)
+    from jatsr_torch.ops.prologue import int8_norm_mod_dense_gelu_quant
+
+    cfgs = tp_cfgs()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        t0 = time.perf_counter()
+        # (a)'s whole-width kernels on one card.
+        (x, sc, sh, w1, ws1, b1), (a, w5, ws5, b5), (a4, wo, wso) = \
+            tp_split_inputs(torch)
+        whole = {"b1": int8_norm_mod_dense_gelu_quant(
+                     x, sc, sh, w1, ws1, b1, norm="layer",
+                     w_t=w1.t().contiguous()),
+                 "b5": int8_dense_gelu_quant(a, w5, ws5, b5,
+                                             w_t=w5.t().contiguous()),
+                 "b4": int8_matmul_fused(a4, wo, wso,
+                                         w_t=wo.t().contiguous())}
+        whole = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                 else v.cpu() for k, v in whole.items()}
+        del x, sc, sh, w1, ws1, b1, a, w5, ws5, b5, a4, wo, wso
+        ref, single = {}, {}
+        counters = tp_counters()
+        for name, cfg in cfgs.items():
+            torch.cuda.reset_peak_memory_stats()
+            model = DiT(cfg, static, device="cuda")
+            held = sum(b.nbytes for b in model.buffers()) / 2.0 ** 30
+            if name == "prologue":
+                _, t, _ = tp_forward_inputs(torch, cfg.input_channels)
+                table = adaln_tables(model, t)
+                torch.save(table.cpu(), root / "table.pt")
+            got, counts, ms, peak = tp_forwards(torch, model, table, counters)
+            ref[name] = got.cpu()
+            single[name] = {"launches": counts, "ms": ms, "peak_gib": peak,
+                            "model_gib": held}
+            if name == "prologue":
+                _, latent = dp_serve_inputs(torch)
+                pipe = dp_pipeline(model)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ref["serve"] = pipe.super_resolve_latent_device(
+                    latent, SEED, TP_STEPS, CFG_SCALE, max_batch=3).cpu()
+                single["serve_ms"] = (time.perf_counter() - t1) * 1e3
+                del pipe, latent
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[tp shared card] single-card references: "
+            f"{json.dumps(single)}; {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(str(root), str(weights)),
+                           nprocs=TP_M, start_method="spawn")
+        wall = time.perf_counter() - t0
+        outs = [json.loads((root / f"rank{r}.json").read_text())
+                for r in range(TP_M)]
+        got = [torch.load(root / f"out{r}.pt") for r in range(TP_M)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for o in outs:
+        log(f"[tp shared card] rank {o['rank']}: {json.dumps(o)}")
+    bad = []
+    # (a) the shares joined, against the whole-width kernels.
+    for k in ("b1", "b5"):
+        codes = torch.cat([g["splits"][k][0] for g in got], dim=-1)
+        if not torch.equal(codes, whole[k][0]) or not all(
+                torch.equal(g["splits"][k][1], whole[k][1]) for g in got):
+            bad.append(f"(a) {k} split not the whole kernel's bits")
+    if not all(torch.equal(g["splits"]["b4"], whole["b4"]) for g in got):
+        bad.append("(a) b4 split not the whole kernel's bits")
+    # (b), (d) bit-equal; (c) within the bounds.
+    diffs = {}
+    for k in ("prologue", "no_prologue", "serve"):
+        for r, g in enumerate(got):
+            d = (g[k] - ref[k]).abs()
+            rel = ((g[k] - ref[k]).norm() / ref[k].norm()).item()
+            diffs[f"{k}/{r}"] = (d.max().item(), rel)
+            finite = bool(torch.isfinite(g[k]).all())
+            if not finite or (k != "serve" and not torch.equal(g[k], ref[k])):
+                bad.append(f"({'b' if k == 'prologue' else 'd'}) rank {r} "
+                           f"{k}: max abs {d.max().item()}, finite {finite}")
+            if k == "serve" and (d.max().item() > TP_SERVE_ATOL
+                                 or rel > TP_SERVE_REL_L2 or not finite):
+                bad.append(f"(c) rank {r}: max abs {d.max().item()}, rel L2 "
+                           f"{rel}")
+    # (e) the launches of each forward.
+    depth = cfgs["prologue"].depth
+    want = {"prologue": {"norm_mod_dot": depth, "flash_qkv": depth,
+                         "matmul_fused_split": depth,
+                         "norm_mod_dense_gelu_quant_split": depth,
+                         "dense_gelu_quant": 1},
+            "no_prologue": {"flash_qkv": depth,
+                            "dense_gelu_quant_split": depth,
+                            "dense_gelu_quant": 1}}
+    for o in outs:
+        if (o["card"], o["backend"], o["mesh"]) != (0, "gloo", [1, TP_M]):
+            bad.append(f"rank {o['rank']} on card {o['card']} over "
+                       f"{o['backend']}")
+        for name, w in want.items():
+            full = {k: w.get(k, 0) for k in counters}
+            if o[name]["launches"] != full:
+                bad.append(f"(e) rank {o['rank']} {name} launches "
+                           f"{o[name]['launches']} != {full}")
+    log(f"[tp shared card] {card}: {TP_M} ranks on card 0 over gloo, "
+        f"spawned and joined in {wall:.1f} s; (a) the split entries' shares "
+        f"joined bit-equal to B1, B5 and B4 on one card; (b)-(d) max abs, "
+        f"rel L2 against one card {diffs}; (f) forward ms a rank "
+        f"{[o['prologue']['ms'] for o in outs]} (main path), "
+        f"{[o['no_prologue']['ms'] for o in outs]} (--no-fused-prologue) "
+        f"against one card's {single['prologue']['ms']:.1f}, "
+        f"{single['no_prologue']['ms']:.1f}; peak GiB a rank "
+        f"{[o['prologue']['peak_gib'] for o in outs]} against "
+        f"{single['prologue']['peak_gib']:.3f}; the model's buffers GiB a "
+        f"rank {[o['prologue']['model_gib'] for o in outs]} against "
+        f"{single['prologue']['model_gib']:.3f}; sampler ms "
+        f"{[o['serve_ms'] for o in outs]} against {single['serve_ms']:.1f}")
+    if bad:
+        raise AssertionError("[tp shared card]: " + "; ".join(bad))
+    return {k: outs[0]["prologue"]["launches"][k]
+            + outs[0]["no_prologue"]["launches"][k] for k in counters}
+
+
 # [dp nccl]: the NCCL path users launch, at a world of one:
 # ``python -m torch.distributed.run --standalone --nproc_per_node 1`` of
 # ``cli.train --distributed --mesh 1 1 --shard-opt-state`` and of
@@ -4263,6 +4918,8 @@ def same_checkpoint(torch, a, b):
 
 def main() -> int:
     import argparse
+    import shutil
+    import tempfile
 
     import torch
 
@@ -4297,6 +4954,7 @@ def main() -> int:
     from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
                                           int8_norm_mod_dot)
     from jatsr_torch.ops.quant import quantize_params_static
+    from jatsr_torch.models.from_jax import tree_to_torch
     from jatsr_torch.utils.device import resolve_device
 
     # 1. Environment.
@@ -4353,6 +5011,7 @@ def main() -> int:
         "patch_embed": patch, "mlp_in_no_prologue": mlp_in}
     checks.update(check_fp32_modes(torch, norm, checks))
     checks.update(check_fp32_slice(torch, checks))
+    checks.update(check_split_kernels(torch, norm, checks))
     checks.update(check_dac_kernels(torch))
     checks.update(check_dac_kernels_snake_bf16(torch))
     checks.update(check_attention_train(torch))
@@ -4433,7 +5092,9 @@ def main() -> int:
                              "snake_conv_transpose_fused", "res_stage_fused",
                              "res_unit_fused")},
                 "prequant_quant": int8_quantize_rows,
-                "v_codes": _v_codes}
+                "v_codes": _v_codes,
+                **{k: v for k, v in tp_counters().items()
+                   if k.endswith("_split")}}
     per_block = STEPS * cfgs["prologue"].depth
     segments = 2  # 3790 frames: two decode segments, one per decode call
     fused_decode = {"snake_conv_transpose_streamed": segments,
@@ -4581,7 +5242,7 @@ def main() -> int:
     #    parameters, then one step of each at batch 4 against the CPU.
     launches["train"] = train_phase(torch, dense, args.profile)
     torch.cuda.empty_cache()
-    for tag in ("train_fp32", "train_bf16_params"):
+    for tag in ("train_fp32", "train_bf16_params", "train_int8"):
         launches[tag] = train_phase(torch, dense, args.profile, tag,
                                     timed=TRAIN_TIMED_DTYPES)
         torch.cuda.empty_cache()
@@ -4591,20 +5252,38 @@ def main() -> int:
     check_tiny_train_step(torch)
     phases.done("training references")
 
-    # 7. The training entry point at full width (train, checkpoint, resume,
-    #    serve a run), then two steps under each remat policy.
-    _, nccl = cli_train_phase(torch, card)
-    phases.done("training entry point and [dp nccl] ("
-                f"{sum(nccl.values()):.1f} s of torchrun calls)")
-    remat_phase(torch, dense, card, args.profile)
-    torch.cuda.empty_cache()
-    phases.done("remat policies")
+    # The dense weights and the main path's int8 tree, written once for the
+    # processes of phases 7 and 8 (the machine's disk takes 45 GiB of
+    # writes in all; the training entry point's checkpoints are most).
+    weights = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    try:
+        t0 = time.perf_counter()
+        torch.save(tree_to_torch(dense), weights / "dense.pt")
+        torch.save(tree_to_torch(main_static), weights / "static.pt")
+        log(f"[weights] dense and int8 trees saved for the subprocesses: "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    # 8. Data-parallel training and serving over two ranks on this card.
-    dp_shared_card_phase(torch, dense, main_static, card)
-    del dense, main_static
-    torch.cuda.empty_cache()
-    phases.done("[dp shared card]")
+        # 7. The training entry point at full width (train, checkpoint,
+        #    resume, serve a run), then two steps under each remat policy.
+        _, nccl = cli_train_phase(torch, card, weights / "dense.pt")
+        phases.done("training entry point and [dp nccl] ("
+                    f"{sum(nccl.values()):.1f} s of torchrun calls)")
+        remat_phase(torch, dense, card, args.profile)
+        torch.cuda.empty_cache()
+        phases.done("remat policies")
+
+        # 8. Data-parallel training and serving over two ranks on this
+        #    card, then the int8 DiT tensor-parallel over two ranks on it.
+        dp_shared_card_phase(torch, dense, main_static, card, weights)
+        torch.cuda.empty_cache()
+        phases.done("[dp shared card]")
+        launches["tp"] = tp_shared_card_phase(torch, main_static, card,
+                                              weights)
+        del dense, main_static
+        torch.cuda.empty_cache()
+        phases.done("[tp shared card]")
+    finally:
+        shutil.rmtree(weights, ignore_errors=True)
 
     # 9. Data in: python -m jatsr_torch.cli.prepare_dataset on a corpus at
     #    the codec's full width, resumed; the prefetch overlap; card vs CPU.
@@ -4627,4 +5306,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-from"]:
+        sys.exit(train_from_saved(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

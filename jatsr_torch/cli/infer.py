@@ -21,12 +21,16 @@ adds the int8 output head, and at ``tiny`` (bottleneck 64) the patch embed
 is the unfused one.  ``--platform cpu`` runs the plain PyTorch path on the
 CPU; otherwise the run uses the card.
 
-``--mesh D M`` samples the chunks data-parallel over a ``(D, M)`` mesh of
-D x M processes, launched one a card by torchrun (``torchrun
---nproc_per_node D -m jatsr_torch.cli.infer --mesh D 1 ...``; ``--mesh 1
-1`` alone is a world of one); every rank loads the weights and the input,
-and rank 0 alone decodes and writes the output.  A model axis past 1
-(tensor parallelism) raises ``NotImplementedError`` (ROADMAP section A item
+``--mesh D M`` samples over a ``(D, M)`` mesh of D x M processes, launched
+one a card by torchrun (``torchrun --nproc_per_node 4 -m
+jatsr_torch.cli.infer --mesh 2 2 ...``; ``--mesh 1 1`` alone is a world of
+one): the chunks data-parallel over D, and at M > 1 the int8 DiT
+tensor-parallel over M (``--int8 --fused-mlp --attention flash``, with or
+without ``--fused-prologue``: bench.py's default path and its
+--no-fused-prologue).  Every rank loads the weights and the input and
+keeps its share of the int8 tree; rank 0 alone decodes and writes the
+output.  The bf16 model (no ``--int8``) and every other int8 branch raise
+``NotImplementedError`` on a model axis past 1 (ROADMAP section A item
 8(b)).
 """
 
@@ -81,7 +85,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("DATA", "MODEL"),
                     help="sample over a (data, model) mesh of the "
-                         "torchrun processes (model 1)")
+                         "torchrun processes (model > 1: the int8 DiT "
+                         "tensor-parallel)")
     ap.add_argument("--unroll-blocks", action="store_true",
                     help="a compile knob of the JAX package; same math")
     ap.add_argument("--fused-decode", action="store_true", default=True,
@@ -114,14 +119,11 @@ def main(argv=None):
     if args.platform not in (None, "cpu", "cuda", "gpu"):
         raise SystemExit(f"unknown --platform {args.platform!r}")
     device = "cpu" if args.platform == "cpu" else "cuda"
-    mesh = None
-    if args.mesh:
-        from ..parallel import init_distributed, make_mesh
-
-        init_distributed(device=device)
-        mesh = make_mesh(*args.mesh, device=device)
-        print(f"[infer] serving mesh: data={args.mesh[0]} x "
-              f"model={args.mesh[1]}")
+    if args.mesh and args.mesh[1] > 1 and not args.int8:
+        raise NotImplementedError(
+            f"--mesh {args.mesh[0]} {args.mesh[1]} without --int8: the bf16 "
+            f"model on a model axis comes in the next slice of the port "
+            f"(ROADMAP section A item 8(b)); the int8 DiT serves on it")
 
     import numpy as np
     import torch
@@ -146,6 +148,14 @@ def main(argv=None):
             print(f"[infer] preset '{preset.name}' from {pj}")
         else:
             preset = get_preset("v3mod2")
+    mesh = None
+    if args.mesh:
+        from ..parallel import init_distributed, make_mesh
+
+        init_distributed(device=device)
+        mesh = make_mesh(*args.mesh, device=device)
+        print(f"[infer] serving mesh: data={args.mesh[0]} x "
+              f"model={args.mesh[1]}")
     # Checkpoints hold the float parameters; the int8 model is quantized
     # from them after the restore.
     if args.torch_checkpoint:
@@ -176,7 +186,7 @@ def main(argv=None):
             quantize_head=args.quantize_head, fused_mlp=args.fused_mlp,
             fused_qkv=True, dropout=0.0, drop_path_rate=0.0)
         model = DiT(mcfg, quantize_params_static(params, mcfg),
-                    device=device)
+                    device=device, mesh=mesh)
         print("[infer] int8 serving: weights quantized (static W8A8)")
     else:
         model = DenseDiT(dataclasses.replace(serving, dropout=0.0,

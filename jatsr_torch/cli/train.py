@@ -24,9 +24,9 @@ else NCCL, one card a rank); ``--mesh D M`` trains data-parallel over a
 the processes and ``--mesh`` lays them out; ``--mesh 1 1`` without a
 launcher is a world of one).  ``--batch-size`` is the global batch; it
 must divide by D.  ``--shard-opt-state`` splits the Adam moments over the
-data axis (ZeRO-1) and acts only with a mesh.  A model axis past 1
-(tensor parallelism) raises ``NotImplementedError`` (ROADMAP section A
-item 8(b)).
+data axis (ZeRO-1) and acts only with a mesh.  A model axis past 1 raises
+``NotImplementedError``: tensor-parallel training is the next slice (ROADMAP
+section A item 8(b)).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"),
                     help="data x model mesh over the process group (model "
-                         "1: tensor parallelism is not ported)")
+                         "1: tensor-parallel training is the next slice)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -87,7 +87,12 @@ def main(argv=None):
 
     from ..configs import get_preset
     from ..parallel import init_distributed, is_primary, make_mesh
+    from ..parallel.mesh import TENSOR_PARALLEL_TRAINING
     from ..train.loop import Trainer
+
+    if args.mesh and args.mesh[1] > 1:
+        raise NotImplementedError(f"--mesh {args.mesh[0]} {args.mesh[1]}: "
+                                  f"{TENSOR_PARALLEL_TRAINING}")
 
     if args.distributed:
         init_distributed(device=device)

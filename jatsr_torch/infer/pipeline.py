@@ -9,15 +9,18 @@ rate, encode), ``super_resolve_audio`` and ``super_resolve_latent_to_audio``
 soon as its frames are final).  The whole chain stays on the pipeline's
 device.
 
-Data-parallel serving (``mesh=``, a ``(D, 1)`` mesh over D processes, one
+Serving on a mesh (``mesh=``, a ``(D, M)`` mesh over D x M processes, one
 a card): every rank runs the pipeline on the same input; each group of
 chunks is padded to a multiple of D with null chunks (zero condition, zero
-noise), each rank samples its span of the group (CFG on its own rows), and
-the rows are gathered (``all_gather``) on every rank.  The initial noise is
+noise), each data rank samples its span of the group (CFG on its own rows),
+and the rows are gathered (``all_gather`` over the data dim) on every rank.
+At M > 1 the M ranks of a model group take the same rows and the same
+noise through a tensor-parallel ``DiT`` built on the same mesh, whose
+forward ends with the one-card output on each of them.  The initial noise is
 drawn for the group as one card draws it, so the output is the single-card
-output.  Audio input is encoded on every rank and rank 0's latent is
+output.  Audio input is encoded on every rank and data rank 0's latent is
 broadcast; the interleaved decode of :meth:`super_resolve_latent_to_audio`
-runs on rank 0 alone (the others return None).  ``decode_devices``: cards
+runs on rank 0 alone (the others return None): the DAC stays whole there.  ``decode_devices``: cards
 of this process that take the decodes round robin, one decoder weight copy
 a card (:func:`split_serve_devices` partitions a device list).
 
@@ -44,6 +47,7 @@ from ..models.dac import DAC
 from ..models.dit import DenseDiT, DiT, adaln_tables
 from ..ops.resample import resample
 from ..parallel.distributed import DataGroup
+from ..parallel.mesh import model_rank, model_size
 from ..sampling import FlowSampler
 from ..sampling.flow import linspace_f32
 from ..train.step import Normalizer
@@ -141,8 +145,10 @@ class InferencePipeline:
             encoder too).
         sampler_cfg: chunking and sampler settings.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
-        mesh: None, or a ``(D, 1)`` mesh (``parallel.make_mesh``): the
-            chunks sampled data-parallel over its D processes.
+        mesh: None, or a ``(D, M)`` mesh (``parallel.make_mesh``): the
+            chunks sampled data-parallel over its D data ranks; at M > 1
+            ``model`` must be the int8 ``DiT`` built on the same mesh
+            (tensor-parallel over its M model ranks).
         decode_devices: None, or devices that take the decodes round robin
             (each holding a copy of the decoder's weights).
     """
@@ -158,8 +164,18 @@ class InferencePipeline:
                  data_sample_rate: int = 44100, hop_length: int = 512,
                  device="cuda", mesh=None, decode_devices=None):
         self.device = resolve_device(device)
+        M = model_size(mesh)
+        if M > 1 and getattr(getattr(model, "tp", None), "size", 1) != M:
+            if isinstance(model, DenseDiT):
+                raise NotImplementedError(
+                    f"DenseDiT on a model axis of {M}: the int8 DiT serves "
+                    f"tensor-parallel; the bf16 model comes in the next "
+                    f"slice of the port (ROADMAP section A item 8(b))")
+            raise ValueError(f"a mesh with a model axis of {M} needs the "
+                             f"DiT built on it: DiT(..., mesh=mesh)")
         self._dp = DataGroup.of(mesh)
-        self.primary = self._dp is None or self._dp.rank == 0
+        self.primary = self._dp is None or (self._dp.rank == 0
+                                            and model_rank(mesh) == 0)
         self.decode_devices = ([resolve_device(d) for d in decode_devices]
                                if decode_devices else None)
         self._decoders = {}

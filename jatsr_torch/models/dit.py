@@ -9,7 +9,8 @@ remat per block; its deterministic (eval) forward takes the serving
 attention the JAX model takes there.  Under ``matmul_precision="int8"`` it
 serves the dynamic W8A8 model: every projection but the t-MLP, the AdaLN
 and (without ``quantize_head``) ``final_proj`` is ``int8_dot_general``,
-through ``w8a8_dot(int8_impl)``.
+through ``w8a8_dot(int8_impl)``, which also trains: autograd takes JAX's
+cotangents through the two quantisation scales (``ops/quant.py``).
 
 :class:`DiT` is the ``int8_static`` serving model on every branch the JAX
 model has there: fused QKV (with the flash-QKV kernel, RoPE inside, with
@@ -40,6 +41,7 @@ port never takes a different branch silently.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -54,11 +56,15 @@ from ..ops.attention import (_rope, flash_out_weight_t, flash_supported,
                              gqa_attention_flash_out, gqa_attention_flash_qkv,
                              gqa_attention_grouped, padded_head_dim)
 from ..ops.attention_train import gqa_attention_train, train_flash_supported
-from ..ops.int8_matmul import (int8_dense_gelu_quant, int8_matmul_fused,
-                               int8_mlp, int8_mm)
+from ..ops.int8_matmul import (group_sum, int8_dense_gelu_quant,
+                               int8_matmul_fused, int8_mlp, int8_mm)
 from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
                             int8_norm_mod_dot, norm_mod_dot_supported)
 from ..ops.quant import QuantDense, int8_dot_general
+from ..ops.split import (int8_dense_gelu_quant_split, int8_matmul_fused_split,
+                         int8_norm_mod_dense_gelu_quant_split)
+from ..parallel.distributed import ModelGroup
+from ..parallel.mesh import check_model_axis, local_params
 from ..sampling.flow import linspace_f32
 from ..utils.device import resolve_device
 from .from_jax import as_tensor, init_dense_params, tree_to_torch
@@ -86,6 +92,46 @@ def check_serving_config(cfg: ModelConfig) -> None:
     _check_branch(cfg, _SERVING_BRANCH, "serves")
     if cfg.gelu_impl not in ("tanh", "erf", "sigmoid"):
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
+
+
+# What the int8 DiT serves on a model axis past 1: bench.py's default path
+# (the fused prologue) and --no-fused-prologue, both on the fused q/k/v with
+# the flash-QKV kernel and the "half" fused MLP, at bf16.
+_TENSOR_PARALLEL_BRANCH = {
+    "fused_qkv": True, "fused_mlp": True, "fused_mlp_impl": "half",
+    "attention_impl": "flash", "flash_qkv": True, "flash_fused_out": False,
+    "flash_int8_qk": False, "pos_embed": "rope", "attention_bias": False,
+    "quantize_head": False, "dtype": "bfloat16"}
+TENSOR_PARALLEL_NEXT = ("the next slice of the port brings it (ROADMAP "
+                        "section A item 8(b))")
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` for a branch the int8 DiT does not
+    serve on a model axis of ``model`` > 1 (every branch but bench.py's
+    default and its --no-fused-prologue path; ``int8_impl="pallas"``, B14,
+    is not split), and ``ValueError`` where the axis does not divide the
+    heads or the MLP, or where a rank's columns fail a kernel's gate (the
+    fused prologue's qkv and mlp_in widths, multiples of 128): the port
+    never changes branch silently."""
+    for name, want in _TENSOR_PARALLEL_BRANCH.items():
+        if getattr(cfg, name) != want:
+            raise NotImplementedError(
+                f"ModelConfig.{name}={getattr(cfg, name)!r} on a model axis "
+                f"of {model}: the int8 DiT serves tensor-parallel with "
+                f"{name}={want!r}; {TENSOR_PARALLEL_NEXT}")
+    if cfg.int8_impl not in ("xla", "fused"):
+        raise NotImplementedError(
+            f"ModelConfig.int8_impl={cfg.int8_impl!r} on a model axis of "
+            f"{model}: B14 is not split; {TENSOR_PARALLEL_NEXT}")
+    check_model_axis(cfg, model)
+    D = cfg.head_dim
+    qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * D // model
+    mlp = int(cfg.hidden_size * cfg.mlp_ratio) // model
+    if cfg.fused_prologue and (qkv % 128 or mlp % 128):
+        raise ValueError(f"a model axis of {model} leaves a rank {qkv} qkv "
+                         f"and {mlp} mlp_in columns: the fused prologue's "
+                         f"kernels take multiples of 128")
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -140,28 +186,35 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
-def _dequant_dense(g_q, g_s, second: QuantDense):
+def _dequant_dense(g_q, g_s, second: QuantDense, group=None):
     """The fused MLP's second half: an exact s8 product of the codes
     ``g_q [..., K]`` with row scales ``g_s [..., 1]``, then
-    ``((acc * g_s) * ws + b)`` in the compute dtype (``second.dtype``)."""
+    ``((acc * g_s) * ws + b)`` in the compute dtype (``second.dtype``).
+    ``group``: the model group where ``second`` holds a rank's rows (the
+    int32 partial products added before the dequant)."""
     lead = g_q.shape[:-1]
-    acc = int8_mm(g_q.reshape(-1, g_q.shape[-1]), second.kernel_q).float()
-    acc = acc.reshape(*lead, -1)
+    acc = group_sum(group, int8_mm(g_q.reshape(-1, g_q.shape[-1]),
+                                   second.kernel_q))
+    acc = acc.float().reshape(*lead, -1)
     return (acc * g_s * second.kernel_scale + second.bias.float()
             ).to(second.dtype)
 
 
 def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
-                           first_t, gelu_impl="tanh", fast_epilogue=True):
+                           first_t, gelu_impl="tanh", fast_epilogue=True,
+                           group=None):
     """The fused Dense-GELU-Dense of the patch embed and the block MLP:
     the int8 kernel for the first half (on ``first_t``, the first kernel
     K-major, as the card's kernel reads it; its fp32 mode on an fp32
     ``x2d``), an exact s8 product and an fp32 dequant for the second; out
-    in the compute dtype."""
-    g_q, g_s = int8_dense_gelu_quant(
+    in the compute dtype.  ``group``: the model group where the two hold a
+    rank's columns and rows (B5's split, then the split dequant)."""
+    gelu = (int8_dense_gelu_quant if group is None else functools.partial(
+        int8_dense_gelu_quant_split, group=group))
+    g_q, g_s = gelu(
         x2d, first.kernel_q, first.kernel_scale, first.bias.float(),
         gelu_impl=gelu_impl, fast_epilogue=fast_epilogue, w_t=first_t)
-    return _dequant_dense(g_q, g_s, second)
+    return _dequant_dense(g_q, g_s, second, group)
 
 
 def _quant_dense(p: dict, i=None, int8_impl="xla",
@@ -257,14 +310,20 @@ class GQAttention(nn.Module):
     learned positions) and :func:`split_attention`; then the out
     projection."""
 
-    def __init__(self, cfg: ModelConfig, p: dict, i: int):
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, tp=None):
         super().__init__()
         self.cfg = cfg
+        # tp: the model group; the module then holds the rank's heads (its
+        # qkv columns, its rows of out_proj).
+        self.tp = tp
+        m = 1 if tp is None else tp.size
+        self.hq, self.hkv = cfg.num_q_heads // m, cfg.num_kv_heads // m
         impl, dt = cfg.int8_impl, compute_dtype(cfg)
         names = ("qkv_proj",) if cfg.fused_qkv else ("q_proj", "k_proj",
                                                     "v_proj")
         for name in names + ("out_proj",):
             setattr(self, name, _quant_dense(p[name], i, impl, dt))
+        self.out_proj.group = tp
         # The fused-prologue qkv kernel and the fused out-projection kernel
         # always add an fp32 bias: zeros where the projection has none.
         for name, proj in (("qkv_bias", getattr(self, "qkv_proj", None)),
@@ -304,7 +363,7 @@ class GQAttention(nn.Module):
         and ``sin`` are None under learned positions."""
         cfg = self.cfg
         B, N, _ = x.shape
-        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+        hq, hkv, D = self.hq, self.hkv, cfg.head_dim
         if not cfg.fused_qkv:
             q = self.q_proj(x).reshape(B, N, hq, D)
             k = self.k_proj(x).reshape(B, N, hkv, D)
@@ -318,9 +377,15 @@ class GQAttention(nn.Module):
                                     w_t=self.qkv_kernel_t)
         else:
             qkv = self.qkv_proj(x)
-        if (cfg.attention_impl == "flash" and cfg.flash_qkv
-                and cfg.pos_embed == "rope"
-                and flash_supported(N, hq, hkv, D)):
+        flash = (cfg.attention_impl == "flash" and cfg.flash_qkv
+                 and cfg.pos_embed == "rope"
+                 and flash_supported(N, hq, hkv, D))
+        if self.tp is not None and not flash:
+            raise NotImplementedError(
+                f"{N} patches with {hq}/{hkv} heads a rank: the flash-QKV "
+                f"kernel does not take them, and the split q/k/v does not "
+                f"serve on a model axis; {TENSOR_PARALLEL_NEXT}")
+        if flash:
             if cfg.flash_fused_out:
                 o = self.out_proj
                 return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
@@ -332,9 +397,12 @@ class GQAttention(nn.Module):
                                           int8_qk=cfg.flash_int8_qk)
             if prenorm is not None and not cfg.attention_bias:
                 o = self.out_proj
-                out = int8_matmul_fused(
-                    out.reshape(B * N, hq * D), o.kernel_q, o.kernel_scale,
-                    out_dtype=o.dtype, w_t=self.out_kernel_t)
+                fused = (int8_matmul_fused if self.tp is None else
+                         functools.partial(int8_matmul_fused_split,
+                                           group=self.tp))
+                out = fused(out.reshape(B * N, hq * D), o.kernel_q,
+                            o.kernel_scale, out_dtype=o.dtype,
+                            w_t=self.out_kernel_t)
                 return out.reshape(B, N, -1)
             return self.out_proj(out)
         q = qkv[..., :hq * D].reshape(B, N, hq, D)
@@ -361,10 +429,14 @@ class DiTBlock(nn.Module):
     or computed here from ``t_emb``).  With ``fused`` the norm and modulate
     of both branches happen inside the qkv and mlp_in kernels."""
 
-    def __init__(self, cfg: ModelConfig, p: dict, i: int, adaln: Dense):
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, adaln: Dense,
+                 tp=None):
         super().__init__()
         self.cfg = cfg
-        self.attn = GQAttention(cfg, p["attn"], i)
+        # tp: the model group; the block then holds the rank's heads, its
+        # columns of mlp_in and adaln and its rows of mlp_out.
+        self.tp = tp
+        self.attn = GQAttention(cfg, p["attn"], i, tp)
         # The fused MLP kernels read the raw int8 weights; only the unfused
         # QuantDense MLP runs w8a8_dot(int8_impl).
         impl, dt = ("xla" if cfg.fused_mlp else cfg.int8_impl,
@@ -388,6 +460,8 @@ class DiTBlock(nn.Module):
         cfg = self.cfg
         if mod is None:
             mod = self.adaln(F.silu(t_emb))
+            if self.tp is not None:
+                mod = self.tp.gather_cols(mod)
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
         if fused:
@@ -399,12 +473,15 @@ class DiTBlock(nn.Module):
             h = self.attn(h, cos, sin, n_valid)
         x = x + gate_msa[:, None] * h
         if fused:
-            g_q, g_s = int8_norm_mod_dense_gelu_quant(
+            gelu = (int8_norm_mod_dense_gelu_quant if self.tp is None else
+                    functools.partial(int8_norm_mod_dense_gelu_quant_split,
+                                      group=self.tp))
+            g_q, g_s = gelu(
                 x, scale_mlp.float(), shift_mlp.float(), self.mlp_in.kernel_q,
                 self.mlp_in.kernel_scale, self.mlp_in.bias.float(),
                 norm=cfg.norm, gelu_impl=cfg.gelu_impl,
                 w_t=self.mlp_in_kernel_t)
-            h = _dequant_dense(g_q, g_s, self.mlp_out)
+            h = _dequant_dense(g_q, g_s, self.mlp_out, self.tp)
         else:
             h = (_norm(x, cfg.norm) * (1 + scale_mlp[:, None])
                  + shift_mlp[:, None])
@@ -424,7 +501,8 @@ class DiTBlock(nn.Module):
             else:
                 h = _int8_dense_gelu_dense(h, self.mlp_in, self.mlp_out,
                                            self.mlp_in_kernel_t,
-                                           cfg.gelu_impl, cfg.fast_epilogue)
+                                           cfg.gelu_impl, cfg.fast_epilogue,
+                                           self.tp)
             h = h.reshape(B, N, H)
         return x + gate_mlp[:, None] * h
 
@@ -438,13 +516,27 @@ class DiT(nn.Module):
             ``[depth, ...]``) as nested dicts of numpy arrays or tensors;
             see ``models/from_jax.py``.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
+        mesh: None, or a ``(D, M)`` mesh (``parallel.make_mesh``): at M > 1
+            the model is tensor-parallel over its model dim (bench.py's
+            default path and --no-fused-prologue; :func:`check_tensor_
+            parallel`).  The rank keeps its leaves of ``params``
+            (``parallel.mesh.local_params``: its heads of qkv and
+            out_proj, its columns of mlp_in and adaln, its rows of
+            mlp_out), cut before they reach the device; the ranks of a
+            model group meet in ``ModelGroup``'s collectives and every one
+            ends each forward with the one-card output.
     """
 
-    def __init__(self, cfg: ModelConfig, params: dict, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params: dict, device="cuda",
+                 mesh=None):
         super().__init__()
         check_serving_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = ModelGroup.of(mesh)
+        if self.tp is not None:
+            check_tensor_parallel(cfg, self.tp.size)
+            params = local_params(params, cfg, self.tp.size, self.tp.rank)
         P, C = cfg.patch_len, cfg.input_channels
         # The fused patch embed (the dense+GELU kernel, an s8 product) where
         # the JAX model takes it; else QuantDense, exact GELU, QuantDense.
@@ -469,7 +561,8 @@ class DiT(nn.Module):
         self.register_buffer("adaln_bias", blocks["adaln"]["bias"].to(dt))
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, blocks, i,
-                     Dense(self.adaln_kernel[i], self.adaln_bias[i], dt))
+                     Dense(self.adaln_kernel[i], self.adaln_bias[i], dt),
+                     self.tp)
             for i in range(cfg.depth))
         self.final_proj = (
             _quant_dense(p["final_proj"], None, cfg.int8_impl, dt)
@@ -548,8 +641,10 @@ def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
     a = F.silu(model.time_embedding(t))
     if isinstance(model, DenseDiT):
         return torch.stack([blk.adaln(a) for blk in model.blocks])
-    return (torch.einsum("bh,dhm->dbm", a, model.adaln_kernel)
-            + model.adaln_bias[:, None, :])
+    out = (torch.einsum("bh,dhm->dbm", a, model.adaln_kernel)
+           + model.adaln_bias[:, None, :])
+    # A tensor-parallel DiT holds its columns of the tables: one gather.
+    return out if model.tp is None else model.tp.gather_cols(out)
 
 
 # ---- the trainable model, and the dynamic-int8 one -------------------------
@@ -569,7 +664,6 @@ _DENSE_BRANCH = {
                        "other attention"),
 }
 _TRAINING_BRANCH = {
-    "matmul_precision": (("bf16",), "dynamic int8 in training"),
     "train_attention_impl": (("flash", "xla"), "other training attention"),
     "remat_policy": (("full", "dots", "attn_out", "mlp", "none"),
                      "other remat policies"),
@@ -833,8 +927,12 @@ class _Segments:
 
 # aten's products without batch dimensions: the outputs the "dots" policy
 # keeps (JAX's dots_with_no_batch_dims_saveable: every projection; the
-# attention's batched products are replayed).
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# attention's batched products are replayed).  Under dynamic int8 that is
+# the int32 product of the plain path (``torch._int_mm``), as JAX keeps its
+# s8 dot_general's; the card's W8A8 kernels (B4, B14) never write it, so
+# there the policy keeps nothing of them and the replay runs them again.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

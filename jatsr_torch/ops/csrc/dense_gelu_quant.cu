@@ -36,6 +36,7 @@
 
 #include "s8_gelu.cuh"
 #include "s8_rows.cuh"
+#include "s8_split.cuh"
 
 namespace {
 
@@ -136,4 +137,33 @@ extern "C" int dense_gelu_quant(const void* a, const void* wt, const void* ws, c
                                 int N, int gelu_impl, int fast, void* stream) {
   return dense_gelu_quant_dt(a, wt, ws, bias, aq, s, part, gq, gs, M, K, N, gelu_impl, fast, 0,
                              stream);
+}
+
+// ---- B5 column-parallel (tensor parallelism, s8_split.cuh) -----------------
+// A rank's columns of mlp_in behind the unfused prologue: a [M, K] bf16, the
+// whole (replicated) row; wt [N, K] s8 the rank's N columns K-major, ws and
+// bias [N] f32.  Part 1: the row quant, pass 1 on the rank's columns and
+// each row's max over its partials -> aq, s, part [M, N / 128], rm [M]:
+// three launches.  The caller takes the max of rm over the ranks; part 2:
+// every partial of a row set to it, then pass 2 -> gq [M, N] s8, gs [M]:
+// two launches.
+extern "C" int dgq_split1(const void* a, const void* wt, const void* ws, const void* bias,
+                          void* aq, void* s, void* part, void* rm, int M, int K, int N,
+                          int gelu_impl, int fast, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_quant_rows<false>(a, aq, s, M, K, st);
+  if (e == cudaSuccess)
+    e = launch_passes(aq, s, wt, ws, bias, part, nullptr, nullptr, M, K, N, gelu_impl, fast, 1,
+                      st);
+  return e != cudaSuccess ? e : launch_rowmax_reduce(part, rm, M, N / S8_BN, st);
+}
+
+extern "C" int dgq_split2(const void* aq, const void* s, const void* wt, const void* ws,
+                          const void* bias, void* part, const void* rm, void* gq, void* gs, int M,
+                          int K, int N, int gelu_impl, int fast, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = launch_rowmax_fill(rm, part, M, N / S8_BN, st);
+  return e != cudaSuccess ? e
+                          : launch_passes(aq, s, wt, ws, bias, part, gq, gs, M, K, N, gelu_impl,
+                                          fast, 2, st);
 }

@@ -59,6 +59,7 @@
 
 #include "s8_dequant.cuh"
 #include "s8_gelu.cuh"
+#include "s8_split.cuh"
 
 namespace {
 
@@ -376,4 +377,34 @@ extern "C" int norm_mod_dense_gelu_quant(const void* x, const void* scale,
                                          int rms, int gelu_impl, void* stream) {
   return norm_mod_dense_gelu_quant_dt(x, scale, shift, mod_stride, wt, ws, bias, aq, s, part, gq,
                                       gs, M, np, H, N, rms, gelu_impl, 0, stream);
+}
+
+// ---- B1 column-parallel (tensor parallelism, s8_split.cuh) -----------------
+// A rank's columns of mlp_in: wt [N, H] s8 is its N columns K-major, ws and
+// bias its [N] f32.  Part 1: the prologue (bf16 x), pass 1 on the rank's
+// columns and each row's max over its partials -> aq [M, H] s8, s [M] f32,
+// part [M, N / 128] f32 and rm [M] f32: three launches.  The caller takes
+// the max of rm over the ranks, then part 2: every partial of a row set to
+// that max, then pass 2 -> gq [M, N] s8, gs [M] f32: two launches.
+extern "C" int norm_mod_gelu_split1(const void* x, const void* scale, const void* shift,
+                                    int mod_stride, const void* wt, const void* ws,
+                                    const void* bias, void* aq, void* s, void* part, void* rm,
+                                    int M, int np, int H, int N, int rms, int gelu_impl,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_prologue(x, scale, shift, mod_stride, np, aq, s, M, H, rms, st);
+  if (e == cudaSuccess)
+    e = launch_gelu(aq, s, wt, ws, bias, part, nullptr, nullptr, M, H, N, gelu_impl, 1, st);
+  return e != cudaSuccess ? e : launch_rowmax_reduce(part, rm, M, N / S8_BN, st);
+}
+
+extern "C" int norm_mod_gelu_split2(const void* aq, const void* s, const void* wt,
+                                    const void* ws, const void* bias, void* part, const void* rm,
+                                    void* gq, void* gs, int M, int H, int N, int gelu_impl,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = launch_rowmax_fill(rm, part, M, N / S8_BN, st);
+  return e != cudaSuccess
+             ? e
+             : launch_gelu(aq, s, wt, ws, bias, part, gq, gs, M, H, N, gelu_impl, 2, st);
 }

@@ -49,6 +49,7 @@
 // column tile and twice per CTA: PERF.md has the sums.
 
 #include "s8_dequant.cuh"
+#include "s8_split.cuh"
 
 // The quant launch alone: a [M, K] bf16 -> aq [M, K] s8, s [M] f32 (the
 // floored scales).  Needs K % 8 == 0, 16-byte aligned rows.
@@ -110,4 +111,27 @@ extern "C" int matmul_prequant(const void* aq, const void* s, const void* wt, co
   return out_f32 ? s8_dequant<false, float>(aq, s, wt, ws, nullptr, out, M, K, N, pdl, st)
                  : s8_dequant<false, __nv_bfloat16>(aq, s, wt, ws, nullptr, out, M, K, N, pdl,
                                                     st);
+}
+
+// ---- B4 row-parallel (tensor parallelism, s8_split.cuh) --------------------
+// A rank's heads of out_proj's input: a [M, K] bf16 (K its columns), wt
+// [N, K] s8 its rows of the kernel K-major, ws [N] f32 (whole).  Part 1:
+// amax [M] f32, max|a_row| over the rank's columns (one launch).  The
+// caller takes the max over the ranks; part 2: the codes at the whole row's
+// scale and the s8 wgmma GEMM writing int32 -> aq [M, K] s8, s [M] f32, acc
+// [M, N] s32 (two launches, the second under programmatic stream
+// serialisation).  The caller adds acc over the ranks; part 3: out [M, N]
+// bf16 or (out_f32) fp32 = ((float)acc * s) * ws (one launch).
+extern "C" int w8a8_split1(const void* a, void* amax, int M, int K, void* stream) {
+  return launch_row_absmax(a, amax, M, K, (cudaStream_t)stream);
+}
+
+extern "C" int w8a8_split2(const void* a, const void* amax, const void* wt, void* aq, void* s,
+                           void* acc, int M, int K, int N, void* stream) {
+  return launch_quant_acc(a, amax, wt, aq, s, acc, M, K, N, (cudaStream_t)stream);
+}
+
+extern "C" int w8a8_split3(const void* acc, const void* s, const void* ws, void* out, int M,
+                           int N, int out_f32, void* stream) {
+  return launch_dequant_acc(acc, s, ws, out, M, N, out_f32, (cudaStream_t)stream);
 }

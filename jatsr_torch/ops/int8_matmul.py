@@ -26,17 +26,32 @@ import torch
 # package's quantisers all scale this way, so the scales are bit-identical.
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
 
+
+def group_max(group, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (row maxima) maxed over a tensor-parallel model group
+    (``parallel.distributed.ModelGroup``, in place), or ``t`` itself where
+    ``group`` is None: the plain versions' hook for a rank's share."""
+    return t if group is None else group.max_(t)
+
+
+def group_sum(group, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (int32 partial products) summed over a model group, or ``t``
+    itself where ``group`` is None."""
+    return t if group is None else group.sum_(t)
+
 GELU_IMPLS = ("tanh", "erf", "sigmoid")
 
 
-def quantize_rows(x: torch.Tensor, eps: float = 1e-12):
+def quantize_rows(x: torch.Tensor, eps: float = 1e-12, group=None):
     """Symmetric per-row absmax int8 quantisation of ``x [M, K]``.
 
     Returns ``(x_q int8 [M, K], scale fp32 [M, 1])``; the scale is the
     unfloored ``max|x| * _INV127``, the divide uses the floored one.
+    ``group``: the model group whose ranks hold the row's other columns
+    (the max taken over the whole row).
     """
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) * _INV127
+    scale = group_max(group, xf.abs().amax(dim=-1, keepdim=True)) * _INV127
     x_q = torch.round(xf / scale.clamp_min(eps)).to(torch.int8)
     return x_q, scale
 
@@ -76,8 +91,10 @@ def int8_mm(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
 
 
 def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
-                           fast_epilogue=True):
-    """Plain PyTorch version of the kernel, with its rounding points."""
+                           fast_epilogue=True, group=None):
+    """Plain PyTorch version of the kernel, with its rounding points.
+    ``group``: the model group whose ranks hold the other columns of
+    ``w_q`` (the GELU row's scale taken over the whole row)."""
     a_q, s = quantize_rows(a)
     s = s.clamp_min(1e-12)
     acc = int8_mm(a_q, w_q).float()
@@ -87,7 +104,8 @@ def dense_gelu_quant_plain(a, w_q, w_scale, bias, gelu_impl="tanh",
         g = _gelu(y, gelu_impl).bfloat16().float()
     else:
         g = _gelu(y, gelu_impl)
-    gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    gs = (group_max(group, g.abs().amax(dim=1, keepdim=True)) * _INV127
+          ).clamp_min(1e-12)
     return torch.round(g / gs).to(torch.int8), gs
 
 
@@ -185,12 +203,16 @@ def _launch(a, w_t, w_scale, bias, M, K, N, gelu_impl, fast_epilogue):
     return g_q, g_s
 
 
-def matmul_fused_plain(a, w_q, w_scale, out_dtype=torch.bfloat16):
+def matmul_fused_plain(a, w_q, w_scale, out_dtype=torch.bfloat16,
+                       group=None):
     """Plain PyTorch version of the fused W8A8 kernel: the floored scale
-    both divides and rescales, ``((acc * s) * ws) -> out_dtype``."""
-    a_q, s = quantize_rows(a)
+    both divides and rescales, ``((acc * s) * ws) -> out_dtype``.
+    ``group``: the model group whose ranks hold the row's other columns
+    and the kernel's other rows (the row scale over the whole row, the
+    int32 partial products summed before the rescale)."""
+    a_q, s = quantize_rows(a, group=group)
     s = s.clamp_min(1e-12)
-    acc = int8_mm(a_q, w_q).float()
+    acc = group_sum(group, int8_mm(a_q, w_q)).float()
     return (acc * s * w_scale.reshape(1, -1)).to(out_dtype)
 
 

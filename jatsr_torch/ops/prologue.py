@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from .int8_matmul import (_INV127, GELU_IMPLS, KERNEL_DTYPES, _gelu,
-                          check_t, check_weights, int8_mm)
+                          check_t, check_weights, group_max, int8_mm)
 
 NORMS = ("rms", "layer")
 
@@ -90,14 +90,17 @@ def s8_dot_plain(a_q, s, w_q, w_scale, bias, out_dtype=torch.bfloat16):
     return y.to(out_dtype)
 
 
-def s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl="tanh"):
+def s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl="tanh",
+                        group=None):
     """Plain PyTorch version of the mlp_in kernel's GEMM and epilogue on a
     prologue's ``a_q`` and ``s``: the fp32 GELU and the whole-row requant;
-    ``(int8 [M, N], fp32 [M, 1])``."""
+    ``(int8 [M, N], fp32 [M, 1])``.  ``group``: the model group whose
+    ranks hold the other columns (the requant over the whole row)."""
     acc = int8_mm(a_q, w_q).float()
     g = _gelu(acc * s.reshape(-1, 1) * w_scale.reshape(1, -1)
               + bias.reshape(1, -1).float(), gelu_impl)
-    gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    gs = (group_max(group, g.abs().amax(dim=1, keepdim=True)) * _INV127
+          ).clamp_min(1e-12)
     return torch.round(g / gs).to(torch.int8), gs
 
 
@@ -112,12 +115,14 @@ def norm_mod_dot_plain(x, scale, shift, w_q, w_scale, bias, norm="rms",
 
 
 def norm_mod_dense_gelu_quant_plain(x, scale, shift, w_q, w_scale, bias,
-                                    norm="rms", gelu_impl="tanh"):
+                                    norm="rms", gelu_impl="tanh", group=None):
     """Plain PyTorch version of the mlp_in kernel: fp32 GELU epilogue and
-    whole-row requant; ``(int8 [B, Np, N], fp32 [B, Np, 1])``."""
+    whole-row requant; ``(int8 [B, Np, N], fp32 [B, Np, 1])``.  ``group``:
+    as :func:`s8_gelu_quant_plain`'s."""
     B, Np, _ = x.shape
     a_q, s = _prologue_plain(x, scale, shift, norm)
-    g_q, gs = s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl)
+    g_q, gs = s8_gelu_quant_plain(a_q, s, w_q, w_scale, bias, gelu_impl,
+                                  group)
     return g_q.reshape(B, Np, -1), gs.reshape(B, Np, 1)
 
 

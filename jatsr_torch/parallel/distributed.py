@@ -12,8 +12,10 @@ explicit arguments) and sets the rank's card.
 What each process owns: its card, and its span of every global batch
 (:func:`process_batch_slice`: the global order of sample indices is the same
 on every rank, crops and shuffles being pure functions of (seed, epoch,
-index)).  Gradients, validation metrics and sampled rows meet in
-:class:`DataGroup`'s collectives, which use only ``all_reduce``,
+index)), and, on a model axis past 1, its share of each block projection.
+Gradients, validation metrics and sampled rows meet in :class:`DataGroup`'s
+collectives, a tensor-parallel forward's row maxima, int32 partial products
+and AdaLN columns in :class:`ModelGroup`'s.  Both use only ``all_reduce``,
 ``broadcast`` and the list form of ``all_gather``: the three that gloo
 also takes on CUDA tensors, so that two ranks may share one card over gloo
 (NCCL refuses that).  A collective a backend refuses raises; nothing is
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, data_rank, data_size, default_backend
+from .mesh import (DATA_AXIS, MODEL_AXIS, data_rank, data_size,
+                   default_backend, model_rank, model_size)
 
 
 def card_of(local_rank: int, local_world: int, n_cards: int,
@@ -215,3 +218,39 @@ class DataGroup:
         all of them."""
         sums = self.sum_(torch.stack([v.float() for v in values]))
         return list(sums / (numel * self.size))
+
+
+class ModelGroup:
+    """The model dim of a mesh as a tensor-parallel forward uses it: ``size``
+    ranks, this one ``rank``, the collectives on ``mesh.get_group("model")``
+    (the ranks that share a data rank).  :meth:`of` gives None without a
+    mesh or at a model dim of 1, so that one rank keeps the one-card code
+    path."""
+
+    def __init__(self, mesh):
+        self.size = model_size(mesh)
+        self.rank = model_rank(mesh)
+        self.group = mesh.get_group(MODEL_AXIS)
+
+    @classmethod
+    def of(cls, mesh) -> Optional["ModelGroup"]:
+        return None if model_size(mesh) == 1 else cls(mesh)
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """All-reduce ``t`` (fp32 row maxima) in place: the max over the
+        ranks, exact in any order."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """All-reduce ``t`` (int32 partial products) in place: the sum over
+        the ranks, exact in any order."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def gather_cols(self, mine: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``mine`` (equal shapes) concatenated on the last dim
+        in rank order: a column-parallel output made whole."""
+        out = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(out, mine.contiguous(), group=self.group)
+        return torch.cat(out, dim=-1)

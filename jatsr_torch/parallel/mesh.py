@@ -10,9 +10,12 @@ process a card (``torchrun``), with dims named ``"data"`` and ``"model"``:
   ``mesh.get_group("data")``, and the pipeline gathers the sampled rows over
   it;
 - ``model``: tensor parallelism over attention heads, the MLP width and the
-  AdaLN width.  Not ported: a mesh whose model dim is past 1 raises
-  ``NotImplementedError`` (ROADMAP section A item 8(b)).  The rule table
-  below is what that slice places by; at model 1 every leaf is replicated.
+  AdaLN width, by the rule table below (:func:`param_specs`, JAX's
+  ``param_shardings``).  The int8 serving ``DiT`` serves on it
+  (:func:`local_params` cuts a rank's leaves; the ranks of a model group
+  meet in ``distributed.ModelGroup``'s collectives); training on a model
+  axis past 1 raises ``NotImplementedError`` (:data:`TENSOR_PARALLEL_TRAINING`,
+  the next slice).
 
 A mesh of one card needs no launcher: :func:`make_mesh` joins a world of
 one where no process group exists.
@@ -30,8 +33,9 @@ from ..utils.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-TENSOR_PARALLEL = ("a model axis past 1 (tensor parallelism) is not ported "
-                   "yet: ROADMAP section A item 8(b)")
+TENSOR_PARALLEL_TRAINING = (
+    "tensor-parallel training (a model axis past 1 where the model trains) "
+    "comes in the next slice of the port: ROADMAP section A item 8(b)")
 
 
 def default_backend(device) -> str:
@@ -39,15 +43,26 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def check_model_axis(cfg, model: int) -> None:
+    """Raise ``ValueError`` where a model axis of ``model`` does not divide
+    ``cfg``'s kv heads or its MLP width (each rank holds whole kv groups
+    and an equal span of the MLP)."""
+    mlp = int(cfg.hidden_size * cfg.mlp_ratio)
+    for what, width in (("kv heads", cfg.num_kv_heads), ("MLP width", mlp)):
+        if width % model:
+            raise ValueError(f"a model axis of {model} does not divide the "
+                             f"{what} ({width})")
+
+
 def make_mesh(data: int = -1, model: int = 1, device="cuda"):
     """A ``(data, model)`` mesh over the process group's ranks; ``data=-1``
-    takes every rank the model dim leaves.  Raises ``NotImplementedError``
-    for ``model > 1`` and ``ValueError`` where ``data * model`` is not the
-    world size.  Without a process group a mesh of one joins a world of one
-    (an in-process store, the device's backend).  ``device``: ``"cuda"``
-    (default; each rank's current card) or an explicit ``"cpu"``."""
-    if model > 1:
-        raise NotImplementedError(f"--mesh {data} {model}: {TENSOR_PARALLEL}")
+    takes every rank the model dim leaves.  Raises ``ValueError`` where
+    ``data * model`` is not the world size (a model whose widths the model
+    dim does not divide is refused where the model is built on the mesh:
+    :func:`check_model_axis`).  Without a process group a mesh of one
+    joins a world of one (an in-process store, the device's backend).
+    ``device``: ``"cuda"`` (default; each rank's current card) or an
+    explicit ``"cpu"``."""
     if model < 1:
         raise ValueError(f"model axis {model} must be at least 1")
     dev = resolve_device(device)
@@ -69,14 +84,27 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda"):
 
 
 def data_size(mesh) -> int:
-    """The mesh's data dim (1 without a mesh); raises for a model dim past
-    1."""
-    if mesh is None:
-        return 1
-    if mesh.size(1) > 1:
-        raise NotImplementedError(f"a {mesh.size(0)}x{mesh.size(1)} mesh: "
-                                  f"{TENSOR_PARALLEL}")
-    return mesh.size(0)
+    """The mesh's data dim (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(0)
+
+
+def model_size(mesh) -> int:
+    """The mesh's model dim (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(1)
+
+
+def model_rank(mesh) -> int:
+    """This process's index on the model dim (0 without a mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(MODEL_AXIS)
+
+
+def check_no_model_axis(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` where ``what`` (a training entry) gets
+    a mesh whose model dim is past 1."""
+    if model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{what} on a {mesh.size(0)}x{mesh.size(1)} mesh: "
+            f"{TENSOR_PARALLEL_TRAINING}")
 
 
 def data_rank(mesh) -> int:
@@ -171,3 +199,62 @@ def opt_state_plan(shapes: Sequence[Sequence[int]], data: int) -> List[bool]:
     shapes), whether it splits on its leading dim into ``data`` equal
     spans (that dim divides by ``data``) or stays whole on every rank."""
     return [len(s) >= 1 and s[0] > 0 and s[0] % data == 0 for s in shapes]
+
+
+def qkv_columns(cfg, model: int, rank: int) -> torch.Tensor:
+    """The columns of the fused ``qkv_proj`` ``[q | k | v]`` that rank
+    ``rank`` of a model axis of ``model`` holds: the q heads, the k head and
+    the v head of its kv groups, in that order (the layout the flash-QKV
+    kernel reads).  JAX's rule splits the columns into contiguous spans
+    and GSPMD moves what each head needs; this is a permutation of them
+    computing the same function."""
+    hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    q, kv = hq // model, hkv // model
+
+    def span(base, per):
+        return torch.arange(base + rank * per * D, base + (rank + 1) * per * D)
+
+    return torch.cat([span(0, q), span(hq * D, kv), span((hq + hkv) * D, kv)])
+
+
+def local_params(tree, cfg, model: int, rank: int) -> dict:
+    """Rank ``rank``'s leaves of a JAX-layout parameter tree (nested dicts of
+    numpy arrays or tensors) on a model axis of ``model``: each leaf cut by
+    :func:`param_specs` (the JAX table; a split dim into ``model`` equal
+    contiguous spans, this rank's), but for the fused ``qkv_proj``, whose
+    columns (kernel, scale and bias alike) are :func:`qkv_columns`.  A
+    replicated leaf is passed through.  ``model`` must divide ``cfg``'s kv
+    heads and MLP width (:func:`check_model_axis`, which the serving DiT
+    runs first).  Raises ``ValueError`` where a leaf the model splits is
+    replicated by the table (a width that does not divide)."""
+    if model == 1:
+        return tree
+    specs = param_specs(tree, 1, model)
+    cols = qkv_columns(cfg, model, rank)
+
+    def cut(path, leaf):
+        spec = specs[path]
+        if not spec:
+            if _COL_PAT.search(path) or (_ROW_PAT.search(path) and
+                                         path.rsplit("/", 1)[-1] in
+                                         ("kernel", "kernel_q")):
+                raise ValueError(f"{path} {tuple(leaf.shape)} does not split "
+                                 f"over a model axis of {model}")
+            return leaf
+        dim = spec.index(MODEL_AXIS)
+        if "/qkv_proj/" in path:
+            idx = cols if isinstance(leaf, torch.Tensor) else cols.numpy()
+            return leaf[(slice(None),) * dim + (idx,)]
+        n = leaf.shape[dim] // model
+        part = leaf[(slice(None),) * dim + (slice(rank * n, (rank + 1) * n),)]
+        # A tensor's slice is a view that would keep the whole leaf alive.
+        return part.clone() if isinstance(part, torch.Tensor) else part
+
+    def walk(node, prefix=""):
+        out = {}
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            out[k] = walk(v, path) if isinstance(v, dict) else cut(path, v)
+        return out
+
+    return walk(tree)

@@ -35,8 +35,8 @@ must divide by D), the model is drawn from the seed and broadcast from rank
 chosen alike everywhere), and rank 0 alone names the run
 (``shared_run_name``), writes the checkpoints, ``preset.json`` and the
 TensorBoard scalars.  ``train.shard_opt_state`` splits the moments
-(ZeRO-1).  A model dim past 1 raises ``NotImplementedError`` (ROADMAP
-section A item 8(b)).
+(ZeRO-1).  A model dim past 1 raises ``NotImplementedError``: tensor-parallel
+training is the next slice (ROADMAP section A item 8(b)).
 
 MFU is against the H100's dense bf16 peak (``utils/flops.py``), a card's
 share: the step's FLOPs over the world size.
@@ -58,7 +58,7 @@ from ..models.dit import DenseDiT
 from ..models.from_jax import init_dense_params
 from ..parallel.distributed import (DataGroup, is_primary, shared_run_name,
                                     world)
-from ..parallel.mesh import data_rank, data_size
+from ..parallel.mesh import check_no_model_axis, data_rank, data_size
 from ..utils.device import resolve_device
 from ..utils.flops import H100_BF16_PEAK_FLOPS, train_step_flops
 from ..utils.profiling import StepTimer
@@ -133,7 +133,8 @@ class Trainer:
         self.preset = preset
         mcfg, tcfg, dcfg = preset.model, preset.train, preset.data
         data_dir = data_dir or dcfg.data_dir
-        D = data_size(mesh)  # raises for a model dim past 1
+        check_no_model_axis(mesh, "the Trainer")
+        D = data_size(mesh)
         self.n_procs = world()[1]
         self.primary = is_primary()
         if self.n_procs > 1 and mesh is None:

@@ -48,6 +48,7 @@ from ..configs import LossConfig, TrainConfig
 from ..losses import total_training_loss
 from ..sampling.flow import flow_interpolate, u_shaped
 from ..parallel.distributed import DataGroup
+from ..parallel.mesh import check_no_model_axis
 from ..utils.device import resolve_device
 from .state import TrainState, global_norm
 
@@ -132,6 +133,7 @@ def make_train_step(loss_cfg: LossConfig, train_cfg: TrainConfig,
     parameters and moments are updated in place.  Metrics are 0-dim fp32
     tensors on the state's device (the global batch's under a mesh, the
     same on every rank)."""
+    check_no_model_axis(mesh, "the train step")
     dp = DataGroup.of(mesh)
     D = 1 if dp is None else dp.size
 

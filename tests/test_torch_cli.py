@@ -104,7 +104,9 @@ def test_cli_latent_in(files, capsys):
     ("infer", ["--mesh", "1", "2"]), ("train", ["--mesh", "1", "2"]),
     ("train", ["--distributed", "--mesh", "2", "2"])])
 def test_cli_flags_of_later_slices_raise(files, entry, flag):
-    """A model axis past 1 (tensor parallelism) is the next slice's."""
+    """On a model axis past 1 training and the bf16 model are the next
+    slice's (the int8 DiT serves there:
+    ``tests/test_torch_tensor_parallel.py``)."""
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP section A item 8\(b\)"):
         if entry == "infer":

@@ -66,6 +66,11 @@ straight, and each remat policy's gradients are bit-equal to "none"'s on
 the card (the kernels and cuBLAS give the same bits on the same inputs),
 with B10's forward launched once a block under "none" and twice under the
 others.
+The split entries of tensor parallelism (B1, B5, B4: ``ops/split.py``)
+over two ranks, threads on one card joined by a fake model group: the
+shares joined bit-equal to the whole-width kernel (the row maxima and the
+int32 partial products are exact in any order), B4's pieces (row maxima,
+codes, int32 products) bit-equal to their plain versions.
 """
 
 import math
@@ -85,7 +90,7 @@ from jatsr_torch.ops.attention import (_flash_out_lib, flash_out_plain,
                                        gqa_attention_flash_qkv,
                                        gqa_attention_grouped,
                                        gqa_attention_plain)
-from jatsr_torch.ops.int8_matmul import (dense_gelu_quant_plain,
+from jatsr_torch.ops.int8_matmul import (_INV127, dense_gelu_quant_plain,
                                          int8_dense_gelu_quant, int8_matmul,
                                          int8_matmul_fused, int8_mlp,
                                          int8_mm, int8_quantize_rows,
@@ -2410,3 +2415,118 @@ def test_attention_train_kernels_with_a_batch_offset(card, dtype, D):
         _assert_f32_grads(part, ref, qs, ks, vs, dos, hq, hkv, rate)
     o0, _ = at.attention_train_fwd(qs, ks, vs, seed, hq, hkv, rate)
     assert not torch.equal(o0, o3)
+
+
+# ---- the split entries of tensor parallelism (ops/split.py) ---------------
+
+
+class _Rank:
+    """A rank of a two-rank model group on one card, as a thread: each
+    collective waits for both ranks' tensors and combines them (the same
+    stream orders every copy)."""
+
+    def __init__(self, barrier, store, r):
+        self.barrier, self.store, self.r = barrier, store, r
+
+    def _reduce(self, t, op):
+        self.store[self.r] = t.clone()
+        self.barrier.wait()
+        both = op(self.store[0], self.store[1])
+        self.barrier.wait()
+        return t.copy_(both)
+
+    def max_(self, t):
+        return self._reduce(t, torch.maximum)
+
+    def sum_(self, t):
+        return self._reduce(t, torch.add)
+
+
+def _two_ranks(fn):
+    """``fn(rank, group)`` on two threads, one a rank; the two results."""
+    import threading
+
+    barrier, store, out = threading.Barrier(2), {}, [None, None]
+
+    def run(r):
+        out[r] = fn(r, _Rank(barrier, store, r))
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    return out
+
+
+def _half(t, r, dim=-1):
+    n = t.shape[dim] // 2
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+@pytest.mark.parametrize("B,Np,H", [(6, 352, 1280), (3, 40, 128)])
+def test_b1_split_over_two_ranks_equals_the_whole_kernel(card, B, Np, H):
+    """B1's split entry on each rank's half of mlp_in's columns (its pass 1,
+    the row maxima's max, pass 2 on it): the two halves' codes joined, and
+    each rank's row scales, bit-equal to B1 on the whole width; against
+    the plain version as B1 is."""
+    from jatsr_torch.ops.split import int8_norm_mod_dense_gelu_quant_split
+
+    x, sc, sh, w_q, w_s, b = _prologue_inputs(card, B, Np, H, 4 * H,
+                                              "per_sample", seed=8)
+    want = int8_norm_mod_dense_gelu_quant(x, sc, sh, w_q, w_s, b, norm="rms",
+                                          w_t=w_q.t().contiguous())
+    n0 = int8_norm_mod_dense_gelu_quant_split.launches
+    outs = _two_ranks(lambda r, g: int8_norm_mod_dense_gelu_quant_split(
+        x, sc, sh, _half(w_q, r), _half(w_s, r), _half(b, r), g, norm="rms",
+        w_t=_half(w_q, r).t().contiguous()))
+    assert int8_norm_mod_dense_gelu_quant_split.launches == n0 + 2
+    assert torch.equal(torch.cat([o[0] for o in outs], -1), want[0])
+    assert all(torch.equal(o[1], want[1]) for o in outs)
+    plain = norm_mod_dense_gelu_quant_plain(x, sc, sh, w_q, w_s, b, norm="rms")
+    _assert_codes((want[0].reshape(B * Np, -1), want[1].reshape(-1, 1)),
+                  (plain[0].reshape(B * Np, -1), plain[1].reshape(-1, 1)),
+                  scale_rtol=2e-3)
+
+
+@pytest.mark.parametrize("M,K,N", [(2070, 1280, 5120), (100, 256, 512)])
+@pytest.mark.parametrize("fast", [True, False])
+def test_b5_split_over_two_ranks_equals_the_whole_kernel(card, M, K, N,
+                                                         fast):
+    from jatsr_torch.ops.split import int8_dense_gelu_quant_split
+
+    a, w_q, w_s, b = _dense_inputs(card, M, K, N, seed=3)
+    want = int8_dense_gelu_quant(a, w_q, w_s, b, fast_epilogue=fast,
+                                 w_t=w_q.t().contiguous())
+    outs = _two_ranks(lambda r, g: int8_dense_gelu_quant_split(
+        a, _half(w_q, r), _half(w_s, r), _half(b, r), g, fast_epilogue=fast,
+        w_t=_half(w_q, r).t().contiguous()))
+    assert torch.equal(torch.cat([o[0] for o in outs], -1), want[0])
+    assert all(torch.equal(o[1], want[1]) for o in outs)
+
+
+@pytest.mark.parametrize("M,K,N", [(2112, 1280, 1280), (100, 256, 384)])
+def test_b4_split_over_two_ranks_equals_the_whole_kernel(card, M, K, N):
+    """B4's split entry on each rank's half of the input's columns and of
+    the kernel's rows, with an all-zero row and one large value: the row
+    maxima, the codes and the int32 products bit-equal to their plain
+    versions, the output on both ranks bit-equal to B4."""
+    from jatsr_torch.ops.split import int8_matmul_fused_split
+
+    a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=9)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    want = int8_matmul_fused(a, w_q, w_s, w_t=w_q.t().contiguous())
+    parts = [{}, {}]
+    outs = _two_ranks(lambda r, g: int8_matmul_fused_split(
+        _half(a, r), _half(w_q, r, 0), w_s, g,
+        w_t=_half(w_q, r, 0).t().contiguous(), parts=parts[r]))
+    amax = a.float().abs().amax(dim=-1)
+    s = (amax[:, None] * _INV127).clamp_min(1e-12)
+    for r, (o, p) in enumerate(zip(outs, parts)):
+        assert torch.equal(o, want)
+        assert torch.equal(p["amax"], amax)
+        a_q = torch.round(_half(a, r).float() / s).to(torch.int8)
+        assert torch.equal(p["a_q"], a_q) and torch.equal(p["s"], s)
+        assert torch.equal(p["acc_local"], int8_mm(a_q, _half(w_q, r, 0)))

@@ -223,12 +223,22 @@ def test_dense_dit_with_learned_positions_matches_jax():
 
 
 def test_dynamic_int8_does_not_train():
-    """Dynamic int8 is a serving mode: the training forward raises."""
+    """Dynamic int8 trains as the JAX model does: the training forward
+    runs, and a projection's kernel gets a gradient only at its columns'
+    maxima (on the compute-dtype values), the quantisation scale being the
+    weight's one path (``tests/test_torch_int8_train.py`` holds the values
+    against JAX)."""
     cfg = dataclasses.replace(narrow_cfg(get_preset),
                               matmul_precision="int8", fused_qkv=False)
     model = DenseDiT(cfg, random_dense_params(cfg, 62), device="cpu")
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        check_training_config(cfg)
-    x = torch.zeros((1, 8, C))
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        model(x, torch.zeros(1), x, deterministic=False, layer_seeds=[1, 2])
+    check_training_config(cfg)
+    x = torch.from_numpy(np.random.default_rng(63).standard_normal(
+        (1, 8, C), dtype=np.float32))
+    out = model(x, torch.full((1,), 0.4), x, deterministic=False,
+                layer_seeds=[1, 2])
+    out.square().mean().backward()
+    kernel = model.blocks[0].mlp_in.kernel
+    w = kernel.detach().bfloat16().float().abs()
+    at_max = w == w.amax(dim=0, keepdim=True)
+    assert (kernel.grad[~at_max] == 0).all()
+    assert (kernel.grad[at_max] != 0).any()

@@ -72,6 +72,25 @@ def test_parallel_modules_are_among_those_imported():
             "jatsr_torch.parallel.distributed"} <= set(_port_modules())
 
 
+def test_tensor_parallel_modules_import_no_jax():
+    """Tensor-parallel serving: the kernels' split entries
+    (``ops/split.py``) and the model group (``ModelGroup``); imported
+    alone, they bring in neither JAX nor the JAX package."""
+    assert "jatsr_torch.ops.split" in set(_port_modules())
+    code = ("import sys\n"
+            "from jatsr_torch.ops import split\n"
+            "from jatsr_torch.parallel import ModelGroup, local_params\n"
+            "assert all(hasattr(ModelGroup, k) for k in "
+            "('max_', 'sum_', 'gather_cols'))\n"
+            "assert callable(split.int8_matmul_fused_split)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jatsr_tpu', 'flax'))]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_never_name_the_jax_package():
     files = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]

@@ -380,16 +380,22 @@ def test_b10_plain_with_offset_is_the_matching_rows(dtype):
 
 
 def test_tensor_parallel_and_a_shared_card_under_nccl_raise():
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP section A item 8\(b\)"):
+    """Tensor-parallel training is the next slice's (serving on a model
+    axis: ``tests/test_torch_tensor_parallel.py``); a mesh needs its
+    processes; NCCL refuses two ranks on one card."""
+    from jatsr_torch.parallel.mesh import check_no_model_axis
+
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
         make_mesh(1, 2, device="cpu")
 
     class FakeMesh:
         def size(self, dim):
             return (2, 2)[dim]
 
-    with pytest.raises(NotImplementedError, match=r"item 8\(b\)"):
-        data_size(FakeMesh())
+    assert data_size(FakeMesh()) == 2
+    with pytest.raises(NotImplementedError,
+                       match=r"tensor-parallel training .* item 8\(b\)"):
+        check_no_model_axis(FakeMesh(), "the train step")
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one"):
         card_of(0, 2, 1, "nccl")
     assert card_of(1, 2, 1, "gloo") == 0 and card_of(3, 4, 4, "nccl") == 3

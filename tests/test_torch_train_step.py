@@ -471,16 +471,16 @@ def test_init_dense_params_draws_as_flax():
         np.testing.assert_array_equal(back[k], v)
 
 
-@pytest.mark.parametrize("knob", [dict(matmul_precision="int8"),
+@pytest.mark.parametrize("knob", [dict(param_dtype="float16"),
                                   dict(matmul_precision="int8_static")])
 def test_training_knobs_of_later_slices_raise(knob):
-    """A knob of a training branch the port lacks raises where the model
-    trains (the training forward: dynamic int8 serves, and does not train);
-    one that every path reads (``matmul_precision="int8_static"``) already
-    where the model is built.  Every remat policy trains
+    """A knob of a branch the port lacks raises: one that every path reads
+    (``matmul_precision="int8_static"``, a parameter dtype other than fp32
+    and bf16) already where the model is built.  Every remat policy trains
     (``tests/test_torch_remat.py``), and so do bf16 scores
     (``tests/test_torch_dtypes.py``), fp32 compute and bf16 parameters
-    (``tests/test_torch_train_f32.py``)."""
+    (``tests/test_torch_train_f32.py``) and dynamic int8
+    (``tests/test_torch_int8_train.py``)."""
     x = torch.zeros(1, 8, 1024)
     with pytest.raises(NotImplementedError, match="later slice"):
         DenseDiT(_tiny(get_preset, **knob), device="cpu")(
