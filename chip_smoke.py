@@ -193,7 +193,15 @@ a third step bit-equal to the resumed trainer's, and ``cli.infer --mesh 1
 policies, ``[dp shared card]``: two ranks spawned on card 0 over gloo (NCCL refuses
 two ranks on one GPU), two v3mod2 steps at batch 28 (14 a rank) with and
 without ZeRO-1 against the single-card steps, and the main path's sampler
-on a (2, 1) mesh against the single-card pass (bounds at ``DP_RANKS``).
+on a (2, 1) mesh against the single-card pass (bounds at ``DP_RANKS``);
+then ``[tp shared card]``: the int8 DiT over two ranks of a (1, 2) mesh
+on card 0 (bounds at ``TP_STEPS``); then ``[tp train shared card]``:
+``DenseDiT`` over two ranks of a (1, 2) mesh, B10 at a rank's heads
+(``h0``), two v3mod2 steps (their losses, grad norms, first moments and
+parameters) with one-step witnesses at fp32 and under dynamic int8, the
+bf16 forward with its fp32 witness and the dynamic-int8 forward, each
+against one card (bounds at ``TP_TRAIN_B``), whose B10 launches give the
+``attention_train_{fwd,bwd}_h0`` kernel lines.
 
 Audio in, audio out: 44.0 s of mono 16 kHz audio (704,000 samples from
 the seed) through ``super_resolve_audio`` on the main path's DiT and the
@@ -3369,7 +3377,7 @@ class RowMaxima:
             dit, dit.int8_dot_general, [], set())
 
     def __enter__(self):
-        def record(x, kernel, impl="xla"):
+        def record(x, kernel, impl="xla", **kw):
             a = x.detach().abs().reshape(-1, x.shape[-1])
             hit = (a == a.amax(dim=-1, keepdim=True)).flatten()
             pos = hit.nonzero().flatten().cpu()
@@ -3377,7 +3385,7 @@ class RowMaxima:
             if key not in self.seen:
                 self.seen.add(key)
                 self.calls.append((a.shape[1], pos))
-            return self.real(x, kernel, impl)
+            return self.real(x, kernel, impl, **kw)
 
         self.dit.int8_dot_general = record
         return self
@@ -3774,6 +3782,13 @@ def cli_train_phase(torch, card, dense_pt):
                 f"bit-equal to the plain run's ({n} tensors, meta): {ok}")
             if not ok:
                 raise AssertionError(f"[dp nccl] {name} differs")
+        # Nothing reads the two ``best`` again: free their 18.4 GB before
+        # the resumed run writes its ``last`` (the card machine's disk
+        # takes 45 GiB of writes a call; freed blocks are written again
+        # only once the deletes are synced).
+        for r in (run, run_nccl):
+            shutil.rmtree(r / "best")
+        os.sync()
 
         # A fresh trainer resumes from the run directory.
         loop.make_train_step = real_step
@@ -4870,6 +4885,587 @@ def tp_shared_card_phase(torch, static, card, weights):
             + outs[0]["no_prologue"]["launches"][k] for k in counters}
 
 
+# [tp train shared card]: DenseDiT tensor-parallel on a (1, TP_M) mesh,
+# trained and served, its TP_M ranks spawned on card 0 over gloo as [tp
+# shared card]'s (the collectives through host memory: the times say
+# nothing of NVLink).  Against single-card references the parent computes
+# first:
+# (a) B10 at a rank's heads (q heads h0 = r Hq / TP_M .., their kv heads),
+#     bf16 and fp32, forward (o and the row statistics) and backward (dq,
+#     dk, dv), at the v3 training shape (q [28, 345, 1280], k/v [28, 345,
+#     256], dropout 0.1) and at D = 256 (4/2 heads, batch 4): each rank's
+#     launches bit-equal to those heads of one launch over all heads, and
+#     within the plain version's bounds at h0;
+# (b) TP_TRAIN_STEPS v3mod2 steps at full width and depth under the MSE loss
+#     (the perceptual 1/|rfft| gradient magnifies last bits) on TP_TRAIN_B
+#     rows: each step's loss and grad norm within rtol 2e-4 of one card's
+#     (JAX's bound on the loss for its (4, 2) mesh); every parameter
+#     within 2 lr of one card's after the second step; each rank's peak
+#     GiB and step ms beside one card's, its B10 launches.  Step 0 runs at
+#     lr 0 under warmup, so step 1's loss checks only the forward: the
+#     first moments after step 0, (1 - b1) g, hold the backward, on each
+#     leaf within twice the one card's own bf16 gap from its fp32 step
+#     (:func:`moment_gaps`).  Two witnesses of one step each: at fp32
+#     compute (the same split, f and g; rounding 2^-24) the loss and grad
+#     norm within rtol 1e-5, the first moments within TP_MU_F32_REL of
+#     each leaf's max; under dynamic int8 (B4's split entry at out_proj
+#     and mlp_out, the int32 partial products summed again in backward)
+#     the loss and grad norm within rtol 2e-4, each leaf's first moments
+#     within relative L2 0.5 (TRAIN_REF_BOUNDS, "train_int8": a moved row
+#     maximum moves whole rows of the gradient; a wrong sign reads 2);
+# (c) the DenseDiT's forward (B11 on the rank's heads) against one card's,
+#     at fp32 compute within relative L2 TP_FWD_F32_REL_L2 (the witness:
+#     the same split, f and g, where rounding is 2^-24), and at bf16 within
+#     that forward's own bf16 noise: its max abs and relative L2 from the
+#     one-card fp32 forward of the same weights.  JAX's bound for its
+#     mesh, atol 1e-3 (tests/test_trainer_and_infer.py), holds a model a
+#     few steps from its AdaLN-Zero start, whose output is near zero; at
+#     random weights and 28 blocks cuBLAS on half the columns and g's sum
+#     of two fp32 partials round some elements a bf16 ulp apart, which the
+#     blocks carry to ~4e-2 on an H100 (PERF.md), so at bf16 atol 1e-3 is
+#     reported, not held;
+# (d) the dynamic-int8 DenseDiT's forward (B4, its split entry at out_proj
+#     and mlp_out) bit-equal to one card's.
+# (c) and (d) run on [TP_FWD_B, 1378, 1024] on a given AdaLN table, as [tp
+# shared card]'s (b) does.  The batch of (b) is cut from the preset's 28 to
+# 8: each step all-reduces six [B, 345, 1280] fp32 tensors a block through
+# host memory ([tp shared card]'s gloo reads: ~3 ms a MB), about 7 s a
+# step at 8 rows and 25 s at 28; two ranks' states (~6 GiB each) and
+# activations fit the card at either batch.
+TP_TRAIN_B = 8
+TP_TRAIN_STEPS = 2
+TP_FWD_B = 4
+TP_LOSS_RTOL = 2e-4
+TP_FWD_ATOL = 1e-3    # JAX's, reported beside (c)'s bound
+TP_FWD_F32_REL_L2 = 1e-5
+# The one-step witnesses of (b): tag (TRAIN_PATHS) -> the rtol of their
+# loss and grad norm.
+TP_WITNESSES = {"train_fp32": 1e-5, "train_int8": TP_LOSS_RTOL}
+TP_MU_F32_REL = 1e-5   # the fp32 step's first moments, of each leaf's max
+B10_H0_SHAPES = {"v3": (TRAIN_B, TRAIN_N, 20, 4, 64),
+                 "d256": (4, TRAIN_N, 4, 2, 256)}
+
+
+def b10_h0_inputs(torch, shape, dt, seed_):
+    """q, k, v, do of ``shape`` (B, N, hq, hkv, D) on the card in ``dt``."""
+    Bq, N, hq, hkv, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed_)
+    return [torch.randn((Bq, N, w * D), generator=gen, device="cuda").to(dt)
+            for w in (hq, hkv, hkv, hq)]
+
+
+def b10_heads(shape, r):
+    """Rank ``r``'s q columns, kv columns and h0."""
+    _, _, hq, hkv, D = shape
+    qd, kd = hq // TP_M * D, hkv // TP_M * D
+    return slice(r * qd, (r + 1) * qd), slice(r * kd, (r + 1) * kd), \
+        r * hq // TP_M
+
+
+def b10_h0_runs(torch, r=None):
+    """(a): for each shape and dtype, B10 forward and backward on all heads
+    (``r`` None) or on rank ``r``'s at its h0: CPU copies of o, stats, dq,
+    dk, dv; on a rank also each output's max abs error against the plain
+    version at h0."""
+    from jatsr_torch.ops import attention_train as at
+
+    rate, seed = 0.1, -123456789
+    out, errs = {}, {}
+    for name, shape in B10_H0_SHAPES.items():
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            q, k, v, do = b10_h0_inputs(torch, shape, dt, SEED + 61)
+            hq, hkv, h0 = shape[2], shape[3], 0
+            if r is not None:
+                qs, ks, h0 = b10_heads(shape, r)
+                q, do = q[..., qs].contiguous(), do[..., qs].contiguous()
+                k, v = k[..., ks].contiguous(), v[..., ks].contiguous()
+                hq, hkv = hq // TP_M, hkv // TP_M
+            o, st = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate,
+                                           h0=h0)
+            grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv,
+                                           rate, st, h0=h0)
+            out[f"{name}_{tag}"] = [t.cpu() for t in (o, st, *grads)]
+            if r is not None:
+                want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv,
+                                                    rate, h0=h0)
+                ref = at.attention_train_bwd_plain(q, k, v, o, do, seed, hq,
+                                                   hkv, rate, h0=h0)
+                errs[f"{name}_{tag}"] = [
+                    ((a.float() - w.float()).abs().max().item(),
+                     w.float().abs().max().item())
+                    for a, w in zip((o, *grads), (want, *ref))]
+            del q, k, v, do, o, st, grads
+            torch.cuda.empty_cache()
+    return out, errs
+
+
+def check_b10_h0_timed(torch):
+    """B10 at a rank's half of the heads (v3's 20/4 at M = 2: 10 q heads,
+    2 kv heads) at h0 = 10 against h0 = 0 on the same inputs, in turns (0,
+    10, 10, 0), beside the plain version and SDPA on those heads: the
+    ``attention_train_{fwd,bwd}_h0`` kernel lines (``launches`` set after
+    (b)); the fp32 mode's times in each line's ``fp32``."""
+    import torch.nn.functional as F
+
+    from jatsr_torch.ops import attention_train as at
+
+    rate, seed = 0.1, -123456789
+    shape = B10_H0_SHAPES["v3"]
+    Bq, N, hq, hkv, D = shape
+    qs, ks, h0 = b10_heads(shape, 1)
+    hq, hkv = hq // TP_M, hkv // TP_M
+    lines = {}
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, "fp32")):
+        q, k, v, do = b10_h0_inputs(torch, shape, dt, SEED + 62)
+        q, do = q[..., qs].contiguous(), do[..., qs].contiguous()
+        k, v = k[..., ks].contiguous(), v[..., ks].contiguous()
+        o, st = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate, h0=h0)
+        want = at.attention_train_fwd_plain(q, k, v, seed, hq, hkv, rate,
+                                            h0=h0)
+        ref = at.attention_train_bwd_plain(q, k, v, o, do, seed, hq, hkv,
+                                           rate, h0=h0)
+        grads = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate,
+                                       st, h0=h0)
+        err_f = (o.float() - want.float()).abs().max().item()
+        err_b = max((a.float() - r_.float()).abs().max().item()
+                    for a, r_ in zip(grads, ref))
+        del want, ref, grads
+
+        def heads(x, h):
+            x = x.reshape(Bq, N, h, D).transpose(1, 2)
+            return x.repeat_interleave(hq // h, 1).contiguous()
+
+        q4, k4, v4, do4 = heads(q, hq), heads(k, hkv), heads(v, hkv), \
+            heads(do, hq)
+        fwd = timings(
+            lambda q, k, v, *_: at.attention_train_fwd(q, k, v, seed, hq,
+                                                       hkv, rate, h0=h0),
+            lambda q, k, v, *_: at.attention_train_fwd_plain(
+                q, k, v, seed, hq, hkv, rate, h0=h0),
+            lambda q, k, v, q4, k4, v4: F.scaled_dot_product_attention(
+                q4, k4, v4, dropout_p=rate),
+            (q, k, v, q4, k4, v4), big=(0, 1, 2, 3, 4, 5), reps=50,
+            plain_reps=3)
+        q4g, k4g, v4g = (x.clone().requires_grad_() for x in (q4, k4, v4))
+        out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, dropout_p=rate)
+        bwd = timings(
+            lambda q, k, v, o, do, *_: at.attention_train_bwd(
+                q, k, v, o, do, seed, hq, hkv, rate, st, h0=h0),
+            lambda q, k, v, o, do, *_: at.attention_train_bwd_plain(
+                q, k, v, o, do, seed, hq, hkv, rate, h0=h0),
+            lambda *a: torch.autograd.grad(out4, (q4g, k4g, v4g), a[5],
+                                           retain_graph=True),
+            (q, k, v, o, do, do4), big=(0, 1, 2, 3, 4), reps=30,
+            plain_reps=3)
+        del out4, q4g, k4g, v4g, q4, k4, v4, do4
+        turns = {"fwd": {0: [], h0: []}, "bwd": {0: [], h0: []}}
+        for off in (0, h0, h0, 0):
+            turns["fwd"][off].append(time_ms(
+                lambda *_: at.attention_train_fwd(q, k, v, seed, hq, hkv,
+                                                  rate, h0=off), [()], 30))
+            turns["bwd"][off].append(time_ms(
+                lambda *_: at.attention_train_bwd(q, k, v, o, do, seed, hq,
+                                                  hkv, rate, st, h0=off),
+                [()], 20))
+        pairs = Bq * hq * N * N * D
+        peak = PEAK_FP32 if tag else PEAK_BF16
+        b_f = bound(nbytes_of(q, k, v, o, st), 4 * pairs, peak)
+        b_b = bound(nbytes_of(q, k, v, o, do, st) + nbytes_of(q, k, v),
+                    10 * pairs, peak)
+        for way, t, b, err in (("fwd", fwd, b_f, err_f),
+                               ("bwd", bwd, b_b, err_b)):
+            t0, t1 = (sum(turns[way][x]) / 2 for x in (0, h0))
+            entry = {"max_abs_err": err, **t, "bound_ms": b[0],
+                     "bound_by": b[1], "ms_h0_0": t0, "ms_h0_turns": t1,
+                     "turns_ms": turns[way][0][:1] + turns[way][h0]
+                     + turns[way][0][1:]}
+            name = f"attention_train_{way}_h0"
+            if not tag:
+                lines[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "jatsr_torch/ops/csrc/attention_train.cu",
+                    "replaces": ("ops/attention_train.py:340 (JAX package, "
+                                 "gqa_attention_train; " +
+                                 ("_fwd_call :258, pallas_call :266"
+                                  if way == "fwd" else
+                                  "_attn_train_bwd :300, pallas_call :312")
+                                 + "; a rank's heads at h0)"),
+                    **entry, "shape": [Bq, N, hq, hkv, D], "h0": h0,
+                    "dropout": rate}
+            else:
+                lines[name]["fp32"] = {
+                    "source": "jatsr_torch/ops/csrc/attention_f32.cu"
+                    if way == "fwd" else
+                    "jatsr_torch/ops/csrc/attention_f32_bwd.cu", **entry}
+            log(f"[kernel] {name}{' ' + tag if tag else ''} at h0 {h0}: "
+                f"{t1:.5f} ms against {t0:.5f} at h0 0 on the same heads "
+                f"({(t1 / t0 - 1) * 100:+.2f} %), max abs {err:.3g}")
+        del q, k, v, do, o, st
+        torch.cuda.empty_cache()
+    return lines
+
+
+def tp_train_inputs(torch):
+    """(b)'s preset, step config, MSE loss, TP_TRAIN_B rows and stats."""
+    preset, tcfg, loss, hr, lr, stats = dp_train_inputs(torch)
+    tcfg = dataclasses.replace(tcfg, batch_size=TP_TRAIN_B)
+    return (preset, tcfg, loss, hr[:TP_TRAIN_B].contiguous(),
+            lr[:TP_TRAIN_B].contiguous(), stats)
+
+
+def tp_fwd_cfgs():
+    """(c)'s bf16 DenseDiT (v3mod2 served: dropout off, B11) and its fp32
+    compute witness (B11's fp32 mode), and (d)'s dynamic-int8 one (B4 at
+    every projection but the t-MLP and AdaLN)."""
+    from jatsr_torch.configs import get_preset
+
+    base = dataclasses.replace(get_preset("v3mod2").model, dropout=0.0,
+                               drop_path_rate=0.0, attention_impl="flash")
+    return {"bf16": base,
+            "fp32": dataclasses.replace(base, dtype="float32"),
+            "int8": dataclasses.replace(base, matmul_precision="int8",
+                                        int8_impl="fused")}
+
+
+def tp_fwd_inputs(torch):
+    """``x_t``, ``t``, ``x_cond`` [TP_FWD_B, 1378, 1024] on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    x_t, x_c = (torch.randn((TP_FWD_B, TRAIN_FRAMES, 1024), generator=gen,
+                            device="cuda") for _ in range(2))
+    return x_t, torch.linspace(0.2, 0.8, TP_FWD_B, device="cuda"), x_c
+
+
+def tp_train_run(torch, dense, mesh=None, witness=None):
+    """(b) on one card (no mesh) or a rank: each step's loss, grad norm and
+    ms, B10's launches, the peak GiB, the final parameters and the first
+    moments after step 0 on the host (this rank's leaves, by name) and
+    ``1 - b1``.  ``witness``: a TP_WITNESSES tag, one step on that path
+    (fp32 compute, or dynamic int8 on B4)."""
+    import gc
+
+    from jatsr_torch.models.dit import DenseDiT
+    from jatsr_torch.ops import attention_train as at
+    from jatsr_torch.train import (Normalizer, create_train_state,
+                                   make_train_step)
+
+    preset, tcfg, loss, hr, lr, stats = tp_train_inputs(torch)
+    cfg = dataclasses.replace(preset.model, **TRAIN_PATHS.get(witness, {}))
+    steps = TP_TRAIN_STEPS if witness is None else 1
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(
+        DenseDiT(cfg, dense, device="cuda", mesh=mesh), tcfg, 1000,
+        (hr, lr), device="cuda", mesh=mesh)
+    step = make_train_step(loss, tcfg, Normalizer(*stats), mesh=mesh)
+    at.attention_train_fwd.launches = at.attention_train_bwd.launches = 0
+    names = [k for k, _ in state.model.named_parameters()]
+    losses, norms, times, mu0 = [], [], [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, hr, lr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if mu0 is None:
+            mu0 = {k: t.cpu() for k, t in zip(names, state.opt_state.mu)}
+    out = {"losses": losses, "grad_norms": norms, "ms": times,
+           "one_minus_b1": 1.0 - state.tx.b1,
+           "launches": [at.attention_train_fwd.launches,
+                        at.attention_train_bwd.launches],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2.0 ** 30,
+           "lr_sum": sum(float(state.tx.schedule(i)) for i in range(steps))}
+    params = {k: p.detach() for k, p in state.model.named_parameters()}
+    split = dict(state.model.split_dims)
+    del state, step, hr, lr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params, split, mu0
+
+
+def moment_gaps(mus, refs, cut, scale):
+    """(b)'s first moments after step 0 against one card's (``mus`` and
+    ``refs`` by path: "train", then each TP_WITNESSES tag), each leaf's
+    worst ``(gap / bound, leaf)``: "train" against twice the one card's own
+    bf16 gap from its fp32 step on that leaf (the triangle inequality
+    where each side is no further from the exact gradient than one card's
+    bf16 step); "train_fp32" against TP_MU_F32_REL of the leaf's max;
+    "train_int8" its relative L2 against TRAIN_REF_BOUNDS' (a moved row
+    maximum moves whole rows; a wrong sign reads 2); "ulps": the bf16 gaps
+    in bf16 ulps of the leaf's max gradient (``scale`` is ``1 - b1``)."""
+    gaps = {k: [] for k in ("train", "train_fp32", "train_int8", "ulps")}
+
+    def ratio(d, b):
+        return d / b if b > 0 else (0.0 if d == 0 else math.inf)
+
+    for k, m in mus["train"].items():
+        want, want32, want8 = (cut(refs[t], k) for t in
+                               ("train", "train_fp32", "train_int8"))
+        d = (m - want).abs().max().item()
+        noise = (want - want32).abs().max().item()
+        gaps["train"].append((ratio(d, 2 * noise), k))
+        ulp = bf16_ulp(want.abs().max().item() / scale) * scale
+        gaps["ulps"].append((ratio(d, ulp), k))
+        d32 = (mus["train_fp32"][k] - want32).abs().max().item()
+        gaps["train_fp32"].append(
+            (ratio(d32, TP_MU_F32_REL * want32.abs().max().item()), k))
+        l2 = ratio((mus["train_int8"][k] - want8).norm().item(),
+                   want8.norm().item())
+        gaps["train_int8"].append(
+            (l2 / TRAIN_REF_BOUNDS["train_int8"]["mu_l2"], k))
+    return {key: worst_leaf(v) for key, v in gaps.items()}
+
+
+def tp_fwd_run(torch, dense, table, mesh=None):
+    """(c) and (d): each model's forward on the given AdaLN table (in the
+    model's compute dtype), with its ms (one counted call, then TP_TIMED;
+    the fp32 witness untimed)."""
+    import gc
+
+    from jatsr_torch.models.dit import DenseDiT
+
+    x_t, t, x_c = tp_fwd_inputs(torch)
+    outs, ms = {}, {}
+    for name, cfg in tp_fwd_cfgs().items():
+        model = DenseDiT(cfg, dense, device="cuda", mesh=mesh)
+        mod = table.float() if name == "fp32" else table
+        with torch.no_grad():
+            outs[name] = model(x_t, t, x_c, adaln_mod=mod).cpu()
+            times = []
+            for _ in range(0 if name == "fp32" else TP_TIMED):
+                t0 = time.perf_counter()
+                model(x_t, t, x_c, adaln_mod=mod)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        if times:
+            ms[name] = sorted(times)[len(times) // 2]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs, ms
+
+
+def worst_leaf(pairs):
+    """The ``(value, leaf)`` of ``pairs`` whose value is largest, a NaN
+    counted as infinite (so that it fails every bound)."""
+    return max(((math.inf if v != v else v, k) for v, k in pairs),
+               default=(0.0, ""))
+
+
+def bf16_ulp(m: float) -> float:
+    """The spacing of bf16 values at ``m`` (> 0): 2^(floor(log2 m) - 7)."""
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def tp_train_rank(rank, root, weights):
+    """One rank of ``[tp train shared card]``: (a)-(d) of the comment above,
+    the results into ``root/rank<r>.json`` and ``root/out<r>.pt``."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from jatsr_torch.parallel import init_distributed, make_mesh
+
+    root = Path(root)
+    init_distributed(f"file://{root}/store", TP_M, rank, local_rank=rank,
+                     backend="gloo", device="cuda")
+    mesh = make_mesh(1, TP_M, device="cuda")
+    out = {"rank": rank, "card": torch.cuda.current_device(),
+           "backend": dist.get_backend(), "mesh": list(mesh.shape)}
+    b10, out["b10_err"] = b10_h0_runs(torch, rank)
+    dense = torch.load(Path(weights) / "dense.pt", mmap=True,
+                       weights_only=True)
+    out["train"], params, split, mu0 = tp_train_run(torch, dense, mesh)
+    mus = {"train": mu0}
+    for tag in TP_WITNESSES:
+        out[tag], _, _, mus[tag] = tp_train_run(torch, dense, mesh, tag)
+
+    def cut(ref, k):
+        return ref[k].chunk(TP_M, split[k])[rank] if k in split else ref[k]
+
+    ref = torch.load(root / "ref_params.pt", mmap=True, weights_only=True)
+    out["param_max_diff"] = worst_leaf(
+        ((p - cut(ref, k).to(p.device)).abs().max().item(), k)
+        for k, p in params.items())
+    del params, ref
+    refs = {t: torch.load(root / f"ref_mu_{t}.pt", mmap=True,
+                          weights_only=True) for t in mus}
+    out["mu_gaps"] = moment_gaps(mus, refs, cut,
+                                 out["train"]["one_minus_b1"])
+    del mu0, mus, refs
+    table = torch.load(root / "table.pt").cuda()
+    fwd, out["fwd_ms"] = tp_fwd_run(torch, dense, table, mesh)
+    torch.save({"b10": b10, "fwd": fwd}, root / f"out{rank}.pt")
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_train_shared_card_phase(torch, dense, card, weights):
+    """``[tp train shared card]``: the single-card references, then the
+    ranks (:func:`tp_train_rank`) on this card, then their results checked.
+    Returns the h0 kernel lines with rank 0's launches of (b)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    from jatsr_torch.models.dit import DenseDiT, adaln_tables
+
+    lines = check_b10_h0_timed(torch)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tptrain_"))
+    try:
+        t0 = time.perf_counter()
+        whole, _ = b10_h0_runs(torch)
+        os.sync()  # the earlier phases' deleted files, freed on the disk
+        single, params, _, mu0 = tp_train_run(torch, dense)
+        torch.save({k: p.cpu() for k, p in params.items()},
+                   root / "ref_params.pt")
+        torch.save(mu0, root / "ref_mu_train.pt")
+        del params, mu0
+        witness = {}
+        for tag in TP_WITNESSES:
+            witness[tag], _, _, mu0 = tp_train_run(torch, dense,
+                                                   witness=tag)
+            torch.save(mu0, root / f"ref_mu_{tag}.pt")
+            del mu0
+        _, t, _ = tp_fwd_inputs(torch)
+        model = DenseDiT(tp_fwd_cfgs()["bf16"], dense, device="cuda")
+        with torch.no_grad():
+            table = adaln_tables(model, t)
+        torch.save(table.cpu(), root / "table.pt")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_fwd, single["fwd_ms"] = tp_fwd_run(torch, dense, table)
+        # (c)'s bf16 bound: the one card's bf16 forward against its fp32.
+        noise = ((ref_fwd["bf16"] - ref_fwd["fp32"]).abs().max().item(),
+                 ((ref_fwd["bf16"] - ref_fwd["fp32"]).norm()
+                  / ref_fwd["fp32"].norm()).item())
+        single["bf16_noise"] = noise
+        del table
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[tp train shared card] single-card references: "
+            f"{json.dumps(single)}; one step of each witness "
+            f"{json.dumps(witness)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mp.start_processes(tp_train_rank, args=(str(root), str(weights)),
+                           nprocs=TP_M, start_method="spawn")
+        wall = time.perf_counter() - t0
+        outs = [json.loads((root / f"rank{r}.json").read_text())
+                for r in range(TP_M)]
+        got = [torch.load(root / f"out{r}.pt") for r in range(TP_M)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for o in outs:
+        log(f"[tp train shared card] rank {o['rank']}: {json.dumps(o)}")
+    bad = []
+    depth = tp_fwd_cfgs()["bf16"].depth
+    for r, (o, g) in enumerate(zip(outs, got)):
+        if (o["card"], o["backend"], o["mesh"]) != (0, "gloo", [1, TP_M]):
+            bad.append(f"rank {r} on card {o['card']} over {o['backend']}")
+        # (a) a rank's heads: bit-equal to the whole launch's.
+        for key, mine in g["b10"].items():
+            shape = B10_H0_SHAPES[key.rsplit("_", 1)[0]]
+            qs, ks, _ = b10_heads(shape, r)
+            o_w, st_w, dq_w, dk_w, dv_w = whole[key]
+            hq = shape[2] // TP_M
+            want = [o_w[..., qs], st_w[:, r * hq:(r + 1) * hq],
+                    dq_w[..., qs], dk_w[..., ks], dv_w[..., ks]]
+            if not all(torch.equal(a, w) for a, w in zip(mine, want)):
+                bad.append(f"(a) rank {r} {key}: not the whole launch's "
+                           f"heads")
+            for (e, m), name in zip(o["b10_err"][key],
+                                    ("o", "dq", "dk", "dv")):
+                # The bounds of check_attention_train and the fp32 mode's.
+                lim = (REL_F32_TRAIN * m if key.endswith("fp32") else
+                       2e-2 + 2e-2 * m if name == "o" else REL_ATTN_BWD * m)
+                if not e <= lim:
+                    bad.append(f"(a) rank {r} {key} {name}: max abs {e} "
+                               f"against the plain version at h0 > {lim}")
+        # (b) the steps.  Each comparison is written so that NaN fails.
+        tr = o["train"]
+        for key in ("losses", "grad_norms"):
+            for a, w in zip(tr[key], single[key]):
+                if not abs(a - w) <= TP_LOSS_RTOL * abs(w):
+                    bad.append(f"(b) rank {r} {key} {a} against {w}")
+        if tr["launches"] != [2 * depth * TP_TRAIN_STEPS,
+                              depth * TP_TRAIN_STEPS]:
+            bad.append(f"(b) rank {r} B10 launches {tr['launches']}")
+        for tag, rtol in TP_WITNESSES.items():
+            for key in ("losses", "grad_norms"):
+                for a, w in zip(o[tag][key], witness[tag][key]):
+                    if not abs(a - w) <= rtol * abs(w):
+                        bad.append(f"(b) rank {r} {tag} {key} {a} against "
+                                   f"{w}")
+        for key in ("train", *TP_WITNESSES):
+            u, leaf = o["mu_gaps"][key]
+            if not u <= 1.0:
+                bad.append(f"(b) rank {r} {key} {leaf}: first moments after "
+                           f"step 0 {u} times the bound from one card's")
+        d, leaf = o["param_max_diff"]
+        if not d <= 2 * single["lr_sum"] * 1.01:
+            bad.append(f"(b) rank {r} {leaf} {d} past 2 lr "
+                       f"({single['lr_sum']})")
+        # (c), (d) the forwards.
+        fwd = {}
+        for name in ("bf16", "fp32"):
+            diff = g["fwd"][name] - ref_fwd[name]
+            fwd[name] = {"max_abs": diff.abs().max().item(),
+                         "rel_l2": (diff.norm()
+                                    / ref_fwd[name].norm()).item()}
+        dc, rel = fwd["bf16"]["max_abs"], fwd["bf16"]["rel_l2"]
+        if not (dc <= noise[0] and rel <= noise[1]):
+            bad.append(f"(c) rank {r}: max abs {dc}, rel L2 {rel} past the "
+                       f"one card's bf16 noise {noise}")
+        if not fwd["fp32"]["rel_l2"] <= TP_FWD_F32_REL_L2:
+            bad.append(f"(c) rank {r} fp32: {fwd['fp32']} past rel L2 "
+                       f"{TP_FWD_F32_REL_L2}")
+        if not torch.equal(g["fwd"]["int8"], ref_fwd["int8"]):
+            dd = (g["fwd"]["int8"] - ref_fwd["int8"]).abs().max().item()
+            bad.append(f"(d) rank {r}: not bit-equal (max abs {dd})")
+        o["fwd_bf16"] = {**fwd["bf16"], "within_jax_atol": dc <= TP_FWD_ATOL}
+        o["fwd_fp32"] = fwd["fp32"]
+    a = outs[0]
+    steps = {tag: [[o[tag][k] for k in ("losses", "grad_norms", "ms")]
+                   for o in outs] for tag in TP_WITNESSES}
+    log(f"[tp train shared card] {card}: {TP_M} ranks on card 0 over gloo, "
+        f"spawned and joined in {wall:.1f} s; (a) each rank's heads "
+        f"bit-equal to the whole launch's, bf16 and fp32, D 64 and 256; (b) "
+        f"losses {a['train']['losses']} against {single['losses']}, grad "
+        f"norms {a['train']['grad_norms']} against {single['grad_norms']}, "
+        f"first moments after step 0, worst leaf over its bound "
+        f"{[o['mu_gaps'] for o in outs]}; the witnesses' steps, losses, "
+        f"grad norms and ms a rank {steps} against the single card's "
+        f"{witness}; "
+        f"parameters max {[o['param_max_diff'] for o in outs]} (lr sum "
+        f"{single['lr_sum']:.3g}), step ms a rank "
+        f"{[o['train']['ms'] for o in outs]} against {single['ms']}, peak "
+        f"GiB a rank {[o['train']['peak_gib'] for o in outs]} against "
+        f"{single['peak_gib']:.3f}, B10 launches a rank "
+        f"{a['train']['launches']}; (c) fp32 {[o['fwd_fp32'] for o in outs]}"
+        f" (bound rel L2 {TP_FWD_F32_REL_L2}), bf16 "
+        f"{[o['fwd_bf16'] for o in outs]} "
+        f"against the one card's bf16 noise (max abs, rel L2) {noise}; (d) "
+        f"int8 bit-equal; "
+        f"forward ms a rank {[o['fwd_ms'] for o in outs]} against "
+        f"{single['fwd_ms']}")
+    if bad:
+        raise AssertionError("[tp train shared card]: " + "; ".join(bad))
+    fwd_n, bwd_n = a["train"]["launches"]
+    lines["attention_train_fwd_h0"]["launches"] = fwd_n
+    lines["attention_train_bwd_h0"]["launches"] = bwd_n
+    for name in lines:
+        lines[name]["launches_a_rank_step"] = \
+            lines[name]["launches"] // TP_TRAIN_STEPS
+    return lines
+
+
 # [dp nccl]: the NCCL path users launch, at a world of one:
 # ``python -m torch.distributed.run --standalone --nproc_per_node 1`` of
 # ``cli.train --distributed --mesh 1 1 --shard-opt-state`` and of
@@ -5279,9 +5875,12 @@ def main() -> int:
         phases.done("[dp shared card]")
         launches["tp"] = tp_shared_card_phase(torch, main_static, card,
                                               weights)
-        del dense, main_static
         torch.cuda.empty_cache()
         phases.done("[tp shared card]")
+        h0_lines = tp_train_shared_card_phase(torch, dense, card, weights)
+        del dense, main_static
+        torch.cuda.empty_cache()
+        phases.done("[tp train shared card]")
     finally:
         shutil.rmtree(weights, ignore_errors=True)
 
@@ -5297,6 +5896,7 @@ def main() -> int:
     kernels += [dict(checks[k], launches=launches[
         "train_fp32" if k.endswith("_fp32") else "train"][k])
         for k in train_counters()]
+    kernels += list(h0_lines.values())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,14 +24,14 @@ CPU; otherwise the run uses the card.
 ``--mesh D M`` samples over a ``(D, M)`` mesh of D x M processes, launched
 one a card by torchrun (``torchrun --nproc_per_node 4 -m
 jatsr_torch.cli.infer --mesh 2 2 ...``; ``--mesh 1 1`` alone is a world of
-one): the chunks data-parallel over D, and at M > 1 the int8 DiT
-tensor-parallel over M (``--int8 --fused-mlp --attention flash``, with or
-without ``--fused-prologue``: bench.py's default path and its
+one): the chunks data-parallel over D, and at M > 1 the DiT
+tensor-parallel over M: the bf16 model (no ``--int8``, ``DenseDiT``), or
+the int8 DiT with ``--int8 --fused-mlp --attention flash``, with or
+without ``--fused-prologue`` (bench.py's default path and its
 --no-fused-prologue).  Every rank loads the weights and the input and
-keeps its share of the int8 tree; rank 0 alone decodes and writes the
-output.  The bf16 model (no ``--int8``) and every other int8 branch raise
-``NotImplementedError`` on a model axis past 1 (ROADMAP section A item
-8(b)).
+keeps its share of the tree; rank 0 alone decodes and writes the output.
+Every other int8 branch raises ``NotImplementedError`` on a model axis
+past 1 (ROADMAP section A item 8(b)(ii)).
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("DATA", "MODEL"),
                     help="sample over a (data, model) mesh of the "
-                         "torchrun processes (model > 1: the int8 DiT "
+                         "torchrun processes (model > 1: the DiT "
                          "tensor-parallel)")
     ap.add_argument("--unroll-blocks", action="store_true",
                     help="a compile knob of the JAX package; same math")
@@ -119,11 +119,6 @@ def main(argv=None):
     if args.platform not in (None, "cpu", "cuda", "gpu"):
         raise SystemExit(f"unknown --platform {args.platform!r}")
     device = "cpu" if args.platform == "cpu" else "cuda"
-    if args.mesh and args.mesh[1] > 1 and not args.int8:
-        raise NotImplementedError(
-            f"--mesh {args.mesh[0]} {args.mesh[1]} without --int8: the bf16 "
-            f"model on a model axis comes in the next slice of the port "
-            f"(ROADMAP section A item 8(b)); the int8 DiT serves on it")
 
     import numpy as np
     import torch
@@ -133,7 +128,7 @@ def main(argv=None):
     from ..infer import InferencePipeline
     from ..models.convert_dit import load_reference_checkpoint
     from ..models.dac import DAC
-    from ..models.dit import DenseDiT, DiT
+    from ..models.dit import DenseDiT, DiT, check_tensor_parallel
     from ..models.from_jax import dense_tree_from_named
     from ..train.checkpoint import CheckpointManager
     from ..train.step import Normalizer
@@ -148,6 +143,22 @@ def main(argv=None):
             print(f"[infer] preset '{preset.name}' from {pj}")
         else:
             preset = get_preset("v3mod2")
+    serving = dataclasses.replace(
+        preset.model, scores_dtype=args.scores_dtype,
+        attention_impl=args.attention, gelu_impl=args.gelu,
+        fast_epilogue=args.fast_epilogue,
+        fused_mlp_impl=args.fused_mlp_impl,
+        fused_prologue=args.fused_prologue, align_n=args.fused_prologue,
+        unroll_blocks=args.unroll_blocks)
+    mcfg = (dataclasses.replace(
+        serving, matmul_precision="int8_static",
+        quantize_head=args.quantize_head, fused_mlp=args.fused_mlp,
+        fused_qkv=True, dropout=0.0, drop_path_rate=0.0) if args.int8
+        else dataclasses.replace(serving, dropout=0.0, drop_path_rate=0.0))
+    if args.mesh and args.mesh[1] > 1 and args.int8:
+        # A branch the int8 DiT does not serve on a model axis is refused
+        # before the process group is joined.
+        check_tensor_parallel(mcfg, args.mesh[1])
     mesh = None
     if args.mesh:
         from ..parallel import init_distributed, make_mesh
@@ -170,28 +181,15 @@ def main(argv=None):
         print(f"[infer] restored {args.checkpoint} @ step "
               f"{blob['meta']['global_step']}")
         del blob
-    serving = dataclasses.replace(
-        preset.model, scores_dtype=args.scores_dtype,
-        attention_impl=args.attention, gelu_impl=args.gelu,
-        fast_epilogue=args.fast_epilogue,
-        fused_mlp_impl=args.fused_mlp_impl,
-        fused_prologue=args.fused_prologue, align_n=args.fused_prologue,
-        unroll_blocks=args.unroll_blocks)
     print(f"[infer] attention scores dtype: {serving.scores_dtype}")
     if args.int8:
         from ..ops.quant import quantize_params_static
 
-        mcfg = dataclasses.replace(
-            serving, matmul_precision="int8_static",
-            quantize_head=args.quantize_head, fused_mlp=args.fused_mlp,
-            fused_qkv=True, dropout=0.0, drop_path_rate=0.0)
         model = DiT(mcfg, quantize_params_static(params, mcfg),
                     device=device, mesh=mesh)
         print("[infer] int8 serving: weights quantized (static W8A8)")
     else:
-        model = DenseDiT(dataclasses.replace(serving, dropout=0.0,
-                                             drop_path_rate=0.0),
-                         params, device=device)
+        model = DenseDiT(mcfg, params, device=device, mesh=mesh)
 
     dac_dtype = torch.bfloat16 if args.bf16_decode else None
     if args.dac_weights:

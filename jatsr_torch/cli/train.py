@@ -5,7 +5,8 @@ Usage:
         [--resume [auto|RUN_DIR]] [--epochs N] [--max-steps N] \
         [--native-loader] [--remat full|attn_out|mlp|dots|none]
 
-Data-parallel on N cards of one host, one process a card:
+Data-parallel on N cards of one host, one process a card (``--mesh D M``
+with D x M = N: tensor-parallel over M of them):
     torchrun --nproc_per_node N -m jatsr_torch.cli.train --distributed \
         --mesh N 1 [--shard-opt-state] --preset v3mod2 --data-dir ...
 
@@ -18,15 +19,15 @@ card.  ``--profile-steps N`` traces the first N steps with
 ``torch.profiler`` into ``<run dir>/profile`` (rank 0's steps under a
 mesh).  ``--distributed`` joins
 the process group from torchrun's environment (``--platform cpu``: gloo,
-else NCCL, one card a rank); ``--mesh D M`` trains data-parallel over a
-``(D, M)`` mesh of the group's D x M processes (the JAX CLI's stand-in for
+else NCCL, one card a rank); ``--mesh D M`` trains over a ``(D, M)`` mesh
+of the group's D x M processes, data-parallel over D and tensor-parallel
+over M (the JAX CLI's stand-in for
 ``torchrun --nproc_per_node=N`` is ``--mesh N 1``; here torchrun launches
 the processes and ``--mesh`` lays them out; ``--mesh 1 1`` without a
 launcher is a world of one).  ``--batch-size`` is the global batch; it
 must divide by D.  ``--shard-opt-state`` splits the Adam moments over the
-data axis (ZeRO-1) and acts only with a mesh.  A model axis past 1 raises
-``NotImplementedError``: tensor-parallel training is the next slice (ROADMAP
-section A item 8(b)).
+data axis (ZeRO-1) and acts only with a mesh.  Checkpoints hold whole
+leaves: a run resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", nargs="?", const="auto", default=None)
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"),
-                    help="data x model mesh over the process group (model "
-                         "1: tensor-parallel training is the next slice)")
+                    help="data x model mesh over the process group: "
+                         "data-parallel over DATA, tensor-parallel over "
+                         "MODEL")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -87,12 +89,7 @@ def main(argv=None):
 
     from ..configs import get_preset
     from ..parallel import init_distributed, is_primary, make_mesh
-    from ..parallel.mesh import TENSOR_PARALLEL_TRAINING
     from ..train.loop import Trainer
-
-    if args.mesh and args.mesh[1] > 1:
-        raise NotImplementedError(f"--mesh {args.mesh[0]} {args.mesh[1]}: "
-                                  f"{TENSOR_PARALLEL_TRAINING}")
 
     if args.distributed:
         init_distributed(device=device)

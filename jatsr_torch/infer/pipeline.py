@@ -15,7 +15,8 @@ chunks is padded to a multiple of D with null chunks (zero condition, zero
 noise), each data rank samples its span of the group (CFG on its own rows),
 and the rows are gathered (``all_gather`` over the data dim) on every rank.
 At M > 1 the M ranks of a model group take the same rows and the same
-noise through a tensor-parallel ``DiT`` built on the same mesh, whose
+noise through a tensor-parallel ``DiT`` or ``DenseDiT`` built on the same
+mesh, whose
 forward ends with the one-card output on each of them.  The initial noise is
 drawn for the group as one card draws it, so the output is the single-card
 output.  Audio input is encoded on every rank and data rank 0's latent is
@@ -147,8 +148,8 @@ class InferencePipeline:
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
         mesh: None, or a ``(D, M)`` mesh (``parallel.make_mesh``): the
             chunks sampled data-parallel over its D data ranks; at M > 1
-            ``model`` must be the int8 ``DiT`` built on the same mesh
-            (tensor-parallel over its M model ranks).
+            ``model`` must be built on the same mesh (the int8 ``DiT`` or
+            the ``DenseDiT``, tensor-parallel over its M model ranks).
         decode_devices: None, or devices that take the decodes round robin
             (each holding a copy of the decoder's weights).
     """
@@ -166,13 +167,9 @@ class InferencePipeline:
         self.device = resolve_device(device)
         M = model_size(mesh)
         if M > 1 and getattr(getattr(model, "tp", None), "size", 1) != M:
-            if isinstance(model, DenseDiT):
-                raise NotImplementedError(
-                    f"DenseDiT on a model axis of {M}: the int8 DiT serves "
-                    f"tensor-parallel; the bf16 model comes in the next "
-                    f"slice of the port (ROADMAP section A item 8(b))")
             raise ValueError(f"a mesh with a model axis of {M} needs the "
-                             f"DiT built on it: DiT(..., mesh=mesh)")
+                             f"model built on it: DiT(..., mesh=mesh) or "
+                             f"DenseDiT(..., mesh=mesh)")
         self._dp = DataGroup.of(mesh)
         self.primary = self._dp is None or (self._dp.rank == 0
                                             and model_rank(mesh) == 0)

@@ -10,7 +10,16 @@ attention the JAX model takes there.  Under ``matmul_precision="int8"`` it
 serves the dynamic W8A8 model: every projection but the t-MLP, the AdaLN
 and (without ``quantize_head``) ``final_proj`` is ``int8_dot_general``,
 through ``w8a8_dot(int8_impl)``, which also trains: autograd takes JAX's
-cotangents through the two quantisation scales (``ops/quant.py``).
+cotangents through the two quantisation scales (``ops/quant.py``).  On a
+``(D, M)`` mesh (``DenseDiT(mesh=)``) it trains and serves
+tensor-parallel over the model dim, Megatron's way, by the JAX package's
+rule table: a rank holds its q/k/v heads and its columns of ``mlp_in`` and
+``adaln`` (column-parallel: each product's backward sums x's cotangent
+over the model ranks in fp32, f), its rows of ``out_proj`` and
+``mlp_out`` (row-parallel, their partial products summed in fp32 by
+``ModelGroup.reduce_out``, g, the bias added once after), the rest
+whole; B10 keys its dropout hash by the global head (``h0``), and every
+mask a block draws is drawn whole and cut to the rank's columns.
 
 :class:`DiT` is the ``int8_static`` serving model on every branch the JAX
 model has there: fused QKV (with the flash-QKV kernel, RoPE inside, with
@@ -64,7 +73,8 @@ from ..ops.quant import QuantDense, int8_dot_general
 from ..ops.split import (int8_dense_gelu_quant_split, int8_matmul_fused_split,
                          int8_norm_mod_dense_gelu_quant_split)
 from ..parallel.distributed import ModelGroup
-from ..parallel.mesh import check_model_axis, local_params
+from ..parallel.mesh import (check_model_axis, head_offset, local_params,
+                             param_split_dim)
 from ..sampling.flow import linspace_f32
 from ..utils.device import resolve_device
 from .from_jax import as_tensor, init_dense_params, tree_to_torch
@@ -96,14 +106,16 @@ def check_serving_config(cfg: ModelConfig) -> None:
 
 # What the int8 DiT serves on a model axis past 1: bench.py's default path
 # (the fused prologue) and --no-fused-prologue, both on the fused q/k/v with
-# the flash-QKV kernel and the "half" fused MLP, at bf16.
+# the flash-QKV kernel and the "half" fused MLP, at bf16.  Its other
+# branches raise (ROADMAP section A item 8(b)(ii)); DenseDiT trains and
+# serves on a model axis on each of its own branches.
 _TENSOR_PARALLEL_BRANCH = {
     "fused_qkv": True, "fused_mlp": True, "fused_mlp_impl": "half",
     "attention_impl": "flash", "flash_qkv": True, "flash_fused_out": False,
     "flash_int8_qk": False, "pos_embed": "rope", "attention_bias": False,
     "quantize_head": False, "dtype": "bfloat16"}
 TENSOR_PARALLEL_NEXT = ("the next slice of the port brings it (ROADMAP "
-                        "section A item 8(b))")
+                        "section A item 8(b)(ii))")
 
 
 def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
@@ -265,29 +277,35 @@ def split_attention(cfg: ModelConfig, q, k, v):
     """The deterministic path's attention on split, RoPE'd ``q [B, N, Hq,
     D]`` and ``k/v [B, N, Hkv, D]``, in the JAX model's order: the
     per-q-head (``"pallas"``) or per-kv-head (``"pallas2"``) kernel, the
-    split flash kernel (``"flash"``) where ``flash_supported``, else the
-    einsum.  Returns ``[B, N, Hq*D]``."""
+    split flash kernel (``"flash"``) where ``flash_supported`` at the
+    config's heads (a tensor-parallel rank's heads take the branch of the
+    whole model's), else the einsum.  Returns ``[B, N, Hq*D]``."""
     B, N, hq, D = q.shape
     hkv = k.shape[2]
     if cfg.attention_impl in ("pallas", "pallas2"):
         fn = (gqa_attention_grouped if cfg.attention_impl == "pallas2"
               else gqa_attention)
         return fn(q, k, v).reshape(B, N, hq * D)
-    if cfg.attention_impl == "flash" and flash_supported(N, hq, hkv, D):
+    if cfg.attention_impl == "flash" and flash_supported(
+            N, cfg.num_q_heads, cfg.num_kv_heads, D):
         return gqa_attention_flash(q.reshape(B, N, hq * D),
                                    k.reshape(B, N, hkv * D),
                                    v.reshape(B, N, hkv * D), hq, hkv)
     return einsum_attention(q, k, v, cfg.scores_dtype)
 
 
-def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
+def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None,
+                     heads=None):
     """The JAX model's einsum attention (XLA there; plain PyTorch here, no
     kernel): fp32 scores times ``1/sqrt(D)``; the softmax in fp32, or with
     ``scores_dtype="bfloat16"`` the max-shifted scores stored in bf16 and
     ``e / sum(e)``; dropout on the fp32 weights (training: ``gen``, the
     block's :class:`BlockDraws`); the
     weights in q's dtype (bf16, or fp32) @ v in fp32, out in q's dtype.
-    ``[B, N, Hq, D]`` and ``[B, N, Hkv, D]`` -> ``[B, N, Hq*D]``."""
+    ``[B, N, Hq, D]`` and ``[B, N, Hkv, D]`` -> ``[B, N, Hq*D]``.
+    ``heads``: None, or ``(kv0, total)`` where k and v hold kv heads
+    ``kv0 ..`` of ``total`` (a tensor-parallel rank's): the dropout mask is
+    drawn over every head and cut to these."""
     B, N, hq, D = q.shape
     hkv = k.shape[2]
     qg = q.reshape(B, N, hkv, hq // hkv, D).float()
@@ -297,7 +315,8 @@ def einsum_attention(q, k, v, scores_dtype="float32", rate=0.0, gen=None):
         w = e / e.sum(dim=-1, keepdim=True)
     else:
         w = torch.softmax(s, dim=-1)
-    w = _dropout(w, rate, gen).to(q.dtype)
+    split = None if heads is None else (1,) + tuple(heads)
+    w = _dropout(w, rate, gen, split).to(q.dtype)
     out = torch.einsum("bkgnm,bmkd->bnkgd", w.float(), v.float())
     return out.to(q.dtype).reshape(B, N, hq * D)
 
@@ -640,7 +659,8 @@ def adaln_tables(model, t: torch.Tensor) -> torch.Tensor:
     ``model`` is a :class:`DiT` or a :class:`DenseDiT`."""
     a = F.silu(model.time_embedding(t))
     if isinstance(model, DenseDiT):
-        return torch.stack([blk.adaln(a) for blk in model.blocks])
+        out = torch.stack([blk.adaln(a) for blk in model.blocks])
+        return out if model.tp is None else model.tp.gather_cols(out)
     out = (torch.einsum("bh,dhm->dbm", a, model.adaln_kernel)
            + model.adaln_bias[:, None, :])
     # A tensor-parallel DiT holds its columns of the tables: one gather.
@@ -686,6 +706,29 @@ def check_dense_config(cfg: ModelConfig) -> None:
     _check_branch(cfg, _DENSE_BRANCH, "has")
 
 
+def check_dense_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+    """Raise ``ValueError`` where a model axis of ``model`` does not divide
+    the heads or the MLP width, and ``NotImplementedError`` for the
+    dynamic-int8 branches whose split kernels the port lacks: B14
+    (``int8_impl="pallas"``) and fp32 compute (the split entries take
+    bf16)."""
+    check_model_axis(cfg, model)
+    if cfg.matmul_precision != "int8":
+        return
+    if cfg.int8_impl == "pallas":
+        raise NotImplementedError(
+            f"ModelConfig.int8_impl='pallas' under dynamic int8 on a model "
+            f"axis of {model}: B14 is not split; the next slice of the port "
+            f"brings it (ROADMAP section A item 8(b)(ii), section B.1 item "
+            f"2)")
+    if cfg.dtype != "bfloat16":
+        raise NotImplementedError(
+            f"ModelConfig.dtype={cfg.dtype!r} under dynamic int8 on a model "
+            f"axis of {model}: the split int8 entries take bf16; the next "
+            f"slice of the port brings the fp32 ones (ROADMAP section A item "
+            f"8(b)(ii), section B.1 item 5)")
+
+
 def check_training_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the trainable
     branch the port has."""
@@ -693,41 +736,123 @@ def check_training_config(cfg: ModelConfig) -> None:
     _check_branch(cfg, _TRAINING_BRANCH, "trains")
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 output, unrounded: a bf16 product accumulates in
+    fp32 and stays there (cuBLAS's bf16 GEMM with fp32 output on the card;
+    the exact fp32 products of the bf16 values on the CPU)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _PartialF32(torch.autograd.Function):
+    """A row-parallel rank's partial product ``x [..., K/M] @ w [K/M, N]``
+    in fp32, unrounded (g sums the ranks' partials and rounds once); its
+    backward is the one-card product's, in x's dtype: ``dx = g w^T``,
+    ``dw = x^T g``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, w.shape[1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.t()).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = x.reshape(-1, w.shape[0]).t() @ g
+        return gx, gw
+
+
+class _ColumnIn(torch.autograd.Function):
+    """A column-parallel product ``x @ w`` (x whole, w the rank's columns)
+    with Megatron's f folded into its backward: x's cotangent is the
+    ranks' partial products ``g w^T`` summed over the model group in fp32
+    and rounded to x's dtype once, as one card's product over every column
+    rounds it; ``dw = x^T g``."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, w.shape[1])
+        gx = ctx.group.sum_f32(_mm_f32(g2, w.t())).to(x.dtype)
+        return (gx.reshape(x.shape), x.reshape(-1, w.shape[0]).t() @ g2,
+                None)
+
+
 class TrainDense(nn.Module):
     """flax ``nn.Dense(dtype, param_dtype)``: a kernel ``[in, out]`` and
     bias held in ``param_dtype`` (fp32, or bf16), both cast to ``dtype`` at
     each product.  With ``int8_impl`` (``matmul_precision="int8"``) the
     product is :func:`int8_dot_general` through ``w8a8_dot(int8_impl)``,
-    the kernel quantised at each call; the bias is added after it."""
+    the kernel quantised at each call; the bias is added after it.
+
+    ``tp`` and ``role``: the model group and the module's part of a
+    tensor-parallel product (``role`` None without a group).  "row": the
+    module holds a rank's rows of the kernel (its input the rank's
+    columns); the partial products are summed over the group in fp32 and
+    rounded to ``dtype`` once (Megatron's g, ``ModelGroup.reduce_out``;
+    under ``int8_impl`` the int32 partial products, inside
+    :func:`int8_dot_general`), then the whole bias is added.  "col": it
+    holds a rank's columns (its input whole) and Megatron's f is folded
+    into the product's backward, which sums x's cotangent over the group
+    in fp32 and rounds it once, as one card's product over every column
+    rounds it (:class:`_ColumnIn`; under ``int8_impl`` the row scale's
+    cotangent, x's only path, is summed so).  q, k and v are three such
+    products, so x's cotangent is three sums, each rounded as one card
+    rounds each of the three."""
 
     def __init__(self, kernel, bias, dtype, device, int8_impl=None,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, tp=None, role=None):
         super().__init__()
 
         def param(t):
             return nn.Parameter(as_tensor(t).to(
                 device=device, dtype=param_dtype, copy=True))
 
+        if (tp is None) != (role is None) or role not in (None, "row",
+                                                          "col"):
+            raise ValueError(f"TrainDense: role {role!r} with group {tp}")
         self.kernel = param(kernel)
         self.bias = None if bias is None else param(bias)
         self.dtype = dtype
         self.int8_impl = int8_impl
+        self.tp, self.role = tp, role
 
     def forward(self, x):
-        if self.int8_impl is None:
-            y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x, w = x.to(self.dtype), self.kernel.to(self.dtype)
+        if self.int8_impl is not None:
+            y = int8_dot_general(x, w, self.int8_impl, group=self.tp,
+                                 role=self.role or "row")
+        elif self.role == "row":
+            y = self.tp.reduce_out(_PartialF32.apply(x, w)).to(self.dtype)
+        elif self.role == "col":
+            y = _ColumnIn.apply(x, w, self.tp)
         else:
-            y = int8_dot_general(x.to(self.dtype), self.kernel.to(self.dtype),
-                                 self.int8_impl)
+            y = x @ w
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def _dense(p: dict, dtype, device, i=None, int8_impl=None,
-           param_dtype=torch.float32) -> TrainDense:
+           param_dtype=torch.float32, tp=None, role=None) -> TrainDense:
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
     return TrainDense(pick(p["kernel"]), None if b is None else pick(b),
-                      dtype, device, int8_impl, param_dtype)
+                      dtype, device, int8_impl, param_dtype, tp,
+                      None if tp is None else role)
 
 
 def _int8_impl(cfg: ModelConfig):
@@ -745,7 +870,9 @@ class BlockDraws:
     of a batch of ``total`` rows (a data-parallel rank's span of its
     micro-batch): each draw is then one over the whole batch, of which the
     block keeps its rows, so that every rank's masks are those one process
-    draws for the whole batch."""
+    draws for the whole batch.  A draw over a tensor-parallel rank's
+    columns (:meth:`rand`'s ``split``) is likewise drawn whole and cut, so
+    the generator moves as one process's does."""
 
     def __init__(self, seed: int, device, rows=None):
         self.gen = torch.Generator(device=device).manual_seed(
@@ -757,24 +884,32 @@ class BlockDraws:
         """The first row's row in the whole batch (B10's hash offset)."""
         return 0 if self.rows is None else self.rows[0]
 
-    def rand(self, shape, device) -> torch.Tensor:
-        """Uniforms of ``shape`` for this block's rows."""
-        if self.rows is None:
-            return torch.rand(shape, generator=self.gen, device=device)
-        b0, total = self.rows
-        u = torch.rand((total,) + tuple(shape[1:]), generator=self.gen,
-                       device=device)
-        return u[b0:b0 + shape[0]]
+    def rand(self, shape, device, split=None) -> torch.Tensor:
+        """Uniforms of ``shape`` for this block's rows.  ``split``: None,
+        or ``(dim, start, total)`` where ``shape[dim]`` is the span
+        ``start ..`` of ``total`` (a tensor-parallel rank's columns or
+        heads)."""
+        full = list(shape)
+        if self.rows is not None:
+            full[0] = self.rows[1]
+        if split is not None:
+            full[split[0]] = split[2]
+        u = torch.rand(full, generator=self.gen, device=device)
+        if self.rows is not None:
+            u = u[self.rows[0]:self.rows[0] + shape[0]]
+        if split is not None:
+            u = u.narrow(split[0], split[1], shape[split[0]])
+        return u
 
 
-def _dropout(x, rate: float, gen):
+def _dropout(x, rate: float, gen, split=None):
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
     divided by ``keep_prob`` in x's dtype.  ``gen``: the block's
-    :class:`BlockDraws`."""
+    :class:`BlockDraws`; ``split`` as :meth:`BlockDraws.rand` takes it."""
     if rate == 0.0 or gen is None:
         return x
     keep_prob = 1.0 - rate
-    keep = gen.rand(x.shape, x.device) < keep_prob
+    keep = gen.rand(x.shape, x.device, split) < keep_prob
     kp = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / kp, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
@@ -797,21 +932,29 @@ class TrainAttention(nn.Module):
     learned positions), then the training kernel (B10) or the einsum
     attention on the training path, the JAX model's serving attention
     (:func:`split_attention`) on the deterministic one, and the out
-    projection."""
+    projection.  ``tp``: the model group; the module then holds the rank's
+    q heads and kv heads (q/k/v column-parallel, f in each product) and
+    its rows of ``out_proj`` (row-parallel)."""
 
-    def __init__(self, cfg: ModelConfig, p: dict, i: int, device):
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, device, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        m, r = (1, 0) if tp is None else (tp.size, tp.rank)
+        self.hq, self.hkv = cfg.num_q_heads // m, cfg.num_kv_heads // m
+        self.h0 = head_offset(cfg, m, r)
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, _dense(p[name], compute_dtype(cfg), device, i,
-                                       _int8_impl(cfg), param_dtype(cfg)))
+            row = name == "out_proj"
+            setattr(self, name, _dense(
+                p[name], compute_dtype(cfg), device, i, _int8_impl(cfg),
+                param_dtype(cfg), tp, "row" if row else "col"))
 
     def forward(self, x, cos, sin, seed, gen):
         """``cos``/``sin``: ``[N, 1, D]`` in the compute dtype, None under
         learned positions; ``gen`` None on the deterministic path."""
         cfg = self.cfg
         B, N, _ = x.shape
-        hq, hkv, D = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+        hq, hkv, D = self.hq, self.hkv, cfg.head_dim
         q = self.q_proj(x).reshape(B, N, hq, D)
         k = self.k_proj(x).reshape(B, N, hkv, D)
         v = self.v_proj(x).reshape(B, N, hkv, D)
@@ -819,15 +962,21 @@ class TrainAttention(nn.Module):
             q, k = _rope(q, cos, sin), _rope(k, cos, sin)
         if gen is None:
             return self.out_proj(split_attention(cfg, q, k, v))
+        # The branch of the whole model's heads, as JAX's one call over
+        # all of them takes it.
         if (cfg.train_attention_impl == "flash" and cos is not None
-                and train_flash_supported(N, hq, hkv, D)):
+                and train_flash_supported(N, cfg.num_q_heads,
+                                          cfg.num_kv_heads, D)):
             out = gqa_attention_train(
                 q.reshape(B, N, hq * D), k.reshape(B, N, hkv * D),
                 v.reshape(B, N, hkv * D), seed if cfg.dropout > 0.0 else 0,
-                hq, hkv, cfg.dropout, b0=gen.b0)
+                hq, hkv, cfg.dropout, b0=gen.b0, h0=self.h0)
             return self.out_proj(out)
+        heads = (None if self.tp is None else
+                 (self.h0 // (hq // hkv), cfg.num_kv_heads))
         return self.out_proj(einsum_attention(q, k, v, cfg.scores_dtype,
-                                              rate=cfg.dropout, gen=gen))
+                                              rate=cfg.dropout, gen=gen,
+                                              heads=heads))
 
 
 class TrainBlock(nn.Module):
@@ -843,17 +992,30 @@ class TrainBlock(nn.Module):
     output, the pre-GELU hidden, is kept and its product never replayed;
     its backward keeps its input (the modulated norm), and the residual
     stream after attention is kept as the segments' boundary: two ``[B, N,
-    H]`` tensors a block that the JAX model recomputes."""
+    H]`` tensors a block that the JAX model recomputes.
 
-    def __init__(self, cfg: ModelConfig, p: dict, i: int, dp_rate, device):
+    ``tp``: the model group; the block then holds the rank's heads, its
+    columns of ``adaln`` (the AdaLN row gathered whole) and of ``mlp_in``
+    (column-parallel: f in the product, :class:`TrainDense`'s "col") and
+    its rows of ``mlp_out``.  Every rank runs the same collectives in the
+    same order, in the forward and in each replay."""
+
+    def __init__(self, cfg: ModelConfig, p: dict, i: int, dp_rate, device,
+                 tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         dt, pdt, mk = compute_dtype(cfg), param_dtype(cfg), _int8_impl(cfg)
-        self.adaln = _dense(p["adaln"], dt, device, i, None, pdt)
-        self.attn = TrainAttention(cfg, p["attn"], i, device)
-        self.mlp_in = _dense(p["mlp_in"], dt, device, i, mk, pdt)
-        self.mlp_out = _dense(p["mlp_out"], dt, device, i, mk, pdt)
+        self.adaln = _dense(p["adaln"], dt, device, i, None, pdt, tp, "col")
+        self.attn = TrainAttention(cfg, p["attn"], i, device, tp)
+        self.mlp_in = _dense(p["mlp_in"], dt, device, i, mk, pdt, tp, "col")
+        self.mlp_out = _dense(p["mlp_out"], dt, device, i, mk, pdt, tp,
+                              "row")
         self.dp_rate = dp_rate
+        # The rank's span of the MLP hidden: (dim, first column, width).
+        width = int(cfg.hidden_size * cfg.mlp_ratio)
+        n = self.mlp_in.kernel.shape[1]
+        self.hidden = (None if tp is None else (2, tp.rank * n, width))
 
     def forward(self, x, t_emb, cos, sin, seed=None, mod=None,
                 segments: bool = False, rows=None):
@@ -866,6 +1028,8 @@ class TrainBlock(nn.Module):
         gen = None if seed is None else BlockDraws(seed, x.device, rows)
         if mod is None:
             mod = self.adaln(F.silu(t_emb))
+            if self.tp is not None:
+                mod = self.tp.gather_cols(mod)
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
         run = _Segments(gen) if segments else _direct(gen)
@@ -890,7 +1054,8 @@ class TrainBlock(nn.Module):
         """Exact GELU of the pre-GELU hidden, dropout, ``mlp_out``,
         dropout, gate, drop-path, residual."""
         rate = self.cfg.dropout
-        h = self.mlp_out(_dropout(F.gelu(pre, approximate="none"), rate, gen))
+        h = self.mlp_out(_dropout(F.gelu(pre, approximate="none"), rate, gen,
+                                  self.hidden))
         h = gate_mlp[:, None] * _dropout(h, rate, gen)
         return x + _drop_path(h, self.dp_rate, gen)
 
@@ -932,7 +1097,9 @@ class _Segments:
 # s8 dot_general's; the card's W8A8 kernels (B4, B14) never write it, so
 # there the policy keeps nothing of them and the replay runs them again.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten._int_mm.default)
+         torch.ops.aten._int_mm.default,
+         # A row-parallel rank's fp32 partial product (``_mm_f32``).
+         torch.ops.aten.mm.dtype)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -961,6 +1128,14 @@ class DenseDiT(nn.Module):
             ``models/from_jax.py``); None draws it as flax initialises it
             (``init_dense_params``) from ``generator``.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
+        mesh: None, or a ``(D, M)`` mesh (``parallel.make_mesh``): at M > 1
+            the model is tensor-parallel over its model dim, in training
+            and serving.  The rank keeps its leaves of ``params``
+            (``parallel.mesh.local_params``: its q/k/v heads, its columns
+            of ``mlp_in`` and ``adaln``, its rows of ``out_proj`` and
+            ``mlp_out``; ``split_dims`` names each split parameter's dim);
+            every rank ends each forward with the one-card output, and its
+            replicated parameters get the one-card gradients.
 
     Parameters are ``nn.Parameter`` s in ``param_dtype`` (fp32, or bf16
     where the JAX model stores bf16 leaves: every Dense, ``adaln``, the
@@ -972,14 +1147,18 @@ class DenseDiT(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, params: dict = None, device="cuda",
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, mesh=None):
         super().__init__()
         check_dense_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = ModelGroup.of(mesh)
         if params is None:
             params = init_dense_params(
                 cfg, generator or torch.Generator().manual_seed(0))
+        if self.tp is not None:
+            check_dense_tensor_parallel(cfg, self.tp.size)
+            params = local_params(params, cfg, self.tp.size, self.tp.rank)
         dt, pdt, dev = compute_dtype(cfg), param_dtype(cfg), self.device
         f32, mk = torch.float32, _int8_impl(cfg)
         self.patch_in = _dense(params["patch_in"], dt, dev, None, mk, pdt)
@@ -992,10 +1171,13 @@ class DenseDiT(nn.Module):
         self.t_mlp2 = _dense(params["t_mlp2"], f32, dev, None, None, pdt)
         dpr = linspace_f32(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
-            TrainBlock(cfg, params["blocks"], i, dpr[i], dev)
+            TrainBlock(cfg, params["blocks"], i, dpr[i], dev, self.tp)
             for i in range(cfg.depth))
         self.final_proj = _dense(params["final_proj"], dt, dev, None,
                                  mk if cfg.quantize_head else None, pdt)
+        self.split_dims = {} if self.tp is None else {
+            k: d for k, p in self.named_parameters()
+            if (d := param_split_dim(k, p.ndim)) is not None}
 
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
         """fp32 t-MLP over the sinusoid; out in the compute dtype."""

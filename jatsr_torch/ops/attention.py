@@ -193,7 +193,8 @@ class _F32Args(ctypes.Structure):
         + [("scale", ctypes.c_float), ("stats", ctypes.c_void_p)]
         + [(f, ctypes.c_uint32) for f in ("seed", "thr")]
         + [(f, ctypes.c_int) for f in ("np", "dropout")]
-        + [("coef", ctypes.c_float), ("b0", ctypes.c_int)])
+        + [("coef", ctypes.c_float)]
+        + [(f, ctypes.c_int) for f in ("b0", "h0")])
 
 
 @functools.cache

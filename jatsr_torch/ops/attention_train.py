@@ -17,7 +17,12 @@ the kernels, the plain versions and the JAX function draw the same mask bit
 for bit.  ``b`` is the row of the global batch: ``b0`` (0 by default) plus
 the row of the tensor at hand, so that a data-parallel rank holding rows
 ``b0 ..`` of a batch draws the masks that one call over the whole batch
-draws (the JAX kernel's ``program_id(0)`` over the global array).  ``Np`` is ``round_up(N, 8)``: the JAX wrapper pads to it and the
+draws (the JAX kernel's ``program_id(0)`` over the global array); ``h`` is
+the global q head: ``h0`` (0 by default) plus the tensor's own q head, so
+that a tensor-parallel rank holding q heads ``h0 ..`` (and their kv heads,
+local q head ``j`` reading local kv head ``j // G``) draws the masks of
+those heads of one call over all heads (the JAX kernel's ``program_id(1)``,
+which GSPMD does not split).  ``Np`` is ``round_up(N, 8)``: the JAX wrapper pads to it and the
 hash indexes that padded lattice, so the port keeps the lattice without the
 physical pad.  PyTorch has no usable uint32 arithmetic, so the plain hash
 computes in int64 and keeps 32 bits after every multiply and add.
@@ -95,14 +100,15 @@ def dropout_keep_mask(seed: int, b: int, h: int, np_: int,
 
 
 def _keep_mask(seed: int, B: int, hq: int, n: int, rate: float, device,
-               b0: int = 0):
+               b0: int = 0, h0: int = 0):
     """Keep masks of every (batch, head) ``[B, hq, n, n]``: the top-left
     ``n x n`` corner of each padded ``Np x Np`` lattice, batch row i keyed
-    by ``b0 + i``."""
+    by ``b0 + i``, head j by ``h0 + j``."""
     np_ = _round_up(n, 8)
     b = torch.arange(b0, b0 + B, dtype=torch.int64,
                      device=device)[:, None, None, None]
-    h = torch.arange(hq, dtype=torch.int64, device=device)[None, :, None, None]
+    h = torch.arange(h0, h0 + hq, dtype=torch.int64,
+                     device=device)[None, :, None, None]
     i = torch.arange(n, dtype=torch.int64, device=device)
     cell = (i[:, None] * np_ + i[None, :])[None, None]
     return _hash_u32(_stream(seed, b, h) ^ cell) <= keep_threshold(rate)
@@ -118,7 +124,7 @@ def _heads(q, k, v, hq, hkv):
     return qh, kh, vh
 
 
-def _probs(qh, kh, D, seed, rate, normalise, b0=0):  # D: the scale's head dim
+def _probs(qh, kh, D, seed, rate, normalise, b0=0, h0=0):  # D: the scale's head dim
     """Scores of the bf16-rounded scaled q against k, fp32; then ``e`` (and
     ``l``) or ``p = e / l``; and the keep mask (None without dropout)."""
     scale2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
@@ -127,14 +133,14 @@ def _probs(qh, kh, D, seed, rate, normalise, b0=0):  # D: the scale's head dim
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     l = e.sum(dim=-1, keepdim=True)
     B, H, N, _ = qh.shape
-    keep = (_keep_mask(seed, B, H, N, rate, qh.device, b0) if rate > 0.0
+    keep = (_keep_mask(seed, B, H, N, rate, qh.device, b0, h0) if rate > 0.0
             else None)
     return (e / l if normalise else e), l, keep
 
 
 def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
                               num_kv_heads: int, rate: float,
-                              scale_dim=None, b0: int = 0):
+                              scale_dim=None, b0: int = 0, h0: int = 0):
     """Plain PyTorch version of the forward kernel, with its rounding
     points: ``q * scale2`` with ``scale2`` in the input dtype, ``l`` summed
     before the dropout zeroing, ``rd(e) @ v`` in fp32, times ``coef / l``,
@@ -142,13 +148,14 @@ def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
     rounds).  ``scale_dim``
     (D by default): the head dim whose ``1/sqrt`` scales the scores, the
     true one where the heads are zero-padded (``attention.pad_heads``);
-    ``b0``: the first batch row's row in the global batch."""
+    ``b0``: the first batch row's row in the global batch; ``h0``: the
+    first q head's head among all heads."""
     B, N, QD = q.shape
     D = QD // num_q_heads
     dt = q.dtype
     qh, kh, vh = _heads(q, k, v, num_q_heads, num_kv_heads)
     e, l, keep = _probs(qh, kh, scale_dim or D, seed, rate, normalise=False,
-                        b0=b0)
+                        b0=b0, h0=h0)
     if keep is not None:
         e = torch.where(keep, e, 0.0)
     coef = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
@@ -158,13 +165,13 @@ def attention_train_fwd_plain(q, k, v, seed: int, num_q_heads: int,
 
 def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
                               num_kv_heads: int, rate: float,
-                              scale_dim=None, b0: int = 0):
+                              scale_dim=None, b0: int = 0, h0: int = 0):
     """Plain PyTorch version of the backward kernels, with their rounding
     points: ``delta = rowsum(do * o)`` in fp32 from the stored ``o`` and
     ``do``; ``ds = rd(p (dw - delta) scale)``; ``dv = rd(wd)^T do``,
     ``dk = ds^T q`` (q unscaled), ``dq = ds k``; dk and dv summed over the
     query group in fp32 and rounded once (``rd`` = the input dtype);
-    ``scale_dim`` and ``b0`` as :func:`attention_train_fwd_plain`'s."""
+    ``scale_dim``, ``b0`` and ``h0`` as :func:`attention_train_fwd_plain`'s."""
     B, N, QD = q.shape
     hq, hkv = num_q_heads, num_kv_heads
     D, g = QD // hq, hq // hkv
@@ -173,7 +180,7 @@ def attention_train_bwd_plain(q, k, v, o, do, seed: int, num_q_heads: int,
     doh = do.to(dt).reshape(B, N, hq, D).transpose(1, 2).float()
     oh = o.reshape(B, N, hq, D).transpose(1, 2).float()
     p, _, keep = _probs(qh, kh, scale_dim or D, seed, rate, normalise=True,
-                        b0=b0)
+                        b0=b0, h0=h0)
     dw = doh @ vh.float().transpose(-1, -2)
     wd = p
     if keep is not None:
@@ -204,17 +211,20 @@ def _check(q, k, v, hq, hkv):
 
 
 def attention_train_fwd(q, k, v, seed: int, num_q_heads: int,
-                        num_kv_heads: int, rate: float = 0.0, b0: int = 0):
+                        num_kv_heads: int, rate: float = 0.0, b0: int = 0,
+                        h0: int = 0):
     """Forward: ``(o, stats)``.  ``stats`` is the kernel's ``[B, Hq, N, 2]``
     fp32 row max and row sum of ``exp2``, which the backward kernels read;
     None on the CPU.  ``b0``: the first batch row's row in the global batch
-    (the dropout hash's batch index)."""
+    (the dropout hash's batch index); ``h0``: the first q head's head among
+    all heads (its head index)."""
     _check(q, k, v, num_q_heads, num_kv_heads)
     if q.device.type == "cpu":
         return attention_train_fwd_plain(q, k, v, seed, num_q_heads,
-                                         num_kv_heads, rate, b0=b0), None
+                                         num_kv_heads, rate, b0=b0,
+                                         h0=h0), None
     launch = _launch_fwd_f32 if q.dtype == torch.float32 else _launch_fwd
-    return launch(q, k, v, seed, num_q_heads, num_kv_heads, rate, b0)
+    return launch(q, k, v, seed, num_q_heads, num_kv_heads, rate, b0, h0)
 
 
 attention_train_fwd.launches = 0
@@ -223,17 +233,18 @@ attention_train_fwd.f32_launches = 0
 
 def attention_train_bwd(q, k, v, o, do, seed: int, num_q_heads: int,
                         num_kv_heads: int, rate: float = 0.0, stats=None,
-                        b0: int = 0):
-    """Backward: ``(dq, dk, dv)`` in q's dtype; ``b0`` as the forward's."""
+                        b0: int = 0, h0: int = 0):
+    """Backward: ``(dq, dk, dv)`` in q's dtype; ``b0`` and ``h0`` as the
+    forward's."""
     _check(q, k, v, num_q_heads, num_kv_heads)
     if q.device.type == "cpu":
         return attention_train_bwd_plain(q, k, v, o, do, seed, num_q_heads,
-                                         num_kv_heads, rate, b0=b0)
+                                         num_kv_heads, rate, b0=b0, h0=h0)
     if stats is None:
         raise ValueError("the backward kernels need the forward's stats")
     launch = _launch_bwd_f32 if q.dtype == torch.float32 else _launch_bwd
     return launch(q, k, v, o, do, stats, seed, num_q_heads, num_kv_heads,
-                  rate, b0)
+                  rate, b0, h0)
 
 
 attention_train_bwd.launches = 0
@@ -242,9 +253,9 @@ attention_train_bwd.f32_launches = 0
 
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, hq, hkv, rate, b0):
-        o, stats = attention_train_fwd(q, k, v, seed, hq, hkv, rate, b0)
-        ctx.meta = (seed, hq, hkv, rate, b0)
+    def forward(ctx, q, k, v, seed, hq, hkv, rate, b0, h0):
+        o, stats = attention_train_fwd(q, k, v, seed, hq, hkv, rate, b0, h0)
+        ctx.meta = (seed, hq, hkv, rate, b0, h0)
         ctx.save_for_backward(q, k, v, o,
                               *(() if stats is None else (stats,)))
         return o
@@ -252,16 +263,16 @@ class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, *stats = ctx.saved_tensors
-        seed, hq, hkv, rate, b0 = ctx.meta
+        seed, hq, hkv, rate, b0, h0 = ctx.meta
         dq, dk, dv = attention_train_bwd(q, k, v, o, do.contiguous(), seed,
                                          hq, hkv, rate,
-                                         stats[0] if stats else None, b0)
-        return dq, dk, dv, None, None, None, None, None
+                                         stats[0] if stats else None, b0, h0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def gqa_attention_train(q, k, v, seed: int, num_q_heads: int,
                         num_kv_heads: int, dropout_rate: float = 0.0,
-                        b0: int = 0):
+                        b0: int = 0, h0: int = 0):
     """Differentiable GQA with dropout on the normalised weights.
 
     Args:
@@ -272,11 +283,15 @@ def gqa_attention_train(q, k, v, seed: int, num_q_heads: int,
         dropout_rate: drop probability on the softmax weights.
         b0: the row in the global batch of q's first row (a data-parallel
             rank's first row): the dropout hash's batch index is ``b0 + b``.
+        h0: the head among all q heads of q's first head (a tensor-parallel
+            rank's first head): the hash's head index is ``h0 + h``; the
+            kv heads are k's and v's own (``h // (Hq / Hkv)``).
     Returns:
         ``[B, N, Hq*D]`` in q's dtype.
     """
     return _AttentionTrain.apply(q, k, v, int(seed), num_q_heads,
-                                 num_kv_heads, float(dropout_rate), int(b0))
+                                 num_kv_heads, float(dropout_rate), int(b0),
+                                 int(h0))
 
 
 # ---- the kernels ------------------------------------------------------------
@@ -437,7 +452,7 @@ class _TrainRows(ctypes.Structure):
     _fields_ = [("stats", ctypes.c_void_p), ("seed", ctypes.c_uint32),
                 ("thr", ctypes.c_uint32), ("np", ctypes.c_int),
                 ("dropout", ctypes.c_int), ("coef", ctypes.c_float),
-                ("b0", ctypes.c_int)]
+                ("b0", ctypes.c_int), ("h0", ctypes.c_int)]
 
 
 _BWD_INTS = ("N", "hq", "hkv", "G", "T", "W", "steps", "k_off", "v_off",
@@ -451,7 +466,7 @@ class _TrainBwdArgs(ctypes.Structure):
                 + [("seed", ctypes.c_uint32), ("thr", ctypes.c_uint32)]
                 + [(f, ctypes.c_float) for f in ("scale2", "scale",
                                                  "coef")]
-                + [("b0", ctypes.c_int)])
+                + [("b0", ctypes.c_int), ("h0", ctypes.c_int)])
 
 
 class _WideBwdArgs(ctypes.Structure):
@@ -462,7 +477,7 @@ class _WideBwdArgs(ctypes.Structure):
                 + [("seed", ctypes.c_uint32), ("thr", ctypes.c_uint32)]
                 + [(f, ctypes.c_float) for f in ("scale2", "scale",
                                                  "coef")]
-                + [("b0", ctypes.c_int)])
+                + [("b0", ctypes.c_int), ("h0", ctypes.c_int)])
 
 
 @functools.cache
@@ -513,7 +528,7 @@ def _plan_for(q, hq, hkv):
     return plan
 
 
-def _launch_fwd(q, k, v, seed, hq, hkv, rate, b0=0):
+def _launch_fwd(q, k, v, seed, hq, hkv, rate, b0=0, h0=0):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
@@ -525,7 +540,7 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate, b0=0):
     stats = torch.empty((B, hq, N, 2), dtype=torch.float32, device=q.device)
     fp = plan.fwd
     rows = _TrainRows(stats.data_ptr(), a["seed"], a["thr"], _round_up(N, 8),
-                      a["dropout"], a["coef"], b0)
+                      a["dropout"], a["coef"], b0, h0)
     if isinstance(plan, WideTrainPlan):
         lib = _wide_lib()
         args = _wide_args(fp, hq * D, hkv * D, hkv * D, a["scale2"])
@@ -546,7 +561,7 @@ def _launch_fwd(q, k, v, seed, hq, hkv, rate, b0=0):
     return unpad_heads(out, Dt, D), stats
 
 
-def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0):
+def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0, h0=0):
     from . import _build
 
     a = _kernel_args(q, k, v, hq, hkv, rate, seed)
@@ -566,7 +581,7 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0):
                            device=q.device)
         args = _WideBwdArgs(N, hq, hkv, D, plan.groups, _round_up(N, 8),
                             a["dropout"], a["seed"], a["thr"], a["scale2"],
-                            a["scale"], a["coef"], b0)
+                            a["scale"], a["coef"], b0, h0)
         lib = _wide_lib()
         err = lib.attn_train_bwd_wide(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -583,7 +598,8 @@ def _launch_bwd(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0):
                            device=q.device)
         args = _TrainBwdArgs(*(getattr(plan, f) for f in _BWD_INTS),
                              _round_up(N, 8), a["dropout"], a["seed"],
-                             a["thr"], a["scale2"], a["scale"], a["coef"], b0)
+                             a["thr"], a["scale2"], a["scale"], a["coef"], b0,
+                             h0)
         err = lib.attn_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), stats.data_ptr(), info.data_ptr(), dq.data_ptr(),
@@ -662,7 +678,7 @@ class _F32BwdArgs(ctypes.Structure):
                                          "dropout")]
         + [(f, ctypes.c_uint32) for f in ("seed", "thr")]
         + [(f, ctypes.c_float) for f in ("scale2", "scale", "coef")]
-        + [("b0", ctypes.c_int)])
+        + [(f, ctypes.c_int) for f in ("b0", "h0")])
 
 
 @functools.cache
@@ -692,7 +708,7 @@ def _check_f32(q, k, v):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _launch_fwd_f32(q, k, v, seed, hq, hkv, rate, b0=0):
+def _launch_fwd_f32(q, k, v, seed, hq, hkv, rate, b0=0, h0=0):
     """B10's fp32 forward: one launch of csrc/attention_f32.cu's train mode
     -> ``(o [B, N, hq D] fp32, stats [B, hq, N, 2])``."""
     _check_f32(q, k, v)
@@ -705,14 +721,16 @@ def _launch_fwd_f32(q, k, v, seed, hq, hkv, rate, b0=0):
     args, keep = _f32_args(q, k, v, hq, hkv, D, out, N, c["scale2"])
     args.stats = stats.data_ptr()
     args.seed, args.thr, args.np = c["seed"], c["thr"], _round_up(N, 8)
-    args.dropout, args.coef, args.b0 = c["dropout"], c["coef"], b0
+    args.dropout, args.coef = c["dropout"], c["coef"]
+    args.b0, args.h0 = b0, h0
     _launch_f32("train", args, B, q.device, "attention_train fwd(fp32)")
     attention_train_fwd.launches += 1
     attention_train_fwd.f32_launches += 1
     return out, stats
 
 
-def _launch_bwd_f32(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0):
+def _launch_bwd_f32(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0,
+                    h0=0):
     """B10's fp32 backward: three launches of csrc/attention_f32_bwd.cu
     (delta, dk/dv, dq) -> ``(dq, dk, dv)`` fp32."""
     from . import _build
@@ -739,7 +757,7 @@ def _launch_bwd_f32(q, k, v, o, do, stats, seed, hq, hkv, rate, b0=0):
                        do.data_ptr(), stats.data_ptr(), delta.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), N, hq,
                        hkv, D, _round_up(N, 8), c["dropout"], c["seed"],
-                       c["thr"], c["scale2"], c["scale"], c["coef"], b0)
+                       c["thr"], c["scale2"], c["scale"], c["coef"], b0, h0)
     lib = _f32_bwd_lib()
     err = lib.attention_f32_bwd(ctypes.byref(args), plan.DP, B,
                                 plan.dkdv_grid[0], plan.dq_grid[0],

@@ -102,6 +102,7 @@ struct F32Args {
   int np, dropout;       // the hash lattice round_up(N, 8); 0 or 1
   float coef;            // fp32(1 / (1 - rate))
   int b0;                // the batch's first row in the global batch (the hash's b)
+  int h0;                // the launch's first q head among all heads (the hash's h)
 };
 
 namespace {
@@ -319,7 +320,7 @@ __device__ __forceinline__ void query_tile(const F32Args& a, F32Smem<DP>& sm, in
     for (int i = 0; i < 4; ++i) {
       int h;
       head_row(4 * ty + i, h, pos[i]);
-      st[i] = stream_of(b + a.b0, h, a.seed);
+      st[i] = stream_of(b + a.b0, a.h0 + h, a.seed);
     }
 
   // Pass 2: e and l, and (deferred, train, int8 v) the value product.

@@ -71,6 +71,7 @@ struct F32BwdArgs {
   uint32_t seed, thr;
   float scale2, scale, coef;  // fp32(scale * log2 e), fp32(scale), fp32(1 / (1 - rate))
   int b0;                     // the batch's first row in the global batch (the hash's b)
+  int h0;                     // the launch's first q head among all heads (the hash's h)
 };
 
 namespace {
@@ -136,7 +137,7 @@ __device__ __forceinline__ RowInfo row_info(const F32BwdArgs& a, int b, int kvh,
   r.l = a.stats[2 * at + 1];
   r.y = reciprocal(r.l);
   r.delta = a.delta[at];
-  r.stream = stream_of(b + a.b0, h, a.seed);
+  r.stream = stream_of(b + a.b0, a.h0 + h, a.seed);
   r.pos = n;
   return r;
 }

@@ -95,6 +95,7 @@ struct TrainRows {
   int dropout;   // 0 or 1
   float coef;    // 1 / (1 - rate)
   int b0;        // the batch's first row in the global batch (the hash's b)
+  int h0;        // the launch's first q head among all heads (the hash's h)
 };
 
 // The RoPE tables of B2 and B12, [N, D] fp32 each, read only with ROPE.
@@ -616,7 +617,7 @@ __device__ __forceinline__ void rows_attention(const __nv_bfloat16* __restrict__
       value_s8<DT>(iacc, s, reinterpret_cast<const int8_t*>(vs), p.nk + 16, key0, lane);
     } else if (!NORMED) {
       if (TRAIN && DROP && ra - gid < N) {  // the warp holds a row before N
-        const uint32_t st = stream_of(cur.b + tr.b0, cur.head0 + slot, tr.seed);
+        const uint32_t st = stream_of(cur.b + tr.b0, tr.h0 + cur.head0 + slot, tr.seed);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int col = key0 + nt * 8 + tig * 2;

@@ -102,6 +102,7 @@ struct TrainBwdPlan {
   uint32_t seed, thr;
   float scale2, scale, coef;
   int b0;  // the batch's first row in the global batch (the hash's b)
+  int h0;  // the launch's first q head among all heads (the hash's h)
 };
 
 namespace {
@@ -336,7 +337,7 @@ __global__ void __launch_bounds__(bwd_groups(D) * 256, 1) attn_bwd_kernel(
     const __nv_bfloat16* qt = tiles + ((bf * GROUPS + g) * 2) * TR * STR;
     const __nv_bfloat16* dt = qt + TR * STR;
     const float4* inf = infos + (bf * GROUPS + g) * TR;
-    const uint32_t st = stream_of(b + p.b0, h, p.seed);
+    const uint32_t st = stream_of(b + p.b0, p.h0 + h, p.seed);
 
 #pragma unroll 1
     for (int sub = 0; sub < TR / SR; ++sub) {

@@ -86,6 +86,7 @@ struct WideBwdPlan {
   uint32_t seed, thr;
   float scale2, scale, coef;
   int b0;  // the batch's first row in the global batch (the hash's b)
+  int h0;  // the launch's first q head among all heads (the hash's h)
 };
 
 namespace {
@@ -260,7 +261,7 @@ __global__ void __launch_bounds__(128) wide_fwd_kernel(const __nv_bfloat16* __re
   }
 
   // 3. The weights and the value product over the group's columns.
-  const uint32_t st = TRAIN && DROP ? stream_of(b + tr.b0, head, tr.seed) : 0u;
+  const uint32_t st = TRAIN && DROP ? stream_of(b + tr.b0, tr.h0 + head, tr.seed) : 0u;
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
@@ -495,7 +496,7 @@ __global__ void __launch_bounds__(128) wide_bwd_dkdv(
 
   for (int j = 0; j < G; ++j) {
     const int h = kvh * G + j;
-    const uint32_t st = DROP ? stream_of(b + p.b0, h, p.seed) : 0u;
+    const uint32_t st = DROP ? stream_of(b + p.b0, p.h0 + h, p.seed) : 0u;
     const __nv_bfloat16* qb = q + (long long)b * N * qd + (long long)h * p.dp;
     const __nv_bfloat16* db = dout + (long long)b * N * qd + (long long)h * p.dp;
     for (int r0 = 0; r0 < N; r0 += BSUB) {
@@ -635,7 +636,7 @@ __global__ void __launch_bounds__(128) wide_bwd_dq(
   const __nv_bfloat16* kb = k + (long long)b * N * kd + (long long)kvh * p.dp;
   const __nv_bfloat16* vb = v + (long long)b * N * kd + (long long)kvh * p.dp;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale2);
-  const uint32_t st = DROP ? stream_of(b + p.b0, h, p.seed) : 0u;
+  const uint32_t st = DROP ? stream_of(b + p.b0, p.h0 + h, p.seed) : 0u;
   const float4* ib = info + ((long long)b * p.hq + h) * N;
   const float4 ia = ra < N ? ib[ra] : make_float4(0.f, 1.f, 1.f, 0.f);
   const float4 ibb = rb < N ? ib[rb] : make_float4(0.f, 1.f, 1.f, 0.f);

@@ -6,8 +6,11 @@
 // with wrap-around; np = round_up(N, 8), the JAX wrapper's padded lattice.
 // b is the row of the global batch: a launch's own batch index plus its
 // args' b0, the first row of the batch it holds (a data-parallel rank's
-// span), so that every rank draws the mask one launch over the whole
-// batch would draw.
+// span); h is the global q head: the launch's own q head plus its args'
+// h0, the first head it holds (a tensor-parallel rank's heads, whose kv
+// heads stay local: local q head j reads local kv head j / G).  So every
+// rank draws the mask one launch over the whole batch and all heads would
+// draw.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -63,7 +63,7 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         raise NotImplementedError(
             "w8a8_dot(impl='pallas') under a model axis past 1: B14 is not "
             "split yet; the next slice of the port brings it (ROADMAP "
-            "section A item 8(b))")
+            "section A item 8(b)(ii), section B.1 item 2)")
     check_t("w8a8_dot", w_q, w_t)
     K, N = w_q.shape
     lead = lhs.shape[:-1]
@@ -132,31 +132,39 @@ class QuantDense(nn.Module):
         return out
 
 
-def _quantize_kernel(kernel: torch.Tensor):
+def _quantize_kernel(kernel: torch.Tensor, group=None):
     """The kernel's per-output-column codes K-major, ``[N, K]`` int8, and
-    its scales ``[N, 1]`` fp32 (``max|w| * _INV127``, unfloored)."""
+    its scales ``[N, 1]`` fp32 (``max|w| * _INV127``, unfloored).
+    ``group``: the model group where ``kernel`` holds a rank's rows (the
+    column maxima taken over the whole K)."""
     w_t = kernel.t().float()                       # [N, K]
-    scale = w_t.abs().amax(dim=1, keepdim=True) * _INV127
+    scale = group_max(group, w_t.abs().amax(dim=1, keepdim=True)) * _INV127
     codes = torch.round(w_t / scale.clamp_min(1e-12)).to(
         torch.int8).contiguous()
     return codes, scale
 
 
-def _dynamic_dot(x: torch.Tensor, kernel: torch.Tensor, impl: str
-                 ) -> torch.Tensor:
-    codes, scale = _quantize_kernel(kernel)
+def _dynamic_dot(x: torch.Tensor, kernel: torch.Tensor, impl: str,
+                 group=None) -> torch.Tensor:
+    codes, scale = _quantize_kernel(kernel, group)
     return w8a8_dot(x, codes.t(), scale.reshape(1, -1), impl=impl,
-                    w_t=codes if impl in ("fused", "pallas") else None)
+                    w_t=codes if impl in ("fused", "pallas") else None,
+                    group=group)
 
 
 def _max_abs_vjp(v: torch.Tensor, vmax: torch.Tensor, ct: torch.Tensor,
-                 dim: int) -> torch.Tensor:
+                 dim: int, group=None) -> torch.Tensor:
     """The cotangent of ``v`` through ``vmax = max(|v|, dim)`` given
     ``ct``, ``vmax``'s (both ``v``'s dtype): JAX's transposes of ``max``
     (the cotangent split equally among tied maxima, divided by their count
-    in ``v``'s dtype) and of ``abs`` (``+ct`` where ``v >= 0``)."""
+    in ``v``'s dtype) and of ``abs`` (``+ct`` where ``v >= 0``).
+    ``group``: the model group whose ranks hold the rest of ``dim`` (the
+    ties counted over every rank; the cotangent lands on this rank's)."""
     hit = (v.abs() == vmax).to(v.dtype)
-    share = hit * (ct / hit.sum(dim=dim, keepdim=True))
+    count = hit.sum(dim=dim, keepdim=True)
+    if group is not None:
+        count = group.sum_f32(count).to(v.dtype)
+    share = hit * (ct / count)
     return torch.where(v >= 0, share, -share)
 
 
@@ -177,41 +185,61 @@ class _Int8DotGeneral(torch.autograd.Function):
     ``acc`` (the int32 product) is not kept: the backward quantises ``x``
     and the kernel again and recomputes it with :func:`int8_mm`, so the
     saved tensors are the two inputs, which a bf16 product saves too, and
-    the backward pays one more int8 product and the quantisations."""
+    the backward pays one more int8 product and the quantisations.
+
+    ``group`` with ``role`` "row" (a row-parallel rank: ``x`` its
+    columns, ``kernel`` its rows) takes the row and column maxima over the
+    model group (MAX) and sums the int32 partial products (SUM), in the
+    forward and again in the backward, and counts the tied maxima over
+    the group (SUM): the forward is the one-card product bit for bit, and
+    each rank's cotangents are its share of the one-card ones.
+
+    ``group`` with ``role`` "col" (a column-parallel rank: ``x`` whole,
+    ``kernel`` its columns) sums the row scale's fp32 cotangent over the
+    group before its rounding, as one card's sum over every column rounds
+    once: every rank then holds x's whole one-card cotangent (Megatron's
+    f folded into the product)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, impl):
+    def forward(ctx, x, kernel, impl, group, role):
         ctx.save_for_backward(x, kernel)
-        return _dynamic_dot(x, kernel, impl)
+        ctx.group, ctx.col = (group, None) if role == "row" else (None, group)
+        return _dynamic_dot(x, kernel, impl, ctx.group)
 
     @staticmethod
     def backward(ctx, g):
         x, kernel = ctx.saved_tensors
+        group = ctx.group
         K, N = kernel.shape
-        codes, ws = _quantize_kernel(kernel)        # [N, K], [N, 1]
+        codes, ws = _quantize_kernel(kernel, group)  # [N, K], [N, 1]
         xs = x.reshape(-1, K)
         amax = xs.abs().amax(dim=-1, keepdim=True)  # x's dtype
+        if group is not None:
+            amax = group.max_(amax.float()).to(x.dtype)
         a = amax.float() * _INV127                  # [M, 1]
         a_q = torch.round(xs.float() / a.clamp_min(1e-12)).to(torch.int8)
-        acc = int8_mm(a_q, codes.t()).float()       # [M, N]
+        acc = group_sum(group, int8_mm(a_q, codes.t())).float()  # [M, N]
         gf = g.reshape(-1, N).float()
         ws_row = ws.reshape(1, N)
         grad_x = grad_w = None
         if ctx.needs_input_grad[0]:
             ct_a = (acc * (gf * ws_row)).sum(dim=1, keepdim=True)
+            if ctx.col is not None:
+                ct_a = ctx.col.sum_f32(ct_a)
             ct_amax = (ct_a * _INV127).to(x.dtype)
-            grad_x = _max_abs_vjp(xs, amax, ct_amax, 1).reshape(x.shape)
+            grad_x = _max_abs_vjp(xs, amax, ct_amax, 1, group).reshape(
+                x.shape)
         if ctx.needs_input_grad[1]:
             ct_ws = ((acc * a) * gf).sum(dim=0, keepdim=True)  # [1, N]
             w = kernel.float()
-            wmax = w.abs().amax(dim=0, keepdim=True)
-            grad_w = _max_abs_vjp(w, wmax, ct_ws * _INV127, 0).to(
+            wmax = group_max(group, w.abs().amax(dim=0, keepdim=True))
+            grad_w = _max_abs_vjp(w, wmax, ct_ws * _INV127, 0, group).to(
                 kernel.dtype)
-        return grad_x, grad_w, None
+        return grad_x, grad_w, None, None, None
 
 
-def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla"
-                     ) -> torch.Tensor:
+def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla",
+                     group=None, role: str = "row") -> torch.Tensor:
     """The dynamic W8A8 product of ``matmul_precision="int8"``: ``x [...,
     K] @ kernel [K, N]`` with the kernel quantised per output column at
     every call (JAX's ``int8_dot_general``; nothing is cached across calls,
@@ -227,10 +255,20 @@ def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla"
 
     Where autograd records and ``x`` or ``kernel`` needs a gradient, the
     product is :class:`_Int8DotGeneral` (the forward the same, the
-    backward JAX's cotangents); else nothing is saved."""
+    backward JAX's cotangents); else nothing is saved.
+
+    ``group``: the tensor-parallel model group, and ``role`` the
+    projection's part.  "row": ``x`` holds a rank's columns and ``kernel``
+    its rows; the maxima and the int32 product are taken over the group,
+    so every rank gets the one-card product (B4's split entry under
+    "fused" on the card; "pallas", B14, is not split and raises).  "col":
+    ``kernel`` holds a rank's columns; the forward needs no collective,
+    the backward one (see :class:`_Int8DotGeneral`)."""
+    if role not in ("row", "col"):
+        raise ValueError(f"int8_dot_general: role {role!r}")
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
-        return _Int8DotGeneral.apply(x, kernel, impl)
-    return _dynamic_dot(x, kernel, impl)
+        return _Int8DotGeneral.apply(x, kernel, impl, group, role)
+    return _dynamic_dot(x, kernel, impl, group if role == "row" else None)
 
 
 def round_to_bf16(x: np.ndarray) -> np.ndarray:

@@ -14,8 +14,10 @@ What each process owns: its card, and its span of every global batch
 on every rank, crops and shuffles being pure functions of (seed, epoch,
 index)), and, on a model axis past 1, its share of each block projection.
 Gradients, validation metrics and sampled rows meet in :class:`DataGroup`'s
-collectives, a tensor-parallel forward's row maxima, int32 partial products
-and AdaLN columns in :class:`ModelGroup`'s.  Both use only ``all_reduce``,
+collectives, a tensor-parallel forward's row maxima, int32 partial products,
+row-parallel sums and AdaLN columns in :class:`ModelGroup`'s, whose
+:meth:`~ModelGroup.reduce_out` is Megatron's g under autograd (f is folded
+into each column-parallel product's backward, ``models/dit.py``).  Both use only ``all_reduce``,
 ``broadcast`` and the list form of ``all_gather``: the three that gloo
 also takes on CUDA tensors, so that two ranks may share one card over gloo
 (NCCL refuses that).  A collective a backend refuses raises; nothing is
@@ -250,7 +252,66 @@ class ModelGroup:
 
     def gather_cols(self, mine: torch.Tensor) -> torch.Tensor:
         """Every rank's ``mine`` (equal shapes) concatenated on the last dim
-        in rank order: a column-parallel output made whole."""
+        in rank order: a column-parallel output made whole.  Under autograd
+        the backward keeps this rank's columns of the cotangent (which every
+        rank holds whole and equal)."""
+        return _GatherCols.apply(mine, self)
+
+    def gather_dim(self, mine: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``mine`` (equal shapes) concatenated on ``dim`` in
+        rank order (no autograd: a split leaf made whole)."""
         out = [torch.empty_like(mine) for _ in range(self.size)]
         dist.all_gather(out, mine.contiguous(), group=self.group)
-        return torch.cat(out, dim=-1)
+        return torch.cat(out, dim=dim)
+
+    def sum_f32(self, t: torch.Tensor) -> torch.Tensor:
+        """A fresh fp32 tensor: ``t`` summed over the ranks in fp32 (the
+        same bits on every rank)."""
+        s = t.to(torch.float32, copy=True)
+        dist.all_reduce(s, group=self.group)
+        return s
+
+    def reduce_out(self, partial: torch.Tensor) -> torch.Tensor:
+        """Megatron's g, at the output of a row-parallel product: the
+        ranks' partial products (fp32, unrounded) summed over the ranks in
+        fp32 (a fresh tensor); its backward is the identity."""
+        return _ReduceOut.apply(partial, self)
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, group):
+        return group.sum_f32(partial)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mine, group):
+        ctx.group, ctx.n = group, mine.shape[-1]
+        return group.gather_dim(mine, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.group.rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+def broadcast_tree(tree, src: int = 0):
+    """A nested dict of tensors or numpy arrays -> the same tree of CPU
+    tensors holding global rank ``src``'s values, leaf by leaf over the
+    whole world (the default group's device carries them); the tree as
+    tensors where there is one process."""
+    def leaf(x):
+        t = torch.as_tensor(x)
+        if world()[1] == 1:
+            return t
+        buf = t.to(_collective_device(), copy=True).contiguous()
+        dist.broadcast(buf, src=src)
+        return buf.cpu()
+
+    return {k: broadcast_tree(v, src) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}

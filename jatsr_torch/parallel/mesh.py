@@ -11,11 +11,11 @@ process a card (``torchrun``), with dims named ``"data"`` and ``"model"``:
   it;
 - ``model``: tensor parallelism over attention heads, the MLP width and the
   AdaLN width, by the rule table below (:func:`param_specs`, JAX's
-  ``param_shardings``).  The int8 serving ``DiT`` serves on it
-  (:func:`local_params` cuts a rank's leaves; the ranks of a model group
-  meet in ``distributed.ModelGroup``'s collectives); training on a model
-  axis past 1 raises ``NotImplementedError`` (:data:`TENSOR_PARALLEL_TRAINING`,
-  the next slice).
+  ``param_shardings``).  The int8 serving ``DiT`` serves on it and the
+  trainable ``DenseDiT`` trains and serves on it (:func:`local_params`
+  cuts a rank's leaves, :func:`param_split_dim` names a parameter's split
+  dim, :func:`head_offset` gives a rank's first q head; the ranks of a
+  model group meet in ``distributed.ModelGroup``'s collectives).
 
 A mesh of one card needs no launcher: :func:`make_mesh` joins a world of
 one where no process group exists.
@@ -33,9 +33,6 @@ from ..utils.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-TENSOR_PARALLEL_TRAINING = (
-    "tensor-parallel training (a model axis past 1 where the model trains) "
-    "comes in the next slice of the port: ROADMAP section A item 8(b)")
 
 
 def default_backend(device) -> str:
@@ -98,13 +95,11 @@ def model_rank(mesh) -> int:
     return 0 if mesh is None else mesh.get_local_rank(MODEL_AXIS)
 
 
-def check_no_model_axis(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` where ``what`` (a training entry) gets
-    a mesh whose model dim is past 1."""
-    if model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{what} on a {mesh.size(0)}x{mesh.size(1)} mesh: "
-            f"{TENSOR_PARALLEL_TRAINING}")
+def head_offset(cfg, model: int, rank: int) -> int:
+    """The first q head of rank ``rank`` of a model axis of ``model``
+    (``rank * Hq / model``): B10's ``h0``, so that the rank's dropout hash
+    keys the global head."""
+    return rank * (cfg.num_q_heads // model)
 
 
 def data_rank(mesh) -> int:
@@ -157,6 +152,18 @@ def spec_for(path: str, ndim: int) -> Spec:
     if len(spec) == ndim + 1 and spec[0] is None:
         return spec[1:]  # an unstacked leaf: no depth dim
     return ()
+
+
+def param_split_dim(name: str, ndim: int) -> Optional[int]:
+    """The dim over which the model axis splits the ``DenseDiT`` parameter
+    ``name`` (its module name, ``blocks.<i>.attn.q_proj.kernel``; one
+    layer, so no depth dim) of ``ndim`` dims, by :func:`spec_for`; None
+    where it is replicated."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        parts = ["blocks"] + parts[2:]
+    spec = spec_for("/".join(parts), ndim)
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
 
 def divisible(spec: Spec, shape: Sequence[int], axis_sizes: Dict[str, int]
@@ -224,8 +231,8 @@ def local_params(tree, cfg, model: int, rank: int) -> dict:
     contiguous spans, this rank's), but for the fused ``qkv_proj``, whose
     columns (kernel, scale and bias alike) are :func:`qkv_columns`.  A
     replicated leaf is passed through.  ``model`` must divide ``cfg``'s kv
-    heads and MLP width (:func:`check_model_axis`, which the serving DiT
-    runs first).  Raises ``ValueError`` where a leaf the model splits is
+    heads and MLP width (:func:`check_model_axis`, which both DiTs run
+    first).  Raises ``ValueError`` where a leaf the model splits is
     replicated by the table (a width that does not divide)."""
     if model == 1:
         return tree

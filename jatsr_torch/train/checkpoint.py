@@ -21,8 +21,9 @@ Resume is exact: the step's draws are a pure function of ``(seed, step)``
 state in the file is all the randomness there is.
 
 Several processes (a mesh): every rank calls :meth:`CheckpointManager.save`
-(the state dict gathers ZeRO-1's moments), only the primary writes the
-files, the meta and the prunes, and every rank waits at a barrier before
+(the state dict gathers ZeRO-1's moments and the leaves a model group
+splits: a file holds whole leaves, so it resumes on any mesh or on one
+card), only the primary writes the files, the meta and the prunes, and every rank waits at a barrier before
 :meth:`~CheckpointManager.save` returns and before a restore reads.
 """
 

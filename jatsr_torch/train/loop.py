@@ -2,8 +2,9 @@
 resume.
 
 The port of the JAX package's ``train/loop.py``, on one card (or the CPU
-when asked), or data-parallel over the processes of a ``(D, 1)`` mesh
-(``mesh=``; one process a card under ``torchrun``):
+when asked), or over the processes of a ``(D, M)`` mesh (``mesh=``; one
+process a card under ``torchrun``): data-parallel over D, tensor-parallel
+over M:
 
 - the epoch loop, the training loader reshuffled per epoch
   (``set_epoch``);
@@ -29,14 +30,15 @@ stream, not the trainer, so a trainer that is dropped frees its state at
 once (no reference cycle waits for the collector).
 
 Under a mesh each rank loads its span of every global batch
-(``BatchLoader(shard=(rank, D))``; ``batch_size`` is the global batch and
-must divide by D), the model is drawn from the seed and broadcast from rank
-0, the step and the validation reduce over ``"data"`` (so ``best`` is
-chosen alike everywhere), and rank 0 alone names the run
-(``shared_run_name``), writes the checkpoints, ``preset.json`` and the
-TensorBoard scalars.  ``train.shard_opt_state`` splits the moments
-(ZeRO-1).  A model dim past 1 raises ``NotImplementedError``: tensor-parallel
-training is the next slice (ROADMAP section A item 8(b)).
+(``BatchLoader(shard=(data rank, D))``: the model ranks of a data rank load
+the same rows; ``batch_size`` is the global batch and must divide by D),
+the model is drawn from the seed, broadcast from rank 0 over the whole
+world as whole leaves and cut by each rank (``DenseDiT(mesh=)``), the step
+and the validation reduce over ``"data"`` (so ``best`` is chosen alike
+everywhere), and rank 0 alone names the run (``shared_run_name``), writes
+the checkpoints (whole leaves: every rank joins the gathers),
+``preset.json`` and the TensorBoard scalars.  ``train.shard_opt_state``
+splits the moments (ZeRO-1).
 
 MFU is against the H100's dense bf16 peak (``utils/flops.py``), a card's
 share: the step's FLOPs over the world size.
@@ -56,9 +58,9 @@ from ..configs import Preset
 from ..data import BatchLoader, LatentDataset, ValidationDataset, load_stats
 from ..models.dit import DenseDiT
 from ..models.from_jax import init_dense_params
-from ..parallel.distributed import (DataGroup, is_primary, shared_run_name,
-                                    world)
-from ..parallel.mesh import check_no_model_axis, data_rank, data_size
+from ..parallel.distributed import (broadcast_tree, is_primary,
+                                    shared_run_name, world)
+from ..parallel.mesh import data_rank, data_size
 from ..utils.device import resolve_device
 from ..utils.flops import H100_BF16_PEAK_FLOPS, train_step_flops
 from ..utils.profiling import StepTimer
@@ -110,9 +112,9 @@ class Trainer:
         resume: None (a new run), ``"auto"`` (the latest run under
             ``<save_dir_base>/<preset>`` with a ``last``, else a new one)
             or a run directory.
-        mesh: None (one process), or a ``(D, 1)`` mesh
+        mesh: None (one process), or a ``(D, M)`` mesh
             (``parallel.make_mesh``) over the process group: data-parallel
-            over D ranks.
+            over D ranks, tensor-parallel over M.
         run_name: the new run's directory name (a ``MMDDHHMM`` stamp by
             default).
         writer: an object with ``add_scalar(tag, value, step)`` and
@@ -133,7 +135,6 @@ class Trainer:
         self.preset = preset
         mcfg, tcfg, dcfg = preset.model, preset.train, preset.data
         data_dir = data_dir or dcfg.data_dir
-        check_no_model_axis(mesh, "the Trainer")
         D = data_size(mesh)
         self.n_procs = world()[1]
         self.primary = is_primary()
@@ -167,22 +168,21 @@ class Trainer:
             device=self.device)
 
         # Model and state, drawn from the seed as flax initialises them
-        # (under a mesh, rank 0's weights broadcast: one start everywhere).
-        self.model = DenseDiT(
-            mcfg, init_dense_params(mcfg,
-                                    torch.Generator().manual_seed(tcfg.seed)),
-            device=self.device)
-        if mesh is not None and D > 1:
-            dp = DataGroup(mesh)
-            with torch.no_grad():
-                for p in self.model.parameters():
-                    dp.broadcast_(p.data)
+        # (under a mesh, rank 0's whole leaves broadcast, then each rank's
+        # cut: one start everywhere).
+        tree = broadcast_tree(init_dense_params(
+            mcfg, torch.Generator().manual_seed(tcfg.seed)))
+        self.model = DenseDiT(mcfg, tree, device=self.device, mesh=mesh)
+        del tree
         sample = next(iter(BatchLoader(self.train_loader.ds, tcfg.batch_size,
                                        shuffle=False, prefetch=0)))
         self.total_steps = len(self.train_loader) * tcfg.num_epochs
         self.state = create_train_state(self.model, tcfg, self.total_steps,
                                         sample, device=self.device, mesh=mesh)
-        self.n_params = sum(p.numel() for p in self.state.params)
+        tp = self.model.tp
+        self.n_params = sum(p.numel() * (1 if k not in self.model.split_dims
+                                         else tp.size)
+                            for k, p in self.model.named_parameters())
         self._flops_per_step = train_step_flops(
             mcfg, tcfg.batch_size, target,
             tcfg.grad_accum_steps) / self.n_procs

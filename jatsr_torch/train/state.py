@@ -37,6 +37,17 @@ updated spans from every rank.  AdamW is elementwise, so the update is bit
 for bit the one without ZeRO-1.  A state dict holds the whole moments
 (gathered on every rank; the primary writes them), and loading one keeps
 this rank's span: a checkpoint moves between meshes of any data size.
+
+Tensor parallelism (a ``DenseDiT`` built on a mesh whose model dim is past
+1): each rank holds its split leaves' spans (``model.split_dims``) and the
+moments of what it holds (ZeRO-1 then splits those over the data dim).
+The clip norm and the ``grad_norm`` metric sum each split leaf's squares
+over the model group and count each replicated leaf once (at bf16, each
+split JAX leaf's fp32 partial sums are added over the group and rounded
+once, in JAX's leaf order).  A state dict holds whole leaves in the JAX
+layout (the split ones gathered over the model group; every rank calls
+it), and loading one cuts this rank's leaves, so a checkpoint moves
+between one card and any ``(D, M)`` mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ import numpy as np
 import torch
 
 from ..configs import TrainConfig
-from ..parallel.distributed import DataGroup
+from ..parallel.distributed import DataGroup, ModelGroup
 from ..parallel.mesh import opt_state_plan
 from ..utils.device import resolve_device
 from .schedule import warmup_cosine
@@ -130,25 +141,42 @@ def leaf_groups(names) -> List[List[int]]:
     return [groups[k] for k in sorted(groups)]
 
 
-def clip_norm(grads, groups=None) -> torch.Tensor:
+def clip_norm(grads, groups=None, split=None, tp=None) -> torch.Tensor:
     """optax's ``global_norm`` in the gradients' dtype: fp32 gradients give
     :func:`global_norm`; otherwise each JAX leaf's sum of squares (squares
     in the gradient's dtype, summed in fp32 and rounded to it, as ``jnp.sum``
     does), those sums added in the leaves' order in their dtype, then the
-    square root.  ``groups`` as :meth:`ClipAdamW.step` takes it."""
+    square root.  ``groups`` as :meth:`ClipAdamW.step` takes it.
+    ``split`` and ``tp``: which gradients are a rank's span of a leaf split
+    over the model group ``tp``; a split leaf's fp32 sum is added over the
+    group (one all-reduce for all of them) before its rounding."""
     if all(g.dtype == torch.float32 for g in grads):
-        return global_norm(grads)
+        return global_norm(grads, split, tp)
+    groups = groups or [[i] for i in range(len(grads))]
+    sqs = [sum((grads[i] * grads[i]).sum(dtype=torch.float32)
+               for i in group) for group in groups]
+    if tp is not None:
+        mine = [j for j, group in enumerate(groups) if split[group[0]]]
+        if mine:
+            whole = tp.sum_f32(torch.stack([sqs[j] for j in mine]))
+            for n, j in enumerate(mine):
+                sqs[j] = whole[n]
     total = 0
-    for group in groups or [[i] for i in range(len(grads))]:
-        sq = sum((grads[i] * grads[i]).sum(dtype=torch.float32)
-                 for i in group)
+    for group, sq in zip(groups, sqs):
         total = total + sq.to(grads[group[0]].dtype)
     return torch.sqrt(total)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over a list of tensors, fp32."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors, split=None, tp=None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over a list of tensors, fp32.  ``split`` and
+    ``tp`` as :func:`clip_norm` takes them: the split tensors' sum is added
+    over the group, the others counted once."""
+    if tp is None:
+        return torch.sqrt(sum((t.float() * t.float()).sum()
+                              for t in tensors))
+    sq = [(t.float() * t.float()).sum() for t in tensors]
+    whole = tp.sum_f32(sum(s for s, m in zip(sq, split) if m))
+    return torch.sqrt(sum(s for s, m in zip(sq, split) if not m) + whole)
 
 
 def make_optimizer(cfg: TrainConfig, total_steps: int) -> ClipAdamW:
@@ -164,7 +192,8 @@ class TrainState:
     its moments, the step count and the seed the per-step draws come from.
     ``dp`` and ``split``: ZeRO-1's data group and, for each parameter,
     whether this rank holds only its span of the moments (None: whole
-    moments)."""
+    moments).  ``tp`` and ``tp_dims``: the model's tensor-parallel group
+    and, for each parameter, the dim the group splits (None: whole)."""
 
     step: int
     model: torch.nn.Module
@@ -173,6 +202,8 @@ class TrainState:
     tx: ClipAdamW
     dp: Optional[DataGroup] = None
     split: Optional[List[bool]] = None
+    tp: Optional[ModelGroup] = None
+    tp_dims: Optional[List[Optional[int]]] = None
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -186,16 +217,26 @@ class TrainState:
             return t
         return t.chunk(self.dp.size, 0)[self.dp.rank]
 
+    def _tp_split(self):
+        """``(split, tp)`` of :func:`clip_norm` (``(None, None)`` without
+        a model group)."""
+        if self.tp is None:
+            return None, None
+        return [d is not None for d in self.tp_dims], self.tp
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The fp32 global norm of the whole model's gradients."""
+        return global_norm(grads, *self._tp_split())
+
     def apply_gradients(self, grads) -> "TrainState":
         """Clip, AdamW, in place; the step count advances.  Under ZeRO-1
         each rank updates its spans, then the spans are gathered."""
         names = [k for k, _ in self.model.named_parameters()]
-        groups = leaf_groups(names)
+        g_norm = clip_norm(grads, leaf_groups(names), *self._tp_split())
         params = self.params
         if self.split is None:
-            self.tx.step(params, grads, self.opt_state, groups)
+            self.tx.step(params, grads, self.opt_state, g_norm=g_norm)
         else:
-            g_norm = clip_norm(grads, groups)
             self.tx.step([self.span(p.data, i) for i, p in enumerate(params)],
                          [self.span(g, i) for i, g in enumerate(grads)],
                          self.opt_state, g_norm=g_norm)
@@ -224,25 +265,43 @@ class TrainState:
             out.append(m)
         return out
 
+    def _whole_leaf(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Parameter ``i``'s ``t`` whole: gathered over the model group
+        where the group splits it."""
+        if self.tp is None or self.tp_dims[i] is None:
+            return t
+        return self.tp.gather_dim(t, self.tp_dims[i])
+
+    def _local_leaf(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's span of parameter ``i``'s whole ``t`` (a view)."""
+        if self.tp is None or self.tp_dims[i] is None:
+            return t
+        return t.chunk(self.tp.size, self.tp_dims[i])[self.tp.rank]
+
     def state_dict(self) -> Dict:
         """``{"step", "seed", "params": {name: tensor}, "opt": {"count",
         "mu": {name: tensor}, "nu": {name: tensor}}}``: the tensors are the
         state's own (detached, not copied), but for the moments ZeRO-1
-        splits, which are gathered (every rank must call this)."""
+        splits and the leaves a model group splits, which are gathered
+        whole (every rank must call this)."""
         names = [k for k, _ in self.model.named_parameters()]
+
+        def whole(ts):
+            return {k: self._whole_leaf(t, i)
+                    for i, (k, t) in enumerate(zip(names, ts))}
+
         return {"step": int(self.step), "seed": int(self.seed),
-                "params": {k: p.detach() for k, p in
-                           self.model.named_parameters()},
+                "params": whole([p.detach() for p in self.params]),
                 "opt": {"count": int(self.opt_state.count),
-                        "mu": dict(zip(names, self._whole(self.opt_state.mu))),
-                        "nu": dict(zip(names,
-                                       self._whole(self.opt_state.nu)))}}
+                        "mu": whole(self._whole(self.opt_state.mu)),
+                        "nu": whole(self._whole(self.opt_state.nu))}}
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict) -> "TrainState":
-        """Copy a :meth:`state_dict` (from any device) into this state in
-        place.  Raises ``KeyError`` / ``ValueError`` where its names, shapes
-        or moment dtypes are not this state's."""
+        """Copy a :meth:`state_dict` (from any device; whole leaves) into
+        this state in place, this rank's spans of them.  Raises
+        ``KeyError`` / ``ValueError`` where its names, shapes or moment
+        dtypes are not this state's."""
         named = dict(self.model.named_parameters())
         opt = sd["opt"]
         for group in (sd["params"], opt["mu"], opt["nu"]):
@@ -251,11 +310,14 @@ class TrainState:
                 raise KeyError(f"state names differ: missing "
                                f"{sorted(missing)[:4]}, unexpected "
                                f"{sorted(extra)[:4]}")
+        cut = self._local_leaf
         pairs = [(dst, src, k) for i, (k, p) in enumerate(named.items())
                  for dst, src in (
-                     (p, sd["params"][k]),
-                     (self.opt_state.mu[i], self.span(opt["mu"][k], i)),
-                     (self.opt_state.nu[i], self.span(opt["nu"][k], i)))]
+                     (p, cut(sd["params"][k], i)),
+                     (self.opt_state.mu[i], self.span(cut(opt["mu"][k], i),
+                                                      i)),
+                     (self.opt_state.nu[i], self.span(cut(opt["nu"][k], i),
+                                                      i)))]
         for dst, src, k in pairs:
             if src.shape != dst.shape or src.dtype != dst.dtype:
                 raise ValueError(f"{k}: {tuple(src.shape)} {src.dtype} cannot "
@@ -278,7 +340,8 @@ def create_train_state(model, cfg: TrainConfig, total_steps: int,
     ``sample_batch`` is an (hr, lr) pair ``[B, T, C]``: its channel count
     is checked against the model.  ``mesh`` with ``shard_opt_state``
     (``cfg.shard_opt_state`` by default) splits the moments over the data
-    dim (ZeRO-1); without a mesh it does nothing.
+    dim (ZeRO-1); without a mesh it does nothing.  A model built on a mesh
+    with a model dim past 1 (``DenseDiT(mesh=)``) brings its model group.
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -291,6 +354,11 @@ def create_train_state(model, cfg: TrainConfig, total_steps: int,
     tx = make_optimizer(cfg, total_steps)
     state = TrainState(step=0, model=model, opt_state=None,
                        seed=cfg.seed if seed is None else seed, tx=tx)
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        state.tp = tp
+        state.tp_dims = [model.split_dims.get(k) for k, _ in
+                         model.named_parameters()]
     if shard_opt_state is None:
         shard_opt_state = cfg.shard_opt_state
     if mesh is not None and shard_opt_state:

@@ -15,7 +15,7 @@ step's own draws): ``noise`` ``[B, T, C]``, ``u`` ``[B]`` (the uniforms of
 the U-shaped t), ``cond_noise`` ``[B, T, C]``, ``cfg_u`` ``[B, 1, 1]``,
 ``layer_seeds`` (``depth`` ints).
 
-Under a mesh (``mesh=``, a ``(D, 1)`` :func:`~jatsr_torch.parallel.make_mesh`)
+Under a mesh (``mesh=``, a ``(D, M)`` :func:`~jatsr_torch.parallel.make_mesh`)
 each of D processes holds one contiguous span of the global batch, and the
 step is the single-card step on the global batch up to rounding (float sums
 in another order; a rank's bf16 weight-gradient sums rounded before the
@@ -35,6 +35,14 @@ all-reduce adds them):
 - the gradients are all-reduced as a mean over ``"data"`` before the clip,
   so every rank applies one update (``TrainState`` splits the moments under
   ZeRO-1).
+
+On a ``(D, M)`` mesh with M past 1 the model is built on it
+(``DenseDiT(mesh=)``, tensor-parallel): every model rank of a data rank
+takes the same rows and the same draws, its replicated parameters get
+equal gradients and its metrics are equal (the model's output is whole on
+every rank); the gradients are averaged over ``"data"`` only, and the
+clip norm and ``grad_norm`` count each split leaf over the model group
+(``TrainState``).
 """
 
 from __future__ import annotations
@@ -48,9 +56,8 @@ from ..configs import LossConfig, TrainConfig
 from ..losses import total_training_loss
 from ..sampling.flow import flow_interpolate, u_shaped
 from ..parallel.distributed import DataGroup
-from ..parallel.mesh import check_no_model_axis
 from ..utils.device import resolve_device
-from .state import TrainState, global_norm
+from .state import TrainState
 
 
 class Normalizer:
@@ -133,7 +140,6 @@ def make_train_step(loss_cfg: LossConfig, train_cfg: TrainConfig,
     parameters and moments are updated in place.  Metrics are 0-dim fp32
     tensors on the state's device (the global batch's under a mesh, the
     same on every rank)."""
-    check_no_model_axis(mesh, "the train step")
     dp = DataGroup.of(mesh)
     D = 1 if dp is None else dp.size
 
@@ -208,7 +214,7 @@ def make_train_step(loss_cfg: LossConfig, train_cfg: TrainConfig,
             metrics = dict(zip(keys, means))
             pred_std = torch.sqrt(dp.mean([((pred - pred_mean) ** 2).sum()],
                                           n)[0])
-        grad_norm = global_norm(grads)
+        grad_norm = state.grad_norm(grads)
         state.apply_gradients(grads)
         for p in params:
             p.grad = None

@@ -111,6 +111,62 @@ def test_bf16_plain_keeps_the_rounding_points():
                                atol=2.0 ** -8 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_rank_heads_at_h0_equal_those_of_the_whole_call(dtype):
+    """A tensor-parallel rank's heads (q heads ``h0 ..``, their kv heads)
+    at ``h0``: the keep masks bit-equal to JAX's at the global heads; the
+    forward and the gradients bit-equal to the same heads of the plain
+    whole call and, against JAX's whole call in interpret mode, within
+    this file's bounds (fp32; bf16: the forward to one ulp)."""
+    B, N, hq, hkv, D, M, rate, seed = 2, 45, 4, 2, 16, 2, 0.25, -99
+    q, k, v, r = _inputs(B, N, hq, hkv, D, 4)
+    sd = jnp.array([seed], jnp.int32)
+    jdt = jnp.dtype(dtype)
+
+    def f(q, k, v):
+        o = jat.gqa_attention_train(q, k, v, sd, hq, hkv, dropout_rate=rate,
+                                    interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * r), o
+
+    jin = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    (_, jo), jg = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        *jin)
+    jo, jg = np.asarray(jo, np.float32), [np.asarray(g, np.float32)
+                                          for g in jg]
+    tdt = getattr(torch, dtype)
+    whole = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    o = tat.gqa_attention_train(*whole, seed, hq, hkv, rate)
+    (o.float() * torch.from_numpy(r)).sum().backward()
+    qd, kd = hq // M * D, hkv // M * D
+    for rank in range(M):
+        h0 = rank * hq // M
+        keep = tat._keep_mask(seed, B, hq // M, N, rate, "cpu", h0=h0)
+        for h in range(hq // M):
+            want = np.asarray(jat.dropout_keep_mask(sd[0], 1, h0 + h, 48,
+                                                    rate))[:N, :N]
+            np.testing.assert_array_equal(keep[1, h].numpy(), want)
+        qs, ks = slice(rank * qd, (rank + 1) * qd), slice(rank * kd,
+                                                         (rank + 1) * kd)
+        mine = [t.detach()[..., s].clone().requires_grad_()
+                for t, s in zip(whole, (qs, ks, ks))]
+        om = tat.gqa_attention_train(*mine, seed, hq // M, hkv // M, rate,
+                                     h0=h0)
+        (om.float() * torch.from_numpy(r[..., qs])).sum().backward()
+        assert torch.equal(om, o.detach()[..., qs])
+        for t, w, s in zip(mine, whole, (qs, ks, ks)):
+            assert torch.equal(t.grad, w.grad[..., s])
+        if dtype == "float32":
+            np.testing.assert_allclose(om.detach().numpy(), jo[..., qs],
+                                       atol=2e-5, rtol=2e-5)
+            for t, g, s in zip(mine, jg, (qs, ks, ks)):
+                np.testing.assert_allclose(t.grad.numpy(), g[..., s],
+                                           atol=5e-4, rtol=5e-4)
+        else:
+            np.testing.assert_allclose(om.detach().float().numpy(),
+                                       jo[..., qs],
+                                       atol=2.0 ** -8 * np.abs(jo).max())
+
+
 # ---- the kernels' launch plan (csrc/attention_train.cu), on the CPU --------
 # ``_train_plan`` is pure Python.  The enumerations below follow the
 # kernels' own indexing: the forward is attention_natural.cu's body on

@@ -101,18 +101,15 @@ def test_cli_latent_in(files, capsys):
 
 
 @pytest.mark.parametrize("entry,flag", [
-    ("infer", ["--mesh", "1", "2"]), ("train", ["--mesh", "1", "2"]),
-    ("train", ["--distributed", "--mesh", "2", "2"])])
+    ("infer", ["--int8", "--attention", "xla", "--mesh", "1", "2"])])
 def test_cli_flags_of_later_slices_raise(files, entry, flag):
-    """On a model axis past 1 training and the bf16 model are the next
-    slice's (the int8 DiT serves there:
-    ``tests/test_torch_tensor_parallel.py``)."""
+    """On a model axis past 1 the int8 DiT's branches other than bench.py's
+    default path and --no-fused-prologue are the next slice's, refused
+    before the process group is joined (training and the bf16 model serve
+    there: ``tests/test_torch_tp_train.py``)."""
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP section A item 8\(b\)"):
-        if entry == "infer":
-            cli.main(_args(files, "song.wav", "out_x", *flag))
-        else:
-            train_cli.main(["--preset", "tiny", "--platform", "cpu", *flag])
+                       match=r"ROADMAP section A item 8\(b\)\(ii\)"):
+        cli.main(_args(files, "song.wav", "out_x", *flag))
 
 
 def _int8_library_wav(d, **knobs):

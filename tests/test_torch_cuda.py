@@ -2417,6 +2417,46 @@ def test_attention_train_kernels_with_a_batch_offset(card, dtype, D):
     assert not torch.equal(o0, o3)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_train_kernels_with_a_head_offset(card, dtype, D):
+    """B10 at a head offset ``h0 = 10`` (the second of two tensor-parallel
+    ranks: q heads 10-19, kv heads 2-3): forward and backward against
+    their plain versions at that offset (the bounds above), and bit-equal
+    to the same heads of a launch over all heads (the kv grouping local,
+    the hash keyed by the global head); at ``h0 = 0`` a launch differs."""
+    B, N, hq, hkv, rate, seed, M = 4, 345, 20, 4, 0.1, -123456789, 2
+    q, k, v, do = (_attn_train_inputs(card, B, N, hq, hkv, 52, D)
+                   if dtype == "bfloat16"
+                   else _f32_train_inputs(card, B, N, hq, hkv, D, 52))
+    h, g, h0 = hq // M, hkv // M, hq // M
+    qs_, ks_ = slice(h0 * D, hq * D), slice(g * D, hkv * D)
+    o, stats = at.attention_train_fwd(q, k, v, seed, hq, hkv, rate)
+    full = at.attention_train_bwd(q, k, v, o, do, seed, hq, hkv, rate, stats)
+    qs, dos = (t[..., qs_].contiguous() for t in (q, do))
+    ks, vs = (t[..., ks_].contiguous() for t in (k, v))
+    o1, st1 = at.attention_train_fwd(qs, ks, vs, seed, h, g, rate, h0=h0)
+    part = at.attention_train_bwd(qs, ks, vs, o1, dos, seed, h, g, rate,
+                                  st1, h0=h0)
+    assert torch.equal(o1, o[..., qs_]) and torch.equal(st1, stats[:, h0:])
+    for a, f, s in zip(part, full, (qs_, ks_, ks_)):
+        assert torch.equal(a, f[..., s])
+    want = at.attention_train_fwd_plain(qs, ks, vs, seed, h, g, rate,
+                                        h0=h0)
+    ref = at.attention_train_bwd_plain(qs, ks, vs, o1, dos, seed, h, g,
+                                       rate, h0=h0)
+    if dtype == "bfloat16":
+        torch.testing.assert_close(o1.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        _assert_grads(part, ref, qs, ks, vs, dos, h, g, rate)
+    else:
+        err = (o1 - want).abs().max().item()
+        assert err <= REL_F32_TRAIN * want.abs().max().item(), err
+        _assert_f32_grads(part, ref, qs, ks, vs, dos, h, g, rate)
+    o0, _ = at.attention_train_fwd(qs, ks, vs, seed, h, g, rate)
+    assert not torch.equal(o0, o1)
+
+
 # ---- the split entries of tensor parallelism (ops/split.py) ---------------
 
 

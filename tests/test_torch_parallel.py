@@ -380,10 +380,11 @@ def test_b10_plain_with_offset_is_the_matching_rows(dtype):
 
 
 def test_tensor_parallel_and_a_shared_card_under_nccl_raise():
-    """Tensor-parallel training is the next slice's (serving on a model
-    axis: ``tests/test_torch_tensor_parallel.py``); a mesh needs its
-    processes; NCCL refuses two ranks on one card."""
-    from jatsr_torch.parallel.mesh import check_no_model_axis
+    """Dynamic int8 on B14 trains on no model axis yet (the rest trains
+    there: ``tests/test_torch_tp_train.py``); a mesh needs its processes;
+    NCCL refuses two ranks on one card."""
+    from jatsr_torch.configs import get_preset
+    from jatsr_torch.models.dit import check_dense_tensor_parallel
 
     with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
         make_mesh(1, 2, device="cpu")
@@ -394,8 +395,10 @@ def test_tensor_parallel_and_a_shared_card_under_nccl_raise():
 
     assert data_size(FakeMesh()) == 2
     with pytest.raises(NotImplementedError,
-                       match=r"tensor-parallel training .* item 8\(b\)"):
-        check_no_model_axis(FakeMesh(), "the train step")
+                       match=r"B14 is not split.* item 8\(b\)\(ii\)"):
+        check_dense_tensor_parallel(dataclasses.replace(
+            get_preset("tiny").model, matmul_precision="int8",
+            int8_impl="pallas"), 2)
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one"):
         card_of(0, 2, 1, "nccl")
     assert card_of(1, 2, 1, "gloo") == 0 and card_of(3, 4, 4, "nccl") == 3

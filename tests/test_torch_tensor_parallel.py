@@ -22,7 +22,7 @@ thread count.  The checks read what each rank saved:
   ``tests/test_trainer_and_infer.py``) and the max of the port's pipeline
   against JAX's (``tests/test_torch_pipeline.py``, 6e-2);
 - what the slice refuses: a model axis that does not divide the kv heads,
-  the other serving branches, training;
+  the other serving branches, dynamic int8 training on B14 or at fp32;
 - ``cli.infer --mesh 1 2`` on a ``.npy`` latent: the one-process CLI's wav
   bit for bit.
 """
@@ -270,21 +270,29 @@ def test_a_rank_width_off_the_kernel_gate_raises():
         check_tensor_parallel(cfg, 4)
 
 
-class _Mesh22:
-    def size(self, dim):
-        return 2
-
-
 def test_training_on_a_model_axis_raises(tmp_path):
-    from jatsr_torch.cli import train as train_cli
-    from jatsr_torch.train.loop import Trainer
+    """``DenseDiT`` trains on a model axis at bf16 and fp32 and under
+    dynamic int8 on "xla" and "fused" (``tests/test_torch_tp_train.py``);
+    dynamic int8 on B14 (not split) or at fp32 compute (the split int8
+    entries take bf16) raises, as does an axis that does not divide the kv
+    heads."""
+    from jatsr_torch.models.dit import check_dense_tensor_parallel
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel training"):
-        Trainer(get_preset("tiny"), data_dir=str(tmp_path), mesh=_Mesh22(),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel training"):
-        train_cli.main(["--preset", "tiny", "--platform", "cpu", "--mesh",
-                        "1", "2"])
+    cfg = dataclasses.replace(get_preset("tiny").model,
+                              matmul_precision="int8")
+    for impl in ("xla", "fused"):
+        check_dense_tensor_parallel(dataclasses.replace(cfg, int8_impl=impl),
+                                    2)
+    check_dense_tensor_parallel(dataclasses.replace(cfg, dtype="float32",
+                                                    matmul_precision="bf16"),
+                                2)
+    for knobs, match in (({"int8_impl": "pallas"}, "B14 is not split"),
+                         ({"dtype": "float32"}, "split int8 entries take")):
+        with pytest.raises(NotImplementedError,
+                           match=rf"{match}.* item 8\(b\)\(ii\)"):
+            check_dense_tensor_parallel(dataclasses.replace(cfg, **knobs), 2)
+    with pytest.raises(ValueError, match="does not divide the kv heads"):
+        check_dense_tensor_parallel(cfg, 4)
 
 
 def test_cli_infer_mesh_1_2_on_a_latent(worlds):
