@@ -195,7 +195,9 @@ two ranks on one GPU), two v3mod2 steps at batch 28 (14 a rank) with and
 without ZeRO-1 against the single-card steps, and the main path's sampler
 on a (2, 1) mesh against the single-card pass (bounds at ``DP_RANKS``);
 then ``[tp shared card]``: the int8 DiT over two ranks of a (1, 2) mesh
-on card 0 (bounds at ``TP_STEPS``); then ``[tp train shared card]``:
+on card 0, the split entries' shares against the whole kernels and every
+serving branch's forward against one card (bounds at ``TP_STEPS``), whose
+launches give the ``*_split`` kernel lines; then ``[tp train shared card]``:
 ``DenseDiT`` over two ranks of a (1, 2) mesh, B10 at a rank's heads
 (``h0``), two v3mod2 steps (their losses, grad norms, first moments and
 parameters) with one-step witnesses at fp32 and under dynamic int8, the
@@ -356,7 +358,8 @@ KERNEL_PATH = {"flash_out": "opt_in", "int8_mlp": "opt_in",
                    "res_unit_fused")},
                **{f"{k}_split": "tp" for k in (
                    "matmul_fused", "norm_mod_dense_gelu_quant",
-                   "dense_gelu_quant")}}
+                   "dense_gelu_quant", "int8_matmul", "flash_out",
+                   "int8_mlp")}}
 # Counted launches that are no kernel line of their own: w8a8_dot's row
 # quant (XLA's in the JAX package) and B2's int8_qk codes launch (part of
 # B2's option, timed on its line as codes_ms): checked on each path.
@@ -1321,6 +1324,158 @@ def check_split_kernels(torch, norm, checks):
         "design_bound_ms": d_ms, "design_bound_by": d_by,
         "shape": [M, K, H], "whole_same_columns_ms": whole_ms,
         "whole_full_width_ms": line["ms"]}
+    out.update(check_split_kernels_third(torch, checks))
+    return out
+
+
+def check_split_kernels_third(torch, checks):
+    """The kernel lines of B14's, B12's and B13's split entries, at
+    a rank's shapes of a (1, 2) mesh of v3 in one process, as above: each
+    bit-equal to the whole kernel on the same columns, heads or slabs, and
+    to (B14) or within the whole kernel's bounds of (B12, B13) its plain
+    version; timed beside that whole kernel."""
+    from jatsr_torch.models.dit import rope_cos_sin
+    from jatsr_torch.ops import split as sp
+    from jatsr_torch.ops.attention import (flash_out_plain,
+                                           flash_out_weight_t,
+                                           gqa_attention_flash_out)
+    from jatsr_torch.ops.int8_matmul import (int8_mlp, matmul_prequant_plain,
+                                             mlp_plain, quantize_rows)
+    from jatsr_torch.ops.quant import w8a8_dot
+
+    out = {}
+    # B14 row-parallel: out_proj [2112, 1280 / M] x [1280 / M, 1280] and the
+    # unfused mlp_out [2112, 5120 / M] x [5120 / M, 1280], with an all-zero
+    # row, one large value and a row below the scale floor.
+    M = B * NP
+    shapes = {}
+    for what, K in (("out_proj", H // TP_M), ("mlp_out", 4 * H // TP_M)):
+        a, w_q, w_s, _ = dense_inputs(torch, M, K, H, SEED + 41 + K)
+        a[3] = 0.0
+        a[5, 7] = 3.0e4
+        a[7] *= 1e-12
+        w_t = w_q.t().contiguous()
+        got = sp.int8_matmul_split(a, w_q, w_s, None, w_t=w_t)
+        whole = w8a8_dot(a, w_q, w_s, impl="pallas", w_t=w_t)
+        want = sp.int8_matmul_split(a.cpu(), w_q.cpu(), w_s.cpu(), None)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int16), whole.view(torch.int16))
+                and torch.equal(got.cpu(), want)):
+            raise AssertionError(f"int8_matmul_split ({what}): not "
+                                 f"bit-equal to B14 and its plain version")
+        args = (a, w_q, w_s, w_t)
+        t = timings(
+            lambda a, w_q, w_s, w_t: sp.int8_matmul_split(a, w_q, w_s, None,
+                                                          w_t=w_t),
+            lambda a, w_q, w_s, w_t: matmul_prequant_plain(
+                *quantize_rows(a), w_q, w_s),
+            None, args, big=(0, 1, 3))
+        whole_ms = time_ms(lambda a, w_q, w_s, w_t: w8a8_dot(
+            a, w_q, w_s, impl="pallas", w_t=w_t), [args], 100)
+        b_ms, b_by = bound(nbytes_of(a, w_q, w_s, got), 2 * M * K * H,
+                           PEAK_INT8)
+        shapes[what] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                        "shape": [M, K, H], "whole_same_columns_ms": whole_ms}
+    line = checks["int8_matmul"]
+    out["int8_matmul_split"] = {
+        "name": "int8_matmul_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/w8a8_fused.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's rows",
+        "max_abs_err": 0.0, **{k: shapes["out_proj"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape",
+            "whole_same_columns_ms")},
+        "mlp_out": shapes["mlp_out"], "whole_full_width_qkv_ms": line["ms"]}
+
+    # B12 on a rank's heads: qkv [6, 352, 896] (10 q heads, 2 kv heads of
+    # 64), keys masked past 345, wo's rows [640, 1280], a non-zero bias.
+    hq, hkv, D = 20 // TP_M, 4 // TP_M, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    qkv = torch.randn((B, NP, (hq + 2 * hkv) * D), generator=gen,
+                      device="cuda").bfloat16()
+    cos, sin = rope_cos_sin(NP, D, device="cuda")
+    _, wo_q, wo_s, bo = dense_inputs(torch, 1, hq * D, H, SEED + 45)
+    wo_t = flash_out_weight_t(wo_q, hq, D)
+    got = sp.gqa_attention_flash_out_split(qkv, cos, sin, wo_q, wo_s, bo, hq,
+                                           hkv, None, n_valid=N_VALID,
+                                           wo_t=wo_t)
+    whole = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                    n_valid=N_VALID, wo_t=wo_t)
+    want = flash_out_plain(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                           n_valid=N_VALID).float()
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), whole.view(torch.int16)):
+        raise AssertionError("flash_out_split: not B12's bits on its heads")
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > REL_FLASH_OUT * scale:
+        raise AssertionError(f"flash_out_split: max abs {err} > "
+                             f"{REL_FLASH_OUT} x max |plain| {scale}")
+    args = (qkv, cos, sin, wo_q, wo_s, bo, wo_t)
+    t = timings(
+        lambda x, c, s, q, ws, b, t_: sp.gqa_attention_flash_out_split(
+            x, c, s, q, ws, b, hq, hkv, None, n_valid=N_VALID, wo_t=t_),
+        lambda x, c, s, q, ws, b, t_: flash_out_plain(
+            x, c, s, q, ws, b, hq, hkv, n_valid=N_VALID),
+        None, args, big=(0,), reps=200)
+    whole_ms = time_ms(lambda x, c, s, q, ws, b, t_: gqa_attention_flash_out(
+        x, c, s, q, ws, b, hq, hkv, n_valid=N_VALID, wo_t=t_), [args], 200)
+    nbytes = nbytes_of(qkv, cos, sin, wo_q, wo_s, bo) + B * NP * H * 2
+    b_ms, b_by = bound(nbytes, 4 * B * hq * NP * N_VALID * D, PEAK_BF16,
+                       int8_ops=2 * B * NP * hq * D * H)
+    line = checks["flash_out"]
+    out["flash_out_split"] = {
+        "name": "flash_out_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/flash_qkv.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's heads",
+        "max_abs_err": err, "max_abs_plain": scale, **t, "bound_ms": b_ms,
+        "bound_by": b_by, "shape": [B, NP, (hq + 2 * hkv) * D, H],
+        "whole_same_heads_ms": whole_ms, "whole_full_width_ms": line["ms"]}
+
+    # B13 on rank 0 of TP_M: MLP 5120 (its two whole slabs of 1280) and MLP
+    # 1280 (its 640 columns of the one slab), against B13 on the same
+    # columns (whose slabs are then the rank's own).
+    res = {}
+    for N1 in (4 * H, H):
+        n1 = N1 // TP_M
+        a, w1q, w1s, b1 = dense_inputs(torch, M, H, N1, SEED + 46)
+        _, w2q, w2s, b2 = dense_inputs(torch, 1, N1, H, SEED + 47)
+        args = (a, w1q[:, :n1].contiguous(), w1s[:, :n1].contiguous(),
+                b1[:, :n1].contiguous(), w2q[:n1].contiguous(), w2s, b2)
+        kt = {"w1_t": args[1].t().contiguous(),
+              "w2_t": args[4].t().contiguous()}
+        got = sp.int8_mlp_split(*args, None, rank=0, ranks=TP_M, **kt)
+        whole = int8_mlp(*args, **kt)
+        want = mlp_plain(*args, group=None, rank=0, ranks=TP_M).float()
+        torch.cuda.synchronize()
+        if not torch.equal(got, whole):
+            raise AssertionError(f"int8_mlp_split (MLP {N1}): not B13's "
+                                 f"bits on the same columns")
+        frac = (got.float() != want).float().mean().item()
+        err = (got.float() - want).abs().max().item()
+        if frac > 1e-3 or not torch.allclose(got.float(), want, atol=0.02,
+                                             rtol=0.02):
+            raise AssertionError(f"int8_mlp_split (MLP {N1}): {frac:.4%} "
+                                 f"of the outputs differ from the plain "
+                                 f"version, max abs {err}")
+        t = timings(lambda *x: sp.int8_mlp_split(*x, None, rank=0,
+                                                 ranks=TP_M, **kt),
+                    lambda *x: mlp_plain(*x, group=None, rank=0, ranks=TP_M),
+                    None, args, big=(0,), plain_reps=5)
+        whole_ms = time_ms(lambda *x: int8_mlp(*x, **kt), [args], 100)
+        b_ms, b_by = bound(nbytes_of(*args) + M * H * 2, 0.0, PEAK_INT8,
+                           int8_ops=4 * M * H * n1)
+        res[N1] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                   "max_abs_err": err, "mismatch_frac": frac,
+                   "shape": [M, H, n1, H], "whole_same_columns_ms": whole_ms}
+    line = checks["int8_mlp"]
+    out["int8_mlp_split"] = {
+        "name": "int8_mlp_split", "route": "cuda",
+        "source": "jatsr_torch/ops/csrc/mlp_full.cu (s8_split.cuh)",
+        "replaces": line["replaces"] + ", a rank's columns of w1, rows of w2",
+        **{k: res[4 * H][k] for k in (
+            "max_abs_err", "mismatch_frac", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "shape", "whole_same_columns_ms")},
+        "one_slab_shared": res[H], "whole_full_width_ms": line["ms"]}
     return out
 
 
@@ -3453,8 +3608,11 @@ def shallow(dense, depth):
     return {**dense, "blocks": _cut_blocks(dense["blocks"], depth)}
 
 
-def _cut_blocks(tree, depth):
-    return {k: _cut_blocks(v, depth) if isinstance(v, dict) else v[:depth]
+def _cut_blocks(tree, depth, copy=False):
+    """The first ``depth`` blocks of a stacked tree: views, or with
+    ``copy`` numpy copies (so that a saved leaf holds only its blocks)."""
+    return {k: _cut_blocks(v, depth, copy) if isinstance(v, dict) else
+            (v[:depth].copy() if copy else v[:depth])
             for k, v in tree.items()}
 
 
@@ -4598,19 +4756,65 @@ def dp_shared_card_phase(torch, dense, static, card, weights):
 # One forward of --no-fused-prologue (B2, B5 split a block, w8a8_dot's
 # torch ops split for out_proj), held as (b).  (e) Each rank's launches of
 # (b) and (d).  (f) Each rank's forward ms and peak memory beside the
-# single card's.
+# single card's.  (g) B14's split entry (out_proj [2112, 640] x [640, 1280]
+# and the unfused mlp_out [2112, 2560] x [2560, 1280] a rank), B12's (a
+# rank's qkv [6, 352, 896] and rows [640, 1280] of wo) and B13's (MLP 5120:
+# two whole slabs a rank; MLP 1280: the one slab shared) on each rank's
+# share: each rank's output bit-equal to the whole kernel on one card.  (h)
+# One forward of each branch of TP_BRANCHES (the table of its preset; the
+# v1legacy preset's own) bit-equal to the single card's, where every split
+# is exact; the einsum branch (int8_cli), a library product on a rank's
+# heads, is held bit-equal too, and where cuBLAS rounds it apart, within
+# the single card's own bf16 gap from its fp32 forward (reported).  (i)
+# Each rank's launches of (h).  (h)'s models are cut to their first
+# TP_BRANCH_DEPTH blocks for the phase's time (each block is one more
+# instance of the same splits).
 TP_STEPS = 2
 TP_SERVE_ATOL, TP_SERVE_REL_L2 = 2e-2, 5e-2
 TP_TIMED = 3
+# The int8 DiT's other serving branches, each on a model axis in (h).
+TP_BRANCHES = ("opt_in", "split_flash", "pallas", "pallas2", "int8_cli",
+               "split_qkv", "int8_qk", "v1legacy")
+TP_BRANCH_DEPTH = 8
 
 
 def tp_cfgs():
-    """The main path's DiT config and its --no-fused-prologue sibling."""
+    """The main path's DiT config, its --no-fused-prologue sibling, then
+    each of TP_BRANCHES (v1legacy at its own preset), TP_BRANCH_DEPTH
+    blocks deep."""
     from jatsr_torch.configs import get_preset
 
-    base = get_preset("v3").model
-    return {name: dataclasses.replace(base, **{**SERVING, **PATHS[name]})
-            for name in ("prologue", "no_prologue")}
+    cut = {"depth": TP_BRANCH_DEPTH}
+    return {name: dataclasses.replace(
+                get_preset(PRESETS.get(name, "v3")).model,
+                **{**SERVING, **PATHS[name],
+                   **(cut if name in TP_BRANCHES else {})})
+            for name in ("prologue", "no_prologue") + TP_BRANCHES}
+
+
+def tp_third_inputs(torch):
+    """(g)'s inputs at the v3 shapes: B14's rows (an all-zero row, one large
+    value, a row below the scale floor) and kernels at out_proj and the
+    unfused mlp_out; B12's qkv, tables and out projection; B13's rows and
+    its two MLPs (5120 and 1280 wide)."""
+    from jatsr_torch.models.dit import rope_cos_sin
+
+    a, wo, wso, _ = dense_inputs(torch, B * NP, H, H, SEED + 51)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    a[7] *= 1e-12
+    b14 = {"out_proj": (a, wo, wso),
+           "mlp_out": dense_inputs(torch, B * NP, 4 * H, H, SEED + 52)[:3]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    qkv = torch.randn((B, NP, 1792), generator=gen, device="cuda").bfloat16()
+    cos, sin = rope_cos_sin(NP, 64, device="cuda")
+    b12 = (qkv, cos, sin) + dense_inputs(torch, 1, H, H, SEED + 54)[1:]
+    b13 = {}
+    for N1 in (4 * H, H):
+        a, w1q, w1s, b1 = dense_inputs(torch, B * NP, H, N1, SEED + 55)
+        b13[N1] = (a, w1q, w1s, b1) + dense_inputs(torch, 1, N1, H,
+                                                   SEED + 56)[1:]
+    return b14, b12, b13
 
 
 def tp_split_inputs(torch):
@@ -4648,6 +4852,29 @@ def tp_splits(torch, group, r):
                a, w5r, cols(ws5), cols(b5), group, w_t=w5r.t().contiguous()),
            "b4": sp.int8_matmul_fused_split(cols(a4), wor, wso, group,
                                             w_t=wor.t().contiguous())}
+    # (g): B14, B12 and B13 on the rank's share.
+    from types import SimpleNamespace
+
+    from jatsr_torch.ops.attention import flash_out_weight_t
+    from jatsr_torch.parallel.mesh import qkv_columns
+
+    b14, (qkv, cos, sin, wo, wso, bo), b13 = tp_third_inputs(torch)
+    for what, (a, w, ws) in b14.items():
+        wr = rows(w)
+        out[f"b14_{what}"] = sp.int8_matmul_split(
+            cols(a), wr, ws, group, w_t=wr.t().contiguous())
+    heads = SimpleNamespace(num_q_heads=20, num_kv_heads=4, head_dim=64)
+    wr = rows(wo)
+    cols12 = qkv_columns(heads, TP_M, r).cuda()
+    out["b12"] = sp.gqa_attention_flash_out_split(
+        qkv[..., cols12].contiguous(), cos, sin, wr, wso, bo, 20 // TP_M,
+        4 // TP_M, group, n_valid=N_VALID,
+        wo_t=flash_out_weight_t(wr, 20 // TP_M, 64))
+    for N1, (a, w1q, w1s, b1, w2q, w2s, b2) in b13.items():
+        w1r, w2r = cols(w1q), rows(w2q)
+        out[f"b13_{N1}"] = sp.int8_mlp_split(
+            a, w1r, cols(w1s), cols(b1), w2r, w2s, b2, group, rank=r,
+            ranks=TP_M, w1_t=w1r.t().contiguous(), w2_t=w2r.t().contiguous())
     torch.cuda.synchronize()
     return {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
             for k, v in out.items()}
@@ -4661,19 +4888,21 @@ def tp_forward_inputs(torch, C):
     return x_t, torch.linspace(0.1, 0.9, B, device="cuda"), x_c
 
 
-def tp_forwards(torch, model, table, counters):
-    """One counted forward on the given table, then TP_TIMED timed ones:
-    the output, the counts, the median ms and the peak GiB."""
+def tp_forwards(torch, model, table, counters, timed=TP_TIMED):
+    """One counted forward on the given table, then ``timed`` timed ones:
+    the output, the counts, the median ms (``timed`` 0: the counted
+    forward's) and the peak GiB."""
     x_t, t, x_c = tp_forward_inputs(torch, model.cfg.input_channels)
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     got = model(x_t, t, x_c, adaln_mod=table)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in counters.items()}
-    times = []
-    for _ in range(TP_TIMED):
+    times = [] if timed else [(time.perf_counter() - t0) * 1e3]
+    for _ in range(timed):
         t0 = time.perf_counter()
         model(x_t, t, x_c, adaln_mod=table)
         torch.cuda.synchronize()
@@ -4684,9 +4913,14 @@ def tp_forwards(torch, model, table, counters):
 
 def tp_counters():
     from jatsr_torch.ops import split as sp
-    from jatsr_torch.ops.attention import gqa_attention_flash_qkv
+    from jatsr_torch.ops.attention import (_v_codes, gqa_attention,
+                                           gqa_attention_flash,
+                                           gqa_attention_flash_out,
+                                           gqa_attention_flash_qkv,
+                                           gqa_attention_grouped)
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
-                                             int8_matmul_fused)
+                                             int8_matmul, int8_matmul_fused,
+                                             int8_mlp, int8_quantize_rows)
     from jatsr_torch.ops.prologue import (int8_norm_mod_dense_gelu_quant,
                                           int8_norm_mod_dot)
 
@@ -4695,10 +4929,51 @@ def tp_counters():
             "matmul_fused": int8_matmul_fused,
             "norm_mod_dense_gelu_quant": int8_norm_mod_dense_gelu_quant,
             "dense_gelu_quant": int8_dense_gelu_quant,
+            "flash_qkv_int8_qk": Count(gqa_attention_flash_qkv,
+                                       "int8_qk_launches"),
+            "v_codes": _v_codes,
+            "flash_split": gqa_attention_flash,
+            "gqa_attention": gqa_attention,
+            "gqa_attention_grouped": gqa_attention_grouped,
+            "flash_out": gqa_attention_flash_out,
+            "int8_mlp": int8_mlp,
+            "int8_matmul": int8_matmul,
+            "prequant_quant": int8_quantize_rows,
             "matmul_fused_split": sp.int8_matmul_fused_split,
             "norm_mod_dense_gelu_quant_split":
                 sp.int8_norm_mod_dense_gelu_quant_split,
-            "dense_gelu_quant_split": sp.int8_dense_gelu_quant_split}
+            "dense_gelu_quant_split": sp.int8_dense_gelu_quant_split,
+            "int8_matmul_split": sp.int8_matmul_split,
+            "flash_out_split": sp.gqa_attention_flash_out_split,
+            "int8_mlp_split": sp.int8_mlp_split}
+
+
+def tp_launches(depth, branch_depth):
+    """(e) and (i): a rank's launches of one forward on each path, the
+    counters not named 0: a block each of the main path and
+    --no-fused-prologue (``depth`` blocks) and of TP_BRANCHES
+    (``branch_depth``); the patch embed's B5 once."""
+    d, b, patch = depth, branch_depth, {"dense_gelu_quant": 1}
+    split_q = {"dense_gelu_quant_split": b, **patch}
+    return {
+        "prologue": {"norm_mod_dot": d, "flash_qkv": d,
+                     "matmul_fused_split": d,
+                     "norm_mod_dense_gelu_quant_split": d, **patch},
+        "no_prologue": {"flash_qkv": d, "dense_gelu_quant_split": d,
+                        **patch},
+        "opt_in": {"int8_matmul": b, "prequant_quant": b,
+                   "flash_out_split": b, "int8_mlp_split": b, **patch},
+        "split_flash": {"flash_split": b, **split_q},
+        "pallas": {"gqa_attention": b, **split_q},
+        "pallas2": {"gqa_attention_grouped": b, **split_q},
+        "int8_cli": {},
+        "split_qkv": {"flash_split": b, "int8_matmul": 3 * b,
+                      "prequant_quant": 3 * b, "int8_matmul_split": b,
+                      **split_q},
+        "int8_qk": {"norm_mod_dot": b, "flash_qkv_int8_qk": b, "v_codes": b,
+                    "matmul_fused_split": b,
+                    "norm_mod_dense_gelu_quant_split": b, **patch},
+        "v1legacy": {"flash_split": b, **split_q}}
 
 
 def tp_rank(rank, root, weights):
@@ -4722,15 +4997,19 @@ def tp_rank(rank, root, weights):
     out = {"rank": rank, "card": torch.cuda.current_device(),
            "backend": dist.get_backend(), "mesh": list(mesh.shape)}
     tensors = {"splits": tp_splits(torch, ModelGroup(mesh), rank)}
-    static = torch.load(Path(weights) / "static.pt", mmap=True,
-                        weights_only=True)
-    table = torch.load(root / "table.pt").cuda()
+    trees = json.loads((Path(weights) / "tp_trees.json").read_text())
     counters = tp_counters()
     for name, cfg in cfgs.items():
+        static = torch.load(Path(weights) / trees[name], mmap=True,
+                            weights_only=True)
+        table = torch.load(root / f"table_{PRESETS.get(name, 'v3')}.pt"
+                           ).cuda()
         torch.cuda.reset_peak_memory_stats()
         model = DiT(cfg, static, device="cuda", mesh=mesh)
         held = sum(b.nbytes for b in model.buffers()) / 2.0 ** 30
-        got, counts, ms, peak = tp_forwards(torch, model, table, counters)
+        got, counts, ms, peak = tp_forwards(
+            torch, model, table, counters,
+            0 if name in TP_BRANCHES else TP_TIMED)
         tensors[name] = got.cpu()
         out[name] = {"launches": counts, "ms": ms, "peak_gib": peak,
                      "model_gib": held}
@@ -4743,7 +5022,7 @@ def tp_rank(rank, root, weights):
                 latent, SEED, TP_STEPS, CFG_SCALE, max_batch=3).cpu()
             out["serve_ms"] = (time.perf_counter() - t0) * 1e3
             del pipe, latent
-        del model
+        del model, static
         gc.collect()
         torch.cuda.empty_cache()
     torch.save(tensors, root / f"out{rank}.pt")
@@ -4752,10 +5031,29 @@ def tp_rank(rank, root, weights):
     dist.destroy_process_group()
 
 
-def tp_shared_card_phase(torch, static, card, weights):
+def save_tp_trees(torch, weights, statics):
+    """The int8_static tree of each path of ``[tp shared card]`` (``statics``:
+    path -> tree, one tree a layout) into ``weights``, each distinct tree
+    once (the main path's as ``static.pt``), and ``tp_trees.json``: path ->
+    file, which the ranks read."""
+    from jatsr_torch.models.from_jax import tree_to_torch
+
+    files, saved = {}, {}
+    for name, tree in statics.items():
+        if id(tree) not in saved:
+            saved[id(tree)] = ("static.pt" if name == "prologue" else
+                               f"static_{name}.pt")
+            torch.save(tree_to_torch(tree), weights / saved[id(tree)])
+        files[name] = saved[id(tree)]
+    (weights / "tp_trees.json").write_text(json.dumps(files))
+
+
+def tp_shared_card_phase(torch, statics, card, weights):
     """``[tp shared card]``: the single-card references, then the ranks
-    (:func:`tp_rank`) on this card, then their results checked.  Returns
-    rank 0's launches of (b) and (d) for the kernel lines."""
+    (:func:`tp_rank`) on this card, then their results checked.
+    ``statics``: path -> int8_static tree, as :func:`save_tp_trees` saved
+    them.  Returns rank 0's launches of (b), (d) and (h) for the kernel
+    lines."""
     import gc
     import shutil
     import tempfile
@@ -4764,15 +5062,18 @@ def tp_shared_card_phase(torch, static, card, weights):
     import torch.multiprocessing as mp
 
     from jatsr_torch.models.dit import DiT, adaln_tables
+    from jatsr_torch.ops.attention import (flash_out_weight_t,
+                                           gqa_attention_flash_out)
     from jatsr_torch.ops.int8_matmul import (int8_dense_gelu_quant,
-                                             int8_matmul_fused)
+                                             int8_matmul_fused, int8_mlp)
     from jatsr_torch.ops.prologue import int8_norm_mod_dense_gelu_quant
+    from jatsr_torch.ops.quant import w8a8_dot
 
     cfgs = tp_cfgs()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
     try:
         t0 = time.perf_counter()
-        # (a)'s whole-width kernels on one card.
+        # (a)'s and (g)'s whole-width kernels on one card.
         (x, sc, sh, w1, ws1, b1), (a, w5, ws5, b5), (a4, wo, wso) = \
             tp_split_inputs(torch)
         whole = {"b1": int8_norm_mod_dense_gelu_quant(
@@ -4782,22 +5083,39 @@ def tp_shared_card_phase(torch, static, card, weights):
                                              w_t=w5.t().contiguous()),
                  "b4": int8_matmul_fused(a4, wo, wso,
                                          w_t=wo.t().contiguous())}
+        del x, sc, sh, w1, ws1, b1, a, w5, ws5, b5, a4, wo, wso
+        b14, (qkv, cos, sin, wo, wso, bo), b13 = tp_third_inputs(torch)
+        for what, (a, w, ws) in b14.items():
+            whole[f"b14_{what}"] = w8a8_dot(a, w, ws, impl="pallas",
+                                            w_t=w.t().contiguous())
+        whole["b12"] = gqa_attention_flash_out(
+            qkv, cos, sin, wo, wso, bo, 20, 4, n_valid=N_VALID,
+            wo_t=flash_out_weight_t(wo, 20, 64))
+        for N1, (a, w1q, w1s, b1, w2q, w2s, b2) in b13.items():
+            whole[f"b13_{N1}"] = int8_mlp(a, w1q, w1s, b1, w2q, w2s, b2,
+                                          w1_t=w1q.t().contiguous(),
+                                          w2_t=w2q.t().contiguous())
         whole = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple)
                  else v.cpu() for k, v in whole.items()}
-        del x, sc, sh, w1, ws1, b1, a, w5, ws5, b5, a4, wo, wso
+        del b14, b13, qkv, cos, sin, wo, wso, bo
         ref, single = {}, {}
         counters = tp_counters()
+        tables = {}
         for name, cfg in cfgs.items():
             torch.cuda.reset_peak_memory_stats()
-            model = DiT(cfg, static, device="cuda")
+            model = DiT(cfg, statics[name], device="cuda")
             held = sum(b.nbytes for b in model.buffers()) / 2.0 ** 30
-            if name == "prologue":
+            preset = PRESETS.get(name, "v3")
+            if preset not in tables:
                 _, t, _ = tp_forward_inputs(torch, cfg.input_channels)
-                table = adaln_tables(model, t)
-                torch.save(table.cpu(), root / "table.pt")
-            got, counts, ms, peak = tp_forwards(torch, model, table, counters)
+                tables[preset] = adaln_tables(model, t)
+                torch.save(tables[preset].cpu(), root / f"table_{preset}.pt")
+            got, counts, ms, peak = tp_forwards(
+                torch, model, tables[preset], counters,
+                0 if name in TP_BRANCHES else TP_TIMED)
             ref[name] = got.cpu()
-            single[name] = {"launches": counts, "ms": ms, "peak_gib": peak,
+            single[name] = {"launches": {k: n for k, n in counts.items()
+                                         if n}, "ms": ms, "peak_gib": peak,
                             "model_gib": held}
             if name == "prologue":
                 _, latent = dp_serve_inputs(torch)
@@ -4825,7 +5143,8 @@ def tp_shared_card_phase(torch, static, card, weights):
     for o in outs:
         log(f"[tp shared card] rank {o['rank']}: {json.dumps(o)}")
     bad = []
-    # (a) the shares joined, against the whole-width kernels.
+    # (a) the shares joined, against the whole-width kernels; (g) each
+    # rank's output, bit for bit.
     for k in ("b1", "b5"):
         codes = torch.cat([g["splits"][k][0] for g in got], dim=-1)
         if not torch.equal(codes, whole[k][0]) or not all(
@@ -4833,30 +5152,33 @@ def tp_shared_card_phase(torch, static, card, weights):
             bad.append(f"(a) {k} split not the whole kernel's bits")
     if not all(torch.equal(g["splits"]["b4"], whole["b4"]) for g in got):
         bad.append("(a) b4 split not the whole kernel's bits")
-    # (b), (d) bit-equal; (c) within the bounds.
+    for k in ("b14_out_proj", "b14_mlp_out", "b12", f"b13_{4 * H}",
+              f"b13_{H}"):
+        for r, g in enumerate(got):
+            if not torch.equal(g["splits"][k].view(torch.int16),
+                               whole[k].view(torch.int16)):
+                d = (g["splits"][k].float() - whole[k].float()).abs().max()
+                bad.append(f"(g) rank {r} {k} split not the whole kernel's "
+                           f"bits (max abs {d.item()})")
+    # (b), (d), (h) bit-equal; (c) within the bounds.
     diffs = {}
-    for k in ("prologue", "no_prologue", "serve"):
+    for k in ("prologue", "no_prologue", "serve") + TP_BRANCHES:
         for r, g in enumerate(got):
             d = (g[k] - ref[k]).abs()
             rel = ((g[k] - ref[k]).norm() / ref[k].norm()).item()
             diffs[f"{k}/{r}"] = (d.max().item(), rel)
             finite = bool(torch.isfinite(g[k]).all())
-            if not finite or (k != "serve" and not torch.equal(g[k], ref[k])):
-                bad.append(f"({'b' if k == 'prologue' else 'd'}) rank {r} "
-                           f"{k}: max abs {d.max().item()}, finite {finite}")
-            if k == "serve" and (d.max().item() > TP_SERVE_ATOL
-                                 or rel > TP_SERVE_REL_L2 or not finite):
-                bad.append(f"(c) rank {r}: max abs {d.max().item()}, rel L2 "
-                           f"{rel}")
-    # (e) the launches of each forward.
-    depth = cfgs["prologue"].depth
-    want = {"prologue": {"norm_mod_dot": depth, "flash_qkv": depth,
-                         "matmul_fused_split": depth,
-                         "norm_mod_dense_gelu_quant_split": depth,
-                         "dense_gelu_quant": 1},
-            "no_prologue": {"flash_qkv": depth,
-                            "dense_gelu_quant_split": depth,
-                            "dense_gelu_quant": 1}}
+            what = {"prologue": "b", "no_prologue": "d"}.get(k, "h")
+            if k == "serve":
+                if (d.max().item() > TP_SERVE_ATOL
+                        or rel > TP_SERVE_REL_L2 or not finite):
+                    bad.append(f"(c) rank {r}: max abs {d.max().item()}, "
+                               f"rel L2 {rel}")
+            elif not finite or not torch.equal(g[k], ref[k]):
+                bad.append(f"({what}) rank {r} {k}: max abs "
+                           f"{d.max().item()}, finite {finite}")
+    # (e), (i) the launches of each forward.
+    want = tp_launches(cfgs["prologue"].depth, TP_BRANCH_DEPTH)
     for o in outs:
         if (o["card"], o["backend"], o["mesh"]) != (0, "gloo", [1, TP_M]):
             bad.append(f"rank {o['rank']} on card {o['card']} over "
@@ -4864,25 +5186,29 @@ def tp_shared_card_phase(torch, static, card, weights):
         for name, w in want.items():
             full = {k: w.get(k, 0) for k in counters}
             if o[name]["launches"] != full:
-                bad.append(f"(e) rank {o['rank']} {name} launches "
+                part = "i" if name in TP_BRANCHES else "e"
+                bad.append(f"({part}) rank {o['rank']} {name} launches "
                            f"{o[name]['launches']} != {full}")
     log(f"[tp shared card] {card}: {TP_M} ranks on card 0 over gloo, "
         f"spawned and joined in {wall:.1f} s; (a) the split entries' shares "
-        f"joined bit-equal to B1, B5 and B4 on one card; (b)-(d) max abs, "
-        f"rel L2 against one card {diffs}; (f) forward ms a rank "
-        f"{[o['prologue']['ms'] for o in outs]} (main path), "
+        f"joined bit-equal to B1, B5 and B4 on one card; (g) B14's, B12's "
+        f"and B13's on each rank bit-equal to the whole kernels; (b)-(d), "
+        f"(h) max abs, rel L2 against one card {diffs}; (f) forward ms a "
+        f"rank {[o['prologue']['ms'] for o in outs]} (main path), "
         f"{[o['no_prologue']['ms'] for o in outs]} (--no-fused-prologue) "
         f"against one card's {single['prologue']['ms']:.1f}, "
-        f"{single['no_prologue']['ms']:.1f}; peak GiB a rank "
-        f"{[o['prologue']['peak_gib'] for o in outs]} against "
+        f"{single['no_prologue']['ms']:.1f}; (h) first forward ms a rank "
+        f"{ {k: [o[k]['ms'] for o in outs] for k in TP_BRANCHES} } against "
+        f"one card's { {k: single[k]['ms'] for k in TP_BRANCHES} }; peak "
+        f"GiB a rank {[o['prologue']['peak_gib'] for o in outs]} against "
         f"{single['prologue']['peak_gib']:.3f}; the model's buffers GiB a "
         f"rank {[o['prologue']['model_gib'] for o in outs]} against "
         f"{single['prologue']['model_gib']:.3f}; sampler ms "
         f"{[o['serve_ms'] for o in outs]} against {single['serve_ms']:.1f}")
     if bad:
         raise AssertionError("[tp shared card]: " + "; ".join(bad))
-    return {k: outs[0]["prologue"]["launches"][k]
-            + outs[0]["no_prologue"]["launches"][k] for k in counters}
+    return {k: sum(outs[0][name]["launches"][k] for name in want)
+            for k in counters}
 
 
 # [tp train shared card]: DenseDiT tensor-parallel on a (1, TP_M) mesh,
@@ -5829,6 +6155,17 @@ def main() -> int:
         del cpu_model
 
     main_static = static_of("prologue")  # for [dp shared card]
+    # [tp shared card]'s trees, quantized above (one a layout; (h)'s cut
+    # to TP_BRANCH_DEPTH blocks, copies).
+    cut = {}
+    tp_statics = {name: static_of(name) for name in ("prologue",
+                                                     "no_prologue")}
+    for name in TP_BRANCHES:
+        tree = static_of(name)
+        if id(tree) not in cut:
+            cut[id(tree)] = {**tree, "blocks": _cut_blocks(
+                tree["blocks"], TP_BRANCH_DEPTH, copy=True)}
+        tp_statics[name] = cut[id(tree)]
     del models, statics, denses
     torch.cuda.empty_cache()
     phases.done("DiT references")
@@ -5855,7 +6192,7 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         torch.save(tree_to_torch(dense), weights / "dense.pt")
-        torch.save(tree_to_torch(main_static), weights / "static.pt")
+        save_tp_trees(torch, weights, tp_statics)
         log(f"[weights] dense and int8 trees saved for the subprocesses: "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -5873,12 +6210,12 @@ def main() -> int:
         dp_shared_card_phase(torch, dense, main_static, card, weights)
         torch.cuda.empty_cache()
         phases.done("[dp shared card]")
-        launches["tp"] = tp_shared_card_phase(torch, main_static, card,
+        launches["tp"] = tp_shared_card_phase(torch, tp_statics, card,
                                               weights)
         torch.cuda.empty_cache()
         phases.done("[tp shared card]")
         h0_lines = tp_train_shared_card_phase(torch, dense, card, weights)
-        del dense, main_static
+        del dense, main_static, tp_statics
         torch.cuda.empty_cache()
         phases.done("[tp train shared card]")
     finally:

@@ -26,12 +26,12 @@ one a card by torchrun (``torchrun --nproc_per_node 4 -m
 jatsr_torch.cli.infer --mesh 2 2 ...``; ``--mesh 1 1`` alone is a world of
 one): the chunks data-parallel over D, and at M > 1 the DiT
 tensor-parallel over M: the bf16 model (no ``--int8``, ``DenseDiT``), or
-the int8 DiT with ``--int8 --fused-mlp --attention flash``, with or
-without ``--fused-prologue`` (bench.py's default path and its
---no-fused-prologue).  Every rank loads the weights and the input and
-keeps its share of the tree; rank 0 alone decodes and writes the output.
-Every other int8 branch raises ``NotImplementedError`` on a model axis
-past 1 (ROADMAP section A item 8(b)(ii)).
+the int8 DiT on any of its branches (``--int8`` alone, with its einsum
+attention, fp32 scores and unfused MLP, as well as bench.py's).  Every
+rank loads the weights and the input and keeps its share of the tree;
+rank 0 alone decodes and writes the output.  The int8 DiT at the fp32
+compute dtype (a run's ``preset.json``) raises ``NotImplementedError`` on
+a model axis past 1 (ROADMAP section A item 8(b)(iii)).
 """
 
 from __future__ import annotations
@@ -158,7 +158,7 @@ def main(argv=None):
     if args.mesh and args.mesh[1] > 1 and args.int8:
         # A branch the int8 DiT does not serve on a model axis is refused
         # before the process group is joined.
-        check_tensor_parallel(mcfg, args.mesh[1])
+        check_tensor_parallel(mcfg, args.mesh[1], card=device == "cuda")
     mesh = None
     if args.mesh:
         from ..parallel import init_distributed, make_mesh

@@ -70,8 +70,9 @@ from ..ops.int8_matmul import (group_sum, int8_dense_gelu_quant,
 from ..ops.prologue import (int8_norm_mod_dense_gelu_quant,
                             int8_norm_mod_dot, norm_mod_dot_supported)
 from ..ops.quant import QuantDense, int8_dot_general
-from ..ops.split import (int8_dense_gelu_quant_split, int8_matmul_fused_split,
-                         int8_norm_mod_dense_gelu_quant_split)
+from ..ops.split import (gqa_attention_flash_out_split,
+                         int8_dense_gelu_quant_split, int8_matmul_fused_split,
+                         int8_mlp_split, int8_norm_mod_dense_gelu_quant_split)
 from ..parallel.distributed import ModelGroup
 from ..parallel.mesh import (check_model_axis, head_offset, local_params,
                              param_split_dim)
@@ -104,46 +105,81 @@ def check_serving_config(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown gelu_impl {cfg.gelu_impl!r}")
 
 
-# What the int8 DiT serves on a model axis past 1: bench.py's default path
-# (the fused prologue) and --no-fused-prologue, both on the fused q/k/v with
-# the flash-QKV kernel and the "half" fused MLP, at bf16.  Its other
-# branches raise (ROADMAP section A item 8(b)(ii)); DenseDiT trains and
-# serves on a model axis on each of its own branches.
-_TENSOR_PARALLEL_BRANCH = {
-    "fused_qkv": True, "fused_mlp": True, "fused_mlp_impl": "half",
-    "attention_impl": "flash", "flash_qkv": True, "flash_fused_out": False,
-    "flash_int8_qk": False, "pos_embed": "rope", "attention_bias": False,
-    "quantize_head": False, "dtype": "bfloat16"}
+# What the int8 DiT serves on a model axis past 1: every branch at bf16.  The
+# fp32 compute dtype there needs the fp32 modes of the split entries, the
+# next slice of the port.
 TENSOR_PARALLEL_NEXT = ("the next slice of the port brings it (ROADMAP "
-                        "section A item 8(b)(ii))")
+                        "section A item 8(b)(iii))")
 
 
-def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+def tensor_parallel_shares(cfg: ModelConfig, model: int) -> list:
+    """The card kernels a rank of a model axis of ``model`` may run on a
+    share of a projection, with the share's widths and the whole
+    projection's: ``(what, (K, N) of the share, (K, N) whole, needs)``,
+    ``needs`` the kernel's tiling of the share as ``(K multiple, N
+    multiple)``, checked only where the whole width takes the kernel (K
+    and N multiples of 128: JAX's gate).  Column-parallel products hold
+    the rank's N columns, row-parallel ones its K rows."""
+    H, D, m = cfg.hidden_size, cfg.head_dim, model
+    hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+    mlp = int(H * cfg.mlp_ratio)
+    out = []
+
+    def col(what, n, needs=(1, 128)):
+        out.append((what, (H, n // m), (H, n), needs))
+
+    def row(what, k, n=H, needs=(16, 128)):
+        out.append((what, (k // m, n), (k, n), needs))
+
+    if cfg.int8_impl != "xla":  # w8a8_dot's kernels (B4, B14)
+        if cfg.fused_qkv:
+            col("qkv_proj", (hq + 2 * hkv) * D)
+        else:
+            col("q_proj", hq * D)
+            col("k_proj", hkv * D)
+            col("v_proj", hkv * D)
+        row("out_proj", hq * D)
+        if not cfg.fused_mlp:
+            col("mlp_in", mlp)
+            row("mlp_out", mlp)
+    if cfg.fused_mlp:  # B5's and B13's split entries: the rank's columns
+        col(f"mlp_in ({cfg.fused_mlp_impl} fused MLP)", mlp)
+    return out
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int,
+                          card: bool = True) -> None:
     """Raise ``NotImplementedError`` for a branch the int8 DiT does not
-    serve on a model axis of ``model`` > 1 (every branch but bench.py's
-    default and its --no-fused-prologue path; ``int8_impl="pallas"``, B14,
-    is not split), and ``ValueError`` where the axis does not divide the
-    heads or the MLP, or where a rank's columns fail a kernel's gate (the
-    fused prologue's qkv and mlp_in widths, multiples of 128): the port
-    never changes branch silently."""
-    for name, want in _TENSOR_PARALLEL_BRANCH.items():
-        if getattr(cfg, name) != want:
-            raise NotImplementedError(
-                f"ModelConfig.{name}={getattr(cfg, name)!r} on a model axis "
-                f"of {model}: the int8 DiT serves tensor-parallel with "
-                f"{name}={want!r}; {TENSOR_PARALLEL_NEXT}")
-    if cfg.int8_impl not in ("xla", "fused"):
+    serve on a model axis of ``model`` > 1 (the fp32 compute dtype, the
+    next slice), and ``ValueError`` where the axis does not divide the
+    heads or the MLP, or where a rank's share fails a kernel's tiling that
+    the whole width passes: the fused prologue's qkv and mlp_in widths
+    (multiples of 128) where its knobs take it, and with ``card`` (a model
+    on the card) every share :func:`tensor_parallel_shares` lists.  The
+    port never changes branch silently; on the CPU the plain versions take
+    any share."""
+    if cfg.dtype != "bfloat16":
         raise NotImplementedError(
-            f"ModelConfig.int8_impl={cfg.int8_impl!r} on a model axis of "
-            f"{model}: B14 is not split; {TENSOR_PARALLEL_NEXT}")
+            f"ModelConfig.dtype={cfg.dtype!r} on a model axis of {model}: "
+            f"the split entries of the int8 DiT take bf16; "
+            f"{TENSOR_PARALLEL_NEXT}")
     check_model_axis(cfg, model)
     D = cfg.head_dim
     qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * D // model
     mlp = int(cfg.hidden_size * cfg.mlp_ratio) // model
-    if cfg.fused_prologue and (qkv % 128 or mlp % 128):
+    if prologue_knobs(cfg) and (qkv % 128 or mlp % 128):
         raise ValueError(f"a model axis of {model} leaves a rank {qkv} qkv "
                          f"and {mlp} mlp_in columns: the fused prologue's "
                          f"kernels take multiples of 128")
+    if not card:
+        return
+    for what, (k, n), (kw, nw), (km, nm) in tensor_parallel_shares(cfg,
+                                                                   model):
+        if kw % 128 == 0 and nw % 128 == 0 and (k % km or n % nm):
+            raise ValueError(
+                f"a model axis of {model} leaves a rank a [{k}, {n}] share "
+                f"of {what} [{kw}, {nw}]: its kernel on the card takes K % "
+                f"{km} == 0 and N % {nm} == 0")
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -229,14 +265,22 @@ def _int8_dense_gelu_dense(x2d, first: QuantDense, second: QuantDense,
     return _dequant_dense(g_q, g_s, second, group)
 
 
-def _quant_dense(p: dict, i=None, int8_impl="xla",
-                 dtype=torch.bfloat16) -> QuantDense:
+def _quant_dense(p: dict, i=None, int8_impl="xla", dtype=torch.bfloat16,
+                 tp=None, row=False) -> QuantDense:
     """The int8_static leaf ``p`` (layer ``i`` of a stacked one) as a
-    QuantDense computing in ``dtype``."""
+    QuantDense computing in ``dtype``.  ``tp``: the model group whose rank's
+    share ``p`` is, its rows of a row-parallel kernel (``row``: the
+    products summed over the group) or its columns of a column-parallel
+    one; the kernel gate takes the whole widths."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
     b = p.get("bias")
-    return QuantDense(pick(p["kernel_q"]), pick(p["kernel_scale"]),
-                      None if b is None else pick(b), int8_impl, dtype)
+    dense = QuantDense(pick(p["kernel_q"]), pick(p["kernel_scale"]),
+                       None if b is None else pick(b), int8_impl, dtype)
+    if tp is not None:
+        K, N = dense.kernel_q.shape
+        dense.group = tp if row else None
+        dense.whole = (K * tp.size, N) if row else (K, N * tp.size)
+    return dense
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -249,17 +293,24 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def prologue_knobs(cfg: ModelConfig) -> bool:
+    """The JAX conjunction of knobs under which a block takes its
+    fused-prologue branch (where the kernels' gate at the patch count
+    passes too: :func:`fused_prologue_taken`)."""
+    return (cfg.fused_prologue and cfg.matmul_precision == "int8_static"
+            and cfg.fused_qkv and cfg.fused_mlp
+            and cfg.fused_mlp_impl == "half"
+            and cfg.attention_impl == "flash" and cfg.flash_qkv
+            and not cfg.flash_fused_out and cfg.pos_embed == "rope")
+
+
 def fused_prologue_taken(cfg: ModelConfig, n: int) -> bool:
     """Whether the JAX block takes its fused-prologue branch at ``n``
     patches on the deterministic path: the JAX conjunction of knobs, then
     the kernels' eligibility gate for the qkv and mlp_in widths."""
     H = cfg.hidden_size
     qkv_out = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-    return (cfg.fused_prologue and cfg.matmul_precision == "int8_static"
-            and cfg.fused_qkv and cfg.fused_mlp
-            and cfg.fused_mlp_impl == "half"
-            and cfg.attention_impl == "flash" and cfg.flash_qkv
-            and not cfg.flash_fused_out and cfg.pos_embed == "rope"
+    return (prologue_knobs(cfg)
             and norm_mod_dot_supported(n, H, qkv_out)
             and norm_mod_dot_supported(n, H, int(H * cfg.mlp_ratio)))
 
@@ -341,8 +392,8 @@ class GQAttention(nn.Module):
         names = ("qkv_proj",) if cfg.fused_qkv else ("q_proj", "k_proj",
                                                     "v_proj")
         for name in names + ("out_proj",):
-            setattr(self, name, _quant_dense(p[name], i, impl, dt))
-        self.out_proj.group = tp
+            setattr(self, name, _quant_dense(p[name], i, impl, dt, tp,
+                                             name == "out_proj"))
         # The fused-prologue qkv kernel and the fused out-projection kernel
         # always add an fp32 bias: zeros where the projection has none.
         for name, proj in (("qkv_bias", getattr(self, "qkv_proj", None)),
@@ -363,7 +414,7 @@ class GQAttention(nn.Module):
 
         self.register_buffer("qkv_kernel_t", kmajor(self.qkv_proj)
                              if cfg.fused_qkv else None, persistent=False)
-        hq, D = cfg.num_q_heads, cfg.head_dim
+        hq, D = self.hq, cfg.head_dim  # a rank's rows of out_proj: its heads
         out_t = None
         if (cfg.flash_fused_out and cfg.attention_impl == "flash"
                 and cfg.flash_qkv and cfg.fused_qkv
@@ -396,21 +447,20 @@ class GQAttention(nn.Module):
                                     w_t=self.qkv_kernel_t)
         else:
             qkv = self.qkv_proj(x)
+        # The gate at the whole model's heads, as JAX's call over them all
+        # takes it (a rank's fewer heads pass it at more patches).
         flash = (cfg.attention_impl == "flash" and cfg.flash_qkv
                  and cfg.pos_embed == "rope"
-                 and flash_supported(N, hq, hkv, D))
-        if self.tp is not None and not flash:
-            raise NotImplementedError(
-                f"{N} patches with {hq}/{hkv} heads a rank: the flash-QKV "
-                f"kernel does not take them, and the split q/k/v does not "
-                f"serve on a model axis; {TENSOR_PARALLEL_NEXT}")
+                 and flash_supported(N, cfg.num_q_heads, cfg.num_kv_heads, D))
         if flash:
             if cfg.flash_fused_out:
                 o = self.out_proj
-                return gqa_attention_flash_out(qkv, cos, sin, o.kernel_q,
-                                               o.kernel_scale, self.out_bias,
-                                               hq, hkv, n_valid=n_valid,
-                                               wo_t=self.out_kernel_t)
+                fused_out = (gqa_attention_flash_out if self.tp is None else
+                             functools.partial(gqa_attention_flash_out_split,
+                                               group=self.tp))
+                return fused_out(qkv, cos, sin, o.kernel_q, o.kernel_scale,
+                                 self.out_bias, hq, hkv, n_valid=n_valid,
+                                 wo_t=self.out_kernel_t)
             out = gqa_attention_flash_qkv(qkv, cos, sin, hq, hkv,
                                           n_valid=n_valid,
                                           int8_qk=cfg.flash_int8_qk)
@@ -460,8 +510,8 @@ class DiTBlock(nn.Module):
         # QuantDense MLP runs w8a8_dot(int8_impl).
         impl, dt = ("xla" if cfg.fused_mlp else cfg.int8_impl,
                     compute_dtype(cfg))
-        self.mlp_in = _quant_dense(p["mlp_in"], i, impl, dt)
-        self.mlp_out = _quant_dense(p["mlp_out"], i, impl, dt)
+        self.mlp_in = _quant_dense(p["mlp_in"], i, impl, dt, tp)
+        self.mlp_out = _quant_dense(p["mlp_out"], i, impl, dt, tp, True)
         # mlp_in's K-major copy for the s8 wgmma kernels (the fused
         # prologue's, the dense+GELU and the whole MLP's first product), and
         # mlp_out's for the whole MLP's second product where it runs.
@@ -512,11 +562,13 @@ class DiTBlock(nn.Module):
             if cfg.fused_mlp_impl == "full":
                 # bf16 out in both modes, back in the compute dtype here.
                 w1, w2 = self.mlp_in, self.mlp_out
-                h = int8_mlp(h, w1.kernel_q, w1.kernel_scale, w1.bias.float(),
-                             w2.kernel_q, w2.kernel_scale, w2.bias.float(),
-                             gelu_impl=cfg.gelu_impl,
-                             w1_t=self.mlp_in_kernel_t,
-                             w2_t=self.mlp_out_kernel_t).to(h.dtype)
+                mlp = (int8_mlp if self.tp is None else functools.partial(
+                    int8_mlp_split, group=self.tp, rank=self.tp.rank,
+                    ranks=self.tp.size))
+                h = mlp(h, w1.kernel_q, w1.kernel_scale, w1.bias.float(),
+                        w2.kernel_q, w2.kernel_scale, w2.bias.float(),
+                        gelu_impl=cfg.gelu_impl, w1_t=self.mlp_in_kernel_t,
+                        w2_t=self.mlp_out_kernel_t).to(h.dtype)
             else:
                 h = _int8_dense_gelu_dense(h, self.mlp_in, self.mlp_out,
                                            self.mlp_in_kernel_t,
@@ -536,9 +588,9 @@ class DiT(nn.Module):
             see ``models/from_jax.py``.
         device: ``"cuda"`` (default) or an explicit ``"cpu"``.
         mesh: None, or a ``(D, M)`` mesh (``parallel.make_mesh``): at M > 1
-            the model is tensor-parallel over its model dim (bench.py's
-            default path and --no-fused-prologue; :func:`check_tensor_
-            parallel`).  The rank keeps its leaves of ``params``
+            the model is tensor-parallel over its model dim, on every
+            branch at bf16 (:func:`check_tensor_parallel`).  The rank
+            keeps its leaves of ``params``
             (``parallel.mesh.local_params``: its heads of qkv and
             out_proj, its columns of mlp_in and adaln, its rows of
             mlp_out), cut before they reach the device; the ranks of a
@@ -554,7 +606,8 @@ class DiT(nn.Module):
         self.device = resolve_device(device)
         self.tp = ModelGroup.of(mesh)
         if self.tp is not None:
-            check_tensor_parallel(cfg, self.tp.size)
+            check_tensor_parallel(cfg, self.tp.size,
+                                  card=self.device.type == "cuda")
             params = local_params(params, cfg, self.tp.size, self.tp.rank)
         P, C = cfg.patch_len, cfg.input_channels
         # The fused patch embed (the dense+GELU kernel, an s8 product) where
@@ -708,25 +761,15 @@ def check_dense_config(cfg: ModelConfig) -> None:
 
 def check_dense_tensor_parallel(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError`` where a model axis of ``model`` does not divide
-    the heads or the MLP width, and ``NotImplementedError`` for the
-    dynamic-int8 branches whose split kernels the port lacks: B14
-    (``int8_impl="pallas"``) and fp32 compute (the split entries take
+    the heads or the MLP width, and ``NotImplementedError`` for dynamic
+    int8 at fp32 compute, whose split entries the port lacks (they take
     bf16)."""
     check_model_axis(cfg, model)
-    if cfg.matmul_precision != "int8":
-        return
-    if cfg.int8_impl == "pallas":
-        raise NotImplementedError(
-            f"ModelConfig.int8_impl='pallas' under dynamic int8 on a model "
-            f"axis of {model}: B14 is not split; the next slice of the port "
-            f"brings it (ROADMAP section A item 8(b)(ii), section B.1 item "
-            f"2)")
-    if cfg.dtype != "bfloat16":
+    if cfg.matmul_precision == "int8" and cfg.dtype != "bfloat16":
         raise NotImplementedError(
             f"ModelConfig.dtype={cfg.dtype!r} under dynamic int8 on a model "
-            f"axis of {model}: the split int8 entries take bf16; the next "
-            f"slice of the port brings the fp32 ones (ROADMAP section A item "
-            f"8(b)(ii), section B.1 item 5)")
+            f"axis of {model}: the split int8 entries take bf16; "
+            f"{TENSOR_PARALLEL_NEXT}")
 
 
 def check_training_config(cfg: ModelConfig) -> None:
@@ -831,12 +874,15 @@ class TrainDense(nn.Module):
         self.dtype = dtype
         self.int8_impl = int8_impl
         self.tp, self.role = tp, role
+        K, N = self.kernel.shape
+        m = 1 if tp is None else tp.size
+        self.whole = (K * m, N) if role == "row" else (K, N * m)
 
     def forward(self, x):
         x, w = x.to(self.dtype), self.kernel.to(self.dtype)
         if self.int8_impl is not None:
             y = int8_dot_general(x, w, self.int8_impl, group=self.tp,
-                                 role=self.role or "row")
+                                 role=self.role or "row", whole=self.whole)
         elif self.role == "row":
             y = self.tp.reduce_out(_PartialF32.apply(x, w)).to(self.dtype)
         elif self.role == "col":

@@ -29,7 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .int8_matmul import _INV127, check_weights, int8_mm
+from .int8_matmul import _INV127, check_weights, group_max, group_sum, int8_mm
 
 # The TPU kernels' per-program VMEM budget: beyond it the JAX model takes
 # its XLA einsum path, and so does the port.
@@ -390,11 +390,14 @@ def _scale2_bf16(d: int) -> float:
 
 
 def flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, num_q_heads,
-                    num_kv_heads, n_valid=0, scale_dim=None):
+                    num_kv_heads, n_valid=0, scale_dim=None, group=None):
     """Plain PyTorch version of the fused out-projection kernel, with its
     rounding points: normalised weights rounded before the value product,
     each head's output rounded, the whole row quantised by a true divide by
-    its floored scale, then ``((acc * so) * wos + bo)``."""
+    its floored scale, then ``((acc * so) * wos + bo)``.  ``group``: the
+    model group whose ranks hold the other heads (qkv the rank's columns,
+    ``wo_q`` its rows): the row scale over the whole row, the int32
+    partial products summed before the rescale."""
     B, N, _ = qkv.shape
     dt = qkv.dtype
     s, v = _scores_plain(qkv, cos, sin, num_q_heads, num_kv_heads, n_valid,
@@ -403,9 +406,10 @@ def flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, num_q_heads,
     w = (e / e.sum(dim=-1, keepdim=True)).to(dt)
     o = (w.float() @ v.float()).to(dt)                   # [B, Hq, N, D]
     o = o.permute(0, 2, 1, 3).reshape(B * N, -1).float()
-    so = (o.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
+    so = (group_max(group, o.abs().amax(dim=1, keepdim=True)) * _INV127
+          ).clamp_min(1e-12)
     o_q = torch.round(o / so).to(torch.int8)
-    acc = int8_mm(o_q, wo_q).float()
+    acc = group_sum(group, int8_mm(o_q, wo_q)).float()
     out = acc * so * wo_scale.reshape(1, -1) + wo_bias.reshape(1, -1).float()
     return out.to(dt).reshape(B, N, -1)
 
@@ -447,17 +451,62 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
     the attention in fp32 into a scratch, then the fp32 row quant and the s8
     GEMM writing fp32); ``f32_launches`` counts it apart.
     """
-    B, N, TD = qkv.shape
     hq, hkv = num_q_heads, num_kv_heads
+    H, K = flash_out_check(qkv, wo_q, wo_scale, wo_bias, hq, hkv, n_valid,
+                           wo_t)
+    if qkv.device.type == "cpu":
+        return flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, hq, hkv,
+                               n_valid)
+    from . import _build
+
+    B, N, _ = qkv.shape
+    if qkv.dtype == torch.float32:
+        out = _flash_out_f32(qkv, cos, sin, wo_t, wo_scale, wo_bias, hq, hkv,
+                             n_valid or N, H)
+        gqa_attention_flash_out.launches += 1
+        gqa_attention_flash_out.f32_launches += 1
+        return out
+    att = FlashOutAttention(qkv, cos, sin, hq, hkv, n_valid)
+    dev = qkv.device
+    wo_t = _build.aligned(wo_t)
+    wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
+    o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
+    oq = torch.empty((B * N, K), dtype=torch.int8, device=dev)
+    so = torch.empty((B * N,), dtype=torch.float32, device=dev)
+    out = torch.empty((B, N, H), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr(dev)
+    if att.wide:  # the rope pass, attention, quant, GEMM
+        lib = _wide_lib()
+        err = lib.flash_out_wide(
+            *att.head(), wo_t.data_ptr(), wos.data_ptr(), bo.data_ptr(),
+            o.data_ptr(), oq.data_ptr(), so.data_ptr(), out.data_ptr(), B, H,
+            st)
+        _build.check(lib, err, "flash_out_wide")
+        gqa_attention_flash_out.launches += 1
+        return out
+    lib = _flash_out_lib()
+    gx, gy, gz = att.grid
+    err = lib.flash_out(
+        *att.head(), wo_t.data_ptr(), wos.data_ptr(), bo.data_ptr(),
+        o.data_ptr(), oq.data_ptr(), so.data_ptr(), out.data_ptr(), att.D, gz,
+        gx, gy, att.plan.warps, att.plan.smem, H, st)
+    _build.check(lib, err, "flash_out")
+    gqa_attention_flash_out.launches += 1
+    return out
+
+
+def flash_out_check(qkv, wo_q, wo_scale, wo_bias, hq, hkv, n_valid, wo_t):
+    """B12's argument checks (the whole kernel's and its split entry's, on
+    the heads ``qkv`` holds): ``(H, K)``, the output width and the GEMM's
+    contraction over the heads at their padded width."""
+    B, N, TD = qkv.shape
     if TD % (hq + 2 * hkv) or hq % hkv:
         raise ValueError(f"qkv width {TD} does not split into "
                          f"{hq}+2x{hkv} heads")
     if not 0 <= n_valid <= N:
         raise ValueError(f"n_valid {n_valid} outside [0, {N}]")
     D = TD // (hq + 2 * hkv)
-    # The kernel's GEMM contracts over the heads at their padded width.
-    Dp = padded_head_dim(D)
-    K = hq * Dp
+    K = hq * padded_head_dim(D)
     _, H = check_weights("flash_out", hq * D, wo_q, wo_scale, wo_bias,
                          k_run=K, k_mult=16)
     if wo_t is not None and (wo_t.shape != (H, K) or wo_t.dtype != torch.int8
@@ -465,61 +514,51 @@ def gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_scale, wo_bias,
         raise ValueError(f"flash_out: wo_t must be flash_out_weight_t(wo_q), "
                          f"int8 [{H}, {K}] contiguous, got "
                          f"{tuple(wo_t.shape)} {wo_t.dtype}")
-    if qkv.device.type == "cpu":
-        return flash_out_plain(qkv, cos, sin, wo_q, wo_scale, wo_bias, hq, hkv,
-                               n_valid)
-    from . import _build
-
-    if wo_t is None:
+    if qkv.device.type != "cpu" and wo_t is None:
         raise ValueError("flash_out: the card's kernel reads the out "
                          "projection K-major: pass wo_t = "
                          "flash_out_weight_t(wo_q, hq, D), made once")
-    if qkv.dtype == torch.float32:
-        out = _flash_out_f32(qkv, cos, sin, wo_t, wo_scale, wo_bias, hq, hkv,
-                             n_valid or N, H)
-        gqa_attention_flash_out.launches += 1
-        gqa_attention_flash_out.f32_launches += 1
-        return out
-    q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
-    scale2 = _scale2_bf16(D)
-    if Dp != D:  # zero head columns: the same scores, outputs and codes
-        q, k, v, cos, sin = (pad_heads(t, D, Dp) for t in (q, k, v, cos, sin))
-        D = Dp
-    dev = qkv.device
-    plan = _deferred_plan(N, hq, hkv, D, B, _sm_count(dev.index),
-                          n_valid or N, False)
-    _check_smem(plan, dev, "flash_out")
-    wo_t = _build.aligned(wo_t)
-    wos, bo = (t.reshape(H).float().contiguous() for t in (wo_scale, wo_bias))
-    o = torch.empty((B * N, K), dtype=torch.bfloat16, device=dev)
-    oq = torch.empty((B * N, K), dtype=torch.int8, device=dev)
-    so = torch.empty((B * N,), dtype=torch.float32, device=dev)
-    out = torch.empty((B, N, H), dtype=torch.bfloat16, device=dev)
-    if isinstance(plan, WidePlan):  # the rope pass, attention, quant, GEMM
-        args = _wide_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
-        qr, kr = _rope_scratch(q, k, B, N, hq, hkv, D)
-        lib = _wide_lib()
-        err = lib.flash_out_wide(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
-            cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(),
-            wo_t.data_ptr(), wos.data_ptr(), bo.data_ptr(), o.data_ptr(),
-            oq.data_ptr(), so.data_ptr(), out.data_ptr(), B, H,
-            _build.stream_ptr(dev))
-        _build.check(lib, err, "flash_out_wide")
-        gqa_attention_flash_out.launches += 1
-        return out
-    args = _natural_args(plan, q.stride(1), k.stride(1), v.stride(1), scale2)
-    lib = _flash_out_lib()
-    gx, gy, gz = plan.launch_grid(B)
-    err = lib.flash_out(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.byref(args),
-        cos.data_ptr(), sin.data_ptr(), wo_t.data_ptr(), wos.data_ptr(),
-        bo.data_ptr(), o.data_ptr(), oq.data_ptr(), so.data_ptr(),
-        out.data_ptr(), D, gz, gx, gy, plan.warps, plan.smem, H,
-        _build.stream_ptr(dev))
-    _build.check(lib, err, "flash_out")
-    gqa_attention_flash_out.launches += 1
-    return out
+    return H, K
+
+
+class FlashOutAttention:
+    """B12's attention launch on the card, as its C entries take it: the
+    views of a bf16 ``qkv``'s heads (zero-padded to the kernel's head dim
+    ``D``), RoPE's fp32 tables, the launch plan on B2's grid (``wide``: a
+    :class:`WidePlan`, head dims past 128, with its rope scratch).
+    :meth:`head` is the entries' leading arguments."""
+
+    def __init__(self, qkv, cos, sin, hq, hkv, n_valid):
+        B, N, _ = qkv.shape
+        q, k, v, cos, sin = _qkv_views(qkv, cos, sin, hq, hkv)
+        D = q.shape[-1] // hq
+        scale2 = _scale2_bf16(D)
+        Dp = padded_head_dim(D)
+        if Dp != D:  # zero head columns: the same scores, outputs and codes
+            q, k, v, cos, sin = (pad_heads(t, D, Dp)
+                                 for t in (q, k, v, cos, sin))
+        dev = qkv.device
+        self.D = Dp
+        self.plan = _deferred_plan(N, hq, hkv, Dp, B, _sm_count(dev.index),
+                                   n_valid or N, False)
+        _check_smem(self.plan, dev, "flash_out")
+        self.wide = isinstance(self.plan, WidePlan)
+        row = (q.stride(1), k.stride(1), v.stride(1), scale2)
+        if self.wide:
+            self.args = _wide_args(self.plan, *row)
+            self.scratch = _rope_scratch(q, k, B, N, hq, hkv, Dp)
+        else:
+            self.args = _natural_args(self.plan, *row)
+            self.grid = self.plan.launch_grid(B)
+        self.keep = (q, k, v, cos, sin)
+
+    def head(self):
+        q, k, v, cos, sin = self.keep
+        views = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 ctypes.byref(self.args), cos.data_ptr(), sin.data_ptr()]
+        if self.wide:
+            views += [t.data_ptr() for t in self.scratch]
+        return views
 
 
 gqa_attention_flash_out.launches = 0
@@ -540,6 +579,17 @@ def _flash_out_lib():
     lib.flash_out_gemm.restype = ctypes.c_int
     lib.flash_out_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                    + [ctypes.c_void_p])
+    # The split entry (ops/split.py).
+    lib.flash_out_split1.restype = ctypes.c_int
+    lib.flash_out_split1.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(_NaturalArgs)]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.flash_out_split2.restype = ctypes.c_int
+    lib.flash_out_split2.argtypes = ([ctypes.c_void_p] * 6
+                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.flash_out_split3.restype = ctypes.c_int
+    lib.flash_out_split3.argtypes = ([ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     return lib
 
 
@@ -1043,6 +1093,10 @@ def _wide_lib():
     lib.flash_out_wide.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.POINTER(_WideArgs)]
         + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.flash_out_wide_split1.restype = ctypes.c_int
+    lib.flash_out_wide_split1.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(_WideArgs)]
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
 

@@ -66,6 +66,7 @@
 
 #include "attention_rows.cuh"
 #include "s8_dequant.cuh"
+#include "s8_split.cuh"
 
 // The launch of the wide forward and the rope pass (ops/attention.py:
 // _wide_plan, field for field).
@@ -826,6 +827,19 @@ extern "C" int flash_out_wide(const void* q, const void* k, const void* v, const
   if (e != cudaSuccess) return e;
   const int M = B * plan->N, K = plan->hq * plan->dp;
   return s8_quant_dequant<true>(o, oq, so, wo_t, wos, bo, out, M, K, H, st);
+}
+
+// B12 row-parallel at dp (flash_qkv.cu's flash_out_split1 for head dims past
+// 128): the rope pass and the attention on a rank's heads -> o, then amax
+// [B * N] f32, max|o_row| over them.  Parts 2 and 3 are flash_qkv.cu's.
+extern "C" int flash_out_wide_split1(const void* q, const void* k, const void* v,
+                                     const WidePlan* plan, const float* cos_t,
+                                     const float* sin_t, void* qr, void* kr, void* o, void* amax,
+                                     int B, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = roped<Epilogue::kNormed>(q, k, v, o, *plan, cos_t, sin_t, qr, kr, B, st);
+  return e != cudaSuccess ? e
+                          : launch_row_absmax(o, amax, B * plan->N, plan->hq * plan->dp, st);
 }
 
 // B10's forward at dp: q [B, N, hq * dp], k/v [B, N, hkv * dp] bf16

@@ -50,6 +50,7 @@
 
 #include "attention_stream.cuh"
 #include "s8_dequant.cuh"
+#include "s8_split.cuh"
 
 namespace {
 
@@ -94,6 +95,19 @@ cudaError_t attention(const void* q, const void* k, const void* v, void* o, cons
   return launch(normed_kernel<D>, smem_set[0], q, k, v, o, p, rt, grid, warps, smem, st);
 }
 
+// The attention launch at head dim D (16, 32, 64 or 128).
+cudaError_t attention_d(const void* q, const void* k, const void* v, void* o,
+                        const NaturalPlan& p, const RopeTables& rt, dim3 grid, int D, int warps,
+                        int smem, cudaStream_t st) {
+  switch (D) {
+    case 16: return attention<16>(q, k, v, o, p, rt, grid, warps, smem, st);
+    case 32: return attention<32>(q, k, v, o, p, rt, grid, warps, smem, st);
+    case 64: return attention<64>(q, k, v, o, p, rt, grid, warps, smem, st);
+    case 128: return attention<128>(q, k, v, o, p, rt, grid, warps, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, k and v: the three column views of qkv [B, N, (hq + 2 hkv) * D] bf16
@@ -108,19 +122,43 @@ extern "C" int flash_out(const void* q, const void* k, const void* v, const Natu
                          const void* bo, void* o, void* oq, void* so, void* out, int D, int B,
                          int gx, int gy, int warps, int smem, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const RopeTables rt{cos_t, sin_t};
-  const dim3 grid(gx, gy, B);
-  cudaError_t e;
-  switch (D) {
-    case 16: e = attention<16>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
-    case 32: e = attention<32>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
-    case 64: e = attention<64>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
-    case 128: e = attention<128>(q, k, v, o, *plan, rt, grid, warps, smem, st); break;
-    default: return cudaErrorInvalidValue;
-  }
+  const cudaError_t e = attention_d(q, k, v, o, *plan, RopeTables{cos_t, sin_t}, dim3(gx, gy, B),
+                                    D, warps, smem, st);
   if (e != cudaSuccess) return e;
   const int M = B * plan->N, K = plan->hq * D;
   return s8_quant_dequant<true>(o, oq, so, wo_t, wos, bo, out, M, K, H, st);
+}
+
+// ---- B12 row-parallel (tensor parallelism, s8_split.cuh) -------------------
+// A rank's heads: q, k and v the column views of its qkv columns (its q
+// heads, then its kv heads' k and v), the plan of its heads; wo_t [H, hq *
+// D] s8 its rows of the out projection K-major (each head padded as
+// flash_out's).  Part 1: the attention launch as flash_out's -> o [B * N,
+// hq * D] bf16, then amax [B * N] f32, max|o_row| over the rank's heads
+// (two launches).  The caller takes the max over the ranks; part 2: the
+// codes at the whole row's floored scale and the s8 wgmma GEMM writing int32
+// -> oq, so [B * N] f32, acc [B * N, H] s32 (two launches).  The caller adds
+// acc over the ranks; part 3: out [B * N, H] bf16 = ((float)acc * so) * wos
+// + bo, each op rounded: flash_out's epilogue, the bias added once.
+extern "C" int flash_out_split1(const void* q, const void* k, const void* v,
+                                const NaturalPlan* plan, const float* cos_t, const float* sin_t,
+                                void* o, void* amax, int D, int B, int gx, int gy, int warps,
+                                int smem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = attention_d(q, k, v, o, *plan, RopeTables{cos_t, sin_t},
+                                    dim3(gx, gy, B), D, warps, smem, st);
+  return e != cudaSuccess ? e
+                          : launch_row_absmax(o, amax, B * plan->N, plan->hq * D, st);
+}
+
+extern "C" int flash_out_split2(const void* o, const void* amax, const void* wo_t, void* oq,
+                                void* so, void* acc, int M, int K, int H, void* stream) {
+  return launch_quant_acc(o, amax, wo_t, oq, so, acc, M, K, H, (cudaStream_t)stream);
+}
+
+extern "C" int flash_out_split3(const void* acc, const void* so, const void* wos, const void* bo,
+                                void* out, int M, int H, void* stream) {
+  return launch_dequant_acc(acc, so, wos, out, M, H, 0, (cudaStream_t)stream, bo);
 }
 
 // The GEMM stage alone, on a quant launch's oq [M, K] s8 and so [M] f32:

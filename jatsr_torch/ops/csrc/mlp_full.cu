@@ -52,9 +52,27 @@
 //      warpgroups: 192 x 128 tiles, 110 at M = 2112 (one wave; 128-row
 //      tiles would be 170, 1.3 waves), each stage's 16 KB of w2 shared by
 //      192 rows.
+//
+// The split entry (tensor parallelism: a rank holds a span of w1's columns
+// and the same span of w2's rows, the slabs those of the whole N1) keeps
+// these numbers bit for bit, in three parts with the ranks' collectives
+// between them:
+//   1. the same row quant, then s8_gelu.cuh's pass 1 on the rank's columns
+//      (g by s8_gelu_of, the hidden kernel's), each row's max |g| a
+//      128-column tile, then slab_rowmax: gmax [M, n_slabs] of the slabs
+//      the rank touches (the caller zeroes the rest).  The ranks take the
+//      max (exact).
+//   2. mlp_codes_kernel: the product again, g by the same instructions,
+//      gs = max(gmax * INV127, 1e-12) and rint(g * (1 / gs)) as the hidden
+//      kernel writes them; then s8_split.cuh's s8_acc_kernel once for each
+//      slab's part the rank holds, its int32 product into the slab's own
+//      [M, N2] plane.  The ranks add the planes (exact).
+//   3. mlp_fold: acc2 = acc2 + (float)acc_j * gs_j over every slab j in
+//      order, then bf16(acc2 * w2s + b2), mlp_out_kernel's operations.
 
 #include "s8_gelu.cuh"
 #include "s8_rows.cuh"
+#include "s8_split.cuh"
 
 namespace {
 
@@ -450,6 +468,156 @@ cudaError_t mlp_launches(const void* a, const void* w1t, const void* w1s, const 
   return e != cudaSuccess ? e : launch_out(gq, gs, w2t, w2s, b2, out, M, N1, N2, slab, st);
 }
 
+// ---- the split entry ------------------------------------------------------
+
+template <int GELU>
+__global__ void __launch_bounds__(S8_THREADS, 2) mlp_rowmax_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
+    float* __restrict__ part, int M, int K, int N) {
+  s8_gelu_tile<GELU, 1, true, true>(am, bm, s, ws, bias, part, nullptr, nullptr, M, K, N);
+}
+
+// part [M, nt] (max |g| of each of the rank's 128-column tiles, tile t at
+// whole column 128 (tile0 + t)) -> gmax [M, n_slabs]: each row's max over
+// the tiles of each slab of tps tiles the rank touches, a thread a row.
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256) slab_rowmax(const float* __restrict__ part,
+                                                   float* __restrict__ gmax, int M, int nt,
+                                                   int tile0, int tps, int n_slabs) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  int cur = tile0 / tps;
+  float m = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const int g = (tile0 + t) / tps;
+    if (g != cur) {
+      gmax[(size_t)r * n_slabs + cur] = m;
+      m = 0.f;
+      cur = g;
+    }
+    m = fmaxf(m, part[(size_t)r * nt + t]);
+  }
+  gmax[(size_t)r * n_slabs + cur] = m;
+}
+
+// The rank's codes: tile (blockIdx.y, blockIdx.x) of a_q [M, K] @ w1t [N,
+// K]^T again, g as pass 1 has it, then rint(g * (1 / gs)) with gs of the
+// tile's slab from gmax: the hidden kernel's scale and codes.  The codes go
+// through shared memory (rows of 144 bytes), then 16-byte stores.
+template <int GELU>
+__global__ void __launch_bounds__(S8_THREADS, 2) mlp_codes_kernel(
+    const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap bm,
+    const float* __restrict__ s, const float* __restrict__ ws, const float* __restrict__ bias,
+    const float* __restrict__ gmax, int8_t* __restrict__ gq, int M, int K, int N, int tile0,
+    int tps, int n_slabs) {
+  const int n0 = blockIdx.x * S8_BN, m0 = blockIdx.y * S8_BM;
+  const int slab = (tile0 + blockIdx.x) / tps;
+  s8_gemm_tile(
+      K / S8_BK,
+      [&](int kb, unsigned char* a, unsigned char* b, uint64_t* bar) {
+        tma_load_2d(a, &am, bar, kb * S8_BK, m0);
+        tma_load_2d(b, &bm, bar, kb * S8_BK, n0);
+      },
+      [](int, int) {},
+      [&](const int (&acc)[S8_ACC], int row, int col, unsigned char* stage) {
+        constexpr int STR = S8_BN + 16;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + row + 8 * h;
+          const bool ok = r < M;
+          const float sr = ok ? s[r] : 0.f;
+          const float sc =
+              ok ? fmaxf(__fmul_rn(gmax[(size_t)r * n_slabs + slab], INV127), 1e-12f) : 1.f;
+          const float rcp = __fdiv_rn(1.0f, sc);
+#pragma unroll
+          for (int i = 0; i < S8_BN / 8; ++i) {
+            const int c = n0 + 8 * i + col;
+            const float2 w = *reinterpret_cast<const float2*>(ws + c);
+            const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+            const float g0 = s8_gelu_of<GELU, true>(acc[4 * i + 2 * h], sr, w.x, bb.x);
+            const float g1 = s8_gelu_of<GELU, true>(acc[4 * i + 2 * h + 1], sr, w.y, bb.y);
+            const uint32_t q0 = (uint32_t)__float2int_rn(__fmul_rn(g0, rcp)) & 0xffu;
+            const uint32_t q1 = (uint32_t)__float2int_rn(__fmul_rn(g1, rcp)) & 0xffu;
+            *reinterpret_cast<uint16_t*>(stage + (row + 8 * h) * STR + 8 * i + col) =
+                (uint16_t)(q0 | (q1 << 8));
+          }
+        }
+        __syncthreads();
+        for (int x = threadIdx.x; x < S8_BM * S8_BN / 16; x += S8_THREADS) {
+          const int rr = x / (S8_BN / 16), cc = (x % (S8_BN / 16)) * 16;
+          if (m0 + rr < M)
+            *reinterpret_cast<uint4*>(gq + (size_t)(m0 + rr) * N + n0 + cc) =
+                *reinterpret_cast<const uint4*>(stage + rr * STR + cc);
+        }
+      });
+}
+
+// acc [n_slabs, M, N2] s32 (every slab's product, summed over the ranks),
+// gmax [M, n_slabs] -> out [M, N2] bf16: mlp_out_kernel's fold in slab order
+// and its epilogue, an output a thread.
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256) mlp_fold(const int* __restrict__ acc,
+                                                const float* __restrict__ gmax,
+                                                const float* __restrict__ ws,
+                                                const float* __restrict__ bias,
+                                                __nv_bfloat16* __restrict__ out, int M, int N,
+                                                int n_slabs) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * N) return;
+  const int r = (int)(i / N), c = (int)(i % N);
+  float a2 = 0.f;
+  for (int j = 0; j < n_slabs; ++j) {
+    const float g = fmaxf(__fmul_rn(gmax[(size_t)r * n_slabs + j], INV127), 1e-12f);
+    a2 = __fadd_rn(a2, __fmul_rn(__int2float_rn(acc[(size_t)j * M * N + i]), g));
+  }
+  out[i] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(a2, ws[c]), bias[c]));
+}
+
+// The rank's span [col0, col0 + N1l) of the whole N1 in slabs of `slab`:
+// both multiples of 128, the span inside N1.
+bool split_ok(int K, int N1l, int N2, int col0, int slab, int n_slabs) {
+  return K % S8_BK == 0 && N1l % S8_BN == 0 && N1l > 0 && N2 % S8_BN == 0 &&
+         col0 % S8_BN == 0 && slab % S8_BN == 0 && col0 + N1l <= slab * n_slabs;
+}
+
+cudaError_t launch_rowmax(const CUtensorMap& am, const CUtensorMap& bm, const void* s,
+                          const void* ws, const void* b, void* part, int M, int K, int N,
+                          int gelu_impl, cudaStream_t st) {
+  const dim3 grid(N / S8_BN, (M + S8_BM - 1) / S8_BM);
+  auto S = (const float*)s;
+  auto WS = (const float*)ws;
+  auto B = (const float*)b;
+  auto P = (float*)part;
+  if (gelu_impl == 1)
+    return s8_launch<mlp_rowmax_kernel<1>>(grid, S8_THREADS, S8_SMEM, true, st, am, bm, S, WS, B,
+                                           P, M, K, N);
+  if (gelu_impl == 2)
+    return s8_launch<mlp_rowmax_kernel<2>>(grid, S8_THREADS, S8_SMEM, true, st, am, bm, S, WS, B,
+                                           P, M, K, N);
+  return s8_launch<mlp_rowmax_kernel<0>>(grid, S8_THREADS, S8_SMEM, true, st, am, bm, S, WS, B, P,
+                                         M, K, N);
+}
+
+cudaError_t launch_codes(const CUtensorMap& am, const CUtensorMap& bm, const void* s,
+                         const void* ws, const void* b, const void* gmax, void* gq, int M, int K,
+                         int N, int tile0, int tps, int n_slabs, int gelu_impl, cudaStream_t st) {
+  const dim3 grid(N / S8_BN, (M + S8_BM - 1) / S8_BM);
+  auto S = (const float*)s;
+  auto WS = (const float*)ws;
+  auto B = (const float*)b;
+  auto G = (const float*)gmax;
+  auto Q = (int8_t*)gq;
+  if (gelu_impl == 1)
+    return s8_launch<mlp_codes_kernel<1>>(grid, S8_THREADS, S8_SMEM, false, st, am, bm, S, WS, B,
+                                          G, Q, M, K, N, tile0, tps, n_slabs);
+  if (gelu_impl == 2)
+    return s8_launch<mlp_codes_kernel<2>>(grid, S8_THREADS, S8_SMEM, false, st, am, bm, S, WS, B,
+                                          G, Q, M, K, N, tile0, tps, n_slabs);
+  return s8_launch<mlp_codes_kernel<0>>(grid, S8_THREADS, S8_SMEM, false, st, am, bm, S, WS, B, G,
+                                        Q, M, K, N, tile0, tps, n_slabs);
+}
+
 }  // namespace
 
 // Launch 1 alone: a [M, K] bf16 -> aq [M, K] s8, s [M] f32 (reciprocal
@@ -499,4 +667,62 @@ extern "C" int int8_mlp_f32(const void* a, const void* w1t, const void* w1s, con
                             int n_slabs, int gelu_impl, void* stream) {
   return mlp_launches<true>(a, w1t, w1s, b1, w2t, w2s, b2, aq, s, gq, gs, out, M, K, N1, N2,
                             n_slabs, gelu_impl, (cudaStream_t)stream);
+}
+
+// ---- B13 on a rank's columns (tensor parallelism; see the top) ------------
+// The rank holds columns [col0, col0 + N1l) of the whole N1 (n_slabs slabs
+// of `slab`): w1t [N1l, K] s8 (its columns of w1, K-major), w1s and b1
+// [N1l] f32, w2t [N2, N1l] s8 (its rows of w2, K-major).  Part 1: a [M, K]
+// bf16 -> aq [M, K] s8, s [M] f32 (the row quant), part [M, N1l / 128]
+// f32 scratch, gmax [M, n_slabs] f32 (the entries of the slabs the rank
+// touches written; the caller zeroes the rest).  Three launches.
+extern "C" int mlp_split1(const void* a, const void* w1t, const void* w1s, const void* b1,
+                          void* aq, void* s, void* part, void* gmax, int M, int K, int N1l,
+                          int N2, int col0, int slab, int n_slabs, int gelu_impl, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!split_ok(K, N1l, N2, col0, slab, n_slabs) || K > 4096) return cudaErrorInvalidValue;
+  cudaError_t e = launch_quant_rows<true>(a, aq, s, M, K, st);
+  CUtensorMap am, bm;
+  if (e == cudaSuccess) e = s8_maps(&am, &bm, aq, w1t, M, K, N1l);
+  if (e == cudaSuccess) e = launch_rowmax(am, bm, s, w1s, b1, part, M, K, N1l, gelu_impl, st);
+  if (e != cudaSuccess) return e;
+  slab_rowmax<><<<(M + 255) / 256, 256, 0, st>>>((const float*)part, (float*)gmax, M,
+                                                  N1l / S8_BN, col0 / S8_BN, slab / S8_BN,
+                                                  n_slabs);
+  return cudaGetLastError();
+}
+
+// Part 2, on part 1's aq and s and gmax maxed over the ranks: gq [M, N1l]
+// s8 (the rank's codes) and acc [n_slabs, M, N2] s32, the int32 product of
+// each slab's part the rank holds written into that slab's plane (the
+// caller zeroes the others).  One launch, then one a slab part.
+extern "C" int mlp_split2(const void* aq, const void* s, const void* w1t, const void* w1s,
+                          const void* b1, const void* gmax, const void* w2t, void* gq, void* acc,
+                          int M, int K, int N1l, int N2, int col0, int slab, int n_slabs,
+                          int gelu_impl, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!split_ok(K, N1l, N2, col0, slab, n_slabs)) return cudaErrorInvalidValue;
+  CUtensorMap am, bm;
+  cudaError_t e = s8_maps(&am, &bm, aq, w1t, M, K, N1l);
+  if (e == cudaSuccess)
+    e = launch_codes(am, bm, s, w1s, b1, gmax, gq, M, K, N1l, col0 / S8_BN, slab / S8_BN,
+                     n_slabs, gelu_impl, st);
+  for (int g = col0 / slab; e == cudaSuccess && g * slab < col0 + N1l; ++g) {
+    const int lo = (g * slab > col0 ? g * slab : col0) - col0;
+    const int hi = ((g + 1) * slab < col0 + N1l ? (g + 1) * slab : col0 + N1l) - col0;
+    e = launch_s8_acc((const int8_t*)gq + lo, N1l, (const int8_t*)w2t + lo, N1l,
+                      (int*)acc + (size_t)g * M * N2, M, hi - lo, N2, false, st);
+  }
+  return e;
+}
+
+// Part 3, on acc summed over the ranks: w2s, b2 [N2] f32 -> out [M, N2]
+// bf16.  One launch.
+extern "C" int mlp_split3(const void* acc, const void* gmax, const void* w2s, const void* b2,
+                          void* out, int M, int N2, int n_slabs, void* stream) {
+  const size_t n = (size_t)M * N2;
+  mlp_fold<><<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)acc, (const float*)gmax, (const float*)w2s, (const float*)b2,
+      (__nv_bfloat16*)out, M, N2, n_slabs);
+  return cudaGetLastError();
 }

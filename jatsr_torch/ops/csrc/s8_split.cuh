@@ -17,6 +17,19 @@
 //     form does; s8_acc_kernel is the s8 wgmma GEMM of s8_wgmma.cuh
 //     writing the int32 accumulators; the ranks add them (exact); then
 //     dequant_acc writes OUT(((float)acc * s) * ws), B4's epilogue.
+//   row-parallel B14 (w8a8_dot(impl="pallas") on out_proj or the unfused
+//     mlp_out): the same launches, but quant_rows_given's RAW form writes
+//     the unfloored amax * INV127, which B14's epilogue rescales by (the
+//     codes still divide by the floored scale).
+//   row-parallel B12 (the out projection inside the attention kernel):
+//     the rank's heads' attention, row_absmax of its o, the ranks' max,
+//     quant_rows_given and s8_acc_kernel on its rows of wo, the ranks' sum,
+//     then dequant_acc with the bias: bf16(((float)acc * so) * wos + bo),
+//     s8_dequant.cuh's epilogue with its bias, added once.
+//   B13 (mlp_full.cu): each rank's int32 product of each slab it holds
+//     goes through s8_acc_kernel into its own [M, N2] plane (column views
+//     of the codes and of w2 K-major: s8_tensor_map_ld); the ranks add the
+//     planes, and the fold runs once over all of them in slab order.
 //
 // Every kernel here is a template, so that a library builds only those it
 // launches and no instance that existed before changes.  Each csrc/*.cu
@@ -85,9 +98,10 @@ __global__ void __launch_bounds__(256) row_absmax(const __nv_bfloat16* __restric
 
 // a [M, K] bf16 and the whole row's amax [M] -> aq [M, K] s8 (rint(a / s)),
 // s [M] f32, s = max(amax * INV127, 1e-12): quant_rows_v's scale and codes
-// at a scale taken over more columns than a holds.  Its first instruction
-// lets the next launch start.
-template <int UNUSED = 0>
+// at a scale taken over more columns than a holds (RAW: the scale written
+// is the unfloored amax * INV127, quant_rows_raw_v's).  Its first
+// instruction lets the next launch start.
+template <int UNUSED = 0, bool RAW = false>
 __global__ void __launch_bounds__(256) quant_rows_given(const __nv_bfloat16* __restrict__ a,
                                                         const float* __restrict__ amax,
                                                         int8_t* __restrict__ aq,
@@ -106,7 +120,7 @@ __global__ void __launch_bounds__(256) quant_rows_given(const __nv_bfloat16* __r
     for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
     *reinterpret_cast<uint2*>(qr + k) = quant8(f, sc);
   }
-  if (lane == 0) s[row] = sc;
+  if (lane == 0) s[row] = RAW ? __fmul_rn(amax[row], INV127) : sc;
 }
 
 // The s8 wgmma GEMM of s8_wgmma.cuh on aq [M, K] and the weight K-major
@@ -140,16 +154,19 @@ __global__ void __launch_bounds__(S8_THREADS, 2) s8_acc_kernel(
 }
 
 // acc [M, N] int32, s [M], ws [N] f32 -> out [M, N] OUT: ((float)acc * s)
-// * ws, each product rounded, then one rounding to OUT (bf16 or fp32).
-template <class OUT>
+// * ws, each product rounded, with BIAS then + bias [N] rounded, then one
+// rounding to OUT (bf16 or fp32): s8_dequant_kernel's epilogue.
+template <class OUT, bool BIAS = false>
 __global__ void __launch_bounds__(256) dequant_acc(const int* __restrict__ acc,
                                                    const float* __restrict__ s,
                                                    const float* __restrict__ ws,
-                                                   OUT* __restrict__ out, int M, int N) {
+                                                   OUT* __restrict__ out, int M, int N,
+                                                   const float* __restrict__ bias) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
   const int r = (int)(i / N), c = (int)(i % N);
-  const float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), s[r]), ws[c]);
+  float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), s[r]), ws[c]);
+  if constexpr (BIAS) y = __fadd_rn(y, bias[c]);
   if constexpr (sizeof(OUT) == 2)
     out[i] = __float2bfloat16_rn(y);
   else
@@ -163,37 +180,55 @@ cudaError_t launch_row_absmax(const void* a, void* amax, int M, int K, cudaStrea
   return cudaGetLastError();
 }
 
-// quant_rows_given, then s8_acc_kernel behind it under programmatic stream
-// serialisation: two launches.
+// s8_acc_kernel on the codes aq [M, K] (row stride lda bytes) and the
+// weight K-major wt [N, K] (row stride ldw): acc [M, N] int32.  Column
+// views need 16-byte aligned bases and strides.  With pdl, launched under
+// programmatic stream serialisation (its CTAs read wt before they wait).
 template <int UNUSED = 0>
-cudaError_t launch_quant_acc(const void* a, const void* amax, const void* wt, void* aq, void* s,
-                             void* acc, int M, int K, int N, cudaStream_t st) {
-  if (K % 16 || N % S8_BN) return cudaErrorInvalidValue;
-  quant_rows_given<><<<(M + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)a, (const float*)amax,
-                                                  (int8_t*)aq, (float*)s, M, K);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+cudaError_t launch_s8_acc(const void* aq, int lda, const void* wt, int ldw, void* acc, int M,
+                          int K, int N, bool pdl, cudaStream_t st) {
+  if (K % 16 || N % S8_BN || lda % 16 || ldw % 16) return cudaErrorInvalidValue;
   CUtensorMap am, bm;
-  e = s8_tensor_map(&am, aq, M, K, S8_BM);
-  if (e == cudaSuccess) e = s8_tensor_map(&bm, wt, N, K, S8_BN);
+  cudaError_t e = s8_tensor_map_ld(&am, aq, M, K, lda, S8_BM);
+  if (e == cudaSuccess) e = s8_tensor_map_ld(&bm, wt, N, K, ldw, S8_BN);
   if (e != cudaSuccess) return e;
   const dim3 grid(N / S8_BN, (M + S8_BM - 1) / S8_BM);
-  return s8_launch<s8_acc_kernel<>>(grid, S8_THREADS, S8_SMEM, true, st, am, bm, (int*)acc, M, K,
+  return s8_launch<s8_acc_kernel<>>(grid, S8_THREADS, S8_SMEM, pdl, st, am, bm, (int*)acc, M, K,
                                     N);
 }
 
+// quant_rows_given (RAW: the unfloored scale written), then s8_acc_kernel
+// behind it under programmatic stream serialisation: two launches.
+template <bool RAW = false>
+cudaError_t launch_quant_acc(const void* a, const void* amax, const void* wt, void* aq, void* s,
+                             void* acc, int M, int K, int N, cudaStream_t st) {
+  if (K % 16 || N % S8_BN) return cudaErrorInvalidValue;
+  quant_rows_given<0, RAW><<<(M + 7) / 8, 256, 0, st>>>(
+      (const __nv_bfloat16*)a, (const float*)amax, (int8_t*)aq, (float*)s, M, K);
+  const cudaError_t e = cudaGetLastError();
+  return e != cudaSuccess ? e : launch_s8_acc(aq, K, wt, K, acc, M, K, N, true, st);
+}
+
+// dequant_acc in bf16 or (out_f32) fp32; a non-null bias is added (B12's
+// epilogue, bf16 only).
 template <int UNUSED = 0>
 cudaError_t launch_dequant_acc(const void* acc, const void* s, const void* ws, void* out, int M,
-                               int N, int out_f32, cudaStream_t st) {
+                               int N, int out_f32, cudaStream_t st, const void* bias = nullptr) {
   const size_t n = (size_t)M * N;
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  if (out_f32)
-    dequant_acc<float><<<blocks, 256, 0, st>>>((const int*)acc, (const float*)s,
-                                               (const float*)ws, (float*)out, M, N);
+  auto A = (const int*)acc;
+  auto S = (const float*)s;
+  auto WS = (const float*)ws;
+  auto BI = (const float*)bias;
+  if (bias && out_f32) return cudaErrorInvalidValue;
+  if (bias)
+    dequant_acc<__nv_bfloat16, true><<<blocks, 256, 0, st>>>(A, S, WS, (__nv_bfloat16*)out, M, N,
+                                                             BI);
+  else if (out_f32)
+    dequant_acc<float><<<blocks, 256, 0, st>>>(A, S, WS, (float*)out, M, N, nullptr);
   else
-    dequant_acc<__nv_bfloat16><<<blocks, 256, 0, st>>>((const int*)acc, (const float*)s,
-                                                       (const float*)ws, (__nv_bfloat16*)out, M,
-                                                       N);
+    dequant_acc<__nv_bfloat16><<<blocks, 256, 0, st>>>(A, S, WS, (__nv_bfloat16*)out, M, N,
+                                                       nullptr);
   return cudaGetLastError();
 }
 

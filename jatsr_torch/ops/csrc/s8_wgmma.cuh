@@ -161,13 +161,16 @@ __device__ __forceinline__ void s8_gemm_tile(int nk, const Load& load, const Pre
 
 // ---- host side: tensor maps ----------------------------------------------
 
-// A 2-D int8 tensor map of `rows` rows of `cols` bytes (row stride `cols`),
-// boxes of [box_rows][128] under the 128-byte swizzle, zero fill outside.
-cudaError_t s8_tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// A 2-D int8 tensor map of `rows` rows of `cols` bytes, row stride `ld`
+// bytes (a multiple of 16; a column view of a wider matrix where ld >
+// cols), boxes of [box_rows][128] under the 128-byte swizzle, zero fill
+// outside.
+cudaError_t s8_tensor_map_ld(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                             int box_rows) {
   const EncodeTiled encode = wg_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld};
   const cuuint32_t box[2] = {S8_BK, (cuuint32_t)box_rows};
   const cuuint32_t ones[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
@@ -175,6 +178,11 @@ cudaError_t s8_tensor_map(CUtensorMap* map, const void* base, int rows, int cols
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same, row stride `cols`.
+cudaError_t s8_tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  return s8_tensor_map_ld(map, base, rows, cols, cols, box_rows);
 }
 
 // Launches `kernel` on `st` with `smem` bytes of dynamic shared memory (the

@@ -135,3 +135,17 @@ extern "C" int w8a8_split3(const void* acc, const void* s, const void* ws, void*
                            int N, int out_f32, void* stream) {
   return launch_dequant_acc(acc, s, ws, out, M, N, out_f32, (cudaStream_t)stream);
 }
+
+// ---- B14 row-parallel (tensor parallelism, s8_split.cuh) -------------------
+// w8a8_dot(impl="pallas") on a rank's columns of the input (out_proj's
+// heads, the unfused mlp_out's hidden columns) and its rows of the kernel.
+// Part 1 is w8a8_split1 (the rank's row maxima); the caller takes the max
+// over the ranks; part 2: the codes by the whole row's floored scale and the
+// s8 wgmma GEMM writing int32 -> aq [M, K] s8, s [M] f32 (the UNFLOORED
+// scale, amax * INV127, as B14 rescales by it), acc [M, N] s32 (two
+// launches); the caller adds acc over the ranks; part 3 is w8a8_split3 on
+// that s: out = OUT(((float)acc * s) * ws), B14's epilogue.
+extern "C" int prequant_split2(const void* a, const void* amax, const void* wt, void* aq,
+                               void* s, void* acc, int M, int K, int N, void* stream) {
+  return launch_quant_acc<true>(a, amax, wt, aq, s, acc, M, K, N, (cudaStream_t)stream);
+}

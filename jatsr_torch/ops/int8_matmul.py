@@ -293,10 +293,13 @@ int8_matmul_fused.launches = 0
 int8_matmul_fused.f32_launches = 0
 
 
-def matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16):
+def matmul_prequant_plain(a_q, a_scale, w_q, w_scale, out_dtype=torch.bfloat16,
+                          group=None):
     """Plain PyTorch version of the s8 product on a pre-quantised A:
-    ``((acc * a_scale) * ws) -> out_dtype`` with the caller's scale."""
-    acc = int8_mm(a_q, w_q).float()
+    ``((acc * a_scale) * ws) -> out_dtype`` with the caller's scale.
+    ``group``: the model group whose ranks hold the codes' other columns
+    and the kernel's other rows (the int32 partial products summed)."""
+    acc = group_sum(group, int8_mm(a_q, w_q)).float()
     return (acc * a_scale.reshape(-1, 1).float() * w_scale.reshape(1, -1)
             ).to(out_dtype)
 
@@ -401,24 +404,46 @@ def _pick_slabs(n1: int, target: int = 1280) -> int:
     return 1
 
 
-def mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl="tanh"):
+def mlp_plain(a, w1_q, w1_scale, b1, w2_q, w2_scale, b2, gelu_impl="tanh",
+              group=None, rank=0, ranks=1):
     """Plain PyTorch version of the whole-MLP kernel, with its rounding
     points: reciprocal-multiply quantisation, bf16 y and g, per-(row, slab)
-    requant scales, and the fp32 sum over slabs in slab order."""
+    requant scales, and the fp32 sum over slabs in slab order.
+
+    ``ranks`` > 1: the share of rank ``rank`` of a model group that holds
+    columns ``[rank n1, (rank + 1) n1)`` of w1 (``w1_q`` and its scale and
+    bias) and those rows of w2, the slabs those of the whole width: each
+    (row, slab)'s max |g| over the group (``group_max``), each slab's int32
+    product summed over it (``group_sum``), so every rank folds the
+    one-card terms in slab order and returns the one-card output."""
     af = a.float()
     s = (af.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
     a_q = torch.round(af * (1.0 / s)).to(torch.int8)
-    N1 = w1_q.shape[1]
-    slab = N1 // _pick_slabs(N1)
+    # The slabs of the whole width that this rank's columns touch, each
+    # with its local columns.
+    n1 = w1_q.shape[1]
+    n_slabs = _pick_slabs(n1 * ranks)
+    slab, c0 = n1 * ranks // n_slabs, rank * n1
+    pieces = [(g, slice(max(c0, g * slab) - c0,
+                        min(c0 + n1, (g + 1) * slab) - c0))
+              for g in range(c0 // slab, (c0 + n1 - 1) // slab + 1)]
+    M, N2 = a.shape[0], w2_q.shape[1]
     w1s, bb1 = w1_scale.reshape(1, -1), b1.reshape(1, -1).float()
-    acc2 = torch.zeros((a.shape[0], w2_q.shape[1]), device=a.device)
-    for c0 in range(0, N1, slab):
-        c = slice(c0, c0 + slab)
+    gmax = torch.zeros((M, n_slabs), device=a.device)
+    gs = []
+    for j, c in pieces:
         y = (int8_mm(a_q, w1_q[:, c]).float() * s * w1s[:, c] + bb1[:, c])
-        g = _gelu(y.bfloat16().float(), gelu_impl).bfloat16().float()
-        gs = (g.abs().amax(dim=1, keepdim=True) * _INV127).clamp_min(1e-12)
-        g_q = torch.round(g * (1.0 / gs)).to(torch.int8)
-        acc2 = acc2 + int8_mm(g_q, w2_q[c]).float() * gs
+        gs.append(_gelu(y.bfloat16().float(), gelu_impl).bfloat16().float())
+        gmax[:, j] = gs[-1].abs().amax(dim=1)
+    scale = (group_max(group, gmax) * _INV127).clamp_min(1e-12)
+    acc = torch.zeros((n_slabs, M, N2), dtype=torch.int32, device=a.device)
+    for (j, c), g in zip(pieces, gs):
+        g_q = torch.round(g * (1.0 / scale[:, j:j + 1])).to(torch.int8)
+        acc[j] = int8_mm(g_q, w2_q[c])
+    acc = group_sum(group, acc)
+    acc2 = torch.zeros((M, N2), device=a.device)
+    for j in range(n_slabs):
+        acc2 = acc2 + acc[j].float() * scale[:, j:j + 1]
     return (acc2 * w2_scale.reshape(1, -1) + b2.reshape(1, -1).float()
             ).to(torch.bfloat16)
 

@@ -22,14 +22,14 @@ from torch import nn
 from .int8_matmul import (_INV127, check_t, group_max, group_sum,
                           int8_matmul, int8_matmul_fused, int8_mm,
                           int8_quantize_rows)
-from .split import int8_matmul_fused_split
+from .split import int8_matmul_fused_split, int8_matmul_split
 
 INT8_IMPLS = ("xla", "fused", "pallas")
 
 
 def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
              impl: str = "xla", w_t: torch.Tensor | None = None,
-             group=None) -> torch.Tensor:
+             group=None, whole: tuple | None = None) -> torch.Tensor:
     """``lhs [..., K] @ (w_q * w_scale) -> [..., N]`` in lhs's dtype.
 
     The absmax is taken on lhs's own dtype (bf16 -> fp32 is exact), the
@@ -53,23 +53,29 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     rank's columns of the input (its heads) and ``w_q`` its rows of the
     kernel: the row scale is taken over the whole row and the int32
     partial products are summed before the rescale, so every rank gets
-    the one-card product; "fused" then takes B4's split entry
-    (:func:`int8_matmul_fused_split`).  "pallas" (B14) is not split: it
-    raises.
+    the one-card product; on the card "fused" takes B4's split entry
+    (:func:`int8_matmul_fused_split`) and "pallas" B14's
+    (:func:`int8_matmul_split`).  ``whole``: the whole projection's ``(K,
+    N)`` where ``lhs`` and ``w_q`` hold a rank's share (its rows under
+    ``group``, else its columns): the kernel gate is then the whole
+    width's, as JAX's, and where the whole width takes a kernel whose
+    tiling the rank's share fails (N % 128 of a rank's columns, K % 16 of
+    its rows) the card raises ``ValueError`` rather than change branch.
     """
     if impl not in INT8_IMPLS:
         raise ValueError(f"int8_impl={impl!r} not in {INT8_IMPLS}")
-    if impl == "pallas" and group is not None:
-        raise NotImplementedError(
-            "w8a8_dot(impl='pallas') under a model axis past 1: B14 is not "
-            "split yet; the next slice of the port brings it (ROADMAP "
-            "section A item 8(b)(ii), section B.1 item 2)")
     check_t("w8a8_dot", w_q, w_t)
     K, N = w_q.shape
+    Kw, Nw = whole or (K, N)
     lead = lhs.shape[:-1]
     M = lhs.numel() // K
-    kernel = (lhs.device.type == "cuda" and K % 128 == 0 and N % 128 == 0
+    kernel = (lhs.device.type == "cuda" and Kw % 128 == 0 and Nw % 128 == 0
               and M >= 32)
+    if kernel and impl != "xla" and (N % 128 or K % 16):
+        raise ValueError(
+            f"w8a8_dot(impl={impl!r}): a rank's [{K}, {N}] share of the "
+            f"[{Kw}, {Nw}] kernel fails the card kernel's tiling (N % 128, "
+            f"K % 16) that the whole width passes")
     if impl == "fused" and kernel:
         if group is None:
             out = int8_matmul_fused(lhs.reshape(M, K), w_q, w_scale,
@@ -78,6 +84,10 @@ def w8a8_dot(lhs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
             out = int8_matmul_fused_split(lhs.reshape(M, K), w_q, w_scale,
                                           group, out_dtype=lhs.dtype,
                                           w_t=w_t)
+        return out.reshape(*lead, N)
+    if impl == "pallas" and kernel and group is not None:
+        out = int8_matmul_split(lhs.reshape(M, K), w_q, w_scale, group,
+                                out_dtype=lhs.dtype, w_t=w_t)
         return out.reshape(*lead, N)
     if impl == "pallas" and kernel and lhs.dtype == torch.bfloat16:
         a_q, a_scale = int8_quantize_rows(lhs.reshape(M, K))
@@ -105,9 +115,12 @@ class QuantDense(nn.Module):
     K]`` (not in the state dict), which their kernels' s8 ``wgmma`` GEMM
     reads.  ``group``: a tensor-parallel model group where the module holds
     a rank's rows of a row-parallel kernel (:func:`w8a8_dot`'s ``group``;
-    the bias, whole, added once after the sum)."""
+    the bias, whole, added once after the sum).  ``whole``: the whole
+    kernel's ``(K, N)`` where the module holds a rank's share
+    (:func:`w8a8_dot`'s ``whole``)."""
 
     group = None
+    whole = None
 
     def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
                  bias: torch.Tensor | None = None, int8_impl: str = "xla",
@@ -126,7 +139,7 @@ class QuantDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = w8a8_dot(x.to(self.dtype), self.kernel_q, self.kernel_scale,
                        impl=self.int8_impl, w_t=self.kernel_t,
-                       group=self.group)
+                       group=self.group, whole=self.whole)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -145,11 +158,11 @@ def _quantize_kernel(kernel: torch.Tensor, group=None):
 
 
 def _dynamic_dot(x: torch.Tensor, kernel: torch.Tensor, impl: str,
-                 group=None) -> torch.Tensor:
+                 group=None, whole=None) -> torch.Tensor:
     codes, scale = _quantize_kernel(kernel, group)
     return w8a8_dot(x, codes.t(), scale.reshape(1, -1), impl=impl,
                     w_t=codes if impl in ("fused", "pallas") else None,
-                    group=group)
+                    group=group, whole=whole)
 
 
 def _max_abs_vjp(v: torch.Tensor, vmax: torch.Tensor, ct: torch.Tensor,
@@ -201,10 +214,10 @@ class _Int8DotGeneral(torch.autograd.Function):
     f folded into the product)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, impl, group, role):
+    def forward(ctx, x, kernel, impl, group, role, whole):
         ctx.save_for_backward(x, kernel)
         ctx.group, ctx.col = (group, None) if role == "row" else (None, group)
-        return _dynamic_dot(x, kernel, impl, ctx.group)
+        return _dynamic_dot(x, kernel, impl, ctx.group, whole)
 
     @staticmethod
     def backward(ctx, g):
@@ -235,11 +248,12 @@ class _Int8DotGeneral(torch.autograd.Function):
             wmax = group_max(group, w.abs().amax(dim=0, keepdim=True))
             grad_w = _max_abs_vjp(w, wmax, ct_ws * _INV127, 0, group).to(
                 kernel.dtype)
-        return grad_x, grad_w, None, None, None
+        return grad_x, grad_w, None, None, None, None
 
 
 def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla",
-                     group=None, role: str = "row") -> torch.Tensor:
+                     group=None, role: str = "row",
+                     whole: tuple | None = None) -> torch.Tensor:
     """The dynamic W8A8 product of ``matmul_precision="int8"``: ``x [...,
     K] @ kernel [K, N]`` with the kernel quantised per output column at
     every call (JAX's ``int8_dot_general``; nothing is cached across calls,
@@ -260,15 +274,17 @@ def int8_dot_general(x: torch.Tensor, kernel: torch.Tensor, impl: str = "xla",
     ``group``: the tensor-parallel model group, and ``role`` the
     projection's part.  "row": ``x`` holds a rank's columns and ``kernel``
     its rows; the maxima and the int32 product are taken over the group,
-    so every rank gets the one-card product (B4's split entry under
-    "fused" on the card; "pallas", B14, is not split and raises).  "col":
-    ``kernel`` holds a rank's columns; the forward needs no collective,
-    the backward one (see :class:`_Int8DotGeneral`)."""
+    so every rank gets the one-card product (on the card B4's split entry
+    under "fused", B14's under "pallas").  "col": ``kernel`` holds a
+    rank's columns; the forward needs no collective, the backward one (see
+    :class:`_Int8DotGeneral`).  ``whole``: the whole kernel's ``(K, N)``,
+    :func:`w8a8_dot`'s kernel gate."""
     if role not in ("row", "col"):
         raise ValueError(f"int8_dot_general: role {role!r}")
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
-        return _Int8DotGeneral.apply(x, kernel, impl, group, role)
-    return _dynamic_dot(x, kernel, impl, group if role == "row" else None)
+        return _Int8DotGeneral.apply(x, kernel, impl, group, role, whole)
+    return _dynamic_dot(x, kernel, impl, group if role == "row" else None,
+                        whole)
 
 
 def round_to_bf16(x: np.ndarray) -> np.ndarray:

@@ -101,15 +101,23 @@ def test_cli_latent_in(files, capsys):
 
 
 @pytest.mark.parametrize("entry,flag", [
-    ("infer", ["--int8", "--attention", "xla", "--mesh", "1", "2"])])
+    ("infer", ["--int8", "--mesh", "1", "2"])])
 def test_cli_flags_of_later_slices_raise(files, entry, flag):
-    """On a model axis past 1 the int8 DiT's branches other than bench.py's
-    default path and --no-fused-prologue are the next slice's, refused
-    before the process group is joined (training and the bf16 model serve
-    there: ``tests/test_torch_tp_train.py``)."""
+    """On a model axis past 1 the int8 DiT serves every branch at bf16
+    (``tests/test_torch_tensor_parallel.py``); at the fp32 compute dtype,
+    which a run's ``preset.json`` sets, it is the next slice's, refused
+    before the process group is joined."""
+    run = files / "fp32_run"
+    run.mkdir(exist_ok=True)
+    tiny = get_preset("tiny")
+    (run / "preset.json").write_text(dataclasses.replace(
+        tiny, model=dataclasses.replace(tiny.model, dtype="float32")
+    ).to_json())
+    args = _args(files, "song.wav", "out_x", "--run-dir", str(run), *flag)
+    del args[args.index("--preset"):args.index("--preset") + 2]
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP section A item 8\(b\)\(ii\)"):
-        cli.main(_args(files, "song.wav", "out_x", *flag))
+                       match=r"ROADMAP section A item 8\(b\)\(iii\)"):
+        cli.main(args)
 
 
 def _int8_library_wav(d, **knobs):

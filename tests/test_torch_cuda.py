@@ -2570,3 +2570,105 @@ def test_b4_split_over_two_ranks_equals_the_whole_kernel(card, M, K, N):
         a_q = torch.round(_half(a, r).float() / s).to(torch.int8)
         assert torch.equal(p["a_q"], a_q) and torch.equal(p["s"], s)
         assert torch.equal(p["acc_local"], int8_mm(a_q, _half(w_q, r, 0)))
+
+
+@pytest.mark.parametrize("M,K,N", [(2112, 1280, 1280), (2112, 5120, 1280),
+                                   (100, 256, 384)])
+def test_b14_split_over_two_ranks_equals_the_whole_kernel(card, M, K, N):
+    """B14's row-parallel entry (``w8a8_dot(impl="pallas")`` on each rank's
+    half of the input's columns and of the kernel's rows), with an all-zero
+    row, one large value and a row whose max|a| / 127 is below the 1e-12
+    floor (there the floored and unfloored scales differ): the row maxima,
+    the codes, the unfloored scale and the int32 products as their plain
+    versions have them, the output on both ranks bit-equal to
+    ``w8a8_dot(impl="pallas")`` on the whole width (the row quant, B14)."""
+    from jatsr_torch.ops.quant import w8a8_dot
+    from jatsr_torch.ops.split import int8_matmul_split
+
+    a, w_q, w_s, _ = _dense_inputs(card, M, K, N, seed=19)
+    a[3] = 0.0
+    a[5, 7] = 3.0e4
+    a[7] *= 1e-12
+    want = w8a8_dot(a, w_q, w_s, impl="pallas", w_t=w_q.t().contiguous())
+    n0 = int8_matmul_split.launches
+    parts = [{}, {}]
+    outs = _two_ranks(lambda r, g: int8_matmul_split(
+        _half(a, r), _half(w_q, r, 0), w_s, g,
+        w_t=_half(w_q, r, 0).t().contiguous(), parts=parts[r]))
+    assert int8_matmul_split.launches == n0 + 2
+    amax = a.float().abs().amax(dim=-1)
+    s = amax[:, None] * _INV127
+    for r, (o, p) in enumerate(zip(outs, parts)):
+        assert torch.equal(o.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(p["amax"], amax) and torch.equal(p["s"], s)
+        a_q = torch.round(_half(a, r).float() / s.clamp_min(1e-12)).to(
+            torch.int8)
+        assert torch.equal(p["a_q"], a_q)
+        assert torch.equal(p["acc_local"], int8_mm(a_q, _half(w_q, r, 0)))
+
+
+def _rank_qkv(qkv, hq, hkv, r):
+    """Rank r of two's columns of a fused qkv: its q heads, its kv heads'
+    k, then their v (``parallel.mesh.qkv_columns``)."""
+    D = qkv.shape[-1] // (hq + 2 * hkv)
+    q, kv = hq // 2, hkv // 2
+    spans = [(r * q, (r + 1) * q), (hq + r * kv, hq + (r + 1) * kv),
+             (hq + hkv + r * kv, hq + hkv + (r + 1) * kv)]
+    return torch.cat([qkv[..., a * D:b * D] for a, b in spans], -1)
+
+
+@pytest.mark.parametrize("hq,hkv,D,N", [(20, 4, 64, 352), (4, 2, 32, 90),
+                                        (4, 2, 48, 90)])
+def test_b12_split_over_two_ranks_equals_the_whole_kernel(card, hq, hkv, D,
+                                                          N):
+    """B12's split entry on each rank's heads and rows of wo (at head dim
+    48 padded to 64: the rank's K-major wo keeps each head's zero rows),
+    keys masked past N - 7: the output on both ranks bit-equal to B12 on
+    every head."""
+    from jatsr_torch.ops.split import gqa_attention_flash_out_split
+
+    gen = torch.Generator(device=card).manual_seed(23)
+    qkv = torch.randn((3, N, (hq + 2 * hkv) * D), generator=gen,
+                      device=card).bfloat16()
+    cos, sin = rope_cos_sin(N, D, device=card)
+    _, wo_q, wo_s, bo = _dense_inputs(card, 1, hq * D, 256, seed=24)
+    want = gqa_attention_flash_out(qkv, cos, sin, wo_q, wo_s, bo, hq, hkv,
+                                   n_valid=N - 7,
+                                   wo_t=flash_out_weight_t(wo_q, hq, D))
+    n0 = gqa_attention_flash_out_split.launches
+    outs = _two_ranks(lambda r, g: gqa_attention_flash_out_split(
+        _rank_qkv(qkv, hq, hkv, r).contiguous(), cos, sin, _half(wo_q, r, 0),
+        wo_s, bo, hq // 2, hkv // 2, g, n_valid=N - 7,
+        wo_t=flash_out_weight_t(_half(wo_q, r, 0), hq // 2, D)))
+    assert gqa_attention_flash_out_split.launches == n0 + 2
+    for o in outs:
+        assert torch.equal(o.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("M,K,N1,N2", [(2112, 1280, 5120, 1280),
+                                       (2112, 1280, 1280, 1280),
+                                       (100, 256, 512, 256)])
+def test_b13_split_over_two_ranks_equals_the_whole_kernel(card, M, K, N1,
+                                                          N2):
+    """B13's split entry on each rank's half of w1's columns and w2's rows:
+    at N1 5120 each rank holds two whole slabs of 1280, at 1280 and 512
+    the ranks share the one slab.  The output on both ranks bit-equal to
+    B13 on the whole width, and to the plain version's split as B13 is to
+    its plain version."""
+    from jatsr_torch.ops.split import int8_mlp_split
+
+    a, w1q, w1s, b1 = _dense_inputs(card, M, K, N1, seed=25)
+    _, w2q, w2s, b2 = _dense_inputs(card, 1, N1, N2, seed=26)
+    want = int8_mlp(a, w1q, w1s, b1, w2q, w2s, b2, w1_t=w1q.t().contiguous(),
+                    w2_t=w2q.t().contiguous())
+    n0 = int8_mlp_split.launches
+    outs = _two_ranks(lambda r, g: int8_mlp_split(
+        a, _half(w1q, r), _half(w1s, r), _half(b1, r), _half(w2q, r, 0), w2s,
+        b2, g, rank=r, ranks=2, w1_t=_half(w1q, r).t().contiguous(),
+        w2_t=_half(w2q, r, 0).t().contiguous()))
+    assert int8_mlp_split.launches == n0 + 2
+    for o in outs:
+        assert torch.equal(o.view(torch.int16), want.view(torch.int16))
+    plain = mlp_plain(a, w1q, w1s, b1, w2q, w2s, b2).float()
+    frac = (want.float() != plain).float().mean().item()
+    assert frac <= 1e-3

@@ -380,9 +380,10 @@ def test_b10_plain_with_offset_is_the_matching_rows(dtype):
 
 
 def test_tensor_parallel_and_a_shared_card_under_nccl_raise():
-    """Dynamic int8 on B14 trains on no model axis yet (the rest trains
-    there: ``tests/test_torch_tp_train.py``); a mesh needs its processes;
-    NCCL refuses two ranks on one card."""
+    """Dynamic int8 trains on a model axis on B14 too (at bf16; at fp32
+    compute it raises, naming the next slice: ``tests/test_torch_tp_train.
+    py``); a mesh needs its processes; NCCL refuses two ranks on one
+    card."""
     from jatsr_torch.configs import get_preset
     from jatsr_torch.models.dit import check_dense_tensor_parallel
 
@@ -394,11 +395,13 @@ def test_tensor_parallel_and_a_shared_card_under_nccl_raise():
             return (2, 2)[dim]
 
     assert data_size(FakeMesh()) == 2
+    int8 = dataclasses.replace(get_preset("tiny").model,
+                               matmul_precision="int8", int8_impl="pallas")
+    check_dense_tensor_parallel(int8, 2)
     with pytest.raises(NotImplementedError,
-                       match=r"B14 is not split.* item 8\(b\)\(ii\)"):
-        check_dense_tensor_parallel(dataclasses.replace(
-            get_preset("tiny").model, matmul_precision="int8",
-            int8_impl="pallas"), 2)
+                       match=r"split int8 entries.* item 8\(b\)\(iii\)"):
+        check_dense_tensor_parallel(dataclasses.replace(int8,
+                                                        dtype="float32"), 2)
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one"):
         card_of(0, 2, 1, "nccl")
     assert card_of(1, 2, 1, "gloo") == 0 and card_of(3, 4, 4, "nccl") == 3

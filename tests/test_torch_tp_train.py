@@ -14,9 +14,10 @@ the same thread count.  The checks read what each rank saved.  Bounds:
   parameter within 2 lr after the second step (the first runs at lr 0
   under warmup; Adam's step is +-lr where a gradient's sign differs); at
   fp32 compute the loss and the grad norm within rtol 1e-5;
-- dynamic int8: the forward bit-equal to one process (every split takes
-  row maxima and adds int32 partial products, exact in any order), the
-  gradients within one bf16 ulp of each leaf's max;
+- dynamic int8, on "xla" and on "pallas" (B14): the forward bit-equal to
+  one process (every split takes row maxima and adds int32 partial
+  products, exact in any order), the gradients within one bf16 ulp of
+  each leaf's max; two "pallas" steps within the bf16 steps' bounds;
 - ZeRO-1 on (2, 2) bit-equal to the same mesh without it; the replicated
   leaves' gradients equal on the ranks of a model group;
 - under each remat policy one forward and backward: the output and the
@@ -285,6 +286,21 @@ def test_dynamic_int8_forward_bit_equal_gradients_within_an_ulp(worlds):
         got = r["grads_int8"]
         assert torch.equal(got["out"], want["out"])
         _assert_within_ulp(got["grads"], want["grads"], "int8")
+
+
+def test_dynamic_int8_on_pallas_forward_bit_equal(worlds):
+    """Dynamic int8 on ``int8_impl="pallas"`` (B14's split entry at
+    out_proj and mlp_out on the card): the forward bit-equal to one
+    process, the gradients within one bf16 ulp of each leaf's max, as on
+    "xla"; its two steps are a case of
+    ``test_two_steps_on_1x2_equal_one_process``."""
+    _, outs, solo, _ = worlds
+    want = solo["grads_int8_pallas"]
+    assert torch.equal(want["out"], solo["grads_int8"]["out"])
+    for r in outs[(1, 2)]:
+        got = r["grads_int8_pallas"]
+        assert torch.equal(got["out"], want["out"])
+        _assert_within_ulp(got["grads"], want["grads"], "int8_pallas")
 
 
 def test_2x2_step_against_jax_make_mesh_2x2(worlds):

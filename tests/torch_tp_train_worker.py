@@ -48,6 +48,8 @@ STEP_CASES = {
     "bf16_params": dict(param_dtype="bfloat16", **DROP),
     "einsum": dict(train_attention_impl="xla", remat_policy="attn_out",
                    **DROP),
+    # Dynamic int8 on B14 (its split entry at out_proj and mlp_out).
+    "int8_pallas": dict(matmul_precision="int8", int8_impl="pallas", **DROP),
 }
 
 
@@ -305,6 +307,8 @@ def main(rank: int, world: int, root: str, shape) -> None:
                                                **DROP)
         out["grads_int8"] = run_grads(mesh, matmul_precision="int8",
                                       **DROP)
+        out["grads_int8_pallas"] = run_grads(mesh, matmul_precision="int8",
+                                             int8_impl="pallas", **DROP)
         out["restore"] = run_restore(mesh, root)
         out["placement"] = placement(mesh)
         run_cli(root, ["--mesh", "1", "2"])
@@ -321,5 +325,7 @@ def main(rank: int, world: int, root: str, shape) -> None:
             solo[f"grads_{policy}"] = run_grads(None, remat_policy=policy,
                                                 **DROP)
         solo["grads_int8"] = run_grads(None, matmul_precision="int8", **DROP)
+        solo["grads_int8_pallas"] = run_grads(None, matmul_precision="int8",
+                                              int8_impl="pallas", **DROP)
         run_cli(root, [])
         torch.save(solo, root / "solo.pt")
